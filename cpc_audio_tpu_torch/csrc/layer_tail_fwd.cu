@@ -1,0 +1,385 @@
+// K3: transformer-layer tail, forward: LN1 -> FFN -> residual -> LN2.
+//
+// Replaces cpc_audio_tpu/ops/pallas/ffn.py `_tail_fwd_kernel` (called
+// through `fused_layer_tail`).  Per head k and row:
+//   y   = LN1(x)                        (f32 statistics, ddof 0; rounded to T)
+//   h   = relu(y . W1[k] + b1[k])       (rounded to T)
+//   out = LN2(y + h . W2[k] + b2[k])
+// The (rows, F) hidden never reaches device memory: that is the point of
+// the kernel.
+//
+// Design: one block per (tile of rows, head k).  The tile's y sits in
+// shared memory; the hidden is produced in chunks of FC columns (an
+// FC-wide tile for the block's rows, in shared memory) and immediately
+// contracted with the matching FC rows of W2 into a float32 accumulator
+// of the block's whole rows x D output tile.  A 128-row bf16 hidden of width F = 2048 would be 512 KB,
+// more than an SM's 227 KB of shared memory, hence the F-chunking.  Two
+// bodies share that structure:
+//   * bf16 (F % 64 == 0): both products on the tensor cores through
+//     warp-level mma (nvcuda::wmma, 16x16x16 bf16 fragments, float32
+//     accumulation), 64 rows per block, FC = 64, the 64 x D output tile
+//     in accumulator fragments spread over 16 warps; each chunk's W1 and
+//     W2 tiles are staged once in shared memory (16-byte loads) and read
+//     from there by every warp;
+//   * float32: plain FMA loops (TF32 would change the numbers), 32 rows
+//     per block, D threads, thread d owning output column d for all 32
+//     rows in registers, FC = D/4.
+//
+// What bounds it on an H100: at the main path's shapes (K = 12, rows =
+// 3712, D = 256, F = 2048) the tail is 93 GFLOP.  The bf16 body also
+// streams all of W1[k] and W2[k] (2 MB) from L2 into every block: 1.4 GB
+// in all with 64-row blocks.  A first version that read the fragments
+// from L2 per warp moved ~5.6 GB and ran at ~2.4 TB/s of it, so the weight
+// stream bounds this body; overlapping the staging with the products
+// (cp.async/TMA double buffering) and wgmma are the next steps.
+// The float32 body runs on the FP32 pipes and is arithmetic-bound.
+#include <mma.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kMaxD = 256;     // FMA body: one thread per output column
+
+// Mean and reciprocal std of each of the ROWS rows of xs (row stride ld)
+// -> stat[0..ROWS) and stat[ROWS..2*ROWS).
+template <int ROWS>
+__device__ void row_stats(const float* xs, int ld, float* stat, int D,
+                          float eps) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  for (int r = warp; r < ROWS; r += n_warps) {
+    const float* xr = xs + r * ld;
+    float s = 0.0f;
+    for (int d = lane; d < D; d += 32) s += xr[d];
+    const float mean = cpc::warp_sum(s) / D;
+    float v = 0.0f;
+    for (int d = lane; d < D; d += 32) {
+      const float c = xr[d] - mean;
+      v += c * c;
+    }
+    const float var = cpc::warp_sum(v) / D;
+    if (lane == 0) {
+      stat[r] = mean;
+      stat[ROWS + r] = rsqrtf(var + eps);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 body: tensor cores (wmma)
+// ---------------------------------------------------------------------------
+
+namespace wmma = nvcuda::wmma;
+using bf16 = __nv_bfloat16;
+
+constexpr int MT = 64;         // rows per block
+constexpr int kMmaWarps = 16;
+constexpr int WFC = 64;        // hidden chunk width: 4 x 4 tiles = 16 warps
+constexpr int kMaxTiles = 4;   // output tiles per warp: 4 x (256/16) / 16
+
+struct MmaSmem {
+  int ldy, ldh, lds, ldx;
+  size_t bytes;
+  __host__ __device__ explicit MmaSmem(int D)
+      : ldy(D + 8), ldh(WFC + 8), lds(WFC + 4), ldx(D + 4) {
+    bytes = ((size_t)MT * ldy + (size_t)MT * ldh + (size_t)D * ldh +
+             (size_t)WFC * ldy) * sizeof(bf16) +
+            ((size_t)MT * lds + (size_t)MT * ldx + 2 * MT) * sizeof(float);
+  }
+};
+
+__global__ void __launch_bounds__(kMmaWarps * 32) layer_tail_fwd_mma_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ ln1w,
+    const float* __restrict__ ln1b, const bf16* __restrict__ w1,
+    const float* __restrict__ b1, const bf16* __restrict__ w2,
+    const float* __restrict__ b2, const float* __restrict__ ln2w,
+    const float* __restrict__ ln2b, bf16* __restrict__ out, int M, int D,
+    int F, float eps) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const MmaSmem L(D);
+  // Every region starts on a 32-byte boundary, and every fragment pointer
+  // below is 32-byte aligned (row tiles of 16 rows, column tiles of 16).
+  bf16* ys = reinterpret_cast<bf16*>(smem_raw);      // (MT, ldy) y
+  bf16* hs = ys + MT * L.ldy;                        // (MT, ldh) hidden
+  bf16* w1s = hs + MT * L.ldh;                       // (D, ldh) W1 chunk
+  bf16* w2s = w1s + D * L.ldh;                       // (WFC, ldy) W2 chunk
+  float* sc = reinterpret_cast<float*>(w2s + WFC * L.ldy);  // (MT, lds)
+  float* xs = sc + MT * L.lds;                       // (MT, ldx) x, y2
+  float* stat = xs + MT * L.ldx;                     // (2, MT)
+
+  const int kk = blockIdx.y;
+  const int row0 = blockIdx.x * MT;
+  const int rows = min(MT, M - row0);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const size_t xoff = ((size_t)kk * M + row0) * D;
+
+  for (int idx = tid; idx < MT * D; idx += blockDim.x) {
+    const int r = idx / D, d = idx - r * D;
+    xs[r * L.ldx + d] =
+        r < rows ? __bfloat162float(x[xoff + (size_t)r * D + d]) : 0.0f;
+  }
+  __syncthreads();
+  row_stats<MT>(xs, L.ldx, stat, D, eps);
+  __syncthreads();
+  for (int idx = tid; idx < MT * D; idx += blockDim.x) {
+    const int r = idx / D, d = idx - r * D;
+    ys[r * L.ldy + d] = __float2bfloat16(
+        (xs[r * L.ldx + d] - stat[r]) * stat[MT + r] * ln1w[kk * D + d] +
+        ln1b[kk * D + d]);
+  }
+  __syncthreads();
+
+  const bf16* W1 = w1 + (size_t)kk * D * F;
+  const bf16* W2 = w2 + (size_t)kk * F * D;
+  const float* B1 = b1 + (size_t)kk * F;
+  const int n_ct = D / 16;
+  const int n_tiles = (MT / 16) * n_ct;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kMaxTiles];
+#pragma unroll
+  for (int i = 0; i < kMaxTiles; ++i) wmma::fill_fragment(acc[i], 0.0f);
+
+  const int hrt = warp >> 2, hct = warp & 3;   // 4 x 4 hidden tiles
+  for (int f0 = 0; f0 < F; f0 += WFC) {
+    __syncthreads();   // the previous chunk's readers of w1s/w2s are done
+    for (int idx = tid; idx < D * (WFC / 8); idx += blockDim.x) {
+      const int d = idx / (WFC / 8), c8 = (idx - d * (WFC / 8)) * 8;
+      *reinterpret_cast<uint4*>(w1s + d * L.ldh + c8) =
+          *reinterpret_cast<const uint4*>(W1 + (size_t)d * F + f0 + c8);
+    }
+    for (int idx = tid; idx < WFC * (D / 8); idx += blockDim.x) {
+      const int f = idx / (D / 8), c8 = (idx - f * (D / 8)) * 8;
+      *reinterpret_cast<uint4*>(w2s + f * L.ldy + c8) =
+          *reinterpret_cast<const uint4*>(W2 + (size_t)(f0 + f) * D + c8);
+    }
+    __syncthreads();
+    {  // hidden tile = y . W1[:, f0 + 16*hct ...]
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
+      wmma::fill_fragment(c, 0.0f);
+      for (int k = 0; k < D; k += 16) {
+        wmma::load_matrix_sync(a, ys + hrt * 16 * L.ldy + k, L.ldy);
+        wmma::load_matrix_sync(b, w1s + k * L.ldh + hct * 16, L.ldh);
+        wmma::mma_sync(c, a, b, c);
+      }
+      wmma::store_matrix_sync(sc + hrt * 16 * L.lds + hct * 16, c, L.lds,
+                              wmma::mem_row_major);
+    }
+    __syncthreads();
+    for (int idx = tid; idx < MT * WFC; idx += blockDim.x) {
+      const int r = idx / WFC, f = idx - r * WFC;
+      hs[r * L.ldh + f] =
+          __float2bfloat16(fmaxf(sc[r * L.lds + f] + B1[f0 + f], 0.0f));
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kMaxTiles; ++i) {  // out tiles += hidden . W2[f0..]
+      const int tile = warp + kMmaWarps * i;
+      if (tile < n_tiles) {
+        const int rt = tile / n_ct, ct = tile - rt * n_ct;
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+#pragma unroll
+        for (int kf = 0; kf < WFC; kf += 16) {
+          wmma::load_matrix_sync(a, hs + rt * 16 * L.ldh + kf, L.ldh);
+          wmma::load_matrix_sync(b, w2s + kf * L.ldy + ct * 16, L.ldy);
+          wmma::mma_sync(acc[i], a, b, acc[i]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kMaxTiles; ++i) {
+    const int tile = warp + kMmaWarps * i;
+    if (tile < n_tiles) {
+      const int rt = tile / n_ct, ct = tile - rt * n_ct;
+      wmma::store_matrix_sync(xs + rt * 16 * L.ldx + ct * 16, acc[i], L.ldx,
+                              wmma::mem_row_major);
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < MT * D; idx += blockDim.x) {
+    const int r = idx / D, d = idx - r * D;
+    xs[r * L.ldx + d] +=
+        __bfloat162float(ys[r * L.ldy + d]) + b2[kk * D + d];
+  }
+  __syncthreads();
+  row_stats<MT>(xs, L.ldx, stat, D, eps);
+  __syncthreads();
+  for (int idx = tid; idx < rows * D; idx += blockDim.x) {
+    const int r = idx / D, d = idx - r * D;
+    out[xoff + (size_t)r * D + d] = __float2bfloat16(
+        (xs[r * L.ldx + d] - stat[r]) * stat[MT + r] * ln2w[kk * D + d] +
+        ln2b[kk * D + d]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// FMA body (float32)
+// ---------------------------------------------------------------------------
+
+constexpr int TM = 32;         // rows per block
+constexpr int HS = TM + 4;     // row stride of the hidden chunk (16B aligned)
+
+template <typename T>
+__global__ void __launch_bounds__(kMaxD) layer_tail_fwd_kernel(
+    const T* __restrict__ x, const float* __restrict__ ln1w,
+    const float* __restrict__ ln1b, const T* __restrict__ w1,
+    const float* __restrict__ b1, const T* __restrict__ w2,
+    const float* __restrict__ b2, const float* __restrict__ ln2w,
+    const float* __restrict__ ln2b, T* __restrict__ out, int M, int D, int F,
+    float eps) {
+  extern __shared__ __align__(16) float smem[];
+  const int FC = D / 4;
+  float* xs = smem;                // (TM, D): x, later y + ffn
+  float* yT = xs + TM * D;         // (D, TM): y = LN1(x), rounded to T
+  float* hT = yT + D * TM;         // (FC, HS): hidden chunk, rounded to T
+  float* stat = hT + FC * HS;      // (2, TM): mean, rstd
+
+  const int kk = blockIdx.y;
+  const int row0 = blockIdx.x * TM;
+  const int rows = min(TM, M - row0);
+  const int t = threadIdx.x;       // output column d
+  const size_t xoff = ((size_t)kk * M + row0) * D;
+
+#pragma unroll 4
+  for (int r = 0; r < TM; ++r)
+    xs[r * D + t] = r < rows ? cpc::to_f32(x[xoff + (size_t)r * D + t]) : 0.0f;
+  __syncthreads();
+  row_stats<TM>(xs, D, stat, D, eps);
+  __syncthreads();
+  {
+    const float w = ln1w[kk * D + t];
+    const float bb = ln1b[kk * D + t];
+#pragma unroll 4
+    for (int r = 0; r < TM; ++r)
+      yT[t * TM + r] =
+          cpc::round_to<T>((xs[r * D + t] - stat[r]) * stat[TM + r] * w + bb);
+  }
+  __syncthreads();
+
+  float acc[TM];
+#pragma unroll
+  for (int r = 0; r < TM; ++r) acc[r] = 0.0f;
+
+  const T* W1 = w1 + (size_t)kk * D * F;
+  const T* W2 = w2 + (size_t)kk * F * D;
+  const float* B1 = b1 + (size_t)kk * F;
+  const int fcol = t % FC;         // hidden column of this thread in a chunk
+  const int r8 = (t / FC) * 8;     // its 8 rows (4 groups of 8 = TM)
+  for (int f0 = 0; f0 < F; f0 += FC) {
+    // hidden chunk: h[r8 .. r8+7, f0 + fcol]
+    float ha[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) ha[i] = 0.0f;
+    const T* w1c = W1 + f0 + fcol;
+    for (int d = 0; d < D; ++d) {
+      const float w = cpc::to_f32(w1c[(size_t)d * F]);
+      const float4* yv = reinterpret_cast<const float4*>(yT + d * TM + r8);
+      const float4 a = yv[0];
+      const float4 c = yv[1];
+      ha[0] += a.x * w; ha[1] += a.y * w; ha[2] += a.z * w; ha[3] += a.w * w;
+      ha[4] += c.x * w; ha[5] += c.y * w; ha[6] += c.z * w; ha[7] += c.w * w;
+    }
+    const float bias = B1[f0 + fcol];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      hT[fcol * HS + r8 + i] = cpc::round_to<T>(fmaxf(ha[i] + bias, 0.0f));
+    __syncthreads();
+    // acc[r] += sum_f h[r, f] * W2[f0 + f, t]
+    const T* w2c = W2 + (size_t)f0 * D + t;
+    for (int f = 0; f < FC; ++f) {
+      const float w = cpc::to_f32(w2c[(size_t)f * D]);
+      const float4* hv = reinterpret_cast<const float4*>(hT + f * HS);
+#pragma unroll
+      for (int q = 0; q < TM / 4; ++q) {
+        const float4 hh = hv[q];
+        acc[4 * q + 0] += hh.x * w;
+        acc[4 * q + 1] += hh.y * w;
+        acc[4 * q + 2] += hh.z * w;
+        acc[4 * q + 3] += hh.w * w;
+      }
+    }
+    __syncthreads();
+  }
+
+  {
+    const float bb = b2[kk * D + t];
+#pragma unroll
+    for (int r = 0; r < TM; ++r) xs[r * D + t] = yT[t * TM + r] + acc[r] + bb;
+  }
+  __syncthreads();
+  row_stats<TM>(xs, D, stat, D, eps);
+  __syncthreads();
+  {
+    const float w = ln2w[kk * D + t];
+    const float bb = ln2b[kk * D + t];
+    for (int r = 0; r < rows; ++r)
+      out[xoff + (size_t)r * D + t] = cpc::from_f32<T>(
+          (xs[r * D + t] - stat[r]) * stat[TM + r] * w + bb);
+  }
+}
+
+template <typename T>
+int launch_fma(const void* x, const void* ln1w, const void* ln1b,
+               const void* w1, const void* b1, const void* w2, const void* b2,
+               const void* ln2w, const void* ln2b, void* out, int K, int M,
+               int D, int F, float eps, cudaStream_t stream) {
+  const size_t floats = 2 * (size_t)TM * D + (size_t)(D / 4) * HS + 2 * TM;
+  const size_t smem = floats * sizeof(float);
+  auto kernel = layer_tail_fwd_kernel<T>;
+  cudaError_t err = cpc::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((M + TM - 1) / TM, K);
+  kernel<<<grid, D, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(ln1w),
+      static_cast<const float*>(ln1b), static_cast<const T*>(w1),
+      static_cast<const float*>(b1), static_cast<const T*>(w2),
+      static_cast<const float*>(b2), static_cast<const float*>(ln2w),
+      static_cast<const float*>(ln2b), static_cast<T*>(out), M, D, F, eps);
+  return (int)cudaGetLastError();
+}
+
+int launch_mma(const void* x, const void* ln1w, const void* ln1b,
+               const void* w1, const void* b1, const void* w2, const void* b2,
+               const void* ln2w, const void* ln2b, void* out, int K, int M,
+               int D, int F, float eps, cudaStream_t stream) {
+  const size_t smem = MmaSmem(D).bytes;
+  cudaError_t err = cpc::allow_smem(layer_tail_fwd_mma_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((M + MT - 1) / MT, K);
+  layer_tail_fwd_mma_kernel<<<grid, kMmaWarps * 32, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(ln1w),
+      static_cast<const float*>(ln1b), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
+      static_cast<const float*>(b2), static_cast<const float*>(ln2w),
+      static_cast<const float*>(ln2b), static_cast<bf16*>(out), M, D, F, eps);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x, w1, w2 and out in `dtype`; the LN parameters and biases in float32.
+// w1 and w2 must be 16-byte aligned (the bf16 body stages them with
+// 16-byte loads).
+extern "C" int cpc_layer_tail_fwd(const void* x, const void* ln1w,
+                                  const void* ln1b, const void* w1,
+                                  const void* b1, const void* w2,
+                                  const void* b2, const void* ln2w,
+                                  const void* ln2b, void* out, int K, int M,
+                                  int D, int F, float eps, int dtype,
+                                  void* stream) {
+  if (D < 32 || D % 32 != 0 || D > kMaxD || F % (D / 4) != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == cpc::kBFloat16 && F % WFC == 0)
+    return launch_mma(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, out, K, M,
+                      D, F, eps, s);
+  if (dtype == cpc::kFloat32)
+    return launch_fma<float>(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, out,
+                             K, M, D, F, eps, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,0 +1,151 @@
+"""Build the port's CUDA kernels on first use and bind them with ctypes.
+
+All ``csrc/*.cu`` files are compiled by one ``nvcc`` call into a shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds).  The library's name carries a hash of the sources and flags, so
+an edited source is rebuilt and an unchanged one is reused.  It lands in
+``build/cuda_kernels/`` beside the package (``build/`` is git-ignored),
+next to the compiler's ``-Xptxas -v`` report.
+
+Each C entry point returns ``cudaGetLastError()``; :func:`check` raises
+on anything but 0.  A failed build raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "cuda_kernels")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points: argument types; every one returns an int status.
+_SIGNATURES = {
+    # x_proj, w_hh, h0, c0, ys, hT, cT, B, T, H, dtype, stream
+    "cpc_lstm_fwd": [_P] * 7 + [_I] * 4 + [_P],
+    # q, k, v, krel, out, K, n_batch, S, nheads, dk, dtype, stream
+    "cpc_relpos_attention_fwd": [_P] * 5 + [_I] * 6 + [_P],
+    # x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, out, K, M, D, F, eps,
+    # dtype, stream
+    "cpc_layer_tail_fwd": [_P] * 10 + [_I] * 4 + [_F, _I, _P],
+}
+
+_LOCK = threading.Lock()
+_LIB = None
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _sources():
+    srcs = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
+    return srcs, headers
+
+
+def library_path() -> str:
+    """Where the library for the current sources and flags lives."""
+    srcs, headers = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in srcs + headers:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libcpc_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build_log_path() -> str:
+    return library_path()[:-3] + ".log"
+
+
+def _build(path: str) -> None:
+    srcs, _ = _sources()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    with open(build_log_path(), "w") as f:
+        f.write(" ".join(cmd) + "\n" + r.stdout + r.stderr)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+    os.replace(tmp, path)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            path = library_path()
+            if not os.path.isfile(path):
+                _build(path)
+            lib = ctypes.CDLL(path)
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.cpc_error_string.argtypes = [ctypes.c_int]
+            lib.cpc_error_string.restype = ctypes.c_char_p
+            _LIB = lib
+        return _LIB
+
+
+def check(status: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if status != 0:
+        msg = library().cpc_error_string(status).decode()
+        raise RuntimeError(f"{name} failed: CUDA error {status} ({msg})")
+
+
+# --- helpers shared by the kernel wrappers ---------------------------------
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def runs_kernel(name: str, *tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors (launch the kernel), False for CPU tensors
+    (run the plain version); raises for anything else."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: inputs on several devices {devices}")
+    device = devices.pop()
+    if device.type == "cpu":
+        return False
+    if device.type == "cuda":
+        return True
+    raise ValueError(f"{name}: no kernel for device {device}")
+
+
+def require(cond: bool, name: str, what: str) -> None:
+    if not cond:
+        raise ValueError(f"{name}: {what}")
+
+
+def check_inputs(name: str, dtype: torch.dtype, **tensors) -> None:
+    """Kernel inputs: contiguous, of one supported dtype."""
+    require(dtype in DTYPE_CODES, name,
+            f"dtype {dtype} not supported (float32 or bfloat16)")
+    for arg, t in tensors.items():
+        require(t.dtype == dtype, name, f"{arg} is {t.dtype}, expected {dtype}")
+        require(t.is_contiguous(), name, f"{arg} is not contiguous")
+
+
+def stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

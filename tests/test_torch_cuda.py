@@ -1,0 +1,113 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a GPU.
+
+Every test here needs a CUDA device and skips without one.  The file
+imports no JAX, so it also runs where JAX is not installed:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+
+(``--noconftest``: tests/conftest.py sets up JAX).  chip_smoke.py repeats
+the comparison at the eval path's own shapes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cpc_audio_tpu_torch.ops import ffn, head_attention, lstm
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _rand(rng, dev, dtype, *shape, scale=1.0, shift=0.0):
+    a = rng.randn(*shape) * scale + shift
+    return torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
+
+
+# float32: sums in another order; bf16: one or two output ulps
+TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+       torch.bfloat16: dict(atol=1e-2, rtol=2e-2)}
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,T,H", [(3, 9, 32), (2, 5, 40)])
+def test_lstm_kernel(dev, dtype, B, T, H):
+    """H = 40: 160 gate rows, 5 tiles of 32 over the block's warps, and
+    lanes past H / 4 idle."""
+    rng = np.random.RandomState(H)
+    args = (_rand(rng, dev, dtype, B, T, 4 * H),
+            _rand(rng, dev, dtype, 4 * H, H, scale=0.2),
+            _rand(rng, dev, dtype, B, H), _rand(rng, dev, dtype, B, H))
+    before = lstm.lstm_fwd.launches
+    got = lstm.lstm_fwd(*args)
+    assert lstm.lstm_fwd.launches == before + 1
+    for g, w in zip(got, lstm.lstm_scan_ref(*args)):
+        torch.testing.assert_close(g, w, **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("S,dk", [(116, 32), (20, 16)])
+def test_relpos_attention_kernel(dev, dtype, S, dk):
+    rng = np.random.RandomState(S)
+    K, B, h = 2, 3, 2
+    args = [_rand(rng, dev, dtype, K, B * S, h * dk) for _ in range(3)]
+    args.append(_rand(rng, dev, dtype, K, dk, S, scale=0.5))
+    before = head_attention.relpos_attention.launches
+    got = head_attention.relpos_attention(*args, B, h)
+    assert head_attention.relpos_attention.launches == before + 1
+    torch.testing.assert_close(
+        got, head_attention.relpos_attention_ref(*args, B, h), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,D,F", [(40, 64, 128), (64, 256, 256),
+                                   (33, 32, 64)])
+def test_layer_tail_kernel(dev, dtype, M, D, F):
+    """M = 40 and 33: ragged row tiles of both bodies (64 rows for bf16,
+    32 for f32); D = 32: a one-warp f32 block."""
+    rng = np.random.RandomState(M + D)
+    K = 2
+    f32 = torch.float32
+    args = (_rand(rng, dev, dtype, K, M, D),
+            _rand(rng, dev, f32, K, D, scale=0.1, shift=1.0),
+            _rand(rng, dev, f32, K, D, scale=0.1),
+            _rand(rng, dev, dtype, K, D, F, scale=D ** -0.5),
+            _rand(rng, dev, f32, K, F, scale=0.1),
+            _rand(rng, dev, dtype, K, F, D, scale=F ** -0.5),
+            _rand(rng, dev, f32, K, D, scale=0.1),
+            _rand(rng, dev, f32, K, D, scale=0.1, shift=1.0),
+            _rand(rng, dev, f32, K, D, scale=0.1))
+    before = ffn.layer_tail.launches
+    got = ffn.layer_tail(*args)
+    assert ffn.layer_tail.launches == before + 1
+    torch.testing.assert_close(got, ffn.layer_tail_ref(*args), **TOL[dtype])
+
+
+def test_wrappers_reject_what_kernels_do_not_take(dev):
+    x = torch.zeros(2, 4, 16, device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        lstm.lstm_fwd(x.half(), torch.zeros(16, 4, device=dev).half(),
+                      torch.zeros(2, 4, device=dev).half(),
+                      torch.zeros(2, 4, device=dev).half())
+    with pytest.raises(ValueError, match="several devices"):
+        lstm.lstm_fwd(x, torch.zeros(16, 4), torch.zeros(2, 4, device=dev),
+                      torch.zeros(2, 4, device=dev))
+    q = torch.zeros(1, 8, 16, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        head_attention.relpos_attention(q, q, q.transpose(1, 2).contiguous()
+                                        .transpose(1, 2),
+                                        torch.zeros(1, 8, 8, device=dev), 1, 2)
+    w = torch.zeros(1, 32, 40, device=dev, dtype=torch.bfloat16)
+    v = torch.zeros(1, 32, device=dev)
+    with pytest.raises(ValueError, match="F % 64"):
+        ffn.layer_tail(torch.zeros(1, 8, 32, device=dev, dtype=torch.bfloat16),
+                       v, v, w, torch.zeros(1, 40, device=dev),
+                       w.transpose(1, 2).contiguous(), v, v, v)

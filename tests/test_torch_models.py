@@ -1,0 +1,162 @@
+"""The port's modules (cpc_audio_tpu_torch) against the JAX package's, with
+the same weights bridged through ``convert.params_from_jax`` and the same
+numpy inputs.  Everything is float32 on the CPU, where the port's kernel
+wrappers run their plain versions."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from cpc_audio_tpu.config import CPCConfig
+from cpc_audio_tpu.criterion.stacked_heads import \
+    StackedTransformerHeads as JHeads
+from cpc_audio_tpu.models.ar import CPCAR as JCPCAR
+from cpc_audio_tpu.models.encoder import CPCEncoder as JEncoder
+from cpc_audio_tpu.models.norms import ChannelNorm as JChannelNorm
+from cpc_audio_tpu_torch import convert
+from cpc_audio_tpu_torch.criterion import (StackedTransformerHeads,
+                                           build_criterion)
+from cpc_audio_tpu_torch.models import (CPCAR, ChannelNorm, CPCEncoder,
+                                        build_model)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _load(module: torch.nn.Module, jax_tree, *path: str) -> None:
+    """Load a JAX sub-tree, found at ``model.<path>`` of the full tree,
+    into a port module through the bridge."""
+    for name in reversed(path):
+        jax_tree = {name: jax_tree}
+    sd = convert.params_from_jax({"model": jax_tree})
+    prefix = ".".join(("model",) + path) + "."
+    module.load_state_dict({k[len(prefix):]: v for k, v in sd.items()})
+
+
+def _init(module, key, *args):
+    return module.init({"params": jax.random.PRNGKey(key)}, *args)["params"]
+
+
+def test_channel_norm_matches_jax():
+    rng = np.random.RandomState(0)
+    x = rng.randn(2, 9, 16).astype(np.float32) * 3 + 1    # (B, T, C)
+    params = {"weight": 1 + 0.1 * rng.randn(16).astype(np.float32),
+              "bias": 0.1 * rng.randn(16).astype(np.float32)}
+    want = JChannelNorm(16).apply({"params": params}, jnp.asarray(x))
+    norm = ChannelNorm(16)
+    _load(norm, params, "gEncoder", "norm0")
+    got = norm(torch.from_numpy(x).transpose(1, 2)).transpose(1, 2)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=1e-5)
+
+
+def test_encoder_matches_jax():
+    x = np.random.RandomState(1).randn(2, 1, 3200).astype(np.float32)
+    jenc = JEncoder(32)
+    params = _init(jenc, 0, jnp.asarray(x))
+    want = jenc.apply({"params": params}, jnp.asarray(x))
+    enc = CPCEncoder(32)
+    _load(enc, params, "gEncoder")
+    got = enc(torch.from_numpy(x))
+    assert got.shape == (2, 20, 32)
+    # f32 convs with sums in another order
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=1e-5)
+
+
+def test_ar_matches_jax_with_hidden_carry():
+    rng = np.random.RandomState(2)
+    B, T, C, H, L = 3, 11, 12, 16, 2
+    x = rng.randn(B, T, C).astype(np.float32)
+    h0 = (rng.randn(L, B, H) * 0.2).astype(np.float32)
+    c0 = (rng.randn(L, B, H) * 0.2).astype(np.float32)
+    jar = JCPCAR(H, L, "LSTM")
+    params = _init(jar, 1, jnp.asarray(x))
+    y_j, (h_j, c_j) = jar.apply({"params": params}, jnp.asarray(x),
+                                (jnp.asarray(h0), jnp.asarray(c0)))
+    ar = CPCAR(C, H, L)
+    _load(ar, params, "gAR")
+    y, (h, c) = ar(torch.from_numpy(x),
+                   (torch.from_numpy(h0), torch.from_numpy(c0)))
+    for got, want in ((y, y_j), (h, h_j), (c, c_j)):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   atol=1e-5)
+    assert not h.requires_grad and not c.requires_grad   # detached carry
+
+
+@pytest.mark.parametrize("path", ["xla", "pallas"])
+def test_stacked_heads_match_jax(path, monkeypatch):
+    """'xla': the JAX package's plain path, with a sequence shorter than
+    size_seq (Krelpos sliced).  'pallas': its kernels in interpret mode at
+    the eval path's S = 116 (it pads to 128 inside; the port does not)."""
+    flag = "1" if path == "pallas" else "0"
+    for var in ("CPC_PALLAS_ATTN", "CPC_PALLAS_FFN"):
+        monkeypatch.setenv(var, flag)
+        monkeypatch.setenv(var + "_INTERPRET", flag)
+    K, B = 2, 2
+    D, S, size_seq = (128, 116, 116) if path == "pallas" else (64, 20, 24)
+    c = np.random.RandomState(3).randn(B, S, D).astype(np.float32)
+    jheads = JHeads(K, D, size_seq)
+    params = _init(jheads, 2, jnp.asarray(c))
+    want = jheads.apply({"params": params}, jnp.asarray(c))
+    heads = StackedTransformerHeads(K, D, size_seq)
+    _load(heads, params, "heads")
+    got = heads(torch.from_numpy(c))
+    assert got.shape == (K, B, S, D)
+    # f32; attention and the 2048-wide FFN sum in another order
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=1e-4)
+
+
+def test_training_calls_refuse():
+    cfg = CPCConfig(hiddenEncoder=32, hiddenGar=32, nPredicts=2,
+                    negativeSamplingExt=4, sizeWindow=3200)
+    model, crit = build_model(cfg), build_criterion(cfg)
+    x = torch.zeros(2, 1, 3200)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        model(x, train=True)
+    c, z, _, _ = model(x)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        crit(c, z, train=True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        crit.wPrediction(c, train=True)
+
+
+@pytest.mark.parametrize("override", [
+    {"arMode": "GRU"}, {"encoder_type": "mfcc"}, {"normMode": "ID"},
+    {"cpc_mode": "reverse"}])
+def test_unported_model_variants_name_roadmap_item(override):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        build_model(CPCConfig(**override))
+
+
+@pytest.mark.parametrize("override,item", [
+    ({"rnnMode": "linear"}, "item 11"),
+    ({"negativeSamplingMode": "exact"}, "item 5"),
+    ({"stopGradNegatives": True}, "item 11")])
+def test_unported_criterion_variants_name_roadmap_item(override, item):
+    with pytest.raises(NotImplementedError, match=item):
+        build_criterion(CPCConfig(**override))
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys\n"
+            "import cpc_audio_tpu_torch, cpc_audio_tpu_torch.convert, "
+            "cpc_audio_tpu_torch.feature_loader, "
+            "cpc_audio_tpu_torch.criterion, cpc_audio_tpu_torch.models, "
+            "cpc_audio_tpu_torch.parallel.train_step, "
+            "cpc_audio_tpu_torch.ops._build, cpc_audio_tpu_torch.ops.lstm, "
+            "cpc_audio_tpu_torch.ops.head_attention, "
+            "cpc_audio_tpu_torch.ops.ffn, cpc_audio_tpu_torch.ops.feistel\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'optax'))\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
