@@ -8,21 +8,12 @@ import torch
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-TRAINING_NOT_PORTED = "training path: ROADMAP Queue 1 item 6"
-
 
 def compute_dtype(name: str) -> torch.dtype:
     if name not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of "
                          f"{sorted(COMPUTE_DTYPES)}, got {name!r}")
     return COMPUTE_DTYPES[name]
-
-
-def no_training(train: bool) -> None:
-    """The port runs the eval path only; dropout is not implemented, so a
-    training call must not silently run without it."""
-    if train:
-        raise NotImplementedError(TRAINING_NOT_PORTED)
 
 
 def uniform(shape: Sequence[int], bound: float,

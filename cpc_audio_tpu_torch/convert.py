@@ -12,6 +12,10 @@ leaves and returns one flat state dict, keys prefixed ``model.`` and
 * everything else, the K-stacked head tree included, keeps its name and
   shape.
 
+The mapping is linear and leaf by leaf, so a gradient tree of the same
+structure (or an optimizer moment tree) maps through it the same way:
+the tests compare the two packages' gradients leaf by leaf with it.
+
 ``load_jax_params`` loads such a tree into a model and a criterion.
 """
 

@@ -13,6 +13,12 @@ Per forward: the q/k/v and Wo projections are K-batched matmuls (the JAX
 package leaves them to XLA); attention runs in the K2 kernel
 (ops/head_attention.py); the residual ``c + attn . Wo`` is added here; the
 tail LN1 -> FFN -> residual -> LN2 runs in the K3 kernel (ops/ffn.py).
+The backward runs the K2 and K3 backward kernels.
+
+In training the heads drop attention probabilities and FFN hidden units
+at ``dropout`` (0.1, as the JAX module's field, whatever ``config.dropout``
+says).  Both sites draw from one int64 seed tensor, kept apart by their
+site constants in ``ops/dropout.py``.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .._common import no_training, uniform
+from .._common import uniform
 from ..ops.ffn import layer_tail
 from ..ops.head_attention import relpos_attention
 
@@ -76,14 +82,16 @@ class _StackedMHA(nn.Module):
             krel = krel[:, :, :S]
         return krel.to(dtype).contiguous()
 
-    def forward(self, c: torch.Tensor) -> torch.Tensor:
+    def forward(self, c: torch.Tensor, rate: float = 0.0,
+                seed: Optional[torch.Tensor] = None) -> torch.Tensor:
         """c (B, S, D) -> c + attention (K, B*S, D)."""
         B, S, D = c.shape
         dt = c.dtype
         c2 = c.reshape(B * S, D)
         q, k, v = (torch.matmul(c2, getattr(self, n).kernel.to(dt))
                    for n in ("Wq", "Wk", "Wv"))              # (K, M, D)
-        y = relpos_attention(q, k, v, self.krel_for(S, dt), B, self.nheads)
+        y = relpos_attention(q, k, v, self.krel_for(S, dt), B, self.nheads,
+                             rate, seed)
         return torch.matmul(y, self.Wo.kernel.to(dt)) + c2
 
 
@@ -98,28 +106,35 @@ class _Layer0(nn.Module):
         self.ffnetwork.lin2 = _Linear(K, dff, D, generator)
         self.ln_ffnetwork = _StackedLN(K, D)
 
-    def forward(self, c: torch.Tensor) -> torch.Tensor:
+    def forward(self, c: torch.Tensor, rate: float = 0.0,
+                seed: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, S, D = c.shape
         dt = c.dtype
-        x = self.multihead(c)                                # (K, M, D)
+        x = self.multihead(c, rate, seed)                    # (K, M, D)
         lin1, lin2 = self.ffnetwork.lin1, self.ffnetwork.lin2
         out = layer_tail(x, self.ln_multihead.weight, self.ln_multihead.bias,
                          lin1.kernel.to(dt).contiguous(), lin1.bias,
                          lin2.kernel.to(dt).contiguous(), lin2.bias,
-                         self.ln_ffnetwork.weight, self.ln_ffnetwork.bias)
+                         self.ln_ffnetwork.weight, self.ln_ffnetwork.bias,
+                         rate, seed=seed)
         return out.reshape(-1, B, S, D)
 
 
 class StackedTransformerHeads(nn.Module):
-    """All K heads in one pass: ``c (B, S, D) -> (K, B, S, D)``."""
+    """All K heads in one pass: ``c (B, S, D) -> (K, B, S, D)``.
+
+    ``train=True`` applies dropout at ``self.dropout`` and needs ``seed``,
+    an int64 tensor of shape (1,) on c's device."""
 
     def __init__(self, n_predicts: int, dmodel: int, size_seq: int,
-                 nheads: int = 8, dff: int = 2048,
+                 nheads: int = 8, dff: int = 2048, dropout: float = 0.1,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.dropout = dropout
         self.layer0 = _Layer0(n_predicts, dmodel, size_seq, nheads, dff,
                               generator)
 
-    def forward(self, c: torch.Tensor, train: bool = False) -> torch.Tensor:
-        no_training(train)
-        return self.layer0(c)
+    def forward(self, c: torch.Tensor, train: bool = False,
+                seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+        rate = self.dropout if train else 0.0
+        return self.layer0(c, rate, seed)

@@ -3,10 +3,11 @@
 // Replaces cpc_audio_tpu/ops/pallas/ffn.py `_tail_fwd_kernel` (called
 // through `fused_layer_tail`).  Per head k and row:
 //   y   = LN1(x)                        (f32 statistics, ddof 0; rounded to T)
-//   h   = relu(y . W1[k] + b1[k])       (rounded to T)
+//   h   = relu(y . W1[k] + b1[k]) * r   (rounded to T; r: dropout factor)
 //   out = LN2(y + h . W2[k] + b2[k])
 // The (rows, F) hidden never reaches device memory: that is the point of
-// the kernel.
+// the kernel.  In training r drops hidden units (dropout.cuh, keyed on
+// (k, row, f)); at rate 0 it is 1.
 //
 // Design: one block per (tile of rows, head k).  The tile's y sits in
 // shared memory; the hidden is produced in chunks of FC columns (an
@@ -36,6 +37,7 @@
 #include <mma.h>
 
 #include "common.cuh"
+#include "dropout.cuh"
 
 namespace {
 
@@ -96,7 +98,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32) layer_tail_fwd_mma_kernel(
     const float* __restrict__ b1, const bf16* __restrict__ w2,
     const float* __restrict__ b2, const float* __restrict__ ln2w,
     const float* __restrict__ ln2b, bf16* __restrict__ out, int M, int D,
-    int F, float eps) {
+    int F, float eps, cpc::Dropout drop) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const MmaSmem L(D);
   // Every region starts on a 32-byte boundary, and every fragment pointer
@@ -171,8 +173,13 @@ __global__ void __launch_bounds__(kMmaWarps * 32) layer_tail_fwd_mma_kernel(
     __syncthreads();
     for (int idx = tid; idx < MT * WFC; idx += blockDim.x) {
       const int r = idx / WFC, f = idx - r * WFC;
-      hs[r * L.ldh + f] =
-          __float2bfloat16(fmaxf(sc[r * L.lds + f] + B1[f0 + f], 0.0f));
+      float hv = fmaxf(sc[r * L.lds + f] + B1[f0 + f], 0.0f);
+      if (drop.active())
+        hv *= cpc::dropout_factor(
+            cpc::dropout_row_key(drop.seed_word(), cpc::kSiteFFN,
+                                 (uint32_t)(kk * M + row0 + r)),
+            (uint32_t)(f0 + f), drop.threshold, drop.keep_scale);
+      hs[r * L.ldh + f] = __float2bfloat16(hv);
     }
     __syncthreads();
 #pragma unroll
@@ -231,7 +238,7 @@ __global__ void __launch_bounds__(kMaxD) layer_tail_fwd_kernel(
     const float* __restrict__ b1, const T* __restrict__ w2,
     const float* __restrict__ b2, const float* __restrict__ ln2w,
     const float* __restrict__ ln2b, T* __restrict__ out, int M, int D, int F,
-    float eps) {
+    float eps, cpc::Dropout drop) {
   extern __shared__ __align__(16) float smem[];
   const int FC = D / 4;
   float* xs = smem;                // (TM, D): x, later y + ffn
@@ -286,8 +293,15 @@ __global__ void __launch_bounds__(kMaxD) layer_tail_fwd_kernel(
     }
     const float bias = B1[f0 + fcol];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-      hT[fcol * HS + r8 + i] = cpc::round_to<T>(fmaxf(ha[i] + bias, 0.0f));
+    for (int i = 0; i < 8; ++i) {
+      float hv = fmaxf(ha[i] + bias, 0.0f);
+      if (drop.active())
+        hv *= cpc::dropout_factor(
+            cpc::dropout_row_key(drop.seed_word(), cpc::kSiteFFN,
+                                 (uint32_t)(kk * M + row0 + r8 + i)),
+            (uint32_t)(f0 + fcol), drop.threshold, drop.keep_scale);
+      hT[fcol * HS + r8 + i] = cpc::round_to<T>(hv);
+    }
     __syncthreads();
     // acc[r] += sum_f h[r, f] * W2[f0 + f, t]
     const T* w2c = W2 + (size_t)f0 * D + t;
@@ -327,7 +341,8 @@ template <typename T>
 int launch_fma(const void* x, const void* ln1w, const void* ln1b,
                const void* w1, const void* b1, const void* w2, const void* b2,
                const void* ln2w, const void* ln2b, void* out, int K, int M,
-               int D, int F, float eps, cudaStream_t stream) {
+               int D, int F, float eps, cpc::Dropout drop,
+               cudaStream_t stream) {
   const size_t floats = 2 * (size_t)TM * D + (size_t)(D / 4) * HS + 2 * TM;
   const size_t smem = floats * sizeof(float);
   auto kernel = layer_tail_fwd_kernel<T>;
@@ -339,14 +354,16 @@ int launch_fma(const void* x, const void* ln1w, const void* ln1b,
       static_cast<const float*>(ln1b), static_cast<const T*>(w1),
       static_cast<const float*>(b1), static_cast<const T*>(w2),
       static_cast<const float*>(b2), static_cast<const float*>(ln2w),
-      static_cast<const float*>(ln2b), static_cast<T*>(out), M, D, F, eps);
+      static_cast<const float*>(ln2b), static_cast<T*>(out), M, D, F, eps,
+      drop);
   return (int)cudaGetLastError();
 }
 
 int launch_mma(const void* x, const void* ln1w, const void* ln1b,
                const void* w1, const void* b1, const void* w2, const void* b2,
                const void* ln2w, const void* ln2b, void* out, int K, int M,
-               int D, int F, float eps, cudaStream_t stream) {
+               int D, int F, float eps, cpc::Dropout drop,
+               cudaStream_t stream) {
   const size_t smem = MmaSmem(D).bytes;
   cudaError_t err = cpc::allow_smem(layer_tail_fwd_mma_kernel, smem);
   if (err != cudaSuccess) return (int)err;
@@ -356,7 +373,8 @@ int launch_mma(const void* x, const void* ln1w, const void* ln1b,
       static_cast<const float*>(ln1b), static_cast<const bf16*>(w1),
       static_cast<const float*>(b1), static_cast<const bf16*>(w2),
       static_cast<const float*>(b2), static_cast<const float*>(ln2w),
-      static_cast<const float*>(ln2b), static_cast<bf16*>(out), M, D, F, eps);
+      static_cast<const float*>(ln2b), static_cast<bf16*>(out), M, D, F, eps,
+      drop);
   return (int)cudaGetLastError();
 }
 
@@ -370,16 +388,19 @@ extern "C" int cpc_layer_tail_fwd(const void* x, const void* ln1w,
                                   const void* b1, const void* w2,
                                   const void* b2, const void* ln2w,
                                   const void* ln2b, void* out, int K, int M,
-                                  int D, int F, float eps, int dtype,
-                                  void* stream) {
+                                  int D, int F, float eps, const void* seed,
+                                  unsigned int threshold, float keep_scale,
+                                  int dtype, void* stream) {
   if (D < 32 || D % 32 != 0 || D > kMaxD || F % (D / 4) != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cpc::Dropout drop{static_cast<const int64_t*>(seed), threshold,
+                          keep_scale};
   if (dtype == cpc::kBFloat16 && F % WFC == 0)
     return launch_mma(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, out, K, M,
-                      D, F, eps, s);
+                      D, F, eps, drop, s);
   if (dtype == cpc::kFloat32)
     return launch_fma<float>(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, out,
-                             K, M, D, F, eps, s);
+                             K, M, D, F, eps, drop, s);
   return (int)cudaErrorInvalidValue;
 }

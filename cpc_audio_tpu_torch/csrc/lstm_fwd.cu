@@ -5,7 +5,10 @@
 // i, f, g, o and
 //   g_t = x_proj[b, t] + h_{t-1} . W_hh^T      (x_proj already holds b_ih + b_hh)
 //   c_t = sigmoid(f) * c_{t-1} + sigmoid(i) * tanh(g),  h_t = sigmoid(o) * tanh(c_t)
-// with the state and all gate math in float32.
+// with the state and all gate math in float32.  For training it also
+// saves the gate activations i, f, g, o (float32, (B, T, 4H)) and the cell
+// states (float32, (B, T, H)), as `_lstm_fwd_kernel` does; both pointers
+// may be null (the eval path), which leaves the launch unchanged.
 //
 // Design: batch rows are independent, so one block owns one batch row for
 // the whole window and keeps h and c in shared memory across all T steps.
@@ -66,7 +69,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads<T>) lstm_fwd_kernel(
     const T* __restrict__ x_proj, const T* __restrict__ w_hh,
     const T* __restrict__ h0, const T* __restrict__ c0, T* __restrict__ ys,
-    T* __restrict__ hT, T* __restrict__ cT, int n_steps, int H) {
+    T* __restrict__ hT, T* __restrict__ cT, float* __restrict__ gates,
+    float* __restrict__ cs, int n_steps, int H) {
   extern __shared__ __align__(16) float smem[];
   float* h = smem;       // (H,)  hidden state, f32
   float* c = h + H;      // (H,)  cell state, f32
@@ -117,6 +121,14 @@ __global__ void __launch_bounds__(kThreads<T>) lstm_fwd_kernel(
       c[j] = cn;
       h[j] = hn;
       yb[(size_t)t * H + j] = cpc::from_f32<T>(hn);
+      if (gates != nullptr) {
+        float* gt = gates + ((size_t)b * n_steps + t) * G;
+        gt[j] = ig;
+        gt[H + j] = fg;
+        gt[2 * H + j] = gg;
+        gt[3 * H + j] = og;
+      }
+      if (cs != nullptr) cs[((size_t)b * n_steps + t) * H + j] = cn;
     }
     __syncthreads();
   }
@@ -128,8 +140,8 @@ __global__ void __launch_bounds__(kThreads<T>) lstm_fwd_kernel(
 
 template <typename T>
 int launch(const void* x_proj, const void* w_hh, const void* h0,
-           const void* c0, void* ys, void* hT, void* cT, int B, int n_steps,
-           int H, cudaStream_t stream) {
+           const void* c0, void* ys, void* hT, void* cT, float* gates,
+           float* cs, int B, int n_steps, int H, cudaStream_t stream) {
   const size_t smem = 6 * (size_t)H * sizeof(float);
   auto kernel = lstm_fwd_kernel<T>;
   cudaError_t err = cpc::allow_smem(kernel, smem);
@@ -137,8 +149,8 @@ int launch(const void* x_proj, const void* w_hh, const void* h0,
   kernel<<<B, kThreads<T>, smem, stream>>>(
       static_cast<const T*>(x_proj), static_cast<const T*>(w_hh),
       static_cast<const T*>(h0), static_cast<const T*>(c0),
-      static_cast<T*>(ys), static_cast<T*>(hT), static_cast<T*>(cT), n_steps,
-      H);
+      static_cast<T*>(ys), static_cast<T*>(hT), static_cast<T*>(cT), gates,
+      cs, n_steps, H);
   return (int)cudaGetLastError();
 }
 
@@ -146,15 +158,19 @@ int launch(const void* x_proj, const void* w_hh, const void* h0,
 
 extern "C" int cpc_lstm_fwd(const void* x_proj, const void* w_hh,
                             const void* h0, const void* c0, void* ys,
-                            void* hT, void* cT, int B, int n_steps, int H,
-                            int dtype, void* stream) {
+                            void* hT, void* cT, void* gates, void* cs,
+                            int B, int n_steps, int H, int dtype,
+                            void* stream) {
   if (H <= 0 || H % 8 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* g = static_cast<float*>(gates);
+  float* c = static_cast<float*>(cs);
   if (dtype == cpc::kBFloat16)
-    return launch<__nv_bfloat16>(x_proj, w_hh, h0, c0, ys, hT, cT, B,
+    return launch<__nv_bfloat16>(x_proj, w_hh, h0, c0, ys, hT, cT, g, c, B,
                                  n_steps, H, s);
   if (dtype == cpc::kFloat32)
-    return launch<float>(x_proj, w_hh, h0, c0, ys, hT, cT, B, n_steps, H, s);
+    return launch<float>(x_proj, w_hh, h0, c0, ys, hT, cT, g, c, B, n_steps,
+                         H, s);
   return (int)cudaErrorInvalidValue;
 }
 

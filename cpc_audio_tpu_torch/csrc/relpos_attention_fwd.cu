@@ -3,12 +3,14 @@
 // Replaces cpc_audio_tpu/ops/pallas/head_attention.py `_fwd_kernel`
 // (called through `fused_relpos_attention`).  Per (k, batch row b, head h):
 //   s[i, j] = (q_i . k_j + q_i . krel[k][:, j - i + S - 1]) / sqrt(dk), j <= i
-//   o_i     = softmax_j(s[i, :]) . v
+//   o_i     = (softmax_j(s[i, :]) * dropout[i, :]) . v
 // q, k, v and o are in the natural (K, B*S, D = nheads*dk) layout of the
 // K-batched projections; the head is the column block h*dk.  The rel-pos
 // index j - i + S - 1 is the Pallas `_skew` (j - i - 1) mod S on the
 // causal region, taken directly: there is no lane rotate to satisfy, so
-// S needs no padding.  Softmax statistics are float32.
+// S needs no padding.  Softmax statistics are float32.  In training the
+// probabilities are dropped (dropout.cuh, keyed on (k, b, h, i, j)) after
+// the normalising sum, as the Pallas kernel drops p.
 //
 // Design: one block per (k, b, h).  q, k, v and krel[k] for that head are
 // staged in shared memory as float32 (k with a padded row stride so that
@@ -23,6 +25,7 @@
 // number of resident blocks (about 64 KB of shared memory each, three
 // per SM), not by arithmetic.
 #include "common.cuh"
+#include "dropout.cuh"
 
 namespace {
 
@@ -32,7 +35,7 @@ template <typename T>
 __global__ void relpos_attention_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ krel, T* __restrict__ out, int n_batch, int S,
-    int nheads, int dk, float inv_sqrt) {
+    int nheads, int dk, float inv_sqrt, cpc::Dropout drop) {
   extern __shared__ float smem[];
   const int ldk = dk + 1;
   float* qs = smem;               // (S, dk)
@@ -56,6 +59,11 @@ __global__ void relpos_attention_fwd_kernel(
     ks[i * ldk + d] = cpc::to_f32(k[off]);
     vs[i * dk + d] = cpc::to_f32(v[off]);
   }
+  const uint32_t row_key =
+      drop.active() ? cpc::dropout_row_key(
+                          drop.seed_word(), cpc::kSiteAttention,
+                          (uint32_t)((kk * n_batch + b) * nheads + h))
+                    : 0u;
   const T* kr_g = krel + (size_t)kk * dk * S;
   for (int idx = threadIdx.x; idx < dk * S; idx += blockDim.x)
     kr[idx] = cpc::to_f32(kr_g[idx]);
@@ -81,7 +89,10 @@ __global__ void relpos_attention_fwd_kernel(
     float sum = 0.0f;
     for (int j = lane; j <= i; j += 32) {
       const float e = expf(p[j] - mx);
-      p[j] = e;
+      p[j] = drop.active()
+                 ? e * cpc::dropout_factor(row_key, (uint32_t)(i * S + j),
+                                           drop.threshold, drop.keep_scale)
+                 : e;
       sum += e;
     }
     const float inv_sum = 1.0f / cpc::warp_sum(sum);
@@ -98,7 +109,7 @@ __global__ void relpos_attention_fwd_kernel(
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* krel,
            void* out, int K, int n_batch, int S, int nheads, int dk,
-           cudaStream_t stream) {
+           cpc::Dropout drop, cudaStream_t stream) {
   const size_t floats = (size_t)S * dk * 3 + (size_t)S + (size_t)dk * S +
                         (size_t)(kThreads / 32) * S;
   const size_t smem = floats * sizeof(float);
@@ -110,7 +121,7 @@ int launch(const void* q, const void* k, const void* v, const void* krel,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(krel),
       static_cast<T*>(out), n_batch, S, nheads, dk,
-      1.0f / sqrtf(static_cast<float>(dk)));
+      1.0f / sqrtf(static_cast<float>(dk)), drop);
   return (int)cudaGetLastError();
 }
 
@@ -119,13 +130,19 @@ int launch(const void* q, const void* k, const void* v, const void* krel,
 extern "C" int cpc_relpos_attention_fwd(const void* q, const void* k,
                                         const void* v, const void* krel,
                                         void* out, int K, int n_batch, int S,
-                                        int nheads, int dk, int dtype,
+                                        int nheads, int dk,
+                                        const void* seed,
+                                        unsigned int threshold,
+                                        float keep_scale, int dtype,
                                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cpc::Dropout drop{static_cast<const int64_t*>(seed), threshold,
+                          keep_scale};
   if (dtype == cpc::kBFloat16)
     return launch<__nv_bfloat16>(q, k, v, krel, out, K, n_batch, S, nheads,
-                                 dk, s);
+                                 dk, drop, s);
   if (dtype == cpc::kFloat32)
-    return launch<float>(q, k, v, krel, out, K, n_batch, S, nheads, dk, s);
+    return launch<float>(q, k, v, krel, out, K, n_batch, S, nheads, dk, drop,
+                         s);
   return (int)cudaErrorInvalidValue;
 }

@@ -3,9 +3,10 @@
 The input projection for the whole window is one matmul hoisted out of
 the recurrence (ar.py:75-77), with ``b_hh`` folded into it as ar.py:88
 does; only ``h . W_hh^T`` runs inside the recurrence, in the K1 kernel
-(ops/lstm.py).  The hidden carry is explicit: ``forward(x, hidden)``
-returns ``(y, (h, c))`` with each of ``h, c`` shaped (layers, B, H) and
-detached, like the reference's carried state.
+(ops/lstm.py), whose backward is the K1 backward kernel.  The hidden
+carry is explicit: ``forward(x, hidden)`` returns ``(y, (h, c))`` with
+each of ``h, c`` shaped (layers, B, H) and detached, like the reference's
+carried state.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._common import uniform
-from ..ops.lstm import lstm_fwd
+from ..ops.lstm import lstm
 
 Hidden = Tuple[torch.Tensor, torch.Tensor]
 
@@ -40,8 +41,8 @@ class _LSTMLayer(nn.Module):
         dt = x.dtype
         bias = self.bias_ih.to(dt) + self.bias_hh.to(dt)
         x_proj = F.linear(x, self.weight_ih.to(dt), bias)   # (B, T, 4H)
-        return lstm_fwd(x_proj, self.weight_hh.to(dt).contiguous(),
-                        h0.to(dt).contiguous(), c0.to(dt).contiguous())
+        return lstm(x_proj.contiguous(), self.weight_hh.to(dt).contiguous(),
+                    h0.to(dt).contiguous(), c0.to(dt).contiguous())
 
 
 class CPCAR(nn.Module):

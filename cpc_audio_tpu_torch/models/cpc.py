@@ -1,9 +1,11 @@
 """CPCModel: encoder + autoregressive context network
 (cpc_audio_tpu/models/cpc.py), for the default configuration.
 
-``model(batch, label, hidden) -> (c, z, label, hidden_out)`` with
+``model(batch, label, hidden, train) -> (c, z, label, hidden_out)`` with
 channels-last activations, as in the JAX package.  Parameters are float32;
-activations run in ``config.compute_dtype``.
+activations run in ``config.compute_dtype``.  The default model has no
+dropout, so ``train`` changes nothing here; gradients flow through cuDNN
+convs and the K1 kernels.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from torch import nn
 
 from cpc_audio_tpu.config import CPCConfig
 
-from .._common import compute_dtype, no_training
+from .._common import compute_dtype
 from .ar import CPCAR, Hidden
 from .encoder import CPCEncoder
 
@@ -50,7 +52,6 @@ class CPCModel(nn.Module):
 
     def forward(self, batch: torch.Tensor, label=None,
                 hidden: Optional[Hidden] = None, train: bool = False):
-        no_training(train)
         z = self.gEncoder(batch, self.dtype)             # (B, S, C)
         c, hidden_out = self.gAR(z, hidden)
         return c, z, label, hidden_out

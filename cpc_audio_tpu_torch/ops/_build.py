@@ -1,14 +1,16 @@
 """Build the port's CUDA kernels on first use and bind them with ctypes.
 
-All ``csrc/*.cu`` files are compiled by one ``nvcc`` call into a shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds).  The library's name carries a hash of the sources and flags, so
-an edited source is rebuilt and an unchanged one is reused.  It lands in
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library with
+a plain C interface (no PyTorch headers, so the build takes seconds).
+The library's name carries a hash of the sources and flags, so an edited
+source is rebuilt and an unchanged one is reused.  It lands in
 ``build/cuda_kernels/`` beside the package (``build/`` is git-ignored),
 next to the compiler's ``-Xptxas -v`` report.
 
-Each C entry point returns ``cudaGetLastError()``; :func:`check` raises
-on anything but 0.  A failed build raises: there is no fallback.
+Each C entry point that launches returns ``cudaGetLastError()``;
+:func:`check` raises on anything but 0.  A failed build raises: there is
+no fallback.
 """
 
 from __future__ import annotations
@@ -27,18 +29,35 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "cuda_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C entry points: argument types; every one returns an int status.
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_DROP = [_P, _U, _F]          # dropout: seed pointer, threshold, keep scale
+# C entry points: argument types and return type.
 _SIGNATURES = {
-    # x_proj, w_hh, h0, c0, ys, hT, cT, B, T, H, dtype, stream
-    "cpc_lstm_fwd": [_P] * 7 + [_I] * 4 + [_P],
-    # q, k, v, krel, out, K, n_batch, S, nheads, dk, dtype, stream
-    "cpc_relpos_attention_fwd": [_P] * 5 + [_I] * 6 + [_P],
+    # x_proj, w_hh, h0, c0, ys, hT, cT, gates, cs, B, T, H, dtype, stream
+    "cpc_lstm_fwd": ([_P] * 9 + [_I] * 4 + [_P], _I),
+    # gates, cs, c0, dys, w_hh, dhT, dcT, dgates, dh0, dc0, B, T, H, dtype,
+    # stream
+    "cpc_lstm_bwd": ([_P] * 10 + [_I] * 4 + [_P], _I),
+    # q, k, v, krel, out, K, n_batch, S, nheads, dk, dropout, dtype, stream
+    "cpc_relpos_attention_fwd": ([_P] * 5 + [_I] * 5 + _DROP + [_I, _P], _I),
+    # q, k, v, krel, dout, dq, dk, dv, dkrel, part, K, n_batch, S, nheads,
+    # dk, dropout, dtype, stream
+    "cpc_relpos_attention_bwd": ([_P] * 10 + [_I] * 5 + _DROP + [_I, _P],
+                                 _I),
+    "cpc_relpos_attention_bwd_smem": ([_I, _I], ctypes.c_size_t),
     # x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, out, K, M, D, F, eps,
-    # dtype, stream
-    "cpc_layer_tail_fwd": [_P] * 10 + [_I] * 4 + [_F, _I, _P],
+    # dropout, dtype, stream
+    "cpc_layer_tail_fwd": ([_P] * 10 + [_I] * 4 + [_F] + _DROP + [_I, _P],
+                           _I),
+    # x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, dout, dx, y_buf, df_buf,
+    # vec_part, vec_out, dw1, db1, dw2, K, M, D, F, eps, dropout, dtype,
+    # stream
+    "cpc_layer_tail_bwd": ([_P] * 18 + [_I] * 4 + [_F] + _DROP + [_I, _P],
+                           _I),
+    "cpc_layer_tail_bwd_tiles": ([_I, _I], _I),
+    "cpc_layer_tail_bwd_smem": ([_I, _I, _I], ctypes.c_size_t),
 }
 
 _LOCK = threading.Lock()
@@ -78,14 +97,33 @@ def build_log_path() -> str:
 def _build(path: str) -> None:
     srcs, _ = _sources()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    tmp = f"{path}.{os.getpid()}"
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in srcs]
+    nvcc = _nvcc()
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            for src, obj in zip(srcs, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", f"{tmp}.so", *objs]
+    failed = [(cmd, out) for cmd, out, p in zip(cmds, outs, procs)
+              if p.returncode != 0]
+    if not failed:
+        r = subprocess.run(link, capture_output=True, text=True)
+        outs.append(r.stdout + r.stderr)
+        if r.returncode != 0:
+            failed.append((link, r.stdout + r.stderr))
     with open(build_log_path(), "w") as f:
-        f.write(" ".join(cmd) + "\n" + r.stdout + r.stderr)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-    os.replace(tmp, path)
+        for cmd, out in zip(cmds + [link], outs):
+            f.write(" ".join(cmd) + "\n" + out)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        cmd, out = failed[0]
+        raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{out}")
+    os.replace(f"{tmp}.so", path)
 
 
 def library() -> ctypes.CDLL:
@@ -97,10 +135,10 @@ def library() -> ctypes.CDLL:
             if not os.path.isfile(path):
                 _build(path)
             lib = ctypes.CDLL(path)
-            for name, argtypes in _SIGNATURES.items():
+            for name, (argtypes, restype) in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = restype
             lib.cpc_error_string.argtypes = [ctypes.c_int]
             lib.cpc_error_string.restype = ctypes.c_char_p
             _LIB = lib
@@ -149,3 +187,8 @@ def check_inputs(name: str, dtype: torch.dtype, **tensors) -> None:
 
 def stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def ptr(t):
+    """Device pointer of ``t``, or None (NULL) for no tensor."""
+    return None if t is None else t.data_ptr()

@@ -1,78 +1,141 @@
-"""Transformer-layer tail LN1 -> FFN -> residual -> LN2: the K3 kernel and
-its plain version.
+"""Transformer-layer tail LN1 -> FFN -> residual -> LN2: the K3 kernels and
+their plain versions.
 
 Counterpart of ``cpc_audio_tpu/ops/pallas/ffn.py`` ``fused_layer_tail``
-(forward; dropout and the backward kernel come with the training path).
-Per head k, for ``x (K, M, D)``::
+and its custom VJP.  Per head k, for ``x (K, M, D)``::
 
-    y = LN1(x);  out = LN2(y + relu(y . W1[k] + b1[k]) . W2[k] + b2[k])
+    y = LN1(x);  out = LN2(y + (relu(y . W1[k] + b1[k]) * r) . W2[k] + b2[k])
 
-LayerNorm statistics are float32 with the biased variance and ``eps``
-added to it.  ``y`` and the ReLU hidden are rounded to the input dtype
-before they enter a product, as in the JAX kernel.  The LN parameters and
-biases may be any float dtype (they are used in float32); ``w1``/``w2``
-are in x's dtype.
+with r the dropout factor of the hidden (training; ``ops/dropout.py``,
+keyed on (k, row, f)).  LayerNorm statistics are float32 with the biased
+variance and ``eps`` added to it.  ``y`` and the hidden are rounded to the
+input dtype before they enter a product, as in the JAX kernel.  The LN
+parameters and biases may be any float dtype (they are used in float32);
+``w1``/``w2`` are in x's dtype.
+
+:func:`layer_tail` is the differentiable entry point: its forward runs the
+K3 forward kernel (csrc/layer_tail_fwd.cu, counted in
+``layer_tail.launches``), its backward the K3 backward kernels
+(csrc/layer_tail_bwd.cu, counted in ``layer_tail_bwd.launches``).  CPU
+tensors take the plain versions.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
-from . import _build
-from .head_attention import _check_rate
+from . import _build, dropout
 
 _NAME = "layer_tail_fwd"
+_BWD_NAME = "layer_tail_bwd"
+_SMEM_LIMIT = 232448
 
 
-def _layer_norm(x32: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                eps: float) -> torch.Tensor:
-    """Per-head LayerNorm of (K, M, D) float32 with (K, D) affine."""
+def _ln(x32: torch.Tensor, eps: float):
+    """(yhat, 1/std) of a float32 (K, M, D) LayerNorm, biased variance."""
     mean = x32.mean(dim=-1, keepdim=True)
     xc = x32 - mean
-    var = (xc * xc).mean(dim=-1, keepdim=True)
-    return xc * torch.rsqrt(var + eps) * w.float()[:, None] \
-        + b.float()[:, None]
+    inv = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    return xc * inv, inv
+
+
+def _affine(yhat, w, b):
+    return yhat * w.float()[:, None] + b.float()[:, None]
+
+
+def _ln_bwd(dout32, yhat, inv, w):
+    """LayerNorm input gradient (ffn.py:63-68)."""
+    dy = dout32 * w.float()[:, None]
+    m1 = dy.mean(dim=-1, keepdim=True)
+    m2 = (dy * yhat).mean(dim=-1, keepdim=True)
+    return (dy - m1 - yhat * m2) * inv
 
 
 def layer_tail_ref(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b,
-                   eps: float = 1e-5) -> torch.Tensor:
-    """Plain version with float32 products (exact for bf16 inputs)."""
+                   eps: float = 1e-5, rate: float = 0.0,
+                   seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version with float32 products (exact for bf16 inputs).
+    Differentiable by torch autograd."""
     dt = x.dtype
-    y = _layer_norm(x.float(), ln1w, ln1b, eps).to(dt).float()
-    h = torch.relu(y @ w1.float() + b1.float()[:, None]).to(dt).float()
-    f = h @ w2.float() + b2.float()[:, None]
-    return _layer_norm(y + f, ln2w, ln2b, eps).to(dt)
+    K, M, _ = x.shape
+    y = _affine(_ln(x.float(), eps)[0], ln1w, ln1b).to(dt).float()
+    h = torch.relu(y @ w1.float() + b1.float()[:, None])
+    mask = dropout.ffn_mask(seed, rate, K, M, w1.shape[-1], x.device)
+    if mask is not None:
+        h = h * mask
+    f = h.to(dt).float() @ w2.float() + b2.float()[:, None]
+    return _affine(_ln(y + f, eps)[0], ln2w, ln2b).to(dt)
 
 
-def layer_tail(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b,
-               rate: float = 0.0, eps: float = 1e-5) -> torch.Tensor:
-    """x (K, M, D); w1 (K, D, F); w2 (K, F, D); b1 (K, F); LN params and
-    b2 (K, D).  Returns (K, M, D) in x's dtype.
+def layer_tail_bwd_ref(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, dout,
+                       eps: float = 1e-5, rate: float = 0.0,
+                       seed: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, ...]:
+    """Plain backward, the math of ``_tail_bwd_kernel`` (ffn.py:121-208).
+    Returns dx (x's dtype) and float32 (dln1w, dln1b, dw1, db1, dw2, db2,
+    dln2w, dln2b), each summed over rows."""
+    dt = x.dtype
+    K, M, _ = x.shape
+    yhat1, inv1 = _ln(x.float(), eps)
+    y = _affine(yhat1, ln1w, ln1b).to(dt).float()
+    h32 = torch.relu(y @ w1.float() + b1.float()[:, None])
+    mask = dropout.ffn_mask(seed, rate, K, M, w1.shape[-1], x.device)
+    if mask is not None:
+        h32 = h32 * mask
+    live = h32 > 0.0                       # kept AND positive
+    h = h32.to(dt).float()
+    yhat2, inv2 = _ln(y + h @ w2.float() + b2.float()[:, None], eps)
+    do = dout.float()
+    dy2 = _ln_bwd(do, yhat2, inv2, ln2w)
+    df = dy2.to(dt).float()
+    dh = df @ w2.float().transpose(1, 2)
+    scale = 1.0 / (1.0 - rate)
+    dhp = torch.where(live, dh * scale, 0.0).to(dt).float()
+    dy = dy2 + dhp @ w1.float().transpose(1, 2)
+    dx = _ln_bwd(dy, yhat1, inv1, ln1w).to(dt)
+    return (dx, (dy * yhat1).sum(1), dy.sum(1),
+            y.transpose(1, 2) @ dhp, dhp.sum(1),
+            h.transpose(1, 2) @ df, df.sum(1),
+            (do * yhat2).sum(1), do.sum(1))
 
-    CPU tensors run :func:`layer_tail_ref`; CUDA tensors launch the kernel
-    (csrc/layer_tail_fwd.cu) and add one to ``layer_tail.launches``."""
-    _check_rate(rate)
-    vecs = (ln1w, ln1b, b1, b2, ln2w, ln2b)
-    if not _build.runs_kernel(_NAME, x, w1, w2, *vecs):
-        return layer_tail_ref(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, eps)
+
+def _check_weights(name: str, x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b):
     K, M, D = x.shape
     F = w1.shape[-1]
-    _build.check_inputs(_NAME, x.dtype, x=x, w1=w1, w2=w2)
     _build.require(tuple(w1.shape) == (K, D, F)
                    and tuple(w2.shape) == (K, F, D)
                    and tuple(b1.shape) == (K, F)
                    and all(tuple(t.shape) == (K, D)
-                           for t in (ln1w, ln1b, b2, ln2w, ln2b)), _NAME,
+                           for t in (ln1w, ln1b, b2, ln2w, ln2b)), name,
                    f"shapes x {tuple(x.shape)}, w1 {tuple(w1.shape)}, "
                    f"w2 {tuple(w2.shape)}")
+    _build.require(w1.data_ptr() % 16 == 0 and w2.data_ptr() % 16 == 0,
+                   name, "w1 and w2 must be 16-byte aligned")
+    return K, M, D, F
+
+
+def layer_tail_fwd(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b,
+                   rate: float = 0.0, eps: float = 1e-5,
+                   seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Forward: (K, M, D) in x's dtype.  CPU tensors run
+    :func:`layer_tail_ref`; CUDA tensors launch the kernel and add one to
+    ``layer_tail.launches``."""
+    dropout.check_rate(rate, seed, _NAME)
+    vecs = (ln1w, ln1b, b1, b2, ln2w, ln2b)
+    if not _build.runs_kernel(_NAME, x, w1, w2, *vecs,
+                              *dropout.seed_tensors(rate, seed)):
+        return layer_tail_ref(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, eps,
+                              rate, seed)
+    K, M, D, F = _check_weights(_NAME, x, *vecs[:2], w1, b1, w2, *vecs[3:])
+    _build.check_inputs(_NAME, x.dtype, x=x, w1=w1, w2=w2)
     _build.require(32 <= D <= 256 and D % 32 == 0 and F % (D // 4) == 0
                    and M > 0 and K > 0, _NAME,
                    f"D={D} must be a multiple of 32 in [32, 256] and F={F} "
                    f"a multiple of D/4")
     _build.require(x.dtype != torch.bfloat16 or F % 64 == 0, _NAME,
                    f"bf16 needs F % 64 == 0, got F={F}")
-    _build.require(w1.data_ptr() % 16 == 0 and w2.data_ptr() % 16 == 0,
-                   _NAME, "w1 and w2 must be 16-byte aligned")
     ln1w, ln1b, b1, b2, ln2w, ln2b = (t.float().contiguous() for t in vecs)
     out = torch.empty_like(x)
     lib = _build.library()
@@ -81,10 +144,101 @@ def layer_tail(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b,
             x.data_ptr(), ln1w.data_ptr(), ln1b.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), ln2w.data_ptr(),
             ln2b.data_ptr(), out.data_ptr(), K, M, D, F, float(eps),
-            _build.DTYPE_CODES[x.dtype], _build.stream(x.device))
+            *dropout.kernel_args(rate, seed), _build.DTYPE_CODES[x.dtype],
+            _build.stream(x.device))
     _build.check(status, _NAME)
     layer_tail.launches += 1
     return out
+
+
+def layer_tail_bwd(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, dout,
+                   rate: float = 0.0, eps: float = 1e-5,
+                   seed: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, ...]:
+    """Backward: dx in x's dtype and float32 (dln1w, dln1b, dw1, db1, dw2,
+    db2, dln2w, dln2b).  CPU tensors run :func:`layer_tail_bwd_ref`; CUDA
+    tensors launch the kernels and add one to ``layer_tail_bwd.launches``."""
+    dropout.check_rate(rate, seed, _BWD_NAME)
+    vecs = (ln1w, ln1b, b1, b2, ln2w, ln2b)
+    if not _build.runs_kernel(_BWD_NAME, x, w1, w2, dout, *vecs,
+                              *dropout.seed_tensors(rate, seed)):
+        return layer_tail_bwd_ref(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b,
+                                  dout, eps, rate, seed)
+    K, M, D, F = _check_weights(_BWD_NAME, x, *vecs[:2], w1, b1, w2,
+                                *vecs[3:])
+    _build.check_inputs(_BWD_NAME, x.dtype, x=x, w1=w1, w2=w2, dout=dout)
+    _build.require(tuple(dout.shape) == tuple(x.shape), _BWD_NAME,
+                   f"dout {tuple(dout.shape)} vs x {tuple(x.shape)}")
+    chunk = 64 if x.dtype == torch.bfloat16 else 32
+    _build.require(D >= 32 and D % 32 == 0 and F % chunk == 0 and M > 0
+                   and K > 0, _BWD_NAME,
+                   f"D={D} must be a multiple of 32 and F={F} of {chunk}")
+    lib = _build.library()
+    code = _build.DTYPE_CODES[x.dtype]
+    smem = lib.cpc_layer_tail_bwd_smem(D, F, code)
+    _build.require(smem <= _SMEM_LIMIT, _BWD_NAME,
+                   f"D={D}, F={F} needs {smem} bytes of shared memory "
+                   f"(at most {_SMEM_LIMIT})")
+    ln1w, ln1b, b1, b2, ln2w, ln2b = (t.float().contiguous() for t in vecs)
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx, y_buf, df_buf = (torch.empty_like(x) for _ in range(3))
+    tiles = lib.cpc_layer_tail_bwd_tiles(M, code)
+    vec_part = torch.empty((K, tiles, 5, D), **f32)
+    vec_out = torch.empty((5, K, D), **f32)
+    dw1 = torch.empty((K, D, F), **f32)
+    db1 = torch.empty((K, F), **f32)
+    dw2 = torch.empty((K, F, D), **f32)
+    with torch.cuda.device(dev):
+        status = lib.cpc_layer_tail_bwd(
+            x.data_ptr(), ln1w.data_ptr(), ln1b.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), ln2w.data_ptr(),
+            ln2b.data_ptr(), dout.data_ptr(), dx.data_ptr(),
+            y_buf.data_ptr(), df_buf.data_ptr(), vec_part.data_ptr(),
+            vec_out.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
+            dw2.data_ptr(), K, M, D, F, float(eps),
+            *dropout.kernel_args(rate, seed), code, _build.stream(dev))
+    _build.check(status, _BWD_NAME)
+    layer_tail_bwd.launches += 1
+    dln1w, dln1b, db2, dln2w, dln2b = vec_out
+    return dx, dln1w, dln1b, dw1, db1, dw2, db2, dln2w, dln2b
+
+
+layer_tail_bwd.launches = 0
+
+
+class _LayerTail(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, seed, rate,
+                eps):
+        ctx.save_for_backward(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b,
+                              seed)
+        ctx.args = (rate, eps)
+        return layer_tail_fwd(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b,
+                              rate, eps, seed)
+
+    @staticmethod
+    def backward(ctx, dout):
+        saved = ctx.saved_tensors
+        rate, eps = ctx.args
+        grads = layer_tail_bwd(*saved[:9], dout.to(saved[0].dtype)
+                               .contiguous(), rate, eps, saved[9])
+        return tuple(g.to(t.dtype) for g, t in zip(grads, saved[:9])) \
+            + (None, None, None)
+
+
+def layer_tail(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b,
+               rate: float = 0.0, eps: float = 1e-5,
+               seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable tail.  x (K, M, D); w1 (K, D, F); w2 (K, F, D); b1
+    (K, F); LN params and b2 (K, D).  Returns (K, M, D) in x's dtype.
+
+    ``rate > 0`` drops hidden units (training) with ``seed``, an int64
+    tensor of shape (1,) on x's device."""
+    dropout.check_rate(rate, seed, _NAME)
+    return _LayerTail.apply(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, seed,
+                            rate, eps)
 
 
 layer_tail.launches = 0

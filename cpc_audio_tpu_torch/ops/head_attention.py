@@ -1,95 +1,234 @@
-"""Causal attention with Shaw relative positions: the K2 kernel and its
-plain version.
+"""Causal attention with Shaw relative positions: the K2 kernels and their
+plain versions.
 
 Counterpart of ``cpc_audio_tpu/ops/pallas/head_attention.py``
-``fused_relpos_attention`` (forward; dropout and the backward kernel come
-with the training path).  q, k, v are ``(K, n_batch*S, D)`` with
-``D = nheads*dk``, straight out of the K-batched projections; ``krel`` is
-``(K, dk, S)``.  Per (k, batch row, head)::
+``fused_relpos_attention`` and its custom VJP.  q, k, v are
+``(K, n_batch*S, D)`` with ``D = nheads*dk``, straight out of the
+K-batched projections; ``krel`` is ``(K, dk, S)``.  Per (k, batch row,
+head)::
 
     s[i, j] = (q_i . k_j + q_i . krel[:, j - i + S - 1]) / sqrt(dk),  j <= i
-    o_i = softmax_j(s[i]) . v
+    o_i = (softmax_j(s[i]) * dropout[i]) . v
 
 ``j - i + S - 1`` is the JAX kernel's skew ``(j - i - 1) mod S`` on the
 causal region.  The JAX kernel pads S to a multiple of 128 for the TPU's
-lane rotate; this one takes S as it is.
+lane rotate; these take S as it is.  Dropout (training) drops the
+probabilities with the counter-based bits of ``ops/dropout.py``, keyed on
+(k, batch row, head, i, j).
+
+:func:`relpos_attention` is the differentiable entry point: its forward
+runs the K2 forward kernel (csrc/relpos_attention_fwd.cu, counted in
+``relpos_attention.launches``), its backward the K2 backward kernel
+(csrc/relpos_attention_bwd.cu, counted in
+``relpos_attention_bwd.launches``).  CPU tensors take the plain versions.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, dropout
 
 _NAME = "relpos_attention_fwd"
+_BWD_NAME = "relpos_attention_bwd"
+_SMEM_LIMIT = 232448          # bytes of shared memory a block may use
 
 
-def _check_rate(rate: float) -> None:
-    if rate != 0.0:
-        raise NotImplementedError(
-            "attention dropout (rate > 0): training path, ROADMAP Queue 1 "
-            "item 6")
+def _heads(t: torch.Tensor, n_batch: int, nheads: int) -> torch.Tensor:
+    """(K, M, D) -> (K, B, h, S, dk), float32."""
+    K, M, D = t.shape
+    return t.float().reshape(K, n_batch, M // n_batch, nheads,
+                             D // nheads).transpose(2, 3)
+
+
+def _unheads(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    K, B, h, S, dk = t.shape
+    return t.transpose(2, 3).reshape(K, B * S, h * dk).to(dtype)
+
+
+def _skew(S: int, device) -> torch.Tensor:
+    """(S, S) rel-pos column (j - i - 1) mod S == j - i + S - 1 on j <= i."""
+    i = torch.arange(S, device=device)[:, None]
+    j = torch.arange(S, device=device)[None, :]
+    return (j - i - 1) % S
+
+
+def _probs(qh, kh, krel, S: int) -> torch.Tensor:
+    """Causal softmax probabilities (K, B, h, S, S), float32."""
+    K, B, h, _, dk = qh.shape
+    qp = torch.einsum("kbhsd,kdr->kbhsr", qh, krel.float())
+    bias = torch.gather(qp, -1, _skew(S, qh.device).expand(K, B, h, S, S))
+    s = (qh @ kh.transpose(-1, -2) + bias) / math.sqrt(dk)
+    causal = torch.ones(S, S, dtype=torch.bool, device=qh.device).tril()
+    return torch.softmax(s.masked_fill(~causal, float("-inf")), dim=-1)
 
 
 def relpos_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         krel: torch.Tensor, n_batch: int,
-                         nheads: int) -> torch.Tensor:
-    """Plain version: float32 scores and softmax; the probabilities are
-    rounded to the input dtype before ``. v``, as in the JAX kernel."""
+                         krel: torch.Tensor, n_batch: int, nheads: int,
+                         rate: float = 0.0,
+                         seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version: float32 scores and softmax; the dropped
+    probabilities are rounded to the input dtype before ``. v``, as in the
+    JAX kernel.  Differentiable by torch autograd."""
+    K, M, _ = q.shape
+    S = M // n_batch
+    qh, kh, vh = (_heads(t, n_batch, nheads) for t in (q, k, v))
+    p = _probs(qh, kh, krel, S)
+    mask = dropout.attention_mask(seed, rate, K, n_batch, nheads, S,
+                                  q.device)
+    if mask is not None:
+        p = p * mask
+    return _unheads(p.to(q.dtype).float() @ vh, q.dtype)
+
+
+def relpos_attention_bwd_ref(q, k, v, krel, dout, n_batch: int, nheads: int,
+                             rate: float = 0.0,
+                             seed: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, ...]:
+    """Plain backward, the math of ``_bwd_kernel`` (head_attention.py
+    :158-228): (dq, dk, dv) in the input dtype and dkrel (K, dk, S)
+    float32, summed over batch rows and heads."""
     K, M, D = q.shape
     S, dk = M // n_batch, D // nheads
+    dt = q.dtype
+    qh, kh, vh, doh = (_heads(t, n_batch, nheads) for t in (q, k, v, dout))
+    p = _probs(qh, kh, krel, S)
+    mask = dropout.attention_mask(seed, rate, K, n_batch, nheads, S,
+                                  q.device)
+    pd = p if mask is None else p * mask
+    dvh = pd.to(dt).float().transpose(-1, -2) @ doh
+    dp = doh @ vh.transpose(-1, -2)
+    if mask is not None:
+        dp = dp * mask
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) / math.sqrt(dk)
+    ds = ds.to(dt).float()
+    skew = _skew(S, q.device)
+    krel_sk = krel.float()[:, :, skew]                       # (K, dk, S, S)
+    dqh = ds @ kh + torch.einsum("kbhij,kdij->kbhid", ds, krel_sk)
+    dkh = ds.transpose(-1, -2) @ qh
+    per_pair = torch.einsum("kbhid,kbhij->kdij", qh, ds)     # (K, dk, S, S)
+    dkrel = torch.zeros((K, dk, S), dtype=torch.float32, device=q.device)
+    dkrel.index_add_(2, skew.reshape(-1), per_pair.reshape(K, dk, S * S))
+    return (_unheads(dqh, dt), _unheads(dkh, dt), _unheads(dvh, dt), dkrel)
 
-    def heads(t):  # (K, M, D) -> (K, B, h, S, dk), float32
-        return t.float().reshape(K, n_batch, S, nheads, dk).transpose(2, 3)
 
-    qh, kh, vh = heads(q), heads(k), heads(v)
-    qp = torch.einsum("kbhsd,kdr->kbhsr", qh, krel.float())
-    i = torch.arange(S, device=q.device)[:, None]
-    j = torch.arange(S, device=q.device)[None, :]
-    skew = (j - i - 1) % S                      # == j - i + S - 1 for j <= i
-    bias = torch.gather(qp, -1, skew.expand(K, n_batch, nheads, S, S))
-    s = (qh @ kh.transpose(-1, -2) + bias) / math.sqrt(dk)
-    s = s.masked_fill(j > i, float("-inf"))
-    p = torch.softmax(s, dim=-1).to(q.dtype).float()
-    o = p @ vh                                   # (K, B, h, S, dk)
-    return o.transpose(2, 3).reshape(K, M, D).to(q.dtype)
-
-
-def relpos_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     krel: torch.Tensor, n_batch: int, nheads: int,
-                     rate: float = 0.0) -> torch.Tensor:
-    """Returns (K, n_batch*S, D) in the input dtype.
-
-    CPU tensors run :func:`relpos_attention_ref`; CUDA tensors launch the
-    kernel (csrc/relpos_attention_fwd.cu) and add one to
-    ``relpos_attention.launches``."""
-    _check_rate(rate)
-    if not _build.runs_kernel(_NAME, q, k, v, krel):
-        return relpos_attention_ref(q, k, v, krel, n_batch, nheads)
+def _check_shapes(name: str, q, k, v, krel, n_batch: int, nheads: int,
+                  others=()) -> Tuple[int, int]:
     K, M, D = q.shape
     _build.require(n_batch > 0 and M % n_batch == 0 and D % nheads == 0,
-                   _NAME, f"M={M}, D={D} vs n_batch={n_batch}, "
+                   name, f"M={M}, D={D} vs n_batch={n_batch}, "
                    f"nheads={nheads}")
     S, dk = M // n_batch, D // nheads
-    _build.check_inputs(_NAME, q.dtype, q=q, k=k, v=v, krel=krel)
-    _build.require(tuple(k.shape) == tuple(q.shape)
-                   and tuple(v.shape) == tuple(q.shape)
-                   and tuple(krel.shape) == (K, dk, S), _NAME,
+    _build.require(all(tuple(t.shape) == tuple(q.shape) for t in (k, v)
+                       + tuple(others))
+                   and tuple(krel.shape) == (K, dk, S), name,
                    f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                    f"{tuple(v.shape)}, krel {tuple(krel.shape)}")
-    _build.require(S > 0 and K > 0, _NAME, f"S={S}, K={K} out of range")
+    _build.require(S > 0 and K > 0, name, f"S={S}, K={K} out of range")
+    return S, dk
+
+
+def relpos_attention_fwd(q, k, v, krel, n_batch: int, nheads: int,
+                         rate: float = 0.0,
+                         seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Forward: (K, n_batch*S, D) in the input dtype.  CPU tensors run
+    :func:`relpos_attention_ref`; CUDA tensors launch the kernel and add
+    one to ``relpos_attention.launches``."""
+    dropout.check_rate(rate, seed, _NAME)
+    if not _build.runs_kernel(_NAME, q, k, v, krel,
+                              *dropout.seed_tensors(rate, seed)):
+        return relpos_attention_ref(q, k, v, krel, n_batch, nheads, rate,
+                                    seed)
+    K = q.shape[0]
+    S, dk = _check_shapes(_NAME, q, k, v, krel, n_batch, nheads)
+    _build.check_inputs(_NAME, q.dtype, q=q, k=k, v=v, krel=krel)
     out = torch.empty_like(q)
     lib = _build.library()
     with torch.cuda.device(q.device):
         status = lib.cpc_relpos_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), krel.data_ptr(),
             out.data_ptr(), K, n_batch, S, nheads, dk,
-            _build.DTYPE_CODES[q.dtype], _build.stream(q.device))
+            *dropout.kernel_args(rate, seed), _build.DTYPE_CODES[q.dtype],
+            _build.stream(q.device))
     _build.check(status, _NAME)
     relpos_attention.launches += 1
     return out
+
+
+def relpos_attention_bwd(q, k, v, krel, dout, n_batch: int, nheads: int,
+                         rate: float = 0.0,
+                         seed: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, ...]:
+    """Backward: (dq, dk, dv) in the input dtype, dkrel float32.  CPU
+    tensors run :func:`relpos_attention_bwd_ref`; CUDA tensors launch the
+    kernel and add one to ``relpos_attention_bwd.launches``."""
+    dropout.check_rate(rate, seed, _BWD_NAME)
+    if not _build.runs_kernel(_BWD_NAME, q, k, v, krel, dout,
+                              *dropout.seed_tensors(rate, seed)):
+        return relpos_attention_bwd_ref(q, k, v, krel, dout, n_batch,
+                                        nheads, rate, seed)
+    K = q.shape[0]
+    S, dk = _check_shapes(_BWD_NAME, q, k, v, krel, n_batch, nheads,
+                          (dout,))
+    _build.check_inputs(_BWD_NAME, q.dtype, q=q, k=k, v=v, krel=krel,
+                        dout=dout)
+    lib = _build.library()
+    smem = lib.cpc_relpos_attention_bwd_smem(S, dk)
+    _build.require(smem <= _SMEM_LIMIT, _BWD_NAME,
+                   f"S={S}, dk={dk} needs {smem} bytes of shared memory "
+                   f"(at most {_SMEM_LIMIT})")
+    dq, dkk, dv = (torch.empty_like(q) for _ in range(3))
+    dkrel = torch.empty((K, dk, S), dtype=torch.float32, device=q.device)
+    part = torch.empty((K, n_batch * nheads, dk, S), dtype=torch.float32,
+                       device=q.device)
+    with torch.cuda.device(q.device):
+        status = lib.cpc_relpos_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), krel.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dkk.data_ptr(), dv.data_ptr(),
+            dkrel.data_ptr(), part.data_ptr(), K, n_batch, S, nheads, dk,
+            *dropout.kernel_args(rate, seed), _build.DTYPE_CODES[q.dtype],
+            _build.stream(q.device))
+    _build.check(status, _BWD_NAME)
+    relpos_attention_bwd.launches += 1
+    return dq, dkk, dv, dkrel
+
+
+relpos_attention_bwd.launches = 0
+
+
+class _RelposAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, krel, seed, n_batch, nheads, rate):
+        ctx.save_for_backward(q, k, v, krel, seed)
+        ctx.args = (n_batch, nheads, rate)
+        return relpos_attention_fwd(q, k, v, krel, n_batch, nheads, rate,
+                                    seed)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, krel, seed = ctx.saved_tensors
+        n_batch, nheads, rate = ctx.args
+        dq, dk, dv, dkrel = relpos_attention_bwd(
+            q, k, v, krel, dout.to(q.dtype).contiguous(), n_batch, nheads,
+            rate, seed)
+        return dq, dk, dv, dkrel.to(krel.dtype), None, None, None, None
+
+
+def relpos_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     krel: torch.Tensor, n_batch: int, nheads: int,
+                     rate: float = 0.0,
+                     seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable attention, (K, n_batch*S, D) in the input dtype.
+
+    ``rate > 0`` drops probabilities (training) with ``seed``, an int64
+    tensor of shape (1,) on the inputs' device."""
+    dropout.check_rate(rate, seed, _NAME)
+    return _RelposAttention.apply(q, k, v, krel, seed, n_batch, nheads,
+                                  rate)
 
 
 relpos_attention.launches = 0

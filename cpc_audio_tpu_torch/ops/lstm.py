@@ -1,54 +1,100 @@
-"""LSTM recurrence over a whole window: the K1 kernel and its plain version.
+"""LSTM recurrence over a whole window: the K1 kernels and their plain
+versions.
 
 Counterpart of ``cpc_audio_tpu/ops/pallas/rnn.py`` ``lstm_scan_pallas``
-(forward only; the backward kernel comes with the training path).  The
-input projection is hoisted out of the recurrence by the caller
-(models/ar.py), so only ``h . W_hh^T`` is serial.  ``w_hh`` is in torch's
-``(4H, H)`` layout, gate order i, f, g, o; ``x_proj`` already includes
-``b_ih + b_hh``.  State and gate math are float32 whatever the input
-dtype; outputs are rounded to the input dtype.
+and its custom VJP.  The input projection is hoisted out of the
+recurrence by the caller (models/ar.py), so only ``h . W_hh^T`` is
+serial.  ``w_hh`` is in torch's ``(4H, H)`` layout, gate order i, f, g, o;
+``x_proj`` already includes ``b_ih + b_hh``.  State and gate math are
+float32 whatever the input dtype; outputs are rounded to the input dtype.
+
+* :func:`lstm_fwd` runs the recurrence (csrc/lstm_fwd.cu) and, for
+  training, saves the gate activations and cell states (float32);
+* :func:`lstm_bwd` is the reverse scan (csrc/lstm_bwd.cu) giving float32
+  dgates, dh0 and dc0;
+* :func:`lstm` is the differentiable entry point: a
+  ``torch.autograd.Function`` over the two, with dW_hh = h_prev^T dgates
+  as one matmul, as rnn.py:223-226.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
 
 _NAME = "lstm_fwd"
+_BWD_NAME = "lstm_bwd"
 
 
 def lstm_scan_ref(x_proj: torch.Tensor, w_hh: torch.Tensor,
-                  h0: torch.Tensor, c0: torch.Tensor
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                  h0: torch.Tensor, c0: torch.Tensor,
+                  save_residuals: bool = False):
     """Plain time loop (models/ar.py:106-116 of the JAX package) with the
-    kernel's float32 state.  Returns (ys (B,T,H), hT (B,H), cT (B,H))."""
+    kernel's float32 state.  Returns (ys (B,T,H), hT (B,H), cT (B,H)), and
+    with ``save_residuals`` also the float32 gate activations (B,T,4H) and
+    cell states (B,T,H)."""
     H = h0.shape[-1]
     xp = x_proj.float()
     w_t = w_hh.float().t()
     h, c = h0.float(), c0.float()
-    ys = []
+    ys, gates, cs = [], [], []
     for t in range(x_proj.shape[1]):
         g = xp[:, t] + h @ w_t
         i, f, gg, o = g.split(H, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(gg)
-        h = torch.sigmoid(o) * torch.tanh(c)
+        i, f, gg, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(gg),
+                       torch.sigmoid(o))
+        c = f * c + i * gg
+        h = o * torch.tanh(c)
         ys.append(h)
-    return (torch.stack(ys, dim=1).to(x_proj.dtype), h.to(h0.dtype),
-            c.to(c0.dtype))
+        if save_residuals:
+            gates.append(torch.cat([i, f, gg, o], dim=-1))
+            cs.append(c)
+    out = (torch.stack(ys, dim=1).to(x_proj.dtype), h.to(h0.dtype),
+           c.to(c0.dtype))
+    if save_residuals:
+        out += (torch.stack(gates, dim=1), torch.stack(cs, dim=1))
+    return out
+
+
+def lstm_bwd_ref(gates: torch.Tensor, cs: torch.Tensor, c0: torch.Tensor,
+                 dys: torch.Tensor, w_hh: torch.Tensor, dhT: torch.Tensor,
+                 dcT: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain reverse scan, line by line ``_lstm_bwd_kernel`` (rnn.py
+    :97-134).  Returns float32 (dgates (B,T,4H), dh0 (B,H), dc0 (B,H))."""
+    H = c0.shape[-1]
+    w = w_hh.float()
+    dh, dc = dhT.float(), dcT.float()
+    dgs = []
+    for t in range(gates.shape[1] - 1, -1, -1):
+        i, f, gg, o = gates[:, t].split(H, dim=-1)
+        c_prev = cs[:, t - 1] if t > 0 else c0.float()
+        c = f * c_prev + i * gg
+        tc = torch.tanh(c)
+        dh = dys[:, t].float() + dh
+        do_pre = dh * tc * o * (1.0 - o)
+        dc = dc + dh * o * (1.0 - tc * tc)
+        dgates = torch.cat([dc * gg * i * (1.0 - i),
+                            dc * c_prev * f * (1.0 - f),
+                            dc * i * (1.0 - gg * gg), do_pre], dim=-1)
+        dgs.append(dgates)
+        dh = dgates @ w
+        dc = dc * f
+    return torch.stack(dgs[::-1], dim=1), dh, dc
 
 
 def lstm_fwd(x_proj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
-             c0: torch.Tensor
-             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+             c0: torch.Tensor, save_residuals: bool = False):
     """x_proj (B, T, 4H), w_hh (4H, H), h0/c0 (B, H), one dtype.
 
     CPU tensors run :func:`lstm_scan_ref`; CUDA tensors launch the kernel
-    (csrc/lstm_fwd.cu) and add one to ``lstm_fwd.launches``."""
+    (csrc/lstm_fwd.cu) and add one to ``lstm_fwd.launches``.  Returns what
+    :func:`lstm_scan_ref` returns."""
     if not _build.runs_kernel(_NAME, x_proj, w_hh, h0, c0):
-        return lstm_scan_ref(x_proj, w_hh, h0, c0)
+        return lstm_scan_ref(x_proj, w_hh, h0, c0, save_residuals)
     B, T, G = x_proj.shape
     H = h0.shape[-1]
     _build.check_inputs(_NAME, x_proj.dtype, x_proj=x_proj, w_hh=w_hh, h0=h0,
@@ -64,18 +110,111 @@ def lstm_fwd(x_proj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
     _build.require(w_hh.data_ptr() % 16 == 0, _NAME,
                    "w_hh must be 16-byte aligned (4 elements are read at "
                    "once)")
-    ys = torch.empty((B, T, H), dtype=x_proj.dtype, device=x_proj.device)
+    dev = x_proj.device
+    ys = torch.empty((B, T, H), dtype=x_proj.dtype, device=dev)
     hT = torch.empty_like(h0)
     cT = torch.empty_like(c0)
+    gates = cs = None
+    if save_residuals:
+        gates = torch.empty((B, T, G), dtype=torch.float32, device=dev)
+        cs = torch.empty((B, T, H), dtype=torch.float32, device=dev)
     lib = _build.library()
-    with torch.cuda.device(x_proj.device):
+    with torch.cuda.device(dev):
         status = lib.cpc_lstm_fwd(
             x_proj.data_ptr(), w_hh.data_ptr(), h0.data_ptr(), c0.data_ptr(),
-            ys.data_ptr(), hT.data_ptr(), cT.data_ptr(), B, T, H,
-            _build.DTYPE_CODES[x_proj.dtype], _build.stream(x_proj.device))
+            ys.data_ptr(), hT.data_ptr(), cT.data_ptr(),
+            _build.ptr(gates), _build.ptr(cs), B, T, H,
+            _build.DTYPE_CODES[x_proj.dtype], _build.stream(dev))
     _build.check(status, _NAME)
     lstm_fwd.launches += 1
-    return ys, hT, cT
+    return (ys, hT, cT) + ((gates, cs) if save_residuals else ())
 
 
 lstm_fwd.launches = 0
+
+
+def lstm_bwd(gates: torch.Tensor, cs: torch.Tensor, c0: torch.Tensor,
+             dys: torch.Tensor, w_hh: torch.Tensor, dhT: torch.Tensor,
+             dcT: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Reverse scan: gates (B,T,4H), cs (B,T,H), dhT, dcT (B,H) float32;
+    c0 (B,H), dys (B,T,H), w_hh (4H,H) in the compute dtype.  Returns
+    float32 (dgates, dh0, dc0).
+
+    CPU tensors run :func:`lstm_bwd_ref`; CUDA tensors launch the kernel
+    (csrc/lstm_bwd.cu) and add one to ``lstm_bwd.launches``."""
+    if not _build.runs_kernel(_BWD_NAME, gates, cs, c0, dys, w_hh, dhT, dcT):
+        return lstm_bwd_ref(gates, cs, c0, dys, w_hh, dhT, dcT)
+    B, T, G = gates.shape
+    H = G // 4
+    _build.check_inputs(_BWD_NAME, torch.float32, gates=gates, cs=cs,
+                        dhT=dhT, dcT=dcT)
+    _build.check_inputs(_BWD_NAME, dys.dtype, c0=c0, dys=dys, w_hh=w_hh)
+    _build.require(G == 4 * H and tuple(cs.shape) == (B, T, H)
+                   and tuple(dys.shape) == (B, T, H)
+                   and tuple(w_hh.shape) == (G, H)
+                   and all(tuple(t.shape) == (B, H) for t in (c0, dhT, dcT)),
+                   _BWD_NAME, f"shapes gates {tuple(gates.shape)}, cs "
+                   f"{tuple(cs.shape)}, dys {tuple(dys.shape)}, w_hh "
+                   f"{tuple(w_hh.shape)}")
+    _build.require(B > 0 and T > 0 and 0 < H <= 2048 and H % 8 == 0,
+                   _BWD_NAME, f"B={B}, T={T}, H={H} out of range "
+                   f"(H % 8 == 0, <= 2048)")
+    _build.require(w_hh.data_ptr() % 16 == 0, _BWD_NAME,
+                   "w_hh must be 16-byte aligned")
+    dev = gates.device
+    dgates = torch.empty_like(gates)
+    dh0 = torch.empty_like(dhT)
+    dc0 = torch.empty_like(dcT)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        status = lib.cpc_lstm_bwd(
+            gates.data_ptr(), cs.data_ptr(), c0.data_ptr(), dys.data_ptr(),
+            w_hh.data_ptr(), dhT.data_ptr(), dcT.data_ptr(),
+            dgates.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), B, T, H,
+            _build.DTYPE_CODES[dys.dtype], _build.stream(dev))
+    _build.check(status, _BWD_NAME)
+    lstm_bwd.launches += 1
+    return dgates, dh0, dc0
+
+
+lstm_bwd.launches = 0
+
+
+def _zeros_or(t: Optional[torch.Tensor], like: torch.Tensor) -> torch.Tensor:
+    return torch.zeros_like(like, dtype=torch.float32) if t is None \
+        else t.float().contiguous()
+
+
+class _LSTM(torch.autograd.Function):
+    """Forward K1 saving its residuals; backward K1 plus dW_hh."""
+
+    @staticmethod
+    def forward(ctx, x_proj, w_hh, h0, c0):
+        train = any(ctx.needs_input_grad)
+        out = lstm_fwd(x_proj, w_hh, h0, c0, save_residuals=train)
+        ys, hT, cT = out[:3]
+        if train:
+            ctx.save_for_backward(out[3], out[4], ys, w_hh, h0, c0)
+        return ys, hT, cT
+
+    @staticmethod
+    def backward(ctx, dys, dhT, dcT):
+        gates, cs, ys, w_hh, h0, c0 = ctx.saved_tensors
+        dys = torch.zeros_like(ys) if dys is None \
+            else dys.to(ys.dtype).contiguous()
+        dgates, dh0, dc0 = lstm_bwd(gates, cs, c0, dys, w_hh,
+                                    _zeros_or(dhT, h0), _zeros_or(dcT, c0))
+        B, T, G = gates.shape
+        h_prev = torch.cat([h0[:, None], ys[:, :-1]], dim=1).float()
+        # dW_hh[g, j] = sum_{b,t} dgates[b,t,g] h_prev[b,t,j]
+        dw = dgates.reshape(B * T, G).t() @ h_prev.reshape(B * T, -1)
+        return (dgates.to(ys.dtype), dw.to(w_hh.dtype), dh0.to(h0.dtype),
+                dc0.to(c0.dtype))
+
+
+def lstm(x_proj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
+         c0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Differentiable recurrence: (ys, hT, cT) as :func:`lstm_fwd`, with a
+    backward through :func:`lstm_bwd`."""
+    return _LSTM.apply(x_proj, w_hh, h0, c0)

@@ -1,1 +1,1 @@
-"""Eval step of the port (the train step is not ported yet)."""
+"""Train and validation steps of the port (one device)."""

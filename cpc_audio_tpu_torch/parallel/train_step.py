@@ -1,13 +1,124 @@
-"""Validation step of the port (cpc_audio_tpu/parallel/train_step.py
-:204-228), on one device.  ``make_train_step`` comes with the training
-path (ROADMAP Queue 1 item 6)."""
+"""Train and validation steps of the port, on one device
+(cpc_audio_tpu/parallel/train_step.py:75-228 without the mesh).
+
+* The backward objective is the sum over prediction steps of the
+  per-step mean CE, as ``jnp.sum(losses)`` there.
+* Adam is ``torch.optim.Adam``, the same update as optax
+  ``scale_by_adam(eps_root=0)`` followed by ``p + lr * u``.  The learning
+  rate is a tensor on the device (``TrainState.lr``), so a schedule
+  changes it in place without a host sync.  On a CUDA device the
+  optimizer runs with ``capturable=True`` (its step counts stay on the
+  device); on the CPU, where torch supports no capturable Adam, it runs
+  the plain single-tensor loop.
+* Parameters and optimizer moments are updated in place: PyTorch's
+  modules own them, where JAX returned a new ``TrainState``.
+* The per-step dropout seed and Feistel round keys derive from (epoch key,
+  step) on the device (``ops/dropout.step_words``), the role of
+  ``stream_keys``, so a step needs no host sync.
+"""
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..ops import dropout
+from ..ops.feistel import ROUNDS
+
+
+def make_optimizer(params, lr: torch.Tensor, beta1: float = 0.9,
+                   beta2: float = 0.999,
+                   epsilon: float = 1e-8) -> torch.optim.Adam:
+    """Adam over ``params`` with the tensor learning rate ``lr``."""
+    on_device = lr.device.type == "cuda"
+    return torch.optim.Adam(params, lr=lr, betas=(beta1, beta2), eps=epsilon,
+                            capturable=on_device, foreach=on_device)
+
+
+@dataclass
+class TrainState:
+    """What a train step reads and updates: the two modules (parameters in
+    place), the optimizer, the learning rate and the step count, both
+    tensors on the device."""
+    model: torch.nn.Module
+    criterion: torch.nn.Module
+    optimizer: torch.optim.Adam
+    lr: torch.Tensor
+    step: torch.Tensor
+
+
+def create_train_state(model: torch.nn.Module, criterion: torch.nn.Module,
+                       device, lr: float = 2e-4, beta1: float = 0.9,
+                       beta2: float = 0.999,
+                       epsilon: float = 1e-8) -> TrainState:
+    """Move both modules to ``device`` and build their optimizer."""
+    device = torch.device(device)
+    model.to(device)
+    criterion.to(device)
+    lr_t = torch.tensor(lr, dtype=torch.float32, device=device)
+    params = list(model.parameters()) + list(criterion.parameters())
+    opt = make_optimizer(params, lr_t, beta1, beta2, epsilon)
+    return TrainState(model, criterion, opt, lr_t,
+                      torch.zeros((), dtype=torch.int64, device=device))
+
+
+def epoch_key(seed: int, epoch: int, device) -> torch.Tensor:
+    """The (1,) int64 key of one epoch's stream (``fold_in(base, epoch)``)."""
+    words = dropout.bits(torch.tensor([seed & 0xFFFFFFFF]),
+                         dropout.SITE_STEP_SEED, torch.tensor(epoch),
+                         torch.tensor(0xFFFFFFFF))
+    return words.reshape(1).to(device)
+
+
+def step_streams(key: torch.Tensor, step: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dropout seed (1,), Feistel round keys (ROUNDS,)) for one step."""
+    seed = dropout.step_words(key, dropout.SITE_STEP_SEED, step, 1)
+    keys = dropout.step_words(key, dropout.SITE_ROUND_KEYS, step, ROUNDS)
+    return seed, keys
+
+
+def _to_device(batch, device: torch.device) -> torch.Tensor:
+    if isinstance(batch, np.ndarray):
+        batch = torch.from_numpy(batch)
+    return batch.to(device=device, dtype=torch.float32, non_blocking=True)
+
+
+def make_train_step(state: TrainState, device) -> Callable:
+    """``train_step(batch, hidden=None, key=None, round_keys=None) ->
+    (hidden, {"losses": (K,), "acc": (K,)})``.
+
+    One forward (``train=True``), backward of ``losses.sum()`` and Adam
+    step on ``state``; ``state.step`` advances by one.  ``key`` is the
+    epoch's (1,) int64 device key (:func:`epoch_key`); ``round_keys``
+    overrides the derived Feistel keys (tests inject them).  Returns
+    device tensors without synchronising."""
+    device = torch.device(device)
+
+    def train_step(batch, hidden=None, key: Optional[torch.Tensor] = None,
+                   round_keys: Optional[torch.Tensor] = None
+                   ) -> Tuple[object, Dict[str, torch.Tensor]]:
+        batch = _to_device(batch, device)
+        if key is None:
+            key = torch.zeros(1, dtype=torch.int64, device=device)
+        seed, keys = step_streams(key, state.step)
+        if round_keys is not None:
+            keys = round_keys
+        state.optimizer.zero_grad(set_to_none=True)
+        state.model.train()
+        state.criterion.train()
+        c, z, _, hid = state.model(batch, None, hidden, train=True)
+        losses, acc = state.criterion(c, z, None, train=True,
+                                      round_keys=keys, seed=seed)
+        losses.sum().backward()
+        state.optimizer.step()
+        state.step += 1
+        return hid, {"losses": losses.detach(), "acc": acc.detach()}
+
+    return train_step
 
 
 def make_val_step(model: torch.nn.Module, criterion: torch.nn.Module,
@@ -25,10 +136,7 @@ def make_val_step(model: torch.nn.Module, criterion: torch.nn.Module,
                  generator: Optional[torch.Generator] = None,
                  round_keys: Optional[torch.Tensor] = None
                  ) -> Tuple[object, Dict[str, torch.Tensor]]:
-        if isinstance(batch, np.ndarray):
-            batch = torch.from_numpy(batch)
-        batch = batch.to(device=device, dtype=torch.float32,
-                         non_blocking=True)
+        batch = _to_device(batch, device)
         with torch.inference_mode():
             c, z, _, hid = model(batch, None, hidden)
             losses, acc = criterion(c, z, None, generator=generator,

@@ -1,0 +1,361 @@
+"""CPC pretraining CLI of the port (cpc_audio_tpu/train.py:73-409), one
+device, unsupervised CPC criterion.
+
+Same flags (``cpc_audio_tpu.config``), data loader (``cpc_audio_tpu.data``)
+and checkpoint directory contract as the JAX trainer.  The step runs on
+the first CUDA device when there is one (the kernels), else on the CPU
+(the plain versions).  Loss and accuracy sums stay on the device and are
+read back at ``logging_step`` boundaries and at epoch end.
+
+Usage:
+    python -m cpc_audio_tpu_torch.train --pathDB <dir> [--pathTrain x.txt]
+        [--pathVal y.txt] --pathCheckpoint <out> [flags...]
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import random
+import sys
+import time
+from copy import deepcopy
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from cpc_audio_tpu.config import (CPCConfig, TrainConfig, add_cpc_args,
+                                  config_from_namespace)
+from cpc_audio_tpu.data import AudioBatchData, filter_seqs, find_all_seqs
+from cpc_audio_tpu.utils import misc as utils
+
+from . import checkpoint as ckpt
+from ._common import compute_dtype
+from .criterion import build_criterion
+from .models import build_model
+from .parallel.train_step import (TrainState, create_train_state, epoch_key,
+                                  make_train_step, make_val_step,
+                                  step_streams)
+
+
+def _read_back(sums: Dict[str, torch.Tensor]) -> Tuple[np.ndarray, ...]:
+    return (sums["losses"].double().cpu().numpy(),
+            sums["acc"].double().cpu().numpy())
+
+
+def train_epoch(loader, train_step, hidden, key: torch.Tensor,
+                logging_step: int) -> Tuple[dict, object]:
+    """One epoch (cpc_audio_tpu/train.py:73-127)."""
+    start_time = time.perf_counter()
+    n_examples = 0
+    logs, last_logs = {}, None
+    dev_sums = None
+    it = 0
+    for step, (batch, _) in enumerate(loader):
+        n_examples += batch.shape[0]
+        hidden, metrics = train_step(batch, hidden, key)
+        dev_sums = metrics if dev_sums is None else \
+            {k: dev_sums[k] + metrics[k] for k in dev_sums}
+        it += 1
+        if (step + 1) % logging_step == 0:
+            losses, acc = _read_back(dev_sums)      # sync point
+            logs = {"locLoss_train": losses, "locAcc_train": acc}
+            elapsed = time.perf_counter() - start_time
+            print(f"Update {step + 1}")
+            print(f"elapsed: {elapsed:.1f} s")
+            print(f"{1000.0 * elapsed / logging_step:.1f} ms per batch, "
+                  f"{1000.0 * elapsed / n_examples:.1f} ms / example")
+            loc_logs = utils.update_logs(logs, logging_step, last_logs)
+            last_logs = deepcopy(logs)
+            utils.show_logs("Training loss", loc_logs)
+            start_time, n_examples = time.perf_counter(), 0
+    if it:
+        losses, acc = _read_back(dev_sums)
+        logs = {"locLoss_train": losses, "locAcc_train": acc}
+    logs = utils.update_logs(logs, it)
+    logs["iter"] = it
+    utils.show_logs("Average training loss on epoch", logs)
+    return logs, hidden
+
+
+def val_epoch(loader, val_step, hidden, key: torch.Tensor
+              ) -> Tuple[dict, object]:
+    """Validation pass (cpc_audio_tpu/train.py:130-150): the round keys
+    of batch ``step`` derive from (key, step) on the device."""
+    logs = {}
+    dev_sums = None
+    it = 0
+    step = torch.zeros((), dtype=torch.int64, device=key.device)
+    for batch, _ in loader:
+        _, keys = step_streams(key, step)
+        hidden, metrics = val_step(batch, hidden, round_keys=keys)
+        dev_sums = metrics if dev_sums is None else \
+            {k: dev_sums[k] + metrics[k] for k in dev_sums}
+        step += 1
+        it += 1
+    if it:
+        losses, acc = _read_back(dev_sums)
+        logs = {"locLoss_val": losses, "locAcc_val": acc}
+    logs = utils.update_logs(logs, max(it, 1))
+    logs["iter"] = it
+    utils.show_logs("Validation loss:", logs)
+    return logs, hidden
+
+
+def _cpu_state(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().to("cpu", copy=True)
+            for k, v in module.state_dict().items()}
+
+
+def _profile(profile_dir: Optional[str]):
+    """torch.profiler over one epoch, written as a chrome trace."""
+    if profile_dir is None:
+        return contextlib.nullcontext()
+    os.makedirs(profile_dir, exist_ok=True)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(
+        activities=acts, on_trace_ready=lambda p: p.export_chrome_trace(
+            os.path.join(profile_dir, "trace.json")))
+
+
+def run(train_dataset: AudioBatchData, val_dataset: AudioBatchData,
+        batch_size: int, config: CPCConfig, train_config: TrainConfig,
+        state: TrainState, logs: dict, device: torch.device) -> None:
+    """Epoch loop (cpc_audio_tpu/train.py:153-265)."""
+    train_step = make_train_step(state, device)
+    val_step = make_val_step(state.model, state.criterion, device)
+    keep_hidden = config.samplingType == "sequential"
+    n_epoch = config.nEpoch
+    start_epoch = len(logs["epoch"])
+    best_acc = -1.0
+    best_state = _cpu_state(state.model)
+    start_time = time.time()
+    path_checkpoint = train_config.pathCheckpoint
+
+    print(f"Running {n_epoch} epochs")
+    for epoch in range(start_epoch, n_epoch):
+        print(f"Starting epoch {epoch}")
+        state.lr.fill_(utils.lr_for_epoch(
+            config.learningRate, epoch, config.schedulerStep,
+            config.schedulerRamp))
+        train_loader = train_dataset.get_data_loader(
+            batch_size, config.samplingType, True)
+        val_loader = val_dataset.get_data_loader(
+            batch_size, "sequential", False)
+        print("Training dataset ~%d batches, Validation dataset ~%d"
+              " batches, batch size %d" % (len(train_loader),
+                                           len(val_loader), batch_size))
+        hidden = state.model.gAR.zero_state(
+            batch_size, compute_dtype(config.compute_dtype), device) \
+            if keep_hidden else None
+        # one key per epoch, from (seed, absolute epoch): resume-reproducible
+        ekey = epoch_key(config.random_seed or 0, 2 * epoch, device)
+        vkey = epoch_key(config.random_seed or 0, 2 * epoch + 1, device)
+        t0 = time.perf_counter()
+        with _profile(train_config.profile_dir
+                      if epoch == start_epoch else None):
+            loc_logs_train, hidden = train_epoch(
+                train_loader, train_step, hidden, ekey,
+                logs["logging_step"])
+        n_windows = loc_logs_train["iter"] * batch_size
+        print(f"epoch throughput: "
+              f"{n_windows / (time.perf_counter() - t0):.1f} windows/s")
+        loc_logs_val, hidden = val_epoch(val_loader, val_step, hidden, vkey)
+        print(f"Ran {epoch + 1} epochs "
+              f"in {time.time() - start_time:.2f} seconds")
+
+        if "locAcc_val" in loc_logs_val:
+            current_acc = float(np.mean(loc_logs_val["locAcc_val"]))
+        elif "locAcc_train" in loc_logs_train:
+            print("WARNING: validation set smaller than one batch; "
+                  "tracking best checkpoint on train accuracy")
+            current_acc = float(np.mean(loc_logs_train["locAcc_train"]))
+        else:
+            print("WARNING: neither split produced a batch this epoch; "
+                  "best checkpoint unchanged")
+            current_acc = best_acc
+        if current_acc > best_acc:
+            best_acc = current_acc
+            best_state = _cpu_state(state.model)
+
+        for k, v in dict(loc_logs_train, **loc_logs_val).items():
+            if k not in logs:
+                logs[k] = [None for _ in range(epoch)]
+            if isinstance(v, np.ndarray):
+                v = v.tolist()
+            logs[k].append(v)
+        logs["epoch"].append(epoch)
+
+        if path_checkpoint is not None and (
+                epoch % logs["saveStep"] == 0 or epoch == n_epoch - 1):
+            ckpt.save_checkpoint(
+                state.model, state.criterion, state.optimizer, best_state,
+                int(state.step),
+                os.path.join(path_checkpoint, f"checkpoint_{epoch}.pt"))
+            utils.save_logs(logs, os.path.join(path_checkpoint,
+                                               "checkpoint_logs.json"))
+
+
+def _refuse_unported(train_config: TrainConfig) -> None:
+    unported = [
+        (train_config.supervised or train_config.pathPhone is not None,
+         "--supervised / --pathPhone (supervised criteria): ROADMAP Queue 1 "
+         "item 10"),
+        (train_config.nGPU > 1 or train_config.distributed,
+         "--nGPU > 1 / --distributed (multi-GPU): ROADMAP Queue 1 item 12"),
+        (train_config.export_torch,
+         "--export_torch (reference-format export): ROADMAP Queue 1 item 8"),
+    ]
+    for refused, what in unported:
+        if refused:
+            raise NotImplementedError(f"{what} is not ported yet")
+
+
+def _load_into(state: TrainState, path: str, load_criterion: bool,
+               load_optimizer: bool) -> None:
+    data = ckpt.load_checkpoint(path)
+    state.model.load_state_dict(data["gEncoder"])
+    if load_criterion:
+        state.criterion.load_state_dict(data["cpcCriterion"])
+    if load_optimizer:
+        state.optimizer.load_state_dict(data["optimizer"])
+        for group in state.optimizer.param_groups:
+            group["lr"] = state.lr      # keep the one device lr tensor
+        state.step.fill_(data["step"])
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    cpc_config = config_from_namespace(args)
+    train_config = TrainConfig.from_dict(vars(args))
+    _refuse_unported(train_config)
+
+    seed = utils.set_seed(cpc_config.random_seed)
+    cpc_config = cpc_config.replace(random_seed=seed)
+    logs = {"epoch": [], "iter": [], "saveStep": train_config.save_step,
+            "logging_step": train_config.logging_step}
+
+    load_optimizer = False
+    load_paths = list(train_config.load) if train_config.load else None
+    if train_config.pathCheckpoint is not None \
+            and not train_config.restart \
+            and ckpt.get_checkpoint_data(train_config.pathCheckpoint):
+        path_ckpt, logs_loaded, _, raw_args = \
+            ckpt.get_checkpoint_data(train_config.pathCheckpoint)
+        merged = ckpt.merge_args(
+            {**cpc_config.to_dict(), **train_config.to_dict()}, raw_args,
+            ckpt.FORBIDDEN_RESUME_ATTRS)
+        cpc_config = CPCConfig.from_dict(merged)
+        train_config = TrainConfig.from_dict(
+            {**train_config.to_dict(),
+             **{k: v for k, v in merged.items()
+                if k not in ckpt.FORBIDDEN_RESUME_ATTRS}})
+        logs.update(logs_loaded)
+        logs.setdefault("logging_step", train_config.logging_step)
+        load_paths = [path_ckpt]
+        load_optimizer = True
+        print(f"Resuming from checkpoint {path_ckpt}")
+
+    for title, cfg in (("CONFIG", cpc_config), ("RUN CONFIG", train_config)):
+        print(f"{title}:\n"
+              f"{json.dumps(cfg.to_dict(), indent=4, sort_keys=True)}")
+
+    if not os.path.isdir(train_config.pathDB):
+        print(f"ERROR: --pathDB {train_config.pathDB} is not a directory")
+        return 1
+    seq_names, speakers = find_all_seqs(
+        train_config.pathDB, extension=train_config.file_extension,
+        load_cache=not train_config.ignore_cache)
+    if not seq_names:
+        print(f"ERROR: no '{train_config.file_extension}' sequences found "
+              f"under {train_config.pathDB}")
+        return 1
+    seq_train = filter_seqs(train_config.pathTrain, seq_names) \
+        if train_config.pathTrain is not None else seq_names
+    if train_config.pathVal is None:
+        shuffled = list(seq_train)          # random 99/1 split
+        random.shuffle(shuffled)
+        size_train = int(0.99 * len(shuffled))
+        seq_train, seq_val = shuffled[:size_train], shuffled[size_train:]
+    else:
+        seq_val = filter_seqs(train_config.pathVal, seq_names)
+    if train_config.debug:
+        seq_train, seq_val = seq_train[:2000], seq_val[:2000]
+
+    print(f"Loading audio data at {train_config.pathDB}")
+    datasets = [AudioBatchData(
+        train_config.pathDB, cpc_config.sizeWindow, seqs, None,
+        len(speakers), n_process_loader=train_config.n_process_loader,
+        max_size_loaded=train_config.max_size_loaded, seed=seed)
+        for seqs in (seq_train, seq_val)]
+
+    device = torch.device("cuda", 0) if torch.cuda.is_available() \
+        else torch.device("cpu")
+    batch_size = train_config.batchSizeGPU
+    print(f"Let's use 1 device ({device})!")
+    gen = torch.Generator().manual_seed(seed)
+    model = build_model(cpc_config, gen)
+    criterion = build_criterion(cpc_config, gen)
+    state = create_train_state(model, criterion, device,
+                               cpc_config.learningRate, cpc_config.beta1,
+                               cpc_config.beta2, cpc_config.epsilon)
+    if load_paths:
+        _load_into(state, load_paths[0],
+                   train_config.loadCriterion or load_optimizer,
+                   load_optimizer)
+    if train_config.pathCheckpoint is not None:
+        os.makedirs(train_config.pathCheckpoint, exist_ok=True)
+        ckpt.save_args_sidecar(train_config.pathCheckpoint, cpc_config,
+                               train_config)
+    run(*datasets, batch_size, cpc_config, train_config, state, logs,
+        device)
+    return 0
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """The JAX trainer's flags (cpc_audio_tpu/train.py:412-453)."""
+    parser = argparse.ArgumentParser(description="CPC trainer (PyTorch)")
+    parser = add_cpc_args(parser)
+    d = TrainConfig()
+    g = parser.add_argument_group("Dataset")
+    g.add_argument("--pathDB", type=str, default=d.pathDB)
+    g.add_argument("--file_extension", type=str, default=d.file_extension)
+    g.add_argument("--pathTrain", type=str, default=d.pathTrain)
+    g.add_argument("--pathVal", type=str, default=d.pathVal)
+    g.add_argument("--n_process_loader", type=int, default=d.n_process_loader)
+    g.add_argument("--ignore_cache", action="store_true")
+    g.add_argument("--max_size_loaded", type=int, default=d.max_size_loaded)
+    g = parser.add_argument_group("Supervised mode")
+    g.add_argument("--supervised", action="store_true")
+    g.add_argument("--pathPhone", type=str, default=d.pathPhone)
+    g.add_argument("--CTC", action="store_true")
+    g = parser.add_argument_group("Save")
+    g.add_argument("--pathCheckpoint", type=str, default=d.pathCheckpoint)
+    g.add_argument("--logging_step", type=int, default=d.logging_step)
+    g.add_argument("--save_step", type=int, default=d.save_step)
+    g = parser.add_argument_group("Load")
+    g.add_argument("--load", type=str, default=None, nargs="*")
+    g.add_argument("--loadCriterion", action="store_true")
+    g.add_argument("--restart", action="store_true")
+    g = parser.add_argument_group("Device")
+    g.add_argument("--nGPU", type=int, default=d.nGPU)
+    g.add_argument("--batchSizeGPU", type=int, default=d.batchSizeGPU)
+    parser.add_argument("--debug", action="store_true")
+    g = parser.add_argument_group("Profiling and distribution")
+    g.add_argument("--profile_dir", type=str, default=d.profile_dir,
+                   help="Write a torch.profiler trace of the first epoch")
+    g.add_argument("--distributed", action="store_true")
+    g.add_argument("--export_torch", action="store_true")
+    args = parser.parse_args(argv)
+    if args.pathDB is None:
+        parser.error("--pathDB is required")
+    return args
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -111,3 +111,140 @@ def test_wrappers_reject_what_kernels_do_not_take(dev):
         ffn.layer_tail(torch.zeros(1, 8, 32, device=dev, dtype=torch.bfloat16),
                        v, v, w, torch.zeros(1, 40, device=dev),
                        w.transpose(1, 2).contiguous(), v, v, v)
+
+
+# ---- backward kernels and dropout ---------------------------------------------
+
+# Backward: float32 sums in another order (and, in bf16, the rounding of
+# ds / df / dhp to bf16 flipping by one ulp where the orders differ), so
+# the error is bounded relative to the largest entry of the reference.
+BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+RATES = [0.0, 0.1]
+
+
+def _close(got, want, rel, name):
+    assert got.shape == want.shape and got.dtype == want.dtype, name
+    err = (got.float() - want.float()).abs().max().item()
+    bound = rel * want.float().abs().max().item() + 1e-6
+    assert err <= bound, f"{name}: max abs err {err:.3e} > {bound:.3e}"
+
+
+def _seed(dev):
+    return torch.tensor([12345], dtype=torch.int64, device=dev)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,T,H", [(3, 9, 32), (2, 5, 40)])
+def test_lstm_bwd_kernel(dev, dtype, B, T, H):
+    """The saved residuals of the forward kernel and the reverse scan
+    against the plain versions; H = 40: column pairs that do not fill the
+    block's thread groups evenly."""
+    rng = np.random.RandomState(H + 1)
+    args = (_rand(rng, dev, dtype, B, T, 4 * H),
+            _rand(rng, dev, dtype, 4 * H, H, scale=0.2),
+            _rand(rng, dev, dtype, B, H), _rand(rng, dev, dtype, B, H))
+    got = lstm.lstm_fwd(*args, save_residuals=True)
+    want = lstm.lstm_scan_ref(*args, save_residuals=True)
+    for g, w in zip(got[3:], want[3:]):
+        torch.testing.assert_close(g, w, **TOL[torch.float32])
+    gates, cs = want[3:]
+    dys = _rand(rng, dev, dtype, B, T, H)
+    dhT, dcT = (_rand(rng, dev, torch.float32, B, H) for _ in range(2))
+    bargs = (gates, cs, args[3], dys, args[1], dhT, dcT)
+    before = lstm.lstm_bwd.launches
+    got = lstm.lstm_bwd(*bargs)
+    assert lstm.lstm_bwd.launches == before + 1
+    for name, g, w in zip(("dgates", "dh0", "dc0"), got,
+                          lstm.lstm_bwd_ref(*bargs)):
+        _close(g, w, BWD_REL[torch.float32], name)
+
+
+@pytest.mark.parametrize("rate", RATES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("S,dk", [(116, 32), (20, 16)])
+def test_relpos_attention_bwd_kernel(dev, dtype, S, dk, rate):
+    """Forward at the rate, then the backward, each against its plain
+    version with the same seed: at rate 0.1 a mask that differed between
+    the kernel and dropout.py would fail both."""
+    rng = np.random.RandomState(S + dk)
+    K, B, h = 2, 3, 2
+    args = [_rand(rng, dev, dtype, K, B * S, h * dk) for _ in range(3)]
+    args.append(_rand(rng, dev, dtype, K, dk, S, scale=0.5))
+    seed = _seed(dev)
+    torch.testing.assert_close(
+        head_attention.relpos_attention_fwd(*args, B, h, rate, seed),
+        head_attention.relpos_attention_ref(*args, B, h, rate, seed),
+        **TOL[dtype])
+    dout = _rand(rng, dev, dtype, K, B * S, h * dk)
+    before = head_attention.relpos_attention_bwd.launches
+    got = head_attention.relpos_attention_bwd(*args, dout, B, h, rate, seed)
+    assert head_attention.relpos_attention_bwd.launches == before + 1
+    want = head_attention.relpos_attention_bwd_ref(*args, dout, B, h, rate,
+                                                   seed)
+    for name, g, w in zip(("dq", "dk", "dv", "dkrel"), got, want):
+        _close(g, w, BWD_REL[dtype], name)
+
+
+def _tail_args(rng, dev, dtype, K, M, D, F):
+    f32 = torch.float32
+    return (_rand(rng, dev, dtype, K, M, D),
+            _rand(rng, dev, f32, K, D, scale=0.1, shift=1.0),
+            _rand(rng, dev, f32, K, D, scale=0.1),
+            _rand(rng, dev, dtype, K, D, F, scale=D ** -0.5),
+            _rand(rng, dev, f32, K, F, scale=0.1),
+            _rand(rng, dev, dtype, K, F, D, scale=F ** -0.5),
+            _rand(rng, dev, f32, K, D, scale=0.1),
+            _rand(rng, dev, f32, K, D, scale=0.1, shift=1.0),
+            _rand(rng, dev, f32, K, D, scale=0.1))
+
+
+@pytest.mark.parametrize("rate", RATES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,D,F", [(40, 64, 128), (33, 32, 64),
+                                   (70, 256, 256)])
+def test_layer_tail_bwd_kernel(dev, dtype, M, D, F, rate):
+    """M = 33, 40 and 70: ragged row tiles of both passes (32/64 rows for
+    bf16, 16 for f32); D = 32: the narrowest tile."""
+    rng = np.random.RandomState(M + D + F)
+    K = 2
+    args = _tail_args(rng, dev, dtype, K, M, D, F)
+    seed = _seed(dev)
+    torch.testing.assert_close(
+        ffn.layer_tail_fwd(*args, rate, 1e-5, seed),
+        ffn.layer_tail_ref(*args, 1e-5, rate, seed), **TOL[dtype])
+    dout = _rand(rng, dev, dtype, K, M, D)
+    before = ffn.layer_tail_bwd.launches
+    got = ffn.layer_tail_bwd(*args, dout, rate, 1e-5, seed)
+    assert ffn.layer_tail_bwd.launches == before + 1
+    want = ffn.layer_tail_bwd_ref(*args, dout, 1e-5, rate, seed)
+    names = ("dx", "dln1w", "dln1b", "dw1", "db1", "dw2", "db2", "dln2w",
+             "dln2b")
+    for name, g, w in zip(names, got, want):
+        _close(g, w, BWD_REL[dtype], name)
+
+
+def test_backward_wrappers_reject_what_kernels_do_not_take(dev):
+    f16 = torch.float16
+    z = torch.zeros(2, 3, 16, device=dev, dtype=f16)
+    with pytest.raises(ValueError, match="dtype"):
+        lstm.lstm_bwd(torch.zeros(2, 3, 64, device=dev),
+                      torch.zeros(2, 3, 16, device=dev),
+                      torch.zeros(2, 16, device=dev, dtype=f16), z,
+                      torch.zeros(64, 16, device=dev, dtype=f16),
+                      torch.zeros(2, 16, device=dev),
+                      torch.zeros(2, 16, device=dev))
+    S, dk = 200, 32          # the (S, S) ds and p tiles exceed 227 KB
+    q = torch.zeros(1, S, dk, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        head_attention.relpos_attention_bwd(
+            q, q, q, torch.zeros(1, dk, S, device=dev), q, 1, 1)
+    with pytest.raises(ValueError, match="needs a seed"):
+        head_attention.relpos_attention_bwd(
+            q, q, q, torch.zeros(1, dk, S, device=dev), q, 1, 1, 0.1)
+    bf = torch.bfloat16
+    x = torch.zeros(1, 8, 32, device=dev, dtype=bf)
+    v = torch.zeros(1, 32, device=dev)
+    w1 = torch.zeros(1, 32, 96, device=dev, dtype=bf)
+    with pytest.raises(ValueError, match="F=96"):
+        ffn.layer_tail_bwd(x, v, v, w1, torch.zeros(1, 96, device=dev),
+                           w1.transpose(1, 2).contiguous(), v, v, v, x)

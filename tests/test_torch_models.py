@@ -115,17 +115,25 @@ def test_stacked_heads_match_jax(path, monkeypatch):
 
 
 def test_training_calls_refuse():
+    """Training calls need the step's dropout seed and refuse to run
+    without one; with it they run, and gradients reach every parameter."""
     cfg = CPCConfig(hiddenEncoder=32, hiddenGar=32, nPredicts=2,
-                    negativeSamplingExt=4, sizeWindow=3200)
+                    negativeSamplingExt=4, sizeWindow=5120)
     model, crit = build_model(cfg), build_criterion(cfg)
-    x = torch.zeros(2, 1, 3200)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        model(x, train=True)
-    c, z, _, _ = model(x)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    x = torch.from_numpy(np.random.RandomState(0).randn(4, 1, 5120)
+                         .astype(np.float32))
+    c, z, _, _ = model(x, train=True)
+    with pytest.raises(ValueError, match="needs a seed"):
         crit(c, z, train=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(ValueError, match="needs a seed"):
         crit.wPrediction(c, train=True)
+    seed = torch.tensor([3])
+    losses, acc = crit(c, z, train=True, seed=seed)
+    assert torch.isfinite(losses).all() and acc.shape == (2,)
+    losses.sum().backward()
+    for name, p in list(model.named_parameters()) + list(
+            crit.named_parameters()):
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
 
 
 @pytest.mark.parametrize("override", [
