@@ -7,30 +7,39 @@ Phases (any failure exits non-zero):
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from cpc_audio_tpu_torch/csrc with nvcc (one
      process per source, all at once);
-  3. for each kernel, at the train path's exact shapes, in bfloat16 and in
-     float32, at dropout rate 0 and 0.1 where the kernel drops: compare
-     with its plain PyTorch version on the card (same inputs, same dropout
-     seed) against a stated tolerance, and time both (median of 25
-     synchronised runs);
-  4. the eval path at full width: the default CPCConfig in bfloat16 with
-     seeded random weights, make_val_step on a (32, 1, 20480) batch; every
-     forward kernel's launch count must rise during that step; then the
-     same weights in float32 on a (2, 1, 20480) batch on the card
-     (kernels) and on the CPU (plain versions) must agree; then
-     build_feature on a 64000-sample WAV must give (1, 400, 256) finite
-     float32 features;
-  5. the train path, the main path: make_train_step at the same config
-     (bf16, B = 32, dropout 0.1 in the heads), 2 warm-up and 10 timed
-     steps on a fixed batch; all six kernels' launch counts must rise, the
-     losses must be finite and fall; prints train windows/s and the
+  3. for each of the ten kernels (K1-K5, forward and backward), at the
+     train paths' exact shapes, in bfloat16 and in float32, at dropout
+     rate 0 and 0.1 where the kernel drops: compare with its plain PyTorch
+     version on the card (same inputs, same dropout seed) against a stated
+     tolerance, time both (median of 25 synchronised runs) and compute its
+     bound (bytes over the memory rate or operations over the peak rate,
+     whichever is larger); then time the yardstick PyTorch call where one
+     computes the same function (cuDNN LSTM/GRU, scaled_dot_product_
+     attention);
+  4. the eval path at full width, for --arMode LSTM (the default), GRU
+     and transformer: the default CPCConfig in bfloat16 with seeded random
+     weights, make_val_step on a (32, 1, 20480) batch; every forward
+     kernel of the mode's path must be launched during that step; for
+     LSTM also the step's time, the same weights in float32 on a (2, 1,
+     20480) batch on the card (kernels) and on the CPU (plain versions),
+     which must agree, and build_feature on a 64000-sample WAV, which must
+     give (1, 400, 256) finite float32 features;
+  5. the train paths, LSTM then GRU then transformer: make_train_step at
+     the same config (bf16, B = 32, dropout 0.1 in the heads and the
+     transformer AR), 2 warm-up and 10 timed steps on a fixed batch; the
+     launch counts of the mode's AR kernels and of K2 and K3 must rise,
+     the losses must be finite and fall; prints train windows/s and the
      step's device time by kernel (torch.profiler); then one float32 step
      on a (2, 1, 20480) batch on the card and on the CPU (same weights,
      round keys and dropout seed) must give the same losses and gradients;
   6. the train CLI (cpc_audio_tpu_torch.train.main) on a synthetic WAV
-     tree, default architecture in bf16: one epoch writes checkpoint_0.pt
-     and both sidecars, and a rerun with --nEpoch 2 resumes;
-  7. print one JSON line of per-kernel results, the card line again, and
-     last the JSON result line.
+     tree in bf16: the default architecture for one epoch, which writes
+     checkpoint_0.pt and both sidecars, and a rerun with --nEpoch 2 that
+     resumes; then one epoch with --arMode GRU and one with --arMode
+     transformer;
+  7. print one JSON line of per-kernel results (each kernel's launches
+     from its own mode's train path), the card line again, and last the
+     JSON result line.
 There is no CPU path: without a CUDA device the script exits with 1.
 """
 
@@ -131,12 +140,27 @@ def compare_norm(name: str, got: torch.Tensor, want: torch.Tensor,
     return max_abs
 
 
+class Case:
+    """One kernel call at the train path's shapes: the kernel, its plain
+    version, the tensors it reads (for the bytes of its bound), the
+    operations it needs (``flops``, 2 per multiply-add, causal pairs only)
+    and, where the call needs only part of an input, the bytes it must
+    read (``read_bytes``; else every input element counts once)."""
+
+    def __init__(self, name, rate, kernel, plain, inputs, flops,
+                 read_bytes=None):
+        self.name, self.rate, self.kernel, self.plain = name, rate, kernel, \
+            plain
+        self.inputs, self.flops, self.read_bytes = inputs, flops, read_bytes
+
+
 def kernel_cases(dev: torch.device, dtype: torch.dtype, B: int = 32):
-    """(name, rate, kernel call, plain call) at the train path's shapes:
-    B=32, T=128 frames, H=D=256, K=12 heads over W=116 anchors, 8 heads x
-    dk=32, FFN width 2048.  Backward calls return tuples of gradients, the
-    LSTM forward a tuple of outputs."""
-    from cpc_audio_tpu_torch.ops import ffn, head_attention as ha, lstm
+    """Cases at the train path's shapes: B=32, T=128 frames, H=D=256, K=12
+    heads over W=116 anchors, 8 heads x dk=32, FFN width 2048, and the
+    transformer AR's N = B*8 = 256 rows of S = 128.  Backward calls return
+    tuples of gradients, the recurrences' forwards tuples of outputs."""
+    from cpc_audio_tpu_torch.ops import (causal_attention as ca, ffn, gru,
+                                         head_attention as ha, lstm)
 
     g = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -151,6 +175,11 @@ def kernel_cases(dev: torch.device, dtype: torch.dtype, B: int = 32):
     zeros = torch.zeros(B, H, device=dev)      # the carry is not trained
     lstm_bwd_args = (gates, cs, lstm_args[3], rand(B, T, H, scale=0.1),
                      lstm_args[1], zeros, zeros)
+    gru_args = (rand(B, T, 3 * H), rand(3 * H, H, scale=H ** -0.5),
+                rand(3 * H, scale=0.1), rand(B, H, scale=0.1))
+    ys, _, ggates, ghn = gru.gru_scan_ref(*gru_args, save_residuals=True)
+    gru_bwd_args = (ggates, ghn, gru_args[3], ys, rand(B, T, H, scale=0.1),
+                    gru_args[1], zeros)
     K, S, nh, dk = 12, 116, 8, 32
     D, F, M = nh * dk, 2048, B * S
     attn_args = (rand(K, M, D), rand(K, M, D), rand(K, M, D),
@@ -166,32 +195,74 @@ def kernel_cases(dev: torch.device, dtype: torch.dtype, B: int = 32):
                  rand(K, D, scale=0.1, dt=f32) + 1,
                  rand(K, D, scale=0.1, dt=f32))
     tail_dout = rand(K, M, D, scale=0.1)
-    # the train path's K1 forward also saves gates and cell states
-    cases = [("lstm_fwd", 0.0,
-              lambda: lstm.lstm_fwd(*lstm_args, save_residuals=True),
-              lambda: lstm.lstm_scan_ref(*lstm_args, save_residuals=True)),
-             ("lstm_bwd", 0.0, lambda: lstm.lstm_bwd(*lstm_bwd_args),
-              lambda: lstm.lstm_bwd_ref(*lstm_bwd_args))]
+    N, Sa = B * nh, 128
+    causal_args = (rand(N, Sa, dk), rand(N, Sa, dk), rand(N, Sa, dk),
+                   rand(N, Sa, Sa, scale=0.5))
+    causal_dout = rand(N, Sa, dk, scale=0.1)
+    pairs = K * B * nh * S * (S + 1) // 2          # causal (i, j) pairs
+    causal_pairs = N * Sa * (Sa + 1) // 2
+    # K5 reads q, k, v (and dout) whole but only the bias's causal half,
+    # j <= i; the backward still writes all of dbias (zeros above)
+    elt = torch.empty((), dtype=dtype).element_size()
+    causal_read = (3 * N * Sa * dk + causal_pairs) * elt
+    # the train path's recurrences also save their residuals
+    cases = [Case("lstm_fwd", 0.0,
+                  lambda: lstm.lstm_fwd(*lstm_args, save_residuals=True),
+                  lambda: lstm.lstm_scan_ref(*lstm_args, save_residuals=True),
+                  lstm_args, 2 * B * T * 4 * H * H),
+             Case("lstm_bwd", 0.0, lambda: lstm.lstm_bwd(*lstm_bwd_args),
+                  lambda: lstm.lstm_bwd_ref(*lstm_bwd_args), lstm_bwd_args,
+                  2 * B * T * 4 * H * H),
+             Case("gru_fwd", 0.0,
+                  lambda: gru.gru_fwd(*gru_args, save_residuals=True),
+                  lambda: gru.gru_scan_ref(*gru_args, save_residuals=True),
+                  gru_args, 2 * B * T * 3 * H * H),
+             Case("gru_bwd", 0.0, lambda: gru.gru_bwd(*gru_bwd_args),
+                  lambda: gru.gru_bwd_ref(*gru_bwd_args), gru_bwd_args,
+                  2 * B * T * 3 * H * H)]
     for rate in (0.0, 0.1):
         cases += [
-            ("relpos_attention_fwd", rate,
-             lambda r=rate: ha.relpos_attention_fwd(*attn_args, B, nh, r,
-                                                    seed),
-             lambda r=rate: ha.relpos_attention_ref(*attn_args, B, nh, r,
-                                                    seed)),
-            ("relpos_attention_bwd", rate,
-             lambda r=rate: ha.relpos_attention_bwd(*attn_args, attn_dout,
-                                                    B, nh, r, seed),
-             lambda r=rate: ha.relpos_attention_bwd_ref(
-                 *attn_args, attn_dout, B, nh, r, seed)),
-            ("layer_tail_fwd", rate,
-             lambda r=rate: ffn.layer_tail_fwd(*tail_args, r, 1e-5, seed),
-             lambda r=rate: ffn.layer_tail_ref(*tail_args, 1e-5, r, seed)),
-            ("layer_tail_bwd", rate,
-             lambda r=rate: ffn.layer_tail_bwd(*tail_args, tail_dout, r,
-                                               1e-5, seed),
-             lambda r=rate: ffn.layer_tail_bwd_ref(*tail_args, tail_dout,
-                                                   1e-5, r, seed)),
+            # q.k, q.krel and p.v: 6 dk per causal pair
+            Case("relpos_attention_fwd", rate,
+                 lambda r=rate: ha.relpos_attention_fwd(*attn_args, B, nh, r,
+                                                        seed),
+                 lambda r=rate: ha.relpos_attention_ref(*attn_args, B, nh, r,
+                                                        seed),
+                 attn_args, 6 * dk * pairs),
+            # recomputed scores (4 dk), dp, dv, dk, dkrel (2 dk each) and
+            # dq = ds.(k + krel) (4 dk): 16 dk per causal pair
+            Case("relpos_attention_bwd", rate,
+                 lambda r=rate: ha.relpos_attention_bwd(*attn_args, attn_dout,
+                                                        B, nh, r, seed),
+                 lambda r=rate: ha.relpos_attention_bwd_ref(
+                     *attn_args, attn_dout, B, nh, r, seed),
+                 attn_args + (attn_dout,), 16 * dk * pairs),
+            Case("layer_tail_fwd", rate,
+                 lambda r=rate: ffn.layer_tail_fwd(*tail_args, r, 1e-5, seed),
+                 lambda r=rate: ffn.layer_tail_ref(*tail_args, 1e-5, r, seed),
+                 tail_args, 2 * 2 * K * M * D * F),
+            # the recompute design's six products
+            Case("layer_tail_bwd", rate,
+                 lambda r=rate: ffn.layer_tail_bwd(*tail_args, tail_dout, r,
+                                                   1e-5, seed),
+                 lambda r=rate: ffn.layer_tail_bwd_ref(*tail_args, tail_dout,
+                                                       1e-5, r, seed),
+                 tail_args + (tail_dout,), 6 * 2 * K * M * D * F),
+            # q.k and p.v: 4 dk per causal pair
+            Case("causal_attention_fwd", rate,
+                 lambda r=rate: ca.causal_attention_fwd(*causal_args, r,
+                                                        seed),
+                 lambda r=rate: ca.causal_attention_ref(*causal_args, r,
+                                                        seed),
+                 causal_args, 4 * dk * causal_pairs, causal_read),
+            # recomputed q.k, dp, dv, dq, dk: 10 dk per causal pair
+            Case("causal_attention_bwd", rate,
+                 lambda r=rate: ca.causal_attention_bwd(*causal_args,
+                                                        causal_dout, r, seed),
+                 lambda r=rate: ca.causal_attention_bwd_ref(
+                     *causal_args, causal_dout, r, seed),
+                 causal_args + (causal_dout,), 10 * dk * causal_pairs,
+                 causal_read + causal_dout.numel() * elt),
         ]
     return cases
 
@@ -201,31 +272,50 @@ def kernel_cases(dev: torch.device, dtype: torch.dtype, B: int = 32):
 TOLERANCE = {
     ("lstm_fwd", torch.float32): (2e-4, 0.0, "f32 sums in another order, "
                                   "compounded over 128 serial steps"),
+    ("gru_fwd", torch.float32): (2e-4, 0.0, "f32 sums in another order, "
+                                 "compounded over 128 serial steps"),
     ("relpos_attention_fwd", torch.float32): (2e-4, 0.0,
                                               "f32 sums in another order"),
     ("layer_tail_fwd", torch.float32): (5e-4, 0.0, "f32 sums of 2048 "
                                         "products in another order"),
+    ("causal_attention_fwd", torch.float32): (2e-4, 0.0,
+                                              "f32 sums in another order"),
     ("lstm_fwd", torch.bfloat16): (1e-2, 2e-2, "bf16 rounding of ys; gates "
                                    "and cell states are f32"),
+    ("gru_fwd", torch.bfloat16): (1e-2, 2e-2, "bf16 rounding of ys; gates "
+                                  "and ghn are f32"),
     ("relpos_attention_fwd", torch.bfloat16): (
         1e-2, 2e-2, "bf16 output rounding; the plain version rounds the "
         "probabilities to bf16"),
     ("layer_tail_fwd", torch.bfloat16): (
         1e-2, 2e-2, "bf16 rounding of y, the hidden and the output"),
+    ("causal_attention_fwd", torch.bfloat16): (
+        1e-2, 2e-2, "bf16 output rounding; both round the probabilities "
+        "to bf16, which flips by one ulp where the f32 sums differ in "
+        "order"),
     ("lstm_bwd", torch.float32): (1e-4, "f32 sums in another order over "
                                   "128 serial steps"),
+    ("gru_bwd", torch.float32): (1e-4, "f32 sums in another order over "
+                                 "128 serial steps"),
     ("relpos_attention_bwd", torch.float32): (
         1e-4, "f32 sums in another order; dkrel over 256 (b, h) blocks"),
     ("layer_tail_bwd", torch.float32): (
         1e-3, "f32 sums of 2048 and 3712 terms in another order, and "
         "ReLU-kink flips of hidden units within rounding of 0"),
+    ("causal_attention_bwd", torch.float32): (
+        1e-4, "f32 sums in another order"),
     ("lstm_bwd", torch.bfloat16): (1e-4, "f32 state; only dys and W_hh "
                                    "are bf16, read exactly"),
+    ("gru_bwd", torch.bfloat16): (1e-4, "f32 state; only dys, ys, h0 and "
+                                  "W_hh are bf16, read exactly"),
     ("relpos_attention_bwd", torch.bfloat16): (
         2e-2, "bf16 rounding of ds and p*r that flips by one ulp where "
         "the f32 sums before it differ in order"),
     ("layer_tail_bwd", torch.bfloat16): (
         2e-2, "bf16 rounding of y, h, df and dhp that flips by one ulp "
+        "where the f32 sums before it differ in order"),
+    ("causal_attention_bwd", torch.bfloat16): (
+        2e-2, "bf16 rounding of the four outputs, flipping by one ulp "
         "where the f32 sums before it differ in order"),
 }
 
@@ -242,22 +332,109 @@ SOURCES = {
                        "cpc_audio_tpu/ops/pallas/ffn.py:88"),
     "layer_tail_bwd": ("cpc_audio_tpu_torch/csrc/layer_tail_bwd.cu",
                        "cpc_audio_tpu/ops/pallas/ffn.py:121"),
+    "gru_fwd": ("cpc_audio_tpu_torch/csrc/gru_fwd.cu",
+                "cpc_audio_tpu/ops/pallas/rnn.py:238"),
+    "gru_bwd": ("cpc_audio_tpu_torch/csrc/gru_bwd.cu",
+                "cpc_audio_tpu/ops/pallas/rnn.py:265"),
+    "causal_attention_fwd": ("cpc_audio_tpu_torch/csrc/causal_attention_fwd.cu",
+                             "cpc_audio_tpu/ops/pallas/attention.py:81"),
+    "causal_attention_bwd": ("cpc_audio_tpu_torch/csrc/causal_attention_bwd.cu",
+                             "cpc_audio_tpu/ops/pallas/attention.py:96"),
 }
 
-# The train path runs K2 and K3 at dropout 0.1: the JSON line reports
+# The train path runs K2, K3 and K5 at dropout 0.1: the JSON line reports
 # each kernel in bf16 at the rate the train step gives it.
-TRAIN_RATE = {"lstm_fwd": 0.0, "lstm_bwd": 0.0}
+TRAIN_RATE = {"lstm_fwd": 0.0, "lstm_bwd": 0.0, "gru_fwd": 0.0,
+              "gru_bwd": 0.0}
+
+# H100 SXM peaks (NVIDIA's data sheet; dense, at 700 W): device memory
+# bytes/s, and operations/s by input type (bf16 on the tensor cores,
+# float32 outside them)
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def _tensors(x):
+    return [t for t in (x if isinstance(x, tuple) else (x,))
+            if isinstance(t, torch.Tensor)]
+
+
+def bound(case: Case, out, dtype: torch.dtype) -> dict:
+    """The least time the card could take for the call: each input byte
+    it needs read once and each output written once at the memory rate,
+    or its operations at the peak rate of its type, whichever is larger."""
+    read = case.read_bytes if case.read_bytes is not None else sum(
+        t.numel() * t.element_size() for t in _tensors(case.inputs))
+    nbytes = read + sum(t.numel() * t.element_size() for t in _tensors(out))
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = case.flops / PEAK_FLOPS[dtype] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": case.flops}
+
+
+def library_calls(dev: torch.device, dtype: torch.dtype, B: int = 32):
+    """{kernel: (call, what)} of one PyTorch call computing the same
+    function as the kernel, timed as a yardstick only (the port never
+    calls them).  K1/K4: the cuDNN layer on its input x (B, T, 256), whose
+    backward also forms dW; K5: scaled_dot_product_attention with the
+    bias as a float mask, at rate 0.  K2 and K3 have none: no single
+    call applies the rel-pos skew, or LN -> FFN -> residual -> LN."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+
+    def rand(*shape, scale=1.0, grad=False):
+        t = (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+        return t.requires_grad_(grad)
+
+    T, C = 128, 256
+    calls = {}
+    for kind, cls in (("lstm", torch.nn.LSTM), ("gru", torch.nn.GRU)):
+        layer = cls(C, C, batch_first=True).to(dev, dtype)
+        layer.flatten_parameters()       # one weight buffer, as cuDNN wants
+        x = rand(B, T, C, grad=True)
+        y, _ = layer(x)
+        dy = rand(B, T, C, scale=0.1)
+        leaves = [x] + list(layer.parameters())
+        calls[f"{kind}_fwd"] = (lambda lay=layer, x=x: lay(x),
+                                f"cuDNN nn.{cls.__name__} forward "
+                                f"(training), input projection included")
+        calls[f"{kind}_bwd"] = (
+            lambda y=y, dy=dy, leaves=leaves: torch.autograd.grad(
+                y, leaves, dy, retain_graph=True),
+            f"autograd backward of cuDNN nn.{cls.__name__}, dx and dW")
+    S, dk, nh = 128, 32, 8
+    q, k, v = (rand(B, nh, S, dk, grad=True) for _ in range(3))
+    causal = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+    mask = (rand(B, nh, S, S, scale=0.5) / dk ** 0.5).masked_fill(
+        ~causal, float("-inf")).requires_grad_(True)
+    with torch.no_grad():
+        calls["causal_attention_fwd"] = (
+            lambda: F.scaled_dot_product_attention(q.detach(), k.detach(),
+                                                   v.detach(),
+                                                   attn_mask=mask.detach()),
+            "F.scaled_dot_product_attention, float mask bias/sqrt(dk) with "
+            "-inf above the diagonal, rate 0")
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    do = rand(B, nh, S, dk, scale=0.1)
+    calls["causal_attention_bwd"] = (
+        lambda: torch.autograd.grad(o, [q, k, v, mask], do,
+                                    retain_graph=True),
+        "autograd backward of that call: dq, dk, dv, dmask, rate 0")
+    return calls
 
 
 def phase_kernels(dev: torch.device, B: int = 32) -> dict:
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
         print(f"kernels vs plain versions, {str(dtype)[6:]}:", flush=True)
-        for name, rate, kernel, plain in kernel_cases(dev, dtype, B):
-            got = kernel()
-            want = plain()
+        for case in kernel_cases(dev, dtype, B):
+            name = case.name
+            got = case.kernel()
+            want = case.plain()
             torch.cuda.synchronize()
-            label = f"{name} rate {rate:g}"
+            label = f"{name} rate {case.rate:g}"
+            b = bound(case, got, dtype)
             if not isinstance(got, tuple):
                 got, want = (got,), (want,)
             if name.endswith("_bwd"):
@@ -269,24 +446,75 @@ def phase_kernels(dev: torch.device, B: int = 32) -> dict:
                 err = max(compare(f"{label} out {i}", gi, wi, atol, rtol, why)
                           for i, (gi, wi) in enumerate(zip(got, want)))
             del got, want
-            ms = median_ms(kernel)
-            plain_ms = median_ms(plain)
+            ms = median_ms(case.kernel)
+            plain_ms = median_ms(case.plain)
             print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                  f"(median of {ITERS})", flush=True)
-            if dtype == torch.bfloat16 and rate == TRAIN_RATE.get(name, 0.1):
+                  f"(median of {ITERS}); bound {b['bound_ms']:.4f} ms by "
+                  f"{b['bound_by']} ({b['bytes'] / 1e6:.2f} MB, "
+                  f"{b['flops'] / 1e9:.3f} GFLOP), {b['bound_ms'] / ms:.1%} "
+                  f"of it", flush=True)
+            if dtype == torch.bfloat16 and \
+                    case.rate == TRAIN_RATE.get(name, 0.1):
                 results[name] = {"max_abs_err": err, "ms": ms,
-                                 "plain_ms": plain_ms}
+                                 "plain_ms": plain_ms,
+                                 "bound_ms": b["bound_ms"],
+                                 "bound_by": b["bound_by"],
+                                 "library_ms": None}
         torch.cuda.empty_cache()
+    print("yardsticks, bf16 (one PyTorch call computing the same function; "
+          "the port never calls it):", flush=True)
+    for name, (call, what) in library_calls(dev, torch.bfloat16, B).items():
+        lib_ms = median_ms(call)
+        results[name]["library_ms"] = lib_ms
+        print(f"  {name}: {lib_ms:.4f} ms ({what}); kernel "
+              f"{results[name]['ms']:.4f} ms", flush=True)
+    for name in ("relpos_attention_fwd", "relpos_attention_bwd",
+                 "layer_tail_fwd", "layer_tail_bwd"):
+        print(f"  {name}: none (no single call applies the rel-pos skew, "
+              f"or LN -> FFN -> residual -> LN)", flush=True)
+    port_layer_times(dev, B)
+    torch.cuda.empty_cache()
     return results
 
 
+def port_layer_times(dev: torch.device, B: int = 32) -> None:
+    """The port's own recurrent layers (F.linear + kernel) on the cuDNN
+    yardstick's input, forward and backward, bf16."""
+    from cpc_audio_tpu_torch.models.ar import CPCAR
+    x = (torch.randn(B, 128, 256, device=dev) * 1.0).to(torch.bfloat16)
+    for mode in ("LSTM", "GRU"):
+        ar = CPCAR(256, 256, 1, mode).to(dev)
+        x.requires_grad_(True)
+        y, _ = ar(x)
+        dy = torch.randn_like(y) * 0.1
+        leaves = [x] + list(ar.parameters())
+        fwd = median_ms(lambda: ar(x))
+        bwd = median_ms(lambda: torch.autograd.grad(y, leaves, dy,
+                                                    retain_graph=True))
+        print(f"  port {mode} layer (F.linear + kernel, autograd): forward "
+              f"{fwd:.4f} ms, backward with dW {bwd:.4f} ms", flush=True)
+
+
 def counters():
-    from cpc_audio_tpu_torch.ops import ffn, head_attention, lstm
+    from cpc_audio_tpu_torch.ops import (causal_attention, ffn, gru,
+                                         head_attention, lstm)
     return {"lstm_fwd": lstm.lstm_fwd, "lstm_bwd": lstm.lstm_bwd,
             "relpos_attention_fwd": head_attention.relpos_attention,
             "relpos_attention_bwd": head_attention.relpos_attention_bwd,
             "layer_tail_fwd": ffn.layer_tail,
-            "layer_tail_bwd": ffn.layer_tail_bwd}
+            "layer_tail_bwd": ffn.layer_tail_bwd,
+            "gru_fwd": gru.gru_fwd, "gru_bwd": gru.gru_bwd,
+            "causal_attention_fwd": causal_attention.causal_attention_fwd,
+            "causal_attention_bwd": causal_attention.causal_attention_bwd}
+
+
+# the kernels of each --arMode's path: its AR's and the heads' (K2, K3)
+HEADS = ("relpos_attention_fwd", "relpos_attention_bwd", "layer_tail_fwd",
+         "layer_tail_bwd")
+PATH_KERNELS = {"LSTM": ("lstm_fwd", "lstm_bwd") + HEADS,
+                "GRU": ("gru_fwd", "gru_bwd") + HEADS,
+                "transformer": ("causal_attention_fwd",
+                                "causal_attention_bwd") + HEADS}
 
 
 def reset_counts() -> dict:
@@ -322,16 +550,42 @@ def synthetic_audio(n: int, batch: int, seed: int) -> np.ndarray:
     return x[:, None, :].astype(np.float32)
 
 
-def phase_eval(dev: torch.device, B: int = 32) -> dict:
-    from cpc_audio_tpu.config import CPCConfig
+
+
+def build(ar_mode: str, dtype: str, generator: torch.Generator):
+    """Model and criterion at the default CPCConfig with ``ar_mode``; the
+    criterion is sized from ``model.config``, whose hiddenGar build_model
+    sets for the mode, as the trainer does."""
+    from cpc_audio_tpu_torch.config import CPCConfig
     from cpc_audio_tpu_torch.criterion import build_criterion
     from cpc_audio_tpu_torch.models import build_model
+    model = build_model(CPCConfig(compute_dtype=dtype, arMode=ar_mode),
+                        generator)
+    return model, build_criterion(model.config, generator)
+
+
+def check_hidden(hidden, ar_mode: str, B: int, H: int) -> None:
+    """The carried state: an (h, c) pair (LSTM), one tensor (GRU), None
+    (transformer), each state (1, B, H) and finite."""
+    if ar_mode == "transformer":
+        if hidden is not None:
+            fail(f"the transformer AR returned a hidden state "
+                 f"{type(hidden)}")
+        return
+    for h in (list(hidden) if ar_mode == "LSTM" else [hidden]):
+        if tuple(h.shape) != (1, B, H) or not torch.isfinite(h.float()).all():
+            fail(f"bad hidden state {tuple(h.shape)}")
+
+
+def phase_eval(dev: torch.device, ar_mode: str = "LSTM",
+               B: int = 32) -> dict:
+    """make_val_step at full width in bf16; for the default LSTM also its
+    time, the float32 card-vs-CPU check and build_feature."""
     from cpc_audio_tpu_torch.parallel.train_step import make_val_step
 
-    cfg = CPCConfig(compute_dtype="bfloat16")
-    gen = torch.Generator().manual_seed(SEED)
-    model = build_model(cfg, gen).to(dev)
-    crit = build_criterion(cfg, gen).to(dev)
+    model, crit = build(ar_mode, "bfloat16",
+                        torch.Generator().manual_seed(SEED))
+    model, crit, cfg = model.to(dev), crit.to(dev), model.config
     step = make_val_step(model, crit, dev)
     batch = torch.from_numpy(synthetic_audio(cfg.sizeWindow, B, SEED)).to(dev)
     keys = round_keys(SEED)
@@ -339,23 +593,24 @@ def phase_eval(dev: torch.device, B: int = 32) -> dict:
     fns = reset_counts()
     hidden, metrics = step(batch, round_keys=keys)
     torch.cuda.synchronize()
-    launches = read_counts(fns, "eval step",
-                           [n for n in SOURCES if n.endswith("_fwd")])
+    launches = read_counts(fns, f"{ar_mode} eval step",
+                           [n for n in PATH_KERNELS[ar_mode]
+                            if n.endswith("_fwd")])
 
     K = cfg.nPredicts
     losses, acc = metrics["losses"].float().cpu(), metrics["acc"].cpu()
-    print(f"eval step (B={B}, bf16): losses={losses.numpy().round(4)} "
-          f"acc={acc.numpy().round(4)}", flush=True)
+    print(f"{ar_mode} eval step (B={B}, bf16): losses="
+          f"{losses.numpy().round(4)} acc={acc.numpy().round(4)}",
+          flush=True)
     if tuple(losses.shape) != (K,) or tuple(acc.shape) != (K,):
         fail(f"metrics shapes {tuple(losses.shape)} {tuple(acc.shape)}")
     if not (torch.isfinite(losses).all() and torch.isfinite(acc).all()):
         fail("non-finite losses or accuracies")
     if not ((acc >= 0).all() and (acc <= 1).all()):
         fail("accuracy outside [0, 1]")
-    for h in hidden:
-        if tuple(h.shape) != (1, B, cfg.hiddenGar) or \
-                not torch.isfinite(h.float()).all():
-            fail(f"bad hidden state {tuple(h.shape)}")
+    check_hidden(hidden, ar_mode, B, cfg.hiddenGar)
+    if ar_mode != "LSTM":
+        return launches
 
     times = []
     for i in range(12):
@@ -370,23 +625,23 @@ def phase_eval(dev: torch.device, B: int = 32) -> dict:
           f"bf16, median step {step_ms:.3f} ms of 10) on {gpu_line()}",
           flush=True)
 
-    check_against_cpu(cfg, model, dev)
+    check_against_cpu(model, dev)
     check_features(model, dev)
     return launches
 
 
-def check_against_cpu(cfg, model, dev: torch.device) -> None:
+def check_against_cpu(model, dev: torch.device) -> None:
     """Same weights in float32: kernels on the card vs plain versions on
     the CPU, on a (2, 1, 20480) batch with the same round keys."""
     from cpc_audio_tpu_torch.criterion import build_criterion
     from cpc_audio_tpu_torch.models import build_model
     from cpc_audio_tpu_torch.parallel.train_step import make_val_step
 
-    cfg32 = cfg.replace(compute_dtype="float32")
+    cfg32 = model.config.replace(compute_dtype="float32")
     gen = torch.Generator().manual_seed(SEED + 1)
     crit = build_criterion(cfg32, gen)
     results = []
-    batch = synthetic_audio(cfg.sizeWindow, 2, SEED + 1)
+    batch = synthetic_audio(cfg32.sizeWindow, 2, SEED + 1)
     keys = round_keys(SEED + 1)
     for device in (dev, torch.device("cpu")):
         m = build_model(cfg32)
@@ -423,20 +678,18 @@ def check_features(model, dev: torch.device) -> None:
         fail(f"build_feature gave {feats.shape} {feats.dtype}")
 
 
-def phase_train(dev: torch.device, B: int = 32) -> dict:
-    """The train path: make_train_step at the default config in bf16."""
-    from cpc_audio_tpu.config import CPCConfig
-    from cpc_audio_tpu_torch.criterion import build_criterion
-    from cpc_audio_tpu_torch.models import build_model
+def phase_train(dev: torch.device, ar_mode: str = "LSTM",
+                B: int = 32) -> dict:
+    """The train path of one --arMode: make_train_step at the default
+    config in bf16, 2 warm-up and 10 timed steps on a fixed batch."""
     from cpc_audio_tpu_torch.parallel.train_step import (create_train_state,
                                                          epoch_key,
                                                          make_train_step)
 
-    cfg = CPCConfig(compute_dtype="bfloat16")
-    gen = torch.Generator().manual_seed(SEED)
-    state = create_train_state(build_model(cfg, gen),
-                               build_criterion(cfg, gen), dev,
-                               cfg.learningRate)
+    model, crit = build(ar_mode, "bfloat16",
+                        torch.Generator().manual_seed(SEED))
+    cfg = model.config
+    state = create_train_state(model, crit, dev, cfg.learningRate)
     step = make_train_step(state, dev)
     batch = torch.from_numpy(synthetic_audio(cfg.sizeWindow, B,
                                              SEED + 3)).to(dev)
@@ -451,29 +704,31 @@ def phase_train(dev: torch.device, B: int = 32) -> dict:
         if i >= 2:
             times.append(time.perf_counter() - t0)
         losses.append(metrics["losses"])
-    launches = read_counts(fns, "train step", list(SOURCES))
+    launches = read_counts(fns, f"{ar_mode} train step",
+                           PATH_KERNELS[ar_mode])
 
     per_step = torch.stack(losses).float().cpu()          # (12, K)
     if tuple(per_step.shape) != (12, cfg.nPredicts) or \
             not torch.isfinite(per_step).all():
         fail(f"train losses {tuple(per_step.shape)} not finite")
     total = per_step.sum(dim=1)
-    print(f"train step losses (sum over K, steps 1-12): "
+    print(f"{ar_mode} train step losses (sum over K, steps 1-12): "
           f"{[round(v, 4) for v in total.tolist()]}", flush=True)
     first, last = total[2:5].mean().item(), total[-3:].mean().item()
     if not last < first:
-        fail(f"the loss did not fall over the timed steps on a fixed batch "
-             f"({first:.4f} -> {last:.4f})")
+        fail(f"the {ar_mode} loss did not fall over the timed steps on a "
+             f"fixed batch ({first:.4f} -> {last:.4f})")
     step_ms = statistics.median(times) * 1e3
-    print(f"train windows/s: {B / (step_ms / 1e3):.1f} (make_train_step, "
-          f"B={B}, bf16, dropout 0.1, median step {step_ms:.3f} ms of 10, "
-          f"min {min(times) * 1e3:.3f} max {max(times) * 1e3:.3f}) on "
-          f"{gpu_line()}", flush=True)
-    profile_train(step, batch, key, step_ms)
+    print(f"{ar_mode} train windows/s: {B / (step_ms / 1e3):.1f} "
+          f"(make_train_step, --arMode {ar_mode}, B={B}, bf16, dropout 0.1, "
+          f"median step {step_ms:.3f} ms of 10, min {min(times) * 1e3:.3f} "
+          f"max {max(times) * 1e3:.3f}) on {gpu_line()}", flush=True)
+    profile_train(step, batch, key, step_ms, ar_mode)
     return launches
 
 
-def profile_train(step, batch, key, step_ms: float, n: int = 3) -> None:
+def profile_train(step, batch, key, step_ms: float, ar_mode: str,
+                  n: int = 3) -> None:
     """Device time by kernel over ``n`` train steps (torch.profiler), and
     the device's busy share of the unprofiled median step ``step_ms``."""
     from torch.autograd import DeviceType
@@ -492,15 +747,19 @@ def profile_train(step, batch, key, step_ms: float, n: int = 3) -> None:
             and e.self_device_time_total > 0]
     rows.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in rows) / 1e3 / n
-    print(f"train step profile ({n} steps): {len(rows)} distinct kernels, "
-          f"{sum(e.count for e in rows) // n} launches and {busy:.3f} ms of "
-          f"device time per step; the unprofiled step takes {step_ms:.3f} "
-          f"ms, so the device is busy {100 * busy / step_ms:.1f} % of it. "
-          f"Device ms per step by kernel:", flush=True)
-    for e in rows[:25]:
+    print(f"{ar_mode} train step profile ({n} steps): {len(rows)} distinct "
+          f"kernels, {sum(e.count for e in rows) // n} launches and "
+          f"{busy:.3f} ms of device time per step; the unprofiled step "
+          f"takes {step_ms:.3f} ms, so the device is busy "
+          f"{100 * busy / step_ms:.1f} % of it. Device ms per step by "
+          f"kernel:", flush=True)
+    port = PROFILE_GROUPS[0][1]
+    shown = rows[:25] + [e for e in rows[25:]
+                         if any(w in e.key.lower() for w in port)]
+    for e in shown:
         print(f"  {e.self_device_time_total / 1e3 / n:9.3f} ms  "
               f"{e.count // n:5d}x  {e.key[:100]}", flush=True)
-    rest = rows[25:]
+    rest = [e for e in rows if e not in shown]
     print(f"  {sum(e.self_device_time_total for e in rest) / 1e3 / n:9.3f} "
           f"ms  {sum(e.count for e in rest) // n:5d}x  the other "
           f"{len(rest)} kernels", flush=True)
@@ -523,8 +782,9 @@ def profile_train(step, batch, key, step_ms: float, n: int = 3) -> None:
 
 # kernel-name fragments (lower case) of the profile's groups, first match
 PROFILE_GROUPS = (
-    ("port kernels", ("lstm_fwd_kernel", "lstm_bwd_kernel",
-                      "relpos_attention", "tail_", "dkrel_reduce")),
+    ("port kernels", ("lstm_fwd_kernel", "lstm_bwd_kernel", "gru_fwd_kernel",
+                      "gru_bwd_kernel", "relpos_attention",
+                      "causal_attention", "tail_", "dkrel_reduce")),
     ("Adam (foreach kernels)", ("adam", "multi_tensor_apply")),
     ("cuDNN conv", ("cudnn", "conv", "nchwtonhwc", "nhwctonchw", "wgrad",
                     "dgrad")),
@@ -535,41 +795,129 @@ PROFILE_GROUPS = (
 )
 
 
-def check_train_against_cpu(dev: torch.device) -> None:
+def check_train_against_cpu(dev: torch.device, ar_mode: str = "LSTM"
+                            ) -> None:
     """One float32 train step on a (2, 1, 20480) batch, kernels on the
     card vs plain versions on the CPU: same weights, round keys and
     dropout seed (the dropout bits do not depend on the device)."""
-    from cpc_audio_tpu.config import CPCConfig
-    from cpc_audio_tpu_torch.criterion import build_criterion
-    from cpc_audio_tpu_torch.models import build_model
     from cpc_audio_tpu_torch.parallel.train_step import (create_train_state,
                                                          epoch_key,
                                                          make_train_step)
 
-    cfg = CPCConfig(compute_dtype="float32")
-    gen = torch.Generator().manual_seed(SEED + 4)
-    model, crit = build_model(cfg, gen), build_criterion(cfg, gen)
-    batch = synthetic_audio(cfg.sizeWindow, 2, SEED + 4)
-    results = []
+    model, crit = build(ar_mode, "float32",
+                        torch.Generator().manual_seed(SEED + 4))
+    batch = synthetic_audio(model.config.sizeWindow, 2, SEED + 4)
+    results, tails = [], []
     for device in (dev, torch.device("cpu")):
         state = create_train_state(copy.deepcopy(model),
                                    copy.deepcopy(crit), device)
-        _, met = make_train_step(state, device)(
-            batch, key=epoch_key(SEED, 0, device))
+        with record_tail_inputs() as tail:
+            _, met = make_train_step(state, device)(
+                batch, key=epoch_key(SEED, 0, device))
+        tails.append(tail)
         grads = {f"{prefix}.{n}": p.grad.detach().float().cpu()
                  for prefix, mod in (("model", state.model),
                                      ("criterion", state.criterion))
                  for n, p in mod.named_parameters()}
         results.append((met["losses"].float().cpu(), grads))
     (l_g, g_g), (l_c, g_c) = results
-    print("float32 train step, card (kernels) vs CPU (plain versions), "
-          "dropout on:", flush=True)
-    compare("train losses", l_g, l_c, 1e-3, 1e-3,
-            "f32 through 128 LSTM steps, heads and InfoNCE")
+    print(f"float32 {ar_mode} train step, card (kernels) vs CPU (plain "
+          f"versions), dropout on:", flush=True)
+    compare(f"{ar_mode} train losses", l_g, l_c, 1e-3, 1e-3,
+            f"f32 through the {ar_mode} AR, heads and InfoNCE")
     for name in sorted(g_c):
-        compare_norm(f"grad {name}", g_g[name], g_c[name], 1e-3,
+        compare_norm(f"{ar_mode} grad {name}", g_g[name], g_c[name], 1e-3,
                      "f32 sums in another order through the whole step, "
                      "cuDNN convs, ReLU-kink flips")
+    worst = {}
+    for name in g_c:
+        group = next(g for g, prefix in LEAF_GROUPS if name.startswith(prefix))
+        err = ((g_g[name] - g_c[name]).norm() / g_c[name].norm()).item()
+        worst[group] = max(worst.get(group, (0.0, "")), (err, name))
+    print(f"  {ar_mode} worst gradient leaf per group (rel_norm_err): " +
+          "; ".join(f"{g} {e:.3e} ({n})" for g, (e, n) in worst.items()),
+          flush=True)
+    kink_report(ar_mode, tails, g_g, g_c)
+
+
+# gradient leaves by where they sit in the step, first matching prefix
+LEAF_GROUPS = (("encoder", "model.gEncoder."), ("AR", "model.gAR."),
+               ("heads FFN lin1", "criterion.wPrediction.heads.layer0."
+                "ffnetwork.lin1."),
+               ("heads, rest", "criterion.wPrediction."),
+               ("criterion, rest", "criterion."))
+
+
+@contextlib.contextmanager
+def record_tail_inputs():
+    """Records, on the CPU, the arguments of the heads' K3 call
+    (stacked_heads.layer_tail) while the block runs; the call itself is
+    unchanged and still launches the kernel."""
+    import inspect
+    from cpc_audio_tpu_torch.criterion import stacked_heads
+    original = stacked_heads.layer_tail
+    record = {}
+
+    def spy(*args, **kwargs):
+        bound = inspect.signature(original).bind(*args, **kwargs)
+        bound.apply_defaults()
+        # copies: on the CPU, w1 and b1 are the parameters Adam updates
+        record.update({k: v.detach().to("cpu", copy=True)
+                       if isinstance(v, torch.Tensor) else v
+                       for k, v in bound.arguments.items()})
+        return original(*args, **kwargs)
+
+    stacked_heads.layer_tail = spy
+    try:
+        yield record
+    finally:
+        stacked_heads.layer_tail = original
+
+
+def _relu_inputs(a: dict):
+    """float64 (K, M, F) pre-activations LN1(x).W1 + b1 of the heads' FFN
+    from one device's recorded K3 input, and the dropout keep mask."""
+    from cpc_audio_tpu_torch.ops import dropout
+    x = a["x"].double()
+    xc = x - x.mean(dim=-1, keepdim=True)
+    y = xc * torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + a["eps"])
+    y = y * a["ln1w"].double()[:, None] + a["ln1b"].double()[:, None]
+    pre = y @ a["w1"].double() + a["b1"].double()[:, None]
+    mask = dropout.ffn_mask(a["seed"], a["rate"], *pre.shape, "cpu")
+    return pre, (torch.ones_like(pre, dtype=torch.bool) if mask is None
+                 else mask > 0)
+
+
+def kink_report(ar_mode: str, tails, g_g: dict, g_c: dict) -> None:
+    """Where the card's and the CPU's heads' FFN lin1 gradients part: the
+    share of ||d(lin1.bias)||^2 in its largest (head, unit) entries, and
+    the heads' ReLU units (kept by dropout) whose pre-activation, in
+    float64 from each device's own K3 input, has opposite signs on the
+    card and the CPU, or lies within 1e-6 of 0 on the CPU.  Such a unit
+    takes the other ReLU branch in one version, and its whole row of dh
+    then differs."""
+    (pre_g, keep), (pre_c, _) = (_relu_inputs(t) for t in tails)
+    flips = keep & ((pre_g > 0) != (pre_c > 0))
+    near = keep & (pre_c.abs() < 1e-6)
+    name = "criterion.wPrediction.heads.layer0.ffnetwork.lin1.bias"
+    sq = (g_g[name] - g_c[name]).double().pow(2)          # (K, F)
+    total = max(sq.sum().item(), 1e-300)
+    top = torch.topk(sq.flatten(), 3).indices.tolist()
+    F = sq.shape[1]
+    units = []
+    for i in top:
+        k, f = divmod(i, F)
+        rows = keep[k, :, f]
+        low = pre_c[k, :, f].abs().masked_fill(~rows, float("inf"))
+        m = int(low.argmin())
+        units.append(f"(head {k}, unit {f}) {sq[k, f].item() / total:.1%}, "
+                     f"flips {int(flips[k, :, f].sum())}, nearest row {m}: "
+                     f"card {pre_g[k, m, f].item():.3e} CPU "
+                     f"{pre_c[k, m, f].item():.3e}")
+    print(f"  {ar_mode} heads' FFN ReLU, card vs CPU: {int(flips.sum())} of "
+          f"{int(keep.sum())} kept units change sign, {int(near.sum())} lie "
+          f"within 1e-6 of 0; largest entries of d(lin1.bias), share of "
+          f"its squared norm: " + "; ".join(units), flush=True)
 
 
 def _write_wav(path: str, samples: np.ndarray) -> None:
@@ -581,12 +929,30 @@ def _write_wav(path: str, samples: np.ndarray) -> None:
                       .tobytes())
 
 
+def _run_cli(train, argv, what: str, names):
+    fns = reset_counts()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        rc = train.main(argv)
+    torch.cuda.synchronize()
+    lines = log.getvalue().splitlines()
+    print(f"train CLI {what}: rc={rc} in {time.perf_counter() - t0:.1f} s; "
+          f"{[ln for ln in lines if 'Resuming' in ln or 'throughput' in ln]}",
+          flush=True)
+    read_counts(fns, f"train CLI ({what})", names)
+    if rc != 0:
+        fail(f"train CLI {what} exited {rc}: {lines[-20:]}")
+    return lines
+
+
 def phase_cli(tmp: str) -> None:
     """cpc_audio_tpu_torch.train.main on a synthetic 2-speaker WAV tree at
-    the default architecture in bf16: one epoch, then a resume to two."""
+    the default architecture in bf16: one epoch, then a resume to two;
+    then one epoch each with --arMode GRU and --arMode transformer."""
     from cpc_audio_tpu_torch import train
 
-    db, out = os.path.join(tmp, "db"), os.path.join(tmp, "ckpt")
+    db = os.path.join(tmp, "db")
     rng = np.random.default_rng(SEED + 5)
     for i in range(16):
         spk = os.path.join(db, f"spk{i % 2}")
@@ -596,40 +962,36 @@ def phase_cli(tmp: str) -> None:
         x = 0.3 * np.sin(2 * np.pi * (150 + 100 * (i % 2)) * t) \
             + 0.05 * rng.standard_normal(n)
         _write_wav(os.path.join(spk, f"f{i:03d}.wav"), x)
-    argv = ["--pathDB", db, "--file_extension", ".wav",
-            "--pathCheckpoint", out, "--compute_dtype", "bfloat16",
-            "--batchSizeGPU", "8", "--nEpoch", "1", "--n_process_loader",
-            "2", "--ignore_cache", "--random_seed", str(SEED)]
-    for n_epoch, want in (("1", "checkpoint_0.pt"), ("2", "checkpoint_1.pt")):
-        argv[argv.index("--nEpoch") + 1] = n_epoch
-        fns = reset_counts()
-        log = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(log):
-            rc = train.main(argv)
-        torch.cuda.synchronize()
-        lines = log.getvalue().splitlines()
-        print(f"train CLI --nEpoch {n_epoch}: rc={rc} in "
-              f"{time.perf_counter() - t0:.1f} s; "
-              f"{[ln for ln in lines if 'Resuming' in ln or 'throughput' in ln]}",
-              flush=True)
-        read_counts(fns, f"train CLI (--nEpoch {n_epoch})", list(SOURCES))
-        if rc != 0:
-            fail(f"train CLI exited {rc}: {lines[-20:]}")
-        files = sorted(os.listdir(out))
-        for f in (want, "checkpoint_logs.json", "checkpoint_args.json"):
-            if f not in files:
-                fail(f"train CLI did not write {f} (found {files})")
-    if not any("Resuming from checkpoint" in ln for ln in lines):
-        fail("the --nEpoch 2 rerun did not resume")
-    with open(os.path.join(out, "checkpoint_logs.json")) as f:
-        logs = json.load(f)
-    if logs["epoch"] != [0, 1] or not np.isfinite(
-            np.asarray(logs["locLoss_train"], np.float64)).all():
-        fail(f"train CLI logs: epochs {logs['epoch']}")
-    print(f"train CLI: epochs {logs['epoch']}, train loss per epoch "
-          f"{[round(float(np.mean(v)), 4) for v in logs['locLoss_train']]}; "
-          f"files {files}", flush=True)
+    for ar_mode, epochs in (("LSTM", ("1", "2")), ("GRU", ("1",)),
+                            ("transformer", ("1",))):
+        out = os.path.join(tmp, f"ckpt_{ar_mode}")
+        argv = ["--pathDB", db, "--file_extension", ".wav",
+                "--pathCheckpoint", out, "--compute_dtype", "bfloat16",
+                "--batchSizeGPU", "8", "--nEpoch", "1", "--n_process_loader",
+                "2", "--ignore_cache", "--random_seed", str(SEED),
+                "--arMode", ar_mode]
+        for n_epoch in epochs:
+            argv[argv.index("--nEpoch") + 1] = n_epoch
+            lines = _run_cli(train, argv,
+                             f"--arMode {ar_mode} --nEpoch {n_epoch}",
+                             PATH_KERNELS[ar_mode])
+            files = sorted(os.listdir(out))
+            want = f"checkpoint_{int(n_epoch) - 1}.pt"
+            for f in (want, "checkpoint_logs.json", "checkpoint_args.json"):
+                if f not in files:
+                    fail(f"train CLI did not write {f} (found {files})")
+        if len(epochs) > 1 and not any("Resuming from checkpoint" in ln
+                                       for ln in lines):
+            fail("the --nEpoch 2 rerun did not resume")
+        with open(os.path.join(out, "checkpoint_logs.json")) as f:
+            logs = json.load(f)
+        if logs["epoch"] != list(range(len(epochs))) or not np.isfinite(
+                np.asarray(logs["locLoss_train"], np.float64)).all():
+            fail(f"train CLI logs: epochs {logs['epoch']}")
+        print(f"train CLI --arMode {ar_mode}: epochs {logs['epoch']}, train "
+              f"loss per epoch "
+              f"{[round(float(np.mean(v)), 4) for v in logs['locLoss_train']]}"
+              f"; files {files}", flush=True)
 
 
 def main() -> None:
@@ -664,12 +1026,21 @@ def main() -> None:
     timings = phase_kernels(dev)
     print(f"[phase kernels {time.time() - t0:.1f} s]", flush=True)
     t0 = time.time()
-    phase_eval(dev)
+    for ar_mode in PATH_KERNELS:
+        phase_eval(dev, ar_mode)
     print(f"[phase eval {time.time() - t0:.1f} s]", flush=True)
-    t0 = time.time()
-    launches = phase_train(dev)
-    check_train_against_cpu(dev)
-    print(f"[phase train {time.time() - t0:.1f} s]", flush=True)
+    # each --arMode's path reports the launches of its own AR kernels
+    launches = {}
+    for ar_mode, own in (("LSTM", PATH_KERNELS["LSTM"]),
+                         ("GRU", ("gru_fwd", "gru_bwd")),
+                         ("transformer", ("causal_attention_fwd",
+                                          "causal_attention_bwd"))):
+        t0 = time.time()
+        counts = phase_train(dev, ar_mode)
+        launches.update({name: counts[name] for name in own})
+        check_train_against_cpu(dev, ar_mode)
+        print(f"[phase train {ar_mode} {time.time() - t0:.1f} s]",
+              flush=True)
     t0 = time.time()
     with tempfile.TemporaryDirectory() as tmp:
         phase_cli(tmp)

@@ -17,7 +17,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from cpc_audio_tpu.config import CPCConfig, TrainConfig
+from .config import CPCConfig, TrainConfig
 
 FORMAT = "cpc_audio_tpu_torch"
 

@@ -7,10 +7,14 @@ leaves and returns one flat state dict, keys prefixed ``model.`` and
 
 * encoder conv kernels, stored (W, in, out) ('WIO'), become torch's
   (out, in, W) ``weight``;
-* LSTM ``weight_ih_t (C, 4H)`` / ``weight_hh_t (H, 4H)`` become torch's
-  ``weight_ih (4H, C)`` / ``weight_hh (4H, H)``;
-* everything else, the K-stacked head tree included, keeps its name and
-  shape.
+* the recurrent ARs' ``weight_ih_t (C, G*H)`` / ``weight_hh_t (H, G*H)``
+  (LSTM G = 4, GRU G = 3, RNN G = 1) become torch's ``weight_ih (G*H, C)``
+  / ``weight_hh (G*H, H)``;
+* everything else keeps its name and shape: the K-stacked head tree, and
+  the transformer AR's ``gAR.layer0.multihead.{Wq,Wk,Wv,Wo}.kernel``,
+  ``multihead.Krelpos``, ``ffnetwork.lin{1,2}.{kernel,bias}`` and
+  ``ln_*``, whose ``(in, out)`` kernel layout the port keeps
+  (models/transformer.py).
 
 The mapping is linear and leaf by leaf, so a gradient tree of the same
 structure (or an optimizer moment tree) maps through it the same way:

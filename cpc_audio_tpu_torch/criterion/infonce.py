@@ -18,8 +18,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from cpc_audio_tpu.config import CPCConfig
-
+from ..config import CPCConfig
 from ..ops.feistel import ROUNDS, feistel_inverse, feistel_permute
 from .prediction import PredictionNetwork
 

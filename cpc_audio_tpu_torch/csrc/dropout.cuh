@@ -11,7 +11,11 @@
 
 namespace cpc {
 
-enum DropoutSite : uint32_t { kSiteAttention = 1, kSiteFFN = 2 };
+enum DropoutSite : uint32_t {
+  kSiteAttention = 1,
+  kSiteFFN = 2,
+  kSiteARAttention = 6,
+};
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x, uint32_t k) {
   uint32_t h = (x ^ k) * 0x9E3779B1u;

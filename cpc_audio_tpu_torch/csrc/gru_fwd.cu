@@ -1,0 +1,168 @@
+// K4: whole-window GRU forward recurrence.
+//
+// Replaces cpc_audio_tpu/ops/pallas/rnn.py `_gru_fwd_kernel` (called
+// through `gru_scan_pallas`): ys[b, t] = h_t with torch gate order
+// r, z, n and
+//   gh_t = h_{t-1} . W_hh^T + b_hh                 (3H, float32)
+//   r = sigmoid(x_r + gh_r),  z = sigmoid(x_z + gh_z)
+//   n = tanh(x_n + r * gh_n),  h_t = (1 - z) * n + z * h_{t-1}
+// where x_proj = x . W_ih^T + b_ih holds the input side only: b_hn sits
+// inside r * (.), so b_hh is an input of the kernel and is not folded into
+// x_proj as the LSTM's is.  State and gate math are float32.  For
+// training it also saves r, z, n (float32, (B, T, 3H)) and gh_n (float32,
+// (B, T, H)), as `_gru_fwd_kernel` does; both pointers may be null (the
+// eval path).
+//
+// Design: K1's (csrc/lstm_fwd.cu).  Batch rows are independent, so one
+// block owns one batch row for the whole window and keeps h in shared
+// memory across all T steps.  Each warp takes tiles of 32 rows of W_hh:
+// every lane accumulates its slice of the hidden axis (4 elements per
+// load) for all 32 rows at once, then a warp reduce-scatter leaves row
+// r0 + l's sum in lane l.  H % 32 == 0, so 3H is a whole number of tiles.
+//
+// What bounds it on an H100: the T steps are serial, and every step
+// re-reads W_hh (3H x H; 384 KB in bf16 at H = 256, more than one SM's
+// 227 KB of shared memory) from L2, so a step costs about one SM's L2
+// read bandwidth for 384 KB.  B = 32 blocks occupy a quarter of the 132
+// SMs.  Keeping W_hh on chip across a thread-block cluster is the planned
+// next step, shared with K1.
+#include "common.cuh"
+
+namespace {
+
+// 1024 threads keep more loads in flight; the float32 body needs more
+// than the 64 registers a thread may use at that size.
+template <typename T>
+constexpr int kThreads = sizeof(T) == 2 ? 1024 : 512;
+
+__device__ __forceinline__ float sigmoidf(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// One step of a warp reduce-scatter: each lane holds 2*OFF partial sums
+// v[0..2*OFF); afterwards it holds OFF of them, summed with its partner
+// lane ^ OFF (lanes with bit OFF set keep the upper half, in v[0..OFF)).
+template <int OFF>
+__device__ __forceinline__ void reduce_scatter_step(float* v, int lane) {
+  const bool upper = lane & OFF;
+#pragma unroll
+  for (int i = 0; i < OFF; ++i) {
+    const float send = upper ? v[i] : v[i + OFF];
+    const float keep = upper ? v[i + OFF] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads<T>) gru_fwd_kernel(
+    const T* __restrict__ x_proj, const T* __restrict__ w_hh,
+    const T* __restrict__ b_hh, const T* __restrict__ h0, T* __restrict__ ys,
+    T* __restrict__ hT, float* __restrict__ gates, float* __restrict__ ghn,
+    int n_steps, int H) {
+  extern __shared__ __align__(16) float smem[];
+  float* h = smem;       // (H,)  hidden state, f32
+  float* g = h + H;      // (3H,) h . W_hh^T + b_hh of this step
+  const int G = 3 * H;
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+
+  for (int j = threadIdx.x; j < H; j += blockDim.x)
+    h[j] = cpc::to_f32(h0[(size_t)b * H + j]);
+  __syncthreads();
+
+  const T* xb = x_proj + (size_t)b * n_steps * G;
+  T* yb = ys + (size_t)b * n_steps * H;
+  for (int t = 0; t < n_steps; ++t) {
+    for (int r0 = warp * 32; r0 < G; r0 += n_warps * 32) {
+      float v[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) v[i] = 0.0f;
+      const T* w_tile = w_hh + (size_t)r0 * H;
+      for (int j = 4 * lane; j < H; j += 128) {
+        const float4 hh = *reinterpret_cast<const float4*>(h + j);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const float4 w = load4(w_tile + (size_t)i * H + j);
+          v[i] += w.x * hh.x + w.y * hh.y + w.z * hh.z + w.w * hh.w;
+        }
+      }
+      reduce_scatter_step<16>(v, lane);
+      reduce_scatter_step<8>(v, lane);
+      reduce_scatter_step<4>(v, lane);
+      reduce_scatter_step<2>(v, lane);
+      reduce_scatter_step<1>(v, lane);
+      g[r0 + lane] = v[0] + cpc::to_f32(b_hh[r0 + lane]);
+    }
+    __syncthreads();
+    const T* xt = xb + (size_t)t * G;
+    for (int j = threadIdx.x; j < H; j += blockDim.x) {
+      const float r = sigmoidf(cpc::to_f32(xt[j]) + g[j]);
+      const float z = sigmoidf(cpc::to_f32(xt[H + j]) + g[H + j]);
+      const float gn = g[2 * H + j];
+      const float n = tanhf(cpc::to_f32(xt[2 * H + j]) + r * gn);
+      const float hn = (1.0f - z) * n + z * h[j];
+      h[j] = hn;
+      yb[(size_t)t * H + j] = cpc::from_f32<T>(hn);
+      if (gates != nullptr) {
+        float* gt = gates + ((size_t)b * n_steps + t) * G;
+        gt[j] = r;
+        gt[H + j] = z;
+        gt[2 * H + j] = n;
+      }
+      if (ghn != nullptr) ghn[((size_t)b * n_steps + t) * H + j] = gn;
+    }
+    __syncthreads();
+  }
+  for (int j = threadIdx.x; j < H; j += blockDim.x)
+    hT[(size_t)b * H + j] = cpc::from_f32<T>(h[j]);
+}
+
+template <typename T>
+int launch(const void* x_proj, const void* w_hh, const void* b_hh,
+           const void* h0, void* ys, void* hT, float* gates, float* ghn,
+           int B, int n_steps, int H, cudaStream_t stream) {
+  const size_t smem = 4 * (size_t)H * sizeof(float);
+  auto kernel = gru_fwd_kernel<T>;
+  cudaError_t err = cpc::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<B, kThreads<T>, smem, stream>>>(
+      static_cast<const T*>(x_proj), static_cast<const T*>(w_hh),
+      static_cast<const T*>(b_hh), static_cast<const T*>(h0),
+      static_cast<T*>(ys), static_cast<T*>(hT), gates, ghn, n_steps, H);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x_proj (B, T, 3H), w_hh (3H, H), b_hh (3H,), h0 (B, H), ys (B, T, H) and
+// hT (B, H) in `dtype`; gates (B, T, 3H) and ghn (B, T, H) float32 or null.
+extern "C" int cpc_gru_fwd(const void* x_proj, const void* w_hh,
+                           const void* b_hh, const void* h0, void* ys,
+                           void* hT, void* gates, void* ghn, int B,
+                           int n_steps, int H, int dtype, void* stream) {
+  if (H <= 0 || H % 32 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* g = static_cast<float*>(gates);
+  float* n = static_cast<float*>(ghn);
+  if (dtype == cpc::kBFloat16)
+    return launch<__nv_bfloat16>(x_proj, w_hh, b_hh, h0, ys, hT, g, n, B,
+                                 n_steps, H, s);
+  if (dtype == cpc::kFloat32)
+    return launch<float>(x_proj, w_hh, b_hh, h0, ys, hT, g, n, B, n_steps, H,
+                         s);
+  return (int)cudaErrorInvalidValue;
+}

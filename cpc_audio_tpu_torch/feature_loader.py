@@ -8,7 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cpc_audio_tpu.data.audio_io import decode_file
+from .data.audio_io import decode_file
 
 
 def seq_normalization(out: torch.Tensor) -> torch.Tensor:

@@ -1,78 +1,139 @@
-"""CPCAR in LSTM mode (cpc_audio_tpu/models/ar.py:49-172).
+"""Recurrent context networks CPCAR (GRU, LSTM, RNN) and NoAr
+(cpc_audio_tpu/models/ar.py:49-182).
 
 The input projection for the whole window is one matmul hoisted out of
-the recurrence (ar.py:75-77), with ``b_hh`` folded into it as ar.py:88
-does; only ``h . W_hh^T`` runs inside the recurrence, in the K1 kernel
-(ops/lstm.py), whose backward is the K1 backward kernel.  The hidden
-carry is explicit: ``forward(x, hidden)`` returns ``(y, (h, c))`` with
-each of ``h, c`` shaped (layers, B, H) and detached, like the reference's
-carried state.
+the recurrence (ar.py:75-77); only ``h . W_hh^T`` runs inside it:
+
+* LSTM: ``b_hh`` is folded into the projection as ar.py:88 does, and the
+  recurrence is the K1 kernel (ops/lstm.py);
+* GRU: ``b_hh`` stays apart (``b_hn`` sits inside ``r * (.)``) and the
+  recurrence is the K4 kernel (ops/gru.py);
+* RNN (tanh): a plain time loop, as the JAX package has no kernel for it
+  either (ar.py:117-121).
+
+The hidden carry is explicit: ``forward(x, hidden)`` returns ``(y,
+hidden_out)`` with a GRU/RNN state one (layers, B, H) tensor and an LSTM
+state an ``(h, c)`` pair of them, detached like the reference's carried
+state (ar.py:171).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .._common import uniform
+from ..ops.gru import gru
 from ..ops.lstm import lstm
 
-Hidden = Tuple[torch.Tensor, torch.Tensor]
+Hidden = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+MODES = {"GRU": 3, "LSTM": 4, "RNN": 1}       # gates per mode
 
 
-class _LSTMLayer(nn.Module):
-    """One LSTM layer, torch's nn.LSTM layout: weight_ih (4H, C),
-    weight_hh (4H, H), gate order i, f, g, o."""
+class _RecurrentLayer(nn.Module):
+    """One layer in torch's nn.GRU / nn.LSTM / nn.RNN layout: weight_ih
+    (G*H, C), weight_hh (G*H, H), bias_ih and bias_hh (G*H,)."""
 
-    def __init__(self, c_in: int, hidden: int,
+    def __init__(self, c_in: int, hidden: int, mode: str,
                  generator: Optional[torch.Generator]):
         super().__init__()
+        self.mode = mode
+        G = MODES[mode] * hidden
         bound = 1.0 / math.sqrt(hidden)
-        self.weight_ih = uniform((4 * hidden, c_in), bound, generator)
-        self.weight_hh = uniform((4 * hidden, hidden), bound, generator)
-        self.bias_ih = uniform((4 * hidden,), bound, generator)
-        self.bias_hh = uniform((4 * hidden,), bound, generator)
+        self.weight_ih = uniform((G, c_in), bound, generator)
+        self.weight_hh = uniform((G, hidden), bound, generator)
+        self.bias_ih = uniform((G,), bound, generator)
+        self.bias_hh = uniform((G,), bound, generator)
 
-    def forward(self, x: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor):
+    def forward(self, x: torch.Tensor, h0):
         dt = x.dtype
-        bias = self.bias_ih.to(dt) + self.bias_hh.to(dt)
-        x_proj = F.linear(x, self.weight_ih.to(dt), bias)   # (B, T, 4H)
-        return lstm(x_proj.contiguous(), self.weight_hh.to(dt).contiguous(),
-                    h0.to(dt).contiguous(), c0.to(dt).contiguous())
+        w_hh = self.weight_hh.to(dt).contiguous()
+        if self.mode == "LSTM":
+            bias = self.bias_ih.to(dt) + self.bias_hh.to(dt)
+            x_proj = F.linear(x, self.weight_ih.to(dt), bias)   # (B, T, 4H)
+            ys, hT, cT = lstm(x_proj.contiguous(), w_hh,
+                              h0[0].to(dt).contiguous(),
+                              h0[1].to(dt).contiguous())
+            return ys, (hT, cT)
+        x_proj = F.linear(x, self.weight_ih.to(dt), self.bias_ih.to(dt))
+        if self.mode == "GRU":
+            return gru(x_proj.contiguous(), w_hh,
+                       self.bias_hh.to(dt).contiguous(),
+                       h0.to(dt).contiguous())
+        return _rnn_scan(x_proj, w_hh, self.bias_hh.to(dt), h0.to(dt))
+
+
+def _rnn_scan(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+              h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tanh RNN, h_t = tanh(x_proj[t] + h_{t-1} . W_hh^T + b_hh), with a
+    float32 state like the kernels'; differentiable by torch autograd."""
+    w_t, b = w_hh.float().t(), b_hh.float()
+    xp = x_proj.float()
+    h = h0.float()
+    ys = []
+    for t in range(x_proj.shape[1]):
+        h = torch.tanh(xp[:, t] + h @ w_t + b)
+        ys.append(h)
+    return torch.stack(ys, dim=1).to(x_proj.dtype), h.to(h0.dtype)
 
 
 class CPCAR(nn.Module):
-    """Multi-layer LSTM context network."""
+    """Multi-layer recurrent context network, ``mode`` GRU, LSTM or RNN."""
 
     def __init__(self, dim_input: int, dim_output: int, num_layers: int = 1,
+                 mode: str = "LSTM",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if mode not in MODES:
+            raise ValueError(f"CPCAR mode must be one of {sorted(MODES)}, "
+                             f"got {mode!r}")
         self.dim_output = dim_output
         self.num_layers = num_layers
+        self.mode = mode
         for layer in range(num_layers):
             c_in = dim_input if layer == 0 else dim_output
             setattr(self, f"layer{layer}",
-                    _LSTMLayer(c_in, dim_output, generator))
+                    _RecurrentLayer(c_in, dim_output, mode, generator))
 
     def zero_state(self, batch: int, dtype: torch.dtype,
                    device: torch.device) -> Hidden:
         shape = (self.num_layers, batch, self.dim_output)
-        return (torch.zeros(shape, dtype=dtype, device=device),
-                torch.zeros(shape, dtype=dtype, device=device))
+        if self.mode == "LSTM":
+            return (torch.zeros(shape, dtype=dtype, device=device),
+                    torch.zeros(shape, dtype=dtype, device=device))
+        return torch.zeros(shape, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor, hidden: Optional[Hidden] = None
+    def forward(self, x: torch.Tensor, hidden: Optional[Hidden] = None,
+                train: bool = False, seed: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Hidden]:
+        """``train`` and ``seed`` are unused: a recurrent AR has no
+        dropout."""
         if hidden is None:
             hidden = self.zero_state(x.shape[0], x.dtype, x.device)
-        hs, cs = [], []
+        new_hidden = []
         y = x
         for layer in range(self.num_layers):
-            y, hT, cT = getattr(self, f"layer{layer}")(
-                y, hidden[0][layer], hidden[1][layer])
-            hs.append(hT)
-            cs.append(cT)
-        return y, (torch.stack(hs).detach(), torch.stack(cs).detach())
+            h0 = (hidden[0][layer], hidden[1][layer]) \
+                if self.mode == "LSTM" else hidden[layer]
+            y, hT = getattr(self, f"layer{layer}")(y, h0)
+            new_hidden.append(hT)
+        if self.mode == "LSTM":
+            return y, (torch.stack([h for h, _ in new_hidden]).detach(),
+                       torch.stack([c for _, c in new_hidden]).detach())
+        return y, torch.stack(new_hidden).detach()
+
+
+class NoAr(nn.Module):
+    """Identity AR (ar.py:175-182): the context is the encoding."""
+
+    def zero_state(self, batch: int, dtype: torch.dtype,
+                   device: torch.device) -> None:
+        return None
+
+    def forward(self, x: torch.Tensor, hidden=None, train: bool = False,
+                seed: Optional[torch.Tensor] = None):
+        return x, hidden

@@ -1,11 +1,13 @@
 """CPCModel: encoder + autoregressive context network
-(cpc_audio_tpu/models/cpc.py), for the default configuration.
+(cpc_audio_tpu/models/cpc.py).
 
-``model(batch, label, hidden, train) -> (c, z, label, hidden_out)`` with
-channels-last activations, as in the JAX package.  Parameters are float32;
-activations run in ``config.compute_dtype``.  The default model has no
-dropout, so ``train`` changes nothing here; gradients flow through cuDNN
-convs and the K1 kernels.
+``model(batch, label, hidden, train, seed) -> (c, z, label, hidden_out)``
+with channels-last activations, as in the JAX package.  Parameters are
+float32; activations run in ``config.compute_dtype``.  The AR is any of
+the JAX package's ``--arMode``s: LSTM (K1 kernels), GRU (K4), RNN (a
+plain loop), transformer (K5 attention) or no_ar.  Only the transformer
+AR drops in training, from ``seed``; gradients flow through cuDNN convs
+and the AR's kernels.
 """
 
 from __future__ import annotations
@@ -15,30 +17,46 @@ from typing import Optional
 import torch
 from torch import nn
 
-from cpc_audio_tpu.config import CPCConfig
-
 from .._common import compute_dtype
-from .ar import CPCAR, Hidden
+from ..config import CPCConfig
+from .ar import CPCAR, MODES, NoAr
 from .encoder import CPCEncoder
+from .transformer import TransformerAR
 
 _NOT_PORTED = "ROADMAP Queue 1 item 11 (non-default variants)"
+AR_MODES = tuple(MODES) + ("no_ar", "transformer")
 
 
 def _check_supported(config: CPCConfig) -> None:
     unsupported = {
-        "encoder_type": (config.encoder_type, "cpc"),
-        "normMode": (config.normMode, "layerNorm"),
-        "arMode": (config.arMode, "LSTM"),
-        "cpc_mode": (config.cpc_mode, None),
+        "encoder_type": (config.encoder_type, ("cpc",)),
+        "normMode": (config.normMode, ("layerNorm",)),
+        "arMode": (config.arMode, AR_MODES),
+        "cpc_mode": (config.cpc_mode, (None,)),
     }
     for field, (value, ported) in unsupported.items():
-        if value != ported:
+        if value not in ported:
             raise NotImplementedError(
                 f"{field}={value!r} is not ported yet: {_NOT_PORTED}")
 
 
+def get_ar(config: CPCConfig, generator: Optional[torch.Generator] = None
+           ) -> nn.Module:
+    """Flag -> AR (cpc_audio_tpu/models/cpc.py:31-42)."""
+    mode = config.arMode
+    if mode == "transformer":
+        # one transformer layer whatever nLevelsGRU says (cpc.py:35-38)
+        return TransformerAR(config.hiddenEncoder, 1,
+                             config.sizeWindow // 160, config.abspos,
+                             generator=generator)
+    if mode == "no_ar":
+        return NoAr()
+    return CPCAR(config.hiddenEncoder, config.hiddenGar, config.nLevelsGRU,
+                 mode, generator)
+
+
 class CPCModel(nn.Module):
-    """Encoder + LSTM AR with an explicit hidden carry."""
+    """Encoder + AR with an explicit hidden carry."""
 
     def __init__(self, config: CPCConfig,
                  generator: Optional[torch.Generator] = None):
@@ -47,17 +65,27 @@ class CPCModel(nn.Module):
         self.config = config
         self.dtype = compute_dtype(config.compute_dtype)
         self.gEncoder = CPCEncoder(config.hiddenEncoder, generator)
-        self.gAR = CPCAR(config.hiddenEncoder, config.hiddenGar,
-                         config.nLevelsGRU, generator)
+        self.gAR = get_ar(config, generator)
 
-    def forward(self, batch: torch.Tensor, label=None,
-                hidden: Optional[Hidden] = None, train: bool = False):
+    def zero_state(self, batch: int, device) -> object:
+        """The AR's zero hidden state in the compute dtype: a (layers, B,
+        H) tensor (GRU, RNN), an (h, c) pair of them (LSTM), or None
+        (transformer, no_ar)."""
+        return self.gAR.zero_state(batch, self.dtype, torch.device(device))
+
+    def forward(self, batch: torch.Tensor, label=None, hidden=None,
+                train: bool = False, seed: Optional[torch.Tensor] = None):
         z = self.gEncoder(batch, self.dtype)             # (B, S, C)
-        c, hidden_out = self.gAR(z, hidden)
+        c, hidden_out = self.gAR(z, hidden, train, seed)
         return c, z, label, hidden_out
 
 
 def build_model(config: CPCConfig,
                 generator: Optional[torch.Generator] = None) -> CPCModel:
-    """Build a CPCModel with weights drawn from ``generator``."""
+    """Build a CPCModel with weights drawn from ``generator``.  no_ar and
+    transformer emit hiddenEncoder-wide contexts, so they force hiddenGar
+    == hiddenEncoder (cpc.py:120-125); callers size the criterion from the
+    returned ``model.config``."""
+    if config.arMode in ("no_ar", "transformer"):
+        config = config.replace(hiddenGar=config.hiddenEncoder)
     return CPCModel(config, generator)

@@ -58,6 +58,18 @@ _SIGNATURES = {
                            _I),
     "cpc_layer_tail_bwd_tiles": ([_I, _I], _I),
     "cpc_layer_tail_bwd_smem": ([_I, _I, _I], ctypes.c_size_t),
+    # x_proj, w_hh, b_hh, h0, ys, hT, gates, ghn, B, T, H, dtype, stream
+    "cpc_gru_fwd": ([_P] * 8 + [_I] * 4 + [_P], _I),
+    # gates, ghn, h0, ys, dys, w_hh, dhT, dx, dghn, dh0, B, T, H, dtype,
+    # stream
+    "cpc_gru_bwd": ([_P] * 10 + [_I] * 4 + [_P], _I),
+    # q, k, v, bias, out, N, S, dk, layer, dropout, dtype, stream
+    "cpc_causal_attention_fwd": ([_P] * 5 + [_I] * 4 + _DROP + [_I, _P], _I),
+    "cpc_causal_attention_fwd_smem": ([_I, _I], ctypes.c_size_t),
+    # q, k, v, bias, dout, dq, dk, dv, dbias, N, S, dk, layer, dropout,
+    # dtype, stream
+    "cpc_causal_attention_bwd": ([_P] * 9 + [_I] * 4 + _DROP + [_I, _P], _I),
+    "cpc_causal_attention_bwd_smem": ([_I, _I], ctypes.c_size_t),
 }
 
 _LOCK = threading.Lock()

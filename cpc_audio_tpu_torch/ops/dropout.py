@@ -15,7 +15,11 @@ tiling, and the CPU and the card draw the same mask:
 * attention probabilities: ``w1 = (k * n_batch + b) * nheads + h``,
   ``w2 = i * S + j``;
 * FFN hidden: ``w1 = k * M + row``, ``w2 = f``;
-* predictions (rate 0.5): ``w1 = (k * B + b) * W + w``, ``w2 = c``.
+* predictions (rate 0.5): ``w1 = (k * B + b) * W + w``, ``w2 = c``;
+* the transformer AR's attention probabilities:
+  ``w1 = layer * N + n`` with ``n = b * nheads + h``, ``w2 = i * S + j``;
+* the transformer AR's FFN hidden: ``w1 = layer * B * S + row``,
+  ``w2 = f``.
 
 An element is kept when ``bits >= rate * 2**32`` and scaled by
 ``1 / (1 - rate)``, as ``cpc_audio_tpu/ops/pallas/attention.py:52,66-67``.
@@ -38,6 +42,8 @@ SITE_FFN = 2
 SITE_PREDICTION = 3
 SITE_STEP_SEED = 4      # train step: dropout seed from (key, step)
 SITE_ROUND_KEYS = 5     # train step: Feistel round keys from (key, step)
+SITE_AR_ATTENTION = 6   # transformer AR: attention probabilities
+SITE_AR_FFN = 7         # transformer AR: FFN hidden
 
 
 def _fmix(h: torch.Tensor) -> torch.Tensor:
@@ -107,6 +113,18 @@ def attention_mask(seed: torch.Tensor, rate: float, K: int, n_batch: int,
                  rate)
 
 
+def ar_attention_mask(seed: torch.Tensor, rate: float, layer: int, N: int,
+                      S: int, device) -> Optional[torch.Tensor]:
+    """(N, S, S) float32 keep / (1 - rate) of the AR's attention layer
+    ``layer`` over N = B * nheads rows; None at rate 0."""
+    if rate == 0.0:
+        return None
+    w1 = (layer * N + torch.arange(N, device=device)).reshape(N, 1, 1)
+    w2 = torch.arange(S * S, device=device).reshape(S, S)
+    return scale(bits(seed, SITE_AR_ATTENTION, w1, w2) >= threshold(rate),
+                 rate)
+
+
 def ffn_mask(seed: torch.Tensor, rate: float, K: int, M: int, F: int,
              device) -> Optional[torch.Tensor]:
     """(K, M, F) float32 keep / (1 - rate); None at rate 0."""
@@ -118,14 +136,15 @@ def ffn_mask(seed: torch.Tensor, rate: float, K: int, M: int, F: int,
 
 
 def dropout(x: torch.Tensor, seed: torch.Tensor, rate: float,
-            site: int = SITE_PREDICTION) -> torch.Tensor:
-    """Dropout of a tensor whose last axis is the feature axis: w1 is the
-    flat index of the leading axes, w2 the feature index."""
+            site: int = SITE_PREDICTION, offset: int = 0) -> torch.Tensor:
+    """Dropout of a tensor whose last axis is the feature axis: w1 is
+    ``offset`` plus the flat index of the leading axes, w2 the feature
+    index."""
     check_rate(rate, seed, "dropout")
     if rate == 0.0:
         return x
     n = x.shape[-1]
-    w1 = torch.arange(x.numel() // n, device=x.device).reshape(
+    w1 = offset + torch.arange(x.numel() // n, device=x.device).reshape(
         x.shape[:-1] + (1,))
     w2 = torch.arange(n, device=x.device)
     mask = scale(bits(seed, site, w1, w2) >= threshold(rate), rate)

@@ -1,0 +1,234 @@
+"""GRU recurrence over a whole window: the K4 kernels and their plain
+versions.
+
+Counterpart of ``cpc_audio_tpu/ops/pallas/rnn.py`` ``gru_scan_pallas``
+and its custom VJP.  The input projection is hoisted out of the
+recurrence by the caller (models/ar.py), so only ``h . W_hh^T + b_hh`` is
+serial.  ``w_hh`` is in torch's ``(3H, H)`` layout, gate order r, z, n.
+Unlike the LSTM's, ``b_hh`` cannot be folded into ``x_proj``: ``b_hn``
+sits inside ``r * (h . W_hn^T + b_hn)`` (rnn.py:250-255), so the kernel
+takes it as its own input and ``x_proj`` carries ``b_ih`` only.  State and
+gate math are float32 whatever the input dtype; outputs are rounded to
+the input dtype.
+
+* :func:`gru_fwd` runs the recurrence (csrc/gru_fwd.cu) and, for
+  training, saves the gates r, z, n (B, T, 3H) and ``ghn = h . W_hn^T +
+  b_hn`` (B, T, H), both float32;
+* :func:`gru_bwd` is the reverse scan (csrc/gru_bwd.cu) giving float32
+  dx_proj = (dr, dz, dn), dghn and dh0.  The gradient of ``h . W_hh^T +
+  b_hh`` is dgh = (dr, dz, dghn): its first two thirds are dx_proj's, so
+  only dghn is written;
+* :func:`gru` is the differentiable entry point: a
+  ``torch.autograd.Function`` over the two, with dW_hh = dgh^T h_prev and
+  db_hh = sum dgh formed from dx_proj and dghn, as rnn.py:383-385.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import _build
+
+_NAME = "gru_fwd"
+_BWD_NAME = "gru_bwd"
+
+
+def gru_scan_ref(x_proj: torch.Tensor, w_hh: torch.Tensor,
+                 b_hh: torch.Tensor, h0: torch.Tensor,
+                 save_residuals: bool = False):
+    """Plain time loop (``_gru_fwd_kernel``, rnn.py:238-262) with the
+    kernel's float32 state.  Returns (ys (B,T,H), hT (B,H)), and with
+    ``save_residuals`` also the float32 gates (B,T,3H) and ghn (B,T,H)."""
+    H = h0.shape[-1]
+    xp = x_proj.float()
+    w_t = w_hh.float().t()
+    b = b_hh.float()
+    h = h0.float()
+    ys, gates, ghns = [], [], []
+    for t in range(x_proj.shape[1]):
+        gh = h @ w_t + b
+        xr, xz, xn = xp[:, t].split(H, dim=-1)
+        hr, hz, ghn = gh.split(H, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * ghn)
+        h = (1.0 - z) * n + z * h
+        ys.append(h)
+        if save_residuals:
+            gates.append(torch.cat([r, z, n], dim=-1))
+            ghns.append(ghn)
+    out = (torch.stack(ys, dim=1).to(x_proj.dtype), h.to(h0.dtype))
+    if save_residuals:
+        out += (torch.stack(gates, dim=1), torch.stack(ghns, dim=1))
+    return out
+
+
+def _h_prev(h0: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+    """(B, T, H): h0 followed by ys[:, :-1], in the compute dtype."""
+    return torch.cat([h0[:, None].to(ys.dtype), ys[:, :-1]], dim=1)
+
+
+def gru_bwd_ref(gates: torch.Tensor, ghn: torch.Tensor, h0: torch.Tensor,
+                ys: torch.Tensor, dys: torch.Tensor, w_hh: torch.Tensor,
+                dhT: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain reverse scan, line by line ``_gru_bwd_kernel`` (rnn.py
+    :265-296), keeping dghn where the Pallas kernel keeps dgh.  Returns
+    float32 (dx_proj (B,T,3H), dghn (B,T,H), dh0 (B,H))."""
+    H = h0.shape[-1]
+    w = w_hh.float()
+    h_prev = _h_prev(h0, ys).float()
+    dh = dhT.float()
+    dxs, dghns = [], []
+    for t in range(gates.shape[1] - 1, -1, -1):
+        r, z, n = gates[:, t].split(H, dim=-1)
+        dh = dys[:, t].float() + dh
+        dz = dh * (h_prev[:, t] - n) * z * (1.0 - z)
+        dn = dh * (1.0 - z) * (1.0 - n * n)
+        dghn = dn * r
+        dr = dn * ghn[:, t] * r * (1.0 - r)
+        dxs.append(torch.cat([dr, dz, dn], dim=-1))
+        dghns.append(dghn)
+        dh = dh * z + torch.cat([dr, dz, dghn], dim=-1) @ w
+    return (torch.stack(dxs[::-1], dim=1), torch.stack(dghns[::-1], dim=1),
+            dh)
+
+
+def _check_hidden(name: str, B: int, T: int, H: int) -> None:
+    _build.require(B > 0 and T > 0 and 0 < H <= 2048 and H % 32 == 0, name,
+                   f"B={B}, T={T}, H={H} out of range (H % 32 == 0, so "
+                   f"that 3H is whole 32-row tiles; H <= 2048)")
+
+
+def gru_fwd(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+            h0: torch.Tensor, save_residuals: bool = False):
+    """x_proj (B, T, 3H), w_hh (3H, H), b_hh (3H,), h0 (B, H), one dtype.
+
+    CPU tensors run :func:`gru_scan_ref`; CUDA tensors launch the kernel
+    (csrc/gru_fwd.cu) and add one to ``gru_fwd.launches``.  Returns what
+    :func:`gru_scan_ref` returns."""
+    if not _build.runs_kernel(_NAME, x_proj, w_hh, b_hh, h0):
+        return gru_scan_ref(x_proj, w_hh, b_hh, h0, save_residuals)
+    B, T, G = x_proj.shape
+    H = h0.shape[-1]
+    _build.check_inputs(_NAME, x_proj.dtype, x_proj=x_proj, w_hh=w_hh,
+                        b_hh=b_hh, h0=h0)
+    _build.require(G == 3 * H and tuple(w_hh.shape) == (G, H)
+                   and tuple(b_hh.shape) == (G,)
+                   and tuple(h0.shape) == (B, H), _NAME,
+                   f"shapes x_proj {tuple(x_proj.shape)}, w_hh "
+                   f"{tuple(w_hh.shape)}, b_hh {tuple(b_hh.shape)}, h0 "
+                   f"{tuple(h0.shape)}")
+    _check_hidden(_NAME, B, T, H)
+    _build.require(w_hh.data_ptr() % 16 == 0, _NAME,
+                   "w_hh must be 16-byte aligned (4 elements are read at "
+                   "once)")
+    dev = x_proj.device
+    ys = torch.empty((B, T, H), dtype=x_proj.dtype, device=dev)
+    hT = torch.empty_like(h0)
+    gates = ghn = None
+    if save_residuals:
+        gates = torch.empty((B, T, G), dtype=torch.float32, device=dev)
+        ghn = torch.empty((B, T, H), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        status = lib.cpc_gru_fwd(
+            x_proj.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
+            h0.data_ptr(), ys.data_ptr(), hT.data_ptr(), _build.ptr(gates),
+            _build.ptr(ghn), B, T, H, _build.DTYPE_CODES[x_proj.dtype],
+            _build.stream(dev))
+    _build.check(status, _NAME)
+    gru_fwd.launches += 1
+    return (ys, hT) + ((gates, ghn) if save_residuals else ())
+
+
+gru_fwd.launches = 0
+
+
+def gru_bwd(gates: torch.Tensor, ghn: torch.Tensor, h0: torch.Tensor,
+            ys: torch.Tensor, dys: torch.Tensor, w_hh: torch.Tensor,
+            dhT: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Reverse scan: gates (B,T,3H), ghn (B,T,H) and dhT (B,H) float32;
+    h0 (B,H), ys and dys (B,T,H), w_hh (3H,H) in the compute dtype.
+    Returns float32 (dx_proj, dghn, dh0).
+
+    CPU tensors run :func:`gru_bwd_ref`; CUDA tensors launch the kernel
+    (csrc/gru_bwd.cu) and add one to ``gru_bwd.launches``."""
+    if not _build.runs_kernel(_BWD_NAME, gates, ghn, h0, ys, dys, w_hh, dhT):
+        return gru_bwd_ref(gates, ghn, h0, ys, dys, w_hh, dhT)
+    B, T, G = gates.shape
+    H = G // 3
+    _build.check_inputs(_BWD_NAME, torch.float32, gates=gates, ghn=ghn,
+                        dhT=dhT)
+    _build.check_inputs(_BWD_NAME, dys.dtype, h0=h0, ys=ys, dys=dys,
+                        w_hh=w_hh)
+    _build.require(G == 3 * H and tuple(ghn.shape) == (B, T, H)
+                   and tuple(ys.shape) == (B, T, H)
+                   and tuple(dys.shape) == (B, T, H)
+                   and tuple(w_hh.shape) == (G, H)
+                   and tuple(h0.shape) == (B, H)
+                   and tuple(dhT.shape) == (B, H), _BWD_NAME,
+                   f"shapes gates {tuple(gates.shape)}, ghn "
+                   f"{tuple(ghn.shape)}, ys {tuple(ys.shape)}, dys "
+                   f"{tuple(dys.shape)}, w_hh {tuple(w_hh.shape)}")
+    _check_hidden(_BWD_NAME, B, T, H)
+    dev = gates.device
+    dx = torch.empty_like(gates)
+    dghn = torch.empty_like(ghn)
+    dh0 = torch.empty_like(dhT)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        status = lib.cpc_gru_bwd(
+            gates.data_ptr(), ghn.data_ptr(), h0.data_ptr(), ys.data_ptr(),
+            dys.data_ptr(), w_hh.data_ptr(), dhT.data_ptr(), dx.data_ptr(),
+            dghn.data_ptr(), dh0.data_ptr(), B, T, H,
+            _build.DTYPE_CODES[dys.dtype], _build.stream(dev))
+    _build.check(status, _BWD_NAME)
+    gru_bwd.launches += 1
+    return dx, dghn, dh0
+
+
+gru_bwd.launches = 0
+
+
+class _GRU(torch.autograd.Function):
+    """Forward K4 saving its residuals; backward K4 plus dW_hh, db_hh."""
+
+    @staticmethod
+    def forward(ctx, x_proj, w_hh, b_hh, h0):
+        train = any(ctx.needs_input_grad)
+        out = gru_fwd(x_proj, w_hh, b_hh, h0, save_residuals=train)
+        ys, hT = out[:2]
+        if train:
+            ctx.save_for_backward(out[2], out[3], ys, w_hh, h0)
+        return ys, hT
+
+    @staticmethod
+    def backward(ctx, dys, dhT):
+        gates, ghn, ys, w_hh, h0 = ctx.saved_tensors
+        dys = torch.zeros_like(ys) if dys is None \
+            else dys.to(ys.dtype).contiguous()
+        dhT = torch.zeros_like(h0, dtype=torch.float32) if dhT is None \
+            else dhT.float().contiguous()
+        dx, dghn, dh0 = gru_bwd(gates, ghn, h0, ys, dys, w_hh, dhT)
+        B, T, G = gates.shape
+        H = G // 3
+        h_prev = _h_prev(h0, ys).float().reshape(B * T, H)
+        # dW_hh[g, j] = sum_{b,t} dgh[b,t,g] h_prev[b,t,j], where dgh =
+        # (dr, dz, dghn) and (dr, dz) are dx's first two thirds
+        drz = dx.reshape(B * T, G)[:, :2 * H]
+        dghn = dghn.reshape(B * T, H)
+        dw = torch.cat([drz.t() @ h_prev, dghn.t() @ h_prev])
+        db = torch.cat([drz.sum(dim=0), dghn.sum(dim=0)])
+        return (dx.to(ys.dtype), dw.to(w_hh.dtype), db.to(w_hh.dtype),
+                dh0.to(h0.dtype))
+
+
+def gru(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+        h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable recurrence: (ys, hT) as :func:`gru_fwd`, with a
+    backward through :func:`gru_bwd`."""
+    return _GRU.apply(x_proj, w_hh, b_hh, h0)

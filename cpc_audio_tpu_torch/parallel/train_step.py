@@ -14,7 +14,9 @@
   modules own them, where JAX returned a new ``TrainState``.
 * The per-step dropout seed and Feistel round keys derive from (epoch key,
   step) on the device (``ops/dropout.step_words``), the role of
-  ``stream_keys``, so a step needs no host sync.
+  ``stream_keys``, so a step needs no host sync.  The one seed feeds every
+  dropout of the step (the transformer AR's and the heads'), kept apart by
+  the sites of ``ops/dropout.py``.
 """
 
 from __future__ import annotations
@@ -110,7 +112,8 @@ def make_train_step(state: TrainState, device) -> Callable:
         state.optimizer.zero_grad(set_to_none=True)
         state.model.train()
         state.criterion.train()
-        c, z, _, hid = state.model(batch, None, hidden, train=True)
+        c, z, _, hid = state.model(batch, None, hidden, train=True,
+                                   seed=seed)
         losses, acc = state.criterion(c, z, None, train=True,
                                       round_keys=keys, seed=seed)
         losses.sum().backward()

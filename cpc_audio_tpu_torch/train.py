@@ -1,11 +1,13 @@
 """CPC pretraining CLI of the port (cpc_audio_tpu/train.py:73-409), one
 device, unsupervised CPC criterion.
 
-Same flags (``cpc_audio_tpu.config``), data loader (``cpc_audio_tpu.data``)
-and checkpoint directory contract as the JAX trainer.  The step runs on
-the first CUDA device when there is one (the kernels), else on the CPU
-(the plain versions).  Loss and accuracy sums stay on the device and are
-read back at ``logging_step`` boundaries and at epoch end.
+Same flags (the port's copy of the JAX package's config), data loader
+(its copy of the data package) and checkpoint directory contract as the
+JAX trainer.  The step runs on the first CUDA device (the kernels), and
+raises where there is none; only a caller that asks for it with
+``main(argv, device="cpu")`` runs on the CPU (the plain versions, as the
+tests do).  Loss and accuracy sums stay on the device and are read back
+at ``logging_step`` boundaries and at epoch end.
 
 Usage:
     python -m cpc_audio_tpu_torch.train --pathDB <dir> [--pathTrain x.txt]
@@ -27,18 +29,16 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from cpc_audio_tpu.config import (CPCConfig, TrainConfig, add_cpc_args,
-                                  config_from_namespace)
-from cpc_audio_tpu.data import AudioBatchData, filter_seqs, find_all_seqs
-from cpc_audio_tpu.utils import misc as utils
-
 from . import checkpoint as ckpt
-from ._common import compute_dtype
+from .config import (CPCConfig, TrainConfig, add_cpc_args,
+                     config_from_namespace)
 from .criterion import build_criterion
+from .data import AudioBatchData, filter_seqs, find_all_seqs
 from .models import build_model
 from .parallel.train_step import (TrainState, create_train_state, epoch_key,
                                   make_train_step, make_val_step,
                                   step_streams)
+from .utils import misc as utils
 
 
 def _read_back(sums: Dict[str, torch.Tensor]) -> Tuple[np.ndarray, ...]:
@@ -129,7 +129,10 @@ def run(train_dataset: AudioBatchData, val_dataset: AudioBatchData,
     """Epoch loop (cpc_audio_tpu/train.py:153-265)."""
     train_step = make_train_step(state, device)
     val_step = make_val_step(state.model, state.criterion, device)
-    keep_hidden = config.samplingType == "sequential"
+    # a carried state needs sequential windows and a recurrent AR
+    # (cpc_audio_tpu/train.py:164-166)
+    keep_hidden = config.samplingType == "sequential" \
+        and config.arMode in ("GRU", "LSTM", "RNN")
     n_epoch = config.nEpoch
     start_epoch = len(logs["epoch"])
     best_acc = -1.0
@@ -150,8 +153,7 @@ def run(train_dataset: AudioBatchData, val_dataset: AudioBatchData,
         print("Training dataset ~%d batches, Validation dataset ~%d"
               " batches, batch size %d" % (len(train_loader),
                                            len(val_loader), batch_size))
-        hidden = state.model.gAR.zero_state(
-            batch_size, compute_dtype(config.compute_dtype), device) \
+        hidden = state.model.zero_state(batch_size, device) \
             if keep_hidden else None
         # one key per epoch, from (seed, absolute epoch): resume-reproducible
         ekey = epoch_key(config.random_seed or 0, 2 * epoch, device)
@@ -229,8 +231,24 @@ def _load_into(state: TrainState, path: str, load_criterion: bool,
         state.step.fill_(data["step"])
 
 
-def main(argv=None) -> int:
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the first CUDA device, and raises where there is
+    none: the port's entry points run on the card unless the caller asks
+    for another device."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port's trainer runs on the GPU; pass "
+            "device='cpu' to main() to run the plain versions on the CPU")
+    return torch.device("cuda", 0)
+
+
+def main(argv=None, device=None) -> int:
+    """Train from the command line ``argv``; ``device`` as
+    :func:`resolve_device`."""
     args = parse_args(argv)
+    device = resolve_device(device)
     cpc_config = config_from_namespace(args)
     train_config = TrainConfig.from_dict(vars(args))
     _refuse_unported(train_config)
@@ -294,12 +312,13 @@ def main(argv=None) -> int:
         max_size_loaded=train_config.max_size_loaded, seed=seed)
         for seqs in (seq_train, seq_val)]
 
-    device = torch.device("cuda", 0) if torch.cuda.is_available() \
-        else torch.device("cpu")
     batch_size = train_config.batchSizeGPU
     print(f"Let's use 1 device ({device})!")
     gen = torch.Generator().manual_seed(seed)
     model = build_model(cpc_config, gen)
+    # build_model sets hiddenGar for no_ar / transformer: the criterion and
+    # the sidecar follow it (cpc_audio_tpu/train.py:373-376)
+    cpc_config = model.config
     criterion = build_criterion(cpc_config, gen)
     state = create_train_state(model, criterion, device,
                                cpc_config.learningRate, cpc_config.beta1,

@@ -6,14 +6,15 @@ imports no JAX, so it also runs where JAX is not installed:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 (``--noconftest``: tests/conftest.py sets up JAX).  chip_smoke.py repeats
-the comparison at the eval path's own shapes.
+the comparison at the train paths' own shapes.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from cpc_audio_tpu_torch.ops import ffn, head_attention, lstm
+from cpc_audio_tpu_torch.ops import (causal_attention, ffn, gru,
+                                     head_attention, lstm)
 
 pytestmark = pytest.mark.cuda
 
@@ -248,3 +249,79 @@ def test_backward_wrappers_reject_what_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="F=96"):
         ffn.layer_tail_bwd(x, v, v, w1, torch.zeros(1, 96, device=dev),
                            w1.transpose(1, 2).contiguous(), v, v, v, x)
+
+
+# ---- K4 (GRU) and K5 (causal attention with a dense bias) -------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,T,H", [(3, 9, 32), (2, 5, 64)])
+def test_gru_kernels(dev, dtype, B, T, H):
+    """The forward with its saved residuals, then the reverse scan, each
+    against its plain version; H = 32: 3 row tiles over the block's warps
+    and column pairs that leave most thread groups idle."""
+    rng = np.random.RandomState(H + T)
+    args = (_rand(rng, dev, dtype, B, T, 3 * H),
+            _rand(rng, dev, dtype, 3 * H, H, scale=0.2),
+            _rand(rng, dev, dtype, 3 * H, scale=0.1),
+            _rand(rng, dev, dtype, B, H))
+    before = gru.gru_fwd.launches
+    got = gru.gru_fwd(*args, save_residuals=True)
+    assert gru.gru_fwd.launches == before + 1
+    want = gru.gru_scan_ref(*args, save_residuals=True)
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, **TOL[dtype])
+    for g, w in zip(got[2:], want[2:]):
+        torch.testing.assert_close(g, w, **TOL[torch.float32])
+    ys, _, gates, ghn = want
+    dys = _rand(rng, dev, dtype, B, T, H)
+    dhT = _rand(rng, dev, torch.float32, B, H)
+    bargs = (gates, ghn, args[3], ys, dys, args[1], dhT)
+    before = gru.gru_bwd.launches
+    got = gru.gru_bwd(*bargs)
+    assert gru.gru_bwd.launches == before + 1
+    for name, g, w in zip(("dx", "dghn", "dh0"), got, gru.gru_bwd_ref(*bargs)):
+        _close(g, w, BWD_REL[torch.float32], name)
+
+
+@pytest.mark.parametrize("rate", RATES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("N,S,dk", [(8, 20, 16), (4, 116, 32), (2, 128, 32)])
+def test_causal_attention_kernels(dev, dtype, N, S, dk, rate):
+    """Forward and backward against the plain versions with the same seed
+    and layer; S = 128 needs 198 KB of shared memory in the backward;
+    dbias is exactly 0 above the diagonal although the bias is not."""
+    rng = np.random.RandomState(N + S + dk)
+    args = [_rand(rng, dev, dtype, N, S, dk) for _ in range(3)]
+    args.append(_rand(rng, dev, dtype, N, S, S, scale=0.5))
+    seed = _seed(dev)
+    before = causal_attention.causal_attention_fwd.launches
+    torch.testing.assert_close(
+        causal_attention.causal_attention_fwd(*args, rate, seed, 1),
+        causal_attention.causal_attention_ref(*args, rate, seed, 1),
+        **TOL[dtype])
+    assert causal_attention.causal_attention_fwd.launches == before + 1
+    dout = _rand(rng, dev, dtype, N, S, dk)
+    before = causal_attention.causal_attention_bwd.launches
+    got = causal_attention.causal_attention_bwd(*args, dout, rate, seed, 1)
+    assert causal_attention.causal_attention_bwd.launches == before + 1
+    want = causal_attention.causal_attention_bwd_ref(*args, dout, rate, seed,
+                                                     1)
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        _close(g, w, BWD_REL[dtype], name)
+    upper = torch.ones(S, S, dtype=torch.bool, device=dev).triu(1)
+    assert torch.count_nonzero(got[3][:, upper]) == 0
+
+
+def test_gru_and_causal_wrappers_reject_what_kernels_do_not_take(dev):
+    x = torch.zeros(2, 3, 120, device=dev)
+    with pytest.raises(ValueError, match="H % 32"):
+        gru.gru_fwd(x, torch.zeros(120, 40, device=dev),
+                    torch.zeros(120, device=dev),
+                    torch.zeros(2, 40, device=dev))
+    S, dk = 256, 32          # the (S, S) ds and p tiles exceed 227 KB
+    q = torch.zeros(1, S, dk, device=dev)
+    b = torch.zeros(1, S, S, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        causal_attention.causal_attention_bwd(q, q, q, b, q)
+    with pytest.raises(ValueError, match="expected torch.float32"):
+        causal_attention.causal_attention_fwd(q, q, q, b.half())

@@ -1,0 +1,152 @@
+"""The port (cpc_audio_tpu_torch) stands alone: it names nothing of the JAX
+package in an import, its own copies of the JAX package's host modules
+(config, utils, data, ops/native) match the originals, and its trainer
+runs on the GPU unless the caller asks for the CPU."""
+
+import argparse
+import dataclasses
+import glob
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from cpc_audio_tpu import checkpoint as jckpt
+from cpc_audio_tpu import config as jconfig
+from cpc_audio_tpu.data import dataset as jdataset
+from cpc_audio_tpu.utils import misc as jmisc
+from cpc_audio_tpu_torch import checkpoint as tckpt
+from cpc_audio_tpu_torch import config as tconfig
+from cpc_audio_tpu_torch import train as ttrain
+from cpc_audio_tpu_torch.data import audio_io, dataset as tdataset
+from cpc_audio_tpu_torch.ops import native
+from cpc_audio_tpu_torch.utils import misc as tmisc
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_JAX_IMPORT = re.compile(r"^\s*(import\s+cpc_audio_tpu(\s|\.|,|$)|"
+                         r"from\s+cpc_audio_tpu(\.\S*)?\s+import\s)")
+
+
+def _port_sources():
+    files = glob.glob(os.path.join(REPO, "cpc_audio_tpu_torch", "**", "*.py"),
+                      recursive=True)
+    return sorted(files) + [os.path.join(REPO, "chip_smoke.py")]
+
+
+def test_port_sources_import_nothing_of_the_jax_package():
+    assert len(_port_sources()) > 20
+    bad = [f"{os.path.relpath(path, REPO)}:{n}: {line.strip()}"
+           for path in _port_sources()
+           for n, line in enumerate(open(path), 1)
+           if _JAX_IMPORT.match(line)
+           or re.match(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax)\b",
+                       line)]
+    assert not bad, bad
+
+
+def test_source_scan_sees_a_jax_package_import():
+    """The pattern of the scan above catches each form of import."""
+    for line in ("import cpc_audio_tpu", "import cpc_audio_tpu.config",
+                 "    from cpc_audio_tpu.config import CPCConfig",
+                 "from cpc_audio_tpu import config"):
+        assert _JAX_IMPORT.match(line), line
+    for line in ("import cpc_audio_tpu_torch",
+                 "from cpc_audio_tpu_torch.config import CPCConfig",
+                 "# from cpc_audio_tpu.config import CPCConfig"):
+        assert not _JAX_IMPORT.match(line), line
+
+
+@pytest.mark.parametrize("cls", ["CPCConfig", "TrainConfig"])
+def test_config_copy_has_the_jax_fields_and_defaults(cls):
+    jf = [(f.name, f.default) for f in
+          dataclasses.fields(getattr(jconfig, cls))]
+    tf = [(f.name, f.default) for f in
+          dataclasses.fields(getattr(tconfig, cls))]
+    assert tf == jf
+
+
+def test_cli_flags_match_the_jax_package():
+    jns = jconfig.add_cpc_args(argparse.ArgumentParser()).parse_args([])
+    tns = tconfig.add_cpc_args(argparse.ArgumentParser()).parse_args([])
+    assert vars(tns) == vars(jns)
+    assert tconfig.config_from_namespace(tns).to_dict() == \
+        jconfig.config_from_namespace(jns).to_dict()
+    assert tconfig.get_default_cpc_config().to_dict() == \
+        jconfig.get_default_cpc_config().to_dict()
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_checkpoint_args_sidecar_loads_in_the_other_package(tmp_path,
+                                                            writer):
+    """A checkpoint_args.json written by either package gives the same
+    config in both."""
+    cfg = dict(arMode="GRU", hiddenGar=64, nPredicts=4, abspos=True,
+               compute_dtype="bfloat16")
+    run = dict(pathDB="/data", batchSizeGPU=16, save_step=2)
+    if writer == "jax":
+        jckpt.save_args_sidecar(str(tmp_path), jconfig.CPCConfig(**cfg),
+                                jconfig.TrainConfig(**run))
+    else:
+        tckpt.save_args_sidecar(str(tmp_path), tconfig.CPCConfig(**cfg),
+                                tconfig.TrainConfig(**run))
+    (tmp_path / "checkpoint_3.pt").write_bytes(b"")
+    _, _, jcfg, jraw = jckpt.get_checkpoint_data(str(tmp_path))
+    _, _, tcfg, traw = tckpt.get_checkpoint_data(str(tmp_path))
+    assert traw == jraw
+    assert tcfg.to_dict() == jcfg.to_dict()
+    assert tcfg.arMode == "GRU" and tcfg.hiddenGar == 64
+    assert tconfig.TrainConfig.from_dict(traw).to_dict() == \
+        jconfig.TrainConfig.from_dict(jraw).to_dict()
+
+
+def test_utils_copy_matches():
+    for epoch in range(12):
+        assert tmisc.lr_for_epoch(2e-4, epoch, 3, 4) == \
+            jmisc.lr_for_epoch(2e-4, epoch, 3, 4)
+    logs = {"a": np.array([2.0, 4.0])}
+    np.testing.assert_array_equal(tmisc.update_logs(logs, 2)["a"],
+                                  jmisc.update_logs(logs, 2)["a"])
+
+
+def test_data_copy_finds_and_decodes_the_same(tmp_path):
+    import sys
+    sys.path.insert(0, os.path.join(REPO, "perf"))
+    from soak_loader import make_tree
+    make_tree(str(tmp_path), 4, 2, min_s=0.2, max_s=0.3, tone=True,
+              quiet=True)
+    seqs_t, spk_t = tdataset.find_all_seqs(str(tmp_path), extension=".wav",
+                                           load_cache=False)
+    seqs_j, spk_j = jdataset.find_all_seqs(str(tmp_path), extension=".wav",
+                                           load_cache=False)
+    assert seqs_t == seqs_j and spk_t == spk_j and len(seqs_t) == 4
+    from cpc_audio_tpu.data import audio_io as jaudio_io
+    path = os.path.join(str(tmp_path), seqs_t[0][1])
+    np.testing.assert_array_equal(audio_io.decode_file(path),
+                                  jaudio_io.decode_file(path))
+
+
+def test_native_copy_loads_the_shared_library():
+    """The port's ops/native.py loads the top-level native/ build, the
+    one native/*.cc the two packages share."""
+    if native.available():
+        assert native._LIB_PATH == os.path.join(REPO, "native",
+                                                "libcpc_native.so")
+    assert os.path.dirname(native._NATIVE_DIR) == REPO
+
+
+def test_train_main_runs_on_the_gpu_or_raises():
+    """No device means cuda:0: without a CUDA device main() raises rather
+    than fall back to the CPU; device='cpu' is the caller's choice."""
+    assert ttrain.resolve_device("cpu") == torch.device("cpu")
+    argv = ["--pathDB", "/nonexistent"]
+    if torch.cuda.is_available():
+        assert ttrain.resolve_device() == torch.device("cuda", 0)
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ttrain.main(argv)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ttrain.resolve_device(None)
+    # the CPU, asked for, gets as far as the data (no such directory)
+    assert ttrain.main(argv, device="cpu") == 1

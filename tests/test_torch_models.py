@@ -137,7 +137,7 @@ def test_training_calls_refuse():
 
 
 @pytest.mark.parametrize("override", [
-    {"arMode": "GRU"}, {"encoder_type": "mfcc"}, {"normMode": "ID"},
+    {"normMode": "batchNorm"}, {"encoder_type": "mfcc"}, {"normMode": "ID"},
     {"cpc_mode": "reverse"}])
 def test_unported_model_variants_name_roadmap_item(override):
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
@@ -153,17 +153,29 @@ def test_unported_criterion_variants_name_roadmap_item(override, item):
         build_criterion(CPCConfig(**override))
 
 
+PORT_MODULES = (
+    "cpc_audio_tpu_torch", "cpc_audio_tpu_torch.train",
+    "cpc_audio_tpu_torch.checkpoint", "cpc_audio_tpu_torch.config",
+    "cpc_audio_tpu_torch.convert", "cpc_audio_tpu_torch.feature_loader",
+    "cpc_audio_tpu_torch.data", "cpc_audio_tpu_torch.utils",
+    "cpc_audio_tpu_torch.criterion", "cpc_audio_tpu_torch.models",
+    "cpc_audio_tpu_torch.models.transformer",
+    "cpc_audio_tpu_torch.parallel.train_step",
+    "cpc_audio_tpu_torch.ops._build", "cpc_audio_tpu_torch.ops.native",
+    "cpc_audio_tpu_torch.ops.lstm", "cpc_audio_tpu_torch.ops.gru",
+    "cpc_audio_tpu_torch.ops.head_attention",
+    "cpc_audio_tpu_torch.ops.causal_attention",
+    "cpc_audio_tpu_torch.ops.ffn", "cpc_audio_tpu_torch.ops.dropout",
+    "cpc_audio_tpu_torch.ops.feistel")
+
+
 def test_import_leaves_jax_out():
+    """Importing every port module loads neither JAX nor anything of the
+    JAX package (the port keeps its own copies of the host modules)."""
     code = ("import sys\n"
-            "import cpc_audio_tpu_torch, cpc_audio_tpu_torch.convert, "
-            "cpc_audio_tpu_torch.feature_loader, "
-            "cpc_audio_tpu_torch.criterion, cpc_audio_tpu_torch.models, "
-            "cpc_audio_tpu_torch.parallel.train_step, "
-            "cpc_audio_tpu_torch.ops._build, cpc_audio_tpu_torch.ops.lstm, "
-            "cpc_audio_tpu_torch.ops.head_attention, "
-            "cpc_audio_tpu_torch.ops.ffn, cpc_audio_tpu_torch.ops.feistel\n"
+            f"import {', '.join(PORT_MODULES)}\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax'))\n"
+            "('jax', 'jaxlib', 'flax', 'optax', 'cpc_audio_tpu'))\n"
             "assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)

@@ -191,12 +191,12 @@ def test_train_cli_runs_and_resumes(tmp_path, capsys):
             "--negativeSamplingExt", "4", "--sizeWindow", "5120",
             "--batchSizeGPU", "4", "--nEpoch", "1", "--n_process_loader",
             "1", "--ignore_cache", "--random_seed", "3"]
-    assert ttrain.main(argv) == 0
+    assert ttrain.main(argv, device="cpu") == 0
     assert sorted(os.listdir(out)) == ["checkpoint_0.pt",
                                        "checkpoint_args.json",
                                        "checkpoint_logs.json"]
     argv[argv.index("--nEpoch") + 1] = "2"
-    assert ttrain.main(argv) == 0
+    assert ttrain.main(argv, device="cpu") == 0
     assert "Resuming from checkpoint" in capsys.readouterr().out
     assert os.path.exists(os.path.join(out, "checkpoint_1.pt"))
     with open(os.path.join(out, "checkpoint_logs.json")) as f:
@@ -204,12 +204,13 @@ def test_train_cli_runs_and_resumes(tmp_path, capsys):
     assert logs["epoch"] == [0, 1]
     assert all(np.isfinite(v).all() for v in logs["locLoss_train"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        ttrain.main(argv + ["--supervised"])
+        ttrain.main(argv + ["--supervised"], device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        ttrain.main(argv + ["--nGPU", "2"])
+        ttrain.main(argv + ["--nGPU", "2"], device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        ttrain.main(argv + ["--export_torch"])
+        ttrain.main(argv + ["--export_torch"], device="cpu")
     jax_ckpt = tmp_path / "jax_format.pt"
     jax_ckpt.write_bytes(b"\x80\x04N.")        # a pickle, not a torch zip
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        ttrain.main(argv + ["--restart", "--load", str(jax_ckpt)])
+        ttrain.main(argv + ["--restart", "--load", str(jax_ckpt)],
+                    device="cpu")
