@@ -7,38 +7,45 @@ Phases (any failure exits non-zero):
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from cpc_audio_tpu_torch/csrc with nvcc (one
      process per source, all at once);
-  3. for each of the ten kernels (K1-K5, forward and backward), at the
-     train paths' exact shapes, in bfloat16 and in float32, at dropout
+  3. for each of the fourteen kernels (K1-K7, forward and backward), at
+     the train paths' exact shapes, in bfloat16 and in float32, at dropout
      rate 0 and 0.1 where the kernel drops: compare with its plain PyTorch
      version on the card (same inputs, same dropout seed) against a stated
      tolerance, time both (median of 25 synchronised runs) and compute its
      bound (bytes over the memory rate or operations over the peak rate,
      whichever is larger); then time the yardstick PyTorch call where one
      computes the same function (cuDNN LSTM/GRU, scaled_dot_product_
-     attention);
+     attention), and for K7 the port's unfused encoder layers (cuDNN conv
+     + ChannelNorm + ReLU, a composition, not one call);
   4. the eval path at full width, for --arMode LSTM (the default), GRU
-     and transformer: the default CPCConfig in bfloat16 with seeded random
-     weights, make_val_step on a (32, 1, 20480) batch; every forward
-     kernel of the mode's path must be launched during that step; for
-     LSTM also the step's time, the same weights in float32 on a (2, 1,
-     20480) batch on the card (kernels) and on the CPU (plain versions),
-     which must agree, and build_feature on a 64000-sample WAV, which must
-     give (1, 400, 256) finite float32 features;
-  5. the train paths, LSTM then GRU then transformer: make_train_step at
-     the same config (bf16, B = 32, dropout 0.1 in the heads and the
-     transformer AR), 2 warm-up and 10 timed steps on a fixed batch; the
-     launch counts of the mode's AR kernels and of K2 and K3 must rise,
-     the losses must be finite and fall; prints train windows/s and the
-     step's device time by kernel (torch.profiler); then one float32 step
-     on a (2, 1, 20480) batch on the card and on the CPU (same weights,
-     round keys and dropout seed) must give the same losses and gradients;
+     and transformer, and the fused-layer path (LSTM with CPC_ATTN_BLOCK=1
+     and CPC_PALLAS_CONV=1: K6 in the heads, K7 in encoder layers 1-4):
+     the default CPCConfig in bfloat16 with seeded random weights,
+     make_val_step on a (32, 1, 20480) batch; every forward kernel of the
+     path must be launched during that step (and K2 not at all on the
+     fused path); for LSTM also the step's time, the same weights in
+     float32 on a (2, 1, 20480) batch on the card (kernels) and on the CPU
+     (plain versions), which must agree, and build_feature on a
+     64000-sample WAV, which must give (1, 400, 256) finite float32
+     features;
+  5. the train paths, LSTM, GRU, transformer, then the fused-layer path:
+     make_train_step at the same config (bf16, B = 32, dropout 0.1 in the
+     heads and the transformer AR), 2 warm-up and 10 timed steps on a
+     fixed batch; the launch counts of the path's kernels must rise (on
+     the fused path K6 once and K7 four times a step, K2 never), the
+     losses must be finite and fall; prints train windows/s and the step's
+     device time by kernel (torch.profiler); then one float32 step on a
+     (2, 1, 20480) batch on the card and on the CPU (same weights, round
+     keys and dropout seed) must give the same losses and gradients;
+     last, the default and the fused LSTM steps in turns, one line of
+     train windows/s for both;
   6. the train CLI (cpc_audio_tpu_torch.train.main) on a synthetic WAV
      tree in bf16: the default architecture for one epoch, which writes
      checkpoint_0.pt and both sidecars, and a rerun with --nEpoch 2 that
      resumes; then one epoch with --arMode GRU and one with --arMode
      transformer;
   7. print one JSON line of per-kernel results (each kernel's launches
-     from its own mode's train path), the card line again, and last the
+     from its own path's train run), the card line again, and last the
      JSON result line.
 There is no CPU path: without a CUDA device the script exits with 1.
 """
@@ -159,8 +166,9 @@ def kernel_cases(dev: torch.device, dtype: torch.dtype, B: int = 32):
     heads over W=116 anchors, 8 heads x dk=32, FFN width 2048, and the
     transformer AR's N = B*8 = 256 rows of S = 128.  Backward calls return
     tuples of gradients, the recurrences' forwards tuples of outputs."""
-    from cpc_audio_tpu_torch.ops import (causal_attention as ca, ffn, gru,
-                                         head_attention as ha, lstm)
+    from cpc_audio_tpu_torch.ops import (attention_block as ab,
+                                         causal_attention as ca, conv_ln as cl,
+                                         ffn, gru, head_attention as ha, lstm)
 
     g = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -205,6 +213,9 @@ def kernel_cases(dev: torch.device, dtype: torch.dtype, B: int = 32):
     # j <= i; the backward still writes all of dbias (zeros above)
     elt = torch.empty((), dtype=dtype).element_size()
     causal_read = (3 * N * Sa * dk + causal_pairs) * elt
+    block_args = (rand(M, D),) + tuple(rand(K, D, D, scale=D ** -0.5)
+                                       for _ in range(4)) + attn_args[3:]
+    proj = 2 * K * M * D * D         # one (M, D) x (D, D) product per k
     # the train path's recurrences also save their residuals
     cases = [Case("lstm_fwd", 0.0,
                   lambda: lstm.lstm_fwd(*lstm_args, save_residuals=True),
@@ -263,8 +274,61 @@ def kernel_cases(dev: torch.device, dtype: torch.dtype, B: int = 32):
                      *causal_args, causal_dout, r, seed),
                  causal_args + (causal_dout,), 10 * dk * causal_pairs,
                  causal_read + causal_dout.numel() * elt),
+            # the q, k, v and Wo projections and K2's 6 dk per causal pair
+            Case("attention_block_fwd", rate,
+                 lambda r=rate: ab.attention_block_fwd(*block_args, B, nh, r,
+                                                       seed),
+                 lambda r=rate: ab.attention_block_ref(*block_args, B, nh, r,
+                                                       seed),
+                 block_args, 4 * proj + 6 * dk * pairs),
+            # recomputed q, k, v and dy (4 products), K2's backward with y
+            # (18 dk per causal pair), dWq/k/v/o (4) and dcp (3)
+            Case("attention_block_bwd", rate,
+                 lambda r=rate: ab.attention_block_bwd(*block_args, attn_dout,
+                                                       B, nh, r, seed),
+                 lambda r=rate: ab.attention_block_bwd_ref(
+                     *block_args, attn_dout, B, nh, r, seed),
+                 block_args + (attn_dout,), 11 * proj + 18 * dk * pairs),
         ]
+    layers, dys = conv_layers(rand, B)
+    conv_flops = sum(2 * dy.numel() * l[0].shape[-1] * l[6]
+                     for l, dy in zip(layers, dys))
+    conv_ins = tuple(t for l in layers for t in l[:5])
+    # the four layers of a step: the conv's product (2 s C x C per frame);
+    # the backward recomputes it and forms dx and dW, 3 products
+    cases += [
+        Case("conv_ln_fwd", 0.0,
+             lambda: tuple(cl.conv_ln_relu_fwd(*l) for l in layers),
+             lambda: tuple(cl.conv_ln_relu_ref(*l) for l in layers),
+             conv_ins, conv_flops),
+        Case("conv_ln_bwd", 0.0,
+             lambda: tuple(gr for l, dy in zip(layers, dys)
+                           for gr in cl.conv_ln_relu_bwd(*l[:5], dy, *l[5:])),
+             lambda: tuple(gr for l, dy in zip(layers, dys)
+                           for gr in cl.conv_ln_relu_bwd_ref(*l[:5], dy,
+                                                             *l[5:])),
+             conv_ins + dys, 3 * conv_flops)]
     return cases
+
+
+def conv_layers(rand, B: int = 32):
+    """Encoder layers 1-4 at the default config, as the fused path runs
+    them: ((x, w, bias, nw, nb, stride, kernel, pad), ...) with x (B, T,
+    256) channels-last (T = 4096, 1024, 512, 256; ReLU outputs, so >= 0),
+    w (kernel*256, 256), and the outputs' cotangents."""
+    from cpc_audio_tpu_torch.models import encoder
+    C, T, f32 = 256, 4096, torch.float32
+    layers, dys = [], []
+    for k, s, p in zip(encoder.CONV_KERNELS[1:], encoder.CONV_STRIDES[1:],
+                       encoder.CONV_PADS[1:]):
+        layers.append((rand(B, T, C).abs(),
+                       rand(k * C, C, scale=(k * C) ** -0.5),
+                       rand(C, scale=0.1, dt=f32),
+                       rand(C, scale=0.1, dt=f32) + 1,
+                       rand(C, scale=0.1, dt=f32), s, k, p))
+        T = (T + 2 * p - k) // s + 1
+        dys.append(rand(B, T, C, scale=0.1))
+    return layers, tuple(dys)
 
 
 # tolerance per (kernel, dtype): forward (atol, rtol, why), elementwise;
@@ -280,6 +344,11 @@ TOLERANCE = {
                                         "products in another order"),
     ("causal_attention_fwd", torch.float32): (2e-4, 0.0,
                                               "f32 sums in another order"),
+    ("attention_block_fwd", torch.float32): (2e-4, 0.0, "f32 sums of 256 "
+                                             "products in another order"),
+    ("conv_ln_fwd", torch.float32): (2e-4, 0.0, "f32 sums of 2048 products "
+                                     "in another order, over the channels' "
+                                     "std"),
     ("lstm_fwd", torch.bfloat16): (1e-2, 2e-2, "bf16 rounding of ys; gates "
                                    "and cell states are f32"),
     ("gru_fwd", torch.bfloat16): (1e-2, 2e-2, "bf16 rounding of ys; gates "
@@ -293,6 +362,13 @@ TOLERANCE = {
         1e-2, 2e-2, "bf16 output rounding; both round the probabilities "
         "to bf16, which flips by one ulp where the f32 sums differ in "
         "order"),
+    ("attention_block_fwd", torch.bfloat16): (
+        2 ** -4, 2e-2, "x = round(c + round(att)), |att| up to 8: where c "
+        "and att cancel, a one-ulp flip of round(att) (2^-5 at 4-8) stands "
+        "whole beside a small x"),
+    ("conv_ln_fwd", torch.bfloat16): (
+        1e-2, 2e-2, "bf16 output rounding that flips by one ulp where the "
+        "f32 sums before it differ in order"),
     ("lstm_bwd", torch.float32): (1e-4, "f32 sums in another order over "
                                   "128 serial steps"),
     ("gru_bwd", torch.float32): (1e-4, "f32 sums in another order over "
@@ -304,6 +380,11 @@ TOLERANCE = {
         "ReLU-kink flips of hidden units within rounding of 0"),
     ("causal_attention_bwd", torch.float32): (
         1e-4, "f32 sums in another order"),
+    ("attention_block_bwd", torch.float32): (
+        1e-4, "f32 sums in another order; dW over 3712 rows"),
+    ("conv_ln_bwd", torch.float32): (
+        1e-3, "f32 sums in another order, and ReLU-kink flips of units "
+        "within rounding of 0, which move a whole row of dh"),
     ("lstm_bwd", torch.bfloat16): (1e-4, "f32 state; only dys and W_hh "
                                    "are bf16, read exactly"),
     ("gru_bwd", torch.bfloat16): (1e-4, "f32 state; only dys, ys, h0 and "
@@ -317,6 +398,14 @@ TOLERANCE = {
     ("causal_attention_bwd", torch.bfloat16): (
         2e-2, "bf16 rounding of the four outputs, flipping by one ulp "
         "where the f32 sums before it differ in order"),
+    ("attention_block_bwd", torch.bfloat16): (
+        2e-2, "bf16 rounding of q, k, v, dy, ds, p*r, dq, dk, dv and y "
+        "that flips by one ulp where the f32 sums before it differ in "
+        "order"),
+    ("conv_ln_bwd", torch.bfloat16): (
+        2e-2, "bf16 rounding of h's output and of dh that flips by one ulp "
+        "where the f32 sums before it differ in order, and ReLU-kink "
+        "flips"),
 }
 
 SOURCES = {
@@ -340,12 +429,20 @@ SOURCES = {
                              "cpc_audio_tpu/ops/pallas/attention.py:81"),
     "causal_attention_bwd": ("cpc_audio_tpu_torch/csrc/causal_attention_bwd.cu",
                              "cpc_audio_tpu/ops/pallas/attention.py:96"),
+    "attention_block_fwd": ("cpc_audio_tpu_torch/csrc/attention_block_fwd.cu",
+                            "cpc_audio_tpu/ops/pallas/head_attention.py:385"),
+    "attention_block_bwd": ("cpc_audio_tpu_torch/csrc/attention_block_bwd.cu",
+                            "cpc_audio_tpu/ops/pallas/head_attention.py:421"),
+    "conv_ln_fwd": ("cpc_audio_tpu_torch/csrc/conv_ln_fwd.cu",
+                    "cpc_audio_tpu/ops/pallas/conv_ln.py:94"),
+    "conv_ln_bwd": ("cpc_audio_tpu_torch/csrc/conv_ln_bwd.cu",
+                    "cpc_audio_tpu/ops/pallas/conv_ln.py:105"),
 }
 
-# The train path runs K2, K3 and K5 at dropout 0.1: the JSON line reports
-# each kernel in bf16 at the rate the train step gives it.
+# The train path runs K2, K3, K5 and K6 at dropout 0.1: the JSON line
+# reports each kernel in bf16 at the rate the train step gives it.
 TRAIN_RATE = {"lstm_fwd": 0.0, "lstm_bwd": 0.0, "gru_fwd": 0.0,
-              "gru_bwd": 0.0}
+              "gru_bwd": 0.0, "conv_ln_fwd": 0.0, "conv_ln_bwd": 0.0}
 
 # H100 SXM peaks (NVIDIA's data sheet; dense, at 700 W): device memory
 # bytes/s, and operations/s by input type (bf16 on the tensor cores,
@@ -469,10 +566,15 @@ def phase_kernels(dev: torch.device, B: int = 32) -> dict:
         print(f"  {name}: {lib_ms:.4f} ms ({what}); kernel "
               f"{results[name]['ms']:.4f} ms", flush=True)
     for name in ("relpos_attention_fwd", "relpos_attention_bwd",
-                 "layer_tail_fwd", "layer_tail_bwd"):
+                 "layer_tail_fwd", "layer_tail_bwd", "attention_block_fwd",
+                 "attention_block_bwd"):
         print(f"  {name}: none (no single call applies the rel-pos skew, "
               f"or LN -> FFN -> residual -> LN)", flush=True)
+    for name in ("conv_ln_fwd", "conv_ln_bwd"):
+        print(f"  {name}: none (no single call does conv + ChannelNorm + "
+              f"ReLU; the composition is timed below)", flush=True)
     port_layer_times(dev, B)
+    conv_composition_times(dev, timings=results, B=B)
     torch.cuda.empty_cache()
     return results
 
@@ -495,9 +597,47 @@ def port_layer_times(dev: torch.device, B: int = 32) -> None:
               f"{fwd:.4f} ms, backward with dW {bwd:.4f} ms", flush=True)
 
 
+def conv_composition_times(dev: torch.device, timings: dict,
+                           B: int = 32) -> None:
+    """The port's unfused encoder layers 1-4 (cuDNN F.conv1d, ChannelNorm
+    and ReLU, channels-first, as models/encoder.py runs them by default)
+    on K7's inputs, forward and autograd backward with dW, bf16: a
+    composition of calls, not one call, so it is no library time."""
+    import torch.nn.functional as F
+    from cpc_audio_tpu_torch.models.norms import ChannelNorm
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+
+    def rand(*shape, scale=1.0, dt=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dt)
+
+    layers, dys = conv_layers(rand, B)
+    norm = ChannelNorm(256).to(dev)
+    leaves, outs = [], []
+    for (x, w, bias, _, _, s, k, p), dy in zip(layers, dys):
+        xc = x.transpose(1, 2).contiguous().requires_grad_(True)
+        wc = w.reshape(k, 256, 256).permute(2, 1, 0).contiguous() \
+            .requires_grad_(True)
+        bc = bias.to(torch.bfloat16).requires_grad_(True)
+        leaves.append((xc, wc, bc))
+        outs.append(lambda xc=xc, wc=wc, bc=bc, s=s, p=p: torch.relu(
+            norm(F.conv1d(xc, wc, bc, stride=s, padding=p))))
+    ys = [f() for f in outs]
+    cts = [dy.transpose(1, 2) for dy in dys]
+    fwd = median_ms(lambda: [f() for f in outs])
+    bwd = median_ms(lambda: [torch.autograd.grad(y, list(lv) + list(
+        norm.parameters()), ct, retain_graph=True)
+        for y, lv, ct in zip(ys, leaves, cts)])
+    print(f"  composition, encoder layers 1-4 unfused (cuDNN conv + "
+          f"ChannelNorm + ReLU, channels-first; autograd backward with "
+          f"dW): forward {fwd:.4f} ms, backward {bwd:.4f} ms; K7 "
+          f"{timings['conv_ln_fwd']['ms']:.4f} / "
+          f"{timings['conv_ln_bwd']['ms']:.4f} ms", flush=True)
+
+
 def counters():
-    from cpc_audio_tpu_torch.ops import (causal_attention, ffn, gru,
-                                         head_attention, lstm)
+    from cpc_audio_tpu_torch.ops import (attention_block, causal_attention,
+                                         conv_ln, ffn, gru, head_attention,
+                                         lstm)
     return {"lstm_fwd": lstm.lstm_fwd, "lstm_bwd": lstm.lstm_bwd,
             "relpos_attention_fwd": head_attention.relpos_attention,
             "relpos_attention_bwd": head_attention.relpos_attention_bwd,
@@ -505,16 +645,30 @@ def counters():
             "layer_tail_bwd": ffn.layer_tail_bwd,
             "gru_fwd": gru.gru_fwd, "gru_bwd": gru.gru_bwd,
             "causal_attention_fwd": causal_attention.causal_attention_fwd,
-            "causal_attention_bwd": causal_attention.causal_attention_bwd}
+            "causal_attention_bwd": causal_attention.causal_attention_bwd,
+            "attention_block_fwd": attention_block.attention_block,
+            "attention_block_bwd": attention_block.attention_block_bwd,
+            "conv_ln_fwd": conv_ln.conv_ln_relu,
+            "conv_ln_bwd": conv_ln.conv_ln_relu_bwd}
 
 
-# the kernels of each --arMode's path: its AR's and the heads' (K2, K3)
+# the kernels of each path: its AR's and the heads' (K2, K3); the fused-
+# layer path (CPC_ATTN_BLOCK=1, CPC_PALLAS_CONV=1) runs K6 in place of K2
+# and K7 in encoder layers 1-4
 HEADS = ("relpos_attention_fwd", "relpos_attention_bwd", "layer_tail_fwd",
          "layer_tail_bwd")
+FUSED = "LSTM fused"
 PATH_KERNELS = {"LSTM": ("lstm_fwd", "lstm_bwd") + HEADS,
                 "GRU": ("gru_fwd", "gru_bwd") + HEADS,
                 "transformer": ("causal_attention_fwd",
-                                "causal_attention_bwd") + HEADS}
+                                "causal_attention_bwd") + HEADS,
+                FUSED: ("lstm_fwd", "lstm_bwd", "attention_block_fwd",
+                        "attention_block_bwd", "layer_tail_fwd",
+                        "layer_tail_bwd", "conv_ln_fwd", "conv_ln_bwd")}
+# launches a step on the fused path; K2 must not run there at all
+FUSED_PER_STEP = {"attention_block_fwd": 1, "attention_block_bwd": 1,
+                  "conv_ln_fwd": 4, "conv_ln_bwd": 4,
+                  "relpos_attention_fwd": 0, "relpos_attention_bwd": 0}
 
 
 def reset_counts() -> dict:
@@ -524,12 +678,21 @@ def reset_counts() -> dict:
     return fns
 
 
-def read_counts(fns: dict, path: str, names) -> dict:
+def read_counts(fns: dict, path: str, names, fused_steps: int = 0) -> dict:
+    """The launches since reset_counts; each of ``names`` must have run.
+    On the fused path (``fused_steps`` > 0 forward-and-backward or forward
+    steps) K6 and K7 must have run exactly FUSED_PER_STEP times a step
+    where they are among ``names``, and K2 never."""
     launches = {name: fn.launches for name, fn in fns.items()}
     print(f"{path} launches: {launches}", flush=True)
     for name in names:
         if launches[name] <= 0:
             fail(f"the {path} did not launch {name}")
+    for name, per in FUSED_PER_STEP.items():
+        if fused_steps and (name in names or per == 0) \
+                and launches[name] != per * fused_steps:
+            fail(f"the {path} launched {name} {launches[name]} times, not "
+                 f"{per} x {fused_steps}")
     return launches
 
 
@@ -552,16 +715,37 @@ def synthetic_audio(n: int, batch: int, seed: int) -> np.ndarray:
 
 
 
-def build(ar_mode: str, dtype: str, generator: torch.Generator):
-    """Model and criterion at the default CPCConfig with ``ar_mode``; the
-    criterion is sized from ``model.config``, whose hiddenGar build_model
-    sets for the mode, as the trainer does."""
+@contextlib.contextmanager
+def switches(path: str):
+    """The fused-layer path's two switches, set while its model and
+    criterion are built (build_model and build_criterion read them)."""
+    names = ("CPC_ATTN_BLOCK", "CPC_PALLAS_CONV")
+    saved = {n: os.environ.get(n) for n in names}
+    for n in names:
+        os.environ[n] = "1" if path == FUSED else "0"
+    try:
+        yield
+    finally:
+        for n, v in saved.items():
+            if v is None:
+                os.environ.pop(n)
+            else:
+                os.environ[n] = v
+
+
+def build(path: str, dtype: str, generator: torch.Generator):
+    """Model and criterion at the default CPCConfig on ``path`` (an
+    --arMode, or FUSED: LSTM with both fused-layer switches); the criterion
+    is sized from ``model.config``, whose hiddenGar build_model sets for
+    the mode, as the trainer does."""
     from cpc_audio_tpu_torch.config import CPCConfig
     from cpc_audio_tpu_torch.criterion import build_criterion
     from cpc_audio_tpu_torch.models import build_model
-    model = build_model(CPCConfig(compute_dtype=dtype, arMode=ar_mode),
-                        generator)
-    return model, build_criterion(model.config, generator)
+    with switches(path):
+        model = build_model(CPCConfig(compute_dtype=dtype,
+                                      arMode=path.split()[0]), generator)
+        crit = build_criterion(model.config, generator)
+    return model, crit
 
 
 def check_hidden(hidden, ar_mode: str, B: int, H: int) -> None:
@@ -577,14 +761,14 @@ def check_hidden(hidden, ar_mode: str, B: int, H: int) -> None:
             fail(f"bad hidden state {tuple(h.shape)}")
 
 
-def phase_eval(dev: torch.device, ar_mode: str = "LSTM",
+def phase_eval(dev: torch.device, path: str = "LSTM",
                B: int = 32) -> dict:
     """make_val_step at full width in bf16; for the default LSTM also its
     time, the float32 card-vs-CPU check and build_feature."""
     from cpc_audio_tpu_torch.parallel.train_step import make_val_step
 
-    model, crit = build(ar_mode, "bfloat16",
-                        torch.Generator().manual_seed(SEED))
+    ar_mode = path.split()[0]
+    model, crit = build(path, "bfloat16", torch.Generator().manual_seed(SEED))
     model, crit, cfg = model.to(dev), crit.to(dev), model.config
     step = make_val_step(model, crit, dev)
     batch = torch.from_numpy(synthetic_audio(cfg.sizeWindow, B, SEED)).to(dev)
@@ -593,13 +777,13 @@ def phase_eval(dev: torch.device, ar_mode: str = "LSTM",
     fns = reset_counts()
     hidden, metrics = step(batch, round_keys=keys)
     torch.cuda.synchronize()
-    launches = read_counts(fns, f"{ar_mode} eval step",
-                           [n for n in PATH_KERNELS[ar_mode]
-                            if n.endswith("_fwd")])
+    launches = read_counts(fns, f"{path} eval step",
+                           [n for n in PATH_KERNELS[path]
+                            if n.endswith("_fwd")], int(path == FUSED))
 
     K = cfg.nPredicts
     losses, acc = metrics["losses"].float().cpu(), metrics["acc"].cpu()
-    print(f"{ar_mode} eval step (B={B}, bf16): losses="
+    print(f"{path} eval step (B={B}, bf16): losses="
           f"{losses.numpy().round(4)} acc={acc.numpy().round(4)}",
           flush=True)
     if tuple(losses.shape) != (K,) or tuple(acc.shape) != (K,):
@@ -609,7 +793,7 @@ def phase_eval(dev: torch.device, ar_mode: str = "LSTM",
     if not ((acc >= 0).all() and (acc <= 1).all()):
         fail("accuracy outside [0, 1]")
     check_hidden(hidden, ar_mode, B, cfg.hiddenGar)
-    if ar_mode != "LSTM":
+    if path != "LSTM":
         return launches
 
     times = []
@@ -678,22 +862,14 @@ def check_features(model, dev: torch.device) -> None:
         fail(f"build_feature gave {feats.shape} {feats.dtype}")
 
 
-def phase_train(dev: torch.device, ar_mode: str = "LSTM",
+def phase_train(dev: torch.device, path: str = "LSTM",
                 B: int = 32) -> dict:
-    """The train path of one --arMode: make_train_step at the default
-    config in bf16, 2 warm-up and 10 timed steps on a fixed batch."""
-    from cpc_audio_tpu_torch.parallel.train_step import (create_train_state,
-                                                         epoch_key,
-                                                         make_train_step)
-
-    model, crit = build(ar_mode, "bfloat16",
-                        torch.Generator().manual_seed(SEED))
+    """The train path of one --arMode (or the fused-layer path):
+    make_train_step at the default config in bf16, 2 warm-up and 10 timed
+    steps on a fixed batch."""
+    model, crit = build(path, "bfloat16", torch.Generator().manual_seed(SEED))
     cfg = model.config
-    state = create_train_state(model, crit, dev, cfg.learningRate)
-    step = make_train_step(state, dev)
-    batch = torch.from_numpy(synthetic_audio(cfg.sizeWindow, B,
-                                             SEED + 3)).to(dev)
-    key = epoch_key(SEED, 0, dev)
+    step, batch, key = train_setup(model, crit, dev, B)
 
     fns = reset_counts()
     losses, times = [], []
@@ -704,30 +880,68 @@ def phase_train(dev: torch.device, ar_mode: str = "LSTM",
         if i >= 2:
             times.append(time.perf_counter() - t0)
         losses.append(metrics["losses"])
-    launches = read_counts(fns, f"{ar_mode} train step",
-                           PATH_KERNELS[ar_mode])
+    launches = read_counts(fns, f"{path} train step", PATH_KERNELS[path],
+                           12 * (path == FUSED))
 
     per_step = torch.stack(losses).float().cpu()          # (12, K)
     if tuple(per_step.shape) != (12, cfg.nPredicts) or \
             not torch.isfinite(per_step).all():
         fail(f"train losses {tuple(per_step.shape)} not finite")
     total = per_step.sum(dim=1)
-    print(f"{ar_mode} train step losses (sum over K, steps 1-12): "
+    print(f"{path} train step losses (sum over K, steps 1-12): "
           f"{[round(v, 4) for v in total.tolist()]}", flush=True)
     first, last = total[2:5].mean().item(), total[-3:].mean().item()
     if not last < first:
-        fail(f"the {ar_mode} loss did not fall over the timed steps on a "
+        fail(f"the {path} loss did not fall over the timed steps on a "
              f"fixed batch ({first:.4f} -> {last:.4f})")
     step_ms = statistics.median(times) * 1e3
-    print(f"{ar_mode} train windows/s: {B / (step_ms / 1e3):.1f} "
-          f"(make_train_step, --arMode {ar_mode}, B={B}, bf16, dropout 0.1, "
+    print(f"{path} train windows/s: {B / (step_ms / 1e3):.1f} "
+          f"(make_train_step, --arMode {path}, B={B}, bf16, dropout 0.1, "
           f"median step {step_ms:.3f} ms of 10, min {min(times) * 1e3:.3f} "
           f"max {max(times) * 1e3:.3f}) on {gpu_line()}", flush=True)
-    profile_train(step, batch, key, step_ms, ar_mode)
+    profile_train(step, batch, key, step_ms, path)
     return launches
 
 
-def profile_train(step, batch, key, step_ms: float, ar_mode: str,
+def train_setup(model, crit, dev: torch.device, B: int = 32):
+    """(train step, fixed (B, 1, 20480) batch, epoch key) on the card."""
+    from cpc_audio_tpu_torch.parallel.train_step import (create_train_state,
+                                                         epoch_key,
+                                                         make_train_step)
+    cfg = model.config
+    state = create_train_state(model, crit, dev, cfg.learningRate)
+    batch = torch.from_numpy(synthetic_audio(cfg.sizeWindow, B,
+                                             SEED + 3)).to(dev)
+    return make_train_step(state, dev), batch, epoch_key(SEED, 0, dev)
+
+
+def ab_train(dev: torch.device, B: int = 32, steps: int = 20) -> None:
+    """Train windows/s of the default and the fused-layer LSTM step in one
+    call, in turns (default, fused, fused, default), each turn 2 warm-up
+    and ``steps`` timed steps on the same fixed batch."""
+    runs = {path: train_setup(*build(path, "bfloat16",
+                                     torch.Generator().manual_seed(SEED)),
+                              dev, B)
+            for path in ("LSTM", FUSED)}
+    times = {path: [] for path in runs}
+    for path in ("LSTM", FUSED, FUSED, "LSTM"):
+        step, batch, key = runs[path]
+        for i in range(2 + steps):
+            t0 = time.perf_counter()
+            step(batch, key=key)
+            torch.cuda.synchronize()
+            if i >= 2:
+                times[path].append(time.perf_counter() - t0)
+    ms = {path: statistics.median(t) * 1e3 for path, t in times.items()}
+    print(f"A/B train windows/s, LSTM, B={B}, bf16, dropout 0.1, in turns "
+          f"default/fused/fused/default, median of {2 * steps} steps each: "
+          f"default {B / ms['LSTM'] * 1e3:.1f} ({ms['LSTM']:.3f} ms), "
+          f"fused {B / ms[FUSED] * 1e3:.1f} ({ms[FUSED]:.3f} ms), fused / "
+          f"default step time {ms[FUSED] / ms['LSTM']:.3f} on {gpu_line()}",
+          flush=True)
+
+
+def profile_train(step, batch, key, step_ms: float, path: str,
                   n: int = 3) -> None:
     """Device time by kernel over ``n`` train steps (torch.profiler), and
     the device's busy share of the unprofiled median step ``step_ms``."""
@@ -747,7 +961,7 @@ def profile_train(step, batch, key, step_ms: float, ar_mode: str,
             and e.self_device_time_total > 0]
     rows.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in rows) / 1e3 / n
-    print(f"{ar_mode} train step profile ({n} steps): {len(rows)} distinct "
+    print(f"{path} train step profile ({n} steps): {len(rows)} distinct "
           f"kernels, {sum(e.count for e in rows) // n} launches and "
           f"{busy:.3f} ms of device time per step; the unprofiled step "
           f"takes {step_ms:.3f} ms, so the device is busy "
@@ -784,7 +998,8 @@ def profile_train(step, batch, key, step_ms: float, ar_mode: str,
 PROFILE_GROUPS = (
     ("port kernels", ("lstm_fwd_kernel", "lstm_bwd_kernel", "gru_fwd_kernel",
                       "gru_bwd_kernel", "relpos_attention",
-                      "causal_attention", "tail_", "dkrel_reduce")),
+                      "causal_attention", "tail_", "dkrel_reduce",
+                      "attention_block", "conv_ln", "sum_parts")),
     ("Adam (foreach kernels)", ("adam", "multi_tensor_apply")),
     ("cuDNN conv", ("cudnn", "conv", "nchwtonhwc", "nhwctonchw", "wgrad",
                     "dgrad")),
@@ -795,8 +1010,7 @@ PROFILE_GROUPS = (
 )
 
 
-def check_train_against_cpu(dev: torch.device, ar_mode: str = "LSTM"
-                            ) -> None:
+def check_train_against_cpu(dev: torch.device, path: str = "LSTM") -> None:
     """One float32 train step on a (2, 1, 20480) batch, kernels on the
     card vs plain versions on the CPU: same weights, round keys and
     dropout seed (the dropout bits do not depend on the device)."""
@@ -804,7 +1018,7 @@ def check_train_against_cpu(dev: torch.device, ar_mode: str = "LSTM"
                                                          epoch_key,
                                                          make_train_step)
 
-    model, crit = build(ar_mode, "float32",
+    model, crit = build(path, "float32",
                         torch.Generator().manual_seed(SEED + 4))
     batch = synthetic_audio(model.config.sizeWindow, 2, SEED + 4)
     results, tails = [], []
@@ -821,12 +1035,12 @@ def check_train_against_cpu(dev: torch.device, ar_mode: str = "LSTM"
                  for n, p in mod.named_parameters()}
         results.append((met["losses"].float().cpu(), grads))
     (l_g, g_g), (l_c, g_c) = results
-    print(f"float32 {ar_mode} train step, card (kernels) vs CPU (plain "
+    print(f"float32 {path} train step, card (kernels) vs CPU (plain "
           f"versions), dropout on:", flush=True)
-    compare(f"{ar_mode} train losses", l_g, l_c, 1e-3, 1e-3,
-            f"f32 through the {ar_mode} AR, heads and InfoNCE")
+    compare(f"{path} train losses", l_g, l_c, 1e-3, 1e-3,
+            f"f32 through the {path} AR, heads and InfoNCE")
     for name in sorted(g_c):
-        compare_norm(f"{ar_mode} grad {name}", g_g[name], g_c[name], 1e-3,
+        compare_norm(f"{path} grad {name}", g_g[name], g_c[name], 1e-3,
                      "f32 sums in another order through the whole step, "
                      "cuDNN convs, ReLU-kink flips")
     worst = {}
@@ -834,10 +1048,10 @@ def check_train_against_cpu(dev: torch.device, ar_mode: str = "LSTM"
         group = next(g for g, prefix in LEAF_GROUPS if name.startswith(prefix))
         err = ((g_g[name] - g_c[name]).norm() / g_c[name].norm()).item()
         worst[group] = max(worst.get(group, (0.0, "")), (err, name))
-    print(f"  {ar_mode} worst gradient leaf per group (rel_norm_err): " +
+    print(f"  {path} worst gradient leaf per group (rel_norm_err): " +
           "; ".join(f"{g} {e:.3e} ({n})" for g, (e, n) in worst.items()),
           flush=True)
-    kink_report(ar_mode, tails, g_g, g_c)
+    kink_report(path, tails, g_g, g_c)
 
 
 # gradient leaves by where they sit in the step, first matching prefix
@@ -1026,21 +1240,26 @@ def main() -> None:
     timings = phase_kernels(dev)
     print(f"[phase kernels {time.time() - t0:.1f} s]", flush=True)
     t0 = time.time()
-    for ar_mode in PATH_KERNELS:
-        phase_eval(dev, ar_mode)
+    for path in PATH_KERNELS:
+        phase_eval(dev, path)
     print(f"[phase eval {time.time() - t0:.1f} s]", flush=True)
-    # each --arMode's path reports the launches of its own AR kernels
+    # each path reports the launches of its own kernels: the AR's, and K2,
+    # K3 from the default path, K6, K7 from the fused-layer path
     launches = {}
-    for ar_mode, own in (("LSTM", PATH_KERNELS["LSTM"]),
-                         ("GRU", ("gru_fwd", "gru_bwd")),
-                         ("transformer", ("causal_attention_fwd",
-                                          "causal_attention_bwd"))):
+    for path, own in (("LSTM", PATH_KERNELS["LSTM"]),
+                      ("GRU", ("gru_fwd", "gru_bwd")),
+                      ("transformer", ("causal_attention_fwd",
+                                       "causal_attention_bwd")),
+                      (FUSED, ("attention_block_fwd", "attention_block_bwd",
+                               "conv_ln_fwd", "conv_ln_bwd"))):
         t0 = time.time()
-        counts = phase_train(dev, ar_mode)
+        counts = phase_train(dev, path)
         launches.update({name: counts[name] for name in own})
-        check_train_against_cpu(dev, ar_mode)
-        print(f"[phase train {ar_mode} {time.time() - t0:.1f} s]",
-              flush=True)
+        check_train_against_cpu(dev, path)
+        print(f"[phase train {path} {time.time() - t0:.1f} s]", flush=True)
+    t0 = time.time()
+    ab_train(dev)
+    print(f"[phase A/B {time.time() - t0:.1f} s]", flush=True)
     t0 = time.time()
     with tempfile.TemporaryDirectory() as tmp:
         phase_cli(tmp)

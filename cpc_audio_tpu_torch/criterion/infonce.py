@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from .._common import fused_layer_switches
 from ..config import CPCConfig
 from ..ops.feistel import ROUNDS, feistel_inverse, feistel_permute
 from .prediction import PredictionNetwork
@@ -138,7 +139,7 @@ class CPCUnsupervisedCriterion(nn.Module):
                  size_input_seq: int = 128, sampling_mode: str = "auto",
                  rnn_mode: str = "transformer",
                  generator: Optional[torch.Generator] = None,
-                 dropout: bool = False):
+                 dropout: bool = False, attention_block: bool = False):
         super().__init__()
         if sampling_mode not in ("auto", "stratified"):
             raise NotImplementedError(
@@ -152,7 +153,8 @@ class CPCUnsupervisedCriterion(nn.Module):
         self.negative_sampling_ext = negative_sampling_ext
         self.wPrediction = PredictionNetwork(
             n_predicts, dim_output_encoder, rnn_mode,
-            size_input_seq - n_predicts, generator, dropout)
+            size_input_seq - n_predicts, generator, dropout,
+            attention_block)
 
     def forward(self, c_feature: torch.Tensor, encoded: torch.Tensor,
                 label=None, train: bool = False,
@@ -188,7 +190,8 @@ class CPCUnsupervisedCriterion(nn.Module):
 def build_criterion(config: CPCConfig,
                     generator: Optional[torch.Generator] = None
                     ) -> CPCUnsupervisedCriterion:
-    """The CPC criterion for ``config`` (cpc_audio_tpu/train.py:37-58)."""
+    """The CPC criterion for ``config`` (cpc_audio_tpu/train.py:37-58); its
+    heads run the whole-block kernel under ``CPC_ATTN_BLOCK=1``."""
     if (config.cpc_mode is not None or config.speakerEmbedding
             or config.stopGradNegatives):
         raise NotImplementedError(
@@ -203,4 +206,5 @@ def build_criterion(config: CPCConfig,
         sampling_mode=config.negativeSamplingMode,
         rnn_mode=config.rnnMode,
         generator=generator,
-        dropout=config.dropout)
+        dropout=config.dropout,
+        attention_block=fused_layer_switches()[1])

@@ -22,7 +22,7 @@ class PredictionNetwork(nn.Module):
     def __init__(self, n_predicts: int, dim_output_encoder: int,
                  rnn_mode: str = "transformer", size_input_seq: int = 116,
                  generator: Optional[torch.Generator] = None,
-                 dropout: bool = False):
+                 dropout: bool = False, attention_block: bool = False):
         super().__init__()
         self.dropout = dropout
         if rnn_mode != "transformer":
@@ -31,7 +31,7 @@ class PredictionNetwork(nn.Module):
                 f"Queue 1 item 11 (non-default variants)")
         self.heads = StackedTransformerHeads(
             n_predicts, dim_output_encoder, size_input_seq,
-            generator=generator)
+            generator=generator, attention_block=attention_block)
 
     def forward(self, c: torch.Tensor, train: bool = False,
                 seed: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -13,7 +13,11 @@ Per forward: the q/k/v and Wo projections are K-batched matmuls (the JAX
 package leaves them to XLA); attention runs in the K2 kernel
 (ops/head_attention.py); the residual ``c + attn . Wo`` is added here; the
 tail LN1 -> FFN -> residual -> LN2 runs in the K3 kernel (ops/ffn.py).
-The backward runs the K2 and K3 backward kernels.
+The backward runs the K2 and K3 backward kernels.  With
+``attention_block`` (``CPC_ATTN_BLOCK=1`` through ``build_criterion``) the
+projections, the attention, Wo and the residual run as one K6 kernel
+(ops/attention_block.py) in each direction, as the JAX package's
+whole-block path does; the parameters are the same.
 
 In training the heads drop attention probabilities and FFN hidden units
 at ``dropout`` (0.1, as the JAX module's field, whatever ``config.dropout``
@@ -31,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._common import uniform
+from ..ops.attention_block import attention_block, attention_block_supported
 from ..ops.ffn import layer_tail
 from ..ops.head_attention import relpos_attention
 
@@ -60,10 +65,12 @@ class _StackedLN(nn.Module):
 
 class _StackedMHA(nn.Module):
     def __init__(self, K: int, D: int, size_seq: int, nheads: int,
-                 generator: Optional[torch.Generator]):
+                 generator: Optional[torch.Generator],
+                 attention_block: bool = False):
         super().__init__()
         self.nheads = nheads
         self.size_seq = size_seq
+        self.attention_block = attention_block
         bound = 1.0 / math.sqrt(D)
         for name in ("Wq", "Wk", "Wv", "Wo"):
             setattr(self, name, _Kernel((K, D, D), bound, generator))
@@ -87,19 +94,27 @@ class _StackedMHA(nn.Module):
         """c (B, S, D) -> c + attention (K, B*S, D)."""
         B, S, D = c.shape
         dt = c.dtype
-        c2 = c.reshape(B * S, D)
+        c2 = c.reshape(B * S, D).contiguous()
+        krel = self.krel_for(S, dt)
+        if self.attention_block and attention_block_supported(
+                S, self.nheads, D // self.nheads):
+            return attention_block(
+                c2, *(getattr(self, n).kernel.to(dt).contiguous()
+                      for n in ("Wq", "Wk", "Wv", "Wo")),
+                krel, B, self.nheads, rate, seed)
         q, k, v = (torch.matmul(c2, getattr(self, n).kernel.to(dt))
                    for n in ("Wq", "Wk", "Wv"))              # (K, M, D)
-        y = relpos_attention(q, k, v, self.krel_for(S, dt), B, self.nheads,
-                             rate, seed)
+        y = relpos_attention(q, k, v, krel, B, self.nheads, rate, seed)
         return torch.matmul(y, self.Wo.kernel.to(dt)) + c2
 
 
 class _Layer0(nn.Module):
     def __init__(self, K: int, D: int, size_seq: int, nheads: int,
-                 dff: int, generator: Optional[torch.Generator]):
+                 dff: int, generator: Optional[torch.Generator],
+                 attention_block: bool = False):
         super().__init__()
-        self.multihead = _StackedMHA(K, D, size_seq, nheads, generator)
+        self.multihead = _StackedMHA(K, D, size_seq, nheads, generator,
+                                     attention_block)
         self.ln_multihead = _StackedLN(K, D)
         self.ffnetwork = nn.Module()
         self.ffnetwork.lin1 = _Linear(K, D, dff, generator)
@@ -128,11 +143,12 @@ class StackedTransformerHeads(nn.Module):
 
     def __init__(self, n_predicts: int, dmodel: int, size_seq: int,
                  nheads: int = 8, dff: int = 2048, dropout: float = 0.1,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 attention_block: bool = False):
         super().__init__()
         self.dropout = dropout
         self.layer0 = _Layer0(n_predicts, dmodel, size_seq, nheads, dff,
-                              generator)
+                              generator, attention_block)
 
     def forward(self, c: torch.Tensor, train: bool = False,
                 seed: Optional[torch.Tensor] = None) -> torch.Tensor:

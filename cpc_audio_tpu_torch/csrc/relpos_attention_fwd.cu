@@ -12,20 +12,16 @@
 // probabilities are dropped (dropout.cuh, keyed on (k, b, h, i, j)) after
 // the normalising sum, as the Pallas kernel drops p.
 //
-// Design: one block per (k, b, h).  q, k, v and krel[k] for that head are
-// staged in shared memory as float32 (k with a padded row stride so that
-// lanes reading different keys hit different banks).  Each warp owns
-// whole query rows: lanes stride over the keys to form the scores into a
-// per-warp row buffer, warp reductions give the max and the sum, and then
-// each lane produces one output column.  The (S, S) score tile never
-// exists in full.
+// Design: one block per (k, b, h) stages q, k, v and krel[k] for that head
+// in shared memory as float32 (k with a padded row stride so that lanes
+// reading different keys hit different banks) and runs the shared row
+// body (relpos_attention.cuh).
 //
 // What bounds it on an H100: at S = 116, dk = 32 a block does ~0.7 MFLOP
 // on ~60 KB of operands, so it is bound by the staging loads and by the
 // number of resident blocks (about 64 KB of shared memory each, three
 // per SM), not by arithmetic.
-#include "common.cuh"
-#include "dropout.cuh"
+#include "relpos_attention.cuh"
 
 namespace {
 
@@ -59,51 +55,17 @@ __global__ void relpos_attention_fwd_kernel(
     ks[i * ldk + d] = cpc::to_f32(k[off]);
     vs[i * dk + d] = cpc::to_f32(v[off]);
   }
-  const uint32_t row_key =
-      drop.active() ? cpc::dropout_row_key(
-                          drop.seed_word(), cpc::kSiteAttention,
-                          (uint32_t)((kk * n_batch + b) * nheads + h))
-                    : 0u;
   const T* kr_g = krel + (size_t)kk * dk * S;
   for (int idx = threadIdx.x; idx < dk * S; idx += blockDim.x)
     kr[idx] = cpc::to_f32(kr_g[idx]);
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  float* p = rows + warp * S;
-  for (int i = warp; i < S; i += n_warps) {
-    const float* qi = qs + i * dk;
-    float mx = -INFINITY;
-    for (int j = lane; j <= i; j += 32) {
-      const float* kj = ks + j * ldk;
-      const float* kr_col = kr + (j - i + S - 1);
-      float s = 0.0f;
-      for (int d = 0; d < dk; ++d) s += qi[d] * (kj[d] + kr_col[d * S]);
-      s *= inv_sqrt;
-      p[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = cpc::warp_max(mx);
-    float sum = 0.0f;
-    for (int j = lane; j <= i; j += 32) {
-      const float e = expf(p[j] - mx);
-      p[j] = drop.active()
-                 ? e * cpc::dropout_factor(row_key, (uint32_t)(i * S + j),
-                                           drop.threshold, drop.keep_scale)
-                 : e;
-      sum += e;
-    }
-    const float inv_sum = 1.0f / cpc::warp_sum(sum);
-    __syncwarp();
-    for (int d = lane; d < dk; d += 32) {
-      float o = 0.0f;
-      for (int j = 0; j <= i; ++j) o += p[j] * vs[j * dk + d];
-      out[base + (size_t)i * D + d] = cpc::from_f32<T>(o * inv_sum);
-    }
-    __syncwarp();
-  }
+  cpc::relpos_fwd_rows(
+      qs, ks, vs, kr, rows, S, dk, inv_sqrt, drop,
+      cpc::attention_row_key(drop, kk, n_batch, b, nheads, h),
+      [&](int i, int d, float o) {
+        out[base + (size_t)i * D + d] = cpc::from_f32<T>(o);
+      });
 }
 
 template <typename T>

@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .._common import compute_dtype
+from .._common import compute_dtype, fused_layer_switches
 from ..config import CPCConfig
 from .ar import CPCAR, MODES, NoAr
 from .encoder import CPCEncoder
@@ -59,12 +59,14 @@ class CPCModel(nn.Module):
     """Encoder + AR with an explicit hidden carry."""
 
     def __init__(self, config: CPCConfig,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 fused_conv: bool = False):
         super().__init__()
         _check_supported(config)
         self.config = config
         self.dtype = compute_dtype(config.compute_dtype)
-        self.gEncoder = CPCEncoder(config.hiddenEncoder, generator)
+        self.gEncoder = CPCEncoder(config.hiddenEncoder, generator,
+                                   fused_conv)
         self.gAR = get_ar(config, generator)
 
     def zero_state(self, batch: int, device) -> object:
@@ -85,7 +87,8 @@ def build_model(config: CPCConfig,
     """Build a CPCModel with weights drawn from ``generator``.  no_ar and
     transformer emit hiddenEncoder-wide contexts, so they force hiddenGar
     == hiddenEncoder (cpc.py:120-125); callers size the criterion from the
-    returned ``model.config``."""
+    returned ``model.config``.  The encoder fuses its layers under
+    ``CPC_PALLAS_CONV=1``."""
     if config.arMode in ("no_ar", "transformer"):
         config = config.replace(hiddenGar=config.hiddenEncoder)
-    return CPCModel(config, generator)
+    return CPCModel(config, generator, fused_layer_switches()[0])

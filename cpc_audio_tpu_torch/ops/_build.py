@@ -70,6 +70,23 @@ _SIGNATURES = {
     # dtype, stream
     "cpc_causal_attention_bwd": ([_P] * 9 + [_I] * 4 + _DROP + [_I, _P], _I),
     "cpc_causal_attention_bwd_smem": ([_I, _I], ctypes.c_size_t),
+    # c, wq, wk, wv, wo, krel, x, K, n_batch, S, nheads, dk, dropout, dtype,
+    # stream
+    "cpc_attention_block_fwd": ([_P] * 7 + [_I] * 5 + _DROP + [_I, _P], _I),
+    # S, nheads, dk, dtype
+    "cpc_attention_block_fwd_smem": ([_I] * 4, ctypes.c_size_t),
+    # c, wq, wk, wv, wo, krel, dout, dq, dk, dv, y, part, dkrel, dw, dcp, K,
+    # n_batch, S, nheads, dk, dropout, dtype, stream
+    "cpc_attention_block_bwd": ([_P] * 15 + [_I] * 5 + _DROP + [_I, _P], _I),
+    "cpc_attention_block_bwd_smem": ([_I] * 4, ctypes.c_size_t),
+    # x, w, bias, nw, nb, out, B, T, C, stride, pad, eps, dtype, stream
+    "cpc_conv_ln_fwd": ([_P] * 6 + [_I] * 5 + [_F, _I, _P], _I),
+    # C, dtype
+    "cpc_conv_ln_fwd_smem": ([_I, _I], ctypes.c_size_t),
+    # x, w, bias, nw, nb, dy, dx, dh, vpart, vout, wpart, dw, B, T, C,
+    # stride, pad, n_split, eps, dtype, stream
+    "cpc_conv_ln_bwd": ([_P] * 12 + [_I] * 6 + [_F, _I, _P], _I),
+    "cpc_conv_ln_bwd_smem": ([_I, _I], ctypes.c_size_t),
 }
 
 _LOCK = threading.Lock()
@@ -167,6 +184,15 @@ def check(status: int, name: str) -> None:
 # --- helpers shared by the kernel wrappers ---------------------------------
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+SMEM_LIMIT = 232448           # bytes of shared memory a block may use
+
+
+def require_smem(name: str, smem: int, what: str) -> None:
+    """Refuse a shape whose block needs more shared memory than the card
+    gives one block (227 KB on an H100)."""
+    require(smem <= SMEM_LIMIT, name,
+            f"{what} needs {smem} bytes of shared memory (at most "
+            f"{SMEM_LIMIT})")
 
 
 def runs_kernel(name: str, *tensors: torch.Tensor) -> bool:
@@ -195,6 +221,12 @@ def check_inputs(name: str, dtype: torch.dtype, **tensors) -> None:
     for arg, t in tensors.items():
         require(t.dtype == dtype, name, f"{arg} is {t.dtype}, expected {dtype}")
         require(t.is_contiguous(), name, f"{arg} is not contiguous")
+
+
+def require_aligned(name: str, **tensors) -> None:
+    """Kernel inputs that are read in 16-byte (4- or 8-element) pieces."""
+    for arg, t in tensors.items():
+        require(t.data_ptr() % 16 == 0, name, f"{arg} is not 16-byte aligned")
 
 
 def stream(device: torch.device) -> int:

@@ -38,8 +38,6 @@ from . import _build, dropout
 
 _NAME = "causal_attention_fwd"
 _BWD_NAME = "causal_attention_bwd"
-_SMEM_LIMIT = 232448          # bytes of shared memory a block may use
-
 
 def _probs(q: torch.Tensor, k: torch.Tensor,
            bias: torch.Tensor) -> torch.Tensor:
@@ -101,12 +99,6 @@ def _check(name: str, q, k, v, bias, others=()) -> Tuple[int, int, int]:
     return N, S, dk
 
 
-def _check_smem(name: str, smem: int, S: int, dk: int) -> None:
-    _build.require(smem <= _SMEM_LIMIT, name,
-                   f"S={S}, dk={dk} needs {smem} bytes of shared memory "
-                   f"(at most {_SMEM_LIMIT})")
-
-
 def causal_attention_fwd(q, k, v, bias, rate: float = 0.0,
                          seed: Optional[torch.Tensor] = None,
                          layer: int = 0) -> torch.Tensor:
@@ -120,7 +112,8 @@ def causal_attention_fwd(q, k, v, bias, rate: float = 0.0,
     N, S, dk = _check(_NAME, q, k, v, bias)
     _build.check_inputs(_NAME, q.dtype, q=q, k=k, v=v, bias=bias)
     lib = _build.library()
-    _check_smem(_NAME, lib.cpc_causal_attention_fwd_smem(S, dk), S, dk)
+    _build.require_smem(_NAME, lib.cpc_causal_attention_fwd_smem(S, dk),
+                        f"S={S}, dk={dk}")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         status = lib.cpc_causal_attention_fwd(
@@ -151,7 +144,8 @@ def causal_attention_bwd(q, k, v, bias, dout, rate: float = 0.0,
     _build.check_inputs(_BWD_NAME, q.dtype, q=q, k=k, v=v, bias=bias,
                         dout=dout)
     lib = _build.library()
-    _check_smem(_BWD_NAME, lib.cpc_causal_attention_bwd_smem(S, dk), S, dk)
+    _build.require_smem(_BWD_NAME, lib.cpc_causal_attention_bwd_smem(S, dk),
+                        f"S={S}, dk={dk}")
     dq, dkk, dv = (torch.empty_like(q) for _ in range(3))
     dbias = torch.empty_like(bias)      # every element is written
     with torch.cuda.device(q.device):

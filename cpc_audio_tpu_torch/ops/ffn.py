@@ -30,8 +30,6 @@ from . import _build, dropout
 
 _NAME = "layer_tail_fwd"
 _BWD_NAME = "layer_tail_bwd"
-_SMEM_LIMIT = 232448
-
 
 def _ln(x32: torch.Tensor, eps: float):
     """(yhat, 1/std) of a float32 (K, M, D) LayerNorm, biased variance."""
@@ -111,8 +109,7 @@ def _check_weights(name: str, x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b):
                            for t in (ln1w, ln1b, b2, ln2w, ln2b)), name,
                    f"shapes x {tuple(x.shape)}, w1 {tuple(w1.shape)}, "
                    f"w2 {tuple(w2.shape)}")
-    _build.require(w1.data_ptr() % 16 == 0 and w2.data_ptr() % 16 == 0,
-                   name, "w1 and w2 must be 16-byte aligned")
+    _build.require_aligned(name, w1=w1, w2=w2)
     return K, M, D, F
 
 
@@ -176,9 +173,7 @@ def layer_tail_bwd(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, dout,
     lib = _build.library()
     code = _build.DTYPE_CODES[x.dtype]
     smem = lib.cpc_layer_tail_bwd_smem(D, F, code)
-    _build.require(smem <= _SMEM_LIMIT, _BWD_NAME,
-                   f"D={D}, F={F} needs {smem} bytes of shared memory "
-                   f"(at most {_SMEM_LIMIT})")
+    _build.require_smem(_BWD_NAME, smem, f"D={D}, F={F}")
     ln1w, ln1b, b1, b2, ln2w, ln2b = (t.float().contiguous() for t in vecs)
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)

@@ -122,9 +122,7 @@ def gru_fwd(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
                    f"{tuple(w_hh.shape)}, b_hh {tuple(b_hh.shape)}, h0 "
                    f"{tuple(h0.shape)}")
     _check_hidden(_NAME, B, T, H)
-    _build.require(w_hh.data_ptr() % 16 == 0, _NAME,
-                   "w_hh must be 16-byte aligned (4 elements are read at "
-                   "once)")
+    _build.require_aligned(_NAME, w_hh=w_hh)
     dev = x_proj.device
     ys = torch.empty((B, T, H), dtype=x_proj.dtype, device=dev)
     hT = torch.empty_like(h0)

@@ -34,7 +34,6 @@ from . import _build, dropout
 
 _NAME = "relpos_attention_fwd"
 _BWD_NAME = "relpos_attention_bwd"
-_SMEM_LIMIT = 232448          # bytes of shared memory a block may use
 
 
 def _heads(t: torch.Tensor, n_batch: int, nheads: int) -> torch.Tensor:
@@ -177,9 +176,7 @@ def relpos_attention_bwd(q, k, v, krel, dout, n_batch: int, nheads: int,
                         dout=dout)
     lib = _build.library()
     smem = lib.cpc_relpos_attention_bwd_smem(S, dk)
-    _build.require(smem <= _SMEM_LIMIT, _BWD_NAME,
-                   f"S={S}, dk={dk} needs {smem} bytes of shared memory "
-                   f"(at most {_SMEM_LIMIT})")
+    _build.require_smem(_BWD_NAME, smem, f"S={S}, dk={dk}")
     dq, dkk, dv = (torch.empty_like(q) for _ in range(3))
     dkrel = torch.empty((K, dk, S), dtype=torch.float32, device=q.device)
     part = torch.empty((K, n_batch * nheads, dk, S), dtype=torch.float32,

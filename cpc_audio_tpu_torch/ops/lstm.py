@@ -107,9 +107,7 @@ def lstm_fwd(x_proj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
                    f"{tuple(c0.shape)}")
     _build.require(B > 0 and T > 0 and 0 < H <= 2048 and H % 8 == 0, _NAME,
                    f"B={B}, T={T}, H={H} out of range (H % 8 == 0, <= 2048)")
-    _build.require(w_hh.data_ptr() % 16 == 0, _NAME,
-                   "w_hh must be 16-byte aligned (4 elements are read at "
-                   "once)")
+    _build.require_aligned(_NAME, w_hh=w_hh)
     dev = x_proj.device
     ys = torch.empty((B, T, H), dtype=x_proj.dtype, device=dev)
     hT = torch.empty_like(h0)
@@ -160,8 +158,7 @@ def lstm_bwd(gates: torch.Tensor, cs: torch.Tensor, c0: torch.Tensor,
     _build.require(B > 0 and T > 0 and 0 < H <= 2048 and H % 8 == 0,
                    _BWD_NAME, f"B={B}, T={T}, H={H} out of range "
                    f"(H % 8 == 0, <= 2048)")
-    _build.require(w_hh.data_ptr() % 16 == 0, _BWD_NAME,
-                   "w_hh must be 16-byte aligned")
+    _build.require_aligned(_BWD_NAME, w_hh=w_hh)
     dev = gates.device
     dgates = torch.empty_like(gates)
     dh0 = torch.empty_like(dhT)

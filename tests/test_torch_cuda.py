@@ -13,8 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from cpc_audio_tpu_torch.ops import (causal_attention, ffn, gru,
-                                     head_attention, lstm)
+from cpc_audio_tpu_torch.ops import (attention_block, causal_attention,
+                                     conv_ln, ffn, gru, head_attention, lstm)
 
 pytestmark = pytest.mark.cuda
 
@@ -325,3 +325,85 @@ def test_gru_and_causal_wrappers_reject_what_kernels_do_not_take(dev):
         causal_attention.causal_attention_bwd(q, q, q, b, q)
     with pytest.raises(ValueError, match="expected torch.float32"):
         causal_attention.causal_attention_fwd(q, q, q, b.half())
+
+
+# ---- K6 (the heads' whole attention block) and K7 (fused conv layer) --------
+
+@pytest.mark.parametrize("rate", RATES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("K,B,S,h,dk", [(2, 3, 20, 4, 16), (2, 2, 116, 8, 32)])
+def test_attention_block_kernels(dev, dtype, K, B, S, h, dk, rate):
+    """Forward and backward against the plain versions with the same seed;
+    S = 116, 8 x 32: the train shapes' rows, padded to 128 for the tensor
+    cores, and the (S, D) accumulator at its largest."""
+    rng = np.random.RandomState(S + dk)
+    D = h * dk
+    args = [_rand(rng, dev, dtype, B * S, D)]
+    args += [_rand(rng, dev, dtype, K, D, D, scale=D ** -0.5)
+             for _ in range(4)]
+    args.append(_rand(rng, dev, dtype, K, dk, S, scale=0.5))
+    seed = _seed(dev)
+    before = attention_block.attention_block.launches
+    # bf16: x = round(c + round(att)) with |att| up to 8, so where c and
+    # att cancel, a one-ulp flip of round(att) (2**-5 at 4-8) stands
+    # whole beside a small x
+    tol = TOL[dtype] if dtype == torch.float32 else dict(atol=2 ** -4,
+                                                         rtol=2e-2)
+    torch.testing.assert_close(
+        attention_block.attention_block_fwd(*args, B, h, rate, seed),
+        attention_block.attention_block_ref(*args, B, h, rate, seed), **tol)
+    assert attention_block.attention_block.launches == before + 1
+    dout = _rand(rng, dev, dtype, K, B * S, D)
+    before = attention_block.attention_block_bwd.launches
+    got = attention_block.attention_block_bwd(*args, dout, B, h, rate, seed)
+    assert attention_block.attention_block_bwd.launches == before + 1
+    want = attention_block.attention_block_bwd_ref(*args, dout, B, h, rate,
+                                                   seed)
+    for name, g, w in zip(("dc", "dwq", "dwk", "dwv", "dwo", "dkrel"), got,
+                          want):
+        _close(g, w, BWD_REL[dtype], name)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,T,C,k,s,p", [(2, 64, 64, 8, 4, 2),
+                                         (2, 160, 128, 4, 2, 1),
+                                         (1, 33, 64, 4, 2, 1),
+                                         (2, 300, 256, 8, 4, 2)])
+def test_conv_ln_kernels(dev, dtype, B, T, C, k, s, p):
+    """Forward and backward against the plain versions: T = 33 leaves a
+    padded row no frame reads (its dx is 0); T = 160 and 300: several
+    64-frame tiles and block rows; C = 256 at layer 1's geometry."""
+    rng = np.random.RandomState(T + C)
+    f32 = torch.float32
+    args = (_rand(rng, dev, dtype, B, T, C),
+            _rand(rng, dev, dtype, k * C, C, scale=(k * C) ** -0.5),
+            _rand(rng, dev, f32, C, scale=0.1),
+            _rand(rng, dev, f32, C, scale=0.1, shift=1.0),
+            _rand(rng, dev, f32, C, scale=0.1))
+    before = conv_ln.conv_ln_relu.launches
+    torch.testing.assert_close(
+        conv_ln.conv_ln_relu_fwd(*args, s, k, p),
+        conv_ln.conv_ln_relu_ref(*args, s, k, p), **TOL[dtype])
+    assert conv_ln.conv_ln_relu.launches == before + 1
+    out_t = conv_ln.out_frames(T, k, s, p)
+    dy = _rand(rng, dev, dtype, B, out_t, C)
+    before = conv_ln.conv_ln_relu_bwd.launches
+    got = conv_ln.conv_ln_relu_bwd(*args, dy, s, k, p)
+    assert conv_ln.conv_ln_relu_bwd.launches == before + 1
+    want = conv_ln.conv_ln_relu_bwd_ref(*args, dy, s, k, p)
+    for name, g, w in zip(("dx", "dw", "db", "dnw", "dnb"), got, want):
+        _close(g, w, BWD_REL[dtype], name)
+
+
+def test_fused_wrappers_reject_what_kernels_do_not_take(dev):
+    c = torch.zeros(16, 64, device=dev)
+    w = torch.zeros(1, 64, 64, device=dev)
+    with pytest.raises(ValueError, match="attention_block_supported"):
+        attention_block.attention_block_fwd(c, w, w, w, w,
+                                            torch.zeros(1, 8, 16, device=dev),
+                                            1, 8)              # dk = 8
+    x = torch.zeros(1, 16, 64, device=dev)
+    v = torch.zeros(64, device=dev)
+    with pytest.raises(ValueError, match="fused_conv_supported"):
+        conv_ln.conv_ln_relu_fwd(x, torch.zeros(3 * 64, 64, device=dev), v,
+                                 v, v, 2, 3, 1)                # k != 2 s
