@@ -7,16 +7,18 @@ Phases (any failure exits non-zero):
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from cpc_audio_tpu_torch/csrc with nvcc (one
      process per source, all at once);
-  3. for each of the fourteen kernels (K1-K7, forward and backward), at
-     the train paths' exact shapes, in bfloat16 and in float32, at dropout
-     rate 0 and 0.1 where the kernel drops: compare with its plain PyTorch
-     version on the card (same inputs, same dropout seed) against a stated
-     tolerance, time both (median of 25 synchronised runs) and compute its
-     bound (bytes over the memory rate or operations over the peak rate,
-     whichever is larger); then time the yardstick PyTorch call where one
+  3. for each of the fifteen kernels (K1-K7, forward and backward, and
+     K8, the scatter-add), at the train paths' exact shapes, in bfloat16
+     and in float32, at dropout rate 0 and 0.1 where the kernel drops:
+     compare with its plain PyTorch version on the card (same inputs, same
+     dropout seed) against a stated tolerance, time both (median of 25
+     synchronised runs) and compute its bound (bytes over the memory rate
+     or operations over the peak rate, whichever is larger); K8 also with
+     all keys on one row (bf16), and the time of its whole wrapper (sort +
+     searchsorted + K8); then time the yardstick PyTorch call where one
      computes the same function (cuDNN LSTM/GRU, scaled_dot_product_
-     attention), and for K7 the port's unfused encoder layers (cuDNN conv
-     + ChannelNorm + ReLU, a composition, not one call);
+     attention, index_add_), and for K7 the port's unfused encoder layers
+     (cuDNN conv + ChannelNorm + ReLU, a composition, not one call);
   4. the eval path at full width, for --arMode LSTM (the default), GRU
      and transformer, and the fused-layer path (LSTM with CPC_ATTN_BLOCK=1
      and CPC_PALLAS_CONV=1: K6 in the heads, K7 in encoder layers 1-4):
@@ -27,23 +29,27 @@ Phases (any failure exits non-zero):
      float32 on a (2, 1, 20480) batch on the card (kernels) and on the CPU
      (plain versions), which must agree, and build_feature on a
      64000-sample WAV, which must give (1, 400, 256) finite float32
-     features;
-  5. the train paths, LSTM, GRU, transformer, then the fused-layer path:
+     features; then the default config at B = 24, where
+     negativeSamplingMode auto resolves to the exact sampler;
+  5. the train paths, LSTM, GRU, transformer, the fused-layer path, then
+     the exact sampler on LSTM (negativeSamplingMode exact):
      make_train_step at the same config (bf16, B = 32, dropout 0.1 in the
      heads and the transformer AR), 2 warm-up and 10 timed steps on a
      fixed batch; the launch counts of the path's kernels must rise (on
-     the fused path K6 once and K7 four times a step, K2 never), the
-     losses must be finite and fall; prints train windows/s and the step's
-     device time by kernel (torch.profiler); then one float32 step on a
-     (2, 1, 20480) batch on the card and on the CPU (same weights, round
-     keys and dropout seed) must give the same losses and gradients;
-     last, the default and the fused LSTM steps in turns, one line of
-     train windows/s for both;
+     the fused path K6 once and K7 four times a step, K2 never; on the
+     exact path K8 once a step), the losses must be finite and fall;
+     prints train windows/s and the step's device time by kernel
+     (torch.profiler); then one float32 step on a (2, 1, 20480) batch on
+     the card and on the CPU (same weights, round keys, negatives' seed
+     and dropout seed) must give the same losses and gradients; then two
+     exact steps with stopGradNegatives, in which K8 must not launch;
+     last, the default LSTM step in turns with the fused one and with the
+     exact one, one line of train windows/s for each pair;
   6. the train CLI (cpc_audio_tpu_torch.train.main) on a synthetic WAV
      tree in bf16: the default architecture for one epoch, which writes
      checkpoint_0.pt and both sidecars, and a rerun with --nEpoch 2 that
-     resumes; then one epoch with --arMode GRU and one with --arMode
-     transformer;
+     resumes; then one epoch with --arMode GRU, one with --arMode
+     transformer, and one with --batchSizeGPU 6 (auto -> exact: K8 runs);
   7. print one JSON line of per-kernel results (each kernel's launches
      from its own path's train run), the card line again, and last the
      JSON result line.
@@ -155,10 +161,11 @@ class Case:
     read (``read_bytes``; else every input element counts once)."""
 
     def __init__(self, name, rate, kernel, plain, inputs, flops,
-                 read_bytes=None):
+                 read_bytes=None, label=None):
         self.name, self.rate, self.kernel, self.plain = name, rate, kernel, \
             plain
         self.inputs, self.flops, self.read_bytes = inputs, flops, read_bytes
+        self.label = label or f"{name} rate {rate:g}"
 
 
 def kernel_cases(dev: torch.device, dtype: torch.dtype, B: int = 32):
@@ -168,7 +175,8 @@ def kernel_cases(dev: torch.device, dtype: torch.dtype, B: int = 32):
     tuples of gradients, the recurrences' forwards tuples of outputs."""
     from cpc_audio_tpu_torch.ops import (attention_block as ab,
                                          causal_attention as ca, conv_ln as cl,
-                                         ffn, gru, head_attention as ha, lstm)
+                                         ffn, gru, head_attention as ha, lstm,
+                                         scatter_add as sa)
 
     g = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -308,7 +316,42 @@ def kernel_cases(dev: torch.device, dtype: torch.dtype, B: int = 32):
                            for gr in cl.conv_ln_relu_bwd_ref(*l[:5], dy,
                                                              *l[5:])),
              conv_ins + dys, 3 * conv_flops)]
+    # K8 on the exact sampler's keys: ms is the kernel on the sorted form,
+    # its plain version index_add_ on the keys (the wrapper is timed
+    # apart); one add per update element
+    upd, keys, order, offsets, R = scatter_inputs(dev, dtype, B)
+    cases.append(Case("scatter_add_rows", 0.0,
+                      lambda: sa.scatter_add_sorted(upd, order, offsets),
+                      lambda: sa.scatter_add_rows_ref(upd, keys, R),
+                      (upd, order, offsets), upd.numel()))
+    if dtype == torch.bfloat16:
+        skeys = torch.full_like(keys, R // 2)
+        sorder, soffsets = sa.sort_keys(skeys, R)
+        cases.append(Case("scatter_add_rows_skewed", 0.0,
+                          lambda: sa.scatter_add_sorted(upd, sorder,
+                                                        soffsets),
+                          lambda: sa.scatter_add_rows_ref(upd, skeys, R),
+                          (upd, sorder, soffsets), upd.numel(),
+                          label="scatter_add_rows, all keys on one row"))
     return cases
+
+
+def scatter_inputs(dev: torch.device, dtype: torch.dtype, B: int = 32):
+    """K8's inputs on the exact path at batch B: the (B*W*N, 256) cotangent
+    of the negatives, random, and the sampler's flat pool index (B = 32:
+    475,136 keys into R = 4096 rows), with its sorted form."""
+    from cpc_audio_tpu_torch.criterion import infonce
+    from cpc_audio_tpu_torch.ops import dropout
+    from cpc_audio_tpu_torch.ops import scatter_add as sa
+    S, K, N, C = 128, 12, 128, 256
+    W = S - K
+    b, u = dropout.negative_indices(
+        torch.tensor([SEED], dtype=torch.int64, device=dev), (B, N, W), B, S)
+    keys = infonce.sample_negatives(torch.zeros(B, S, 1, device=dev), W, N,
+                                    b, u)[0].reshape(-1)
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    upd = torch.randn((keys.shape[0], C), generator=g, device=dev).to(dtype)
+    return (upd, keys) + sa.sort_keys(keys, B * S) + (B * S,)
 
 
 def conv_layers(rand, B: int = 32):
@@ -369,6 +412,15 @@ TOLERANCE = {
     ("conv_ln_fwd", torch.bfloat16): (
         1e-2, 2e-2, "bf16 output rounding that flips by one ulp where the "
         "f32 sums before it differ in order"),
+    ("scatter_add_rows", torch.float32): (
+        1e-4, 1e-5, "f32 sums of ~116 rows in another order; index_add_ "
+        "adds with atomics"),
+    ("scatter_add_rows", torch.bfloat16): (
+        1e-4, 1e-5, "f32 sums of ~116 bf16 rows, each exact in f32, in "
+        "another order; index_add_ adds with atomics"),
+    ("scatter_add_rows_skewed", torch.bfloat16): (
+        1e-4, 1e-3, "f32 sums of 475,136 rows into one, in another order: "
+        "each rounding is up to 2^-24 of a partial sum of ~700"),
     ("lstm_bwd", torch.float32): (1e-4, "f32 sums in another order over "
                                   "128 serial steps"),
     ("gru_bwd", torch.float32): (1e-4, "f32 sums in another order over "
@@ -437,12 +489,15 @@ SOURCES = {
                     "cpc_audio_tpu/ops/pallas/conv_ln.py:94"),
     "conv_ln_bwd": ("cpc_audio_tpu_torch/csrc/conv_ln_bwd.cu",
                     "cpc_audio_tpu/ops/pallas/conv_ln.py:105"),
+    "scatter_add_rows": ("cpc_audio_tpu_torch/csrc/scatter_add.cu",
+                         "cpc_audio_tpu/ops/pallas/scatter_add.py:39"),
 }
 
 # The train path runs K2, K3, K5 and K6 at dropout 0.1: the JSON line
 # reports each kernel in bf16 at the rate the train step gives it.
 TRAIN_RATE = {"lstm_fwd": 0.0, "lstm_bwd": 0.0, "gru_fwd": 0.0,
-              "gru_bwd": 0.0, "conv_ln_fwd": 0.0, "conv_ln_bwd": 0.0}
+              "gru_bwd": 0.0, "conv_ln_fwd": 0.0, "conv_ln_bwd": 0.0,
+              "scatter_add_rows": 0.0, "scatter_add_rows_skewed": 0.0}
 
 # H100 SXM peaks (NVIDIA's data sheet; dense, at 700 W): device memory
 # bytes/s, and operations/s by input type (bf16 on the tensor cores,
@@ -475,8 +530,9 @@ def library_calls(dev: torch.device, dtype: torch.dtype, B: int = 32):
     function as the kernel, timed as a yardstick only (the port never
     calls them).  K1/K4: the cuDNN layer on its input x (B, T, 256), whose
     backward also forms dW; K5: scaled_dot_product_attention with the
-    bias as a float mask, at rate 0.  K2 and K3 have none: no single
-    call applies the rel-pos skew, or LN -> FFN -> residual -> LN."""
+    bias as a float mask, at rate 0; K8: index_add_ into float32 zeros.
+    K2 and K3 have none: no single call applies the rel-pos skew, or LN ->
+    FFN -> residual -> LN."""
     import torch.nn.functional as F
     g = torch.Generator(device=dev).manual_seed(SEED + 7)
 
@@ -518,6 +574,12 @@ def library_calls(dev: torch.device, dtype: torch.dtype, B: int = 32):
         lambda: torch.autograd.grad(o, [q, k, v, mask], do,
                                     retain_graph=True),
         "autograd backward of that call: dq, dk, dv, dmask, rate 0")
+    upd, keys, _, _, R = scatter_inputs(dev, dtype, B)
+    calls["scatter_add_rows"] = (
+        lambda: torch.zeros(R, upd.shape[1], device=dev).index_add_(
+            0, keys, upd.float()),
+        "torch.zeros(R, C).index_add_(0, keys, updates.float()), float32 "
+        "atomics")
     return calls
 
 
@@ -530,7 +592,7 @@ def phase_kernels(dev: torch.device, B: int = 32) -> dict:
             got = case.kernel()
             want = case.plain()
             torch.cuda.synchronize()
-            label = f"{name} rate {case.rate:g}"
+            label = case.label
             b = bound(case, got, dtype)
             if not isinstance(got, tuple):
                 got, want = (got,), (want,)
@@ -575,8 +637,25 @@ def phase_kernels(dev: torch.device, B: int = 32) -> dict:
               f"ReLU; the composition is timed below)", flush=True)
     port_layer_times(dev, B)
     conv_composition_times(dev, timings=results, B=B)
+    scatter_wrapper_times(dev, results, B)
     torch.cuda.empty_cache()
     return results
+
+
+def scatter_wrapper_times(dev: torch.device, timings: dict,
+                          B: int = 32) -> None:
+    """scatter_add_rows as the exact sampler's backward calls it: a stable
+    sort of the keys, searchsorted, K8 (bf16 and f32)."""
+    from cpc_audio_tpu_torch.ops import scatter_add as sa
+    for dtype in (torch.bfloat16, torch.float32):
+        upd, keys, _, _, R = scatter_inputs(dev, dtype, B)
+        sort_ms = median_ms(lambda: sa.sort_keys(keys, R))
+        ms = median_ms(lambda: sa.scatter_add_rows(upd, keys, R))
+        print(f"  scatter_add_rows wrapper, {str(dtype)[6:]}: sort + "
+              f"searchsorted + K8 {ms:.4f} ms (sort + searchsorted alone "
+              f"{sort_ms:.4f} ms); K8 alone, bf16: "
+              f"{timings['scatter_add_rows']['ms']:.4f} ms; J = "
+              f"{keys.shape[0]}, R = {R}", flush=True)
 
 
 def port_layer_times(dev: torch.device, B: int = 32) -> None:
@@ -637,7 +716,7 @@ def conv_composition_times(dev: torch.device, timings: dict,
 def counters():
     from cpc_audio_tpu_torch.ops import (attention_block, causal_attention,
                                          conv_ln, ffn, gru, head_attention,
-                                         lstm)
+                                         lstm, scatter_add)
     return {"lstm_fwd": lstm.lstm_fwd, "lstm_bwd": lstm.lstm_bwd,
             "relpos_attention_fwd": head_attention.relpos_attention,
             "relpos_attention_bwd": head_attention.relpos_attention_bwd,
@@ -649,26 +728,35 @@ def counters():
             "attention_block_fwd": attention_block.attention_block,
             "attention_block_bwd": attention_block.attention_block_bwd,
             "conv_ln_fwd": conv_ln.conv_ln_relu,
-            "conv_ln_bwd": conv_ln.conv_ln_relu_bwd}
+            "conv_ln_bwd": conv_ln.conv_ln_relu_bwd,
+            "scatter_add_rows": scatter_add.scatter_add_rows}
 
 
 # the kernels of each path: its AR's and the heads' (K2, K3); the fused-
 # layer path (CPC_ATTN_BLOCK=1, CPC_PALLAS_CONV=1) runs K6 in place of K2
-# and K7 in encoder layers 1-4
+# and K7 in encoder layers 1-4; the exact sampler's path adds K8, the
+# backward of its negatives' gather
 HEADS = ("relpos_attention_fwd", "relpos_attention_bwd", "layer_tail_fwd",
          "layer_tail_bwd")
 FUSED = "LSTM fused"
+EXACT = "LSTM exact"
 PATH_KERNELS = {"LSTM": ("lstm_fwd", "lstm_bwd") + HEADS,
                 "GRU": ("gru_fwd", "gru_bwd") + HEADS,
                 "transformer": ("causal_attention_fwd",
                                 "causal_attention_bwd") + HEADS,
                 FUSED: ("lstm_fwd", "lstm_bwd", "attention_block_fwd",
                         "attention_block_bwd", "layer_tail_fwd",
-                        "layer_tail_bwd", "conv_ln_fwd", "conv_ln_bwd")}
-# launches a step on the fused path; K2 must not run there at all
-FUSED_PER_STEP = {"attention_block_fwd": 1, "attention_block_bwd": 1,
-                  "conv_ln_fwd": 4, "conv_ln_bwd": 4,
-                  "relpos_attention_fwd": 0, "relpos_attention_bwd": 0}
+                        "layer_tail_bwd", "conv_ln_fwd", "conv_ln_bwd"),
+                EXACT: ("lstm_fwd", "lstm_bwd") + HEADS
+                + ("scatter_add_rows",)}
+# CPCConfig fields a path sets beside arMode
+PATH_CONFIG = {EXACT: {"negativeSamplingMode": "exact"}}
+# launches a step, where a path fixes them: on the fused path K2 must not
+# run at all; on the exact path K8 runs once, in the backward
+PER_STEP = {FUSED: {"attention_block_fwd": 1, "attention_block_bwd": 1,
+                    "conv_ln_fwd": 4, "conv_ln_bwd": 4,
+                    "relpos_attention_fwd": 0, "relpos_attention_bwd": 0},
+            EXACT: {"scatter_add_rows": 1}}
 
 
 def reset_counts() -> dict:
@@ -678,21 +766,21 @@ def reset_counts() -> dict:
     return fns
 
 
-def read_counts(fns: dict, path: str, names, fused_steps: int = 0) -> dict:
+def read_counts(fns: dict, path: str, names, steps: int = 0,
+                per_step: dict = None) -> dict:
     """The launches since reset_counts; each of ``names`` must have run.
-    On the fused path (``fused_steps`` > 0 forward-and-backward or forward
-    steps) K6 and K7 must have run exactly FUSED_PER_STEP times a step
-    where they are among ``names``, and K2 never."""
+    Over ``steps`` forward-and-backward or forward steps, each kernel of
+    ``per_step`` (a path's PER_STEP) must have run exactly that many times
+    a step where it is among ``names``, and those of 0 never."""
     launches = {name: fn.launches for name, fn in fns.items()}
     print(f"{path} launches: {launches}", flush=True)
     for name in names:
         if launches[name] <= 0:
             fail(f"the {path} did not launch {name}")
-    for name, per in FUSED_PER_STEP.items():
-        if fused_steps and (name in names or per == 0) \
-                and launches[name] != per * fused_steps:
+    for name, per in (per_step or {}).items():
+        if (name in names or per == 0) and launches[name] != per * steps:
             fail(f"the {path} launched {name} {launches[name]} times, not "
-                 f"{per} x {fused_steps}")
+                 f"{per} x {steps}")
     return launches
 
 
@@ -735,15 +823,17 @@ def switches(path: str):
 
 def build(path: str, dtype: str, generator: torch.Generator):
     """Model and criterion at the default CPCConfig on ``path`` (an
-    --arMode, or FUSED: LSTM with both fused-layer switches); the criterion
-    is sized from ``model.config``, whose hiddenGar build_model sets for
-    the mode, as the trainer does."""
+    --arMode, FUSED: LSTM with both fused-layer switches, or EXACT: LSTM
+    with the exact sampler); the criterion is sized from ``model.config``,
+    whose hiddenGar build_model sets for the mode, as the trainer does."""
     from cpc_audio_tpu_torch.config import CPCConfig
     from cpc_audio_tpu_torch.criterion import build_criterion
     from cpc_audio_tpu_torch.models import build_model
     with switches(path):
         model = build_model(CPCConfig(compute_dtype=dtype,
-                                      arMode=path.split()[0]), generator)
+                                      arMode=path.split()[0],
+                                      **PATH_CONFIG.get(path, {})),
+                            generator)
         crit = build_criterion(model.config, generator)
     return model, crit
 
@@ -779,7 +869,7 @@ def phase_eval(dev: torch.device, path: str = "LSTM",
     torch.cuda.synchronize()
     launches = read_counts(fns, f"{path} eval step",
                            [n for n in PATH_KERNELS[path]
-                            if n.endswith("_fwd")], int(path == FUSED))
+                            if n.endswith("_fwd")], 1, PER_STEP.get(path))
 
     K = cfg.nPredicts
     losses, acc = metrics["losses"].float().cpu(), metrics["acc"].cpu()
@@ -881,7 +971,7 @@ def phase_train(dev: torch.device, path: str = "LSTM",
             times.append(time.perf_counter() - t0)
         losses.append(metrics["losses"])
     launches = read_counts(fns, f"{path} train step", PATH_KERNELS[path],
-                           12 * (path == FUSED))
+                           12, PER_STEP.get(path))
 
     per_step = torch.stack(losses).float().cpu()          # (12, K)
     if tuple(per_step.shape) != (12, cfg.nPredicts) or \
@@ -915,16 +1005,18 @@ def train_setup(model, crit, dev: torch.device, B: int = 32):
     return make_train_step(state, dev), batch, epoch_key(SEED, 0, dev)
 
 
-def ab_train(dev: torch.device, B: int = 32, steps: int = 20) -> None:
-    """Train windows/s of the default and the fused-layer LSTM step in one
-    call, in turns (default, fused, fused, default), each turn 2 warm-up
-    and ``steps`` timed steps on the same fixed batch."""
+def ab_train(dev: torch.device, other: str, B: int = 32,
+             steps: int = 20) -> None:
+    """Train windows/s of the default LSTM step and of path ``other`` (the
+    fused-layer or the exact sampler's) in one call, in turns (default,
+    other, other, default), each turn 2 warm-up and ``steps`` timed steps
+    on the same fixed batch."""
     runs = {path: train_setup(*build(path, "bfloat16",
                                      torch.Generator().manual_seed(SEED)),
                               dev, B)
-            for path in ("LSTM", FUSED)}
+            for path in ("LSTM", other)}
     times = {path: [] for path in runs}
-    for path in ("LSTM", FUSED, FUSED, "LSTM"):
+    for path in ("LSTM", other, other, "LSTM"):
         step, batch, key = runs[path]
         for i in range(2 + steps):
             t0 = time.perf_counter()
@@ -933,12 +1025,72 @@ def ab_train(dev: torch.device, B: int = 32, steps: int = 20) -> None:
             if i >= 2:
                 times[path].append(time.perf_counter() - t0)
     ms = {path: statistics.median(t) * 1e3 for path, t in times.items()}
+    what = other.split()[1]
     print(f"A/B train windows/s, LSTM, B={B}, bf16, dropout 0.1, in turns "
-          f"default/fused/fused/default, median of {2 * steps} steps each: "
-          f"default {B / ms['LSTM'] * 1e3:.1f} ({ms['LSTM']:.3f} ms), "
-          f"fused {B / ms[FUSED] * 1e3:.1f} ({ms[FUSED]:.3f} ms), fused / "
-          f"default step time {ms[FUSED] / ms['LSTM']:.3f} on {gpu_line()}",
+          f"default/{what}/{what}/default, median of {2 * steps} steps "
+          f"each: default {B / ms['LSTM'] * 1e3:.1f} ({ms['LSTM']:.3f} ms), "
+          f"{what} {B / ms[other] * 1e3:.1f} ({ms[other]:.3f} ms), {what} / "
+          f"default step time {ms[other] / ms['LSTM']:.3f} on {gpu_line()}",
           flush=True)
+
+
+def phase_stop_grad(dev: torch.device, B: int = 32, steps: int = 2) -> None:
+    """Exact-sampler train steps with stopGradNegatives: no gradient
+    reaches the negatives, so K8 must not launch; K1-K3 must."""
+    from cpc_audio_tpu_torch.config import CPCConfig
+    from cpc_audio_tpu_torch.criterion import build_criterion
+    from cpc_audio_tpu_torch.models import build_model
+    gen = torch.Generator().manual_seed(SEED)
+    with switches("LSTM"):
+        model = build_model(CPCConfig(compute_dtype="bfloat16",
+                                      negativeSamplingMode="exact",
+                                      stopGradNegatives=True), gen)
+        crit = build_criterion(model.config, gen)
+    step, batch, key = train_setup(model, crit, dev, B)
+    fns = reset_counts()
+    losses = [step(batch, key=key)[1]["losses"] for _ in range(steps)]
+    torch.cuda.synchronize()
+    read_counts(fns, "stopGradNegatives exact train step",
+                PATH_KERNELS["LSTM"], steps, {"scatter_add_rows": 0})
+    total = torch.stack(losses).float().sum(dim=1).cpu()
+    if not torch.isfinite(total).all():
+        fail(f"stopGradNegatives losses {total.tolist()}")
+    print(f"stopGradNegatives exact train steps (B={B}, bf16): losses (sum "
+          f"over K) {[round(v, 4) for v in total.tolist()]}, K8 launches 0",
+          flush=True)
+
+
+def phase_eval_auto_exact(dev: torch.device, B: int = 24) -> None:
+    """The default config (negativeSamplingMode auto) at B = 24: B*S =
+    3072 is no power of two, so the sampler resolves to exact; one
+    make_val_step with the round keys and negatives' seed derived on the
+    device, as the CLI's validation pass does."""
+    from cpc_audio_tpu_torch.parallel.train_step import (epoch_key,
+                                                         make_val_step,
+                                                         step_streams)
+    model, crit = build("LSTM", "bfloat16",
+                        torch.Generator().manual_seed(SEED))
+    model, crit, cfg = model.to(dev), crit.to(dev), model.config
+    sampler = crit.sampler(B, cfg.sizeWindow // 160)
+    if cfg.negativeSamplingMode != "auto" or sampler != "exact":
+        fail(f"auto at B={B} resolved to {sampler!r}, not 'exact'")
+    batch = torch.from_numpy(synthetic_audio(cfg.sizeWindow, B, SEED)).to(dev)
+    _, keys, neg_seed = step_streams(epoch_key(SEED, 1, dev),
+                                     torch.zeros((), dtype=torch.int64,
+                                                 device=dev))
+    fns = reset_counts()
+    _, metrics = make_val_step(model, crit, dev)(batch, round_keys=keys,
+                                                 neg_seed=neg_seed)
+    torch.cuda.synchronize()
+    read_counts(fns, f"eval step at B={B}",
+                [n for n in PATH_KERNELS[EXACT] if n.endswith("_fwd")])
+    losses, acc = metrics["losses"].float().cpu(), metrics["acc"].cpu()
+    if tuple(losses.shape) != (cfg.nPredicts,) or not (
+            torch.isfinite(losses).all() and (acc >= 0).all()
+            and (acc <= 1).all()):
+        fail(f"eval at B={B}: losses {losses.tolist()} acc {acc.tolist()}")
+    print(f"eval step at B={B} (auto -> {sampler}, bf16): losses="
+          f"{losses.numpy().round(4)} acc={acc.numpy().round(4)}", flush=True)
 
 
 def profile_train(step, batch, key, step_ms: float, path: str,
@@ -999,7 +1151,8 @@ PROFILE_GROUPS = (
     ("port kernels", ("lstm_fwd_kernel", "lstm_bwd_kernel", "gru_fwd_kernel",
                       "gru_bwd_kernel", "relpos_attention",
                       "causal_attention", "tail_", "dkrel_reduce",
-                      "attention_block", "conv_ln", "sum_parts")),
+                      "attention_block", "conv_ln", "sum_parts",
+                      "scatter_add_kernel")),
     ("Adam (foreach kernels)", ("adam", "multi_tensor_apply")),
     ("cuDNN conv", ("cudnn", "conv", "nchwtonhwc", "nhwctonchw", "wgrad",
                     "dgrad")),
@@ -1163,7 +1316,8 @@ def _run_cli(train, argv, what: str, names):
 def phase_cli(tmp: str) -> None:
     """cpc_audio_tpu_torch.train.main on a synthetic 2-speaker WAV tree at
     the default architecture in bf16: one epoch, then a resume to two;
-    then one epoch each with --arMode GRU and --arMode transformer."""
+    then one epoch each with --arMode GRU, with --arMode transformer and
+    with --batchSizeGPU 6 (the exact sampler)."""
     from cpc_audio_tpu_torch import train
 
     db = os.path.join(tmp, "db")
@@ -1176,19 +1330,23 @@ def phase_cli(tmp: str) -> None:
         x = 0.3 * np.sin(2 * np.pi * (150 + 100 * (i % 2)) * t) \
             + 0.05 * rng.standard_normal(n)
         _write_wav(os.path.join(spk, f"f{i:03d}.wav"), x)
-    for ar_mode, epochs in (("LSTM", ("1", "2")), ("GRU", ("1",)),
-                            ("transformer", ("1",))):
-        out = os.path.join(tmp, f"ckpt_{ar_mode}")
+    # batch 6: B*S = 768, so negativeSamplingMode auto resolves to exact
+    for ar_mode, epochs, batch in (("LSTM", ("1", "2"), "8"),
+                                   ("GRU", ("1",), "8"),
+                                   ("transformer", ("1",), "8"),
+                                   ("LSTM", ("1",), "6")):
+        out = os.path.join(tmp, f"ckpt_{ar_mode}_{batch}")
         argv = ["--pathDB", db, "--file_extension", ".wav",
                 "--pathCheckpoint", out, "--compute_dtype", "bfloat16",
-                "--batchSizeGPU", "8", "--nEpoch", "1", "--n_process_loader",
-                "2", "--ignore_cache", "--random_seed", str(SEED),
-                "--arMode", ar_mode]
+                "--batchSizeGPU", batch, "--nEpoch", "1",
+                "--n_process_loader", "2", "--ignore_cache",
+                "--random_seed", str(SEED), "--arMode", ar_mode]
+        names = PATH_KERNELS[EXACT if batch == "6" else ar_mode]
         for n_epoch in epochs:
             argv[argv.index("--nEpoch") + 1] = n_epoch
             lines = _run_cli(train, argv,
-                             f"--arMode {ar_mode} --nEpoch {n_epoch}",
-                             PATH_KERNELS[ar_mode])
+                             f"--arMode {ar_mode} --batchSizeGPU {batch} "
+                             f"--nEpoch {n_epoch}", names)
             files = sorted(os.listdir(out))
             want = f"checkpoint_{int(n_epoch) - 1}.pt"
             for f in (want, "checkpoint_logs.json", "checkpoint_args.json"):
@@ -1202,7 +1360,8 @@ def phase_cli(tmp: str) -> None:
         if logs["epoch"] != list(range(len(epochs))) or not np.isfinite(
                 np.asarray(logs["locLoss_train"], np.float64)).all():
             fail(f"train CLI logs: epochs {logs['epoch']}")
-        print(f"train CLI --arMode {ar_mode}: epochs {logs['epoch']}, train "
+        print(f"train CLI --arMode {ar_mode} --batchSizeGPU {batch}: "
+              f"epochs {logs['epoch']}, train "
               f"loss per epoch "
               f"{[round(float(np.mean(v)), 4) for v in logs['locLoss_train']]}"
               f"; files {files}", flush=True)
@@ -1241,24 +1400,32 @@ def main() -> None:
     print(f"[phase kernels {time.time() - t0:.1f} s]", flush=True)
     t0 = time.time()
     for path in PATH_KERNELS:
-        phase_eval(dev, path)
+        if path != EXACT:
+            phase_eval(dev, path)
+    phase_eval_auto_exact(dev)
     print(f"[phase eval {time.time() - t0:.1f} s]", flush=True)
     # each path reports the launches of its own kernels: the AR's, and K2,
-    # K3 from the default path, K6, K7 from the fused-layer path
+    # K3 from the default path, K6, K7 from the fused-layer path, K8 from
+    # the exact sampler's
     launches = {}
     for path, own in (("LSTM", PATH_KERNELS["LSTM"]),
                       ("GRU", ("gru_fwd", "gru_bwd")),
                       ("transformer", ("causal_attention_fwd",
                                        "causal_attention_bwd")),
                       (FUSED, ("attention_block_fwd", "attention_block_bwd",
-                               "conv_ln_fwd", "conv_ln_bwd"))):
+                               "conv_ln_fwd", "conv_ln_bwd")),
+                      (EXACT, ("scatter_add_rows",))):
         t0 = time.time()
         counts = phase_train(dev, path)
         launches.update({name: counts[name] for name in own})
         check_train_against_cpu(dev, path)
         print(f"[phase train {path} {time.time() - t0:.1f} s]", flush=True)
     t0 = time.time()
-    ab_train(dev)
+    phase_stop_grad(dev)
+    print(f"[phase stop-grad {time.time() - t0:.1f} s]", flush=True)
+    t0 = time.time()
+    ab_train(dev, FUSED)
+    ab_train(dev, EXACT)
     print(f"[phase A/B {time.time() - t0:.1f} s]", flush=True)
     t0 = time.time()
     with tempfile.TemporaryDirectory() as tmp:

@@ -87,6 +87,8 @@ _SIGNATURES = {
     # stride, pad, n_split, eps, dtype, stream
     "cpc_conv_ln_bwd": ([_P] * 12 + [_I] * 6 + [_F, _I, _P], _I),
     "cpc_conv_ln_bwd_smem": ([_I, _I], ctypes.c_size_t),
+    # updates, order, offsets, out, R, C, dtype, stream
+    "cpc_scatter_add": ([_P] * 4 + [_I] * 3 + [_P], _I),
 }
 
 _LOCK = threading.Lock()

@@ -19,7 +19,10 @@ tiling, and the CPU and the card draw the same mask:
 * the transformer AR's attention probabilities:
   ``w1 = layer * N + n`` with ``n = b * nheads + h``, ``w2 = i * S + j``;
 * the transformer AR's FFN hidden: ``w1 = layer * B * S + row``,
-  ``w2 = f``.
+  ``w2 = f``;
+* the negative samplers' indices (not a dropout, the same hash):
+  ``w1 = 0`` for the batch indices and ``1`` for the time offsets,
+  ``w2`` = the flat index of the draw (:func:`negative_indices`).
 
 An element is kept when ``bits >= rate * 2**32`` and scaled by
 ``1 / (1 - rate)``, as ``cpc_audio_tpu/ops/pallas/attention.py:52,66-67``.
@@ -31,7 +34,7 @@ compare at rate 0.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -44,6 +47,8 @@ SITE_STEP_SEED = 4      # train step: dropout seed from (key, step)
 SITE_ROUND_KEYS = 5     # train step: Feistel round keys from (key, step)
 SITE_AR_ATTENTION = 6   # transformer AR: attention probabilities
 SITE_AR_FFN = 7         # transformer AR: FFN hidden
+SITE_NEGATIVES = 8      # negative samplers: their seed from (key, step),
+                        # then their indices from that seed
 
 
 def _fmix(h: torch.Tensor) -> torch.Tensor:
@@ -154,7 +159,26 @@ def dropout(x: torch.Tensor, seed: torch.Tensor, rate: float,
 def step_words(key: torch.Tensor, site: int, step: torch.Tensor,
                n: int) -> torch.Tensor:
     """(n,) int64 words from an epoch key and the step counter, both
-    device tensors: the train step's dropout seed and round keys
-    (the role of ``cpc_audio_tpu/parallel/train_step.py`` stream_keys)."""
+    device tensors: the train step's dropout seed, round keys and
+    negatives' seed (the role of ``cpc_audio_tpu/parallel/train_step.py``
+    stream_keys)."""
     return bits(key, site, step.reshape(1),
                 torch.arange(n, device=key.device))
+
+
+def negative_indices(seed: torch.Tensor, shape, Bp: int, S: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The negative samplers' draws (``cpc_audio_tpu/criterion/
+    infonce.py:116-117, 144-145``): int64 batch indices in [0, Bp) and time
+    offsets in [1, S), each of ``shape``, from the bits of the (1,) int64
+    ``seed`` at the negatives' site, on the seed's device.  A word maps to
+    [0, n) as ``(bits * n) >> 32``.  JAX's threefry draws are not
+    reproduced: against the JAX package, inject the indices."""
+    n = 1
+    for d in shape:
+        n *= d
+    w1 = torch.arange(2, device=seed.device).reshape(2, 1)
+    h = bits(seed, SITE_NEGATIVES, w1, torch.arange(n, device=seed.device))
+    batch = (h[0] * Bp) >> 32
+    offset = 1 + ((h[1] * (S - 1)) >> 32)
+    return batch.reshape(shape), offset.reshape(shape)

@@ -12,11 +12,12 @@
   the plain single-tensor loop.
 * Parameters and optimizer moments are updated in place: PyTorch's
   modules own them, where JAX returned a new ``TrainState``.
-* The per-step dropout seed and Feistel round keys derive from (epoch key,
-  step) on the device (``ops/dropout.step_words``), the role of
-  ``stream_keys``, so a step needs no host sync.  The one seed feeds every
-  dropout of the step (the transformer AR's and the heads'), kept apart by
-  the sites of ``ops/dropout.py``.
+* The per-step dropout seed, Feistel round keys and negatives' seed
+  derive from (epoch key, step) on the device (``ops/dropout.step_words``),
+  the role of ``stream_keys``, so a step needs no host sync.  The one seed
+  feeds every dropout of the step (the transformer AR's and the heads'),
+  kept apart by the sites of ``ops/dropout.py``; the negatives' seed feeds
+  the exact and rolled samplers' indices (``dropout.negative_indices``).
 """
 
 from __future__ import annotations
@@ -76,11 +77,13 @@ def epoch_key(seed: int, epoch: int, device) -> torch.Tensor:
 
 
 def step_streams(key: torch.Tensor, step: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dropout seed (1,), Feistel round keys (ROUNDS,)) for one step."""
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dropout seed (1,), Feistel round keys (ROUNDS,), negatives' seed
+    (1,)) for one step; the last is the word after the round keys."""
     seed = dropout.step_words(key, dropout.SITE_STEP_SEED, step, 1)
-    keys = dropout.step_words(key, dropout.SITE_ROUND_KEYS, step, ROUNDS)
-    return seed, keys
+    words = dropout.step_words(key, dropout.SITE_ROUND_KEYS, step,
+                               ROUNDS + 1)
+    return seed, words[:ROUNDS], words[ROUNDS:]
 
 
 def _to_device(batch, device: torch.device) -> torch.Tensor:
@@ -90,23 +93,25 @@ def _to_device(batch, device: torch.device) -> torch.Tensor:
 
 
 def make_train_step(state: TrainState, device) -> Callable:
-    """``train_step(batch, hidden=None, key=None, round_keys=None) ->
-    (hidden, {"losses": (K,), "acc": (K,)})``.
+    """``train_step(batch, hidden=None, key=None, round_keys=None,
+    negatives=None) -> (hidden, {"losses": (K,), "acc": (K,)})``.
 
     One forward (``train=True``), backward of ``losses.sum()`` and Adam
     step on ``state``; ``state.step`` advances by one.  ``key`` is the
     epoch's (1,) int64 device key (:func:`epoch_key`); ``round_keys``
-    overrides the derived Feistel keys (tests inject them).  Returns
-    device tensors without synchronising."""
+    overrides the derived Feistel keys and ``negatives`` = (batch indices,
+    time offsets) the exact or rolled sampler's derived draws (tests
+    inject them).  Returns device tensors without synchronising."""
     device = torch.device(device)
 
     def train_step(batch, hidden=None, key: Optional[torch.Tensor] = None,
-                   round_keys: Optional[torch.Tensor] = None
+                   round_keys: Optional[torch.Tensor] = None,
+                   negatives: Optional[Tuple[torch.Tensor, ...]] = None
                    ) -> Tuple[object, Dict[str, torch.Tensor]]:
         batch = _to_device(batch, device)
         if key is None:
             key = torch.zeros(1, dtype=torch.int64, device=device)
-        seed, keys = step_streams(key, state.step)
+        seed, keys, neg_seed = step_streams(key, state.step)
         if round_keys is not None:
             keys = round_keys
         state.optimizer.zero_grad(set_to_none=True)
@@ -115,7 +120,8 @@ def make_train_step(state: TrainState, device) -> Callable:
         c, z, _, hid = state.model(batch, None, hidden, train=True,
                                    seed=seed)
         losses, acc = state.criterion(c, z, None, train=True,
-                                      round_keys=keys, seed=seed)
+                                      round_keys=keys, seed=seed,
+                                      neg_seed=neg_seed, negatives=negatives)
         losses.sum().backward()
         state.optimizer.step()
         state.step += 1
@@ -126,24 +132,30 @@ def make_train_step(state: TrainState, device) -> Callable:
 
 def make_val_step(model: torch.nn.Module, criterion: torch.nn.Module,
                   device: torch.device) -> Callable:
-    """``val_step(batch, hidden=None, generator=None, round_keys=None) ->
-    (hidden, {"losses": (K,), "acc": (K,)})``.
+    """``val_step(batch, hidden=None, generator=None, round_keys=None,
+    neg_seed=None, negatives=None) -> (hidden, {"losses": (K,), "acc":
+    (K,)})``.
 
     ``batch`` (B, 1, T) float waveforms, numpy or torch; ``generator``
-    draws the negative sampler's round keys unless ``round_keys`` gives
-    them.  Runs under ``torch.inference_mode`` and returns device
-    tensors without synchronising."""
+    draws the negative samplers' round keys and negatives' seed unless
+    ``round_keys`` and ``neg_seed`` (device tensors, from
+    :func:`step_streams`) or ``negatives`` give them.  Runs under
+    ``torch.inference_mode`` and returns device tensors without
+    synchronising."""
     device = torch.device(device)
 
     def val_step(batch, hidden=None,
                  generator: Optional[torch.Generator] = None,
-                 round_keys: Optional[torch.Tensor] = None
+                 round_keys: Optional[torch.Tensor] = None,
+                 neg_seed: Optional[torch.Tensor] = None,
+                 negatives: Optional[Tuple[torch.Tensor, ...]] = None
                  ) -> Tuple[object, Dict[str, torch.Tensor]]:
         batch = _to_device(batch, device)
         with torch.inference_mode():
             c, z, _, hid = model(batch, None, hidden)
             losses, acc = criterion(c, z, None, generator=generator,
-                                    round_keys=round_keys)
+                                    round_keys=round_keys, neg_seed=neg_seed,
+                                    negatives=negatives)
         return hid, {"losses": losses, "acc": acc}
 
     return val_step

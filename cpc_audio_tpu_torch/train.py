@@ -84,14 +84,16 @@ def train_epoch(loader, train_step, hidden, key: torch.Tensor,
 def val_epoch(loader, val_step, hidden, key: torch.Tensor
               ) -> Tuple[dict, object]:
     """Validation pass (cpc_audio_tpu/train.py:130-150): the round keys
-    of batch ``step`` derive from (key, step) on the device."""
+    and negatives' seed of batch ``step`` derive from (key, step) on the
+    device."""
     logs = {}
     dev_sums = None
     it = 0
     step = torch.zeros((), dtype=torch.int64, device=key.device)
     for batch, _ in loader:
-        _, keys = step_streams(key, step)
-        hidden, metrics = val_step(batch, hidden, round_keys=keys)
+        _, keys, neg_seed = step_streams(key, step)
+        hidden, metrics = val_step(batch, hidden, round_keys=keys,
+                                   neg_seed=neg_seed)
         dev_sums = metrics if dev_sums is None else \
             {k: dev_sums[k] + metrics[k] for k in dev_sums}
         step += 1

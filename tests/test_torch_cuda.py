@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from cpc_audio_tpu_torch.ops import (attention_block, causal_attention,
-                                     conv_ln, ffn, gru, head_attention, lstm)
+                                     conv_ln, ffn, gru, head_attention, lstm,
+                                     scatter_add)
 
 pytestmark = pytest.mark.cuda
 
@@ -407,3 +408,55 @@ def test_fused_wrappers_reject_what_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="fused_conv_supported"):
         conv_ln.conv_ln_relu_fwd(x, torch.zeros(3 * 64, 64, device=dev), v,
                                  v, v, 2, 3, 1)                # k != 2 s
+
+
+# ---- K8: the row scatter-add ---------------------------------------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("J,C,R,keys", [
+    (5000, 256, 301, "random"), (5000, 64, 301, "random"),
+    (3000, 256, 37, "one row"), (400, 256, 1000, "half the rows"),
+    (1, 64, 13, "random"), (1, 256, 5, "one row")])
+def test_scatter_add_kernel(dev, dtype, J, C, R, keys):
+    """K8 against index_add_ into float32 zeros: random keys, all keys on
+    one row, rows with no update (exactly 0), J = 1, C = 64 (8 active
+    lanes in bf16) and 256, R not a multiple of the 8 rows a block; two
+    launches on the same inputs are bit-equal.  Float32 sums in another
+    order (index_add_ adds with atomics): within 1e-5 of the largest
+    entry."""
+    rng = np.random.RandomState(J + C + R)
+    upd = _rand(rng, dev, dtype, J, C)
+    if keys == "one row":
+        k = np.full(J, R // 2)
+    elif keys == "half the rows":
+        k = 2 * rng.randint(0, R // 2, J)
+    else:
+        k = rng.randint(0, R, J)
+    k = torch.from_numpy(k).to(dev)
+    before = scatter_add.scatter_add_rows.launches
+    got = scatter_add.scatter_add_rows(upd, k, R)
+    assert scatter_add.scatter_add_rows.launches == before + 1
+    want = scatter_add.scatter_add_rows_ref(upd, k, R)
+    assert got.dtype == torch.float32 and got.shape == (R, C)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
+    empty = torch.ones(R, dtype=torch.bool, device=dev)
+    empty[k] = False
+    assert (got[empty] == 0).all()
+    assert torch.equal(got, scatter_add.scatter_add_rows(upd, k, R))
+
+
+def test_scatter_add_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    k = torch.zeros(4, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="16 bytes"):
+        scatter_add.scatter_add_rows(
+            torch.zeros(4, 4, device=dev, dtype=torch.bfloat16), k, 2)
+    with pytest.raises(ValueError, match="dtype"):
+        scatter_add.scatter_add_rows(torch.zeros(4, 64, device=dev).half(),
+                                     k, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        scatter_add.scatter_add_rows(torch.zeros(64, 4, device=dev).t(), k,
+                                     2)
+    with pytest.raises(ValueError, match="several devices"):
+        scatter_add.scatter_add_rows(torch.zeros(4, 64, device=dev),
+                                     k.cpu(), 2)

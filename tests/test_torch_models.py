@@ -146,8 +146,8 @@ def test_unported_model_variants_name_roadmap_item(override):
 
 @pytest.mark.parametrize("override,item", [
     ({"rnnMode": "linear"}, "item 11"),
-    ({"negativeSamplingMode": "exact"}, "item 5"),
-    ({"stopGradNegatives": True}, "item 11")])
+    ({"speakerEmbedding": 8}, "item 11"),
+    ({"cpc_mode": "reverse"}, "item 11")])
 def test_unported_criterion_variants_name_roadmap_item(override, item):
     with pytest.raises(NotImplementedError, match=item):
         build_criterion(CPCConfig(**override))

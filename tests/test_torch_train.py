@@ -175,9 +175,10 @@ def test_train_steps_draw_new_streams_and_learn():
     losses = [step(x, key=key)[1]["losses"].sum().item() for _ in range(6)]
     assert int(state.step) == 6
     assert losses[-1] < losses[0], losses
-    s0, k0 = step_streams(key, torch.tensor(0))
-    s1, k1 = step_streams(key, torch.tensor(1))
+    s0, k0, n0 = step_streams(key, torch.tensor(0))
+    s1, k1, n1 = step_streams(key, torch.tensor(1))
     assert not torch.equal(s0, s1) and not torch.equal(k0, k1)
+    assert not torch.equal(n0, n1)
 
 
 def test_train_cli_runs_and_resumes(tmp_path, capsys):
