@@ -11,14 +11,17 @@ Phases (any failure exits non-zero):
      K8, the scatter-add), at the train paths' exact shapes, in bfloat16
      and in float32, at dropout rate 0 and 0.1 where the kernel drops:
      compare with its plain PyTorch version on the card (same inputs, same
-     dropout seed) against a stated tolerance, time both (median of 25
-     synchronised runs) and compute its bound (bytes over the memory rate
-     or operations over the peak rate, whichever is larger); K8 also with
-     all keys on one row (bf16), and the time of its whole wrapper (sort +
-     searchsorted + K8); then time the yardstick PyTorch call where one
-     computes the same function (cuDNN LSTM/GRU, scaled_dot_product_
-     attention, index_add_), and for K7 the port's unfused encoder layers
-     (cuDNN conv + ChannelNorm + ReLU, a composition, not one call);
+     dropout seed) against a stated tolerance, time the kernel (device
+     time a call: median_ms) and, in bf16 at the train step's rate, its
+     plain version, and compute its bound (bytes over the memory rate or
+     operations over the peak rate, whichever is larger); K5 and K3 also
+     at the widths of --hiddenEncoder 512 --hiddenGar 512 (dk 64, D 512,
+     bf16); K8 also with all keys on one row (bf16), and the time of its
+     whole wrapper (sort + searchsorted + K8); then time the yardstick
+     PyTorch call where one computes the same function (cuDNN LSTM/GRU,
+     scaled_dot_product_attention, index_add_), K5 at rate 0 beside
+     SDPA, and for K7 the port's unfused encoder layers (cuDNN conv +
+     ChannelNorm + ReLU, a composition, not one call);
   4. the eval path at full width, for --arMode LSTM (the default), GRU
      and transformer, and the fused-layer path (LSTM with CPC_ATTN_BLOCK=1
      and CPC_PALLAS_CONV=1: K6 in the heads, K7 in encoder layers 1-4):
@@ -31,8 +34,9 @@ Phases (any failure exits non-zero):
      64000-sample WAV, which must give (1, 400, 256) finite float32
      features; then the default config at B = 24, where
      negativeSamplingMode auto resolves to the exact sampler;
-  5. the train paths, LSTM, GRU, transformer, the fused-layer path, then
-     the exact sampler on LSTM (negativeSamplingMode exact):
+  5. the train paths, LSTM, GRU, transformer, the fused-layer path, the
+     exact sampler on LSTM (negativeSamplingMode exact), then the
+     transformer at --hiddenEncoder 512 --hiddenGar 512:
      make_train_step at the same config (bf16, B = 32, dropout 0.1 in the
      heads and the transformer AR), 2 warm-up and 10 timed steps on a
      fixed batch; the launch counts of the path's kernels must rise (on
@@ -41,15 +45,21 @@ Phases (any failure exits non-zero):
      prints train windows/s and the step's device time by kernel
      (torch.profiler); then one float32 step on a (2, 1, 20480) batch on
      the card and on the CPU (same weights, round keys, negatives' seed
-     and dropout seed) must give the same losses and gradients; then two
-     exact steps with stopGradNegatives, in which K8 must not launch;
+     and dropout seed) must give the same losses and gradients; then a
+     GRU model at --hiddenGar 100 (K4 with H padded to 128; the criterion
+     must be refused, naming the flag) trains alone for 4 steps and holds
+     a float32 step against the CPU; then two exact steps with
+     stopGradNegatives, in which K8 must not launch;
      last, the default LSTM step in turns with the fused one and with the
      exact one, one line of train windows/s for each pair;
   6. the train CLI (cpc_audio_tpu_torch.train.main) on a synthetic WAV
      tree in bf16: the default architecture for one epoch, which writes
      checkpoint_0.pt and both sidecars, and a rerun with --nEpoch 2 that
      resumes; then one epoch with --arMode GRU, one with --arMode
-     transformer, and one with --batchSizeGPU 6 (auto -> exact: K8 runs);
+     transformer, one with --batchSizeGPU 6 (auto -> exact: K8 runs) and
+     one with --arMode transformer --hiddenEncoder 512 --hiddenGar 512;
+     --arMode GRU --hiddenGar 100 must stop before any step, naming the
+     flag;
   7. print one JSON line of per-kernel results (each kernel's launches
      from its own path's train run), the card line again, and last the
      JSON result line.
@@ -75,7 +85,8 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 1234
-ITERS = 25
+CALLS, REPS = 10, 3       # median_ms: calls per timed run, runs
+SPIN_HZ = 1.98e9          # H100 SXM boost clock: torch.cuda._sleep cycles
 
 
 def fail(msg: str) -> None:
@@ -92,8 +103,42 @@ def gpu_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, warmup: int = 3, iters: int = ITERS) -> float:
-    """Median over ``iters`` synchronised runs of ``fn``, in ms."""
+def median_ms(fn, warmup: int = 2, calls: int = CALLS,
+              reps: int = REPS) -> float:
+    """Device time of one call of ``fn``, in ms: up to ``calls`` calls
+    (fewer for a slow one, about 25 ms of them) enqueued back to back
+    behind a spin kernel long enough to cover their host-side work (the
+    wrappers' Python, the plain versions' op dispatch), between two CUDA
+    events, so the card never waits on the host inside the interval; the
+    median over ``reps`` such runs."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    whole = time.perf_counter() - t0
+    calls = max(1, min(calls, int(0.025 / whole)))
+    spin = int(min(1.5 * calls * host + 1e-3, 2.0) * SPIN_HZ)
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def host_bound_ms(fn, warmup: int = 3, iters: int = 25) -> float:
+    """Median over ``iters`` synchronised runs of ``fn`` between two CUDA
+    events, in ms: the earlier measure, in which the card also waits on
+    the call's host-side work."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -161,11 +206,15 @@ class Case:
     read (``read_bytes``; else every input element counts once)."""
 
     def __init__(self, name, rate, kernel, plain, inputs, flops,
-                 read_bytes=None, label=None):
+                 read_bytes=None, label=None, shape=None):
         self.name, self.rate, self.kernel, self.plain = name, rate, kernel, \
             plain
         self.inputs, self.flops, self.read_bytes = inputs, flops, read_bytes
-        self.label = label or f"{name} rate {rate:g}"
+        # shape: None at the default train shapes, else a tag of the wider
+        # shape (the --hiddenEncoder 512 --hiddenGar 512 paths)
+        self.shape = shape
+        self.label = label or (f"{name} rate {rate:g}" +
+                               (f" {shape}" if shape else ""))
 
 
 def kernel_cases(dev: torch.device, dtype: torch.dtype, B: int = 32):
@@ -319,6 +368,10 @@ def kernel_cases(dev: torch.device, dtype: torch.dtype, B: int = 32):
     # K8 on the exact sampler's keys: ms is the kernel on the sorted form,
     # its plain version index_add_ on the keys (the wrapper is timed
     # apart); one add per update element
+    if dtype == torch.bfloat16:
+        # bf16, the train dtype; the float32 bodies at these widths are held
+        # by the float32 train step below and tests/test_torch_cuda.py
+        cases += wide_cases(rand, seed, B)
     upd, keys, order, offsets, R = scatter_inputs(dev, dtype, B)
     cases.append(Case("scatter_add_rows", 0.0,
                       lambda: sa.scatter_add_sorted(upd, order, offsets),
@@ -334,6 +387,48 @@ def kernel_cases(dev: torch.device, dtype: torch.dtype, B: int = 32):
                           (upd, sorder, soffsets), upd.numel(),
                           label="scatter_add_rows, all keys on one row"))
     return cases
+
+
+def wide_cases(rand, seed, B: int = 32):
+    """K5 and K3 at rate 0.1 (the train step's) at the widths of
+    --hiddenEncoder 512 --hiddenGar 512: the transformer AR's N = B*8
+    rows of S = 128 with dk = 64, the heads' K = 12, M = B*116, D = 512,
+    F = 2048."""
+    from cpc_audio_tpu_torch.ops import causal_attention as ca, ffn
+    f32 = torch.float32
+    N, S, dk = B * 8, 128, 64
+    args = (rand(N, S, dk), rand(N, S, dk), rand(N, S, dk),
+            rand(N, S, S, scale=0.5))
+    dout = rand(N, S, dk, scale=0.1)
+    pairs = N * S * (S + 1) // 2
+    elt = args[0].element_size()
+    read = (3 * N * S * dk + pairs) * elt
+    K, M, D, F = 12, B * 116, 512, 2048
+    tail = (rand(K, M, D), rand(K, D, scale=0.1, dt=f32) + 1,
+            rand(K, D, scale=0.1, dt=f32), rand(K, D, F, scale=D ** -0.5),
+            rand(K, F, scale=0.1, dt=f32), rand(K, F, D, scale=F ** -0.5),
+            rand(K, D, scale=0.1, dt=f32),
+            rand(K, D, scale=0.1, dt=f32) + 1, rand(K, D, scale=0.1, dt=f32))
+    tail_dout = rand(K, M, D, scale=0.1)
+    r, tag = 0.1, "dk 64 / D 512"
+    return [
+        Case("causal_attention_fwd", r,
+             lambda: ca.causal_attention_fwd(*args, r, seed),
+             lambda: ca.causal_attention_ref(*args, r, seed), args,
+             4 * dk * pairs, read, shape=tag),
+        Case("causal_attention_bwd", r,
+             lambda: ca.causal_attention_bwd(*args, dout, r, seed),
+             lambda: ca.causal_attention_bwd_ref(*args, dout, r, seed),
+             args + (dout,), 10 * dk * pairs,
+             read + dout.numel() * elt, shape=tag),
+        Case("layer_tail_fwd", r,
+             lambda: ffn.layer_tail_fwd(*tail, r, 1e-5, seed),
+             lambda: ffn.layer_tail_ref(*tail, 1e-5, r, seed), tail,
+             2 * 2 * K * M * D * F, shape=tag),
+        Case("layer_tail_bwd", r,
+             lambda: ffn.layer_tail_bwd(*tail, tail_dout, r, 1e-5, seed),
+             lambda: ffn.layer_tail_bwd_ref(*tail, tail_dout, 1e-5, r, seed),
+             tail + (tail_dout,), 6 * 2 * K * M * D * F, shape=tag)]
 
 
 def scatter_inputs(dev: torch.device, dtype: torch.dtype, B: int = 32):
@@ -584,7 +679,7 @@ def library_calls(dev: torch.device, dtype: torch.dtype, B: int = 32):
 
 
 def phase_kernels(dev: torch.device, B: int = 32) -> dict:
-    results = {}
+    results, rate0 = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         print(f"kernels vs plain versions, {str(dtype)[6:]}:", flush=True)
         for case in kernel_cases(dev, dtype, B):
@@ -605,15 +700,24 @@ def phase_kernels(dev: torch.device, B: int = 32) -> dict:
                 err = max(compare(f"{label} out {i}", gi, wi, atol, rtol, why)
                           for i, (gi, wi) in enumerate(zip(got, want)))
             del got, want
+            # the plain version is timed where its time is reported: bf16
+            # at the rate the train step gives the kernel
+            reported = dtype == torch.bfloat16 and \
+                case.rate == TRAIN_RATE.get(name, 0.1)
             ms = median_ms(case.kernel)
-            plain_ms = median_ms(case.plain)
-            print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                  f"(median of {ITERS}); bound {b['bound_ms']:.4f} ms by "
+            plain_ms = median_ms(case.plain) if reported else None
+            plain = f"{plain_ms:.4f} ms" if reported else "not timed"
+            print(f"  {label}: kernel {ms:.4f} ms, plain {plain} "
+                  f"(device time a call, median of {REPS} runs of up to "
+                  f"{CALLS}); "
+                  f"bound {b['bound_ms']:.4f} ms by "
                   f"{b['bound_by']} ({b['bytes'] / 1e6:.2f} MB, "
                   f"{b['flops'] / 1e9:.3f} GFLOP), {b['bound_ms'] / ms:.1%} "
                   f"of it", flush=True)
-            if dtype == torch.bfloat16 and \
-                    case.rate == TRAIN_RATE.get(name, 0.1):
+            if name.startswith("causal_attention") and case.shape is None \
+                    and case.rate == 0.0 and dtype == torch.bfloat16:
+                rate0[name] = ms
+            if reported and case.shape is None:
                 results[name] = {"max_abs_err": err, "ms": ms,
                                  "plain_ms": plain_ms,
                                  "bound_ms": b["bound_ms"],
@@ -622,11 +726,13 @@ def phase_kernels(dev: torch.device, B: int = 32) -> dict:
         torch.cuda.empty_cache()
     print("yardsticks, bf16 (one PyTorch call computing the same function; "
           "the port never calls it):", flush=True)
-    for name, (call, what) in library_calls(dev, torch.bfloat16, B).items():
+    calls = library_calls(dev, torch.bfloat16, B)
+    for name, (call, what) in calls.items():
         lib_ms = median_ms(call)
         results[name]["library_ms"] = lib_ms
         print(f"  {name}: {lib_ms:.4f} ms ({what}); kernel "
               f"{results[name]['ms']:.4f} ms", flush=True)
+    causal_against_sdpa(dev, results, rate0, calls, B)
     for name in ("relpos_attention_fwd", "relpos_attention_bwd",
                  "layer_tail_fwd", "layer_tail_bwd", "attention_block_fwd",
                  "attention_block_bwd"):
@@ -640,6 +746,33 @@ def phase_kernels(dev: torch.device, B: int = 32) -> dict:
     scatter_wrapper_times(dev, results, B)
     torch.cuda.empty_cache()
     return results
+
+
+def causal_against_sdpa(dev: torch.device, results: dict, rate0: dict,
+                        calls: dict, B: int = 32) -> None:
+    """K5 at rate 0, SDPA's rate, beside SDPA (bf16, N 256, S 128, dk 32);
+    then both again by the host-bound measure (host_bound_ms: events
+    around one synchronised call), in the same call."""
+    from cpc_audio_tpu_torch.ops import causal_attention as ca
+    for name in ("causal_attention_fwd", "causal_attention_bwd"):
+        print(f"  {name} at rate 0: K5 {rate0[name]:.4f} ms, SDPA "
+              f"{results[name]['library_ms']:.4f} ms (device time a call); "
+              f"K5 / SDPA {rate0[name] / results[name]['library_ms']:.3f}",
+              flush=True)
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    N, S, dk = B * 8, 128, 32
+    q, k, v = (torch.randn(N, S, dk, generator=g, device=dev).bfloat16()
+               for _ in range(3))
+    bias = (torch.randn(N, S, S, generator=g, device=dev) * 0.5).bfloat16()
+    do = (torch.randn(N, S, dk, generator=g, device=dev) * 0.1).bfloat16()
+    fwd = host_bound_ms(lambda: ca.causal_attention_fwd(q, k, v, bias))
+    bwd = host_bound_ms(lambda: ca.causal_attention_bwd(q, k, v, bias, do))
+    print(f"  host-bound measure (one synchronised call), rate 0: K5 "
+          f"forward {fwd:.4f} "
+          f"ms, SDPA {host_bound_ms(calls['causal_attention_fwd'][0]):.4f} "
+          f"ms; K5 backward {bwd:.4f} ms, SDPA "
+          f"{host_bound_ms(calls['causal_attention_bwd'][0]):.4f} ms",
+          flush=True)
 
 
 def scatter_wrapper_times(dev: torch.device, timings: dict,
@@ -740,6 +873,7 @@ HEADS = ("relpos_attention_fwd", "relpos_attention_bwd", "layer_tail_fwd",
          "layer_tail_bwd")
 FUSED = "LSTM fused"
 EXACT = "LSTM exact"
+WIDE = "transformer 512"          # --hiddenEncoder 512 --hiddenGar 512
 PATH_KERNELS = {"LSTM": ("lstm_fwd", "lstm_bwd") + HEADS,
                 "GRU": ("gru_fwd", "gru_bwd") + HEADS,
                 "transformer": ("causal_attention_fwd",
@@ -748,9 +882,12 @@ PATH_KERNELS = {"LSTM": ("lstm_fwd", "lstm_bwd") + HEADS,
                         "attention_block_bwd", "layer_tail_fwd",
                         "layer_tail_bwd", "conv_ln_fwd", "conv_ln_bwd"),
                 EXACT: ("lstm_fwd", "lstm_bwd") + HEADS
-                + ("scatter_add_rows",)}
+                + ("scatter_add_rows",),
+                WIDE: ("causal_attention_fwd", "causal_attention_bwd")
+                + HEADS}
 # CPCConfig fields a path sets beside arMode
-PATH_CONFIG = {EXACT: {"negativeSamplingMode": "exact"}}
+PATH_CONFIG = {EXACT: {"negativeSamplingMode": "exact"},
+               WIDE: {"hiddenEncoder": 512, "hiddenGar": 512}}
 # launches a step, where a path fixes them: on the fused path K2 must not
 # run at all; on the exact path K8 runs once, in the backward
 PER_STEP = {FUSED: {"attention_block_fwd": 1, "attention_block_bwd": 1,
@@ -1006,7 +1143,7 @@ def train_setup(model, crit, dev: torch.device, B: int = 32):
 
 
 def ab_train(dev: torch.device, other: str, B: int = 32,
-             steps: int = 20) -> None:
+             steps: int = 12) -> None:
     """Train windows/s of the default LSTM step and of path ``other`` (the
     fused-layer or the exact sampler's) in one call, in turns (default,
     other, other, default), each turn 2 warm-up and ``steps`` timed steps
@@ -1058,6 +1195,73 @@ def phase_stop_grad(dev: torch.device, B: int = 32, steps: int = 2) -> None:
     print(f"stopGradNegatives exact train steps (B={B}, bf16): losses (sum "
           f"over K) {[round(v, 4) for v in total.tolist()]}, K8 launches 0",
           flush=True)
+
+
+def phase_narrow_gru(dev: torch.device, B: int = 8, steps: int = 4,
+                     H: int = 100) -> None:
+    """--arMode GRU --hiddenGar 100: K4 runs H padded to 128 (ops/gru.py)
+    and sliced back.  The transformer prediction heads need hiddenGar ==
+    hiddenEncoder, so build_criterion must refuse the config, naming the
+    flag; the model trains alone here: ``steps`` Adam steps of the
+    encoder and the GRU AR (bf16) on a fixed batch, the loss mean(c^2), K4
+    forward and backward once a step, the loss falling; then one float32
+    forward and backward on the card and on the CPU, which must agree."""
+    from cpc_audio_tpu_torch.config import CPCConfig
+    from cpc_audio_tpu_torch.criterion import build_criterion
+    from cpc_audio_tpu_torch.models import build_model
+    cfg = CPCConfig(arMode="GRU", hiddenGar=H, compute_dtype="bfloat16")
+    try:
+        build_criterion(cfg)
+        fail(f"build_criterion took --hiddenGar {H} beside --hiddenEncoder "
+             f"{cfg.hiddenEncoder}")
+    except ValueError as e:
+        if "--hiddenGar" not in str(e):
+            fail(f"build_criterion refused without naming the flag: {e}")
+        print(f"GRU --hiddenGar {H}: build_criterion refuses before any step: "
+              f"{str(e)[:160]}", flush=True)
+    model = build_model(cfg, torch.Generator().manual_seed(SEED)).to(dev)
+    batch = torch.from_numpy(synthetic_audio(cfg.sizeWindow, B,
+                                             SEED + 10)).to(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    hidden = model.zero_state(B, dev)
+    fns = reset_counts()
+    losses = []
+    for _ in range(steps):
+        c, _, _, _ = model(batch, hidden=hidden, train=True)
+        loss = (c.float() ** 2).mean()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    read_counts(fns, f"GRU --hiddenGar {H} model step", ("gru_fwd",
+                                                          "gru_bwd"),
+                steps, {"gru_fwd": 1, "gru_bwd": 1})
+    print(f"GRU --hiddenGar {H} model train steps (B={B}, bf16, K4 at H "
+          f"padded to 128): losses {[round(v, 6) for v in losses]}",
+          flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"GRU --hiddenGar {H}: the loss did not fall: {losses}")
+    cfg32 = cfg.replace(compute_dtype="float32")
+    x = synthetic_audio(cfg.sizeWindow, 2, SEED + 12)
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        m = build_model(cfg32)
+        m.load_state_dict(model.state_dict())
+        m.to(device)
+        c, _, _, _ = m(torch.from_numpy(x).to(device),
+                       hidden=m.zero_state(2, device))
+        (c.float() ** 2).mean().backward()
+        outs.append((c.detach().float().cpu(),
+                     {n: p.grad.float().cpu() for n, p in
+                      m.gAR.named_parameters()}))
+    (c_g, g_g), (c_c, g_c) = outs
+    print(f"float32 GRU --hiddenGar {H}, card (K4, padded) vs CPU (plain):",
+          flush=True)
+    compare("c", c_g, c_c, 1e-3, 1e-3, "f32, 128 GRU steps")
+    for n in sorted(g_c):
+        compare_norm(f"grad gAR.{n}", g_g[n], g_c[n], 1e-3,
+                     "f32 sums in another order over 128 steps")
 
 
 def phase_eval_auto_exact(dev: torch.device, B: int = 24) -> None:
@@ -1331,22 +1535,23 @@ def phase_cli(tmp: str) -> None:
             + 0.05 * rng.standard_normal(n)
         _write_wav(os.path.join(spk, f"f{i:03d}.wav"), x)
     # batch 6: B*S = 768, so negativeSamplingMode auto resolves to exact
-    for ar_mode, epochs, batch in (("LSTM", ("1", "2"), "8"),
-                                   ("GRU", ("1",), "8"),
-                                   ("transformer", ("1",), "8"),
-                                   ("LSTM", ("1",), "6")):
-        out = os.path.join(tmp, f"ckpt_{ar_mode}_{batch}")
+    wide = ["--hiddenEncoder", "512", "--hiddenGar", "512"]
+    for ar_mode, epochs, batch, extra in (
+            ("LSTM", ("1", "2"), "8", []), ("GRU", ("1",), "8", []),
+            ("transformer", ("1",), "8", []), ("LSTM", ("1",), "6", []),
+            ("transformer", ("1",), "8", wide)):
+        out = os.path.join(tmp, f"ckpt_{ar_mode}_{batch}_{len(extra)}")
         argv = ["--pathDB", db, "--file_extension", ".wav",
                 "--pathCheckpoint", out, "--compute_dtype", "bfloat16",
                 "--batchSizeGPU", batch, "--nEpoch", "1",
                 "--n_process_loader", "2", "--ignore_cache",
-                "--random_seed", str(SEED), "--arMode", ar_mode]
+                "--random_seed", str(SEED), "--arMode", ar_mode] + extra
         names = PATH_KERNELS[EXACT if batch == "6" else ar_mode]
         for n_epoch in epochs:
             argv[argv.index("--nEpoch") + 1] = n_epoch
             lines = _run_cli(train, argv,
                              f"--arMode {ar_mode} --batchSizeGPU {batch} "
-                             f"--nEpoch {n_epoch}", names)
+                             f"{' '.join(extra)} --nEpoch {n_epoch}", names)
             files = sorted(os.listdir(out))
             want = f"checkpoint_{int(n_epoch) - 1}.pt"
             for f in (want, "checkpoint_logs.json", "checkpoint_args.json"):
@@ -1360,11 +1565,24 @@ def phase_cli(tmp: str) -> None:
         if logs["epoch"] != list(range(len(epochs))) or not np.isfinite(
                 np.asarray(logs["locLoss_train"], np.float64)).all():
             fail(f"train CLI logs: epochs {logs['epoch']}")
-        print(f"train CLI --arMode {ar_mode} --batchSizeGPU {batch}: "
-              f"epochs {logs['epoch']}, train "
+        print(f"train CLI --arMode {ar_mode} --batchSizeGPU {batch} "
+              f"{' '.join(extra)}: epochs {logs['epoch']}, train "
               f"loss per epoch "
               f"{[round(float(np.mean(v)), 4) for v in logs['locLoss_train']]}"
               f"; files {files}", flush=True)
+    # a config the port refuses stops before any step, naming its flag
+    argv = ["--pathDB", db, "--file_extension", ".wav", "--pathCheckpoint",
+            os.path.join(tmp, "ckpt_refused"), "--arMode", "GRU",
+            "--hiddenGar", "100", "--ignore_cache"]
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            train.main(argv)
+        fail("train CLI took --arMode GRU --hiddenGar 100")
+    except ValueError as e:
+        if "--hiddenGar" not in str(e):
+            fail(f"train CLI refused without naming the flag: {e}")
+        print(f"train CLI --arMode GRU --hiddenGar 100: refused before any "
+              f"step: {str(e)[:120]}", flush=True)
 
 
 def main() -> None:
@@ -1414,12 +1632,17 @@ def main() -> None:
                                        "causal_attention_bwd")),
                       (FUSED, ("attention_block_fwd", "attention_block_bwd",
                                "conv_ln_fwd", "conv_ln_bwd")),
-                      (EXACT, ("scatter_add_rows",))):
+                      (EXACT, ("scatter_add_rows",)),
+                      (WIDE, ())):
         t0 = time.time()
         counts = phase_train(dev, path)
         launches.update({name: counts[name] for name in own})
         check_train_against_cpu(dev, path)
         print(f"[phase train {path} {time.time() - t0:.1f} s]", flush=True)
+    t0 = time.time()
+    phase_narrow_gru(dev)
+    print(f"[phase GRU --hiddenGar 100 {time.time() - t0:.1f} s]",
+          flush=True)
     t0 = time.time()
     phase_stop_grad(dev)
     print(f"[phase stop-grad {time.time() - t0:.1f} s]", flush=True)

@@ -35,9 +35,9 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from .._common import fused_layer_switches
+from .._common import compute_dtype, fused_layer_switches
 from ..config import CPCConfig
-from ..ops import dropout
+from ..ops import dropout, ffn, head_attention, scatter_add
 from ..ops.feistel import ROUNDS, feistel_inverse, feistel_permute
 from ..ops.scatter_add import scatter_add_rows
 from .prediction import PredictionNetwork
@@ -476,6 +476,50 @@ class CPCUnsupervisedCriterion(nn.Module):
                                neg_score.reshape(K, BW, N), BW)
 
 
+def check_kernels(config: CPCConfig) -> None:
+    """Raise ValueError, naming the flag, for a config whose criterion the
+    port cannot run on the card: the transformer heads' widths, and the
+    gates of K2, K3 and K8.  A refused shape is run by no plain version in
+    its place (the shapes the JAX package trains and the port refuses are
+    in ROADMAP Queue 3).  Under ``CPC_ATTN_BLOCK=1`` the heads run K6
+    where its gate takes the shape and K2 elsewhere, as the JAX package
+    runs its whole-block kernel only where its own gate takes it (at
+    ``--hiddenEncoder 512`` or ``--sizeWindow 40960`` neither does).  Runs
+    without a card."""
+    problems = []
+    D, H, W = config.hiddenEncoder, config.hiddenGar, config.sizeWindow
+    S = W // 160 - config.nPredicts
+    dtype = compute_dtype(config.compute_dtype)
+    nheads, dff = 8, 2048   # the heads' (StackedTransformerHeads defaults)
+    if H != D:
+        problems.append(f"--hiddenGar {H} with --hiddenEncoder {D}: the "
+                        f"transformer prediction heads (--rnnMode "
+                        f"transformer, the heads ported) take hiddenGar == "
+                        f"hiddenEncoder; the other --rnnMode heads are "
+                        f"ROADMAP Queue 1 item 11")
+    if D % nheads:
+        problems.append(f"--hiddenEncoder {D}: the heads' {nheads} "
+                        f"attention heads need a multiple of {nheads}")
+    else:
+        dk = D // nheads
+        why = head_attention.supported(S, dk)
+        if why:
+            problems.append(f"--sizeWindow {W} / --hiddenEncoder {D} (K2, "
+                            f"the heads' attention over S = {S} frames, dk "
+                            f"= {dk}; ROADMAP Queue 3): {why}")
+    why = ffn.supported(D, dff, dtype)
+    if why:
+        problems.append(f"--hiddenEncoder {D} (K3, the heads' FFN tail): "
+                        f"{why}")
+    why = scatter_add.supported(D, dtype)
+    if why:
+        problems.append(f"--hiddenEncoder {D} (K8, the exact and rolled "
+                        f"samplers' backward): {why}")
+    if problems:
+        raise ValueError("the port's kernels refuse this config: " +
+                         "; ".join(problems))
+
+
 def build_criterion(config: CPCConfig,
                     generator: Optional[torch.Generator] = None
                     ) -> CPCUnsupervisedCriterion:
@@ -487,6 +531,7 @@ def build_criterion(config: CPCConfig,
         raise NotImplementedError(
             "cpc_mode / speakerEmbedding are not ported yet: ROADMAP "
             "Queue 1 item 11 (non-default variants)")
+    check_kernels(config)
     return CPCUnsupervisedCriterion(
         n_predicts=config.nPredicts,
         dim_output_ar=config.hiddenGar,

@@ -14,6 +14,9 @@ namespace cpc {
 
 enum DType { kFloat32 = 0, kBFloat16 = 1 };
 
+// Shared memory one block may opt into on an H100 (227 KB).
+constexpr size_t kSmemLimit = 232448;
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);

@@ -35,7 +35,9 @@
 // Pass 1 restages W1 and W2 twice per row tile (L2 traffic ~ 2 * 4 MB *
 // blocks), pass 2 re-reads y and df once per F chunk; both are bound by
 // these stagings and by the serial phases of a block (as the forward,
-// PERF.md), not by the tensor cores.
+// PERF.md), not by the tensor cores.  D goes up to 512 (JAX's gate): past
+// D = 256 both passes take narrower row tiles and F chunks (`Tiles`), so
+// that their D-wide tiles stay within an H100 block's 227 KB.
 #include <mma.h>
 
 #include <type_traits>
@@ -51,13 +53,25 @@ using bf16 = __nv_bfloat16;
 constexpr int kThreads = 512;
 constexpr int kVecs = 5;   // dln1w, dln1b, db2, dln2w, dln2b
 
-// Rows per tile and F columns per chunk of each pass, per dtype.
-template <typename T> struct Tiles;
-template <> struct Tiles<bf16> {
+// Rows per tile and F columns per chunk of each pass, per dtype and width:
+// the narrow tiles serve D <= 256, the wide ones (fewer rows and columns,
+// so that the D-wide tiles of both passes stay within 227 KB of shared
+// memory) D <= 512.  Chunks of pass 1 stay multiples of 32: a warp's
+// ballot writes one word of a row's live mask.
+constexpr int kNarrowD = 256, kMaxD = 512;
+
+template <typename T, bool kWide> struct Tiles;
+template <> struct Tiles<bf16, false> {
   static constexpr int kRows1 = 32, kChunk1 = 64, kRows2 = 64, kChunk2 = 32;
 };
-template <> struct Tiles<float> {
+template <> struct Tiles<bf16, true> {
+  static constexpr int kRows1 = 16, kChunk1 = 32, kRows2 = 32, kChunk2 = 16;
+};
+template <> struct Tiles<float, false> {
   static constexpr int kRows1 = 16, kChunk1 = 32, kRows2 = 16, kChunk2 = 32;
+};
+template <> struct Tiles<float, true> {
+  static constexpr int kRows1 = 8, kChunk1 = 32, kRows2 = 8, kChunk2 = 16;
 };
 
 // Row padding, in elements, that keeps every row 16-byte aligned.
@@ -191,7 +205,7 @@ struct Carver {
   }
 };
 
-template <typename T>
+template <typename T, bool W>
 struct RowsLayout {
   int ldD, ldF, ldh, lda;
   T *Y, *DF, *W1c, *W2c, *HT;
@@ -199,7 +213,7 @@ struct RowsLayout {
   uint32_t* live;
   size_t bytes;
   __host__ __device__ RowsLayout(unsigned char* base, int D, int F) {
-    constexpr int MT = Tiles<T>::kRows1, FC = Tiles<T>::kChunk1;
+    constexpr int MT = Tiles<T, W>::kRows1, FC = Tiles<T, W>::kChunk1;
     ldD = D + kPad<T>;
     ldF = FC + kPad<T>;
     ldh = FC + 4;
@@ -220,14 +234,14 @@ struct RowsLayout {
   }
 };
 
-template <typename T>
+template <typename T, bool W>
 struct WeightsLayout {
   int ldD, ldF, ldh, ldw1, ldw2;
   T *W1c, *W2c, *Y, *DF, *HT, *DHP;
   float *DW1, *DW2, *HP, *DH, *db1;
   size_t bytes;
   __host__ __device__ WeightsLayout(unsigned char* base, int D) {
-    constexpr int MT = Tiles<T>::kRows2, FC = Tiles<T>::kChunk2;
+    constexpr int MT = Tiles<T, W>::kRows2, FC = Tiles<T, W>::kChunk2;
     ldD = D + kPad<T>;
     ldF = FC + kPad<T>;
     ldh = FC + 4;
@@ -253,7 +267,7 @@ struct WeightsLayout {
 // Pass 1: per (row tile, k).
 // ---------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, bool W>
 __global__ void __launch_bounds__(kThreads) tail_bwd_rows_kernel(
     const T* __restrict__ x, const float* __restrict__ ln1w,
     const float* __restrict__ ln1b, const T* __restrict__ w1,
@@ -263,9 +277,9 @@ __global__ void __launch_bounds__(kThreads) tail_bwd_rows_kernel(
     T* __restrict__ dx, T* __restrict__ y_buf, T* __restrict__ df_buf,
     float* __restrict__ vec_part, int M, int D, int F, float eps,
     cpc::Dropout drop) {
-  constexpr int MT = Tiles<T>::kRows1, FC = Tiles<T>::kChunk1;
+  constexpr int MT = Tiles<T, W>::kRows1, FC = Tiles<T, W>::kChunk1;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const RowsLayout<T> L(smem_raw, D, F);
+  const RowsLayout<T, W> L(smem_raw, D, F);
   float* mean1 = L.stat;
   float* inv1 = L.stat + MT;
   float* mean2 = L.stat + 2 * MT;
@@ -435,16 +449,16 @@ __global__ void __launch_bounds__(kThreads) tail_bwd_rows_kernel(
 // Pass 2: per (F chunk, k).
 // ---------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, bool W>
 __global__ void __launch_bounds__(kThreads) tail_bwd_weights_kernel(
     const T* __restrict__ y_buf, const T* __restrict__ df_buf,
     const T* __restrict__ w1, const float* __restrict__ b1,
     const T* __restrict__ w2, float* __restrict__ dw1,
     float* __restrict__ db1, float* __restrict__ dw2, int M, int D, int F,
     cpc::Dropout drop) {
-  constexpr int MT = Tiles<T>::kRows2, FC = Tiles<T>::kChunk2;
+  constexpr int MT = Tiles<T, W>::kRows2, FC = Tiles<T, W>::kChunk2;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const WeightsLayout<T> L(smem_raw, D);
+  const WeightsLayout<T, W> L(smem_raw, D);
   const int kk = blockIdx.y;
   const int f0 = blockIdx.x * FC;
   const int tid = threadIdx.x;
@@ -516,31 +530,42 @@ __global__ void tail_vec_reduce_kernel(const float* __restrict__ part,
   }
 }
 
-template <typename T>
+template <typename T, bool W>
 size_t smem_rows(int D, int F) {
-  return RowsLayout<T>(nullptr, D, F).bytes;
+  return RowsLayout<T, W>(nullptr, D, F).bytes;
 }
-template <typename T>
+template <typename T, bool W>
 size_t smem_weights(int D) {
-  return WeightsLayout<T>(nullptr, D).bytes;
+  return WeightsLayout<T, W>(nullptr, D).bytes;
 }
 
-template <typename T>
+template <typename T, bool W>
+size_t smem_both(int D, int F) {
+  const size_t a = smem_rows<T, W>(D, F), b = smem_weights<T, W>(D);
+  return a > b ? a : b;
+}
+
+template <typename T, bool W>
+int n_row_tiles(int M) {
+  return (M + Tiles<T, W>::kRows1 - 1) / Tiles<T, W>::kRows1;
+}
+
+template <typename T, bool W>
 int launch(const void* x, const float* ln1w, const float* ln1b,
            const void* w1, const float* b1, const void* w2, const float* b2,
            const float* ln2w, const float* ln2b, const void* dout, void* dx,
            void* y_buf, void* df_buf, float* vec_part, float* vec_out,
            float* dw1, float* db1, float* dw2, int K, int M, int D, int F,
            float eps, cpc::Dropout drop, cudaStream_t stream) {
-  const size_t s1 = smem_rows<T>(D, F);
-  const size_t s2 = smem_weights<T>(D);
-  auto k1 = tail_bwd_rows_kernel<T>;
-  auto k2 = tail_bwd_weights_kernel<T>;
+  const size_t s1 = smem_rows<T, W>(D, F);
+  const size_t s2 = smem_weights<T, W>(D);
+  auto k1 = tail_bwd_rows_kernel<T, W>;
+  auto k2 = tail_bwd_weights_kernel<T, W>;
   cudaError_t err = cpc::allow_smem(k1, s1);
   if (err != cudaSuccess) return (int)err;
   err = cpc::allow_smem(k2, s2);
   if (err != cudaSuccess) return (int)err;
-  const int n_tiles = (M + Tiles<T>::kRows1 - 1) / Tiles<T>::kRows1;
+  const int n_tiles = n_row_tiles<T, W>(M);
   k1<<<dim3(n_tiles, K), kThreads, s1, stream>>>(
       static_cast<const T*>(x), ln1w, ln1b, static_cast<const T*>(w1), b1,
       static_cast<const T*>(w2), b2, ln2w, ln2b, static_cast<const T*>(dout),
@@ -548,7 +573,7 @@ int launch(const void* x, const float* ln1w, const float* ln1b,
       vec_part, M, D, F, eps, drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  k2<<<dim3(F / Tiles<T>::kChunk2, K), kThreads, s2, stream>>>(
+  k2<<<dim3(F / Tiles<T, W>::kChunk2, K), kThreads, s2, stream>>>(
       static_cast<const T*>(y_buf), static_cast<const T*>(df_buf),
       static_cast<const T*>(w1), b1, static_cast<const T*>(w2), dw1, db1,
       dw2, M, D, F, drop);
@@ -559,35 +584,34 @@ int launch(const void* x, const float* ln1w, const float* ln1b,
   return (int)cudaGetLastError();
 }
 
-bool shapes_ok(int D, int F, int dtype) {
-  const int chunk = dtype == cpc::kBFloat16
-      ? (Tiles<bf16>::kChunk1 > Tiles<bf16>::kChunk2 ? Tiles<bf16>::kChunk1
-                                                     : Tiles<bf16>::kChunk2)
-      : Tiles<float>::kChunk1;
-  return D >= 32 && D % 32 == 0 && F % chunk == 0 && F > 0;
+template <typename T>
+bool shapes_ok(int D, int F) {
+  constexpr int c = Tiles<T, false>::kChunk1 > Tiles<T, false>::kChunk2
+                        ? Tiles<T, false>::kChunk1
+                        : Tiles<T, false>::kChunk2;
+  return D >= 32 && D % 32 == 0 && D <= kMaxD && F % c == 0 && F > 0;
 }
 
 }  // namespace
 
 // Row tiles of pass 1 (the wrapper sizes the vector partials with it) and
 // the larger shared-memory need of the two passes; 0 for a bad dtype.
-extern "C" int cpc_layer_tail_bwd_tiles(int M, int dtype) {
+extern "C" int cpc_layer_tail_bwd_tiles(int M, int D, int dtype) {
+  const bool wide = D > kNarrowD;
   if (dtype == cpc::kBFloat16)
-    return (M + Tiles<bf16>::kRows1 - 1) / Tiles<bf16>::kRows1;
+    return wide ? n_row_tiles<bf16, true>(M) : n_row_tiles<bf16, false>(M);
   if (dtype == cpc::kFloat32)
-    return (M + Tiles<float>::kRows1 - 1) / Tiles<float>::kRows1;
+    return wide ? n_row_tiles<float, true>(M) : n_row_tiles<float, false>(M);
   return 0;
 }
 
 extern "C" size_t cpc_layer_tail_bwd_smem(int D, int F, int dtype) {
-  if (dtype == cpc::kBFloat16) {
-    const size_t a = smem_rows<bf16>(D, F), b = smem_weights<bf16>(D);
-    return a > b ? a : b;
-  }
-  if (dtype == cpc::kFloat32) {
-    const size_t a = smem_rows<float>(D, F), b = smem_weights<float>(D);
-    return a > b ? a : b;
-  }
+  const bool wide = D > kNarrowD;
+  if (dtype == cpc::kBFloat16)
+    return wide ? smem_both<bf16, true>(D, F) : smem_both<bf16, false>(D, F);
+  if (dtype == cpc::kFloat32)
+    return wide ? smem_both<float, true>(D, F)
+                : smem_both<float, false>(D, F);
   return 0;
 }
 
@@ -602,8 +626,8 @@ extern "C" int cpc_layer_tail_bwd(
     void* vec_part, void* vec_out, void* dw1, void* db1, void* dw2, int K,
     int M, int D, int F, float eps, const void* seed, unsigned int threshold,
     float keep_scale, int dtype, void* stream) {
-  if (!shapes_ok(D, F, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool wide = D > kNarrowD;
   const cpc::Dropout drop{static_cast<const int64_t*>(seed), threshold,
                           keep_scale};
   const float* f[6] = {
@@ -615,13 +639,13 @@ extern "C" int cpc_layer_tail_bwd(
   float* o1 = static_cast<float*>(dw1);
   float* ob = static_cast<float*>(db1);
   float* o2 = static_cast<float*>(dw2);
-  if (dtype == cpc::kBFloat16)
-    return launch<bf16>(x, f[0], f[1], w1, f[2], w2, f[3], f[4], f[5], dout,
-                        dx, y_buf, df_buf, vp, vo, o1, ob, o2, K, M, D, F,
-                        eps, drop, s);
-  if (dtype == cpc::kFloat32)
-    return launch<float>(x, f[0], f[1], w1, f[2], w2, f[3], f[4], f[5], dout,
-                         dx, y_buf, df_buf, vp, vo, o1, ob, o2, K, M, D, F,
-                         eps, drop, s);
+  if (dtype == cpc::kBFloat16 && shapes_ok<bf16>(D, F))
+    return (wide ? launch<bf16, true> : launch<bf16, false>)(
+        x, f[0], f[1], w1, f[2], w2, f[3], f[4], f[5], dout, dx, y_buf,
+        df_buf, vp, vo, o1, ob, o2, K, M, D, F, eps, drop, s);
+  if (dtype == cpc::kFloat32 && shapes_ok<float>(D, F))
+    return (wide ? launch<float, true> : launch<float, false>)(
+        x, f[0], f[1], w1, f[2], w2, f[3], f[4], f[5], dout, dx, y_buf,
+        df_buf, vp, vo, o1, ob, o2, K, M, D, F, eps, drop, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -18,13 +18,16 @@
 // bodies share that structure:
 //   * bf16 (F % 64 == 0): both products on the tensor cores through
 //     warp-level mma (nvcuda::wmma, 16x16x16 bf16 fragments, float32
-//     accumulation), 64 rows per block, FC = 64, the 64 x D output tile
-//     in accumulator fragments spread over 16 warps; each chunk's W1 and
-//     W2 tiles are staged once in shared memory (16-byte loads) and read
-//     from there by every warp;
+//     accumulation), MT rows per block (64 up to D = 256, 32 up to D =
+//     512, so that the MT x D output tile is always four accumulator
+//     fragments per warp over 16 warps), FC = 64; each chunk's W1 and W2
+//     tiles are staged once in shared memory (16-byte loads) and read from
+//     there by every warp.  The float32 x / y2 tile is used only before
+//     and after the chunk loop, so it shares its shared memory with the
+//     W1 and W2 chunks: 131 KB at D = 256, 187 KB at D = 512;
 //   * float32: plain FMA loops (TF32 would change the numbers), 32 rows
-//     per block, D threads, thread d owning output column d for all 32
-//     rows in registers, FC = D/4.
+//     per block, D threads (up to 512), thread d owning output column d
+//     for all 32 rows in registers, FC = D/4.
 //
 // What bounds it on an H100: at the main path's shapes (K = 12, rows =
 // 3712, D = 256, F = 2048) the tail is 93 GFLOP.  The bf16 body also
@@ -41,7 +44,7 @@
 
 namespace {
 
-constexpr int kMaxD = 256;     // FMA body: one thread per output column
+constexpr int kMaxD = 512;     // widest D of both bodies (JAX's gate)
 
 // Mean and reciprocal std of each of the ROWS rows of xs (row stride ld)
 // -> stat[0..ROWS) and stat[ROWS..2*ROWS).
@@ -76,22 +79,29 @@ __device__ void row_stats(const float* xs, int ld, float* stat, int D,
 namespace wmma = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
 
-constexpr int MT = 64;         // rows per block
 constexpr int kMmaWarps = 16;
-constexpr int WFC = 64;        // hidden chunk width: 4 x 4 tiles = 16 warps
-constexpr int kMaxTiles = 4;   // output tiles per warp: 4 x (256/16) / 16
+constexpr int WFC = 64;        // hidden chunk width: (MT/16) x 4 tiles
+constexpr int kMaxTiles = 4;   // output tiles per warp: (MT/16)(D/16) / 16
 
+// Rows per block: the MT x D output tile is at most kMaxTiles fragments
+// per warp.
+inline int mma_rows(int D) { return D <= 256 ? 64 : 32; }
+
+template <int MT>
 struct MmaSmem {
   int ldy, ldh, lds, ldx;
   size_t bytes;
+  // ys, hs, the W1 and W2 chunks (which the float32 xs tile overlays), sc,
+  // stat: every region starts on a 32-byte boundary
   __host__ __device__ explicit MmaSmem(int D)
       : ldy(D + 8), ldh(WFC + 8), lds(WFC + 4), ldx(D + 4) {
     bytes = ((size_t)MT * ldy + (size_t)MT * ldh + (size_t)D * ldh +
              (size_t)WFC * ldy) * sizeof(bf16) +
-            ((size_t)MT * lds + (size_t)MT * ldx + 2 * MT) * sizeof(float);
+            ((size_t)MT * lds + 2 * MT) * sizeof(float);
   }
 };
 
+template <int MT>
 __global__ void __launch_bounds__(kMmaWarps * 32) layer_tail_fwd_mma_kernel(
     const bf16* __restrict__ x, const float* __restrict__ ln1w,
     const float* __restrict__ ln1b, const bf16* __restrict__ w1,
@@ -100,7 +110,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32) layer_tail_fwd_mma_kernel(
     const float* __restrict__ ln2b, bf16* __restrict__ out, int M, int D,
     int F, float eps, cpc::Dropout drop) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const MmaSmem L(D);
+  const MmaSmem<MT> L(D);
   // Every region starts on a 32-byte boundary, and every fragment pointer
   // below is 32-byte aligned (row tiles of 16 rows, column tiles of 16).
   bf16* ys = reinterpret_cast<bf16*>(smem_raw);      // (MT, ldy) y
@@ -108,8 +118,11 @@ __global__ void __launch_bounds__(kMmaWarps * 32) layer_tail_fwd_mma_kernel(
   bf16* w1s = hs + MT * L.ldh;                       // (D, ldh) W1 chunk
   bf16* w2s = w1s + D * L.ldh;                       // (WFC, ldy) W2 chunk
   float* sc = reinterpret_cast<float*>(w2s + WFC * L.ldy);  // (MT, lds)
-  float* xs = sc + MT * L.lds;                       // (MT, ldx) x, y2
-  float* stat = xs + MT * L.ldx;                     // (2, MT)
+  float* stat = sc + MT * L.lds;                     // (2, MT)
+  // (MT, ldx) x, later y2: only before and after the chunk loop, over the
+  // W1 and W2 chunks' space (MT (D + 4) floats fit in D (WFC + 8) + WFC
+  // (D + 8) bf16)
+  float* xs = reinterpret_cast<float*>(w1s);
 
   const int kk = blockIdx.y;
   const int row0 = blockIdx.x * MT;
@@ -143,7 +156,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32) layer_tail_fwd_mma_kernel(
 #pragma unroll
   for (int i = 0; i < kMaxTiles; ++i) wmma::fill_fragment(acc[i], 0.0f);
 
-  const int hrt = warp >> 2, hct = warp & 3;   // 4 x 4 hidden tiles
+  const int hrt = warp >> 2, hct = warp & 3;   // (MT/16) x 4 hidden tiles
   for (int f0 = 0; f0 < F; f0 += WFC) {
     __syncthreads();   // the previous chunk's readers of w1s/w2s are done
     for (int idx = tid; idx < D * (WFC / 8); idx += blockDim.x) {
@@ -157,7 +170,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32) layer_tail_fwd_mma_kernel(
           *reinterpret_cast<const uint4*>(W2 + (size_t)(f0 + f) * D + c8);
     }
     __syncthreads();
-    {  // hidden tile = y . W1[:, f0 + 16*hct ...]
+    if (hrt < MT / 16) {  // hidden tile = y . W1[:, f0 + 16*hct ...]
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
       wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
@@ -198,6 +211,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32) layer_tail_fwd_mma_kernel(
       }
     }
   }
+  __syncthreads();   // xs overlays the chunks the last products read
 #pragma unroll
   for (int i = 0; i < kMaxTiles; ++i) {
     const int tile = warp + kMmaWarps * i;
@@ -231,8 +245,8 @@ __global__ void __launch_bounds__(kMmaWarps * 32) layer_tail_fwd_mma_kernel(
 constexpr int TM = 32;         // rows per block
 constexpr int HS = TM + 4;     // row stride of the hidden chunk (16B aligned)
 
-template <typename T>
-__global__ void __launch_bounds__(kMaxD) layer_tail_fwd_kernel(
+template <typename T, int kThreads>
+__global__ void __launch_bounds__(kThreads) layer_tail_fwd_kernel(
     const T* __restrict__ x, const float* __restrict__ ln1w,
     const float* __restrict__ ln1b, const T* __restrict__ w1,
     const float* __restrict__ b1, const T* __restrict__ w2,
@@ -345,7 +359,9 @@ int launch_fma(const void* x, const void* ln1w, const void* ln1b,
                cudaStream_t stream) {
   const size_t floats = 2 * (size_t)TM * D + (size_t)(D / 4) * HS + 2 * TM;
   const size_t smem = floats * sizeof(float);
-  auto kernel = layer_tail_fwd_kernel<T>;
+  // D threads: the 256-thread build keeps its registers below 128
+  auto kernel = D <= 256 ? layer_tail_fwd_kernel<T, 256>
+                         : layer_tail_fwd_kernel<T, kMaxD>;
   cudaError_t err = cpc::allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((M + TM - 1) / TM, K);
@@ -359,16 +375,18 @@ int launch_fma(const void* x, const void* ln1w, const void* ln1b,
   return (int)cudaGetLastError();
 }
 
+template <int MT>
 int launch_mma(const void* x, const void* ln1w, const void* ln1b,
                const void* w1, const void* b1, const void* w2, const void* b2,
                const void* ln2w, const void* ln2b, void* out, int K, int M,
                int D, int F, float eps, cpc::Dropout drop,
                cudaStream_t stream) {
-  const size_t smem = MmaSmem(D).bytes;
-  cudaError_t err = cpc::allow_smem(layer_tail_fwd_mma_kernel, smem);
+  const size_t smem = MmaSmem<MT>(D).bytes;
+  auto kernel = layer_tail_fwd_mma_kernel<MT>;
+  cudaError_t err = cpc::allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((M + MT - 1) / MT, K);
-  layer_tail_fwd_mma_kernel<<<grid, kMmaWarps * 32, smem, stream>>>(
+  kernel<<<grid, kMmaWarps * 32, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(ln1w),
       static_cast<const float*>(ln1b), static_cast<const bf16*>(w1),
       static_cast<const float*>(b1), static_cast<const bf16*>(w2),
@@ -397,8 +415,9 @@ extern "C" int cpc_layer_tail_fwd(const void* x, const void* ln1w,
   const cpc::Dropout drop{static_cast<const int64_t*>(seed), threshold,
                           keep_scale};
   if (dtype == cpc::kBFloat16 && F % WFC == 0)
-    return launch_mma(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, out, K, M,
-                      D, F, eps, drop, s);
+    return (mma_rows(D) == 64 ? launch_mma<64> : launch_mma<32>)(
+        x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, out, K, M, D, F, eps,
+        drop, s);
   if (dtype == cpc::kFloat32)
     return launch_fma<float>(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, out,
                              K, M, D, F, eps, drop, s);

@@ -15,17 +15,23 @@
 // TPU's `_unskew` lane gather: ds_ij meets krel column j - i + S - 1.
 //
 // Design: one block per (k, b, h) stages q, k, v, do and krel^T (float32)
-// and keeps the whole (S, S) ds and round(p r) tiles in shared memory
-// (183 KB at S = 116, dk = 32), so each is formed once and then read in
-// three orders: by query row (dq, written at once), by key column (dk,
-// dv) and by diagonal (one dkrel column per diagonal j - i).  Blocks run
+// and keeps the whole (S, S) ds and round(p r) tiles in shared memory as
+// float32 (183 KB at S = 116, dk = 32), so each is formed once and then
+// read in three orders: by query row (dq, written at once), by key column
+// (dk, dv) and by diagonal (one dkrel column per diagonal j - i).  Where
+// float32 tiles do not fit beside the operands, the bf16 body keeps them
+// in bf16 (exact: both are rounded to T; 211 KB at dk = 64), with a row's
+// float32 intermediates in two per-warp rows; past that (float32 at dk =
+// 64, or S past ~200) the tiles go to a device-memory scratch of the
+// block's own, read back through L1 and L2 (slower, the same values).
+// Blocks run
 // in parallel, so the TPU's dkrel accumulator revisited along a
 // sequential grid becomes per-block partials (K, B*h, dk, S) that a
 // second kernel sums over b and h in a fixed order: the result does not
 // depend on block scheduling.
 //
 // What bounds it on an H100: the ds/p tiles limit a block to one per SM
-// (8 warps), and at S = 116, dk = 32 the work per block is small
+// (8 warps; 137 KB in bf16), and at S = 116, dk = 32 the work per block is small
 // (~2 MFLOP), so it is latency-bound on shared memory; the partials cost
 // K*B*h*dk*S*4 bytes (45 MB at the train shapes) of writes and reads.
 #include "common.cuh"
@@ -35,13 +41,60 @@ namespace {
 
 constexpr int kThreads = 256;
 
+// Where the (S, S) tiles live: float32 in shared memory, their rows also
+// the rows' scratch (kTiles); in T in shared memory beside two per-warp
+// float32 rows (kTilesT, bf16 only); in T in a device-memory scratch
+// beside the same rows (kScratch).
+enum Mode { kTiles, kTilesT, kScratch };
+
+size_t operand_bytes(int S, int dk) {
+  return ((size_t)S * dk * 2 + (size_t)S * (dk + 1) * 3) * sizeof(float);
+}
+
+size_t row_bytes(int S) {
+  return (size_t)(kThreads / 32) * 2 * S * sizeof(float);
+}
+
+template <typename TT>
+size_t tile_bytes(int S) {
+  return (size_t)S * S * 2 * sizeof(TT);
+}
+
 template <typename T>
+Mode mode_of(int S, int dk) {
+  if (operand_bytes(S, dk) + tile_bytes<float>(S) <= cpc::kSmemLimit)
+    return kTiles;
+  if (sizeof(T) < sizeof(float) &&
+      operand_bytes(S, dk) + row_bytes(S) + tile_bytes<T>(S) <=
+          cpc::kSmemLimit)
+    return kTilesT;
+  return kScratch;
+}
+
+template <typename T>
+size_t smem_bytes(int S, int dk) {
+  switch (mode_of<T>(S, dk)) {
+    case kTiles:
+      return operand_bytes(S, dk) + tile_bytes<float>(S);
+    case kTilesT:
+      return operand_bytes(S, dk) + row_bytes(S) + tile_bytes<T>(S);
+    default:
+      return operand_bytes(S, dk) + row_bytes(S);
+  }
+}
+
+// TT: the tiles' element type; ROWS: the rows' scratch is two per-warp
+// rows (else the tile rows themselves, TT = float); SCRATCH: the tiles
+// are this call's device-memory scratch `tiles` (else shared memory; a
+// compile-time choice, so that shared-memory tiles are read with
+// shared-memory loads).
+template <typename T, typename TT, bool ROWS, bool SCRATCH>
 __global__ void __launch_bounds__(kThreads) relpos_attention_bwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ krel, const T* __restrict__ dout,
     T* __restrict__ dq, T* __restrict__ dk_out, T* __restrict__ dv,
-    float* __restrict__ dkrel_part, int n_batch, int S, int nheads, int dk,
-    float inv_sqrt, cpc::Dropout drop) {
+    float* __restrict__ dkrel_part, TT* __restrict__ tiles, int n_batch,
+    int S, int nheads, int dk, float inv_sqrt, cpc::Dropout drop) {
   extern __shared__ float smem[];
   const int ldk = dk + 1;
   float* qs = smem;               // (S, dk)
@@ -49,12 +102,17 @@ __global__ void __launch_bounds__(kThreads) relpos_attention_bwd_kernel(
   float* ks = dos + S * dk;       // (S, dk + 1)
   float* vs = ks + S * ldk;       // (S, dk + 1)
   float* krT = vs + S * ldk;      // (S, dk + 1): krT[r][d] = krel[k][d][r]
-  float* DS = krT + S * ldk;      // (S, S) ds, rounded to T
-  float* PD = DS + S * S;         // (S, S) p * r, rounded to T
+  float* rows = krT + S * ldk;    // (n_warps, 2, S) a row's intermediates
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int kk = blockIdx.z;
+  // (S, S) ds and p * r, both rounded to T: in shared memory, or in this
+  // block's part of the scratch
+  TT* DS = SCRATCH
+      ? tiles + ((size_t)(kk * n_batch + b) * nheads + h) * 2 * S * S
+      : reinterpret_cast<TT*>(ROWS ? rows + (kThreads / 32) * 2 * S : rows);
+  TT* PD = DS + S * S;
   const int D = nheads * dk;
   const size_t M = (size_t)n_batch * S;
   const size_t base = ((size_t)kk * M + (size_t)b * S) * D + (size_t)h * dk;
@@ -89,8 +147,11 @@ __global__ void __launch_bounds__(kThreads) relpos_attention_bwd_kernel(
   for (int i = warp; i < S; i += n_warps) {
     const float* qi = qs + i * dk;
     const float* doi = dos + i * dk;
-    float* dsr = DS + i * S;
-    float* pdr = PD + i * S;
+    TT* dsr = DS + i * S;
+    TT* pdr = PD + i * S;
+    // scores, then dp, then ds; and p
+    float* rs = ROWS ? rows + warp * 2 * S : reinterpret_cast<float*>(dsr);
+    float* rp = ROWS ? rs + S : reinterpret_cast<float*>(pdr);
     float mx = -INFINITY;
     for (int j = lane; j <= i; j += 32) {
       const float* kj = ks + j * ldk;
@@ -98,20 +159,20 @@ __global__ void __launch_bounds__(kThreads) relpos_attention_bwd_kernel(
       float s = 0.0f;
       for (int d = 0; d < dk; ++d) s += qi[d] * (kj[d] + kr[d]);
       s *= inv_sqrt;
-      dsr[j] = s;
+      rs[j] = s;
       mx = fmaxf(mx, s);
     }
     mx = cpc::warp_max(mx);
     float sum = 0.0f;
     for (int j = lane; j <= i; j += 32) {
-      const float e = expf(dsr[j] - mx);
-      dsr[j] = e;
+      const float e = expf(rs[j] - mx);
+      rs[j] = e;
       sum += e;
     }
     const float inv_sum = 1.0f / cpc::warp_sum(sum);
     float pdp = 0.0f;
     for (int j = lane; j <= i; j += 32) {
-      const float p = dsr[j] * inv_sum;
+      const float p = rs[j] * inv_sum;
       const float* vj = vs + j * ldk;
       float dpd = 0.0f;
       for (int d = 0; d < dk; ++d) dpd += doi[d] * vj[d];
@@ -121,24 +182,26 @@ __global__ void __launch_bounds__(kThreads) relpos_attention_bwd_kernel(
           : 1.0f;
       const float dp = dpd * r;
       pdp += p * dp;
-      pdr[j] = p;
-      dsr[j] = dp;
+      rp[j] = p;
+      rs[j] = dp;
     }
     const float c = cpc::warp_sum(pdp);
     for (int j = lane; j <= i; j += 32) {
-      const float p = pdr[j];
+      const float p = rp[j];
       const float r = drop.active()
           ? cpc::dropout_factor(row_key, (uint32_t)(i * S + j),
                                 drop.threshold, drop.keep_scale)
           : 1.0f;
-      dsr[j] = cpc::round_to<T>(p * (dsr[j] - c) * inv_sqrt);
-      pdr[j] = cpc::round_to<T>(p * r);
+      const float ds = cpc::round_to<T>(p * (rs[j] - c) * inv_sqrt);
+      rs[j] = ds;
+      dsr[j] = cpc::from_f32<TT>(ds);
+      pdr[j] = cpc::from_f32<TT>(cpc::round_to<T>(p * r));
     }
     __syncwarp();
     for (int d = lane; d < dk; d += 32) {
       float acc = 0.0f;
       for (int j = 0; j <= i; ++j)
-        acc += dsr[j] * (ks[j * ldk + d] + krT[(j - i + S - 1) * ldk + d]);
+        acc += rs[j] * (ks[j * ldk + d] + krT[(j - i + S - 1) * ldk + d]);
       dq[base + (size_t)i * D + d] = cpc::from_f32<T>(acc);
     }
     __syncwarp();
@@ -150,8 +213,8 @@ __global__ void __launch_bounds__(kThreads) relpos_attention_bwd_kernel(
     for (int d = lane; d < dk; d += 32) {
       float a = 0.0f, bsum = 0.0f;
       for (int i = j; i < S; ++i) {
-        a += DS[i * S + j] * qs[i * dk + d];
-        bsum += PD[i * S + j] * dos[i * dk + d];
+        a += cpc::to_f32(DS[i * S + j]) * qs[i * dk + d];
+        bsum += cpc::to_f32(PD[i * S + j]) * dos[i * dk + d];
       }
       dk_out[base + (size_t)j * D + d] = cpc::from_f32<T>(a);
       dv[base + (size_t)j * D + d] = cpc::from_f32<T>(bsum);
@@ -166,7 +229,7 @@ __global__ void __launch_bounds__(kThreads) relpos_attention_bwd_kernel(
     for (int d = lane; d < dk; d += 32) {
       float a = 0.0f;
       for (int i = delta; i < S; ++i)
-        a += DS[i * S + i - delta] * qs[i * dk + d];
+        a += cpc::to_f32(DS[i * S + i - delta]) * qs[i * dk + d];
       part[d * S + r] = a;
     }
   }
@@ -185,28 +248,49 @@ __global__ void dkrel_reduce_kernel(const float* __restrict__ part,
   dkrel[(size_t)kk * n_elem + e] = s;
 }
 
-size_t smem_bytes(int S, int dk) {
-  return ((size_t)S * dk * 2 + (size_t)S * (dk + 1) * 3 + (size_t)S * S * 2) *
-         sizeof(float);
-}
-
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* krel,
-           const void* dout, void* dq, void* dk_out, void* dv, float* part,
-           float* dkrel, int K, int n_batch, int S, int nheads, int dk,
-           cpc::Dropout drop, cudaStream_t stream) {
-  const size_t smem = smem_bytes(S, dk);
-  auto kernel = relpos_attention_bwd_kernel<T>;
+template <typename T, typename TT, bool ROWS, bool SCRATCH>
+cudaError_t launch_body(const void* q, const void* k, const void* v,
+                        const void* krel, const void* dout, void* dq,
+                        void* dk_out, void* dv, float* part, TT* tiles,
+                        int K, int n_batch, int S, int nheads, int dk,
+                        size_t smem, cpc::Dropout drop, cudaStream_t stream) {
+  auto kernel = relpos_attention_bwd_kernel<T, TT, ROWS, SCRATCH>;
   cudaError_t err = cpc::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   const dim3 grid(nheads, n_batch, K);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(krel),
       static_cast<const T*>(dout), static_cast<T*>(dq),
-      static_cast<T*>(dk_out), static_cast<T*>(dv), part, n_batch, S, nheads,
-      dk, 1.0f / sqrtf(static_cast<float>(dk)), drop);
-  err = cudaGetLastError();
+      static_cast<T*>(dk_out), static_cast<T*>(dv), part, tiles, n_batch, S,
+      nheads, dk, 1.0f / sqrtf(static_cast<float>(dk)), drop);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const void* krel,
+           const void* dout, void* dq, void* dk_out, void* dv, float* part,
+           float* dkrel, void* tiles, int K, int n_batch, int S, int nheads,
+           int dk, cpc::Dropout drop, cudaStream_t stream) {
+  const size_t smem = smem_bytes<T>(S, dk);
+  if (smem > cpc::kSmemLimit) return (int)cudaErrorInvalidValue;
+  const Mode mode = mode_of<T>(S, dk);
+  if (mode == kScratch && tiles == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (mode == kTiles)
+    err = launch_body<T, float, false, false>(q, k, v, krel, dout, dq,
+                                              dk_out, dv, part, nullptr, K,
+                                              n_batch, S, nheads, dk, smem,
+                                              drop, stream);
+  else if (mode == kScratch)
+    err = launch_body<T, T, true, true>(q, k, v, krel, dout, dq, dk_out, dv,
+                                        part, static_cast<T*>(tiles), K,
+                                        n_batch, S, nheads, dk, smem, drop,
+                                        stream);
+  else if constexpr (sizeof(T) < sizeof(float))   // kTilesT: bf16 only
+    err = launch_body<T, T, true, false>(q, k, v, krel, dout, dq, dk_out,
+                                         dv, part, nullptr, K, n_batch, S,
+                                         nheads, dk, smem, drop, stream);
   if (err != cudaSuccess) return (int)err;
   const int n_elem = dk * S;
   const dim3 rgrid((n_elem + 255) / 256, K);
@@ -217,30 +301,46 @@ int launch(const void* q, const void* k, const void* v, const void* krel,
 
 }  // namespace
 
-// Shared memory one block needs; the wrapper refuses shapes above the
-// card's 227 KB.
-extern "C" size_t cpc_relpos_attention_bwd_smem(int S, int dk) {
-  return smem_bytes(S, dk);
+// Shared memory one block needs (the wrapper refuses shapes above the
+// card's 227 KB), and the bytes of device scratch for the (S, S) tiles of
+// all K * n_batch * nheads blocks where they do not fit beside the
+// operands (0 where they do).
+extern "C" size_t cpc_relpos_attention_bwd_smem(int S, int dk, int dtype) {
+  return dtype == cpc::kBFloat16 ? smem_bytes<__nv_bfloat16>(S, dk)
+                                 : smem_bytes<float>(S, dk);
+}
+
+extern "C" size_t cpc_relpos_attention_bwd_scratch(int n_blocks, int S,
+                                                   int dk, int dtype) {
+  if (dtype == cpc::kBFloat16)
+    return mode_of<__nv_bfloat16>(S, dk) == kScratch
+               ? (size_t)n_blocks * tile_bytes<__nv_bfloat16>(S)
+               : 0;
+  return mode_of<float>(S, dk) == kScratch
+             ? (size_t)n_blocks * tile_bytes<float>(S)
+             : 0;
 }
 
 // q, k, v, dout and dq, dk, dv (K, n_batch*S, nheads*dk) and krel
 // (K, dk, S) in `dtype`; dkrel (K, dk, S) float32; part is float32 scratch
-// of K*n_batch*nheads*dk*S elements.
+// of K*n_batch*nheads*dk*S elements, tiles the scratch of
+// cpc_relpos_attention_bwd_scratch bytes (null when that is 0).
 extern "C" int cpc_relpos_attention_bwd(
     const void* q, const void* k, const void* v, const void* krel,
     const void* dout, void* dq, void* dk, void* dv, void* dkrel, void* part,
-    int K, int n_batch, int S, int nheads, int dkh, const void* seed,
-    unsigned int threshold, float keep_scale, int dtype, void* stream) {
+    void* tiles, int K, int n_batch, int S, int nheads, int dkh,
+    const void* seed, unsigned int threshold, float keep_scale, int dtype,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cpc::Dropout drop{static_cast<const int64_t*>(seed), threshold,
                           keep_scale};
   float* p = static_cast<float*>(part);
   float* dr = static_cast<float*>(dkrel);
   if (dtype == cpc::kBFloat16)
-    return launch<__nv_bfloat16>(q, k, v, krel, dout, dq, dk, dv, p, dr, K,
-                                 n_batch, S, nheads, dkh, drop, s);
+    return launch<__nv_bfloat16>(q, k, v, krel, dout, dq, dk, dv, p, dr,
+                                 tiles, K, n_batch, S, nheads, dkh, drop, s);
   if (dtype == cpc::kFloat32)
-    return launch<float>(q, k, v, krel, dout, dq, dk, dv, p, dr, K, n_batch,
-                         S, nheads, dkh, drop, s);
+    return launch<float>(q, k, v, krel, dout, dq, dk, dv, p, dr, tiles, K,
+                         n_batch, S, nheads, dkh, drop, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -19,6 +19,7 @@ from torch import nn
 
 from .._common import compute_dtype, fused_layer_switches
 from ..config import CPCConfig
+from ..ops import causal_attention, gru, lstm
 from .ar import CPCAR, MODES, NoAr
 from .encoder import CPCEncoder
 from .transformer import TransformerAR
@@ -38,6 +39,43 @@ def _check_supported(config: CPCConfig) -> None:
         if value not in ported:
             raise NotImplementedError(
                 f"{field}={value!r} is not ported yet: {_NOT_PORTED}")
+
+
+def check_kernels(config: CPCConfig) -> None:
+    """Raise ValueError, naming the flag, for a config whose AR the port's
+    kernels cannot run (the gates of K1, K4 and K5), before any weight or
+    step exists.  A refused shape is run by no plain version in its place:
+    the shapes the JAX package trains and the port refuses are listed in
+    ROADMAP Queue 3.  Under ``CPC_PALLAS_CONV=1`` the encoder fuses the
+    layers K7 takes and leaves the rest to cuDNN, as the JAX package leaves
+    the layers its gate refuses to XLA (:meth:`CPCEncoder.fused_layers`;
+    at ``--hiddenEncoder 512`` neither fuses any).  Runs without a card."""
+    problems = []
+    H, D, W = config.hiddenGar, config.hiddenEncoder, config.sizeWindow
+    if config.arMode in ("LSTM", "GRU"):
+        why = (lstm if config.arMode == "LSTM" else gru).supported(H)
+        if why:
+            problems.append(f"--hiddenGar {H} (--arMode {config.arMode}): "
+                            f"{why}")
+    elif config.arMode == "transformer":
+        nheads = 8          # TransformerLayer's, as in the JAX package
+        if D % nheads:
+            problems.append(f"--hiddenEncoder {D} (--arMode transformer): "
+                            f"its {nheads} heads need a multiple of "
+                            f"{nheads}")
+        else:
+            dtype = compute_dtype(config.compute_dtype)
+            why_dk = causal_attention.supported(1, D // nheads, dtype)
+            why_s = causal_attention.supported(W // 160, D // nheads, dtype)
+            if why_dk:
+                problems.append(f"--hiddenEncoder {D} (--arMode transformer, "
+                                f"K5): {why_dk}")
+            elif why_s:
+                problems.append(f"--sizeWindow {W} (--arMode transformer, "
+                                f"K5, S = {W // 160} frames): {why_s}")
+    if problems:
+        raise ValueError("the port's kernels refuse this config: " +
+                         "; ".join(problems))
 
 
 def get_ar(config: CPCConfig, generator: Optional[torch.Generator] = None
@@ -88,7 +126,9 @@ def build_model(config: CPCConfig,
     transformer emit hiddenEncoder-wide contexts, so they force hiddenGar
     == hiddenEncoder (cpc.py:120-125); callers size the criterion from the
     returned ``model.config``.  The encoder fuses its layers under
-    ``CPC_PALLAS_CONV=1``."""
+    ``CPC_PALLAS_CONV=1``.  A config the kernels refuse raises first
+    (:func:`check_kernels`)."""
     if config.arMode in ("no_ar", "transformer"):
         config = config.replace(hiddenGar=config.hiddenEncoder)
+    check_kernels(config)
     return CPCModel(config, generator, fused_layer_switches()[0])

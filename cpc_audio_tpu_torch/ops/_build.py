@@ -42,11 +42,14 @@ _SIGNATURES = {
     "cpc_lstm_bwd": ([_P] * 10 + [_I] * 4 + [_P], _I),
     # q, k, v, krel, out, K, n_batch, S, nheads, dk, dropout, dtype, stream
     "cpc_relpos_attention_fwd": ([_P] * 5 + [_I] * 5 + _DROP + [_I, _P], _I),
-    # q, k, v, krel, dout, dq, dk, dv, dkrel, part, K, n_batch, S, nheads,
-    # dk, dropout, dtype, stream
-    "cpc_relpos_attention_bwd": ([_P] * 10 + [_I] * 5 + _DROP + [_I, _P],
+    # q, k, v, krel, dout, dq, dk, dv, dkrel, part, tiles, K, n_batch, S,
+    # nheads, dk, dropout, dtype, stream
+    "cpc_relpos_attention_bwd": ([_P] * 11 + [_I] * 5 + _DROP + [_I, _P],
                                  _I),
-    "cpc_relpos_attention_bwd_smem": ([_I, _I], ctypes.c_size_t),
+    # S, dk, dtype
+    "cpc_relpos_attention_bwd_smem": ([_I] * 3, ctypes.c_size_t),
+    # blocks, S, dk, dtype
+    "cpc_relpos_attention_bwd_scratch": ([_I] * 4, ctypes.c_size_t),
     # x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, out, K, M, D, F, eps,
     # dropout, dtype, stream
     "cpc_layer_tail_fwd": ([_P] * 10 + [_I] * 4 + [_F] + _DROP + [_I, _P],
@@ -56,7 +59,8 @@ _SIGNATURES = {
     # stream
     "cpc_layer_tail_bwd": ([_P] * 18 + [_I] * 4 + [_F] + _DROP + [_I, _P],
                            _I),
-    "cpc_layer_tail_bwd_tiles": ([_I, _I], _I),
+    # M, D, dtype
+    "cpc_layer_tail_bwd_tiles": ([_I, _I, _I], _I),
     "cpc_layer_tail_bwd_smem": ([_I, _I, _I], ctypes.c_size_t),
     # x_proj, w_hh, b_hh, h0, ys, hT, gates, ghn, B, T, H, dtype, stream
     "cpc_gru_fwd": ([_P] * 8 + [_I] * 4 + [_P], _I),
@@ -65,11 +69,12 @@ _SIGNATURES = {
     "cpc_gru_bwd": ([_P] * 10 + [_I] * 4 + [_P], _I),
     # q, k, v, bias, out, N, S, dk, layer, dropout, dtype, stream
     "cpc_causal_attention_fwd": ([_P] * 5 + [_I] * 4 + _DROP + [_I, _P], _I),
-    "cpc_causal_attention_fwd_smem": ([_I, _I], ctypes.c_size_t),
-    # q, k, v, bias, dout, dq, dk, dv, dbias, N, S, dk, layer, dropout,
-    # dtype, stream
-    "cpc_causal_attention_bwd": ([_P] * 9 + [_I] * 4 + _DROP + [_I, _P], _I),
-    "cpc_causal_attention_bwd_smem": ([_I, _I], ctypes.c_size_t),
+    # q, k, v, bias, dout, dq, dk, dv, dbias, scratch, N, S, dk, layer,
+    # dropout, dtype, stream
+    "cpc_causal_attention_bwd": ([_P] * 10 + [_I] * 4 + _DROP + [_I, _P],
+                                 _I),
+    # N, S, dk, dtype
+    "cpc_causal_attention_bwd_scratch": ([_I] * 4, ctypes.c_size_t),
     # c, wq, wk, wv, wo, krel, x, K, n_batch, S, nheads, dk, dropout, dtype,
     # stream
     "cpc_attention_block_fwd": ([_P] * 7 + [_I] * 5 + _DROP + [_I, _P], _I),

@@ -52,6 +52,17 @@ def attention_block_supported(S: int, nheads: int, dk: int) -> bool:
             and -(-S // 16) * 16 * D <= 32768 and smem <= _build.SMEM_LIMIT)
 
 
+def supported(S: int, nheads: int, dk: int) -> Optional[str]:
+    """Why the kernels refuse (S, nheads, dk), or None
+    (:func:`attention_block_supported` with its reason)."""
+    if attention_block_supported(S, nheads, dk):
+        return None
+    return (f"S={S}, nheads={nheads}, dk={dk} outside the kernel's shapes "
+            f"(attention_block_supported: dk % 16 == 0, D = nheads * dk a "
+            f"multiple of 64 up to 256, the (S, S) float32 tiles within "
+            f"227 KB)")
+
+
 def _project(c: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(M, D) . (K, D, D) -> (K, M, D), float32 sums rounded to c's dtype."""
     return (c.float() @ w.float()).to(c.dtype)
@@ -108,9 +119,8 @@ def _check(name: str, c, wq, wk, wv, wo, krel, n_batch: int, nheads: int,
                    and all(tuple(t.shape) == (K, M, D) for t in others),
                    name, f"shapes c {tuple(c.shape)}, wq {tuple(wq.shape)}, "
                    f"krel {tuple(krel.shape)}")
-    _build.require(attention_block_supported(S, nheads, dk), name,
-                   f"S={S}, nheads={nheads}, dk={dk} outside the kernel's "
-                   f"shapes (attention_block_supported)")
+    why = supported(S, nheads, dk)
+    _build.require(why is None, name, why or "")
     return K, S, dk
 
 

@@ -20,6 +20,11 @@ The backward recomputes p and gives dq, dk, dv and ``dbias = ds`` in the
 input dtype; dbias is exactly 0 above the diagonal, where the caller's
 skewed Shaw bias holds values of other positions.
 
+The kernels take dk <= 128 (a multiple of 8 in bf16, as the JAX
+package's own gate ``fused_attention_supported`` asks) and S <= 512;
+:func:`supported` says so without a card, for the model builder's check
+of a config.
+
 :func:`causal_attention` is the differentiable entry point: its forward
 runs the K5 forward kernel (csrc/causal_attention_fwd.cu, counted in
 ``causal_attention_fwd.launches``), its backward the K5 backward kernel
@@ -85,6 +90,26 @@ def causal_attention_bwd_ref(q, k, v, bias, dout, rate: float = 0.0,
             ds.to(bias.dtype))
 
 
+MAX_S = 512
+MAX_DK = 128
+
+
+def supported(S: int, dk: int,
+              dtype: torch.dtype = torch.bfloat16) -> Optional[str]:
+    """Why the kernels refuse a sequence length S and head width dk in
+    ``dtype``, or None: dk up to 128, in bf16 a multiple of 8 (the
+    tensor-core body stages rows 16 bytes at a time and pads dk to 32, 64
+    or 128), 0 < S <= 512 (JAX's gate pads S to at most 512)."""
+    if dtype == torch.bfloat16 and dk % 8 != 0:
+        return (f"head width dk={dk} must be a multiple of 8 in bf16 "
+                f"(up to {MAX_DK})")
+    if not 0 < dk <= MAX_DK:
+        return f"head width dk={dk} must be in [1, {MAX_DK}]"
+    if not 0 < S <= MAX_S:
+        return f"sequence length S={S} must be in [1, {MAX_S}]"
+    return None
+
+
 def _check(name: str, q, k, v, bias, others=()) -> Tuple[int, int, int]:
     _build.require(q.dim() == 3, name, f"q must be (N, S, dk), got "
                    f"{tuple(q.shape)}")
@@ -94,8 +119,8 @@ def _check(name: str, q, k, v, bias, others=()) -> Tuple[int, int, int]:
                    and tuple(bias.shape) == (N, S, S), name,
                    f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                    f"{tuple(v.shape)}, bias {tuple(bias.shape)}")
-    _build.require(N > 0 and S > 0 and dk > 0, name,
-                   f"N={N}, S={S}, dk={dk} out of range")
+    why = supported(S, dk, q.dtype)
+    _build.require(N > 0 and why is None, name, why or f"N={N}")
     return N, S, dk
 
 
@@ -111,9 +136,8 @@ def causal_attention_fwd(q, k, v, bias, rate: float = 0.0,
         return causal_attention_ref(q, k, v, bias, rate, seed, layer)
     N, S, dk = _check(_NAME, q, k, v, bias)
     _build.check_inputs(_NAME, q.dtype, q=q, k=k, v=v, bias=bias)
+    _build.require_aligned(_NAME, q=q, k=k, v=v, bias=bias)
     lib = _build.library()
-    _build.require_smem(_NAME, lib.cpc_causal_attention_fwd_smem(S, dk),
-                        f"S={S}, dk={dk}")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         status = lib.cpc_causal_attention_fwd(
@@ -143,16 +167,21 @@ def causal_attention_bwd(q, k, v, bias, dout, rate: float = 0.0,
     N, S, dk = _check(_BWD_NAME, q, k, v, bias, (dout,))
     _build.check_inputs(_BWD_NAME, q.dtype, q=q, k=k, v=v, bias=bias,
                         dout=dout)
+    _build.require_aligned(_BWD_NAME, q=q, k=k, v=v, bias=bias, dout=dout)
     lib = _build.library()
-    _build.require_smem(_BWD_NAME, lib.cpc_causal_attention_bwd_smem(S, dk),
-                        f"S={S}, dk={dk}")
     dq, dkk, dv = (torch.empty_like(q) for _ in range(3))
     dbias = torch.empty_like(bias)      # every element is written
+    # the bf16 rows' statistics, or the float32 p * r tiles past shared
+    # memory (csrc/causal_attention_bwd.cu)
+    n_scratch = lib.cpc_causal_attention_bwd_scratch(
+        N, S, dk, _build.DTYPE_CODES[q.dtype])
+    scratch = torch.empty(n_scratch, dtype=torch.float32,
+                          device=q.device) if n_scratch else None
     with torch.cuda.device(q.device):
         status = lib.cpc_causal_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             dout.data_ptr(), dq.data_ptr(), dkk.data_ptr(), dv.data_ptr(),
-            dbias.data_ptr(), N, S, dk, layer,
+            dbias.data_ptr(), _build.ptr(scratch), N, S, dk, layer,
             *dropout.kernel_args(rate, seed), _build.DTYPE_CODES[q.dtype],
             _build.stream(q.device))
     _build.check(status, _BWD_NAME)

@@ -24,7 +24,7 @@ tensors take the plain versions.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +50,18 @@ def fused_conv_supported(c_in: int, c_out: int, kernel: int, stride: int,
     return (kernel == 2 * stride and c_in == c_out and c_in % 64 == 0
             and c_in <= 256 and pad >= 0
             and out_frames(T, kernel, stride, pad) >= 1)
+
+
+def supported(c_in: int, c_out: int, kernel: int, stride: int, pad: int,
+              T: int) -> Optional[str]:
+    """Why the kernels refuse a layer, or None
+    (:func:`fused_conv_supported` with its reason)."""
+    if fused_conv_supported(c_in, c_out, kernel, stride, pad, T):
+        return None
+    return (f"conv layer C_in={c_in}, C_out={c_out}, kernel {kernel}, "
+            f"stride {stride}, pad {pad}, T={T} outside the kernel's shapes "
+            f"(fused_conv_supported: kernel == 2 * stride, one width C = "
+            f"C_in = C_out, a multiple of 64 up to 256)")
 
 
 def _frames(x: torch.Tensor, kernel: int, stride: int,
@@ -109,13 +121,12 @@ def conv_ln_relu_bwd_ref(x, w, bias, nw, nb, dy, stride: int, kernel: int,
 def _check(name: str, x, w, vecs, stride: int, kernel: int, pad: int,
            others=()) -> int:
     B, T, C = x.shape
-    _build.require(fused_conv_supported(C, w.shape[-1], kernel, stride, pad,
-                                        T)
-                   and tuple(w.shape) == (kernel * C, C)
+    why = supported(C, w.shape[-1], kernel, stride, pad, T)
+    _build.require(why is None, name, why or "")
+    _build.require(tuple(w.shape) == (kernel * C, C)
                    and all(tuple(v.shape) == (C,) for v in vecs), name,
                    f"x {tuple(x.shape)}, w {tuple(w.shape)}, kernel "
-                   f"{kernel}, stride {stride}, pad {pad} outside the "
-                   f"kernel's shapes (fused_conv_supported)")
+                   f"{kernel}, stride {stride}, pad {pad}")
     out_t = out_frames(T, kernel, stride, pad)
     _build.require(all(tuple(t.shape) == (B, out_t, C) for t in others),
                    name, f"dy {[tuple(t.shape) for t in others]}")

@@ -18,6 +18,11 @@ K3 forward kernel (csrc/layer_tail_fwd.cu, counted in
 ``layer_tail.launches``), its backward the K3 backward kernels
 (csrc/layer_tail_bwd.cu, counted in ``layer_tail_bwd.launches``).  CPU
 tensors take the plain versions.
+
+The kernels take D a multiple of 32 up to 512 (the widths JAX's own tail
+runs at) and F a multiple of 64 (bf16) or 32 and of D/4;
+:func:`supported` says so without a card, for the criterion builder's
+check of a config.
 """
 
 from __future__ import annotations
@@ -30,6 +35,53 @@ from . import _build, dropout
 
 _NAME = "layer_tail_fwd"
 _BWD_NAME = "layer_tail_bwd"
+
+MAX_D = 512
+# csrc/layer_tail_bwd.cu's Tiles: (rows, F chunk) of pass 1 and of pass 2,
+# by dtype and by D > 256
+_BWD_TILES = {(torch.bfloat16, False): (32, 64, 64, 32),
+              (torch.bfloat16, True): (16, 32, 32, 16),
+              (torch.float32, False): (16, 32, 16, 32),
+              (torch.float32, True): (8, 32, 8, 16)}
+
+
+def _bwd_smem(D: int, F: int, dtype: torch.dtype) -> int:
+    """Shared memory of the larger of the backward's two passes, as
+    csrc/layer_tail_bwd.cu carves it (RowsLayout, WeightsLayout: each
+    region rounded up to 128 bytes)."""
+    e = 2 if dtype == torch.bfloat16 else 4
+    pad = 16 // e
+    mt1, fc1, mt2, fc2 = _BWD_TILES[(dtype, D > 256)]
+
+    def take(n: int, size: int) -> int:
+        return -(-n * size // 128) * 128
+
+    ld = D + pad
+    rows = (2 * take(mt1 * ld, e) + take(D * (fc1 + pad), e)
+            + take(fc1 * ld, e) + take(mt1 * (fc1 + pad), e)
+            + 2 * take(mt1 * (fc1 + 4), 4) + 2 * take(mt1 * (D + 4), 4)
+            + take(4 * mt1, 4) + take(mt1 * (F // 32), 4))
+    weights = (take(D * (fc2 + pad), e) + take(fc2 * ld, e)
+               + 2 * take(mt2 * ld, e) + 2 * take(mt2 * (fc2 + pad), e)
+               + take(D * (fc2 + 4), 4) + take(fc2 * (D + 4), 4)
+               + 2 * take(mt2 * (fc2 + 4), 4) + take(fc2, 4))
+    return max(rows, weights)
+
+
+def supported(D: int, F: int, dtype: torch.dtype) -> Optional[str]:
+    """Why the kernels refuse a model width D and FFN width F in
+    ``dtype``, or None."""
+    if D % 32 != 0 or not 32 <= D <= MAX_D:
+        return f"model width D={D} must be a multiple of 32 in [32, {MAX_D}]"
+    chunk = 64 if dtype == torch.bfloat16 else 32
+    if F <= 0 or F % chunk != 0 or F % (D // 4) != 0:
+        return (f"FFN width F={F} must be a multiple of {chunk} and of "
+                f"D/4 = {D // 4}")
+    smem = _bwd_smem(D, F, dtype)
+    if smem > _build.SMEM_LIMIT:
+        return (f"D={D}, F={F} needs {smem} bytes of shared memory in the "
+                f"backward (at most {_build.SMEM_LIMIT})")
+    return None
 
 def _ln(x32: torch.Tensor, eps: float):
     """(yhat, 1/std) of a float32 (K, M, D) LayerNorm, biased variance."""
@@ -127,12 +179,9 @@ def layer_tail_fwd(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b,
                               rate, seed)
     K, M, D, F = _check_weights(_NAME, x, *vecs[:2], w1, b1, w2, *vecs[3:])
     _build.check_inputs(_NAME, x.dtype, x=x, w1=w1, w2=w2)
-    _build.require(32 <= D <= 256 and D % 32 == 0 and F % (D // 4) == 0
-                   and M > 0 and K > 0, _NAME,
-                   f"D={D} must be a multiple of 32 in [32, 256] and F={F} "
-                   f"a multiple of D/4")
-    _build.require(x.dtype != torch.bfloat16 or F % 64 == 0, _NAME,
-                   f"bf16 needs F % 64 == 0, got F={F}")
+    _build.require(M > 0 and K > 0, _NAME, f"M={M}, K={K} out of range")
+    why = supported(D, F, x.dtype)
+    _build.require(why is None, _NAME, why or "")
     ln1w, ln1b, b1, b2, ln2w, ln2b = (t.float().contiguous() for t in vecs)
     out = torch.empty_like(x)
     lib = _build.library()
@@ -166,10 +215,9 @@ def layer_tail_bwd(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, dout,
     _build.check_inputs(_BWD_NAME, x.dtype, x=x, w1=w1, w2=w2, dout=dout)
     _build.require(tuple(dout.shape) == tuple(x.shape), _BWD_NAME,
                    f"dout {tuple(dout.shape)} vs x {tuple(x.shape)}")
-    chunk = 64 if x.dtype == torch.bfloat16 else 32
-    _build.require(D >= 32 and D % 32 == 0 and F % chunk == 0 and M > 0
-                   and K > 0, _BWD_NAME,
-                   f"D={D} must be a multiple of 32 and F={F} of {chunk}")
+    _build.require(M > 0 and K > 0, _BWD_NAME, f"M={M}, K={K} out of range")
+    why = supported(D, F, x.dtype)
+    _build.require(why is None, _BWD_NAME, why or "")
     lib = _build.library()
     code = _build.DTYPE_CODES[x.dtype]
     smem = lib.cpc_layer_tail_bwd_smem(D, F, code)
@@ -178,7 +226,7 @@ def layer_tail_bwd(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, dout,
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
     dx, y_buf, df_buf = (torch.empty_like(x) for _ in range(3))
-    tiles = lib.cpc_layer_tail_bwd_tiles(M, code)
+    tiles = lib.cpc_layer_tail_bwd_tiles(M, D, code)
     vec_part = torch.empty((K, tiles, 5, D), **f32)
     vec_out = torch.empty((5, K, D), **f32)
     dw1 = torch.empty((K, D, F), **f32)

@@ -20,19 +20,42 @@ the input dtype.
   only dghn is written;
 * :func:`gru` is the differentiable entry point: a
   ``torch.autograd.Function`` over the two, with dW_hh = dgh^T h_prev and
-  db_hh = sum dgh formed from dx_proj and dghn, as rnn.py:383-385.
+  db_hh = sum dgh formed from dx_proj and dghn, as rnn.py:383-385.  It
+  takes any H up to 2048: where the kernels' H % 32 does not hold it pads
+  H with zero units (zero rows and columns of w_hh, zero b_hh, x_proj
+  columns and h0) and slices them off.  A zero unit stays zero (r = z =
+  1/2, n = tanh(0) = 0, h = z h = 0) and its w_hh column is zero, so the
+  real units never see it, and autograd drops the padded rows of every
+  gradient.  The JAX package falls back to ``lax.scan`` at such H
+  (models/ar.py:81-121); here the kernels still run.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
+from .lstm import MAX_H, pad_gates, pad_weight
 
 _NAME = "gru_fwd"
 _BWD_NAME = "gru_bwd"
+MULTIPLE = 32         # the kernels' H: 3H whole 32-row tiles
+
+
+def padded_hidden(H: int) -> int:
+    """H rounded up to the kernels' multiple."""
+    return -(-H // MULTIPLE) * MULTIPLE
+
+
+def supported(H: int) -> Optional[str]:
+    """Why :func:`gru` refuses a hidden width H (after padding), or
+    None."""
+    if not 0 < padded_hidden(H) <= MAX_H:
+        return f"hidden width H={H} must be in [1, {MAX_H}]"
+    return None
 
 
 def gru_scan_ref(x_proj: torch.Tensor, w_hh: torch.Tensor,
@@ -97,9 +120,10 @@ def gru_bwd_ref(gates: torch.Tensor, ghn: torch.Tensor, h0: torch.Tensor,
 
 
 def _check_hidden(name: str, B: int, T: int, H: int) -> None:
-    _build.require(B > 0 and T > 0 and 0 < H <= 2048 and H % 32 == 0, name,
+    _build.require(B > 0 and T > 0 and H % MULTIPLE == 0
+                   and supported(H) is None, name,
                    f"B={B}, T={T}, H={H} out of range (H % 32 == 0, so "
-                   f"that 3H is whole 32-row tiles; H <= 2048)")
+                   f"that 3H is whole 32-row tiles; H <= {MAX_H})")
 
 
 def gru_fwd(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
@@ -228,5 +252,16 @@ class _GRU(torch.autograd.Function):
 def gru(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
         h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Differentiable recurrence: (ys, hT) as :func:`gru_fwd`, with a
-    backward through :func:`gru_bwd`."""
-    return _GRU.apply(x_proj, w_hh, b_hh, h0)
+    backward through :func:`gru_bwd`; any H, padded to the kernels'
+    multiple of 32 and sliced back."""
+    H = h0.shape[-1]
+    why = supported(H)
+    _build.require(why is None, _NAME, why or "")
+    Hp = padded_hidden(H)
+    if Hp == H:
+        return _GRU.apply(x_proj, w_hh, b_hh, h0)
+    ys, hT = _GRU.apply(pad_gates(x_proj, 3, H, Hp).contiguous(),
+                        pad_weight(w_hh, 3, H, Hp).contiguous(),
+                        pad_gates(b_hh, 3, H, Hp).contiguous(),
+                        F.pad(h0, (0, Hp - H)).contiguous())
+    return ys[..., :H].contiguous(), hT[..., :H]

@@ -21,6 +21,9 @@ runs the K2 forward kernel (csrc/relpos_attention_fwd.cu, counted in
 ``relpos_attention.launches``), its backward the K2 backward kernel
 (csrc/relpos_attention_bwd.cu, counted in
 ``relpos_attention_bwd.launches``).  CPU tensors take the plain versions.
+
+Each block stages its head's q, k, v (and do, krel) as float32 in shared
+memory: :func:`supported` gives the (S, dk) that fit, without a card.
 """
 
 from __future__ import annotations
@@ -34,6 +37,29 @@ from . import _build, dropout
 
 _NAME = "relpos_attention_fwd"
 _BWD_NAME = "relpos_attention_bwd"
+_WARPS = 8                       # warps a block, both kernels
+
+
+def _smem(S: int, dk: int) -> Tuple[int, int]:
+    """Shared memory of a forward and of a backward block, as
+    csrc/relpos_attention_{fwd,bwd}.cu lay it out: float32 operand tiles
+    and per-warp rows; the backward's least (its (S, S) tiles go to device
+    memory when they do not fit beside those)."""
+    fwd = (3 * S * dk + S + dk * S + _WARPS * S) * 4
+    bwd = (2 * S * dk + 3 * S * (dk + 1) + _WARPS * 2 * S) * 4
+    return fwd, bwd
+
+
+def supported(S: int, dk: int) -> Optional[str]:
+    """Why the kernels refuse a sequence length S and head width dk, or
+    None."""
+    if S <= 0 or dk <= 0:
+        return f"S={S}, dk={dk} out of range"
+    fwd, bwd = _smem(S, dk)
+    if max(fwd, bwd) > _build.SMEM_LIMIT:
+        return (f"S={S}, dk={dk} needs {max(fwd, bwd)} bytes of shared "
+                f"memory (at most {_build.SMEM_LIMIT})")
+    return None
 
 
 def _heads(t: torch.Tensor, n_batch: int, nheads: int) -> torch.Tensor:
@@ -126,7 +152,9 @@ def _check_shapes(name: str, q, k, v, krel, n_batch: int, nheads: int,
                    and tuple(krel.shape) == (K, dk, S), name,
                    f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                    f"{tuple(v.shape)}, krel {tuple(krel.shape)}")
-    _build.require(S > 0 and K > 0, name, f"S={S}, K={K} out of range")
+    _build.require(K > 0, name, f"K={K} out of range")
+    why = supported(S, dk)
+    _build.require(why is None, name, why or "")
     return S, dk
 
 
@@ -175,19 +203,26 @@ def relpos_attention_bwd(q, k, v, krel, dout, n_batch: int, nheads: int,
     _build.check_inputs(_BWD_NAME, q.dtype, q=q, k=k, v=v, krel=krel,
                         dout=dout)
     lib = _build.library()
-    smem = lib.cpc_relpos_attention_bwd_smem(S, dk)
+    code = _build.DTYPE_CODES[q.dtype]
+    smem = lib.cpc_relpos_attention_bwd_smem(S, dk, code)
     _build.require_smem(_BWD_NAME, smem, f"S={S}, dk={dk}")
     dq, dkk, dv = (torch.empty_like(q) for _ in range(3))
     dkrel = torch.empty((K, dk, S), dtype=torch.float32, device=q.device)
     part = torch.empty((K, n_batch * nheads, dk, S), dtype=torch.float32,
                        device=q.device)
+    # the (S, S) ds and p * r tiles of every block, where they do not fit
+    # in shared memory beside the operands
+    n_tiles = lib.cpc_relpos_attention_bwd_scratch(K * n_batch * nheads, S,
+                                                   dk, code)
+    tiles = torch.empty(n_tiles, dtype=torch.uint8,
+                        device=q.device) if n_tiles else None
     with torch.cuda.device(q.device):
         status = lib.cpc_relpos_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), krel.data_ptr(),
             dout.data_ptr(), dq.data_ptr(), dkk.data_ptr(), dv.data_ptr(),
-            dkrel.data_ptr(), part.data_ptr(), K, n_batch, S, nheads, dk,
-            *dropout.kernel_args(rate, seed), _build.DTYPE_CODES[q.dtype],
-            _build.stream(q.device))
+            dkrel.data_ptr(), part.data_ptr(), _build.ptr(tiles), K,
+            n_batch, S, nheads, dk,
+            *dropout.kernel_args(rate, seed), code, _build.stream(q.device))
     _build.check(status, _BWD_NAME)
     relpos_attention_bwd.launches += 1
     return dq, dkk, dv, dkrel

@@ -14,7 +14,14 @@ float32 whatever the input dtype; outputs are rounded to the input dtype.
   dgates, dh0 and dc0;
 * :func:`lstm` is the differentiable entry point: a
   ``torch.autograd.Function`` over the two, with dW_hh = h_prev^T dgates
-  as one matmul, as rnn.py:223-226.
+  as one matmul, as rnn.py:223-226.  It takes any H up to 2048: where the
+  kernels' H % 8 does not hold it pads H with zero units (zero rows and
+  columns of w_hh, zero x_proj columns and initial state) and slices them
+  off.  A zero unit stays zero (i = f = o = 1/2, g = tanh(0) = 0, so c =
+  h = 0) and its w_hh column is zero, so the real units never see it, and
+  autograd drops the padded rows of every gradient.  The JAX package
+  falls back to ``lax.scan`` at such H (models/ar.py:81-121); here the
+  kernels still run.
 """
 
 from __future__ import annotations
@@ -22,11 +29,49 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
 _NAME = "lstm_fwd"
 _BWD_NAME = "lstm_bwd"
+MULTIPLE = 8          # the kernels' H: 4H whole 32-row tiles
+MAX_H = 2048          # the backward's H / 2 <= 1024 threads
+
+
+def padded_hidden(H: int) -> int:
+    """H rounded up to the kernels' multiple."""
+    return -(-H // MULTIPLE) * MULTIPLE
+
+
+def supported(H: int) -> Optional[str]:
+    """Why :func:`lstm` refuses a hidden width H (after padding), or
+    None."""
+    if not 0 < padded_hidden(H) <= MAX_H:
+        return f"hidden width H={H} must be in [1, {MAX_H}]"
+    return None
+
+
+def _kernel_hidden(name: str, B: int, T: int, H: int) -> None:
+    _build.require(B > 0 and T > 0 and H % MULTIPLE == 0
+                   and supported(H) is None, name,
+                   f"B={B}, T={T}, H={H} out of range (H % 8 == 0, <= "
+                   f"{MAX_H})")
+
+
+def pad_gates(t: torch.Tensor, n_gates: int, H: int, Hp: int) -> torch.Tensor:
+    """(..., n_gates * H) -> (..., n_gates * Hp): each gate's block
+    zero-padded at its end (the layout of x_proj, w_hh's rows, b_hh)."""
+    lead = t.shape[:-1]
+    return F.pad(t.reshape(*lead, n_gates, H),
+                 (0, Hp - H)).reshape(*lead, n_gates * Hp)
+
+
+def pad_weight(w_hh: torch.Tensor, n_gates: int, H: int,
+               Hp: int) -> torch.Tensor:
+    """(n_gates * H, H) -> (n_gates * Hp, Hp), zero rows and columns."""
+    return F.pad(w_hh.reshape(n_gates, H, H),
+                 (0, Hp - H, 0, Hp - H)).reshape(n_gates * Hp, Hp)
 
 
 def lstm_scan_ref(x_proj: torch.Tensor, w_hh: torch.Tensor,
@@ -105,8 +150,7 @@ def lstm_fwd(x_proj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
                    f"shapes x_proj {tuple(x_proj.shape)}, w_hh "
                    f"{tuple(w_hh.shape)}, h0 {tuple(h0.shape)}, c0 "
                    f"{tuple(c0.shape)}")
-    _build.require(B > 0 and T > 0 and 0 < H <= 2048 and H % 8 == 0, _NAME,
-                   f"B={B}, T={T}, H={H} out of range (H % 8 == 0, <= 2048)")
+    _kernel_hidden(_NAME, B, T, H)
     _build.require_aligned(_NAME, w_hh=w_hh)
     dev = x_proj.device
     ys = torch.empty((B, T, H), dtype=x_proj.dtype, device=dev)
@@ -155,9 +199,7 @@ def lstm_bwd(gates: torch.Tensor, cs: torch.Tensor, c0: torch.Tensor,
                    _BWD_NAME, f"shapes gates {tuple(gates.shape)}, cs "
                    f"{tuple(cs.shape)}, dys {tuple(dys.shape)}, w_hh "
                    f"{tuple(w_hh.shape)}")
-    _build.require(B > 0 and T > 0 and 0 < H <= 2048 and H % 8 == 0,
-                   _BWD_NAME, f"B={B}, T={T}, H={H} out of range "
-                   f"(H % 8 == 0, <= 2048)")
+    _kernel_hidden(_BWD_NAME, B, T, H)
     _build.require_aligned(_BWD_NAME, w_hh=w_hh)
     dev = gates.device
     dgates = torch.empty_like(gates)
@@ -213,5 +255,16 @@ class _LSTM(torch.autograd.Function):
 def lstm(x_proj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
          c0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Differentiable recurrence: (ys, hT, cT) as :func:`lstm_fwd`, with a
-    backward through :func:`lstm_bwd`."""
-    return _LSTM.apply(x_proj, w_hh, h0, c0)
+    backward through :func:`lstm_bwd`; any H, padded to the kernels'
+    multiple of 8 and sliced back."""
+    H = h0.shape[-1]
+    why = supported(H)
+    _build.require(why is None, _NAME, why or "")
+    Hp = padded_hidden(H)
+    if Hp == H:
+        return _LSTM.apply(x_proj, w_hh, h0, c0)
+    ys, hT, cT = _LSTM.apply(pad_gates(x_proj, 4, H, Hp).contiguous(),
+                             pad_weight(w_hh, 4, H, Hp).contiguous(),
+                             F.pad(h0, (0, Hp - H)).contiguous(),
+                             F.pad(c0, (0, Hp - H)).contiguous())
+    return ys[..., :H].contiguous(), hT[..., :H], cT[..., :H]

@@ -32,7 +32,7 @@ CPU tensors take the plain versions: :func:`scatter_add_rows_ref`
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -40,6 +40,15 @@ from . import _build
 
 _NAME = "scatter_add_rows"
 _MAX_ROW_BYTES = 2048          # 4 x 16-byte chunks a lane (csrc/scatter_add.cu)
+
+
+def supported(C: int, dtype: torch.dtype) -> Optional[str]:
+    """Why the kernel refuses rows of C elements of ``dtype``, or None."""
+    row_bytes = C * torch.empty((), dtype=dtype).element_size()
+    if row_bytes % 16 != 0 or not 0 < row_bytes <= _MAX_ROW_BYTES:
+        return (f"C = {C}: a row must be a multiple of 16 bytes and at "
+                f"most {_MAX_ROW_BYTES}")
+    return None
 
 
 def scatter_add_rows_ref(updates: torch.Tensor, keys: torch.Tensor,
@@ -94,10 +103,8 @@ def scatter_add_sorted(updates: torch.Tensor, order: torch.Tensor,
                        and tuple(t.shape) == (n,), _NAME,
                        f"{arg} must be contiguous int32 ({n},), got "
                        f"{t.dtype} {tuple(t.shape)}")
-    row_bytes = C * updates.element_size()
-    _build.require(row_bytes % 16 == 0 and 0 < row_bytes <= _MAX_ROW_BYTES,
-                   _NAME, f"C = {C}: a row must be a multiple of 16 bytes "
-                   f"and at most {_MAX_ROW_BYTES}")
+    why = supported(C, updates.dtype)
+    _build.require(why is None, _NAME, why or "")
     _build.require(J < 2 ** 31 and n_rows < 2 ** 31, _NAME,
                    f"J = {J}, n_rows = {n_rows} exceed int32")
     _build.require_aligned(_NAME, updates=updates)

@@ -71,10 +71,11 @@ def test_relpos_attention_kernel(dev, dtype, S, dk):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("M,D,F", [(40, 64, 128), (64, 256, 256),
-                                   (33, 32, 64)])
+                                   (33, 32, 64), (70, 512, 2048)])
 def test_layer_tail_kernel(dev, dtype, M, D, F):
     """M = 40 and 33: ragged row tiles of both bodies (64 rows for bf16,
-    32 for f32); D = 32: a one-warp f32 block."""
+    32 for f32); D = 32: a one-warp f32 block; D = 512 (--hiddenEncoder
+    512): 32-row bf16 blocks, 512-thread f32 blocks."""
     rng = np.random.RandomState(M + D)
     K = 2
     f32 = torch.float32
@@ -109,7 +110,7 @@ def test_wrappers_reject_what_kernels_do_not_take(dev):
                                         torch.zeros(1, 8, 8, device=dev), 1, 2)
     w = torch.zeros(1, 32, 40, device=dev, dtype=torch.bfloat16)
     v = torch.zeros(1, 32, device=dev)
-    with pytest.raises(ValueError, match="F % 64"):
+    with pytest.raises(ValueError, match="multiple of 64"):
         ffn.layer_tail(torch.zeros(1, 8, 32, device=dev, dtype=torch.bfloat16),
                        v, v, w, torch.zeros(1, 40, device=dev),
                        w.transpose(1, 2).contiguous(), v, v, v)
@@ -121,6 +122,9 @@ def test_wrappers_reject_what_kernels_do_not_take(dev):
 # ds / df / dhp to bf16 flipping by one ulp where the orders differ), so
 # the error is bounded relative to the largest entry of the reference.
 BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# chip_smoke.py's TOLERANCE for K5's backward, on the 2-norm of each
+# gradient
+BWD_NORM = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 RATES = [0.0, 0.1]
 
 
@@ -163,11 +167,14 @@ def test_lstm_bwd_kernel(dev, dtype, B, T, H):
 
 @pytest.mark.parametrize("rate", RATES)
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("S,dk", [(116, 32), (20, 16)])
+@pytest.mark.parametrize("S,dk", [(116, 32), (20, 16), (116, 64), (244, 32)])
 def test_relpos_attention_bwd_kernel(dev, dtype, S, dk, rate):
     """Forward at the rate, then the backward, each against its plain
     version with the same seed: at rate 0.1 a mask that differed between
-    the kernel and dropout.py would fail both."""
+    the kernel and dropout.py would fail both.  (116, 64) is the heads of
+    --hiddenEncoder 512 (the backward's bf16 tiles in shared memory, the
+    float32 ones in device memory), (244, 32) those of --sizeWindow 40960
+    (device-memory tiles in both dtypes)."""
     rng = np.random.RandomState(S + dk)
     K, B, h = 2, 3, 2
     args = [_rand(rng, dev, dtype, K, B * S, h * dk) for _ in range(3)]
@@ -203,10 +210,11 @@ def _tail_args(rng, dev, dtype, K, M, D, F):
 @pytest.mark.parametrize("rate", RATES)
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("M,D,F", [(40, 64, 128), (33, 32, 64),
-                                   (70, 256, 256)])
+                                   (70, 256, 256), (45, 512, 2048)])
 def test_layer_tail_bwd_kernel(dev, dtype, M, D, F, rate):
-    """M = 33, 40 and 70: ragged row tiles of both passes (32/64 rows for
-    bf16, 16 for f32); D = 32: the narrowest tile."""
+    """M = 33, 40, 45 and 70: ragged row tiles of both passes (32/64 rows
+    for bf16, 16 for f32); D = 32: the narrowest tile; D = 512: the wide
+    tiles (16/32 rows for bf16, 8 for f32, narrower F chunks)."""
     rng = np.random.RandomState(M + D + F)
     K = 2
     args = _tail_args(rng, dev, dtype, K, M, D, F)
@@ -235,7 +243,7 @@ def test_backward_wrappers_reject_what_kernels_do_not_take(dev):
                       torch.zeros(64, 16, device=dev, dtype=f16),
                       torch.zeros(2, 16, device=dev),
                       torch.zeros(2, 16, device=dev))
-    S, dk = 200, 32          # the (S, S) ds and p tiles exceed 227 KB
+    S, dk = 400, 64          # the operand tiles alone exceed 227 KB
     q = torch.zeros(1, S, dk, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
         head_attention.relpos_attention_bwd(
@@ -286,22 +294,33 @@ def test_gru_kernels(dev, dtype, B, T, H):
 
 @pytest.mark.parametrize("rate", RATES)
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("N,S,dk", [(8, 20, 16), (4, 116, 32), (2, 128, 32)])
+@pytest.mark.parametrize("N,S,dk", [(8, 20, 16), (4, 116, 32), (2, 128, 32),
+                                    (3, 128, 64), (2, 256, 64), (2, 72, 128),
+                                    (2, 100, 40)])
 def test_causal_attention_kernels(dev, dtype, N, S, dk, rate):
     """Forward and backward against the plain versions with the same seed
-    and layer; S = 128 needs 198 KB of shared memory in the backward;
-    dbias is exactly 0 above the diagonal although the bias is not."""
+    and layer (the backward also at chip_smoke's tolerance on each
+    gradient's 2-norm): the train shape (S 128, dk 32), the
+    --hiddenGar 512 one (dk 64), S = 256 (--sizeWindow 40960, four
+    64-key tiles, no tile resident between the row kernel's passes, and
+    the float32 body's scratch tiles), ragged S (116, 100, 72, 20: tiles
+    past S and unaligned bias rows) and dk padded to 32, 64 or 128 (16,
+    40).  dbias is exactly 0 above the diagonal although the bias is not,
+    and a second run gives the same bits."""
     rng = np.random.RandomState(N + S + dk)
     args = [_rand(rng, dev, dtype, N, S, dk) for _ in range(3)]
     args.append(_rand(rng, dev, dtype, N, S, S, scale=0.5))
     seed = _seed(dev)
     before = causal_attention.causal_attention_fwd.launches
+    out = causal_attention.causal_attention_fwd(*args, rate, seed, 1)
     torch.testing.assert_close(
-        causal_attention.causal_attention_fwd(*args, rate, seed, 1),
-        causal_attention.causal_attention_ref(*args, rate, seed, 1),
+        out, causal_attention.causal_attention_ref(*args, rate, seed, 1),
         **TOL[dtype])
     assert causal_attention.causal_attention_fwd.launches == before + 1
-    dout = _rand(rng, dev, dtype, N, S, dk)
+    assert torch.equal(out,
+                       causal_attention.causal_attention_fwd(*args, rate,
+                                                             seed, 1))
+    dout = _rand(rng, dev, dtype, N, S, dk, scale=0.1)
     before = causal_attention.causal_attention_bwd.launches
     got = causal_attention.causal_attention_bwd(*args, dout, rate, seed, 1)
     assert causal_attention.causal_attention_bwd.launches == before + 1
@@ -309,8 +328,13 @@ def test_causal_attention_kernels(dev, dtype, N, S, dk, rate):
                                                      1)
     for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
         _close(g, w, BWD_REL[dtype], name)
+        err = (g.float() - w.float()).norm() / w.float().norm()
+        assert err <= BWD_NORM[dtype], f"{name}: rel_norm_err {err:.3e}"
     upper = torch.ones(S, S, dtype=torch.bool, device=dev).triu(1)
     assert torch.count_nonzero(got[3][:, upper]) == 0
+    again = causal_attention.causal_attention_bwd(*args, dout, rate, seed, 1)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
 
 
 def test_gru_and_causal_wrappers_reject_what_kernels_do_not_take(dev):
@@ -319,13 +343,72 @@ def test_gru_and_causal_wrappers_reject_what_kernels_do_not_take(dev):
         gru.gru_fwd(x, torch.zeros(120, 40, device=dev),
                     torch.zeros(120, device=dev),
                     torch.zeros(2, 40, device=dev))
-    S, dk = 256, 32          # the (S, S) ds and p tiles exceed 227 KB
+    S, dk = 520, 32          # past JAX's S <= 512
     q = torch.zeros(1, S, dk, device=dev)
     b = torch.zeros(1, S, S, device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="sequence length"):
         causal_attention.causal_attention_bwd(q, q, q, b, q)
+    b = torch.zeros(1, 16, 16, device=dev)
+    q = torch.zeros(1, 16, 12, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        causal_attention.causal_attention_fwd(q, q, q, b.bfloat16())
+    q = torch.zeros(1, 16, 16, device=dev)
     with pytest.raises(ValueError, match="expected torch.float32"):
         causal_attention.causal_attention_fwd(q, q, q, b.half())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode", ["LSTM", "GRU"])
+def test_recurrence_at_h100_pads_to_the_kernels(dev, dtype, mode):
+    """H = 100 through the differentiable entry points: the kernels run at
+    H = 104 (LSTM) or 128 (GRU) with zero units, once forward and once
+    backward, and the sliced outputs and the gradients of every input
+    equal autograd through the unpadded plain scan."""
+    B, T, H = 3, 9, 100
+    G = 4 if mode == "LSTM" else 3
+    rng = np.random.RandomState(G)
+    xp = _rand(rng, dev, dtype, B, T, G * H)
+    w = _rand(rng, dev, dtype, G * H, H, scale=0.2)
+    extra = [_rand(rng, dev, dtype, G * H, scale=0.1)] if mode == "GRU" \
+        else []
+    states = [_rand(rng, dev, dtype, B, H, scale=0.1)
+              for _ in range(2 if mode == "LSTM" else 1)]
+    ins = [xp, w] + extra + states
+    mod = lstm if mode == "LSTM" else gru
+    fwd, bwd = (mod.lstm_fwd, mod.lstm_bwd) if mode == "LSTM" else \
+        (mod.gru_fwd, mod.gru_bwd)
+    ref = mod.lstm_scan_ref if mode == "LSTM" else mod.gru_scan_ref
+    a = [t.clone().requires_grad_() for t in ins]
+    b = [t.clone().requires_grad_() for t in ins]
+    counts = (fwd.launches, bwd.launches)
+    got = (mod.lstm if mode == "LSTM" else mod.gru)(*a)
+    want = ref(*b)
+    cts = [_rand(rng, dev, dtype, *o.shape) for o in want]
+    ga = torch.autograd.grad(got, a, cts)
+    gb = torch.autograd.grad(want, b, cts)
+    assert (fwd.launches, bwd.launches) == (counts[0] + 1, counts[1] + 1)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, **TOL[dtype])
+    for i, (g, w_) in enumerate(zip(ga, gb)):
+        _close(g, w_, BWD_REL[dtype], f"grad {i}")
+
+
+def test_python_gates_mirror_the_kernels_shared_memory(dev):
+    """The pure gates (no card needed) compute the shared memory the C
+    entry points report, for K2's backward and K3's backward."""
+    from cpc_audio_tpu_torch.ops import _build
+    lib = _build.library()
+    for S, dk in ((116, 32), (116, 64), (244, 32), (20, 16)):
+        operands = head_attention._smem(S, dk)[1]
+        for dt in DTYPES:
+            smem = lib.cpc_relpos_attention_bwd_smem(S, dk,
+                                                     _build.DTYPE_CODES[dt])
+            # the operands, and the (S, S) tiles where they fit beside them
+            assert smem == operands or operands < smem <= _build.SMEM_LIMIT
+    for D, F in ((256, 2048), (512, 2048), (64, 128), (32, 64)):
+        for dt in DTYPES:
+            assert lib.cpc_layer_tail_bwd_smem(
+                D, F, _build.DTYPE_CODES[dt]) == ffn._bwd_smem(D, F, dt)
 
 
 # ---- K6 (the heads' whole attention block) and K7 (fused conv layer) --------

@@ -1,0 +1,302 @@
+"""The port's shape gates and the shape adapters behind them, on the CPU,
+against the JAX package's own gates and paths:
+
+* each kernel module's ``supported`` over the configs users run (the
+  default, ``--hiddenEncoder 512 --hiddenGar 512``, ``--hiddenGar 100``
+  with LSTM and GRU, ``--sizeWindow 40960``): the port takes every shape
+  that JAX's Pallas gates take, and ``build_model`` / ``build_criterion``
+  build them;
+* ``build_model`` / ``build_criterion`` refusing a config the port cannot
+  take before any weight exists, with the flag named, and building the
+  fused-layer switches at --hiddenEncoder 512 where JAX's own gates fall
+  back too;
+* the K1/K4 pad-and-slice adapter at H = 100 (ops/lstm.py, ops/gru.py)
+  around the plain scans, against the unpadded plain scan and the JAX
+  package's ``lax.scan`` layer, forward and ``jax.vjp``;
+* the plain K3 at D = 512 and the plain K5 at dk = 64, S = 100 against the
+  Pallas kernels in interpret mode.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from cpc_audio_tpu.models.ar import _RecurrentLayer as JaxRecurrentLayer
+from cpc_audio_tpu.ops.pallas.attention import (_padded_len,
+                                                fused_attention_supported,
+                                                fused_causal_attention)
+from cpc_audio_tpu.ops.pallas.ffn import (fused_layer_tail,
+                                          fused_tail_supported)
+from cpc_audio_tpu.ops.pallas.conv_ln import \
+    fused_conv_supported as jax_fused_conv_supported
+from cpc_audio_tpu.ops.pallas.head_attention import \
+    attention_block_supported as jax_attention_block_supported
+from cpc_audio_tpu.ops.pallas.head_attention import \
+    relpos_attention_supported
+from cpc_audio_tpu.ops.pallas.rnn import pallas_rnn_supported
+from cpc_audio_tpu_torch.config import CPCConfig
+from cpc_audio_tpu_torch.criterion import build_criterion
+from cpc_audio_tpu_torch.models import build_model
+from cpc_audio_tpu_torch.models.ar import _RecurrentLayer
+from cpc_audio_tpu_torch.ops import (attention_block, causal_attention, ffn,
+                                     gru, head_attention, lstm)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a, np.float32))
+
+
+@pytest.fixture
+def no_fused_switches(monkeypatch):
+    for name in ("CPC_ATTN_BLOCK", "CPC_PALLAS_CONV"):
+        monkeypatch.delenv(name, raising=False)
+
+
+# ---- the gates over the configs users run -----------------------------------
+
+CONFIGS = {
+    "default": {},
+    "512 LSTM": dict(hiddenEncoder=512, hiddenGar=512),
+    "512 transformer": dict(hiddenEncoder=512, hiddenGar=512,
+                            arMode="transformer"),
+    "hiddenGar 100 LSTM": dict(hiddenGar=100),
+    "hiddenGar 100 GRU": dict(hiddenGar=100, arMode="GRU"),
+    "sizeWindow 40960": dict(sizeWindow=40960),
+    "sizeWindow 40960 transformer": dict(sizeWindow=40960,
+                                         arMode="transformer"),
+}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_gates_take_what_jax_takes(no_fused_switches, name, dtype):
+    """At batch 32: where JAX's gate runs its Pallas kernel, the port's
+    gate takes the shape; the recurrences take H = 100 (padded) where JAX
+    falls back to lax.scan.  build_model builds every config and
+    build_criterion all but --hiddenGar 100, whose transformer heads need
+    hiddenGar == hiddenEncoder (in the JAX package too)."""
+    cfg = CPCConfig(compute_dtype=dtype, **CONFIGS[name])
+    tdt = {"bfloat16": torch.bfloat16, "float32": torch.float32}[dtype]
+    B, D, H = 32, cfg.hiddenEncoder, cfg.hiddenGar
+    S_ar = cfg.sizeWindow // 160
+    S = S_ar - cfg.nPredicts
+    jax_takes, port_takes = {}, {}
+    if cfg.arMode in ("LSTM", "GRU"):
+        mod, G = (lstm, 4) if cfg.arMode == "LSTM" else (gru, 3)
+        jax_takes["rnn"] = pallas_rnn_supported(S_ar, B, G * H, H)
+        port_takes["rnn"] = mod.supported(H) is None
+    if cfg.arMode == "transformer":
+        jax_takes["K5"] = fused_attention_supported(S_ar, D // 8, B * 8)
+        port_takes["K5"] = causal_attention.supported(S_ar, D // 8,
+                                                      tdt) is None
+    jax_takes["K3"] = fused_tail_supported(B * S, D, 2048)
+    port_takes["K3"] = ffn.supported(D, 2048, tdt) is None
+    jax_takes["K2"] = relpos_attention_supported(_padded_len(S), D // 8, 8,
+                                                 B)
+    port_takes["K2"] = head_attention.supported(S, D // 8) is None
+    # the port takes every one of these shapes, where JAX's Pallas gate
+    # does and where it falls back to jnp or lax.scan
+    assert all(port_takes.values()), (port_takes, jax_takes)
+    model = build_model(cfg)
+    if H != D and cfg.arMode not in ("transformer", "no_ar"):
+        with pytest.raises(ValueError, match="--hiddenGar"):
+            build_criterion(model.config)
+    else:
+        build_criterion(model.config)
+
+
+REFUSED = [
+    ("model", dict(arMode="transformer", hiddenEncoder=2048,
+                   hiddenGar=2048), {}, "--hiddenEncoder 2048"),
+    ("model", dict(arMode="transformer", sizeWindow=163840), {},
+     "--sizeWindow 163840"),
+    ("model", dict(hiddenGar=4096), {}, "--hiddenGar 4096"),
+    ("criterion", dict(hiddenGar=100), {}, "--hiddenGar 100"),
+    ("criterion", dict(hiddenEncoder=544, hiddenGar=544), {},
+     "--hiddenEncoder 544"),
+    ("criterion", dict(hiddenEncoder=512, hiddenGar=512, sizeWindow=40960),
+     {}, "--sizeWindow 40960 / --hiddenEncoder 512"),
+]
+
+
+@pytest.mark.parametrize("builder,kw,env,flag", REFUSED,
+                         ids=[r[3] for r in REFUSED])
+def test_builders_refuse_with_the_flag(monkeypatch, builder, kw, env, flag):
+    """A config the port's kernels cannot take raises ValueError naming
+    its flag, from build_model or build_criterion, before any weight or
+    step exists; no plain version runs in its place."""
+    for name in ("CPC_ATTN_BLOCK", "CPC_PALLAS_CONV"):
+        monkeypatch.setenv(name, env.get(name, "0"))
+    cfg = CPCConfig(**kw)
+    build = build_model if builder == "model" else build_criterion
+    with pytest.raises(ValueError, match=flag):
+        build(cfg)
+
+
+def test_fused_switches_at_512_follow_jax_gates(monkeypatch):
+    """Under CPC_ATTN_BLOCK=1 and CPC_PALLAS_CONV=1 at --hiddenEncoder 512
+    JAX's gates take neither the whole-block kernel nor the fused conv
+    layers (its jnp / XLA paths run); the port's gates refuse them too, so
+    the builders build, the heads run K2 and the encoder cuDNN, as
+    without the switches."""
+    monkeypatch.setenv("CPC_ATTN_BLOCK", "1")
+    monkeypatch.setenv("CPC_PALLAS_CONV", "1")
+    cfg = CPCConfig(hiddenEncoder=512, hiddenGar=512)
+    T, S = cfg.sizeWindow // 5, cfg.sizeWindow // 160 - cfg.nPredicts
+    assert not jax_attention_block_supported(_padded_len(S), 64, 8, 32, 12)
+    assert not jax_fused_conv_supported(T, 512, 8, 4, 2)
+    model = build_model(cfg)
+    assert model.gEncoder.fused_layers(cfg.sizeWindow) == ()
+    crit = build_criterion(model.config)
+    assert not attention_block.attention_block_supported(S, 8, 64)
+    assert crit.wPrediction.heads.layer0.multihead.attention_block
+
+
+def test_transformer_heads_need_hidden_gar_equal_in_jax_too():
+    """The port's build_criterion refuses --hiddenGar != --hiddenEncoder
+    (the transformer prediction heads read hiddenGar-wide contexts into
+    hiddenEncoder-wide layers); the JAX criterion cannot take it either."""
+    from cpc_audio_tpu.criterion.infonce import \
+        CPCUnsupervisedCriterion as JaxCriterion
+    crit = JaxCriterion(n_predicts=2, dim_output_ar=100,
+                        dim_output_encoder=64, negative_sampling_ext=4,
+                        size_input_seq=16)
+    keys = {n: jax.random.PRNGKey(i)
+            for i, n in enumerate(("params", "sampling", "dropout"))}
+    with pytest.raises(TypeError):
+        crit.init(keys, jnp.zeros((2, 16, 100)), jnp.zeros((2, 16, 64)))
+    with pytest.raises(ValueError, match="--hiddenGar 100"):
+        build_criterion(CPCConfig(hiddenGar=100, hiddenEncoder=64))
+
+
+# ---- K1 / K4 at any H: the pad-and-slice adapter -----------------------------
+
+@pytest.mark.parametrize("mode", ["LSTM", "GRU"])
+def test_recurrence_padded_to_the_kernels_width_at_h100(monkeypatch, mode):
+    """H = 100 runs at H = 104 (LSTM) or 128 (GRU) with zero units and is
+    sliced back: forward and gradients equal the unpadded plain scan, and
+    the JAX package's lax.scan layer (CPC_PALLAS_RNN=0) with jax.vjp, on
+    every input and weight."""
+    monkeypatch.setenv("CPC_PALLAS_RNN", "0")
+    B, T, C, H = 2, 6, 16, 100
+    G = 4 if mode == "LSTM" else 3
+    rng = np.random.RandomState(G)
+    w_ih = rng.randn(G * H, C) * 0.2
+    w_hh = rng.randn(G * H, H) * 0.1
+    b_ih, b_hh = rng.randn(G * H) * 0.1, rng.randn(G * H) * 0.1
+    x = rng.randn(B, T, C)
+    h0s = [rng.randn(B, H) * 0.1 for _ in range(2 if mode == "LSTM" else 1)]
+    dys, dhT = rng.randn(B, T, H), rng.randn(B, H)
+    layer = _RecurrentLayer(C, H, mode, None)
+    with torch.no_grad():
+        for n, a in (("weight_ih", w_ih), ("weight_hh", w_hh),
+                     ("bias_ih", b_ih), ("bias_hh", b_hh)):
+            getattr(layer, n).copy_(_t(a))
+    xt = _t(x).requires_grad_()
+    ht = [_t(h).requires_grad_() for h in h0s]
+    ys, hid = layer(xt, tuple(ht) if mode == "LSTM" else ht[0])
+    hT = hid[0] if mode == "LSTM" else hid
+    leaves = [xt, *ht, layer.weight_ih, layer.weight_hh, layer.bias_ih,
+              layer.bias_hh]
+    grads = torch.autograd.grad((ys * _t(dys)).sum() + (hT * _t(dhT)).sum(),
+                                leaves)
+
+    # the unpadded plain scan on the same projection
+    xs = [t.detach().clone().requires_grad_() for t in leaves]
+    xp = xs[0] @ xs[-4].t() + xs[-2]
+    if mode == "LSTM":
+        ys_r, hT_r, _ = lstm.lstm_scan_ref(xp + xs[-1], xs[-3], xs[1], xs[2])
+    else:
+        ys_r, hT_r = gru.gru_scan_ref(xp, xs[-3], xs[-1], xs[1])
+    grads_r = torch.autograd.grad((ys_r * _t(dys)).sum()
+                                  + (hT_r * _t(dhT)).sum(), xs)
+    # f32 both sides; the padded product adds exact zeros, summed in
+    # another blocking
+    torch.testing.assert_close(ys, ys_r, atol=1e-5, rtol=1e-5)
+    for g, w in zip(grads, grads_r):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+
+    params = {"weight_ih_t": jnp.asarray(w_ih.T, jnp.float32),
+              "weight_hh_t": jnp.asarray(w_hh.T, jnp.float32),
+              "bias_ih": jnp.asarray(b_ih, jnp.float32),
+              "bias_hh": jnp.asarray(b_hh, jnp.float32)}
+    jlayer = JaxRecurrentLayer(H, mode)
+
+    def run(p, x, *h0):
+        ys, hid = jlayer.apply({"params": p}, x,
+                               tuple(h0) if mode == "LSTM" else h0[0])
+        return ys, (hid[0] if mode == "LSTM" else hid)
+
+    (ys_j, hT_j), vjp = jax.vjp(run, params, jnp.asarray(x, jnp.float32),
+                                *(jnp.asarray(h, jnp.float32) for h in h0s))
+    gp, gx, *gh = vjp((jnp.asarray(dys, jnp.float32),
+                       jnp.asarray(dhT, jnp.float32)))
+    # f32 both sides; lax.scan's products in another order over 6 steps
+    np.testing.assert_allclose(ys.detach().numpy(), np.asarray(ys_j),
+                               atol=2e-5)
+    np.testing.assert_allclose(hT.detach().numpy(), np.asarray(hT_j),
+                               atol=2e-5)
+    want = [gx, *gh, np.asarray(gp["weight_ih_t"]).T,
+            np.asarray(gp["weight_hh_t"]).T, gp["bias_ih"], gp["bias_hh"]]
+    for g, w in zip(grads, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=5e-5)
+
+
+# ---- K3 at D = 512 and K5 at dk = 64 against the Pallas kernels --------------
+
+def test_layer_tail_ref_at_512_matches_pallas_interpret():
+    """The plain K3 at the --hiddenEncoder 512 width, forward and vjp,
+    against fused_layer_tail in interpret mode, float32."""
+    K, M, D, F = 1, 16, 512, 2048
+    rng = np.random.RandomState(512)
+    args = [a.astype(np.float32) for a in (
+        rng.randn(K, M, D) * 0.5, 1.0 + 0.1 * rng.randn(K, D),
+        0.1 * rng.randn(K, D), rng.randn(K, D, F) / np.sqrt(D),
+        0.1 * rng.randn(K, F), rng.randn(K, F, D) / np.sqrt(F),
+        0.1 * rng.randn(K, D), 1.0 + 0.1 * rng.randn(K, D),
+        0.1 * rng.randn(K, D))]
+    dout = rng.randn(K, M, D).astype(np.float32)
+    seed = jnp.zeros((1,), jnp.float32)
+    out_j, vjp = jax.vjp(
+        lambda *a: fused_layer_tail(*a, seed, 0.0, 1e-5, True),
+        *map(jnp.asarray, args))
+    grads_j = vjp(jnp.asarray(dout))
+    out = ffn.layer_tail_ref(*map(_t, args))
+    # f32 both sides; 512- and 2048-long sums in another order
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_j), atol=5e-5,
+                               rtol=1e-5)
+    grads = ffn.layer_tail_bwd_ref(*map(_t, args), _t(dout))
+    names = ("dx", "dln1w", "dln1b", "dw1", "db1", "dw2", "db2", "dln2w",
+             "dln2b")
+    for name, g, w in zip(names, grads, grads_j):
+        w = np.asarray(w)
+        np.testing.assert_allclose(
+            g.numpy(), w, atol=1e-4 * max(np.abs(w).max(), 1.0),
+            err_msg=name)
+
+
+def test_causal_attention_ref_at_dk64_matches_pallas_interpret():
+    """The plain K5 at the --hiddenGar 512 head width (dk 64) and a ragged
+    S = 100 (padded to 128 inside the JAX kernel), forward and vjp at
+    rate 0, against fused_causal_attention in interpret mode."""
+    N, S, dk = 8, 100, 64
+    rng = np.random.RandomState(64)
+    q, k, v = (rng.randn(N, S, dk).astype(np.float32) for _ in range(3))
+    bias = (rng.randn(N, S, S) * 0.5).astype(np.float32)
+    dout = rng.randn(N, S, dk).astype(np.float32)
+    seed = jnp.zeros((1,), jnp.float32)
+    out_j, vjp = jax.vjp(
+        lambda *a: fused_causal_attention(*a, seed, 0.0, True),
+        *(jnp.asarray(a) for a in (q, k, v, bias)))
+    grads_j = vjp(jnp.asarray(dout))
+    out = causal_attention.causal_attention_ref(*map(_t, (q, k, v, bias)))
+    # f32 both sides; softmax and 64-long sums in another order
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_j), atol=2e-5)
+    grads = causal_attention.causal_attention_bwd_ref(
+        *map(_t, (q, k, v, bias)), _t(dout))
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), grads, grads_j):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=5e-5,
+                                   err_msg=name)
