@@ -16,12 +16,15 @@ Phases (any failure exits non-zero):
      plain version, and compute its bound (bytes over the memory rate or
      operations over the peak rate, whichever is larger); K5 and K3 also
      at the widths of --hiddenEncoder 512 --hiddenGar 512 (dk 64, D 512,
-     bf16); K8 also with all keys on one row (bf16), and the time of its
-     whole wrapper (sort + searchsorted + K8); then time the yardstick
-     PyTorch call where one computes the same function (cuDNN LSTM/GRU,
-     scaled_dot_product_attention, index_add_), K5 at rate 0 beside
-     SDPA, and for K7 the port's unfused encoder layers (cuDNN conv +
-     ChannelNorm + ReLU, a composition, not one call);
+     bf16), K2 at those of --sizeWindow 40960 --hiddenEncoder 512 (S 244,
+     dk 64, both dtypes); K8 also with all keys on one row (bf16), and the
+     time of its whole wrapper (sort + searchsorted + K8); then time the
+     yardstick PyTorch call where one computes the same function (cuDNN
+     LSTM/GRU, scaled_dot_product_attention, index_add_), K1's and K4's
+     backward beside cuDNN's in both dtypes and the port's whole LSTM and
+     GRU layers beside cuDNN's, in turns, K5 at rate 0 beside SDPA, and
+     for K7 the port's unfused encoder layers (cuDNN conv + ChannelNorm +
+     ReLU, a composition, not one call);
   4. the eval path at full width, for --arMode LSTM (the default), GRU
      and transformer, and the fused-layer path (LSTM with CPC_ATTN_BLOCK=1
      and CPC_PALLAS_CONV=1: K6 in the heads, K7 in encoder layers 1-4):
@@ -35,13 +38,16 @@ Phases (any failure exits non-zero):
      features; then the default config at B = 24, where
      negativeSamplingMode auto resolves to the exact sampler;
   5. the train paths, LSTM, GRU, transformer, the fused-layer path, the
-     exact sampler on LSTM (negativeSamplingMode exact), then the
-     transformer at --hiddenEncoder 512 --hiddenGar 512:
+     exact sampler on LSTM (negativeSamplingMode exact), the transformer
+     at --hiddenEncoder 512 --hiddenGar 512, then LSTM at --sizeWindow
+     40960 --hiddenEncoder 512 --hiddenGar 512 (B = 8, K2 at S 244):
      make_train_step at the same config (bf16, B = 32, dropout 0.1 in the
      heads and the transformer AR), 2 warm-up and 10 timed steps on a
      fixed batch; the launch counts of the path's kernels must rise (on
      the fused path K6 once and K7 four times a step, K2 never; on the
-     exact path K8 once a step), the losses must be finite and fall;
+     exact path K8 once a step; on the long-window path K2 once a step),
+     K1's and K4's backward must run their cluster body at hiddenGar 256
+     (and the rows body at 512), the losses must be finite and fall;
      prints train windows/s and the step's device time by kernel
      (torch.profiler); then one float32 step on a (2, 1, 20480) batch on
      the card and on the CPU (same weights, round keys, negatives' seed
@@ -234,17 +240,8 @@ def kernel_cases(dev: torch.device, dtype: torch.dtype, B: int = 32):
 
     seed = torch.tensor([SEED], dtype=torch.int64, device=dev)
     T, H = 128, 256
-    lstm_args = (rand(B, T, 4 * H), rand(4 * H, H, scale=H ** -0.5),
-                 rand(B, H, scale=0.1), rand(B, H, scale=0.1))
-    gates, cs = lstm.lstm_scan_ref(*lstm_args, save_residuals=True)[3:]
-    zeros = torch.zeros(B, H, device=dev)      # the carry is not trained
-    lstm_bwd_args = (gates, cs, lstm_args[3], rand(B, T, H, scale=0.1),
-                     lstm_args[1], zeros, zeros)
-    gru_args = (rand(B, T, 3 * H), rand(3 * H, H, scale=H ** -0.5),
-                rand(3 * H, scale=0.1), rand(B, H, scale=0.1))
-    ys, _, ggates, ghn = gru.gru_scan_ref(*gru_args, save_residuals=True)
-    gru_bwd_args = (ggates, ghn, gru_args[3], ys, rand(B, T, H, scale=0.1),
-                    gru_args[1], zeros)
+    lstm_args, lstm_bwd_args, gru_args, gru_bwd_args = recurrent_args(
+        rand, dev, B)
     K, S, nh, dk = 12, 116, 8, 32
     D, F, M = nh * dk, 2048, B * S
     attn_args = (rand(K, M, D), rand(K, M, D), rand(K, M, D),
@@ -372,6 +369,7 @@ def kernel_cases(dev: torch.device, dtype: torch.dtype, B: int = 32):
         # bf16, the train dtype; the float32 bodies at these widths are held
         # by the float32 train step below and tests/test_torch_cuda.py
         cases += wide_cases(rand, seed, B)
+    cases += long_cases(rand, dev, seed)
     upd, keys, order, offsets, R = scatter_inputs(dev, dtype, B)
     cases.append(Case("scatter_add_rows", 0.0,
                       lambda: sa.scatter_add_sorted(upd, order, offsets),
@@ -389,38 +387,77 @@ def kernel_cases(dev: torch.device, dtype: torch.dtype, B: int = 32):
     return cases
 
 
-def wide_cases(rand, seed, B: int = 32):
-    """K5 and K3 at rate 0.1 (the train step's) at the widths of
-    --hiddenEncoder 512 --hiddenGar 512: the transformer AR's N = B*8
-    rows of S = 128 with dk = 64, the heads' K = 12, M = B*116, D = 512,
-    F = 2048."""
-    from cpc_audio_tpu_torch.ops import causal_attention as ca, ffn
+def recurrent_args(rand, dev: torch.device, B: int = 32, T: int = 128,
+                   H: int = 256):
+    """Inputs of K1 and K4 at the train shapes, forward and backward; the
+    backward's from the plain forward (residuals)."""
+    from cpc_audio_tpu_torch.ops import gru, lstm
+    lstm_args = (rand(B, T, 4 * H), rand(4 * H, H, scale=H ** -0.5),
+                 rand(B, H, scale=0.1), rand(B, H, scale=0.1))
+    gates, cs = lstm.lstm_scan_ref(*lstm_args, save_residuals=True)[3:]
+    zeros = torch.zeros(B, H, device=dev)      # the carry is not trained
+    lstm_bwd_args = (gates, cs, lstm_args[3], rand(B, T, H, scale=0.1),
+                     lstm_args[1], zeros, zeros)
+    gru_args = (rand(B, T, 3 * H), rand(3 * H, H, scale=H ** -0.5),
+                rand(3 * H, scale=0.1), rand(B, H, scale=0.1))
+    ys, _, ggates, ghn = gru.gru_scan_ref(*gru_args, save_residuals=True)
+    gru_bwd_args = (ggates, ghn, gru_args[3], ys, rand(B, T, H, scale=0.1),
+                    gru_args[1], zeros)
+    return lstm_args, lstm_bwd_args, gru_args, gru_bwd_args
+
+
+def long_cases(rand, dev: torch.device, seed, B: int = 8):
+    """The kernels of the --sizeWindow 40960 --hiddenEncoder 512
+    --hiddenGar 512 LSTM path at its train step's shapes, batch B (the
+    train phase's): K2 at rate 0.1 with K = 12, S = 244 anchors, 8 heads x
+    dk 64 (its bf16 operands are staged in bf16, float32 ones read in
+    place); K1 at T = 256 frames, H = 512 (the backward's rows body); K3
+    at M = B*244, D = 512."""
+    from cpc_audio_tpu_torch.ops import head_attention as ha, lstm
+    K, S, nh, dk = 12, 244, 8, 64
+    M, D = B * S, nh * dk
+    args = (rand(K, M, D), rand(K, M, D), rand(K, M, D),
+            rand(K, dk, S, scale=0.5))
+    dout = rand(K, M, D, scale=0.1)
+    pairs = K * B * nh * S * (S + 1) // 2
+    r, tag = 0.1, "S 244 / dk 64"
+    T, H = 256, 512
+    lstm_args, lstm_bwd_args = recurrent_args(rand, dev, B, T, H)[:2]
+    rnn_tag = f"B {B} / T {T} / H {H}"
+    return [
+        Case("relpos_attention_fwd", r,
+             lambda: ha.relpos_attention_fwd(*args, B, nh, r, seed),
+             lambda: ha.relpos_attention_ref(*args, B, nh, r, seed), args,
+             6 * dk * pairs, shape=tag),
+        Case("relpos_attention_bwd", r,
+             lambda: ha.relpos_attention_bwd(*args, dout, B, nh, r, seed),
+             lambda: ha.relpos_attention_bwd_ref(*args, dout, B, nh, r,
+                                                 seed),
+             args + (dout,), 16 * dk * pairs, shape=tag),
+        Case("lstm_fwd", 0.0,
+             lambda: lstm.lstm_fwd(*lstm_args, save_residuals=True),
+             lambda: lstm.lstm_scan_ref(*lstm_args, save_residuals=True),
+             lstm_args, 2 * B * T * 4 * H * H, shape=rnn_tag),
+        Case("lstm_bwd", 0.0, lambda: lstm.lstm_bwd(*lstm_bwd_args),
+             lambda: lstm.lstm_bwd_ref(*lstm_bwd_args), lstm_bwd_args,
+             2 * B * T * 4 * H * H, shape=rnn_tag)] + \
+        tail_cases(rand, seed, M, D, f"M {M} / D {D}")
+
+
+def tail_cases(rand, seed, M: int, D: int, tag: str, K: int = 12,
+               F: int = 2048):
+    """K3 forward and backward at rate 0.1 (the train step's) on K heads
+    of (M, D) rows with FFN width F."""
+    from cpc_audio_tpu_torch.ops import ffn
     f32 = torch.float32
-    N, S, dk = B * 8, 128, 64
-    args = (rand(N, S, dk), rand(N, S, dk), rand(N, S, dk),
-            rand(N, S, S, scale=0.5))
-    dout = rand(N, S, dk, scale=0.1)
-    pairs = N * S * (S + 1) // 2
-    elt = args[0].element_size()
-    read = (3 * N * S * dk + pairs) * elt
-    K, M, D, F = 12, B * 116, 512, 2048
     tail = (rand(K, M, D), rand(K, D, scale=0.1, dt=f32) + 1,
             rand(K, D, scale=0.1, dt=f32), rand(K, D, F, scale=D ** -0.5),
             rand(K, F, scale=0.1, dt=f32), rand(K, F, D, scale=F ** -0.5),
             rand(K, D, scale=0.1, dt=f32),
             rand(K, D, scale=0.1, dt=f32) + 1, rand(K, D, scale=0.1, dt=f32))
     tail_dout = rand(K, M, D, scale=0.1)
-    r, tag = 0.1, "dk 64 / D 512"
+    r = 0.1
     return [
-        Case("causal_attention_fwd", r,
-             lambda: ca.causal_attention_fwd(*args, r, seed),
-             lambda: ca.causal_attention_ref(*args, r, seed), args,
-             4 * dk * pairs, read, shape=tag),
-        Case("causal_attention_bwd", r,
-             lambda: ca.causal_attention_bwd(*args, dout, r, seed),
-             lambda: ca.causal_attention_bwd_ref(*args, dout, r, seed),
-             args + (dout,), 10 * dk * pairs,
-             read + dout.numel() * elt, shape=tag),
         Case("layer_tail_fwd", r,
              lambda: ffn.layer_tail_fwd(*tail, r, 1e-5, seed),
              lambda: ffn.layer_tail_ref(*tail, 1e-5, r, seed), tail,
@@ -429,6 +466,34 @@ def wide_cases(rand, seed, B: int = 32):
              lambda: ffn.layer_tail_bwd(*tail, tail_dout, r, 1e-5, seed),
              lambda: ffn.layer_tail_bwd_ref(*tail, tail_dout, 1e-5, r, seed),
              tail + (tail_dout,), 6 * 2 * K * M * D * F, shape=tag)]
+
+
+def wide_cases(rand, seed, B: int = 32):
+    """K5 and K3 at rate 0.1 (the train step's) at the widths of
+    --hiddenEncoder 512 --hiddenGar 512: the transformer AR's N = B*8
+    rows of S = 128 with dk = 64, the heads' K = 12, M = B*116, D = 512,
+    F = 2048."""
+    from cpc_audio_tpu_torch.ops import causal_attention as ca
+    N, S, dk = B * 8, 128, 64
+    args = (rand(N, S, dk), rand(N, S, dk), rand(N, S, dk),
+            rand(N, S, S, scale=0.5))
+    dout = rand(N, S, dk, scale=0.1)
+    pairs = N * S * (S + 1) // 2
+    elt = args[0].element_size()
+    read = (3 * N * S * dk + pairs) * elt
+    r, tag = 0.1, "dk 64 / D 512"
+    cases = [
+        Case("causal_attention_fwd", r,
+             lambda: ca.causal_attention_fwd(*args, r, seed),
+             lambda: ca.causal_attention_ref(*args, r, seed), args,
+             4 * dk * pairs, read, shape=tag),
+        Case("causal_attention_bwd", r,
+             lambda: ca.causal_attention_bwd(*args, dout, r, seed),
+             lambda: ca.causal_attention_bwd_ref(*args, dout, r, seed),
+             args + (dout,), 10 * dk * pairs,
+             read + dout.numel() * elt, shape=tag)]
+    # drawn after K5's inputs, as they always were
+    return cases + tail_cases(rand, seed, B * 116, 512, tag)
 
 
 def scatter_inputs(dev: torch.device, dtype: torch.dtype, B: int = 32):
@@ -635,22 +700,13 @@ def library_calls(dev: torch.device, dtype: torch.dtype, B: int = 32):
         t = (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
         return t.requires_grad_(grad)
 
-    T, C = 128, 256
     calls = {}
-    for kind, cls in (("lstm", torch.nn.LSTM), ("gru", torch.nn.GRU)):
-        layer = cls(C, C, batch_first=True).to(dev, dtype)
-        layer.flatten_parameters()       # one weight buffer, as cuDNN wants
-        x = rand(B, T, C, grad=True)
-        y, _ = layer(x)
-        dy = rand(B, T, C, scale=0.1)
-        leaves = [x] + list(layer.parameters())
-        calls[f"{kind}_fwd"] = (lambda lay=layer, x=x: lay(x),
-                                f"cuDNN nn.{cls.__name__} forward "
-                                f"(training), input projection included")
-        calls[f"{kind}_bwd"] = (
-            lambda y=y, dy=dy, leaves=leaves: torch.autograd.grad(
-                y, leaves, dy, retain_graph=True),
-            f"autograd backward of cuDNN nn.{cls.__name__}, dx and dW")
+    for kind in ("lstm", "gru"):
+        fwd, bwd, cls = cudnn_layer(dev, dtype, kind, g, B)
+        calls[f"{kind}_fwd"] = (fwd, f"cuDNN nn.{cls} forward (training), "
+                                     f"input projection included")
+        calls[f"{kind}_bwd"] = (bwd, f"autograd backward of cuDNN nn.{cls}, "
+                                     f"dx and dW")
     S, dk, nh = 128, 32, 8
     q, k, v = (rand(B, nh, S, dk, grad=True) for _ in range(3))
     causal = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
@@ -676,6 +732,81 @@ def library_calls(dev: torch.device, dtype: torch.dtype, B: int = 32):
         "torch.zeros(R, C).index_add_(0, keys, updates.float()), float32 "
         "atomics")
     return calls
+
+
+def cudnn_layer(dev: torch.device, dtype: torch.dtype, kind: str,
+                g: torch.Generator, B: int = 32, T: int = 128, C: int = 256):
+    """cuDNN's whole one-layer nn.LSTM / nn.GRU ("lstm" / "gru") on x (B,
+    T, C) in ``dtype``: (forward call, backward call forming dx and dW,
+    class name), timed as a yardstick only."""
+    cls = torch.nn.LSTM if kind == "lstm" else torch.nn.GRU
+    layer = cls(C, C, batch_first=True).to(dev, dtype)
+    layer.flatten_parameters()           # one weight buffer, as cuDNN wants
+    x = (torch.randn((B, T, C), generator=g, device=dev)).to(dtype) \
+        .requires_grad_(True)
+    y, _ = layer(x)
+    dy = (torch.randn((B, T, C), generator=g, device=dev) * 0.1).to(dtype)
+    leaves = [x] + list(layer.parameters())
+    return (lambda: layer(x),
+            lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True),
+            cls.__name__)
+
+
+def recurrent_against_cudnn(dev: torch.device, B: int = 32) -> None:
+    """K1's and K4's backward beside cuDNN's whole layer backward (which
+    also forms dx and dW), in bf16 and float32, in one call and in turns
+    (kernel, cuDNN, cuDNN, kernel; device time a call, median_ms); then
+    the port's whole recurrent layer (F.linear + K1/K4, autograd with dW)
+    beside cuDNN's layer, forward and backward, in turns."""
+    from cpc_audio_tpu_torch.models.ar import CPCAR
+    from cpc_audio_tpu_torch.ops import gru, lstm
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device=dev).manual_seed(SEED + 11)
+
+        def rand(*shape, scale=1.0):
+            return (torch.randn(shape, generator=g, device=dev)
+                    * scale).to(dtype)
+        _, lstm_bwd_args, _, gru_bwd_args = recurrent_args(rand, dev, B)
+        for kind, kernel, args, mod in (
+                ("lstm", lstm.lstm_bwd, lstm_bwd_args, lstm),
+                ("gru", gru.gru_bwd, gru_bwd_args, gru)):
+            _, cudnn_bwd, cls = cudnn_layer(dev, dtype, kind, g, B)
+            t = {"kernel": [], "cudnn": []}
+            for who in ("kernel", "cudnn", "cudnn", "kernel"):
+                t[who].append(median_ms(
+                    (lambda: kernel(*args)) if who == "kernel" else cudnn_bwd))
+            k_ms, c_ms = (statistics.mean(t[w]) for w in ("kernel", "cudnn"))
+            print(f"  {kind}_bwd vs cuDNN, {str(dtype)[6:]}, in turns "
+                  f"(B {B}, T 128, H 256; {mod.bwd_body(256, dtype)} body): "
+                  f"kernel {t['kernel'][0]:.4f} / {t['kernel'][1]:.4f} ms, "
+                  f"cuDNN nn.{cls} backward {t['cudnn'][0]:.4f} / "
+                  f"{t['cudnn'][1]:.4f} ms; kernel / cuDNN {k_ms / c_ms:.3f}",
+                  flush=True)
+        torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    x = torch.randn((B, 128, 256), generator=g, device=dev).to(
+        torch.bfloat16).requires_grad_(True)
+    for mode in ("LSTM", "GRU"):
+        ar = CPCAR(256, 256, 1, mode).to(dev)
+        y, _ = ar(x)
+        dy = torch.randn_like(y) * 0.1
+        leaves = [x] + list(ar.parameters())
+        port = (lambda: ar(x), lambda: torch.autograd.grad(
+            y, leaves, dy, retain_graph=True))
+        cudnn = cudnn_layer(dev, torch.bfloat16, mode.lower(), g, B)
+        t = {"port": [[], []], "cudnn": [[], []]}
+        for who in ("port", "cudnn", "cudnn", "port"):
+            calls = port if who == "port" else cudnn
+            for i in (0, 1):
+                t[who][i].append(median_ms(calls[i]))
+        print(f"  port {mode} layer (F.linear + kernel, autograd with dW) vs "
+              f"cuDNN nn.{cudnn[2]}, bf16, B {B}, T 128, 256 -> 256, in "
+              f"turns: forward port {t['port'][0][0]:.4f} / "
+              f"{t['port'][0][1]:.4f} ms, cuDNN {t['cudnn'][0][0]:.4f} / "
+              f"{t['cudnn'][0][1]:.4f} ms; backward port "
+              f"{t['port'][1][0]:.4f} / {t['port'][1][1]:.4f} ms, cuDNN "
+              f"{t['cudnn'][1][0]:.4f} / {t['cudnn'][1][1]:.4f} ms",
+              flush=True)
 
 
 def phase_kernels(dev: torch.device, B: int = 32) -> dict:
@@ -741,7 +872,7 @@ def phase_kernels(dev: torch.device, B: int = 32) -> dict:
     for name in ("conv_ln_fwd", "conv_ln_bwd"):
         print(f"  {name}: none (no single call does conv + ChannelNorm + "
               f"ReLU; the composition is timed below)", flush=True)
-    port_layer_times(dev, B)
+    recurrent_against_cudnn(dev, B)
     conv_composition_times(dev, timings=results, B=B)
     scatter_wrapper_times(dev, results, B)
     torch.cuda.empty_cache()
@@ -789,24 +920,6 @@ def scatter_wrapper_times(dev: torch.device, timings: dict,
               f"{sort_ms:.4f} ms); K8 alone, bf16: "
               f"{timings['scatter_add_rows']['ms']:.4f} ms; J = "
               f"{keys.shape[0]}, R = {R}", flush=True)
-
-
-def port_layer_times(dev: torch.device, B: int = 32) -> None:
-    """The port's own recurrent layers (F.linear + kernel) on the cuDNN
-    yardstick's input, forward and backward, bf16."""
-    from cpc_audio_tpu_torch.models.ar import CPCAR
-    x = (torch.randn(B, 128, 256, device=dev) * 1.0).to(torch.bfloat16)
-    for mode in ("LSTM", "GRU"):
-        ar = CPCAR(256, 256, 1, mode).to(dev)
-        x.requires_grad_(True)
-        y, _ = ar(x)
-        dy = torch.randn_like(y) * 0.1
-        leaves = [x] + list(ar.parameters())
-        fwd = median_ms(lambda: ar(x))
-        bwd = median_ms(lambda: torch.autograd.grad(y, leaves, dy,
-                                                    retain_graph=True))
-        print(f"  port {mode} layer (F.linear + kernel, autograd): forward "
-              f"{fwd:.4f} ms, backward with dW {bwd:.4f} ms", flush=True)
 
 
 def conv_composition_times(dev: torch.device, timings: dict,
@@ -874,6 +987,7 @@ HEADS = ("relpos_attention_fwd", "relpos_attention_bwd", "layer_tail_fwd",
 FUSED = "LSTM fused"
 EXACT = "LSTM exact"
 WIDE = "transformer 512"          # --hiddenEncoder 512 --hiddenGar 512
+LONG = "LSTM 40960/512"      # --sizeWindow 40960 --hiddenEncoder 512 ..
 PATH_KERNELS = {"LSTM": ("lstm_fwd", "lstm_bwd") + HEADS,
                 "GRU": ("gru_fwd", "gru_bwd") + HEADS,
                 "transformer": ("causal_attention_fwd",
@@ -884,23 +998,43 @@ PATH_KERNELS = {"LSTM": ("lstm_fwd", "lstm_bwd") + HEADS,
                 EXACT: ("lstm_fwd", "lstm_bwd") + HEADS
                 + ("scatter_add_rows",),
                 WIDE: ("causal_attention_fwd", "causal_attention_bwd")
-                + HEADS}
+                + HEADS,
+                LONG: ("lstm_fwd", "lstm_bwd") + HEADS}
 # CPCConfig fields a path sets beside arMode
 PATH_CONFIG = {EXACT: {"negativeSamplingMode": "exact"},
-               WIDE: {"hiddenEncoder": 512, "hiddenGar": 512}}
+               WIDE: {"hiddenEncoder": 512, "hiddenGar": 512},
+               LONG: {"sizeWindow": 40960, "hiddenEncoder": 512,
+                      "hiddenGar": 512}}
+# the body the AR's backward kernel (K1, K4) must run on a path: the
+# cluster body at hiddenGar 256 (and 128), the rows body at 512
+BWD_BODY = {"LSTM": "cluster", "GRU": "cluster", FUSED: "cluster",
+            EXACT: "cluster", LONG: "rows"}
 # launches a step, where a path fixes them: on the fused path K2 must not
 # run at all; on the exact path K8 runs once, in the backward
 PER_STEP = {FUSED: {"attention_block_fwd": 1, "attention_block_bwd": 1,
                     "conv_ln_fwd": 4, "conv_ln_bwd": 4,
                     "relpos_attention_fwd": 0, "relpos_attention_bwd": 0},
-            EXACT: {"scatter_add_rows": 1}}
+            EXACT: {"scatter_add_rows": 1},
+            LONG: {"relpos_attention_fwd": 1, "relpos_attention_bwd": 1}}
 
 
 def reset_counts() -> dict:
     fns = counters()
     for fn in fns.values():
         fn.launches = 0
+        for body in getattr(fn, "body_launches", {}):
+            fn.body_launches[body] = 0
     return fns
+
+
+def check_body(fns: dict, path: str, steps: int, want: str) -> None:
+    """The AR's backward kernel ran body ``want`` (BWD_BODY) ``steps``
+    times since reset_counts, and no other body."""
+    name = "lstm_bwd" if path.startswith("LSTM") else "gru_bwd"
+    got = dict(fns[name].body_launches)
+    print(f"{path}: {name} launches by body {got}", flush=True)
+    if got[want] != steps or sum(got.values()) != steps:
+        fail(f"the {path} ran {name}'s bodies {got}, not {want} x {steps}")
 
 
 def read_counts(fns: dict, path: str, names, steps: int = 0,
@@ -1109,6 +1243,8 @@ def phase_train(dev: torch.device, path: str = "LSTM",
         losses.append(metrics["losses"])
     launches = read_counts(fns, f"{path} train step", PATH_KERNELS[path],
                            12, PER_STEP.get(path))
+    if path in BWD_BODY:
+        check_body(fns, path, 12, BWD_BODY[path])
 
     per_step = torch.stack(losses).float().cpu()          # (12, K)
     if tuple(per_step.shape) != (12, cfg.nPredicts) or \
@@ -1237,6 +1373,7 @@ def phase_narrow_gru(dev: torch.device, B: int = 8, steps: int = 4,
     read_counts(fns, f"GRU --hiddenGar {H} model step", ("gru_fwd",
                                                           "gru_bwd"),
                 steps, {"gru_fwd": 1, "gru_bwd": 1})
+    check_body(fns, f"GRU --hiddenGar {H}", steps, "cluster")
     print(f"GRU --hiddenGar {H} model train steps (B={B}, bf16, K4 at H "
           f"padded to 128): losses {[round(v, 6) for v in losses]}",
           flush=True)
@@ -1352,8 +1489,8 @@ def profile_train(step, batch, key, step_ms: float, path: str,
 
 # kernel-name fragments (lower case) of the profile's groups, first match
 PROFILE_GROUPS = (
-    ("port kernels", ("lstm_fwd_kernel", "lstm_bwd_kernel", "gru_fwd_kernel",
-                      "gru_bwd_kernel", "relpos_attention",
+    ("port kernels", ("lstm_fwd_kernel", "lstm_bwd", "gru_fwd_kernel",
+                      "gru_bwd", "relpos_attention",
                       "causal_attention", "tail_", "dkrel_reduce",
                       "attention_block", "conv_ln", "sum_parts",
                       "scatter_add_kernel")),
@@ -1368,8 +1505,8 @@ PROFILE_GROUPS = (
 
 
 def check_train_against_cpu(dev: torch.device, path: str = "LSTM") -> None:
-    """One float32 train step on a (2, 1, 20480) batch, kernels on the
-    card vs plain versions on the CPU: same weights, round keys and
+    """One float32 train step on a (2, 1, sizeWindow) batch, kernels on
+    the card vs plain versions on the CPU: same weights, round keys and
     dropout seed (the dropout bits do not depend on the device)."""
     from cpc_audio_tpu_torch.parallel.train_step import (create_train_state,
                                                          epoch_key,
@@ -1618,7 +1755,7 @@ def main() -> None:
     print(f"[phase kernels {time.time() - t0:.1f} s]", flush=True)
     t0 = time.time()
     for path in PATH_KERNELS:
-        if path != EXACT:
+        if path not in (EXACT, LONG):
             phase_eval(dev, path)
     phase_eval_auto_exact(dev)
     print(f"[phase eval {time.time() - t0:.1f} s]", flush=True)
@@ -1633,9 +1770,10 @@ def main() -> None:
                       (FUSED, ("attention_block_fwd", "attention_block_bwd",
                                "conv_ln_fwd", "conv_ln_bwd")),
                       (EXACT, ("scatter_add_rows",)),
-                      (WIDE, ())):
+                      (WIDE, ()), (LONG, ())):
         t0 = time.time()
-        counts = phase_train(dev, path)
+        # the long-window path at a small batch, as users fit it on a card
+        counts = phase_train(dev, path, B=8 if path == LONG else 32)
         launches.update({name: counts[name] for name in own})
         check_train_against_cpu(dev, path)
         print(f"[phase train {path} {time.time() - t0:.1f} s]", flush=True)

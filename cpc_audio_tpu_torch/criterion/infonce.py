@@ -480,8 +480,7 @@ def check_kernels(config: CPCConfig) -> None:
     """Raise ValueError, naming the flag, for a config whose criterion the
     port cannot run on the card: the transformer heads' widths, and the
     gates of K2, K3 and K8.  A refused shape is run by no plain version in
-    its place (the shapes the JAX package trains and the port refuses are
-    in ROADMAP Queue 3).  Under ``CPC_ATTN_BLOCK=1`` the heads run K6
+    its place.  Under ``CPC_ATTN_BLOCK=1`` the heads run K6
     where its gate takes the shape and K2 elsewhere, as the JAX package
     runs its whole-block kernel only where its own gate takes it (at
     ``--hiddenEncoder 512`` or ``--sizeWindow 40960`` neither does).  Runs
@@ -506,7 +505,7 @@ def check_kernels(config: CPCConfig) -> None:
         if why:
             problems.append(f"--sizeWindow {W} / --hiddenEncoder {D} (K2, "
                             f"the heads' attention over S = {S} frames, dk "
-                            f"= {dk}; ROADMAP Queue 3): {why}")
+                            f"= {dk}): {why}")
     why = ffn.supported(D, dff, dtype)
     if why:
         problems.append(f"--hiddenEncoder {D} (K3, the heads' FFN tail): "

@@ -16,18 +16,22 @@
 // does.  h_prev is read from ys and h0 in place, so the wrapper builds no
 // (B, T, H) copy of it.
 //
-// Design: K1's backward (csrc/lstm_bwd.cu).  One block per batch row keeps
-// the carry in shared memory for the whole window.  The serial product is
-// dh[j] = sum_r dgh[r] W_hh[r, j] over the 3H rows of W_hh in torch's
-// (3H, H) layout, which needs no transpose: threads own pairs of adjacent
-// columns (one 4- or 8-byte load per row, a warp reads a contiguous run of
-// a row) and form groups that split the 3H rows; the partial sums meet in
-// shared memory.
+// Two bodies, picked from the shape before launching (`cluster_body`),
+// as K1's backward (csrc/lstm_bwd.cu): at H = 128 and 256 the cluster body
+// (csrc/rnn_cluster.cuh; CTA c owns units [c H/8, (c+1) H/8), their 3 gate
+// rows of W_hh and the carry dh * z of its units), elsewhere the rows
+// body: one block per batch row keeps the carry in shared memory for the
+// whole window, and the serial product dh[j] = sum_r dgh[r] W_hh[r, j]
+// over the 3H rows of W_hh in torch's (3H, H) layout needs no transpose:
+// threads own pairs of adjacent columns (one 4- or 8-byte load per row, a
+// warp reads a contiguous run of a row) and form groups that split the 3H
+// rows; the partial sums meet in shared memory.  It re-reads W_hh (384 KB
+// in bf16 at H = 256) from L2 every step, on B = 32 of the 132 SMs.
 //
-// What bounds it on an H100: like the forward, the T steps are serial and
-// every step re-reads W_hh (384 KB in bf16 at H = 256) from L2; B = 32
-// blocks use a quarter of the SMs.
-#include "common.cuh"
+// What bounds it on an H100: the T = 128 dependent steps.  The bytes it
+// must move (0.011 ms at B 32, T 128, H 256) ignore that chain; cuDNN's
+// GRU backward, which also forms dx and dW, is its yardstick.
+#include "rnn_cluster.cuh"
 
 namespace {
 
@@ -39,6 +43,171 @@ __device__ __forceinline__ float2 load2(const float* p) {
 __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
+
+// ---- the cluster body ------------------------------------------------------
+
+// A pair's residuals of one step: gates r, z, n and ghn (4 float2), h_prev
+// and dys (two T each); each field an array over the CTA's pairs.
+template <typename T>
+constexpr int kSlot = 4 * (int)sizeof(float2) + 4 * (int)sizeof(T);
+
+template <typename T, int J>
+using ClusterLayout = cpc::rnn::Layout<T, 3, J, kSlot<T>>;
+
+template <typename T, int J>
+__global__ void __launch_bounds__(cpc::rnn::kThreads, 1)
+    gru_bwd_cluster_kernel(const float* __restrict__ gates,
+                           const float* __restrict__ ghn,
+                           const T* __restrict__ h0, const T* __restrict__ ys,
+                           const T* __restrict__ dys,
+                           const T* __restrict__ w_hh,
+                           const float* __restrict__ dhT,
+                           float* __restrict__ dx,
+                           float* __restrict__ dghn_out,
+                           float* __restrict__ dh0, int B, int n_steps) {
+  namespace rnn = cpc::rnn;
+  using L = ClusterLayout<T, J>;
+  using T2 = typename rnn::Two<T>::type;
+  constexpr int H = L::H, G = 3 * H, P = L::P;
+  extern __shared__ __align__(16) unsigned char cluster_smem_buf[];
+  unsigned char* smem = cluster_smem_buf;
+  const int c = rnn::cluster_rank();
+  const int b0 = blockIdx.y * rnn::kRows;
+  const int tid = threadIdx.x;
+  float2* dhz = reinterpret_cast<float2*>(smem + L::state);   // (P,) dh z
+  auto slot_of = [&](int t) {
+    return smem + L::ring + (t & 1) * L::slot_bytes;
+  };
+  // slot fields: gate q of pair p at [q * P + p], ghn at [3 P + p]; then
+  // h_prev and dys
+  auto gates_of = [&](int t) { return reinterpret_cast<float2*>(slot_of(t)); };
+  auto hp_of = [&](int t) {
+    return reinterpret_cast<T2*>(slot_of(t) + 4 * P * sizeof(float2));
+  };
+  auto prefetch = [&](int t) {
+    float2* g = gates_of(t);
+    T2* hp = hp_of(t);
+    for (int p = tid; p < P; p += rnn::kThreads) {
+      const rnn::Pair<J> pr(p);
+      const int b = b0 + pr.row;
+      if (b >= B) continue;
+      const int j = c * J + pr.unit;
+      const size_t bt = (size_t)b * n_steps + t;
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        rnn::cp_async<8>(g + q * P + p, gates + bt * G + q * H + j);
+      rnn::cp_async<8>(g + 3 * P + p, ghn + bt * H + j);
+      rnn::copy_two<T>(hp + p, t > 0 ? ys + (bt - 1) * H + j
+                                     : h0 + (size_t)b * H + j);
+      rnn::copy_two<T>(hp + P + p, dys + bt * H + j);
+    }
+  };
+
+  rnn::load_w<L>(reinterpret_cast<T*>(smem + L::w), w_hh, c);
+  prefetch(n_steps - 1);
+  cpc::mma::cp_async_commit();
+  for (int p = tid; p < P; p += rnn::kThreads)
+    dhz[p] = make_float2(0.0f, 0.0f);
+  cpc::mma::cp_async_wait<0>();
+  __syncthreads();
+  rnn::cluster_sync();   // every CTA of the cluster runs before any push
+
+  for (int t = n_steps - 1; t >= 0; --t) {
+    if (t > 0) prefetch(t - 1);
+    cpc::mma::cp_async_commit();
+    cpc::mma::cp_async_wait<1>();   // this thread's copies of step t
+    const float2* g = gates_of(t);
+    const T2* hp = hp_of(t);
+    for (int p = tid; p < P; p += rnn::kThreads) {
+      const rnn::Pair<J> pr(p);
+      const int b = b0 + pr.row;
+      if (b >= B) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q)
+          rnn::put_a<L>(smem, pr.row, q, pr.unit, 0.0f, 0.0f);
+        continue;
+      }
+      const int j = c * J + pr.unit;
+      const size_t bt = (size_t)b * n_steps + t;
+      float2 carry;
+      if (t == n_steps - 1) {
+        carry = *reinterpret_cast<const float2*>(dhT + (size_t)b * H + j);
+      } else {
+        const float2 s = rnn::gather<L>(smem, (t + 1) & 1, pr.row, pr.unit);
+        carry = make_float2(dhz[p].x + s.x, dhz[p].y + s.y);
+      }
+      const float2 r2 = g[p], z2 = g[P + p], n2 = g[2 * P + p],
+                   gn2 = g[3 * P + p];
+      const float2 hp2 = rnn::Two<T>::f32(hp[p]);
+      const float2 dy2 = rnn::Two<T>::f32(hp[P + p]);
+      float out[4][2];    // dr, dz, dn, dghn
+      float2 dz2;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float r = e ? r2.y : r2.x, z = e ? z2.y : z2.x,
+                    n = e ? n2.y : n2.x, gn = e ? gn2.y : gn2.x;
+        const float dhj = (e ? dy2.y : dy2.x) + (e ? carry.y : carry.x);
+        const float d_z = dhj * ((e ? hp2.y : hp2.x) - n) * z * (1.0f - z);
+        const float d_n = dhj * (1.0f - z) * (1.0f - n * n);
+        const float d_ghn = d_n * r;
+        out[0][e] = d_n * gn * r * (1.0f - r);
+        out[1][e] = d_z;
+        out[2][e] = d_n;
+        out[3][e] = d_ghn;
+        (e ? dz2.y : dz2.x) = dhj * z;
+      }
+      dhz[p] = dz2;
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        *reinterpret_cast<float2*>(dx + bt * G + q * H + j) =
+            make_float2(out[q][0], out[q][1]);
+      *reinterpret_cast<float2*>(dghn_out + bt * H + j) =
+          make_float2(out[3][0], out[3][1]);
+      // the rows of W_hh meet dgh = (dr, dz, dghn)
+      rnn::put_a<L>(smem, pr.row, 0, pr.unit, out[0][0], out[0][1]);
+      rnn::put_a<L>(smem, pr.row, 1, pr.unit, out[1][0], out[1][1]);
+      rnn::put_a<L>(smem, pr.row, 2, pr.unit, out[3][0], out[3][1]);
+    }
+    __syncthreads();
+    rnn::product_push<L>(smem, c, t & 1);
+    rnn::cluster_sync();
+  }
+  for (int p = tid; p < P; p += rnn::kThreads) {
+    const rnn::Pair<J> pr(p);
+    const int b = b0 + pr.row;
+    if (b >= B) continue;
+    const float2 s = rnn::gather<L>(smem, 0, pr.row, pr.unit);
+    *reinterpret_cast<float2*>(dh0 + (size_t)b * H + c * J + pr.unit) =
+        make_float2(dhz[p].x + s.x, dhz[p].y + s.y);
+  }
+}
+
+template <typename T>
+size_t cluster_smem(int H) {
+  return H == 128 ? ClusterLayout<T, 16>::bytes
+                  : H == 256 ? ClusterLayout<T, 32>::bytes : 0;
+}
+
+// The cluster body takes H = 128 and 256, where its layout fits a CTA.
+template <typename T>
+bool cluster_body(int H) {
+  const size_t smem = cluster_smem<T>(H);
+  return smem > 0 && smem <= cpc::kSmemLimit;
+}
+
+template <typename T, int J>
+int launch_cluster(const float* gates, const float* ghn, const void* h0,
+                   const void* ys, const void* dys, const void* w_hh,
+                   const float* dhT, float* dx, float* dghn, float* dh0,
+                   int B, int n_steps, cudaStream_t stream) {
+  return (int)cpc::rnn::launch(
+      gru_bwd_cluster_kernel<T, J>, B, ClusterLayout<T, J>::bytes, stream,
+      gates, ghn, static_cast<const T*>(h0), static_cast<const T*>(ys),
+      static_cast<const T*>(dys), static_cast<const T*>(w_hh), dhT, dx, dghn,
+      dh0, B, n_steps);
+}
+
+// ---- the rows body ---------------------------------------------------------
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) gru_bwd_kernel(
@@ -137,7 +306,29 @@ int launch(const float* gates, const float* ghn, const void* h0,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_any(const float* gates, const float* ghn, const void* h0,
+               const void* ys, const void* dys, const void* w_hh,
+               const float* dhT, float* dx, float* dghn, float* dh0, int B,
+               int n_steps, int H, cudaStream_t stream) {
+  if (!cluster_body<T>(H))
+    return launch<T>(gates, ghn, h0, ys, dys, w_hh, dhT, dx, dghn, dh0, B,
+                     n_steps, H, stream);
+  if (H == 128)
+    return launch_cluster<T, 16>(gates, ghn, h0, ys, dys, w_hh, dhT, dx,
+                                 dghn, dh0, B, n_steps, stream);
+  return launch_cluster<T, 32>(gates, ghn, h0, ys, dys, w_hh, dhT, dx, dghn,
+                               dh0, B, n_steps, stream);
+}
+
 }  // namespace
+
+// 1 where cpc_gru_bwd runs the cluster body at hidden width H in `dtype`,
+// 0 where it runs the rows body.
+extern "C" int cpc_gru_bwd_body(int H, int dtype) {
+  return dtype == cpc::kBFloat16 ? cluster_body<__nv_bfloat16>(H)
+                                 : cluster_body<float>(H);
+}
 
 // gates (B, T, 3H), ghn (B, T, H), dhT (B, H) and the outputs dx
 // (B, T, 3H), dghn (B, T, H) and dh0 (B, H) are float32; h0 (B, H), ys
@@ -157,10 +348,10 @@ extern "C" int cpc_gru_bwd(const void* gates, const void* ghn, const void* h0,
   float* o_dghn = static_cast<float*>(dghn);
   float* o_dh0 = static_cast<float*>(dh0);
   if (dtype == cpc::kBFloat16)
-    return launch<__nv_bfloat16>(g, n, h0, ys, dys, w_hh, d, o_dx, o_dghn,
-                                 o_dh0, B, n_steps, H, s);
+    return launch_any<__nv_bfloat16>(g, n, h0, ys, dys, w_hh, d, o_dx,
+                                     o_dghn, o_dh0, B, n_steps, H, s);
   if (dtype == cpc::kFloat32)
-    return launch<float>(g, n, h0, ys, dys, w_hh, d, o_dx, o_dghn, o_dh0, B,
-                         n_steps, H, s);
+    return launch_any<float>(g, n, h0, ys, dys, w_hh, d, o_dx, o_dghn, o_dh0,
+                             B, n_steps, H, s);
   return (int)cudaErrorInvalidValue;
 }

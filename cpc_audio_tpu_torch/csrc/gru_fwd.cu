@@ -24,8 +24,9 @@
 // re-reads W_hh (3H x H; 384 KB in bf16 at H = 256, more than one SM's
 // 227 KB of shared memory) from L2, so a step costs about one SM's L2
 // read bandwidth for 384 KB.  B = 32 blocks occupy a quarter of the 132
-// SMs.  Keeping W_hh on chip across a thread-block cluster is the planned
-// next step, shared with K1.
+// SMs.  The backward keeps W_hh on chip across a thread-block cluster
+// (csrc/rnn_cluster.cuh, used by csrc/gru_bwd.cu); the same split would
+// serve this scan.
 #include "common.cuh"
 
 namespace {

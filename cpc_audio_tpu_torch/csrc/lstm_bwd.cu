@@ -10,20 +10,32 @@
 // and finally dh0 = dh_carry, dc0 = dc_carry, all in float32.  dW_hh is
 // one matmul outside the kernel (ops/lstm.py), as rnn.py:223-226 does.
 //
-// Design: as in the forward, one block per batch row keeps the carries in
-// shared memory for the whole window.  The serial product is the
-// transpose of the forward's: dh[j] = sum_r dgates[r] W_hh[r, j] over the
-// 4H gate rows of W_hh in torch's (4H, H) layout.  Threads own pairs of
-// adjacent columns (one 4- or 8-byte load per row, a warp reads a
-// contiguous run of a row) and form G groups that split the 4H rows; the
-// G partial sums meet in shared memory.
+// Two bodies, picked from the shape before launching (`cluster_body`):
 //
-// What bounds it on an H100: like the forward, the T steps are serial
-// and every step re-reads W_hh (512 KB in bf16 at H = 256) from L2, so a
-// step costs one SM's L2 read bandwidth for 512 KB; B = 32 blocks use a
-// quarter of the SMs.  Keeping W_hh on chip across a cluster (DSMEM) is
-// the planned next step for both directions.
-#include "common.cuh"
+// The cluster body (csrc/rnn_cluster.cuh), at H = 128 and 256 in both
+// dtypes: one cluster of 8 CTAs per 16 batch rows keeps W_hh on chip for
+// the whole window, split by hidden unit (CTA c owns units [c H/8, (c+1)
+// H/8) and their 4 gate rows), and each step's product dh = dgates . W_hh
+// is a per-CTA partial product (mma.sync with a hi/lo split of dgates in
+// bf16, FMA in float32) reduce-scattered over distributed shared memory,
+// with one cluster barrier a step.  The elementwise part of a step needs
+// only the CTA's own units.
+//
+// The rows body, at every other H (up to 2048): as in the forward, one
+// block per batch row keeps the carries in shared memory for the whole
+// window.  The serial product is the transpose of the forward's: dh[j] =
+// sum_r dgates[r] W_hh[r, j] over the 4H gate rows of W_hh in torch's
+// (4H, H) layout.  Threads own pairs of adjacent columns (one 4- or 8-byte
+// load per row, a warp reads a contiguous run of a row) and form G groups
+// that split the 4H rows; the G partial sums meet in shared memory.  Every
+// step re-reads W_hh (512 KB in bf16 at H = 256) from L2, so a step costs
+// one SM's L2 read bandwidth for it; B = 32 blocks use a quarter of the
+// SMs.
+//
+// What bounds it on an H100: the T = 128 dependent steps.  The bytes it
+// must move (0.012 ms at B 32, T 128, H 256) ignore that chain; cuDNN's
+// LSTM backward, which also forms dx and dW, is its yardstick.
+#include "rnn_cluster.cuh"
 
 namespace {
 
@@ -35,6 +47,170 @@ __device__ __forceinline__ float2 load2(const float* p) {
 __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
+
+// ---- the cluster body ------------------------------------------------------
+
+// A pair's residuals of one step: gates (4 float2), c_{t-1} (float2), dys
+// (two T); each field an array over the CTA's pairs.
+template <typename T>
+constexpr int kSlot = 5 * (int)sizeof(float2) + 2 * (int)sizeof(T);
+
+template <typename T, int J>
+using ClusterLayout = cpc::rnn::Layout<T, 4, J, kSlot<T>>;
+
+template <typename T, int J>
+__global__ void __launch_bounds__(cpc::rnn::kThreads, 1)
+    lstm_bwd_cluster_kernel(const float* __restrict__ gates,
+                            const float* __restrict__ cs,
+                            const T* __restrict__ c0,
+                            const T* __restrict__ dys,
+                            const T* __restrict__ w_hh,
+                            const float* __restrict__ dhT,
+                            const float* __restrict__ dcT,
+                            float* __restrict__ dgates,
+                            float* __restrict__ dh0, float* __restrict__ dc0,
+                            int B, int n_steps) {
+  namespace rnn = cpc::rnn;
+  using L = ClusterLayout<T, J>;
+  using T2 = typename rnn::Two<T>::type;
+  constexpr int H = L::H, G4 = 4 * H, P = L::P;
+  extern __shared__ __align__(16) unsigned char cluster_smem_buf[];
+  unsigned char* smem = cluster_smem_buf;
+  const int c = rnn::cluster_rank();
+  const int b0 = blockIdx.y * rnn::kRows;
+  const int tid = threadIdx.x;
+  float2* dcs = reinterpret_cast<float2*>(smem + L::state);   // (P,) dc
+  auto slot_of = [&](int t) {
+    return smem + L::ring + (t & 1) * L::slot_bytes;
+  };
+  // slot fields: gate g of pair p at [g * P + p], c_{t-1} at [4 P + p]
+  auto gates_of = [&](int t) { return reinterpret_cast<float2*>(slot_of(t)); };
+  auto dys_of = [&](int t) {
+    return reinterpret_cast<T2*>(slot_of(t) + 5 * P * sizeof(float2));
+  };
+  auto prefetch = [&](int t) {
+    float2* g = gates_of(t);
+    T2* dy = dys_of(t);
+    for (int p = tid; p < P; p += rnn::kThreads) {
+      const rnn::Pair<J> pr(p);
+      const int b = b0 + pr.row;
+      if (b >= B) continue;
+      const int j = c * J + pr.unit;
+      const size_t bt = (size_t)b * n_steps + t;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        rnn::cp_async<8>(g + q * P + p, gates + bt * G4 + q * H + j);
+      if (t > 0) rnn::cp_async<8>(g + 4 * P + p, cs + (bt - 1) * H + j);
+      rnn::copy_two<T>(dy + p, dys + bt * H + j);
+    }
+  };
+
+  rnn::load_w<L>(reinterpret_cast<T*>(smem + L::w), w_hh, c);
+  prefetch(n_steps - 1);
+  cpc::mma::cp_async_commit();
+  for (int p = tid; p < P; p += rnn::kThreads) {
+    const rnn::Pair<J> pr(p);
+    const int b = b0 + pr.row;
+    dcs[p] = b < B ? *reinterpret_cast<const float2*>(
+                         dcT + (size_t)b * H + c * J + pr.unit)
+                   : make_float2(0.0f, 0.0f);
+  }
+  cpc::mma::cp_async_wait<0>();
+  __syncthreads();
+  rnn::cluster_sync();   // every CTA of the cluster runs before any push
+
+  for (int t = n_steps - 1; t >= 0; --t) {
+    if (t > 0) prefetch(t - 1);
+    cpc::mma::cp_async_commit();
+    cpc::mma::cp_async_wait<1>();   // this thread's copies of step t
+    const float2* g = gates_of(t);
+    const T2* dy = dys_of(t);
+    for (int p = tid; p < P; p += rnn::kThreads) {
+      const rnn::Pair<J> pr(p);
+      const int b = b0 + pr.row;
+      if (b >= B) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          rnn::put_a<L>(smem, pr.row, q, pr.unit, 0.0f, 0.0f);
+        continue;
+      }
+      const int j = c * J + pr.unit;
+      const size_t bt = (size_t)b * n_steps + t;
+      const float2 carry =
+          t == n_steps - 1
+              ? *reinterpret_cast<const float2*>(dhT + (size_t)b * H + j)
+              : rnn::gather<L>(smem, (t + 1) & 1, pr.row, pr.unit);
+      const float2 ig2 = g[p], fg2 = g[P + p], gg2 = g[2 * P + p],
+                   og2 = g[3 * P + p];
+      const float2 cp2 = t > 0 ? g[4 * P + p]
+                               : rnn::load_two(c0 + (size_t)b * H + j);
+      const float2 dy2 = rnn::Two<T>::f32(dy[p]);
+      float2 dc2 = dcs[p];
+      float out[4][2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float ig = e ? ig2.y : ig2.x, fg = e ? fg2.y : fg2.x,
+                    gg = e ? gg2.y : gg2.x, og = e ? og2.y : og2.x;
+        const float c_prev = e ? cp2.y : cp2.x;
+        const float cc = fg * c_prev + ig * gg;
+        const float tc = tanhf(cc);
+        const float dhj = (e ? dy2.y : dy2.x) + (e ? carry.y : carry.x);
+        const float d_o = dhj * tc * og * (1.0f - og);
+        const float dcj = (e ? dc2.y : dc2.x) + dhj * og * (1.0f - tc * tc);
+        out[0][e] = dcj * gg * ig * (1.0f - ig);
+        out[1][e] = dcj * c_prev * fg * (1.0f - fg);
+        out[2][e] = dcj * ig * (1.0f - gg * gg);
+        out[3][e] = d_o;
+        (e ? dc2.y : dc2.x) = dcj * fg;
+      }
+      dcs[p] = dc2;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        *reinterpret_cast<float2*>(dgates + bt * G4 + q * H + j) =
+            make_float2(out[q][0], out[q][1]);
+        rnn::put_a<L>(smem, pr.row, q, pr.unit, out[q][0], out[q][1]);
+      }
+    }
+    __syncthreads();
+    rnn::product_push<L>(smem, c, t & 1);
+    rnn::cluster_sync();
+  }
+  for (int p = tid; p < P; p += rnn::kThreads) {
+    const rnn::Pair<J> pr(p);
+    const int b = b0 + pr.row;
+    if (b >= B) continue;
+    const size_t o = (size_t)b * H + c * J + pr.unit;
+    *reinterpret_cast<float2*>(dh0 + o) =
+        rnn::gather<L>(smem, 0, pr.row, pr.unit);
+    *reinterpret_cast<float2*>(dc0 + o) = dcs[p];
+  }
+}
+
+template <typename T>
+size_t cluster_smem(int H) {
+  return H == 128 ? ClusterLayout<T, 16>::bytes
+                  : H == 256 ? ClusterLayout<T, 32>::bytes : 0;
+}
+
+// The cluster body takes H = 128 and 256, where its layout fits a CTA.
+template <typename T>
+bool cluster_body(int H) {
+  const size_t smem = cluster_smem<T>(H);
+  return smem > 0 && smem <= cpc::kSmemLimit;
+}
+
+template <typename T, int J>
+int launch_cluster(const float* gates, const float* cs, const void* c0,
+                   const void* dys, const void* w_hh, const float* dhT,
+                   const float* dcT, float* dgates, float* dh0, float* dc0,
+                   int B, int n_steps, cudaStream_t stream) {
+  return (int)cpc::rnn::launch(
+      lstm_bwd_cluster_kernel<T, J>, B, ClusterLayout<T, J>::bytes, stream,
+      gates, cs, static_cast<const T*>(c0), static_cast<const T*>(dys),
+      static_cast<const T*>(w_hh), dhT, dcT, dgates, dh0, dc0, B, n_steps);
+}
+
+// ---- the rows body ---------------------------------------------------------
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) lstm_bwd_kernel(
@@ -141,7 +317,29 @@ int launch(const float* gates, const float* cs, const void* c0,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_any(const float* gates, const float* cs, const void* c0,
+               const void* dys, const void* w_hh, const float* dhT,
+               const float* dcT, float* dgates, float* dh0, float* dc0, int B,
+               int n_steps, int H, cudaStream_t stream) {
+  if (!cluster_body<T>(H))
+    return launch<T>(gates, cs, c0, dys, w_hh, dhT, dcT, dgates, dh0, dc0, B,
+                     n_steps, H, stream);
+  if (H == 128)
+    return launch_cluster<T, 16>(gates, cs, c0, dys, w_hh, dhT, dcT, dgates,
+                                 dh0, dc0, B, n_steps, stream);
+  return launch_cluster<T, 32>(gates, cs, c0, dys, w_hh, dhT, dcT, dgates,
+                               dh0, dc0, B, n_steps, stream);
+}
+
 }  // namespace
+
+// 1 where cpc_lstm_bwd runs the cluster body at hidden width H in
+// `dtype`, 0 where it runs the rows body.
+extern "C" int cpc_lstm_bwd_body(int H, int dtype) {
+  return dtype == cpc::kBFloat16 ? cluster_body<__nv_bfloat16>(H)
+                                 : cluster_body<float>(H);
+}
 
 // gates (B, T, 4H), cs (B, T, H), dhT, dcT (B, H) and the outputs dgates
 // (B, T, 4H), dh0, dc0 (B, H) are float32; c0 (B, H), dys (B, T, H) and
@@ -162,10 +360,10 @@ extern "C" int cpc_lstm_bwd(const void* gates, const void* cs, const void* c0,
   float* h0 = static_cast<float*>(dh0);
   float* c0o = static_cast<float*>(dc0);
   if (dtype == cpc::kBFloat16)
-    return launch<__nv_bfloat16>(g, c, c0, dys, w_hh, dh, dc, dg, h0, c0o, B,
-                                 n_steps, H, s);
+    return launch_any<__nv_bfloat16>(g, c, c0, dys, w_hh, dh, dc, dg, h0,
+                                     c0o, B, n_steps, H, s);
   if (dtype == cpc::kFloat32)
-    return launch<float>(g, c, c0, dys, w_hh, dh, dc, dg, h0, c0o, B,
-                         n_steps, H, s);
+    return launch_any<float>(g, c, c0, dys, w_hh, dh, dc, dg, h0, c0o, B,
+                             n_steps, H, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -24,8 +24,9 @@
 // re-reads W_hh (4H x H; 512 KB in bf16 at H = 256, more than one SM's
 // 227 KB of shared memory) from L2, so a step costs about one SM's L2
 // read bandwidth for 512 KB.  B = 32 blocks occupy a quarter of the 132
-// SMs.  Splitting W_hh across a thread-block cluster (DSMEM) so that it
-// stays on chip is the planned next step.
+// SMs.  The backward keeps W_hh on chip across a thread-block cluster
+// (csrc/rnn_cluster.cuh, used by csrc/lstm_bwd.cu); the same split would
+// serve this scan.
 #include "common.cuh"
 
 namespace {

@@ -6,7 +6,8 @@
 // K2's backward built on this shared function measured ~10 % slower than
 // its own inline body on the H100 (same call, same 48 registers), so it
 // keeps its own.  For one (k, batch row b, head h), with the operands
-// staged in shared memory as float32:
+// staged in shared memory (as float32, or in the input dtype, or read in
+// place where neither fits: K2 at long windows and wide heads):
 //   s[i, j] = (q_i . k_j + q_i . krel[:, j - i + S - 1]) / sqrt(dk),  j <= i
 //   o_i     = (softmax_j(s[i, :]) * dropout[i, :]) . v
 // The rel-pos index j - i + S - 1 is the Pallas `_skew` (j - i - 1) mod S
@@ -31,31 +32,40 @@ __device__ __forceinline__ uint32_t attention_row_key(const Dropout& drop,
              : 0u;
 }
 
-// Forward: qs (S, dk), ks (S, dk + 1), vs (S, dk), kr (dk, S) = krel[k] as
-// given, rows (n_warps, S) scratch.  Each warp owns whole query rows: lanes
+// A read-only matrix operand: element (r, c) at p[r * rs + c * cs], read
+// as float32.  A staged operand is a view of shared memory (in float32 or
+// in the input dtype), an operand read in place a view of device memory;
+// each kernel fixes which at compile time, so that a shared-memory view is
+// read with shared-memory loads.
+template <typename E>
+struct View {
+  const E* p;
+  int rs, cs;
+  __device__ __forceinline__ float operator()(int r, int c) const {
+    return to_f32(p[r * rs + c * cs]);
+  }
+};
+
+// Forward: q (S, dk), k (S, dk), v (S, dk), kr (dk, S) = krel[k] as given,
+// rows (n_warps, S) scratch.  Each warp owns whole query rows: lanes
 // stride over the keys to form the scores into its row buffer, warp
 // reductions give the max and the sum, and then each lane produces one
 // output column, handed to store(i, d, o).  The (S, S) tile never exists
 // in full.
-template <typename Store>
-__device__ __forceinline__ void relpos_fwd_rows(
-    const float* __restrict__ qs, const float* __restrict__ ks,
-    const float* __restrict__ vs, const float* __restrict__ kr,
-    float* __restrict__ rows, int S, int dk, float inv_sqrt, Dropout drop,
-    uint32_t row_key, Store store) {
-  const int ldk = dk + 1;
+template <typename VQ, typename VK, typename VV, typename VR, typename Store>
+__device__ __forceinline__ void relpos_fwd_view_rows(
+    VQ q, VK k, VV v, VR kr, float* __restrict__ rows, int S, int dk,
+    float inv_sqrt, Dropout drop, uint32_t row_key, Store store) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int n_warps = blockDim.x >> 5;
   float* p = rows + warp * S;
   for (int i = warp; i < S; i += n_warps) {
-    const float* qi = qs + i * dk;
     float mx = -INFINITY;
     for (int j = lane; j <= i; j += 32) {
-      const float* kj = ks + j * ldk;
-      const float* kr_col = kr + (j - i + S - 1);
+      const int r = j - i + S - 1;
       float s = 0.0f;
-      for (int d = 0; d < dk; ++d) s += qi[d] * (kj[d] + kr_col[d * S]);
+      for (int d = 0; d < dk; ++d) s += q(i, d) * (k(j, d) + kr(d, r));
       s *= inv_sqrt;
       p[j] = s;
       mx = fmaxf(mx, s);
@@ -74,11 +84,24 @@ __device__ __forceinline__ void relpos_fwd_rows(
     __syncwarp();
     for (int d = lane; d < dk; d += 32) {
       float o = 0.0f;
-      for (int j = 0; j <= i; ++j) o += p[j] * vs[j * dk + d];
+      for (int j = 0; j <= i; ++j) o += p[j] * v(j, d);
       store(i, d, o * inv_sum);
     }
     __syncwarp();
   }
+}
+
+// The same on float32 operands staged in shared memory: qs, vs (S, dk),
+// ks (S, dk + 1), kr (dk, S).
+template <typename Store>
+__device__ __forceinline__ void relpos_fwd_rows(
+    const float* __restrict__ qs, const float* __restrict__ ks,
+    const float* __restrict__ vs, const float* __restrict__ kr,
+    float* __restrict__ rows, int S, int dk, float inv_sqrt, Dropout drop,
+    uint32_t row_key, Store store) {
+  relpos_fwd_view_rows(View<float>{qs, dk, 1}, View<float>{ks, dk + 1, 1},
+                       View<float>{vs, dk, 1}, View<float>{kr, S, 1}, rows,
+                       S, dk, inv_sqrt, drop, row_key, store);
 }
 
 // Backward, recompute-style.  With p recomputed from q, k and krel, and

@@ -24,6 +24,13 @@
 // float32 intermediates in two per-warp rows; past that (float32 at dk =
 // 64, or S past ~200) the tiles go to a device-memory scratch of the
 // block's own, read back through L1 and L2 (slower, the same values).
+// Where even the float32 operands do not fit beside the rows (S 244, dk
+// 64: 331 KB), a second kernel on operand views stages them in bf16
+// (exact: they are bf16 already; 158 KB there), and past that (float32
+// there, or S·dk larger) reads them in place from device memory.  Each of
+// these is a compile-time body (`mode_of` picks one per shape family):
+// chosen at run time, the compiler read shared tiles through generic
+// loads and the default shape's backward ran 2.9-3.1 ms against 2.3.
 // Blocks run
 // in parallel, so the TPU's dkrel accumulator revisited along a
 // sequential grid becomes per-block partials (K, B*h, dk, S) that a
@@ -34,21 +41,31 @@
 // (8 warps; 137 KB in bf16), and at S = 116, dk = 32 the work per block is small
 // (~2 MFLOP), so it is latency-bound on shared memory; the partials cost
 // K*B*h*dk*S*4 bytes (45 MB at the train shapes) of writes and reads.
-#include "common.cuh"
-#include "dropout.cuh"
+#include <type_traits>
+
+#include "relpos_attention.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
-// Where the (S, S) tiles live: float32 in shared memory, their rows also
-// the rows' scratch (kTiles); in T in shared memory beside two per-warp
-// float32 rows (kTilesT, bf16 only); in T in a device-memory scratch
-// beside the same rows (kScratch).
-enum Mode { kTiles, kTilesT, kScratch };
+// Where the operands and the (S, S) tiles live: float32 operands with
+// float32 tiles in shared memory, their rows also the rows' scratch
+// (kTiles); float32 operands with tiles in T in shared memory beside two
+// per-warp float32 rows (kTilesT, bf16 only); float32 operands with tiles
+// in T in a device-memory scratch beside the same rows (kScratch); the
+// same with the operands staged in T (kScratchT, bf16 only); operands read
+// in place, tiles in the scratch (kInPlace).
+enum Mode { kTiles, kTilesT, kScratch, kScratchT, kInPlace };
 
-size_t operand_bytes(int S, int dk) {
-  return ((size_t)S * dk * 2 + (size_t)S * (dk + 1) * 3) * sizeof(float);
+__host__ __device__ size_t round16(size_t bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+
+template <typename TS>
+__host__ __device__ size_t operand_bytes(int S, int dk) {
+  return round16(((size_t)S * dk * 2 + (size_t)S * (dk + 1) * 3) *
+                 sizeof(TS));
 }
 
 size_t row_bytes(int S) {
@@ -62,24 +79,30 @@ size_t tile_bytes(int S) {
 
 template <typename T>
 Mode mode_of(int S, int dk) {
-  if (operand_bytes(S, dk) + tile_bytes<float>(S) <= cpc::kSmemLimit)
-    return kTiles;
-  if (sizeof(T) < sizeof(float) &&
-      operand_bytes(S, dk) + row_bytes(S) + tile_bytes<T>(S) <=
-          cpc::kSmemLimit)
+  constexpr bool bf16 = sizeof(T) < sizeof(float);
+  const size_t ops = operand_bytes<float>(S, dk);
+  if (ops + tile_bytes<float>(S) <= cpc::kSmemLimit) return kTiles;
+  if (bf16 && ops + row_bytes(S) + tile_bytes<T>(S) <= cpc::kSmemLimit)
     return kTilesT;
-  return kScratch;
+  if (ops + row_bytes(S) <= cpc::kSmemLimit) return kScratch;
+  if (bf16 && operand_bytes<T>(S, dk) + row_bytes(S) <= cpc::kSmemLimit)
+    return kScratchT;
+  return kInPlace;
 }
 
 template <typename T>
 size_t smem_bytes(int S, int dk) {
   switch (mode_of<T>(S, dk)) {
     case kTiles:
-      return operand_bytes(S, dk) + tile_bytes<float>(S);
+      return operand_bytes<float>(S, dk) + tile_bytes<float>(S);
     case kTilesT:
-      return operand_bytes(S, dk) + row_bytes(S) + tile_bytes<T>(S);
+      return operand_bytes<float>(S, dk) + row_bytes(S) + tile_bytes<T>(S);
+    case kScratch:
+      return operand_bytes<float>(S, dk) + row_bytes(S);
+    case kScratchT:
+      return operand_bytes<T>(S, dk) + row_bytes(S);
     default:
-      return operand_bytes(S, dk) + row_bytes(S);
+      return row_bytes(S);
   }
 }
 
@@ -235,6 +258,174 @@ __global__ void __launch_bounds__(kThreads) relpos_attention_bwd_kernel(
   }
 }
 
+// The same backward where the float32 operands do not fit beside the rows
+// (kScratchT, kInPlace): the operands are views (relpos_attention.cuh),
+// staged in TS = T, or (IN_PLACE) read from device memory; the tiles are
+// in the device-memory scratch, a row's intermediates in two per-warp
+// rows.  The kernel above keeps its own body for the default shapes: the
+// same code on views ran 2.66 ms there against its 2.31 (S 116, dk 32,
+// bf16, chip_smoke.py on an H100).
+template <typename T, typename TS, bool IN_PLACE>
+__global__ void __launch_bounds__(kThreads) relpos_attention_bwd_view_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ krel, const T* __restrict__ dout,
+    T* __restrict__ dq, T* __restrict__ dk_out, T* __restrict__ dv,
+    float* __restrict__ dkrel_part, T* __restrict__ tiles, int n_batch,
+    int S, int nheads, int dk, float inv_sqrt, cpc::Dropout drop) {
+  extern __shared__ float smem[];
+  using TT = T;
+  const int ldk = dk + 1;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int kk = blockIdx.z;
+  const int D = nheads * dk;
+  const size_t M = (size_t)n_batch * S;
+  const size_t base = ((size_t)kk * M + (size_t)b * S) * D + (size_t)h * dk;
+  const T* kr_g = krel + (size_t)kk * dk * S;
+  // qs, dos (S, dk); ks, vs, krT (S, dk + 1) with krT[r][d] = krel[k][d][r]
+  TS* qs = reinterpret_cast<TS*>(smem);
+  TS* dos = qs + S * dk;
+  TS* ks = dos + S * dk;
+  TS* vs = ks + S * ldk;
+  TS* krT = vs + S * ldk;
+  // (n_warps, 2, S) a row's intermediates
+  float* rows =
+      IN_PLACE ? smem : smem + operand_bytes<TS>(S, dk) / sizeof(float);
+  // (S, S) ds and p * r, both rounded to T: this block's part of the
+  // scratch
+  TT* DS = tiles + ((size_t)(kk * n_batch + b) * nheads + h) * 2 * S * S;
+  TT* PD = DS + S * S;
+  const uint32_t row_key =
+      drop.active() ? cpc::dropout_row_key(
+                          drop.seed_word(), cpc::kSiteAttention,
+                          (uint32_t)((kk * n_batch + b) * nheads + h))
+                    : 0u;
+
+  // the operands as views: Q(i, d), DO(i, d), Kv(j, d), V(j, d) and
+  // KR(r, d) = krel[k][d][r]
+  using E = std::conditional_t<IN_PLACE, T, TS>;
+  cpc::View<E> Q, DO, Kv, V, KR;
+  if constexpr (IN_PLACE) {
+    Q = {q + base, D, 1};
+    DO = {dout + base, D, 1};
+    Kv = {k + base, D, 1};
+    V = {v + base, D, 1};
+    KR = {kr_g, 1, S};
+  } else {
+    for (int idx = threadIdx.x; idx < S * dk; idx += blockDim.x) {
+      const int i = idx / dk;
+      const int d = idx - i * dk;
+      const size_t off = base + (size_t)i * D + d;
+      qs[i * dk + d] = cpc::from_f32<TS>(cpc::to_f32(q[off]));
+      dos[i * dk + d] = cpc::from_f32<TS>(cpc::to_f32(dout[off]));
+      ks[i * ldk + d] = cpc::from_f32<TS>(cpc::to_f32(k[off]));
+      vs[i * ldk + d] = cpc::from_f32<TS>(cpc::to_f32(v[off]));
+    }
+    for (int idx = threadIdx.x; idx < dk * S; idx += blockDim.x) {
+      const int d = idx / S;
+      const int r = idx - d * S;
+      krT[r * ldk + d] = cpc::from_f32<TS>(cpc::to_f32(kr_g[idx]));
+    }
+    Q = {qs, dk, 1};
+    DO = {dos, dk, 1};
+    Kv = {ks, ldk, 1};
+    V = {vs, ldk, 1};
+    KR = {krT, ldk, 1};
+    __syncthreads();
+  }
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+
+  // ---- by query row: p, dp, ds, round(p r); then dq_i ----
+  for (int i = warp; i < S; i += n_warps) {
+    TT* dsr = DS + i * S;
+    TT* pdr = PD + i * S;
+    // scores, then dp, then ds; and p
+    float* rs = rows + warp * 2 * S;
+    float* rp = rs + S;
+    float mx = -INFINITY;
+    for (int j = lane; j <= i; j += 32) {
+      const int r = j - i + S - 1;
+      float s = 0.0f;
+      for (int d = 0; d < dk; ++d) s += Q(i, d) * (Kv(j, d) + KR(r, d));
+      s *= inv_sqrt;
+      rs[j] = s;
+      mx = fmaxf(mx, s);
+    }
+    mx = cpc::warp_max(mx);
+    float sum = 0.0f;
+    for (int j = lane; j <= i; j += 32) {
+      const float e = expf(rs[j] - mx);
+      rs[j] = e;
+      sum += e;
+    }
+    const float inv_sum = 1.0f / cpc::warp_sum(sum);
+    float pdp = 0.0f;
+    for (int j = lane; j <= i; j += 32) {
+      const float p = rs[j] * inv_sum;
+      float dpd = 0.0f;
+      for (int d = 0; d < dk; ++d) dpd += DO(i, d) * V(j, d);
+      const float r = drop.active()
+          ? cpc::dropout_factor(row_key, (uint32_t)(i * S + j),
+                                drop.threshold, drop.keep_scale)
+          : 1.0f;
+      const float dp = dpd * r;
+      pdp += p * dp;
+      rp[j] = p;
+      rs[j] = dp;
+    }
+    const float c = cpc::warp_sum(pdp);
+    for (int j = lane; j <= i; j += 32) {
+      const float p = rp[j];
+      const float r = drop.active()
+          ? cpc::dropout_factor(row_key, (uint32_t)(i * S + j),
+                                drop.threshold, drop.keep_scale)
+          : 1.0f;
+      const float ds = cpc::round_to<T>(p * (rs[j] - c) * inv_sqrt);
+      rs[j] = ds;
+      dsr[j] = cpc::from_f32<TT>(ds);
+      pdr[j] = cpc::from_f32<TT>(cpc::round_to<T>(p * r));
+    }
+    __syncwarp();
+    for (int d = lane; d < dk; d += 32) {
+      float acc = 0.0f;
+      for (int j = 0; j <= i; ++j)
+        acc += rs[j] * (Kv(j, d) + KR(j - i + S - 1, d));
+      dq[base + (size_t)i * D + d] = cpc::from_f32<T>(acc);
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+
+  // ---- by key column: dk_j, dv_j ----
+  for (int j = warp; j < S; j += n_warps) {
+    for (int d = lane; d < dk; d += 32) {
+      float a = 0.0f, bsum = 0.0f;
+      for (int i = j; i < S; ++i) {
+        a += cpc::to_f32(DS[i * S + j]) * Q(i, d);
+        bsum += cpc::to_f32(PD[i * S + j]) * DO(i, d);
+      }
+      dk_out[base + (size_t)j * D + d] = cpc::from_f32<T>(a);
+      dv[base + (size_t)j * D + d] = cpc::from_f32<T>(bsum);
+    }
+  }
+
+  // ---- by diagonal: this block's part of dkrel[:, r], r = j - i + S - 1 ----
+  float* part = dkrel_part +
+                ((size_t)(kk * n_batch + b) * nheads + h) * dk * S;
+  for (int r = warp; r < S; r += n_warps) {
+    const int delta = S - 1 - r;             // i - j
+    for (int d = lane; d < dk; d += 32) {
+      float a = 0.0f;
+      for (int i = delta; i < S; ++i)
+        a += cpc::to_f32(DS[i * S + i - delta]) * Q(i, d);
+      part[d * S + r] = a;
+    }
+  }
+}
+
 // dkrel[k][e] = sum over the n_parts (b, h) partials, in a fixed order.
 __global__ void dkrel_reduce_kernel(const float* __restrict__ part,
                                     float* __restrict__ dkrel, int n_parts,
@@ -267,15 +458,37 @@ cudaError_t launch_body(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <typename T, typename TS, bool IN_PLACE>
+cudaError_t launch_view(const void* q, const void* k, const void* v,
+                        const void* krel, const void* dout, void* dq,
+                        void* dk_out, void* dv, float* part, void* tiles,
+                        int K, int n_batch, int S, int nheads, int dk,
+                        size_t smem, cpc::Dropout drop, cudaStream_t stream) {
+  auto kernel = relpos_attention_bwd_view_kernel<T, TS, IN_PLACE>;
+  cudaError_t err = cpc::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(nheads, n_batch, K);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(krel),
+      static_cast<const T*>(dout), static_cast<T*>(dq),
+      static_cast<T*>(dk_out), static_cast<T*>(dv), part,
+      static_cast<T*>(tiles), n_batch, S, nheads, dk,
+      1.0f / sqrtf(static_cast<float>(dk)), drop);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* krel,
            const void* dout, void* dq, void* dk_out, void* dv, float* part,
            float* dkrel, void* tiles, int K, int n_batch, int S, int nheads,
            int dk, cpc::Dropout drop, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(S, dk);
-  if (smem > cpc::kSmemLimit) return (int)cudaErrorInvalidValue;
+  if (S <= 0 || dk <= 0 || smem > cpc::kSmemLimit)
+    return (int)cudaErrorInvalidValue;
   const Mode mode = mode_of<T>(S, dk);
-  if (mode == kScratch && tiles == nullptr) return (int)cudaErrorInvalidValue;
+  if (mode >= kScratch && tiles == nullptr) return (int)cudaErrorInvalidValue;
+  T* scratch = static_cast<T*>(tiles);
   cudaError_t err = cudaErrorInvalidValue;
   if (mode == kTiles)
     err = launch_body<T, float, false, false>(q, k, v, krel, dout, dq,
@@ -284,13 +497,22 @@ int launch(const void* q, const void* k, const void* v, const void* krel,
                                               drop, stream);
   else if (mode == kScratch)
     err = launch_body<T, T, true, true>(q, k, v, krel, dout, dq, dk_out, dv,
-                                        part, static_cast<T*>(tiles), K,
-                                        n_batch, S, nheads, dk, smem, drop,
-                                        stream);
-  else if constexpr (sizeof(T) < sizeof(float))   // kTilesT: bf16 only
-    err = launch_body<T, T, true, false>(q, k, v, krel, dout, dq, dk_out,
-                                         dv, part, nullptr, K, n_batch, S,
-                                         nheads, dk, smem, drop, stream);
+                                        part, scratch, K, n_batch, S, nheads,
+                                        dk, smem, drop, stream);
+  else if (mode == kInPlace)
+    err = launch_view<T, T, true>(q, k, v, krel, dout, dq, dk_out, dv, part,
+                                  tiles, K, n_batch, S, nheads, dk, smem,
+                                  drop, stream);
+  else if constexpr (sizeof(T) < sizeof(float)) {   // bf16 only
+    if (mode == kTilesT)
+      err = launch_body<T, T, true, false>(q, k, v, krel, dout, dq, dk_out,
+                                           dv, part, nullptr, K, n_batch, S,
+                                           nheads, dk, smem, drop, stream);
+    else
+      err = launch_view<T, T, false>(q, k, v, krel, dout, dq, dk_out, dv,
+                                     part, tiles, K, n_batch, S, nheads, dk,
+                                     smem, drop, stream);
+  }
   if (err != cudaSuccess) return (int)err;
   const int n_elem = dk * S;
   const dim3 rgrid((n_elem + 255) / 256, K);
@@ -301,22 +523,16 @@ int launch(const void* q, const void* k, const void* v, const void* krel,
 
 }  // namespace
 
-// Shared memory one block needs (the wrapper refuses shapes above the
-// card's 227 KB), and the bytes of device scratch for the (S, S) tiles of
-// all K * n_batch * nheads blocks where they do not fit beside the
-// operands (0 where they do).
-extern "C" size_t cpc_relpos_attention_bwd_smem(int S, int dk, int dtype) {
-  return dtype == cpc::kBFloat16 ? smem_bytes<__nv_bfloat16>(S, dk)
-                                 : smem_bytes<float>(S, dk);
-}
-
+// The bytes of device scratch for the (S, S) tiles of all
+// K * n_batch * nheads blocks where they do not fit beside the operands
+// (0 where they do).
 extern "C" size_t cpc_relpos_attention_bwd_scratch(int n_blocks, int S,
                                                    int dk, int dtype) {
   if (dtype == cpc::kBFloat16)
-    return mode_of<__nv_bfloat16>(S, dk) == kScratch
+    return mode_of<__nv_bfloat16>(S, dk) >= kScratch
                ? (size_t)n_blocks * tile_bytes<__nv_bfloat16>(S)
                : 0;
-  return mode_of<float>(S, dk) == kScratch
+  return mode_of<float>(S, dk) >= kScratch
              ? (size_t)n_blocks * tile_bytes<float>(S)
              : 0;
 }

@@ -1,0 +1,319 @@
+// The thread-block-cluster body shared by the K1 and K4 backward scans
+// (csrc/lstm_bwd.cu, csrc/gru_bwd.cu).
+//
+// Each reverse step multiplies the step's gate gradients by W_hh:
+//   dh_carry[b, :] = sum_r dgates[b, r] W_hh[r, :]   (r over the G*H gate rows)
+// The rows body reads all of W_hh from L2 on every step, once per batch
+// row.  Here one cluster of kCluster = 8 CTAs serves kRows = 16 batch rows
+// (one m16 tile; B = 32 takes two clusters) and keeps W_hh on chip for the
+// whole window: CTA c owns the J = H / 8 hidden units J_c = [c J, c J + J)
+// and their G gate rows {g H + j : j in J_c}, over all H columns (64 KB in
+// bf16 for the LSTM at H = 256, 48 KB for the GRU; twice that in f32).
+// A step is then
+//   1. the elementwise part for the CTA's own units, which needs no
+//      exchange: unit j's gate gradients depend only on dh[:, j], the
+//      carries and the residuals (each kernel writes its own);
+//   2. the partial product P_c = dgates[:, R_c] . W_hh[R_c, :], a (16, H)
+//      block: bf16 on mma.sync.m16n8k16 with float32 accumulation, the
+//      float32 dgates fed as the two-term split hi + lo (each exact in
+//      bf16; W_hh in bf16 is exact), float32 as exact FMA loops;
+//   3. a reduce-scatter over distributed shared memory: warp w pushes its
+//      columns [w J, w J + J) of P_c, which CTA w owns, into CTA w's
+//      receive buffer (st.shared::cluster), slot c;
+//   4. one cluster barrier; the next step's elementwise part sums the 8
+//      slots of its own columns in a fixed order.
+// The receive buffers alternate between two parities, so one barrier a
+// step suffices: a CTA writes parity p only after every CTA has passed the
+// barrier that ends its reads of parity p.  No atomics, and every sum runs
+// in a fixed order, so reruns are bit-identical.  The residuals of step
+// t - 1 are copied with cp.async while step t computes, each thread
+// copying only what it reads itself (so no block barrier guards them).
+//
+// What bounds it on an H100: the 128 serial steps, each a partial product
+// (0.5 MFLOP a CTA in bf16, hi and lo), a 16 KB push per CTA and a cluster
+// barrier; B = 32 runs on 16 SMs.
+#pragma once
+
+#include <cstdint>
+
+#include "common.cuh"
+#include "mma.cuh"
+
+namespace cpc {
+namespace rnn {
+
+constexpr int kCluster = 8;        // CTAs a cluster (portable size)
+constexpr int kThreads = 256;      // warp w serves the columns CTA w owns
+constexpr int kRows = 16;          // batch rows a cluster (one m16 tile)
+
+// A thread owns pairs of adjacent units of one batch row: pair p is row
+// p / (J / 2), units 2 (p % (J / 2)) and + 1 of the CTA's J.
+template <int J>
+struct Pair {
+  int row;    // within the cluster's kRows
+  int unit;   // within the CTA's J (even)
+  __device__ __forceinline__ explicit Pair(int p)
+      : row(p / (J / 2)), unit(2 * (p % (J / 2))) {}
+};
+
+constexpr size_t round16(size_t n) { return (n + 15) / 16 * 16; }
+
+// Shared-memory layout of a CTA: W_hh's G J rows (bf16 with 8 elements of
+// padding a row, so that ldmatrix rows hit distinct banks), the A tile of
+// the step's dgates (bf16 hi and lo, or float32), the two receive
+// parities (kCluster, kRows, J) float32, a float32 state per own unit
+// (the LSTM's dc, the GRU's dh * z) and two residual slots of SLOT bytes a
+// pair.
+template <typename T, int G, int J, int SLOT>
+struct Layout {
+  static constexpr bool kMma = sizeof(T) < sizeof(float);
+  static constexpr int kJ = J, H = kCluster * J, GJ = G * J;
+  static constexpr int P = kRows * J / 2;
+  static constexpr int ldw = kMma ? H + 8 : H;
+  static constexpr int lda = kMma ? GJ + 8 : GJ + 4;
+  static constexpr size_t w = 0;
+  static constexpr size_t a = w + round16((size_t)GJ * ldw * sizeof(T));
+  static constexpr size_t recv =
+      a + round16((size_t)(kMma ? 2 : 1) * kRows * lda * sizeof(T));
+  static constexpr size_t state =
+      recv + (size_t)2 * kCluster * kRows * J * sizeof(float);
+  static constexpr size_t slot_bytes = round16((size_t)SLOT * P);
+  static constexpr size_t ring = state + (size_t)kRows * J * sizeof(float);
+  static constexpr size_t bytes = ring + 2 * slot_bytes;
+};
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+// All threads of all CTAs of the cluster: prior shared-memory writes,
+// local and remote, are visible to every thread after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// (x, y) to the shared memory of CTA `rank` at the address that `local`
+// has in this CTA.
+__device__ __forceinline__ void store_remote(const float* local, int rank,
+                                             float x, float y) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(addr)
+               : "r"(mma::smem_addr(local)), "r"(rank));
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr),
+               "f"(x), "f"(y)
+               : "memory");
+}
+
+// Asynchronous copy of 4 or 8 bytes, global -> shared.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   mma::smem_addr(dst)),
+               "l"(src), "n"(BYTES)
+               : "memory");
+}
+
+// Two adjacent elements of T as the residual slots hold them.
+template <typename T>
+struct Two;
+template <>
+struct Two<float> {
+  using type = float2;
+  __device__ __forceinline__ static float2 f32(float2 v) { return v; }
+};
+template <>
+struct Two<__nv_bfloat16> {
+  using type = __nv_bfloat162;
+  __device__ __forceinline__ static float2 f32(__nv_bfloat162 v) {
+    return __bfloat1622float2(v);
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ void copy_two(typename Two<T>::type* dst,
+                                         const T* src) {
+  cp_async<2 * sizeof(T)>(dst, src);
+}
+
+template <typename T>
+__device__ __forceinline__ float2 load_two(const T* src) {
+  return Two<T>::f32(*reinterpret_cast<const typename Two<T>::type*>(src));
+}
+
+// Stage the CTA's gate rows of W_hh, row g J + u = W_hh[g H + c J + u, :],
+// with cp.async (the caller commits and waits).
+template <typename L, typename T>
+__device__ __forceinline__ void load_w(T* ws, const T* __restrict__ w_hh,
+                                       int c) {
+  constexpr int per = 16 / (int)sizeof(T);        // elements a 16-B chunk
+  constexpr int chunks = L::H / per;              // chunks a row
+  for (int idx = threadIdx.x; idx < L::GJ * chunks; idx += kThreads) {
+    const int k = idx / chunks;
+    const int q = idx - k * chunks;
+    const T* src =
+        w_hh + ((size_t)(k / L::kJ) * L::H + c * L::kJ + k % L::kJ) * L::H +
+        q * per;
+    mma::cp_async16(ws + k * L::ldw + q * per, src, true);
+  }
+}
+
+// The A tile entries of gate g, units (u, u + 1) of batch row `row`:
+// bf16 hi and lo of the float32 values, or the values.
+template <typename L>
+__device__ __forceinline__ void put_a(unsigned char* smem, int row, int g,
+                                      int u, float x0, float x1) {
+  const int k = g * L::kJ + u;
+  if constexpr (L::kMma) {
+    mma::bf16* hi = reinterpret_cast<mma::bf16*>(smem + L::a);
+    mma::bf16* lo = hi + kRows * L::lda;
+    uint32_t h, l;
+    mma::split_pair(h, l, x0, x1);
+    *reinterpret_cast<uint32_t*>(hi + row * L::lda + k) = h;
+    *reinterpret_cast<uint32_t*>(lo + row * L::lda + k) = l;
+  } else {
+    float* a = reinterpret_cast<float*>(smem + L::a);
+    *reinterpret_cast<float2*>(a + row * L::lda + k) = make_float2(x0, x1);
+  }
+}
+
+// This CTA's carry from the last step's product for (row, units u, u+1):
+// the kCluster slots of parity `par`, summed in a fixed order.
+template <typename L>
+__device__ __forceinline__ float2 gather(const unsigned char* smem, int par,
+                                         int row, int u) {
+  constexpr int J = L::kJ;
+  const float* r = reinterpret_cast<const float*>(smem + L::recv) +
+                   (size_t)par * kCluster * kRows * J + row * J + u;
+  float2 s = *reinterpret_cast<const float2*>(r);
+#pragma unroll
+  for (int c = 1; c < kCluster; ++c) {
+    const float2 v = *reinterpret_cast<const float2*>(r + c * kRows * J);
+    s.x += v.x;
+    s.y += v.y;
+  }
+  return s;
+}
+
+// Step 2 and 3: P_c = A . W_slice, warp w's columns [w J, w J + J) pushed
+// into slot c of CTA w's receive parity `par`.
+template <typename L>
+__device__ __forceinline__ void product_push(unsigned char* smem, int c,
+                                             int par) {
+  constexpr int J = L::kJ;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  // this CTA's address of slot c of parity par; CTA `warp` gets the data
+  float* slot = reinterpret_cast<float*>(smem + L::recv) +
+                ((size_t)par * kCluster + c) * kRows * J;
+  if constexpr (L::kMma) {
+    constexpr int NT = J / 8;
+    const mma::bf16* ws = reinterpret_cast<const mma::bf16*>(smem + L::w);
+    const mma::bf16* hi = reinterpret_cast<const mma::bf16*>(smem + L::a);
+    const mma::bf16* lo = hi + kRows * L::lda;
+    // hi and lo products in separate accumulators: two dependence chains
+    float acc_h[NT][4], acc_l[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_h[n][e] = acc_l[n][e] = 0.0f;
+#pragma unroll
+    for (int k0 = 0; k0 < L::GJ; k0 += 16) {
+      uint32_t ah[4], al[4];
+      mma::load_a(ah, hi, L::lda, 0, k0);
+      mma::load_a(al, lo, L::lda, 0, k0);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        mma::load_b_kmajor(b, ws, L::ldw, k0, warp * J + np * 16);
+        mma::mma_bf16(acc_h[2 * np], ah, b[0], b[1]);
+        mma::mma_bf16(acc_l[2 * np], al, b[0], b[1]);
+        mma::mma_bf16(acc_h[2 * np + 1], ah, b[2], b[3]);
+        mma::mma_bf16(acc_l[2 * np + 1], al, b[2], b[3]);
+      }
+    }
+    const int g = lane >> 2;
+    const int tq = lane & 3;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int u = n * 8 + 2 * tq;
+      store_remote(slot + g * J + u, warp, acc_h[n][0] + acc_l[n][0],
+                   acc_h[n][1] + acc_l[n][1]);
+      store_remote(slot + (g + 8) * J + u, warp, acc_h[n][2] + acc_l[n][2],
+                   acc_h[n][3] + acc_l[n][3]);
+    }
+  } else {
+    // lane = (k-slice ks, column pair cp): rows k in chunks of 4, chunk
+    // ks, ks + NKS, ...; the slices meet in a xor butterfly (x + y and
+    // y + x are equal, so every lane holds the same sums)
+    constexpr int CP = J / 2, NKS = 32 / CP;
+    const float* ws = reinterpret_cast<const float*>(smem + L::w);
+    const float* a = reinterpret_cast<const float*>(smem + L::a);
+    const int cp = lane % CP;
+    const int ks = lane / CP;
+    const int col = warp * J + 2 * cp;
+    float acc[kRows][2];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r][0] = acc[r][1] = 0.0f;
+    for (int k4 = 4 * ks; k4 < L::GJ; k4 += 4 * NKS) {
+      float2 w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        w[e] = *reinterpret_cast<const float2*>(ws + (k4 + e) * L::ldw + col);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float4 x = *reinterpret_cast<const float4*>(a + r * L::lda + k4);
+        acc[r][0] = fmaf(x.x, w[0].x, acc[r][0]);
+        acc[r][1] = fmaf(x.x, w[0].y, acc[r][1]);
+        acc[r][0] = fmaf(x.y, w[1].x, acc[r][0]);
+        acc[r][1] = fmaf(x.y, w[1].y, acc[r][1]);
+        acc[r][0] = fmaf(x.z, w[2].x, acc[r][0]);
+        acc[r][1] = fmaf(x.z, w[2].y, acc[r][1]);
+        acc[r][0] = fmaf(x.w, w[3].x, acc[r][0]);
+        acc[r][1] = fmaf(x.w, w[3].y, acc[r][1]);
+      }
+    }
+#pragma unroll
+    for (int o = CP; o < 32; o <<= 1)
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        acc[r][0] += __shfl_xor_sync(0xffffffffu, acc[r][0], o);
+        acc[r][1] += __shfl_xor_sync(0xffffffffu, acc[r][1], o);
+      }
+    if (ks == 0)
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        store_remote(slot + r * J + 2 * cp, warp, acc[r][0], acc[r][1]);
+  }
+}
+
+// Launch `kernel` on ceil(B / kRows) clusters of kCluster CTAs.  A cluster
+// that cannot be scheduled returns its error; nothing else runs instead.
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, int B, size_t smem, cudaStream_t stream,
+                   Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster, (B + kRows - 1) / kRows, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace rnn
+}  // namespace cpc

@@ -40,14 +40,14 @@ _SIGNATURES = {
     # gates, cs, c0, dys, w_hh, dhT, dcT, dgates, dh0, dc0, B, T, H, dtype,
     # stream
     "cpc_lstm_bwd": ([_P] * 10 + [_I] * 4 + [_P], _I),
+    # H, dtype
+    "cpc_lstm_bwd_body": ([_I, _I], _I),
     # q, k, v, krel, out, K, n_batch, S, nheads, dk, dropout, dtype, stream
     "cpc_relpos_attention_fwd": ([_P] * 5 + [_I] * 5 + _DROP + [_I, _P], _I),
     # q, k, v, krel, dout, dq, dk, dv, dkrel, part, tiles, K, n_batch, S,
     # nheads, dk, dropout, dtype, stream
     "cpc_relpos_attention_bwd": ([_P] * 11 + [_I] * 5 + _DROP + [_I, _P],
                                  _I),
-    # S, dk, dtype
-    "cpc_relpos_attention_bwd_smem": ([_I] * 3, ctypes.c_size_t),
     # blocks, S, dk, dtype
     "cpc_relpos_attention_bwd_scratch": ([_I] * 4, ctypes.c_size_t),
     # x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, out, K, M, D, F, eps,
@@ -67,6 +67,8 @@ _SIGNATURES = {
     # gates, ghn, h0, ys, dys, w_hh, dhT, dx, dghn, dh0, B, T, H, dtype,
     # stream
     "cpc_gru_bwd": ([_P] * 10 + [_I] * 4 + [_P], _I),
+    # H, dtype
+    "cpc_gru_bwd_body": ([_I, _I], _I),
     # q, k, v, bias, out, N, S, dk, layer, dropout, dtype, stream
     "cpc_causal_attention_fwd": ([_P] * 5 + [_I] * 4 + _DROP + [_I, _P], _I),
     # q, k, v, bias, dout, dq, dk, dv, dbias, scratch, N, S, dk, layer,

@@ -15,7 +15,8 @@ the input dtype.
   training, saves the gates r, z, n (B, T, 3H) and ``ghn = h . W_hn^T +
   b_hn`` (B, T, H), both float32;
 * :func:`gru_bwd` is the reverse scan (csrc/gru_bwd.cu) giving float32
-  dx_proj = (dr, dz, dn), dghn and dh0.  The gradient of ``h . W_hh^T +
+  dx_proj = (dr, dz, dn), dghn and dh0, with K1's two bodies (a
+  thread-block cluster at H = 128 and 256, :func:`bwd_body`).  The gradient of ``h . W_hh^T +
   b_hh`` is dgh = (dr, dz, dghn): its first two thirds are dx_proj's, so
   only dghn is written;
 * :func:`gru` is the differentiable entry point: a
@@ -38,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .lstm import MAX_H, pad_gates, pad_weight
+from .lstm import CLUSTER_H, MAX_H, cluster_smem, pad_gates, pad_weight
 
 _NAME = "gru_fwd"
 _BWD_NAME = "gru_bwd"
@@ -56,6 +57,14 @@ def supported(H: int) -> Optional[str]:
     if not 0 < padded_hidden(H) <= MAX_H:
         return f"hidden width H={H} must be in [1, {MAX_H}]"
     return None
+
+
+def bwd_body(H: int, dtype: torch.dtype) -> str:
+    """The body csrc/gru_bwd.cu runs at hidden width H: "cluster" or
+    "rows" (``cpc_gru_bwd_body``)."""
+    el = torch.empty((), dtype=dtype).element_size()
+    fits = cluster_smem(H, 3, dtype, 4 * 8 + 4 * el) <= _build.SMEM_LIMIT
+    return "cluster" if H in CLUSTER_H and fits else "rows"
 
 
 def gru_scan_ref(x_proj: torch.Tensor, w_hh: torch.Tensor,
@@ -178,7 +187,8 @@ def gru_bwd(gates: torch.Tensor, ghn: torch.Tensor, h0: torch.Tensor,
     Returns float32 (dx_proj, dghn, dh0).
 
     CPU tensors run :func:`gru_bwd_ref`; CUDA tensors launch the kernel
-    (csrc/gru_bwd.cu) and add one to ``gru_bwd.launches``."""
+    (csrc/gru_bwd.cu) and add one to ``gru_bwd.launches`` and to
+    ``gru_bwd.body_launches`` of the body it runs (:func:`bwd_body`)."""
     if not _build.runs_kernel(_BWD_NAME, gates, ghn, h0, ys, dys, w_hh, dhT):
         return gru_bwd_ref(gates, ghn, h0, ys, dys, w_hh, dhT)
     B, T, G = gates.shape
@@ -197,6 +207,7 @@ def gru_bwd(gates: torch.Tensor, ghn: torch.Tensor, h0: torch.Tensor,
                    f"{tuple(ghn.shape)}, ys {tuple(ys.shape)}, dys "
                    f"{tuple(dys.shape)}, w_hh {tuple(w_hh.shape)}")
     _check_hidden(_BWD_NAME, B, T, H)
+    _build.require_aligned(_BWD_NAME, w_hh=w_hh)
     dev = gates.device
     dx = torch.empty_like(gates)
     dghn = torch.empty_like(ghn)
@@ -210,10 +221,12 @@ def gru_bwd(gates: torch.Tensor, ghn: torch.Tensor, h0: torch.Tensor,
             _build.DTYPE_CODES[dys.dtype], _build.stream(dev))
     _build.check(status, _BWD_NAME)
     gru_bwd.launches += 1
+    gru_bwd.body_launches[bwd_body(H, dys.dtype)] += 1
     return dx, dghn, dh0
 
 
 gru_bwd.launches = 0
+gru_bwd.body_launches = {"cluster": 0, "rows": 0}
 
 
 class _GRU(torch.autograd.Function):

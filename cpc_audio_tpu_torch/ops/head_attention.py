@@ -22,8 +22,11 @@ runs the K2 forward kernel (csrc/relpos_attention_fwd.cu, counted in
 (csrc/relpos_attention_bwd.cu, counted in
 ``relpos_attention_bwd.launches``).  CPU tensors take the plain versions.
 
-Each block stages its head's q, k, v (and do, krel) as float32 in shared
-memory: :func:`supported` gives the (S, dk) that fit, without a card.
+Each block stages its head's operands in shared memory: as float32 at
+the default shapes, in bf16 where float32 does not fit (bf16 inputs), and
+past that the kernels read them in place; each kernel picks its layout
+from (S, dk) at compile time, and :func:`supported` gives the (S, dk)
+they take, without a card.
 """
 
 from __future__ import annotations
@@ -37,28 +40,15 @@ from . import _build, dropout
 
 _NAME = "relpos_attention_fwd"
 _BWD_NAME = "relpos_attention_bwd"
-_WARPS = 8                       # warps a block, both kernels
-
-
-def _smem(S: int, dk: int) -> Tuple[int, int]:
-    """Shared memory of a forward and of a backward block, as
-    csrc/relpos_attention_{fwd,bwd}.cu lay it out: float32 operand tiles
-    and per-warp rows; the backward's least (its (S, S) tiles go to device
-    memory when they do not fit beside those)."""
-    fwd = (3 * S * dk + S + dk * S + _WARPS * S) * 4
-    bwd = (2 * S * dk + 3 * S * (dk + 1) + _WARPS * 2 * S) * 4
-    return fwd, bwd
+MAX_S, MAX_DK = 512, 128         # K5's range (ops/causal_attention.py)
 
 
 def supported(S: int, dk: int) -> Optional[str]:
     """Why the kernels refuse a sequence length S and head width dk, or
-    None."""
-    if S <= 0 or dk <= 0:
-        return f"S={S}, dk={dk} out of range"
-    fwd, bwd = _smem(S, dk)
-    if max(fwd, bwd) > _build.SMEM_LIMIT:
-        return (f"S={S}, dk={dk} needs {max(fwd, bwd)} bytes of shared "
-                f"memory (at most {_build.SMEM_LIMIT})")
+    None: K5's range, S <= 512 and dk <= 128, in both dtypes (past their
+    shared memory the operands are read in place)."""
+    if not (0 < S <= MAX_S and 0 < dk <= MAX_DK):
+        return f"S={S}, dk={dk} out of range (S <= {MAX_S}, dk <= {MAX_DK})"
     return None
 
 
@@ -204,8 +194,6 @@ def relpos_attention_bwd(q, k, v, krel, dout, n_batch: int, nheads: int,
                         dout=dout)
     lib = _build.library()
     code = _build.DTYPE_CODES[q.dtype]
-    smem = lib.cpc_relpos_attention_bwd_smem(S, dk, code)
-    _build.require_smem(_BWD_NAME, smem, f"S={S}, dk={dk}")
     dq, dkk, dv = (torch.empty_like(q) for _ in range(3))
     dkrel = torch.empty((K, dk, S), dtype=torch.float32, device=q.device)
     part = torch.empty((K, n_batch * nheads, dk, S), dtype=torch.float32,

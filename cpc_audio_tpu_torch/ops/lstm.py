@@ -11,7 +11,11 @@ float32 whatever the input dtype; outputs are rounded to the input dtype.
 * :func:`lstm_fwd` runs the recurrence (csrc/lstm_fwd.cu) and, for
   training, saves the gate activations and cell states (float32);
 * :func:`lstm_bwd` is the reverse scan (csrc/lstm_bwd.cu) giving float32
-  dgates, dh0 and dc0;
+  dgates, dh0 and dc0.  The kernel has two bodies, picked from H and the
+  dtype before it launches: at H = 128 and 256 a thread-block cluster
+  keeps W_hh on chip (csrc/rnn_cluster.cuh), elsewhere one block a batch
+  row reads it from L2 every step; :func:`bwd_body` mirrors that choice
+  without a card;
 * :func:`lstm` is the differentiable entry point: a
   ``torch.autograd.Function`` over the two, with dW_hh = h_prev^T dgates
   as one matmul, as rnn.py:223-226.  It takes any H up to 2048: where the
@@ -37,6 +41,7 @@ _NAME = "lstm_fwd"
 _BWD_NAME = "lstm_bwd"
 MULTIPLE = 8          # the kernels' H: 4H whole 32-row tiles
 MAX_H = 2048          # the backward's H / 2 <= 1024 threads
+CLUSTER_H = (128, 256)    # the backward's cluster body: J = H / 8 of 16, 32
 
 
 def padded_hidden(H: int) -> int:
@@ -57,6 +62,33 @@ def _kernel_hidden(name: str, B: int, T: int, H: int) -> None:
                    and supported(H) is None, name,
                    f"B={B}, T={T}, H={H} out of range (H % 8 == 0, <= "
                    f"{MAX_H})")
+
+
+def cluster_smem(H: int, n_gates: int, dtype: torch.dtype,
+                 slot: int) -> int:
+    """Shared memory of one CTA of the backward's cluster body, as
+    ``cpc::rnn::Layout`` (csrc/rnn_cluster.cuh) lays it out: W_hh's
+    n_gates * H / 8 rows (bf16 rows padded by 8), the A tile (bf16 hi and
+    lo, or float32 padded by 4), two receive parities, one float32 state
+    per unit and two residual slots of ``slot`` bytes per unit pair."""
+    el = torch.empty((), dtype=dtype).element_size()
+    mma = el < 4
+    J, rows = H // 8, 16
+    GJ, pairs = n_gates * J, rows * J // 2
+
+    def r16(n):
+        return -(-n // 16) * 16
+    w = r16(GJ * (H + 8 if mma else H) * el)
+    a = r16((2 if mma else 1) * rows * (GJ + 8 if mma else GJ + 4) * el)
+    return w + a + 2 * 8 * rows * J * 4 + rows * J * 4 + 2 * r16(slot * pairs)
+
+
+def bwd_body(H: int, dtype: torch.dtype) -> str:
+    """The body csrc/lstm_bwd.cu runs at hidden width H: "cluster" or
+    "rows" (``cpc_lstm_bwd_body``)."""
+    el = torch.empty((), dtype=dtype).element_size()
+    fits = cluster_smem(H, 4, dtype, 5 * 8 + 2 * el) <= _build.SMEM_LIMIT
+    return "cluster" if H in CLUSTER_H and fits else "rows"
 
 
 def pad_gates(t: torch.Tensor, n_gates: int, H: int, Hp: int) -> torch.Tensor:
@@ -184,7 +216,8 @@ def lstm_bwd(gates: torch.Tensor, cs: torch.Tensor, c0: torch.Tensor,
     float32 (dgates, dh0, dc0).
 
     CPU tensors run :func:`lstm_bwd_ref`; CUDA tensors launch the kernel
-    (csrc/lstm_bwd.cu) and add one to ``lstm_bwd.launches``."""
+    (csrc/lstm_bwd.cu) and add one to ``lstm_bwd.launches`` and to
+    ``lstm_bwd.body_launches`` of the body it runs (:func:`bwd_body`)."""
     if not _build.runs_kernel(_BWD_NAME, gates, cs, c0, dys, w_hh, dhT, dcT):
         return lstm_bwd_ref(gates, cs, c0, dys, w_hh, dhT, dcT)
     B, T, G = gates.shape
@@ -214,10 +247,12 @@ def lstm_bwd(gates: torch.Tensor, cs: torch.Tensor, c0: torch.Tensor,
             _build.DTYPE_CODES[dys.dtype], _build.stream(dev))
     _build.check(status, _BWD_NAME)
     lstm_bwd.launches += 1
+    lstm_bwd.body_launches[bwd_body(H, dys.dtype)] += 1
     return dgates, dh0, dc0
 
 
 lstm_bwd.launches = 0
+lstm_bwd.body_launches = {"cluster": 0, "rows": 0}
 
 
 def _zeros_or(t: Optional[torch.Tensor], like: torch.Tensor) -> torch.Tensor:

@@ -167,14 +167,16 @@ def test_lstm_bwd_kernel(dev, dtype, B, T, H):
 
 @pytest.mark.parametrize("rate", RATES)
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("S,dk", [(116, 32), (20, 16), (116, 64), (244, 32)])
+@pytest.mark.parametrize("S,dk", [(116, 32), (20, 16), (116, 64), (244, 32),
+                                  (244, 64)])
 def test_relpos_attention_bwd_kernel(dev, dtype, S, dk, rate):
     """Forward at the rate, then the backward, each against its plain
     version with the same seed: at rate 0.1 a mask that differed between
     the kernel and dropout.py would fail both.  (116, 64) is the heads of
     --hiddenEncoder 512 (the backward's bf16 tiles in shared memory, the
     float32 ones in device memory), (244, 32) those of --sizeWindow 40960
-    (device-memory tiles in both dtypes)."""
+    (device-memory tiles in both dtypes), (244, 64) those of both flags
+    (operands staged in bf16, read in place in float32)."""
     rng = np.random.RandomState(S + dk)
     K, B, h = 2, 3, 2
     args = [_rand(rng, dev, dtype, K, B * S, h * dk) for _ in range(3)]
@@ -243,9 +245,9 @@ def test_backward_wrappers_reject_what_kernels_do_not_take(dev):
                       torch.zeros(64, 16, device=dev, dtype=f16),
                       torch.zeros(2, 16, device=dev),
                       torch.zeros(2, 16, device=dev))
-    S, dk = 400, 64          # the operand tiles alone exceed 227 KB
+    S, dk = 600, 64          # past K2's range, S <= 512
     q = torch.zeros(1, S, dk, device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="out of range"):
         head_attention.relpos_attention_bwd(
             q, q, q, torch.zeros(1, dk, S, device=dev), q, 1, 1)
     with pytest.raises(ValueError, match="needs a seed"):
@@ -395,20 +397,72 @@ def test_recurrence_at_h100_pads_to_the_kernels(dev, dtype, mode):
 
 def test_python_gates_mirror_the_kernels_shared_memory(dev):
     """The pure gates (no card needed) compute the shared memory the C
-    entry points report, for K2's backward and K3's backward."""
+    entry point reports for K3's backward, and the body K1's and K4's
+    backward run."""
     from cpc_audio_tpu_torch.ops import _build
     lib = _build.library()
-    for S, dk in ((116, 32), (116, 64), (244, 32), (20, 16)):
-        operands = head_attention._smem(S, dk)[1]
-        for dt in DTYPES:
-            smem = lib.cpc_relpos_attention_bwd_smem(S, dk,
-                                                     _build.DTYPE_CODES[dt])
-            # the operands, and the (S, S) tiles where they fit beside them
-            assert smem == operands or operands < smem <= _build.SMEM_LIMIT
     for D, F in ((256, 2048), (512, 2048), (64, 128), (32, 64)):
         for dt in DTYPES:
             assert lib.cpc_layer_tail_bwd_smem(
                 D, F, _build.DTYPE_CODES[dt]) == ffn._bwd_smem(D, F, dt)
+    for H in (32, 64, 104, 128, 192, 256, 384, 512, 2048):
+        for dt in DTYPES:
+            code = _build.DTYPE_CODES[dt]
+            assert lib.cpc_lstm_bwd_body(H, code) == (
+                lstm.bwd_body(H, dt) == "cluster"), (H, dt)
+            assert lib.cpc_gru_bwd_body(H, code) == (
+                gru.bwd_body(H, dt) == "cluster"), (H, dt)
+
+
+def _rel_norm(got, want):
+    return ((got.float() - want.float()).norm()
+            / want.float().norm().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode", ["LSTM", "GRU"])
+@pytest.mark.parametrize("B,T,H", [(32, 128, 256), (3, 9, 256), (5, 7, 128),
+                                   (3, 9, 512)])
+def test_recurrent_bwd_bodies(dev, mode, dtype, B, T, H):
+    """K1's and K4's backward at the train shape, at batches that leave a
+    cluster's 16 rows part empty, at H = 128 (the cluster body's narrow
+    tile) and at H = 512 (the rows body): each output against its plain
+    version within chip_smoke's 1e-4 of the 2-norm, the body counted as
+    the Python mirror says, and a rerun bit-identical."""
+    rng = np.random.RandomState(B + T + H)
+    G = 4 if mode == "LSTM" else 3
+    mod = lstm if mode == "LSTM" else gru
+    xp = _rand(rng, dev, dtype, B, T, G * H)
+    w = _rand(rng, dev, dtype, G * H, H, scale=H ** -0.5)
+    h0 = _rand(rng, dev, dtype, B, H, scale=0.1)
+    dys = _rand(rng, dev, dtype, B, T, H, scale=0.1)
+    dhT = _rand(rng, dev, torch.float32, B, H, scale=0.1)
+    if mode == "LSTM":
+        c0 = _rand(rng, dev, dtype, B, H, scale=0.1)
+        gates, cs = lstm.lstm_scan_ref(xp, w, h0, c0,
+                                       save_residuals=True)[3:]
+        dcT = _rand(rng, dev, torch.float32, B, H, scale=0.1)
+        args = (gates, cs, c0, dys, w, dhT, dcT)
+        kernel, plain = lstm.lstm_bwd, lstm.lstm_bwd_ref
+    else:
+        b_hh = _rand(rng, dev, dtype, G * H, scale=0.1)
+        ys, _, gates, ghn = gru.gru_scan_ref(xp, w, b_hh, h0,
+                                             save_residuals=True)
+        args = (gates, ghn, h0, ys, dys, w, dhT)
+        kernel, plain = gru.gru_bwd, gru.gru_bwd_ref
+    body = mod.bwd_body(H, dtype)
+    assert body == ("rows" if H == 512 else "cluster")
+    before = dict(kernel.body_launches)
+    got = kernel(*args)
+    again = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.body_launches[body] == before[body] + 2
+    for i, (g, w_) in enumerate(zip(got, plain(*args))):
+        assert g.shape == w_.shape and g.dtype == w_.dtype
+        err = _rel_norm(g, w_)
+        assert err <= 1e-4, f"output {i}: rel_norm_err {err:.3e}"
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
 
 
 # ---- K6 (the heads' whole attention block) and K7 (fused conv layer) --------

@@ -3,7 +3,9 @@ against the JAX package's own gates and paths:
 
 * each kernel module's ``supported`` over the configs users run (the
   default, ``--hiddenEncoder 512 --hiddenGar 512``, ``--hiddenGar 100``
-  with LSTM and GRU, ``--sizeWindow 40960``): the port takes every shape
+  with LSTM and GRU, ``--sizeWindow 40960``, and ``--sizeWindow 40960
+  --hiddenEncoder 512``, where JAX's K2 gate refuses and its jnp
+  attention runs): the port takes every shape
   that JAX's Pallas gates take, and ``build_model`` / ``build_criterion``
   build them;
 * ``build_model`` / ``build_criterion`` refusing a config the port cannot
@@ -67,6 +69,8 @@ CONFIGS = {
     "sizeWindow 40960": dict(sizeWindow=40960),
     "sizeWindow 40960 transformer": dict(sizeWindow=40960,
                                          arMode="transformer"),
+    "sizeWindow 40960 512": dict(sizeWindow=40960, hiddenEncoder=512,
+                                 hiddenGar=512),
 }
 
 
@@ -117,8 +121,6 @@ REFUSED = [
     ("criterion", dict(hiddenGar=100), {}, "--hiddenGar 100"),
     ("criterion", dict(hiddenEncoder=544, hiddenGar=544), {},
      "--hiddenEncoder 544"),
-    ("criterion", dict(hiddenEncoder=512, hiddenGar=512, sizeWindow=40960),
-     {}, "--sizeWindow 40960 / --hiddenEncoder 512"),
 ]
 
 
