@@ -18,9 +18,14 @@ Phases (any failure exits non-zero):
      at the widths of --hiddenEncoder 512 --hiddenGar 512 (dk 64, D 512,
      bf16), K2 at those of --sizeWindow 40960 --hiddenEncoder 512 (S 244,
      dk 64, both dtypes); K8 also with all keys on one row (bf16), and the
-     time of its whole wrapper (sort + searchsorted + K8); then time the
+     time of its whole wrapper (sort + searchsorted + K8); K3's bf16
+     backward, at each of its three shapes, must rerun bit-identically,
+     and prints the device time of each of its launches (LN1, G1-G6, the
+     sums over tiles); then time the
      yardstick PyTorch call where one computes the same function (cuDNN
-     LSTM/GRU, scaled_dot_product_attention, index_add_), K1's and K4's
+     LSTM/GRU, scaled_dot_product_attention, index_add_; also cuDNN's
+     LSTM at B 8, T 256, H 512 beside K1 there, and SDPA at dk 64 beside
+     K5 at rate 0, in turns), K1's and K4's
      backward beside cuDNN's in both dtypes and the port's whole LSTM and
      GRU layers beside cuDNN's, in turns, K5 at rate 0 beside SDPA, and
      for K7 the port's unfused encoder layers (cuDNN conv + ChannelNorm +
@@ -306,7 +311,7 @@ def kernel_cases(dev: torch.device, dtype: torch.dtype, B: int = 32):
                  lambda r=rate: ffn.layer_tail_fwd(*tail_args, r, 1e-5, seed),
                  lambda r=rate: ffn.layer_tail_ref(*tail_args, 1e-5, r, seed),
                  tail_args, 2 * 2 * K * M * D * F),
-            # the recompute design's six products
+            # six products (bf16: the six GEMMs G1-G6)
             Case("layer_tail_bwd", rate,
                  lambda r=rate: ffn.layer_tail_bwd(*tail_args, tail_dout, r,
                                                    1e-5, seed),
@@ -631,7 +636,9 @@ SOURCES = {
                              "cpc_audio_tpu/ops/pallas/head_attention.py:158"),
     "layer_tail_fwd": ("cpc_audio_tpu_torch/csrc/layer_tail_fwd.cu",
                        "cpc_audio_tpu/ops/pallas/ffn.py:88"),
-    "layer_tail_bwd": ("cpc_audio_tpu_torch/csrc/layer_tail_bwd.cu",
+    # the bf16 body, which the reported numbers time; the float32 body is
+    # csrc/layer_tail_bwd.cu
+    "layer_tail_bwd": ("cpc_audio_tpu_torch/csrc/layer_tail_bwd_tc.cu",
                        "cpc_audio_tpu/ops/pallas/ffn.py:121"),
     "gru_fwd": ("cpc_audio_tpu_torch/csrc/gru_fwd.cu",
                 "cpc_audio_tpu/ops/pallas/rnn.py:238"),
@@ -693,7 +700,6 @@ def library_calls(dev: torch.device, dtype: torch.dtype, B: int = 32):
     bias as a float mask, at rate 0; K8: index_add_ into float32 zeros.
     K2 and K3 have none: no single call applies the rel-pos skew, or LN ->
     FFN -> residual -> LN."""
-    import torch.nn.functional as F
     g = torch.Generator(device=dev).manual_seed(SEED + 7)
 
     def rand(*shape, scale=1.0, grad=False):
@@ -707,24 +713,12 @@ def library_calls(dev: torch.device, dtype: torch.dtype, B: int = 32):
                                      f"input projection included")
         calls[f"{kind}_bwd"] = (bwd, f"autograd backward of cuDNN nn.{cls}, "
                                      f"dx and dW")
-    S, dk, nh = 128, 32, 8
-    q, k, v = (rand(B, nh, S, dk, grad=True) for _ in range(3))
-    causal = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
-    mask = (rand(B, nh, S, S, scale=0.5) / dk ** 0.5).masked_fill(
-        ~causal, float("-inf")).requires_grad_(True)
-    with torch.no_grad():
-        calls["causal_attention_fwd"] = (
-            lambda: F.scaled_dot_product_attention(q.detach(), k.detach(),
-                                                   v.detach(),
-                                                   attn_mask=mask.detach()),
-            "F.scaled_dot_product_attention, float mask bias/sqrt(dk) with "
-            "-inf above the diagonal, rate 0")
-    o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
-    do = rand(B, nh, S, dk, scale=0.1)
+    sdpa = sdpa_calls(rand, B, 32)
+    calls["causal_attention_fwd"] = (
+        sdpa[0], "F.scaled_dot_product_attention, float mask bias/sqrt(dk) "
+        "with -inf above the diagonal, rate 0")
     calls["causal_attention_bwd"] = (
-        lambda: torch.autograd.grad(o, [q, k, v, mask], do,
-                                    retain_graph=True),
-        "autograd backward of that call: dq, dk, dv, dmask, rate 0")
+        sdpa[1], "autograd backward of that call: dq, dk, dv, dmask, rate 0")
     upd, keys, _, _, R = scatter_inputs(dev, dtype, B)
     calls["scatter_add_rows"] = (
         lambda: torch.zeros(R, upd.shape[1], device=dev).index_add_(
@@ -732,6 +726,65 @@ def library_calls(dev: torch.device, dtype: torch.dtype, B: int = 32):
         "torch.zeros(R, C).index_add_(0, keys, updates.float()), float32 "
         "atomics")
     return calls
+
+
+def sdpa_calls(rand, B: int, dk: int, S: int = 128, nh: int = 8):
+    """SDPA on (B, nh, S, dk) with the bias as a float mask (-inf above the
+    diagonal), rate 0: (forward call, backward call forming dq, dk, dv and
+    dmask), timed as a yardstick only.  rand(*shape, scale, grad)."""
+    import torch.nn.functional as F
+    q, k, v = (rand(B, nh, S, dk, grad=True) for _ in range(3))
+    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    mask = (rand(B, nh, S, S, scale=0.5) / dk ** 0.5).masked_fill(
+        ~causal, float("-inf")).requires_grad_(True)
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    do = rand(B, nh, S, dk, scale=0.1)
+    qd, kd, vd, md = (t.detach() for t in (q, k, v, mask))
+    return (lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=md),
+            lambda: torch.autograd.grad(o, [q, k, v, mask], do,
+                                        retain_graph=True))
+
+
+def wide_yardsticks(dev: torch.device, shaped: dict, B: int = 32) -> None:
+    """The one-call yardsticks at the wider paths' shapes, bf16: cuDNN's
+    nn.LSTM at B 8, T 256, H 512 (the long-window path's K1), forward and
+    backward, beside K1's times there; SDPA at dk 64 (the 512-wide
+    transformer's K5: N = B * 8 rows of S 128), rate 0, beside K5 at rate
+    0, in turns (K5, SDPA, SDPA, K5)."""
+    from cpc_audio_tpu_torch.ops import causal_attention as ca
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    tag = "B 8 / T 256 / H 512"
+    fwd, bwd, cls = cudnn_layer(dev, torch.bfloat16, "lstm", g, B=8, T=256,
+                                C=512)
+    for name, call, what in (("lstm_fwd", fwd, "forward (training), input "
+                              "projection included"),
+                             ("lstm_bwd", bwd, "autograd backward, dx and "
+                              "dW")):
+        lib_ms, ms = median_ms(call), shaped[(name, tag)]
+        print(f"  {name} {tag}: cuDNN nn.{cls} {what} {lib_ms:.4f} ms; "
+              f"kernel {ms:.4f} ms; kernel / cuDNN {ms / lib_ms:.3f}",
+              flush=True)
+
+    def rand(*shape, scale=1.0, grad=False):
+        t = (torch.randn(shape, generator=g, device=dev) * scale).bfloat16()
+        return t.requires_grad_(grad)
+    N, S, dk = B * 8, 128, 64
+    q, k, v = (rand(N, S, dk) for _ in range(3))
+    bias, do = rand(N, S, S, scale=0.5), rand(N, S, dk, scale=0.1)
+    k5 = (lambda: ca.causal_attention_fwd(q, k, v, bias),
+          lambda: ca.causal_attention_bwd(q, k, v, bias, do))
+    sdpa = sdpa_calls(rand, B, dk)
+    for i, name in enumerate(("causal_attention_fwd",
+                              "causal_attention_bwd")):
+        t = {"K5": [], "SDPA": []}
+        for who in ("K5", "SDPA", "SDPA", "K5"):
+            t[who].append(median_ms(k5[i] if who == "K5" else sdpa[i]))
+        print(f"  {name} dk 64 (N {N}, S {S}), rate 0, in turns: K5 "
+              f"{t['K5'][0]:.4f} / {t['K5'][1]:.4f} ms, SDPA "
+              f"{t['SDPA'][0]:.4f} / {t['SDPA'][1]:.4f} ms; K5 / SDPA "
+              f"{statistics.mean(t['K5']) / statistics.mean(t['SDPA']):.3f}"
+              f"; K5 at rate 0.1 {shaped[(name, 'dk 64 / D 512')]:.4f} ms",
+              flush=True)
 
 
 def cudnn_layer(dev: torch.device, dtype: torch.dtype, kind: str,
@@ -809,8 +862,49 @@ def recurrent_against_cudnn(dev: torch.device, B: int = 32) -> None:
               flush=True)
 
 
+# kernel-name fragments (lower case) of the launches of K3's bf16 backward
+TAIL_BWD_LAUNCHES = (("LN1", "tail_ln1_kernel"), ("G1", "g1_hidden"),
+                     ("G2", "g2_ln2"), ("G3", "g3_dhp"), ("G4", "g4_dx"),
+                     ("G5", "g5_dw1"), ("G6", "g6_dw2"),
+                     ("sums", "sum_parts"))
+
+
+def tail_bwd_launches(case: Case, ms: float, n: int = 3) -> None:
+    """K3's bf16 backward: a rerun must be bit-identical to the first call
+    (no atomics, fixed-order sums); then the device time of each of its
+    launches (LN1, the six GEMMs G1-G6, the fixed-order sums over tiles)
+    over ``n`` calls (torch.profiler), beside the call's median_ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    first, again = case.kernel(), case.kernel()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        fail(f"{case.label}: a rerun is not bit-identical")
+    del first, again
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            case.kernel()
+        torch.cuda.synchronize()
+    t = {use: 0.0 for use, _ in TAIL_BWD_LAUNCHES}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        use = next((u for u, frag in TAIL_BWD_LAUNCHES
+                    if frag in e.key.lower()), None)
+        if use is not None:
+            t[use] += e.self_device_time_total / 1e3 / n
+    missing = [use for use, v in t.items() if v == 0.0]
+    if missing:
+        fail(f"{case.label}: the profile shows no {', '.join(missing)}")
+    print(f"  {case.label}: reruns bit-identical; device ms a call by "
+          f"launch (torch.profiler, {n} calls): " + ", ".join(
+              f"{use} {v:.4f}" for use, v in t.items()) +
+          f"; sum {sum(t.values()):.4f}, median_ms {ms:.4f}", flush=True)
+
+
 def phase_kernels(dev: torch.device, B: int = 32) -> dict:
-    results, rate0 = {}, {}
+    results, rate0, shaped = {}, {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         print(f"kernels vs plain versions, {str(dtype)[6:]}:", flush=True)
         for case in kernel_cases(dev, dtype, B):
@@ -848,6 +942,10 @@ def phase_kernels(dev: torch.device, B: int = 32) -> dict:
             if name.startswith("causal_attention") and case.shape is None \
                     and case.rate == 0.0 and dtype == torch.bfloat16:
                 rate0[name] = ms
+            if name == "layer_tail_bwd" and reported:
+                tail_bwd_launches(case, ms)
+            if reported and case.shape is not None:
+                shaped[(name, case.shape)] = ms
             if reported and case.shape is None:
                 results[name] = {"max_abs_err": err, "ms": ms,
                                  "plain_ms": plain_ms,
@@ -864,6 +962,7 @@ def phase_kernels(dev: torch.device, B: int = 32) -> dict:
         print(f"  {name}: {lib_ms:.4f} ms ({what}); kernel "
               f"{results[name]['ms']:.4f} ms", flush=True)
     causal_against_sdpa(dev, results, rate0, calls, B)
+    wide_yardsticks(dev, shaped, B)
     for name in ("relpos_attention_fwd", "relpos_attention_bwd",
                  "layer_tail_fwd", "layer_tail_bwd", "attention_block_fwd",
                  "attention_block_bwd"):

@@ -1,0 +1,291 @@
+// Block-level bf16 GEMM core for sm_90a on mma.sync (csrc/mma.cuh):
+//
+//   C (rows x cols) = A (rows x depth) . B (depth x cols)
+//
+// for one output tile of BM x BN per block, with float32 accumulators that
+// stay in registers for the whole depth loop and are handed to the
+// caller's epilogue with their coordinates (`Frag`).  Either operand may
+// lie in device memory in either orientation: A row-major or k-major (A^T
+// row-major, through ldmatrix.trans), B k-major (ldmatrix.trans) or
+// n-major (B^T row-major).  Tiles are copied as they lie, 16 bytes a
+// thread, into a ring of `STAGES` shared-memory slots by cp.async, so that
+// tile i + STAGES - 1 is in flight while tile i multiplies.  Rows, columns
+// or depth past the matrix are zero-filled, so ragged shapes need no
+// special case; output coordinates past it are the epilogue's to skip.
+// Every output sums its depth in one fixed order: no split-K, no atomics,
+// bit-identical reruns.
+//
+// Fragment layout of the accumulators acc[mi][ni][4] of a warp (mma.cuh):
+// for lane = 4 g + t, acc[mi][ni][2 * half + j] is the output at
+//   row = warp row origin + 16 mi + 8 half + g,
+//   col = warp column origin + 8 ni + 2 t + j.
+#pragma once
+
+#include <cstddef>
+#include <cstdint>
+
+#include "mma.cuh"
+
+namespace cpc {
+namespace gemm {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kPad = 8;   // bf16 elements of row padding: ldmatrix rows of
+                          // a slot fall into distinct banks
+
+// A block of WM x WN warps computing a BM x BN tile, BK deep a stage.
+template <int BM_, int BN_, int WM_, int WN_, int STAGES_ = 3, int BK_ = 32>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_;
+  static constexpr int STAGES = STAGES_, BK = BK_;
+  static constexpr int kThreads = 32 * WM * WN;
+  static constexpr int WTM = BM / WM, WTN = BN / WN;   // a warp's tile
+  static constexpr int MI = WTM / 16, NI = WTN / 8;     // its mma tiles
+  // Blocks an SM should hold, for __launch_bounds__: room in the 64 K
+  // registers for the accumulators and about 64 more a thread.
+  static constexpr int kMinBlocks =
+      65536 / (kThreads * (MI * NI * 4 + 64)) > 0
+          ? 65536 / (kThreads * (MI * NI * 4 + 64))
+          : 1;
+  static_assert(WTM % 16 == 0 && WTN % 16 == 0 && BK % 16 == 0,
+                "a warp owns whole m16 x n16 tiles");
+  static_assert(STAGES >= 3, "at least one tile in flight beside the two "
+                             "being read and refilled");
+};
+
+// Elements of one slot's operand tiles, stored as they lie in memory.
+template <class T, bool A_KMAJOR>
+__host__ __device__ constexpr int a_slot() {
+  return A_KMAJOR ? T::BK * (T::BM + kPad) : T::BM * (T::BK + kPad);
+}
+template <class T, bool B_NMAJOR>
+__host__ __device__ constexpr int b_slot() {
+  return B_NMAJOR ? T::BN * (T::BK + kPad) : T::BK * (T::BN + kPad);
+}
+
+// Shared memory of the ring (the whole block's need; an epilogue reuses it).
+template <class T, bool A_KMAJOR, bool B_NMAJOR>
+__host__ __device__ constexpr size_t ring_bytes() {
+  return (size_t)T::STAGES * (a_slot<T, A_KMAJOR>() + b_slot<T, B_NMAJOR>()) *
+         sizeof(bf16);
+}
+
+// One batched operand: element (r, c) of its row-major storage for batch
+// z at ptr[z * batch + r * ld + c].
+struct Operand {
+  const bf16* ptr;
+  size_t batch;
+  int ld;
+};
+
+struct Problem {
+  Operand a, b;
+  int rows, cols, depth;
+};
+
+// Where a warp's accumulators sit in the output.
+struct Frag {
+  int row0, col0;   // the warp's first output row and column
+  int g, t;         // lane = 4 g + t
+  int wm, wn;       // the warp's place in the block
+  __device__ int row(int mi, int half) const {
+    return row0 + mi * 16 + half * 8 + g;
+  }
+  __device__ int col(int ni) const { return col0 + ni * 8 + 2 * t; }
+};
+
+template <class T>
+__device__ __forceinline__ Frag frag(int m0, int n0) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  Frag f;
+  f.wm = warp / T::WN;
+  f.wn = warp - f.wm * T::WN;
+  f.row0 = m0 + f.wm * T::WTM;
+  f.col0 = n0 + f.wn * T::WTN;
+  f.g = lane >> 2;
+  f.t = lane & 3;
+  return f;
+}
+
+// cp.async a ROWS x COLS tile of a row-major matrix (row stride ld) into a
+// slot (row stride COLS + kPad); rows at or past rows_valid and 8-column
+// chunks at or past cols_valid are zero-filled and not read.
+template <int ROWS, int COLS, int NTHREADS>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+                                          size_t ld, int rows_valid,
+                                          int cols_valid) {
+  constexpr int CH = COLS / 8, N = ROWS * CH;
+#pragma unroll
+  for (int step = 0; step < (N + NTHREADS - 1) / NTHREADS; ++step) {
+    const int i = step * NTHREADS + threadIdx.x;
+    if (N % NTHREADS != 0 && i >= N) break;
+    const int r = i / CH, c = (i - r * CH) * 8;
+    const bool ok = r < rows_valid && c < cols_valid;
+    mma::cp_async16(dst + r * (COLS + kPad) + c,
+                    ok ? src + (size_t)r * ld + c : src, ok);
+  }
+}
+
+// acc = A . B over the whole depth for the block's tile at (m0, n0) of
+// batch z.  Leaves the ring idle (every copy landed, every warp past its
+// last read), so the epilogue may reuse `smem`.
+template <class T, bool A_KMAJOR, bool B_NMAJOR>
+__device__ __forceinline__ void mainloop(float (&acc)[T::MI][T::NI][4],
+                                         const Problem& p, int z, int m0,
+                                         int n0, unsigned char* smem) {
+  constexpr int SA = a_slot<T, A_KMAJOR>(), SB = b_slot<T, B_NMAJOR>();
+  bf16* sa = reinterpret_cast<bf16*>(smem);
+  bf16* sb = sa + T::STAGES * SA;
+  const bf16* A = p.a.ptr + (size_t)z * p.a.batch;
+  const bf16* B = p.b.ptr + (size_t)z * p.b.batch;
+  const size_t lda = p.a.ld, ldb = p.b.ld;
+
+  auto load = [&](int slot, int k0) {
+    const int kv = p.depth - k0;
+    if (A_KMAJOR)
+      load_tile<T::BK, T::BM, T::kThreads>(sa + slot * SA,
+                                           A + (size_t)k0 * lda + m0, lda, kv,
+                                           p.rows - m0);
+    else
+      load_tile<T::BM, T::BK, T::kThreads>(sa + slot * SA,
+                                           A + (size_t)m0 * lda + k0, lda,
+                                           p.rows - m0, kv);
+    if (B_NMAJOR)
+      load_tile<T::BN, T::BK, T::kThreads>(sb + slot * SB,
+                                           B + (size_t)n0 * ldb + k0, ldb,
+                                           p.cols - n0, kv);
+    else
+      load_tile<T::BK, T::BN, T::kThreads>(sb + slot * SB,
+                                           B + (size_t)k0 * ldb + n0, ldb, kv,
+                                           p.cols - n0);
+  };
+
+#pragma unroll
+  for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < T::NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
+
+  const Frag f = frag<T>(0, 0);
+  const int wr = f.row0, wc = f.col0;   // the warp's origin in the tile
+  const int n_live = p.cols - n0;       // columns of the tile that exist
+  const int nk = (p.depth + T::BK - 1) / T::BK;
+#pragma unroll
+  for (int s = 0; s < T::STAGES - 1; ++s) {
+    if (s < nk) load(s, s * T::BK);
+    mma::cp_async_commit();
+  }
+  for (int it = 0; it < nk; ++it) {
+    mma::cp_async_wait<T::STAGES - 2>();
+    __syncthreads();   // tile `it` landed for all; slot it - 1 is free
+    const int next = it + T::STAGES - 1;
+    if (next < nk) load(next % T::STAGES, next * T::BK);
+    mma::cp_async_commit();
+    const bf16* a = sa + (it % T::STAGES) * SA;
+    const bf16* b = sb + (it % T::STAGES) * SB;
+#pragma unroll
+    for (int ks = 0; ks < T::BK; ks += 16) {
+      uint32_t af[T::MI][4];
+#pragma unroll
+      for (int mi = 0; mi < T::MI; ++mi) {
+        if (A_KMAJOR)
+          mma::load_a_kmajor(af[mi], a, T::BM + kPad, wr + mi * 16, ks);
+        else
+          mma::load_a(af[mi], a, T::BK + kPad, wr + mi * 16, ks);
+      }
+#pragma unroll
+      for (int nj = 0; nj < T::NI / 2; ++nj) {
+        if (wc + nj * 16 >= n_live) continue;   // past the matrix
+        uint32_t bq[4];
+        if (B_NMAJOR)
+          mma::load_b_nmajor(bq, b, T::BK + kPad, wc + nj * 16, ks);
+        else
+          mma::load_b_kmajor(bq, b, T::BN + kPad, ks, wc + nj * 16);
+#pragma unroll
+        for (int mi = 0; mi < T::MI; ++mi) {
+          mma::mma_bf16(acc[mi][2 * nj], af[mi], bq[0], bq[1]);
+          mma::mma_bf16(acc[mi][2 * nj + 1], af[mi], bq[2], bq[3]);
+        }
+      }
+    }
+  }
+  mma::cp_async_wait<0>();
+  __syncthreads();
+}
+
+// Sums, over the block's columns, each row's values v[nv][mi][half] (a
+// lane's partial over its own columns): first over the four lanes of a
+// row, then over the WN warps of a warp row through `red` (NV * BM * WN
+// floats of shared memory), in a fixed order.  Every lane ends with its
+// rows' totals.
+template <class T, int NV>
+__device__ __forceinline__ void row_sums(float (&v)[NV][T::MI][2],
+                                         const Frag& f, float* red) {
+#pragma unroll
+  for (int n = 0; n < NV; ++n)
+#pragma unroll
+    for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float s = v[n][mi][h];
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        v[n][mi][h] = s;
+        const int r = f.wm * T::WTM + mi * 16 + h * 8 + f.g;
+        if (f.t == 0) red[(n * T::BM + r) * T::WN + f.wn] = s;
+      }
+  __syncthreads();
+#pragma unroll
+  for (int n = 0; n < NV; ++n)
+#pragma unroll
+    for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = f.wm * T::WTM + mi * 16 + h * 8 + f.g;
+        float s = 0.0f;
+#pragma unroll
+        for (int w = 0; w < T::WN; ++w) s += red[(n * T::BM + r) * T::WN + w];
+        v[n][mi][h] = s;
+      }
+  __syncthreads();
+}
+
+// Column sums over the block's rows, one n8 tile at a time, so that a
+// lane holds only that tile's partials: v[nv][j] is the lane's sum over
+// its own rows for column col(ni) + j; col_part sums it over the eight
+// lanes of the column and stores it in `red` (NV * WM * BN floats) by
+// warp row; col_sums then adds the WM warp rows in a fixed order and calls
+// store(nv, column in the tile, total) once for every column of the tile.
+template <class T, int NV>
+__device__ __forceinline__ void col_part(const float (&v)[NV][2], int ni,
+                                         const Frag& f, float* red) {
+#pragma unroll
+  for (int n = 0; n < NV; ++n)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float s = v[n][j];
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      s += __shfl_xor_sync(0xffffffffu, s, 8);
+      s += __shfl_xor_sync(0xffffffffu, s, 16);
+      if (f.g == 0)
+        red[(n * T::WM + f.wm) * T::BN + f.wn * T::WTN + ni * 8 + 2 * f.t +
+            j] = s;
+    }
+}
+
+template <class T, int NV, class Store>
+__device__ __forceinline__ void col_sums(const float* red, Store store) {
+  __syncthreads();
+  for (int e = threadIdx.x; e < NV * T::BN; e += T::kThreads) {
+    const int n = e / T::BN, col = e - n * T::BN;
+    float s = 0.0f;
+#pragma unroll
+    for (int w = 0; w < T::WM; ++w) s += red[(n * T::WM + w) * T::BN + col];
+    store(n, col, s);
+  }
+}
+
+}  // namespace gemm
+}  // namespace cpc

@@ -13,12 +13,15 @@
 // applies before each product; r is the forward's dropout factor,
 // regenerated from dropout.cuh (keyed on (k, row, f)).
 //
-// What bounds it, and the design: one head's dW1 and dW2 are 2 MB each in
-// float32, about nine times an SM's 227 KB of shared memory, and df needs
-// the whole F-wide hidden before any dh exists.  The TPU kept both dW
-// blocks resident in VMEM along a sequential row grid; Hopper blocks run
-// in parallel, so the work is cut into two passes that never write the
-// (rows, F) hidden to device memory:
+// Two bodies.  bf16 runs six tensor-core GEMMs with fused epilogues
+// (csrc/layer_tail_bwd_tc.cu, which says why); the entry points below
+// dispatch to it.  This file holds the float32 body, exact FMA loops:
+// one head's dW1 and dW2 are 2 MB each in float32, about nine times an
+// SM's 227 KB of shared memory, and df needs the whole F-wide hidden
+// before any dh exists.  The TPU kept both dW blocks resident in VMEM
+// along a sequential row grid; Hopper blocks run in parallel, so the work
+// is cut into two passes that never write the (rows, F) hidden to device
+// memory:
 //   1. `tail_bwd_rows_kernel`, one block per (row tile, k): recompute the
 //      forward chunk by chunk of F (remembering the live mask as bits),
 //      form dy2 and df, then stream the chunks again for dh -> dhp ->
@@ -30,43 +33,29 @@
 //      recompute hp and dh for the chunk only, and accumulate that
 //      chunk's dW1, dW2 and db1 in shared memory;
 // and a small kernel sums the vector partials over tiles in a fixed
-// order.  Products run on the tensor cores for bf16 (nvcuda::wmma 16x16x16,
-// float32 accumulation) and as exact float32 FMA loops for float32.
-// Pass 1 restages W1 and W2 twice per row tile (L2 traffic ~ 2 * 4 MB *
-// blocks), pass 2 re-reads y and df once per F chunk; both are bound by
-// these stagings and by the serial phases of a block (as the forward,
-// PERF.md), not by the tensor cores.  D goes up to 512 (JAX's gate): past
-// D = 256 both passes take narrower row tiles and F chunks (`Tiles`), so
-// that their D-wide tiles stay within an H100 block's 227 KB.
-#include <mma.h>
-
-#include <type_traits>
-
+// order.  Pass 1 restages W1 and W2 twice per row tile, pass 2 re-reads y
+// and df once per F chunk; both are bound by these stagings and by the
+// serial phases of a block, not by the FMA rate.  D goes up to 512
+// (JAX's gate): past D = 256 both passes take narrower row tiles and F
+// chunks (`Tiles`), so that their D-wide tiles stay within an H100
+// block's 227 KB.
 #include "common.cuh"
 #include "dropout.cuh"
+#include "layer_tail_bwd_tc.cuh"
 
 namespace {
-
-namespace wmma = nvcuda::wmma;
-using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 512;
 constexpr int kVecs = 5;   // dln1w, dln1b, db2, dln2w, dln2b
 
-// Rows per tile and F columns per chunk of each pass, per dtype and width:
-// the narrow tiles serve D <= 256, the wide ones (fewer rows and columns,
-// so that the D-wide tiles of both passes stay within 227 KB of shared
-// memory) D <= 512.  Chunks of pass 1 stay multiples of 32: a warp's
-// ballot writes one word of a row's live mask.
+// Rows per tile and F columns per chunk of each pass of the float32 body,
+// per width: the narrow tiles serve D <= 256, the wide ones (fewer rows
+// and columns, so that the D-wide tiles of both passes stay within 227 KB
+// of shared memory) D <= 512.  Chunks of pass 1 stay multiples of 32: a
+// warp's ballot writes one word of a row's live mask.
 constexpr int kNarrowD = 256, kMaxD = 512;
 
 template <typename T, bool kWide> struct Tiles;
-template <> struct Tiles<bf16, false> {
-  static constexpr int kRows1 = 32, kChunk1 = 64, kRows2 = 64, kChunk2 = 32;
-};
-template <> struct Tiles<bf16, true> {
-  static constexpr int kRows1 = 16, kChunk1 = 32, kRows2 = 32, kChunk2 = 16;
-};
 template <> struct Tiles<float, false> {
   static constexpr int kRows1 = 16, kChunk1 = 32, kRows2 = 16, kChunk2 = 32;
 };
@@ -80,41 +69,10 @@ constexpr int kPad = 16 / (int)sizeof(T);
 
 // ---------------------------------------------------------------------------
 // C (float32, row-major, ldc) (+)= A (Mr x Kd) . B (Kd x N), all in shared
-// memory.  A_COL / B_COL: the operand is stored column-major (element
-// (r, c) at p[c * ld + r]), i.e. it is the transpose of a row-major tile.
+// memory, as exact FMA loops.  A_COL / B_COL: the operand is stored
+// column-major (element (r, c) at p[c * ld + r]), i.e. it is the
+// transpose of a row-major tile.
 // ---------------------------------------------------------------------------
-
-template <bool A_COL, bool B_COL>
-__device__ void block_gemm(float* C, int ldc, const bf16* A, int lda,
-                           const bf16* B, int ldb, int Mr, int N, int Kd,
-                           bool accumulate) {
-  using LA = typename std::conditional<A_COL, wmma::col_major,
-                                       wmma::row_major>::type;
-  using LB = typename std::conditional<B_COL, wmma::col_major,
-                                       wmma::row_major>::type;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int tn = N / 16;
-  for (int tile = warp; tile < (Mr / 16) * tn; tile += n_warps) {
-    const int ti = tile / tn, tj = tile - (tile / tn) * tn;
-    float* c_ptr = C + ti * 16 * ldc + tj * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    if (accumulate)
-      wmma::load_matrix_sync(c, c_ptr, ldc, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(c, 0.0f);
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b;
-    for (int k = 0; k < Kd; k += 16) {
-      wmma::load_matrix_sync(
-          a, A_COL ? A + k * lda + ti * 16 : A + ti * 16 * lda + k, lda);
-      wmma::load_matrix_sync(
-          b, B_COL ? B + tj * 16 * ldb + k : B + k * ldb + tj * 16, ldb);
-      wmma::mma_sync(c, a, b, c);
-    }
-    wmma::store_matrix_sync(c_ptr, c, ldc, wmma::mem_row_major);
-  }
-}
 
 template <bool A_COL, bool B_COL>
 __device__ void block_gemm(float* C, int ldc, const float* A, int lda,
@@ -594,38 +552,45 @@ bool shapes_ok(int D, int F) {
 
 }  // namespace
 
-// Row tiles of pass 1 (the wrapper sizes the vector partials with it) and
-// the larger shared-memory need of the two passes; 0 for a bad dtype.
+// Row tiles of the body's vector partials (the wrapper sizes vec_part with
+// it: pass 1's in float32, G2/G4's in bf16), the shared memory of its
+// largest block, and the device-memory scratch it needs beside y_buf and
+// df_buf (none in float32); 0 for a bad dtype.
 extern "C" int cpc_layer_tail_bwd_tiles(int M, int D, int dtype) {
-  const bool wide = D > kNarrowD;
-  if (dtype == cpc::kBFloat16)
-    return wide ? n_row_tiles<bf16, true>(M) : n_row_tiles<bf16, false>(M);
+  if (dtype == cpc::kBFloat16) return cpc::tail_tc::row_tiles(M, D);
   if (dtype == cpc::kFloat32)
-    return wide ? n_row_tiles<float, true>(M) : n_row_tiles<float, false>(M);
+    return D > kNarrowD ? n_row_tiles<float, true>(M)
+                        : n_row_tiles<float, false>(M);
   return 0;
 }
 
 extern "C" size_t cpc_layer_tail_bwd_smem(int D, int F, int dtype) {
-  const bool wide = D > kNarrowD;
-  if (dtype == cpc::kBFloat16)
-    return wide ? smem_both<bf16, true>(D, F) : smem_both<bf16, false>(D, F);
+  if (dtype == cpc::kBFloat16) return cpc::tail_tc::smem_bytes(D);
   if (dtype == cpc::kFloat32)
-    return wide ? smem_both<float, true>(D, F)
-                : smem_both<float, false>(D, F);
+    return D > kNarrowD ? smem_both<float, true>(D, F)
+                        : smem_both<float, false>(D, F);
   return 0;
+}
+
+extern "C" size_t cpc_layer_tail_bwd_scratch(int K, int M, int D, int F,
+                                             int dtype) {
+  return dtype == cpc::kBFloat16 ? cpc::tail_tc::scratch_bytes(K, M, D, F)
+                                 : 0;
 }
 
 // x, w1, w2, dout, dx and the scratch y_buf, df_buf ((K, M, D)) in `dtype`;
 // the LN parameters and biases float32; outputs vec_out (5, K, D) =
 // (dln1w, dln1b, db2, dln2w, dln2b), dw1 (K, D, F), db1 (K, F), dw2
-// (K, F, D) float32; vec_part is float32 scratch (K, tiles, 5, D).
+// (K, F, D) float32; vec_part is float32 scratch of K * tiles * 5 * D
+// elements, and `scratch` cpc_layer_tail_bwd_scratch bytes (unused in
+// float32).
 extern "C" int cpc_layer_tail_bwd(
     const void* x, const void* ln1w, const void* ln1b, const void* w1,
     const void* b1, const void* w2, const void* b2, const void* ln2w,
     const void* ln2b, const void* dout, void* dx, void* y_buf, void* df_buf,
-    void* vec_part, void* vec_out, void* dw1, void* db1, void* dw2, int K,
-    int M, int D, int F, float eps, const void* seed, unsigned int threshold,
-    float keep_scale, int dtype, void* stream) {
+    void* vec_part, void* vec_out, void* dw1, void* db1, void* dw2,
+    void* scratch, int K, int M, int D, int F, float eps, const void* seed,
+    unsigned int threshold, float keep_scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool wide = D > kNarrowD;
   const cpc::Dropout drop{static_cast<const int64_t*>(seed), threshold,
@@ -639,10 +604,10 @@ extern "C" int cpc_layer_tail_bwd(
   float* o1 = static_cast<float*>(dw1);
   float* ob = static_cast<float*>(db1);
   float* o2 = static_cast<float*>(dw2);
-  if (dtype == cpc::kBFloat16 && shapes_ok<bf16>(D, F))
-    return (wide ? launch<bf16, true> : launch<bf16, false>)(
-        x, f[0], f[1], w1, f[2], w2, f[3], f[4], f[5], dout, dx, y_buf,
-        df_buf, vp, vo, o1, ob, o2, K, M, D, F, eps, drop, s);
+  if (dtype == cpc::kBFloat16 && cpc::tail_tc::shapes_ok(D, F))
+    return cpc::tail_tc::launch(x, f[0], f[1], w1, f[2], w2, f[3], f[4],
+                                f[5], dout, dx, y_buf, df_buf, vp, vo, o1, ob,
+                                o2, scratch, K, M, D, F, eps, drop, s);
   if (dtype == cpc::kFloat32 && shapes_ok<float>(D, F))
     return (wide ? launch<float, true> : launch<float, false>)(
         x, f[0], f[1], w1, f[2], w2, f[3], f[4], f[5], dout, dx, y_buf,

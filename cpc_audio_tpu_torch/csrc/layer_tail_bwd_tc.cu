@@ -1,0 +1,684 @@
+// K3 backward, bf16 body: six tensor-core GEMMs with fused epilogues.
+//
+// Replaces, for bf16, cpc_audio_tpu/ops/pallas/ffn.py `_tail_bwd_kernel`
+// (called through `_tail_bwd`); the float32 body stays in
+// csrc/layer_tail_bwd.cu, whose entry points call this one for bf16.  The
+// math is the Pallas kernel's (ops/ffn.py `layer_tail_bwd_ref`): per head
+// k and row,
+//   y = round(LN1(x)),  h = round(relu(y W1 + b1) r),  y2 = y + h W2 + b2
+//   dy2 = LN2'(do),     df = round(dy2),  dh = df W2^T
+//   dhp = round(live ? dh / (1 - rate) : 0)   (live: kept and positive)
+//   dy  = dy2 + dhp W1^T,  dx = LN1'(dy)
+//   dW1 = y^T dhp, db1 = sum dhp, dW2 = h^T df, db2 = sum df,
+//   dln2w = sum do yhat2, dln2b = sum do, dln1w = sum dy yhat1,
+//   dln1b = sum dy,
+// with r the forward's dropout factor, regenerated from dropout.cuh keyed
+// on (k, row, f).
+//
+// What bounds it: six products of 2 K M D F operations each (280 GFLOP at
+// K 12, M 3712, D 256, F 2048: 0.28 ms at the bf16 peak); the inputs and
+// outputs are 0.1 GB.  So the design spends bytes to keep the tensor
+// cores fed.  The hidden h and its gradient dhp go to device memory once
+// each, in bf16 (the values the Pallas kernel multiplies: it rounds both
+// to the compute dtype before each product), and are read twice: about
+// 1.1 GB, 0.33 ms at 3.35 TB/s, where the float32 body recomputes two
+// products and restages the weights (~5.6 GB a call at bf16 widths).  The
+// scratch is 2 K M F bf16 (365 MB at the default shape).
+//
+// The launches, in order (one GEMM core, csrc/gemm_tc.cuh, used six times
+// with its own epilogue each; G1-G6 in kernel names):
+//   LN1  `tail_ln1_kernel`: y = round(LN1(x)) and the rows' (mean, 1/std);
+//   G1   y W1        -> + b1, ReLU, dropout, round: h, and the live bits;
+//   G2   h W2        -> a block owns all D columns of its rows: y2 = y + f +
+//                       b2, LN2 statistics, dy2 = LN2'(do): df (bf16), dy2
+//                       (float32), per-tile partials of db2, dln2w, dln2b;
+//   G3   df W2^T     -> dhp = round(live ? dh / (1 - rate) : 0), per-tile
+//                       partials of db1;
+//   G4   dhp W1^T    -> all D columns again: dy = dy2 + dyf, dx = LN1'(dy)
+//                       from x and the saved statistics; partials of dln1w,
+//                       dln1b;
+//   G5   y^T dhp     -> dW1 (float32);
+//   G6   h^T df      -> dW2 (float32);
+// then the per-tile partials are summed over tiles in a fixed order
+// (cpc::sum_parts, csrc/tile_mm.cuh).  No atomics anywhere: reruns are
+// bit-identical.  G2 and G4 keep a whole D-wide row tile in registers
+// (128 x 256 or 64 x 512 over 16 warps: 64 accumulators a thread).
+//
+// Shapes: D a multiple of 32 up to 512, F a multiple of 64, any M (ragged
+// tiles are zero-filled by the core).
+#include <type_traits>
+
+#include "common.cuh"
+#include "dropout.cuh"
+#include "gemm_tc.cuh"
+#include "layer_tail_bwd_tc.cuh"
+#include "tile_mm.cuh"
+
+namespace cpc {
+namespace tail_tc {
+namespace {
+
+using bf16 = __nv_bfloat16;
+namespace gm = cpc::gemm;
+
+// vec_out's vectors: dln1w, dln1b, db2, dln2w, dln2b
+constexpr int kVecs = 5;
+constexpr int kMaxD = 512;
+
+// The tiles, chosen by timing variants on an H100 (PERF.md): 64-deep
+// slots for the 128 x 128 tiles (two blocks an SM), and 16 warps, 64
+// accumulators a thread, for the D-wide row tiles.
+using TileHid = gm::Tile<128, 128, 2, 4, 3, 64>;   // G1, G3: (M, F) outputs
+using TileW = gm::Tile<128, 128, 2, 4, 3, 64>;     // G5, G6: dW1, dW2
+// G2, G4: a tile of rows by every column, D <= DM
+template <int DM>
+using TileRow = std::conditional_t<DM <= 256, gm::Tile<128, 256, 4, 4>,
+                                   gm::Tile<64, 512, 2, 8>>;
+
+struct Args {
+  const bf16 *x, *w1, *w2, *dout;
+  const float *ln1w, *ln1b, *b1, *b2, *ln2w, *ln2b;
+  bf16 *dx, *y, *df, *h, *dhp;
+  uint32_t* live;                 // (K, M, F / 32) bits of h32 > 0
+  float *stats, *dy2;             // (K, M, 2) mean1, inv1; (K, M, D)
+  float *vec_part, *db1_part;     // (5, K, row tiles, D); (K, hid tiles, F)
+  float *dw1, *dw2;
+  int K, M, D, F, row_tiles, hid_tiles;
+  float eps, scale;               // scale: 1 / (1 - rate)
+  cpc::Dropout drop;
+};
+
+// The scratch, carved from one allocation in 256-byte aligned pieces.
+struct Scratch {
+  bf16 *h, *dhp;
+  uint32_t* live;
+  float *dy2, *stats, *db1_part;
+  size_t bytes;
+  Scratch(unsigned char* base, int K, int M, int D, int F) {
+    size_t off = 0;
+    auto take = [&](size_t n) {
+      unsigned char* p = base + off;
+      off += (n + 255) / 256 * 256;
+      return p;
+    };
+    const size_t rows = (size_t)K * M;
+    h = reinterpret_cast<bf16*>(take(rows * F * sizeof(bf16)));
+    dhp = reinterpret_cast<bf16*>(take(rows * F * sizeof(bf16)));
+    live = reinterpret_cast<uint32_t*>(take(rows * (F / 32) * 4));
+    dy2 = reinterpret_cast<float*>(take(rows * D * 4));
+    stats = reinterpret_cast<float*>(take(rows * 2 * 4));
+    const int hid = (M + TileHid::BM - 1) / TileHid::BM;
+    db1_part = reinterpret_cast<float*>(take((size_t)K * hid * F * 4));
+    bytes = off;
+  }
+};
+
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
+  return make_float2(__low2float(v), __high2float(v));
+}
+
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = mma::pack_bf16(a, b);
+}
+
+__device__ __forceinline__ float rounded(float v) {
+  return cpc::round_to<bf16>(v);
+}
+
+// Where row tile `tile` of head k puts its partial sums of vector v, so
+// that the fixed-order sum over tiles (cpc::sum_parts) lands in vec_out's
+// (5, K, D).
+__device__ __forceinline__ size_t vec_at(const Args& p, int v, int k,
+                                         int tile) {
+  return (((size_t)v * p.K + k) * p.row_tiles + tile) * p.D;
+}
+
+// ---- the six uses: operands, orientation and epilogue ----------------------
+
+// G1: h = round(relu(y W1 + b1) r) and the live bits.
+struct G1_hidden {
+  using T = TileHid;
+  static constexpr bool kAK = false, kBN = false, kRowsFast = false;
+  static constexpr size_t kEpiBytes = 0;
+  // a warp's columns make one or two words of live bits, all below F or
+  // all past it (F is a multiple of 64)
+  static_assert(T::WTN == 32 || T::WTN == 64, "whole words of live bits");
+  __host__ __device__ static gm::Problem problem(const Args& p) {
+    return {{p.y, (size_t)p.M * p.D, p.D}, {p.w1, (size_t)p.D * p.F, p.F},
+            p.M, p.F, p.D};
+  }
+  __device__ static void epilogue(const Args& p,
+                                  float (&acc)[T::MI][T::NI][4],
+                                  const gm::Frag& f, int kk, int, int,
+                                  unsigned char*) {
+    if (f.col0 >= p.F) return;      // warp-uniform; no barrier follows
+    const bool drop = p.drop.active();
+    const uint32_t seed = drop ? p.drop.seed_word() : 0u;
+    const float* b1 = p.b1 + (size_t)kk * p.F;
+    float bias[T::NI][2];
+#pragma unroll
+    for (int ni = 0; ni < T::NI; ++ni) {
+      bias[ni][0] = b1[f.col(ni)];
+      bias[ni][1] = b1[f.col(ni) + 1];
+    }
+#pragma unroll
+    for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = f.row(mi, hf);
+        const bool ok = row < p.M;
+        const size_t grow = (size_t)kk * p.M + row;
+        const uint32_t key =
+            cpc::dropout_row_key(seed, cpc::kSiteFFN, (uint32_t)grow);
+        uint32_t bits[T::WTN / 32] = {};
+#pragma unroll
+        for (int ni = 0; ni < T::NI; ++ni) {
+          const int c = f.col(ni);
+          float v0 = fmaxf(acc[mi][ni][2 * hf] + bias[ni][0], 0.0f);
+          float v1 = fmaxf(acc[mi][ni][2 * hf + 1] + bias[ni][1], 0.0f);
+          if (drop) {
+            v0 *= cpc::dropout_factor(key, (uint32_t)c, p.drop.threshold,
+                                      p.drop.keep_scale);
+            v1 *= cpc::dropout_factor(key, (uint32_t)c + 1,
+                                      p.drop.threshold, p.drop.keep_scale);
+          }
+          if (ok) store2(p.h + grow * p.F + c, v0, v1);
+          const int bit = (ni % 4) * 8 + 2 * f.t;
+          bits[ni / 4] |= ((uint32_t)(v0 > 0.0f) << bit) |
+                          ((uint32_t)(v1 > 0.0f) << (bit + 1));
+        }
+#pragma unroll
+        for (int w = 0; w < T::WTN / 32; ++w) {
+          uint32_t b = bits[w];
+          b |= __shfl_xor_sync(0xffffffffu, b, 1);
+          b |= __shfl_xor_sync(0xffffffffu, b, 2);
+          if (ok && f.t == 0)
+            p.live[grow * (p.F / 32) + f.col0 / 32 + w] = b;
+        }
+      }
+  }
+};
+
+// G2: f = h W2; y2 = y + f + b2, dy2 = LN2'(do), df = round(dy2); partials
+// of db2, dln2w, dln2b.  The block owns every column of its rows.
+template <int DM>
+struct G2_ln2 {
+  using T = TileRow<DM>;
+  static constexpr bool kAK = false, kBN = false, kRowsFast = false;
+  static constexpr size_t kEpiBytes =
+      (2 * T::BM * T::WN + 3 * T::WM * T::BN) * sizeof(float);
+  __host__ __device__ static gm::Problem problem(const Args& p) {
+    return {{p.h, (size_t)p.M * p.F, p.F}, {p.w2, (size_t)p.F * p.D, p.D},
+            p.M, p.D, p.F};
+  }
+  __device__ static void epilogue(const Args& p,
+                                  float (&acc)[T::MI][T::NI][4],
+                                  const gm::Frag& f, int kk, int m0, int,
+                                  unsigned char* smem) {
+    float* red = reinterpret_cast<float*>(smem);
+    float* cred = red + 2 * T::BM * T::WN;
+    const int D = p.D;
+    const float* b2 = p.b2 + (size_t)kk * D;
+    const float* lw = p.ln2w + (size_t)kk * D;
+    const size_t base = (size_t)kk * p.M;
+    float st[1][T::MI][2], s[2][T::MI][2], mean[T::MI][2], inv[T::MI][2];
+    // y2 = f + y + b2 (in acc) and the rows' sums
+#pragma unroll
+    for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = f.row(mi, hf);
+        st[0][mi][hf] = 0.0f;
+#pragma unroll
+        for (int ni = 0; ni < T::NI; ++ni) {
+          const int c = f.col(ni);
+          float* a = &acc[mi][ni][2 * hf];
+          if (row < p.M && c < D) {
+            const float2 yv = load2(p.y + (base + row) * D + c);
+            a[0] += yv.x + b2[c];
+            a[1] += yv.y + b2[c + 1];
+            st[0][mi][hf] += a[0] + a[1];
+          }
+        }
+      }
+    gm::row_sums<T, 1>(st, f, red);
+#pragma unroll
+    for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = f.row(mi, hf);
+        mean[mi][hf] = st[0][mi][hf] / D;
+        st[0][mi][hf] = 0.0f;
+#pragma unroll
+        for (int ni = 0; ni < T::NI; ++ni)
+          if (row < p.M && f.col(ni) < D) {
+            const float d0 = acc[mi][ni][2 * hf] - mean[mi][hf];
+            const float d1 = acc[mi][ni][2 * hf + 1] - mean[mi][hf];
+            st[0][mi][hf] += d0 * d0 + d1 * d1;
+          }
+      }
+    gm::row_sums<T, 1>(st, f, red);
+    // yhat2 (in acc); the rows' sums of g = do ln2w and of g yhat2
+#pragma unroll
+    for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = f.row(mi, hf);
+        inv[mi][hf] = rsqrtf(st[0][mi][hf] / D + p.eps);
+        s[0][mi][hf] = s[1][mi][hf] = 0.0f;
+#pragma unroll
+        for (int ni = 0; ni < T::NI; ++ni) {
+          const int c = f.col(ni);
+          if (row < p.M && c < D) {
+            float* a = &acc[mi][ni][2 * hf];
+            a[0] = (a[0] - mean[mi][hf]) * inv[mi][hf];
+            a[1] = (a[1] - mean[mi][hf]) * inv[mi][hf];
+            const float2 dv = load2(p.dout + (base + row) * D + c);
+            const float g0 = dv.x * lw[c], g1 = dv.y * lw[c + 1];
+            s[0][mi][hf] += g0 + g1;
+            s[1][mi][hf] += g0 * a[0] + g1 * a[1];
+          }
+        }
+      }
+    gm::row_sums<T, 2>(s, f, red);
+    // dy2 and df; the columns' sums of df, do yhat2 and do
+#pragma unroll
+    for (int ni = 0; ni < T::NI; ++ni) {
+      const int c = f.col(ni);
+      float cs[3][2] = {};
+#pragma unroll
+      for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = f.row(mi, hf);
+          if (row < p.M && c < D) {
+            const float m1 = s[0][mi][hf] / D, m2 = s[1][mi][hf] / D;
+            const float* a = &acc[mi][ni][2 * hf];
+            const float2 dv = load2(p.dout + (base + row) * D + c);
+            const float d0 = (dv.x * lw[c] - m1 - a[0] * m2) * inv[mi][hf];
+            const float d1 =
+                (dv.y * lw[c + 1] - m1 - a[1] * m2) * inv[mi][hf];
+            *reinterpret_cast<float2*>(p.dy2 + (base + row) * D + c) =
+                make_float2(d0, d1);
+            store2(p.df + (base + row) * D + c, d0, d1);
+            cs[0][0] += rounded(d0);
+            cs[0][1] += rounded(d1);
+            cs[1][0] += dv.x * a[0];
+            cs[1][1] += dv.y * a[1];
+            cs[2][0] += dv.x;
+            cs[2][1] += dv.y;
+          }
+        }
+      gm::col_part<T, 3>(cs, ni, f, cred);
+    }
+    gm::col_sums<T, 3>(cred, [&](int n, int col, float v) {
+      if (col < D) p.vec_part[vec_at(p, 2 + n, kk, m0 / T::BM) + col] = v;
+    });
+  }
+};
+
+// G3: dh = df W2^T; dhp = round(live ? dh / (1 - rate) : 0); partials of
+// db1.
+struct G3_dhp {
+  using T = TileHid;
+  static constexpr bool kAK = false, kBN = true, kRowsFast = false;
+  static constexpr size_t kEpiBytes = T::WM * T::BN * sizeof(float);
+  __host__ __device__ static gm::Problem problem(const Args& p) {
+    return {{p.df, (size_t)p.M * p.D, p.D}, {p.w2, (size_t)p.F * p.D, p.D},
+            p.M, p.F, p.D};
+  }
+  __device__ static void epilogue(const Args& p,
+                                  float (&acc)[T::MI][T::NI][4],
+                                  const gm::Frag& f, int kk, int m0, int n0,
+                                  unsigned char* smem) {
+    const bool wok = f.col0 < p.F;   // warp-uniform, as in G1
+    uint32_t word[T::MI][2][T::WTN / 32];
+#pragma unroll
+    for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = f.row(mi, hf);
+        const uint32_t* lw =
+            p.live + ((size_t)kk * p.M + row) * (p.F / 32) + f.col0 / 32;
+#pragma unroll
+        for (int w = 0; w < T::WTN / 32; ++w)
+          word[mi][hf][w] = wok && row < p.M ? lw[w] : 0u;
+      }
+#pragma unroll
+    for (int ni = 0; ni < T::NI; ++ni) {
+      const int bit = (ni % 4) * 8 + 2 * f.t;
+      float cs[1][2] = {};
+#pragma unroll
+      for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = f.row(mi, hf);
+          const uint32_t w = word[mi][hf][ni / 4];
+          const float v0 = rounded(
+              (w >> bit) & 1u ? acc[mi][ni][2 * hf] * p.scale : 0.0f);
+          const float v1 = rounded(
+              (w >> (bit + 1)) & 1u ? acc[mi][ni][2 * hf + 1] * p.scale
+                                    : 0.0f);
+          if (wok && row < p.M)
+            store2(p.dhp + ((size_t)kk * p.M + row) * p.F + f.col(ni), v0,
+                   v1);
+          cs[0][0] += v0;
+          cs[0][1] += v1;
+        }
+      gm::col_part<T, 1>(cs, ni, f, reinterpret_cast<float*>(smem));
+    }
+    float* part = p.db1_part + ((size_t)kk * p.hid_tiles + m0 / T::BM) * p.F;
+    gm::col_sums<T, 1>(reinterpret_cast<float*>(smem),
+                       [&](int, int col, float v) {
+                         if (n0 + col < p.F) part[n0 + col] = v;
+                       });
+  }
+};
+
+// G4: dyf = dhp W1^T; dy = dy2 + dyf, dx = LN1'(dy); partials of dln1w,
+// dln1b.  The block owns every column of its rows.
+template <int DM>
+struct G4_dx {
+  using T = TileRow<DM>;
+  static constexpr bool kAK = false, kBN = true, kRowsFast = false;
+  static constexpr size_t kEpiBytes =
+      (2 * T::BM * T::WN + 2 * T::WM * T::BN) * sizeof(float);
+  __host__ __device__ static gm::Problem problem(const Args& p) {
+    return {{p.dhp, (size_t)p.M * p.F, p.F}, {p.w1, (size_t)p.D * p.F, p.F},
+            p.M, p.D, p.F};
+  }
+  __device__ static void epilogue(const Args& p,
+                                  float (&acc)[T::MI][T::NI][4],
+                                  const gm::Frag& f, int kk, int m0, int,
+                                  unsigned char* smem) {
+    float* red = reinterpret_cast<float*>(smem);
+    float* cred = red + 2 * T::BM * T::WN;
+    const int D = p.D;
+    const float* lw = p.ln1w + (size_t)kk * D;
+    const size_t base = (size_t)kk * p.M;
+    float s[2][T::MI][2], mean[T::MI][2], inv[T::MI][2];
+    // dy = dy2 + dyf (in acc); the rows' sums of dy ln1w and dy ln1w yhat1
+#pragma unroll
+    for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = f.row(mi, hf);
+        const bool rok = row < p.M;
+        mean[mi][hf] = rok ? p.stats[2 * (base + row)] : 0.0f;
+        inv[mi][hf] = rok ? p.stats[2 * (base + row) + 1] : 0.0f;
+        s[0][mi][hf] = s[1][mi][hf] = 0.0f;
+#pragma unroll
+        for (int ni = 0; ni < T::NI; ++ni) {
+          const int c = f.col(ni);
+          if (rok && c < D) {
+            float* a = &acc[mi][ni][2 * hf];
+            const float2 d2 =
+                *reinterpret_cast<const float2*>(p.dy2 + (base + row) * D + c);
+            a[0] += d2.x;
+            a[1] += d2.y;
+            const float2 xv = load2(p.x + (base + row) * D + c);
+            const float y0 = (xv.x - mean[mi][hf]) * inv[mi][hf];
+            const float y1 = (xv.y - mean[mi][hf]) * inv[mi][hf];
+            s[0][mi][hf] += a[0] * lw[c] + a[1] * lw[c + 1];
+            s[1][mi][hf] += a[0] * lw[c] * y0 + a[1] * lw[c + 1] * y1;
+          }
+        }
+      }
+    gm::row_sums<T, 2>(s, f, red);
+    // dx; the columns' sums of dy yhat1 and dy
+#pragma unroll
+    for (int ni = 0; ni < T::NI; ++ni) {
+      const int c = f.col(ni);
+      float cs[2][2] = {};
+#pragma unroll
+      for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = f.row(mi, hf);
+          if (row < p.M && c < D) {
+            const float m1 = s[0][mi][hf] / D, m2 = s[1][mi][hf] / D;
+            const float* a = &acc[mi][ni][2 * hf];
+            const float2 xv = load2(p.x + (base + row) * D + c);
+            const float y0 = (xv.x - mean[mi][hf]) * inv[mi][hf];
+            const float y1 = (xv.y - mean[mi][hf]) * inv[mi][hf];
+            store2(p.dx + (base + row) * D + c,
+                   (a[0] * lw[c] - m1 - y0 * m2) * inv[mi][hf],
+                   (a[1] * lw[c + 1] - m1 - y1 * m2) * inv[mi][hf]);
+            cs[0][0] += a[0] * y0;
+            cs[0][1] += a[1] * y1;
+            cs[1][0] += a[0];
+            cs[1][1] += a[1];
+          }
+        }
+      gm::col_part<T, 2>(cs, ni, f, cred);
+    }
+    gm::col_sums<T, 2>(cred, [&](int n, int col, float v) {
+      if (col < D) p.vec_part[vec_at(p, n, kk, m0 / T::BM) + col] = v;
+    });
+  }
+};
+
+// Stores a (rows x cols) float32 product tile, rows and columns past the
+// product skipped.
+template <class T>
+__device__ __forceinline__ void store_f32(float* out, int rows, int cols,
+                                          float (&acc)[T::MI][T::NI][4],
+                                          const gm::Frag& f) {
+#pragma unroll
+  for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = f.row(mi, hf);
+#pragma unroll
+      for (int ni = 0; ni < T::NI; ++ni) {
+        const int c = f.col(ni);
+        if (row < rows && c < cols)
+          *reinterpret_cast<float2*>(out + (size_t)row * cols + c) =
+              make_float2(acc[mi][ni][2 * hf], acc[mi][ni][2 * hf + 1]);
+      }
+    }
+}
+
+// G5: dW1 = y^T dhp (D x F, depth M).
+struct G5_dw1 {
+  using T = TileW;
+  static constexpr bool kAK = true, kBN = false, kRowsFast = true;
+  static constexpr size_t kEpiBytes = 0;
+  __host__ __device__ static gm::Problem problem(const Args& p) {
+    return {{p.y, (size_t)p.M * p.D, p.D}, {p.dhp, (size_t)p.M * p.F, p.F},
+            p.D, p.F, p.M};
+  }
+  __device__ static void epilogue(const Args& p,
+                                  float (&acc)[T::MI][T::NI][4],
+                                  const gm::Frag& f, int kk, int, int,
+                                  unsigned char*) {
+    store_f32<T>(p.dw1 + (size_t)kk * p.D * p.F, p.D, p.F, acc, f);
+  }
+};
+
+// G6: dW2 = h^T df (F x D, depth M).
+struct G6_dw2 {
+  using T = TileW;
+  static constexpr bool kAK = true, kBN = false, kRowsFast = false;
+  static constexpr size_t kEpiBytes = 0;
+  __host__ __device__ static gm::Problem problem(const Args& p) {
+    return {{p.h, (size_t)p.M * p.F, p.F}, {p.df, (size_t)p.M * p.D, p.D},
+            p.F, p.D, p.M};
+  }
+  __device__ static void epilogue(const Args& p,
+                                  float (&acc)[T::MI][T::NI][4],
+                                  const gm::Frag& f, int kk, int, int,
+                                  unsigned char*) {
+    store_f32<T>(p.dw2 + (size_t)kk * p.F * p.D, p.F, p.D, acc, f);
+  }
+};
+
+// ---- kernels ---------------------------------------------------------------
+
+// One output tile of use U per block; blockIdx.z is the head.
+template <class U>
+__global__ void __launch_bounds__(U::T::kThreads, U::T::kMinBlocks)
+    tail_gemm_kernel(const Args p) {
+  using T = typename U::T;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const gm::Problem pr = U::problem(p);
+  const int tm = U::kRowsFast ? blockIdx.x : blockIdx.y;
+  const int tn = U::kRowsFast ? blockIdx.y : blockIdx.x;
+  const int m0 = tm * T::BM, n0 = tn * T::BN, kk = blockIdx.z;
+  float acc[T::MI][T::NI][4];
+  gm::mainloop<T, U::kAK, U::kBN>(acc, pr, kk, m0, n0, smem);
+  U::epilogue(p, acc, gm::frag<T>(m0, n0), kk, m0, n0, smem);
+}
+
+// y = round(LN1(x)) and the rows' (mean, 1 / std): one warp per row.
+__global__ void __launch_bounds__(256) tail_ln1_kernel(const Args p,
+                                                        int rows) {
+  const int r = blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= rows) return;
+  const int kk = r / p.M, D = p.D;
+  const bf16* xr = p.x + (size_t)r * D;
+  float v[kMaxD / 32];
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kMaxD / 32; ++i) {
+    const int d = lane + 32 * i;
+    v[i] = d < D ? __bfloat162float(xr[d]) : 0.0f;
+    s += v[i];
+  }
+  const float mean = cpc::warp_sum(s) / D;
+  float q = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kMaxD / 32; ++i)
+    if (lane + 32 * i < D) q += (v[i] - mean) * (v[i] - mean);
+  const float inv = rsqrtf(cpc::warp_sum(q) / D + p.eps);
+  const float* w = p.ln1w + (size_t)kk * D;
+  const float* b = p.ln1b + (size_t)kk * D;
+#pragma unroll
+  for (int i = 0; i < kMaxD / 32; ++i) {
+    const int d = lane + 32 * i;
+    if (d < D)
+      p.y[(size_t)r * D + d] =
+          __float2bfloat16((v[i] - mean) * inv * w[d] + b[d]);
+  }
+  if (lane == 0) {
+    p.stats[2 * (size_t)r] = mean;
+    p.stats[2 * (size_t)r + 1] = inv;
+  }
+}
+
+template <class U>
+cudaError_t run(const Args& p, int K, cudaStream_t stream) {
+  using T = typename U::T;
+  constexpr size_t smem = gm::ring_bytes<T, U::kAK, U::kBN>();
+  static_assert(U::kEpiBytes <= smem, "the epilogue reuses the ring");
+  auto kernel = tail_gemm_kernel<U>;
+  const cudaError_t err = cpc::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const gm::Problem pr = U::problem(p);
+  const int tm = (pr.rows + T::BM - 1) / T::BM;
+  const int tn = (pr.cols + T::BN - 1) / T::BN;
+  const dim3 grid = U::kRowsFast ? dim3(tm, tn, K) : dim3(tn, tm, K);
+  kernel<<<grid, T::kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <class T, bool AK, bool BN>
+constexpr size_t ring() {
+  return gm::ring_bytes<T, AK, BN>();
+}
+constexpr size_t cmax(size_t a, size_t b) { return a > b ? a : b; }
+
+template <int DM>
+constexpr size_t smem_for() {
+  return cmax(cmax(cmax(ring<TileHid, false, false>(),
+                        ring<TileHid, false, true>()),
+                   ring<TileW, true, false>()),
+              cmax(ring<TileRow<DM>, false, false>(),
+                   ring<TileRow<DM>, false, true>()));
+}
+
+}  // namespace
+
+bool shapes_ok(int D, int F) {
+  return D >= 32 && D % 32 == 0 && D <= kMaxD && F > 0 && F % 64 == 0;
+}
+
+int row_tiles(int M, int D) {
+  const int bm = D <= 256 ? TileRow<256>::BM : TileRow<512>::BM;
+  return (M + bm - 1) / bm;
+}
+
+size_t smem_bytes(int D) {
+  return D <= 256 ? smem_for<256>() : smem_for<512>();
+}
+
+size_t scratch_bytes(int K, int M, int D, int F) {
+  return Scratch(nullptr, K, M, D, F).bytes;
+}
+
+int launch(const void* x, const float* ln1w, const float* ln1b,
+           const void* w1, const float* b1, const void* w2, const float* b2,
+           const float* ln2w, const float* ln2b, const void* dout, void* dx,
+           void* y_buf, void* df_buf, float* vec_part, float* vec_out,
+           float* dw1, float* db1, float* dw2, void* scratch, int K, int M,
+           int D, int F, float eps, cpc::Dropout drop, cudaStream_t stream) {
+  const Scratch sc(static_cast<unsigned char*>(scratch), K, M, D, F);
+  Args p;
+  p.x = static_cast<const bf16*>(x);
+  p.w1 = static_cast<const bf16*>(w1);
+  p.w2 = static_cast<const bf16*>(w2);
+  p.dout = static_cast<const bf16*>(dout);
+  p.ln1w = ln1w;
+  p.ln1b = ln1b;
+  p.b1 = b1;
+  p.b2 = b2;
+  p.ln2w = ln2w;
+  p.ln2b = ln2b;
+  p.dx = static_cast<bf16*>(dx);
+  p.y = static_cast<bf16*>(y_buf);
+  p.df = static_cast<bf16*>(df_buf);
+  p.h = sc.h;
+  p.dhp = sc.dhp;
+  p.live = sc.live;
+  p.stats = sc.stats;
+  p.dy2 = sc.dy2;
+  p.vec_part = vec_part;
+  p.db1_part = sc.db1_part;
+  p.dw1 = dw1;
+  p.dw2 = dw2;
+  p.K = K;
+  p.M = M;
+  p.D = D;
+  p.F = F;
+  p.row_tiles = row_tiles(M, D);
+  p.hid_tiles = (M + TileHid::BM - 1) / TileHid::BM;
+  p.eps = eps;
+  p.scale = drop.seed != nullptr ? drop.keep_scale : 1.0f;
+  p.drop = drop;
+
+  const int rows = K * M;
+  tail_ln1_kernel<<<(rows + 7) / 8, 256, 0, stream>>>(p, rows);
+  cudaError_t err = cudaGetLastError();
+  const bool wide = D > 256;
+  if (err == cudaSuccess) err = run<G1_hidden>(p, K, stream);
+  if (err == cudaSuccess)
+    err = wide ? run<G2_ln2<512>>(p, K, stream)
+               : run<G2_ln2<256>>(p, K, stream);
+  if (err == cudaSuccess) err = run<G3_dhp>(p, K, stream);
+  if (err == cudaSuccess)
+    err = wide ? run<G4_dx<512>>(p, K, stream)
+               : run<G4_dx<256>>(p, K, stream);
+  if (err == cudaSuccess) err = run<G5_dw1>(p, K, stream);
+  if (err == cudaSuccess) err = run<G6_dw2>(p, K, stream);
+  if (err == cudaSuccess)
+    err = cpc::sum_parts(vec_part, vec_out, p.row_tiles, D, kVecs * K,
+                         stream);
+  if (err == cudaSuccess)
+    err = cpc::sum_parts(sc.db1_part, db1, p.hid_tiles, F, K, stream);
+  return (int)err;
+}
+
+}  // namespace tail_tc
+}  // namespace cpc

@@ -1,0 +1,31 @@
+// The bf16 body of K3's backward (csrc/layer_tail_bwd_tc.cu), as the
+// entry points of csrc/layer_tail_bwd.cu call it.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+#include "dropout.cuh"
+
+namespace cpc {
+namespace tail_tc {
+
+// D a multiple of 32 in [32, 512], F a multiple of 64.
+bool shapes_ok(int D, int F);
+// Row tiles of the D-wide products (the rows of vec_part).
+int row_tiles(int M, int D);
+// Shared memory of the largest block.
+size_t smem_bytes(int D);
+// Device memory the body needs beside the entry point's arguments.
+size_t scratch_bytes(int K, int M, int D, int F);
+
+int launch(const void* x, const float* ln1w, const float* ln1b,
+           const void* w1, const float* b1, const void* w2, const float* b2,
+           const float* ln2w, const float* ln2b, const void* dout, void* dx,
+           void* y_buf, void* df_buf, float* vec_part, float* vec_out,
+           float* dw1, float* db1, float* dw2, void* scratch, int K, int M,
+           int D, int F, float eps, cpc::Dropout drop, cudaStream_t stream);
+
+}  // namespace tail_tc
+}  // namespace cpc

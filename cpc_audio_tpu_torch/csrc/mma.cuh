@@ -63,6 +63,15 @@ __device__ __forceinline__ void load_a(uint32_t a[4], const bf16* tile,
   ldmatrix_x4(a, tile + (r0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
 }
 
+// The same A fragment from a tile stored k-major (row k holds A[., k]
+// along the rows, as y's rows are in y^T . dhp), through ldmatrix.trans.
+__device__ __forceinline__ void load_a_kmajor(uint32_t a[4], const bf16* tile,
+                                              int ld, int r0, int k0) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4_trans(a, tile + (k0 + (lane & 7) + (lane >> 4) * 8) * ld + r0 +
+                           ((lane >> 3) & 1) * 8);
+}
+
 // B fragments of the two n8 tiles n in [n0, n0 + 16), k in [k0, k0 + 16),
 // from a tile stored n-major (row n holds B[., n] along k, as k^T's rows
 // are k's): b[0], b[1] for n0..n0+7, b[2], b[3] for n0+8..n0+15.

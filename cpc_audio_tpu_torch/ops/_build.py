@@ -55,13 +55,16 @@ _SIGNATURES = {
     "cpc_layer_tail_fwd": ([_P] * 10 + [_I] * 4 + [_F] + _DROP + [_I, _P],
                            _I),
     # x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, dout, dx, y_buf, df_buf,
-    # vec_part, vec_out, dw1, db1, dw2, K, M, D, F, eps, dropout, dtype,
-    # stream
-    "cpc_layer_tail_bwd": ([_P] * 18 + [_I] * 4 + [_F] + _DROP + [_I, _P],
+    # vec_part, vec_out, dw1, db1, dw2, scratch, K, M, D, F, eps, dropout,
+    # dtype, stream
+    "cpc_layer_tail_bwd": ([_P] * 19 + [_I] * 4 + [_F] + _DROP + [_I, _P],
                            _I),
     # M, D, dtype
     "cpc_layer_tail_bwd_tiles": ([_I, _I, _I], _I),
+    # D, F, dtype
     "cpc_layer_tail_bwd_smem": ([_I, _I, _I], ctypes.c_size_t),
+    # K, M, D, F, dtype
+    "cpc_layer_tail_bwd_scratch": ([_I] * 5, ctypes.c_size_t),
     # x_proj, w_hh, b_hh, h0, ys, hT, gates, ghn, B, T, H, dtype, stream
     "cpc_gru_fwd": ([_P] * 8 + [_I] * 4 + [_P], _I),
     # gates, ghn, h0, ys, dys, w_hh, dhT, dx, dghn, dh0, B, T, H, dtype,

@@ -15,9 +15,10 @@ parameters and biases may be any float dtype (they are used in float32);
 
 :func:`layer_tail` is the differentiable entry point: its forward runs the
 K3 forward kernel (csrc/layer_tail_fwd.cu, counted in
-``layer_tail.launches``), its backward the K3 backward kernels
-(csrc/layer_tail_bwd.cu, counted in ``layer_tail_bwd.launches``).  CPU
-tensors take the plain versions.
+``layer_tail.launches``), its backward the K3 backward kernels (counted in
+``layer_tail_bwd.launches``): in bf16 six tensor-core GEMMs with fused
+epilogues (csrc/layer_tail_bwd_tc.cu), in float32 two FMA passes
+(csrc/layer_tail_bwd.cu).  CPU tensors take the plain versions.
 
 The kernels take D a multiple of 32 up to 512 (the widths JAX's own tail
 runs at) and F a multiple of 64 (bf16) or 32 and of D/4;
@@ -37,21 +38,40 @@ _NAME = "layer_tail_fwd"
 _BWD_NAME = "layer_tail_bwd"
 
 MAX_D = 512
-# csrc/layer_tail_bwd.cu's Tiles: (rows, F chunk) of pass 1 and of pass 2,
-# by dtype and by D > 256
-_BWD_TILES = {(torch.bfloat16, False): (32, 64, 64, 32),
-              (torch.bfloat16, True): (16, 32, 32, 16),
-              (torch.float32, False): (16, 32, 16, 32),
-              (torch.float32, True): (8, 32, 8, 16)}
+# csrc/layer_tail_bwd.cu's float32 Tiles: (rows, F chunk) of pass 1 and of
+# pass 2, by D > 256
+_BWD_TILES = {False: (16, 32, 16, 32), True: (8, 32, 8, 16)}
+
+
+def _tc_smem(D: int) -> int:
+    """Shared memory of the bf16 body's largest block, as
+    csrc/layer_tail_bwd_tc.cu sizes it: a 3-slot cp.async ring of bf16
+    tiles whose rows carry 8 elements of padding (csrc/gemm_tc.cuh), for
+    each GEMM (BM, BN, depth of a slot, A stored k-major, B stored
+    n-major): G1, G3, G5 and G6 on 128 x 128 tiles 64 deep, G2 and G4 on
+    128 x 256 (D <= 256) or 64 x 512 tiles 32 deep."""
+    rows, cols = (128, 256) if D <= 256 else (64, 512)
+    gemms = ((128, 128, 64, False, False), (128, 128, 64, False, True),
+             (128, 128, 64, True, False), (rows, cols, 32, False, False),
+             (rows, cols, 32, False, True))
+
+    def ring(bm: int, bn: int, bk: int, a_kmajor: bool,
+             b_nmajor: bool) -> int:
+        a = bk * (bm + 8) if a_kmajor else bm * (bk + 8)
+        b = bn * (bk + 8) if b_nmajor else bk * (bn + 8)
+        return 3 * 2 * (a + b)
+    return max(ring(*g) for g in gemms)
 
 
 def _bwd_smem(D: int, F: int, dtype: torch.dtype) -> int:
-    """Shared memory of the larger of the backward's two passes, as
-    csrc/layer_tail_bwd.cu carves it (RowsLayout, WeightsLayout: each
-    region rounded up to 128 bytes)."""
-    e = 2 if dtype == torch.bfloat16 else 4
-    pad = 16 // e
-    mt1, fc1, mt2, fc2 = _BWD_TILES[(dtype, D > 256)]
+    """Shared memory of the backward's largest block, as
+    cpc_layer_tail_bwd_smem reports it: the bf16 body's ring, or the
+    larger of the float32 body's two passes (RowsLayout, WeightsLayout:
+    each region rounded up to 128 bytes)."""
+    if dtype == torch.bfloat16:
+        return _tc_smem(D)
+    e, pad = 4, 4             # float32, rows padded to 16 bytes
+    mt1, fc1, mt2, fc2 = _BWD_TILES[D > 256]
 
     def take(n: int, size: int) -> int:
         return -(-n * size // 128) * 128
@@ -226,6 +246,9 @@ def layer_tail_bwd(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, dout,
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
     dx, y_buf, df_buf = (torch.empty_like(x) for _ in range(3))
+    # the bf16 body's hidden, its gradient and their companions
+    scratch = torch.empty(lib.cpc_layer_tail_bwd_scratch(K, M, D, F, code),
+                          dtype=torch.uint8, device=dev)
     tiles = lib.cpc_layer_tail_bwd_tiles(M, D, code)
     vec_part = torch.empty((K, tiles, 5, D), **f32)
     vec_out = torch.empty((5, K, D), **f32)
@@ -239,7 +262,7 @@ def layer_tail_bwd(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, dout,
             ln2b.data_ptr(), dout.data_ptr(), dx.data_ptr(),
             y_buf.data_ptr(), df_buf.data_ptr(), vec_part.data_ptr(),
             vec_out.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
-            dw2.data_ptr(), K, M, D, F, float(eps),
+            dw2.data_ptr(), scratch.data_ptr(), K, M, D, F, float(eps),
             *dropout.kernel_args(rate, seed), code, _build.stream(dev))
     _build.check(status, _BWD_NAME)
     layer_tail_bwd.launches += 1

@@ -209,14 +209,32 @@ def _tail_args(rng, dev, dtype, K, M, D, F):
             _rand(rng, dev, f32, K, D, scale=0.1))
 
 
+# One head of the train step's K3 shapes, in bf16 (the body on six
+# GEMMs): over millions of hidden units a few lie within rounding of the
+# ReLU kink and take the other branch in one version, moving one row's
+# whole contribution to dW1 and dx, so each gradient is held by its
+# 2-norm, at chip_smoke.py's TOLERANCE for K3's bf16 backward.  (The
+# float32 body is held at these shapes by chip_smoke.py, over K = 12
+# heads: at K = 2 one flipped unit alone moves dW1 by ~1e-3 of its norm.)
+TAIL_TRAIN_SHAPES = [(3712, 256, 2048), (1952, 512, 2048)]
+TAIL_BWD_CASES = [
+    pytest.param(M, D, F, dt, id=f"{M}-{D}-{F}-dtype{DTYPES.index(dt)}")
+    for M, D, F in [(40, 64, 128), (33, 32, 64), (70, 256, 256),
+                    (45, 512, 2048)] for dt in DTYPES] + [
+    pytest.param(M, D, F, torch.bfloat16, id=f"{M}-{D}-{F}-dtype1")
+    for M, D, F in TAIL_TRAIN_SHAPES]
+
+
 @pytest.mark.parametrize("rate", RATES)
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("M,D,F", [(40, 64, 128), (33, 32, 64),
-                                   (70, 256, 256), (45, 512, 2048)])
+@pytest.mark.parametrize("M,D,F,dtype", TAIL_BWD_CASES)
 def test_layer_tail_bwd_kernel(dev, dtype, M, D, F, rate):
-    """M = 33, 40, 45 and 70: ragged row tiles of both passes (32/64 rows
-    for bf16, 16 for f32); D = 32: the narrowest tile; D = 512: the wide
-    tiles (16/32 rows for bf16, 8 for f32, narrower F chunks)."""
+    """M = 33, 40, 45 and 70: ragged row tiles (bf16: 64 rows in G2/G4, 128
+    in the other GEMMs, and D, F narrower than a 128-wide tile; f32: 16
+    rows); D = 32: the narrowest; D = 512: the wide tiles (bf16: G2/G4 on
+    512 columns; f32: 8 rows, narrower F chunks).  (3712, 256, 2048) and
+    (1952, 512, 2048) are one head of the train step's shapes (the default
+    and --sizeWindow 40960 --hiddenEncoder 512).  bf16 reruns are
+    bit-identical (no atomics, fixed-order sums)."""
     rng = np.random.RandomState(M + D + F)
     K = 2
     args = _tail_args(rng, dev, dtype, K, M, D, F)
@@ -232,7 +250,15 @@ def test_layer_tail_bwd_kernel(dev, dtype, M, D, F, rate):
     names = ("dx", "dln1w", "dln1b", "dw1", "db1", "dw2", "db2", "dln2w",
              "dln2b")
     for name, g, w in zip(names, got, want):
-        _close(g, w, BWD_REL[dtype], name)
+        if (M, D, F) in TAIL_TRAIN_SHAPES:
+            err = _rel_norm(g, w)
+            assert err <= 2e-2, f"{name}: {err:.3e}"
+        else:
+            _close(g, w, BWD_REL[dtype], name)
+    if dtype == torch.bfloat16:
+        again = ffn.layer_tail_bwd(*args, dout, rate, 1e-5, seed)
+        for name, g, a in zip(names, got, again):
+            assert torch.equal(g, a), name
 
 
 def test_backward_wrappers_reject_what_kernels_do_not_take(dev):

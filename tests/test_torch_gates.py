@@ -112,6 +112,28 @@ def test_gates_take_what_jax_takes(no_fused_switches, name, dtype):
         build_criterion(model.config)
 
 
+def test_tail_gate_in_bf16_takes_every_width_the_forward_takes():
+    """K3's gate in bf16 over every model width D a multiple of 32 up to
+    512 at F 2048, and over the (D, F) pairs of the card tests: the
+    backward's shared memory refuses none of them, so only the forward's
+    own condition narrows the gate: its chunks of D/4 hidden columns must
+    divide F, so at F 2048 D 32, 64, 128, 256 and 512 run (JAX's own
+    Pallas gate takes D 128, 256 and 512)."""
+    from cpc_audio_tpu_torch.ops import _build
+    bf = torch.bfloat16
+    taken = []
+    for D in range(32, 513, 32):
+        assert ffn._bwd_smem(D, 2048, bf) <= _build.SMEM_LIMIT, D
+        why = ffn.supported(D, 2048, bf)
+        assert why is None or "D/4" in why, (D, why)
+        if why is None:
+            taken.append(D)
+    assert taken == [32, 64, 128, 256, 512]
+    for D, F in ((64, 128), (32, 64), (256, 256), (512, 2048),
+                 (256, 2048)):
+        assert ffn.supported(D, F, bf) is None, (D, F)
+
+
 REFUSED = [
     ("model", dict(arMode="transformer", hiddenEncoder=2048,
                    hiddenGar=2048), {}, "--hiddenEncoder 2048"),
