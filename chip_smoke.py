@@ -17,14 +17,20 @@ Phases (any failure exits non-zero):
      operations over the peak rate, whichever is larger); K5 and K3 also
      at the widths of --hiddenEncoder 512 --hiddenGar 512 (dk 64, D 512,
      bf16), K2 at those of --sizeWindow 40960 --hiddenEncoder 512 (S 244,
-     dk 64, both dtypes); K8 also with all keys on one row (bf16), and the
+     dk 64, both dtypes); K3 also at D 384 and D 1024 (the widest K2
+     takes; both dtypes); K1's backward also at B 32, T 128, H 512; K2,
+     K1 and K3 at the shapes of --hiddenEncoder 768 --hiddenGar 768 (S
+     116, dk 96; B 32, T 128, H 768; M 3712, D 768; both dtypes); K8
+     also with all keys on one row (bf16), and the
      time of its whole wrapper (sort + searchsorted + K8); K3's bf16
-     backward, at each of its three shapes, must rerun bit-identically,
+     backward, at each of its six shapes, must rerun bit-identically,
      and prints the device time of each of its launches (LN1, G1-G6, the
      sums over tiles); then time the
      yardstick PyTorch call where one computes the same function (cuDNN
      LSTM/GRU, scaled_dot_product_attention, index_add_; also cuDNN's
-     LSTM at B 8, T 256, H 512 beside K1 there, and SDPA at dk 64 beside
+     LSTM at H 512 beside K1 there, forward at B 8, T 256 and backward
+     in turns at B 8, T 256 and B 32, T 128, the same at B 32, T 128,
+     H 768, forward and backward, and SDPA at dk 64 beside
      K5 at rate 0, in turns), K1's and K4's
      backward beside cuDNN's in both dtypes and the port's whole LSTM and
      GRU layers beside cuDNN's, in turns, K5 at rate 0 beside SDPA, and
@@ -44,15 +50,17 @@ Phases (any failure exits non-zero):
      negativeSamplingMode auto resolves to the exact sampler;
   5. the train paths, LSTM, GRU, transformer, the fused-layer path, the
      exact sampler on LSTM (negativeSamplingMode exact), the transformer
-     at --hiddenEncoder 512 --hiddenGar 512, then LSTM at --sizeWindow
-     40960 --hiddenEncoder 512 --hiddenGar 512 (B = 8, K2 at S 244):
+     at --hiddenEncoder 512 --hiddenGar 512, LSTM at --sizeWindow
+     40960 --hiddenEncoder 512 --hiddenGar 512 (B = 8, K2 at S 244), then
+     LSTM at --hiddenEncoder 768 --hiddenGar 768 (K3 at D 768):
      make_train_step at the same config (bf16, B = 32, dropout 0.1 in the
      heads and the transformer AR), 2 warm-up and 10 timed steps on a
      fixed batch; the launch counts of the path's kernels must rise (on
      the fused path K6 once and K7 four times a step, K2 never; on the
      exact path K8 once a step; on the long-window path K2 once a step),
      K1's and K4's backward must run their cluster body at hiddenGar 256
-     (and the rows body at 512), the losses must be finite and fall;
+     and K1's its 16-CTA cluster body at 512 (the rows body at 768), the
+     losses must be finite and fall;
      prints train windows/s and the step's device time by kernel
      (torch.profiler); then one float32 step on a (2, 1, 20480) batch on
      the card and on the CPU (same weights, round keys, negatives' seed
@@ -375,6 +383,10 @@ def kernel_cases(dev: torch.device, dtype: torch.dtype, B: int = 32):
         # by the float32 train step below and tests/test_torch_cuda.py
         cases += wide_cases(rand, seed, B)
     cases += long_cases(rand, dev, seed)
+    cases += tail_cases(rand, seed, B * S, 384, "D 384")
+    cases += tail_cases(rand, seed, B * S, 1024, "D 1024")
+    cases += h512_cases(rand, dev)
+    cases += w768_cases(rand, dev, seed, B)
     upd, keys, order, offsets, R = scatter_inputs(dev, dtype, B)
     cases.append(Case("scatter_add_rows", 0.0,
                       lambda: sa.scatter_add_sorted(upd, order, offsets),
@@ -414,19 +426,36 @@ def recurrent_args(rand, dev: torch.device, B: int = 32, T: int = 128,
 def long_cases(rand, dev: torch.device, seed, B: int = 8):
     """The kernels of the --sizeWindow 40960 --hiddenEncoder 512
     --hiddenGar 512 LSTM path at its train step's shapes, batch B (the
-    train phase's): K2 at rate 0.1 with K = 12, S = 244 anchors, 8 heads x
-    dk 64 (its bf16 operands are staged in bf16, float32 ones read in
-    place); K1 at T = 256 frames, H = 512 (the backward's rows body); K3
-    at M = B*244, D = 512."""
+    train phase's): K2 with S = 244 anchors, dk 64 (its bf16 operands are
+    staged in bf16, float32 ones read in place); K1 at T = 256 frames,
+    H = 512 (the backward's 16-CTA cluster body in bf16, its rows body in
+    float32); K3 at M = B*244, D = 512."""
+    return path_cases(rand, dev, seed, B, S=244, dk=64, T=256, H=512)
+
+
+def w768_cases(rand, dev: torch.device, seed, B: int = 32):
+    """The kernels of the --hiddenEncoder 768 --hiddenGar 768 LSTM path at
+    its train step's shapes, batch B: K2 with S = 116 anchors, dk 96; K1
+    at T = 128 frames, H = 768 (the rows body in both dtypes); K3 at
+    M = B*116, D = 768 (the widest width class with 256 of its 1024
+    columns idle: ragged G2/G4 tiles in bf16, the forward's 16-row blocks
+    with 3 output fragments a warp, the float32 forward's second column
+    on half of the threads)."""
+    return path_cases(rand, dev, seed, B, S=116, dk=96, T=128, H=768)
+
+
+def path_cases(rand, dev: torch.device, seed, B: int, S: int, dk: int,
+               T: int, H: int, K: int = 12, nh: int = 8):
+    """The heads' and the LSTM AR's kernels of one train path at its
+    step's shapes: K2 at rate 0.1 on K heads of B*S rows, nh heads x dk;
+    K1 forward and backward at (B, T, H); K3 at M = B*S, D = nh*dk."""
     from cpc_audio_tpu_torch.ops import head_attention as ha, lstm
-    K, S, nh, dk = 12, 244, 8, 64
     M, D = B * S, nh * dk
     args = (rand(K, M, D), rand(K, M, D), rand(K, M, D),
             rand(K, dk, S, scale=0.5))
     dout = rand(K, M, D, scale=0.1)
     pairs = K * B * nh * S * (S + 1) // 2
-    r, tag = 0.1, "S 244 / dk 64"
-    T, H = 256, 512
+    r, tag = 0.1, f"S {S} / dk {dk}"
     lstm_args, lstm_bwd_args = recurrent_args(rand, dev, B, T, H)[:2]
     rnn_tag = f"B {B} / T {T} / H {H}"
     return [
@@ -447,6 +476,18 @@ def long_cases(rand, dev: torch.device, seed, B: int = 8):
              lambda: lstm.lstm_bwd_ref(*lstm_bwd_args), lstm_bwd_args,
              2 * B * T * 4 * H * H, shape=rnn_tag)] + \
         tail_cases(rand, seed, M, D, f"M {M} / D {D}")
+
+
+def h512_cases(rand, dev: torch.device, B: int = 32, T: int = 128,
+               H: int = 512):
+    """K1's backward at H 512 at the default window's B 32, T 128 (bf16:
+    the 16-CTA cluster body; float32: the rows body), beside the
+    long-window path's B 8, T 256 (long_cases)."""
+    from cpc_audio_tpu_torch.ops import lstm
+    args = recurrent_args(rand, dev, B, T, H)[1]
+    return [Case("lstm_bwd", 0.0, lambda: lstm.lstm_bwd(*args),
+                 lambda: lstm.lstm_bwd_ref(*args), args,
+                 2 * B * T * 4 * H * H, shape=f"B {B} / T {T} / H {H}")]
 
 
 def tail_cases(rand, seed, M: int, D: int, tag: str, K: int = 12,
@@ -747,27 +788,44 @@ def sdpa_calls(rand, B: int, dk: int, S: int = 128, nh: int = 8):
 
 def wide_yardsticks(dev: torch.device, shaped: dict, B: int = 32) -> None:
     """The one-call yardsticks at the wider paths' shapes, bf16: cuDNN's
-    nn.LSTM at B 8, T 256, H 512 (the long-window path's K1), forward and
-    backward, beside K1's times there; SDPA at dk 64 (the 512-wide
-    transformer's K5: N = B * 8 rows of S 128), rate 0, beside K5 at rate
-    0, in turns (K5, SDPA, SDPA, K5)."""
+    nn.LSTM at B 8, T 256, H 512 (the long-window path's K1) and at B 32,
+    T 128, H 768 (the 768-wide path's), forward beside K1's time there;
+    K1's backward (the 16-CTA cluster body at H 512, the rows body at
+    768) beside cuDNN's at those shapes and at B 32, T 128, H 512, in
+    turns (K1, cuDNN, cuDNN, K1); SDPA at dk 64 (the 512-wide transformer's K5: N = B * 8
+    rows of S 128), rate 0, beside K5 at rate 0, in turns (K5, SDPA,
+    SDPA, K5)."""
     from cpc_audio_tpu_torch.ops import causal_attention as ca
+    from cpc_audio_tpu_torch.ops import lstm
     g = torch.Generator(device=dev).manual_seed(SEED + 13)
-    tag = "B 8 / T 256 / H 512"
-    fwd, bwd, cls = cudnn_layer(dev, torch.bfloat16, "lstm", g, B=8, T=256,
-                                C=512)
-    for name, call, what in (("lstm_fwd", fwd, "forward (training), input "
-                              "projection included"),
-                             ("lstm_bwd", bwd, "autograd backward, dx and "
-                              "dW")):
-        lib_ms, ms = median_ms(call), shaped[(name, tag)]
-        print(f"  {name} {tag}: cuDNN nn.{cls} {what} {lib_ms:.4f} ms; "
-              f"kernel {ms:.4f} ms; kernel / cuDNN {ms / lib_ms:.3f}",
-              flush=True)
 
     def rand(*shape, scale=1.0, grad=False):
         t = (torch.randn(shape, generator=g, device=dev) * scale).bfloat16()
         return t.requires_grad_(grad)
+    for Bl, T, H in ((8, 256, 512), (32, 128, 512), (32, 128, 768)):
+        tag = f"B {Bl} / T {T} / H {H}"
+        fwd, bwd, cls = cudnn_layer(dev, torch.bfloat16, "lstm", g, B=Bl,
+                                    T=T, C=H)
+        if ("lstm_fwd", tag) in shaped:
+            lib_ms, ms = median_ms(fwd), shaped[("lstm_fwd", tag)]
+            print(f"  lstm_fwd {tag}: cuDNN nn.{cls} forward (training), "
+                  f"input projection included {lib_ms:.4f} ms; kernel "
+                  f"{ms:.4f} ms; kernel / cuDNN {ms / lib_ms:.3f}",
+                  flush=True)
+        args = recurrent_args(rand, dev, Bl, T, H)[1]
+        t = {"kernel": [], "cudnn": []}
+        for who in ("kernel", "cudnn", "cudnn", "kernel"):
+            t[who].append(median_ms((lambda: lstm.lstm_bwd(*args))
+                                    if who == "kernel" else bwd))
+        k_ms, c_ms = (statistics.mean(t[w]) for w in ("kernel", "cudnn"))
+        print(f"  lstm_bwd {tag}, in turns ({lstm.bwd_body(H, torch.bfloat16)}"
+              f" body): kernel {t['kernel'][0]:.4f} / {t['kernel'][1]:.4f} "
+              f"ms, cuDNN nn.{cls} autograd backward, dx and dW "
+              f"{t['cudnn'][0]:.4f} / {t['cudnn'][1]:.4f} ms; kernel / "
+              f"cuDNN {k_ms / c_ms:.3f}; kernel in the case run "
+              f"{shaped[('lstm_bwd', tag)]:.4f} ms", flush=True)
+        del args, fwd, bwd
+        torch.cuda.empty_cache()
     N, S, dk = B * 8, 128, 64
     q, k, v = (rand(N, S, dk) for _ in range(3))
     bias, do = rand(N, S, S, scale=0.5), rand(N, S, dk, scale=0.1)
@@ -1087,6 +1145,7 @@ FUSED = "LSTM fused"
 EXACT = "LSTM exact"
 WIDE = "transformer 512"          # --hiddenEncoder 512 --hiddenGar 512
 LONG = "LSTM 40960/512"      # --sizeWindow 40960 --hiddenEncoder 512 ..
+W768 = "LSTM 768"            # --hiddenEncoder 768 --hiddenGar 768
 PATH_KERNELS = {"LSTM": ("lstm_fwd", "lstm_bwd") + HEADS,
                 "GRU": ("gru_fwd", "gru_bwd") + HEADS,
                 "transformer": ("causal_attention_fwd",
@@ -1098,16 +1157,19 @@ PATH_KERNELS = {"LSTM": ("lstm_fwd", "lstm_bwd") + HEADS,
                 + ("scatter_add_rows",),
                 WIDE: ("causal_attention_fwd", "causal_attention_bwd")
                 + HEADS,
-                LONG: ("lstm_fwd", "lstm_bwd") + HEADS}
+                LONG: ("lstm_fwd", "lstm_bwd") + HEADS,
+                W768: ("lstm_fwd", "lstm_bwd") + HEADS}
 # CPCConfig fields a path sets beside arMode
 PATH_CONFIG = {EXACT: {"negativeSamplingMode": "exact"},
                WIDE: {"hiddenEncoder": 512, "hiddenGar": 512},
                LONG: {"sizeWindow": 40960, "hiddenEncoder": 512,
-                      "hiddenGar": 512}}
+                      "hiddenGar": 512},
+               W768: {"hiddenEncoder": 768, "hiddenGar": 768}}
 # the body the AR's backward kernel (K1, K4) must run on a path: the
-# cluster body at hiddenGar 256 (and 128), the rows body at 512
+# cluster body at hiddenGar 256 (and 128) and, on 16 CTAs, at 512 (the
+# bf16 train step's), the rows body at 768
 BWD_BODY = {"LSTM": "cluster", "GRU": "cluster", FUSED: "cluster",
-            EXACT: "cluster", LONG: "rows"}
+            EXACT: "cluster", LONG: "cluster", W768: "rows"}
 # launches a step, where a path fixes them: on the fused path K2 must not
 # run at all; on the exact path K8 runs once, in the backward
 PER_STEP = {FUSED: {"attention_block_fwd": 1, "attention_block_bwd": 1,
@@ -1854,7 +1916,7 @@ def main() -> None:
     print(f"[phase kernels {time.time() - t0:.1f} s]", flush=True)
     t0 = time.time()
     for path in PATH_KERNELS:
-        if path not in (EXACT, LONG):
+        if path not in (EXACT, LONG, W768):
             phase_eval(dev, path)
     phase_eval_auto_exact(dev)
     print(f"[phase eval {time.time() - t0:.1f} s]", flush=True)
@@ -1869,7 +1931,7 @@ def main() -> None:
                       (FUSED, ("attention_block_fwd", "attention_block_bwd",
                                "conv_ln_fwd", "conv_ln_bwd")),
                       (EXACT, ("scatter_add_rows",)),
-                      (WIDE, ()), (LONG, ())):
+                      (WIDE, ()), (LONG, ()), (W768, ())):
         t0 = time.time()
         # the long-window path at a small batch, as users fit it on a card
         counts = phase_train(dev, path, B=8 if path == LONG else 32)

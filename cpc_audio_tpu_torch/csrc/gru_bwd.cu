@@ -55,7 +55,7 @@ template <typename T, int J>
 using ClusterLayout = cpc::rnn::Layout<T, 3, J, kSlot<T>>;
 
 template <typename T, int J>
-__global__ void __launch_bounds__(cpc::rnn::kThreads, 1)
+__global__ void __launch_bounds__(ClusterLayout<T, J>::kThreads, 1)
     gru_bwd_cluster_kernel(const float* __restrict__ gates,
                            const float* __restrict__ ghn,
                            const T* __restrict__ h0, const T* __restrict__ ys,
@@ -87,7 +87,7 @@ __global__ void __launch_bounds__(cpc::rnn::kThreads, 1)
   auto prefetch = [&](int t) {
     float2* g = gates_of(t);
     T2* hp = hp_of(t);
-    for (int p = tid; p < P; p += rnn::kThreads) {
+    for (int p = tid; p < P; p += L::kThreads) {
       const rnn::Pair<J> pr(p);
       const int b = b0 + pr.row;
       if (b >= B) continue;
@@ -106,7 +106,7 @@ __global__ void __launch_bounds__(cpc::rnn::kThreads, 1)
   rnn::load_w<L>(reinterpret_cast<T*>(smem + L::w), w_hh, c);
   prefetch(n_steps - 1);
   cpc::mma::cp_async_commit();
-  for (int p = tid; p < P; p += rnn::kThreads)
+  for (int p = tid; p < P; p += L::kThreads)
     dhz[p] = make_float2(0.0f, 0.0f);
   cpc::mma::cp_async_wait<0>();
   __syncthreads();
@@ -118,7 +118,7 @@ __global__ void __launch_bounds__(cpc::rnn::kThreads, 1)
     cpc::mma::cp_async_wait<1>();   // this thread's copies of step t
     const float2* g = gates_of(t);
     const T2* hp = hp_of(t);
-    for (int p = tid; p < P; p += rnn::kThreads) {
+    for (int p = tid; p < P; p += L::kThreads) {
       const rnn::Pair<J> pr(p);
       const int b = b0 + pr.row;
       if (b >= B) {
@@ -172,7 +172,7 @@ __global__ void __launch_bounds__(cpc::rnn::kThreads, 1)
     rnn::product_push<L>(smem, c, t & 1);
     rnn::cluster_sync();
   }
-  for (int p = tid; p < P; p += rnn::kThreads) {
+  for (int p = tid; p < P; p += L::kThreads) {
     const rnn::Pair<J> pr(p);
     const int b = b0 + pr.row;
     if (b >= B) continue;
@@ -200,8 +200,8 @@ int launch_cluster(const float* gates, const float* ghn, const void* h0,
                    const void* ys, const void* dys, const void* w_hh,
                    const float* dhT, float* dx, float* dghn, float* dh0,
                    int B, int n_steps, cudaStream_t stream) {
-  return (int)cpc::rnn::launch(
-      gru_bwd_cluster_kernel<T, J>, B, ClusterLayout<T, J>::bytes, stream,
+  return (int)cpc::rnn::launch<ClusterLayout<T, J>>(
+      gru_bwd_cluster_kernel<T, J>, B, stream,
       gates, ghn, static_cast<const T*>(h0), static_cast<const T*>(ys),
       static_cast<const T*>(dys), static_cast<const T*>(w_hh), dhT, dx, dghn,
       dh0, B, n_steps);

@@ -35,12 +35,13 @@
 // and a small kernel sums the vector partials over tiles in a fixed
 // order.  Pass 1 restages W1 and W2 twice per row tile, pass 2 re-reads y
 // and df once per F chunk; both are bound by these stagings and by the
-// serial phases of a block, not by the FMA rate.  D goes up to 512
-// (JAX's gate): past D = 256 both passes take narrower row tiles and F
-// chunks (`Tiles`), so that their D-wide tiles stay within an H100
-// block's 227 KB.
+// serial phases of a block, not by the FMA rate.  D goes up to 1024 (K2's
+// limit, 8 heads of dk <= 128): past D = 256, and again past 512, both
+// passes take narrower row tiles and F chunks (`Tiles`), so that their
+// D-wide tiles stay within an H100 block's 227 KB.
 #include "common.cuh"
 #include "dropout.cuh"
+#include "layer_tail.cuh"
 #include "layer_tail_bwd_tc.cuh"
 
 namespace {
@@ -49,18 +50,21 @@ constexpr int kThreads = 512;
 constexpr int kVecs = 5;   // dln1w, dln1b, db2, dln2w, dln2b
 
 // Rows per tile and F columns per chunk of each pass of the float32 body,
-// per width: the narrow tiles serve D <= 256, the wide ones (fewer rows
-// and columns, so that the D-wide tiles of both passes stay within 227 KB
-// of shared memory) D <= 512.  Chunks of pass 1 stay multiples of 32: a
-// warp's ballot writes one word of a row's live mask.
-constexpr int kNarrowD = 256, kMaxD = 512;
+// per width class W (layer_tail.cuh: D up to 256 << W), each with fewer
+// rows and columns, so that the D-wide tiles of both passes stay within
+// 227 KB of shared memory.  A chunk of pass 1 is 32 columns (a warp's
+// ballot is one word of a row's live mask) or 16 (half a word: two rows a
+// warp).
 
-template <typename T, bool kWide> struct Tiles;
-template <> struct Tiles<float, false> {
+template <typename T, int W> struct Tiles;
+template <> struct Tiles<float, 0> {
   static constexpr int kRows1 = 16, kChunk1 = 32, kRows2 = 16, kChunk2 = 32;
 };
-template <> struct Tiles<float, true> {
+template <> struct Tiles<float, 1> {
   static constexpr int kRows1 = 8, kChunk1 = 32, kRows2 = 8, kChunk2 = 16;
+};
+template <> struct Tiles<float, 2> {
+  static constexpr int kRows1 = 4, kChunk1 = 16, kRows2 = 8, kChunk2 = 8;
 };
 
 // Row padding, in elements, that keeps every row 16-byte aligned.
@@ -163,7 +167,7 @@ struct Carver {
   }
 };
 
-template <typename T, bool W>
+template <typename T, int W>
 struct RowsLayout {
   int ldD, ldF, ldh, lda;
   T *Y, *DF, *W1c, *W2c, *HT;
@@ -192,7 +196,7 @@ struct RowsLayout {
   }
 };
 
-template <typename T, bool W>
+template <typename T, int W>
 struct WeightsLayout {
   int ldD, ldF, ldh, ldw1, ldw2;
   T *W1c, *W2c, *Y, *DF, *HT, *DHP;
@@ -225,7 +229,7 @@ struct WeightsLayout {
 // Pass 1: per (row tile, k).
 // ---------------------------------------------------------------------------
 
-template <typename T, bool W>
+template <typename T, int W>
 __global__ void __launch_bounds__(kThreads) tail_bwd_rows_kernel(
     const T* __restrict__ x, const float* __restrict__ ln1w,
     const float* __restrict__ ln1b, const T* __restrict__ w1,
@@ -293,7 +297,15 @@ __global__ void __launch_bounds__(kThreads) tail_bwd_rows_kernel(
                        drop_factor(drop, kk * M + row0 + r, f0 + c);
       L.HT[r * L.ldF + c] = cpc::from_f32<T>(hv);
       const unsigned word = __ballot_sync(0xffffffffu, hv > 0.0f);
-      if (lane == 0) L.live[r * words + (f0 + c) / 32] = word;
+      if constexpr (FC % 32 == 0) {
+        if (lane == 0) L.live[r * words + (f0 + c) / 32] = word;
+      } else if (c == 0) {
+        // lanes [lane, lane + FC) hold this row's bits: half a word, the
+        // chunk at f0 % 32 == 0 starts it, the next one completes it
+        const uint32_t bits = (word >> lane) & ((1u << FC) - 1u);
+        uint32_t* w = L.live + r * words + f0 / 32;
+        *w = (f0 % 32 == 0 ? 0u : *w) | (bits << (f0 % 32));
+      }
     }
     __syncthreads();
     block_gemm<false, false>(L.B32, L.lda, L.HT, L.ldF, L.W2c, L.ldD, MT, D,
@@ -358,7 +370,8 @@ __global__ void __launch_bounds__(kThreads) tail_bwd_rows_kernel(
     __syncthreads();
     for (int idx = tid; idx < MT * FC; idx += blockDim.x) {
       const int r = idx / FC, c = idx - r * FC;
-      const bool live = (L.live[r * words + (f0 + c) / 32] >> (c & 31)) & 1u;
+      const bool live =
+          (L.live[r * words + (f0 + c) / 32] >> ((f0 + c) & 31)) & 1u;
       L.HT[r * L.ldF + c] =
           cpc::from_f32<T>(live ? L.DH[r * L.ldh + c] * scale : 0.0f);
     }
@@ -407,7 +420,7 @@ __global__ void __launch_bounds__(kThreads) tail_bwd_rows_kernel(
 // Pass 2: per (F chunk, k).
 // ---------------------------------------------------------------------------
 
-template <typename T, bool W>
+template <typename T, int W>
 __global__ void __launch_bounds__(kThreads) tail_bwd_weights_kernel(
     const T* __restrict__ y_buf, const T* __restrict__ df_buf,
     const T* __restrict__ w1, const float* __restrict__ b1,
@@ -488,27 +501,27 @@ __global__ void tail_vec_reduce_kernel(const float* __restrict__ part,
   }
 }
 
-template <typename T, bool W>
+template <typename T, int W>
 size_t smem_rows(int D, int F) {
   return RowsLayout<T, W>(nullptr, D, F).bytes;
 }
-template <typename T, bool W>
+template <typename T, int W>
 size_t smem_weights(int D) {
   return WeightsLayout<T, W>(nullptr, D).bytes;
 }
 
-template <typename T, bool W>
+template <typename T, int W>
 size_t smem_both(int D, int F) {
   const size_t a = smem_rows<T, W>(D, F), b = smem_weights<T, W>(D);
   return a > b ? a : b;
 }
 
-template <typename T, bool W>
+template <typename T, int W>
 int n_row_tiles(int M) {
   return (M + Tiles<T, W>::kRows1 - 1) / Tiles<T, W>::kRows1;
 }
 
-template <typename T, bool W>
+template <typename T, int W>
 int launch(const void* x, const float* ln1w, const float* ln1b,
            const void* w1, const float* b1, const void* w2, const float* b2,
            const float* ln2w, const float* ln2b, const void* dout, void* dx,
@@ -544,10 +557,10 @@ int launch(const void* x, const float* ln1w, const float* ln1b,
 
 template <typename T>
 bool shapes_ok(int D, int F) {
-  constexpr int c = Tiles<T, false>::kChunk1 > Tiles<T, false>::kChunk2
-                        ? Tiles<T, false>::kChunk1
-                        : Tiles<T, false>::kChunk2;
-  return D >= 32 && D % 32 == 0 && D <= kMaxD && F % c == 0 && F > 0;
+  constexpr int c = Tiles<T, 0>::kChunk1 > Tiles<T, 0>::kChunk2
+                        ? Tiles<T, 0>::kChunk1
+                        : Tiles<T, 0>::kChunk2;
+  return D >= 32 && D % 32 == 0 && D <= cpc::kTailMaxD && F % c == 0 && F > 0;
 }
 
 }  // namespace
@@ -558,17 +571,17 @@ bool shapes_ok(int D, int F) {
 // df_buf (none in float32); 0 for a bad dtype.
 extern "C" int cpc_layer_tail_bwd_tiles(int M, int D, int dtype) {
   if (dtype == cpc::kBFloat16) return cpc::tail_tc::row_tiles(M, D);
-  if (dtype == cpc::kFloat32)
-    return D > kNarrowD ? n_row_tiles<float, true>(M)
-                        : n_row_tiles<float, false>(M);
+  int (*const kTiles[cpc::kTailClasses])(int) = {
+      n_row_tiles<float, 0>, n_row_tiles<float, 1>, n_row_tiles<float, 2>};
+  if (dtype == cpc::kFloat32) return kTiles[cpc::tail_width_class(D)](M);
   return 0;
 }
 
 extern "C" size_t cpc_layer_tail_bwd_smem(int D, int F, int dtype) {
   if (dtype == cpc::kBFloat16) return cpc::tail_tc::smem_bytes(D);
-  if (dtype == cpc::kFloat32)
-    return D > kNarrowD ? smem_both<float, true>(D, F)
-                        : smem_both<float, false>(D, F);
+  size_t (*const kSmem[cpc::kTailClasses])(int, int) = {
+      smem_both<float, 0>, smem_both<float, 1>, smem_both<float, 2>};
+  if (dtype == cpc::kFloat32) return kSmem[cpc::tail_width_class(D)](D, F);
   return 0;
 }
 
@@ -592,7 +605,6 @@ extern "C" int cpc_layer_tail_bwd(
     void* scratch, int K, int M, int D, int F, float eps, const void* seed,
     unsigned int threshold, float keep_scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool wide = D > kNarrowD;
   const cpc::Dropout drop{static_cast<const int64_t*>(seed), threshold,
                           keep_scale};
   const float* f[6] = {
@@ -608,8 +620,10 @@ extern "C" int cpc_layer_tail_bwd(
     return cpc::tail_tc::launch(x, f[0], f[1], w1, f[2], w2, f[3], f[4],
                                 f[5], dout, dx, y_buf, df_buf, vp, vo, o1, ob,
                                 o2, scratch, K, M, D, F, eps, drop, s);
+  const decltype(&launch<float, 0>) kLaunch[cpc::kTailClasses] = {
+      launch<float, 0>, launch<float, 1>, launch<float, 2>};
   if (dtype == cpc::kFloat32 && shapes_ok<float>(D, F))
-    return (wide ? launch<float, true> : launch<float, false>)(
+    return kLaunch[cpc::tail_width_class(D)](
         x, f[0], f[1], w1, f[2], w2, f[3], f[4], f[5], dout, dx, y_buf,
         df_buf, vp, vo, o1, ob, o2, K, M, D, F, eps, drop, s);
   return (int)cudaErrorInvalidValue;

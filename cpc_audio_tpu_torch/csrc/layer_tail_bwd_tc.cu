@@ -42,15 +42,18 @@
 // then the per-tile partials are summed over tiles in a fixed order
 // (cpc::sum_parts, csrc/tile_mm.cuh).  No atomics anywhere: reruns are
 // bit-identical.  G2 and G4 keep a whole D-wide row tile in registers
-// (128 x 256 or 64 x 512 over 16 warps: 64 accumulators a thread).
+// (128 x 256, 64 x 512 or 32 x 1024 over 16 warps: 64 accumulators a
+// thread).
 //
-// Shapes: D a multiple of 32 up to 512, F a multiple of 64, any M (ragged
-// tiles are zero-filled by the core).
+// Shapes: D a multiple of 32 up to 1024 (K2's limit, 8 heads of dk <=
+// 128), F a multiple of 64, any M (ragged tiles are zero-filled by the
+// core).
 #include <type_traits>
 
 #include "common.cuh"
 #include "dropout.cuh"
 #include "gemm_tc.cuh"
+#include "layer_tail.cuh"
 #include "layer_tail_bwd_tc.cuh"
 #include "tile_mm.cuh"
 
@@ -63,17 +66,21 @@ namespace gm = cpc::gemm;
 
 // vec_out's vectors: dln1w, dln1b, db2, dln2w, dln2b
 constexpr int kVecs = 5;
-constexpr int kMaxD = 512;
 
 // The tiles, chosen by timing variants on an H100 (PERF.md): 64-deep
 // slots for the 128 x 128 tiles (two blocks an SM), and 16 warps, 64
-// accumulators a thread, for the D-wide row tiles.
+// accumulators a thread, for the D-wide row tiles.  The 32 x 1024 tile
+// takes 16-deep slots, four of them: 32-deep ones of G4's n-major W1
+// would need 253 KB.
 using TileHid = gm::Tile<128, 128, 2, 4, 3, 64>;   // G1, G3: (M, F) outputs
 using TileW = gm::Tile<128, 128, 2, 4, 3, 64>;     // G5, G6: dW1, dW2
-// G2, G4: a tile of rows by every column, D <= DM
+// G2, G4: a tile of rows by every column, D <= DM = 256 << W for D's
+// width class W (layer_tail.cuh)
 template <int DM>
-using TileRow = std::conditional_t<DM <= 256, gm::Tile<128, 256, 4, 4>,
-                                   gm::Tile<64, 512, 2, 8>>;
+using TileRow = std::conditional_t<
+    DM <= 256, gm::Tile<128, 256, 4, 4>,
+    std::conditional_t<DM <= 512, gm::Tile<64, 512, 2, 8>,
+                       gm::Tile<32, 1024, 1, 16, 4, 16>>>;
 
 struct Args {
   const bf16 *x, *w1, *w2, *dout;
@@ -531,7 +538,10 @@ __global__ void __launch_bounds__(U::T::kThreads, U::T::kMinBlocks)
   U::epilogue(p, acc, gm::frag<T>(m0, n0), kk, m0, n0, smem);
 }
 
-// y = round(LN1(x)) and the rows' (mean, 1 / std): one warp per row.
+// y = round(LN1(x)) and the rows' (mean, 1 / std): one warp per row of
+// D <= DM, DM / 32 elements a lane (sized by D's class: a lane's array
+// sized for the widest D doubled the time of this launch at D 256).
+template <int DM>
 __global__ void __launch_bounds__(256) tail_ln1_kernel(const Args p,
                                                         int rows) {
   const int r = blockIdx.x * 8 + (threadIdx.x >> 5);
@@ -539,10 +549,10 @@ __global__ void __launch_bounds__(256) tail_ln1_kernel(const Args p,
   if (r >= rows) return;
   const int kk = r / p.M, D = p.D;
   const bf16* xr = p.x + (size_t)r * D;
-  float v[kMaxD / 32];
+  float v[DM / 32];
   float s = 0.0f;
 #pragma unroll
-  for (int i = 0; i < kMaxD / 32; ++i) {
+  for (int i = 0; i < DM / 32; ++i) {
     const int d = lane + 32 * i;
     v[i] = d < D ? __bfloat162float(xr[d]) : 0.0f;
     s += v[i];
@@ -550,13 +560,13 @@ __global__ void __launch_bounds__(256) tail_ln1_kernel(const Args p,
   const float mean = cpc::warp_sum(s) / D;
   float q = 0.0f;
 #pragma unroll
-  for (int i = 0; i < kMaxD / 32; ++i)
+  for (int i = 0; i < DM / 32; ++i)
     if (lane + 32 * i < D) q += (v[i] - mean) * (v[i] - mean);
   const float inv = rsqrtf(cpc::warp_sum(q) / D + p.eps);
   const float* w = p.ln1w + (size_t)kk * D;
   const float* b = p.ln1b + (size_t)kk * D;
 #pragma unroll
-  for (int i = 0; i < kMaxD / 32; ++i) {
+  for (int i = 0; i < DM / 32; ++i) {
     const int d = lane + 32 * i;
     if (d < D)
       p.y[(size_t)r * D + d] =
@@ -602,16 +612,20 @@ constexpr size_t smem_for() {
 }  // namespace
 
 bool shapes_ok(int D, int F) {
-  return D >= 32 && D % 32 == 0 && D <= kMaxD && F > 0 && F % 64 == 0;
+  return D >= 32 && D % 32 == 0 && D <= cpc::kTailMaxD && F > 0 && F % 64 == 0;
 }
 
 int row_tiles(int M, int D) {
-  const int bm = D <= 256 ? TileRow<256>::BM : TileRow<512>::BM;
+  constexpr int kBM[cpc::kTailClasses] = {
+      TileRow<256>::BM, TileRow<512>::BM, TileRow<1024>::BM};
+  const int bm = kBM[cpc::tail_width_class(D)];
   return (M + bm - 1) / bm;
 }
 
 size_t smem_bytes(int D) {
-  return D <= 256 ? smem_for<256>() : smem_for<512>();
+  constexpr size_t kSmem[cpc::kTailClasses] = {
+      smem_for<256>(), smem_for<512>(), smem_for<1024>()};
+  return kSmem[cpc::tail_width_class(D)];
 }
 
 size_t scratch_bytes(int K, int M, int D, int F) {
@@ -658,18 +672,21 @@ int launch(const void* x, const float* ln1w, const float* ln1b,
   p.scale = drop.seed != nullptr ? drop.keep_scale : 1.0f;
   p.drop = drop;
 
+  // LN1, G2 and G4 by D's width class
+  const decltype(&tail_ln1_kernel<256>) kLn1[cpc::kTailClasses] = {
+      tail_ln1_kernel<256>, tail_ln1_kernel<512>, tail_ln1_kernel<1024>};
+  const decltype(&run<G2_ln2<256>>) kG2[cpc::kTailClasses] = {
+      run<G2_ln2<256>>, run<G2_ln2<512>>, run<G2_ln2<1024>>};
+  const decltype(&run<G4_dx<256>>) kG4[cpc::kTailClasses] = {
+      run<G4_dx<256>>, run<G4_dx<512>>, run<G4_dx<1024>>};
+  const int w = cpc::tail_width_class(D);
   const int rows = K * M;
-  tail_ln1_kernel<<<(rows + 7) / 8, 256, 0, stream>>>(p, rows);
+  kLn1[w]<<<dim3((rows + 7) / 8), 256, 0, stream>>>(p, rows);
   cudaError_t err = cudaGetLastError();
-  const bool wide = D > 256;
   if (err == cudaSuccess) err = run<G1_hidden>(p, K, stream);
-  if (err == cudaSuccess)
-    err = wide ? run<G2_ln2<512>>(p, K, stream)
-               : run<G2_ln2<256>>(p, K, stream);
+  if (err == cudaSuccess) err = kG2[w](p, K, stream);
   if (err == cudaSuccess) err = run<G3_dhp>(p, K, stream);
-  if (err == cudaSuccess)
-    err = wide ? run<G4_dx<512>>(p, K, stream)
-               : run<G4_dx<256>>(p, K, stream);
+  if (err == cudaSuccess) err = kG4[w](p, K, stream);
   if (err == cudaSuccess) err = run<G5_dw1>(p, K, stream);
   if (err == cudaSuccess) err = run<G6_dw2>(p, K, stream);
   if (err == cudaSuccess)

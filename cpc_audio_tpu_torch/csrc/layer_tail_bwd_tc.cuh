@@ -11,7 +11,7 @@
 namespace cpc {
 namespace tail_tc {
 
-// D a multiple of 32 in [32, 512], F a multiple of 64.
+// D a multiple of 32 in [32, 1024], F a multiple of 64.
 bool shapes_ok(int D, int F);
 // Row tiles of the D-wide products (the rows of vec_part).
 int row_tiles(int M, int D);

@@ -15,24 +15,33 @@
 // contracted with the matching FC rows of W2 into a float32 accumulator
 // of the block's whole rows x D output tile.  A 128-row bf16 hidden of width F = 2048 would be 512 KB,
 // more than an SM's 227 KB of shared memory, hence the F-chunking.  Two
-// bodies share that structure:
+// bodies share that structure, each with three width classes (D up to
+// 256, 512 and 1024, a multiple of 32):
 //   * bf16 (F % 64 == 0): both products on the tensor cores through
 //     warp-level mma (nvcuda::wmma, 16x16x16 bf16 fragments, float32
-//     accumulation), MT rows per block (64 up to D = 256, 32 up to D =
-//     512, so that the MT x D output tile is always four accumulator
-//     fragments per warp over 16 warps), FC = 64; each chunk's W1 and W2
+//     accumulation), MT rows per block (64 up to D = 256, 32 up to 512,
+//     16 up to 1024, so that the MT x D output tile is always at most
+//     four accumulator fragments per warp over 16 warps) and a hidden
+//     chunk of WFC = 64 columns (32 past D = 512, where two 64-wide W1
+//     and W2 chunks alone would take 279 KB); each chunk's W1 and W2
 //     tiles are staged once in shared memory (16-byte loads) and read from
 //     there by every warp.  The float32 x / y2 tile is used only before
 //     and after the chunk loop, so it shares its shared memory with the
-//     W1 and W2 chunks: 131 KB at D = 256, 187 KB at D = 512;
-//   * float32: plain FMA loops (TF32 would change the numbers), 32 rows
-//     per block, D threads (up to 512), thread d owning output column d
-//     for all 32 rows in registers, FC = D/4.
+//     W1 and W2 chunks: 131 KB at D = 256, 187 KB at D = 512, 185 KB at
+//     D = 1024;
+//   * float32: plain FMA loops (TF32 would change the numbers), 256
+//     threads up to D = 256 and 512 past it, each owning one output
+//     column (two past D = 512) for all the block's rows in registers:
+//     32 rows a block, 16 past D = 512 (so that x and y fit); the hidden
+//     chunk is FC = threads * 8 / rows columns (64, 128, 256), a thread
+//     computing 8 rows of one of them, and the last chunk of F may be
+//     narrower, so F need only be a multiple of 32.
 //
 // What bounds it on an H100: at the main path's shapes (K = 12, rows =
 // 3712, D = 256, F = 2048) the tail is 93 GFLOP.  The bf16 body also
 // streams all of W1[k] and W2[k] (2 MB) from L2 into every block: 1.4 GB
-// in all with 64-row blocks.  A first version that read the fragments
+// in all with 64-row blocks (8 MB a 16-row block at D = 1024).  A first
+// version that read the fragments
 // from L2 per warp moved ~5.6 GB and ran at ~2.4 TB/s of it, so the weight
 // stream bounds this body; overlapping the staging with the products
 // (cp.async/TMA double buffering) and wgmma are the next steps.
@@ -41,10 +50,9 @@
 
 #include "common.cuh"
 #include "dropout.cuh"
+#include "layer_tail.cuh"
 
 namespace {
-
-constexpr int kMaxD = 512;     // widest D of both bodies (JAX's gate)
 
 // Mean and reciprocal std of each of the ROWS rows of xs (row stride ld)
 // -> stat[0..ROWS) and stat[ROWS..2*ROWS).
@@ -80,14 +88,12 @@ namespace wmma = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
 
 constexpr int kMmaWarps = 16;
-constexpr int WFC = 64;        // hidden chunk width: (MT/16) x 4 tiles
 constexpr int kMaxTiles = 4;   // output tiles per warp: (MT/16)(D/16) / 16
 
-// Rows per block: the MT x D output tile is at most kMaxTiles fragments
-// per warp.
-inline int mma_rows(int D) { return D <= 256 ? 64 : 32; }
-
-template <int MT>
+// MT rows per block, so that the MT x D output tile is at most kMaxTiles
+// fragments per warp; WFC hidden columns a chunk, (MT/16) x (WFC/16)
+// hidden tiles, one a warp.
+template <int MT, int WFC>
 struct MmaSmem {
   int ldy, ldh, lds, ldx;
   size_t bytes;
@@ -101,7 +107,7 @@ struct MmaSmem {
   }
 };
 
-template <int MT>
+template <int MT, int WFC>
 __global__ void __launch_bounds__(kMmaWarps * 32) layer_tail_fwd_mma_kernel(
     const bf16* __restrict__ x, const float* __restrict__ ln1w,
     const float* __restrict__ ln1b, const bf16* __restrict__ w1,
@@ -110,7 +116,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32) layer_tail_fwd_mma_kernel(
     const float* __restrict__ ln2b, bf16* __restrict__ out, int M, int D,
     int F, float eps, cpc::Dropout drop) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const MmaSmem<MT> L(D);
+  const MmaSmem<MT, WFC> L(D);
   // Every region starts on a 32-byte boundary, and every fragment pointer
   // below is 32-byte aligned (row tiles of 16 rows, column tiles of 16).
   bf16* ys = reinterpret_cast<bf16*>(smem_raw);      // (MT, ldy) y
@@ -156,7 +162,9 @@ __global__ void __launch_bounds__(kMmaWarps * 32) layer_tail_fwd_mma_kernel(
 #pragma unroll
   for (int i = 0; i < kMaxTiles; ++i) wmma::fill_fragment(acc[i], 0.0f);
 
-  const int hrt = warp >> 2, hct = warp & 3;   // (MT/16) x 4 hidden tiles
+  constexpr int kHidCols = WFC / 16;            // hidden tiles a row tile
+  static_assert((MT / 16) * kHidCols <= kMmaWarps, "one hidden tile a warp");
+  const int hrt = warp / kHidCols, hct = warp % kHidCols;
   for (int f0 = 0; f0 < F; f0 += WFC) {
     __syncthreads();   // the previous chunk's readers of w1s/w2s are done
     for (int idx = tid; idx < D * (WFC / 8); idx += blockDim.x) {
@@ -242,10 +250,10 @@ __global__ void __launch_bounds__(kMmaWarps * 32) layer_tail_fwd_mma_kernel(
 // FMA body (float32)
 // ---------------------------------------------------------------------------
 
-constexpr int TM = 32;         // rows per block
-constexpr int HS = TM + 4;     // row stride of the hidden chunk (16B aligned)
-
-template <typename T, int kThreads>
+// kThreads threads, TM rows a block; thread t owns output columns t,
+// t + kThreads, ... (CPT of them, those below D) for all TM rows, and, in
+// each chunk of FC hidden columns, 8 rows of column t % FC.
+template <typename T, int kThreads, int TM, int CPT>
 __global__ void __launch_bounds__(kThreads) layer_tail_fwd_kernel(
     const T* __restrict__ x, const float* __restrict__ ln1w,
     const float* __restrict__ ln1b, const T* __restrict__ w1,
@@ -253,8 +261,9 @@ __global__ void __launch_bounds__(kThreads) layer_tail_fwd_kernel(
     const float* __restrict__ b2, const float* __restrict__ ln2w,
     const float* __restrict__ ln2b, T* __restrict__ out, int M, int D, int F,
     float eps, cpc::Dropout drop) {
+  constexpr int FC = kThreads * 8 / TM;   // hidden columns a chunk
+  constexpr int HS = TM + 4;   // row stride of the hidden chunk (16B aligned)
   extern __shared__ __align__(16) float smem[];
-  const int FC = D / 4;
   float* xs = smem;                // (TM, D): x, later y + ffn
   float* yT = xs + TM * D;         // (D, TM): y = LN1(x), rounded to T
   float* hT = yT + D * TM;         // (FC, HS): hidden chunk, rounded to T
@@ -263,109 +272,148 @@ __global__ void __launch_bounds__(kThreads) layer_tail_fwd_kernel(
   const int kk = blockIdx.y;
   const int row0 = blockIdx.x * TM;
   const int rows = min(TM, M - row0);
-  const int t = threadIdx.x;       // output column d
+  const int t = threadIdx.x;
   const size_t xoff = ((size_t)kk * M + row0) * D;
 
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) {
+    const int d = t + c * kThreads;
+    if (d < D) {
 #pragma unroll 4
-  for (int r = 0; r < TM; ++r)
-    xs[r * D + t] = r < rows ? cpc::to_f32(x[xoff + (size_t)r * D + t]) : 0.0f;
+      for (int r = 0; r < TM; ++r)
+        xs[r * D + d] =
+            r < rows ? cpc::to_f32(x[xoff + (size_t)r * D + d]) : 0.0f;
+    }
+  }
   __syncthreads();
   row_stats<TM>(xs, D, stat, D, eps);
   __syncthreads();
-  {
-    const float w = ln1w[kk * D + t];
-    const float bb = ln1b[kk * D + t];
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) {
+    const int d = t + c * kThreads;
+    if (d < D) {
+      const float w = ln1w[kk * D + d];
+      const float bb = ln1b[kk * D + d];
 #pragma unroll 4
-    for (int r = 0; r < TM; ++r)
-      yT[t * TM + r] =
-          cpc::round_to<T>((xs[r * D + t] - stat[r]) * stat[TM + r] * w + bb);
+      for (int r = 0; r < TM; ++r)
+        yT[d * TM + r] = cpc::round_to<T>(
+            (xs[r * D + d] - stat[r]) * stat[TM + r] * w + bb);
+    }
   }
   __syncthreads();
 
-  float acc[TM];
+  float acc[CPT][TM];
 #pragma unroll
-  for (int r = 0; r < TM; ++r) acc[r] = 0.0f;
+  for (int c = 0; c < CPT; ++c)
+#pragma unroll
+    for (int r = 0; r < TM; ++r) acc[c][r] = 0.0f;
 
   const T* W1 = w1 + (size_t)kk * D * F;
   const T* W2 = w2 + (size_t)kk * F * D;
   const float* B1 = b1 + (size_t)kk * F;
   const int fcol = t % FC;         // hidden column of this thread in a chunk
-  const int r8 = (t / FC) * 8;     // its 8 rows (4 groups of 8 = TM)
+  const int r8 = (t / FC) * 8;     // its 8 rows (TM / 8 groups)
   for (int f0 = 0; f0 < F; f0 += FC) {
-    // hidden chunk: h[r8 .. r8+7, f0 + fcol]
-    float ha[8];
+    const int fc = min(FC, F - f0);   // the last chunk may be narrower
+    if (fcol < fc) {
+      // hidden chunk: h[r8 .. r8+7, f0 + fcol]
+      float ha[8];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) ha[i] = 0.0f;
-    const T* w1c = W1 + f0 + fcol;
-    for (int d = 0; d < D; ++d) {
-      const float w = cpc::to_f32(w1c[(size_t)d * F]);
-      const float4* yv = reinterpret_cast<const float4*>(yT + d * TM + r8);
-      const float4 a = yv[0];
-      const float4 c = yv[1];
-      ha[0] += a.x * w; ha[1] += a.y * w; ha[2] += a.z * w; ha[3] += a.w * w;
-      ha[4] += c.x * w; ha[5] += c.y * w; ha[6] += c.z * w; ha[7] += c.w * w;
-    }
-    const float bias = B1[f0 + fcol];
+      for (int i = 0; i < 8; ++i) ha[i] = 0.0f;
+      const T* w1c = W1 + f0 + fcol;
+      for (int d = 0; d < D; ++d) {
+        const float w = cpc::to_f32(w1c[(size_t)d * F]);
+        const float4* yv = reinterpret_cast<const float4*>(yT + d * TM + r8);
+        const float4 a = yv[0];
+        const float4 c = yv[1];
+        ha[0] += a.x * w; ha[1] += a.y * w; ha[2] += a.z * w; ha[3] += a.w * w;
+        ha[4] += c.x * w; ha[5] += c.y * w; ha[6] += c.z * w; ha[7] += c.w * w;
+      }
+      const float bias = B1[f0 + fcol];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      float hv = fmaxf(ha[i] + bias, 0.0f);
-      if (drop.active())
-        hv *= cpc::dropout_factor(
-            cpc::dropout_row_key(drop.seed_word(), cpc::kSiteFFN,
-                                 (uint32_t)(kk * M + row0 + r8 + i)),
-            (uint32_t)(f0 + fcol), drop.threshold, drop.keep_scale);
-      hT[fcol * HS + r8 + i] = cpc::round_to<T>(hv);
+      for (int i = 0; i < 8; ++i) {
+        float hv = fmaxf(ha[i] + bias, 0.0f);
+        if (drop.active())
+          hv *= cpc::dropout_factor(
+              cpc::dropout_row_key(drop.seed_word(), cpc::kSiteFFN,
+                                   (uint32_t)(kk * M + row0 + r8 + i)),
+              (uint32_t)(f0 + fcol), drop.threshold, drop.keep_scale);
+        hT[fcol * HS + r8 + i] = cpc::round_to<T>(hv);
+      }
     }
     __syncthreads();
-    // acc[r] += sum_f h[r, f] * W2[f0 + f, t]
-    const T* w2c = W2 + (size_t)f0 * D + t;
-    for (int f = 0; f < FC; ++f) {
-      const float w = cpc::to_f32(w2c[(size_t)f * D]);
-      const float4* hv = reinterpret_cast<const float4*>(hT + f * HS);
+    // acc[c][r] += sum_f h[r, f] * W2[f0 + f, t + c kThreads]; a second
+    // column past D multiplies by 0 and is never stored
+    if (t < D) {
+      const T* w2c = W2 + (size_t)f0 * D + t;
+      // unrolled by 4, so that several W2 loads are in flight (left to the
+      // compiler, with the chunk's width a runtime bound, the loop ran
+      // about 2.5 times slower on an H100)
+#pragma unroll 4
+      for (int f = 0; f < fc; ++f) {
+        float w[CPT];
 #pragma unroll
-      for (int q = 0; q < TM / 4; ++q) {
-        const float4 hh = hv[q];
-        acc[4 * q + 0] += hh.x * w;
-        acc[4 * q + 1] += hh.y * w;
-        acc[4 * q + 2] += hh.z * w;
-        acc[4 * q + 3] += hh.w * w;
+        for (int c = 0; c < CPT; ++c)
+          w[c] = c == 0 || t + c * kThreads < D
+                     ? cpc::to_f32(w2c[(size_t)f * D + c * kThreads])
+                     : 0.0f;
+        const float4* hv = reinterpret_cast<const float4*>(hT + f * HS);
+#pragma unroll
+        for (int q = 0; q < TM / 4; ++q) {
+          const float4 hh = hv[q];
+#pragma unroll
+          for (int c = 0; c < CPT; ++c) {
+            acc[c][4 * q + 0] += hh.x * w[c];
+            acc[c][4 * q + 1] += hh.y * w[c];
+            acc[c][4 * q + 2] += hh.z * w[c];
+            acc[c][4 * q + 3] += hh.w * w[c];
+          }
+        }
       }
     }
     __syncthreads();
   }
 
-  {
-    const float bb = b2[kk * D + t];
 #pragma unroll
-    for (int r = 0; r < TM; ++r) xs[r * D + t] = yT[t * TM + r] + acc[r] + bb;
+  for (int c = 0; c < CPT; ++c) {
+    const int d = t + c * kThreads;
+    if (d < D) {
+      const float bb = b2[kk * D + d];
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+        xs[r * D + d] = yT[d * TM + r] + acc[c][r] + bb;
+    }
   }
   __syncthreads();
   row_stats<TM>(xs, D, stat, D, eps);
   __syncthreads();
-  {
-    const float w = ln2w[kk * D + t];
-    const float bb = ln2b[kk * D + t];
-    for (int r = 0; r < rows; ++r)
-      out[xoff + (size_t)r * D + t] = cpc::from_f32<T>(
-          (xs[r * D + t] - stat[r]) * stat[TM + r] * w + bb);
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) {
+    const int d = t + c * kThreads;
+    if (d < D) {
+      const float w = ln2w[kk * D + d];
+      const float bb = ln2b[kk * D + d];
+      for (int r = 0; r < rows; ++r)
+        out[xoff + (size_t)r * D + d] = cpc::from_f32<T>(
+            (xs[r * D + d] - stat[r]) * stat[TM + r] * w + bb);
+    }
   }
 }
 
-template <typename T>
+template <typename T, int kThreads, int TM, int CPT>
 int launch_fma(const void* x, const void* ln1w, const void* ln1b,
                const void* w1, const void* b1, const void* w2, const void* b2,
                const void* ln2w, const void* ln2b, void* out, int K, int M,
                int D, int F, float eps, cpc::Dropout drop,
                cudaStream_t stream) {
-  const size_t floats = 2 * (size_t)TM * D + (size_t)(D / 4) * HS + 2 * TM;
+  constexpr int FC = kThreads * 8 / TM;
+  const size_t floats = 2 * (size_t)TM * D + (size_t)FC * (TM + 4) + 2 * TM;
   const size_t smem = floats * sizeof(float);
-  // D threads: the 256-thread build keeps its registers below 128
-  auto kernel = D <= 256 ? layer_tail_fwd_kernel<T, 256>
-                         : layer_tail_fwd_kernel<T, kMaxD>;
+  auto kernel = layer_tail_fwd_kernel<T, kThreads, TM, CPT>;
   cudaError_t err = cpc::allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((M + TM - 1) / TM, K);
-  kernel<<<grid, D, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(ln1w),
       static_cast<const float*>(ln1b), static_cast<const T*>(w1),
       static_cast<const float*>(b1), static_cast<const T*>(w2),
@@ -375,14 +423,14 @@ int launch_fma(const void* x, const void* ln1w, const void* ln1b,
   return (int)cudaGetLastError();
 }
 
-template <int MT>
+template <int MT, int WFC>
 int launch_mma(const void* x, const void* ln1w, const void* ln1b,
                const void* w1, const void* b1, const void* w2, const void* b2,
                const void* ln2w, const void* ln2b, void* out, int K, int M,
                int D, int F, float eps, cpc::Dropout drop,
                cudaStream_t stream) {
-  const size_t smem = MmaSmem<MT>(D).bytes;
-  auto kernel = layer_tail_fwd_mma_kernel<MT>;
+  const size_t smem = MmaSmem<MT, WFC>(D).bytes;
+  auto kernel = layer_tail_fwd_mma_kernel<MT, WFC>;
   cudaError_t err = cpc::allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((M + MT - 1) / MT, K);
@@ -400,7 +448,8 @@ int launch_mma(const void* x, const void* ln1w, const void* ln1b,
 
 // x, w1, w2 and out in `dtype`; the LN parameters and biases in float32.
 // w1 and w2 must be 16-byte aligned (the bf16 body stages them with
-// 16-byte loads).
+// 16-byte loads).  D a multiple of 32 in [32, 1024]; F a multiple of 64
+// (bf16) or 32 (float32).
 extern "C" int cpc_layer_tail_fwd(const void* x, const void* ln1w,
                                   const void* ln1b, const void* w1,
                                   const void* b1, const void* w2,
@@ -409,17 +458,22 @@ extern "C" int cpc_layer_tail_fwd(const void* x, const void* ln1w,
                                   int D, int F, float eps, const void* seed,
                                   unsigned int threshold, float keep_scale,
                                   int dtype, void* stream) {
-  if (D < 32 || D % 32 != 0 || D > kMaxD || F % (D / 4) != 0)
+  if (D < 32 || D % 32 != 0 || D > cpc::kTailMaxD || F <= 0 || F % 32 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cpc::Dropout drop{static_cast<const int64_t*>(seed), threshold,
                           keep_scale};
-  if (dtype == cpc::kBFloat16 && F % WFC == 0)
-    return (mma_rows(D) == 64 ? launch_mma<64> : launch_mma<32>)(
-        x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, out, K, M, D, F, eps,
-        drop, s);
-  if (dtype == cpc::kFloat32)
-    return launch_fma<float>(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, out,
-                             K, M, D, F, eps, drop, s);
-  return (int)cudaErrorInvalidValue;
+  // each body's blocks by D's width class (layer_tail.cuh)
+  using Launch = decltype(&launch_mma<64, 64>);
+  const Launch kMma[cpc::kTailClasses] = {
+      launch_mma<64, 64>, launch_mma<32, 64>, launch_mma<16, 32>};
+  const Launch kFma[cpc::kTailClasses] = {
+      launch_fma<float, 256, 32, 1>, launch_fma<float, 512, 32, 1>,
+      launch_fma<float, 512, 16, 2>};
+  const Launch* body = dtype == cpc::kBFloat16 && F % 64 == 0 ? kMma
+                       : dtype == cpc::kFloat32               ? kFma
+                                                              : nullptr;
+  if (body == nullptr) return (int)cudaErrorInvalidValue;
+  return body[cpc::tail_width_class(D)](x, ln1w, ln1b, w1, b1, w2, b2, ln2w,
+                                        ln2b, out, K, M, D, F, eps, drop, s);
 }

@@ -13,13 +13,16 @@
 // Two bodies, picked from the shape before launching (`cluster_body`):
 //
 // The cluster body (csrc/rnn_cluster.cuh), at H = 128 and 256 in both
-// dtypes: one cluster of 8 CTAs per 16 batch rows keeps W_hh on chip for
-// the whole window, split by hidden unit (CTA c owns units [c H/8, (c+1)
-// H/8) and their 4 gate rows), and each step's product dh = dgates . W_hh
-// is a per-CTA partial product (mma.sync with a hi/lo split of dgates in
-// bf16, FMA in float32) reduce-scattered over distributed shared memory,
-// with one cluster barrier a step.  The elementwise part of a step needs
-// only the CTA's own units.
+// dtypes on C = 8 CTAs, and at H = 512 in bf16 on C = 16: one cluster per
+// 16 batch rows keeps W_hh on chip for the whole window, split by hidden
+// unit (CTA c owns units [c H/C, (c+1) H/C) and their 4 gate rows: 133 KB
+// of bf16 W_hh at H = 512, 232 KB of the CTA's 227 KB in all), and each
+// step's product dh = dgates . W_hh is a per-CTA partial product
+// (mma.sync with a hi/lo split of dgates in bf16, FMA in float32)
+// reduce-scattered over distributed shared memory, with one cluster
+// barrier a step.  The elementwise part of a step needs only the CTA's own
+// units.  In float32 at H = 512, W_hh (4 MB) exceeds even 16 CTAs' shared
+// memory, so the rows body runs.
 //
 // The rows body, at every other H (up to 2048): as in the forward, one
 // block per batch row keeps the carries in shared memory for the whole
@@ -55,11 +58,11 @@ __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
 template <typename T>
 constexpr int kSlot = 5 * (int)sizeof(float2) + 2 * (int)sizeof(T);
 
-template <typename T, int J>
-using ClusterLayout = cpc::rnn::Layout<T, 4, J, kSlot<T>>;
+template <typename T, int J, int C>
+using ClusterLayout = cpc::rnn::Layout<T, 4, J, kSlot<T>, C>;
 
-template <typename T, int J>
-__global__ void __launch_bounds__(cpc::rnn::kThreads, 1)
+template <typename T, int J, int C>
+__global__ void __launch_bounds__(ClusterLayout<T, J, C>::kThreads, 1)
     lstm_bwd_cluster_kernel(const float* __restrict__ gates,
                             const float* __restrict__ cs,
                             const T* __restrict__ c0,
@@ -71,7 +74,7 @@ __global__ void __launch_bounds__(cpc::rnn::kThreads, 1)
                             float* __restrict__ dh0, float* __restrict__ dc0,
                             int B, int n_steps) {
   namespace rnn = cpc::rnn;
-  using L = ClusterLayout<T, J>;
+  using L = ClusterLayout<T, J, C>;
   using T2 = typename rnn::Two<T>::type;
   constexpr int H = L::H, G4 = 4 * H, P = L::P;
   extern __shared__ __align__(16) unsigned char cluster_smem_buf[];
@@ -91,7 +94,7 @@ __global__ void __launch_bounds__(cpc::rnn::kThreads, 1)
   auto prefetch = [&](int t) {
     float2* g = gates_of(t);
     T2* dy = dys_of(t);
-    for (int p = tid; p < P; p += rnn::kThreads) {
+    for (int p = tid; p < P; p += L::kThreads) {
       const rnn::Pair<J> pr(p);
       const int b = b0 + pr.row;
       if (b >= B) continue;
@@ -108,7 +111,7 @@ __global__ void __launch_bounds__(cpc::rnn::kThreads, 1)
   rnn::load_w<L>(reinterpret_cast<T*>(smem + L::w), w_hh, c);
   prefetch(n_steps - 1);
   cpc::mma::cp_async_commit();
-  for (int p = tid; p < P; p += rnn::kThreads) {
+  for (int p = tid; p < P; p += L::kThreads) {
     const rnn::Pair<J> pr(p);
     const int b = b0 + pr.row;
     dcs[p] = b < B ? *reinterpret_cast<const float2*>(
@@ -125,7 +128,7 @@ __global__ void __launch_bounds__(cpc::rnn::kThreads, 1)
     cpc::mma::cp_async_wait<1>();   // this thread's copies of step t
     const float2* g = gates_of(t);
     const T2* dy = dys_of(t);
-    for (int p = tid; p < P; p += rnn::kThreads) {
+    for (int p = tid; p < P; p += L::kThreads) {
       const rnn::Pair<J> pr(p);
       const int b = b0 + pr.row;
       if (b >= B) {
@@ -175,7 +178,7 @@ __global__ void __launch_bounds__(cpc::rnn::kThreads, 1)
     rnn::product_push<L>(smem, c, t & 1);
     rnn::cluster_sync();
   }
-  for (int p = tid; p < P; p += rnn::kThreads) {
+  for (int p = tid; p < P; p += L::kThreads) {
     const rnn::Pair<J> pr(p);
     const int b = b0 + pr.row;
     if (b >= B) continue;
@@ -186,27 +189,32 @@ __global__ void __launch_bounds__(cpc::rnn::kThreads, 1)
   }
 }
 
+// A CTA's shared memory in the cluster body at H: 8 CTAs at H = 128 and
+// 256, 16 at H = 512; 0 at any other H.
 template <typename T>
 size_t cluster_smem(int H) {
-  return H == 128 ? ClusterLayout<T, 16>::bytes
-                  : H == 256 ? ClusterLayout<T, 32>::bytes : 0;
+  return H == 128   ? ClusterLayout<T, 16, 8>::bytes
+         : H == 256 ? ClusterLayout<T, 32, 8>::bytes
+         : H == 512 ? ClusterLayout<T, 32, 16>::bytes
+                    : 0;
 }
 
-// The cluster body takes H = 128 and 256, where its layout fits a CTA.
+// The cluster body takes H = 128 and 256, and 512 in bf16: where its
+// layout fits a CTA.
 template <typename T>
 bool cluster_body(int H) {
   const size_t smem = cluster_smem<T>(H);
   return smem > 0 && smem <= cpc::kSmemLimit;
 }
 
-template <typename T, int J>
+template <typename T, int J, int C>
 int launch_cluster(const float* gates, const float* cs, const void* c0,
                    const void* dys, const void* w_hh, const float* dhT,
                    const float* dcT, float* dgates, float* dh0, float* dc0,
                    int B, int n_steps, cudaStream_t stream) {
-  return (int)cpc::rnn::launch(
-      lstm_bwd_cluster_kernel<T, J>, B, ClusterLayout<T, J>::bytes, stream,
-      gates, cs, static_cast<const T*>(c0), static_cast<const T*>(dys),
+  return (int)cpc::rnn::launch<ClusterLayout<T, J, C>>(
+      lstm_bwd_cluster_kernel<T, J, C>, B, stream, gates, cs,
+      static_cast<const T*>(c0), static_cast<const T*>(dys),
       static_cast<const T*>(w_hh), dhT, dcT, dgates, dh0, dc0, B, n_steps);
 }
 
@@ -326,10 +334,15 @@ int launch_any(const float* gates, const float* cs, const void* c0,
     return launch<T>(gates, cs, c0, dys, w_hh, dhT, dcT, dgates, dh0, dc0, B,
                      n_steps, H, stream);
   if (H == 128)
-    return launch_cluster<T, 16>(gates, cs, c0, dys, w_hh, dhT, dcT, dgates,
-                                 dh0, dc0, B, n_steps, stream);
-  return launch_cluster<T, 32>(gates, cs, c0, dys, w_hh, dhT, dcT, dgates,
-                               dh0, dc0, B, n_steps, stream);
+    return launch_cluster<T, 16, 8>(gates, cs, c0, dys, w_hh, dhT, dcT,
+                                    dgates, dh0, dc0, B, n_steps, stream);
+  if (H == 256)
+    return launch_cluster<T, 32, 8>(gates, cs, c0, dys, w_hh, dhT, dcT,
+                                    dgates, dh0, dc0, B, n_steps, stream);
+  if constexpr (sizeof(T) < sizeof(float))   // H == 512: fits in bf16 only
+    return launch_cluster<T, 32, 16>(gates, cs, c0, dys, w_hh, dhT, dcT,
+                                     dgates, dh0, dc0, B, n_steps, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -4,11 +4,16 @@
 // Each reverse step multiplies the step's gate gradients by W_hh:
 //   dh_carry[b, :] = sum_r dgates[b, r] W_hh[r, :]   (r over the G*H gate rows)
 // The rows body reads all of W_hh from L2 on every step, once per batch
-// row.  Here one cluster of kCluster = 8 CTAs serves kRows = 16 batch rows
-// (one m16 tile; B = 32 takes two clusters) and keeps W_hh on chip for the
-// whole window: CTA c owns the J = H / 8 hidden units J_c = [c J, c J + J)
-// and their G gate rows {g H + j : j in J_c}, over all H columns (64 KB in
+// row.  Here one cluster of C CTAs serves kRows = 16 batch rows (one m16
+// tile; B = 32 takes two clusters) and keeps W_hh on chip for the whole
+// window: CTA c owns the J = H / C hidden units J_c = [c J, c J + J) and
+// their G gate rows {g H + j : j in J_c}, over all H columns (64 KB in
 // bf16 for the LSTM at H = 256, 48 KB for the GRU; twice that in f32).
+// C is 8, the portable cluster size, or 16 (the LSTM at H = 512 in bf16,
+// whose 8-CTA slice, 266 KB, would not fit a CTA's 227 KB: 133 KB at 16),
+// which Hopper allows per kernel
+// (cudaFuncAttributeNonPortableClusterSizeAllowed).  A CTA has C warps:
+// warp w serves the columns CTA w owns.
 // A step is then
 //   1. the elementwise part for the CTA's own units, which needs no
 //      exchange: unit j's gate gradients depend only on dh[:, j], the
@@ -20,7 +25,7 @@
 //   3. a reduce-scatter over distributed shared memory: warp w pushes its
 //      columns [w J, w J + J) of P_c, which CTA w owns, into CTA w's
 //      receive buffer (st.shared::cluster), slot c;
-//   4. one cluster barrier; the next step's elementwise part sums the 8
+//   4. one cluster barrier; the next step's elementwise part sums the C
 //      slots of its own columns in a fixed order.
 // The receive buffers alternate between two parities, so one barrier a
 // step suffices: a CTA writes parity p only after every CTA has passed the
@@ -29,9 +34,10 @@
 // t - 1 are copied with cp.async while step t computes, each thread
 // copying only what it reads itself (so no block barrier guards them).
 //
-// What bounds it on an H100: the 128 serial steps, each a partial product
-// (0.5 MFLOP a CTA in bf16, hi and lo), a 16 KB push per CTA and a cluster
-// barrier; B = 32 runs on 16 SMs.
+// What bounds it on an H100: the 128 (or 256) serial steps, each a
+// partial product (0.5 MFLOP a CTA in bf16 at H 256, 1 MFLOP at H 512, hi
+// and lo), a 16 or 32 KB push per CTA and a cluster barrier; B = 32 runs
+// on 2 C SMs.
 #pragma once
 
 #include <cstdint>
@@ -42,8 +48,7 @@
 namespace cpc {
 namespace rnn {
 
-constexpr int kCluster = 8;        // CTAs a cluster (portable size)
-constexpr int kThreads = 256;      // warp w serves the columns CTA w owns
+constexpr int kPortable = 8;       // the largest portable cluster size
 constexpr int kRows = 16;          // batch rows a cluster (one m16 tile)
 
 // A thread owns pairs of adjacent units of one batch row: pair p is row
@@ -58,16 +63,17 @@ struct Pair {
 
 constexpr size_t round16(size_t n) { return (n + 15) / 16 * 16; }
 
-// Shared-memory layout of a CTA: W_hh's G J rows (bf16 with 8 elements of
-// padding a row, so that ldmatrix rows hit distinct banks), the A tile of
-// the step's dgates (bf16 hi and lo, or float32), the two receive
-// parities (kCluster, kRows, J) float32, a float32 state per own unit
-// (the LSTM's dc, the GRU's dh * z) and two residual slots of SLOT bytes a
-// pair.
-template <typename T, int G, int J, int SLOT>
+// Shared-memory layout of a CTA of a C-CTA cluster: W_hh's G J rows (bf16
+// with 8 elements of padding a row, so that ldmatrix rows hit distinct
+// banks), the A tile of the step's dgates (bf16 hi and lo, or float32),
+// the two receive parities (C, kRows, J) float32, a float32 state per own
+// unit (the LSTM's dc, the GRU's dh * z) and two residual slots of SLOT
+// bytes a pair.
+template <typename T, int G, int J, int SLOT, int C = kPortable>
 struct Layout {
   static constexpr bool kMma = sizeof(T) < sizeof(float);
-  static constexpr int kJ = J, H = kCluster * J, GJ = G * J;
+  static constexpr int kCluster = C, kThreads = 32 * C;
+  static constexpr int kJ = J, H = C * J, GJ = G * J;
   static constexpr int P = kRows * J / 2;
   static constexpr int ldw = kMma ? H + 8 : H;
   static constexpr int lda = kMma ? GJ + 8 : GJ + 4;
@@ -76,7 +82,7 @@ struct Layout {
   static constexpr size_t recv =
       a + round16((size_t)(kMma ? 2 : 1) * kRows * lda * sizeof(T));
   static constexpr size_t state =
-      recv + (size_t)2 * kCluster * kRows * J * sizeof(float);
+      recv + (size_t)2 * C * kRows * J * sizeof(float);
   static constexpr size_t slot_bytes = round16((size_t)SLOT * P);
   static constexpr size_t ring = state + (size_t)kRows * J * sizeof(float);
   static constexpr size_t bytes = ring + 2 * slot_bytes;
@@ -151,7 +157,7 @@ __device__ __forceinline__ void load_w(T* ws, const T* __restrict__ w_hh,
                                        int c) {
   constexpr int per = 16 / (int)sizeof(T);        // elements a 16-B chunk
   constexpr int chunks = L::H / per;              // chunks a row
-  for (int idx = threadIdx.x; idx < L::GJ * chunks; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < L::GJ * chunks; idx += L::kThreads) {
     const int k = idx / chunks;
     const int q = idx - k * chunks;
     const T* src =
@@ -181,16 +187,16 @@ __device__ __forceinline__ void put_a(unsigned char* smem, int row, int g,
 }
 
 // This CTA's carry from the last step's product for (row, units u, u+1):
-// the kCluster slots of parity `par`, summed in a fixed order.
+// the C slots of parity `par`, summed in a fixed order.
 template <typename L>
 __device__ __forceinline__ float2 gather(const unsigned char* smem, int par,
                                          int row, int u) {
   constexpr int J = L::kJ;
   const float* r = reinterpret_cast<const float*>(smem + L::recv) +
-                   (size_t)par * kCluster * kRows * J + row * J + u;
+                   (size_t)par * L::kCluster * kRows * J + row * J + u;
   float2 s = *reinterpret_cast<const float2*>(r);
 #pragma unroll
-  for (int c = 1; c < kCluster; ++c) {
+  for (int c = 1; c < L::kCluster; ++c) {
     const float2 v = *reinterpret_cast<const float2*>(r + c * kRows * J);
     s.x += v.x;
     s.y += v.y;
@@ -208,7 +214,7 @@ __device__ __forceinline__ void product_push(unsigned char* smem, int c,
   const int warp = threadIdx.x >> 5;
   // this CTA's address of slot c of parity par; CTA `warp` gets the data
   float* slot = reinterpret_cast<float*>(smem + L::recv) +
-                ((size_t)par * kCluster + c) * kRows * J;
+                ((size_t)par * L::kCluster + c) * kRows * J;
   if constexpr (L::kMma) {
     constexpr int NT = J / 8;
     const mma::bf16* ws = reinterpret_cast<const mma::bf16*>(smem + L::w);
@@ -290,22 +296,29 @@ __device__ __forceinline__ void product_push(unsigned char* smem, int c,
   }
 }
 
-// Launch `kernel` on ceil(B / kRows) clusters of kCluster CTAs.  A cluster
-// that cannot be scheduled returns its error; nothing else runs instead.
-template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, int B, size_t smem, cudaStream_t stream,
-                   Args... args) {
+// Launch `kernel` on ceil(B / kRows) clusters of L::kCluster CTAs.  A
+// cluster that cannot be scheduled (past the portable size also on a card
+// that holds no such cluster at all) makes the launch itself return
+// cudaErrorClusterOutOfResources; nothing else runs instead.
+template <typename L, typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, int B, cudaStream_t stream, Args... args) {
+  constexpr int C = L::kCluster;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
   if (err != cudaSuccess) return err;
+  if constexpr (C > kPortable) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster, (B + kRows - 1) / kRows, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
+  cfg.gridDim = dim3(C, (B + kRows - 1) / kRows, 1);
+  cfg.blockDim = dim3(L::kThreads, 1, 1);
+  cfg.dynamicSmemBytes = L::bytes;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.x = C;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;

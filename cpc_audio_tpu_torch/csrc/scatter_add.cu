@@ -133,6 +133,9 @@ int launch(const void* updates, const int* order, const int* offsets,
   else if (n_chunks <= 128)
     scatter_add_kernel<T, 4><<<grid, block, 0, stream>>>(u, order, offsets,
                                                          out, R, n_chunks);
+  else if (n_chunks <= 256)   // float32 rows of C = 768 and 1024
+    scatter_add_kernel<T, 8><<<grid, block, 0, stream>>>(u, order, offsets,
+                                                         out, R, n_chunks);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -141,7 +144,7 @@ int launch(const void* updates, const int* order, const int* offsets,
 }  // namespace
 
 // updates (J, C) in `dtype`, 16-byte aligned, C * itemsize a multiple of 16
-// and at most 2048 bytes; order (J,) and offsets (R + 1,) int32; out (R, C)
+// and at most 4096 bytes; order (J,) and offsets (R + 1,) int32; out (R, C)
 // float32.  R > 0.
 extern "C" int cpc_scatter_add(const void* updates, const void* order,
                                const void* offsets, void* out, int R, int C,

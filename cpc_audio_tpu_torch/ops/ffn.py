@@ -20,10 +20,11 @@ K3 forward kernel (csrc/layer_tail_fwd.cu, counted in
 epilogues (csrc/layer_tail_bwd_tc.cu), in float32 two FMA passes
 (csrc/layer_tail_bwd.cu).  CPU tensors take the plain versions.
 
-The kernels take D a multiple of 32 up to 512 (the widths JAX's own tail
-runs at) and F a multiple of 64 (bf16) or 32 and of D/4;
-:func:`supported` says so without a card, for the criterion builder's
-check of a config.
+The kernels take D a multiple of 32 up to 1024 (K2's limit: 8 heads of
+dk <= 128; the JAX package trains every such width, on its Pallas tail
+where its VMEM gate takes the shape and on its jnp tail elsewhere) and F
+a multiple of 64 (bf16) or 32 (float32); :func:`supported` says so
+without a card, for the criterion builder's check of a config.
 """
 
 from __future__ import annotations
@@ -37,29 +38,40 @@ from . import _build, dropout
 _NAME = "layer_tail_fwd"
 _BWD_NAME = "layer_tail_bwd"
 
-MAX_D = 512
+MAX_D = 1024
+
+
+def _width_class(D: int) -> int:
+    """The kernels' tiles by D: 0 up to 256, 1 up to 512, 2 up to 1024
+    (``cpc::tail_width_class``, csrc/layer_tail.cuh)."""
+    return 0 if D <= 256 else 1 if D <= 512 else 2
+
+
 # csrc/layer_tail_bwd.cu's float32 Tiles: (rows, F chunk) of pass 1 and of
-# pass 2, by D > 256
-_BWD_TILES = {False: (16, 32, 16, 32), True: (8, 32, 8, 16)}
+# pass 2, by width class
+_BWD_TILES = ((16, 32, 16, 32), (8, 32, 8, 16), (4, 16, 8, 8))
+# csrc/layer_tail_bwd_tc.cu's G2/G4 row tiles: (BM, BN, depth of a slot,
+# slots), by width class
+_ROW_TILES = ((128, 256, 32, 3), (64, 512, 32, 3), (32, 1024, 16, 4))
 
 
 def _tc_smem(D: int) -> int:
     """Shared memory of the bf16 body's largest block, as
-    csrc/layer_tail_bwd_tc.cu sizes it: a 3-slot cp.async ring of bf16
-    tiles whose rows carry 8 elements of padding (csrc/gemm_tc.cuh), for
-    each GEMM (BM, BN, depth of a slot, A stored k-major, B stored
-    n-major): G1, G3, G5 and G6 on 128 x 128 tiles 64 deep, G2 and G4 on
-    128 x 256 (D <= 256) or 64 x 512 tiles 32 deep."""
-    rows, cols = (128, 256) if D <= 256 else (64, 512)
-    gemms = ((128, 128, 64, False, False), (128, 128, 64, False, True),
-             (128, 128, 64, True, False), (rows, cols, 32, False, False),
-             (rows, cols, 32, False, True))
+    csrc/layer_tail_bwd_tc.cu sizes it: a cp.async ring of bf16 tiles
+    whose rows carry 8 elements of padding (csrc/gemm_tc.cuh), for each
+    GEMM (BM, BN, depth of a slot, slots, A stored k-major, B stored
+    n-major): G1, G3, G5 and G6 on 128 x 128 tiles, 3 slots 64 deep, G2
+    and G4 on the row tile of D's class (``_ROW_TILES``)."""
+    row = _ROW_TILES[_width_class(D)]
+    gemms = ((128, 128, 64, 3, False, False), (128, 128, 64, 3, False, True),
+             (128, 128, 64, 3, True, False), (*row, False, False),
+             (*row, False, True))
 
-    def ring(bm: int, bn: int, bk: int, a_kmajor: bool,
+    def ring(bm: int, bn: int, bk: int, slots: int, a_kmajor: bool,
              b_nmajor: bool) -> int:
         a = bk * (bm + 8) if a_kmajor else bm * (bk + 8)
         b = bn * (bk + 8) if b_nmajor else bk * (bn + 8)
-        return 3 * 2 * (a + b)
+        return slots * 2 * (a + b)
     return max(ring(*g) for g in gemms)
 
 
@@ -71,7 +83,7 @@ def _bwd_smem(D: int, F: int, dtype: torch.dtype) -> int:
     if dtype == torch.bfloat16:
         return _tc_smem(D)
     e, pad = 4, 4             # float32, rows padded to 16 bytes
-    mt1, fc1, mt2, fc2 = _BWD_TILES[D > 256]
+    mt1, fc1, mt2, fc2 = _BWD_TILES[_width_class(D)]
 
     def take(n: int, size: int) -> int:
         return -(-n * size // 128) * 128
@@ -94,9 +106,8 @@ def supported(D: int, F: int, dtype: torch.dtype) -> Optional[str]:
     if D % 32 != 0 or not 32 <= D <= MAX_D:
         return f"model width D={D} must be a multiple of 32 in [32, {MAX_D}]"
     chunk = 64 if dtype == torch.bfloat16 else 32
-    if F <= 0 or F % chunk != 0 or F % (D // 4) != 0:
-        return (f"FFN width F={F} must be a multiple of {chunk} and of "
-                f"D/4 = {D // 4}")
+    if F <= 0 or F % chunk != 0:
+        return f"FFN width F={F} must be a multiple of {chunk}"
     smem = _bwd_smem(D, F, dtype)
     if smem > _build.SMEM_LIMIT:
         return (f"D={D}, F={F} needs {smem} bytes of shared memory in the "

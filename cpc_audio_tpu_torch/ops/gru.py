@@ -39,11 +39,13 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .lstm import CLUSTER_H, MAX_H, cluster_smem, pad_gates, pad_weight
+from .lstm import MAX_H, cluster_smem, pad_gates, pad_weight
 
 _NAME = "gru_fwd"
 _BWD_NAME = "gru_bwd"
 MULTIPLE = 32         # the kernels' H: 3H whole 32-row tiles
+# the backward's cluster body: CTAs a cluster by H, as lstm.CLUSTER
+CLUSTER = {128: 8, 256: 8}
 
 
 def padded_hidden(H: int) -> int:
@@ -61,10 +63,12 @@ def supported(H: int) -> Optional[str]:
 
 def bwd_body(H: int, dtype: torch.dtype) -> str:
     """The body csrc/gru_bwd.cu runs at hidden width H: "cluster" or
-    "rows" (``cpc_gru_bwd_body``)."""
+    "rows" (``cpc_gru_bwd_body``), from the shape alone."""
+    if H not in CLUSTER:
+        return "rows"
     el = torch.empty((), dtype=dtype).element_size()
-    fits = cluster_smem(H, 3, dtype, 4 * 8 + 4 * el) <= _build.SMEM_LIMIT
-    return "cluster" if H in CLUSTER_H and fits else "rows"
+    smem = cluster_smem(H, 3, dtype, 4 * 8 + 4 * el, CLUSTER[H])
+    return "cluster" if smem <= _build.SMEM_LIMIT else "rows"
 
 
 def gru_scan_ref(x_proj: torch.Tensor, w_hh: torch.Tensor,

@@ -12,10 +12,11 @@ float32 whatever the input dtype; outputs are rounded to the input dtype.
   training, saves the gate activations and cell states (float32);
 * :func:`lstm_bwd` is the reverse scan (csrc/lstm_bwd.cu) giving float32
   dgates, dh0 and dc0.  The kernel has two bodies, picked from H and the
-  dtype before it launches: at H = 128 and 256 a thread-block cluster
-  keeps W_hh on chip (csrc/rnn_cluster.cuh), elsewhere one block a batch
-  row reads it from L2 every step; :func:`bwd_body` mirrors that choice
-  without a card;
+  dtype before it launches: at H = 128 and 256 a thread-block cluster of
+  8 CTAs keeps W_hh on chip (csrc/rnn_cluster.cuh), and at H = 512 in
+  bf16 one of 16; elsewhere (H = 512 in float32 too, whose W_hh does not
+  fit 16 CTAs) one block a batch row reads it from L2 every step;
+  :func:`bwd_body` mirrors that choice without a card;
 * :func:`lstm` is the differentiable entry point: a
   ``torch.autograd.Function`` over the two, with dW_hh = h_prev^T dgates
   as one matmul, as rnn.py:223-226.  It takes any H up to 2048: where the
@@ -41,7 +42,8 @@ _NAME = "lstm_fwd"
 _BWD_NAME = "lstm_bwd"
 MULTIPLE = 8          # the kernels' H: 4H whole 32-row tiles
 MAX_H = 2048          # the backward's H / 2 <= 1024 threads
-CLUSTER_H = (128, 256)    # the backward's cluster body: J = H / 8 of 16, 32
+# the backward's cluster body: CTAs a cluster by H (J = H / C units a CTA)
+CLUSTER = {128: 8, 256: 8, 512: 16}
 
 
 def padded_hidden(H: int) -> int:
@@ -64,31 +66,35 @@ def _kernel_hidden(name: str, B: int, T: int, H: int) -> None:
                    f"{MAX_H})")
 
 
-def cluster_smem(H: int, n_gates: int, dtype: torch.dtype,
-                 slot: int) -> int:
-    """Shared memory of one CTA of the backward's cluster body, as
-    ``cpc::rnn::Layout`` (csrc/rnn_cluster.cuh) lays it out: W_hh's
-    n_gates * H / 8 rows (bf16 rows padded by 8), the A tile (bf16 hi and
-    lo, or float32 padded by 4), two receive parities, one float32 state
-    per unit and two residual slots of ``slot`` bytes per unit pair."""
+def cluster_smem(H: int, n_gates: int, dtype: torch.dtype, slot: int,
+                 cluster: int = 8) -> int:
+    """Shared memory of one CTA of the backward's cluster body of
+    ``cluster`` CTAs, as ``cpc::rnn::Layout`` (csrc/rnn_cluster.cuh) lays
+    it out: W_hh's n_gates * H / cluster rows (bf16 rows padded by 8), the
+    A tile (bf16 hi and lo, or float32 padded by 4), two receive parities
+    of ``cluster`` slots, one float32 state per unit and two residual
+    slots of ``slot`` bytes per unit pair."""
     el = torch.empty((), dtype=dtype).element_size()
     mma = el < 4
-    J, rows = H // 8, 16
+    J, rows = H // cluster, 16
     GJ, pairs = n_gates * J, rows * J // 2
 
     def r16(n):
         return -(-n // 16) * 16
     w = r16(GJ * (H + 8 if mma else H) * el)
     a = r16((2 if mma else 1) * rows * (GJ + 8 if mma else GJ + 4) * el)
-    return w + a + 2 * 8 * rows * J * 4 + rows * J * 4 + 2 * r16(slot * pairs)
+    return (w + a + 2 * cluster * rows * J * 4 + rows * J * 4
+            + 2 * r16(slot * pairs))
 
 
 def bwd_body(H: int, dtype: torch.dtype) -> str:
     """The body csrc/lstm_bwd.cu runs at hidden width H: "cluster" or
-    "rows" (``cpc_lstm_bwd_body``)."""
+    "rows" (``cpc_lstm_bwd_body``), from the shape alone."""
+    if H not in CLUSTER:
+        return "rows"
     el = torch.empty((), dtype=dtype).element_size()
-    fits = cluster_smem(H, 4, dtype, 5 * 8 + 2 * el) <= _build.SMEM_LIMIT
-    return "cluster" if H in CLUSTER_H and fits else "rows"
+    smem = cluster_smem(H, 4, dtype, 5 * 8 + 2 * el, CLUSTER[H])
+    return "cluster" if smem <= _build.SMEM_LIMIT else "rows"
 
 
 def pad_gates(t: torch.Tensor, n_gates: int, H: int, Hp: int) -> torch.Tensor:

@@ -39,7 +39,7 @@ import torch
 from . import _build
 
 _NAME = "scatter_add_rows"
-_MAX_ROW_BYTES = 2048          # 4 x 16-byte chunks a lane (csrc/scatter_add.cu)
+_MAX_ROW_BYTES = 4096          # 8 x 16-byte chunks a lane (csrc/scatter_add.cu)
 
 
 def supported(C: int, dtype: torch.dtype) -> Optional[str]:

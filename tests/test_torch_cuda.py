@@ -71,11 +71,18 @@ def test_relpos_attention_kernel(dev, dtype, S, dk):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("M,D,F", [(40, 64, 128), (64, 256, 256),
-                                   (33, 32, 64), (70, 512, 2048)])
+                                   (33, 32, 64), (70, 512, 2048),
+                                   (40, 384, 2048), (21, 1024, 2048),
+                                   (29, 768, 2048)])
 def test_layer_tail_kernel(dev, dtype, M, D, F):
-    """M = 40 and 33: ragged row tiles of both bodies (64 rows for bf16,
-    32 for f32); D = 32: a one-warp f32 block; D = 512 (--hiddenEncoder
-    512): 32-row bf16 blocks, 512-thread f32 blocks."""
+    """M = 40, 33, 29 and 21: ragged row tiles of both bodies (64, 32 or 16
+    rows for bf16, 32 or 16 for f32); D = 32: one output column a warp
+    of the 256-thread f32 block; D = 512 (--hiddenEncoder 512): 32-row
+    bf16 blocks, 512-thread f32 blocks; D = 384: 512-thread f32 blocks
+    with 128 idle output columns; D = 1024: 16-row bf16 blocks with
+    32-wide hidden chunks, f32 blocks of 16 rows and two columns a
+    thread; D = 768: the same blocks, ragged (bf16: 3 output fragments
+    a warp; f32: the second column on half of the threads)."""
     rng = np.random.RandomState(M + D)
     K = 2
     f32 = torch.float32
@@ -220,18 +227,26 @@ TAIL_TRAIN_SHAPES = [(3712, 256, 2048), (1952, 512, 2048)]
 TAIL_BWD_CASES = [
     pytest.param(M, D, F, dt, id=f"{M}-{D}-{F}-dtype{DTYPES.index(dt)}")
     for M, D, F in [(40, 64, 128), (33, 32, 64), (70, 256, 256),
-                    (45, 512, 2048)] for dt in DTYPES] + [
+                    (45, 512, 2048), (45, 384, 2048), (37, 1024, 2048),
+                    (29, 768, 2048)]
+    for dt in DTYPES] + [
     pytest.param(M, D, F, torch.bfloat16, id=f"{M}-{D}-{F}-dtype1")
-    for M, D, F in TAIL_TRAIN_SHAPES]
+    for M, D, F in TAIL_TRAIN_SHAPES] + [
+    pytest.param(33, 96, 96, torch.float32, id="33-96-96-dtype0")]
 
 
 @pytest.mark.parametrize("rate", RATES)
 @pytest.mark.parametrize("M,D,F,dtype", TAIL_BWD_CASES)
 def test_layer_tail_bwd_kernel(dev, dtype, M, D, F, rate):
-    """M = 33, 40, 45 and 70: ragged row tiles (bf16: 64 rows in G2/G4, 128
-    in the other GEMMs, and D, F narrower than a 128-wide tile; f32: 16
-    rows); D = 32: the narrowest; D = 512: the wide tiles (bf16: G2/G4 on
-    512 columns; f32: 8 rows, narrower F chunks).  (3712, 256, 2048) and
+    """M = 29, 33, 37, 40, 45 and 70: ragged row tiles (bf16: 32 or 64 rows in
+    G2/G4, 128 in the other GEMMs, and D, F narrower than a 128-wide tile;
+    f32: 16, 8 or 4 rows); D = 32: the narrowest; D = 384 and 512: the
+    wide tiles (bf16: G2/G4 on 512 columns, past D at 384; f32: 8 rows,
+    narrower F chunks); D = 1024: the widest (bf16: G2/G4 on 32 x 1024
+    tiles 16 deep; f32: 4 and 8 rows, F chunks of 16 and 8, half-word
+    live masks); D = 768: the same tiles with 256 of their 1024 columns
+    idle; f32 at F = 96 (D = 96): the forward's last hidden chunk
+    narrower than the others.  (3712, 256, 2048) and
     (1952, 512, 2048) are one head of the train step's shapes (the default
     and --sizeWindow 40960 --hiddenEncoder 512).  bf16 reruns are
     bit-identical (no atomics, fixed-order sums)."""
@@ -427,7 +442,8 @@ def test_python_gates_mirror_the_kernels_shared_memory(dev):
     backward run."""
     from cpc_audio_tpu_torch.ops import _build
     lib = _build.library()
-    for D, F in ((256, 2048), (512, 2048), (64, 128), (32, 64)):
+    for D, F in ((256, 2048), (512, 2048), (64, 128), (32, 64),
+                 (384, 2048), (768, 2048), (1024, 2048), (96, 96)):
         for dt in DTYPES:
             assert lib.cpc_layer_tail_bwd_smem(
                 D, F, _build.DTYPE_CODES[dt]) == ffn._bwd_smem(D, F, dt)
@@ -448,13 +464,16 @@ def _rel_norm(got, want):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("mode", ["LSTM", "GRU"])
 @pytest.mark.parametrize("B,T,H", [(32, 128, 256), (3, 9, 256), (5, 7, 128),
-                                   (3, 9, 512)])
+                                   (3, 9, 512), (8, 256, 512),
+                                   (32, 128, 512)])
 def test_recurrent_bwd_bodies(dev, mode, dtype, B, T, H):
     """K1's and K4's backward at the train shape, at batches that leave a
     cluster's 16 rows part empty, at H = 128 (the cluster body's narrow
-    tile) and at H = 512 (the rows body): each output against its plain
-    version within chip_smoke's 1e-4 of the 2-norm, the body counted as
-    the Python mirror says, and a rerun bit-identical."""
+    tile) and at H = 512 (K1 in bf16: the 16-CTA cluster body, also at
+    the long-window path's B 8, T 256 and at B 32, T 128; K4 and float32:
+    the rows body): each output against its plain version within
+    chip_smoke's 1e-4 of the 2-norm, the body counted as the Python
+    mirror says, and a rerun bit-identical."""
     rng = np.random.RandomState(B + T + H)
     G = 4 if mode == "LSTM" else 3
     mod = lstm if mode == "LSTM" else gru
@@ -477,7 +496,8 @@ def test_recurrent_bwd_bodies(dev, mode, dtype, B, T, H):
         args = (gates, ghn, h0, ys, dys, w, dhT)
         kernel, plain = gru.gru_bwd, gru.gru_bwd_ref
     body = mod.bwd_body(H, dtype)
-    assert body == ("rows" if H == 512 else "cluster")
+    assert body == ("cluster" if H < 512 or (
+        mode == "LSTM" and dtype == torch.bfloat16) else "rows")
     before = dict(kernel.body_launches)
     got = kernel(*args)
     again = kernel(*args)
@@ -579,11 +599,13 @@ def test_fused_wrappers_reject_what_kernels_do_not_take(dev):
 @pytest.mark.parametrize("J,C,R,keys", [
     (5000, 256, 301, "random"), (5000, 64, 301, "random"),
     (3000, 256, 37, "one row"), (400, 256, 1000, "half the rows"),
-    (1, 64, 13, "random"), (1, 256, 5, "one row")])
+    (1, 64, 13, "random"), (1, 256, 5, "one row"),
+    (3000, 768, 301, "random"), (2000, 1024, 37, "random")])
 def test_scatter_add_kernel(dev, dtype, J, C, R, keys):
     """K8 against index_add_ into float32 zeros: random keys, all keys on
     one row, rows with no update (exactly 0), J = 1, C = 64 (8 active
-    lanes in bf16) and 256, R not a multiple of the 8 rows a block; two
+    lanes in bf16), 256, 768 and 1024 (float32: 6 and 8 16-byte chunks a
+    lane), R not a multiple of the 8 rows a block; two
     launches on the same inputs are bit-equal.  Float32 sums in another
     order (index_add_ adds with atomics): within 1e-5 of the largest
     entry."""

@@ -2,12 +2,16 @@
 against the JAX package's own gates and paths:
 
 * each kernel module's ``supported`` over the configs users run (the
-  default, ``--hiddenEncoder 512 --hiddenGar 512``, ``--hiddenGar 100``
-  with LSTM and GRU, ``--sizeWindow 40960``, and ``--sizeWindow 40960
-  --hiddenEncoder 512``, where JAX's K2 gate refuses and its jnp
-  attention runs): the port takes every shape
+  default, ``--hiddenEncoder 384``, ``512`` and ``768`` with ``--hiddenGar``
+  the same, ``--hiddenGar 100`` with LSTM and GRU, ``--sizeWindow
+  40960``, and ``--sizeWindow 40960 --hiddenEncoder 512``, where JAX's K2
+  gate refuses and its jnp attention runs): the port takes every shape
   that JAX's Pallas gates take, and ``build_model`` / ``build_criterion``
   build them;
+* K3's gate over every model width the JAX package trains up to K2's
+  limit (D a multiple of 32 up to 1024) in both dtypes, and K1's
+  backward body at H 512 (a 16-CTA cluster in bf16, the rows body in
+  float32);
 * ``build_model`` / ``build_criterion`` refusing a config the port cannot
   take before any weight exists, with the flag named, and building the
   fused-layer switches at --hiddenEncoder 512 where JAX's own gates fall
@@ -15,8 +19,8 @@ against the JAX package's own gates and paths:
 * the K1/K4 pad-and-slice adapter at H = 100 (ops/lstm.py, ops/gru.py)
   around the plain scans, against the unpadded plain scan and the JAX
   package's ``lax.scan`` layer, forward and ``jax.vjp``;
-* the plain K3 at D = 512 and the plain K5 at dk = 64, S = 100 against the
-  Pallas kernels in interpret mode.
+* the plain K3 at D = 384, 512 and 768 and the plain K5 at dk = 64, S =
+  100 against the Pallas kernels in interpret mode.
 """
 
 import numpy as np
@@ -61,7 +65,9 @@ def no_fused_switches(monkeypatch):
 
 CONFIGS = {
     "default": {},
+    "384 LSTM": dict(hiddenEncoder=384, hiddenGar=384),
     "512 LSTM": dict(hiddenEncoder=512, hiddenGar=512),
+    "768 LSTM": dict(hiddenEncoder=768, hiddenGar=768),
     "512 transformer": dict(hiddenEncoder=512, hiddenGar=512,
                             arMode="transformer"),
     "hiddenGar 100 LSTM": dict(hiddenGar=100),
@@ -112,26 +118,69 @@ def test_gates_take_what_jax_takes(no_fused_switches, name, dtype):
         build_criterion(model.config)
 
 
-def test_tail_gate_in_bf16_takes_every_width_the_forward_takes():
-    """K3's gate in bf16 over every model width D a multiple of 32 up to
-    512 at F 2048, and over the (D, F) pairs of the card tests: the
-    backward's shared memory refuses none of them, so only the forward's
-    own condition narrows the gate: its chunks of D/4 hidden columns must
-    divide F, so at F 2048 D 32, 64, 128, 256 and 512 run (JAX's own
-    Pallas gate takes D 128, 256 and 512)."""
+def _tail_gate_takes_every_width(dtype):
+    """K3's gate in ``dtype`` at F 2048 over every model width D a
+    multiple of 32 in [32, 1024]: each is taken, and the backward's
+    shared memory (``_bwd_smem``) fits a block; past 1024 (K2's limit)
+    and between the multiples of 32 it refuses."""
     from cpc_audio_tpu_torch.ops import _build
+    widths = range(32, 1025, 32)
+    for D in widths:
+        assert ffn._bwd_smem(D, 2048, dtype) <= _build.SMEM_LIMIT, D
+    assert [D for D in widths if ffn.supported(D, 2048, dtype) is None] \
+        == list(widths)
+    for D in (16, 200, 1056):
+        assert "multiple of 32" in ffn.supported(D, 2048, dtype), D
+
+
+def test_tail_gate_in_bf16_takes_every_width_the_forward_takes():
+    """bf16: every D a multiple of 32 up to 1024 at F 2048 (JAX's own
+    Pallas gate takes D 128 and 256 at the train rows, and its jnp tail
+    runs the rest), and the (D, F) pairs of the card tests; F must be a
+    multiple of 64."""
     bf = torch.bfloat16
-    taken = []
-    for D in range(32, 513, 32):
-        assert ffn._bwd_smem(D, 2048, bf) <= _build.SMEM_LIMIT, D
-        why = ffn.supported(D, 2048, bf)
-        assert why is None or "D/4" in why, (D, why)
-        if why is None:
-            taken.append(D)
-    assert taken == [32, 64, 128, 256, 512]
+    _tail_gate_takes_every_width(bf)
     for D, F in ((64, 128), (32, 64), (256, 256), (512, 2048),
-                 (256, 2048)):
+                 (256, 2048), (384, 2048), (1024, 2048)):
         assert ffn.supported(D, F, bf) is None, (D, F)
+    assert "multiple of 64" in ffn.supported(256, 96, bf)
+
+
+def test_tail_gate_in_float32_takes_every_width():
+    """float32: every D a multiple of 32 up to 1024 at F 2048, and F any
+    multiple of 32 (the forward's last hidden chunk may be narrower than
+    the others)."""
+    f32 = torch.float32
+    _tail_gate_takes_every_width(f32)
+    for D, F in ((96, 96), (384, 160), (1024, 32)):
+        assert ffn.supported(D, F, f32) is None, (D, F)
+    assert "multiple of 32" in ffn.supported(256, 48, f32)
+
+
+def test_lstm_bwd_body_at_512_is_a_16_cta_cluster_in_bf16():
+    """K1's backward at H 512: the cluster body on 16 CTAs in bf16, whose
+    CTA (W_hh's 128 gate rows by 512 + 8 bf16, receive buffers, ring)
+    fits 227 KB; in float32 the rows body, since W_hh's slice alone
+    (128 x 512 float32) does not fit.  H 128 and 256 keep 8 CTAs, and
+    K4 keeps its bodies."""
+    from cpc_audio_tpu_torch.ops import _build
+    bf, f32 = torch.bfloat16, torch.float32
+    assert lstm.CLUSTER == {128: 8, 256: 8, 512: 16}
+    assert gru.CLUSTER == {128: 8, 256: 8}
+    assert lstm.bwd_body(512, bf) == "cluster"
+    assert lstm.bwd_body(512, f32) == "rows"
+    assert lstm.cluster_smem(512, 4, bf, 5 * 8 + 2 * 2, 16) \
+        <= _build.SMEM_LIMIT
+    assert lstm.cluster_smem(512, 4, bf, 5 * 8 + 2 * 2, 8) \
+        > _build.SMEM_LIMIT
+    assert lstm.cluster_smem(512, 4, f32, 5 * 8 + 2 * 4, 16) \
+        > _build.SMEM_LIMIT
+    for H in (128, 256):
+        for dt in (bf, f32):
+            assert lstm.bwd_body(H, dt) == gru.bwd_body(H, dt) == "cluster"
+    for H in (104, 384, 768, 1024, 2048):
+        assert lstm.bwd_body(H, bf) == "rows", H
+    assert gru.bwd_body(512, bf) == gru.bwd_body(512, f32) == "rows"
 
 
 REFUSED = [
@@ -141,8 +190,10 @@ REFUSED = [
      "--sizeWindow 163840"),
     ("model", dict(hiddenGar=4096), {}, "--hiddenGar 4096"),
     ("criterion", dict(hiddenGar=100), {}, "--hiddenGar 100"),
-    ("criterion", dict(hiddenEncoder=544, hiddenGar=544), {},
-     "--hiddenEncoder 544"),
+    ("criterion", dict(hiddenEncoder=200, hiddenGar=200), {},
+     "--hiddenEncoder 200"),
+    ("criterion", dict(hiddenEncoder=1056, hiddenGar=1056), {},
+     "--hiddenEncoder 1056"),
 ]
 
 
@@ -269,13 +320,16 @@ def test_recurrence_padded_to_the_kernels_width_at_h100(monkeypatch, mode):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=5e-5)
 
 
-# ---- K3 at D = 512 and K5 at dk = 64 against the Pallas kernels --------------
+# ---- K3 at D = 384-768 and K5 at dk = 64 against the Pallas kernels ---------
 
-def test_layer_tail_ref_at_512_matches_pallas_interpret():
-    """The plain K3 at the --hiddenEncoder 512 width, forward and vjp,
-    against fused_layer_tail in interpret mode, float32."""
-    K, M, D, F = 1, 16, 512, 2048
-    rng = np.random.RandomState(512)
+@pytest.mark.parametrize("D", [384, 512, 768])
+def test_layer_tail_ref_at_512_matches_pallas_interpret(D):
+    """The plain K3 at the --hiddenEncoder 384, 512 and 768 widths,
+    forward and vjp, against fused_layer_tail in interpret mode (its
+    kernel takes any D a multiple of 128; only its VMEM gate refuses D 384
+    and up at the train rows), float32."""
+    K, M, F = 1, 16, 2048
+    rng = np.random.RandomState(D)
     args = [a.astype(np.float32) for a in (
         rng.randn(K, M, D) * 0.5, 1.0 + 0.1 * rng.randn(K, D),
         0.1 * rng.randn(K, D), rng.randn(K, D, F) / np.sqrt(D),

@@ -160,6 +160,49 @@ def test_stacked_heads_match_jax_at_s244_dk64(monkeypatch):
                                    err_msg=name)
 
 
+def test_stacked_heads_match_jax_at_d384(monkeypatch):
+    """The heads of --hiddenEncoder 384 --hiddenGar 384 (8 heads of dk =
+    48), a width K3's gate refused until it took every multiple of 32 up
+    to 1024: the JAX package runs its jnp attention and tail here (its
+    Pallas tail's VMEM gate refuses D 384 at the train rows), the port K2
+    and K3 (their plain versions here).  Forward and the gradients of c
+    and of every weight at a few rows, float32, dropout off, weights
+    bridged by convert.params_from_jax."""
+    monkeypatch.setenv("CPC_PALLAS_ATTN", "0")
+    monkeypatch.setenv("CPC_PALLAS_FFN", "0")
+    K, B, D, S = 2, 2, 384, 12
+    rng = np.random.RandomState(384)
+    c = rng.randn(B, S, D).astype(np.float32)
+    ct = rng.randn(K, B, S, D).astype(np.float32)
+    jheads = JHeads(K, D, S)
+    params = _init(jheads, 6, jnp.asarray(c))
+
+    def loss(p, x):
+        return jnp.sum(jheads.apply({"params": p}, x) * ct)
+    want = jheads.apply({"params": params}, jnp.asarray(c))
+    g_params, g_c = jax.grad(loss, argnums=(0, 1))(params, jnp.asarray(c))
+
+    heads = StackedTransformerHeads(K, D, S)
+    _load(heads, params, "heads")
+    x = torch.from_numpy(c).requires_grad_()
+    got = heads(x)
+    (got * torch.from_numpy(ct)).sum().backward()
+    # f32; attention over 12 keys and the 2048-wide FFN sum in another
+    # order
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=1e-4)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(g_c), rtol=1e-4,
+                               atol=1e-3)
+    want_g = convert.params_from_jax({"model": {"heads": g_params}})
+    got_g = {"model.heads." + n: p.grad for n, p in heads.named_parameters()}
+    assert set(got_g) == set(want_g)
+    for name, g in got_g.items():
+        w = want_g[name].numpy()
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-4,
+                                   atol=1e-4 * np.abs(w).max(),
+                                   err_msg=name)
+
+
 def test_training_calls_refuse():
     """Training calls need the step's dropout seed and refuse to run
     without one; with it they run, and gradients reach every parameter."""
