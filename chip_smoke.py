@@ -18,7 +18,7 @@ Phases (any failure exits non-zero):
      at the widths of --hiddenEncoder 512 --hiddenGar 512 (dk 64, D 512,
      bf16), K2 at those of --sizeWindow 40960 --hiddenEncoder 512 (S 244,
      dk 64, both dtypes); K3 also at D 384 and D 1024 (the widest K2
-     takes; both dtypes); K1's backward also at B 32, T 128, H 512; K2,
+     takes; both dtypes); K1 also at B 32, T 128, H 512; K2,
      K1 and K3 at the shapes of --hiddenEncoder 768 --hiddenGar 768 (S
      116, dk 96; B 32, T 128, H 768; M 3712, D 768; both dtypes); K8
      also with all keys on one row (bf16), and the
@@ -28,10 +28,11 @@ Phases (any failure exits non-zero):
      sums over tiles); then time the
      yardstick PyTorch call where one computes the same function (cuDNN
      LSTM/GRU, scaled_dot_product_attention, index_add_; also cuDNN's
-     LSTM at H 512 beside K1 there, forward at B 8, T 256 and backward
-     in turns at B 8, T 256 and B 32, T 128, the same at B 32, T 128,
-     H 768, forward and backward, and SDPA at dk 64 beside
-     K5 at rate 0, in turns), K1's and K4's
+     LSTM at H 512 and 768 beside K1 there, forward and backward in
+     turns at B 8, T 256, H 512 and at B 32, T 128, H 512 and 768, SDPA
+     at dk 64 beside K5 at rate 0, in turns, and in float32 cuDNN's LSTM
+     and GRU and SDPA at K1's, K4's and K5's shapes beside the float32
+     bodies, in turns), K1's and K4's
      backward beside cuDNN's in both dtypes and the port's whole LSTM and
      GRU layers beside cuDNN's, in turns, K5 at rate 0 beside SDPA, and
      for K7 the port's unfused encoder layers (cuDNN conv + ChannelNorm +
@@ -59,7 +60,8 @@ Phases (any failure exits non-zero):
      the fused path K6 once and K7 four times a step, K2 never; on the
      exact path K8 once a step; on the long-window path K2 once a step),
      K1's and K4's backward must run their cluster body at hiddenGar 256
-     and K1's its 16-CTA cluster body at 512 (the rows body at 768), the
+     and K1's its 16-CTA cluster body at 512 and 768, K1's forward its
+     rows body at 256 and its 16-CTA cluster body at 512 and 768, the
      losses must be finite and fall;
      prints train windows/s and the step's device time by kernel
      (torch.profiler); then one float32 step on a (2, 1, 20480) batch on
@@ -428,7 +430,7 @@ def long_cases(rand, dev: torch.device, seed, B: int = 8):
     --hiddenGar 512 LSTM path at its train step's shapes, batch B (the
     train phase's): K2 with S = 244 anchors, dk 64 (its bf16 operands are
     staged in bf16, float32 ones read in place); K1 at T = 256 frames,
-    H = 512 (the backward's 16-CTA cluster body in bf16, its rows body in
+    H = 512 (the 16-CTA cluster bodies in bf16, the rows bodies in
     float32); K3 at M = B*244, D = 512."""
     return path_cases(rand, dev, seed, B, S=244, dk=64, T=256, H=512)
 
@@ -436,7 +438,8 @@ def long_cases(rand, dev: torch.device, seed, B: int = 8):
 def w768_cases(rand, dev: torch.device, seed, B: int = 32):
     """The kernels of the --hiddenEncoder 768 --hiddenGar 768 LSTM path at
     its train step's shapes, batch B: K2 with S = 116 anchors, dk 96; K1
-    at T = 128 frames, H = 768 (the rows body in both dtypes); K3 at
+    at T = 128 frames, H = 768 (in bf16 the 16-CTA cluster bodies with
+    part of W_hh streamed from L2, in float32 the rows bodies); K3 at
     M = B*116, D = 768 (the widest width class with 256 of its 1024
     columns idle: ragged G2/G4 tiles in bf16, the forward's 16-row blocks
     with 3 output fragments a warp, the float32 forward's second column
@@ -480,14 +483,19 @@ def path_cases(rand, dev: torch.device, seed, B: int, S: int, dk: int,
 
 def h512_cases(rand, dev: torch.device, B: int = 32, T: int = 128,
                H: int = 512):
-    """K1's backward at H 512 at the default window's B 32, T 128 (bf16:
-    the 16-CTA cluster body; float32: the rows body), beside the
-    long-window path's B 8, T 256 (long_cases)."""
+    """K1 forward and backward at H 512 at the default window's B 32,
+    T 128 (bf16: the 16-CTA cluster bodies; float32: the rows bodies),
+    beside the long-window path's B 8, T 256 (long_cases)."""
     from cpc_audio_tpu_torch.ops import lstm
-    args = recurrent_args(rand, dev, B, T, H)[1]
-    return [Case("lstm_bwd", 0.0, lambda: lstm.lstm_bwd(*args),
+    fa, args = recurrent_args(rand, dev, B, T, H)[:2]
+    tag = f"B {B} / T {T} / H {H}"
+    return [Case("lstm_fwd", 0.0,
+                 lambda: lstm.lstm_fwd(*fa, save_residuals=True),
+                 lambda: lstm.lstm_scan_ref(*fa, save_residuals=True), fa,
+                 2 * B * T * 4 * H * H, shape=tag),
+            Case("lstm_bwd", 0.0, lambda: lstm.lstm_bwd(*args),
                  lambda: lstm.lstm_bwd_ref(*args), args,
-                 2 * B * T * 4 * H * H, shape=f"B {B} / T {T} / H {H}")]
+                 2 * B * T * 4 * H * H, shape=tag)]
 
 
 def tail_cases(rand, seed, M: int, D: int, tag: str, K: int = 12,
@@ -788,13 +796,12 @@ def sdpa_calls(rand, B: int, dk: int, S: int = 128, nh: int = 8):
 
 def wide_yardsticks(dev: torch.device, shaped: dict, B: int = 32) -> None:
     """The one-call yardsticks at the wider paths' shapes, bf16: cuDNN's
-    nn.LSTM at B 8, T 256, H 512 (the long-window path's K1) and at B 32,
-    T 128, H 768 (the 768-wide path's), forward beside K1's time there;
-    K1's backward (the 16-CTA cluster body at H 512, the rows body at
-    768) beside cuDNN's at those shapes and at B 32, T 128, H 512, in
-    turns (K1, cuDNN, cuDNN, K1); SDPA at dk 64 (the 512-wide transformer's K5: N = B * 8
-    rows of S 128), rate 0, beside K5 at rate 0, in turns (K5, SDPA,
-    SDPA, K5)."""
+    nn.LSTM at B 8, T 256, H 512 (the long-window path's K1), at B 32,
+    T 128, H 512 and at B 32, T 128, H 768 (the 768-wide path's), forward
+    and backward (dx and dW too), each in turns with K1 there (K1,
+    cuDNN, cuDNN, K1; the 16-CTA cluster bodies); SDPA at dk 64 (the
+    512-wide transformer's K5: N = B * 8 rows of S 128), rate 0, beside
+    K5 at rate 0, in turns (K5, SDPA, SDPA, K5)."""
     from cpc_audio_tpu_torch.ops import causal_attention as ca
     from cpc_audio_tpu_torch.ops import lstm
     g = torch.Generator(device=dev).manual_seed(SEED + 13)
@@ -804,27 +811,29 @@ def wide_yardsticks(dev: torch.device, shaped: dict, B: int = 32) -> None:
         return t.requires_grad_(grad)
     for Bl, T, H in ((8, 256, 512), (32, 128, 512), (32, 128, 768)):
         tag = f"B {Bl} / T {T} / H {H}"
-        fwd, bwd, cls = cudnn_layer(dev, torch.bfloat16, "lstm", g, B=Bl,
-                                    T=T, C=H)
-        if ("lstm_fwd", tag) in shaped:
-            lib_ms, ms = median_ms(fwd), shaped[("lstm_fwd", tag)]
-            print(f"  lstm_fwd {tag}: cuDNN nn.{cls} forward (training), "
-                  f"input projection included {lib_ms:.4f} ms; kernel "
-                  f"{ms:.4f} ms; kernel / cuDNN {ms / lib_ms:.3f}",
-                  flush=True)
-        args = recurrent_args(rand, dev, Bl, T, H)[1]
-        t = {"kernel": [], "cudnn": []}
-        for who in ("kernel", "cudnn", "cudnn", "kernel"):
-            t[who].append(median_ms((lambda: lstm.lstm_bwd(*args))
-                                    if who == "kernel" else bwd))
-        k_ms, c_ms = (statistics.mean(t[w]) for w in ("kernel", "cudnn"))
-        print(f"  lstm_bwd {tag}, in turns ({lstm.bwd_body(H, torch.bfloat16)}"
-              f" body): kernel {t['kernel'][0]:.4f} / {t['kernel'][1]:.4f} "
-              f"ms, cuDNN nn.{cls} autograd backward, dx and dW "
-              f"{t['cudnn'][0]:.4f} / {t['cudnn'][1]:.4f} ms; kernel / "
-              f"cuDNN {k_ms / c_ms:.3f}; kernel in the case run "
-              f"{shaped[('lstm_bwd', tag)]:.4f} ms", flush=True)
-        del args, fwd, bwd
+        cudnn = cudnn_layer(dev, torch.bfloat16, "lstm", g, B=Bl, T=T, C=H)
+        fa, ba = recurrent_args(rand, dev, Bl, T, H)[:2]
+        k1 = (lambda: lstm.lstm_fwd(*fa, save_residuals=True),
+              lambda: lstm.lstm_bwd(*ba))
+        bodies = (lstm.fwd_body(H, torch.bfloat16),
+                  lstm.bwd_body(H, torch.bfloat16))
+        for i, (name, what) in enumerate((
+                ("lstm_fwd", "forward (training), input projection "
+                             "included"),
+                ("lstm_bwd", "autograd backward, dx and dW"))):
+            t = {"kernel": [], "cudnn": []}
+            for who in ("kernel", "cudnn", "cudnn", "kernel"):
+                t[who].append(median_ms(k1[i] if who == "kernel"
+                                        else cudnn[i]))
+            k_ms, c_ms = (statistics.mean(t[w]) for w in ("kernel", "cudnn"))
+            case = shaped.get((name, tag))
+            print(f"  {name} {tag}, in turns ({bodies[i]} body): kernel "
+                  f"{t['kernel'][0]:.4f} / {t['kernel'][1]:.4f} ms, cuDNN "
+                  f"nn.{cudnn[2]} {what} {t['cudnn'][0]:.4f} / "
+                  f"{t['cudnn'][1]:.4f} ms; kernel / cuDNN {k_ms / c_ms:.3f}"
+                  + (f"; kernel in the case run {case:.4f} ms"
+                     if case is not None else ""), flush=True)
+        del fa, ba, k1, cudnn
         torch.cuda.empty_cache()
     N, S, dk = B * 8, 128, 64
     q, k, v = (rand(N, S, dk) for _ in range(3))
@@ -843,6 +852,63 @@ def wide_yardsticks(dev: torch.device, shaped: dict, B: int = 32) -> None:
               f"{statistics.mean(t['K5']) / statistics.mean(t['SDPA']):.3f}"
               f"; K5 at rate 0.1 {shaped[(name, 'dk 64 / D 512')]:.4f} ms",
               flush=True)
+
+
+def f32_yardsticks(dev: torch.device, B: int = 32) -> None:
+    """The one-call yardsticks in float32 (TF32 off) beside the float32
+    bodies, in turns (kernel, library, library, kernel): cuDNN's nn.LSTM
+    at K1's shapes (B 32 / T 128 / H 256, B 8 / T 256 / H 512, B 32 /
+    T 128 / H 512, B 32 / T 128 / H 768) and nn.GRU at K4's (B 32 / T 128
+    / H 256), forward and backward (dx and dW too); SDPA at K5's (N = B * 8
+    rows of S 128, dk 32 and 64), rate 0."""
+    from cpc_audio_tpu_torch.ops import causal_attention as ca
+    from cpc_audio_tpu_torch.ops import gru, lstm
+    f32 = torch.float32
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+
+    def rand(*shape, scale=1.0, grad=False):
+        t = torch.randn(shape, generator=g, device=dev) * scale
+        return t.requires_grad_(grad)
+
+    def turns(label: str, kernel, library, what: str) -> None:
+        t = {"kernel": [], "library": []}
+        for who in ("kernel", "library", "library", "kernel"):
+            t[who].append(median_ms(kernel if who == "kernel" else library))
+        k_ms, l_ms = (statistics.mean(t[w]) for w in ("kernel", "library"))
+        print(f"  {label}, float32, in turns: kernel {t['kernel'][0]:.4f} / "
+              f"{t['kernel'][1]:.4f} ms, {what} {t['library'][0]:.4f} / "
+              f"{t['library'][1]:.4f} ms; kernel / library "
+              f"{k_ms / l_ms:.3f}", flush=True)
+
+    for kind, Bl, T, H in (("lstm", B, 128, 256), ("lstm", 8, 256, 512),
+                           ("lstm", B, 128, 512), ("lstm", B, 128, 768),
+                           ("gru", B, 128, 256)):
+        cudnn = cudnn_layer(dev, f32, kind, g, B=Bl, T=T, C=H)
+        la, lba, ga, gba = recurrent_args(rand, dev, Bl, T, H)
+        k = ((lambda: lstm.lstm_fwd(*la, save_residuals=True),
+              lambda: lstm.lstm_bwd(*lba)) if kind == "lstm" else
+             (lambda: gru.gru_fwd(*ga, save_residuals=True),
+              lambda: gru.gru_bwd(*gba)))
+        for i, d in enumerate(("fwd", "bwd")):
+            turns(f"{kind}_{d} B {Bl} / T {T} / H {H}", k[i], cudnn[i],
+                  f"cuDNN nn.{cudnn[2]} " + ("forward (training), input "
+                                             "projection included" if i == 0
+                                             else "autograd backward, dx and "
+                                             "dW"))
+        del la, lba, ga, gba, k, cudnn
+        torch.cuda.empty_cache()
+    for dk in (32, 64):
+        N, S = B * 8, 128
+        q, k, v = (rand(N, S, dk) for _ in range(3))
+        bias, do = rand(N, S, S, scale=0.5), rand(N, S, dk, scale=0.1)
+        sdpa = sdpa_calls(rand, B, dk)
+        for i, (name, call) in enumerate((
+                ("causal_attention_fwd",
+                 lambda: ca.causal_attention_fwd(q, k, v, bias)),
+                ("causal_attention_bwd",
+                 lambda: ca.causal_attention_bwd(q, k, v, bias, do)))):
+            turns(f"{name} dk {dk} (N {N}, S {S}), rate 0", call, sdpa[i],
+                  "SDPA" + ("" if i == 0 else " autograd backward"))
 
 
 def cudnn_layer(dev: torch.device, dtype: torch.dtype, kind: str,
@@ -1021,6 +1087,7 @@ def phase_kernels(dev: torch.device, B: int = 32) -> dict:
               f"{results[name]['ms']:.4f} ms", flush=True)
     causal_against_sdpa(dev, results, rate0, calls, B)
     wide_yardsticks(dev, shaped, B)
+    f32_yardsticks(dev, B)
     for name in ("relpos_attention_fwd", "relpos_attention_bwd",
                  "layer_tail_fwd", "layer_tail_bwd", "attention_block_fwd",
                  "attention_block_bwd"):
@@ -1166,10 +1233,14 @@ PATH_CONFIG = {EXACT: {"negativeSamplingMode": "exact"},
                       "hiddenGar": 512},
                W768: {"hiddenEncoder": 768, "hiddenGar": 768}}
 # the body the AR's backward kernel (K1, K4) must run on a path: the
-# cluster body at hiddenGar 256 (and 128) and, on 16 CTAs, at 512 (the
-# bf16 train step's), the rows body at 768
+# cluster body at hiddenGar 256 (and 128) and, on 16 CTAs, at 512 and 768
+# (the bf16 train step's; at 768 with part of W_hh streamed from L2)
 BWD_BODY = {"LSTM": "cluster", "GRU": "cluster", FUSED: "cluster",
-            EXACT: "cluster", LONG: "cluster", W768: "rows"}
+            EXACT: "cluster", LONG: "cluster", W768: "cluster"}
+# the body K1's forward must run: the rows body at hiddenGar 256, the
+# 16-CTA cluster body at 512 and 768 (bf16)
+FWD_BODY = {"LSTM": "rows", FUSED: "rows", EXACT: "rows", LONG: "cluster",
+            W768: "cluster"}
 # launches a step, where a path fixes them: on the fused path K2 must not
 # run at all; on the exact path K8 runs once, in the backward
 PER_STEP = {FUSED: {"attention_block_fwd": 1, "attention_block_bwd": 1,
@@ -1188,10 +1259,12 @@ def reset_counts() -> dict:
     return fns
 
 
-def check_body(fns: dict, path: str, steps: int, want: str) -> None:
-    """The AR's backward kernel ran body ``want`` (BWD_BODY) ``steps``
-    times since reset_counts, and no other body."""
-    name = "lstm_bwd" if path.startswith("LSTM") else "gru_bwd"
+def check_body(fns: dict, path: str, steps: int, want: str,
+               name: str = None) -> None:
+    """The AR's backward kernel (or kernel ``name``) ran body ``want``
+    (BWD_BODY, FWD_BODY) ``steps`` times since reset_counts, and no other
+    body."""
+    name = name or ("lstm_bwd" if path.startswith("LSTM") else "gru_bwd")
     got = dict(fns[name].body_launches)
     print(f"{path}: {name} launches by body {got}", flush=True)
     if got[want] != steps or sum(got.values()) != steps:
@@ -1406,6 +1479,8 @@ def phase_train(dev: torch.device, path: str = "LSTM",
                            12, PER_STEP.get(path))
     if path in BWD_BODY:
         check_body(fns, path, 12, BWD_BODY[path])
+    if path in FWD_BODY:
+        check_body(fns, path, 12, FWD_BODY[path], "lstm_fwd")
 
     per_step = torch.stack(losses).float().cpu()          # (12, K)
     if tuple(per_step.shape) != (12, cfg.nPredicts) or \
@@ -1650,7 +1725,7 @@ def profile_train(step, batch, key, step_ms: float, path: str,
 
 # kernel-name fragments (lower case) of the profile's groups, first match
 PROFILE_GROUPS = (
-    ("port kernels", ("lstm_fwd_kernel", "lstm_bwd", "gru_fwd_kernel",
+    ("port kernels", ("lstm_fwd", "lstm_bwd", "gru_fwd_kernel",
                       "gru_bwd", "relpos_attention",
                       "causal_attention", "tail_", "dkrel_reduce",
                       "attention_block", "conv_ln", "sum_parts",

@@ -13,16 +13,23 @@
 // Two bodies, picked from the shape before launching (`cluster_body`):
 //
 // The cluster body (csrc/rnn_cluster.cuh), at H = 128 and 256 in both
-// dtypes on C = 8 CTAs, and at H = 512 in bf16 on C = 16: one cluster per
-// 16 batch rows keeps W_hh on chip for the whole window, split by hidden
-// unit (CTA c owns units [c H/C, (c+1) H/C) and their 4 gate rows: 133 KB
-// of bf16 W_hh at H = 512, 232 KB of the CTA's 227 KB in all), and each
-// step's product dh = dgates . W_hh is a per-CTA partial product
+// dtypes on C = 8 CTAs, and at H = 512 and 768 in bf16 on C = 16: one
+// cluster per 16 batch rows keeps W_hh on chip for the whole window,
+// split by hidden unit (CTA c owns units [c H/C, (c+1) H/C) and their 4
+// gate rows: 133 KB of bf16 W_hh at H = 512, 232 KB of the CTA's 227 KB
+// in all), and each step's product dh = dgates . W_hh is a per-CTA
+// partial product
 // (mma.sync with a hi/lo split of dgates in bf16, FMA in float32)
 // reduce-scattered over distributed shared memory, with one cluster
 // barrier a step.  The elementwise part of a step needs only the CTA's own
-// units.  In float32 at H = 512, W_hh (4 MB) exceeds even 16 CTAs' shared
-// memory, so the rows body runs.
+// units.  At H = 768 in bf16, also on C = 16, a CTA's slice (192 gate
+// rows by 768, 295 KB) does not fit: each warp holds 2 of the 12 k-steps
+// of its columns in registers, 4 in shared memory and streams 6 (147 KB a
+// CTA a step) from L2 through a two-stage ring of its own; the receive
+// buffer has one parity, guarded by a second cluster barrier split around
+// the product, and the residuals come through registers (`StreamLayout`;
+// 219 KB a CTA).  In float32 at H = 512 and 768, W_hh (4-9 MB) exceeds
+// even 16 CTAs' shared memory, so the rows body runs.
 //
 // The rows body, at every other H (up to 2048): as in the forward, one
 // block per batch row keeps the carries in shared memory for the whole
@@ -37,7 +44,10 @@
 //
 // What bounds it on an H100: the T = 128 dependent steps.  The bytes it
 // must move (0.012 ms at B 32, T 128, H 256) ignore that chain; cuDNN's
-// LSTM backward, which also forms dx and dW, is its yardstick.
+// LSTM backward, which also forms dx and dW, is its yardstick.  On 16
+// CTAs the largest part of a step is the reduce-scatter's push over
+// distributed shared memory: 3.6 of 4.8 us at H 512, 3.3 of 9.4 at H 768
+// (port_perf/k1_step_parts.py removes it; NVIDIA H100 80GB HBM3, 700 W).
 #include "rnn_cluster.cuh"
 
 namespace {
@@ -49,6 +59,24 @@ __device__ __forceinline__ float2 load2(const float* p) {
 }
 __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// One unit's cell backward, shared by the bodies: from its gate
+// activations i, f, g, o, the cell state c_{t-1}, dh (dys + carry) and
+// the dc carry, the gate gradients out = (di, df, dg, do); returns the
+// next dc carry.
+__device__ __forceinline__ float cell_bwd(float ig, float fg, float gg,
+                                          float og, float c_prev, float dhj,
+                                          float dc, float out[4]) {
+  const float cc = fg * c_prev + ig * gg;
+  const float tc = tanhf(cc);
+  const float d_o = dhj * tc * og * (1.0f - og);
+  const float dcj = dc + dhj * og * (1.0f - tc * tc);
+  out[0] = dcj * gg * ig * (1.0f - ig);
+  out[1] = dcj * c_prev * fg * (1.0f - fg);
+  out[2] = dcj * ig * (1.0f - gg * gg);
+  out[3] = d_o;
+  return dcj * fg;
 }
 
 // ---- the cluster body ------------------------------------------------------
@@ -152,19 +180,14 @@ __global__ void __launch_bounds__(ClusterLayout<T, J, C>::kThreads, 1)
       float out[4][2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const float ig = e ? ig2.y : ig2.x, fg = e ? fg2.y : fg2.x,
-                    gg = e ? gg2.y : gg2.x, og = e ? og2.y : og2.x;
-        const float c_prev = e ? cp2.y : cp2.x;
-        const float cc = fg * c_prev + ig * gg;
-        const float tc = tanhf(cc);
-        const float dhj = (e ? dy2.y : dy2.x) + (e ? carry.y : carry.x);
-        const float d_o = dhj * tc * og * (1.0f - og);
-        const float dcj = (e ? dc2.y : dc2.x) + dhj * og * (1.0f - tc * tc);
-        out[0][e] = dcj * gg * ig * (1.0f - ig);
-        out[1][e] = dcj * c_prev * fg * (1.0f - fg);
-        out[2][e] = dcj * ig * (1.0f - gg * gg);
-        out[3][e] = d_o;
-        (e ? dc2.y : dc2.x) = dcj * fg;
+        float o4[4];
+        (e ? dc2.y : dc2.x) = cell_bwd(
+            e ? ig2.y : ig2.x, e ? fg2.y : fg2.x, e ? gg2.y : gg2.x,
+            e ? og2.y : og2.x, e ? cp2.y : cp2.x,
+            (e ? dy2.y : dy2.x) + (e ? carry.y : carry.x),
+            e ? dc2.y : dc2.x, o4);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) out[q][e] = o4[q];
       }
       dcs[p] = dc2;
 #pragma unroll
@@ -189,10 +212,247 @@ __global__ void __launch_bounds__(ClusterLayout<T, J, C>::kThreads, 1)
   }
 }
 
+// ---- the cluster body with a streamed remainder (bf16, H = 768) ------------
+
+using bf16 = __nv_bfloat16;
+
+// One CTA of 16 at H = 16 J, whose slice of W_hh (4J gate rows by H)
+// does not fit beside the rest: the A tile (dgates' hi and lo), ONE
+// receive parity (16 slots of 16 x J float32), the SK resident k-steps
+// of the slice (16 gate rows by H + 8 each) and every warp's ring (16
+// rows by J + 8 a stage).  Warp w serves columns [w J, w J + J) of all
+// 12 k-steps: RK in registers, SK in shared memory, the rest streamed.
+// The residuals of the next step are loaded into registers (a thread
+// owns one pair of units for the whole window, and its dc), so the
+// layout has no residual slots.
+template <int J_, int RK, int SK, int D>
+struct StreamLayout {
+  static constexpr bool kMma = true;
+  static constexpr int kCluster = 16, kThreads = 32 * kCluster;
+  static constexpr int kJ = J_, H = kCluster * kJ, GJ = 4 * kJ;
+  static constexpr int P = cpc::rnn::kRows * kJ / 2, NT = kJ / 8;
+  static constexpr int lda = GJ + 8, ldw = H + 8, lds = kJ + 8;
+  using S = cpc::rnn::Split<RK, SK, GJ / 16 - RK - SK, D, 16 * lds>;
+  static constexpr size_t a = 0;
+  static constexpr size_t recv =
+      a + cpc::rnn::round16((size_t)2 * cpc::rnn::kRows * lda * 2);
+  static constexpr size_t res =
+      recv + (size_t)kCluster * cpc::rnn::kRows * kJ * sizeof(float);
+  static constexpr size_t ring = res + (size_t)SK * 16 * ldw * 2;
+  static constexpr size_t bytes = ring + (size_t)kCluster * S::ring_elems * 2;
+  static_assert(P <= kThreads && kJ % 16 == 0, "a pair a thread");
+};
+
+using Stream768 = StreamLayout<48, 2, 4, 2>;
+
+template <typename L>
+__global__ void __launch_bounds__(L::kThreads, 1)
+    lstm_bwd_stream_kernel(const float* __restrict__ gates,
+                           const float* __restrict__ cs,
+                           const bf16* __restrict__ c0,
+                           const bf16* __restrict__ dys,
+                           const bf16* __restrict__ w_hh,
+                           const float* __restrict__ dhT,
+                           const float* __restrict__ dcT,
+                           float* __restrict__ dgates,
+                           float* __restrict__ dh0, float* __restrict__ dc0,
+                           int B, int n_steps) {
+  namespace rnn = cpc::rnn;
+  using S = typename L::S;
+  constexpr int J = L::kJ, H = L::H, G4 = 4 * H, NT = L::NT;
+  extern __shared__ __align__(16) unsigned char stream_smem_buf[];
+  unsigned char* smem = stream_smem_buf;
+  const bf16* ahi = reinterpret_cast<const bf16*>(smem + L::a);
+  const bf16* alo = ahi + rnn::kRows * L::lda;
+  bf16* res = reinterpret_cast<bf16*>(smem + L::res);
+  const int c = rnn::cluster_rank();
+  const int b0 = blockIdx.y * rnn::kRows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  bf16* ring = reinterpret_cast<bf16*>(smem + L::ring) +
+               (size_t)warp * S::ring_elems;
+  // W_hh's row of the slice's row k (gate k / J, unit k % J)
+  auto w_row = [&](int k) {
+    return w_hh + (size_t)((k / J) * H + c * J + k % J) * H;
+  };
+
+  // the resident k-steps: slice rows [16 RK, 16 (RK + SK)), all columns
+  constexpr int RP = H / 8;                   // 16-byte pieces a row
+  for (int idx = tid; idx < S::SK * 16 * RP; idx += L::kThreads) {
+    const int row = idx / RP, q = idx - row * RP;
+    cpc::mma::cp_async16(res + row * L::ldw + q * 8,
+                         w_row(S::RK * 16 + row) + q * 8, true);
+  }
+  cpc::mma::cp_async_commit();
+  // the register k-steps' B fragments of the warp's NT n-tiles
+  uint32_t breg[S::RK > 0 ? S::RK : 1][NT][2];
+#pragma unroll
+  for (int i = 0; i < S::RK; ++i)
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int col = warp * J + n * 8 + gq;
+      const int k = i * 16 + 2 * tq;
+      breg[i][n][0] = rnn::pack_two(w_row(k) + col, w_row(k + 1) + col);
+      breg[i][n][1] = rnn::pack_two(w_row(k + 8) + col, w_row(k + 9) + col);
+    }
+
+  // the thread's pair of units (tid < P), its dc and its next residuals
+  const bool owner = tid < L::P;
+  const rnn::Pair<J> pr(owner ? tid : 0);
+  const int b = b0 + pr.row;
+  const bool valid = owner && b < B;
+  const int j = c * J + pr.unit;
+  float2 dc2 = valid ? *reinterpret_cast<const float2*>(dcT + (size_t)b * H +
+                                                        j)
+                     : make_float2(0.0f, 0.0f);
+  float2 nxt[5];       // i, f, g, o, c_{t-1}
+  __nv_bfloat162 nxt_dy;
+  auto load_res = [&](int t) {
+    if (!valid) return;
+    const size_t bt = (size_t)b * n_steps + t;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      nxt[q] = *reinterpret_cast<const float2*>(gates + bt * G4 + q * H + j);
+    nxt[4] = t > 0 ? *reinterpret_cast<const float2*>(cs + (bt - 1) * H + j)
+                   : rnn::load_two(c0 + (size_t)b * H + j);
+    nxt_dy = *reinterpret_cast<const __nv_bfloat162*>(dys + bt * H + j);
+  };
+  load_res(n_steps - 1);
+  cpc::mma::cp_async_wait<0>();
+  __syncthreads();
+  // streamed k-step q of the warp: 16 slice rows by its J columns
+  auto fill = [&](bf16* stage, int q) {
+    const int k = (S::NR + q) * 16;
+    rnn::copy_rows<16, J / 8, L::lds>(
+        stage, [&](int r) { return w_row(k + r) + warp * J; });
+  };
+  S::prime(ring, fill);
+  rnn::cluster_sync();   // every CTA of the cluster runs before any push
+
+  float* slot = reinterpret_cast<float*>(smem + L::recv) +
+                (size_t)c * rnn::kRows * J;
+  for (int t = n_steps - 1; t >= 0; --t) {
+    float2 cur[5];
+#pragma unroll
+    for (int q = 0; q < 5; ++q) cur[q] = nxt[q];
+    const __nv_bfloat162 cur_dy = nxt_dy;
+    if (t > 0) load_res(t - 1);
+    if (owner) {
+      float out[4][2] = {};
+      if (valid) {
+        const float2 carry =
+            t == n_steps - 1
+                ? *reinterpret_cast<const float2*>(dhT + (size_t)b * H + j)
+                : rnn::gather<L>(smem, 0, pr.row, pr.unit);
+        const float2 dy2 = __bfloat1622float2(cur_dy);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float o4[4];
+          (e ? dc2.y : dc2.x) = cell_bwd(
+              e ? cur[0].y : cur[0].x, e ? cur[1].y : cur[1].x,
+              e ? cur[2].y : cur[2].x, e ? cur[3].y : cur[3].x,
+              e ? cur[4].y : cur[4].x,
+              (e ? dy2.y : dy2.x) + (e ? carry.y : carry.x),
+              e ? dc2.y : dc2.x, o4);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) out[q][e] = o4[q];
+        }
+        const size_t bt = (size_t)b * n_steps + t;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          *reinterpret_cast<float2*>(dgates + bt * G4 + q * H + j) =
+              make_float2(out[q][0], out[q][1]);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        rnn::put_a<L>(smem, pr.row, q, pr.unit, out[q][0], out[q][1]);
+    }
+    __syncthreads();
+    rnn::cluster_arrive();    // this CTA's reads of its receive buffer are done
+
+    // P_c = A . W_slice over the warp's columns; hi and lo apart
+    float acc_h[NT][4], acc_l[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_h[n][e] = acc_l[n][e] = 0.0f;
+    auto kstep = [&](int k0, auto&& b_of) {
+      uint32_t ah[4], al[4];
+      cpc::mma::load_a(ah, ahi, L::lda, 0, k0);
+      cpc::mma::load_a(al, alo, L::lda, 0, k0);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bb[4];
+        b_of(np, bb);
+        cpc::mma::mma_bf16(acc_h[2 * np], ah, bb[0], bb[1]);
+        cpc::mma::mma_bf16(acc_l[2 * np], al, bb[0], bb[1]);
+        cpc::mma::mma_bf16(acc_h[2 * np + 1], ah, bb[2], bb[3]);
+        cpc::mma::mma_bf16(acc_l[2 * np + 1], al, bb[2], bb[3]);
+      }
+    };
+    S::product(
+        ring,
+        [&](int i) {
+          if (i < S::RK) {
+            const int ir = i < S::RK ? i : 0;
+            kstep(i * 16, [&](int np, uint32_t (&bb)[4]) {
+              bb[0] = breg[ir][2 * np][0];
+              bb[1] = breg[ir][2 * np][1];
+              bb[2] = breg[ir][2 * np + 1][0];
+              bb[3] = breg[ir][2 * np + 1][1];
+            });
+          } else {
+            kstep(i * 16, [&](int np, uint32_t (&bb)[4]) {
+              cpc::mma::load_b_kmajor(bb, res, L::ldw, (i - S::RK) * 16,
+                                      warp * J + np * 16);
+            });
+          }
+        },
+        [&](int q, const bf16* stage) {
+          kstep((S::NR + q) * 16, [&](int np, uint32_t (&bb)[4]) {
+            cpc::mma::load_b_kmajor(bb, stage, L::lds, 0, np * 16);
+          });
+        },
+        fill);
+
+    rnn::cluster_wait();      // every CTA is done reading its receive buffer
+    // push as 16-byte stores: lanes tq and tq ^ 1 swap halves, so the
+    // even one holds row gq, columns 2 tq .. 2 tq + 3, the odd one row
+    // gq + 8, columns 2 tq - 2 .. 2 tq + 1
+    const bool even = (tq & 1) == 0;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float x0 = acc_h[n][0] + acc_l[n][0];
+      const float x1 = acc_h[n][1] + acc_l[n][1];
+      const float x2 = acc_h[n][2] + acc_l[n][2];
+      const float x3 = acc_h[n][3] + acc_l[n][3];
+      const float s0 = __shfl_xor_sync(0xffffffffu, even ? x2 : x0, 1);
+      const float s1 = __shfl_xor_sync(0xffffffffu, even ? x3 : x1, 1);
+      const int u = n * 8 + 2 * (tq & 2);
+      if (even)
+        rnn::store_remote(slot + gq * J + u, warp,
+                          make_float4(x0, x1, s0, s1));
+      else
+        rnn::store_remote(slot + (gq + 8) * J + u, warp,
+                          make_float4(s0, s1, x2, x3));
+    }
+    rnn::cluster_sync();
+  }
+  if (valid) {
+    const size_t o = (size_t)b * H + j;
+    *reinterpret_cast<float2*>(dh0 + o) =
+        rnn::gather<L>(smem, 0, pr.row, pr.unit);
+    *reinterpret_cast<float2*>(dc0 + o) = dc2;
+  }
+}
+
 // A CTA's shared memory in the cluster body at H: 8 CTAs at H = 128 and
-// 256, 16 at H = 512; 0 at any other H.
+// 256, 16 at H = 512 and (bf16 only, with the streamed remainder) 768; 0
+// at any other H.
 template <typename T>
 size_t cluster_smem(int H) {
+  if constexpr (sizeof(T) < sizeof(float))
+    if (H == 768) return Stream768::bytes;
   return H == 128   ? ClusterLayout<T, 16, 8>::bytes
          : H == 256 ? ClusterLayout<T, 32, 8>::bytes
          : H == 512 ? ClusterLayout<T, 32, 16>::bytes
@@ -255,23 +515,14 @@ __global__ void __launch_bounds__(kThreads) lstm_bwd_kernel(
                   og = gt[3 * H + j];
       const float c_prev =
           t > 0 ? cs[(bt - 1) * H + j] : cpc::to_f32(c0[(size_t)b * H + j]);
-      const float c = fg * c_prev + ig * gg;
-      const float tc = tanhf(c);
-      const float dhj = cpc::to_f32(dys[bt * H + j]) + dh[j];
-      const float d_o = dhj * tc * og * (1.0f - og);
-      const float dcj = dc[j] + dhj * og * (1.0f - tc * tc);
-      const float d_i = dcj * gg * ig * (1.0f - ig);
-      const float d_f = dcj * c_prev * fg * (1.0f - fg);
-      const float d_g = dcj * ig * (1.0f - gg * gg);
-      dg[j] = d_i;
-      dg[H + j] = d_f;
-      dg[2 * H + j] = d_g;
-      dg[3 * H + j] = d_o;
-      dgt[j] = d_i;
-      dgt[H + j] = d_f;
-      dgt[2 * H + j] = d_g;
-      dgt[3 * H + j] = d_o;
-      dc[j] = dcj * fg;
+      float o4[4];
+      dc[j] = cell_bwd(ig, fg, gg, og, c_prev,
+                       cpc::to_f32(dys[bt * H + j]) + dh[j], dc[j], o4);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        dg[q * H + j] = o4[q];
+        dgt[q * H + j] = o4[q];
+      }
     }
     __syncthreads();
     if (group < n_groups) {
@@ -339,9 +590,16 @@ int launch_any(const float* gates, const float* cs, const void* c0,
   if (H == 256)
     return launch_cluster<T, 32, 8>(gates, cs, c0, dys, w_hh, dhT, dcT,
                                     dgates, dh0, dc0, B, n_steps, stream);
-  if constexpr (sizeof(T) < sizeof(float))   // H == 512: fits in bf16 only
+  if constexpr (sizeof(T) < sizeof(float)) {   // H 512 and 768: bf16 only
+    if (H == 768)
+      return (int)cpc::rnn::launch<Stream768>(
+          lstm_bwd_stream_kernel<Stream768>, B, stream, gates, cs,
+          static_cast<const bf16*>(c0), static_cast<const bf16*>(dys),
+          static_cast<const bf16*>(w_hh), dhT, dcT, dgates, dh0, dc0, B,
+          n_steps);
     return launch_cluster<T, 32, 16>(gates, cs, c0, dys, w_hh, dhT, dcT,
                                      dgates, dh0, dc0, B, n_steps, stream);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -352,6 +610,13 @@ int launch_any(const float* gates, const float* cs, const void* c0,
 extern "C" int cpc_lstm_bwd_body(int H, int dtype) {
   return dtype == cpc::kBFloat16 ? cluster_body<__nv_bfloat16>(H)
                                  : cluster_body<float>(H);
+}
+
+// The cluster body's shared memory a CTA at H in `dtype` (0: rows body
+// at every H it has no layout for).
+extern "C" size_t cpc_lstm_bwd_smem(int H, int dtype) {
+  return dtype == cpc::kBFloat16 ? cluster_smem<__nv_bfloat16>(H)
+                                 : cluster_smem<float>(H);
 }
 
 // gates (B, T, 4H), cs (B, T, H), dhT, dcT (B, H) and the outputs dgates

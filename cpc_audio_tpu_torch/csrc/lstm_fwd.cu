@@ -10,7 +10,42 @@
 // states (float32, (B, T, H)), as `_lstm_fwd_kernel` does; both pointers
 // may be null (the eval path), which leaves the launch unchanged.
 //
-// Design: batch rows are independent, so one block owns one batch row for
+// Two bodies, picked from the shape before launching (`cluster_body`,
+// mirrored by ops/lstm.py `fwd_body`):
+//
+// The cluster body, in bf16 at H = 512 and 768 (csrc/rnn_cluster.cuh):
+// one cluster of C = 16 CTAs serves 16 batch rows (one m16 tile; B = 32
+// takes two clusters), and CTA c owns the J = H / 16 units [c J, c J + J)
+// and their four gate rows of W_hh.  A step computes the CTA's gates
+// (16 x 4J) = x_proj + h_{t-1} (16 x H) . W_slice^T on mma.sync.m16n8k16,
+// h fed as the bf16 two-term split hi + lo of its float32 value (W_hh is
+// exact in bf16), the slice the B operand read n-major.  Warp (u, p)
+// takes units [8u, 8u + 8) of all four gates, so that one thread ends up
+// holding i, f, g, o of its own units, over part p of the H-deep
+// product; the KS parts meet in shared memory in a fixed order.  The
+// warps of parts 0 and 1 then do the cell in float32 for one row each (c
+// stays in their registers for the whole window) and write h's hi and lo
+// into the CTA's block in global memory, and ys (and, training, gates
+// and cs) once the block is on its way; x_proj of the next step is
+// loaded into registers while a step computes.  The exchange is an
+// all-gather through L2: one thread hands the block to all 16 CTAs' A
+// tiles with one multicast bulk copy, and each CTA's mbarrier counts the
+// 16 blocks in before its next product.  (A 2 KB block a step to 16 CTAs
+// takes 2.0 us as stores over distributed shared memory plus a cluster
+// barrier, 0.55 as the multicast; the exchange is 0.1-0.3 us of a 2.9-6.7
+// us step: port_perf/allgather.py and k1_step_parts.py, NVIDIA H100 80GB
+// HBM3, 700 W.)  No atomics, sums in a fixed order, reruns bit-identical.  At H = 512 (J 32, KS 4, 16 warps) the slice (128 x 512
+// bf16, 139 KB with padding) is resident and the A tile has two
+// parities, so a step needs no cluster barrier: 229 KB a CTA.  At H = 768
+// (J 48, KS 2, 12 warps) the slice is 192 x 768 (295 KB), so a warp holds
+// the fragments of its first 8 k-steps in registers, 10 in shared memory
+// and streams the last 6 (72 KB a CTA a step) from L2 through a
+// two-stage ring (`cpc::rnn::Split`); the A tile has one parity (48 KB),
+// and a cluster barrier, split around the cell, keeps a step's copies
+// until every CTA has read it: 227 KB a CTA.
+//
+// The rows body, everywhere else (float32, and bf16 at any other H up to
+// 2048): batch rows are independent, so one block owns one batch row for
 // the whole window and keeps h and c in shared memory across all T steps.
 // Each warp takes tiles of 32 gate rows: every lane accumulates its slice
 // of the hidden axis (4 elements per load) for all 32 rows at once (32
@@ -20,14 +55,14 @@
 // no row index needs clamping (a clamped address per load cost a factor
 // of five in a measured variant).
 //
-// What bounds it on an H100: the T steps are serial, and every step
-// re-reads W_hh (4H x H; 512 KB in bf16 at H = 256, more than one SM's
-// 227 KB of shared memory) from L2, so a step costs about one SM's L2
-// read bandwidth for 512 KB.  B = 32 blocks occupy a quarter of the 132
-// SMs.  The backward keeps W_hh on chip across a thread-block cluster
-// (csrc/rnn_cluster.cuh, used by csrc/lstm_bwd.cu); the same split would
-// serve this scan.
-#include "common.cuh"
+// What bounds it on an H100: the T steps are serial.  The rows body
+// re-reads W_hh (4H x H; 512 KB in bf16 at H = 256) from L2 every step,
+// once per batch row, so a step costs one SM's L2 read bandwidth for it.
+// The cluster body reads W_hh once a window (but for the streamed
+// remainder), so a step costs the partial product (2 x 16 x 4J x H
+// multiply-adds a CTA, hi and lo), the cell on a third to a half of the
+// warps, and the multicast's round trip through L2.
+#include "rnn_cluster.cuh"
 
 namespace {
 
@@ -155,17 +190,388 @@ int launch(const void* x_proj, const void* w_hh, const void* h0,
   return (int)cudaGetLastError();
 }
 
+// ---- the cluster body (bf16) ---------------------------------------------
+
+namespace rnn = cpc::rnn;
+using bf16 = __nv_bfloat16;
+constexpr int kC = 16;   // CTAs a cluster
+
+// h's bf16 hi and lo rows of one CTA's units, as a block of the A tile:
+// [hi, lo][16 rows][J], 16-byte chunks swizzled so that ldmatrix's eight
+// rows of a chunk column hit distinct banks (rows of 64 or 96 bytes).
+template <int J>
+struct Block {
+  static constexpr int kElems = 2 * rnn::kRows * J;
+  static constexpr uint32_t kBytes = kElems * 2;
+  static_assert(J == 32 || J == 48, "chunk swizzle for 4 or 6 chunks a row");
+  // element offset of (row, col) within a tile
+  __device__ __forceinline__ static int at(int row, int col) {
+    const int sw = J == 32 ? (row >> 1) & 3 : (row >> 2) & 1;
+    return row * J + (((col >> 3) ^ sw) << 3) + (col & 7);
+  }
+};
+
+// One CTA's shared memory: NP parities of the A tile (16 blocks, one a
+// CTA), the resident part of the slice (warp w's 32 gate rows at rows
+// [32 w, 32 w + 32), SK k-steps + 8 padding a row), the warps' rings (32
+// rows by 16 + 8 a stage), the partial gates the warps leave one another
+// and an mbarrier a parity.
+template <int J_, int KS_, int RK, int SK, int D, int NP_>
+struct FwdLayout {
+  static constexpr int J = J_, KS = KS_, NP = NP_, kCluster = kC, H = kC * J;
+  static constexpr int NU = J / 8, kWarps = NU * KS, kThreads = 32 * kWarps;
+  static constexpr int NKW = H / 16 / KS;           // k-steps a warp
+  static constexpr int ldr = SK * 16 + 8, lds = 16 + 8;
+  // floats a lane leaves a unit group: parts 0 and 1 own rows gq and
+  // gq + 8 and leave the other row's 8 gates, the rest all 16
+  static constexpr int PER = 16 * (KS - 1);
+  using S = rnn::Split<RK, SK, NKW - RK - SK, D, 32 * lds>;
+  using Blk = Block<J>;
+  static constexpr size_t a = 0;
+  static constexpr size_t res = a + (size_t)NP * kC * Blk::kBytes;
+  static constexpr size_t ring = res + (size_t)kWarps * 32 * ldr * 2;
+  static constexpr size_t part = ring + (size_t)kWarps * S::ring_elems * 2;
+  static constexpr size_t bar = part + (size_t)NU * PER * 32 * sizeof(float);
+  static constexpr size_t bytes = bar + NP * sizeof(uint64_t);
+  static_assert(J % 8 == 0 && (H / 16) % KS == 0 && NKW >= RK + SK &&
+                    KS >= 2 && J % 16 == 0 && (NP == 1 || NP == 2),
+                "");
+};
+
+using Fwd512 = FwdLayout<32, 4, 0, 8, 1, 2>;
+using Fwd768 = FwdLayout<48, 2, 8, 10, 2, 1>;
+
+template <typename L>
+__global__ void __launch_bounds__(L::kThreads, 1) lstm_fwd_cluster_kernel(
+    const bf16* __restrict__ x_proj, const bf16* __restrict__ w_hh,
+    const bf16* __restrict__ h0, const bf16* __restrict__ c0,
+    bf16* __restrict__ ys, bf16* __restrict__ hT, bf16* __restrict__ cT,
+    float* __restrict__ gates, float* __restrict__ cs,
+    bf16* __restrict__ scratch, int B, int n_steps) {
+  using S = typename L::S;
+  using Blk = typename L::Blk;
+  constexpr int J = L::J, H = L::H, G4 = 4 * H, NU = L::NU, KS = L::KS;
+  extern __shared__ __align__(16) unsigned char fwd_smem_buf[];
+  unsigned char* smem = fwd_smem_buf;
+  bf16* atile = reinterpret_cast<bf16*>(smem + L::a);   // [NP][CTA]
+  bf16* res = reinterpret_cast<bf16*>(smem + L::res);
+  float* part = reinterpret_cast<float*>(smem + L::part);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bar);
+  const int c = rnn::cluster_rank();
+  const int b0 = blockIdx.y * rnn::kRows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ug = warp % NU, p = warp / NU;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int k_warp = p * L::NKW * 16;         // the warp's first k
+  bf16* ring = reinterpret_cast<bf16*>(smem + L::ring) +
+               (size_t)warp * S::ring_elems;
+  // this CTA's block of parity q in global memory
+  auto own_block = [&](int q) {
+    return scratch +
+           (((size_t)q * gridDim.y + blockIdx.y) * kC + c) * Blk::kElems;
+  };
+  // row r (0..7) of the warp's n-tile of gate g, in W_hh
+  auto w_row = [&](int g, int r) {
+    return w_hh + (size_t)(g * H + c * J + ug * 8 + r) * H;
+  };
+
+  if (tid == 0) {
+    for (int q = 0; q < L::NP; ++q) rnn::mbar_init(full + q, 1);
+    rnn::fence_mbar_init();
+  }
+  // the resident k-steps of every warp's 32 rows
+  constexpr int RP = L::ldr / 8 - 1;          // 16-byte pieces a row
+  for (int idx = tid; idx < L::kWarps * 32 * RP; idx += L::kThreads) {
+    const int row = idx / RP, q = idx - row * RP;
+    const int w = row >> 5, g = (row >> 3) & 3, r = row & 7;
+    const bf16* src = w_hh +
+                      (size_t)(g * H + c * J + (w % NU) * 8 + r) * H +
+                      (w / NU) * L::NKW * 16 + S::RK * 16 + q * 8;
+    cpc::mma::cp_async16(res + row * L::ldr + q * 8, src, true);
+  }
+  cpc::mma::cp_async_commit();
+  // the register k-steps' B fragments of the warp's four n-tiles
+  uint32_t breg[S::RK > 0 ? S::RK : 1][4][2];
+#pragma unroll
+  for (int i = 0; i < S::RK; ++i)
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const bf16* src = w_row(g, gq) + k_warp + i * 16 + 2 * tq;
+      breg[i][g][0] = *reinterpret_cast<const uint32_t*>(src);
+      breg[i][g][1] = *reinterpret_cast<const uint32_t*>(src + 8);
+    }
+  // parity 0 of the A tile <- h0 (rows past B zero)
+  for (int idx = tid; idx < rnn::kRows * H / 2; idx += L::kThreads) {
+    const int row = idx / (H / 2), col = 2 * (idx - row * (H / 2));
+    const int b = b0 + row;
+    const float2 v = b < B ? rnn::load_two(h0 + (size_t)b * H + col)
+                           : make_float2(0.0f, 0.0f);
+    uint32_t hi, lo;
+    cpc::mma::split_pair(hi, lo, v.x, v.y);
+    bf16* blk = atile + (col / J) * Blk::kElems + Blk::at(row, col % J);
+    *reinterpret_cast<uint32_t*>(blk) = hi;
+    *reinterpret_cast<uint32_t*>(blk + rnn::kRows * J) = lo;
+  }
+  rnn::fence_proxy_shared();   // before the copies that overwrite it
+  // parts 0 and 1 own row gq + 8 p of the lane's cells, units u0, u0 + 1
+  const bool owner = p < 2;
+  const int u0 = ug * 8 + 2 * tq;
+  const int j0 = c * J + u0;
+  const int row = gq + 8 * (p & 1);
+  const int brow = b0 + row;
+  const bool valid = owner && brow < B;
+  float2 cst = valid ? rnn::load_two(c0 + (size_t)brow * H + j0)
+                     : make_float2(0.0f, 0.0f);
+  __nv_bfloat162 xnext[4];
+  auto load_x = [&](int t) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      xnext[g] = valid ? *reinterpret_cast<const __nv_bfloat162*>(
+                             x_proj + ((size_t)brow * n_steps + t) * G4 +
+                             g * H + j0)
+                       : __floats2bfloat162_rn(0.0f, 0.0f);
+  };
+  load_x(0);
+  cpc::mma::cp_async_wait<0>();
+  __syncthreads();
+  // streamed k-step q of the warp: its 32 rows by 16 k
+  auto fill = [&](bf16* stage, int q) {
+    const int k = k_warp + (S::NR + q) * 16;
+    rnn::copy_rows<32, 2, L::lds>(
+        stage, [&](int r) { return w_row(r >> 3, r & 7) + k; });
+  };
+  S::prime(ring, fill);
+  rnn::cluster_sync();   // every CTA's mbarriers are set before any copy
+
+  for (int t = 0; t < n_steps; ++t) {
+    // A tile parity cur holds h_{t-1} (16 blocks copied at step t - 1),
+    // h_t goes to parity nxt; the global blocks alternate
+    const int cur = L::NP == 2 ? t & 1 : 0, nxt = L::NP == 2 ? cur ^ 1 : 0;
+    const int sq = (t + 1) & 1;
+    const bool more = t + 1 < n_steps;
+    if (t > 0)
+      rnn::mbar_wait(full + cur,
+                     (L::NP == 2 ? (t - 1) >> 1 : t - 1) & 1);
+    if (tid == 0 && more) rnn::mbar_expect(full + nxt, kC * Blk::kBytes);
+    __nv_bfloat162 x[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) x[g] = xnext[g];
+    if (more) load_x(t + 1);
+
+    // the partial product over the warp's part of k; hi and lo in
+    // separate accumulators (two dependence chains)
+    const bf16* a_cur = atile + cur * kC * Blk::kElems;
+    float acc_h[4][4], acc_l[4][4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_h[g][e] = acc_l[g][e] = 0.0f;
+    auto kstep = [&](int k, const uint32_t (&b)[4][2]) {
+      // rows lane & 15, chunk of k + 8 (lane >> 4), of the block holding k
+      const int r = lane & 15;
+      const bf16* hi = a_cur + (k / J) * Blk::kElems +
+                       Blk::at(r, k % J + ((lane >> 4) << 3));
+      uint32_t ah[4], al[4];
+      cpc::mma::ldmatrix_x4(ah, hi);
+      cpc::mma::ldmatrix_x4(al, hi + rnn::kRows * J);
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        cpc::mma::mma_bf16(acc_h[g], ah, b[g][0], b[g][1]);
+        cpc::mma::mma_bf16(acc_l[g], al, b[g][0], b[g][1]);
+      }
+    };
+    // B fragments of the four gates from a tile of the warp's 32 rows
+    auto from_tile = [&](const bf16* tile, int ld, int k0,
+                         uint32_t (&b)[4][2]) {
+      uint32_t v[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        cpc::mma::load_b_nmajor(v, tile, ld, 16 * h, k0);
+        b[2 * h][0] = v[0];
+        b[2 * h][1] = v[1];
+        b[2 * h + 1][0] = v[2];
+        b[2 * h + 1][1] = v[3];
+      }
+    };
+    S::product(
+        ring,
+        [&](int i) {
+          if (i < S::RK) {
+            kstep(k_warp + i * 16, breg[i < S::RK ? i : 0]);
+          } else {
+            uint32_t b[4][2];
+            from_tile(res + warp * 32 * L::ldr, L::ldr, (i - S::RK) * 16, b);
+            kstep(k_warp + i * 16, b);
+          }
+        },
+        [&](int q, const bf16* stage) {
+          uint32_t b[4][2];
+          from_tile(stage, L::lds, 0, b);
+          kstep(k_warp + (S::NR + q) * 16, b);
+        },
+        fill);
+    // one parity: the copies of this step wait until every CTA is done
+    // reading its A tile
+    if (L::NP == 1) rnn::cluster_arrive();
+    // the warp's sums, cell (row gq + 8 e, unit u0 + u) of gate g at
+    // v[g][2 e + u]; each part leaves the rows it does not own:
+    // part[unit group][PER][lane], part p < 2 at 8 p, p >= 2 at 16 (p - 1)
+    float v[4][4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[g][e] = acc_h[g][e] + acc_l[g][e];
+    float* mine = part + (size_t)ug * L::PER * 32 + lane;
+    if (owner) {                       // row gq + 8 (1 - p)
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          mine[(8 * p + 2 * g + u) * 32] = p ? v[g][u] : v[g][2 + u];
+    } else {
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          mine[(16 * (p - 1) + 4 * g + e) * 32] = v[g][e];
+    }
+    // the copy of step t - 2 has read this CTA's global block sq
+    if (tid == 0) rnn::multicast_read_wait<1>();
+    __syncthreads();
+    float act[4][2], hn[2];            // i, f, g, o; units u0, u0 + 1
+    if (owner) {
+      const int e = p;                 // the owned row: gq + 8 e
+      const float* theirs = part + (size_t)ug * L::PER * 32 + lane;
+      float pre[4][2];
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float own = p ? v[g][2 + u] : v[g][u];
+          float s = 0.0f;
+#pragma unroll
+          for (int pp = 0; pp < KS; ++pp)
+            s += pp == p   ? own
+                 : pp < 2  ? theirs[(8 * pp + 2 * g + u) * 32]
+                           : theirs[(16 * (pp - 1) + 4 * g + 2 * e + u) * 32];
+          const float2 xv = __bfloat1622float2(x[g]);
+          pre[g][u] = s + (u ? xv.y : xv.x);
+        }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        act[0][u] = sigmoidf(pre[0][u]);
+        act[1][u] = sigmoidf(pre[1][u]);
+        act[2][u] = tanhf(pre[2][u]);
+        act[3][u] = sigmoidf(pre[3][u]);
+        float& cu = u ? cst.y : cst.x;
+        const float cn = act[1][u] * cu + act[0][u] * act[2][u];
+        hn[u] = valid ? act[3][u] * tanhf(cn) : 0.0f;
+        cu = valid ? cn : 0.0f;
+      }
+      if (more) {
+        uint32_t hi, lo;
+        cpc::mma::split_pair(hi, lo, hn[0], hn[1]);
+        bf16* blk = own_block(sq) + Blk::at(row, u0);
+        *reinterpret_cast<uint32_t*>(blk) = hi;
+        *reinterpret_cast<uint32_t*>(blk + rnn::kRows * J) = lo;
+        rnn::fence_proxy_global();
+      }
+    }
+    if (L::NP == 1) rnn::cluster_wait();
+    __syncthreads();
+    // h_t's block of this CTA into parity nxt of every CTA
+    if (tid == 0 && more)
+      rnn::multicast(atile + (nxt * kC + c) * Blk::kElems, own_block(sq),
+                     Blk::kBytes, full + nxt, 0xffff);
+    // the step's outputs, stored while the copies are in flight, off the
+    // exchange's path
+    if (valid) {
+      const size_t bt = (size_t)brow * n_steps + t;
+      if (gates != nullptr)
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          *reinterpret_cast<float2*>(gates + bt * G4 + g * H + j0) =
+              make_float2(act[g][0], act[g][1]);
+      if (cs != nullptr) *reinterpret_cast<float2*>(cs + bt * H + j0) = cst;
+      const __nv_bfloat162 h2 = __floats2bfloat162_rn(hn[0], hn[1]);
+      *reinterpret_cast<__nv_bfloat162*>(ys + bt * H + j0) = h2;
+      if (!more) {
+        const size_t o = (size_t)brow * H + j0;
+        *reinterpret_cast<__nv_bfloat162*>(hT + o) = h2;
+        *reinterpret_cast<__nv_bfloat162*>(cT + o) =
+            __floats2bfloat162_rn(cst.x, cst.y);
+      }
+    }
+  }
+  if (tid == 0) rnn::multicast_read_wait<0>();
+}
+
+// Global scratch of the cluster body: two parities of every CTA's block.
+size_t cluster_scratch(int B, int H) {
+  const size_t clusters = (B + rnn::kRows - 1) / rnn::kRows;
+  const size_t blk = H == 512 ? Fwd512::Blk::kBytes : Fwd768::Blk::kBytes;
+  return 2 * clusters * kC * blk;
+}
+
+// A CTA's shared memory in the cluster body at H, 0 where it has none.
+size_t cluster_smem(int H, int dtype) {
+  if (dtype != cpc::kBFloat16) return 0;
+  return H == 512 ? Fwd512::bytes : H == 768 ? Fwd768::bytes : 0;
+}
+
+bool cluster_body(int H, int dtype) {
+  const size_t smem = cluster_smem(H, dtype);
+  return smem > 0 && smem <= cpc::kSmemLimit;
+}
+
+template <typename L>
+int launch_cluster(const void* x_proj, const void* w_hh, const void* h0,
+                   const void* c0, void* ys, void* hT, void* cT,
+                   float* gates, float* cs, void* scratch, int B,
+                   int n_steps, cudaStream_t stream) {
+  return (int)rnn::launch<L>(
+      lstm_fwd_cluster_kernel<L>, B, stream,
+      static_cast<const bf16*>(x_proj), static_cast<const bf16*>(w_hh),
+      static_cast<const bf16*>(h0), static_cast<const bf16*>(c0),
+      static_cast<bf16*>(ys), static_cast<bf16*>(hT), static_cast<bf16*>(cT),
+      gates, cs, static_cast<bf16*>(scratch), B, n_steps);
+}
+
 }  // namespace
 
+// 1 where cpc_lstm_fwd runs the cluster body at hidden width H in
+// `dtype`, 0 where it runs the rows body.
+extern "C" int cpc_lstm_fwd_body(int H, int dtype) {
+  return cluster_body(H, dtype);
+}
+
+// The cluster body's shared memory a CTA at H in `dtype` (0: rows body).
+extern "C" size_t cpc_lstm_fwd_smem(int H, int dtype) {
+  return cluster_smem(H, dtype);
+}
+
+// Bytes of global scratch cpc_lstm_fwd needs at (B, H, dtype): the
+// cluster body's exchange blocks, 0 for the rows body.
+extern "C" size_t cpc_lstm_fwd_scratch(int B, int H, int dtype) {
+  return cluster_body(H, dtype) ? cluster_scratch(B, H) : 0;
+}
+
+// scratch: cpc_lstm_fwd_scratch bytes (16-byte aligned; null where 0).
 extern "C" int cpc_lstm_fwd(const void* x_proj, const void* w_hh,
                             const void* h0, const void* c0, void* ys,
                             void* hT, void* cT, void* gates, void* cs,
-                            int B, int n_steps, int H, int dtype,
-                            void* stream) {
+                            void* scratch, int B, int n_steps, int H,
+                            int dtype, void* stream) {
   if (H <= 0 || H % 8 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* g = static_cast<float*>(gates);
   float* c = static_cast<float*>(cs);
+  if (cluster_body(H, dtype))
+    return H == 512 ? launch_cluster<Fwd512>(x_proj, w_hh, h0, c0, ys, hT,
+                                             cT, g, c, scratch, B, n_steps, s)
+                    : launch_cluster<Fwd768>(x_proj, w_hh, h0, c0, ys, hT,
+                                             cT, g, c, scratch, B, n_steps,
+                                             s);
   if (dtype == cpc::kBFloat16)
     return launch<__nv_bfloat16>(x_proj, w_hh, h0, c0, ys, hT, cT, g, c, B,
                                  n_steps, H, s);

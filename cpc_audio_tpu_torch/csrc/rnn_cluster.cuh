@@ -1,7 +1,8 @@
-// The thread-block-cluster body shared by the K1 and K4 backward scans
-// (csrc/lstm_bwd.cu, csrc/gru_bwd.cu).
+// The thread-block-cluster bodies of the K1 and K4 recurrences
+// (csrc/lstm_bwd.cu, csrc/gru_bwd.cu, and K1's forward, csrc/lstm_fwd.cu).
 //
-// Each reverse step multiplies the step's gate gradients by W_hh:
+// Each step of a recurrence multiplies by W_hh: the forward forms the
+// gates h_{t-1} . W_hh^T, each reverse step the carry
 //   dh_carry[b, :] = sum_r dgates[b, r] W_hh[r, :]   (r over the G*H gate rows)
 // The rows body reads all of W_hh from L2 on every step, once per batch
 // row.  Here one cluster of C CTAs serves kRows = 16 batch rows (one m16
@@ -9,12 +10,12 @@
 // window: CTA c owns the J = H / C hidden units J_c = [c J, c J + J) and
 // their G gate rows {g H + j : j in J_c}, over all H columns (64 KB in
 // bf16 for the LSTM at H = 256, 48 KB for the GRU; twice that in f32).
-// C is 8, the portable cluster size, or 16 (the LSTM at H = 512 in bf16,
-// whose 8-CTA slice, 266 KB, would not fit a CTA's 227 KB: 133 KB at 16),
-// which Hopper allows per kernel
-// (cudaFuncAttributeNonPortableClusterSizeAllowed).  A CTA has C warps:
-// warp w serves the columns CTA w owns.
-// A step is then
+// C is 8, the portable cluster size, or 16 (the LSTM at H = 512 and 768
+// in bf16, whose 8-CTA slice would not fit a CTA's 227 KB), which Hopper
+// allows per kernel (cudaFuncAttributeNonPortableClusterSizeAllowed).
+//
+// The backward (`Layout`, `product_push`): a CTA has C warps, warp w
+// serving the columns CTA w owns.  A step is
 //   1. the elementwise part for the CTA's own units, which needs no
 //      exchange: unit j's gate gradients depend only on dh[:, j], the
 //      carries and the residuals (each kernel writes its own);
@@ -29,15 +30,33 @@
 //      slots of its own columns in a fixed order.
 // The receive buffers alternate between two parities, so one barrier a
 // step suffices: a CTA writes parity p only after every CTA has passed the
-// barrier that ends its reads of parity p.  No atomics, and every sum runs
-// in a fixed order, so reruns are bit-identical.  The residuals of step
-// t - 1 are copied with cp.async while step t computes, each thread
-// copying only what it reads itself (so no block barrier guards them).
+// barrier that ends its reads of parity p.  The residuals of step t - 1
+// are copied with cp.async while step t computes, each thread copying
+// only what it reads itself (so no block barrier guards them).
 //
-// What bounds it on an H100: the 128 (or 256) serial steps, each a
-// partial product (0.5 MFLOP a CTA in bf16 at H 256, 1 MFLOP at H 512, hi
-// and lo), a 16 or 32 KB push per CTA and a cluster barrier; B = 32 runs
-// on 2 C SMs.
+// The forward all-gathers h instead (`multicast`): each CTA writes its
+// units' h, as bf16 hi and lo, to a block in global memory and hands it
+// to all 16 CTAs with one multicast bulk copy from L2, counted by an
+// mbarrier in each; no cluster barrier where the A tile has two parities.
+//
+// The streamed remainder (`Split`): at H = 768 a CTA's bf16 slice (192
+// gate rows by 768, 295 KB) does not fit beside the rest, so each warp
+// keeps the mma fragments of its first k-steps in registers, the next in
+// shared memory, and streams the rest from L2 (W_hh, 4.7 MB, stays in the
+// 50 MB L2) through a ring of its own every step.  The backward at H 768
+// then has one receive parity and two cluster barriers a step, the first
+// split in halves around the product, and loads the next step's residuals
+// into registers (`StreamLayout`, csrc/lstm_bwd.cu).
+//
+// No atomics, and every sum runs in a fixed order, so reruns are
+// bit-identical.  What bounds it on an H100: the 128 (or 256) serial
+// steps, each a partial product (0.5 MFLOP a CTA in bf16 at H 256, 1
+// MFLOP at H 512, 2.4 at H 768, hi and lo), the exchange (a 16-48 KB push
+// per CTA over distributed shared memory in the backward, measured at
+// most of a 16-CTA step; one 2-3 KB multicast a CTA in the forward) and
+// the barriers; at H 768 also 72-147 KB a CTA a step from L2.  B = 32
+// runs on 2 C SMs.  port_perf/k1_step_parts.py times a step with each
+// part removed.
 #pragma once
 
 #include <cstdint>
@@ -101,6 +120,17 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+// cluster_sync in two halves, with work between them: after
+// cluster_wait, every thread of the cluster has passed its
+// cluster_arrive, and what it did before (reads of its receive buffer)
+// is ordered before what follows (remote writes into that buffer).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // (x, y) to the shared memory of CTA `rank` at the address that `local`
 // has in this CTA.
 __device__ __forceinline__ void store_remote(const float* local, int rank,
@@ -111,6 +141,20 @@ __device__ __forceinline__ void store_remote(const float* local, int rank,
                : "r"(mma::smem_addr(local)), "r"(rank));
   asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr),
                "f"(x), "f"(y)
+               : "memory");
+}
+
+// v to the shared memory of CTA `rank` at the (16-byte aligned) address
+// that `local` has in this CTA.
+__device__ __forceinline__ void store_remote(const float* local, int rank,
+                                             float4 v) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(addr)
+               : "r"(mma::smem_addr(local)), "r"(rank));
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
                : "memory");
 }
 
@@ -294,6 +338,169 @@ __device__ __forceinline__ void product_push(unsigned char* smem, int c,
       for (int r = 0; r < kRows; ++r)
         store_remote(slot + r * J + 2 * cp, warp, acc[r][0], acc[r][1]);
   }
+}
+
+// ---- the multicast all-gather -------------------------------------------
+//
+// A CTA hands every CTA of its cluster the same block with one bulk copy
+// from global memory (L2), cp.async.bulk ... .multicast::cluster, whose
+// bytes count down an mbarrier at the same shared-memory offset in each
+// receiving CTA.  On an H100 at 16 CTAs this moves a 2-6 KB block a step
+// in 0.55-0.86 us, where stores over distributed shared memory and a
+// cluster barrier take 2.0-5.2 (port_perf/allgather.py): one thread's
+// copy in place of thousands of remote stores, and no cluster barrier,
+// each CTA waiting on its own mbarrier.
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   mma::smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// The mbarrier inits are visible to the cluster (before a cluster_sync).
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Arrive on `bar` expecting `bytes` more bytes of copies in this phase.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          mma::smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait until the phase of `bar` with parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(mma::smem_addr(bar)), "r"(parity)
+        : "memory");
+}
+
+// This thread's generic-proxy writes (global, or shared) are ordered
+// before later async-proxy (bulk copy) accesses.
+__device__ __forceinline__ void fence_proxy_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_proxy_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst` in the
+// CTAs of the cluster whose bits `mask` sets, each counting down its own
+// mbarrier at `bar`.
+__device__ __forceinline__ void multicast(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar,
+                                          uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(
+          mma::smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(mma::smem_addr(bar)),
+      "h"(mask)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk copies still read their
+// source.
+template <int N>
+__device__ __forceinline__ void multicast_read_wait() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- the streamed remainder ----------------------------------------------
+
+// The k-steps (16 rows of the product's depth each) of one warp's B
+// operand, W_hh's slice: the first RK held in registers as mma fragments,
+// the next SK in shared memory, the last QK streamed from global memory
+// (W_hh stays in the 50 MB L2) through a ring of D stages of STAGE
+// elements, one k-step a stage.  Only the warp reads what it copies, so
+// a stage needs cp.async.wait_group and __syncwarp, no block barrier.
+// W_hh is the same every step, so the ring never drains: when the warp
+// has used a stage it refills it with the k-step D later, wrapping into
+// the next product's, whose first D k-steps are then in flight during
+// the exchange between the two.  With QK = 0 the whole slice is
+// resident and there is no ring.
+template <int RK_, int SK_, int QK_, int D_, int STAGE_>
+struct Split {
+  static constexpr int RK = RK_, SK = SK_, QK = QK_, D = D_, STAGE = STAGE_;
+  static constexpr int NR = RK + SK;                // resident k-steps
+  static constexpr size_t ring_elems = QK > 0 ? (size_t)D * STAGE : 0;
+  static_assert(QK == 0 || (D > 0 && QK % D == 0), "QK a multiple of D");
+
+  // fill(stage, q) issues the cp.async copies of streamed k-step q; no
+  // other cp.async group may be open while the ring runs
+  template <typename Fill>
+  __device__ __forceinline__ static void prime(mma::bf16* ring, Fill fill) {
+    if constexpr (QK > 0) {
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        fill(ring + d * STAGE, d);
+        mma::cp_async_commit();
+      }
+    }
+  }
+
+  // One product: round q takes streamed k-step q from its stage, refills
+  // the stage, then runs its share of the resident k-steps (registers
+  // first), so that a refill has D rounds of resident work to arrive in.
+  // resident(i) runs resident k-step i < NR, streamed(q, stage) streamed
+  // k-step q < QK; every loop is unrolled, so i and q are constants.
+  template <typename Resident, typename Streamed, typename Fill>
+  __device__ __forceinline__ static void product(mma::bf16* ring,
+                                                 Resident resident,
+                                                 Streamed streamed,
+                                                 Fill fill) {
+    if constexpr (QK == 0) {
+#pragma unroll
+      for (int i = 0; i < NR; ++i) resident(i);
+    } else {
+#pragma unroll
+      for (int q = 0; q < QK; ++q) {
+        mma::cp_async_wait<D - 1>();
+        __syncwarp();
+        mma::bf16* stage = ring + (q % D) * STAGE;
+        streamed(q, stage);
+        __syncwarp();
+        fill(stage, (q + D) % QK);
+        mma::cp_async_commit();
+#pragma unroll
+        for (int i = q * NR / QK; i < (q + 1) * NR / QK; ++i) resident(i);
+      }
+    }
+  }
+};
+
+// Copy R rows of S 16-byte pieces into a stage of row stride LD
+// (elements), the warp's lanes taking the pieces in turn; src(r) points
+// at row r's first element in global memory.
+template <int R, int S, int LD, typename Src>
+__device__ __forceinline__ void copy_rows(mma::bf16* stage, Src src) {
+  static_assert(R * S % 32 == 0, "whole pieces a lane");
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < R * S / 32; ++i) {
+    const int q = lane + 32 * i;
+    const int r = q / S, s = q - r * S;
+    mma::cp_async16(stage + r * LD + s * 8, src(r) + s * 8, true);
+  }
+}
+
+// The bf16 at p0 and p1 packed as one mma fragment register, p0's in the
+// lower half.
+__device__ __forceinline__ uint32_t pack_two(const mma::bf16* p0,
+                                             const mma::bf16* p1) {
+  return (uint32_t)*reinterpret_cast<const unsigned short*>(p0) |
+         ((uint32_t)*reinterpret_cast<const unsigned short*>(p1) << 16);
 }
 
 // Launch `kernel` on ceil(B / kRows) clusters of L::kCluster CTAs.  A

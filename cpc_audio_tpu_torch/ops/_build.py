@@ -35,13 +35,19 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _DROP = [_P, _U, _F]          # dropout: seed pointer, threshold, keep scale
 # C entry points: argument types and return type.
 _SIGNATURES = {
-    # x_proj, w_hh, h0, c0, ys, hT, cT, gates, cs, B, T, H, dtype, stream
-    "cpc_lstm_fwd": ([_P] * 9 + [_I] * 4 + [_P], _I),
+    # x_proj, w_hh, h0, c0, ys, hT, cT, gates, cs, scratch, B, T, H, dtype,
+    # stream
+    "cpc_lstm_fwd": ([_P] * 10 + [_I] * 4 + [_P], _I),
+    # B, H, dtype
+    "cpc_lstm_fwd_scratch": ([_I] * 3, ctypes.c_size_t),
     # gates, cs, c0, dys, w_hh, dhT, dcT, dgates, dh0, dc0, B, T, H, dtype,
     # stream
     "cpc_lstm_bwd": ([_P] * 10 + [_I] * 4 + [_P], _I),
     # H, dtype
+    "cpc_lstm_fwd_body": ([_I, _I], _I),
+    "cpc_lstm_fwd_smem": ([_I, _I], ctypes.c_size_t),
     "cpc_lstm_bwd_body": ([_I, _I], _I),
+    "cpc_lstm_bwd_smem": ([_I, _I], ctypes.c_size_t),
     # q, k, v, krel, out, K, n_batch, S, nheads, dk, dropout, dtype, stream
     "cpc_relpos_attention_fwd": ([_P] * 5 + [_I] * 5 + _DROP + [_I, _P], _I),
     # q, k, v, krel, dout, dq, dk, dv, dkrel, part, tiles, K, n_batch, S,

@@ -9,14 +9,20 @@ serial.  ``w_hh`` is in torch's ``(4H, H)`` layout, gate order i, f, g, o;
 float32 whatever the input dtype; outputs are rounded to the input dtype.
 
 * :func:`lstm_fwd` runs the recurrence (csrc/lstm_fwd.cu) and, for
-  training, saves the gate activations and cell states (float32);
+  training, saves the gate activations and cell states (float32).  The
+  kernel has two bodies, picked from H and the dtype before it launches:
+  at H = 512 and 768 in bf16 a thread-block cluster of 16 CTAs keeps
+  W_hh on chip, split by unit, and all-gathers h each step (at 768 part
+  of each CTA's slice is streamed from L2 every step); elsewhere one
+  block a batch row reads W_hh from L2 every step; :func:`fwd_body`
+  mirrors that choice without a card;
 * :func:`lstm_bwd` is the reverse scan (csrc/lstm_bwd.cu) giving float32
-  dgates, dh0 and dc0.  The kernel has two bodies, picked from H and the
-  dtype before it launches: at H = 128 and 256 a thread-block cluster of
-  8 CTAs keeps W_hh on chip (csrc/rnn_cluster.cuh), and at H = 512 in
-  bf16 one of 16; elsewhere (H = 512 in float32 too, whose W_hh does not
-  fit 16 CTAs) one block a batch row reads it from L2 every step;
-  :func:`bwd_body` mirrors that choice without a card;
+  dgates, dh0 and dc0.  The kernel has two bodies, picked the same way:
+  at H = 128 and 256 a thread-block cluster of 8 CTAs keeps W_hh on chip
+  (csrc/rnn_cluster.cuh), at H = 512 and 768 in bf16 one of 16 (at 768
+  with the streamed remainder); elsewhere (H = 512 and 768 in float32
+  too, whose W_hh does not fit 16 CTAs) one block a batch row reads it
+  from L2 every step; :func:`bwd_body` mirrors that choice;
 * :func:`lstm` is the differentiable entry point: a
   ``torch.autograd.Function`` over the two, with dW_hh = h_prev^T dgates
   as one matmul, as rnn.py:223-226.  It takes any H up to 2048: where the
@@ -43,7 +49,15 @@ _BWD_NAME = "lstm_bwd"
 MULTIPLE = 8          # the kernels' H: 4H whole 32-row tiles
 MAX_H = 2048          # the backward's H / 2 <= 1024 threads
 # the backward's cluster body: CTAs a cluster by H (J = H / C units a CTA)
-CLUSTER = {128: 8, 256: 8, 512: 16}
+CLUSTER = {128: 8, 256: 8, 512: 16, 768: 16}
+# the 16-CTA bodies' layouts, bf16 only: each warp holds RK k-steps (16
+# rows of the product's depth) of its slice of W_hh in registers, SK in
+# shared memory and streams the rest through a ring of D stages
+# (cpc::rnn::Split).  The forward's by H: (KS parts of the H-deep product,
+# RK, SK, D, NP parities of the A tile) (csrc/lstm_fwd.cu FwdLayout); the
+# backward's past H 512: (RK, SK, D) (csrc/lstm_bwd.cu StreamLayout)
+FWD_CLUSTER = {512: (4, 0, 8, 1, 2), 768: (2, 8, 10, 2, 1)}
+BWD_STREAM = {768: (2, 4, 2)}
 
 
 def padded_hidden(H: int) -> int:
@@ -87,14 +101,63 @@ def cluster_smem(H: int, n_gates: int, dtype: torch.dtype, slot: int,
             + 2 * r16(slot * pairs))
 
 
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def fwd_smem(H: int, dtype: torch.dtype) -> int:
+    """Shared memory of one CTA of the forward's cluster body at H, as
+    ``FwdLayout`` (csrc/lstm_fwd.cu, ``cpc_lstm_fwd_smem``) lays it out,
+    0 where it has none: NP parities of the A tile (h's bf16 hi and lo,
+    16 x H), each warp's 32 gate rows by its SK resident k-steps (+ 8),
+    its ring of D stages of 32 x (16 + 8), the float32 partial gates the
+    KS parts of the product leave one another (16 (KS - 1) a lane) and
+    an mbarrier a parity."""
+    if dtype != torch.bfloat16 or H not in FWD_CLUSTER:
+        return 0
+    KS, RK, SK, D, NP = FWD_CLUSTER[H]
+    J = H // 16
+    warps = J // 8 * KS
+    streamed = H // 16 // KS - RK - SK
+    return (NP * 16 * (2 * 16 * J * 2) + warps * 32 * (SK * 16 + 8) * 2
+            + (warps * D * 32 * 24 * 2 if streamed else 0)
+            + (J // 8) * 16 * (KS - 1) * 32 * 4 + NP * 8)
+
+
+def bwd_smem(H: int, dtype: torch.dtype) -> int:
+    """Shared memory of one CTA of the backward's cluster body at H
+    (``cpc_lstm_bwd_smem``), 0 where it has none.  Past H 512 in bf16
+    (``StreamLayout``, csrc/lstm_bwd.cu): the A tile, one receive parity
+    of 16 slots, the SK resident k-steps of the slice by H + 8 and each
+    warp's ring of D stages of 16 x (J + 8); below it
+    :func:`cluster_smem`."""
+    el = torch.empty((), dtype=dtype).element_size()
+    if H in BWD_STREAM:
+        if el == 4:
+            return 0
+        RK, SK, D = BWD_STREAM[H]
+        J = H // 16
+        streamed = 4 * J // 16 - RK - SK
+        return (_r16(2 * 16 * (4 * J + 8) * 2) + 16 * 16 * J * 4
+                + SK * 16 * (H + 8) * 2
+                + (16 * D * 16 * (J + 8) * 2 if streamed else 0))
+    if H not in CLUSTER:
+        return 0
+    return cluster_smem(H, 4, dtype, 5 * 8 + 2 * el, CLUSTER[H])
+
+
+def fwd_body(H: int, dtype: torch.dtype) -> str:
+    """The body csrc/lstm_fwd.cu runs at hidden width H: "cluster" or
+    "rows" (``cpc_lstm_fwd_body``), from the shape alone."""
+    smem = fwd_smem(H, dtype)
+    return "cluster" if 0 < smem <= _build.SMEM_LIMIT else "rows"
+
+
 def bwd_body(H: int, dtype: torch.dtype) -> str:
     """The body csrc/lstm_bwd.cu runs at hidden width H: "cluster" or
     "rows" (``cpc_lstm_bwd_body``), from the shape alone."""
-    if H not in CLUSTER:
-        return "rows"
-    el = torch.empty((), dtype=dtype).element_size()
-    smem = cluster_smem(H, 4, dtype, 5 * 8 + 2 * el, CLUSTER[H])
-    return "cluster" if smem <= _build.SMEM_LIMIT else "rows"
+    smem = bwd_smem(H, dtype)
+    return "cluster" if 0 < smem <= _build.SMEM_LIMIT else "rows"
 
 
 def pad_gates(t: torch.Tensor, n_gates: int, H: int, Hp: int) -> torch.Tensor:
@@ -174,8 +237,9 @@ def lstm_fwd(x_proj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
     """x_proj (B, T, 4H), w_hh (4H, H), h0/c0 (B, H), one dtype.
 
     CPU tensors run :func:`lstm_scan_ref`; CUDA tensors launch the kernel
-    (csrc/lstm_fwd.cu) and add one to ``lstm_fwd.launches``.  Returns what
-    :func:`lstm_scan_ref` returns."""
+    (csrc/lstm_fwd.cu) and add one to ``lstm_fwd.launches`` and to
+    ``lstm_fwd.body_launches`` of the body it runs (:func:`fwd_body`).
+    Returns what :func:`lstm_scan_ref` returns."""
     if not _build.runs_kernel(_NAME, x_proj, w_hh, h0, c0):
         return lstm_scan_ref(x_proj, w_hh, h0, c0, save_residuals)
     B, T, G = x_proj.shape
@@ -199,18 +263,25 @@ def lstm_fwd(x_proj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
         gates = torch.empty((B, T, G), dtype=torch.float32, device=dev)
         cs = torch.empty((B, T, H), dtype=torch.float32, device=dev)
     lib = _build.library()
+    code = _build.DTYPE_CODES[x_proj.dtype]
+    # the cluster body's exchange blocks (csrc/lstm_fwd.cu)
+    n_scratch = lib.cpc_lstm_fwd_scratch(B, H, code)
+    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev) \
+        if n_scratch else None
     with torch.cuda.device(dev):
         status = lib.cpc_lstm_fwd(
             x_proj.data_ptr(), w_hh.data_ptr(), h0.data_ptr(), c0.data_ptr(),
             ys.data_ptr(), hT.data_ptr(), cT.data_ptr(),
-            _build.ptr(gates), _build.ptr(cs), B, T, H,
-            _build.DTYPE_CODES[x_proj.dtype], _build.stream(dev))
+            _build.ptr(gates), _build.ptr(cs), _build.ptr(scratch), B, T, H,
+            code, _build.stream(dev))
     _build.check(status, _NAME)
     lstm_fwd.launches += 1
+    lstm_fwd.body_launches[fwd_body(H, x_proj.dtype)] += 1
     return (ys, hT, cT) + ((gates, cs) if save_residuals else ())
 
 
 lstm_fwd.launches = 0
+lstm_fwd.body_launches = {"cluster": 0, "rows": 0}
 
 
 def lstm_bwd(gates: torch.Tensor, cs: torch.Tensor, c0: torch.Tensor,

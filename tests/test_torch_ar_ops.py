@@ -8,7 +8,9 @@ Each plain version gets the same numpy inputs as the JAX function
 reproduced); all comparisons are float32.  At rate 0.1 each plain
 backward is held against torch autograd through its plain forward with
 the same seed.  The CUDA kernels themselves run only on a GPU
-(tests/test_torch_cuda.py, chip_smoke.py)."""
+(tests/test_torch_cuda.py, chip_smoke.py); here are also the pure gates
+that choose K1's and K4's bodies from the shape, held against the
+kernels' own choice on the card."""
 
 import numpy as np
 import pytest
@@ -20,7 +22,7 @@ import jax.numpy as jnp
 from cpc_audio_tpu.ops.pallas.attention import fused_causal_attention
 from cpc_audio_tpu.ops.pallas.rnn import gru_scan_pallas
 from cpc_audio_tpu_torch.ops import causal_attention as ca
-from cpc_audio_tpu_torch.ops import dropout, gru
+from cpc_audio_tpu_torch.ops import _build, dropout, gru, lstm
 
 
 def _t(a):
@@ -106,6 +108,59 @@ def test_gru_wrapper_runs_ref_on_cpu():
     ys, hT = gru.gru(xp, w, b, h0)
     ys.sum().backward()
     assert (gru.gru_fwd.launches, gru.gru_bwd.launches) == before
+
+
+# ---- K1 and K4: which body runs ----------------------------------------------
+
+# (forward, backward) body of K1 and K4's backward body by (H, dtype): the
+# 16-CTA cluster bodies at H 512 and 768 in bf16 only (at 768 with part of
+# W_hh streamed from L2), the 8-CTA backward at H 128 and 256
+_BF, _F32 = torch.bfloat16, torch.float32
+_BODIES = {
+    (128, _BF): ("rows", "cluster", "cluster"),
+    (128, _F32): ("rows", "cluster", "cluster"),
+    (256, _BF): ("rows", "cluster", "cluster"),
+    (256, _F32): ("rows", "cluster", "cluster"),
+    (384, _BF): ("rows", "rows", "rows"),
+    (384, _F32): ("rows", "rows", "rows"),
+    (512, _BF): ("cluster", "cluster", "rows"),
+    (512, _F32): ("rows", "rows", "rows"),
+    (768, _BF): ("cluster", "cluster", "rows"),
+    (768, _F32): ("rows", "rows", "rows"),
+    (1024, _BF): ("rows", "rows", "rows"),
+    (1024, _F32): ("rows", "rows", "rows"),
+    (2048, _BF): ("rows", "rows", "rows"),
+    (2048, _F32): ("rows", "rows", "rows"),
+}
+
+
+@pytest.mark.parametrize("H,dtype", sorted(_BODIES, key=str))
+def test_recurrent_bodies_by_width_and_dtype(H, dtype):
+    """K1's forward and backward and K4's backward pick their body from
+    (H, dtype) alone, before any launch (no card needed), and every
+    cluster layout fits a CTA's shared memory; the rows body has none."""
+    want = _BODIES[(H, dtype)]
+    assert (lstm.fwd_body(H, dtype), lstm.bwd_body(H, dtype),
+            gru.bwd_body(H, dtype)) == want
+    for body, smem in ((want[0], lstm.fwd_smem(H, dtype)),
+                       (want[1], lstm.bwd_smem(H, dtype))):
+        assert (0 < smem <= _build.SMEM_LIMIT) == (body == "cluster")
+
+
+def test_lstm_768_layouts_stream_part_of_w_hh():
+    """At H 768 a CTA's bf16 slice of W_hh (192 gate rows by 768, 295 KB)
+    is larger than its shared memory: both cluster layouts hold part of it
+    in registers and shared memory and stream the rest, and the 8-CTA
+    and the unstreamed 16-CTA backward layouts would not fit."""
+    KS, RK, SK, D, NP = lstm.FWD_CLUSTER[768]
+    assert 192 * 768 * 2 > _build.SMEM_LIMIT
+    assert RK + SK < 768 // 16 // KS            # some k-steps streamed
+    RK, SK, D = lstm.BWD_STREAM[768]
+    assert RK + SK < 4 * 48 // 16
+    assert lstm.CLUSTER[768] == 16
+    for cluster in (8, 16):
+        assert lstm.cluster_smem(768, 4, _BF, 5 * 8 + 2 * 2, cluster) \
+            > _build.SMEM_LIMIT
 
 
 # ---- K5: causal attention with a dense bias ---------------------------------

@@ -438,8 +438,8 @@ def test_recurrence_at_h100_pads_to_the_kernels(dev, dtype, mode):
 
 def test_python_gates_mirror_the_kernels_shared_memory(dev):
     """The pure gates (no card needed) compute the shared memory the C
-    entry point reports for K3's backward, and the body K1's and K4's
-    backward run."""
+    entry points report for K3's backward and K1's cluster bodies, and
+    the body K1's forward and backward and K4's backward run."""
     from cpc_audio_tpu_torch.ops import _build
     lib = _build.library()
     for D, F in ((256, 2048), (512, 2048), (64, 128), (32, 64),
@@ -447,11 +447,15 @@ def test_python_gates_mirror_the_kernels_shared_memory(dev):
         for dt in DTYPES:
             assert lib.cpc_layer_tail_bwd_smem(
                 D, F, _build.DTYPE_CODES[dt]) == ffn._bwd_smem(D, F, dt)
-    for H in (32, 64, 104, 128, 192, 256, 384, 512, 2048):
+    for H in (32, 64, 104, 128, 192, 256, 384, 512, 768, 1024, 2048):
         for dt in DTYPES:
             code = _build.DTYPE_CODES[dt]
             assert lib.cpc_lstm_bwd_body(H, code) == (
                 lstm.bwd_body(H, dt) == "cluster"), (H, dt)
+            assert lib.cpc_lstm_fwd_body(H, code) == (
+                lstm.fwd_body(H, dt) == "cluster"), (H, dt)
+            assert lib.cpc_lstm_fwd_smem(H, code) == lstm.fwd_smem(H, dt)
+            assert lib.cpc_lstm_bwd_smem(H, code) == lstm.bwd_smem(H, dt)
             assert lib.cpc_gru_bwd_body(H, code) == (
                 gru.bwd_body(H, dt) == "cluster"), (H, dt)
 
@@ -465,15 +469,17 @@ def _rel_norm(got, want):
 @pytest.mark.parametrize("mode", ["LSTM", "GRU"])
 @pytest.mark.parametrize("B,T,H", [(32, 128, 256), (3, 9, 256), (5, 7, 128),
                                    (3, 9, 512), (8, 256, 512),
-                                   (32, 128, 512)])
+                                   (32, 128, 512), (32, 128, 768),
+                                   (20, 9, 768)])
 def test_recurrent_bwd_bodies(dev, mode, dtype, B, T, H):
     """K1's and K4's backward at the train shape, at batches that leave a
     cluster's 16 rows part empty, at H = 128 (the cluster body's narrow
-    tile) and at H = 512 (K1 in bf16: the 16-CTA cluster body, also at
-    the long-window path's B 8, T 256 and at B 32, T 128; K4 and float32:
-    the rows body): each output against its plain version within
-    chip_smoke's 1e-4 of the 2-norm, the body counted as the Python
-    mirror says, and a rerun bit-identical."""
+    tile) and at H = 512 and 768 (K1 in bf16: the 16-CTA cluster body,
+    at 768 with part of W_hh streamed, also at the long-window path's
+    B 8, T 256 and at B 32, T 128; K4 and float32: the rows body): each
+    output against its plain version within chip_smoke's 1e-4 of the
+    2-norm, the body counted as the Python mirror says, and a rerun
+    bit-identical."""
     rng = np.random.RandomState(B + T + H)
     G = 4 if mode == "LSTM" else 3
     mod = lstm if mode == "LSTM" else gru
@@ -509,6 +515,50 @@ def test_recurrent_bwd_bodies(dev, mode, dtype, B, T, H):
         assert err <= 1e-4, f"output {i}: rel_norm_err {err:.3e}"
     for g, a in zip(got, again):
         assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("B,T,H", [(8, 256, 512), (32, 128, 512),
+                                   (32, 128, 768), (20, 9, 768)])
+def test_lstm_cluster_bodies(dev, B, T, H):
+    """K1 in bf16 at H 512 and 768, forward and backward on their 16-CTA
+    cluster bodies (at 768 with part of W_hh streamed from L2; B 20: the
+    second cluster's m16 tile holds 4 rows): every output of the forward
+    (ys, hT, cT, gates, cs) against the plain forward at bf16's tolerance,
+    the backward's within 1e-4 of the 2-norm, each body counted, and
+    reruns bit-identical."""
+    dtype = torch.bfloat16
+    rng = np.random.RandomState(B + T + H + 1)
+    args = (_rand(rng, dev, dtype, B, T, 4 * H),
+            _rand(rng, dev, dtype, 4 * H, H, scale=H ** -0.5),
+            _rand(rng, dev, dtype, B, H, scale=0.1),
+            _rand(rng, dev, dtype, B, H, scale=0.1))
+    assert lstm.fwd_body(H, dtype) == lstm.bwd_body(H, dtype) == "cluster"
+    before = (dict(lstm.lstm_fwd.body_launches),
+              dict(lstm.lstm_bwd.body_launches))
+    got = lstm.lstm_fwd(*args, save_residuals=True)
+    again = lstm.lstm_fwd(*args, save_residuals=True)
+    want = lstm.lstm_scan_ref(*args, save_residuals=True)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        torch.testing.assert_close(g.float(), w.float(), **TOL[dtype])
+    gates, cs = want[3:]
+    bargs = (gates, cs, args[3], _rand(rng, dev, dtype, B, T, H, scale=0.1),
+             args[1], _rand(rng, dev, torch.float32, B, H, scale=0.1),
+             _rand(rng, dev, torch.float32, B, H, scale=0.1))
+    got = lstm.lstm_bwd(*bargs)
+    again = lstm.lstm_bwd(*bargs)
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    for i, (g, w) in enumerate(zip(got, lstm.lstm_bwd_ref(*bargs))):
+        err = _rel_norm(g, w)
+        assert err <= 1e-4, f"output {i}: rel_norm_err {err:.3e}"
+    assert lstm.lstm_fwd.body_launches == {
+        "cluster": before[0]["cluster"] + 2, "rows": before[0]["rows"]}
+    assert lstm.lstm_bwd.body_launches == {
+        "cluster": before[1]["cluster"] + 2, "rows": before[1]["rows"]}
 
 
 # ---- K6 (the heads' whole attention block) and K7 (fused conv layer) --------

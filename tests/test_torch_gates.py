@@ -161,11 +161,12 @@ def test_lstm_bwd_body_at_512_is_a_16_cta_cluster_in_bf16():
     """K1's backward at H 512: the cluster body on 16 CTAs in bf16, whose
     CTA (W_hh's 128 gate rows by 512 + 8 bf16, receive buffers, ring)
     fits 227 KB; in float32 the rows body, since W_hh's slice alone
-    (128 x 512 float32) does not fit.  H 128 and 256 keep 8 CTAs, and
-    K4 keeps its bodies."""
+    (128 x 512 float32) does not fit.  H 128 and 256 keep 8 CTAs, H 768
+    in bf16 takes 16 with part of the slice streamed, and K4 keeps its
+    bodies."""
     from cpc_audio_tpu_torch.ops import _build
     bf, f32 = torch.bfloat16, torch.float32
-    assert lstm.CLUSTER == {128: 8, 256: 8, 512: 16}
+    assert lstm.CLUSTER == {128: 8, 256: 8, 512: 16, 768: 16}
     assert gru.CLUSTER == {128: 8, 256: 8}
     assert lstm.bwd_body(512, bf) == "cluster"
     assert lstm.bwd_body(512, f32) == "rows"
@@ -178,8 +179,10 @@ def test_lstm_bwd_body_at_512_is_a_16_cta_cluster_in_bf16():
     for H in (128, 256):
         for dt in (bf, f32):
             assert lstm.bwd_body(H, dt) == gru.bwd_body(H, dt) == "cluster"
-    for H in (104, 384, 768, 1024, 2048):
+    for H in (104, 384, 1024, 2048):
         assert lstm.bwd_body(H, bf) == "rows", H
+    assert lstm.bwd_body(768, bf) == "cluster"
+    assert lstm.bwd_body(768, f32) == "rows"
     assert gru.bwd_body(512, bf) == gru.bwd_body(512, f32) == "rows"
 
 

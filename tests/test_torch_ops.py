@@ -32,7 +32,7 @@ def _t(a):
 
 # ---- K1: LSTM recurrence ----------------------------------------------------
 
-@pytest.mark.parametrize("B,T,H", [(3, 16, 8), (2, 24, 32)])
+@pytest.mark.parametrize("B,T,H", [(3, 16, 8), (2, 24, 32), (2, 4, 768)])
 def test_lstm_ref_matches_pallas_interpret(B, T, H):
     rng = np.random.RandomState(B * 100 + H)
     xp = rng.randn(B, T, 4 * H).astype(np.float32)
