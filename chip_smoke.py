@@ -22,10 +22,12 @@ Phases (any failure exits non-zero):
      K1 and K3 at the shapes of --hiddenEncoder 768 --hiddenGar 768 (S
      116, dk 96; B 32, T 128, H 768; M 3712, D 768; both dtypes); K8
      also with all keys on one row (bf16), and the
-     time of its whole wrapper (sort + searchsorted + K8); K3's bf16
-     backward, at each of its six shapes, must rerun bit-identically,
-     and prints the device time of each of its launches (LN1, G1-G6, the
-     sums over tiles); then time the
+     time of its whole wrapper (sort + searchsorted + K8); K3's
+     backward, at each of its shapes at rate 0.1 and in both dtypes, must
+     rerun bit-identically, and prints the device time of each of its
+     launches (in float32 the split of the weights, LN1, G1-G6, the sums
+     over tiles); its float32 bound counts the bf16 split products it
+     runs, at the bf16 peak, beside the float32-core figure; then time the
      yardstick PyTorch call where one computes the same function (cuDNN
      LSTM/GRU, scaled_dot_product_attention, index_add_; also cuDNN's
      LSTM at H 512 and 768 beside K1 there, forward and backward in
@@ -52,10 +54,12 @@ Phases (any failure exits non-zero):
   5. the train paths, LSTM, GRU, transformer, the fused-layer path, the
      exact sampler on LSTM (negativeSamplingMode exact), the transformer
      at --hiddenEncoder 512 --hiddenGar 512, LSTM at --sizeWindow
-     40960 --hiddenEncoder 512 --hiddenGar 512 (B = 8, K2 at S 244), then
-     LSTM at --hiddenEncoder 768 --hiddenGar 768 (K3 at D 768):
-     make_train_step at the same config (bf16, B = 32, dropout 0.1 in the
-     heads and the transformer AR), 2 warm-up and 10 timed steps on a
+     40960 --hiddenEncoder 512 --hiddenGar 512 (B = 8, K2 at S 244),
+     LSTM at --hiddenEncoder 768 --hiddenGar 768 (K3 at D 768), then the
+     default LSTM in float32 (the CLIs' default --compute_dtype):
+     make_train_step at the same config (bf16 but on the last path, B =
+     32, dropout 0.1 in the heads and the transformer AR), 2 warm-up and
+     10 timed steps on a
      fixed batch; the launch counts of the path's kernels must rise (on
      the fused path K6 once and K7 four times a step, K2 never; on the
      exact path K8 once a step; on the long-window path K2 once a step),
@@ -64,9 +68,10 @@ Phases (any failure exits non-zero):
      rows body at 256 and its 16-CTA cluster body at 512 and 768, the
      losses must be finite and fall;
      prints train windows/s and the step's device time by kernel
-     (torch.profiler); then one float32 step on a (2, 1, 20480) batch on
-     the card and on the CPU (same weights, round keys, negatives' seed
-     and dropout seed) must give the same losses and gradients; then a
+     (torch.profiler); then (but on the float32 path, whose step this
+     is) one float32 step on a (2, 1, 20480) batch on the card and on the
+     CPU (same weights, round keys, negatives' seed and dropout seed) must
+     give the same losses and gradients; then a
      GRU model at --hiddenGar 100 (K4 with H padded to 128; the criterion
      must be refused, naming the flag) trains alone for 4 steps and holds
      a float32 step against the CPU; then two exact steps with
@@ -231,6 +236,9 @@ class Case:
         self.name, self.rate, self.kernel, self.plain = name, rate, kernel, \
             plain
         self.inputs, self.flops, self.read_bytes = inputs, flops, read_bytes
+        # bf16 tensor-core products a float32 product takes, where the
+        # float32 body runs on split operands (K3's backward)
+        self.split = SPLIT_PRODUCTS.get(name)
         # shape: None at the default train shapes, else a tag of the wider
         # shape (the --hiddenEncoder 512 --hiddenGar 512 paths)
         self.shape = shape
@@ -685,7 +693,8 @@ SOURCES = {
                              "cpc_audio_tpu/ops/pallas/head_attention.py:158"),
     "layer_tail_fwd": ("cpc_audio_tpu_torch/csrc/layer_tail_fwd.cu",
                        "cpc_audio_tpu/ops/pallas/ffn.py:88"),
-    # the bf16 body, which the reported numbers time; the float32 body is
+    # one body for both dtypes (bf16 operands as they are, float32 ones
+    # split into bf16 planes); its C entry points are in
     # csrc/layer_tail_bwd.cu
     "layer_tail_bwd": ("cpc_audio_tpu_torch/csrc/layer_tail_bwd_tc.cu",
                        "cpc_audio_tpu/ops/pallas/ffn.py:121"),
@@ -720,6 +729,9 @@ TRAIN_RATE = {"lstm_fwd": 0.0, "lstm_bwd": 0.0, "gru_fwd": 0.0,
 # float32 outside them)
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# K3's float32 backward runs its six products as bf16 tensor-core
+# products of split operands: G1 of 6, the other five of 3 (21 for 6)
+SPLIT_PRODUCTS = {"layer_tail_bwd": 21 / 6}
 
 
 def _tensors(x):
@@ -730,15 +742,22 @@ def _tensors(x):
 def bound(case: Case, out, dtype: torch.dtype) -> dict:
     """The least time the card could take for the call: each input byte
     it needs read once and each output written once at the memory rate,
-    or its operations at the peak rate of its type, whichever is larger."""
+    or its operations at the peak rate of its type, whichever is larger.
+    A float32 body on split operands (``case.split``) does its operations
+    as that many times as many bf16 ones, at the bf16 peak; ``fp32_ms``
+    keeps the float32-core figure beside it."""
     read = case.read_bytes if case.read_bytes is not None else sum(
         t.numel() * t.element_size() for t in _tensors(case.inputs))
     nbytes = read + sum(t.numel() * t.element_size() for t in _tensors(out))
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = case.flops / PEAK_FLOPS[dtype] * 1e3
+    flops, peak = case.flops, PEAK_FLOPS[dtype]
+    if dtype == torch.float32 and case.split:
+        flops, peak = case.flops * case.split, PEAK_FLOPS[torch.bfloat16]
+    t_ops = flops / peak * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": case.flops}
+            "bytes": nbytes, "flops": flops,
+            "fp32_ms": case.flops / PEAK_FLOPS[torch.float32] * 1e3}
 
 
 def library_calls(dev: torch.device, dtype: torch.dtype, B: int = 32):
@@ -986,18 +1005,22 @@ def recurrent_against_cudnn(dev: torch.device, B: int = 32) -> None:
               flush=True)
 
 
-# kernel-name fragments (lower case) of the launches of K3's bf16 backward
-TAIL_BWD_LAUNCHES = (("LN1", "tail_ln1_kernel"), ("G1", "g1_hidden"),
+# kernel-name fragments (lower case) of the launches of K3's backward (in
+# float32 also the split of the weights into bf16 planes)
+TAIL_BWD_LAUNCHES = (("split", "tail_split_kernel"),
+                     ("LN1", "tail_ln1_kernel"), ("G1", "g1_hidden"),
                      ("G2", "g2_ln2"), ("G3", "g3_dhp"), ("G4", "g4_dx"),
                      ("G5", "g5_dw1"), ("G6", "g6_dw2"),
                      ("sums", "sum_parts"))
 
 
-def tail_bwd_launches(case: Case, ms: float, n: int = 3) -> None:
-    """K3's bf16 backward: a rerun must be bit-identical to the first call
-    (no atomics, fixed-order sums); then the device time of each of its
-    launches (LN1, the six GEMMs G1-G6, the fixed-order sums over tiles)
-    over ``n`` calls (torch.profiler), beside the call's median_ms."""
+def tail_bwd_launches(case: Case, ms: float, dtype: torch.dtype,
+                      n: int = 3) -> None:
+    """K3's backward: a rerun must be bit-identical to the first call (no
+    atomics, fixed-order sums); then the device time of each of its
+    launches (in float32 the split of the weights, LN1, the six GEMMs
+    G1-G6, the fixed-order sums over tiles) over ``n`` calls
+    (torch.profiler), beside the call's median_ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     first, again = case.kernel(), case.kernel()
@@ -1010,12 +1033,13 @@ def tail_bwd_launches(case: Case, ms: float, n: int = 3) -> None:
         for _ in range(n):
             case.kernel()
         torch.cuda.synchronize()
-    t = {use: 0.0 for use, _ in TAIL_BWD_LAUNCHES}
+    t = {use: 0.0 for use, _ in TAIL_BWD_LAUNCHES
+         if use != "split" or dtype == torch.float32}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         use = next((u for u, frag in TAIL_BWD_LAUNCHES
-                    if frag in e.key.lower()), None)
+                    if frag in e.key.lower() and u in t), None)
         if use is not None:
             t[use] += e.self_device_time_total / 1e3 / n
     missing = [use for use, v in t.items() if v == 0.0]
@@ -1056,18 +1080,22 @@ def phase_kernels(dev: torch.device, B: int = 32) -> dict:
             ms = median_ms(case.kernel)
             plain_ms = median_ms(case.plain) if reported else None
             plain = f"{plain_ms:.4f} ms" if reported else "not timed"
+            split = (f" as bf16 split products; on the float32 cores "
+                     f"{b['fp32_ms']:.4f} ms"
+                     if dtype == torch.float32 and case.split else "")
             print(f"  {label}: kernel {ms:.4f} ms, plain {plain} "
                   f"(device time a call, median of {REPS} runs of up to "
                   f"{CALLS}); "
                   f"bound {b['bound_ms']:.4f} ms by "
                   f"{b['bound_by']} ({b['bytes'] / 1e6:.2f} MB, "
-                  f"{b['flops'] / 1e9:.3f} GFLOP), {b['bound_ms'] / ms:.1%} "
-                  f"of it", flush=True)
+                  f"{b['flops'] / 1e9:.3f} GFLOP{split}), "
+                  f"{b['bound_ms'] / ms:.1%} of it", flush=True)
             if name.startswith("causal_attention") and case.shape is None \
                     and case.rate == 0.0 and dtype == torch.bfloat16:
                 rate0[name] = ms
-            if name == "layer_tail_bwd" and reported:
-                tail_bwd_launches(case, ms)
+            if name == "layer_tail_bwd" and \
+                    case.rate == TRAIN_RATE.get(name, 0.1):
+                tail_bwd_launches(case, ms, dtype)
             if reported and case.shape is not None:
                 shaped[(name, case.shape)] = ms
             if reported and case.shape is None:
@@ -1213,6 +1241,7 @@ EXACT = "LSTM exact"
 WIDE = "transformer 512"          # --hiddenEncoder 512 --hiddenGar 512
 LONG = "LSTM 40960/512"      # --sizeWindow 40960 --hiddenEncoder 512 ..
 W768 = "LSTM 768"            # --hiddenEncoder 768 --hiddenGar 768
+F32 = "LSTM float32"         # --compute_dtype float32, the CLIs' default
 PATH_KERNELS = {"LSTM": ("lstm_fwd", "lstm_bwd") + HEADS,
                 "GRU": ("gru_fwd", "gru_bwd") + HEADS,
                 "transformer": ("causal_attention_fwd",
@@ -1225,7 +1254,8 @@ PATH_KERNELS = {"LSTM": ("lstm_fwd", "lstm_bwd") + HEADS,
                 WIDE: ("causal_attention_fwd", "causal_attention_bwd")
                 + HEADS,
                 LONG: ("lstm_fwd", "lstm_bwd") + HEADS,
-                W768: ("lstm_fwd", "lstm_bwd") + HEADS}
+                W768: ("lstm_fwd", "lstm_bwd") + HEADS,
+                F32: ("lstm_fwd", "lstm_bwd") + HEADS}
 # CPCConfig fields a path sets beside arMode
 PATH_CONFIG = {EXACT: {"negativeSamplingMode": "exact"},
                WIDE: {"hiddenEncoder": 512, "hiddenGar": 512},
@@ -1236,11 +1266,12 @@ PATH_CONFIG = {EXACT: {"negativeSamplingMode": "exact"},
 # cluster body at hiddenGar 256 (and 128) and, on 16 CTAs, at 512 and 768
 # (the bf16 train step's; at 768 with part of W_hh streamed from L2)
 BWD_BODY = {"LSTM": "cluster", "GRU": "cluster", FUSED: "cluster",
-            EXACT: "cluster", LONG: "cluster", W768: "cluster"}
+            EXACT: "cluster", LONG: "cluster", W768: "cluster",
+            F32: "cluster"}
 # the body K1's forward must run: the rows body at hiddenGar 256, the
 # 16-CTA cluster body at 512 and 768 (bf16)
 FWD_BODY = {"LSTM": "rows", FUSED: "rows", EXACT: "rows", LONG: "cluster",
-            W768: "cluster"}
+            W768: "cluster", F32: "rows"}
 # launches a step, where a path fixes them: on the fused path K2 must not
 # run at all; on the exact path K8 runs once, in the backward
 PER_STEP = {FUSED: {"attention_block_fwd": 1, "attention_block_bwd": 1,
@@ -1460,9 +1491,10 @@ def check_features(model, dev: torch.device) -> None:
 def phase_train(dev: torch.device, path: str = "LSTM",
                 B: int = 32) -> dict:
     """The train path of one --arMode (or the fused-layer path):
-    make_train_step at the default config in bf16, 2 warm-up and 10 timed
-    steps on a fixed batch."""
-    model, crit = build(path, "bfloat16", torch.Generator().manual_seed(SEED))
+    make_train_step at the default config in bf16 (F32: in float32, the
+    CLIs' default), 2 warm-up and 10 timed steps on a fixed batch."""
+    dtype = "float32" if path == F32 else "bfloat16"
+    model, crit = build(path, dtype, torch.Generator().manual_seed(SEED))
     cfg = model.config
     step, batch, key = train_setup(model, crit, dev, B)
 
@@ -1495,7 +1527,7 @@ def phase_train(dev: torch.device, path: str = "LSTM",
              f"fixed batch ({first:.4f} -> {last:.4f})")
     step_ms = statistics.median(times) * 1e3
     print(f"{path} train windows/s: {B / (step_ms / 1e3):.1f} "
-          f"(make_train_step, --arMode {path}, B={B}, bf16, dropout 0.1, "
+          f"(make_train_step, --arMode {path}, B={B}, {dtype}, dropout 0.1, "
           f"median step {step_ms:.3f} ms of 10, min {min(times) * 1e3:.3f} "
           f"max {max(times) * 1e3:.3f}) on {gpu_line()}", flush=True)
     profile_train(step, batch, key, step_ms, path)
@@ -1991,7 +2023,7 @@ def main() -> None:
     print(f"[phase kernels {time.time() - t0:.1f} s]", flush=True)
     t0 = time.time()
     for path in PATH_KERNELS:
-        if path not in (EXACT, LONG, W768):
+        if path not in (EXACT, LONG, W768, F32):
             phase_eval(dev, path)
     phase_eval_auto_exact(dev)
     print(f"[phase eval {time.time() - t0:.1f} s]", flush=True)
@@ -2006,12 +2038,13 @@ def main() -> None:
                       (FUSED, ("attention_block_fwd", "attention_block_bwd",
                                "conv_ln_fwd", "conv_ln_bwd")),
                       (EXACT, ("scatter_add_rows",)),
-                      (WIDE, ()), (LONG, ()), (W768, ())):
+                      (WIDE, ()), (LONG, ()), (W768, ()), (F32, ())):
         t0 = time.time()
         # the long-window path at a small batch, as users fit it on a card
         counts = phase_train(dev, path, B=8 if path == LONG else 32)
         launches.update({name: counts[name] for name in own})
-        check_train_against_cpu(dev, path)
+        if path != F32:          # its float32 step is the LSTM path's
+            check_train_against_cpu(dev, path)
         print(f"[phase train {path} {time.time() - t0:.1f} s]", flush=True)
     t0 = time.time()
     phase_narrow_gru(dev)

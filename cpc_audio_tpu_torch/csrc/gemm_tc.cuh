@@ -15,6 +15,16 @@
 // Every output sums its depth in one fixed order: no split-K, no atomics,
 // bit-identical reruns.
 //
+// Float32 operands travel split into bf16 planes, a = a0 + a1 (+ a2) with
+// a0 = bf16(a), a1 = bf16(a - a0), a2 = bf16(a - a0 - a1) (three planes
+// hold a float32 exactly).  A product of P split terms (`Split<P>`: 3 or
+// 6) walks the depth P times, one (plane of A, plane of B) pair each, as
+// consecutive segments into the same ring and the same accumulators:
+// 3 products keep a0 b0 + a0 b1 + a1 b0 (about 2^-16 of |a||b| lost a
+// product), 6 add a0 b2 + a1 b1 + a2 b0 (about 2^-24, float32's own).
+// The smallest terms come first, so the large ones round last.  P = 1
+// is the plain bf16 product.
+//
 // Fragment layout of the accumulators acc[mi][ni][4] of a warp (mma.cuh):
 // for lane = 4 g + t, acc[mi][ni][2 * half + j] is the output at
 //   row = warp row origin + 16 mi + 8 half + g,
@@ -72,11 +82,13 @@ __host__ __device__ constexpr size_t ring_bytes() {
 }
 
 // One batched operand: element (r, c) of its row-major storage for batch
-// z at ptr[z * batch + r * ld + c].
+// z at ptr[z * batch + r * ld + c]; a split operand's plane i lies `plane`
+// elements past plane 0.
 struct Operand {
   const bf16* ptr;
   size_t batch;
   int ld;
+  size_t plane = 0;
 };
 
 struct Problem {
@@ -127,21 +139,47 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
   }
 }
 
+// The (plane of A, plane of B) of segment s of a product of P split
+// terms, smallest first.
+template <int P>
+__host__ __device__ constexpr int split_a(int s) {
+  return P == 1 ? 0 : P == 3 ? (s == 0) : (0x46 >> (2 * s)) & 3;
+}
+template <int P>
+__host__ __device__ constexpr int split_b(int s) {
+  return P == 1 ? 0 : P == 3 ? (s == 1) : (0x124 >> (2 * s)) & 3;
+}
+static_assert(split_a<6>(0) == 2 && split_b<6>(0) == 0 &&
+                  split_a<6>(1) == 1 && split_b<6>(1) == 1 &&
+                  split_a<6>(2) == 0 && split_b<6>(2) == 2 &&
+                  split_a<6>(3) == 1 && split_b<6>(3) == 0 &&
+                  split_a<6>(4) == 0 && split_b<6>(4) == 1 &&
+                  split_a<6>(5) == 0 && split_b<6>(5) == 0,
+              "a2 b0, a1 b1, a0 b2, a1 b0, a0 b1, a0 b0");
+
 // acc = A . B over the whole depth for the block's tile at (m0, n0) of
-// batch z.  Leaves the ring idle (every copy landed, every warp past its
-// last read), so the epilogue may reuse `smem`.
-template <class T, bool A_KMAJOR, bool B_NMAJOR>
+// batch z, as the sum of P split products (P = 1: bf16 operands).  Leaves
+// the ring idle (every copy landed, every warp past its last read), so
+// the epilogue may reuse `smem`.
+template <class T, bool A_KMAJOR, bool B_NMAJOR, int P = 1>
 __device__ __forceinline__ void mainloop(float (&acc)[T::MI][T::NI][4],
                                          const Problem& p, int z, int m0,
                                          int n0, unsigned char* smem) {
+  static_assert(P == 1 || P == 3 || P == 6, "1, 3 or 6 split products");
   constexpr int SA = a_slot<T, A_KMAJOR>(), SB = b_slot<T, B_NMAJOR>();
   bf16* sa = reinterpret_cast<bf16*>(smem);
   bf16* sb = sa + T::STAGES * SA;
-  const bf16* A = p.a.ptr + (size_t)z * p.a.batch;
-  const bf16* B = p.b.ptr + (size_t)z * p.b.batch;
+  const bf16* A0 = p.a.ptr + (size_t)z * p.a.batch;
+  const bf16* B0 = p.b.ptr + (size_t)z * p.b.batch;
   const size_t lda = p.a.ld, ldb = p.b.ld;
+  const int per = (p.depth + T::BK - 1) / T::BK;   // tiles a segment
 
-  auto load = [&](int slot, int k0) {
+  // tile i of the walk: segment i / per, depth (i % per) BK of it
+  auto load = [&](int slot, int i) {
+    const int s = P == 1 ? 0 : i / per;
+    const int k0 = (i - s * per) * T::BK;
+    const bf16* A = A0 + split_a<P>(s) * p.a.plane;
+    const bf16* B = B0 + split_b<P>(s) * p.b.plane;
     const int kv = p.depth - k0;
     if (A_KMAJOR)
       load_tile<T::BK, T::BM, T::kThreads>(sa + slot * SA,
@@ -171,17 +209,17 @@ __device__ __forceinline__ void mainloop(float (&acc)[T::MI][T::NI][4],
   const Frag f = frag<T>(0, 0);
   const int wr = f.row0, wc = f.col0;   // the warp's origin in the tile
   const int n_live = p.cols - n0;       // columns of the tile that exist
-  const int nk = (p.depth + T::BK - 1) / T::BK;
+  const int nk = P * per;
 #pragma unroll
   for (int s = 0; s < T::STAGES - 1; ++s) {
-    if (s < nk) load(s, s * T::BK);
+    if (s < nk) load(s, s);
     mma::cp_async_commit();
   }
   for (int it = 0; it < nk; ++it) {
     mma::cp_async_wait<T::STAGES - 2>();
     __syncthreads();   // tile `it` landed for all; slot it - 1 is free
     const int next = it + T::STAGES - 1;
-    if (next < nk) load(next % T::STAGES, next * T::BK);
+    if (next < nk) load(next % T::STAGES, next);
     mma::cp_async_commit();
     const bf16* a = sa + (it % T::STAGES) * SA;
     const bf16* b = sb + (it % T::STAGES) * SB;

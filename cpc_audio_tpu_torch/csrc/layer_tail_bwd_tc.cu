@@ -1,10 +1,9 @@
-// K3 backward, bf16 body: six tensor-core GEMMs with fused epilogues.
+// K3 backward: six tensor-core GEMMs with fused epilogues, in both dtypes.
 //
-// Replaces, for bf16, cpc_audio_tpu/ops/pallas/ffn.py `_tail_bwd_kernel`
-// (called through `_tail_bwd`); the float32 body stays in
-// csrc/layer_tail_bwd.cu, whose entry points call this one for bf16.  The
-// math is the Pallas kernel's (ops/ffn.py `layer_tail_bwd_ref`): per head
-// k and row,
+// Replaces cpc_audio_tpu/ops/pallas/ffn.py `_tail_bwd_kernel` (called
+// through `_tail_bwd`); the entry points of csrc/layer_tail_bwd.cu call
+// this body.  The math is the Pallas kernel's (ops/ffn.py
+// `layer_tail_bwd_ref`): per head k and row,
 //   y = round(LN1(x)),  h = round(relu(y W1 + b1) r),  y2 = y + h W2 + b2
 //   dy2 = LN2'(do),     df = round(dy2),  dh = df W2^T
 //   dhp = round(live ? dh / (1 - rate) : 0)   (live: kept and positive)
@@ -13,24 +12,41 @@
 //   dln2w = sum do yhat2, dln2b = sum do, dln1w = sum dy yhat1,
 //   dln1b = sum dy,
 // with r the forward's dropout factor, regenerated from dropout.cuh keyed
-// on (k, row, f).
+// on (k, row, f), and round() the rounding to the input dtype (the
+// identity in float32).
 //
 // What bounds it: six products of 2 K M D F operations each (280 GFLOP at
 // K 12, M 3712, D 256, F 2048: 0.28 ms at the bf16 peak); the inputs and
 // outputs are 0.1 GB.  So the design spends bytes to keep the tensor
 // cores fed.  The hidden h and its gradient dhp go to device memory once
-// each, in bf16 (the values the Pallas kernel multiplies: it rounds both
-// to the compute dtype before each product), and are read twice: about
-// 1.1 GB, 0.33 ms at 3.35 TB/s, where the float32 body recomputes two
-// products and restages the weights (~5.6 GB a call at bf16 widths).  The
-// scratch is 2 K M F bf16 (365 MB at the default shape).
+// each and are read twice: in bf16 the values the Pallas kernel
+// multiplies (it rounds both to the compute dtype before each product),
+// about 1.1 GB, 0.33 ms at 3.35 TB/s; the scratch is 2 K M F bf16 (365 MB
+// at the default shape).
+//
+// Float32 runs the same launches on bf16 tensor cores with split operands
+// (csrc/gemm_tc.cuh): every float32 operand is kept as bf16 planes where
+// its epilogue writes it (h, dhp, df: hi and lo; y: hi, lo and lo2, which
+// hold it exactly), W1 and W2 are split once a call (`tail_split_kernel`:
+// three planes of W1, two of W2), and each product sums 3 split products
+// (about 2^-16 of |a||b| lost a product: a few 1e-6 of each gradient's
+// norm) on three times the bf16 work, 330 TFLOP/s of float32 work at the
+// bf16 peak.  G1 takes 6 (float32's own 2^-24): its sign decides which
+// hidden units are live, and at 2^-16 about one unit in 1e6 lies close
+// enough to the ReLU kink to take the other branch than in the exact
+// product, each moving its row's whole dh into dW1, db1 and dx (1.4e-3
+// and 2.1e-3 of dW1's norm at one head of the default and the
+// long-window shape, where 6 products flip none: the CPU emulation of
+// port_perf/k3_split_accuracy.py).  Its scratch is 4 K M F + 5 K M D +
+// 5 K D F bf16 (0.91 GB at the default shape).
 //
 // The launches, in order (one GEMM core, csrc/gemm_tc.cuh, used six times
 // with its own epilogue each; G1-G6 in kernel names):
+//   split `tail_split_kernel` (float32): the planes of W1 and W2;
 //   LN1  `tail_ln1_kernel`: y = round(LN1(x)) and the rows' (mean, 1/std);
 //   G1   y W1        -> + b1, ReLU, dropout, round: h, and the live bits;
 //   G2   h W2        -> a block owns all D columns of its rows: y2 = y + f +
-//                       b2, LN2 statistics, dy2 = LN2'(do): df (bf16), dy2
+//                       b2, LN2 statistics, dy2 = LN2'(do): df, dy2
 //                       (float32), per-tile partials of db2, dln2w, dln2b;
 //   G3   df W2^T     -> dhp = round(live ? dh / (1 - rate) : 0), per-tile
 //                       partials of db1;
@@ -46,8 +62,9 @@
 // thread).
 //
 // Shapes: D a multiple of 32 up to 1024 (K2's limit, 8 heads of dk <=
-// 128), F a multiple of 64, any M (ragged tiles are zero-filled by the
-// core).
+// 128), F a multiple of 64 in bf16 and of 32 in float32 (a warp's 32
+// columns of G1 and G3 make one word of live bits), any M (ragged tiles
+// are zero-filled by the core).
 #include <type_traits>
 
 #include "common.cuh"
@@ -82,10 +99,32 @@ using TileRow = std::conditional_t<
     std::conditional_t<DM <= 512, gm::Tile<64, 512, 2, 8>,
                        gm::Tile<32, 1024, 1, 16, 4, 16>>>;
 
+// How a body of input dtype E keeps its operands: bf16 planes of each
+// (kPlanes of h, dhp, df and W2; kPlanesY of y and W1, G1's operands) and
+// the split products of each GEMM (gemm_tc.cuh).
+template <class E>
+struct Prec;
+template <>
+struct Prec<bf16> {
+  static constexpr int kPlanes = 1, kPlanesY = 1, kProducts = 1,
+                       kProductsG1 = 1;
+};
+template <>
+struct Prec<float> {
+  static constexpr int kPlanes = 2, kPlanesY = 3, kProducts = 3,
+                       kProductsG1 = 6;
+};
+
+template <class E>
 struct Args {
-  const bf16 *x, *w1, *w2, *dout;
+  const E *x, *dout;
   const float *ln1w, *ln1b, *b1, *b2, *ln2w, *ln2b;
-  bf16 *dx, *y, *df, *h, *dhp;
+  E* dx;
+  // bf16 planes: W1 then W2 (the inputs in bf16), y, df, h, dhp; plane i
+  // of each lies i * *_plane elements past its first
+  const bf16 *w1, *w2;
+  bf16 *y, *df, *h, *dhp;
+  size_t w_plane, y_plane, h_plane;   // K D F; K M D (y, df); K M F
   uint32_t* live;                 // (K, M, F / 32) bits of h32 > 0
   float *stats, *dy2;             // (K, M, 2) mean1, inv1; (K, M, D)
   float *vec_part, *db1_part;     // (5, K, row tiles, D); (K, hid tiles, F)
@@ -95,13 +134,18 @@ struct Args {
   cpc::Dropout drop;
 };
 
-// The scratch, carved from one allocation in 256-byte aligned pieces.
+// The scratch, carved from one allocation in 256-byte aligned pieces:
+// the planes of y, df, h and dhp, in float32 those of W1 and W2, and the
+// float32 companions.
+template <class E>
 struct Scratch {
-  bf16 *h, *dhp;
+  bf16 *y, *df, *h, *dhp, *w;
+  size_t w_plane, y_plane, h_plane;
   uint32_t* live;
   float *dy2, *stats, *db1_part;
   size_t bytes;
   Scratch(unsigned char* base, int K, int M, int D, int F) {
+    using Pr = Prec<E>;
     size_t off = 0;
     auto take = [&](size_t n) {
       unsigned char* p = base + off;
@@ -109,8 +153,19 @@ struct Scratch {
       return p;
     };
     const size_t rows = (size_t)K * M;
-    h = reinterpret_cast<bf16*>(take(rows * F * sizeof(bf16)));
-    dhp = reinterpret_cast<bf16*>(take(rows * F * sizeof(bf16)));
+    y_plane = rows * D;
+    h_plane = rows * F;
+    w_plane = (size_t)K * D * F;
+    auto planes = [&](int n, size_t plane) {
+      return reinterpret_cast<bf16*>(take(n * plane * sizeof(bf16)));
+    };
+    y = planes(Pr::kPlanesY, y_plane);
+    df = planes(Pr::kPlanes, y_plane);
+    h = planes(Pr::kPlanes, h_plane);
+    dhp = planes(Pr::kPlanes, h_plane);
+    w = std::is_same<E, float>::value
+            ? planes(Pr::kPlanesY + Pr::kPlanes, w_plane)
+            : nullptr;
     live = reinterpret_cast<uint32_t*>(take(rows * (F / 32) * 4));
     dy2 = reinterpret_cast<float*>(take(rows * D * 4));
     stats = reinterpret_cast<float*>(take(rows * 2 * 4));
@@ -125,18 +180,55 @@ __device__ __forceinline__ float2 load2(const bf16* p) {
   return make_float2(__low2float(v), __high2float(v));
 }
 
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
 __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<uint32_t*>(p) = mma::pack_bf16(a, b);
 }
 
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// N bf16 planes of the pair (a, b) at p, p + plane, ...: each the
+// rounding of what the planes before it left.
+template <int N>
+__device__ __forceinline__ void store_split(bf16* p, size_t plane, float a,
+                                            float b) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+    *reinterpret_cast<__nv_bfloat162*>(p + i * plane) = v;
+    a -= __low2float(v);
+    b -= __high2float(v);
+  }
+}
+
+// The pair that N planes at p hold (exact for y's three).
+template <int N>
+__device__ __forceinline__ float2 load_split(const bf16* p, size_t plane) {
+  float2 v = load2(p);
+#pragma unroll
+  for (int i = 1; i < N; ++i) {
+    const float2 w = load2(p + i * plane);
+    v.x += w.x;
+    v.y += w.y;
+  }
+  return v;
+}
+
+template <class E>
 __device__ __forceinline__ float rounded(float v) {
-  return cpc::round_to<bf16>(v);
+  return cpc::round_to<E>(v);
 }
 
 // Where row tile `tile` of head k puts its partial sums of vector v, so
 // that the fixed-order sum over tiles (cpc::sum_parts) lands in vec_out's
 // (5, K, D).
-__device__ __forceinline__ size_t vec_at(const Args& p, int v, int k,
+template <class E>
+__device__ __forceinline__ size_t vec_at(const Args<E>& p, int v, int k,
                                          int tile) {
   return (((size_t)v * p.K + k) * p.row_tiles + tile) * p.D;
 }
@@ -144,18 +236,20 @@ __device__ __forceinline__ size_t vec_at(const Args& p, int v, int k,
 // ---- the six uses: operands, orientation and epilogue ----------------------
 
 // G1: h = round(relu(y W1 + b1) r) and the live bits.
+template <class E>
 struct G1_hidden {
   using T = TileHid;
   static constexpr bool kAK = false, kBN = false, kRowsFast = false;
+  static constexpr int kP = Prec<E>::kProductsG1;
   static constexpr size_t kEpiBytes = 0;
   // a warp's columns make one or two words of live bits, all below F or
-  // all past it (F is a multiple of 64)
+  // all past it (F is a multiple of 32)
   static_assert(T::WTN == 32 || T::WTN == 64, "whole words of live bits");
-  __host__ __device__ static gm::Problem problem(const Args& p) {
-    return {{p.y, (size_t)p.M * p.D, p.D}, {p.w1, (size_t)p.D * p.F, p.F},
-            p.M, p.F, p.D};
+  __host__ __device__ static gm::Problem problem(const Args<E>& p) {
+    return {{p.y, (size_t)p.M * p.D, p.D, p.y_plane},
+            {p.w1, (size_t)p.D * p.F, p.F, p.w_plane}, p.M, p.F, p.D};
   }
-  __device__ static void epilogue(const Args& p,
+  __device__ static void epilogue(const Args<E>& p,
                                   float (&acc)[T::MI][T::NI][4],
                                   const gm::Frag& f, int kk, int, int,
                                   unsigned char*) {
@@ -190,7 +284,9 @@ struct G1_hidden {
             v1 *= cpc::dropout_factor(key, (uint32_t)c + 1,
                                       p.drop.threshold, p.drop.keep_scale);
           }
-          if (ok) store2(p.h + grow * p.F + c, v0, v1);
+          if (ok)
+            store_split<Prec<E>::kPlanes>(p.h + grow * p.F + c, p.h_plane,
+                                          v0, v1);
           const int bit = (ni % 4) * 8 + 2 * f.t;
           bits[ni / 4] |= ((uint32_t)(v0 > 0.0f) << bit) |
                           ((uint32_t)(v1 > 0.0f) << (bit + 1));
@@ -209,17 +305,18 @@ struct G1_hidden {
 
 // G2: f = h W2; y2 = y + f + b2, dy2 = LN2'(do), df = round(dy2); partials
 // of db2, dln2w, dln2b.  The block owns every column of its rows.
-template <int DM>
+template <class E, int DM>
 struct G2_ln2 {
   using T = TileRow<DM>;
   static constexpr bool kAK = false, kBN = false, kRowsFast = false;
+  static constexpr int kP = Prec<E>::kProducts;
   static constexpr size_t kEpiBytes =
       (2 * T::BM * T::WN + 3 * T::WM * T::BN) * sizeof(float);
-  __host__ __device__ static gm::Problem problem(const Args& p) {
-    return {{p.h, (size_t)p.M * p.F, p.F}, {p.w2, (size_t)p.F * p.D, p.D},
-            p.M, p.D, p.F};
+  __host__ __device__ static gm::Problem problem(const Args<E>& p) {
+    return {{p.h, (size_t)p.M * p.F, p.F, p.h_plane},
+            {p.w2, (size_t)p.F * p.D, p.D, p.w_plane}, p.M, p.D, p.F};
   }
-  __device__ static void epilogue(const Args& p,
+  __device__ static void epilogue(const Args<E>& p,
                                   float (&acc)[T::MI][T::NI][4],
                                   const gm::Frag& f, int kk, int m0, int,
                                   unsigned char* smem) {
@@ -242,7 +339,8 @@ struct G2_ln2 {
           const int c = f.col(ni);
           float* a = &acc[mi][ni][2 * hf];
           if (row < p.M && c < D) {
-            const float2 yv = load2(p.y + (base + row) * D + c);
+            const float2 yv = load_split<Prec<E>::kPlanesY>(
+                p.y + (base + row) * D + c, p.y_plane);
             a[0] += yv.x + b2[c];
             a[1] += yv.y + b2[c + 1];
             st[0][mi][hf] += a[0] + a[1];
@@ -308,9 +406,10 @@ struct G2_ln2 {
                 (dv.y * lw[c + 1] - m1 - a[1] * m2) * inv[mi][hf];
             *reinterpret_cast<float2*>(p.dy2 + (base + row) * D + c) =
                 make_float2(d0, d1);
-            store2(p.df + (base + row) * D + c, d0, d1);
-            cs[0][0] += rounded(d0);
-            cs[0][1] += rounded(d1);
+            store_split<Prec<E>::kPlanes>(p.df + (base + row) * D + c,
+                                          p.y_plane, d0, d1);
+            cs[0][0] += rounded<E>(d0);
+            cs[0][1] += rounded<E>(d1);
             cs[1][0] += dv.x * a[0];
             cs[1][1] += dv.y * a[1];
             cs[2][0] += dv.x;
@@ -327,15 +426,17 @@ struct G2_ln2 {
 
 // G3: dh = df W2^T; dhp = round(live ? dh / (1 - rate) : 0); partials of
 // db1.
+template <class E>
 struct G3_dhp {
   using T = TileHid;
   static constexpr bool kAK = false, kBN = true, kRowsFast = false;
+  static constexpr int kP = Prec<E>::kProducts;
   static constexpr size_t kEpiBytes = T::WM * T::BN * sizeof(float);
-  __host__ __device__ static gm::Problem problem(const Args& p) {
-    return {{p.df, (size_t)p.M * p.D, p.D}, {p.w2, (size_t)p.F * p.D, p.D},
-            p.M, p.F, p.D};
+  __host__ __device__ static gm::Problem problem(const Args<E>& p) {
+    return {{p.df, (size_t)p.M * p.D, p.D, p.y_plane},
+            {p.w2, (size_t)p.F * p.D, p.D, p.w_plane}, p.M, p.F, p.D};
   }
-  __device__ static void epilogue(const Args& p,
+  __device__ static void epilogue(const Args<E>& p,
                                   float (&acc)[T::MI][T::NI][4],
                                   const gm::Frag& f, int kk, int m0, int n0,
                                   unsigned char* smem) {
@@ -362,14 +463,15 @@ struct G3_dhp {
         for (int hf = 0; hf < 2; ++hf) {
           const int row = f.row(mi, hf);
           const uint32_t w = word[mi][hf][ni / 4];
-          const float v0 = rounded(
+          const float v0 = rounded<E>(
               (w >> bit) & 1u ? acc[mi][ni][2 * hf] * p.scale : 0.0f);
-          const float v1 = rounded(
+          const float v1 = rounded<E>(
               (w >> (bit + 1)) & 1u ? acc[mi][ni][2 * hf + 1] * p.scale
                                     : 0.0f);
           if (wok && row < p.M)
-            store2(p.dhp + ((size_t)kk * p.M + row) * p.F + f.col(ni), v0,
-                   v1);
+            store_split<Prec<E>::kPlanes>(
+                p.dhp + ((size_t)kk * p.M + row) * p.F + f.col(ni),
+                p.h_plane, v0, v1);
           cs[0][0] += v0;
           cs[0][1] += v1;
         }
@@ -385,17 +487,18 @@ struct G3_dhp {
 
 // G4: dyf = dhp W1^T; dy = dy2 + dyf, dx = LN1'(dy); partials of dln1w,
 // dln1b.  The block owns every column of its rows.
-template <int DM>
+template <class E, int DM>
 struct G4_dx {
   using T = TileRow<DM>;
   static constexpr bool kAK = false, kBN = true, kRowsFast = false;
+  static constexpr int kP = Prec<E>::kProducts;
   static constexpr size_t kEpiBytes =
       (2 * T::BM * T::WN + 2 * T::WM * T::BN) * sizeof(float);
-  __host__ __device__ static gm::Problem problem(const Args& p) {
-    return {{p.dhp, (size_t)p.M * p.F, p.F}, {p.w1, (size_t)p.D * p.F, p.F},
-            p.M, p.D, p.F};
+  __host__ __device__ static gm::Problem problem(const Args<E>& p) {
+    return {{p.dhp, (size_t)p.M * p.F, p.F, p.h_plane},
+            {p.w1, (size_t)p.D * p.F, p.F, p.w_plane}, p.M, p.D, p.F};
   }
-  __device__ static void epilogue(const Args& p,
+  __device__ static void epilogue(const Args<E>& p,
                                   float (&acc)[T::MI][T::NI][4],
                                   const gm::Frag& f, int kk, int m0, int,
                                   unsigned char* smem) {
@@ -488,15 +591,17 @@ __device__ __forceinline__ void store_f32(float* out, int rows, int cols,
 }
 
 // G5: dW1 = y^T dhp (D x F, depth M).
+template <class E>
 struct G5_dw1 {
   using T = TileW;
   static constexpr bool kAK = true, kBN = false, kRowsFast = true;
+  static constexpr int kP = Prec<E>::kProducts;
   static constexpr size_t kEpiBytes = 0;
-  __host__ __device__ static gm::Problem problem(const Args& p) {
-    return {{p.y, (size_t)p.M * p.D, p.D}, {p.dhp, (size_t)p.M * p.F, p.F},
-            p.D, p.F, p.M};
+  __host__ __device__ static gm::Problem problem(const Args<E>& p) {
+    return {{p.y, (size_t)p.M * p.D, p.D, p.y_plane},
+            {p.dhp, (size_t)p.M * p.F, p.F, p.h_plane}, p.D, p.F, p.M};
   }
-  __device__ static void epilogue(const Args& p,
+  __device__ static void epilogue(const Args<E>& p,
                                   float (&acc)[T::MI][T::NI][4],
                                   const gm::Frag& f, int kk, int, int,
                                   unsigned char*) {
@@ -505,15 +610,17 @@ struct G5_dw1 {
 };
 
 // G6: dW2 = h^T df (F x D, depth M).
+template <class E>
 struct G6_dw2 {
   using T = TileW;
   static constexpr bool kAK = true, kBN = false, kRowsFast = false;
+  static constexpr int kP = Prec<E>::kProducts;
   static constexpr size_t kEpiBytes = 0;
-  __host__ __device__ static gm::Problem problem(const Args& p) {
-    return {{p.h, (size_t)p.M * p.F, p.F}, {p.df, (size_t)p.M * p.D, p.D},
-            p.F, p.D, p.M};
+  __host__ __device__ static gm::Problem problem(const Args<E>& p) {
+    return {{p.h, (size_t)p.M * p.F, p.F, p.h_plane},
+            {p.df, (size_t)p.M * p.D, p.D, p.y_plane}, p.F, p.D, p.M};
   }
-  __device__ static void epilogue(const Args& p,
+  __device__ static void epilogue(const Args<E>& p,
                                   float (&acc)[T::MI][T::NI][4],
                                   const gm::Frag& f, int kk, int, int,
                                   unsigned char*) {
@@ -524,9 +631,9 @@ struct G6_dw2 {
 // ---- kernels ---------------------------------------------------------------
 
 // One output tile of use U per block; blockIdx.z is the head.
-template <class U>
+template <class U, class E>
 __global__ void __launch_bounds__(U::T::kThreads, U::T::kMinBlocks)
-    tail_gemm_kernel(const Args p) {
+    tail_gemm_kernel(const Args<E> p) {
   using T = typename U::T;
   extern __shared__ __align__(128) unsigned char smem[];
   const gm::Problem pr = U::problem(p);
@@ -534,27 +641,27 @@ __global__ void __launch_bounds__(U::T::kThreads, U::T::kMinBlocks)
   const int tn = U::kRowsFast ? blockIdx.y : blockIdx.x;
   const int m0 = tm * T::BM, n0 = tn * T::BN, kk = blockIdx.z;
   float acc[T::MI][T::NI][4];
-  gm::mainloop<T, U::kAK, U::kBN>(acc, pr, kk, m0, n0, smem);
+  gm::mainloop<T, U::kAK, U::kBN, U::kP>(acc, pr, kk, m0, n0, smem);
   U::epilogue(p, acc, gm::frag<T>(m0, n0), kk, m0, n0, smem);
 }
 
 // y = round(LN1(x)) and the rows' (mean, 1 / std): one warp per row of
 // D <= DM, DM / 32 elements a lane (sized by D's class: a lane's array
 // sized for the widest D doubled the time of this launch at D 256).
-template <int DM>
-__global__ void __launch_bounds__(256) tail_ln1_kernel(const Args p,
+template <class E, int DM>
+__global__ void __launch_bounds__(256) tail_ln1_kernel(const Args<E> p,
                                                         int rows) {
   const int r = blockIdx.x * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (r >= rows) return;
   const int kk = r / p.M, D = p.D;
-  const bf16* xr = p.x + (size_t)r * D;
+  const E* xr = p.x + (size_t)r * D;
   float v[DM / 32];
   float s = 0.0f;
 #pragma unroll
   for (int i = 0; i < DM / 32; ++i) {
     const int d = lane + 32 * i;
-    v[i] = d < D ? __bfloat162float(xr[d]) : 0.0f;
+    v[i] = d < D ? cpc::to_f32(xr[d]) : 0.0f;
     s += v[i];
   }
   const float mean = cpc::warp_sum(s) / D;
@@ -568,9 +675,16 @@ __global__ void __launch_bounds__(256) tail_ln1_kernel(const Args p,
 #pragma unroll
   for (int i = 0; i < DM / 32; ++i) {
     const int d = lane + 32 * i;
-    if (d < D)
-      p.y[(size_t)r * D + d] =
-          __float2bfloat16((v[i] - mean) * inv * w[d] + b[d]);
+    if (d < D) {
+      // y's planes, each the rounding of what those before it left
+      float yv = (v[i] - mean) * inv * w[d] + b[d];
+#pragma unroll
+      for (int j = 0; j < Prec<E>::kPlanesY; ++j) {
+        const bf16 h = __float2bfloat16(yv);
+        p.y[j * p.y_plane + (size_t)r * D + d] = h;
+        yv -= __bfloat162float(h);
+      }
+    }
   }
   if (lane == 0) {
     p.stats[2 * (size_t)r] = mean;
@@ -578,12 +692,25 @@ __global__ void __launch_bounds__(256) tail_ln1_kernel(const Args p,
   }
 }
 
-template <class U>
-cudaError_t run(const Args& p, int K, cudaStream_t stream) {
+// The float32 weights' planes, once a call: W1's three, then W2's two.
+__global__ void __launch_bounds__(256)
+    tail_split_kernel(const float* __restrict__ w1,
+                      const float* __restrict__ w2, bf16* __restrict__ w,
+                      size_t pairs, size_t plane) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < pairs;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const float2 a = load2(w1 + 2 * i), b = load2(w2 + 2 * i);
+    store_split<3>(w + 2 * i, plane, a.x, a.y);
+    store_split<2>(w + 3 * plane + 2 * i, plane, b.x, b.y);
+  }
+}
+
+template <class U, class E>
+cudaError_t run(const Args<E>& p, int K, cudaStream_t stream) {
   using T = typename U::T;
   constexpr size_t smem = gm::ring_bytes<T, U::kAK, U::kBN>();
   static_assert(U::kEpiBytes <= smem, "the epilogue reuses the ring");
-  auto kernel = tail_gemm_kernel<U>;
+  auto kernel = tail_gemm_kernel<U, E>;
   const cudaError_t err = cpc::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const gm::Problem pr = U::problem(p);
@@ -609,52 +736,36 @@ constexpr size_t smem_for() {
                    ring<TileRow<DM>, false, true>()));
 }
 
-}  // namespace
-
-bool shapes_ok(int D, int F) {
-  return D >= 32 && D % 32 == 0 && D <= cpc::kTailMaxD && F > 0 && F % 64 == 0;
-}
-
-int row_tiles(int M, int D) {
-  constexpr int kBM[cpc::kTailClasses] = {
-      TileRow<256>::BM, TileRow<512>::BM, TileRow<1024>::BM};
-  const int bm = kBM[cpc::tail_width_class(D)];
-  return (M + bm - 1) / bm;
-}
-
-size_t smem_bytes(int D) {
-  constexpr size_t kSmem[cpc::kTailClasses] = {
-      smem_for<256>(), smem_for<512>(), smem_for<1024>()};
-  return kSmem[cpc::tail_width_class(D)];
-}
-
-size_t scratch_bytes(int K, int M, int D, int F) {
-  return Scratch(nullptr, K, M, D, F).bytes;
-}
-
-int launch(const void* x, const float* ln1w, const float* ln1b,
-           const void* w1, const float* b1, const void* w2, const float* b2,
-           const float* ln2w, const float* ln2b, const void* dout, void* dx,
-           void* y_buf, void* df_buf, float* vec_part, float* vec_out,
-           float* dw1, float* db1, float* dw2, void* scratch, int K, int M,
-           int D, int F, float eps, cpc::Dropout drop, cudaStream_t stream) {
-  const Scratch sc(static_cast<unsigned char*>(scratch), K, M, D, F);
-  Args p;
-  p.x = static_cast<const bf16*>(x);
-  p.w1 = static_cast<const bf16*>(w1);
-  p.w2 = static_cast<const bf16*>(w2);
-  p.dout = static_cast<const bf16*>(dout);
+template <class E>
+int launch_body(const void* x, const float* ln1w, const float* ln1b,
+                const void* w1, const float* b1, const void* w2,
+                const float* b2, const float* ln2w, const float* ln2b,
+                const void* dout, void* dx, float* vec_part, float* vec_out,
+                float* dw1, float* db1, float* dw2, void* scratch, int K,
+                int M, int D, int F, float eps, cpc::Dropout drop,
+                cudaStream_t stream) {
+  constexpr bool kF32 = std::is_same<E, float>::value;
+  const Scratch<E> sc(static_cast<unsigned char*>(scratch), K, M, D, F);
+  Args<E> p;
+  p.x = static_cast<const E*>(x);
+  p.dout = static_cast<const E*>(dout);
   p.ln1w = ln1w;
   p.ln1b = ln1b;
   p.b1 = b1;
   p.b2 = b2;
   p.ln2w = ln2w;
   p.ln2b = ln2b;
-  p.dx = static_cast<bf16*>(dx);
-  p.y = static_cast<bf16*>(y_buf);
-  p.df = static_cast<bf16*>(df_buf);
+  p.dx = static_cast<E*>(dx);
+  p.w1 = kF32 ? sc.w : static_cast<const bf16*>(w1);
+  p.w2 = kF32 ? sc.w + Prec<E>::kPlanesY * sc.w_plane
+              : static_cast<const bf16*>(w2);
+  p.y = sc.y;
+  p.df = sc.df;
   p.h = sc.h;
   p.dhp = sc.dhp;
+  p.w_plane = sc.w_plane;
+  p.y_plane = sc.y_plane;
+  p.h_plane = sc.h_plane;
   p.live = sc.live;
   p.stats = sc.stats;
   p.dy2 = sc.dy2;
@@ -673,28 +784,82 @@ int launch(const void* x, const float* ln1w, const float* ln1b,
   p.drop = drop;
 
   // LN1, G2 and G4 by D's width class
-  const decltype(&tail_ln1_kernel<256>) kLn1[cpc::kTailClasses] = {
-      tail_ln1_kernel<256>, tail_ln1_kernel<512>, tail_ln1_kernel<1024>};
-  const decltype(&run<G2_ln2<256>>) kG2[cpc::kTailClasses] = {
-      run<G2_ln2<256>>, run<G2_ln2<512>>, run<G2_ln2<1024>>};
-  const decltype(&run<G4_dx<256>>) kG4[cpc::kTailClasses] = {
-      run<G4_dx<256>>, run<G4_dx<512>>, run<G4_dx<1024>>};
+  const decltype(&tail_ln1_kernel<E, 256>) kLn1[cpc::kTailClasses] = {
+      tail_ln1_kernel<E, 256>, tail_ln1_kernel<E, 512>,
+      tail_ln1_kernel<E, 1024>};
+  const decltype(&run<G2_ln2<E, 256>, E>) kG2[cpc::kTailClasses] = {
+      run<G2_ln2<E, 256>, E>, run<G2_ln2<E, 512>, E>,
+      run<G2_ln2<E, 1024>, E>};
+  const decltype(&run<G4_dx<E, 256>, E>) kG4[cpc::kTailClasses] = {
+      run<G4_dx<E, 256>, E>, run<G4_dx<E, 512>, E>, run<G4_dx<E, 1024>, E>};
   const int w = cpc::tail_width_class(D);
   const int rows = K * M;
-  kLn1[w]<<<dim3((rows + 7) / 8), 256, 0, stream>>>(p, rows);
-  cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess) err = run<G1_hidden>(p, K, stream);
+  cudaError_t err = cudaSuccess;
+  if (kF32) {
+    const size_t pairs = sc.w_plane / 2;
+    tail_split_kernel<<<dim3((unsigned)((pairs + 255) / 256)), 256, 0,
+                        stream>>>(static_cast<const float*>(w1),
+                                  static_cast<const float*>(w2), sc.w, pairs,
+                                  sc.w_plane);
+    err = cudaGetLastError();
+  }
+  if (err == cudaSuccess) {
+    kLn1[w]<<<dim3((rows + 7) / 8), 256, 0, stream>>>(p, rows);
+    err = cudaGetLastError();
+  }
+  if (err == cudaSuccess) err = run<G1_hidden<E>, E>(p, K, stream);
   if (err == cudaSuccess) err = kG2[w](p, K, stream);
-  if (err == cudaSuccess) err = run<G3_dhp>(p, K, stream);
+  if (err == cudaSuccess) err = run<G3_dhp<E>, E>(p, K, stream);
   if (err == cudaSuccess) err = kG4[w](p, K, stream);
-  if (err == cudaSuccess) err = run<G5_dw1>(p, K, stream);
-  if (err == cudaSuccess) err = run<G6_dw2>(p, K, stream);
+  if (err == cudaSuccess) err = run<G5_dw1<E>, E>(p, K, stream);
+  if (err == cudaSuccess) err = run<G6_dw2<E>, E>(p, K, stream);
   if (err == cudaSuccess)
     err = cpc::sum_parts(vec_part, vec_out, p.row_tiles, D, kVecs * K,
                          stream);
   if (err == cudaSuccess)
     err = cpc::sum_parts(sc.db1_part, db1, p.hid_tiles, F, K, stream);
   return (int)err;
+}
+
+}  // namespace
+
+bool shapes_ok(int D, int F, int dtype) {
+  const int chunk = dtype == cpc::kBFloat16 ? 64 : 32;
+  return (dtype == cpc::kBFloat16 || dtype == cpc::kFloat32) && D >= 32 &&
+         D % 32 == 0 && D <= cpc::kTailMaxD && F > 0 && F % chunk == 0;
+}
+
+int row_tiles(int M, int D) {
+  constexpr int kBM[cpc::kTailClasses] = {
+      TileRow<256>::BM, TileRow<512>::BM, TileRow<1024>::BM};
+  const int bm = kBM[cpc::tail_width_class(D)];
+  return (M + bm - 1) / bm;
+}
+
+size_t smem_bytes(int D) {
+  constexpr size_t kSmem[cpc::kTailClasses] = {
+      smem_for<256>(), smem_for<512>(), smem_for<1024>()};
+  return kSmem[cpc::tail_width_class(D)];
+}
+
+size_t scratch_bytes(int K, int M, int D, int F, int dtype) {
+  return dtype == cpc::kFloat32 ? Scratch<float>(nullptr, K, M, D, F).bytes
+                                : Scratch<bf16>(nullptr, K, M, D, F).bytes;
+}
+
+int launch(const void* x, const float* ln1w, const float* ln1b,
+           const void* w1, const float* b1, const void* w2, const float* b2,
+           const float* ln2w, const float* ln2b, const void* dout, void* dx,
+           float* vec_part, float* vec_out, float* dw1, float* db1,
+           float* dw2, void* scratch, int K, int M, int D, int F, float eps,
+           cpc::Dropout drop, int dtype, cudaStream_t stream) {
+  if (dtype == cpc::kFloat32)
+    return launch_body<float>(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b,
+                              dout, dx, vec_part, vec_out, dw1, db1, dw2,
+                              scratch, K, M, D, F, eps, drop, stream);
+  return launch_body<bf16>(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, dout,
+                           dx, vec_part, vec_out, dw1, db1, dw2, scratch, K,
+                           M, D, F, eps, drop, stream);
 }
 
 }  // namespace tail_tc

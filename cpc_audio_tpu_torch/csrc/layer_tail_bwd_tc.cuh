@@ -1,4 +1,4 @@
-// The bf16 body of K3's backward (csrc/layer_tail_bwd_tc.cu), as the
+// K3's backward body (csrc/layer_tail_bwd_tc.cu), in both dtypes, as the
 // entry points of csrc/layer_tail_bwd.cu call it.
 #pragma once
 
@@ -11,21 +11,22 @@
 namespace cpc {
 namespace tail_tc {
 
-// D a multiple of 32 in [32, 1024], F a multiple of 64.
-bool shapes_ok(int D, int F);
+// dtype float32 or bf16; D a multiple of 32 in [32, 1024], F a multiple
+// of 64 (bf16) or 32 (float32).
+bool shapes_ok(int D, int F, int dtype);
 // Row tiles of the D-wide products (the rows of vec_part).
 int row_tiles(int M, int D);
-// Shared memory of the largest block.
+// Shared memory of the largest block (the same in both dtypes).
 size_t smem_bytes(int D);
 // Device memory the body needs beside the entry point's arguments.
-size_t scratch_bytes(int K, int M, int D, int F);
+size_t scratch_bytes(int K, int M, int D, int F, int dtype);
 
 int launch(const void* x, const float* ln1w, const float* ln1b,
            const void* w1, const float* b1, const void* w2, const float* b2,
            const float* ln2w, const float* ln2b, const void* dout, void* dx,
-           void* y_buf, void* df_buf, float* vec_part, float* vec_out,
-           float* dw1, float* db1, float* dw2, void* scratch, int K, int M,
-           int D, int F, float eps, cpc::Dropout drop, cudaStream_t stream);
+           float* vec_part, float* vec_out, float* dw1, float* db1,
+           float* dw2, void* scratch, int K, int M, int D, int F, float eps,
+           cpc::Dropout drop, int dtype, cudaStream_t stream);
 
 }  // namespace tail_tc
 }  // namespace cpc

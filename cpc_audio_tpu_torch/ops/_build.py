@@ -60,10 +60,10 @@ _SIGNATURES = {
     # dropout, dtype, stream
     "cpc_layer_tail_fwd": ([_P] * 10 + [_I] * 4 + [_F] + _DROP + [_I, _P],
                            _I),
-    # x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, dout, dx, y_buf, df_buf,
-    # vec_part, vec_out, dw1, db1, dw2, scratch, K, M, D, F, eps, dropout,
-    # dtype, stream
-    "cpc_layer_tail_bwd": ([_P] * 19 + [_I] * 4 + [_F] + _DROP + [_I, _P],
+    # x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, dout, dx, vec_part,
+    # vec_out, dw1, db1, dw2, scratch, K, M, D, F, eps, dropout, dtype,
+    # stream
+    "cpc_layer_tail_bwd": ([_P] * 17 + [_I] * 4 + [_F] + _DROP + [_I, _P],
                            _I),
     # M, D, dtype
     "cpc_layer_tail_bwd_tiles": ([_I, _I, _I], _I),

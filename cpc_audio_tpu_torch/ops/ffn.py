@@ -16,9 +16,10 @@ parameters and biases may be any float dtype (they are used in float32);
 :func:`layer_tail` is the differentiable entry point: its forward runs the
 K3 forward kernel (csrc/layer_tail_fwd.cu, counted in
 ``layer_tail.launches``), its backward the K3 backward kernels (counted in
-``layer_tail_bwd.launches``): in bf16 six tensor-core GEMMs with fused
-epilogues (csrc/layer_tail_bwd_tc.cu), in float32 two FMA passes
-(csrc/layer_tail_bwd.cu).  CPU tensors take the plain versions.
+``layer_tail_bwd.launches``): six tensor-core GEMMs with fused epilogues
+(csrc/layer_tail_bwd_tc.cu), whose float32 operands are split into bf16
+planes (:func:`layer_tail_bwd_split` writes that arithmetic plainly).
+CPU tensors take the plain versions.
 
 The kernels take D a multiple of 32 up to 1024 (K2's limit: 8 heads of
 dk <= 128; the JAX package trains every such width, on its Pallas tail
@@ -47,21 +48,19 @@ def _width_class(D: int) -> int:
     return 0 if D <= 256 else 1 if D <= 512 else 2
 
 
-# csrc/layer_tail_bwd.cu's float32 Tiles: (rows, F chunk) of pass 1 and of
-# pass 2, by width class
-_BWD_TILES = ((16, 32, 16, 32), (8, 32, 8, 16), (4, 16, 8, 8))
 # csrc/layer_tail_bwd_tc.cu's G2/G4 row tiles: (BM, BN, depth of a slot,
 # slots), by width class
 _ROW_TILES = ((128, 256, 32, 3), (64, 512, 32, 3), (32, 1024, 16, 4))
 
 
-def _tc_smem(D: int) -> int:
-    """Shared memory of the bf16 body's largest block, as
-    csrc/layer_tail_bwd_tc.cu sizes it: a cp.async ring of bf16 tiles
-    whose rows carry 8 elements of padding (csrc/gemm_tc.cuh), for each
-    GEMM (BM, BN, depth of a slot, slots, A stored k-major, B stored
-    n-major): G1, G3, G5 and G6 on 128 x 128 tiles, 3 slots 64 deep, G2
-    and G4 on the row tile of D's class (``_ROW_TILES``)."""
+def _bwd_smem(D: int, F: int, dtype: torch.dtype) -> int:
+    """Shared memory of the backward's largest block, as
+    cpc_layer_tail_bwd_smem reports it (the same at every F and in both
+    dtypes): a cp.async ring of bf16 tiles whose rows carry 8 elements of
+    padding (csrc/gemm_tc.cuh), for each GEMM (BM, BN, depth of a slot,
+    slots, A stored k-major, B stored n-major): G1, G3, G5 and G6 on
+    128 x 128 tiles, 3 slots 64 deep, G2 and G4 on the row tile of D's
+    class (``_ROW_TILES``)."""
     row = _ROW_TILES[_width_class(D)]
     gemms = ((128, 128, 64, 3, False, False), (128, 128, 64, 3, False, True),
              (128, 128, 64, 3, True, False), (*row, False, False),
@@ -73,31 +72,6 @@ def _tc_smem(D: int) -> int:
         b = bn * (bk + 8) if b_nmajor else bk * (bn + 8)
         return slots * 2 * (a + b)
     return max(ring(*g) for g in gemms)
-
-
-def _bwd_smem(D: int, F: int, dtype: torch.dtype) -> int:
-    """Shared memory of the backward's largest block, as
-    cpc_layer_tail_bwd_smem reports it: the bf16 body's ring, or the
-    larger of the float32 body's two passes (RowsLayout, WeightsLayout:
-    each region rounded up to 128 bytes)."""
-    if dtype == torch.bfloat16:
-        return _tc_smem(D)
-    e, pad = 4, 4             # float32, rows padded to 16 bytes
-    mt1, fc1, mt2, fc2 = _BWD_TILES[_width_class(D)]
-
-    def take(n: int, size: int) -> int:
-        return -(-n * size // 128) * 128
-
-    ld = D + pad
-    rows = (2 * take(mt1 * ld, e) + take(D * (fc1 + pad), e)
-            + take(fc1 * ld, e) + take(mt1 * (fc1 + pad), e)
-            + 2 * take(mt1 * (fc1 + 4), 4) + 2 * take(mt1 * (D + 4), 4)
-            + take(4 * mt1, 4) + take(mt1 * (F // 32), 4))
-    weights = (take(D * (fc2 + pad), e) + take(fc2 * ld, e)
-               + 2 * take(mt2 * ld, e) + 2 * take(mt2 * (fc2 + pad), e)
-               + take(D * (fc2 + 4), 4) + take(fc2 * (D + 4), 4)
-               + 2 * take(mt2 * (fc2 + 4), 4) + take(fc2, 4))
-    return max(rows, weights)
 
 
 def supported(D: int, F: int, dtype: torch.dtype) -> Optional[str]:
@@ -115,7 +89,8 @@ def supported(D: int, F: int, dtype: torch.dtype) -> Optional[str]:
     return None
 
 def _ln(x32: torch.Tensor, eps: float):
-    """(yhat, 1/std) of a float32 (K, M, D) LayerNorm, biased variance."""
+    """(yhat, 1/std) of a float32 (or float64) (K, M, D) LayerNorm, biased
+    variance."""
     mean = x32.mean(dim=-1, keepdim=True)
     xc = x32 - mean
     inv = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
@@ -123,12 +98,12 @@ def _ln(x32: torch.Tensor, eps: float):
 
 
 def _affine(yhat, w, b):
-    return yhat * w.float()[:, None] + b.float()[:, None]
+    return yhat * w.to(yhat.dtype)[:, None] + b.to(yhat.dtype)[:, None]
 
 
 def _ln_bwd(dout32, yhat, inv, w):
     """LayerNorm input gradient (ffn.py:63-68)."""
-    dy = dout32 * w.float()[:, None]
+    dy = dout32 * w.to(dout32.dtype)[:, None]
     m1 = dy.mean(dim=-1, keepdim=True)
     m2 = (dy * yhat).mean(dim=-1, keepdim=True)
     return (dy - m1 - yhat * m2) * inv
@@ -156,29 +131,96 @@ def layer_tail_bwd_ref(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, dout,
                        ) -> Tuple[torch.Tensor, ...]:
     """Plain backward, the math of ``_tail_bwd_kernel`` (ffn.py:121-208).
     Returns dx (x's dtype) and float32 (dln1w, dln1b, dw1, db1, dw2, db2,
-    dln2w, dln2b), each summed over rows."""
+    dln2w, dln2b), each summed over rows.  Float64 inputs are taken in
+    float64 throughout: the exact version the float32 kernel is measured
+    against."""
     dt = x.dtype
+    acc = torch.float64 if dt == torch.float64 else torch.float32
     K, M, _ = x.shape
-    yhat1, inv1 = _ln(x.float(), eps)
-    y = _affine(yhat1, ln1w, ln1b).to(dt).float()
-    h32 = torch.relu(y @ w1.float() + b1.float()[:, None])
+    yhat1, inv1 = _ln(x.to(acc), eps)
+    y = _affine(yhat1, ln1w, ln1b).to(dt).to(acc)
+    h32 = torch.relu(y @ w1.to(acc) + b1.to(acc)[:, None])
     mask = dropout.ffn_mask(seed, rate, K, M, w1.shape[-1], x.device)
     if mask is not None:
         h32 = h32 * mask
     live = h32 > 0.0                       # kept AND positive
-    h = h32.to(dt).float()
-    yhat2, inv2 = _ln(y + h @ w2.float() + b2.float()[:, None], eps)
-    do = dout.float()
+    h = h32.to(dt).to(acc)
+    yhat2, inv2 = _ln(y + h @ w2.to(acc) + b2.to(acc)[:, None], eps)
+    do = dout.to(acc)
     dy2 = _ln_bwd(do, yhat2, inv2, ln2w)
-    df = dy2.to(dt).float()
-    dh = df @ w2.float().transpose(1, 2)
+    df = dy2.to(dt).to(acc)
+    dh = df @ w2.to(acc).transpose(1, 2)
     scale = 1.0 / (1.0 - rate)
-    dhp = torch.where(live, dh * scale, 0.0).to(dt).float()
-    dy = dy2 + dhp @ w1.float().transpose(1, 2)
+    dhp = torch.where(live, dh * scale, 0.0).to(dt).to(acc)
+    dy = dy2 + dhp @ w1.to(acc).transpose(1, 2)
     dx = _ln_bwd(dy, yhat1, inv1, ln1w).to(dt)
     return (dx, (dy * yhat1).sum(1), dy.sum(1),
             y.transpose(1, 2) @ dhp, dhp.sum(1),
             h.transpose(1, 2) @ df, df.sum(1),
+            (do * yhat2).sum(1), do.sum(1))
+
+
+# The float32 kernel's split products (csrc/gemm_tc.cuh): the (plane of
+# a, plane of b) pairs of a product of 3 and of 6 split terms, smallest
+# first.
+SPLIT_PAIRS = {3: ((1, 0), (0, 1), (0, 0)),
+               6: ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))}
+
+
+def split_planes(a: torch.Tensor, n: int) -> list:
+    """n bf16 planes of float32 ``a`` (as float32 tensors), each the bf16
+    rounding of what the planes before it left; three hold ``a``
+    exactly."""
+    planes, rest = [], a.float()
+    for _ in range(n):
+        plane = rest.to(torch.bfloat16).float()
+        planes.append(plane)
+        rest = rest - plane
+    return planes
+
+
+def split_matmul(a: torch.Tensor, b: torch.Tensor,
+                 products: int = 3) -> torch.Tensor:
+    """``a @ b`` as the float32 kernel forms it: the sum of ``products``
+    (3 or 6) products of bf16 planes of a and b (``SPLIT_PAIRS``), each
+    exact term by term and summed in float32 (here each product apart)."""
+    n = 2 if products == 3 else 3
+    pa, pb = split_planes(a, n), split_planes(b, n)
+    out = None
+    for i, j in SPLIT_PAIRS[products]:
+        term = pa[i] @ pb[j]
+        out = term if out is None else out + term
+    return out
+
+
+def layer_tail_bwd_split(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, dout,
+                         eps: float = 1e-5, rate: float = 0.0,
+                         seed: Optional[torch.Tensor] = None,
+                         g1_products: int = 6) -> Tuple[torch.Tensor, ...]:
+    """The float32 kernel's arithmetic written plainly: the six products
+    of :func:`layer_tail_bwd_ref` as :func:`split_matmul`, G1 (y W1,
+    whose sign makes the live mask) of ``g1_products`` split terms and the
+    other five of 3, everything else in float32.  Float32 inputs; the same
+    outputs as :func:`layer_tail_bwd_ref`.  For tests and measurements
+    only: the card runs the kernel."""
+    K, M, _ = x.shape
+    yhat1, inv1 = _ln(x.float(), eps)
+    y = _affine(yhat1, ln1w, ln1b)
+    w1, w2 = w1.float(), w2.float()
+    h = torch.relu(split_matmul(y, w1, g1_products) + b1.float()[:, None])
+    mask = dropout.ffn_mask(seed, rate, K, M, w1.shape[-1], x.device)
+    if mask is not None:
+        h = h * mask
+    yhat2, inv2 = _ln(y + split_matmul(h, w2) + b2.float()[:, None], eps)
+    do = dout.float()
+    df = _ln_bwd(do, yhat2, inv2, ln2w)
+    dh = split_matmul(df, w2.transpose(1, 2))
+    dhp = torch.where(h > 0.0, dh * (1.0 / (1.0 - rate)), 0.0)
+    dy = df + split_matmul(dhp, w1.transpose(1, 2))
+    dx = _ln_bwd(dy, yhat1, inv1, ln1w)
+    return (dx, (dy * yhat1).sum(1), dy.sum(1),
+            split_matmul(y.transpose(1, 2), dhp), dhp.sum(1),
+            split_matmul(h.transpose(1, 2), df), df.sum(1),
             (do * yhat2).sum(1), do.sum(1))
 
 
@@ -256,8 +298,9 @@ def layer_tail_bwd(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, dout,
     ln1w, ln1b, b1, b2, ln2w, ln2b = (t.float().contiguous() for t in vecs)
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
-    dx, y_buf, df_buf = (torch.empty_like(x) for _ in range(3))
-    # the bf16 body's hidden, its gradient and their companions
+    dx = torch.empty_like(x)
+    # the planes of y, df, the hidden and its gradient (and, in float32,
+    # of the weights) and their companions
     scratch = torch.empty(lib.cpc_layer_tail_bwd_scratch(K, M, D, F, code),
                           dtype=torch.uint8, device=dev)
     tiles = lib.cpc_layer_tail_bwd_tiles(M, D, code)
@@ -271,10 +314,10 @@ def layer_tail_bwd(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, dout,
             x.data_ptr(), ln1w.data_ptr(), ln1b.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), ln2w.data_ptr(),
             ln2b.data_ptr(), dout.data_ptr(), dx.data_ptr(),
-            y_buf.data_ptr(), df_buf.data_ptr(), vec_part.data_ptr(),
-            vec_out.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
-            dw2.data_ptr(), scratch.data_ptr(), K, M, D, F, float(eps),
-            *dropout.kernel_args(rate, seed), code, _build.stream(dev))
+            vec_part.data_ptr(), vec_out.data_ptr(), dw1.data_ptr(),
+            db1.data_ptr(), dw2.data_ptr(), scratch.data_ptr(), K, M, D, F,
+            float(eps), *dropout.kernel_args(rate, seed), code,
+            _build.stream(dev))
     _build.check(status, _BWD_NAME)
     layer_tail_bwd.launches += 1
     dln1w, dln1b, db2, dln2w, dln2b = vec_out

@@ -1,0 +1,140 @@
+#!/usr/bin/env python3
+"""K3's backward and the float32 default LSTM train step of two checkouts,
+in turns, on one GPU.
+
+Usage, from the root of a checkout:
+    python3 port_perf/k3_ab.py OTHER_CHECKOUT
+
+Runs this checkout's and OTHER_CHECKOUT's code (each built from its own
+sources at first use, each in a process of its own) in the order other,
+this, this, other.  Each run prints, for K3's backward at rate 0.1 on
+K 12 heads (M 3712 / D 256, M 1952 / D 512, M 3712 / D 768; F 2048) in
+bf16 and float32: the device time a call (chip_smoke.median_ms), a
+SHA-256 of each output's bytes (the bf16 outputs of the two checkouts
+must agree bit for bit), and, in float32, each gradient's 2-norm error
+relative to the exact plain version (ffn.layer_tail_bwd_ref in float64);
+then the default LSTM train step in float32 (B 32, dropout 0.1): train
+windows/s as the median of 10 synchronised steps after 2 warm-up.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SHAPES = ((3712, 256), (1952, 512), (3712, 768))
+NAMES = ("dx", "dln1w", "dln1b", "dw1", "db1", "dw2", "db2", "dln2w",
+         "dln2b")
+
+
+def tail_inputs(dev, dtype, M: int, D: int, K: int = 12, F: int = 2048):
+    """chip_smoke.py's K3 inputs at (K, M, D, F), from a fixed seed."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def rand(*shape, scale=1.0, dt=dtype):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dt)
+    f32 = torch.float32
+    args = (rand(K, M, D), rand(K, D, scale=0.1, dt=f32) + 1,
+            rand(K, D, scale=0.1, dt=f32), rand(K, D, F, scale=D ** -0.5),
+            rand(K, F, scale=0.1, dt=f32), rand(K, F, D, scale=F ** -0.5),
+            rand(K, D, scale=0.1, dt=f32),
+            rand(K, D, scale=0.1, dt=f32) + 1, rand(K, D, scale=0.1, dt=f32))
+    return args, rand(K, M, D, scale=0.1)
+
+
+def one(root: str) -> None:
+    """Measure the checkout at ``root`` and print one JSON line."""
+    sys.path.insert(0, HERE)
+    from chip_smoke import SEED, build, median_ms, train_setup  # noqa: E402
+    sys.path.insert(0, root)
+    import torch
+    from cpc_audio_tpu_torch.ops import ffn
+    if not os.path.abspath(ffn.__file__).startswith(os.path.abspath(root)):
+        raise SystemExit(f"imported {ffn.__file__}, not {root}'s")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    seed = torch.tensor([SEED], dtype=torch.int64, device=dev)
+    out = {}
+    for M, D in SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            args, dout = tail_inputs(dev, dtype, M, D)
+            got = ffn.layer_tail_bwd(*args, dout, 0.1, 1e-5, seed)
+            torch.cuda.synchronize()
+            r = {"ms": median_ms(lambda: ffn.layer_tail_bwd(
+                     *args, dout, 0.1, 1e-5, seed)),
+                 "sha256": [hashlib.sha256(
+                     g.contiguous().view(torch.uint8).cpu().numpy()
+                     .tobytes()).hexdigest()[:16] for g in got]}
+            if dtype == torch.float32:
+                exact = ffn.layer_tail_bwd_ref(
+                    *[a.double() for a in args], dout.double(), 1e-5, 0.1,
+                    seed)
+                r["rel_err"] = [((g.double() - w).norm() / w.norm()).item()
+                                for g, w in zip(got, exact)]
+                del exact
+            out[f"{str(dtype)[6:]} M {M} / D {D}"] = r
+            del got, args, dout
+            torch.cuda.empty_cache()
+    model, crit = build("LSTM", "float32",
+                        torch.Generator().manual_seed(SEED))
+    step, batch, key = train_setup(model, crit, dev, 32)
+    times = []
+    for i in range(12):
+        t0 = time.perf_counter()
+        step(batch, key=key)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(time.perf_counter() - t0)
+    ms = statistics.median(times) * 1e3
+    out["train"] = {"step_ms": ms, "windows_s": 32 / ms * 1e3,
+                    "min_ms": min(times) * 1e3, "max_ms": max(times) * 1e3}
+    print(json.dumps(out))
+
+
+def main() -> None:
+    if len(sys.argv) == 3 and sys.argv[1] == "--one":
+        one(sys.argv[2])
+        return
+    if len(sys.argv) != 2:
+        raise SystemExit(__doc__)
+    other = os.path.abspath(sys.argv[1])
+    hashes = {}
+    for who, root in (("other", other), ("this", HERE), ("this", HERE),
+                      ("other", other)):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--one", root], capture_output=True, text=True)
+        if r.returncode != 0:
+            raise SystemExit(f"{root}: failed\n{r.stderr[-3000:]}")
+        res = json.loads(r.stdout.strip().splitlines()[-1])
+        for case, t in res.items():
+            if case == "train":
+                print(f"{who}: float32 LSTM train step, B 32: "
+                      f"{t['windows_s']:.1f} windows/s (median "
+                      f"{t['step_ms']:.3f} ms of 10, min {t['min_ms']:.3f} "
+                      f"max {t['max_ms']:.3f})", flush=True)
+                continue
+            err = ("; rel. 2-norm error vs exact: " + ", ".join(
+                f"{n} {e:.2e}" for n, e in zip(NAMES, t["rel_err"]))
+                if "rel_err" in t else "")
+            print(f"{who}: K3 backward {case}: {t['ms']:.4f} ms{err}",
+                  flush=True)
+            hashes.setdefault((who, case), set()).add(tuple(t["sha256"]))
+    for case in sorted({case for _, case in hashes}):
+        this, other_ = hashes[("this", case)], hashes[("other", case)]
+        print(f"{case}: reruns bit-identical: this "
+              f"{'yes' if len(this) == 1 else 'NO'}, other "
+              f"{'yes' if len(other_) == 1 else 'NO'}; the two checkouts' "
+              f"outputs {'bit-identical' if this == other_ else 'differ'}",
+              flush=True)
+
+
+if __name__ == "__main__":
+    main()
