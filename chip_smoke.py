@@ -22,14 +22,15 @@ Phases (any failure exits non-zero):
      K1 and K3 at the shapes of --hiddenEncoder 768 --hiddenGar 768 (S
      116, dk 96; B 32, T 128, H 768; M 3712, D 768; both dtypes); K8
      also with all keys on one row (bf16), and the
-     time of its whole wrapper (sort + searchsorted + K8); K3's
-     backward, at each of its shapes at rate 0.1 and in both dtypes, must
-     rerun bit-identically, and prints the device time of each of its
-     launches (in float32 the split of the weights, LN1, G1-G6, the sums
-     over tiles); its float32 bound counts the bf16 split products it
-     runs, at the bf16 peak, beside the float32-core figure; then time the
-     yardstick PyTorch call where one computes the same function (cuDNN
-     LSTM/GRU, scaled_dot_product_attention, index_add_; also cuDNN's
+     time of its whole wrapper (sort + searchsorted + K8); K3's forward
+     and backward, at each of their shapes at rate 0.1 and in both
+     dtypes, must rerun bit-identically, and print the device time of
+     each of their launches (in float32 the split of the weights, LN1,
+     then G1 and G2 of the forward, or G1-G6 and the sums over tiles of
+     the backward); their float32 bounds count the bf16 split products
+     they run, at the bf16 peak, beside the float32-core figure; then
+     time the yardstick PyTorch call where one computes the same function
+     (cuDNN LSTM/GRU, scaled_dot_product_attention, index_add_; also cuDNN's
      LSTM at H 512 and 768 beside K1 there, forward and backward in
      turns at B 8, T 256, H 512 and at B 32, T 128, H 512 and 768, SDPA
      at dk 64 beside K5 at rate 0, in turns, and in float32 cuDNN's LSTM
@@ -237,7 +238,7 @@ class Case:
             plain
         self.inputs, self.flops, self.read_bytes = inputs, flops, read_bytes
         # bf16 tensor-core products a float32 product takes, where the
-        # float32 body runs on split operands (K3's backward)
+        # float32 body runs on split operands (K3)
         self.split = SPLIT_PRODUCTS.get(name)
         # shape: None at the default train shapes, else a tag of the wider
         # shape (the --hiddenEncoder 512 --hiddenGar 512 paths)
@@ -606,7 +607,8 @@ TOLERANCE = {
     ("relpos_attention_fwd", torch.float32): (2e-4, 0.0,
                                               "f32 sums in another order"),
     ("layer_tail_fwd", torch.float32): (5e-4, 0.0, "f32 sums of 2048 "
-                                        "products in another order"),
+                                        "products in another order; G2 "
+                                        "of 3 split products"),
     ("causal_attention_fwd", torch.float32): (2e-4, 0.0,
                                               "f32 sums in another order"),
     ("attention_block_fwd", torch.float32): (2e-4, 0.0, "f32 sums of 256 "
@@ -691,12 +693,12 @@ SOURCES = {
                              "cpc_audio_tpu/ops/pallas/head_attention.py:114"),
     "relpos_attention_bwd": ("cpc_audio_tpu_torch/csrc/relpos_attention_bwd.cu",
                              "cpc_audio_tpu/ops/pallas/head_attention.py:158"),
-    "layer_tail_fwd": ("cpc_audio_tpu_torch/csrc/layer_tail_fwd.cu",
+    # K3: one body for both directions and both dtypes (bf16 operands as
+    # they are, float32 ones split into bf16 planes); its C entry points
+    # are in csrc/layer_tail_fwd.cu and csrc/layer_tail_bwd.cu
+    "layer_tail_fwd": ("cpc_audio_tpu_torch/csrc/layer_tail_tc.cu",
                        "cpc_audio_tpu/ops/pallas/ffn.py:88"),
-    # one body for both dtypes (bf16 operands as they are, float32 ones
-    # split into bf16 planes); its C entry points are in
-    # csrc/layer_tail_bwd.cu
-    "layer_tail_bwd": ("cpc_audio_tpu_torch/csrc/layer_tail_bwd_tc.cu",
+    "layer_tail_bwd": ("cpc_audio_tpu_torch/csrc/layer_tail_tc.cu",
                        "cpc_audio_tpu/ops/pallas/ffn.py:121"),
     "gru_fwd": ("cpc_audio_tpu_torch/csrc/gru_fwd.cu",
                 "cpc_audio_tpu/ops/pallas/rnn.py:238"),
@@ -729,9 +731,10 @@ TRAIN_RATE = {"lstm_fwd": 0.0, "lstm_bwd": 0.0, "gru_fwd": 0.0,
 # float32 outside them)
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-# K3's float32 backward runs its six products as bf16 tensor-core
-# products of split operands: G1 of 6, the other five of 3 (21 for 6)
-SPLIT_PRODUCTS = {"layer_tail_bwd": 21 / 6}
+# K3 in float32 runs its products as bf16 tensor-core products of split
+# operands: G1 of 6, the others of 3 (the forward's two: 9 for 2; the
+# backward's six: 21 for 6)
+SPLIT_PRODUCTS = {"layer_tail_fwd": 9 / 2, "layer_tail_bwd": 21 / 6}
 
 
 def _tensors(x):
@@ -1005,25 +1008,31 @@ def recurrent_against_cudnn(dev: torch.device, B: int = 32) -> None:
               flush=True)
 
 
-# kernel-name fragments (lower case) of the launches of K3's backward (in
-# float32 also the split of the weights into bf16 planes)
+# kernel-name fragments (lower case) of the launches of K3's forward and
+# backward (in float32 also the split of the weights into bf16 planes)
+TAIL_FWD_LAUNCHES = (("split", "tail_split_kernel"),
+                     ("LN1", "tail_ln1_kernel"), ("G1", "g1_hidden"),
+                     ("G2", "g2_out"))
 TAIL_BWD_LAUNCHES = (("split", "tail_split_kernel"),
                      ("LN1", "tail_ln1_kernel"), ("G1", "g1_hidden"),
                      ("G2", "g2_ln2"), ("G3", "g3_dhp"), ("G4", "g4_dx"),
                      ("G5", "g5_dw1"), ("G6", "g6_dw2"),
                      ("sums", "sum_parts"))
+TAIL_LAUNCHES = {"layer_tail_fwd": TAIL_FWD_LAUNCHES,
+                 "layer_tail_bwd": TAIL_BWD_LAUNCHES}
 
 
-def tail_bwd_launches(case: Case, ms: float, dtype: torch.dtype,
-                      n: int = 3) -> None:
-    """K3's backward: a rerun must be bit-identical to the first call (no
-    atomics, fixed-order sums); then the device time of each of its
-    launches (in float32 the split of the weights, LN1, the six GEMMs
-    G1-G6, the fixed-order sums over tiles) over ``n`` calls
-    (torch.profiler), beside the call's median_ms."""
+def tail_launches(case: Case, ms: float, dtype: torch.dtype,
+                  n: int = 3) -> None:
+    """K3's forward or backward: a rerun must be bit-identical to the
+    first call (no atomics, fixed-order sums); then the device time of
+    each of its launches (``TAIL_LAUNCHES``: in float32 the split of the
+    weights, LN1, the forward's two GEMMs or the backward's six and the
+    fixed-order sums over tiles) over ``n`` calls (torch.profiler), beside
+    the call's median_ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    first, again = case.kernel(), case.kernel()
+    first, again = _tensors(case.kernel()), _tensors(case.kernel())
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(first, again)):
         fail(f"{case.label}: a rerun is not bit-identical")
@@ -1033,12 +1042,13 @@ def tail_bwd_launches(case: Case, ms: float, dtype: torch.dtype,
         for _ in range(n):
             case.kernel()
         torch.cuda.synchronize()
-    t = {use: 0.0 for use, _ in TAIL_BWD_LAUNCHES
+    launches = TAIL_LAUNCHES[case.name]
+    t = {use: 0.0 for use, _ in launches
          if use != "split" or dtype == torch.float32}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
-        use = next((u for u, frag in TAIL_BWD_LAUNCHES
+        use = next((u for u, frag in launches
                     if frag in e.key.lower() and u in t), None)
         if use is not None:
             t[use] += e.self_device_time_total / 1e3 / n
@@ -1093,9 +1103,9 @@ def phase_kernels(dev: torch.device, B: int = 32) -> dict:
             if name.startswith("causal_attention") and case.shape is None \
                     and case.rate == 0.0 and dtype == torch.bfloat16:
                 rate0[name] = ms
-            if name == "layer_tail_bwd" and \
+            if name in TAIL_LAUNCHES and \
                     case.rate == TRAIN_RATE.get(name, 0.1):
-                tail_bwd_launches(case, ms, dtype)
+                tail_launches(case, ms, dtype)
             if reported and case.shape is not None:
                 shaped[(name, case.shape)] = ms
             if reported and case.shape is None:
@@ -1749,6 +1759,24 @@ def profile_train(step, batch, key, step_ms: float, path: str,
     print("  by group: " + ", ".join(
         f"{g} {t / 1e3 / n:.3f} ms" for g, t in
         sorted(groups.items(), key=lambda kv: -kv[1])), flush=True)
+    # K3 by direction: both launch LN1 and (in float32) the split once, the
+    # forward's G1 (G1_hidden<E, false>) and G2 (G2_out) are its own
+    tail = {"fwd": 0.0, "bwd": 0.0}
+    for e in rows:
+        name = e.key.lower()
+        if "tail_" not in name:
+            continue
+        t = e.self_device_time_total / 1e3 / n
+        if "tail_ln1_kernel" in name or "tail_split_kernel" in name:
+            tail["fwd"] += t / 2
+            tail["bwd"] += t / 2
+        elif "g2_out" in name or ("g1_hidden" in name and "false>" in name):
+            tail["fwd"] += t
+        else:
+            tail["bwd"] += t
+    print(f"  K3 forward {tail['fwd']:.3f} ms, backward (but its sums over "
+          f"tiles) {tail['bwd']:.3f} ms (LN1 and the split halved between "
+          f"the two)", flush=True)
     if other:
         print("  largest of 'other': " + "; ".join(
             f"{e.key[:60]} {e.self_device_time_total / 1e3 / n:.3f} ms"

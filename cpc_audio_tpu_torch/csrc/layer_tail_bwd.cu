@@ -1,11 +1,11 @@
 // K3 backward (transformer-layer tail LN1 -> FFN -> residual -> LN2): the
 // C entry points.  They size and launch one body for both dtypes, six
 // tensor-core GEMMs with fused epilogues, bf16 operands as they are and
-// float32 ones split into bf16 planes: csrc/layer_tail_bwd_tc.cu, which
-// names the Pallas kernel it replaces and says why it is built so.
+// float32 ones split into bf16 planes: csrc/layer_tail_tc.cu, which names
+// the Pallas kernel it replaces and says why it is built so.
 #include "common.cuh"
 #include "dropout.cuh"
-#include "layer_tail_bwd_tc.cuh"
+#include "layer_tail_tc.cuh"
 
 // Row tiles of the body's vector partials (the wrapper sizes vec_part with
 // it), the shared memory of its largest block, and the device-memory
@@ -23,7 +23,7 @@ extern "C" size_t cpc_layer_tail_bwd_smem(int D, int F, int dtype) {
 extern "C" size_t cpc_layer_tail_bwd_scratch(int K, int M, int D, int F,
                                              int dtype) {
   if (dtype != cpc::kBFloat16 && dtype != cpc::kFloat32) return 0;
-  return cpc::tail_tc::scratch_bytes(K, M, D, F, dtype);
+  return cpc::tail_tc::scratch_bytes(K, M, D, F, dtype, false);
 }
 
 // x, w1, w2, dout and dx in `dtype`; the LN parameters and biases float32;
@@ -43,7 +43,7 @@ extern "C" int cpc_layer_tail_bwd(
   const cpc::Dropout drop{static_cast<const int64_t*>(seed), threshold,
                           keep_scale};
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
-  return cpc::tail_tc::launch(
+  return cpc::tail_tc::launch_bwd(
       x, f(ln1w), f(ln1b), w1, f(b1), w2, f(b2), f(ln2w), f(ln2b), dout, dx,
       static_cast<float*>(vec_part), static_cast<float*>(vec_out),
       static_cast<float*>(dw1), static_cast<float*>(db1),

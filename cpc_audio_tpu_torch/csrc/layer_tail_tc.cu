@@ -1,28 +1,39 @@
-// K3 backward: six tensor-core GEMMs with fused epilogues, in both dtypes.
+// K3 on the tensor cores, both directions, both dtypes: the forward as
+// three launches (four in float32), the backward as six GEMMs with fused
+// epilogues, all on one GEMM core (csrc/gemm_tc.cuh).
 //
-// Replaces cpc_audio_tpu/ops/pallas/ffn.py `_tail_bwd_kernel` (called
-// through `_tail_bwd`); the entry points of csrc/layer_tail_bwd.cu call
-// this body.  The math is the Pallas kernel's (ops/ffn.py
-// `layer_tail_bwd_ref`): per head k and row,
+// Replaces cpc_audio_tpu/ops/pallas/ffn.py `_tail_fwd_kernel` (called
+// through `_tail_fwd`) and `_tail_bwd_kernel` (through `_tail_bwd`); the
+// entry points of csrc/layer_tail_fwd.cu and csrc/layer_tail_bwd.cu call
+// this body.  The math is the Pallas kernels' (ops/ffn.py
+// `layer_tail_ref`, `layer_tail_bwd_ref`): per head k and row,
 //   y = round(LN1(x)),  h = round(relu(y W1 + b1) r),  y2 = y + h W2 + b2
+//   out = round(LN2(y2))                                  (forward)
 //   dy2 = LN2'(do),     df = round(dy2),  dh = df W2^T
 //   dhp = round(live ? dh / (1 - rate) : 0)   (live: kept and positive)
 //   dy  = dy2 + dhp W1^T,  dx = LN1'(dy)
 //   dW1 = y^T dhp, db1 = sum dhp, dW2 = h^T df, db2 = sum df,
 //   dln2w = sum do yhat2, dln2b = sum do, dln1w = sum dy yhat1,
 //   dln1b = sum dy,
-// with r the forward's dropout factor, regenerated from dropout.cuh keyed
-// on (k, row, f), and round() the rounding to the input dtype (the
-// identity in float32).
+// with r the forward's dropout factor, drawn (and in the backward drawn
+// again) from dropout.cuh keyed on (k, row, f), and round() the rounding
+// to the input dtype (the identity in float32).
 //
-// What bounds it: six products of 2 K M D F operations each (280 GFLOP at
-// K 12, M 3712, D 256, F 2048: 0.28 ms at the bf16 peak); the inputs and
-// outputs are 0.1 GB.  So the design spends bytes to keep the tensor
-// cores fed.  The hidden h and its gradient dhp go to device memory once
-// each and are read twice: in bf16 the values the Pallas kernel
-// multiplies (it rounds both to the compute dtype before each product),
-// about 1.1 GB, 0.33 ms at 3.35 TB/s; the scratch is 2 K M F bf16 (365 MB
-// at the default shape).
+// What bounds it: two products of 2 K M D F operations each in the
+// forward, six in the backward (93 and 280 GFLOP at K 12, M 3712, D 256,
+// F 2048: 0.094 and 0.28 ms at the bf16 peak); the inputs and outputs are
+// 0.05 and 0.1 GB.  So the design spends bytes to keep the tensor cores
+// fed.  The Pallas forward keeps the hidden h in VMEM; here h goes to
+// device memory once and is read back once by the next GEMM (0.37 GB in
+// bf16, 0.11 ms at 3.35 TB/s): a 128-row h of F 2048 is 512 KB in bf16,
+// past an SM's 227 KB, and a block that chunks F instead streams all of
+// W1 and W2 from L2 once a block (1.4 GB at the default shape with 64-row
+// blocks).  The backward writes h and its gradient
+// dhp once each and reads each twice: in bf16 the values the Pallas
+// kernels multiply (they round both to the compute dtype before each
+// product), about 1.1 GB, 0.33 ms at 3.35 TB/s.  Scratch: in bf16 the
+// forward's is K M (D + F) bf16 (0.2 GB at the default shape), the
+// backward's 2 K M (D + F) bf16 and its float32 companions.
 //
 // Float32 runs the same launches on bf16 tensor cores with split operands
 // (csrc/gemm_tc.cuh): every float32 operand is kept as bf16 planes where
@@ -31,23 +42,33 @@
 // three planes of W1, two of W2), and each product sums 3 split products
 // (about 2^-16 of |a||b| lost a product: a few 1e-6 of each gradient's
 // norm) on three times the bf16 work, 330 TFLOP/s of float32 work at the
-// bf16 peak.  G1 takes 6 (float32's own 2^-24): its sign decides which
-// hidden units are live, and at 2^-16 about one unit in 1e6 lies close
-// enough to the ReLU kink to take the other branch than in the exact
-// product, each moving its row's whole dh into dW1, db1 and dx (1.4e-3
-// and 2.1e-3 of dW1's norm at one head of the default and the
-// long-window shape, where 6 products flip none: the CPU emulation of
-// port_perf/k3_split_accuracy.py).  Its scratch is 4 K M F + 5 K M D +
-// 5 K D F bf16 (0.91 GB at the default shape).
+// bf16 peak.  G1 takes 6 (float32's own 2^-24), in both directions.  In
+// the backward its sign decides which hidden units are live, and at
+// 2^-16 about one unit in 1e6 lies close enough to the ReLU kink to take
+// the other branch than in the exact product, each moving its row's whole
+// dh into dW1, db1 and dx (1.4e-3 and 2.1e-3 of dW1's norm at one head of
+// the default and the long-window shape, where 6 products flip none).  In
+// the forward, G1 and G2 at 3 each put the output at 0.57-1.03 of the
+// card tests' float32 tolerance (2e-5 + 2e-5 |want| against the float32
+// plain version), G1 at 6 and G2 at 3 at 0.42-0.70 (the CPU emulation of
+// port_perf/k3_split_accuracy.py); and the forward's h is then the
+// backward's, bit for bit.  The float32 scratch: forward 3 K M D + 2 K M
+// F + 5 K D F bf16 (0.5 GB at the default shape), backward 4 K M F + 5 K
+// M D + 5 K D F bf16 (0.91 GB) and the companions.
 //
-// The launches, in order (one GEMM core, csrc/gemm_tc.cuh, used six times
-// with its own epilogue each; G1-G6 in kernel names):
+// The launches, in order (one GEMM core, csrc/gemm_tc.cuh, used with its
+// own epilogue each; G1-G6 in kernel names):
 //   split `tail_split_kernel` (float32): the planes of W1 and W2;
 //   LN1  `tail_ln1_kernel`: y = round(LN1(x)) and the rows' (mean, 1/std);
-//   G1   y W1        -> + b1, ReLU, dropout, round: h, and the live bits;
+//   G1   y W1        -> + b1, ReLU, dropout, round: h, and in the backward
+//                       the live bits;
+// then the forward's
 //   G2   h W2        -> a block owns all D columns of its rows: y2 = y + f +
-//                       b2, LN2 statistics, dy2 = LN2'(do): df, dy2
-//                       (float32), per-tile partials of db2, dln2w, dln2b;
+//                       b2, LN2 statistics, out = round(LN2(y2));
+// or the backward's
+//   G2   h W2        -> all D columns again: y2, LN2 statistics, dy2 =
+//                       LN2'(do): df, dy2 (float32), per-tile partials of
+//                       db2, dln2w, dln2b;
 //   G3   df W2^T     -> dhp = round(live ? dh / (1 - rate) : 0), per-tile
 //                       partials of db1;
 //   G4   dhp W1^T    -> all D columns again: dy = dy2 + dyf, dx = LN1'(dy)
@@ -57,7 +78,7 @@
 //   G6   h^T df      -> dW2 (float32);
 // then the per-tile partials are summed over tiles in a fixed order
 // (cpc::sum_parts, csrc/tile_mm.cuh).  No atomics anywhere: reruns are
-// bit-identical.  G2 and G4 keep a whole D-wide row tile in registers
+// bit-identical.  The G2s and G4 keep a whole D-wide row tile in registers
 // (128 x 256, 64 x 512 or 32 x 1024 over 16 warps: 64 accumulators a
 // thread).
 //
@@ -70,11 +91,19 @@
 #include "common.cuh"
 #include "dropout.cuh"
 #include "gemm_tc.cuh"
-#include "layer_tail.cuh"
-#include "layer_tail_bwd_tc.cuh"
+#include "layer_tail_tc.cuh"
 #include "tile_mm.cuh"
 
 namespace cpc {
+
+// D's width classes: class W serves D up to 256 << W, and tables of
+// per-class instantiations are indexed with it (ops/ffn.py's
+// `_width_class` mirrors it for the pure gate).
+constexpr int kTailMaxD = 1024;    // K2's limit: 8 heads of dk <= 128
+constexpr int kTailClasses = 3;
+
+inline int tail_width_class(int D) { return D <= 256 ? 0 : D <= 512 ? 1 : 2; }
+
 namespace tail_tc {
 namespace {
 
@@ -91,8 +120,8 @@ constexpr int kVecs = 5;
 // would need 253 KB.
 using TileHid = gm::Tile<128, 128, 2, 4, 3, 64>;   // G1, G3: (M, F) outputs
 using TileW = gm::Tile<128, 128, 2, 4, 3, 64>;     // G5, G6: dW1, dW2
-// G2, G4: a tile of rows by every column, D <= DM = 256 << W for D's
-// width class W (layer_tail.cuh)
+// the G2s, G4: a tile of rows by every column, D <= DM = 256 << W for D's
+// width class W
 template <int DM>
 using TileRow = std::conditional_t<
     DM <= 256, gm::Tile<128, 256, 4, 4>,
@@ -119,7 +148,7 @@ template <class E>
 struct Args {
   const E *x, *dout;
   const float *ln1w, *ln1b, *b1, *b2, *ln2w, *ln2b;
-  E* dx;
+  E *dx, *out;                    // the backward's dx, the forward's out
   // bf16 planes: W1 then W2 (the inputs in bf16), y, df, h, dhp; plane i
   // of each lies i * *_plane elements past its first
   const bf16 *w1, *w2;
@@ -136,7 +165,8 @@ struct Args {
 
 // The scratch, carved from one allocation in 256-byte aligned pieces:
 // the planes of y, df, h and dhp, in float32 those of W1 and W2, and the
-// float32 companions.
+// float32 companions.  The forward's (fwd) holds only y, h, the weights'
+// planes and the statistics.
 template <class E>
 struct Scratch {
   bf16 *y, *df, *h, *dhp, *w;
@@ -144,7 +174,7 @@ struct Scratch {
   uint32_t* live;
   float *dy2, *stats, *db1_part;
   size_t bytes;
-  Scratch(unsigned char* base, int K, int M, int D, int F) {
+  Scratch(unsigned char* base, int K, int M, int D, int F, bool fwd) {
     using Pr = Prec<E>;
     size_t off = 0;
     auto take = [&](size_t n) {
@@ -160,17 +190,19 @@ struct Scratch {
       return reinterpret_cast<bf16*>(take(n * plane * sizeof(bf16)));
     };
     y = planes(Pr::kPlanesY, y_plane);
-    df = planes(Pr::kPlanes, y_plane);
+    df = fwd ? nullptr : planes(Pr::kPlanes, y_plane);
     h = planes(Pr::kPlanes, h_plane);
-    dhp = planes(Pr::kPlanes, h_plane);
+    dhp = fwd ? nullptr : planes(Pr::kPlanes, h_plane);
     w = std::is_same<E, float>::value
             ? planes(Pr::kPlanesY + Pr::kPlanes, w_plane)
             : nullptr;
-    live = reinterpret_cast<uint32_t*>(take(rows * (F / 32) * 4));
-    dy2 = reinterpret_cast<float*>(take(rows * D * 4));
+    live = fwd ? nullptr
+               : reinterpret_cast<uint32_t*>(take(rows * (F / 32) * 4));
+    dy2 = fwd ? nullptr : reinterpret_cast<float*>(take(rows * D * 4));
     stats = reinterpret_cast<float*>(take(rows * 2 * 4));
     const int hid = (M + TileHid::BM - 1) / TileHid::BM;
-    db1_part = reinterpret_cast<float*>(take((size_t)K * hid * F * 4));
+    db1_part = fwd ? nullptr
+                   : reinterpret_cast<float*>(take((size_t)K * hid * F * 4));
     bytes = off;
   }
 };
@@ -233,10 +265,11 @@ __device__ __forceinline__ size_t vec_at(const Args<E>& p, int v, int k,
   return (((size_t)v * p.K + k) * p.row_tiles + tile) * p.D;
 }
 
-// ---- the six uses: operands, orientation and epilogue ----------------------
+// ---- the uses: operands, orientation and epilogue --------------------------
 
-// G1: h = round(relu(y W1 + b1) r) and the live bits.
-template <class E>
+// G1: h = round(relu(y W1 + b1) r), and in the backward (kLive) the live
+// bits.  Both directions compute the same h.
+template <class E, bool kLive>
 struct G1_hidden {
   using T = TileHid;
   static constexpr bool kAK = false, kBN = false, kRowsFast = false;
@@ -287,24 +320,129 @@ struct G1_hidden {
           if (ok)
             store_split<Prec<E>::kPlanes>(p.h + grow * p.F + c, p.h_plane,
                                           v0, v1);
-          const int bit = (ni % 4) * 8 + 2 * f.t;
-          bits[ni / 4] |= ((uint32_t)(v0 > 0.0f) << bit) |
-                          ((uint32_t)(v1 > 0.0f) << (bit + 1));
+          if constexpr (kLive) {
+            const int bit = (ni % 4) * 8 + 2 * f.t;
+            bits[ni / 4] |= ((uint32_t)(v0 > 0.0f) << bit) |
+                            ((uint32_t)(v1 > 0.0f) << (bit + 1));
+          }
         }
+        if constexpr (kLive) {
 #pragma unroll
-        for (int w = 0; w < T::WTN / 32; ++w) {
-          uint32_t b = bits[w];
-          b |= __shfl_xor_sync(0xffffffffu, b, 1);
-          b |= __shfl_xor_sync(0xffffffffu, b, 2);
-          if (ok && f.t == 0)
-            p.live[grow * (p.F / 32) + f.col0 / 32 + w] = b;
+          for (int w = 0; w < T::WTN / 32; ++w) {
+            uint32_t b = bits[w];
+            b |= __shfl_xor_sync(0xffffffffu, b, 1);
+            b |= __shfl_xor_sync(0xffffffffu, b, 2);
+            if (ok && f.t == 0)
+              p.live[grow * (p.F / 32) + f.col0 / 32 + w] = b;
+          }
         }
       }
   }
 };
 
-// G2: f = h W2; y2 = y + f + b2, dy2 = LN2'(do), df = round(dy2); partials
-// of db2, dln2w, dln2b.  The block owns every column of its rows.
+// The rows' y2 = y + f + b2 (into acc, from G2's f = h W2; y from its
+// planes, exact in float32) and their LN2 mean and 1 / std (float32,
+// biased variance, eps added): both G2s start so.
+template <class E, class T>
+__device__ __forceinline__ void ln2_stats(const Args<E>& p,
+                                          float (&acc)[T::MI][T::NI][4],
+                                          const gm::Frag& f, int kk,
+                                          float (&mean)[T::MI][2],
+                                          float (&inv)[T::MI][2],
+                                          float* red) {
+  const int D = p.D;
+  const float* b2 = p.b2 + (size_t)kk * D;
+  const size_t base = (size_t)kk * p.M;
+  float st[1][T::MI][2];
+#pragma unroll
+  for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = f.row(mi, hf);
+      st[0][mi][hf] = 0.0f;
+#pragma unroll
+      for (int ni = 0; ni < T::NI; ++ni) {
+        const int c = f.col(ni);
+        float* a = &acc[mi][ni][2 * hf];
+        if (row < p.M && c < D) {
+          const float2 yv = load_split<Prec<E>::kPlanesY>(
+              p.y + (base + row) * D + c, p.y_plane);
+          a[0] += yv.x + b2[c];
+          a[1] += yv.y + b2[c + 1];
+          st[0][mi][hf] += a[0] + a[1];
+        }
+      }
+    }
+  gm::row_sums<T, 1>(st, f, red);
+#pragma unroll
+  for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = f.row(mi, hf);
+      mean[mi][hf] = st[0][mi][hf] / D;
+      st[0][mi][hf] = 0.0f;
+#pragma unroll
+      for (int ni = 0; ni < T::NI; ++ni)
+        if (row < p.M && f.col(ni) < D) {
+          const float d0 = acc[mi][ni][2 * hf] - mean[mi][hf];
+          const float d1 = acc[mi][ni][2 * hf + 1] - mean[mi][hf];
+          st[0][mi][hf] += d0 * d0 + d1 * d1;
+        }
+    }
+  gm::row_sums<T, 1>(st, f, red);
+#pragma unroll
+  for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      inv[mi][hf] = rsqrtf(st[0][mi][hf] / D + p.eps);
+}
+
+// The forward's G2: f = h W2; out = round(LN2(y + f + b2)).  The block
+// owns every column of its rows.
+template <class E, int DM>
+struct G2_out {
+  using T = TileRow<DM>;
+  static constexpr bool kAK = false, kBN = false, kRowsFast = false;
+  static constexpr int kP = Prec<E>::kProducts;
+  static constexpr size_t kEpiBytes = T::BM * T::WN * sizeof(float);
+  __host__ __device__ static gm::Problem problem(const Args<E>& p) {
+    return {{p.h, (size_t)p.M * p.F, p.F, p.h_plane},
+            {p.w2, (size_t)p.F * p.D, p.D, p.w_plane}, p.M, p.D, p.F};
+  }
+  __device__ static void epilogue(const Args<E>& p,
+                                  float (&acc)[T::MI][T::NI][4],
+                                  const gm::Frag& f, int kk, int, int,
+                                  unsigned char* smem) {
+    const int D = p.D;
+    const float* lw = p.ln2w + (size_t)kk * D;
+    const float* lb = p.ln2b + (size_t)kk * D;
+    const size_t base = (size_t)kk * p.M;
+    float mean[T::MI][2], inv[T::MI][2];
+    ln2_stats<E, T>(p, acc, f, kk, mean, inv,
+                    reinterpret_cast<float*>(smem));
+#pragma unroll
+    for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = f.row(mi, hf);
+#pragma unroll
+        for (int ni = 0; ni < T::NI; ++ni) {
+          const int c = f.col(ni);
+          if (row < p.M && c < D) {
+            const float* a = &acc[mi][ni][2 * hf];
+            store2(p.out + (base + row) * D + c,
+                   (a[0] - mean[mi][hf]) * inv[mi][hf] * lw[c] + lb[c],
+                   (a[1] - mean[mi][hf]) * inv[mi][hf] * lw[c + 1] +
+                       lb[c + 1]);
+          }
+        }
+      }
+  }
+};
+
+// The backward's G2: f = h W2; y2 = y + f + b2, dy2 = LN2'(do), df =
+// round(dy2); partials of db2, dln2w, dln2b.  The block owns every column
+// of its rows.
 template <class E, int DM>
 struct G2_ln2 {
   using T = TileRow<DM>;
@@ -323,54 +461,16 @@ struct G2_ln2 {
     float* red = reinterpret_cast<float*>(smem);
     float* cred = red + 2 * T::BM * T::WN;
     const int D = p.D;
-    const float* b2 = p.b2 + (size_t)kk * D;
     const float* lw = p.ln2w + (size_t)kk * D;
     const size_t base = (size_t)kk * p.M;
-    float st[1][T::MI][2], s[2][T::MI][2], mean[T::MI][2], inv[T::MI][2];
-    // y2 = f + y + b2 (in acc) and the rows' sums
-#pragma unroll
-    for (int mi = 0; mi < T::MI; ++mi)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int row = f.row(mi, hf);
-        st[0][mi][hf] = 0.0f;
-#pragma unroll
-        for (int ni = 0; ni < T::NI; ++ni) {
-          const int c = f.col(ni);
-          float* a = &acc[mi][ni][2 * hf];
-          if (row < p.M && c < D) {
-            const float2 yv = load_split<Prec<E>::kPlanesY>(
-                p.y + (base + row) * D + c, p.y_plane);
-            a[0] += yv.x + b2[c];
-            a[1] += yv.y + b2[c + 1];
-            st[0][mi][hf] += a[0] + a[1];
-          }
-        }
-      }
-    gm::row_sums<T, 1>(st, f, red);
-#pragma unroll
-    for (int mi = 0; mi < T::MI; ++mi)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int row = f.row(mi, hf);
-        mean[mi][hf] = st[0][mi][hf] / D;
-        st[0][mi][hf] = 0.0f;
-#pragma unroll
-        for (int ni = 0; ni < T::NI; ++ni)
-          if (row < p.M && f.col(ni) < D) {
-            const float d0 = acc[mi][ni][2 * hf] - mean[mi][hf];
-            const float d1 = acc[mi][ni][2 * hf + 1] - mean[mi][hf];
-            st[0][mi][hf] += d0 * d0 + d1 * d1;
-          }
-      }
-    gm::row_sums<T, 1>(st, f, red);
+    float s[2][T::MI][2], mean[T::MI][2], inv[T::MI][2];
+    ln2_stats<E, T>(p, acc, f, kk, mean, inv, red);
     // yhat2 (in acc); the rows' sums of g = do ln2w and of g yhat2
 #pragma unroll
     for (int mi = 0; mi < T::MI; ++mi)
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         const int row = f.row(mi, hf);
-        inv[mi][hf] = rsqrtf(st[0][mi][hf] / D + p.eps);
         s[0][mi][hf] = s[1][mi][hf] = 0.0f;
 #pragma unroll
         for (int ni = 0; ni < T::NI; ++ni) {
@@ -736,26 +836,23 @@ constexpr size_t smem_for() {
                    ring<TileRow<DM>, false, true>()));
 }
 
+// What both directions read and write: the inputs, and the scratch `sc`
+// (in float32 also the weights' planes, which split_and_ln1 writes).
 template <class E>
-int launch_body(const void* x, const float* ln1w, const float* ln1b,
-                const void* w1, const float* b1, const void* w2,
-                const float* b2, const float* ln2w, const float* ln2b,
-                const void* dout, void* dx, float* vec_part, float* vec_out,
-                float* dw1, float* db1, float* dw2, void* scratch, int K,
-                int M, int D, int F, float eps, cpc::Dropout drop,
-                cudaStream_t stream) {
+Args<E> args_for(const Scratch<E>& sc, const void* x, const float* ln1w,
+                 const float* ln1b, const void* w1, const float* b1,
+                 const void* w2, const float* b2, const float* ln2w,
+                 const float* ln2b, int K, int M, int D, int F, float eps,
+                 cpc::Dropout drop) {
   constexpr bool kF32 = std::is_same<E, float>::value;
-  const Scratch<E> sc(static_cast<unsigned char*>(scratch), K, M, D, F);
-  Args<E> p;
+  Args<E> p = {};
   p.x = static_cast<const E*>(x);
-  p.dout = static_cast<const E*>(dout);
   p.ln1w = ln1w;
   p.ln1b = ln1b;
   p.b1 = b1;
   p.b2 = b2;
   p.ln2w = ln2w;
   p.ln2b = ln2b;
-  p.dx = static_cast<E*>(dx);
   p.w1 = kF32 ? sc.w : static_cast<const bf16*>(w1);
   p.w2 = kF32 ? sc.w + Prec<E>::kPlanesY * sc.w_plane
               : static_cast<const bf16*>(w2);
@@ -769,10 +866,7 @@ int launch_body(const void* x, const float* ln1w, const float* ln1b,
   p.live = sc.live;
   p.stats = sc.stats;
   p.dy2 = sc.dy2;
-  p.vec_part = vec_part;
   p.db1_part = sc.db1_part;
-  p.dw1 = dw1;
-  p.dw2 = dw2;
   p.K = K;
   p.M = M;
   p.D = D;
@@ -782,32 +876,80 @@ int launch_body(const void* x, const float* ln1w, const float* ln1b,
   p.eps = eps;
   p.scale = drop.seed != nullptr ? drop.keep_scale : 1.0f;
   p.drop = drop;
+  return p;
+}
 
-  // LN1, G2 and G4 by D's width class
+// The launches both directions start with: in float32 the weights'
+// planes, then LN1 by D's width class.
+template <class E>
+cudaError_t split_and_ln1(const Args<E>& p, const Scratch<E>& sc,
+                          const void* w1, const void* w2,
+                          cudaStream_t stream) {
+  if (std::is_same<E, float>::value) {
+    const size_t pairs = sc.w_plane / 2;
+    tail_split_kernel<<<dim3((unsigned)((pairs + 255) / 256)), 256, 0,
+                        stream>>>(static_cast<const float*>(w1),
+                                  static_cast<const float*>(w2), sc.w, pairs,
+                                  sc.w_plane);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   const decltype(&tail_ln1_kernel<E, 256>) kLn1[cpc::kTailClasses] = {
       tail_ln1_kernel<E, 256>, tail_ln1_kernel<E, 512>,
       tail_ln1_kernel<E, 1024>};
+  const int rows = p.K * p.M;
+  kLn1[cpc::tail_width_class(p.D)]<<<dim3((rows + 7) / 8), 256, 0, stream>>>(
+      p, rows);
+  return cudaGetLastError();
+}
+
+template <class E>
+int launch_fwd_body(const void* x, const float* ln1w, const float* ln1b,
+                    const void* w1, const float* b1, const void* w2,
+                    const float* b2, const float* ln2w, const float* ln2b,
+                    void* out, void* scratch, int K, int M, int D, int F,
+                    float eps, cpc::Dropout drop, cudaStream_t stream) {
+  const Scratch<E> sc(static_cast<unsigned char*>(scratch), K, M, D, F,
+                      true);
+  Args<E> p = args_for<E>(sc, x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, K,
+                          M, D, F, eps, drop);
+  p.out = static_cast<E*>(out);
+  const decltype(&run<G2_out<E, 256>, E>) kG2[cpc::kTailClasses] = {
+      run<G2_out<E, 256>, E>, run<G2_out<E, 512>, E>,
+      run<G2_out<E, 1024>, E>};
+  cudaError_t err = split_and_ln1(p, sc, w1, w2, stream);
+  if (err == cudaSuccess) err = run<G1_hidden<E, false>, E>(p, K, stream);
+  if (err == cudaSuccess) err = kG2[cpc::tail_width_class(D)](p, K, stream);
+  return (int)err;
+}
+
+template <class E>
+int launch_bwd_body(const void* x, const float* ln1w, const float* ln1b,
+                    const void* w1, const float* b1, const void* w2,
+                    const float* b2, const float* ln2w, const float* ln2b,
+                    const void* dout, void* dx, float* vec_part,
+                    float* vec_out, float* dw1, float* db1, float* dw2,
+                    void* scratch, int K, int M, int D, int F, float eps,
+                    cpc::Dropout drop, cudaStream_t stream) {
+  const Scratch<E> sc(static_cast<unsigned char*>(scratch), K, M, D, F,
+                      false);
+  Args<E> p = args_for<E>(sc, x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, K,
+                          M, D, F, eps, drop);
+  p.dout = static_cast<const E*>(dout);
+  p.dx = static_cast<E*>(dx);
+  p.vec_part = vec_part;
+  p.dw1 = dw1;
+  p.dw2 = dw2;
+
+  // G2 and G4 by D's width class
   const decltype(&run<G2_ln2<E, 256>, E>) kG2[cpc::kTailClasses] = {
       run<G2_ln2<E, 256>, E>, run<G2_ln2<E, 512>, E>,
       run<G2_ln2<E, 1024>, E>};
   const decltype(&run<G4_dx<E, 256>, E>) kG4[cpc::kTailClasses] = {
       run<G4_dx<E, 256>, E>, run<G4_dx<E, 512>, E>, run<G4_dx<E, 1024>, E>};
   const int w = cpc::tail_width_class(D);
-  const int rows = K * M;
-  cudaError_t err = cudaSuccess;
-  if (kF32) {
-    const size_t pairs = sc.w_plane / 2;
-    tail_split_kernel<<<dim3((unsigned)((pairs + 255) / 256)), 256, 0,
-                        stream>>>(static_cast<const float*>(w1),
-                                  static_cast<const float*>(w2), sc.w, pairs,
-                                  sc.w_plane);
-    err = cudaGetLastError();
-  }
-  if (err == cudaSuccess) {
-    kLn1[w]<<<dim3((rows + 7) / 8), 256, 0, stream>>>(p, rows);
-    err = cudaGetLastError();
-  }
-  if (err == cudaSuccess) err = run<G1_hidden<E>, E>(p, K, stream);
+  cudaError_t err = split_and_ln1(p, sc, w1, w2, stream);
+  if (err == cudaSuccess) err = run<G1_hidden<E, true>, E>(p, K, stream);
   if (err == cudaSuccess) err = kG2[w](p, K, stream);
   if (err == cudaSuccess) err = run<G3_dhp<E>, E>(p, K, stream);
   if (err == cudaSuccess) err = kG4[w](p, K, stream);
@@ -842,24 +984,39 @@ size_t smem_bytes(int D) {
   return kSmem[cpc::tail_width_class(D)];
 }
 
-size_t scratch_bytes(int K, int M, int D, int F, int dtype) {
-  return dtype == cpc::kFloat32 ? Scratch<float>(nullptr, K, M, D, F).bytes
-                                : Scratch<bf16>(nullptr, K, M, D, F).bytes;
+size_t scratch_bytes(int K, int M, int D, int F, int dtype, bool fwd) {
+  return dtype == cpc::kFloat32
+             ? Scratch<float>(nullptr, K, M, D, F, fwd).bytes
+             : Scratch<bf16>(nullptr, K, M, D, F, fwd).bytes;
 }
 
-int launch(const void* x, const float* ln1w, const float* ln1b,
-           const void* w1, const float* b1, const void* w2, const float* b2,
-           const float* ln2w, const float* ln2b, const void* dout, void* dx,
-           float* vec_part, float* vec_out, float* dw1, float* db1,
-           float* dw2, void* scratch, int K, int M, int D, int F, float eps,
-           cpc::Dropout drop, int dtype, cudaStream_t stream) {
+int launch_fwd(const void* x, const float* ln1w, const float* ln1b,
+               const void* w1, const float* b1, const void* w2,
+               const float* b2, const float* ln2w, const float* ln2b,
+               void* out, void* scratch, int K, int M, int D, int F,
+               float eps, cpc::Dropout drop, int dtype, cudaStream_t stream) {
   if (dtype == cpc::kFloat32)
-    return launch_body<float>(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b,
-                              dout, dx, vec_part, vec_out, dw1, db1, dw2,
-                              scratch, K, M, D, F, eps, drop, stream);
-  return launch_body<bf16>(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, dout,
-                           dx, vec_part, vec_out, dw1, db1, dw2, scratch, K,
-                           M, D, F, eps, drop, stream);
+    return launch_fwd_body<float>(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b,
+                                  out, scratch, K, M, D, F, eps, drop,
+                                  stream);
+  return launch_fwd_body<bf16>(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b,
+                               out, scratch, K, M, D, F, eps, drop, stream);
+}
+
+int launch_bwd(const void* x, const float* ln1w, const float* ln1b,
+               const void* w1, const float* b1, const void* w2,
+               const float* b2, const float* ln2w, const float* ln2b,
+               const void* dout, void* dx, float* vec_part, float* vec_out,
+               float* dw1, float* db1, float* dw2, void* scratch, int K,
+               int M, int D, int F, float eps, cpc::Dropout drop, int dtype,
+               cudaStream_t stream) {
+  if (dtype == cpc::kFloat32)
+    return launch_bwd_body<float>(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b,
+                                  dout, dx, vec_part, vec_out, dw1, db1, dw2,
+                                  scratch, K, M, D, F, eps, drop, stream);
+  return launch_bwd_body<bf16>(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b,
+                               dout, dx, vec_part, vec_out, dw1, db1, dw2,
+                               scratch, K, M, D, F, eps, drop, stream);
 }
 
 }  // namespace tail_tc

@@ -56,10 +56,12 @@ _SIGNATURES = {
                                  _I),
     # blocks, S, dk, dtype
     "cpc_relpos_attention_bwd_scratch": ([_I] * 4, ctypes.c_size_t),
-    # x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, out, K, M, D, F, eps,
-    # dropout, dtype, stream
-    "cpc_layer_tail_fwd": ([_P] * 10 + [_I] * 4 + [_F] + _DROP + [_I, _P],
+    # x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, out, scratch, K, M, D, F,
+    # eps, dropout, dtype, stream
+    "cpc_layer_tail_fwd": ([_P] * 11 + [_I] * 4 + [_F] + _DROP + [_I, _P],
                            _I),
+    # K, M, D, F, dtype
+    "cpc_layer_tail_fwd_scratch": ([_I] * 5, ctypes.c_size_t),
     # x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, dout, dx, vec_part,
     # vec_out, dw1, db1, dw2, scratch, K, M, D, F, eps, dropout, dtype,
     # stream

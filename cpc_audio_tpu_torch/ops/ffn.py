@@ -14,12 +14,13 @@ parameters and biases may be any float dtype (they are used in float32);
 ``w1``/``w2`` are in x's dtype.
 
 :func:`layer_tail` is the differentiable entry point: its forward runs the
-K3 forward kernel (csrc/layer_tail_fwd.cu, counted in
-``layer_tail.launches``), its backward the K3 backward kernels (counted in
-``layer_tail_bwd.launches``): six tensor-core GEMMs with fused epilogues
-(csrc/layer_tail_bwd_tc.cu), whose float32 operands are split into bf16
-planes (:func:`layer_tail_bwd_split` writes that arithmetic plainly).
-CPU tensors take the plain versions.
+K3 forward kernels (counted in ``layer_tail.launches``): LN1 and two
+tensor-core GEMMs with fused epilogues; its backward the K3 backward
+kernels (counted in ``layer_tail_bwd.launches``): LN1 and six such GEMMs.
+Both directions are one body on one GEMM core (csrc/layer_tail_tc.cu),
+whose float32 operands are split into bf16 planes
+(:func:`layer_tail_fwd_split` and :func:`layer_tail_bwd_split` write that
+arithmetic plainly).  CPU tensors take the plain versions.
 
 The kernels take D a multiple of 32 up to 1024 (K2's limit: 8 heads of
 dk <= 128; the JAX package trains every such width, on its Pallas tail
@@ -44,11 +45,11 @@ MAX_D = 1024
 
 def _width_class(D: int) -> int:
     """The kernels' tiles by D: 0 up to 256, 1 up to 512, 2 up to 1024
-    (``cpc::tail_width_class``, csrc/layer_tail.cuh)."""
+    (``cpc::tail_width_class``, csrc/layer_tail_tc.cu)."""
     return 0 if D <= 256 else 1 if D <= 512 else 2
 
 
-# csrc/layer_tail_bwd_tc.cu's G2/G4 row tiles: (BM, BN, depth of a slot,
+# csrc/layer_tail_tc.cu's G2/G4 row tiles: (BM, BN, depth of a slot,
 # slots), by width class
 _ROW_TILES = ((128, 256, 32, 3), (64, 512, 32, 3), (32, 1024, 16, 4))
 
@@ -60,7 +61,8 @@ def _bwd_smem(D: int, F: int, dtype: torch.dtype) -> int:
     padding (csrc/gemm_tc.cuh), for each GEMM (BM, BN, depth of a slot,
     slots, A stored k-major, B stored n-major): G1, G3, G5 and G6 on
     128 x 128 tiles, 3 slots 64 deep, G2 and G4 on the row tile of D's
-    class (``_ROW_TILES``)."""
+    class (``_ROW_TILES``).  The forward's blocks are among these: its G1
+    is the backward's, its G2 takes the backward's G2 tile."""
     row = _ROW_TILES[_width_class(D)]
     gemms = ((128, 128, 64, 3, False, False), (128, 128, 64, 3, False, True),
              (128, 128, 64, 3, True, False), (*row, False, False),
@@ -113,27 +115,39 @@ def layer_tail_ref(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b,
                    eps: float = 1e-5, rate: float = 0.0,
                    seed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version with float32 products (exact for bf16 inputs).
-    Differentiable by torch autograd."""
+    Differentiable by torch autograd.  Float64 inputs are taken in
+    float64 throughout: the exact version the float32 kernel is measured
+    against."""
     dt = x.dtype
+    acc = torch.float64 if dt == torch.float64 else torch.float32
     K, M, _ = x.shape
-    y = _affine(_ln(x.float(), eps)[0], ln1w, ln1b).to(dt).float()
-    h = torch.relu(y @ w1.float() + b1.float()[:, None])
+    y = _affine(_ln(x.to(acc), eps)[0], ln1w, ln1b).to(dt).to(acc)
+    h = torch.relu(y @ w1.to(acc) + b1.to(acc)[:, None])
     mask = dropout.ffn_mask(seed, rate, K, M, w1.shape[-1], x.device)
     if mask is not None:
         h = h * mask
-    f = h.to(dt).float() @ w2.float() + b2.float()[:, None]
+    f = h.to(dt).to(acc) @ w2.to(acc) + b2.to(acc)[:, None]
     return _affine(_ln(y + f, eps)[0], ln2w, ln2b).to(dt)
 
 
 def layer_tail_bwd_ref(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, dout,
                        eps: float = 1e-5, rate: float = 0.0,
-                       seed: Optional[torch.Tensor] = None
+                       seed: Optional[torch.Tensor] = None,
+                       force_live: Optional[Tuple[torch.Tensor,
+                                                  torch.Tensor]] = None
                        ) -> Tuple[torch.Tensor, ...]:
     """Plain backward, the math of ``_tail_bwd_kernel`` (ffn.py:121-208).
     Returns dx (x's dtype) and float32 (dln1w, dln1b, dw1, db1, dw2, db2,
     dln2w, dln2b), each summed over rows.  Float64 inputs are taken in
     float64 throughout: the exact version the float32 kernel is measured
-    against."""
+    against.
+
+    ``force_live = (units, live)``, units an (n, 3) integer tensor of (k,
+    row, f) and live an (n,) bool tensor, sets those hidden units' live
+    bits (kept and positive: whether dh passes the ReLU) to ``live``; the
+    hidden itself is left as it is.  So a unit within rounding of the ReLU
+    kink can be taken on either branch: it moves only dx, dln1w, dln1b,
+    dw1 and db1."""
     dt = x.dtype
     acc = torch.float64 if dt == torch.float64 else torch.float32
     K, M, _ = x.shape
@@ -144,6 +158,10 @@ def layer_tail_bwd_ref(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, dout,
     if mask is not None:
         h32 = h32 * mask
     live = h32 > 0.0                       # kept AND positive
+    if force_live is not None:
+        units, forced = force_live
+        live = live.clone()
+        live[units[:, 0], units[:, 1], units[:, 2]] = forced.to(live.device)
     h = h32.to(dt).to(acc)
     yhat2, inv2 = _ln(y + h @ w2.to(acc) + b2.to(acc)[:, None], eps)
     do = dout.to(acc)
@@ -191,6 +209,26 @@ def split_matmul(a: torch.Tensor, b: torch.Tensor,
         term = pa[i] @ pb[j]
         out = term if out is None else out + term
     return out
+
+
+def layer_tail_fwd_split(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b,
+                         eps: float = 1e-5, rate: float = 0.0,
+                         seed: Optional[torch.Tensor] = None,
+                         g1_products: int = 6) -> torch.Tensor:
+    """The float32 forward kernel's arithmetic written plainly: G1 (y W1)
+    as :func:`split_matmul` of ``g1_products`` split terms and G2 (h W2)
+    of 3, everything else in float32.  Float32 inputs; the same output as
+    :func:`layer_tail_ref`.  For tests and measurements only: the card
+    runs the kernel."""
+    K, M, _ = x.shape
+    y = _affine(_ln(x.float(), eps)[0], ln1w, ln1b)
+    h = torch.relu(split_matmul(y, w1.float(), g1_products)
+                   + b1.float()[:, None])
+    mask = dropout.ffn_mask(seed, rate, K, M, w1.shape[-1], x.device)
+    if mask is not None:
+        h = h * mask
+    y2 = y + split_matmul(h, w2.float()) + b2.float()[:, None]
+    return _affine(_ln(y2, eps)[0], ln2w, ln2b)
 
 
 def layer_tail_bwd_split(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, dout,
@@ -242,7 +280,7 @@ def layer_tail_fwd(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b,
                    rate: float = 0.0, eps: float = 1e-5,
                    seed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Forward: (K, M, D) in x's dtype.  CPU tensors run
-    :func:`layer_tail_ref`; CUDA tensors launch the kernel and add one to
+    :func:`layer_tail_ref`; CUDA tensors launch the kernels and add one to
     ``layer_tail.launches``."""
     dropout.check_rate(rate, seed, _NAME)
     vecs = (ln1w, ln1b, b1, b2, ln2w, ln2b)
@@ -256,14 +294,19 @@ def layer_tail_fwd(x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b,
     why = supported(D, F, x.dtype)
     _build.require(why is None, _NAME, why or "")
     ln1w, ln1b, b1, b2, ln2w, ln2b = (t.float().contiguous() for t in vecs)
-    out = torch.empty_like(x)
     lib = _build.library()
+    code = _build.DTYPE_CODES[x.dtype]
+    out = torch.empty_like(x)
+    # the planes of y and the hidden (and, in float32, of the weights) and
+    # LN1's statistics
+    scratch = torch.empty(lib.cpc_layer_tail_fwd_scratch(K, M, D, F, code),
+                          dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         status = lib.cpc_layer_tail_fwd(
             x.data_ptr(), ln1w.data_ptr(), ln1b.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), ln2w.data_ptr(),
-            ln2b.data_ptr(), out.data_ptr(), K, M, D, F, float(eps),
-            *dropout.kernel_args(rate, seed), _build.DTYPE_CODES[x.dtype],
+            ln2b.data_ptr(), out.data_ptr(), scratch.data_ptr(), K, M, D, F,
+            float(eps), *dropout.kernel_args(rate, seed), code,
             _build.stream(x.device))
     _build.check(status, _NAME)
     layer_tail.launches += 1

@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
-"""K3's backward and the float32 default LSTM train step of two checkouts,
-in turns, on one GPU.
+"""K3's forward and backward and the float32 default LSTM train step of
+two checkouts, in turns, on one GPU.
 
 Usage, from the root of a checkout:
     python3 port_perf/k3_ab.py OTHER_CHECKOUT
 
 Runs this checkout's and OTHER_CHECKOUT's code (each built from its own
 sources at first use, each in a process of its own) in the order other,
-this, this, other.  Each run prints, for K3's backward at rate 0.1 on
-K 12 heads (M 3712 / D 256, M 1952 / D 512, M 3712 / D 768; F 2048) in
-bf16 and float32: the device time a call (chip_smoke.median_ms), a
-SHA-256 of each output's bytes (the bf16 outputs of the two checkouts
-must agree bit for bit), and, in float32, each gradient's 2-norm error
-relative to the exact plain version (ffn.layer_tail_bwd_ref in float64);
-then the default LSTM train step in float32 (B 32, dropout 0.1): train
-windows/s as the median of 10 synchronised steps after 2 warm-up.
+this, this, other.  Each run prints, for K3's forward and backward at
+rate 0.1 on K 12 heads (M 3712 / D 256, M 1952 / D 512, M 3712 / D 768;
+F 2048) in bf16 and float32: the device time a call
+(chip_smoke.median_ms), a SHA-256 of each output's bytes (then whether
+reruns and the two checkouts agree bit for bit), and, in float32, the
+forward's largest error against the exact plain version (in float64:
+`exact_forward`) with its share of the largest exact output, and each
+gradient's 2-norm error relative to the exact plain backward
+(ffn.layer_tail_bwd_ref in float64); then the default LSTM train step in
+float32 (B 32, dropout 0.1): train windows/s as the median of 10
+synchronised steps after 2 warm-up.
 """
 
 from __future__ import annotations
@@ -49,6 +52,29 @@ def tail_inputs(dev, dtype, M: int, D: int, K: int = 12, F: int = 2048):
     return args, rand(K, M, D, scale=0.1)
 
 
+def exact_forward(ffn, args, rate: float, seed):
+    """ffn.layer_tail_ref's math in float64 throughout (an older
+    checkout's layer_tail_ref takes its products in float32 even for
+    float64 inputs)."""
+    import torch
+    x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b = (a.double() for a in args)
+    K, M, _ = x.shape
+    y = ffn._affine(ffn._ln(x, 1e-5)[0], ln1w, ln1b)
+    h = torch.relu(y @ w1 + b1[:, None])
+    mask = ffn.dropout.ffn_mask(seed, rate, K, M, w1.shape[-1], x.device)
+    if mask is not None:
+        h = h * mask
+    return ffn._affine(ffn._ln(y + h @ w2 + b2[:, None], 1e-5)[0], ln2w,
+                       ln2b)
+
+
+def sha(tensors) -> list:
+    """The first 16 hex digits of a SHA-256 of each tensor's bytes."""
+    import torch
+    return [hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()
+                           .tobytes()).hexdigest()[:16] for t in tensors]
+
+
 def one(root: str) -> None:
     """Measure the checkout at ``root`` and print one JSON line."""
     sys.path.insert(0, HERE)
@@ -66,13 +92,22 @@ def one(root: str) -> None:
     for M, D in SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             args, dout = tail_inputs(dev, dtype, M, D)
+            fwd = ffn.layer_tail_fwd(*args, 0.1, 1e-5, seed)
+            torch.cuda.synchronize()
+            r = {"fwd_ms": median_ms(lambda: ffn.layer_tail_fwd(
+                     *args, 0.1, 1e-5, seed)),
+                 "fwd_sha256": sha([fwd])}
+            if dtype == torch.float32:
+                want = exact_forward(ffn, args, 0.1, seed)
+                err = (fwd.double() - want).abs().max().item()
+                r["fwd_err"] = (err, err / want.abs().max().item())
+                del want
+            del fwd
             got = ffn.layer_tail_bwd(*args, dout, 0.1, 1e-5, seed)
             torch.cuda.synchronize()
-            r = {"ms": median_ms(lambda: ffn.layer_tail_bwd(
-                     *args, dout, 0.1, 1e-5, seed)),
-                 "sha256": [hashlib.sha256(
-                     g.contiguous().view(torch.uint8).cpu().numpy()
-                     .tobytes()).hexdigest()[:16] for g in got]}
+            r["ms"] = median_ms(lambda: ffn.layer_tail_bwd(
+                *args, dout, 0.1, 1e-5, seed))
+            r["sha256"] = sha(got)
             if dtype == torch.float32:
                 exact = ffn.layer_tail_bwd_ref(
                     *[a.double() for a in args], dout.double(), 1e-5, 0.1,
@@ -106,7 +141,7 @@ def main() -> None:
     if len(sys.argv) != 2:
         raise SystemExit(__doc__)
     other = os.path.abspath(sys.argv[1])
-    hashes = {}
+    hashes = {}   # (who, direction, case): the set of its runs' hashes
     for who, root in (("other", other), ("this", HERE), ("this", HERE),
                       ("other", other)):
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -121,15 +156,24 @@ def main() -> None:
                       f"{t['step_ms']:.3f} ms of 10, min {t['min_ms']:.3f} "
                       f"max {t['max_ms']:.3f})", flush=True)
                 continue
+            err = (f"; max |err| vs exact {t['fwd_err'][0]:.3e} "
+                   f"({t['fwd_err'][1]:.3e} of max |want|)"
+                   if "fwd_err" in t else "")
+            print(f"{who}: K3 forward {case}: {t['fwd_ms']:.4f} ms{err}",
+                  flush=True)
             err = ("; rel. 2-norm error vs exact: " + ", ".join(
                 f"{n} {e:.2e}" for n, e in zip(NAMES, t["rel_err"]))
                 if "rel_err" in t else "")
             print(f"{who}: K3 backward {case}: {t['ms']:.4f} ms{err}",
                   flush=True)
-            hashes.setdefault((who, case), set()).add(tuple(t["sha256"]))
-    for case in sorted({case for _, case in hashes}):
-        this, other_ = hashes[("this", case)], hashes[("other", case)]
-        print(f"{case}: reruns bit-identical: this "
+            for way, key in (("forward", "fwd_sha256"),
+                             ("backward", "sha256")):
+                hashes.setdefault((who, way, case), set()).add(
+                    tuple(t[key]))
+    for way, case in sorted({(w, c) for _, w, c in hashes}):
+        this, other_ = (hashes[(who, way, case)] for who in ("this",
+                                                             "other"))
+        print(f"{way} {case}: reruns bit-identical: this "
               f"{'yes' if len(this) == 1 else 'NO'}, other "
               f"{'yes' if len(other_) == 1 else 'NO'}; the two checkouts' "
               f"outputs {'bit-identical' if this == other_ else 'differ'}",

@@ -9,13 +9,15 @@ imports no JAX, so it also runs where JAX is not installed:
 the comparison at the train paths' own shapes.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
 
 from cpc_audio_tpu_torch.ops import (attention_block, causal_attention,
-                                     conv_ln, ffn, gru, head_attention, lstm,
-                                     scatter_add)
+                                     conv_ln, dropout, ffn, gru,
+                                     head_attention, lstm, scatter_add)
 
 pytestmark = pytest.mark.cuda
 
@@ -75,14 +77,14 @@ def test_relpos_attention_kernel(dev, dtype, S, dk):
                                    (40, 384, 2048), (21, 1024, 2048),
                                    (29, 768, 2048)])
 def test_layer_tail_kernel(dev, dtype, M, D, F):
-    """M = 40, 33, 29 and 21: ragged row tiles of both bodies (64, 32 or 16
-    rows for bf16, 32 or 16 for f32); D = 32: one output column a warp
-    of the 256-thread f32 block; D = 512 (--hiddenEncoder 512): 32-row
-    bf16 blocks, 512-thread f32 blocks; D = 384: 512-thread f32 blocks
-    with 128 idle output columns; D = 1024: 16-row bf16 blocks with
-    32-wide hidden chunks, f32 blocks of 16 rows and two columns a
-    thread; D = 768: the same blocks, ragged (bf16: 3 output fragments
-    a warp; f32: the second column on half of the threads)."""
+    """The forward's launches (LN1, G1 on 128 x 128 tiles, G2 on a row
+    tile of all D columns; in float32 after the weights' split): M = 40,
+    33, 29 and 21 ragged row tiles (128 rows in G1; 128, 64 or 32 in G2);
+    D = 32: G2's narrowest row, 224 of its 256 columns idle; D = 64, F =
+    128: G1's one column tile; D = 512 (--hiddenEncoder 512): 64 x 512
+    row tiles; D = 384: the same, 128 columns idle; D = 1024: 32 x 1024
+    row tiles 16 deep; D = 768: the same, 256 columns idle.  Reruns are
+    bit-identical (no atomics, fixed-order sums)."""
     rng = np.random.RandomState(M + D)
     K = 2
     f32 = torch.float32
@@ -99,6 +101,7 @@ def test_layer_tail_kernel(dev, dtype, M, D, F):
     got = ffn.layer_tail(*args)
     assert ffn.layer_tail.launches == before + 1
     torch.testing.assert_close(got, ffn.layer_tail_ref(*args), **TOL[dtype])
+    assert torch.equal(ffn.layer_tail(*args), got)
 
 
 def test_wrappers_reject_what_kernels_do_not_take(dev):
@@ -226,9 +229,43 @@ def _tail_args(rng, dev, dtype, K, M, D, F):
 # units lie within float32's own rounding of the kink (exact
 # pre-activations -9.3e-8 and 4.8e-8; port_perf/k3_split_accuracy.py), so
 # that a float32 product in any order may take either branch, and one
-# such unit moves dW1 by about 1.3e-3 of its norm at K = 2.
+# such unit moves dW1 by about 1.3e-3 of its norm at K = 2.  No float32
+# version decides such a unit, so the exact version leaves it undecided
+# (`_undecided_units`) and the kernel is held against the nearest of the
+# exact versions with each undecided unit forced live or dead.
 TAIL_TRAIN_SHAPES = [(3712, 256, 2048), (1952, 512, 2048)]
 TAIL_TRAIN_NORM = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+# A kept unit is undecided where its exact pre-activation y W1 + b1 lies
+# within KINK_C 2^-24 (sum_d |y_d W1_df| + |b1_f|) of 0: a relative change
+# of 2^-24 in every term of its sum, the bound
+# tests/test_torch_split.py::test_split_product_within_its_bound holds for
+# each term a product of 6 split terms drops (there `term` is three of
+# them), and one float32 rounding of each term, can move it across the
+# kink.  KINK_C = 1 leaves out that test's worst case of the float32 sum
+# (6 D such terms), which no float32 product reaches and which would take
+# in thousands of units.  These inputs hold 4 such units at (3712, 256,
+# 2048) and 4 and 3 at (1952, 512, 2048), rates 0 and 0.1, the two above
+# among them (port_perf/k3_split_accuracy.py).
+KINK_C = 1.0
+MAX_UNDECIDED = 4
+
+
+def _undecided_units(args, rate, seed):
+    """(n, 3) (k, row, f) of the kept hidden units whose exact (float64)
+    pre-activation lies within KINK_C 2^-24 (sum_d |y_d W1_df| + |b1_f|)
+    of 0."""
+    x, ln1w, ln1b, w1, b1 = (a.double() for a in args[:5])
+    K, M, _ = x.shape
+    y = ffn._affine(ffn._ln(x, 1e-5)[0], ln1w, ln1b)
+    pre = y @ w1 + b1[:, None]
+    scale = y.abs() @ w1.abs() + b1.abs()[:, None]
+    near = pre.abs() <= KINK_C * 2.0 ** -24 * scale
+    mask = dropout.ffn_mask(seed, rate, K, M, w1.shape[-1], x.device)
+    if mask is not None:
+        near &= mask > 0
+    return torch.nonzero(near)
+
+
 TAIL_BWD_CASES = [
     pytest.param(M, D, F, dt, id=f"{M}-{D}-{F}-dtype{DTYPES.index(dt)}")
     for M, D, F in [(40, 64, 128), (33, 32, 64), (70, 256, 256),
@@ -269,11 +306,19 @@ def test_layer_tail_bwd_kernel(dev, dtype, M, D, F, rate):
     got = ffn.layer_tail_bwd(*args, dout, rate, 1e-5, seed)
     assert ffn.layer_tail_bwd.launches == before + 1
     exact = dtype == torch.float32 and (M, D, F) in TAIL_TRAIN_SHAPES
-    want = ffn.layer_tail_bwd_ref(
-        *[a.double() if exact else a for a in args],
-        dout.double() if exact else dout, 1e-5, rate, seed)
     names = ("dx", "dln1w", "dln1b", "dw1", "db1", "dw2", "db2", "dln2w",
              "dln2b")
+    if exact:
+        units = _undecided_units(args, rate, seed)
+        assert len(units) <= MAX_UNDECIDED, units.tolist()
+        wants = (ffn.layer_tail_bwd_ref(
+            *[a.double() for a in args], dout.double(), 1e-5, rate, seed,
+            force_live=(units, torch.tensor(live, device=dev)))
+            for live in itertools.product((False, True), repeat=len(units)))
+        want = min(wants, key=lambda w: max(
+            _rel_norm(g, wi) for g, wi in zip(got, w)))
+    else:
+        want = ffn.layer_tail_bwd_ref(*args, dout, 1e-5, rate, seed)
     for name, g, w in zip(names, got, want):
         if (M, D, F) in TAIL_TRAIN_SHAPES:
             err = _rel_norm(g, w)

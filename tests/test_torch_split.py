@@ -1,14 +1,15 @@
-"""The float32 K3 backward's split arithmetic, written plainly on the CPU.
+"""The float32 K3 split arithmetic, written plainly on the CPU.
 
-On the card K3's float32 backward (csrc/layer_tail_bwd_tc.cu) runs its six
-products on bf16 tensor cores with split operands: a float32 a is kept as
-bf16 planes a0 = bf16(a), a1 = bf16(a - a0) (and a2 = bf16(a - a0 - a1)),
-and a product sums 3 (or, in G1, 6) products of planes in float32
-accumulators.  ``ffn.split_matmul`` and ``ffn.layer_tail_bwd_split`` are
-that arithmetic in plain PyTorch; here they are held against float64
-products, against the JAX package's float32 ``_tail_bwd`` (through
-``fused_layer_tail``'s custom VJP in interpret mode) and against the
-port's plain backward.  The kernel itself runs only on a GPU
+On the card K3's float32 forward and backward (csrc/layer_tail_tc.cu) run
+their products (two and six) on bf16 tensor cores with split operands: a
+float32 a is kept as bf16 planes a0 = bf16(a), a1 = bf16(a - a0) (and a2 =
+bf16(a - a0 - a1)), and a product sums 3 (or, in the backward's G1, 6)
+products of planes in float32 accumulators.  ``ffn.split_matmul``,
+``ffn.layer_tail_fwd_split`` and ``ffn.layer_tail_bwd_split`` are that
+arithmetic in plain PyTorch; here they are held against float64 products,
+against the JAX package's float32 ``fused_layer_tail`` and ``_tail_bwd``
+(its custom VJP; both in interpret mode) and against the port's plain
+versions.  The kernels themselves run only on a GPU
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
@@ -27,6 +28,10 @@ NAMES = ("dx", "dln1w", "dln1b", "dw1", "db1", "dw2", "db2", "dln2w",
 # tests/test_torch_cuda.py's BWD_REL for float32: max |got - want| <= 1e-4
 # max |want|, each gradient
 BWD_REL = 1e-4
+# the forward's output, max |got - want| <= 1e-4 max |want|: F-long and
+# D-long float32 sums in another order, and G2's product of 3 split terms
+# within 2^-16 of |a||b| (test_split_product_within_its_bound)
+FWD_REL = 1e-4
 
 
 def _t(a):
@@ -123,3 +128,58 @@ def test_plain_backward_in_float64_matches_float32():
                                    dout.double())
     assert all(g.dtype == torch.float64 for g in exact)
     _grads_close(ffn.layer_tail_bwd_ref(*args, dout), exact, 1e-5)
+
+
+def test_split_forward_matches_pallas_forward():
+    """At rate 0, the inputs of test_split_backward_matches_pallas_vjp,
+    against the JAX package's float32 forward in interpret mode."""
+    K, M, D, F = 2, 64, 128, 256
+    args = [a.astype(np.float32)
+            for a in _tail_inputs(np.random.RandomState(13), K, M, D, F)]
+    want = np.asarray(fused_layer_tail(*map(jnp.asarray, args),
+                                       jnp.zeros((1,), jnp.float32), 0.0,
+                                       1e-5, True), np.float64)
+    got = ffn.layer_tail_fwd_split(*map(_t, args)).double().numpy()
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= FWD_REL * np.abs(want).max()
+
+
+def test_split_forward_matches_plain_forward_with_dropout():
+    """At rate 0.1 against the port's plain forward with the same seed."""
+    K, M, D, F = 2, 64, 128, 256
+    args = [_t(a) for a in _tail_inputs(np.random.RandomState(13), K, M, D,
+                                        F)]
+    seed = torch.tensor([5])
+    got = ffn.layer_tail_fwd_split(*args, 1e-5, 0.1, seed).double()
+    want = ffn.layer_tail_ref(*args, 1e-5, 0.1, seed).double()
+    exact = ffn.layer_tail_ref(*[a.double() for a in args], 1e-5, 0.1, seed)
+    assert exact.dtype == torch.float64
+    for ref in (want, exact):
+        assert (got - ref).abs().max() <= FWD_REL * ref.abs().max()
+
+
+def test_forcing_live_bits_moves_only_the_first_products_gradients():
+    """``force_live`` of layer_tail_bwd_ref: forcing every kept unit to
+    its own live bit changes nothing, bit for bit; flipping one unit moves
+    dx, dln1w, dln1b, dw1 and db1 and leaves the rest as they are."""
+    K, M, D, F = 2, 24, 64, 128
+    args = [_t(a) for a in _tail_inputs(np.random.RandomState(3), K, M, D,
+                                        F)]
+    dout = _t(np.random.RandomState(4).randn(K, M, D))
+    seed = torch.tensor([5])
+    base = ffn.layer_tail_bwd_ref(*args, dout, 1e-5, 0.1, seed)
+    y = ffn._affine(ffn._ln(args[0], 1e-5)[0], args[1], args[2])
+    h = torch.relu(y @ args[3] + args[4][:, None]) * \
+        ffn.dropout.ffn_mask(seed, 0.1, K, M, F, "cpu")
+    units = torch.nonzero(torch.ones(K, M, F, dtype=torch.bool))
+    same = ffn.layer_tail_bwd_ref(*args, dout, 1e-5, 0.1, seed,
+                                  force_live=(units, (h > 0).flatten()))
+    for name, g, w in zip(NAMES, same, base):
+        assert torch.equal(g, w), name
+    # a live unit taken as dead: its row's dh no longer passes
+    unit = torch.nonzero(h > 0)[7:8]
+    flipped = ffn.layer_tail_bwd_ref(*args, dout, 1e-5, 0.1, seed,
+                                     force_live=(unit, torch.tensor([False])))
+    moved = {name for name, g, w in zip(NAMES, flipped, base)
+             if not torch.equal(g, w)}
+    assert moved == {"dx", "dln1w", "dln1b", "dw1", "db1"}
