@@ -20,7 +20,12 @@ Phases (any failure exits non-zero):
      dk 64, both dtypes); K3 also at D 384 and D 1024 (the widest K2
      takes; both dtypes); K1 also at B 32, T 128, H 512; K2,
      K1 and K3 at the shapes of --hiddenEncoder 768 --hiddenGar 768 (S
-     116, dk 96; B 32, T 128, H 768; M 3712, D 768; both dtypes); K8
+     116, dk 96; B 32, T 128, H 768; M 3712, D 768; both dtypes; K1 in
+     float32 at H 512 and 768 on its 16-CTA cluster bodies, W_hh in two
+     bf16 planes); K3 at D 200 and 1056 (the wide body) in both dtypes
+     and at D 2048 in float32, K2 at dk 25 and 132 in both dtypes and K8
+     at C 200 and 1056 in float32 (M 3712, S 116: --hiddenEncoder 200,
+     1056 and 2048); K8
      also with all keys on one row (bf16), and the
      time of its whole wrapper (sort + searchsorted + K8); K3's forward
      and backward, at each of their shapes at rate 0.1 and in both
@@ -56,23 +61,32 @@ Phases (any failure exits non-zero):
      exact sampler on LSTM (negativeSamplingMode exact), the transformer
      at --hiddenEncoder 512 --hiddenGar 512, LSTM at --sizeWindow
      40960 --hiddenEncoder 512 --hiddenGar 512 (B = 8, K2 at S 244),
-     LSTM at --hiddenEncoder 768 --hiddenGar 768 (K3 at D 768), then the
-     default LSTM in float32 (the CLIs' default --compute_dtype):
-     make_train_step at the same config (bf16 but on the last path, B =
-     32, dropout 0.1 in the heads and the transformer AR), 2 warm-up and
-     10 timed steps on a
+     LSTM at --hiddenEncoder 768 --hiddenGar 768 (K3 at D 768), the
+     default LSTM in float32 (the CLIs' default --compute_dtype), LSTM at
+     --hiddenEncoder 512 --hiddenGar 512 and at 768 in float32 (K1's
+     float32 16-CTA bodies), and LSTM at --hiddenEncoder 200 and 1056
+     (with --hiddenGar the same; K3 at D a multiple of 8 but not of 32,
+     and its wide body; K2 at dk 25 and 132):
+     make_train_step at the same config (bf16 but on the float32 paths,
+     B = 32, dropout 0.1 in the heads and the transformer AR), 2 warm-up
+     and 10 timed steps on a
      fixed batch; the launch counts of the path's kernels must rise (on
      the fused path K6 once and K7 four times a step, K2 never; on the
      exact path K8 once a step; on the long-window path K2 once a step),
      K1's and K4's backward must run their cluster body at hiddenGar 256
-     and K1's its 16-CTA cluster body at 512 and 768, K1's forward its
-     rows body at 256 and its 16-CTA cluster body at 512 and 768, the
-     losses must be finite and fall;
+     and K1's its 16-CTA cluster body at 512 and 768 in both dtypes, K1's
+     forward its rows body at 256 and its 16-CTA cluster body at 512 and
+     768 (the rows bodies at 200 and 1056), the losses must be finite
+     and fall;
      prints train windows/s and the step's device time by kernel
-     (torch.profiler); then (but on the float32 path, whose step this
-     is) one float32 step on a (2, 1, 20480) batch on the card and on the
-     CPU (same weights, round keys, negatives' seed and dropout seed) must
-     give the same losses and gradients; then a
+     (torch.profiler); then (but on the float32 paths, whose steps these
+     are: the 768-wide path's step is the float32 768 path's, the
+     long-window path's runs K1's float32 bodies at H 512) one float32
+     step on a (2, 1, sizeWindow) batch on the card and on the CPU (same
+     weights, round keys, negatives' seed and dropout seed; K1's float32
+     bodies counted; the encoder's ReLU units within float32 rounding of
+     the kink taken on the card's side on the CPU) must give the same
+     losses and gradients; then a
      GRU model at --hiddenGar 100 (K4 with H padded to 128; the criterion
      must be refused, naming the flag) trains alone for 4 steps and holds
      a float32 step against the CPU; then two exact steps with
@@ -398,6 +412,7 @@ def kernel_cases(dev: torch.device, dtype: torch.dtype, B: int = 32):
     cases += tail_cases(rand, seed, B * S, 1024, "D 1024")
     cases += h512_cases(rand, dev)
     cases += w768_cases(rand, dev, seed, B)
+    cases += width_cases(rand, dev, seed, dtype, B)
     upd, keys, order, offsets, R = scatter_inputs(dev, dtype, B)
     cases.append(Case("scatter_add_rows", 0.0,
                       lambda: sa.scatter_add_sorted(upd, order, offsets),
@@ -461,15 +476,33 @@ def path_cases(rand, dev: torch.device, seed, B: int, S: int, dk: int,
     """The heads' and the LSTM AR's kernels of one train path at its
     step's shapes: K2 at rate 0.1 on K heads of B*S rows, nh heads x dk;
     K1 forward and backward at (B, T, H); K3 at M = B*S, D = nh*dk."""
-    from cpc_audio_tpu_torch.ops import head_attention as ha, lstm
+    from cpc_audio_tpu_torch.ops import lstm
+    M, D = B * S, nh * dk
+    cases = relpos_cases(rand, seed, B, S, dk, K, nh)
+    lstm_args, lstm_bwd_args = recurrent_args(rand, dev, B, T, H)[:2]
+    rnn_tag = f"B {B} / T {T} / H {H}"
+    return cases + [
+        Case("lstm_fwd", 0.0,
+             lambda: lstm.lstm_fwd(*lstm_args, save_residuals=True),
+             lambda: lstm.lstm_scan_ref(*lstm_args, save_residuals=True),
+             lstm_args, 2 * B * T * 4 * H * H, shape=rnn_tag),
+        Case("lstm_bwd", 0.0, lambda: lstm.lstm_bwd(*lstm_bwd_args),
+             lambda: lstm.lstm_bwd_ref(*lstm_bwd_args), lstm_bwd_args,
+             2 * B * T * 4 * H * H, shape=rnn_tag)] + \
+        tail_cases(rand, seed, M, D, f"M {M} / D {D}")
+
+
+def relpos_cases(rand, seed, B: int, S: int, dk: int, K: int = 12,
+                 nh: int = 8):
+    """K2 forward and backward at rate 0.1 (the train step's) on K heads
+    of B*S rows, nh heads x dk."""
+    from cpc_audio_tpu_torch.ops import head_attention as ha
     M, D = B * S, nh * dk
     args = (rand(K, M, D), rand(K, M, D), rand(K, M, D),
             rand(K, dk, S, scale=0.5))
     dout = rand(K, M, D, scale=0.1)
     pairs = K * B * nh * S * (S + 1) // 2
     r, tag = 0.1, f"S {S} / dk {dk}"
-    lstm_args, lstm_bwd_args = recurrent_args(rand, dev, B, T, H)[:2]
-    rnn_tag = f"B {B} / T {T} / H {H}"
     return [
         Case("relpos_attention_fwd", r,
              lambda: ha.relpos_attention_fwd(*args, B, nh, r, seed),
@@ -479,15 +512,34 @@ def path_cases(rand, dev: torch.device, seed, B: int, S: int, dk: int,
              lambda: ha.relpos_attention_bwd(*args, dout, B, nh, r, seed),
              lambda: ha.relpos_attention_bwd_ref(*args, dout, B, nh, r,
                                                  seed),
-             args + (dout,), 16 * dk * pairs, shape=tag),
-        Case("lstm_fwd", 0.0,
-             lambda: lstm.lstm_fwd(*lstm_args, save_residuals=True),
-             lambda: lstm.lstm_scan_ref(*lstm_args, save_residuals=True),
-             lstm_args, 2 * B * T * 4 * H * H, shape=rnn_tag),
-        Case("lstm_bwd", 0.0, lambda: lstm.lstm_bwd(*lstm_bwd_args),
-             lambda: lstm.lstm_bwd_ref(*lstm_bwd_args), lstm_bwd_args,
-             2 * B * T * 4 * H * H, shape=rnn_tag)] + \
-        tail_cases(rand, seed, M, D, f"M {M} / D {D}")
+             args + (dout,), 16 * dk * pairs, shape=tag)]
+
+
+def width_cases(rand, dev: torch.device, seed, dtype: torch.dtype,
+                B: int = 32):
+    """The kernels at --hiddenEncoder widths that are no multiple of 32
+    or past 1024 (K 12, S 116 anchors, M = B*116): K3 at D 200 and 1056
+    (the wide body: D-wide epilogues across column tiles) and, in float32,
+    at D 2048; K2 at dk 25 and 132 (D 200 and 1056); K8 in float32 at C
+    200 and 1056 (rows past 4096 bytes walked in pieces), on the exact
+    sampler's keys."""
+    from cpc_audio_tpu_torch.ops import scatter_add as sa
+    S, M = 116, B * 116
+    cases = []
+    for D in (200, 1056) + ((2048,) if dtype == torch.float32 else ()):
+        cases += tail_cases(rand, seed, M, D, f"M {M} / D {D}")
+    for dk in (25, 132):
+        cases += relpos_cases(rand, seed, B, S, dk)
+    if dtype == torch.float32:
+        for C in (200, 1056):
+            upd, keys, order, offsets, R = scatter_inputs(dev, dtype, B, C)
+            cases.append(Case(
+                "scatter_add_rows", 0.0,
+                lambda u=upd, o=order, f=offsets: sa.scatter_add_sorted(
+                    u, o, f),
+                lambda u=upd, k=keys, r=R: sa.scatter_add_rows_ref(u, k, r),
+                (upd, order, offsets), upd.numel(), shape=f"C {C}"))
+    return cases
 
 
 def h512_cases(rand, dev: torch.device, B: int = 32, T: int = 128,
@@ -559,14 +611,15 @@ def wide_cases(rand, seed, B: int = 32):
     return cases + tail_cases(rand, seed, B * 116, 512, tag)
 
 
-def scatter_inputs(dev: torch.device, dtype: torch.dtype, B: int = 32):
-    """K8's inputs on the exact path at batch B: the (B*W*N, 256) cotangent
+def scatter_inputs(dev: torch.device, dtype: torch.dtype, B: int = 32,
+                   C: int = 256):
+    """K8's inputs on the exact path at batch B: the (B*W*N, C) cotangent
     of the negatives, random, and the sampler's flat pool index (B = 32:
     475,136 keys into R = 4096 rows), with its sorted form."""
     from cpc_audio_tpu_torch.criterion import infonce
     from cpc_audio_tpu_torch.ops import dropout
     from cpc_audio_tpu_torch.ops import scatter_add as sa
-    S, K, N, C = 128, 12, 128, 256
+    S, K, N = 128, 12, 128
     W = S - K
     b, u = dropout.negative_indices(
         torch.tensor([SEED], dtype=torch.int64, device=dev), (B, N, W), B, S)
@@ -911,8 +964,12 @@ def f32_yardsticks(dev: torch.device, B: int = 32) -> None:
               lambda: lstm.lstm_bwd(*lba)) if kind == "lstm" else
              (lambda: gru.gru_fwd(*ga, save_residuals=True),
               lambda: gru.gru_bwd(*gba)))
+        mod = lstm if kind == "lstm" else gru
+        bodies = (mod.fwd_body(H, f32) if kind == "lstm" else "rows",
+                  mod.bwd_body(H, f32))
         for i, d in enumerate(("fwd", "bwd")):
-            turns(f"{kind}_{d} B {Bl} / T {T} / H {H}", k[i], cudnn[i],
+            turns(f"{kind}_{d} B {Bl} / T {T} / H {H} ({bodies[i]} body)",
+                  k[i], cudnn[i],
                   f"cuDNN nn.{cudnn[2]} " + ("forward (training), input "
                                              "projection included" if i == 0
                                              else "autograd backward, dx and "
@@ -1020,6 +1077,19 @@ TAIL_BWD_LAUNCHES = (("split", "tail_split_kernel"),
                      ("sums", "sum_parts"))
 TAIL_LAUNCHES = {"layer_tail_fwd": TAIL_FWD_LAUNCHES,
                  "layer_tail_bwd": TAIL_BWD_LAUNCHES}
+# past D 1024 the wide body: G2 and G4 on 128 x 128 tiles, LN2 (and the
+# backward's LN2' and LN1') in row and column passes
+TAIL_WIDE_LAUNCHES = {
+    "layer_tail_fwd": (("split", "tail_split_kernel"),
+                       ("LN1", "tail_ln1_wide_kernel"), ("G1", "g1_hidden"),
+                       ("G2", "g2_wide"), ("LN2", "tail_ln2_out_kernel")),
+    "layer_tail_bwd": (("split", "tail_split_kernel"),
+                       ("LN1", "tail_ln1_wide_kernel"), ("G1", "g1_hidden"),
+                       ("G2", "g2_wide"), ("G3", "g3_dhp"),
+                       ("G4", "g4_wide"), ("row passes", "tail_rows_kernel"),
+                       ("column passes", "tail_cols_kernel"),
+                       ("G5", "g5_dw1"), ("G6", "g6_dw2"),
+                       ("sums", "sum_parts"))}
 
 
 def tail_launches(case: Case, ms: float, dtype: torch.dtype,
@@ -1037,22 +1107,31 @@ def tail_launches(case: Case, ms: float, dtype: torch.dtype,
     if not all(torch.equal(a, b) for a, b in zip(first, again)):
         fail(f"{case.label}: a rerun is not bit-identical")
     del first, again
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            case.kernel()
-        torch.cuda.synchronize()
-    launches = TAIL_LAUNCHES[case.name]
-    t = {use: 0.0 for use, _ in launches
-         if use != "split" or dtype == torch.float32}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        use = next((u for u, frag in launches
-                    if frag in e.key.lower() and u in t), None)
-        if use is not None:
-            t[use] += e.self_device_time_total / 1e3 / n
-    missing = [use for use, v in t.items() if v == 0.0]
+    from cpc_audio_tpu_torch.ops import ffn
+    wide = case.inputs[0].shape[-1] > ffn.ROW_TILE_MAX_D
+    launches = (TAIL_WIDE_LAUNCHES if wide else TAIL_LAUNCHES)[case.name]
+    # torch.profiler now and then returns a profile without the device's
+    # events (none at all, after its warning that "Profiler clears events
+    # at the end of each cycle"); profile again, up to three times, before
+    # calling a launch missing
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                case.kernel()
+            torch.cuda.synchronize()
+        t = {use: 0.0 for use, _ in launches
+             if use != "split" or dtype == torch.float32}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            use = next((u for u, frag in launches
+                        if frag in e.key.lower() and u in t), None)
+            if use is not None:
+                t[use] += e.self_device_time_total / 1e3 / n
+        missing = [use for use, v in t.items() if v == 0.0]
+        if not missing:
+            break
     if missing:
         fail(f"{case.label}: the profile shows no {', '.join(missing)}")
     print(f"  {case.label}: reruns bit-identical; device ms a call by "
@@ -1252,6 +1331,11 @@ WIDE = "transformer 512"          # --hiddenEncoder 512 --hiddenGar 512
 LONG = "LSTM 40960/512"      # --sizeWindow 40960 --hiddenEncoder 512 ..
 W768 = "LSTM 768"            # --hiddenEncoder 768 --hiddenGar 768
 F32 = "LSTM float32"         # --compute_dtype float32, the CLIs' default
+F512 = "LSTM 512 float32"    # --hiddenEncoder 512 --hiddenGar 512, float32
+F768 = "LSTM 768 float32"    # --hiddenEncoder 768 --hiddenGar 768, float32
+W200 = "LSTM 200"            # --hiddenEncoder 200 --hiddenGar 200
+W1056 = "LSTM 1056"          # --hiddenEncoder 1056 --hiddenGar 1056
+FLOAT32_PATHS = (F32, F512, F768)
 PATH_KERNELS = {"LSTM": ("lstm_fwd", "lstm_bwd") + HEADS,
                 "GRU": ("gru_fwd", "gru_bwd") + HEADS,
                 "transformer": ("causal_attention_fwd",
@@ -1265,23 +1349,35 @@ PATH_KERNELS = {"LSTM": ("lstm_fwd", "lstm_bwd") + HEADS,
                 + HEADS,
                 LONG: ("lstm_fwd", "lstm_bwd") + HEADS,
                 W768: ("lstm_fwd", "lstm_bwd") + HEADS,
-                F32: ("lstm_fwd", "lstm_bwd") + HEADS}
+                F32: ("lstm_fwd", "lstm_bwd") + HEADS,
+                F512: ("lstm_fwd", "lstm_bwd") + HEADS,
+                F768: ("lstm_fwd", "lstm_bwd") + HEADS,
+                W200: ("lstm_fwd", "lstm_bwd") + HEADS,
+                W1056: ("lstm_fwd", "lstm_bwd") + HEADS}
 # CPCConfig fields a path sets beside arMode
 PATH_CONFIG = {EXACT: {"negativeSamplingMode": "exact"},
                WIDE: {"hiddenEncoder": 512, "hiddenGar": 512},
                LONG: {"sizeWindow": 40960, "hiddenEncoder": 512,
                       "hiddenGar": 512},
-               W768: {"hiddenEncoder": 768, "hiddenGar": 768}}
+               W768: {"hiddenEncoder": 768, "hiddenGar": 768},
+               F512: {"hiddenEncoder": 512, "hiddenGar": 512},
+               F768: {"hiddenEncoder": 768, "hiddenGar": 768},
+               W200: {"hiddenEncoder": 200, "hiddenGar": 200},
+               W1056: {"hiddenEncoder": 1056, "hiddenGar": 1056}}
 # the body the AR's backward kernel (K1, K4) must run on a path: the
 # cluster body at hiddenGar 256 (and 128) and, on 16 CTAs, at 512 and 768
-# (the bf16 train step's; at 768 with part of W_hh streamed from L2)
+# in both dtypes (with part of W_hh streamed from L2 at 768, and in
+# float32, on W_hh's two bf16 planes, at 512 too); the rows body at 200
+# and 1056
 BWD_BODY = {"LSTM": "cluster", "GRU": "cluster", FUSED: "cluster",
             EXACT: "cluster", LONG: "cluster", W768: "cluster",
-            F32: "cluster"}
-# the body K1's forward must run: the rows body at hiddenGar 256, the
-# 16-CTA cluster body at 512 and 768 (bf16)
+            F32: "cluster", F512: "cluster", F768: "cluster", W200: "rows",
+            W1056: "rows"}
+# the body K1's forward must run: the rows body at hiddenGar 256, 200 and
+# 1056, the 16-CTA cluster body at 512 and 768 in both dtypes
 FWD_BODY = {"LSTM": "rows", FUSED: "rows", EXACT: "rows", LONG: "cluster",
-            W768: "cluster", F32: "rows"}
+            W768: "cluster", F32: "rows", F512: "cluster", F768: "cluster",
+            W200: "rows", W1056: "rows"}
 # launches a step, where a path fixes them: on the fused path K2 must not
 # run at all; on the exact path K8 runs once, in the backward
 PER_STEP = {FUSED: {"attention_block_fwd": 1, "attention_block_bwd": 1,
@@ -1503,7 +1599,7 @@ def phase_train(dev: torch.device, path: str = "LSTM",
     """The train path of one --arMode (or the fused-layer path):
     make_train_step at the default config in bf16 (F32: in float32, the
     CLIs' default), 2 warm-up and 10 timed steps on a fixed batch."""
-    dtype = "float32" if path == F32 else "bfloat16"
+    dtype = "float32" if path in FLOAT32_PATHS else "bfloat16"
     model, crit = build(path, dtype, torch.Generator().manual_seed(SEED))
     cfg = model.config
     step, batch, key = train_setup(model, crit, dev, B)
@@ -1759,24 +1855,27 @@ def profile_train(step, batch, key, step_ms: float, path: str,
     print("  by group: " + ", ".join(
         f"{g} {t / 1e3 / n:.3f} ms" for g, t in
         sorted(groups.items(), key=lambda kv: -kv[1])), flush=True)
-    # K3 by direction: both launch LN1 and (in float32) the split once, the
-    # forward's G1 (G1_hidden<E, false>) and G2 (G2_out) are its own
+    # K3 by direction: both launch LN1 and (in float32) the split once (and
+    # past D 1024 the wide body's G2), the forward's G1 (G1_hidden<E,
+    # false>) and G2 (G2_out; the wide body's LN2 pass) are its own
     tail = {"fwd": 0.0, "bwd": 0.0}
     for e in rows:
         name = e.key.lower()
         if "tail_" not in name:
             continue
         t = e.self_device_time_total / 1e3 / n
-        if "tail_ln1_kernel" in name or "tail_split_kernel" in name:
+        if any(w in name for w in ("tail_ln1_", "tail_split_kernel",
+                                   "g2_wide")):
             tail["fwd"] += t / 2
             tail["bwd"] += t / 2
-        elif "g2_out" in name or ("g1_hidden" in name and "false>" in name):
+        elif "g2_out" in name or "tail_ln2_out" in name or (
+                "g1_hidden" in name and "false>" in name):
             tail["fwd"] += t
         else:
             tail["bwd"] += t
     print(f"  K3 forward {tail['fwd']:.3f} ms, backward (but its sums over "
-          f"tiles) {tail['bwd']:.3f} ms (LN1 and the split halved between "
-          f"the two)", flush=True)
+          f"tiles) {tail['bwd']:.3f} ms (LN1, the split and a wide body's "
+          f"G2 halved between the two)", flush=True)
     if other:
         print("  largest of 'other': " + "; ".join(
             f"{e.key[:60]} {e.self_device_time_total / 1e3 / n:.3f} ms"
@@ -1789,7 +1888,7 @@ PROFILE_GROUPS = (
                       "gru_bwd", "relpos_attention",
                       "causal_attention", "tail_", "dkrel_reduce",
                       "attention_block", "conv_ln", "sum_parts",
-                      "scatter_add_kernel")),
+                      "scatter_add_kernel", "split_planes")),
     ("Adam (foreach kernels)", ("adam", "multi_tensor_apply")),
     ("cuDNN conv", ("cudnn", "conv", "nchwtonhwc", "nhwctonchw", "wgrad",
                     "dgrad")),
@@ -1804,6 +1903,7 @@ def check_train_against_cpu(dev: torch.device, path: str = "LSTM") -> None:
     """One float32 train step on a (2, 1, sizeWindow) batch, kernels on
     the card vs plain versions on the CPU: same weights, round keys and
     dropout seed (the dropout bits do not depend on the device)."""
+    from cpc_audio_tpu_torch.ops import lstm
     from cpc_audio_tpu_torch.parallel.train_step import (create_train_state,
                                                          epoch_key,
                                                          make_train_step)
@@ -1811,14 +1911,22 @@ def check_train_against_cpu(dev: torch.device, path: str = "LSTM") -> None:
     model, crit = build(path, "float32",
                         torch.Generator().manual_seed(SEED + 4))
     batch = synthetic_audio(model.config.sizeWindow, 2, SEED + 4)
-    results, tails = [], []
+    results, tails, relu = [], [], {}
     for device in (dev, torch.device("cpu")):
         state = create_train_state(copy.deepcopy(model),
                                    copy.deepcopy(crit), device)
-        with record_tail_inputs() as tail:
+        fns = reset_counts()
+        with record_tail_inputs() as tail, \
+                encoder_relu_kinks(state.model, relu):
             _, met = make_train_step(state, device)(
                 batch, key=epoch_key(SEED, 0, device))
         tails.append(tail)
+        if device == dev and path in BWD_BODY and path.startswith("LSTM"):
+            # float32: the bodies of K1 at the path's hiddenGar
+            H = model.config.hiddenGar
+            for name, want in (("lstm_fwd", lstm.fwd_body(H, torch.float32)),
+                               ("lstm_bwd", lstm.bwd_body(H, torch.float32))):
+                check_body(fns, f"float32 {path}", 1, want, name)
         grads = {f"{prefix}.{n}": p.grad.detach().float().cpu()
                  for prefix, mod in (("model", state.model),
                                      ("criterion", state.criterion))
@@ -1827,6 +1935,15 @@ def check_train_against_cpu(dev: torch.device, path: str = "LSTM") -> None:
     (l_g, g_g), (l_c, g_c) = results
     print(f"float32 {path} train step, card (kernels) vs CPU (plain "
           f"versions), dropout on:", flush=True)
+    forced = relu["forced"]
+    print(f"  {path} encoder ReLU units the card and the CPU put on opposite "
+          f"sides of 0, each within {KINK_ATOL:g} of it, taken on the card's "
+          f"side on the CPU: {sum(forced.values())} "
+          f"({forced}); opposite and farther apart: {relu['apart']}",
+          flush=True)
+    if relu["apart"] or sum(forced.values()) > MAX_ENCODER_KINKS:
+        fail(f"the {path} encoder's ReLU inputs disagree in sign between the "
+             f"card and the CPU beyond float32 rounding of the kink")
     compare(f"{path} train losses", l_g, l_c, 1e-3, 1e-3,
             f"f32 through the {path} AR, heads and InfoNCE")
     for name in sorted(g_c):
@@ -1842,6 +1959,54 @@ def check_train_against_cpu(dev: torch.device, path: str = "LSTM") -> None:
           "; ".join(f"{g} {e:.3e} ({n})" for g, (e, n) in worst.items()),
           flush=True)
     kink_report(path, tails, g_g, g_c)
+
+
+# An encoder ReLU unit (the output of a ChannelNorm, O(1)) whose card and
+# CPU values lie on opposite sides of 0, both within KINK_ATOL of it, is
+# within float32 rounding of the kink (the two encoders' outputs agree to
+# a few 1e-6): whichever branch it takes moves its whole upstream
+# gradient into every encoder leaf below it, up to 6e-3 of their norms at
+# --hiddenEncoder 1056 (port_perf/train_step_errors.py).  The CPU takes
+# the card's branch there, at most MAX_ENCODER_KINKS such units a step.
+KINK_ATOL = 1e-5
+MAX_ENCODER_KINKS = 8
+
+
+@contextlib.contextmanager
+def encoder_relu_kinks(model, relu: dict):
+    """While a train step runs: on the first device (``relu`` empty),
+    records each ChannelNorm output of the model's encoder (the encoder's
+    ReLU inputs, on the CPU); on the second, gives each unit that the two
+    put on opposite sides of 0, both within KINK_ATOL of it, the first's
+    value, and counts them in ``relu["forced"]`` by layer, and the
+    opposite-signed units farther apart in ``relu["apart"]``."""
+    first = "card" not in relu
+    if first:
+        relu["card"] = {}
+    else:
+        relu["forced"], relu["apart"] = {}, 0
+    hooks = []
+
+    def hook(name, out):
+        if first:
+            relu["card"][name] = out.detach().float().cpu()
+            return None
+        card = relu["card"][name].to(out.dtype)
+        opposite = (out > 0) != (card > 0)
+        near = (out.abs() < KINK_ATOL) & (card.abs() < KINK_ATOL)
+        relu["forced"][name] = int((opposite & near).sum())
+        relu["apart"] += int((opposite & ~near).sum())
+        # the card's value there, the gradient still through out
+        return out + torch.where(opposite & near, card - out, 0.0).detach()
+    for name, mod in model.gEncoder.named_children():
+        if name.startswith("norm"):
+            hooks.append(mod.register_forward_hook(
+                lambda m, args, out, name=name: hook(name, out)))
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
 
 
 # gradient leaves by where they sit in the step, first matching prefix
@@ -2066,12 +2231,16 @@ def main() -> None:
                       (FUSED, ("attention_block_fwd", "attention_block_bwd",
                                "conv_ln_fwd", "conv_ln_bwd")),
                       (EXACT, ("scatter_add_rows",)),
-                      (WIDE, ()), (LONG, ()), (W768, ()), (F32, ())):
+                      (WIDE, ()), (LONG, ()), (W768, ()), (F32, ()),
+                      (F512, ()), (F768, ()), (W200, ()), (W1056, ())):
         t0 = time.time()
         # the long-window path at a small batch, as users fit it on a card
         counts = phase_train(dev, path, B=8 if path == LONG else 32)
         launches.update({name: counts[name] for name in own})
-        if path != F32:          # its float32 step is the LSTM path's
+        # a float32 path's step on two windows is that of the bf16 path of
+        # its widths: the default LSTM's, the long window's (K1's float32
+        # cluster bodies at H 512) and the 768-wide's (at H 768)
+        if path not in FLOAT32_PATHS:
             check_train_against_cpu(dev, path)
         print(f"[phase train {path} {time.time() - t0:.1f} s]", flush=True)
     t0 = time.time()

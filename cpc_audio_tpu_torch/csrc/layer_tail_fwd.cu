@@ -17,8 +17,8 @@ extern "C" size_t cpc_layer_tail_fwd_scratch(int K, int M, int D, int F,
 }
 
 // x, w1, w2 and out in `dtype`; the LN parameters and biases float32;
-// `scratch` cpc_layer_tail_fwd_scratch bytes.  D a multiple of 32 in [32,
-// 1024]; F a multiple of 64 (bf16) or 32 (float32).
+// `scratch` cpc_layer_tail_fwd_scratch bytes.  D a multiple of 8; F a
+// multiple of 64 (bf16) or 32 (float32).
 extern "C" int cpc_layer_tail_fwd(const void* x, const void* ln1w,
                                   const void* ln1b, const void* w1,
                                   const void* b1, const void* w2,

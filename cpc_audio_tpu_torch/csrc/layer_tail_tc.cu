@@ -78,14 +78,16 @@
 //   G6   h^T df      -> dW2 (float32);
 // then the per-tile partials are summed over tiles in a fixed order
 // (cpc::sum_parts, csrc/tile_mm.cuh).  No atomics anywhere: reruns are
-// bit-identical.  The G2s and G4 keep a whole D-wide row tile in registers
-// (128 x 256, 64 x 512 or 32 x 1024 over 16 warps: 64 accumulators a
-// thread).
+// bit-identical.  Up to D 1024 the G2s and G4 keep a whole D-wide row
+// tile in registers (128 x 256, 64 x 512 or 32 x 1024 over 16 warps: 64
+// accumulators a thread); past it (the wide body, below) they run on
+// 128 x 128 tiles and hand their rows to row and column passes.
 //
-// Shapes: D a multiple of 32 up to 1024 (K2's limit, 8 heads of dk <=
-// 128), F a multiple of 64 in bf16 and of 32 in float32 (a warp's 32
-// columns of G1 and G3 make one word of live bits), any M (ragged tiles
-// are zero-filled by the core).
+// Shapes: D any multiple of 8 (a row of bf16 planes is whole 16-byte
+// chunks; the core zero-fills the 8-column chunks past D, and every
+// epilogue skips the column pairs past it), F a multiple of 64 in bf16
+// and of 32 in float32 (a warp's 32 columns of G1 and G3 make one word
+// of live bits), any M (ragged tiles are zero-filled by the core).
 #include <type_traits>
 
 #include "common.cuh"
@@ -96,13 +98,18 @@
 
 namespace cpc {
 
-// D's width classes: class W serves D up to 256 << W, and tables of
-// per-class instantiations are indexed with it (ops/ffn.py's
-// `_width_class` mirrors it for the pure gate).
-constexpr int kTailMaxD = 1024;    // K2's limit: 8 heads of dk <= 128
-constexpr int kTailClasses = 3;
+// D's width classes: class W < 3 serves D up to 256 << W with a row tile
+// that holds every column, and tables of per-class instantiations are
+// indexed with it; class 3 (D past kTailMaxD) is the wide body, whose
+// D-wide epilogues cross column tiles (ops/ffn.py's `_width_class`
+// mirrors it for the pure gate).
+constexpr int kTailMaxD = 1024;    // the widest row tile
+constexpr int kTailClasses = 3;    // the classes of the row-tile bodies
+constexpr int kTailWide = 3;
 
-inline int tail_width_class(int D) { return D <= 256 ? 0 : D <= 512 ? 1 : 2; }
+inline int tail_width_class(int D) {
+  return D <= 256 ? 0 : D <= 512 ? 1 : D <= kTailMaxD ? 2 : kTailWide;
+}
 
 namespace tail_tc {
 namespace {
@@ -156,6 +163,7 @@ struct Args {
   size_t w_plane, y_plane, h_plane;   // K D F; K M D (y, df); K M F
   uint32_t* live;                 // (K, M, F / 32) bits of h32 > 0
   float *stats, *dy2;             // (K, M, 2) mean1, inv1; (K, M, D)
+  float* rstat;                   // wide body: (K, M, 4) a row pass's
   float *vec_part, *db1_part;     // (5, K, row tiles, D); (K, hid tiles, F)
   float *dw1, *dw2;
   int K, M, D, F, row_tiles, hid_tiles;
@@ -172,7 +180,7 @@ struct Scratch {
   bf16 *y, *df, *h, *dhp, *w;
   size_t w_plane, y_plane, h_plane;
   uint32_t* live;
-  float *dy2, *stats, *db1_part;
+  float *dy2, *stats, *db1_part, *rstat;
   size_t bytes;
   Scratch(unsigned char* base, int K, int M, int D, int F, bool fwd) {
     using Pr = Prec<E>;
@@ -198,11 +206,16 @@ struct Scratch {
             : nullptr;
     live = fwd ? nullptr
                : reinterpret_cast<uint32_t*>(take(rows * (F / 32) * 4));
-    dy2 = fwd ? nullptr : reinterpret_cast<float*>(take(rows * D * 4));
+    // the wide body's y2 (forward) or y2, dy2 and dy (backward, in place)
+    const bool wide = cpc::tail_width_class(D) == cpc::kTailWide;
+    dy2 = fwd && !wide ? nullptr
+                       : reinterpret_cast<float*>(take(rows * D * 4));
     stats = reinterpret_cast<float*>(take(rows * 2 * 4));
     const int hid = (M + TileHid::BM - 1) / TileHid::BM;
     db1_part = fwd ? nullptr
                    : reinterpret_cast<float*>(take((size_t)K * hid * F * 4));
+    rstat = fwd || !wide ? nullptr
+                         : reinterpret_cast<float*>(take(rows * 4 * 4));
     bytes = off;
   }
 };
@@ -728,6 +741,94 @@ struct G6_dw2 {
   }
 };
 
+// ---- the wide body (D past kTailMaxD) ---------------------------------------
+//
+// A D-wide row no longer fits one block's accumulators, so the D-wide
+// products run on the 128 x 128 tiles with plain epilogues, and what
+// needs a whole row goes to row passes: one warp a row for its
+// statistics (the forward's whole LN2, `tail_ln2_out_kernel`; the
+// backward's `tail_rows_kernel`), then, in the backward, one thread a
+// column over a 32-row tile for the elementwise part and the column sums
+// (`tail_cols_kernel`), whose per-tile partials cpc::sum_parts adds in a
+// fixed order as before.  No atomics: reruns stay bit-identical.  The
+// passes read the float32 rows from device memory two to three times
+// (0.5 GB a pass at K 12, M 3712, D 2048), where the row tiles keep them
+// in registers.
+
+constexpr int kWideRows = 32;     // rows a column-pass tile
+
+// G2 of both directions: y2 = y + h W2 + b2 (float32) into dy2.
+template <class E>
+struct G2_wide {
+  using T = TileHid;
+  static constexpr bool kAK = false, kBN = false, kRowsFast = false;
+  static constexpr int kP = Prec<E>::kProducts;
+  static constexpr size_t kEpiBytes = 0;
+  __host__ __device__ static gm::Problem problem(const Args<E>& p) {
+    return {{p.h, (size_t)p.M * p.F, p.F, p.h_plane},
+            {p.w2, (size_t)p.F * p.D, p.D, p.w_plane}, p.M, p.D, p.F};
+  }
+  __device__ static void epilogue(const Args<E>& p,
+                                  float (&acc)[T::MI][T::NI][4],
+                                  const gm::Frag& f, int kk, int, int,
+                                  unsigned char*) {
+    const float* b2 = p.b2 + (size_t)kk * p.D;
+    const size_t base = (size_t)kk * p.M;
+#pragma unroll
+    for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = f.row(mi, hf);
+#pragma unroll
+        for (int ni = 0; ni < T::NI; ++ni) {
+          const int c = f.col(ni);
+          if (row < p.M && c < p.D) {
+            const size_t at = (base + row) * p.D + c;
+            const float2 yv =
+                load_split<Prec<E>::kPlanesY>(p.y + at, p.y_plane);
+            store2(p.dy2 + at, acc[mi][ni][2 * hf] + yv.x + b2[c],
+                   acc[mi][ni][2 * hf + 1] + yv.y + b2[c + 1]);
+          }
+        }
+      }
+  }
+};
+
+// G4: dy = dy2 + dhp W1^T, in place in dy2.
+template <class E>
+struct G4_wide {
+  using T = TileHid;
+  static constexpr bool kAK = false, kBN = true, kRowsFast = false;
+  static constexpr int kP = Prec<E>::kProducts;
+  static constexpr size_t kEpiBytes = 0;
+  __host__ __device__ static gm::Problem problem(const Args<E>& p) {
+    return {{p.dhp, (size_t)p.M * p.F, p.F, p.h_plane},
+            {p.w1, (size_t)p.D * p.F, p.F, p.w_plane}, p.M, p.D, p.F};
+  }
+  __device__ static void epilogue(const Args<E>& p,
+                                  float (&acc)[T::MI][T::NI][4],
+                                  const gm::Frag& f, int kk, int, int,
+                                  unsigned char*) {
+    const size_t base = (size_t)kk * p.M;
+#pragma unroll
+    for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = f.row(mi, hf);
+#pragma unroll
+        for (int ni = 0; ni < T::NI; ++ni) {
+          const int c = f.col(ni);
+          if (row < p.M && c < p.D) {
+            float* d = p.dy2 + (base + row) * p.D + c;
+            const float2 v = load2(d);
+            store2(d, acc[mi][ni][2 * hf] + v.x,
+                   acc[mi][ni][2 * hf + 1] + v.y);
+          }
+        }
+      }
+  }
+};
+
 // ---- kernels ---------------------------------------------------------------
 
 // One output tile of use U per block; blockIdx.z is the head.
@@ -805,6 +906,159 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// y = round(LN1(x)) and the rows' (mean, 1 / std) at any D: one warp per
+// row, reading it from device memory once for each of three passes.
+template <class E>
+__global__ void __launch_bounds__(256) tail_ln1_wide_kernel(const Args<E> p,
+                                                             int rows) {
+  const int r = blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= rows) return;
+  const int kk = r / p.M, D = p.D;
+  const E* xr = p.x + (size_t)r * D;
+  float s = 0.0f;
+  for (int d = lane; d < D; d += 32) s += cpc::to_f32(xr[d]);
+  const float mean = cpc::warp_sum(s) / D;
+  float q = 0.0f;
+  for (int d = lane; d < D; d += 32) {
+    const float v = cpc::to_f32(xr[d]) - mean;
+    q += v * v;
+  }
+  const float inv = rsqrtf(cpc::warp_sum(q) / D + p.eps);
+  const float* w = p.ln1w + (size_t)kk * D;
+  const float* b = p.ln1b + (size_t)kk * D;
+  for (int d = lane; d < D; d += 32) {
+    float yv = (cpc::to_f32(xr[d]) - mean) * inv * w[d] + b[d];
+#pragma unroll
+    for (int j = 0; j < Prec<E>::kPlanesY; ++j) {
+      const bf16 h = __float2bfloat16(yv);
+      p.y[j * p.y_plane + (size_t)r * D + d] = h;
+      yv -= __bfloat162float(h);
+    }
+  }
+  if (lane == 0) {
+    p.stats[2 * (size_t)r] = mean;
+    p.stats[2 * (size_t)r + 1] = inv;
+  }
+}
+
+// The wide body's forward LN2, one warp a row: out = round(LN2(y2)), y2
+// in dy2, read from device memory once for each of three passes.
+template <class E>
+__global__ void __launch_bounds__(256) tail_ln2_out_kernel(const Args<E> p,
+                                                            int rows) {
+  const int r = blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= rows) return;
+  const int kk = r / p.M, D = p.D;
+  const float* v = p.dy2 + (size_t)r * D;
+  float s = 0.0f;
+  for (int d = lane; d < D; d += 32) s += v[d];
+  const float mean = cpc::warp_sum(s) / D;
+  float q = 0.0f;
+  for (int d = lane; d < D; d += 32) q += (v[d] - mean) * (v[d] - mean);
+  const float inv = rsqrtf(cpc::warp_sum(q) / D + p.eps);
+  const float* lw = p.ln2w + (size_t)kk * D;
+  const float* lb = p.ln2b + (size_t)kk * D;
+  E* o = p.out + (size_t)r * D;
+  for (int d = lane; d < D; d += 32)
+    o[d] = cpc::from_f32<E>((v[d] - mean) * inv * lw[d] + lb[d]);
+}
+
+// The wide body's backward row passes, one warp a row of D:
+//   kLn2Bwd: rstat = (mean2, inv2, mean(g), mean(g yhat2)), g = do ln2w,
+//            y2 in dy2;
+//   kLn1Bwd: rstat = (mean1, inv1, mean(a), mean(a yhat1)), a = dy ln1w,
+//            dy in dy2, LN1's saved statistics.
+enum WidePass { kLn2Bwd, kLn1Bwd };
+
+template <class E, int kMode>
+__global__ void __launch_bounds__(256) tail_rows_kernel(const Args<E> p,
+                                                         int rows) {
+  const int r = blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= rows) return;
+  const int kk = r / p.M, D = p.D;
+  const float* v = p.dy2 + (size_t)r * D;
+  float mean, inv;
+  if (kMode == kLn1Bwd) {
+    mean = p.stats[2 * (size_t)r];
+    inv = p.stats[2 * (size_t)r + 1];
+  } else {
+    float s = 0.0f;
+    for (int d = lane; d < D; d += 32) s += v[d];
+    mean = cpc::warp_sum(s) / D;
+    float q = 0.0f;
+    for (int d = lane; d < D; d += 32) q += (v[d] - mean) * (v[d] - mean);
+    inv = rsqrtf(cpc::warp_sum(q) / D + p.eps);
+  }
+  const float* lw = (kMode == kLn2Bwd ? p.ln2w : p.ln1w) + (size_t)kk * D;
+  float s0 = 0.0f, s1 = 0.0f;
+  for (int d = lane; d < D; d += 32) {
+    float a, yhat;
+    if (kMode == kLn2Bwd) {
+      a = cpc::to_f32(p.dout[(size_t)r * D + d]) * lw[d];
+      yhat = (v[d] - mean) * inv;
+    } else {
+      a = v[d] * lw[d];
+      yhat = (cpc::to_f32(p.x[(size_t)r * D + d]) - mean) * inv;
+    }
+    s0 += a;
+    s1 += a * yhat;
+  }
+  s0 = cpc::warp_sum(s0);
+  s1 = cpc::warp_sum(s1);
+  if (lane == 0)
+    *reinterpret_cast<float4*>(p.rstat + 4 * (size_t)r) =
+        make_float4(mean, inv, s0 / D, s1 / D);
+}
+
+// The wide body's column passes, one thread a column of a kWideRows-row
+// tile (blockIdx.y) of head blockIdx.z, from tail_rows_kernel's rstat:
+//   kLn2Bwd: dy2 = LN2'(do) in place of y2, df's planes; the tile's
+//            partials of db2, dln2w, dln2b;
+//   kLn1Bwd: dx = LN1'(dy); the tile's partials of dln1w, dln1b.
+template <class E, int kMode>
+__global__ void __launch_bounds__(256) tail_cols_kernel(const Args<E> p) {
+  const int c = blockIdx.x * 256 + threadIdx.x;
+  const int tile = blockIdx.y, kk = blockIdx.z, D = p.D;
+  if (c >= D) return;
+  const size_t base = (size_t)kk * p.M;
+  const float lw = (kMode == kLn2Bwd ? p.ln2w : p.ln1w)[(size_t)kk * D + c];
+  float cs[3] = {};
+  const int r1 = min(p.M, (tile + 1) * kWideRows);
+  for (int row = tile * kWideRows; row < r1; ++row) {
+    const size_t at = (base + row) * D + c;
+    const float4 st =
+        *reinterpret_cast<const float4*>(p.rstat + 4 * (base + row));
+    if (kMode == kLn2Bwd) {
+      const float yhat = (p.dy2[at] - st.x) * st.y;
+      const float dv = cpc::to_f32(p.dout[at]);
+      const float d = (dv * lw - st.z - yhat * st.w) * st.y;
+      p.dy2[at] = d;
+      float rest = d;
+#pragma unroll
+      for (int j = 0; j < Prec<E>::kPlanes; ++j) {
+        const bf16 h = __float2bfloat16(rest);
+        p.df[j * p.y_plane + at] = h;
+        rest -= __bfloat162float(h);
+      }
+      cs[0] += rounded<E>(d);
+      cs[1] += dv * yhat;
+      cs[2] += dv;
+    } else {
+      const float a = p.dy2[at];
+      const float y0 = (cpc::to_f32(p.x[at]) - st.x) * st.y;
+      p.dx[at] = cpc::from_f32<E>((a * lw - st.z - y0 * st.w) * st.y);
+      cs[0] += a * y0;
+      cs[1] += a;
+    }
+  }
+  const int v0 = kMode == kLn2Bwd ? 2 : 0, nv = kMode == kLn2Bwd ? 3 : 2;
+  for (int n = 0; n < nv; ++n)
+    p.vec_part[vec_at(p, v0 + n, kk, tile) + c] = cs[n];
+}
+
 template <class U, class E>
 cudaError_t run(const Args<E>& p, int K, cudaStream_t stream) {
   using T = typename U::T;
@@ -866,6 +1120,7 @@ Args<E> args_for(const Scratch<E>& sc, const void* x, const float* ln1w,
   p.live = sc.live;
   p.stats = sc.stats;
   p.dy2 = sc.dy2;
+  p.rstat = sc.rstat;
   p.db1_part = sc.db1_part;
   p.K = K;
   p.M = M;
@@ -894,12 +1149,37 @@ cudaError_t split_and_ln1(const Args<E>& p, const Scratch<E>& sc,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  const decltype(&tail_ln1_kernel<E, 256>) kLn1[cpc::kTailClasses] = {
+  const decltype(&tail_ln1_kernel<E, 256>) kLn1[cpc::kTailClasses + 1] = {
       tail_ln1_kernel<E, 256>, tail_ln1_kernel<E, 512>,
-      tail_ln1_kernel<E, 1024>};
+      tail_ln1_kernel<E, 1024>, tail_ln1_wide_kernel<E>};
   const int rows = p.K * p.M;
   kLn1[cpc::tail_width_class(p.D)]<<<dim3((rows + 7) / 8), 256, 0, stream>>>(
       p, rows);
+  return cudaGetLastError();
+}
+
+// The wide body's forward LN2 over all K M rows.
+template <class E>
+cudaError_t ln2_out_pass(const Args<E>& p, cudaStream_t stream) {
+  const int rows = p.K * p.M;
+  tail_ln2_out_kernel<E><<<dim3((rows + 7) / 8), 256, 0, stream>>>(p, rows);
+  return cudaGetLastError();
+}
+
+// A backward row pass of the wide body over all K M rows.
+template <class E, int kMode>
+cudaError_t rows_pass(const Args<E>& p, cudaStream_t stream) {
+  const int rows = p.K * p.M;
+  tail_rows_kernel<E, kMode><<<dim3((rows + 7) / 8), 256, 0, stream>>>(
+      p, rows);
+  return cudaGetLastError();
+}
+
+// A column pass of the wide body: 256 columns by kWideRows rows a block.
+template <class E, int kMode>
+cudaError_t cols_pass(const Args<E>& p, cudaStream_t stream) {
+  const dim3 grid((p.D + 255) / 256, p.row_tiles, p.K);
+  tail_cols_kernel<E, kMode><<<grid, 256, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -917,9 +1197,15 @@ int launch_fwd_body(const void* x, const float* ln1w, const float* ln1b,
   const decltype(&run<G2_out<E, 256>, E>) kG2[cpc::kTailClasses] = {
       run<G2_out<E, 256>, E>, run<G2_out<E, 512>, E>,
       run<G2_out<E, 1024>, E>};
+  const bool wide = cpc::tail_width_class(D) == cpc::kTailWide;
   cudaError_t err = split_and_ln1(p, sc, w1, w2, stream);
   if (err == cudaSuccess) err = run<G1_hidden<E, false>, E>(p, K, stream);
-  if (err == cudaSuccess) err = kG2[cpc::tail_width_class(D)](p, K, stream);
+  if (wide) {
+    if (err == cudaSuccess) err = run<G2_wide<E>, E>(p, K, stream);
+    if (err == cudaSuccess) err = ln2_out_pass<E>(p, stream);
+  } else if (err == cudaSuccess) {
+    err = kG2[cpc::tail_width_class(D)](p, K, stream);
+  }
   return (int)err;
 }
 
@@ -948,11 +1234,24 @@ int launch_bwd_body(const void* x, const float* ln1w, const float* ln1b,
   const decltype(&run<G4_dx<E, 256>, E>) kG4[cpc::kTailClasses] = {
       run<G4_dx<E, 256>, E>, run<G4_dx<E, 512>, E>, run<G4_dx<E, 1024>, E>};
   const int w = cpc::tail_width_class(D);
+  const bool wide = w == cpc::kTailWide;
   cudaError_t err = split_and_ln1(p, sc, w1, w2, stream);
   if (err == cudaSuccess) err = run<G1_hidden<E, true>, E>(p, K, stream);
-  if (err == cudaSuccess) err = kG2[w](p, K, stream);
+  if (wide) {
+    if (err == cudaSuccess) err = run<G2_wide<E>, E>(p, K, stream);
+    if (err == cudaSuccess) err = rows_pass<E, kLn2Bwd>(p, stream);
+    if (err == cudaSuccess) err = cols_pass<E, kLn2Bwd>(p, stream);
+  } else if (err == cudaSuccess) {
+    err = kG2[w](p, K, stream);
+  }
   if (err == cudaSuccess) err = run<G3_dhp<E>, E>(p, K, stream);
-  if (err == cudaSuccess) err = kG4[w](p, K, stream);
+  if (wide) {
+    if (err == cudaSuccess) err = run<G4_wide<E>, E>(p, K, stream);
+    if (err == cudaSuccess) err = rows_pass<E, kLn1Bwd>(p, stream);
+    if (err == cudaSuccess) err = cols_pass<E, kLn1Bwd>(p, stream);
+  } else if (err == cudaSuccess) {
+    err = kG4[w](p, K, stream);
+  }
   if (err == cudaSuccess) err = run<G5_dw1<E>, E>(p, K, stream);
   if (err == cudaSuccess) err = run<G6_dw2<E>, E>(p, K, stream);
   if (err == cudaSuccess)
@@ -967,20 +1266,22 @@ int launch_bwd_body(const void* x, const float* ln1w, const float* ln1b,
 
 bool shapes_ok(int D, int F, int dtype) {
   const int chunk = dtype == cpc::kBFloat16 ? 64 : 32;
-  return (dtype == cpc::kBFloat16 || dtype == cpc::kFloat32) && D >= 32 &&
-         D % 32 == 0 && D <= cpc::kTailMaxD && F > 0 && F % chunk == 0;
+  return (dtype == cpc::kBFloat16 || dtype == cpc::kFloat32) && D >= 8 &&
+         D % 8 == 0 && F > 0 && F % chunk == 0;
 }
 
 int row_tiles(int M, int D) {
-  constexpr int kBM[cpc::kTailClasses] = {
-      TileRow<256>::BM, TileRow<512>::BM, TileRow<1024>::BM};
+  constexpr int kBM[cpc::kTailClasses + 1] = {
+      TileRow<256>::BM, TileRow<512>::BM, TileRow<1024>::BM, kWideRows};
   const int bm = kBM[cpc::tail_width_class(D)];
   return (M + bm - 1) / bm;
 }
 
 size_t smem_bytes(int D) {
-  constexpr size_t kSmem[cpc::kTailClasses] = {
-      smem_for<256>(), smem_for<512>(), smem_for<1024>()};
+  constexpr size_t kSmem[cpc::kTailClasses + 1] = {
+      smem_for<256>(), smem_for<512>(), smem_for<1024>(),
+      cmax(cmax(ring<TileHid, false, false>(), ring<TileHid, false, true>()),
+           ring<TileW, true, false>())};
   return kSmem[cpc::tail_width_class(D)];
 }
 

@@ -12,8 +12,8 @@
 namespace cpc {
 namespace tail_tc {
 
-// dtype float32 or bf16; D a multiple of 32 in [32, 1024], F a multiple
-// of 64 (bf16) or 32 (float32).
+// dtype float32 or bf16; D a multiple of 8, F a multiple of 64 (bf16)
+// or 32 (float32).
 bool shapes_ok(int D, int F, int dtype);
 // Row tiles of the D-wide products (the rows of vec_part).
 int row_tiles(int M, int D);

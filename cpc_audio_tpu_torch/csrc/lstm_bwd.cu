@@ -13,7 +13,7 @@
 // Two bodies, picked from the shape before launching (`cluster_body`):
 //
 // The cluster body (csrc/rnn_cluster.cuh), at H = 128 and 256 in both
-// dtypes on C = 8 CTAs, and at H = 512 and 768 in bf16 on C = 16: one
+// dtypes on C = 8 CTAs, and at H = 512 and 768 on C = 16: one
 // cluster per 16 batch rows keeps W_hh on chip for the whole window,
 // split by hidden unit (CTA c owns units [c H/C, (c+1) H/C) and their 4
 // gate rows: 133 KB of bf16 W_hh at H = 512, 232 KB of the CTA's 227 KB
@@ -29,7 +29,13 @@
 // buffer has one parity, guarded by a second cluster barrier split around
 // the product, and the residuals come through registers (`StreamLayout`;
 // 219 KB a CTA).  In float32 at H = 512 and 768, W_hh (4-9 MB) exceeds
-// even 16 CTAs' shared memory, so the rows body runs.
+// even 16 CTAs' shared memory as it is: the same streamed body runs on
+// W_hh's two bf16 planes, hi and lo (split once a call into scratch,
+// `cpc::rnn::split_planes`), with 3 split products a k-step (dgates' hi
+// and lo by W_hi, dgates' hi by W_lo: about 2^-16 of |dgates||W_hh| a
+// term dropped; ops/lstm.py `lstm_bwd_split` writes that arithmetic): a
+// warp's k-steps are the hi plane's 4J / 16, then the lo plane's, 4 and
+// 18 of them streamed at H 512 and 768 (64 and 442 KB a CTA a step).
 //
 // The rows body, at every other H (up to 2048): as in the forward, one
 // block per batch row keeps the carries in shared memory for the whole
@@ -48,6 +54,8 @@
 // CTAs the largest part of a step is the reduce-scatter's push over
 // distributed shared memory: 3.6 of 4.8 us at H 512, 3.3 of 9.4 at H 768
 // (port_perf/k1_step_parts.py removes it; NVIDIA H100 80GB HBM3, 700 W).
+#include <type_traits>
+
 #include "rnn_cluster.cuh"
 
 namespace {
@@ -212,27 +220,33 @@ __global__ void __launch_bounds__(ClusterLayout<T, J, C>::kThreads, 1)
   }
 }
 
-// ---- the cluster body with a streamed remainder (bf16, H = 768) ------------
+// ---- the cluster body with a streamed remainder ----------------------------
+// (bf16 at H 768, float32 at H 512 and 768)
 
 using bf16 = __nv_bfloat16;
 
-// One CTA of 16 at H = 16 J, whose slice of W_hh (4J gate rows by H)
-// does not fit beside the rest: the A tile (dgates' hi and lo), ONE
-// receive parity (16 slots of 16 x J float32), the SK resident k-steps
-// of the slice (16 gate rows by H + 8 each) and every warp's ring (16
-// rows by J + 8 a stage).  Warp w serves columns [w J, w J + J) of all
-// 12 k-steps: RK in registers, SK in shared memory, the rest streamed.
-// The residuals of the next step are loaded into registers (a thread
-// owns one pair of units for the whole window, and its dc), so the
-// layout has no residual slots.
-template <int J_, int RK, int SK, int D>
+// One CTA of 16 at H = 16 J, whose slice of W_hh (4J gate rows by H, in
+// PL bf16 planes) does not fit beside the rest: the A tile (dgates' hi
+// and lo), ONE receive parity (16 slots of 16 x J float32), the SK
+// resident k-steps of the slice (16 gate rows by H + 8 each) and every
+// warp's ring (16 rows by J + 8 a stage).  Warp w serves columns [w J, w J
+// + J) of all PL 4J / 16 k-steps, plane 0's then plane 1's: RK in
+// registers, SK in shared memory, the rest streamed.  PL = 1: bf16 inputs
+// and W_hh exact in bf16; PL = 2: float32 inputs and W_hh's hi and lo
+// planes (`split_planes`), plane 0's k-steps multiplying dgates' hi and
+// lo, plane 1's its hi.  The residuals of the next step are loaded into
+// registers (a thread owns one pair of units for the whole window, and
+// its dc), so the layout has no residual slots.
+template <int J_, int RK, int SK, int D, int PL = 1>
 struct StreamLayout {
   static constexpr bool kMma = true;
+  using T = std::conditional_t<PL == 1, bf16, float>;
+  static constexpr int kPlanes = PL;
   static constexpr int kCluster = 16, kThreads = 32 * kCluster;
   static constexpr int kJ = J_, H = kCluster * kJ, GJ = 4 * kJ;
   static constexpr int P = cpc::rnn::kRows * kJ / 2, NT = kJ / 8;
   static constexpr int lda = GJ + 8, ldw = H + 8, lds = kJ + 8;
-  using S = cpc::rnn::Split<RK, SK, GJ / 16 - RK - SK, D, 16 * lds>;
+  using S = cpc::rnn::Split<RK, SK, PL * GJ / 16 - RK - SK, D, 16 * lds>;
   static constexpr size_t a = 0;
   static constexpr size_t recv =
       a + cpc::rnn::round16((size_t)2 * cpc::rnn::kRows * lda * 2);
@@ -241,17 +255,23 @@ struct StreamLayout {
   static constexpr size_t ring = res + (size_t)SK * 16 * ldw * 2;
   static constexpr size_t bytes = ring + (size_t)kCluster * S::ring_elems * 2;
   static_assert(P <= kThreads && kJ % 16 == 0, "a pair a thread");
+  static_assert(PL == 1 || PL == 2, "bf16 W_hh, or float32's two planes");
 };
 
 using Stream768 = StreamLayout<48, 2, 4, 2>;
+// float32: 16 and 24 k-steps a warp, 4 and 18 of them streamed
+using Stream512F = StreamLayout<32, 4, 8, 2, 2>;
+using Stream768F = StreamLayout<48, 2, 4, 2, 2>;
 
+// w: W_hh's PL bf16 planes ((4H, H) each, plane 1 4 H H elements past
+// plane 0): w_hh itself in bf16, `split_planes`' output in float32.
 template <typename L>
 __global__ void __launch_bounds__(L::kThreads, 1)
     lstm_bwd_stream_kernel(const float* __restrict__ gates,
                            const float* __restrict__ cs,
-                           const bf16* __restrict__ c0,
-                           const bf16* __restrict__ dys,
-                           const bf16* __restrict__ w_hh,
+                           const typename L::T* __restrict__ c0,
+                           const typename L::T* __restrict__ dys,
+                           const bf16* __restrict__ w,
                            const float* __restrict__ dhT,
                            const float* __restrict__ dcT,
                            float* __restrict__ dgates,
@@ -259,7 +279,8 @@ __global__ void __launch_bounds__(L::kThreads, 1)
                            int B, int n_steps) {
   namespace rnn = cpc::rnn;
   using S = typename L::S;
-  constexpr int J = L::kJ, H = L::H, G4 = 4 * H, NT = L::NT;
+  using T2 = typename rnn::Two<typename L::T>::type;
+  constexpr int J = L::kJ, H = L::H, G4 = 4 * H, NT = L::NT, GJ = L::GJ;
   extern __shared__ __align__(16) unsigned char stream_smem_buf[];
   unsigned char* smem = stream_smem_buf;
   const bf16* ahi = reinterpret_cast<const bf16*>(smem + L::a);
@@ -271,9 +292,16 @@ __global__ void __launch_bounds__(L::kThreads, 1)
   const int gq = lane >> 2, tq = lane & 3;
   bf16* ring = reinterpret_cast<bf16*>(smem + L::ring) +
                (size_t)warp * S::ring_elems;
-  // W_hh's row of the slice's row k (gate k / J, unit k % J)
+  // W_hh's row of the slice's row k (of plane k / 4J: gate k % 4J / J,
+  // unit k % J)
   auto w_row = [&](int k) {
-    return w_hh + (size_t)((k / J) * H + c * J + k % J) * H;
+    if constexpr (L::kPlanes == 1) {
+      return w + (size_t)((k / J) * H + c * J + k % J) * H;
+    } else {
+      const int r = k % GJ;
+      return w + (size_t)(k / GJ) * G4 * H +
+             (size_t)((r / J) * H + c * J + r % J) * H;
+    }
   };
 
   // the resident k-steps: slice rows [16 RK, 16 (RK + SK)), all columns
@@ -306,7 +334,7 @@ __global__ void __launch_bounds__(L::kThreads, 1)
                                                         j)
                      : make_float2(0.0f, 0.0f);
   float2 nxt[5];       // i, f, g, o, c_{t-1}
-  __nv_bfloat162 nxt_dy;
+  T2 nxt_dy;
   auto load_res = [&](int t) {
     if (!valid) return;
     const size_t bt = (size_t)b * n_steps + t;
@@ -315,7 +343,7 @@ __global__ void __launch_bounds__(L::kThreads, 1)
       nxt[q] = *reinterpret_cast<const float2*>(gates + bt * G4 + q * H + j);
     nxt[4] = t > 0 ? *reinterpret_cast<const float2*>(cs + (bt - 1) * H + j)
                    : rnn::load_two(c0 + (size_t)b * H + j);
-    nxt_dy = *reinterpret_cast<const __nv_bfloat162*>(dys + bt * H + j);
+    nxt_dy = *reinterpret_cast<const T2*>(dys + bt * H + j);
   };
   load_res(n_steps - 1);
   cpc::mma::cp_async_wait<0>();
@@ -335,7 +363,7 @@ __global__ void __launch_bounds__(L::kThreads, 1)
     float2 cur[5];
 #pragma unroll
     for (int q = 0; q < 5; ++q) cur[q] = nxt[q];
-    const __nv_bfloat162 cur_dy = nxt_dy;
+    const T2 cur_dy = nxt_dy;
     if (t > 0) load_res(t - 1);
     if (owner) {
       float out[4][2] = {};
@@ -344,7 +372,7 @@ __global__ void __launch_bounds__(L::kThreads, 1)
             t == n_steps - 1
                 ? *reinterpret_cast<const float2*>(dhT + (size_t)b * H + j)
                 : rnn::gather<L>(smem, 0, pr.row, pr.unit);
-        const float2 dy2 = __bfloat1622float2(cur_dy);
+        const float2 dy2 = rnn::Two<typename L::T>::f32(cur_dy);
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float o4[4];
@@ -370,24 +398,33 @@ __global__ void __launch_bounds__(L::kThreads, 1)
     __syncthreads();
     rnn::cluster_arrive();    // this CTA's reads of its receive buffer are done
 
-    // P_c = A . W_slice over the warp's columns; hi and lo apart
+    // P_c = A . W_slice over the warp's columns; the hi product and the
+    // small ones (lo . W, and hi . W's lo plane) apart
     float acc_h[NT][4], acc_l[NT][4];
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc_h[n][e] = acc_l[n][e] = 0.0f;
+    // k-step at slice row k0 (plane k0 / 4J; a constant once unrolled)
     auto kstep = [&](int k0, auto&& b_of) {
+      const bool lo_plane = k0 >= GJ;
+      const int ka = lo_plane ? k0 - GJ : k0;
       uint32_t ah[4], al[4];
-      cpc::mma::load_a(ah, ahi, L::lda, 0, k0);
-      cpc::mma::load_a(al, alo, L::lda, 0, k0);
+      cpc::mma::load_a(ah, ahi, L::lda, 0, ka);
+      if (!lo_plane) cpc::mma::load_a(al, alo, L::lda, 0, ka);
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t bb[4];
         b_of(np, bb);
-        cpc::mma::mma_bf16(acc_h[2 * np], ah, bb[0], bb[1]);
-        cpc::mma::mma_bf16(acc_l[2 * np], al, bb[0], bb[1]);
-        cpc::mma::mma_bf16(acc_h[2 * np + 1], ah, bb[2], bb[3]);
-        cpc::mma::mma_bf16(acc_l[2 * np + 1], al, bb[2], bb[3]);
+        if (lo_plane) {
+          cpc::mma::mma_bf16(acc_l[2 * np], ah, bb[0], bb[1]);
+          cpc::mma::mma_bf16(acc_l[2 * np + 1], ah, bb[2], bb[3]);
+        } else {
+          cpc::mma::mma_bf16(acc_h[2 * np], ah, bb[0], bb[1]);
+          cpc::mma::mma_bf16(acc_l[2 * np], al, bb[0], bb[1]);
+          cpc::mma::mma_bf16(acc_h[2 * np + 1], ah, bb[2], bb[3]);
+          cpc::mma::mma_bf16(acc_l[2 * np + 1], al, bb[2], bb[3]);
+        }
       }
     };
     S::product(
@@ -447,24 +484,58 @@ __global__ void __launch_bounds__(L::kThreads, 1)
 }
 
 // A CTA's shared memory in the cluster body at H: 8 CTAs at H = 128 and
-// 256, 16 at H = 512 and (bf16 only, with the streamed remainder) 768; 0
-// at any other H.
+// 256, 16 at H = 512 and 768 (with the streamed remainder at 768 in bf16
+// and at both in float32); 0 at any other H.
 template <typename T>
 size_t cluster_smem(int H) {
-  if constexpr (sizeof(T) < sizeof(float))
+  if constexpr (sizeof(T) < sizeof(float)) {
+    if (H == 512) return ClusterLayout<T, 32, 16>::bytes;
     if (H == 768) return Stream768::bytes;
-  return H == 128   ? ClusterLayout<T, 16, 8>::bytes
+  } else {
+    if (H == 512) return Stream512F::bytes;
+    if (H == 768) return Stream768F::bytes;
+  }
+  return H == 128 ? ClusterLayout<T, 16, 8>::bytes
          : H == 256 ? ClusterLayout<T, 32, 8>::bytes
-         : H == 512 ? ClusterLayout<T, 32, 16>::bytes
                     : 0;
 }
 
-// The cluster body takes H = 128 and 256, and 512 in bf16: where its
-// layout fits a CTA.
+// The cluster body takes H = 128, 256, 512 and 768: where its layout fits
+// a CTA.
 template <typename T>
 bool cluster_body(int H) {
   const size_t smem = cluster_smem<T>(H);
   return smem > 0 && smem <= cpc::kSmemLimit;
+}
+
+// Bytes of scratch the backward needs: W_hh's two bf16 planes where the
+// float32 cluster body streams them (H 512 and 768), else 0.
+template <typename T>
+size_t stream_scratch(int H) {
+  return sizeof(T) == sizeof(float) && cluster_body<T>(H) && H >= 512
+             ? (size_t)2 * 4 * H * H * sizeof(bf16)
+             : 0;
+}
+
+template <typename L>
+int launch_stream(const float* gates, const float* cs, const void* c0,
+                  const void* dys, const void* w_hh, const float* dhT,
+                  const float* dcT, float* dgates, float* dh0, float* dc0,
+                  void* scratch, int B, int n_steps, cudaStream_t stream) {
+  using T = typename L::T;
+  const bf16* w = static_cast<const bf16*>(w_hh);
+  if constexpr (L::kPlanes == 2) {
+    bf16* planes = static_cast<bf16*>(scratch);
+    const cudaError_t err =
+        cpc::rnn::split_planes(static_cast<const float*>(w_hh), planes,
+                               (size_t)4 * L::H * L::H, stream);
+    if (err != cudaSuccess) return (int)err;
+    w = planes;
+  }
+  return (int)cpc::rnn::launch<L>(
+      lstm_bwd_stream_kernel<L>, B, stream, gates, cs,
+      static_cast<const T*>(c0), static_cast<const T*>(dys), w, dhT, dcT,
+      dgates, dh0, dc0, B, n_steps);
 }
 
 template <typename T, int J, int C>
@@ -579,8 +650,9 @@ int launch(const float* gates, const float* cs, const void* c0,
 template <typename T>
 int launch_any(const float* gates, const float* cs, const void* c0,
                const void* dys, const void* w_hh, const float* dhT,
-               const float* dcT, float* dgates, float* dh0, float* dc0, int B,
-               int n_steps, int H, cudaStream_t stream) {
+               const float* dcT, float* dgates, float* dh0, float* dc0,
+               void* scratch, int B, int n_steps, int H,
+               cudaStream_t stream) {
   if (!cluster_body<T>(H))
     return launch<T>(gates, cs, c0, dys, w_hh, dhT, dcT, dgates, dh0, dc0, B,
                      n_steps, H, stream);
@@ -590,17 +662,22 @@ int launch_any(const float* gates, const float* cs, const void* c0,
   if (H == 256)
     return launch_cluster<T, 32, 8>(gates, cs, c0, dys, w_hh, dhT, dcT,
                                     dgates, dh0, dc0, B, n_steps, stream);
-  if constexpr (sizeof(T) < sizeof(float)) {   // H 512 and 768: bf16 only
+  if constexpr (sizeof(T) < sizeof(float)) {   // H 512 and 768 in bf16
     if (H == 768)
-      return (int)cpc::rnn::launch<Stream768>(
-          lstm_bwd_stream_kernel<Stream768>, B, stream, gates, cs,
-          static_cast<const bf16*>(c0), static_cast<const bf16*>(dys),
-          static_cast<const bf16*>(w_hh), dhT, dcT, dgates, dh0, dc0, B,
-          n_steps);
+      return launch_stream<Stream768>(gates, cs, c0, dys, w_hh, dhT, dcT,
+                                      dgates, dh0, dc0, scratch, B, n_steps,
+                                      stream);
     return launch_cluster<T, 32, 16>(gates, cs, c0, dys, w_hh, dhT, dcT,
                                      dgates, dh0, dc0, B, n_steps, stream);
+  } else {                                     // H 512 and 768 in float32
+    if (H == 768)
+      return launch_stream<Stream768F>(gates, cs, c0, dys, w_hh, dhT, dcT,
+                                       dgates, dh0, dc0, scratch, B, n_steps,
+                                       stream);
+    return launch_stream<Stream512F>(gates, cs, c0, dys, w_hh, dhT, dcT,
+                                     dgates, dh0, dc0, scratch, B, n_steps,
+                                     stream);
   }
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -619,14 +696,21 @@ extern "C" size_t cpc_lstm_bwd_smem(int H, int dtype) {
                                  : cluster_smem<float>(H);
 }
 
+// Bytes of scratch cpc_lstm_bwd needs at (H, dtype): W_hh's bf16 planes
+// for the float32 cluster body at H 512 and 768, else 0.
+extern "C" size_t cpc_lstm_bwd_scratch(int H, int dtype) {
+  return dtype == cpc::kFloat32 ? stream_scratch<float>(H) : 0;
+}
+
 // gates (B, T, 4H), cs (B, T, H), dhT, dcT (B, H) and the outputs dgates
 // (B, T, 4H), dh0, dc0 (B, H) are float32; c0 (B, H), dys (B, T, H) and
-// w_hh (4H, H) are in `dtype`.
+// w_hh (4H, H) are in `dtype`; scratch: cpc_lstm_bwd_scratch bytes
+// (16-byte aligned; null where 0).
 extern "C" int cpc_lstm_bwd(const void* gates, const void* cs, const void* c0,
                             const void* dys, const void* w_hh,
                             const void* dhT, const void* dcT, void* dgates,
-                            void* dh0, void* dc0, int B, int n_steps, int H,
-                            int dtype, void* stream) {
+                            void* dh0, void* dc0, void* scratch, int B,
+                            int n_steps, int H, int dtype, void* stream) {
   if (H <= 0 || H % 8 != 0 || H / 2 > kThreads)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -639,9 +723,9 @@ extern "C" int cpc_lstm_bwd(const void* gates, const void* cs, const void* c0,
   float* c0o = static_cast<float*>(dc0);
   if (dtype == cpc::kBFloat16)
     return launch_any<__nv_bfloat16>(g, c, c0, dys, w_hh, dh, dc, dg, h0,
-                                     c0o, B, n_steps, H, s);
+                                     c0o, scratch, B, n_steps, H, s);
   if (dtype == cpc::kFloat32)
-    return launch_any<float>(g, c, c0, dys, w_hh, dh, dc, dg, h0, c0o, B,
-                             n_steps, H, s);
+    return launch_any<float>(g, c, c0, dys, w_hh, dh, dc, dg, h0, c0o,
+                             scratch, B, n_steps, H, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -13,7 +13,7 @@
 // Two bodies, picked from the shape before launching (`cluster_body`,
 // mirrored by ops/lstm.py `fwd_body`):
 //
-// The cluster body, in bf16 at H = 512 and 768 (csrc/rnn_cluster.cuh):
+// The cluster body, at H = 512 and 768 (csrc/rnn_cluster.cuh):
 // one cluster of C = 16 CTAs serves 16 batch rows (one m16 tile; B = 32
 // takes two clusters), and CTA c owns the J = H / 16 units [c J, c J + J)
 // and their four gate rows of W_hh.  A step computes the CTA's gates
@@ -42,18 +42,25 @@
 // and streams the last 6 (72 KB a CTA a step) from L2 through a
 // two-stage ring (`cpc::rnn::Split`); the A tile has one parity (48 KB),
 // and a cluster barrier, split around the cell, keeps a step's copies
-// until every CTA has read it: 227 KB a CTA.
+// until every CTA has read it: 227 KB a CTA.  In float32 W_hh is not exact
+// in bf16: the body runs on its two bf16 planes, hi and lo (split once a
+// call into the scratch, `cpc::rnn::split_planes`), with 3 split products
+// a k-step (h's hi and lo by W_hi, h's hi by W_lo: about 2^-16 of
+// |h||W_hh| a term dropped; ops/lstm.py `lstm_scan_split` writes that
+// arithmetic), a warp's k-steps the hi plane's then the lo plane's.  Twice
+// the bytes: at H 512 one parity of the A tile (with the split cluster
+// barrier) and 6 of a warp's 16 k-steps streamed (96 KB a CTA a step), at
+// 768 30 of 48 (368 KB).
 //
-// The rows body, everywhere else (float32, and bf16 at any other H up to
-// 2048): batch rows are independent, so one block owns one batch row for
-// the whole window and keeps h and c in shared memory across all T steps.
-// Each warp takes tiles of 32 gate rows: every lane accumulates its slice
-// of the hidden axis (4 elements per load) for all 32 rows at once (32
-// independent loads in flight, W_hh read in torch's (4H, H) layout,
-// coalesced, no transpose), then a warp reduce-scatter leaves row r0 + l's
-// sum in lane l.  H % 8 == 0, so 4H is a whole number of 32-row tiles and
-// no row index needs clamping (a clamped address per load cost a factor
-// of five in a measured variant).
+// The rows body, everywhere else (any other H up to 2048): batch rows are
+// independent, so one block owns one batch row for the whole window and keeps h
+// and c in shared memory across all T steps. Each warp takes tiles of 32 gate
+// rows: every lane accumulates its slice of the hidden axis (4 elements per
+// load) for all 32 rows at once (32 independent loads in flight, W_hh read in
+// torch's (4H, H) layout, coalesced, no transpose), then a warp reduce-scatter
+// leaves row r0 + l's sum in lane l.  H % 8 == 0, so 4H is a whole number of
+// 32-row tiles and no row index needs clamping (a clamped address per load cost
+// a factor of five in a measured variant).
 //
 // What bounds it on an H100: the T steps are serial.  The rows body
 // re-reads W_hh (4H x H; 512 KB in bf16 at H = 256) from L2 every step,
@@ -62,6 +69,8 @@
 // remainder), so a step costs the partial product (2 x 16 x 4J x H
 // multiply-adds a CTA, hi and lo), the cell on a third to a half of the
 // warps, and the multicast's round trip through L2.
+#include <type_traits>
+
 #include "rnn_cluster.cuh"
 
 namespace {
@@ -190,7 +199,7 @@ int launch(const void* x_proj, const void* w_hh, const void* h0,
   return (int)cudaGetLastError();
 }
 
-// ---- the cluster body (bf16) ---------------------------------------------
+// ---- the cluster body ------------------------------------------------------
 
 namespace rnn = cpc::rnn;
 using bf16 = __nv_bfloat16;
@@ -215,17 +224,22 @@ struct Block {
 // CTA), the resident part of the slice (warp w's 32 gate rows at rows
 // [32 w, 32 w + 32), SK k-steps + 8 padding a row), the warps' rings (32
 // rows by 16 + 8 a stage), the partial gates the warps leave one another
-// and an mbarrier a parity.
-template <int J_, int KS_, int RK, int SK, int D, int NP_>
+// and an mbarrier a parity.  PL: W_hh's bf16 planes, 1 for bf16 inputs
+// (exact), 2 for float32 ones (hi and lo, `split_planes`): a warp's NKW
+// k-steps of each, plane 0's first, the first RK of them in registers,
+// the next SK in shared memory and the rest streamed.
+template <int J_, int KS_, int RK, int SK, int D, int NP_, int PL = 1>
 struct FwdLayout {
   static constexpr int J = J_, KS = KS_, NP = NP_, kCluster = kC, H = kC * J;
   static constexpr int NU = J / 8, kWarps = NU * KS, kThreads = 32 * kWarps;
-  static constexpr int NKW = H / 16 / KS;           // k-steps a warp
+  static constexpr int NKW = H / 16 / KS;           // k-steps a warp a plane
   static constexpr int ldr = SK * 16 + 8, lds = 16 + 8;
   // floats a lane leaves a unit group: parts 0 and 1 own rows gq and
   // gq + 8 and leave the other row's 8 gates, the rest all 16
   static constexpr int PER = 16 * (KS - 1);
-  using S = rnn::Split<RK, SK, NKW - RK - SK, D, 32 * lds>;
+  using T = std::conditional_t<PL == 1, bf16, float>;
+  static constexpr int kPlanes = PL;
+  using S = rnn::Split<RK, SK, PL * NKW - RK - SK, D, 32 * lds>;
   using Blk = Block<J>;
   static constexpr size_t a = 0;
   static constexpr size_t res = a + (size_t)NP * kC * Blk::kBytes;
@@ -233,24 +247,34 @@ struct FwdLayout {
   static constexpr size_t part = ring + (size_t)kWarps * S::ring_elems * 2;
   static constexpr size_t bar = part + (size_t)NU * PER * 32 * sizeof(float);
   static constexpr size_t bytes = bar + NP * sizeof(uint64_t);
-  static_assert(J % 8 == 0 && (H / 16) % KS == 0 && NKW >= RK + SK &&
-                    KS >= 2 && J % 16 == 0 && (NP == 1 || NP == 2),
+  static_assert(J % 8 == 0 && (H / 16) % KS == 0 && PL * NKW >= RK + SK &&
+                    KS >= 2 && J % 16 == 0 && (NP == 1 || NP == 2) &&
+                    (PL == 1 || PL == 2),
                 "");
 };
 
 using Fwd512 = FwdLayout<32, 4, 0, 8, 1, 2>;
 using Fwd768 = FwdLayout<48, 2, 8, 10, 2, 1>;
+// float32: 16 and 48 k-steps a warp, 6 and 30 of them streamed; at 512
+// one parity of the A tile, to make room for the ring
+using Fwd512F = FwdLayout<32, 4, 3, 7, 2, 1, 2>;
+using Fwd768F = FwdLayout<48, 2, 8, 10, 2, 1, 2>;
 
+// w: W_hh's PL bf16 planes ((4H, H) each, plane 1 4 H H elements past
+// plane 0): w_hh itself in bf16, `split_planes`' output in float32.
 template <typename L>
 __global__ void __launch_bounds__(L::kThreads, 1) lstm_fwd_cluster_kernel(
-    const bf16* __restrict__ x_proj, const bf16* __restrict__ w_hh,
-    const bf16* __restrict__ h0, const bf16* __restrict__ c0,
-    bf16* __restrict__ ys, bf16* __restrict__ hT, bf16* __restrict__ cT,
+    const typename L::T* __restrict__ x_proj, const bf16* __restrict__ w,
+    const typename L::T* __restrict__ h0,
+    const typename L::T* __restrict__ c0, typename L::T* __restrict__ ys,
+    typename L::T* __restrict__ hT, typename L::T* __restrict__ cT,
     float* __restrict__ gates, float* __restrict__ cs,
     bf16* __restrict__ scratch, int B, int n_steps) {
   using S = typename L::S;
   using Blk = typename L::Blk;
+  using T2 = typename rnn::Two<typename L::T>::type;
   constexpr int J = L::J, H = L::H, G4 = 4 * H, NU = L::NU, KS = L::KS;
+  constexpr int NKW = L::NKW;
   extern __shared__ __align__(16) unsigned char fwd_smem_buf[];
   unsigned char* smem = fwd_smem_buf;
   bf16* atile = reinterpret_cast<bf16*>(smem + L::a);   // [NP][CTA]
@@ -262,7 +286,7 @@ __global__ void __launch_bounds__(L::kThreads, 1) lstm_fwd_cluster_kernel(
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int ug = warp % NU, p = warp / NU;
   const int gq = lane >> 2, tq = lane & 3;
-  const int k_warp = p * L::NKW * 16;         // the warp's first k
+  const int k_warp = p * NKW * 16;            // the warp's first k
   bf16* ring = reinterpret_cast<bf16*>(smem + L::ring) +
                (size_t)warp * S::ring_elems;
   // this CTA's block of parity q in global memory
@@ -270,9 +294,10 @@ __global__ void __launch_bounds__(L::kThreads, 1) lstm_fwd_cluster_kernel(
     return scratch +
            (((size_t)q * gridDim.y + blockIdx.y) * kC + c) * Blk::kElems;
   };
-  // row r (0..7) of the warp's n-tile of gate g, in W_hh
-  auto w_row = [&](int g, int r) {
-    return w_hh + (size_t)(g * H + c * J + ug * 8 + r) * H;
+  // row r (0..7) of the warp's n-tile of gate g, in W_hh's plane pl
+  auto w_row = [&](int g, int r, int pl) {
+    return w + (size_t)pl * G4 * H +
+           (size_t)(g * H + c * J + ug * 8 + r) * H;
   };
 
   if (tid == 0) {
@@ -283,10 +308,11 @@ __global__ void __launch_bounds__(L::kThreads, 1) lstm_fwd_cluster_kernel(
   constexpr int RP = L::ldr / 8 - 1;          // 16-byte pieces a row
   for (int idx = tid; idx < L::kWarps * 32 * RP; idx += L::kThreads) {
     const int row = idx / RP, q = idx - row * RP;
-    const int w = row >> 5, g = (row >> 3) & 3, r = row & 7;
-    const bf16* src = w_hh +
-                      (size_t)(g * H + c * J + (w % NU) * 8 + r) * H +
-                      (w / NU) * L::NKW * 16 + S::RK * 16 + q * 8;
+    const int w_ = row >> 5, g = (row >> 3) & 3, r = row & 7;
+    const int i = S::RK + q / 2;              // the piece's k-step
+    const bf16* src = w + (size_t)(i / NKW) * G4 * H +
+                      (size_t)(g * H + c * J + (w_ % NU) * 8 + r) * H +
+                      (w_ / NU) * NKW * 16 + (i % NKW) * 16 + (q & 1) * 8;
     cpc::mma::cp_async16(res + row * L::ldr + q * 8, src, true);
   }
   cpc::mma::cp_async_commit();
@@ -296,7 +322,8 @@ __global__ void __launch_bounds__(L::kThreads, 1) lstm_fwd_cluster_kernel(
   for (int i = 0; i < S::RK; ++i)
 #pragma unroll
     for (int g = 0; g < 4; ++g) {
-      const bf16* src = w_row(g, gq) + k_warp + i * 16 + 2 * tq;
+      const bf16* src =
+          w_row(g, gq, i / NKW) + k_warp + (i % NKW) * 16 + 2 * tq;
       breg[i][g][0] = *reinterpret_cast<const uint32_t*>(src);
       breg[i][g][1] = *reinterpret_cast<const uint32_t*>(src + 8);
     }
@@ -322,23 +349,25 @@ __global__ void __launch_bounds__(L::kThreads, 1) lstm_fwd_cluster_kernel(
   const bool valid = owner && brow < B;
   float2 cst = valid ? rnn::load_two(c0 + (size_t)brow * H + j0)
                      : make_float2(0.0f, 0.0f);
-  __nv_bfloat162 xnext[4];
+  T2 xnext[4];
   auto load_x = [&](int t) {
 #pragma unroll
     for (int g = 0; g < 4; ++g)
-      xnext[g] = valid ? *reinterpret_cast<const __nv_bfloat162*>(
+      xnext[g] = valid ? *reinterpret_cast<const T2*>(
                              x_proj + ((size_t)brow * n_steps + t) * G4 +
                              g * H + j0)
-                       : __floats2bfloat162_rn(0.0f, 0.0f);
+                       : rnn::Two<typename L::T>::zero();
   };
   load_x(0);
   cpc::mma::cp_async_wait<0>();
   __syncthreads();
   // streamed k-step q of the warp: its 32 rows by 16 k
   auto fill = [&](bf16* stage, int q) {
-    const int k = k_warp + (S::NR + q) * 16;
-    rnn::copy_rows<32, 2, L::lds>(
-        stage, [&](int r) { return w_row(r >> 3, r & 7) + k; });
+    const int i = S::NR + q;
+    const int k = k_warp + (i % NKW) * 16;
+    rnn::copy_rows<32, 2, L::lds>(stage, [&](int r) {
+      return w_row(r >> 3, r & 7, i / NKW) + k;
+    });
   };
   S::prime(ring, fill);
   rnn::cluster_sync();   // every CTA's mbarriers are set before any copy
@@ -353,31 +382,39 @@ __global__ void __launch_bounds__(L::kThreads, 1) lstm_fwd_cluster_kernel(
       rnn::mbar_wait(full + cur,
                      (L::NP == 2 ? (t - 1) >> 1 : t - 1) & 1);
     if (tid == 0 && more) rnn::mbar_expect(full + nxt, kC * Blk::kBytes);
-    __nv_bfloat162 x[4];
+    T2 x[4];
 #pragma unroll
     for (int g = 0; g < 4; ++g) x[g] = xnext[g];
     if (more) load_x(t + 1);
 
-    // the partial product over the warp's part of k; hi and lo in
-    // separate accumulators (two dependence chains)
+    // the partial product over the warp's part of k; the hi product and
+    // the small ones (lo . W, and hi . W's lo plane) apart (two dependence
+    // chains)
     const bf16* a_cur = atile + cur * kC * Blk::kElems;
     float acc_h[4][4], acc_l[4][4];
 #pragma unroll
     for (int g = 0; g < 4; ++g)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc_h[g][e] = acc_l[g][e] = 0.0f;
-    auto kstep = [&](int k, const uint32_t (&b)[4][2]) {
+    // k-step i of the warp (plane i / NKW; a constant once unrolled)
+    auto kstep = [&](int i, const uint32_t (&b)[4][2]) {
+      const bool lo_plane = i >= NKW;
+      const int k = k_warp + (i % NKW) * 16;
       // rows lane & 15, chunk of k + 8 (lane >> 4), of the block holding k
       const int r = lane & 15;
       const bf16* hi = a_cur + (k / J) * Blk::kElems +
                        Blk::at(r, k % J + ((lane >> 4) << 3));
       uint32_t ah[4], al[4];
       cpc::mma::ldmatrix_x4(ah, hi);
-      cpc::mma::ldmatrix_x4(al, hi + rnn::kRows * J);
+      if (!lo_plane) cpc::mma::ldmatrix_x4(al, hi + rnn::kRows * J);
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
-        cpc::mma::mma_bf16(acc_h[g], ah, b[g][0], b[g][1]);
-        cpc::mma::mma_bf16(acc_l[g], al, b[g][0], b[g][1]);
+        if (lo_plane) {
+          cpc::mma::mma_bf16(acc_l[g], ah, b[g][0], b[g][1]);
+        } else {
+          cpc::mma::mma_bf16(acc_h[g], ah, b[g][0], b[g][1]);
+          cpc::mma::mma_bf16(acc_l[g], al, b[g][0], b[g][1]);
+        }
       }
     };
     // B fragments of the four gates from a tile of the warp's 32 rows
@@ -397,17 +434,17 @@ __global__ void __launch_bounds__(L::kThreads, 1) lstm_fwd_cluster_kernel(
         ring,
         [&](int i) {
           if (i < S::RK) {
-            kstep(k_warp + i * 16, breg[i < S::RK ? i : 0]);
+            kstep(i, breg[i < S::RK ? i : 0]);
           } else {
             uint32_t b[4][2];
             from_tile(res + warp * 32 * L::ldr, L::ldr, (i - S::RK) * 16, b);
-            kstep(k_warp + i * 16, b);
+            kstep(i, b);
           }
         },
         [&](int q, const bf16* stage) {
           uint32_t b[4][2];
           from_tile(stage, L::lds, 0, b);
-          kstep(k_warp + (S::NR + q) * 16, b);
+          kstep(S::NR + q, b);
         },
         fill);
     // one parity: the copies of this step wait until every CTA is done
@@ -454,7 +491,7 @@ __global__ void __launch_bounds__(L::kThreads, 1) lstm_fwd_cluster_kernel(
             s += pp == p   ? own
                  : pp < 2  ? theirs[(8 * pp + 2 * g + u) * 32]
                            : theirs[(16 * (pp - 1) + 4 * g + 2 * e + u) * 32];
-          const float2 xv = __bfloat1622float2(x[g]);
+          const float2 xv = rnn::Two<typename L::T>::f32(x[g]);
           pre[g][u] = s + (u ? xv.y : xv.x);
         }
 #pragma unroll
@@ -493,30 +530,25 @@ __global__ void __launch_bounds__(L::kThreads, 1) lstm_fwd_cluster_kernel(
           *reinterpret_cast<float2*>(gates + bt * G4 + g * H + j0) =
               make_float2(act[g][0], act[g][1]);
       if (cs != nullptr) *reinterpret_cast<float2*>(cs + bt * H + j0) = cst;
-      const __nv_bfloat162 h2 = __floats2bfloat162_rn(hn[0], hn[1]);
-      *reinterpret_cast<__nv_bfloat162*>(ys + bt * H + j0) = h2;
+      rnn::store_two(ys + bt * H + j0, hn[0], hn[1]);
       if (!more) {
         const size_t o = (size_t)brow * H + j0;
-        *reinterpret_cast<__nv_bfloat162*>(hT + o) = h2;
-        *reinterpret_cast<__nv_bfloat162*>(cT + o) =
-            __floats2bfloat162_rn(cst.x, cst.y);
+        rnn::store_two(hT + o, hn[0], hn[1]);
+        rnn::store_two(cT + o, cst.x, cst.y);
       }
     }
   }
   if (tid == 0) rnn::multicast_read_wait<0>();
 }
 
-// Global scratch of the cluster body: two parities of every CTA's block.
-size_t cluster_scratch(int B, int H) {
-  const size_t clusters = (B + rnn::kRows - 1) / rnn::kRows;
-  const size_t blk = H == 512 ? Fwd512::Blk::kBytes : Fwd768::Blk::kBytes;
-  return 2 * clusters * kC * blk;
-}
-
-// A CTA's shared memory in the cluster body at H, 0 where it has none.
+// A CTA's shared memory in the cluster body at H in `dtype`, 0 where it
+// has none.
 size_t cluster_smem(int H, int dtype) {
-  if (dtype != cpc::kBFloat16) return 0;
-  return H == 512 ? Fwd512::bytes : H == 768 ? Fwd768::bytes : 0;
+  if (dtype == cpc::kBFloat16)
+    return H == 512 ? Fwd512::bytes : H == 768 ? Fwd768::bytes : 0;
+  if (dtype == cpc::kFloat32)
+    return H == 512 ? Fwd512F::bytes : H == 768 ? Fwd768F::bytes : 0;
+  return 0;
 }
 
 bool cluster_body(int H, int dtype) {
@@ -524,17 +556,40 @@ bool cluster_body(int H, int dtype) {
   return smem > 0 && smem <= cpc::kSmemLimit;
 }
 
+// Global scratch of the cluster body: in float32 W_hh's two bf16 planes
+// (16 H^2 bytes, first), then two parities of every CTA's block.
+size_t planes_bytes(int H, int dtype) {
+  return dtype == cpc::kFloat32 ? (size_t)2 * 4 * H * H * sizeof(bf16) : 0;
+}
+
+size_t cluster_scratch(int B, int H, int dtype) {
+  const size_t clusters = (B + rnn::kRows - 1) / rnn::kRows;
+  const size_t blk = H == 512 ? Fwd512::Blk::kBytes : Fwd768::Blk::kBytes;
+  return planes_bytes(H, dtype) + 2 * clusters * kC * blk;
+}
+
 template <typename L>
 int launch_cluster(const void* x_proj, const void* w_hh, const void* h0,
                    const void* c0, void* ys, void* hT, void* cT,
                    float* gates, float* cs, void* scratch, int B,
                    int n_steps, cudaStream_t stream) {
+  using T = typename L::T;
+  const bf16* w = static_cast<const bf16*>(w_hh);
+  bf16* blocks = static_cast<bf16*>(scratch);
+  if constexpr (L::kPlanes == 2) {
+    bf16* planes = static_cast<bf16*>(scratch);
+    const cudaError_t err =
+        rnn::split_planes(static_cast<const float*>(w_hh), planes,
+                          (size_t)4 * L::H * L::H, stream);
+    if (err != cudaSuccess) return (int)err;
+    w = planes;
+    blocks = planes + (size_t)2 * 4 * L::H * L::H;
+  }
   return (int)rnn::launch<L>(
-      lstm_fwd_cluster_kernel<L>, B, stream,
-      static_cast<const bf16*>(x_proj), static_cast<const bf16*>(w_hh),
-      static_cast<const bf16*>(h0), static_cast<const bf16*>(c0),
-      static_cast<bf16*>(ys), static_cast<bf16*>(hT), static_cast<bf16*>(cT),
-      gates, cs, static_cast<bf16*>(scratch), B, n_steps);
+      lstm_fwd_cluster_kernel<L>, B, stream, static_cast<const T*>(x_proj), w,
+      static_cast<const T*>(h0), static_cast<const T*>(c0),
+      static_cast<T*>(ys), static_cast<T*>(hT), static_cast<T*>(cT), gates,
+      cs, blocks, B, n_steps);
 }
 
 }  // namespace
@@ -551,9 +606,10 @@ extern "C" size_t cpc_lstm_fwd_smem(int H, int dtype) {
 }
 
 // Bytes of global scratch cpc_lstm_fwd needs at (B, H, dtype): the
-// cluster body's exchange blocks, 0 for the rows body.
+// cluster body's exchange blocks (and in float32 W_hh's bf16 planes), 0
+// for the rows body.
 extern "C" size_t cpc_lstm_fwd_scratch(int B, int H, int dtype) {
-  return cluster_body(H, dtype) ? cluster_scratch(B, H) : 0;
+  return cluster_body(H, dtype) ? cluster_scratch(B, H, dtype) : 0;
 }
 
 // scratch: cpc_lstm_fwd_scratch bytes (16-byte aligned; null where 0).
@@ -566,12 +622,15 @@ extern "C" int cpc_lstm_fwd(const void* x_proj, const void* w_hh,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* g = static_cast<float*>(gates);
   float* c = static_cast<float*>(cs);
-  if (cluster_body(H, dtype))
-    return H == 512 ? launch_cluster<Fwd512>(x_proj, w_hh, h0, c0, ys, hT,
-                                             cT, g, c, scratch, B, n_steps, s)
-                    : launch_cluster<Fwd768>(x_proj, w_hh, h0, c0, ys, hT,
-                                             cT, g, c, scratch, B, n_steps,
-                                             s);
+  if (cluster_body(H, dtype)) {
+    auto run = dtype == cpc::kBFloat16
+                   ? (H == 512 ? launch_cluster<Fwd512>
+                               : launch_cluster<Fwd768>)
+                   : (H == 512 ? launch_cluster<Fwd512F>
+                               : launch_cluster<Fwd768F>);
+    return run(x_proj, w_hh, h0, c0, ys, hT, cT, g, c, scratch, B, n_steps,
+               s);
+  }
   if (dtype == cpc::kBFloat16)
     return launch<__nv_bfloat16>(x_proj, w_hh, h0, c0, ys, hT, cT, g, c, B,
                                  n_steps, H, s);

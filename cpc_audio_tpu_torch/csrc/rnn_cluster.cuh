@@ -10,9 +10,9 @@
 // window: CTA c owns the J = H / C hidden units J_c = [c J, c J + J) and
 // their G gate rows {g H + j : j in J_c}, over all H columns (64 KB in
 // bf16 for the LSTM at H = 256, 48 KB for the GRU; twice that in f32).
-// C is 8, the portable cluster size, or 16 (the LSTM at H = 512 and 768
-// in bf16, whose 8-CTA slice would not fit a CTA's 227 KB), which Hopper
-// allows per kernel (cudaFuncAttributeNonPortableClusterSizeAllowed).
+// C is 8, the portable cluster size, or 16 (the LSTM at H = 512 and 768,
+// whose 8-CTA slice would not fit a CTA's 227 KB), which Hopper allows
+// per kernel (cudaFuncAttributeNonPortableClusterSizeAllowed).
 //
 // The backward (`Layout`, `product_push`): a CTA has C warps, warp w
 // serving the columns CTA w owns.  A step is
@@ -46,7 +46,9 @@
 // 50 MB L2) through a ring of its own every step.  The backward at H 768
 // then has one receive parity and two cluster barriers a step, the first
 // split in halves around the product, and loads the next step's residuals
-// into registers (`StreamLayout`, csrc/lstm_bwd.cu).
+// into registers (`StreamLayout`, csrc/lstm_bwd.cu).  The float32 LSTM at
+// H 512 and 768 runs the same bodies on W_hh's two bf16 planes
+// (`split_planes`), more of them streamed.
 //
 // No atomics, and every sum runs in a fixed order, so reruns are
 // bit-identical.  What bounds it on an H100: the 128 (or 256) serial
@@ -174,12 +176,18 @@ template <>
 struct Two<float> {
   using type = float2;
   __device__ __forceinline__ static float2 f32(float2 v) { return v; }
+  __device__ __forceinline__ static float2 zero() {
+    return make_float2(0.0f, 0.0f);
+  }
 };
 template <>
 struct Two<__nv_bfloat16> {
   using type = __nv_bfloat162;
   __device__ __forceinline__ static float2 f32(__nv_bfloat162 v) {
     return __bfloat1622float2(v);
+  }
+  __device__ __forceinline__ static __nv_bfloat162 zero() {
+    return __floats2bfloat162_rn(0.0f, 0.0f);
   }
 };
 
@@ -192,6 +200,15 @@ __device__ __forceinline__ void copy_two(typename Two<T>::type* dst,
 template <typename T>
 __device__ __forceinline__ float2 load_two(const T* src) {
   return Two<T>::f32(*reinterpret_cast<const typename Two<T>::type*>(src));
+}
+
+// (a, b) rounded to T at dst (bf16: to nearest, as __floats2bfloat162_rn).
+__device__ __forceinline__ void store_two(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_two(__nv_bfloat16* dst, float a,
+                                          float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
 }
 
 // Stage the CTA's gate rows of W_hh, row g J + u = W_hh[g H + c J + u, :],
@@ -479,6 +496,31 @@ struct Split {
     }
   }
 };
+
+// The float32 bodies' W_hh as two bf16 planes, hi = bf16(w) and lo =
+// bf16(w - hi), lo `n` elements past hi: written once a call, before the
+// recurrence, so that a product of the split terms h_hi W_hi + (h_lo W_hi
+// + h_hi W_lo) (3 split products; h_lo W_lo and what the two planes leave
+// of w, each about 2^-16 of |h||w|, are dropped) runs on the bf16 mma
+// path, and its streamed k-steps are copied as they lie.
+static __global__ void __launch_bounds__(256)
+    split_planes_kernel(const float* __restrict__ w,
+                        mma::bf16* __restrict__ planes, size_t n) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const mma::bf16 hi = __float2bfloat16(w[i]);
+    planes[i] = hi;
+    planes[n + i] = __float2bfloat16(w[i] - __bfloat162float(hi));
+  }
+}
+
+inline cudaError_t split_planes(const float* w, mma::bf16* planes, size_t n,
+                                cudaStream_t stream) {
+  const size_t blocks = (n + 255) / 256;
+  split_planes_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0,
+                        stream>>>(w, planes, n);
+  return cudaGetLastError();
+}
 
 // Copy R rows of S 16-byte pieces into a stage of row stride LD
 // (elements), the warp's lanes taking the pieces in turn; src(r) points

@@ -11,18 +11,19 @@
 // offsets[r] <= i < offsets[r + 1].  Indices are int32: J and R stay below
 // 2^31 (at the train shapes J = 475,136 and R = 4096).
 //
-// Design: one warp per destination row.  It walks its run of `order` 32
-// indices at a time (one coalesced load, then broadcast by shuffle), and
-// for each index reads the update row in place, 16 bytes a lane (a 512 B
-// bf16 row of C = 256 is one load per lane), so the sorted copy
-// updates[order] is never materialised.  Up to eight rows are loaded
-// before any is added, to keep loads in flight, and they are added in
-// sorted order into float32 registers: the sum of each row is taken in a
-// fixed order, so the kernel is bit-reproducible, with no atomics and no
-// read-modify-write of `out`.  Each row is written once; a row with no
-// update is written 0.  There is no capacity limit (the Pallas kernel's
-// window and its fallback to the XLA scatter have no counterpart): a row
-// with many updates only takes its warp longer.
+// Design: one warp per destination row.  It walks its run of `order` 32 indices
+// at a time (one coalesced load, then broadcast by shuffle), and for each index
+// reads the update row in place, 16 bytes a lane (a 512 B bf16 row of C = 256
+// is one load per lane), so the sorted copy updates[order] is never
+// materialised.  Up to eight rows are loaded before any is added, to keep loads
+// in flight, and they are added in sorted order into float32 registers: the sum
+// of each row is taken in a fixed order, so the kernel is bit-reproducible,
+// with no atomics and no read-modify-write of `out`.  Each row is written once;
+// a row with no update is written 0.  A row past 4096 bytes (float32 past C
+// 1024, bf16 past 2048) is walked in pieces of 4096 bytes, one warp each (the
+// grid's y), each walking the row's whole run of `order`.  There is no capacity
+// limit (the Pallas kernel's window and its fallback to the XLA scatter have no
+// counterpart): a row with many updates only takes its warp longer.
 //
 // What bounds it on an H100: at the train shapes it reads 243 MB of bf16
 // updates and 1.9 MB of `order` and writes 4.2 MB, for 0.27 GFLOP of adds,
@@ -57,7 +58,12 @@ __device__ __forceinline__ void add_chunk(float* acc, const uint4& v,
   }
 }
 
+constexpr int kMaxChunks = 256;   // 16-byte chunks of a row a warp adds
+
 // NCH: 16-byte chunks a lane owns in a row; U: rows loaded before adding.
+// Rows past kMaxChunks chunks (4096 bytes) are walked in pieces of that
+// many: the warp of blockIdx.y adds chunks [kMaxChunks blockIdx.y,
+// kMaxChunks (blockIdx.y + 1)) of its row.
 template <typename T, int NCH>
 __global__ void __launch_bounds__(kWarps * 32) scatter_add_kernel(
     const T* __restrict__ updates, const int* __restrict__ order,
@@ -68,6 +74,7 @@ __global__ void __launch_bounds__(kWarps * 32) scatter_add_kernel(
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= R) return;
   const int lane = threadIdx.x & 31;
+  const int c0 = blockIdx.y * kMaxChunks;   // the piece's first chunk
   const int start = offsets[row];
   const int end = offsets[row + 1];
   const uint4* src = reinterpret_cast<const uint4*>(updates);
@@ -88,7 +95,7 @@ __global__ void __launch_bounds__(kWarps * 32) scatter_add_kernel(
         const int j = __shfl_sync(0xffffffffu, mine, (i + u) & 31);
 #pragma unroll
         for (int c = 0; c < NCH; ++c) {
-          const int chunk = lane + 32 * c;
+          const int chunk = c0 + lane + 32 * c;
           v[u][c] = (i + u < n && chunk < n_chunks)
                         ? __ldg(src + (size_t)j * n_chunks + chunk)
                         : make_uint4(0u, 0u, 0u, 0u);
@@ -106,7 +113,7 @@ __global__ void __launch_bounds__(kWarps * 32) scatter_add_kernel(
   float4* dst = reinterpret_cast<float4*>(out + (size_t)row * n_chunks * E);
 #pragma unroll
   for (int c = 0; c < NCH; ++c) {
-    const int chunk = lane + 32 * c;
+    const int chunk = c0 + lane + 32 * c;
     if (chunk < n_chunks) {
 #pragma unroll
       for (int q = 0; q < E / 4; ++q)
@@ -121,7 +128,8 @@ template <typename T>
 int launch(const void* updates, const int* order, const int* offsets,
            float* out, int R, int C, cudaStream_t stream) {
   const int n_chunks = C * (int)sizeof(T) / 16;
-  const dim3 grid((R + kWarps - 1) / kWarps);
+  const dim3 grid((R + kWarps - 1) / kWarps,
+                  (n_chunks + kMaxChunks - 1) / kMaxChunks);
   const dim3 block(kWarps * 32);
   const T* u = static_cast<const T*>(updates);
   if (n_chunks <= 32)
@@ -133,22 +141,22 @@ int launch(const void* updates, const int* order, const int* offsets,
   else if (n_chunks <= 128)
     scatter_add_kernel<T, 4><<<grid, block, 0, stream>>>(u, order, offsets,
                                                          out, R, n_chunks);
-  else if (n_chunks <= 256)   // float32 rows of C = 768 and 1024
+  else   // float32 rows of C = 768 and 1024, and pieces of wider ones
     scatter_add_kernel<T, 8><<<grid, block, 0, stream>>>(u, order, offsets,
                                                          out, R, n_chunks);
-  else
-    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// updates (J, C) in `dtype`, 16-byte aligned, C * itemsize a multiple of 16
-// and at most 4096 bytes; order (J,) and offsets (R + 1,) int32; out (R, C)
+// updates (J, C) in `dtype`, 16-byte aligned, C * itemsize a positive
+// multiple of 16; order (J,) and offsets (R + 1,) int32; out (R, C)
 // float32.  R > 0.
 extern "C" int cpc_scatter_add(const void* updates, const void* order,
                                const void* offsets, void* out, int R, int C,
                                int dtype, void* stream) {
+  if (C <= 0 || C * (dtype == cpc::kFloat32 ? 4 : 2) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* o = static_cast<const int*>(order);
   const int* off = static_cast<const int*>(offsets);

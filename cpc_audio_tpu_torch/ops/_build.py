@@ -40,9 +40,11 @@ _SIGNATURES = {
     "cpc_lstm_fwd": ([_P] * 10 + [_I] * 4 + [_P], _I),
     # B, H, dtype
     "cpc_lstm_fwd_scratch": ([_I] * 3, ctypes.c_size_t),
-    # gates, cs, c0, dys, w_hh, dhT, dcT, dgates, dh0, dc0, B, T, H, dtype,
-    # stream
-    "cpc_lstm_bwd": ([_P] * 10 + [_I] * 4 + [_P], _I),
+    # gates, cs, c0, dys, w_hh, dhT, dcT, dgates, dh0, dc0, scratch, B, T,
+    # H, dtype, stream
+    "cpc_lstm_bwd": ([_P] * 11 + [_I] * 4 + [_P], _I),
+    # H, dtype
+    "cpc_lstm_bwd_scratch": ([_I] * 2, ctypes.c_size_t),
     # H, dtype
     "cpc_lstm_fwd_body": ([_I, _I], _I),
     "cpc_lstm_fwd_smem": ([_I, _I], ctypes.c_size_t),

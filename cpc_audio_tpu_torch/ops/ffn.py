@@ -22,11 +22,12 @@ whose float32 operands are split into bf16 planes
 (:func:`layer_tail_fwd_split` and :func:`layer_tail_bwd_split` write that
 arithmetic plainly).  CPU tensors take the plain versions.
 
-The kernels take D a multiple of 32 up to 1024 (K2's limit: 8 heads of
-dk <= 128; the JAX package trains every such width, on its Pallas tail
-where its VMEM gate takes the shape and on its jnp tail elsewhere) and F
-a multiple of 64 (bf16) or 32 (float32); :func:`supported` says so
-without a card, for the criterion builder's check of a config.
+The kernels take D any multiple of 8 (the JAX package trains every such
+width, on its Pallas tail where its VMEM gate takes the shape and on its
+jnp tail elsewhere; past D 1024 the kernels' D-wide epilogues cross
+column tiles through row and column passes) and F a multiple of 64
+(bf16) or 32 (float32); :func:`supported` says so without a card, for
+the criterion builder's check of a config.
 """
 
 from __future__ import annotations
@@ -40,18 +41,23 @@ from . import _build, dropout
 _NAME = "layer_tail_fwd"
 _BWD_NAME = "layer_tail_bwd"
 
-MAX_D = 1024
+MULTIPLE = 8          # D: whole 16-byte chunks of a bf16 row
+ROW_TILE_MAX_D = 1024  # the widest D whose G2/G4 row tile holds a row
 
 
 def _width_class(D: int) -> int:
-    """The kernels' tiles by D: 0 up to 256, 1 up to 512, 2 up to 1024
-    (``cpc::tail_width_class``, csrc/layer_tail_tc.cu)."""
-    return 0 if D <= 256 else 1 if D <= 512 else 2
+    """The kernels' tiles by D: 0 up to 256, 1 up to 512, 2 up to 1024, 3
+    past it, the wide body (``cpc::tail_width_class``,
+    csrc/layer_tail_tc.cu)."""
+    return (0 if D <= 256 else 1 if D <= 512 else 2 if D <= ROW_TILE_MAX_D
+            else 3)
 
 
-# csrc/layer_tail_tc.cu's G2/G4 row tiles: (BM, BN, depth of a slot,
-# slots), by width class
-_ROW_TILES = ((128, 256, 32, 3), (64, 512, 32, 3), (32, 1024, 16, 4))
+# csrc/layer_tail_tc.cu's G2/G4 tiles: (BM, BN, depth of a slot, slots),
+# by width class: a row tile holding all D columns, or past 1024 the wide
+# body's 128 x 128 tile
+_ROW_TILES = ((128, 256, 32, 3), (64, 512, 32, 3), (32, 1024, 16, 4),
+              (128, 128, 64, 3))
 
 
 def _bwd_smem(D: int, F: int, dtype: torch.dtype) -> int:
@@ -79,8 +85,8 @@ def _bwd_smem(D: int, F: int, dtype: torch.dtype) -> int:
 def supported(D: int, F: int, dtype: torch.dtype) -> Optional[str]:
     """Why the kernels refuse a model width D and FFN width F in
     ``dtype``, or None."""
-    if D % 32 != 0 or not 32 <= D <= MAX_D:
-        return f"model width D={D} must be a multiple of 32 in [32, {MAX_D}]"
+    if D <= 0 or D % MULTIPLE != 0:
+        return f"model width D={D} must be a positive multiple of {MULTIPLE}"
     chunk = 64 if dtype == torch.bfloat16 else 32
     if F <= 0 or F % chunk != 0:
         return f"FFN width F={F} must be a multiple of {chunk}"

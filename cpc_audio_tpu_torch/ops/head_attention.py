@@ -40,15 +40,17 @@ from . import _build, dropout
 
 _NAME = "relpos_attention_fwd"
 _BWD_NAME = "relpos_attention_bwd"
-MAX_S, MAX_DK = 512, 128         # K5's range (ops/causal_attention.py)
+MAX_S = 512                      # K5's range (ops/causal_attention.py)
 
 
 def supported(S: int, dk: int) -> Optional[str]:
     """Why the kernels refuse a sequence length S and head width dk, or
-    None: K5's range, S <= 512 and dk <= 128, in both dtypes (past their
-    shared memory the operands are read in place)."""
-    if not (0 < S <= MAX_S and 0 < dk <= MAX_DK):
-        return f"S={S}, dk={dk} out of range (S <= {MAX_S}, dk <= {MAX_DK})"
+    None: S <= 512 (K5's range) and any dk, in both dtypes (the kernels
+    read a head's columns one at a time, so any dk is aligned; past their
+    shared memory the operands are read in place, whose shared memory,
+    the score rows, does not grow with dk)."""
+    if not (0 < S <= MAX_S and dk > 0):
+        return f"S={S}, dk={dk} out of range (0 < S <= {MAX_S}, dk > 0)"
     return None
 
 

@@ -11,18 +11,20 @@ float32 whatever the input dtype; outputs are rounded to the input dtype.
 * :func:`lstm_fwd` runs the recurrence (csrc/lstm_fwd.cu) and, for
   training, saves the gate activations and cell states (float32).  The
   kernel has two bodies, picked from H and the dtype before it launches:
-  at H = 512 and 768 in bf16 a thread-block cluster of 16 CTAs keeps
-  W_hh on chip, split by unit, and all-gathers h each step (at 768 part
-  of each CTA's slice is streamed from L2 every step); elsewhere one
-  block a batch row reads W_hh from L2 every step; :func:`fwd_body`
-  mirrors that choice without a card;
+  at H = 512 and 768 a thread-block cluster of 16 CTAs keeps W_hh on
+  chip, split by unit, and all-gathers h each step (where a CTA's slice
+  does not fit, at 768 in bf16 and at both in float32, part of it is
+  streamed from L2 every step; float32 W_hh travels as two bf16 planes,
+  :func:`lstm_scan_split`); elsewhere one block a batch row reads W_hh
+  from L2 every step; :func:`fwd_body` mirrors that choice without a
+  card;
 * :func:`lstm_bwd` is the reverse scan (csrc/lstm_bwd.cu) giving float32
   dgates, dh0 and dc0.  The kernel has two bodies, picked the same way:
   at H = 128 and 256 a thread-block cluster of 8 CTAs keeps W_hh on chip
-  (csrc/rnn_cluster.cuh), at H = 512 and 768 in bf16 one of 16 (at 768
-  with the streamed remainder); elsewhere (H = 512 and 768 in float32
-  too, whose W_hh does not fit 16 CTAs) one block a batch row reads it
-  from L2 every step; :func:`bwd_body` mirrors that choice;
+  (csrc/rnn_cluster.cuh), at H = 512 and 768 one of 16 (with the
+  streamed remainder at 768 in bf16 and at both in float32, on W_hh's
+  bf16 planes: :func:`lstm_bwd_split`); elsewhere one block a batch row
+  reads it from L2 every step; :func:`bwd_body` mirrors that choice;
 * :func:`lstm` is the differentiable entry point: a
   ``torch.autograd.Function`` over the two, with dW_hh = h_prev^T dgates
   as one matmul, as rnn.py:223-226.  It takes any H up to 2048: where the
@@ -42,7 +44,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, ffn
 
 _NAME = "lstm_fwd"
 _BWD_NAME = "lstm_bwd"
@@ -50,14 +52,18 @@ MULTIPLE = 8          # the kernels' H: 4H whole 32-row tiles
 MAX_H = 2048          # the backward's H / 2 <= 1024 threads
 # the backward's cluster body: CTAs a cluster by H (J = H / C units a CTA)
 CLUSTER = {128: 8, 256: 8, 512: 16, 768: 16}
-# the 16-CTA bodies' layouts, bf16 only: each warp holds RK k-steps (16
-# rows of the product's depth) of its slice of W_hh in registers, SK in
-# shared memory and streams the rest through a ring of D stages
-# (cpc::rnn::Split).  The forward's by H: (KS parts of the H-deep product,
-# RK, SK, D, NP parities of the A tile) (csrc/lstm_fwd.cu FwdLayout); the
-# backward's past H 512: (RK, SK, D) (csrc/lstm_bwd.cu StreamLayout)
+# the 16-CTA bodies' layouts: each warp holds RK k-steps (16 rows of the
+# product's depth) of its slice of W_hh in registers, SK in shared memory
+# and streams the rest through a ring of D stages (cpc::rnn::Split).  The
+# forward's by H: (KS parts of the H-deep product, RK, SK, D, NP parities
+# of the A tile) (csrc/lstm_fwd.cu FwdLayout); the backward's past H 512:
+# (RK, SK, D) (csrc/lstm_bwd.cu StreamLayout).  In bf16 W_hh is one plane
+# (exact); in float32 it is two bf16 planes, hi and lo, whose k-steps
+# follow one another (:func:`lstm_scan_split` writes that arithmetic)
 FWD_CLUSTER = {512: (4, 0, 8, 1, 2), 768: (2, 8, 10, 2, 1)}
 BWD_STREAM = {768: (2, 4, 2)}
+FWD_CLUSTER_F32 = {512: (4, 3, 7, 2, 1), 768: (2, 8, 10, 2, 1)}
+BWD_STREAM_F32 = {512: (4, 8, 2), 768: (2, 4, 2)}
 
 
 def padded_hidden(H: int) -> int:
@@ -105,6 +111,11 @@ def _r16(n: int) -> int:
     return -(-n // 16) * 16
 
 
+def _planes(dtype: torch.dtype) -> int:
+    """W_hh's bf16 planes in the 16-CTA bodies: 1 in bf16, 2 in float32."""
+    return 1 if dtype == torch.bfloat16 else 2
+
+
 def fwd_smem(H: int, dtype: torch.dtype) -> int:
     """Shared memory of one CTA of the forward's cluster body at H, as
     ``FwdLayout`` (csrc/lstm_fwd.cu, ``cpc_lstm_fwd_smem``) lays it out,
@@ -113,12 +124,13 @@ def fwd_smem(H: int, dtype: torch.dtype) -> int:
     its ring of D stages of 32 x (16 + 8), the float32 partial gates the
     KS parts of the product leave one another (16 (KS - 1) a lane) and
     an mbarrier a parity."""
-    if dtype != torch.bfloat16 or H not in FWD_CLUSTER:
+    layouts = FWD_CLUSTER if dtype == torch.bfloat16 else FWD_CLUSTER_F32
+    if H not in layouts:
         return 0
-    KS, RK, SK, D, NP = FWD_CLUSTER[H]
+    KS, RK, SK, D, NP = layouts[H]
     J = H // 16
     warps = J // 8 * KS
-    streamed = H // 16 // KS - RK - SK
+    streamed = _planes(dtype) * H // 16 // KS - RK - SK
     return (NP * 16 * (2 * 16 * J * 2) + warps * 32 * (SK * 16 + 8) * 2
             + (warps * D * 32 * 24 * 2 if streamed else 0)
             + (J // 8) * 16 * (KS - 1) * 32 * 4 + NP * 8)
@@ -126,18 +138,17 @@ def fwd_smem(H: int, dtype: torch.dtype) -> int:
 
 def bwd_smem(H: int, dtype: torch.dtype) -> int:
     """Shared memory of one CTA of the backward's cluster body at H
-    (``cpc_lstm_bwd_smem``), 0 where it has none.  Past H 512 in bf16
-    (``StreamLayout``, csrc/lstm_bwd.cu): the A tile, one receive parity
-    of 16 slots, the SK resident k-steps of the slice by H + 8 and each
-    warp's ring of D stages of 16 x (J + 8); below it
-    :func:`cluster_smem`."""
+    (``cpc_lstm_bwd_smem``), 0 where it has none.  Past H 512 in bf16,
+    and at H 512 and 768 in float32 (``StreamLayout``, csrc/lstm_bwd.cu):
+    the A tile, one receive parity of 16 slots, the SK resident k-steps
+    of the slice by H + 8 and each warp's ring of D stages of 16 x (J +
+    8); below it :func:`cluster_smem`."""
     el = torch.empty((), dtype=dtype).element_size()
-    if H in BWD_STREAM:
-        if el == 4:
-            return 0
-        RK, SK, D = BWD_STREAM[H]
+    streams = BWD_STREAM if dtype == torch.bfloat16 else BWD_STREAM_F32
+    if H in streams:
+        RK, SK, D = streams[H]
         J = H // 16
-        streamed = 4 * J // 16 - RK - SK
+        streamed = _planes(dtype) * 4 * J // 16 - RK - SK
         return (_r16(2 * 16 * (4 * J + 8) * 2) + 16 * 16 * J * 4
                 + SK * 16 * (H + 8) * 2
                 + (16 * D * 16 * (J + 8) * 2 if streamed else 0))
@@ -175,20 +186,28 @@ def pad_weight(w_hh: torch.Tensor, n_gates: int, H: int,
                  (0, Hp - H, 0, Hp - H)).reshape(n_gates * Hp, Hp)
 
 
-def lstm_scan_ref(x_proj: torch.Tensor, w_hh: torch.Tensor,
-                  h0: torch.Tensor, c0: torch.Tensor,
-                  save_residuals: bool = False):
-    """Plain time loop (models/ar.py:106-116 of the JAX package) with the
-    kernel's float32 state.  Returns (ys (B,T,H), hT (B,H), cT (B,H)), and
-    with ``save_residuals`` also the float32 gate activations (B,T,4H) and
-    cell states (B,T,H)."""
+def _acc(t: torch.Tensor) -> torch.dtype:
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _split_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the float32 cluster bodies form it: a and b each as
+    bf16 hi + lo (``ffn.split_planes``), the 3 split products a_hi b_hi +
+    a_lo b_hi + a_hi b_lo, each exact term by term and summed in float32
+    (here each product apart)."""
+    return ffn.split_matmul(a, b, 3)
+
+
+def _scan(x_proj, w_hh, h0, c0, save_residuals: bool, matmul):
+    """The forward time loop, h_{t-1} . W_hh^T as ``matmul``."""
     H = h0.shape[-1]
-    xp = x_proj.float()
-    w_t = w_hh.float().t()
-    h, c = h0.float(), c0.float()
+    acc = _acc(x_proj)
+    xp = x_proj.to(acc)
+    w_t = w_hh.to(acc).t()
+    h, c = h0.to(acc), c0.to(acc)
     ys, gates, cs = [], [], []
     for t in range(x_proj.shape[1]):
-        g = xp[:, t] + h @ w_t
+        g = xp[:, t] + matmul(h, w_t)
         i, f, gg, o = g.split(H, dim=-1)
         i, f, gg, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(gg),
                        torch.sigmoid(o))
@@ -205,31 +224,71 @@ def lstm_scan_ref(x_proj: torch.Tensor, w_hh: torch.Tensor,
     return out
 
 
-def lstm_bwd_ref(gates: torch.Tensor, cs: torch.Tensor, c0: torch.Tensor,
-                 dys: torch.Tensor, w_hh: torch.Tensor, dhT: torch.Tensor,
-                 dcT: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain reverse scan, line by line ``_lstm_bwd_kernel`` (rnn.py
-    :97-134).  Returns float32 (dgates (B,T,4H), dh0 (B,H), dc0 (B,H))."""
+def _reverse_scan(gates, cs, c0, dys, w_hh, dhT, dcT, matmul):
+    """The reverse time loop, dgates . W_hh as ``matmul``."""
     H = c0.shape[-1]
-    w = w_hh.float()
-    dh, dc = dhT.float(), dcT.float()
+    acc = _acc(gates)
+    w = w_hh.to(acc)
+    dh, dc = dhT.to(acc), dcT.to(acc)
     dgs = []
     for t in range(gates.shape[1] - 1, -1, -1):
         i, f, gg, o = gates[:, t].split(H, dim=-1)
-        c_prev = cs[:, t - 1] if t > 0 else c0.float()
+        c_prev = cs[:, t - 1] if t > 0 else c0.to(acc)
         c = f * c_prev + i * gg
         tc = torch.tanh(c)
-        dh = dys[:, t].float() + dh
+        dh = dys[:, t].to(acc) + dh
         do_pre = dh * tc * o * (1.0 - o)
         dc = dc + dh * o * (1.0 - tc * tc)
         dgates = torch.cat([dc * gg * i * (1.0 - i),
                             dc * c_prev * f * (1.0 - f),
                             dc * i * (1.0 - gg * gg), do_pre], dim=-1)
         dgs.append(dgates)
-        dh = dgates @ w
+        dh = matmul(dgates, w)
         dc = dc * f
     return torch.stack(dgs[::-1], dim=1), dh, dc
+
+
+def lstm_scan_ref(x_proj: torch.Tensor, w_hh: torch.Tensor,
+                  h0: torch.Tensor, c0: torch.Tensor,
+                  save_residuals: bool = False):
+    """Plain time loop (models/ar.py:106-116 of the JAX package) with the
+    kernel's float32 state.  Returns (ys (B,T,H), hT (B,H), cT (B,H)), and
+    with ``save_residuals`` also the float32 gate activations (B,T,4H) and
+    cell states (B,T,H).  Float64 inputs are taken in float64 throughout:
+    the exact version the float32 kernel is measured against."""
+    return _scan(x_proj, w_hh, h0, c0, save_residuals, torch.matmul)
+
+
+def lstm_bwd_ref(gates: torch.Tensor, cs: torch.Tensor, c0: torch.Tensor,
+                 dys: torch.Tensor, w_hh: torch.Tensor, dhT: torch.Tensor,
+                 dcT: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain reverse scan, line by line ``_lstm_bwd_kernel`` (rnn.py
+    :97-134).  Returns float32 (dgates (B,T,4H), dh0 (B,H), dc0 (B,H)),
+    float64 for float64 inputs."""
+    return _reverse_scan(gates, cs, c0, dys, w_hh, dhT, dcT, torch.matmul)
+
+
+def lstm_scan_split(x_proj: torch.Tensor, w_hh: torch.Tensor,
+                    h0: torch.Tensor, c0: torch.Tensor,
+                    save_residuals: bool = False):
+    """The float32 cluster body's forward arithmetic written plainly (H
+    512 and 768, csrc/lstm_fwd.cu): :func:`lstm_scan_ref` with h_{t-1} .
+    W_hh^T as 3 split products (:func:`_split_matmul`).  Float32 inputs;
+    the same outputs.  For tests and measurements only: the card runs the
+    kernel."""
+    return _scan(x_proj, w_hh, h0, c0, save_residuals, _split_matmul)
+
+
+def lstm_bwd_split(gates: torch.Tensor, cs: torch.Tensor, c0: torch.Tensor,
+                   dys: torch.Tensor, w_hh: torch.Tensor, dhT: torch.Tensor,
+                   dcT: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The float32 cluster body's backward arithmetic written plainly (H
+    512 and 768, csrc/lstm_bwd.cu): :func:`lstm_bwd_ref` with dgates .
+    W_hh as 3 split products (:func:`_split_matmul`).  Float32 inputs; the
+    same outputs.  For tests and measurements only."""
+    return _reverse_scan(gates, cs, c0, dys, w_hh, dhT, dcT, _split_matmul)
 
 
 def lstm_fwd(x_proj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
@@ -264,7 +323,8 @@ def lstm_fwd(x_proj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
         cs = torch.empty((B, T, H), dtype=torch.float32, device=dev)
     lib = _build.library()
     code = _build.DTYPE_CODES[x_proj.dtype]
-    # the cluster body's exchange blocks (csrc/lstm_fwd.cu)
+    # the cluster body's exchange blocks, and in float32 W_hh's bf16
+    # planes (csrc/lstm_fwd.cu)
     n_scratch = lib.cpc_lstm_fwd_scratch(B, H, code)
     scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev) \
         if n_scratch else None
@@ -316,12 +376,17 @@ def lstm_bwd(gates: torch.Tensor, cs: torch.Tensor, c0: torch.Tensor,
     dh0 = torch.empty_like(dhT)
     dc0 = torch.empty_like(dcT)
     lib = _build.library()
+    code = _build.DTYPE_CODES[dys.dtype]
+    # the float32 cluster body's bf16 planes of W_hh (csrc/lstm_bwd.cu)
+    n_scratch = lib.cpc_lstm_bwd_scratch(H, code)
+    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev) \
+        if n_scratch else None
     with torch.cuda.device(dev):
         status = lib.cpc_lstm_bwd(
             gates.data_ptr(), cs.data_ptr(), c0.data_ptr(), dys.data_ptr(),
             w_hh.data_ptr(), dhT.data_ptr(), dcT.data_ptr(),
-            dgates.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), B, T, H,
-            _build.DTYPE_CODES[dys.dtype], _build.stream(dev))
+            dgates.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+            _build.ptr(scratch), B, T, H, code, _build.stream(dev))
     _build.check(status, _BWD_NAME)
     lstm_bwd.launches += 1
     lstm_bwd.body_launches[bwd_body(H, dys.dtype)] += 1

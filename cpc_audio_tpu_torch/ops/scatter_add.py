@@ -39,15 +39,14 @@ import torch
 from . import _build
 
 _NAME = "scatter_add_rows"
-_MAX_ROW_BYTES = 4096          # 8 x 16-byte chunks a lane (csrc/scatter_add.cu)
-
-
 def supported(C: int, dtype: torch.dtype) -> Optional[str]:
-    """Why the kernel refuses rows of C elements of ``dtype``, or None."""
+    """Why the kernel refuses rows of C elements of ``dtype``, or None:
+    a row must be whole 16-byte chunks (C a multiple of 8 in bf16, of 4
+    in float32); a warp adds 4096 bytes of a row, and a wider row is
+    walked in such pieces, one warp each (csrc/scatter_add.cu)."""
     row_bytes = C * torch.empty((), dtype=dtype).element_size()
-    if row_bytes % 16 != 0 or not 0 < row_bytes <= _MAX_ROW_BYTES:
-        return (f"C = {C}: a row must be a multiple of 16 bytes and at "
-                f"most {_MAX_ROW_BYTES}")
+    if row_bytes % 16 != 0 or row_bytes <= 0:
+        return f"C = {C}: a row must be a positive multiple of 16 bytes"
     return None
 
 

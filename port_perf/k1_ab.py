@@ -1,53 +1,93 @@
 #!/usr/bin/env python3
-"""K1's bf16 forward and backward of two checkouts, in turns, on one GPU.
+"""K1's forward and backward, and the float32 LSTM train steps at
+--hiddenGar 512 and 768, of two checkouts, in turns, on one GPU.
 
 Usage, from the root of a checkout:
     python3 port_perf/k1_ab.py OTHER_CHECKOUT
 
 Runs this checkout's and OTHER_CHECKOUT's K1 (each built from its own
 sources at first use, each in a process of its own) in the order other,
-this, this, other, and prints the device time a call (chip_smoke.median_ms)
-of the forward (saving residuals, as training does) and the backward at B 8
-/ T 256 / H 512, B 32 / T 128 / H 512 and B 32 / T 128 / H 768, with the
-body each ran.
+this, this, other, and prints, in bf16 and float32, the device time a
+call (chip_smoke.median_ms) of the forward (saving residuals, as training
+does) and the backward at B 32 / T 128 / H 256, B 8 / T 256 / H 512,
+B 32 / T 128 / H 512 and B 32 / T 128 / H 768, with the body each ran
+and a SHA-256 of each direction's outputs (then whether reruns and the
+two checkouts agree bit for bit); then the float32 LSTM train step at
+--hiddenEncoder 512 --hiddenGar 512 and 768 (B 32, dropout 0.1): train
+windows/s as the median of 10 synchronised steps after 2 warm-up.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
+import statistics
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SHAPES = ((8, 256, 512), (32, 128, 512), (32, 128, 768))
+SHAPES = ((32, 128, 256), (8, 256, 512), (32, 128, 512), (32, 128, 768))
+TRAIN_PATHS = ("LSTM 512 float32", "LSTM 768 float32")
+
+
+def sha(tensors) -> str:
+    import torch
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def one(root: str) -> None:
     """Time the checkout at ``root`` and print one JSON line."""
     sys.path.insert(0, HERE)
-    from chip_smoke import median_ms, recurrent_args  # noqa: E402
+    import chip_smoke  # noqa: E402
     sys.path.insert(0, root)
     import torch
     from cpc_audio_tpu_torch.ops import lstm
     if not os.path.abspath(lstm.__file__).startswith(os.path.abspath(root)):
         raise SystemExit(f"imported {lstm.__file__}, not {root}'s")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    g = torch.Generator(device=dev).manual_seed(7)
-
-    def rand(*shape, scale=1.0, dt=torch.bfloat16):
-        return (torch.randn(shape, generator=g, device=dev) * scale).to(dt)
     out = {}
-    for B, T, H in SHAPES:
-        fa, ba = recurrent_args(rand, dev, B, T, H)[:2]
-        bodies = {n: getattr(lstm, n)(H, torch.bfloat16)
-                  for n in ("fwd_body", "bwd_body") if hasattr(lstm, n)}
-        out[f"B {B} / T {T} / H {H}"] = {
-            "fwd_ms": median_ms(lambda: lstm.lstm_fwd(*fa,
-                                                      save_residuals=True)),
-            "bwd_ms": median_ms(lambda: lstm.lstm_bwd(*ba)),
-            "fwd_body": bodies.get("fwd_body", "rows"),
-            "bwd_body": bodies.get("bwd_body")}
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, T, H in SHAPES:
+            g = torch.Generator(device=dev).manual_seed(7)
+
+            def rand(*shape, scale=1.0, dt=dtype):
+                return (torch.randn(shape, generator=g, device=dev)
+                        * scale).to(dt)
+            fa, ba = chip_smoke.recurrent_args(rand, dev, B, T, H)[:2]
+            fwd = lambda: lstm.lstm_fwd(*fa, save_residuals=True)  # noqa
+            bwd = lambda: lstm.lstm_bwd(*ba)                       # noqa
+            hashes = [(sha(fwd()), sha(bwd())) for _ in range(2)]
+            out[f"{str(dtype)[6:]} B {B} / T {T} / H {H}"] = {
+                "fwd_ms": chip_smoke.median_ms(fwd),
+                "bwd_ms": chip_smoke.median_ms(bwd),
+                "fwd_body": getattr(lstm, "fwd_body", lambda *a: "rows")(
+                    H, dtype),
+                "bwd_body": lstm.bwd_body(H, dtype),
+                "fwd_sha256": hashes[0][0], "bwd_sha256": hashes[0][1],
+                "rerun_same": hashes[0] == hashes[1]}
+            del fa, ba
+            torch.cuda.empty_cache()
+    for path in TRAIN_PATHS:
+        model, crit = chip_smoke.build(path, "float32",
+                                       torch.Generator().manual_seed(1))
+        step, batch, key = chip_smoke.train_setup(model, crit, dev)
+        times = []
+        for i in range(12):
+            t0 = time.perf_counter()
+            step(batch, key=key)
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append(time.perf_counter() - t0)
+        out[path] = {"windows_s": 32 / statistics.median(times)}
+        del model, crit, step
+        torch.cuda.empty_cache()
     print(json.dumps(out))
 
 
@@ -58,6 +98,7 @@ def main() -> None:
     if len(sys.argv) != 2:
         raise SystemExit(__doc__)
     other = os.path.abspath(sys.argv[1])
+    runs = []
     for who, root in (("other", other), ("this", HERE), ("this", HERE),
                       ("other", other)):
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -65,10 +106,24 @@ def main() -> None:
         if r.returncode != 0:
             raise SystemExit(f"{root}: failed\n{r.stderr[-3000:]}")
         res = json.loads(r.stdout.strip().splitlines()[-1])
+        runs.append((who, res))
         for shape, t in res.items():
+            if "windows_s" in t:
+                print(f"{who} ({root}) {shape} train step: "
+                      f"{t['windows_s']:.1f} windows/s", flush=True)
+                continue
             print(f"{who} ({root}) {shape}: forward {t['fwd_ms']:.4f} ms "
-                  f"({t['fwd_body']} body), backward {t['bwd_ms']:.4f} ms "
-                  f"({t['bwd_body']} body)", flush=True)
+                  f"({t['fwd_body']} body, sha256 {t['fwd_sha256']}), "
+                  f"backward {t['bwd_ms']:.4f} ms ({t['bwd_body']} body, "
+                  f"sha256 {t['bwd_sha256']}); rerun bit-identical "
+                  f"{t['rerun_same']}", flush=True)
+    this, other_res = runs[1][1], runs[0][1]
+    for shape, t in this.items():
+        if "fwd_sha256" in t:
+            o = other_res[shape]
+            print(f"{shape}: outputs bit-identical to the other checkout's: "
+                  f"forward {t['fwd_sha256'] == o['fwd_sha256']}, backward "
+                  f"{t['bwd_sha256'] == o['bwd_sha256']}", flush=True)
 
 
 if __name__ == "__main__":

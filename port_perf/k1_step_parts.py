@@ -129,9 +129,10 @@ def main() -> None:
         for name, so in libs.items():
             lib = ctypes.CDLL(so)
             lib.cpc_lstm_fwd.argtypes = [P] * 10 + [I] * 4 + [P]
-            lib.cpc_lstm_bwd.argtypes = [P] * 10 + [I] * 4 + [P]
+            lib.cpc_lstm_bwd.argtypes = [P] * 11 + [I] * 4 + [P]
             fptr = [t.data_ptr() for t in list(fa) + outs]
-            bptr = [t.data_ptr() for t in list(ba) + bouts]
+            # bf16: no scratch
+            bptr = [t.data_ptr() for t in list(ba) + bouts] + [None]
 
             def fwd():
                 return lib.cpc_lstm_fwd(*fptr, B, T, H, 1, st)

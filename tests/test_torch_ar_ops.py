@@ -113,8 +113,9 @@ def test_gru_wrapper_runs_ref_on_cpu():
 # ---- K1 and K4: which body runs ----------------------------------------------
 
 # (forward, backward) body of K1 and K4's backward body by (H, dtype): the
-# 16-CTA cluster bodies at H 512 and 768 in bf16 only (at 768 with part of
-# W_hh streamed from L2), the 8-CTA backward at H 128 and 256
+# 16-CTA cluster bodies at H 512 and 768 in both dtypes (with part of W_hh
+# streamed from L2 at 768, and in float32, whose W_hh travels as two bf16
+# planes, at 512 too), the 8-CTA backward at H 128 and 256
 _BF, _F32 = torch.bfloat16, torch.float32
 _BODIES = {
     (128, _BF): ("rows", "cluster", "cluster"),
@@ -124,9 +125,9 @@ _BODIES = {
     (384, _BF): ("rows", "rows", "rows"),
     (384, _F32): ("rows", "rows", "rows"),
     (512, _BF): ("cluster", "cluster", "rows"),
-    (512, _F32): ("rows", "rows", "rows"),
+    (512, _F32): ("cluster", "cluster", "rows"),
     (768, _BF): ("cluster", "cluster", "rows"),
-    (768, _F32): ("rows", "rows", "rows"),
+    (768, _F32): ("cluster", "cluster", "rows"),
     (1024, _BF): ("rows", "rows", "rows"),
     (1024, _F32): ("rows", "rows", "rows"),
     (2048, _BF): ("rows", "rows", "rows"),

@@ -8,10 +8,10 @@ against the JAX package's own gates and paths:
   gate refuses and its jnp attention runs): the port takes every shape
   that JAX's Pallas gates take, and ``build_model`` / ``build_criterion``
   build them;
-* K3's gate over every model width the JAX package trains up to K2's
-  limit (D a multiple of 32 up to 1024) in both dtypes, and K1's
-  backward body at H 512 (a 16-CTA cluster in bf16, the rows body in
-  float32);
+* K3's gate over every model width the JAX package trains (D a multiple
+  of 8, past 1024 too) in both dtypes, the builders taking D 200, 264,
+  1056 and 2048, and K1's backward body at H 512 and 768 (a 16-CTA
+  cluster in both dtypes);
 * ``build_model`` / ``build_criterion`` refusing a config the port cannot
   take before any weight exists, with the flag named, and building the
   fused-layer switches at --hiddenEncoder 512 where JAX's own gates fall
@@ -120,39 +120,40 @@ def test_gates_take_what_jax_takes(no_fused_switches, name, dtype):
 
 def _tail_gate_takes_every_width(dtype):
     """K3's gate in ``dtype`` at F 2048 over every model width D a
-    multiple of 32 in [32, 1024]: each is taken, and the backward's
-    shared memory (``_bwd_smem``) fits a block; past 1024 (K2's limit)
-    and between the multiples of 32 it refuses."""
+    multiple of 8 in [8, 2048]: each is taken (past 1024 by the wide
+    body), and the backward's shared memory (``_bwd_smem``) fits a block;
+    between the multiples of 8 it refuses."""
     from cpc_audio_tpu_torch.ops import _build
-    widths = range(32, 1025, 32)
+    widths = range(8, 2049, 8)
     for D in widths:
         assert ffn._bwd_smem(D, 2048, dtype) <= _build.SMEM_LIMIT, D
     assert [D for D in widths if ffn.supported(D, 2048, dtype) is None] \
         == list(widths)
-    for D in (16, 200, 1056):
-        assert "multiple of 32" in ffn.supported(D, 2048, dtype), D
+    for D in (4, 204, 1052):
+        assert "multiple of 8" in ffn.supported(D, 2048, dtype), D
 
 
 def test_tail_gate_in_bf16_takes_every_width_the_forward_takes():
-    """bf16: every D a multiple of 32 up to 1024 at F 2048 (JAX's own
+    """bf16: every D a multiple of 8 up to 2048 at F 2048 (JAX's own
     Pallas gate takes D 128 and 256 at the train rows, and its jnp tail
     runs the rest), and the (D, F) pairs of the card tests; F must be a
     multiple of 64."""
     bf = torch.bfloat16
     _tail_gate_takes_every_width(bf)
     for D, F in ((64, 128), (32, 64), (256, 256), (512, 2048),
-                 (256, 2048), (384, 2048), (1024, 2048)):
+                 (256, 2048), (384, 2048), (1024, 2048), (40, 128),
+                 (200, 2048), (1056, 2048), (2048, 128)):
         assert ffn.supported(D, F, bf) is None, (D, F)
     assert "multiple of 64" in ffn.supported(256, 96, bf)
 
 
 def test_tail_gate_in_float32_takes_every_width():
-    """float32: every D a multiple of 32 up to 1024 at F 2048, and F any
-    multiple of 32 (the forward's last hidden chunk may be narrower than
-    the others)."""
+    """float32: every D a multiple of 8 up to 2048 at F 2048, and F any
+    multiple of 32 (a warp's 32 hidden columns make one word of live
+    bits)."""
     f32 = torch.float32
     _tail_gate_takes_every_width(f32)
-    for D, F in ((96, 96), (384, 160), (1024, 32)):
+    for D, F in ((96, 96), (384, 160), (1024, 32), (40, 64), (1056, 96)):
         assert ffn.supported(D, F, f32) is None, (D, F)
     assert "multiple of 32" in ffn.supported(256, 48, f32)
 
@@ -160,16 +161,17 @@ def test_tail_gate_in_float32_takes_every_width():
 def test_lstm_bwd_body_at_512_is_a_16_cta_cluster_in_bf16():
     """K1's backward at H 512: the cluster body on 16 CTAs in bf16, whose
     CTA (W_hh's 128 gate rows by 512 + 8 bf16, receive buffers, ring)
-    fits 227 KB; in float32 the rows body, since W_hh's slice alone
-    (128 x 512 float32) does not fit.  H 128 and 256 keep 8 CTAs, H 768
-    in bf16 takes 16 with part of the slice streamed, and K4 keeps its
-    bodies."""
+    fits 227 KB; in float32 W_hh's slice (128 x 512 float32) does not fit
+    as it is, so the 16-CTA body holds its two bf16 planes partly in
+    registers and shared memory and streams the rest, as at H 768 in
+    both dtypes.  H 128 and 256 keep 8 CTAs, and K4 keeps its bodies."""
     from cpc_audio_tpu_torch.ops import _build
     bf, f32 = torch.bfloat16, torch.float32
     assert lstm.CLUSTER == {128: 8, 256: 8, 512: 16, 768: 16}
     assert gru.CLUSTER == {128: 8, 256: 8}
     assert lstm.bwd_body(512, bf) == "cluster"
-    assert lstm.bwd_body(512, f32) == "rows"
+    assert lstm.bwd_body(512, f32) == "cluster"
+    assert 512 in lstm.BWD_STREAM_F32 and 512 not in lstm.BWD_STREAM
     assert lstm.cluster_smem(512, 4, bf, 5 * 8 + 2 * 2, 16) \
         <= _build.SMEM_LIMIT
     assert lstm.cluster_smem(512, 4, bf, 5 * 8 + 2 * 2, 8) \
@@ -182,7 +184,7 @@ def test_lstm_bwd_body_at_512_is_a_16_cta_cluster_in_bf16():
     for H in (104, 384, 1024, 2048):
         assert lstm.bwd_body(H, bf) == "rows", H
     assert lstm.bwd_body(768, bf) == "cluster"
-    assert lstm.bwd_body(768, f32) == "rows"
+    assert lstm.bwd_body(768, f32) == "cluster"
     assert gru.bwd_body(512, bf) == gru.bwd_body(512, f32) == "rows"
 
 
@@ -193,11 +195,41 @@ REFUSED = [
      "--sizeWindow 163840"),
     ("model", dict(hiddenGar=4096), {}, "--hiddenGar 4096"),
     ("criterion", dict(hiddenGar=100), {}, "--hiddenGar 100"),
-    ("criterion", dict(hiddenEncoder=200, hiddenGar=200), {},
-     "--hiddenEncoder 200"),
-    ("criterion", dict(hiddenEncoder=1056, hiddenGar=1056), {},
-     "--hiddenEncoder 1056"),
+    ("criterion", dict(hiddenEncoder=204, hiddenGar=204), {},
+     "--hiddenEncoder 204"),
+    ("criterion", dict(hiddenEncoder=1052, hiddenGar=1052), {},
+     "--hiddenEncoder 1052"),
 ]
+
+
+# widths the JAX package trains that are no multiple of 32, or past 1024
+WIDE_OR_ODD = (200, 264, 1056, 2048)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("D", WIDE_OR_ODD)
+def test_builders_take_every_multiple_of_8(no_fused_switches, D, dtype):
+    """--hiddenEncoder D with --hiddenGar D, a multiple of 8 that is no
+    multiple of 32 or past 1024: every kernel's gate takes it (K3 masks
+    the columns past D and crosses column tiles past 1024, K2 takes any
+    dk, K8 walks rows past 4096 bytes in pieces), and build_model /
+    build_criterion build it; at 1056 and 2048, whose weights would take
+    most of a gigabyte on the CPU, the builders' own gate
+    (``check_kernels``, which each runs first) takes it."""
+    from cpc_audio_tpu_torch.criterion import infonce
+    from cpc_audio_tpu_torch.models import cpc
+    from cpc_audio_tpu_torch.ops import scatter_add
+    cfg = CPCConfig(compute_dtype=dtype, hiddenEncoder=D, hiddenGar=D)
+    tdt = {"bfloat16": torch.bfloat16, "float32": torch.float32}[dtype]
+    S = cfg.sizeWindow // 160 - cfg.nPredicts
+    assert ffn.supported(D, 2048, tdt) is None
+    assert head_attention.supported(S, D // 8) is None
+    assert scatter_add.supported(D, tdt) is None
+    assert lstm.supported(D) is None
+    cpc.check_kernels(cfg)
+    infonce.check_kernels(cfg)
+    if D <= 264:
+        build_criterion(build_model(cfg).config)
 
 
 @pytest.mark.parametrize("builder,kw,env,flag", REFUSED,

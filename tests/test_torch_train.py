@@ -64,6 +64,23 @@ def test_train_step_matches_jax(monkeypatch):
     one Adam step.  The JAX heads' dropout is patched to 0 here only, and
     the port's heads' rate set to 0; the round keys are injected into the
     JAX sampler as tests/test_torch_slice.py does."""
+    _train_step_matches_jax(monkeypatch, CFG)
+
+
+# --hiddenEncoder 40: a multiple of the heads' 8 but not of 32 (dk 5; K3
+# masks the columns past D), on a 16-frame window (B*S = 32 keeps `auto`
+# on the stratified sampler) and 2 predicted steps, so it stays cheap
+CFG40 = CPCConfig(hiddenEncoder=40, hiddenGar=40, nPredicts=2,
+                  negativeSamplingExt=8, sizeWindow=2560)
+
+
+def test_train_step_matches_jax_at_a_width_no_multiple_of_32(monkeypatch):
+    """The same step at --hiddenEncoder 40 --hiddenGar 40, which the JAX
+    package trains on its jnp tail and attention."""
+    _train_step_matches_jax(monkeypatch, CFG40)
+
+
+def _train_step_matches_jax(monkeypatch, cfg):
     monkeypatch.setattr(jstacked, "StackedTransformerHeads",
                         functools.partial(jstacked.StackedTransformerHeads,
                                           dropout=0.0))
@@ -71,9 +88,9 @@ def test_train_step_matches_jax(monkeypatch):
         orig = getattr(jinfonce, fn)
         monkeypatch.setattr(jinfonce, fn, lambda x, _k, n, orig=orig: orig(
             x, jnp.asarray(KEYS), n))
-    jmodel = jbuild_model(CFG)
-    jcrit = get_criterion(CFG, TrainConfig(), 160, 0, 0)
-    x = _waves(B, CFG.sizeWindow, 4)
+    jmodel = jbuild_model(cfg)
+    jcrit = get_criterion(cfg, TrainConfig(), 160, 0, 0)
+    x = _waves(B, cfg.sizeWindow, 4)
     params = {"model": jax.jit(jmodel.init)(
         {"params": jax.random.PRNGKey(0)}, jnp.asarray(x))["params"]}
     c, z, _, _ = jmodel.apply({"params": params["model"]}, jnp.asarray(x))
@@ -81,7 +98,7 @@ def test_train_step_matches_jax(monkeypatch):
         lambda rngs, c, z: jcrit.init(rngs, c, z, None))(
         {"params": jax.random.PRNGKey(1),
          "sampling": jax.random.PRNGKey(2)}, c, z)["params"]
-    optimizer = jopt(CFG.beta1, CFG.beta2, CFG.epsilon)
+    optimizer = jopt(cfg.beta1, cfg.beta2, cfg.epsilon)
     state0 = JTrainState(params, {}, optimizer.init(params),
                          jnp.zeros((), jnp.int32))
     mesh = get_mesh(1)
@@ -90,15 +107,15 @@ def test_train_step_matches_jax(monkeypatch):
                                  jax.random.PRNGKey(7), LR)
     # optax's first moment after one step is (1 - beta1) * grad
     grads_j = _flat(jax.tree_util.tree_map(
-        lambda m: np.asarray(m) / (1.0 - CFG.beta1), state1.opt_state[0].mu))
+        lambda m: np.asarray(m) / (1.0 - cfg.beta1), state1.opt_state[0].mu))
     params0 = _flat(params)
     params1_j = _flat(state1.params)
 
-    model, crit = build_model(CFG), build_criterion(CFG)
+    model, crit = build_model(cfg), build_criterion(cfg)
     load_jax_params(model, crit, params)
     crit.wPrediction.heads.dropout = 0.0
-    state = create_train_state(model, crit, "cpu", LR, CFG.beta1, CFG.beta2,
-                               CFG.epsilon)
+    state = create_train_state(model, crit, "cpu", LR, cfg.beta1, cfg.beta2,
+                               cfg.epsilon)
     grads = {}
     _, metrics = make_train_step(state, "cpu")(
         x, round_keys=torch.from_numpy(KEYS.astype(np.int64)))
@@ -110,7 +127,7 @@ def test_train_step_matches_jax(monkeypatch):
     # f32 throughout; sums in another order
     np.testing.assert_allclose(metrics["losses"].numpy(),
                                np.asarray(metrics_j["losses"]), atol=1e-5)
-    W = CFG.sizeWindow // 160 - CFG.nPredicts
+    W = cfg.sizeWindow // 160 - cfg.nPredicts
     np.testing.assert_allclose(metrics["acc"].numpy(),
                                np.asarray(metrics_j["acc"]),
                                atol=1.0 / (B * W) + 1e-7)
