@@ -25,7 +25,12 @@ Phases (any failure exits non-zero):
      bf16 planes); K3 at D 200 and 1056 (the wide body) in both dtypes
      and at D 2048 in float32, K2 at dk 25 and 132 in both dtypes and K8
      at C 200 and 1056 in float32 (M 3712, S 116: --hiddenEncoder 200,
-     1056 and 2048); K8
+     1056 and 2048); K5 on its one tensor-core body (float32 on split
+     bf16 planes) at dk 256 (N 32, S 128: --hiddenEncoder 2048) and at S
+     1024 (N 32, dk 32: --sizeWindow 163840) in both dtypes and at dk 64
+     in float32, K2 at S 1012 (dk 32) and at dk 256 (S 116), K1 and K4 at
+     B 4, T 128, H 4096 (--hiddenGar 4096: the rows bodies), both dtypes;
+     K8
      also with all keys on one row (bf16), and the
      time of its whole wrapper (sort + searchsorted + K8); K3's forward
      and backward, at each of their shapes at rate 0.1 and in both
@@ -40,7 +45,11 @@ Phases (any failure exits non-zero):
      turns at B 8, T 256, H 512 and at B 32, T 128, H 512 and 768, SDPA
      at dk 64 beside K5 at rate 0, in turns, and in float32 cuDNN's LSTM
      and GRU and SDPA at K1's, K4's and K5's shapes beside the float32
-     bodies, in turns), K1's and K4's
+     bodies, in turns, SDPA also at dk 256; cuDNN's nn.LSTM at H 1056
+     and nn.GRU at H 512 and 768 beside K1's and K4's rows bodies and
+     both at B 4, T 128, H 4096 (--hiddenGar 4096), and SDPA at N 32,
+     S 1024, dk 32 beside K5 (--sizeWindow 163840), both dtypes, in
+     turns), K1's and K4's
      backward beside cuDNN's in both dtypes and the port's whole LSTM and
      GRU layers beside cuDNN's, in turns, K5 at rate 0 beside SDPA, and
      for K7 the port's unfused encoder layers (cuDNN conv + ChannelNorm +
@@ -66,7 +75,12 @@ Phases (any failure exits non-zero):
      --hiddenEncoder 512 --hiddenGar 512 and at 768 in float32 (K1's
      float32 16-CTA bodies), and LSTM at --hiddenEncoder 200 and 1056
      (with --hiddenGar the same; K3 at D a multiple of 8 but not of 32,
-     and its wide body; K2 at dk 25 and 132):
+     and its wide body; K2 at dk 25 and 132), GRU at --hiddenEncoder 512
+     --hiddenGar 512 (K4's rows bodies), the transformer in float32 (K5's
+     float32 body; its step also held against the CPU), and in float32
+     at B = 4 with 4 timed steps the transformer at --hiddenEncoder 2048
+     --hiddenGar 2048 (K5 and K2 at dk 256, K3's wide body) and at
+     --sizeWindow 163840 (K5 at S 1024, K2 at S 1012):
      make_train_step at the same config (bf16 but on the float32 paths,
      B = 32, dropout 0.1 in the heads and the transformer AR), 2 warm-up
      and 10 timed steps on a
@@ -89,7 +103,9 @@ Phases (any failure exits non-zero):
      losses and gradients; then a
      GRU model at --hiddenGar 100 (K4 with H padded to 128; the criterion
      must be refused, naming the flag) trains alone for 4 steps and holds
-     a float32 step against the CPU; then two exact steps with
+     a float32 step against the CPU, and so do LSTM and GRU models at
+     --hiddenGar 4096 (B = 4; K1's and K4's rows bodies); then two exact
+     steps with
      stopGradNegatives, in which K8 must not launch;
      last, the default LSTM step in turns with the fused one and with the
      exact one, one line of train windows/s for each pair;
@@ -99,11 +115,18 @@ Phases (any failure exits non-zero):
      resumes; then one epoch with --arMode GRU, one with --arMode
      transformer, one with --batchSizeGPU 6 (auto -> exact: K8 runs) and
      one with --arMode transformer --hiddenEncoder 512 --hiddenGar 512;
-     --arMode GRU --hiddenGar 100 must stop before any step, naming the
-     flag;
+     then one epoch at the CLI's default --compute_dtype float32, which
+     must leave TF32 off (the package's precision policy, set by
+     train.main), with its first step also run on the CPU from the same
+     state, batch and keys, the two held together at 1e-3 of each
+     gradient leaf's norm; --arMode GRU --hiddenGar 100 must stop before
+     any step, naming the flag;
   7. print one JSON line of per-kernel results (each kernel's launches
      from its own path's train run), the card line again, and last the
      JSON result line.
+The script runs under the package's float32 precision policy (TF32 off:
+cpc_audio_tpu_torch/_common.py precision_policy), which it sets first so
+that its float32 yardsticks take it too.
 There is no CPU path: without a CUDA device the script exits with 1.
 """
 
@@ -413,6 +436,7 @@ def kernel_cases(dev: torch.device, dtype: torch.dtype, B: int = 32):
     cases += h512_cases(rand, dev)
     cases += w768_cases(rand, dev, seed, B)
     cases += width_cases(rand, dev, seed, dtype, B)
+    cases += repair_cases(rand, dev, seed, dtype)
     upd, keys, order, offsets, R = scatter_inputs(dev, dtype, B)
     cases.append(Case("scatter_add_rows", 0.0,
                       lambda: sa.scatter_add_sorted(upd, order, offsets),
@@ -542,6 +566,71 @@ def width_cases(rand, dev: torch.device, seed, dtype: torch.dtype,
     return cases
 
 
+def causal_cases(rand, seed, N: int, S: int, dk: int, tag: str,
+                 rate: float = 0.1):
+    """K5 forward and backward at rate ``rate`` on N rows of S with head
+    width dk (q, k, v, the bias, then the output's cotangent drawn in
+    that order); their bounds read the bias's causal half only."""
+    from cpc_audio_tpu_torch.ops import causal_attention as ca
+    args = (rand(N, S, dk), rand(N, S, dk), rand(N, S, dk),
+            rand(N, S, S, scale=0.5))
+    dout = rand(N, S, dk, scale=0.1)
+    pairs = N * S * (S + 1) // 2
+    elt = args[0].element_size()
+    read = (3 * N * S * dk + pairs) * elt
+    return [
+        # q.k and p.v: 4 dk per causal pair
+        Case("causal_attention_fwd", rate,
+             lambda: ca.causal_attention_fwd(*args, rate, seed),
+             lambda: ca.causal_attention_ref(*args, rate, seed), args,
+             4 * dk * pairs, read, shape=tag),
+        # recomputed q.k, dp, dv, dq, dk: 10 dk per causal pair
+        Case("causal_attention_bwd", rate,
+             lambda: ca.causal_attention_bwd(*args, dout, rate, seed),
+             lambda: ca.causal_attention_bwd_ref(*args, dout, rate, seed),
+             args + (dout,), 10 * dk * pairs, read + dout.numel() * elt,
+             shape=tag)]
+
+
+def repair_cases(rand, dev: torch.device, seed, dtype: torch.dtype,
+                 B: int = 4, T: int = 128):
+    """The kernels at the shapes the card first took in this form: K5 at
+    dk 256 (--hiddenEncoder 2048: N = B*8 rows of S 128) and at S 1024
+    (--sizeWindow 163840, dk 32) on its one tensor-core body, and in
+    float32 also at dk 64 (N 256, S 128; bf16 has it in wide_cases); K2
+    at the heads' S 1012 anchors (dk 32) and at dk 256 (S 116); K1 and K4
+    at --hiddenGar 4096 (B 4, T 128: the rows bodies, each thread walking
+    two unit pairs).  Batch B = 4, the new paths' (rate 0.1 where a
+    kernel drops)."""
+    from cpc_audio_tpu_torch.ops import gru, lstm
+    cases = []
+    shapes = [(B * 8, 128, 256, "dk 256 / D 2048"),
+              (B * 8, 1024, 32, "S 1024 / dk 32")]
+    if dtype == torch.float32:
+        shapes.insert(0, (256, 128, 64, "dk 64 / D 512"))
+    for N, S, dk, tag in shapes:
+        cases += causal_cases(rand, seed, N, S, dk, tag)
+    cases += relpos_cases(rand, seed, B, 1012, 32)
+    cases += relpos_cases(rand, seed, B, 116, 256)
+    H = 4096
+    la, lba, ga, gba = recurrent_args(rand, dev, B, T, H)
+    tag = f"B {B} / T {T} / H {H}"
+    cases += [
+        Case("lstm_fwd", 0.0, lambda: lstm.lstm_fwd(*la, save_residuals=True),
+             lambda: lstm.lstm_scan_ref(*la, save_residuals=True), la,
+             2 * B * T * 4 * H * H, shape=tag),
+        Case("lstm_bwd", 0.0, lambda: lstm.lstm_bwd(*lba),
+             lambda: lstm.lstm_bwd_ref(*lba), lba, 2 * B * T * 4 * H * H,
+             shape=tag),
+        Case("gru_fwd", 0.0, lambda: gru.gru_fwd(*ga, save_residuals=True),
+             lambda: gru.gru_scan_ref(*ga, save_residuals=True), ga,
+             2 * B * T * 3 * H * H, shape=tag),
+        Case("gru_bwd", 0.0, lambda: gru.gru_bwd(*gba),
+             lambda: gru.gru_bwd_ref(*gba), gba, 2 * B * T * 3 * H * H,
+             shape=tag)]
+    return cases
+
+
 def h512_cases(rand, dev: torch.device, B: int = 32, T: int = 128,
                H: int = 512):
     """K1 forward and backward at H 512 at the default window's B 32,
@@ -588,27 +677,9 @@ def wide_cases(rand, seed, B: int = 32):
     --hiddenEncoder 512 --hiddenGar 512: the transformer AR's N = B*8
     rows of S = 128 with dk = 64, the heads' K = 12, M = B*116, D = 512,
     F = 2048."""
-    from cpc_audio_tpu_torch.ops import causal_attention as ca
-    N, S, dk = B * 8, 128, 64
-    args = (rand(N, S, dk), rand(N, S, dk), rand(N, S, dk),
-            rand(N, S, S, scale=0.5))
-    dout = rand(N, S, dk, scale=0.1)
-    pairs = N * S * (S + 1) // 2
-    elt = args[0].element_size()
-    read = (3 * N * S * dk + pairs) * elt
-    r, tag = 0.1, "dk 64 / D 512"
-    cases = [
-        Case("causal_attention_fwd", r,
-             lambda: ca.causal_attention_fwd(*args, r, seed),
-             lambda: ca.causal_attention_ref(*args, r, seed), args,
-             4 * dk * pairs, read, shape=tag),
-        Case("causal_attention_bwd", r,
-             lambda: ca.causal_attention_bwd(*args, dout, r, seed),
-             lambda: ca.causal_attention_bwd_ref(*args, dout, r, seed),
-             args + (dout,), 10 * dk * pairs,
-             read + dout.numel() * elt, shape=tag)]
+    cases = causal_cases(rand, seed, B * 8, 128, 64, "dk 64 / D 512")
     # drawn after K5's inputs, as they always were
-    return cases + tail_cases(rand, seed, B * 116, 512, tag)
+    return cases + tail_cases(rand, seed, B * 116, 512, "dk 64 / D 512")
 
 
 def scatter_inputs(dev: torch.device, dtype: torch.dtype, B: int = 32,
@@ -786,8 +857,10 @@ PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # K3 in float32 runs its products as bf16 tensor-core products of split
 # operands: G1 of 6, the others of 3 (the forward's two: 9 for 2; the
-# backward's six: 21 for 6)
-SPLIT_PRODUCTS = {"layer_tail_fwd": 9 / 2, "layer_tail_bwd": 21 / 6}
+# backward's six: 21 for 6); K5 in float32 every product of 6 in the
+# forward (three planes) and of 3 in the backward (two)
+SPLIT_PRODUCTS = {"layer_tail_fwd": 9 / 2, "layer_tail_bwd": 21 / 6,
+                  "causal_attention_fwd": 6, "causal_attention_bwd": 3}
 
 
 def _tensors(x):
@@ -930,12 +1003,13 @@ def wide_yardsticks(dev: torch.device, shaped: dict, B: int = 32) -> None:
 
 
 def f32_yardsticks(dev: torch.device, B: int = 32) -> None:
-    """The one-call yardsticks in float32 (TF32 off) beside the float32
-    bodies, in turns (kernel, library, library, kernel): cuDNN's nn.LSTM
-    at K1's shapes (B 32 / T 128 / H 256, B 8 / T 256 / H 512, B 32 /
-    T 128 / H 512, B 32 / T 128 / H 768) and nn.GRU at K4's (B 32 / T 128
-    / H 256), forward and backward (dx and dW too); SDPA at K5's (N = B * 8
-    rows of S 128, dk 32 and 64), rate 0."""
+    """The one-call yardsticks in float32 (TF32 off, the package's policy)
+    beside the float32 bodies, in turns (kernel, library, library,
+    kernel): cuDNN's nn.LSTM at K1's shapes (B 32 / T 128 / H 256, B 8 /
+    T 256 / H 512, B 32 / T 128 / H 512, B 32 / T 128 / H 768) and nn.GRU
+    at K4's (B 32 / T 128 / H 256), forward and backward (dx and dW too);
+    SDPA at K5's (N = B * 8 rows of S 128, dk 32 and 64; N = 32 rows at
+    dk 256, the --hiddenEncoder 2048 path's), rate 0."""
     from cpc_audio_tpu_torch.ops import causal_attention as ca
     from cpc_audio_tpu_torch.ops import gru, lstm
     f32 = torch.float32
@@ -976,11 +1050,11 @@ def f32_yardsticks(dev: torch.device, B: int = 32) -> None:
                                              "dW"))
         del la, lba, ga, gba, k, cudnn
         torch.cuda.empty_cache()
-    for dk in (32, 64):
-        N, S = B * 8, 128
+    for dk, Bk in ((32, B), (64, B), (256, 4)):
+        N, S = Bk * 8, 128
         q, k, v = (rand(N, S, dk) for _ in range(3))
         bias, do = rand(N, S, S, scale=0.5), rand(N, S, dk, scale=0.1)
-        sdpa = sdpa_calls(rand, B, dk)
+        sdpa = sdpa_calls(rand, Bk, dk)
         for i, (name, call) in enumerate((
                 ("causal_attention_fwd",
                  lambda: ca.causal_attention_fwd(q, k, v, bias)),
@@ -988,6 +1062,95 @@ def f32_yardsticks(dev: torch.device, B: int = 32) -> None:
                  lambda: ca.causal_attention_bwd(q, k, v, bias, do)))):
             turns(f"{name} dk {dk} (N {N}, S {S}), rate 0", call, sdpa[i],
                   "SDPA" + ("" if i == 0 else " autograd backward"))
+
+
+ROWS_SHAPES = (("lstm", 32, 1056), ("gru", 32, 512), ("gru", 32, 768))
+H4096_SHAPES = (("lstm", 4, 4096), ("gru", 4, 4096))
+
+
+def rows_yardsticks(dev: torch.device, shapes=ROWS_SHAPES, T: int = 128,
+                    **timing) -> None:
+    """cuDNN beside the rows bodies, in both dtypes, in turns (kernel,
+    cuDNN, cuDNN, kernel): at ``shapes`` (kind, B, H), by default nn.LSTM
+    at H 1056 (--hiddenGar 1056: K1's rows bodies) and nn.GRU at H 512
+    and 768 (K4's rows bodies) at B 32, forward (training, input
+    projection included) and backward (dx and dW too), T 128; ``timing``
+    goes to median_ms (fewer calls at H 4096, where a call takes up to
+    seconds)."""
+    from cpc_audio_tpu_torch.ops import gru, lstm
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device=dev).manual_seed(SEED + 19)
+
+        def rand(*shape, scale=1.0):
+            return (torch.randn(shape, generator=g, device=dev)
+                    * scale).to(dtype)
+        for kind, B, H in shapes:
+            cudnn = cudnn_layer(dev, dtype, kind, g, B=B, T=T, C=H)
+            la, lba, ga, gba = recurrent_args(rand, dev, B, T, H)
+            k = ((lambda: lstm.lstm_fwd(*la, save_residuals=True),
+                  lambda: lstm.lstm_bwd(*lba)) if kind == "lstm" else
+                 (lambda: gru.gru_fwd(*ga, save_residuals=True),
+                  lambda: gru.gru_bwd(*gba)))
+            mod = lstm if kind == "lstm" else gru
+            bodies = (mod.fwd_body(H, dtype) if kind == "lstm" else "rows",
+                      mod.bwd_body(H, dtype))
+            args = (la, lba) if kind == "lstm" else (ga, gba)
+            G = 4 if kind == "lstm" else 3
+            for i, d in enumerate(("fwd", "bwd")):
+                b = bound(Case(f"{kind}_{d}", 0.0, k[i], None, args[i],
+                               2 * B * T * G * H * H), k[i](), dtype)
+                t = {"kernel": [], "cudnn": []}
+                for who in ("kernel", "cudnn", "cudnn", "kernel"):
+                    t[who].append(median_ms(k[i] if who == "kernel"
+                                            else cudnn[i], **timing))
+                k_ms, c_ms = (statistics.mean(t[w])
+                              for w in ("kernel", "cudnn"))
+                print(f"  {kind}_{d} B {B} / T {T} / H {H}, "
+                      f"{str(dtype)[6:]}, in turns ({bodies[i]} body): "
+                      f"kernel {t['kernel'][0]:.4f} / {t['kernel'][1]:.4f} "
+                      f"ms, cuDNN nn.{cudnn[2]} "
+                      + ("forward (training), input projection included"
+                         if i == 0 else "autograd backward, dx and dW")
+                      + f" {t['cudnn'][0]:.4f} / {t['cudnn'][1]:.4f} ms; "
+                      f"kernel / cuDNN {k_ms / c_ms:.3f}; kernel bound "
+                      f"{b['bound_ms']:.4f} ms by {b['bound_by']}",
+                      flush=True)
+            del la, lba, ga, gba, k, cudnn
+            torch.cuda.empty_cache()
+
+
+def long_causal_yardsticks(dev: torch.device, B: int = 4, S: int = 1024,
+                           dk: int = 32) -> None:
+    """SDPA beside K5 at --sizeWindow 163840's shape (N = B * 8 rows of S
+    1024, dk 32), rate 0, both dtypes, in turns (K5, SDPA, SDPA, K5),
+    forward and backward, each with K5's bound."""
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device=dev).manual_seed(SEED + 23)
+
+        def rand(*shape, scale=1.0, grad=False):
+            t = (torch.randn(shape, generator=g, device=dev)
+                 * scale).to(dtype)
+            return t.requires_grad_(grad)
+        N = B * 8
+        cases = causal_cases(rand, None, N, S, dk, f"S {S} / dk {dk}",
+                             rate=0.0)
+        sdpa = sdpa_calls(rand, B, dk, S=S)
+        for i, case in enumerate(cases):
+            b = bound(case, case.kernel(), dtype)
+            t = {"K5": [], "SDPA": []}
+            for who in ("K5", "SDPA", "SDPA", "K5"):
+                t[who].append(median_ms(case.kernel if who == "K5"
+                                        else sdpa[i]))
+            print(f"  {case.name} N {N} / S {S} / dk {dk}, "
+                  f"{str(dtype)[6:]}, rate 0, in turns: K5 "
+                  f"{t['K5'][0]:.4f} / {t['K5'][1]:.4f} ms, SDPA"
+                  + ("" if i == 0 else " autograd backward")
+                  + f" {t['SDPA'][0]:.4f} / {t['SDPA'][1]:.4f} ms; K5 / "
+                  f"SDPA {statistics.mean(t['K5']) / statistics.mean(t['SDPA']):.3f}"
+                  f"; K5 bound {b['bound_ms']:.4f} ms by {b['bound_by']}",
+                  flush=True)
+        del cases, sdpa
+        torch.cuda.empty_cache()
 
 
 def cudnn_layer(dev: torch.device, dtype: torch.dtype, kind: str,
@@ -1214,6 +1377,9 @@ def phase_kernels(dev: torch.device, B: int = 32) -> dict:
         print(f"  {name}: none (no single call does conv + ChannelNorm + "
               f"ReLU; the composition is timed below)", flush=True)
     recurrent_against_cudnn(dev, B)
+    rows_yardsticks(dev)
+    rows_yardsticks(dev, H4096_SHAPES, warmup=1, reps=2)
+    long_causal_yardsticks(dev)
     conv_composition_times(dev, timings=results, B=B)
     scatter_wrapper_times(dev, results, B)
     torch.cuda.empty_cache()
@@ -1335,7 +1501,14 @@ F512 = "LSTM 512 float32"    # --hiddenEncoder 512 --hiddenGar 512, float32
 F768 = "LSTM 768 float32"    # --hiddenEncoder 768 --hiddenGar 768, float32
 W200 = "LSTM 200"            # --hiddenEncoder 200 --hiddenGar 200
 W1056 = "LSTM 1056"          # --hiddenEncoder 1056 --hiddenGar 1056
-FLOAT32_PATHS = (F32, F512, F768)
+G512 = "GRU 512"             # --hiddenEncoder 512 --hiddenGar 512
+T32 = "transformer float32"  # the transformer AR in float32, default widths
+T2048 = "transformer 2048 float32"   # --hiddenEncoder 2048 --hiddenGar 2048
+T163840 = "transformer 163840 float32"   # --sizeWindow 163840
+FLOAT32_PATHS = (F32, F512, F768, T32, T2048, T163840)
+# paths at B 4, the batch their widths or window leave room for on the
+# card's memory beside the plain versions' checks; 4 timed steps
+SMALL_PATHS = (T2048, T163840)
 PATH_KERNELS = {"LSTM": ("lstm_fwd", "lstm_bwd") + HEADS,
                 "GRU": ("gru_fwd", "gru_bwd") + HEADS,
                 "transformer": ("causal_attention_fwd",
@@ -1353,7 +1526,14 @@ PATH_KERNELS = {"LSTM": ("lstm_fwd", "lstm_bwd") + HEADS,
                 F512: ("lstm_fwd", "lstm_bwd") + HEADS,
                 F768: ("lstm_fwd", "lstm_bwd") + HEADS,
                 W200: ("lstm_fwd", "lstm_bwd") + HEADS,
-                W1056: ("lstm_fwd", "lstm_bwd") + HEADS}
+                W1056: ("lstm_fwd", "lstm_bwd") + HEADS,
+                G512: ("gru_fwd", "gru_bwd") + HEADS,
+                T32: ("causal_attention_fwd", "causal_attention_bwd")
+                + HEADS,
+                T2048: ("causal_attention_fwd", "causal_attention_bwd")
+                + HEADS,
+                T163840: ("causal_attention_fwd", "causal_attention_bwd")
+                + HEADS}
 # CPCConfig fields a path sets beside arMode
 PATH_CONFIG = {EXACT: {"negativeSamplingMode": "exact"},
                WIDE: {"hiddenEncoder": 512, "hiddenGar": 512},
@@ -1363,16 +1543,19 @@ PATH_CONFIG = {EXACT: {"negativeSamplingMode": "exact"},
                F512: {"hiddenEncoder": 512, "hiddenGar": 512},
                F768: {"hiddenEncoder": 768, "hiddenGar": 768},
                W200: {"hiddenEncoder": 200, "hiddenGar": 200},
-               W1056: {"hiddenEncoder": 1056, "hiddenGar": 1056}}
+               W1056: {"hiddenEncoder": 1056, "hiddenGar": 1056},
+               G512: {"hiddenEncoder": 512, "hiddenGar": 512},
+               T2048: {"hiddenEncoder": 2048, "hiddenGar": 2048},
+               T163840: {"sizeWindow": 163840}}
 # the body the AR's backward kernel (K1, K4) must run on a path: the
 # cluster body at hiddenGar 256 (and 128) and, on 16 CTAs, at 512 and 768
 # in both dtypes (with part of W_hh streamed from L2 at 768, and in
 # float32, on W_hh's two bf16 planes, at 512 too); the rows body at 200
-# and 1056
+# and 1056, and K4's at 512
 BWD_BODY = {"LSTM": "cluster", "GRU": "cluster", FUSED: "cluster",
             EXACT: "cluster", LONG: "cluster", W768: "cluster",
             F32: "cluster", F512: "cluster", F768: "cluster", W200: "rows",
-            W1056: "rows"}
+            W1056: "rows", G512: "rows"}
 # the body K1's forward must run: the rows body at hiddenGar 256, 200 and
 # 1056, the 16-CTA cluster body at 512 and 768 in both dtypes
 FWD_BODY = {"LSTM": "rows", FUSED: "rows", EXACT: "rows", LONG: "cluster",
@@ -1594,11 +1777,12 @@ def check_features(model, dev: torch.device) -> None:
         fail(f"build_feature gave {feats.shape} {feats.dtype}")
 
 
-def phase_train(dev: torch.device, path: str = "LSTM",
-                B: int = 32) -> dict:
+def phase_train(dev: torch.device, path: str = "LSTM", B: int = 32,
+                timed: int = 10) -> dict:
     """The train path of one --arMode (or the fused-layer path):
-    make_train_step at the default config in bf16 (F32: in float32, the
-    CLIs' default), 2 warm-up and 10 timed steps on a fixed batch."""
+    make_train_step at the default config in bf16 (FLOAT32_PATHS: in
+    float32, the CLIs' default), 2 warm-up and ``timed`` timed steps on a
+    fixed batch."""
     dtype = "float32" if path in FLOAT32_PATHS else "bfloat16"
     model, crit = build(path, dtype, torch.Generator().manual_seed(SEED))
     cfg = model.config
@@ -1606,7 +1790,8 @@ def phase_train(dev: torch.device, path: str = "LSTM",
 
     fns = reset_counts()
     losses, times = [], []
-    for i in range(12):                  # 2 warm-up, 10 timed
+    n = 2 + timed
+    for i in range(n):                   # 2 warm-up, then the timed ones
         t0 = time.perf_counter()
         _, metrics = step(batch, key=key)
         torch.cuda.synchronize()
@@ -1614,28 +1799,30 @@ def phase_train(dev: torch.device, path: str = "LSTM",
             times.append(time.perf_counter() - t0)
         losses.append(metrics["losses"])
     launches = read_counts(fns, f"{path} train step", PATH_KERNELS[path],
-                           12, PER_STEP.get(path))
+                           n, PER_STEP.get(path))
     if path in BWD_BODY:
-        check_body(fns, path, 12, BWD_BODY[path])
+        check_body(fns, path, n, BWD_BODY[path])
     if path in FWD_BODY:
-        check_body(fns, path, 12, FWD_BODY[path], "lstm_fwd")
+        check_body(fns, path, n, FWD_BODY[path], "lstm_fwd")
 
-    per_step = torch.stack(losses).float().cpu()          # (12, K)
-    if tuple(per_step.shape) != (12, cfg.nPredicts) or \
+    per_step = torch.stack(losses).float().cpu()          # (n, K)
+    if tuple(per_step.shape) != (n, cfg.nPredicts) or \
             not torch.isfinite(per_step).all():
         fail(f"train losses {tuple(per_step.shape)} not finite")
     total = per_step.sum(dim=1)
-    print(f"{path} train step losses (sum over K, steps 1-12): "
+    print(f"{path} train step losses (sum over K, steps 1-{n}): "
           f"{[round(v, 4) for v in total.tolist()]}", flush=True)
-    first, last = total[2:5].mean().item(), total[-3:].mean().item()
+    k = max(1, timed // 3)               # the first and last timed steps
+    first, last = total[2:2 + k].mean().item(), total[-k:].mean().item()
     if not last < first:
         fail(f"the {path} loss did not fall over the timed steps on a "
              f"fixed batch ({first:.4f} -> {last:.4f})")
     step_ms = statistics.median(times) * 1e3
     print(f"{path} train windows/s: {B / (step_ms / 1e3):.1f} "
           f"(make_train_step, --arMode {path}, B={B}, {dtype}, dropout 0.1, "
-          f"median step {step_ms:.3f} ms of 10, min {min(times) * 1e3:.3f} "
-          f"max {max(times) * 1e3:.3f}) on {gpu_line()}", flush=True)
+          f"median step {step_ms:.3f} ms of {timed}, min "
+          f"{min(times) * 1e3:.3f} max {max(times) * 1e3:.3f}) on "
+          f"{gpu_line()}", flush=True)
     profile_train(step, batch, key, step_ms, path)
     return launches
 
@@ -1707,19 +1894,25 @@ def phase_stop_grad(dev: torch.device, B: int = 32, steps: int = 2) -> None:
           flush=True)
 
 
-def phase_narrow_gru(dev: torch.device, B: int = 8, steps: int = 4,
-                     H: int = 100) -> None:
-    """--arMode GRU --hiddenGar 100: K4 runs H padded to 128 (ops/gru.py)
-    and sliced back.  The transformer prediction heads need hiddenGar ==
-    hiddenEncoder, so build_criterion must refuse the config, naming the
-    flag; the model trains alone here: ``steps`` Adam steps of the
-    encoder and the GRU AR (bf16) on a fixed batch, the loss mean(c^2), K4
-    forward and backward once a step, the loss falling; then one float32
-    forward and backward on the card and on the CPU, which must agree."""
+def phase_model_alone(dev: torch.device, mode: str = "GRU", H: int = 100,
+                      B: int = 8, steps: int = 4,
+                      body: str = "cluster") -> None:
+    """--arMode ``mode`` --hiddenGar H beside --hiddenEncoder 256: at H 100
+    K4 runs H padded to 128 (ops/gru.py) and sliced back; at H 4096 K1 and
+    K4 run their rows bodies, each thread walking two unit pairs.  The
+    transformer prediction heads need hiddenGar == hiddenEncoder, so
+    build_criterion must refuse the config, naming the flag; the model
+    trains alone here: ``steps`` Adam steps of the encoder and the AR
+    (bf16) on a fixed batch, the loss mean(c^2), the AR's kernels forward
+    and backward once a step (the backward on ``body``), the loss
+    falling, train windows/s; then one float32 forward and backward on
+    the card and on the CPU, which must agree."""
     from cpc_audio_tpu_torch.config import CPCConfig
     from cpc_audio_tpu_torch.criterion import build_criterion
     from cpc_audio_tpu_torch.models import build_model
-    cfg = CPCConfig(arMode="GRU", hiddenGar=H, compute_dtype="bfloat16")
+    label = f"{mode} --hiddenGar {H}"
+    k = mode.lower()
+    cfg = CPCConfig(arMode=mode, hiddenGar=H, compute_dtype="bfloat16")
     try:
         build_criterion(cfg)
         fail(f"build_criterion took --hiddenGar {H} beside --hiddenEncoder "
@@ -1727,7 +1920,7 @@ def phase_narrow_gru(dev: torch.device, B: int = 8, steps: int = 4,
     except ValueError as e:
         if "--hiddenGar" not in str(e):
             fail(f"build_criterion refused without naming the flag: {e}")
-        print(f"GRU --hiddenGar {H}: build_criterion refuses before any step: "
+        print(f"{label}: build_criterion refuses before any step: "
               f"{str(e)[:160]}", flush=True)
     model = build_model(cfg, torch.Generator().manual_seed(SEED)).to(dev)
     batch = torch.from_numpy(synthetic_audio(cfg.sizeWindow, B,
@@ -1735,24 +1928,28 @@ def phase_narrow_gru(dev: torch.device, B: int = 8, steps: int = 4,
     opt = torch.optim.Adam(model.parameters(), lr=1e-3)
     hidden = model.zero_state(B, dev)
     fns = reset_counts()
-    losses = []
+    losses, times = [], []
     for _ in range(steps):
+        t0 = time.perf_counter()
         c, _, _, _ = model(batch, hidden=hidden, train=True)
         loss = (c.float() ** 2).mean()
         opt.zero_grad(set_to_none=True)
         loss.backward()
         opt.step()
         losses.append(loss.item())
+        times.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
-    read_counts(fns, f"GRU --hiddenGar {H} model step", ("gru_fwd",
-                                                          "gru_bwd"),
-                steps, {"gru_fwd": 1, "gru_bwd": 1})
-    check_body(fns, f"GRU --hiddenGar {H}", steps, "cluster")
-    print(f"GRU --hiddenGar {H} model train steps (B={B}, bf16, K4 at H "
-          f"padded to 128): losses {[round(v, 6) for v in losses]}",
-          flush=True)
+    read_counts(fns, f"{label} model step", (f"{k}_fwd", f"{k}_bwd"),
+                steps, {f"{k}_fwd": 1, f"{k}_bwd": 1})
+    check_body(fns, label, steps, body, f"{k}_bwd")
+    step_ms = statistics.median(times[1:]) * 1e3
+    print(f"{label} model train steps (B={B}, bf16, the AR's kernels at H "
+          f"{H}): losses {[round(v, 6) for v in losses]}; windows/s "
+          f"{B / (step_ms / 1e3):.1f} (encoder and AR alone, loss "
+          f"mean(c^2), median step {step_ms:.3f} ms of the last "
+          f"{steps - 1}) on {gpu_line()}", flush=True)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        fail(f"GRU --hiddenGar {H}: the loss did not fall: {losses}")
+        fail(f"{label}: the loss did not fall: {losses}")
     cfg32 = cfg.replace(compute_dtype="float32")
     x = synthetic_audio(cfg.sizeWindow, 2, SEED + 12)
     outs = []
@@ -1766,10 +1963,10 @@ def phase_narrow_gru(dev: torch.device, B: int = 8, steps: int = 4,
         outs.append((c.detach().float().cpu(),
                      {n: p.grad.float().cpu() for n, p in
                       m.gAR.named_parameters()}))
+        del m
     (c_g, g_g), (c_c, g_c) = outs
-    print(f"float32 GRU --hiddenGar {H}, card (K4, padded) vs CPU (plain):",
-          flush=True)
-    compare("c", c_g, c_c, 1e-3, 1e-3, "f32, 128 GRU steps")
+    print(f"float32 {label}, card (kernels) vs CPU (plain):", flush=True)
+    compare("c", c_g, c_c, 1e-3, 1e-3, f"f32, 128 {mode} steps")
     for n in sorted(g_c):
         compare_norm(f"grad gAR.{n}", g_g[n], g_c[n], 1e-3,
                      "f32 sums in another order over 128 steps")
@@ -1888,7 +2085,8 @@ PROFILE_GROUPS = (
                       "gru_bwd", "relpos_attention",
                       "causal_attention", "tail_", "dkrel_reduce",
                       "attention_block", "conv_ln", "sum_parts",
-                      "scatter_add_kernel", "split_planes")),
+                      "scatter_add_kernel", "split_planes",
+                      "split_operands")),
     ("Adam (foreach kernels)", ("adam", "multi_tensor_apply")),
     ("cuDNN conv", ("cudnn", "conv", "nchwtonhwc", "nhwctonchw", "wgrad",
                     "dgrad")),
@@ -1927,11 +2125,24 @@ def check_train_against_cpu(dev: torch.device, path: str = "LSTM") -> None:
             for name, want in (("lstm_fwd", lstm.fwd_body(H, torch.float32)),
                                ("lstm_bwd", lstm.bwd_body(H, torch.float32))):
                 check_body(fns, f"float32 {path}", 1, want, name)
-        grads = {f"{prefix}.{n}": p.grad.detach().float().cpu()
-                 for prefix, mod in (("model", state.model),
-                                     ("criterion", state.criterion))
-                 for n, p in mod.named_parameters()}
-        results.append((met["losses"].float().cpu(), grads))
+        results.append((met["losses"].float().cpu(), step_grads(state)))
+    compare_train_steps(path, results, relu, tails)
+
+
+def step_grads(state) -> dict:
+    """The gradient of every leaf a train step left on ``state``, float32
+    on the CPU."""
+    return {f"{prefix}.{n}": p.grad.detach().float().cpu()
+            for prefix, mod in (("model", state.model),
+                                ("criterion", state.criterion))
+            for n, p in mod.named_parameters()}
+
+
+def compare_train_steps(path: str, results, relu: dict, tails) -> None:
+    """A float32 train step's losses and gradients, the card's against the
+    CPU's (``results``: [(losses, grads)] in that order), every leaf at
+    1e-3 of its norm, after the encoder's ReLU units within float32
+    rounding of the kink were taken on the card's side on the CPU."""
     (l_g, g_g), (l_c, g_c) = results
     print(f"float32 {path} train step, card (kernels) vs CPU (plain "
           f"versions), dropout on:", flush=True)
@@ -2115,11 +2326,64 @@ def _run_cli(train, argv, what: str, names):
     return lines
 
 
-def phase_cli(tmp: str) -> None:
+@contextlib.contextmanager
+def cli_first_step_on_cpu(dev: torch.device, results: list, relu: dict,
+                          tails: list):
+    """While the train CLI runs: its first train step (the step
+    ``train.main`` builds, under the policy it sets) runs as it is on the
+    card and, from a copy of the state taken just before, on the CPU with
+    the same batch and keys; each run's losses and gradients go to
+    ``results`` (card first), the encoder's ReLU inputs to ``relu`` and
+    the heads' K3 inputs to ``tails``, for compare_train_steps."""
+    from cpc_audio_tpu_torch import train
+    from cpc_audio_tpu_torch.parallel.train_step import create_train_state
+    original = train.make_train_step
+
+    def cpu(x):
+        if isinstance(x, torch.Tensor):
+            return x.cpu()
+        if isinstance(x, (tuple, list)):
+            return type(x)(cpu(t) for t in x)
+        return x
+
+    def spy(state, device):
+        step = original(state, device)
+
+        def first(*args, **kw):
+            if results:
+                return step(*args, **kw)
+            cpu_state = create_train_state(
+                copy.deepcopy(state.model).cpu(),
+                copy.deepcopy(state.criterion).cpu(), "cpu")
+            out = None
+            for st, run, a, k in ((state, step, args, kw),
+                                  (cpu_state, original(cpu_state, "cpu"),
+                                   cpu(args), {n: cpu(v) for n, v in
+                                               kw.items()})):
+                with record_tail_inputs() as tail, \
+                        encoder_relu_kinks(st.model, relu):
+                    o = run(*a, **k)
+                tails.append(tail)
+                results.append((o[1]["losses"].float().cpu(),
+                                step_grads(st)))
+                out = o if out is None else out
+            return out
+        return first
+
+    train.make_train_step = spy
+    try:
+        yield
+    finally:
+        train.make_train_step = original
+
+
+def phase_cli(tmp: str, dev: torch.device) -> None:
     """cpc_audio_tpu_torch.train.main on a synthetic 2-speaker WAV tree at
     the default architecture in bf16: one epoch, then a resume to two;
     then one epoch each with --arMode GRU, with --arMode transformer and
-    with --batchSizeGPU 6 (the exact sampler)."""
+    with --batchSizeGPU 6 (the exact sampler); then one epoch at the
+    CLI's default --compute_dtype float32, whose first step is held
+    against the same step on the CPU."""
     from cpc_audio_tpu_torch import train
 
     db = os.path.join(tmp, "db")
@@ -2168,6 +2432,24 @@ def phase_cli(tmp: str) -> None:
               f"loss per epoch "
               f"{[round(float(np.mean(v)), 4) for v in logs['locLoss_train']]}"
               f"; files {files}", flush=True)
+    # the CLI's own float32 step: train.main sets the precision policy and
+    # builds the step; its first step is repeated on the CPU
+    results, relu, tails = [], {}, []
+    argv = ["--pathDB", db, "--file_extension", ".wav", "--pathCheckpoint",
+            os.path.join(tmp, "ckpt_f32"), "--batchSizeGPU", "8",
+            "--nEpoch", "1", "--n_process_loader", "2", "--ignore_cache",
+            "--random_seed", str(SEED)]
+    torch.backends.cudnn.allow_tf32 = True      # PyTorch's default
+    with cli_first_step_on_cpu(dev, results, relu, tails):
+        _run_cli(train, argv, "--compute_dtype float32 (the default)",
+                 PATH_KERNELS["LSTM"])
+    if (torch.backends.cudnn.allow_tf32
+            or torch.backends.cuda.matmul.allow_tf32):
+        fail("the train CLI left TF32 on under --compute_dtype float32")
+    if len(results) != 2:
+        fail(f"the train CLI's first step ran {len(results)} times, not on "
+             f"the card and on the CPU")
+    compare_train_steps("train CLI LSTM", results, relu, tails)
     # a config the port refuses stops before any step, naming its flag
     argv = ["--pathDB", db, "--file_extension", ".wav", "--pathCheckpoint",
             os.path.join(tmp, "ckpt_refused"), "--arMode", "GRU",
@@ -2197,8 +2479,10 @@ def main() -> None:
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # the package's policy, which its entry points also set: the kernel
+    # phase's float32 yardsticks run under it too
+    from cpc_audio_tpu_torch import _common
+    _common.precision_policy()
     dev = torch.device("cuda", 0)
 
     from cpc_audio_tpu_torch.ops import _build
@@ -2216,7 +2500,7 @@ def main() -> None:
     print(f"[phase kernels {time.time() - t0:.1f} s]", flush=True)
     t0 = time.time()
     for path in PATH_KERNELS:
-        if path not in (EXACT, LONG, W768, F32):
+        if path not in (EXACT, LONG, W768, F32, G512, T32, T2048, T163840):
             phase_eval(dev, path)
     phase_eval_auto_exact(dev)
     print(f"[phase eval {time.time() - t0:.1f} s]", flush=True)
@@ -2232,21 +2516,33 @@ def main() -> None:
                                "conv_ln_fwd", "conv_ln_bwd")),
                       (EXACT, ("scatter_add_rows",)),
                       (WIDE, ()), (LONG, ()), (W768, ()), (F32, ()),
-                      (F512, ()), (F768, ()), (W200, ()), (W1056, ())):
+                      (F512, ()), (F768, ()), (W200, ()), (W1056, ()),
+                      (G512, ()), (T32, ()), (T2048, ()), (T163840, ())):
         t0 = time.time()
-        # the long-window path at a small batch, as users fit it on a card
-        counts = phase_train(dev, path, B=8 if path == LONG else 32)
+        # the long-window path at a small batch, as users fit it on a card;
+        # the 2048-wide and 163840-sample transformers at B 4, 4 timed
+        counts = phase_train(dev, path,
+                             B=8 if path == LONG else
+                             4 if path in SMALL_PATHS else 32,
+                             timed=4 if path in SMALL_PATHS else 10)
         launches.update({name: counts[name] for name in own})
         # a float32 path's step on two windows is that of the bf16 path of
         # its widths: the default LSTM's, the long window's (K1's float32
-        # cluster bodies at H 512) and the 768-wide's (at H 768)
-        if path not in FLOAT32_PATHS:
+        # cluster bodies at H 512) and the 768-wide's (at H 768); the
+        # float32 transformer's is K5's float32 body in its own step (the
+        # transformer path's check runs the same config)
+        if path not in FLOAT32_PATHS or path == T32:
             check_train_against_cpu(dev, path)
         print(f"[phase train {path} {time.time() - t0:.1f} s]", flush=True)
     t0 = time.time()
-    phase_narrow_gru(dev)
+    phase_model_alone(dev)
     print(f"[phase GRU --hiddenGar 100 {time.time() - t0:.1f} s]",
           flush=True)
+    for mode in ("LSTM", "GRU"):
+        t0 = time.time()
+        phase_model_alone(dev, mode, 4096, B=4, steps=4, body="rows")
+        print(f"[phase {mode} --hiddenGar 4096 {time.time() - t0:.1f} s]",
+              flush=True)
     t0 = time.time()
     phase_stop_grad(dev)
     print(f"[phase stop-grad {time.time() - t0:.1f} s]", flush=True)
@@ -2256,7 +2552,7 @@ def main() -> None:
     print(f"[phase A/B {time.time() - t0:.1f} s]", flush=True)
     t0 = time.time()
     with tempfile.TemporaryDirectory() as tmp:
-        phase_cli(tmp)
+        phase_cli(tmp, dev)
     print(f"[phase train CLI {time.time() - t0:.1f} s]", flush=True)
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], "launches": launches[name],

@@ -32,3 +32,19 @@ def fused_layer_switches() -> Tuple[bool, bool]:
     heads' whole attention block in one kernel (K6)."""
     return (os.environ.get("CPC_PALLAS_CONV", "0") == "1",
             os.environ.get("CPC_ATTN_BLOCK", "0") == "1")
+
+
+def precision_policy() -> None:
+    """The port's float32 precision policy, in one place: TF32 off for
+    both float32 matrix products and cuDNN's convolutions, so that a
+    ``--compute_dtype float32`` step on the card computes what the JAX
+    package's float32 step computes on the CPU, the reference every port
+    test is held against.  PyTorch's defaults leave
+    ``torch.backends.cudnn.allow_tf32`` on, which runs float32
+    convolutions in TF32 (about three decimal digits).  A bf16 step runs
+    under the same flags.  Called by every entry point that runs a step
+    or builds features (``train.main``, ``make_train_step``,
+    ``make_val_step``, ``build_feature``); it sets process-wide flags and
+    is idempotent."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

@@ -1,16 +1,39 @@
-// K5's tensor-core (bf16) bodies, shared by causal_attention_fwd.cu and
-// causal_attention_bwd.cu: tile sizes, the staging of q/k/v/do rows and of
-// the bias's causal chunks with cp.async, and the warp-level products on
+// K5's tensor-core body, one for both dtypes, shared by
+// causal_attention_fwd.cu and causal_attention_bwd.cu: the tile geometry
+// by dtype and padded head width, the staging of q/k/v/do rows and of the
+// bias's causal chunks with cp.async, and the warp-level products on
 // mma.sync (mma.cuh) with the (row, column) of every accumulator element
 // known, so that the bias, the causal mask, the softmax statistics and the
 // dropout factor are applied in registers.
 //
-// A block holds 4 warps; a warp owns 16 rows of a 64-row tile (query rows
-// in the forward and the backward's row kernel, keys in its column
-// kernel).  q, k, v and do are staged as (64, DKP + 8) bf16 tiles: DKP is
-// dk rounded up to 32, 64 or 128 with zero columns (zeros add nothing to
-// a product), and the 8-element pad puts the rows of an ldmatrix read on
-// distinct banks.
+// Operands.  In bf16, q, k, v and do are staged as they are.  In float32
+// each is split once a call into P bf16 planes, each the bf16 rounding of
+// what the planes before it left (`split_operands`, written (N, S, DKP)
+// with zero columns past dk), and every product of two such operands is
+// the sum of the split products plane i . plane j with i + j < P, exact
+// term by term and summed in float32: P = 2 in the backward (hi.hi +
+// hi.lo + lo.hi, about 2^-16 of each term left out), P = 3 in the forward
+// (six products, about 2^-24: three planes hold a float32 exactly; at two
+// the forward's error reached 17 % of chip_smoke's float32 tolerance).
+// ops/causal_attention.py `causal_attention_split` writes that
+// arithmetic.  Probabilities and ds, float32 accumulators, enter their
+// products split into as many planes (in bf16 as two, only where the
+// Pallas kernel multiplies them unrounded).  The bias stays in the input
+// dtype and is read as it is; softmax statistics are float32 in both
+// dtypes.
+//
+// Geometry (`Geom<T, DKP, P>`).  A block holds 4 warps.  DKP is dk rounded up
+// to 32, 64, 128 or 256 with zero columns (zeros add nothing to a
+// product).  A tile holds kTile rows of q/k/v/do (query rows in the
+// forward and the backward's row kernel, keys in its column kernel), each
+// plane (kTile, DKP + 8) bf16: the 8-element pad puts the rows of an
+// ldmatrix read on distinct banks.  Where a row's planes hold at most 128
+// bf16 (bf16 up to DKP 128, float32 up to 64, or 32 in the forward's three
+// planes) a tile is 64 rows and each warp owns 16 of them; wider, a tile is 32 rows, so that the backward's
+// six staged tiles fit 227 KB (float32 at DKP 256: 214 KB), and the warps
+// pair up on 16 rows, each owning half of the output columns (it forms
+// the whole score tile, as its partner does, and accumulates 64 or 128
+// columns: at most 128 float32 accumulators a lane for each output).
 #pragma once
 
 #include "common.cuh"
@@ -22,55 +45,76 @@ namespace k5 {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kTile = 64;             // rows and keys per tile
-constexpr int kWarps = 4;             // 16 rows each
+constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kPad = 8;               // row padding, elements
-constexpr int kLdb = kTile + kPad;    // row stride of a bias / dbias tile
 
-template <int DKP>
-__host__ __device__ constexpr int ld() { return DKP + kPad; }
+template <typename T, int DKP, int P = sizeof(T) == sizeof(float) ? 2 : 1>
+struct Geom {
+  static constexpr bool kF32 = sizeof(T) == sizeof(float);
+  static constexpr int kPlanes = P;                  // bf16 planes a value
+  static constexpr int kTile = kPlanes * DKP <= 128 ? 64 : 32;  // rows, keys
+  static constexpr int kNT = kTile / 8;               // n8 tiles of a tile
+  static constexpr int kRowWarps = kTile / 16;        // warps along rows
+  static constexpr int kColWarps = kWarps / kRowWarps;  // along columns
+  static constexpr int kDV = DKP / kColWarps;         // a warp's columns
+  static constexpr int kLd = DKP + kPad;              // row stride, a plane
+  static constexpr int kPlaneElems = kTile * kLd;
+  static constexpr int kTileElems = kPlanes * kPlaneElems;  // bf16, a tile
+  static constexpr int kLdb = kTile + kPad;  // row stride of a bias tile
+  static constexpr int kBiasElems = kTile * kLdb;            // of T
+  // blocks an SM for the backward's register budget: at the bf16 widths
+  // of 64-row tiles, 65536 / (128 threads x blocks), so that the 512
+  // blocks of N = 256, S = 128 run in one wave at dk <= 32; elsewhere
+  // shared memory allows at most two
+  static constexpr int kMinBlocks =
+      kF32 || DKP > 128 ? 1 : DKP <= 32 ? 4 : DKP <= 64 ? 3 : 2;
+};
 
-template <int DKP>
-__host__ __device__ constexpr int tile_elems() { return kTile * ld<DKP>(); }
-
-__host__ __device__ constexpr int bias_elems() { return kTile * kLdb; }
-
-// Rows [r0, r0 + 64) of one n's (S, dk) matrix `src` into a (64, ld)
-// tile, 16 bytes a copy; rows past S and columns past dk are zero-filled.
-template <int DKP>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, int r0,
-                                           int S, int dk) {
+// Rows [r0, r0 + kTile) of one n's operand into a staged tile: each of
+// its planes (`plane` elements apart in `src`, rows `lds` elements apart)
+// into a (kTile, kLd) plane, 16 bytes a copy; rows past S and columns
+// past `cols` are zero-filled.
+template <typename G, int DKP>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
+                                           size_t plane, int r0, int S,
+                                           int lds, int cols) {
   constexpr int C = DKP / 8;
-  for (int idx = threadIdx.x; idx < kTile * C; idx += kThreads) {
-    const int r = idx / C, c = (idx - r * C) * 8;
-    const bool ok = r0 + r < S && c < dk;
-    mma::cp_async16(dst + r * ld<DKP>() + c,
-                    ok ? src + (size_t)(r0 + r) * dk + c : src, ok);
-  }
+#pragma unroll
+  for (int p = 0; p < G::kPlanes; ++p)
+    for (int idx = threadIdx.x; idx < G::kTile * C; idx += kThreads) {
+      const int r = idx / C, c = (idx - r * C) * 8;
+      const bool ok = r0 + r < S && c < cols;
+      mma::cp_async16(dst + p * G::kPlaneElems + r * G::kLd + c,
+                      ok ? src + p * plane + (size_t)(r0 + r) * lds + c : src,
+                      ok);
+    }
 }
 
-// The bias chunk rows [q0, q0 + 64) x keys [k0, k0 + 64) of one n's
-// (S, S) bias into a (64, kLdb) tile, reading only its causal part (j <= i
-// < S, to the 16-byte copy holding the diagonal); the rest is left zero.
-// 16-byte copies where the rows are 16-byte aligned (S % 8 == 0), else
-// element loads.
-__device__ __forceinline__ void stage_bias(bf16* dst, const bf16* bias_n,
-                                           int q0, int k0, int S) {
-  if ((S & 7) == 0) {
-    for (int idx = threadIdx.x; idx < kTile * 8; idx += kThreads) {
-      const int r = idx >> 3, c = (idx & 7) * 8;
+// The bias chunk rows [q0, q0 + kTile) x keys [k0, k0 + kTile) of one n's
+// (S, S) bias into a (kTile, kLdb) tile, reading only its causal part
+// (j <= i < S, to the 16-byte copy holding the diagonal); the rest is left
+// zero.  16-byte copies where the rows are 16-byte aligned, else element
+// loads.
+template <typename G, typename T>
+__device__ __forceinline__ void stage_bias(T* dst, const T* bias_n, int q0,
+                                           int k0, int S) {
+  constexpr int E = 16 / sizeof(T);   // elements a copy
+  constexpr int C = G::kTile / E;     // copies a row
+  if (S % E == 0) {
+    for (int idx = threadIdx.x; idx < G::kTile * C; idx += kThreads) {
+      const int r = idx / C, c = (idx % C) * E;
       const int i = q0 + r, j = k0 + c;
       const bool ok = i < S && j <= i;
-      mma::cp_async16(dst + r * kLdb + c,
+      mma::cp_async16(dst + r * G::kLdb + c,
                       ok ? bias_n + (size_t)i * S + j : bias_n, ok);
     }
   } else {
-    for (int idx = threadIdx.x; idx < kTile * kTile; idx += kThreads) {
-      const int r = idx >> 6, c = idx & 63;
+    for (int idx = threadIdx.x; idx < G::kTile * G::kTile; idx += kThreads) {
+      const int r = idx / G::kTile, c = idx % G::kTile;
       const int i = q0 + r, j = k0 + c;
-      dst[r * kLdb + c] = (i < S && j <= i) ? bias_n[(size_t)i * S + j]
-                                            : __float2bfloat16(0.0f);
+      dst[r * G::kLdb + c] =
+          (i < S && j <= i) ? bias_n[(size_t)i * S + j] : from_f32<T>(0.0f);
     }
   }
 }
@@ -94,93 +138,118 @@ __device__ __forceinline__ int col_of(int nt, int e) {
   return nt * 8 + ((threadIdx.x & 3) << 1) + (e & 1);
 }
 
-// s (the warp's 16 rows a0.. of tile A  x  the 64 rows of tile Bn, as 8
-// n8 tiles) = A . Bn^T over DKP columns; n8 tiles outside [n_lo, n_hi) are
+// s (the warp's 16 rows a0.. of staged tile A  x  the kTile rows of staged
+// tile Bn, as kNT n8 tiles) = A . Bn^T over DKP columns, in float32 as the
+// split products of the planes, plane i of A times plane j of Bn for
+// i + j < kPlanes, by increasing i + j; n8 tiles outside [n_lo, n_hi) are
 // left 0 and cost nothing.
-template <int DKP>
-__device__ __forceinline__ void rows_dot_rows(float s[8][4], const bf16* A,
-                                              int a0, const bf16* Bn,
-                                              int n_lo, int n_hi) {
+template <typename G, int DKP>
+__device__ __forceinline__ void rows_dot_rows(float s[G::kNT][4],
+                                              const bf16* A, int a0,
+                                              const bf16* Bn, int n_lo,
+                                              int n_hi) {
+  constexpr int P = G::kPlanes;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int nt = 0; nt < G::kNT; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
 #pragma unroll
   for (int ks = 0; ks < DKP / 16; ++ks) {
-    uint32_t a[4];
-    mma::load_a(a, A, ld<DKP>(), a0, ks * 16);
+    uint32_t a[P][4];
 #pragma unroll
-    for (int np = 0; np < 4; ++np) {
+    for (int i = 0; i < P; ++i)
+      mma::load_a(a[i], A + i * G::kPlaneElems, G::kLd, a0, ks * 16);
+#pragma unroll
+    for (int np = 0; np < G::kNT / 2; ++np) {
       if (2 * np + 1 < n_lo || 2 * np >= n_hi) continue;
-      uint32_t b[4];
-      mma::load_b_nmajor(b, Bn, ld<DKP>(), np * 16, ks * 16);
-      mma::mma_bf16(s[2 * np], a, b[0], b[1]);
-      mma::mma_bf16(s[2 * np + 1], a, b[2], b[3]);
+      uint32_t b[P][4];
+#pragma unroll
+      for (int j = 0; j < P; ++j)
+        mma::load_b_nmajor(b[j], Bn + j * G::kPlaneElems, G::kLd, np * 16,
+                           ks * 16);
+#pragma unroll
+      for (int d = 0; d < P; ++d)
+#pragma unroll
+        for (int i = 0; i <= d; ++i) {
+          mma::mma_bf16(s[2 * np], a[i], b[d - i][0], b[d - i][1]);
+          mma::mma_bf16(s[2 * np + 1], a[i], b[d - i][2], b[d - i][3]);
+        }
     }
   }
 }
 
-// acc (16 rows x DKP, as DKP / 8 n8 tiles) += P . Bk, with P the 16 x 64
-// accumulator tiles p (rounded to bf16, or with SPLIT as the two-term
-// hi + lo split) and Bk a k-major (64, DKP) tile, over the 16-column
-// steps kk in [kk_lo, kk_hi).
-template <int DKP, bool SPLIT>
-__device__ __forceinline__ void acc_times_rows(float acc[DKP / 8][4],
-                                               float p[8][4],
+// acc (16 rows x the warp's kDV columns, as kDV / 8 n8 tiles) += P . Bk,
+// with P the 16 x kTile accumulator tiles p (rounded to bf16, or with
+// SPLIT as the two-term hi + lo split) and Bk a k-major staged tile from
+// its column c0 on, over the 16-column steps kk in [kk_lo, kk_hi).  In
+// float32 p is split into as many planes as Bk (SPLIT is implied) and the
+// split products are plane i of p times plane j of Bk for i + j < kPlanes,
+// by increasing i + j (hi.hi + lo.hi + hi.lo at two planes).
+template <typename G, bool SPLIT>
+__device__ __forceinline__ void acc_times_rows(float acc[G::kDV / 8][4],
+                                               float p[G::kNT][4],
                                                const bf16* Bk, int kk_lo,
                                                int kk_hi) {
+  constexpr int PB = G::kPlanes;                     // planes of Bk
+  constexpr int PA = G::kF32 ? PB : SPLIT ? 2 : 1;   // planes of p
+  constexpr int NP = PA > PB ? PA : PB;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < G::kNT / 2; ++kk) {
     if (kk < kk_lo || kk >= kk_hi) continue;
-    uint32_t hi[4], lo[4];
-    if (SPLIT)
-      mma::split_from_c(hi, lo, p[2 * kk], p[2 * kk + 1]);
+    uint32_t a[PA][4];
+    if constexpr (PA == 1)
+      mma::a_from_c(a[0], p[2 * kk], p[2 * kk + 1]);
+    else if constexpr (PA == 2)
+      mma::split_from_c(a[0], a[1], p[2 * kk], p[2 * kk + 1]);
     else
-      mma::a_from_c(hi, p[2 * kk], p[2 * kk + 1]);
+      mma::split3_from_c(a, p[2 * kk], p[2 * kk + 1]);
 #pragma unroll
-    for (int dp = 0; dp < DKP / 16; ++dp) {
-      uint32_t b[4];
-      mma::load_b_kmajor(b, Bk, ld<DKP>(), kk * 16, dp * 16);
-      mma::mma_bf16(acc[2 * dp], hi, b[0], b[1]);
-      mma::mma_bf16(acc[2 * dp + 1], hi, b[2], b[3]);
-      if (SPLIT) {
-        mma::mma_bf16(acc[2 * dp], lo, b[0], b[1]);
-        mma::mma_bf16(acc[2 * dp + 1], lo, b[2], b[3]);
+    for (int dp = 0; dp < G::kDV / 16; ++dp) {
+      uint32_t b[PB][4];
+#pragma unroll
+      for (int j = 0; j < PB; ++j)
+        mma::load_b_kmajor(b[j], Bk + j * G::kPlaneElems, G::kLd, kk * 16,
+                           dp * 16);
+#pragma unroll
+      for (int d = 0; d < NP; ++d)
+#pragma unroll
+        for (int i = d; i >= 0; --i) {
+          if (i >= PA || d - i >= PB) continue;
+          mma::mma_bf16(acc[2 * dp], a[i], b[d - i][0], b[d - i][1]);
+          mma::mma_bf16(acc[2 * dp + 1], a[i], b[d - i][2], b[d - i][3]);
+        }
+    }
+  }
+}
+
+// Writes the warp's 16 rows r0.. of acc * scale[row half] in T to one n's
+// (S, dk) matrix dst, acc's columns from c0 on (rows < S, columns < dk).
+template <typename G, typename T>
+__device__ __forceinline__ void store_rows(T* dst, float acc[G::kDV / 8][4],
+                                           int r0, int c0, int S, int dk,
+                                           const float scale[2]) {
+#pragma unroll
+  for (int nt = 0; nt < G::kDV / 8; ++nt) {
+    const int d = c0 + col_of(nt, 0);
+    if (d >= dk) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = r0 + row_of(2 * h);
+      if (i >= S) continue;
+      const float x0 = acc[nt][2 * h] * scale[h],
+                  x1 = acc[nt][2 * h + 1] * scale[h];
+      if constexpr (G::kF32) {   // any dk: element stores
+        dst[(size_t)i * dk + d] = x0;
+        if (d + 1 < dk) dst[(size_t)i * dk + d + 1] = x1;
+      } else {                   // dk % 8 == 0
+        *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)i * dk + d) =
+            __floats2bfloat162_rn(x0, x1);
       }
     }
   }
 }
 
-// Writes the warp's 16 rows r0.. of acc * scale[row half] as bf16 to one
-// n's (S, dk) matrix dst (rows < S, columns < dk).
-template <int DKP>
-__device__ __forceinline__ void store_rows(bf16* dst, float acc[DKP / 8][4],
-                                           int r0, int S, int dk,
-                                           const float scale[2]) {
-#pragma unroll
-  for (int nt = 0; nt < DKP / 8; ++nt) {
-    const int d = col_of(nt, 0);
-    if (d >= dk) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = r0 + row_of(2 * h);
-      if (i < S)
-        *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)i * dk + d) =
-            __floats2bfloat162_rn(acc[nt][2 * h] * scale[h],
-                                  acc[nt][2 * h + 1] * scale[h]);
-    }
-  }
-}
-
-__device__ __forceinline__ float drop_factor(const Dropout& drop,
-                                             uint32_t row_key, int i, int j,
-                                             int S) {
-  return drop.active() ? dropout_factor(row_key, (uint32_t)(i * S + j),
-                                        drop.threshold, drop.keep_scale)
-                       : 1.0f;
-}
-
-// The dropout keep bits of a warp's 32 accumulator elements (bit 4 nt + e)
+// The dropout keep bits of a warp's accumulator elements (bit 4 nt + e)
 // of a tile whose rows start at r0 and columns at c0: the hash of
 // dropout.cuh for the pair (query i, key j), where the rows are queries
 // and the columns keys, or with KEY_ROWS the other way round (the
@@ -188,7 +257,7 @@ __device__ __forceinline__ float drop_factor(const Dropout& drop,
 // [n_lo, n_hi) only (the others hold no causal pair of the warp: their
 // probabilities are 0); all ones without dropout.  One draw per element
 // serves every pass that reuses the bits.
-template <bool KEY_ROWS = false>
+template <typename G, bool KEY_ROWS = false>
 __device__ __forceinline__ uint32_t keep_bits(const Dropout& drop,
                                               uint32_t row_key, int r0,
                                               int c0, int n_lo, int n_hi,
@@ -196,7 +265,7 @@ __device__ __forceinline__ uint32_t keep_bits(const Dropout& drop,
   if (!drop.active()) return 0xffffffffu;
   uint32_t bits = 0u;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int nt = 0; nt < G::kNT; ++nt) {
     if (nt < n_lo || nt >= n_hi) continue;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -210,14 +279,6 @@ __device__ __forceinline__ uint32_t keep_bits(const Dropout& drop,
   return bits;
 }
 
-// Blocks an SM at the tile width DKP: the register budget of the
-// backward's two kernels (65536 / (128 threads x blocks)), so that the
-// 512 blocks of N = 256, S = 128 run in one wave at dk <= 32.
-template <int DKP>
-__host__ __device__ constexpr int bwd_min_blocks() {
-  return DKP <= 32 ? 4 : DKP <= 64 ? 3 : 2;
-}
-
 // The dropout factor of element (nt, e) from its keep bit.
 __device__ __forceinline__ float kept_factor(const Dropout& drop,
                                              uint32_t bits, int nt, int e) {
@@ -225,9 +286,55 @@ __device__ __forceinline__ float kept_factor(const Dropout& drop,
                                      : 0.0f;
 }
 
-// dk rounded up to the staged width: 32, 64 or 128 (0 above 128).
+// dk rounded up to the staged width: 32, 64, 128 or 256 (0 above 256).
 inline int padded_dk(int dk) {
-  return dk <= 32 ? 32 : dk <= 64 ? 64 : dk <= 128 ? 128 : 0;
+  return dk <= 32 ? 32 : dk <= 64 ? 64 : dk <= 128 ? 128 : dk <= 256 ? 256 : 0;
+}
+
+// Up to four float32 operands of one call, (rows, dk) each.
+struct Operands {
+  const float* x[4];
+};
+
+// The float32 operands' `n_planes` bf16 planes (2 or 3): operand o
+// (blockIdx.y) of `src` to planes + o * (n_planes, rows, dkp) bf16, each
+// plane the bf16 rounding of what the planes before it left, zero past
+// dk.  Static: each translation unit has its own copy.
+static __global__ void split_operands(Operands src, bf16* __restrict__ planes,
+                                      int rows, int dk, int dkp,
+                                      int n_planes) {
+  const size_t n = (size_t)rows * dkp;
+  const float* x = src.x[blockIdx.y];
+  bf16* hi = planes + n_planes * n * blockIdx.y;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const size_t r = e / dkp;
+    const int c = (int)(e - r * dkp);
+    float v = c < dk ? x[r * dk + c] : 0.0f;
+    for (int p = 0; p < n_planes; ++p) {
+      const bf16 h = __float2bfloat16(v);
+      hi[p * n + e] = h;
+      v -= __bfloat162float(h);
+    }
+  }
+}
+
+// Splits `n_ops` float32 operands of (rows, dk) into `n_planes` planes
+// each on `stream`.
+inline cudaError_t split(Operands src, int n_ops, int n_planes, bf16* planes,
+                         int rows, int dk, cudaStream_t stream) {
+  const int dkp = padded_dk(dk);
+  const size_t n = (size_t)rows * dkp;
+  const int blocks = (int)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024);
+  split_operands<<<dim3(blocks, n_ops), 256, 0, stream>>>(src, planes, rows,
+                                                          dk, dkp, n_planes);
+  return cudaGetLastError();
+}
+
+// Bytes of the float32 operands' planes: `n_ops` operands of (N, S, DKP),
+// `n_planes` bf16 planes each.
+inline size_t planes_bytes(int n_ops, int n_planes, int N, int S, int dk) {
+  return (size_t)n_ops * n_planes * N * S * padded_dk(dk) * sizeof(bf16);
 }
 
 }  // namespace k5

@@ -14,23 +14,26 @@
 // whose masked cells hold q . Krelpos values of other positions, so any
 // other value there would flow into dq and dKrelpos.  No atomics: every
 // output element is written by one thread, and every run gives the same
-// bits.  Shapes: dk <= 128, a multiple of 8 in bf16; any S (the gate
-// keeps S <= 512).
+// bits.  Shapes: dk <= 256, a multiple of 8 in bf16; any S.
 //
-// bf16 body (the train path): tensor cores, two kernels, each with blocks
-// of 4 warps over 64-row tiles, 16 rows a warp, and cp.async staging
-// (causal_attention.cuh).  It holds no (S, S) tile anywhere: 49-51 KB of
-// shared memory a block at dk <= 32 (four blocks an SM, so the 512 blocks
-// of either kernel at N = 256, S = 128 run in one wave).
-//   1. `causal_attention_bwd_rows`, one block per (64-query tile, n): a
+// One tensor-core body for both dtypes (causal_attention.cuh): two
+// kernels, each with blocks of 4 warps over tiles of 64 rows (32 past DKP
+// 128 in bf16, 64 in float32), and cp.async staging.  It holds no (S, S)
+// tile anywhere: its scratch is the rows' statistics (3, N, S) and, in
+// float32, the bf16 planes of q, k, v and do (`split_operands`), so S is
+// bounded by nothing but the caller's (N, S, S) bias.  49-51 KB of shared
+// memory a block at dk <= 32 in bf16 (four blocks an SM, so the 512
+// blocks of either kernel at N = 256, S = 128 run in one wave), 98-100 KB
+// in float32, 214 KB at float32 DKP 256.
+//   1. `causal_attention_bwd_rows`, one block per (query tile, n): a
 //      first pass over the key tiles up to the diagonal forms s = q.k^T
 //      and dp = do.v^T on mma.sync and keeps, per query row, the running
 //      max m, the sum l and c = sum_j p_ij dp_ij (rescaled as m moves); a
 //      second pass recomputes p = exp(s - m) / l and ds, and accumulates
 //      dq = ds . k.  It writes dq and the per-row (m, 1/l, c) as float32
-//      scratch (3, N, S).  At S <= 128 the key tiles of the first pass are
-//      still in the double buffer for the second.
-//   2. `causal_attention_bwd_cols`, one block per (64-key tile, n), the
+//      scratch (3, N, S).  Where the first two key tiles are all the
+//      tiles, they are still in the double buffer for the second pass.
+//   2. `causal_attention_bwd_cols`, one block per (key tile, n), the
 //      FlashAttention-2 order: the block's k and v stay in shared memory
 //      while the query tiles at or below the diagonal stream through
 //      (q, do, the bias chunk and the rows' statistics, double-buffered).
@@ -40,26 +43,24 @@
 //      tile to dbias in 16-byte row stores, and the block writes the zeros
 //      of dbias above its diagonal.  The dropout bits are drawn once per
 //      pair in each kernel (the row kernel keeps them in registers between
-//      its passes at S <= 128).
+//      its passes where the first two key tiles are all).
+// Past 64-row tiles, the two warps of a pair form the same 16 rows'
+// scores, and each accumulates half of the output columns (dq; dk and
+// dv); one of them writes the statistics and the dbias tile.
 // The Pallas kernel multiplies p r and ds unrounded in float32; a bf16
 // operand would keep 8 of their bits, so those three products (dq, dk, dv)
 // take each operand as the two-term split hi = bf16(x), lo = bf16(x - hi)
-// and two mma.sync, carrying about 16 bits.  q, k, v and do are bf16
-// already, so q.k^T and do.v^T are exact in float32.
-//
-// float32 body: exact FMA loops (TF32 would change the numbers), one block
-// of 8 warps per n.  By query row each warp forms p, dp, ds (the dbias row
-// and dq_i at once) and p r; then by key column dk_j and dv_j.  The (S, S)
-// ds and p r tiles and the float32 q, do, k, v sit in shared memory where
-// they fit (S = 128 at dk = 32); past that ds is kept in dbias itself
-// (float32, the same values) and p r in a float32 scratch (N, S, S), and
-// past the inputs' fit the loops read them in place.
+// and two mma.sync, carrying about 16 bits.  In bf16, q, k, v and do are
+// bf16 already, so q.k^T and do.v^T are exact in float32; in float32 both
+// take their operands' planes, as do the other sides of dq, dk and dv:
+// three split products each, within 10 % of chip_smoke's float32
+// tolerance (ops/causal_attention.py `causal_attention_bwd_split`).
 //
 // What bounds it on an H100: at N = 256, S = 128, dk = 32 the call moves
 // 31.5 MB in bf16 (dbias written whole is 8.4 MB) for 0.67 GFLOP of causal
 // products: memory, 9.4 us at 3.35 TB/s; the row kernel's 1.2 MB of
 // statistics and its second read of q, k, v, do and the bias chunks (from
-// L2) come on top.
+// L2) come on top.  Float32 moves twice the bytes, plus the planes.
 #include "causal_attention.cuh"
 
 namespace {
@@ -68,73 +69,81 @@ using cpc::k5::bf16;
 namespace k5 = cpc::k5;
 
 // ---------------------------------------------------------------------------
-// bf16 body, kernel 1: by query tile -> dq and the rows' statistics
+// kernel 1: by query tile -> dq and the rows' statistics
 // ---------------------------------------------------------------------------
 
-template <int DKP>
+template <typename T, int DKP>
 constexpr size_t rows_smem_bytes() {
-  // q, do, two (k, v) buffers, two bias buffers
-  return ((size_t)6 * k5::tile_elems<DKP>() + 2 * k5::bias_elems()) *
-         sizeof(bf16);
+  using G = k5::Geom<T, DKP>;
+  // q, do, two (k, v) buffers (bf16 planes), two bias buffers (T)
+  return (size_t)6 * G::kTileElems * sizeof(bf16) +
+         (size_t)2 * G::kBiasElems * sizeof(T);
 }
 
 // The warp's scores s (scaled, bias added, -inf above the diagonal) for
 // key tile kt of query tile q0, from the raw products; returns nothing
 // else: the same code serves both passes, so both see the same bits.
-__device__ __forceinline__ void scale_mask(float s[8][4], const bf16* Bb,
-                                           int warp, int q0, int kt,
+template <typename G, typename T>
+__device__ __forceinline__ void scale_mask(float s[G::kNT][4], const T* Bb,
+                                           int rw, int q0, int kt,
                                            float inv_sqrt) {
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int nt = 0; nt < G::kNT; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int ri = warp * 16 + k5::row_of(e), cj = k5::col_of(nt, e);
-      const int i = q0 + ri, j = kt * k5::kTile + cj;
+      const int ri = rw * 16 + k5::row_of(e), cj = k5::col_of(nt, e);
+      const int i = q0 + ri, j = kt * G::kTile + cj;
       s[nt][e] = j <= i ? (s[nt][e] +
-                           __bfloat162float(Bb[ri * k5::kLdb + cj])) *
+                           cpc::to_f32(Bb[ri * G::kLdb + cj])) *
                               inv_sqrt
                         : -INFINITY;
     }
 }
 
-template <int DKP>
-__global__ void __launch_bounds__(k5::kThreads, k5::bwd_min_blocks<DKP>())
+// q, k, v, dout: the bf16 operands as they are (rows `lds` = dk apart) or
+// the float32 operands' planes (lds = DKP, `plane` elements apart).
+template <typename T, int DKP>
+__global__ void __launch_bounds__(k5::kThreads,
+                                  (k5::Geom<T, DKP>::kMinBlocks))
     causal_attention_bwd_rows(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ bias,
-    const bf16* __restrict__ dout, bf16* __restrict__ dq,
-    float* __restrict__ stats, int N, int S, int dk, float inv_sqrt,
-    uint32_t w1_base, cpc::Dropout drop) {
-  constexpr int TE = k5::tile_elems<DKP>();
+    const bf16* __restrict__ v, const T* __restrict__ bias,
+    const bf16* __restrict__ dout, T* __restrict__ dq,
+    float* __restrict__ stats, int N, int S, int dk, int lds, size_t plane,
+    float inv_sqrt, uint32_t w1_base, cpc::Dropout drop) {
+  using G = k5::Geom<T, DKP>;
+  constexpr int TE = G::kTileElems;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* Ds = Qs + TE;              // do
   bf16* Ks = Ds + TE;              // 2 buffers
   bf16* Vs = Ks + 2 * TE;          // 2 buffers
-  bf16* Bs = Vs + 2 * TE;          // 2 buffers of (64, kLdb)
+  T* Bs = reinterpret_cast<T*>(Vs + 2 * TE);   // 2 buffers of (kTile, kLdb)
 
   const int n = blockIdx.y;
   const int qt = gridDim.x - 1 - blockIdx.x;   // longest rows first
-  const int q0 = qt * k5::kTile;
-  const size_t base = (size_t)n * S * dk;
-  const bf16* bias_n = bias + (size_t)n * S * S;
+  const int q0 = qt * G::kTile;
+  const size_t base = (size_t)n * S * lds;
+  const T* bias_n = bias + (size_t)n * S * S;
   const int warp = threadIdx.x >> 5;
-  const int r0 = q0 + warp * 16;
+  const int rw = warp % G::kRowWarps;
+  const int c0 = warp / G::kRowWarps * G::kDV;
+  const int r0 = q0 + rw * 16;
   const uint32_t row_key =
       drop.active() ? cpc::dropout_row_key(drop.seed_word(),
                                            cpc::kSiteARAttention,
                                            w1_base + (uint32_t)n)
                     : 0u;
   auto stage_tile = [&](int kt) {   // key tile kt into buffer kt & 1
-    const int b = kt & 1, k0 = kt * k5::kTile;
-    k5::stage_rows<DKP>(Ks + b * TE, k + base, k0, S, dk);
-    k5::stage_rows<DKP>(Vs + b * TE, v + base, k0, S, dk);
-    k5::stage_bias(Bs + b * k5::bias_elems(), bias_n, q0, k0, S);
+    const int b = kt & 1, k0 = kt * G::kTile;
+    k5::stage_rows<G, DKP>(Ks + b * TE, k + base, plane, k0, S, lds, lds);
+    k5::stage_rows<G, DKP>(Vs + b * TE, v + base, plane, k0, S, lds, lds);
+    k5::stage_bias<G>(Bs + b * G::kBiasElems, bias_n, q0, k0, S);
     cpc::mma::cp_async_commit();
   };
 
-  k5::stage_rows<DKP>(Qs, q + base, q0, S, dk);
-  k5::stage_rows<DKP>(Ds, dout + base, q0, S, dk);
+  k5::stage_rows<G, DKP>(Qs, q + base, plane, q0, S, lds, lds);
+  k5::stage_rows<G, DKP>(Ds, dout + base, plane, q0, S, lds, lds);
   stage_tile(0);
 
   // ---- pass 1: m, l and c = sum_j p dp, online over the key tiles ----
@@ -144,9 +153,9 @@ __global__ void __launch_bounds__(k5::kThreads, k5::bwd_min_blocks<DKP>())
   for (int kt = 0; kt <= qt; ++kt) {
     const int buf = kt & 1;
     // the dropout bits need no data: drawn while the tile is in flight
-    const int n_hi = kt == qt ? 2 * warp + 2 : 8;
+    const int n_hi = kt == qt ? 2 * rw + 2 : G::kNT;
     const uint32_t keep =
-        k5::keep_bits(drop, row_key, r0, kt * k5::kTile, 0, n_hi, S);
+        k5::keep_bits<G>(drop, row_key, r0, kt * G::kTile, 0, n_hi, S);
     if (kt == 0) keep01[0] = keep;
     if (kt == 1) keep01[1] = keep;
     if (kt < qt) {
@@ -156,13 +165,13 @@ __global__ void __launch_bounds__(k5::kThreads, k5::bwd_min_blocks<DKP>())
       cpc::mma::cp_async_wait<0>();
     }
     __syncthreads();
-    float s[8][4], dp[8][4];
-    k5::rows_dot_rows<DKP>(s, Qs, warp * 16, Ks + buf * TE, 0, n_hi);
-    k5::rows_dot_rows<DKP>(dp, Ds, warp * 16, Vs + buf * TE, 0, n_hi);
-    scale_mask(s, Bs + buf * k5::bias_elems(), warp, q0, kt, inv_sqrt);
+    float s[G::kNT][4], dp[G::kNT][4];
+    k5::rows_dot_rows<G, DKP>(s, Qs, rw * 16, Ks + buf * TE, 0, n_hi);
+    k5::rows_dot_rows<G, DKP>(dp, Ds, rw * 16, Vs + buf * TE, 0, n_hi);
+    scale_mask<G>(s, Bs + buf * G::kBiasElems, rw, q0, kt, inv_sqrt);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < G::kNT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
     float rescale[2], ls[2] = {0.0f, 0.0f}, lc[2] = {0.0f, 0.0f};
@@ -173,7 +182,7 @@ __global__ void __launch_bounds__(k5::kThreads, k5::bwd_min_blocks<DKP>())
       m[h] = mx[h];
     }
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < G::kNT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = expf(s[nt][e] - m[e >> 1]);
@@ -197,18 +206,18 @@ __global__ void __launch_bounds__(k5::kThreads, k5::bwd_min_blocks<DKP>())
   // ---- pass 2: p, ds; dq += ds . k ----
   const bool resident = qt <= 1;   // both key tiles still in the buffers
   if (!resident) stage_tile(0);
-  float dqa[DKP / 8][4];
+  float dqa[G::kDV / 8][4];
 #pragma unroll
-  for (int nt = 0; nt < DKP / 8; ++nt)
+  for (int nt = 0; nt < G::kDV / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dqa[nt][e] = 0.0f;
   for (int kt = 0; kt <= qt; ++kt) {
     const int buf = kt & 1;
-    const int n_hi = kt == qt ? 2 * warp + 2 : 8;
+    const int n_hi = kt == qt ? 2 * rw + 2 : G::kNT;
     const uint32_t keep =
         resident ? (kt == 0 ? keep01[0] : keep01[1])
-                 : k5::keep_bits(drop, row_key, r0, kt * k5::kTile, 0, n_hi,
-                                 S);
+                 : k5::keep_bits<G>(drop, row_key, r0, kt * G::kTile, 0,
+                                    n_hi, S);
     if (!resident) {
       if (kt < qt) {
         stage_tile(kt + 1);
@@ -218,12 +227,12 @@ __global__ void __launch_bounds__(k5::kThreads, k5::bwd_min_blocks<DKP>())
       }
       __syncthreads();
     }
-    float s[8][4], dp[8][4];
-    k5::rows_dot_rows<DKP>(s, Qs, warp * 16, Ks + buf * TE, 0, n_hi);
-    k5::rows_dot_rows<DKP>(dp, Ds, warp * 16, Vs + buf * TE, 0, n_hi);
-    scale_mask(s, Bs + buf * k5::bias_elems(), warp, q0, kt, inv_sqrt);
+    float s[G::kNT][4], dp[G::kNT][4];
+    k5::rows_dot_rows<G, DKP>(s, Qs, rw * 16, Ks + buf * TE, 0, n_hi);
+    k5::rows_dot_rows<G, DKP>(dp, Ds, rw * 16, Vs + buf * TE, 0, n_hi);
+    scale_mask<G>(s, Bs + buf * G::kBiasElems, rw, q0, kt, inv_sqrt);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < G::kNT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int h = e >> 1;
@@ -231,12 +240,12 @@ __global__ void __launch_bounds__(k5::kThreads, k5::bwd_min_blocks<DKP>())
         const float r = k5::kept_factor(drop, keep, nt, e);
         s[nt][e] = p * (dp[nt][e] * r - c[h]) * inv_sqrt;
       }
-    k5::acc_times_rows<DKP, true>(dqa, s, Ks + buf * TE, 0, n_hi / 2);
+    k5::acc_times_rows<G, true>(dqa, s, Ks + buf * TE + c0, 0, n_hi / 2);
     if (!resident) __syncthreads();
   }
   const float one[2] = {1.0f, 1.0f};
-  k5::store_rows<DKP>(dq + base, dqa, r0, S, dk, one);
-  if ((threadIdx.x & 3) == 0) {
+  k5::store_rows<G>(dq + (size_t)n * S * dk, dqa, r0, c0, S, dk, one);
+  if (c0 == 0 && (threadIdx.x & 3) == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int i = r0 + k5::row_of(2 * h);
@@ -251,103 +260,111 @@ __global__ void __launch_bounds__(k5::kThreads, k5::bwd_min_blocks<DKP>())
 }
 
 // ---------------------------------------------------------------------------
-// bf16 body, kernel 2: by key tile -> dk, dv and dbias
+// kernel 2: by key tile -> dk, dv and dbias
 // ---------------------------------------------------------------------------
 
-constexpr int kStats = 3 * k5::kTile;   // (m, 1/l, c) of a query tile
-
-template <int DKP>
+template <typename T, int DKP>
 constexpr size_t cols_smem_bytes() {
+  using G = k5::Geom<T, DKP>;
   // k, v; two (q, do) buffers; two bias buffers (each, once read, also the
-  // tile's ds on its way to dbias); two statistics buffers: 50.7 KB at
-  // dk <= 32, four blocks an SM
-  return ((size_t)6 * k5::tile_elems<DKP>() + 2 * k5::bias_elems()) *
-             sizeof(bf16) +
-         2 * kStats * sizeof(float);
+  // tile's ds on its way to dbias); two statistics buffers of (m, 1/l, c):
+  // 50.7 KB at dk <= 32 in bf16, four blocks an SM
+  return (size_t)6 * G::kTileElems * sizeof(bf16) +
+         (size_t)2 * G::kBiasElems * sizeof(T) +
+         (size_t)2 * 3 * G::kTile * sizeof(float);
 }
 
-template <int DKP>
-__global__ void __launch_bounds__(k5::kThreads, k5::bwd_min_blocks<DKP>())
+template <typename T, int DKP>
+__global__ void __launch_bounds__(k5::kThreads,
+                                  (k5::Geom<T, DKP>::kMinBlocks))
     causal_attention_bwd_cols(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ bias,
-    const bf16* __restrict__ dout, bf16* __restrict__ dk_out,
-    bf16* __restrict__ dv, bf16* __restrict__ dbias,
-    const float* __restrict__ stats, int N, int S, int dk, float inv_sqrt,
-    uint32_t w1_base, cpc::Dropout drop) {
-  constexpr int TE = k5::tile_elems<DKP>();
+    const bf16* __restrict__ v, const T* __restrict__ bias,
+    const bf16* __restrict__ dout, T* __restrict__ dk_out,
+    T* __restrict__ dv, T* __restrict__ dbias,
+    const float* __restrict__ stats, int N, int S, int dk, int lds,
+    size_t plane, float inv_sqrt, uint32_t w1_base, cpc::Dropout drop) {
+  using G = k5::Geom<T, DKP>;
+  constexpr int TE = G::kTileElems;
+  constexpr int kStats = 3 * G::kTile;   // (m, 1/l, c) of a query tile
+  constexpr int E = 16 / sizeof(T);      // dbias elements a 16-byte store
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* Vs = Ks + TE;
   bf16* Qs = Vs + TE;              // 2 buffers
   bf16* Ds = Qs + 2 * TE;          // 2 buffers of do
-  bf16* Bs = Ds + 2 * TE;          // 2 buffers of (64, kLdb)
-  float* St = reinterpret_cast<float*>(Bs + 2 * k5::bias_elems());  // 2 x kStats
+  T* Bs = reinterpret_cast<T*>(Ds + 2 * TE);   // 2 buffers of (kTile, kLdb)
+  float* St = reinterpret_cast<float*>(Bs + 2 * G::kBiasElems);  // 2 x kStats
 
   const int n = blockIdx.y;
   const int kt = blockIdx.x;       // most query tiles first
-  const int k0 = kt * k5::kTile;
+  const int k0 = kt * G::kTile;
   const int n_qt = gridDim.x;
-  const size_t base = (size_t)n * S * dk;
-  const bf16* bias_n = bias + (size_t)n * S * S;
-  bf16* dbias_n = dbias + (size_t)n * S * S;
+  const size_t base = (size_t)n * S * lds;
+  const T* bias_n = bias + (size_t)n * S * S;
+  T* dbias_n = dbias + (size_t)n * S * S;
   const int warp = threadIdx.x >> 5;
-  const bool rows16 = (S & 7) == 0;   // dbias rows 16-byte aligned
+  const int rw = warp % G::kRowWarps;
+  const int c0 = warp / G::kRowWarps * G::kDV;
+  const bool rows16 = S % E == 0;   // dbias rows 16-byte aligned
   const uint32_t row_key =
       drop.active() ? cpc::dropout_row_key(drop.seed_word(),
                                            cpc::kSiteARAttention,
                                            w1_base + (uint32_t)n)
                     : 0u;
   auto stage_tile = [&](int qt) {   // query tile qt into buffer (qt-kt) & 1
-    const int b = (qt - kt) & 1, q0 = qt * k5::kTile;
-    k5::stage_rows<DKP>(Qs + b * TE, q + base, q0, S, dk);
-    k5::stage_rows<DKP>(Ds + b * TE, dout + base, q0, S, dk);
-    k5::stage_bias(Bs + b * k5::bias_elems(), bias_n, q0, k0, S);
+    const int b = (qt - kt) & 1, q0 = qt * G::kTile;
+    k5::stage_rows<G, DKP>(Qs + b * TE, q + base, plane, q0, S, lds, lds);
+    k5::stage_rows<G, DKP>(Ds + b * TE, dout + base, plane, q0, S, lds, lds);
+    k5::stage_bias<G>(Bs + b * G::kBiasElems, bias_n, q0, k0, S);
     float* st = St + b * kStats;
     for (int idx = threadIdx.x; idx < kStats; idx += k5::kThreads) {
-      const int a = idx / k5::kTile, i = q0 + idx % k5::kTile;
+      const int a = idx / G::kTile, i = q0 + idx % G::kTile;
       if (i < S)
         cpc::mma::cp_async4(st + idx, stats + (a * (size_t)N + n) * S + i);
     }
     cpc::mma::cp_async_commit();
   };
 
-  k5::stage_rows<DKP>(Ks, k + base, k0, S, dk);
-  k5::stage_rows<DKP>(Vs, v + base, k0, S, dk);
+  k5::stage_rows<G, DKP>(Ks, k + base, plane, k0, S, lds, lds);
+  k5::stage_rows<G, DKP>(Vs, v + base, plane, k0, S, lds, lds);
   stage_tile(kt);
 
-  // dbias above this block's diagonal: rows [0, k0), columns [k0, k0 + 64)
-  const int n_cols = min(k5::kTile, S - k0);
+  // dbias above this block's diagonal: rows [0, k0), columns [k0, k0 +
+  // kTile)
+  const int n_cols = min(G::kTile, S - k0);
   if (rows16) {
-    for (int idx = threadIdx.x; idx < k0 * 8; idx += k5::kThreads) {
-      const int r = idx >> 3, c = (idx & 7) * 8;
+    constexpr int C = G::kTile / E;
+    for (int idx = threadIdx.x; idx < k0 * C; idx += k5::kThreads) {
+      const int r = idx / C, c = (idx % C) * E;
       if (c < n_cols)
         *reinterpret_cast<uint4*>(dbias_n + (size_t)r * S + k0 + c) =
             make_uint4(0u, 0u, 0u, 0u);
     }
   } else {
-    for (int idx = threadIdx.x; idx < k0 * k5::kTile; idx += k5::kThreads) {
-      const int r = idx >> 6, c = idx & 63;
+    for (int idx = threadIdx.x; idx < k0 * G::kTile; idx += k5::kThreads) {
+      const int r = idx / G::kTile, c = idx % G::kTile;
       if (c < n_cols)
-        dbias_n[(size_t)r * S + k0 + c] = __float2bfloat16(0.0f);
+        dbias_n[(size_t)r * S + k0 + c] = cpc::from_f32<T>(0.0f);
     }
   }
 
-  float dka[DKP / 8][4], dva[DKP / 8][4];
+  float dka[G::kDV / 8][4], dva[G::kDV / 8][4];
 #pragma unroll
-  for (int nt = 0; nt < DKP / 8; ++nt)
+  for (int nt = 0; nt < G::kDV / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[nt][e] = dva[nt][e] = 0.0f;
 
   for (int qt = kt; qt < n_qt; ++qt) {
     const int buf = (qt - kt) & 1;
-    const int q0 = qt * k5::kTile;
+    const int q0 = qt * G::kTile;
     // on the diagonal tile, query n8 tiles before the warp's keys are
     // all masked; the dropout bits need no data: drawn while the tile is
     // in flight
-    const int n_lo = qt == kt ? 2 * warp : 0;
-    const uint32_t keep = k5::keep_bits<true>(drop, row_key, k0 + warp * 16,
-                                              q0, n_lo, 8, S);
+    const int n_lo = qt == kt ? 2 * rw : 0;
+    const uint32_t keep = k5::keep_bits<G, true>(drop, row_key,
+                                                 k0 + rw * 16, q0, n_lo,
+                                                 G::kNT, S);
     if (qt + 1 < n_qt) {
       stage_tile(qt + 1);
       cpc::mma::cp_async_wait<1>();
@@ -355,298 +372,178 @@ __global__ void __launch_bounds__(k5::kThreads, k5::bwd_min_blocks<DKP>())
       cpc::mma::cp_async_wait<0>();
     }
     __syncthreads();
-    float st[8][4], dpt[8][4];   // (16 keys, 64 queries)
-    k5::rows_dot_rows<DKP>(st, Ks, warp * 16, Qs + buf * TE, n_lo, 8);
-    k5::rows_dot_rows<DKP>(dpt, Vs, warp * 16, Ds + buf * TE, n_lo, 8);
-    // the bias chunk; each element, once read, is overwritten with its ds
-    // by the same thread: the (64 queries, kLdb) dbias tile
-    bf16* DB = Bs + buf * k5::bias_elems();
+    float st[G::kNT][4], dpt[G::kNT][4];   // (16 keys, kTile queries)
+    k5::rows_dot_rows<G, DKP>(st, Ks, rw * 16, Qs + buf * TE, n_lo,
+                              G::kNT);
+    k5::rows_dot_rows<G, DKP>(dpt, Vs, rw * 16, Ds + buf * TE, n_lo,
+                              G::kNT);
+    // the bias chunk; once read, each element is overwritten with its ds:
+    // the (kTile queries, kLdb) dbias tile
+    T* DB = Bs + buf * G::kBiasElems;
     const float* sm = St + buf * kStats;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < G::kNT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int jl = warp * 16 + k5::row_of(e), il = k5::col_of(nt, e);
+        const int jl = rw * 16 + k5::row_of(e), il = k5::col_of(nt, e);
         const int j = k0 + jl, i = q0 + il;
         float pd = 0.0f, ds = 0.0f;
         if (j <= i && i < S) {
           const float x =
-              (st[nt][e] + __bfloat162float(DB[il * k5::kLdb + jl])) *
-              inv_sqrt;
-          const float p = expf(x - sm[il]) * sm[k5::kTile + il];
+              (st[nt][e] + cpc::to_f32(DB[il * G::kLdb + jl])) * inv_sqrt;
+          const float p = expf(x - sm[il]) * sm[G::kTile + il];
           const float r = k5::kept_factor(drop, keep, nt, e);
           pd = p * r;
-          ds = p * (dpt[nt][e] * r - sm[2 * k5::kTile + il]) * inv_sqrt;
+          ds = p * (dpt[nt][e] * r - sm[2 * G::kTile + il]) * inv_sqrt;
         }
         st[nt][e] = pd;
         dpt[nt][e] = ds;
-        DB[il * k5::kLdb + jl] = __float2bfloat16(ds);
+        if constexpr (G::kColWarps == 1)
+          DB[il * G::kLdb + jl] = cpc::from_f32<T>(ds);
       }
-    k5::acc_times_rows<DKP, true>(dva, st, Ds + buf * TE, n_lo / 2, 4);
-    k5::acc_times_rows<DKP, true>(dka, dpt, Qs + buf * TE, n_lo / 2, 4);
+    if constexpr (G::kColWarps > 1) {
+      // the pair's other warp reads the same bias elements: all reads
+      // before the first warp of each pair overwrites them
+      __syncthreads();
+      if (c0 == 0) {
+#pragma unroll
+        for (int nt = 0; nt < G::kNT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            DB[k5::col_of(nt, e) * G::kLdb + rw * 16 + k5::row_of(e)] =
+                cpc::from_f32<T>(dpt[nt][e]);
+      }
+    }
+    k5::acc_times_rows<G, true>(dva, st, Ds + buf * TE + c0, n_lo / 2,
+                                G::kNT / 2);
+    k5::acc_times_rows<G, true>(dka, dpt, Qs + buf * TE + c0, n_lo / 2,
+                                G::kNT / 2);
     __syncthreads();   // DB is whole; buffer `buf` is free
-    const int n_rows = min(k5::kTile, S - q0);
+    const int n_rows = min(G::kTile, S - q0);
     if (rows16) {
-      for (int idx = threadIdx.x; idx < k5::kTile * 8; idx += k5::kThreads) {
-        const int r = idx >> 3, c = (idx & 7) * 8;
+      constexpr int C = G::kTile / E;
+      for (int idx = threadIdx.x; idx < G::kTile * C; idx += k5::kThreads) {
+        const int r = idx / C, c = (idx % C) * E;
         if (r < n_rows && c < n_cols)
           *reinterpret_cast<uint4*>(dbias_n + (size_t)(q0 + r) * S + k0 + c) =
-              *reinterpret_cast<const uint4*>(DB + r * k5::kLdb + c);
+              *reinterpret_cast<const uint4*>(DB + r * G::kLdb + c);
       }
     } else {
-      for (int idx = threadIdx.x; idx < k5::kTile * k5::kTile;
+      for (int idx = threadIdx.x; idx < G::kTile * G::kTile;
            idx += k5::kThreads) {
-        const int r = idx >> 6, c = idx & 63;
+        const int r = idx / G::kTile, c = idx % G::kTile;
         if (r < n_rows && c < n_cols)
-          dbias_n[(size_t)(q0 + r) * S + k0 + c] = DB[r * k5::kLdb + c];
+          dbias_n[(size_t)(q0 + r) * S + k0 + c] = DB[r * G::kLdb + c];
       }
     }
     __syncthreads();   // the next iteration restages this buffer
   }
   const float one[2] = {1.0f, 1.0f};
-  k5::store_rows<DKP>(dk_out + base, dka, k0 + warp * 16, S, dk, one);
-  k5::store_rows<DKP>(dv + base, dva, k0 + warp * 16, S, dk, one);
+  const size_t out = (size_t)n * S * dk;
+  k5::store_rows<G>(dk_out + out, dka, k0 + rw * 16, c0, S, dk, one);
+  k5::store_rows<G>(dv + out, dva, k0 + rw * 16, c0, S, dk, one);
 }
 
-template <int DKP>
-int launch_mma(const void* q, const void* k, const void* v, const void* bias,
-               const void* dout, void* dq, void* dk_out, void* dv,
-               void* dbias, float* stats, int N, int S, int dk, int layer,
-               cpc::Dropout drop, cudaStream_t stream) {
-  auto rows = causal_attention_bwd_rows<DKP>;
-  auto cols = causal_attention_bwd_cols<DKP>;
-  const size_t s1 = rows_smem_bytes<DKP>(), s2 = cols_smem_bytes<DKP>();
+template <typename T, int DKP>
+int launch(const bf16* q, const bf16* k, const bf16* v, const void* bias,
+           const bf16* dout, void* dq, void* dk_out, void* dv, void* dbias,
+           float* stats, int N, int S, int dk, int lds, size_t plane,
+           int layer, cpc::Dropout drop, cudaStream_t stream) {
+  using G = k5::Geom<T, DKP>;
+  auto rows = causal_attention_bwd_rows<T, DKP>;
+  auto cols = causal_attention_bwd_cols<T, DKP>;
+  const size_t s1 = rows_smem_bytes<T, DKP>(), s2 = cols_smem_bytes<T, DKP>();
   cudaError_t err = cpc::allow_smem(rows, s1);
   if (err != cudaSuccess) return (int)err;
   err = cpc::allow_smem(cols, s2);
   if (err != cudaSuccess) return (int)err;
   const float inv_sqrt = 1.0f / sqrtf(static_cast<float>(dk));
   const uint32_t w1_base = (uint32_t)layer * (uint32_t)N;
-  const dim3 grid((S + k5::kTile - 1) / k5::kTile, N);
-  const bf16 *bq = static_cast<const bf16*>(q),
-             *bk = static_cast<const bf16*>(k),
-             *bv = static_cast<const bf16*>(v),
-             *bb = static_cast<const bf16*>(bias),
-             *bo = static_cast<const bf16*>(dout);
-  rows<<<grid, k5::kThreads, s1, stream>>>(bq, bk, bv, bb, bo,
-                                           static_cast<bf16*>(dq), stats, N,
-                                           S, dk, inv_sqrt, w1_base, drop);
+  const dim3 grid((S + G::kTile - 1) / G::kTile, N);
+  const T* b = static_cast<const T*>(bias);
+  rows<<<grid, k5::kThreads, s1, stream>>>(q, k, v, b, dout,
+                                           static_cast<T*>(dq), stats, N, S,
+                                           dk, lds, plane, inv_sqrt, w1_base,
+                                           drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   cols<<<grid, k5::kThreads, s2, stream>>>(
-      bq, bk, bv, bb, bo, static_cast<bf16*>(dk_out), static_cast<bf16*>(dv),
-      static_cast<bf16*>(dbias), stats, N, S, dk, inv_sqrt, w1_base, drop);
+      q, k, v, b, dout, static_cast<T*>(dk_out), static_cast<T*>(dv),
+      static_cast<T*>(dbias), stats, N, S, dk, lds, plane, inv_sqrt, w1_base,
+      drop);
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// float32 body: exact FMA loops
-// ---------------------------------------------------------------------------
-
-constexpr int kFmaThreads = 256;
-
-size_t fma_input_bytes(int S, int dk) {
-  return ((size_t)S * dk * 2 + (size_t)S * (dk + 1) * 2) * sizeof(float);
-}
-
-size_t fma_tile_bytes(int S) { return (size_t)S * S * 2 * sizeof(float); }
-
-// 0: inputs and tiles in shared memory; 1: inputs only (ds in dbias, p r
-// in the scratch); 2: nothing staged.
-int fma_mode(int S, int dk) {
-  if (fma_input_bytes(S, dk) + fma_tile_bytes(S) <= cpc::kSmemLimit) return 0;
-  return fma_input_bytes(S, dk) <= cpc::kSmemLimit ? 1 : 2;
-}
-
-__global__ void __launch_bounds__(kFmaThreads) causal_attention_bwd_fma(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ bias,
-    const float* __restrict__ dout, float* __restrict__ dq,
-    float* __restrict__ dk_out, float* __restrict__ dv, float* dbias,
-    float* pd_scratch, int S, int dk, float inv_sqrt, uint32_t w1_base,
-    cpc::Dropout drop, int mode) {
-  extern __shared__ float smem[];
-  const int n = blockIdx.x;
-  const size_t base = (size_t)n * S * dk;
-  const float* qs = q + base;        // (S, dk)
-  const float* dos = dout + base;    // (S, dk)
-  const float* ks = k + base;        // (S, ldk)
-  const float* vs = v + base;        // (S, ldk)
-  int ldk = dk;
-  float* DS = dbias + (size_t)n * S * S;        // (S, S) ds
-  float* PD = pd_scratch + (size_t)n * S * S;   // (S, S) p * r
-  if (mode < 2) {
-    ldk = dk + 1;                    // lanes reading different keys: banks
-    float* sq = smem;
-    float* sdo = sq + S * dk;
-    float* sk = sdo + S * dk;
-    float* sv = sk + S * ldk;
-    for (int idx = threadIdx.x; idx < S * dk; idx += blockDim.x) {
-      const int i = idx / dk;
-      const int d = idx - i * dk;
-      sq[idx] = q[base + idx];
-      sdo[idx] = dout[base + idx];
-      sk[i * ldk + d] = k[base + idx];
-      sv[i * ldk + d] = v[base + idx];
-    }
-    qs = sq;
-    dos = sdo;
-    ks = sk;
-    vs = sv;
-    if (mode == 0) {
-      DS = sv + S * ldk;
-      PD = DS + S * S;
-    }
-  }
-  const uint32_t row_key =
-      drop.active() ? cpc::dropout_row_key(drop.seed_word(),
-                                           cpc::kSiteARAttention,
-                                           w1_base + (uint32_t)n)
-                    : 0u;
-  __syncthreads();
-
-  const float* bias_n = bias + (size_t)n * S * S;
-  float* dbias_n = dbias + (size_t)n * S * S;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-
-  // ---- by query row: p, dp, ds, p * r; the dbias row and dq_i ----
-  for (int i = warp; i < S; i += n_warps) {
-    const float* qi = qs + i * dk;
-    const float* doi = dos + i * dk;
-    const float* bias_i = bias_n + (size_t)i * S;
-    float* dsr = DS + i * S;
-    float* pdr = PD + i * S;
-    float mx = -INFINITY;
-    for (int j = lane; j <= i; j += 32) {
-      const float* kj = ks + j * ldk;
-      float s = 0.0f;
-      for (int d = 0; d < dk; ++d) s += qi[d] * kj[d];
-      s = (s + bias_i[j]) * inv_sqrt;
-      dsr[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = cpc::warp_max(mx);
-    float sum = 0.0f;
-    for (int j = lane; j <= i; j += 32) {
-      const float e = expf(dsr[j] - mx);
-      dsr[j] = e;
-      sum += e;
-    }
-    const float inv_sum = 1.0f / cpc::warp_sum(sum);
-    float pdp = 0.0f;
-    for (int j = lane; j <= i; j += 32) {
-      const float p = dsr[j] * inv_sum;
-      const float* vj = vs + j * ldk;
-      float dpd = 0.0f;
-      for (int d = 0; d < dk; ++d) dpd += doi[d] * vj[d];
-      const float dp = dpd * k5::drop_factor(drop, row_key, i, j, S);
-      pdp += p * dp;
-      pdr[j] = p;
-      dsr[j] = dp;
-    }
-    const float c = cpc::warp_sum(pdp);
-    for (int j = lane; j <= i; j += 32) {
-      const float p = pdr[j];
-      const float ds = p * (dsr[j] - c) * inv_sqrt;
-      dsr[j] = ds;
-      pdr[j] = p * k5::drop_factor(drop, row_key, i, j, S);
-      dbias_n[(size_t)i * S + j] = ds;
-    }
-    for (int j = i + 1 + lane; j < S; j += 32)
-      dbias_n[(size_t)i * S + j] = 0.0f;
-    __syncwarp();
-    for (int d = lane; d < dk; d += 32) {
-      float acc = 0.0f;
-      for (int j = 0; j <= i; ++j) acc += dsr[j] * ks[j * ldk + d];
-      dq[base + (size_t)i * dk + d] = acc;
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-
-  // ---- by key column: dk_j, dv_j ----
-  for (int j = warp; j < S; j += n_warps) {
-    for (int d = lane; d < dk; d += 32) {
-      float a = 0.0f, bsum = 0.0f;
-      for (int i = j; i < S; ++i) {
-        a += DS[i * S + j] * qs[i * dk + d];
-        bsum += PD[i * S + j] * dos[i * dk + d];
-      }
-      dk_out[base + (size_t)j * dk + d] = a;
-      dv[base + (size_t)j * dk + d] = bsum;
-    }
+template <typename T>
+int launch_any(const bf16* q, const bf16* k, const bf16* v, const void* bias,
+               const bf16* dout, void* dq, void* dk_out, void* dv,
+               void* dbias, float* stats, int N, int S, int dk, int lds,
+               size_t plane, int layer, cpc::Dropout drop, cudaStream_t s) {
+  switch (k5::padded_dk(dk)) {
+    case 32:
+      return launch<T, 32>(q, k, v, bias, dout, dq, dk_out, dv, dbias, stats,
+                           N, S, dk, lds, plane, layer, drop, s);
+    case 64:
+      return launch<T, 64>(q, k, v, bias, dout, dq, dk_out, dv, dbias, stats,
+                           N, S, dk, lds, plane, layer, drop, s);
+    case 128:
+      return launch<T, 128>(q, k, v, bias, dout, dq, dk_out, dv, dbias,
+                            stats, N, S, dk, lds, plane, layer, drop, s);
+    default:
+      return launch<T, 256>(q, k, v, bias, dout, dq, dk_out, dv, dbias,
+                            stats, N, S, dk, lds, plane, layer, drop, s);
   }
 }
 
-int launch_fma(const void* q, const void* k, const void* v, const void* bias,
-               const void* dout, void* dq, void* dk_out, void* dv,
-               void* dbias, float* scratch, int N, int S, int dk, int layer,
-               cpc::Dropout drop, cudaStream_t stream) {
-  const int mode = fma_mode(S, dk);
-  if (mode > 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t smem = mode == 0   ? fma_input_bytes(S, dk) + fma_tile_bytes(S)
-                      : mode == 1 ? fma_input_bytes(S, dk)
-                                  : 0;
-  cudaError_t err = cpc::allow_smem(causal_attention_bwd_fma, smem);
-  if (err != cudaSuccess) return (int)err;
-  causal_attention_bwd_fma<<<N, kFmaThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(bias),
-      static_cast<const float*>(dout), static_cast<float*>(dq),
-      static_cast<float*>(dk_out), static_cast<float*>(dv),
-      static_cast<float*>(dbias), scratch, S, dk,
-      1.0f / sqrtf(static_cast<float>(dk)), (uint32_t)layer * (uint32_t)N,
-      drop, mode);
-  return (int)cudaGetLastError();
+// The statistics' bytes, rounded up so that the planes after them stay
+// 16-byte aligned.
+size_t stats_bytes(int N, int S) {
+  return ((size_t)3 * N * S * sizeof(float) + 255) / 256 * 256;
 }
 
 }  // namespace
 
-// float32 scratch elements the backward needs: the rows' statistics
-// (3, N, S) for bf16; for float32 the (N, S, S) p * r tiles where they
-// leave shared memory, else none.
+// Bytes of scratch the backward needs: the rows' statistics (3, N, S)
+// float32 and, in float32, the bf16 planes of q, k, v and do after them.
 extern "C" size_t cpc_causal_attention_bwd_scratch(int N, int S, int dk,
                                                    int dtype) {
-  if (dtype == cpc::kBFloat16) return (size_t)3 * N * S;
-  if (dtype == cpc::kFloat32 && fma_mode(S, dk) > 0)
-    return (size_t)N * S * S;
-  return 0;
+  return stats_bytes(N, S) +
+         (dtype == cpc::kFloat32 ? k5::planes_bytes(4, 2, N, S, dk) : 0);
 }
 
 // q, k, v, dout and dq, dk, dv (N, S, dk), bias and dbias (N, S, S), all
-// in `dtype`; scratch float32 of cpc_causal_attention_bwd_scratch elements
-// (null when that is 0).  dk <= 128, in bf16 a multiple of 8 with 16-byte
-// aligned rows.
+// in `dtype`; scratch of cpc_causal_attention_bwd_scratch bytes, 16-byte
+// aligned.  dk <= 256, in bf16 a multiple of 8 with 16-byte aligned rows.
 extern "C" int cpc_causal_attention_bwd(
     const void* q, const void* k, const void* v, const void* bias,
     const void* dout, void* dq, void* dk, void* dv, void* dbias,
     void* scratch, int N, int S, int dkh, int layer, const void* seed,
     unsigned int threshold, float keep_scale, int dtype, void* stream) {
-  if (N <= 0 || S <= 0 || dkh <= 0 || cpc::k5::padded_dk(dkh) == 0 ||
+  if (N <= 0 || N > 65535 || S <= 0 || dkh <= 0 ||
+      k5::padded_dk(dkh) == 0 || scratch == nullptr ||
       (dtype == cpc::kBFloat16 && dkh % 8 != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cpc::Dropout drop{static_cast<const int64_t*>(seed), threshold,
                           keep_scale};
-  float* sc = static_cast<float*>(scratch);
-  if (dtype == cpc::kBFloat16) {
-    if (sc == nullptr) return (int)cudaErrorInvalidValue;
-    switch (cpc::k5::padded_dk(dkh)) {
-      case 32:
-        return launch_mma<32>(q, k, v, bias, dout, dq, dk, dv, dbias, sc, N,
-                              S, dkh, layer, drop, s);
-      case 64:
-        return launch_mma<64>(q, k, v, bias, dout, dq, dk, dv, dbias, sc, N,
-                              S, dkh, layer, drop, s);
-      default:
-        return launch_mma<128>(q, k, v, bias, dout, dq, dk, dv, dbias, sc, N,
-                               S, dkh, layer, drop, s);
-    }
-  }
-  if (dtype == cpc::kFloat32)
-    return launch_fma(q, k, v, bias, dout, dq, dk, dv, dbias, sc, N, S, dkh,
-                      layer, drop, s);
-  return (int)cudaErrorInvalidValue;
+  float* stats = static_cast<float*>(scratch);
+  if (dtype == cpc::kBFloat16)
+    return launch_any<bf16>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), bias, static_cast<const bf16*>(dout),
+        dq, dk, dv, dbias, stats, N, S, dkh, dkh, 0, layer, drop, s);
+  if (dtype != cpc::kFloat32) return (int)cudaErrorInvalidValue;
+  bf16* planes = reinterpret_cast<bf16*>(static_cast<char*>(scratch) +
+                                         stats_bytes(N, S));
+  const k5::Operands ops{{static_cast<const float*>(q),
+                          static_cast<const float*>(k),
+                          static_cast<const float*>(v),
+                          static_cast<const float*>(dout)}};
+  const cudaError_t err = k5::split(ops, 4, 2, planes, N * S, dkh, s);
+  if (err != cudaSuccess) return (int)err;
+  const int dkp = k5::padded_dk(dkh);
+  const size_t plane = (size_t)N * S * dkp;    // elements, hi to lo
+  return launch_any<float>(planes, planes + 2 * plane, planes + 4 * plane,
+                           bias, planes + 6 * plane, dq, dk, dv, dbias,
+                           stats, N, S, dkh, dkp, plane, layer, drop, s);
 }

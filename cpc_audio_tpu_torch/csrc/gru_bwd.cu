@@ -25,7 +25,8 @@
 // over the 3H rows of W_hh in torch's (3H, H) layout needs no transpose:
 // threads own pairs of adjacent columns (one 4- or 8-byte load per row, a
 // warp reads a contiguous run of a row) and form groups that split the 3H
-// rows; the partial sums meet in shared memory.  It re-reads W_hh (384 KB
+// rows; the partial sums meet in shared memory (past H 2048, one group
+// whose threads walk H / 2048 pairs each).  It re-reads W_hh (384 KB
 // in bf16 at H = 256) from L2 every step, on B = 32 of the 132 SMs.
 //
 // What bounds it on an H100: the T = 128 dependent steps.  The bytes it
@@ -36,6 +37,9 @@
 namespace {
 
 constexpr int kThreads = 1024;
+// K1's bound (ops/lstm.py MAX_H), the widest H checked on the card; the
+// rows body keeps (5 + 1) H float32 in shared memory past H 2048.
+constexpr int kMaxH = 4096;
 
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
@@ -220,14 +224,14 @@ __global__ void __launch_bounds__(kThreads) gru_bwd_kernel(
   extern __shared__ __align__(16) float smem[];
   const int G = 3 * H;
   const int n_pairs = H / 2;
-  const int n_groups = blockDim.x / n_pairs;
+  // past H 2048 one group, each thread looping over several pairs
+  const int n_groups = max(1, (int)blockDim.x / n_pairs);
   float* dg = smem;                 // (3H,) dgh of this step
   float* dh = dg + G;               // (H,)  dh carry
   float* dhz = dh + H;              // (H,)  dh * z of this step
   float* part = dhz + H;            // (n_groups, H) partial column sums
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const int pair = tid % n_pairs;
   const int group = tid / n_pairs;
 
   for (int j = tid; j < H; j += blockDim.x) dh[j] = dhT[(size_t)b * H + j];
@@ -257,7 +261,8 @@ __global__ void __launch_bounds__(kThreads) gru_bwd_kernel(
       dhz[j] = dhj * z;
     }
     __syncthreads();
-    if (group < n_groups) {
+    for (int pair = tid % n_pairs; group < n_groups && pair < n_pairs;
+         pair += blockDim.x) {
       float a0 = 0.0f, a1 = 0.0f, b0 = 0.0f, b1 = 0.0f;
       const T* wcol = w_hh + 2 * pair;
       int r = group;
@@ -294,7 +299,7 @@ int launch(const float* gates, const float* ghn, const void* h0,
            const void* ys, const void* dys, const void* w_hh,
            const float* dhT, float* dx, float* dghn, float* dh0, int B,
            int n_steps, int H, cudaStream_t stream) {
-  const int n_groups = kThreads / (H / 2);
+  const int n_groups = max(1, kThreads / (H / 2));
   const size_t smem = (size_t)(5 + n_groups) * H * sizeof(float);
   auto kernel = gru_bwd_kernel<T>;
   cudaError_t err = cpc::allow_smem(kernel, smem);
@@ -338,7 +343,7 @@ extern "C" int cpc_gru_bwd(const void* gates, const void* ghn, const void* h0,
                            const void* dhT, void* dx, void* dghn, void* dh0,
                            int B, int n_steps, int H, int dtype,
                            void* stream) {
-  if (H <= 0 || H % 32 != 0 || H / 2 > kThreads)
+  if (H <= 0 || H % 32 != 0 || H > kMaxH)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(gates);

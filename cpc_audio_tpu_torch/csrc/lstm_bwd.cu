@@ -37,13 +37,14 @@
 // warp's k-steps are the hi plane's 4J / 16, then the lo plane's, 4 and
 // 18 of them streamed at H 512 and 768 (64 and 442 KB a CTA a step).
 //
-// The rows body, at every other H (up to 2048): as in the forward, one
+// The rows body, at every other H (up to 4096): as in the forward, one
 // block per batch row keeps the carries in shared memory for the whole
 // window.  The serial product is the transpose of the forward's: dh[j] =
 // sum_r dgates[r] W_hh[r, j] over the 4H gate rows of W_hh in torch's
 // (4H, H) layout.  Threads own pairs of adjacent columns (one 4- or 8-byte
 // load per row, a warp reads a contiguous run of a row) and form G groups
-// that split the 4H rows; the G partial sums meet in shared memory.  Every
+// that split the 4H rows; the G partial sums meet in shared memory (past
+// H 2048, one group whose threads walk H / 2048 pairs each).  Every
 // step re-reads W_hh (512 KB in bf16 at H = 256) from L2, so a step costs
 // one SM's L2 read bandwidth for it; B = 32 blocks use a quarter of the
 // SMs.
@@ -61,6 +62,10 @@
 namespace {
 
 constexpr int kThreads = 1024;
+// ops/lstm.py MAX_H, the widest H checked on the card; the rows body's
+// shared memory, (6 + 1) H float32 past H 2048, would take 8192 within
+// 227 KB.
+constexpr int kMaxH = 4096;
 
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
@@ -561,14 +566,14 @@ __global__ void __launch_bounds__(kThreads) lstm_bwd_kernel(
   extern __shared__ __align__(16) float smem[];
   const int G4 = 4 * H;
   const int n_pairs = H / 2;
-  const int n_groups = blockDim.x / n_pairs;
+  // past H 2048 one group, each thread looping over several pairs
+  const int n_groups = max(1, (int)blockDim.x / n_pairs);
   float* dg = smem;                 // (4H,) dgates of this step
   float* dh = dg + G4;              // (H,)  dh carry
   float* dc = dh + H;               // (H,)  dc carry
   float* part = dc + H;             // (n_groups, H) partial column sums
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const int pair = tid % n_pairs;
   const int group = tid / n_pairs;
 
   for (int j = tid; j < H; j += blockDim.x) {
@@ -596,7 +601,8 @@ __global__ void __launch_bounds__(kThreads) lstm_bwd_kernel(
       }
     }
     __syncthreads();
-    if (group < n_groups) {
+    for (int pair = tid % n_pairs; group < n_groups && pair < n_pairs;
+         pair += blockDim.x) {
       float a0 = 0.0f, a1 = 0.0f, b0 = 0.0f, b1 = 0.0f;
       const T* wcol = w_hh + 2 * pair;
       int r = group;
@@ -636,7 +642,7 @@ int launch(const float* gates, const float* cs, const void* c0,
            const void* dys, const void* w_hh, const float* dhT,
            const float* dcT, float* dgates, float* dh0, float* dc0, int B,
            int n_steps, int H, cudaStream_t stream) {
-  const int n_groups = kThreads / (H / 2);
+  const int n_groups = max(1, kThreads / (H / 2));
   const size_t smem = (size_t)(6 + n_groups) * H * sizeof(float);
   auto kernel = lstm_bwd_kernel<T>;
   cudaError_t err = cpc::allow_smem(kernel, smem);
@@ -711,7 +717,7 @@ extern "C" int cpc_lstm_bwd(const void* gates, const void* cs, const void* c0,
                             const void* dhT, const void* dcT, void* dgates,
                             void* dh0, void* dc0, void* scratch, int B,
                             int n_steps, int H, int dtype, void* stream) {
-  if (H <= 0 || H % 8 != 0 || H / 2 > kThreads)
+  if (H <= 0 || H % 8 != 0 || H > kMaxH)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(gates);

@@ -52,7 +52,7 @@
 // barrier) and 6 of a warp's 16 k-steps streamed (96 KB a CTA a step), at
 // 768 30 of 48 (368 KB).
 //
-// The rows body, everywhere else (any other H up to 2048): batch rows are
+// The rows body, everywhere else (any other H up to 4096): batch rows are
 // independent, so one block owns one batch row for the whole window and keeps h
 // and c in shared memory across all T steps. Each warp takes tiles of 32 gate
 // rows: every lane accumulates its slice of the hidden axis (4 elements per

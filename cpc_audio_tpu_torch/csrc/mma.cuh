@@ -126,6 +126,26 @@ __device__ __forceinline__ void split_from_c(uint32_t hi[4], uint32_t lo[4],
   split_pair(hi[3], lo[3], c1[2], c1[3]);
 }
 
+// The three-plane split of the same accumulator tiles: a[0] = bf16(x),
+// a[1] = bf16(x - a[0]), a[2] = bf16(x - a[0] - a[1]); the three carry x
+// exactly (K5's float32 forward).
+__device__ __forceinline__ void split3_from_c(uint32_t a[3][4],
+                                              const float* c0,
+                                              const float* c1) {
+  const float* c[2] = {c0, c1};
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    float x0 = c[r >> 1][(r & 1) * 2], x1 = c[r >> 1][(r & 1) * 2 + 1];
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+      a[p][r] = *reinterpret_cast<const uint32_t*>(&h);
+      x0 -= __low2float(h);
+      x1 -= __high2float(h);
+    }
+  }
+}
+
 // 16-byte asynchronous copy global -> shared; with valid false the 16
 // bytes are zero-filled and nothing is read.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,

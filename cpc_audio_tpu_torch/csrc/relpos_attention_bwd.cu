@@ -35,7 +35,16 @@
 // in parallel, so the TPU's dkrel accumulator revisited along a
 // sequential grid becomes per-block partials (K, B*h, dk, S) that a
 // second kernel sums over b and h in a fixed order: the result does not
-// depend on block scheduling.
+// depend on block scheduling.  The device-memory tiles take 2 S^2 values
+// a (k, b, h): 8.2 MB in float32 at S 1012 (--sizeWindow 163840), 3.1 GB
+// over 12 heads and 8 attention heads at B 4, 25 GB at B 32; so the
+// wrapper hands over a scratch of at most 1 GiB and the launches walk the
+// (k, b) rows of heads in chunks that fit it, reusing it
+// (ops/head_attention.py `TILE_BUDGET`): a launch's grid is (heads, a
+// chunk of b, a chunk of k), one k at a time where a k's rows do not all
+// fit.  (h, b, k) stay block indices: with a flat block index divided
+// into them the default shape's backward took 2.90 ms against 2.33
+// (bf16, H100 80GB HBM3, 700 W).
 //
 // What bounds it on an H100: the ds/p tiles limit a block to one per SM
 // (8 warps; 137 KB in bf16), and at S = 116, dk = 32 the work per block is small
@@ -57,6 +66,11 @@ constexpr int kThreads = 256;
 // same with the operands staged in T (kScratchT, bf16 only); operands read
 // in place, tiles in the scratch (kInPlace).
 enum Mode { kTiles, kTilesT, kScratch, kScratchT, kInPlace };
+
+// One launch's blocks: heads x b in [b0, b0 + nb) x k in [k0, k0 + nk).
+struct Chunk {
+  int k0, b0, nk, nb;
+};
 
 __host__ __device__ size_t round16(size_t bytes) {
   return (bytes + 15) / 16 * 16;
@@ -116,8 +130,9 @@ __global__ void __launch_bounds__(kThreads) relpos_attention_bwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ krel, const T* __restrict__ dout,
     T* __restrict__ dq, T* __restrict__ dk_out, T* __restrict__ dv,
-    float* __restrict__ dkrel_part, TT* __restrict__ tiles, int n_batch,
-    int S, int nheads, int dk, float inv_sqrt, cpc::Dropout drop) {
+    float* __restrict__ dkrel_part, TT* __restrict__ tiles, int k_base,
+    int b_base, int n_batch, int S, int nheads, int dk, float inv_sqrt,
+    cpc::Dropout drop) {
   extern __shared__ float smem[];
   const int ldk = dk + 1;
   float* qs = smem;               // (S, dk)
@@ -128,12 +143,13 @@ __global__ void __launch_bounds__(kThreads) relpos_attention_bwd_kernel(
   float* rows = krT + S * ldk;    // (n_warps, 2, S) a row's intermediates
 
   const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int kk = blockIdx.z;
+  const int b = b_base + blockIdx.y;    // this launch's chunk of b
+  const int kk = k_base + blockIdx.z;   // and of k
   // (S, S) ds and p * r, both rounded to T: in shared memory, or in this
-  // block's part of the scratch
+  // block's part of the scratch (the chunk's)
   TT* DS = SCRATCH
-      ? tiles + ((size_t)(kk * n_batch + b) * nheads + h) * 2 * S * S
+      ? tiles + ((size_t)(blockIdx.z * gridDim.y + blockIdx.y) * nheads + h) *
+                    2 * S * S
       : reinterpret_cast<TT*>(ROWS ? rows + (kThreads / 32) * 2 * S : rows);
   TT* PD = DS + S * S;
   const int D = nheads * dk;
@@ -270,14 +286,15 @@ __global__ void __launch_bounds__(kThreads) relpos_attention_bwd_view_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ krel, const T* __restrict__ dout,
     T* __restrict__ dq, T* __restrict__ dk_out, T* __restrict__ dv,
-    float* __restrict__ dkrel_part, T* __restrict__ tiles, int n_batch,
-    int S, int nheads, int dk, float inv_sqrt, cpc::Dropout drop) {
+    float* __restrict__ dkrel_part, T* __restrict__ tiles, int k_base,
+    int b_base, int n_batch, int S, int nheads, int dk, float inv_sqrt,
+    cpc::Dropout drop) {
   extern __shared__ float smem[];
   using TT = T;
   const int ldk = dk + 1;
   const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int kk = blockIdx.z;
+  const int b = b_base + blockIdx.y;    // this launch's chunk of b
+  const int kk = k_base + blockIdx.z;   // and of k
   const int D = nheads * dk;
   const size_t M = (size_t)n_batch * S;
   const size_t base = ((size_t)kk * M + (size_t)b * S) * D + (size_t)h * dk;
@@ -292,8 +309,9 @@ __global__ void __launch_bounds__(kThreads) relpos_attention_bwd_view_kernel(
   float* rows =
       IN_PLACE ? smem : smem + operand_bytes<TS>(S, dk) / sizeof(float);
   // (S, S) ds and p * r, both rounded to T: this block's part of the
-  // scratch
-  TT* DS = tiles + ((size_t)(kk * n_batch + b) * nheads + h) * 2 * S * S;
+  // scratch (the chunk's)
+  TT* DS = tiles + ((size_t)(blockIdx.z * gridDim.y + blockIdx.y) * nheads +
+                     h) * 2 * S * S;
   TT* PD = DS + S * S;
   const uint32_t row_key =
       drop.active() ? cpc::dropout_row_key(
@@ -443,18 +461,18 @@ template <typename T, typename TT, bool ROWS, bool SCRATCH>
 cudaError_t launch_body(const void* q, const void* k, const void* v,
                         const void* krel, const void* dout, void* dq,
                         void* dk_out, void* dv, float* part, TT* tiles,
-                        int K, int n_batch, int S, int nheads, int dk,
+                        Chunk c, int n_batch, int S, int nheads, int dk,
                         size_t smem, cpc::Dropout drop, cudaStream_t stream) {
   auto kernel = relpos_attention_bwd_kernel<T, TT, ROWS, SCRATCH>;
   cudaError_t err = cpc::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(nheads, n_batch, K);
+  const dim3 grid(nheads, c.nb, c.nk);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(krel),
       static_cast<const T*>(dout), static_cast<T*>(dq),
-      static_cast<T*>(dk_out), static_cast<T*>(dv), part, tiles, n_batch, S,
-      nheads, dk, 1.0f / sqrtf(static_cast<float>(dk)), drop);
+      static_cast<T*>(dk_out), static_cast<T*>(dv), part, tiles, c.k0, c.b0,
+      n_batch, S, nheads, dk, 1.0f / sqrtf(static_cast<float>(dk)), drop);
   return cudaGetLastError();
 }
 
@@ -462,18 +480,18 @@ template <typename T, typename TS, bool IN_PLACE>
 cudaError_t launch_view(const void* q, const void* k, const void* v,
                         const void* krel, const void* dout, void* dq,
                         void* dk_out, void* dv, float* part, void* tiles,
-                        int K, int n_batch, int S, int nheads, int dk,
+                        Chunk c, int n_batch, int S, int nheads, int dk,
                         size_t smem, cpc::Dropout drop, cudaStream_t stream) {
   auto kernel = relpos_attention_bwd_view_kernel<T, TS, IN_PLACE>;
   cudaError_t err = cpc::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(nheads, n_batch, K);
+  const dim3 grid(nheads, c.nb, c.nk);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(krel),
       static_cast<const T*>(dout), static_cast<T*>(dq),
       static_cast<T*>(dk_out), static_cast<T*>(dv), part,
-      static_cast<T*>(tiles), n_batch, S, nheads, dk,
+      static_cast<T*>(tiles), c.k0, c.b0, n_batch, S, nheads, dk,
       1.0f / sqrtf(static_cast<float>(dk)), drop);
   return cudaGetLastError();
 }
@@ -481,39 +499,46 @@ cudaError_t launch_view(const void* q, const void* k, const void* v,
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* krel,
            const void* dout, void* dq, void* dk_out, void* dv, float* part,
-           float* dkrel, void* tiles, int K, int n_batch, int S, int nheads,
-           int dk, cpc::Dropout drop, cudaStream_t stream) {
+           float* dkrel, void* tiles, int K, int k_chunk, int b_chunk,
+           int n_batch, int S, int nheads, int dk, cpc::Dropout drop,
+           cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(S, dk);
-  if (S <= 0 || dk <= 0 || smem > cpc::kSmemLimit)
+  if (S <= 0 || dk <= 0 || k_chunk <= 0 || b_chunk <= 0 ||
+      (k_chunk > 1 && b_chunk < n_batch) || smem > cpc::kSmemLimit)
     return (int)cudaErrorInvalidValue;
   const Mode mode = mode_of<T>(S, dk);
   if (mode >= kScratch && tiles == nullptr) return (int)cudaErrorInvalidValue;
   T* scratch = static_cast<T*>(tiles);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (mode == kTiles)
-    err = launch_body<T, float, false, false>(q, k, v, krel, dout, dq,
-                                              dk_out, dv, part, nullptr, K,
-                                              n_batch, S, nheads, dk, smem,
-                                              drop, stream);
-  else if (mode == kScratch)
-    err = launch_body<T, T, true, true>(q, k, v, krel, dout, dq, dk_out, dv,
-                                        part, scratch, K, n_batch, S, nheads,
-                                        dk, smem, drop, stream);
-  else if (mode == kInPlace)
-    err = launch_view<T, T, true>(q, k, v, krel, dout, dq, dk_out, dv, part,
-                                  tiles, K, n_batch, S, nheads, dk, smem,
-                                  drop, stream);
-  else if constexpr (sizeof(T) < sizeof(float)) {   // bf16 only
-    if (mode == kTilesT)
-      err = launch_body<T, T, true, false>(q, k, v, krel, dout, dq, dk_out,
-                                           dv, part, nullptr, K, n_batch, S,
-                                           nheads, dk, smem, drop, stream);
-    else
-      err = launch_view<T, T, false>(q, k, v, krel, dout, dq, dk_out, dv,
-                                     part, tiles, K, n_batch, S, nheads, dk,
-                                     smem, drop, stream);
-  }
-  if (err != cudaSuccess) return (int)err;
+  // k_chunk x b_chunk rows of heads a launch, one launch after another on
+  // the stream, so that the scratch holds one chunk's tiles
+  for (int k0 = 0; k0 < K; k0 += k_chunk)
+    for (int b0 = 0; b0 < n_batch; b0 += b_chunk) {
+      const Chunk c{k0, b0, min(k_chunk, K - k0), min(b_chunk, n_batch - b0)};
+      cudaError_t err = cudaErrorInvalidValue;
+      if (mode == kTiles)
+        err = launch_body<T, float, false, false>(
+            q, k, v, krel, dout, dq, dk_out, dv, part, nullptr, c, n_batch,
+            S, nheads, dk, smem, drop, stream);
+      else if (mode == kScratch)
+        err = launch_body<T, T, true, true>(q, k, v, krel, dout, dq, dk_out,
+                                            dv, part, scratch, c, n_batch, S,
+                                            nheads, dk, smem, drop, stream);
+      else if (mode == kInPlace)
+        err = launch_view<T, T, true>(q, k, v, krel, dout, dq, dk_out, dv,
+                                      part, tiles, c, n_batch, S, nheads, dk,
+                                      smem, drop, stream);
+      else if constexpr (sizeof(T) < sizeof(float)) {   // bf16 only
+        if (mode == kTilesT)
+          err = launch_body<T, T, true, false>(
+              q, k, v, krel, dout, dq, dk_out, dv, part, nullptr, c,
+              n_batch, S, nheads, dk, smem, drop, stream);
+        else
+          err = launch_view<T, T, false>(q, k, v, krel, dout, dq, dk_out,
+                                         dv, part, tiles, c, n_batch, S,
+                                         nheads, dk, smem, drop, stream);
+      }
+      if (err != cudaSuccess) return (int)err;
+    }
   const int n_elem = dk * S;
   const dim3 rgrid((n_elem + 255) / 256, K);
   dkrel_reduce_kernel<<<rgrid, 256, 0, stream>>>(part, dkrel,
@@ -523,9 +548,9 @@ int launch(const void* q, const void* k, const void* v, const void* krel,
 
 }  // namespace
 
-// The bytes of device scratch for the (S, S) tiles of all
-// K * n_batch * nheads blocks where they do not fit beside the operands
-// (0 where they do).
+// The bytes of device scratch for the (S, S) tiles of n_blocks (k, b, h)
+// blocks where they do not fit beside the operands (0 where they do): the
+// blocks of one launch, k_chunk * b_chunk * nheads.
 extern "C" size_t cpc_relpos_attention_bwd_scratch(int n_blocks, int S,
                                                    int dk, int dtype) {
   if (dtype == cpc::kBFloat16)
@@ -540,13 +565,15 @@ extern "C" size_t cpc_relpos_attention_bwd_scratch(int n_blocks, int S,
 // q, k, v, dout and dq, dk, dv (K, n_batch*S, nheads*dk) and krel
 // (K, dk, S) in `dtype`; dkrel (K, dk, S) float32; part is float32 scratch
 // of K*n_batch*nheads*dk*S elements, tiles the scratch of
-// cpc_relpos_attention_bwd_scratch bytes (null when that is 0).
+// cpc_relpos_attention_bwd_scratch(k_chunk * b_chunk * nheads, ...) bytes
+// (null when that is 0), reused by each launch of k_chunk heads' b_chunk
+// rows (b_chunk is n_batch where k_chunk > 1).
 extern "C" int cpc_relpos_attention_bwd(
     const void* q, const void* k, const void* v, const void* krel,
     const void* dout, void* dq, void* dk, void* dv, void* dkrel, void* part,
-    void* tiles, int K, int n_batch, int S, int nheads, int dkh,
-    const void* seed, unsigned int threshold, float keep_scale, int dtype,
-    void* stream) {
+    void* tiles, int K, int k_chunk, int b_chunk, int n_batch, int S,
+    int nheads, int dkh, const void* seed, unsigned int threshold,
+    float keep_scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cpc::Dropout drop{static_cast<const int64_t*>(seed), threshold,
                           keep_scale};
@@ -554,9 +581,12 @@ extern "C" int cpc_relpos_attention_bwd(
   float* dr = static_cast<float*>(dkrel);
   if (dtype == cpc::kBFloat16)
     return launch<__nv_bfloat16>(q, k, v, krel, dout, dq, dk, dv, p, dr,
-                                 tiles, K, n_batch, S, nheads, dkh, drop, s);
+                                 tiles, K, k_chunk, b_chunk, n_batch, S,
+                                 nheads, dkh,
+                                 drop, s);
   if (dtype == cpc::kFloat32)
     return launch<float>(q, k, v, krel, dout, dq, dk, dv, p, dr, tiles, K,
-                         n_batch, S, nheads, dkh, drop, s);
+                         k_chunk, b_chunk, n_batch, S, nheads, dkh, drop,
+                         s);
   return (int)cudaErrorInvalidValue;
 }

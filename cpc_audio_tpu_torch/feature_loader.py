@@ -8,6 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ._common import precision_policy
 from .data.audio_io import decode_file
 
 
@@ -70,6 +71,7 @@ def build_feature(feature_maker, seq_path: str, strict: bool = False,
     ``max_size_seq`` (unless ``pad_tail=False``) and keeps its valid
     frames; strict re-runs a full chunk ending at the file end and appends
     only the missing frames.  Returns (1, n_frames, C) float32."""
+    precision_policy()
     seq = decode_file(seq_path)
     if hasattr(feature_maker, "reset"):
         feature_maker.reset()

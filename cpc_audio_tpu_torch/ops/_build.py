@@ -52,9 +52,9 @@ _SIGNATURES = {
     "cpc_lstm_bwd_smem": ([_I, _I], ctypes.c_size_t),
     # q, k, v, krel, out, K, n_batch, S, nheads, dk, dropout, dtype, stream
     "cpc_relpos_attention_fwd": ([_P] * 5 + [_I] * 5 + _DROP + [_I, _P], _I),
-    # q, k, v, krel, dout, dq, dk, dv, dkrel, part, tiles, K, n_batch, S,
-    # nheads, dk, dropout, dtype, stream
-    "cpc_relpos_attention_bwd": ([_P] * 11 + [_I] * 5 + _DROP + [_I, _P],
+    # q, k, v, krel, dout, dq, dk, dv, dkrel, part, tiles, K, k_chunk,
+    # b_chunk, n_batch, S, nheads, dk, dropout, dtype, stream
+    "cpc_relpos_attention_bwd": ([_P] * 11 + [_I] * 7 + _DROP + [_I, _P],
                                  _I),
     # blocks, S, dk, dtype
     "cpc_relpos_attention_bwd_scratch": ([_I] * 4, ctypes.c_size_t),
@@ -82,8 +82,10 @@ _SIGNATURES = {
     "cpc_gru_bwd": ([_P] * 10 + [_I] * 4 + [_P], _I),
     # H, dtype
     "cpc_gru_bwd_body": ([_I, _I], _I),
-    # q, k, v, bias, out, N, S, dk, layer, dropout, dtype, stream
-    "cpc_causal_attention_fwd": ([_P] * 5 + [_I] * 4 + _DROP + [_I, _P], _I),
+    # q, k, v, bias, out, scratch, N, S, dk, layer, dropout, dtype, stream
+    "cpc_causal_attention_fwd": ([_P] * 6 + [_I] * 4 + _DROP + [_I, _P], _I),
+    # N, S, dk, dtype
+    "cpc_causal_attention_fwd_scratch": ([_I] * 4, ctypes.c_size_t),
     # q, k, v, bias, dout, dq, dk, dv, dbias, scratch, N, S, dk, layer,
     # dropout, dtype, stream
     "cpc_causal_attention_bwd": ([_P] * 10 + [_I] * 4 + _DROP + [_I, _P],

@@ -20,10 +20,16 @@ The backward recomputes p and gives dq, dk, dv and ``dbias = ds`` in the
 input dtype; dbias is exactly 0 above the diagonal, where the caller's
 skewed Shaw bias holds values of other positions.
 
-The kernels take dk <= 128 (a multiple of 8 in bf16, as the JAX
-package's own gate ``fused_attention_supported`` asks) and S <= 512;
-:func:`supported` says so without a card, for the model builder's check
-of a config.
+The kernels take dk <= 256 (a multiple of 8 in bf16, as the JAX
+package's own gate ``fused_attention_supported`` asks) and S up to 1024,
+the longest checked on the card (they hold no (S, S) tile: their scratch
+is O(N S dk), and the dropout key i * S + j would stay in 32 bits to S
+46340); :func:`supported` says so without a card, for the model
+builder's check of a config.  Both dtypes run one
+tensor-core body; in float32 its operands are split into bf16 planes,
+three in the forward (six split products a product) and two in the
+backward (three) (:func:`causal_attention_split` and
+:func:`causal_attention_bwd_split` write that arithmetic plainly).
 
 :func:`causal_attention` is the differentiable entry point: its forward
 runs the K5 forward kernel (csrc/causal_attention_fwd.cu, counted in
@@ -39,16 +45,24 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build, dropout
+from . import _build, dropout, ffn
 
 _NAME = "causal_attention_fwd"
 _BWD_NAME = "causal_attention_bwd"
 
+def _acc(t: torch.Tensor) -> torch.dtype:
+    """The plain versions' arithmetic type: float32, or float64 for
+    float64 inputs (a reference for the float32 kernels)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def _probs(q: torch.Tensor, k: torch.Tensor,
            bias: torch.Tensor) -> torch.Tensor:
-    """Causal softmax probabilities (N, S, S), float32."""
+    """Causal softmax probabilities (N, S, S), float32 (float64 for
+    float64 inputs)."""
     S, dk = q.shape[-2:]
-    s = (q.float() @ k.float().transpose(-1, -2) + bias.float()) \
+    acc = _acc(q)
+    s = (q.to(acc) @ k.to(acc).transpose(-1, -2) + bias.to(acc)) \
         / math.sqrt(dk)
     causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
     return torch.softmax(s.masked_fill(~causal, float("-inf")), dim=-1)
@@ -62,11 +76,12 @@ def causal_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and softmax; the dropped probabilities are rounded to the input dtype
     before ``. v``.  Differentiable by torch autograd."""
     N, S, _ = q.shape
+    acc = _acc(q)
     p = _probs(q, k, bias)
     mask = dropout.ar_attention_mask(seed, rate, layer, N, S, q.device)
     if mask is not None:
         p = p * mask
-    return (p.to(q.dtype).float() @ v.float()).to(q.dtype)
+    return (p.to(q.dtype).to(acc) @ v.to(acc)).to(q.dtype)
 
 
 def causal_attention_bwd_ref(q, k, v, bias, dout, rate: float = 0.0,
@@ -75,31 +90,116 @@ def causal_attention_bwd_ref(q, k, v, bias, dout, rate: float = 0.0,
     """Plain backward, the math of ``_bwd_kernel`` (attention.py:96-130):
     (dq, dk, dv, dbias), each in its input's dtype."""
     N, S, dk = q.shape
+    acc = _acc(q)
     p = _probs(q, k, bias)
     mask = dropout.ar_attention_mask(seed, rate, layer, N, S, q.device)
     pd = p if mask is None else p * mask
-    do = dout.float()
+    do = dout.to(acc)
     dv = pd.transpose(-1, -2) @ do
-    dp = do @ v.float().transpose(-1, -2)
+    dp = do @ v.to(acc).transpose(-1, -2)
     if mask is not None:
         dp = dp * mask
     ds = p * (dp - (dp * p).sum(-1, keepdim=True)) / math.sqrt(dk)
-    dq = ds @ k.float()
-    dkk = ds.transpose(-1, -2) @ q.float()
+    dq = ds @ k.to(acc)
+    dkk = ds.transpose(-1, -2) @ q.to(acc)
     return (dq.to(q.dtype), dkk.to(k.dtype), dv.to(v.dtype),
             ds.to(bias.dtype))
 
 
-MAX_S = 512
-MAX_DK = 128
+# bf16 planes of a float32 operand: the forward's three hold it exactly,
+# the backward takes two (csrc/causal_attention_fwd.cu `kF32Planes`)
+FWD_PLANES = 3
+BWD_PLANES = 2
+
+
+def key_tile(dk: int, planes: int) -> int:
+    """Keys (and query rows) a tile of the tensor-core body at head width
+    dk with operands of ``planes`` bf16 planes (1 in bf16;
+    csrc/causal_attention.cuh ``Geom``): 64 where a row's planes hold at
+    most 128 values, else 32."""
+    dkp = next(w for w in (32, 64, 128, 256) if dk <= w)
+    return 64 if planes * dkp <= 128 else 32
+
+
+def causal_attention_split(q, k, v, bias, rate: float = 0.0,
+                           seed: Optional[torch.Tensor] = None,
+                           layer: int = 0, products: int = 6
+                           ) -> torch.Tensor:
+    """The float32 tensor-core body's forward arithmetic written plainly
+    (csrc/causal_attention_fwd.cu): q . k^T and (p r) . v each as
+    ``products`` split products of bf16 planes (``ffn.split_matmul``: 6
+    from three planes, the kernel's; 3 from two, for comparison),
+    the bias added in float32, float32 softmax statistics; the keys go by
+    the kernel's tiles (:func:`key_tile`) with a running max, the
+    probabilities split as exp(s - running max) r, the partial output
+    rescaled as the max moves and divided by the row sum at the end.
+    Float32 inputs, the output of :func:`causal_attention_ref`.  For
+    tests and measurements only: the card runs the kernel."""
+    N, S, dk = q.shape
+    s = (ffn.split_matmul(q.float(), k.float().transpose(-1, -2), products)
+         + bias.float()) / math.sqrt(dk)
+    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    s = s.masked_fill(~causal, float("-inf"))
+    mask = dropout.ar_attention_mask(seed, rate, layer, N, S, q.device)
+    tile = key_tile(dk, FWD_PLANES if products == 6 else BWD_PLANES)
+    m = torch.full((N, S, 1), float("-inf"), device=q.device)
+    l = torch.zeros(N, S, 1, device=q.device)
+    o = torch.zeros(N, S, dk, device=q.device)
+    for k0 in range(0, S, tile):      # key 0 <= every row: m finite after
+        st = s[..., k0:k0 + tile]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        rescale = torch.exp(m - m_new)
+        e = torch.exp(st - m_new)
+        pd = e if mask is None else e * mask[..., k0:k0 + tile]
+        l = l * rescale + e.sum(-1, keepdim=True)
+        o = o * rescale + ffn.split_matmul(pd, v.float()[:, k0:k0 + tile],
+                                           products)
+        m = m_new
+    return o * (1.0 / l)
+
+
+def causal_attention_bwd_split(q, k, v, bias, dout, rate: float = 0.0,
+                               seed: Optional[torch.Tensor] = None,
+                               layer: int = 0, products: int = 3
+                               ) -> Tuple[torch.Tensor, ...]:
+    """The float32 tensor-core body's backward arithmetic written plainly
+    (csrc/causal_attention_bwd.cu): :func:`causal_attention_bwd_ref` with
+    q . k^T, do . v^T, (p r)^T . do, ds . k and ds^T . q each as
+    ``products`` split products of bf16 planes.  Float32 inputs; (dq, dk,
+    dv, dbias).  For tests and measurements only."""
+    N, S, dk = q.shape
+    qf, kf, vf, do = q.float(), k.float(), v.float(), dout.float()
+    s = (ffn.split_matmul(qf, kf.transpose(-1, -2), products)
+         + bias.float()) / math.sqrt(dk)
+    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(s.masked_fill(~causal, float("-inf")), dim=-1)
+    mask = dropout.ar_attention_mask(seed, rate, layer, N, S, q.device)
+    pd = p if mask is None else p * mask
+    dp = ffn.split_matmul(do, vf.transpose(-1, -2), products)
+    if mask is not None:
+        dp = dp * mask
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) / math.sqrt(dk)
+    return (ffn.split_matmul(ds, kf, products),
+            ffn.split_matmul(ds.transpose(-1, -2), qf, products),
+            ffn.split_matmul(pd.transpose(-1, -2), do, products), ds)
+
+
+# the longest S checked on the card (tests/test_torch_cuda.py,
+# chip_smoke.py: --sizeWindow 163840); the kernels' memory and the dropout
+# key i * S + j in 32 bits would take 46340
+MAX_S = 1024
+MAX_DK = 256          # the widest staged head: DKP 256
 
 
 def supported(S: int, dk: int,
               dtype: torch.dtype = torch.bfloat16) -> Optional[str]:
     """Why the kernels refuse a sequence length S and head width dk in
-    ``dtype``, or None: dk up to 128, in bf16 a multiple of 8 (the
-    tensor-core body stages rows 16 bytes at a time and pads dk to 32, 64
-    or 128), 0 < S <= 512 (JAX's gate pads S to at most 512)."""
+    ``dtype``, or None: dk up to 256 (the body pads it to 32, 64, 128 or
+    256), in bf16 a multiple of 8 (bf16 rows are staged 16 bytes at a
+    time; float32 ones are split into padded planes first); 0 < S <=
+    1024, the longest checked on the card (the kernels hold no (S, S)
+    tile: their scratch is the rows' statistics and, in float32, the
+    operands' planes, O(N S dk))."""
     if dtype == torch.bfloat16 and dk % 8 != 0:
         return (f"head width dk={dk} must be a multiple of 8 in bf16 "
                 f"(up to {MAX_DK})")
@@ -124,6 +224,12 @@ def _check(name: str, q, k, v, bias, others=()) -> Tuple[int, int, int]:
     return N, S, dk
 
 
+def _scratch(n_bytes: int, device) -> Optional[torch.Tensor]:
+    """A kernel's scratch of ``n_bytes`` (16-byte aligned), or None."""
+    return torch.empty(n_bytes, dtype=torch.uint8,
+                       device=device) if n_bytes else None
+
+
 def causal_attention_fwd(q, k, v, bias, rate: float = 0.0,
                          seed: Optional[torch.Tensor] = None,
                          layer: int = 0) -> torch.Tensor:
@@ -139,10 +245,13 @@ def causal_attention_fwd(q, k, v, bias, rate: float = 0.0,
     _build.require_aligned(_NAME, q=q, k=k, v=v, bias=bias)
     lib = _build.library()
     out = torch.empty_like(q)
+    code = _build.DTYPE_CODES[q.dtype]
+    scratch = _scratch(lib.cpc_causal_attention_fwd_scratch(N, S, dk, code),
+                       q.device)
     with torch.cuda.device(q.device):
         status = lib.cpc_causal_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), N, S, dk, layer,
+            out.data_ptr(), _build.ptr(scratch), N, S, dk, layer,
             *dropout.kernel_args(rate, seed), _build.DTYPE_CODES[q.dtype],
             _build.stream(q.device))
     _build.check(status, _NAME)
@@ -171,12 +280,10 @@ def causal_attention_bwd(q, k, v, bias, dout, rate: float = 0.0,
     lib = _build.library()
     dq, dkk, dv = (torch.empty_like(q) for _ in range(3))
     dbias = torch.empty_like(bias)      # every element is written
-    # the bf16 rows' statistics, or the float32 p * r tiles past shared
-    # memory (csrc/causal_attention_bwd.cu)
-    n_scratch = lib.cpc_causal_attention_bwd_scratch(
-        N, S, dk, _build.DTYPE_CODES[q.dtype])
-    scratch = torch.empty(n_scratch, dtype=torch.float32,
-                          device=q.device) if n_scratch else None
+    # the rows' statistics and, in float32, the operands' bf16 planes
+    # (csrc/causal_attention_bwd.cu)
+    scratch = _scratch(lib.cpc_causal_attention_bwd_scratch(
+        N, S, dk, _build.DTYPE_CODES[q.dtype]), q.device)
     with torch.cuda.device(q.device):
         status = lib.cpc_causal_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),

@@ -40,15 +40,30 @@ from . import _build, dropout
 
 _NAME = "relpos_attention_fwd"
 _BWD_NAME = "relpos_attention_bwd"
-MAX_S = 512                      # K5's range (ops/causal_attention.py)
+# the longest sequence the kernels are checked at on the card (S 1012 and
+# 1024 in tests/test_torch_cuda.py; --sizeWindow 163840 gives 1012
+# anchors).  Their memory would take more: past shared memory a block
+# keeps its (S, S) ds and p r rows in 8 warps' float32 rows of S each, two
+# per warp, 64 S bytes within 227 KB (S 3632)
+MAX_S = 1024
+# bytes of the backward's device-memory (S, S) tiles that one call holds
+# at once: past it the launches walk the (k, b) rows of heads in chunks,
+# each reusing the scratch (a (k, b, h) block takes 2 S^2 values: 8.4 MB
+# in float32 at S 1024, 67 MB a row of 8 heads, 25 GB over 12 heads at
+# B 32)
+TILE_BUDGET = 1 << 30
 
 
 def supported(S: int, dk: int) -> Optional[str]:
     """Why the kernels refuse a sequence length S and head width dk, or
-    None: S <= 512 (K5's range) and any dk, in both dtypes (the kernels
-    read a head's columns one at a time, so any dk is aligned; past their
-    shared memory the operands are read in place, whose shared memory,
-    the score rows, does not grow with dk)."""
+    None: S <= 1024, the longest checked on the card (a block's 8 warps
+    keep two float32 rows of S beside any operands in shared memory; the
+    (S, S) tiles go to a device-memory scratch of at most
+    ``TILE_BUDGET``, walked in chunks of blocks) and any dk, in both
+    dtypes (the
+    kernels read a head's columns one at a time, so any dk is aligned;
+    past their shared memory the operands are read in place, whose shared
+    memory, the score rows, does not grow with dk)."""
     if not (0 < S <= MAX_S and dk > 0):
         return f"S={S}, dk={dk} out of range (0 < S <= {MAX_S}, dk > 0)"
     return None
@@ -177,6 +192,19 @@ def relpos_attention_fwd(q, k, v, krel, n_batch: int, nheads: int,
     return out
 
 
+def tile_chunk(per_row: int, K: int, n_batch: int) -> Tuple[int, int]:
+    """(k_chunk, b_chunk): the heads k and batch rows b a backward launch
+    takes when one (k, b) row of attention heads needs ``per_row`` bytes
+    of device-memory tiles: all where they fit ``TILE_BUDGET`` (or need
+    none), else as many whole k as fit, else one k and as many rows b as
+    fit, at least one (a row of 8 heads at S <= ``MAX_S`` takes 67 MB at
+    most)."""
+    rows = K * n_batch if per_row == 0 else max(1, TILE_BUDGET // per_row)
+    if rows >= n_batch:
+        return min(K, rows // n_batch), n_batch
+    return 1, rows
+
+
 def relpos_attention_bwd(q, k, v, krel, dout, n_batch: int, nheads: int,
                          rate: float = 0.0,
                          seed: Optional[torch.Tensor] = None
@@ -200,10 +228,12 @@ def relpos_attention_bwd(q, k, v, krel, dout, n_batch: int, nheads: int,
     dkrel = torch.empty((K, dk, S), dtype=torch.float32, device=q.device)
     part = torch.empty((K, n_batch * nheads, dk, S), dtype=torch.float32,
                        device=q.device)
-    # the (S, S) ds and p * r tiles of every block, where they do not fit
-    # in shared memory beside the operands
-    n_tiles = lib.cpc_relpos_attention_bwd_scratch(K * n_batch * nheads, S,
-                                                   dk, code)
+    # the (S, S) ds and p * r tiles of each block, where they do not fit
+    # in shared memory beside the operands: one chunk of blocks at a time
+    k_chunk, b_chunk = tile_chunk(lib.cpc_relpos_attention_bwd_scratch(
+        nheads, S, dk, code), K, n_batch)
+    n_tiles = lib.cpc_relpos_attention_bwd_scratch(
+        k_chunk * b_chunk * nheads, S, dk, code)
     tiles = torch.empty(n_tiles, dtype=torch.uint8,
                         device=q.device) if n_tiles else None
     with torch.cuda.device(q.device):
@@ -211,7 +241,7 @@ def relpos_attention_bwd(q, k, v, krel, dout, n_batch: int, nheads: int,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), krel.data_ptr(),
             dout.data_ptr(), dq.data_ptr(), dkk.data_ptr(), dv.data_ptr(),
             dkrel.data_ptr(), part.data_ptr(), _build.ptr(tiles), K,
-            n_batch, S, nheads, dk,
+            k_chunk, b_chunk, n_batch, S, nheads, dk,
             *dropout.kernel_args(rate, seed), code, _build.stream(q.device))
     _build.check(status, _BWD_NAME)
     relpos_attention_bwd.launches += 1

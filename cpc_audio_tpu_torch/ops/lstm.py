@@ -27,7 +27,7 @@ float32 whatever the input dtype; outputs are rounded to the input dtype.
   reads it from L2 every step; :func:`bwd_body` mirrors that choice;
 * :func:`lstm` is the differentiable entry point: a
   ``torch.autograd.Function`` over the two, with dW_hh = h_prev^T dgates
-  as one matmul, as rnn.py:223-226.  It takes any H up to 2048: where the
+  as one matmul, as rnn.py:223-226.  It takes any H up to 4096: where the
   kernels' H % 8 does not hold it pads H with zero units (zero rows and
   columns of w_hh, zero x_proj columns and initial state) and slices them
   off.  A zero unit stays zero (i = f = o = 1/2, g = tanh(0) = 0, so c =
@@ -49,7 +49,11 @@ from . import _build, ffn
 _NAME = "lstm_fwd"
 _BWD_NAME = "lstm_bwd"
 MULTIPLE = 8          # the kernels' H: 4H whole 32-row tiles
-MAX_H = 2048          # the backward's H / 2 <= 1024 threads
+# the widest H the kernels are checked at on the card (tests/test_torch_cuda.py,
+# chip_smoke.py: --hiddenGar 4096).  Their memory would take 8192: the
+# backward's rows body keeps (4 + 2 + 1) H float32 in shared memory (one
+# group of 1024 threads past H 2048, each walking H / 2048 unit pairs)
+MAX_H = 4096
 # the backward's cluster body: CTAs a cluster by H (J = H / C units a CTA)
 CLUSTER = {128: 8, 256: 8, 512: 16, 768: 16}
 # the 16-CTA bodies' layouts: each warp holds RK k-steps (16 rows of the

@@ -28,6 +28,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .._common import precision_policy
 from ..ops import dropout
 from ..ops.feistel import ROUNDS
 
@@ -102,6 +103,7 @@ def make_train_step(state: TrainState, device) -> Callable:
     overrides the derived Feistel keys and ``negatives`` = (batch indices,
     time offsets) the exact or rolled sampler's derived draws (tests
     inject them).  Returns device tensors without synchronising."""
+    precision_policy()
     device = torch.device(device)
 
     def train_step(batch, hidden=None, key: Optional[torch.Tensor] = None,
@@ -142,6 +144,7 @@ def make_val_step(model: torch.nn.Module, criterion: torch.nn.Module,
     :func:`step_streams`) or ``negatives`` give them.  Runs under
     ``torch.inference_mode`` and returns device tensors without
     synchronising."""
+    precision_policy()
     device = torch.device(device)
 
     def val_step(batch, hidden=None,

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from . import checkpoint as ckpt
+from ._common import precision_policy
 from .config import (CPCConfig, TrainConfig, add_cpc_args,
                      config_from_namespace)
 from .criterion import build_criterion
@@ -251,6 +252,7 @@ def main(argv=None, device=None) -> int:
     :func:`resolve_device`."""
     args = parse_args(argv)
     device = resolve_device(device)
+    precision_policy()
     cpc_config = config_from_namespace(args)
     train_config = TrainConfig.from_dict(vars(args))
     _refuse_unported(train_config)

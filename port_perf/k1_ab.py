@@ -19,25 +19,16 @@ windows/s as the median of 10 synchronised steps after 2 warm-up.
 
 from __future__ import annotations
 
-import hashlib
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
-HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+import _ab
+from _ab import HERE, sha
 SHAPES = ((32, 128, 256), (8, 256, 512), (32, 128, 512), (32, 128, 768))
 TRAIN_PATHS = ("LSTM 512 float32", "LSTM 768 float32")
-
-
-def sha(tensors) -> str:
-    import torch
-    h = hashlib.sha256()
-    for t in tensors:
-        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
-    return h.hexdigest()[:16]
 
 
 def one(root: str) -> None:
@@ -49,8 +40,7 @@ def one(root: str) -> None:
     from cpc_audio_tpu_torch.ops import lstm
     if not os.path.abspath(lstm.__file__).startswith(os.path.abspath(root)):
         raise SystemExit(f"imported {lstm.__file__}, not {root}'s")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _ab.precision_policy()
     dev = torch.device("cuda", 0)
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -91,39 +81,21 @@ def one(root: str) -> None:
     print(json.dumps(out))
 
 
+def report(who: str, root: str, res: dict) -> None:
+    for shape, t in res.items():
+        if "windows_s" in t:
+            print(f"{who} ({root}) {shape} train step: "
+                  f"{t['windows_s']:.1f} windows/s", flush=True)
+            continue
+        print(f"{who} ({root}) {shape}: forward {t['fwd_ms']:.4f} ms "
+              f"({t['fwd_body']} body, sha256 {t['fwd_sha256']}), "
+              f"backward {t['bwd_ms']:.4f} ms ({t['bwd_body']} body, "
+              f"sha256 {t['bwd_sha256']}); rerun bit-identical "
+              f"{t['rerun_same']}", flush=True)
+
+
 def main() -> None:
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        one(sys.argv[2])
-        return
-    if len(sys.argv) != 2:
-        raise SystemExit(__doc__)
-    other = os.path.abspath(sys.argv[1])
-    runs = []
-    for who, root in (("other", other), ("this", HERE), ("this", HERE),
-                      ("other", other)):
-        r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--one", root], capture_output=True, text=True)
-        if r.returncode != 0:
-            raise SystemExit(f"{root}: failed\n{r.stderr[-3000:]}")
-        res = json.loads(r.stdout.strip().splitlines()[-1])
-        runs.append((who, res))
-        for shape, t in res.items():
-            if "windows_s" in t:
-                print(f"{who} ({root}) {shape} train step: "
-                      f"{t['windows_s']:.1f} windows/s", flush=True)
-                continue
-            print(f"{who} ({root}) {shape}: forward {t['fwd_ms']:.4f} ms "
-                  f"({t['fwd_body']} body, sha256 {t['fwd_sha256']}), "
-                  f"backward {t['bwd_ms']:.4f} ms ({t['bwd_body']} body, "
-                  f"sha256 {t['bwd_sha256']}); rerun bit-identical "
-                  f"{t['rerun_same']}", flush=True)
-    this, other_res = runs[1][1], runs[0][1]
-    for shape, t in this.items():
-        if "fwd_sha256" in t:
-            o = other_res[shape]
-            print(f"{shape}: outputs bit-identical to the other checkout's: "
-                  f"forward {t['fwd_sha256'] == o['fwd_sha256']}, backward "
-                  f"{t['bwd_sha256'] == o['bwd_sha256']}", flush=True)
+    _ab.main(__file__, one, report, ("fwd_sha256", "bwd_sha256"), __doc__)
 
 
 if __name__ == "__main__":

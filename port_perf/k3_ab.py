@@ -22,15 +22,14 @@ synchronised steps after 2 warm-up.
 
 from __future__ import annotations
 
-import hashlib
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
-HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+import _ab
+from _ab import HERE
 SHAPES = ((3712, 256), (1952, 512), (3712, 768))
 NAMES = ("dx", "dln1w", "dln1b", "dw1", "db1", "dw2", "db2", "dln2w",
          "dln2b")
@@ -69,10 +68,8 @@ def exact_forward(ffn, args, rate: float, seed):
 
 
 def sha(tensors) -> list:
-    """The first 16 hex digits of a SHA-256 of each tensor's bytes."""
-    import torch
-    return [hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()
-                           .tobytes()).hexdigest()[:16] for t in tensors]
+    """A digest of each tensor's bytes (_ab.sha)."""
+    return [_ab.sha([t]) for t in tensors]
 
 
 def one(root: str) -> None:
@@ -84,8 +81,7 @@ def one(root: str) -> None:
     from cpc_audio_tpu_torch.ops import ffn
     if not os.path.abspath(ffn.__file__).startswith(os.path.abspath(root)):
         raise SystemExit(f"imported {ffn.__file__}, not {root}'s")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _ab.precision_policy()
     dev = torch.device("cuda", 0)
     seed = torch.tensor([SEED], dtype=torch.int64, device=dev)
     out = {}
@@ -134,50 +130,28 @@ def one(root: str) -> None:
     print(json.dumps(out))
 
 
-def main() -> None:
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        one(sys.argv[2])
-        return
-    if len(sys.argv) != 2:
-        raise SystemExit(__doc__)
-    other = os.path.abspath(sys.argv[1])
-    hashes = {}   # (who, direction, case): the set of its runs' hashes
-    for who, root in (("other", other), ("this", HERE), ("this", HERE),
-                      ("other", other)):
-        r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--one", root], capture_output=True, text=True)
-        if r.returncode != 0:
-            raise SystemExit(f"{root}: failed\n{r.stderr[-3000:]}")
-        res = json.loads(r.stdout.strip().splitlines()[-1])
-        for case, t in res.items():
-            if case == "train":
-                print(f"{who}: float32 LSTM train step, B 32: "
-                      f"{t['windows_s']:.1f} windows/s (median "
-                      f"{t['step_ms']:.3f} ms of 10, min {t['min_ms']:.3f} "
-                      f"max {t['max_ms']:.3f})", flush=True)
-                continue
-            err = (f"; max |err| vs exact {t['fwd_err'][0]:.3e} "
-                   f"({t['fwd_err'][1]:.3e} of max |want|)"
-                   if "fwd_err" in t else "")
-            print(f"{who}: K3 forward {case}: {t['fwd_ms']:.4f} ms{err}",
-                  flush=True)
-            err = ("; rel. 2-norm error vs exact: " + ", ".join(
-                f"{n} {e:.2e}" for n, e in zip(NAMES, t["rel_err"]))
-                if "rel_err" in t else "")
-            print(f"{who}: K3 backward {case}: {t['ms']:.4f} ms{err}",
-                  flush=True)
-            for way, key in (("forward", "fwd_sha256"),
-                             ("backward", "sha256")):
-                hashes.setdefault((who, way, case), set()).add(
-                    tuple(t[key]))
-    for way, case in sorted({(w, c) for _, w, c in hashes}):
-        this, other_ = (hashes[(who, way, case)] for who in ("this",
-                                                             "other"))
-        print(f"{way} {case}: reruns bit-identical: this "
-              f"{'yes' if len(this) == 1 else 'NO'}, other "
-              f"{'yes' if len(other_) == 1 else 'NO'}; the two checkouts' "
-              f"outputs {'bit-identical' if this == other_ else 'differ'}",
+def report(who: str, root: str, res: dict) -> None:
+    for case, t in res.items():
+        if case == "train":
+            print(f"{who}: float32 LSTM train step, B 32: "
+                  f"{t['windows_s']:.1f} windows/s (median "
+                  f"{t['step_ms']:.3f} ms of 10, min {t['min_ms']:.3f} "
+                  f"max {t['max_ms']:.3f})", flush=True)
+            continue
+        err = (f"; max |err| vs exact {t['fwd_err'][0]:.3e} "
+               f"({t['fwd_err'][1]:.3e} of max |want|)"
+               if "fwd_err" in t else "")
+        print(f"{who}: K3 forward {case}: {t['fwd_ms']:.4f} ms{err}",
               flush=True)
+        err = ("; rel. 2-norm error vs exact: " + ", ".join(
+            f"{n} {e:.2e}" for n, e in zip(NAMES, t["rel_err"]))
+            if "rel_err" in t else "")
+        print(f"{who}: K3 backward {case}: {t['ms']:.4f} ms{err}",
+              flush=True)
+
+
+def main() -> None:
+    _ab.main(__file__, one, report, ("fwd_sha256", "sha256"), __doc__)
 
 
 if __name__ == "__main__":

@@ -76,8 +76,8 @@ def rel(a, b) -> float:
 def main() -> None:
     if not torch.cuda.is_available() or len(sys.argv) < 2:
         raise SystemExit(__doc__)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from cpc_audio_tpu_torch import _common
+    _common.precision_policy()
     print(chip_smoke.gpu_line(), flush=True)
     dev = torch.device("cuda", 0)
     for path in sys.argv[1:]:

@@ -186,7 +186,8 @@ def test_lstm_bwd_kernel(dev, dtype, B, T, H):
 @pytest.mark.parametrize("rate", RATES)
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("S,dk", [(116, 32), (20, 16), (116, 64), (244, 32),
-                                  (244, 64), (116, 25), (116, 132)])
+                                  (244, 64), (116, 25), (116, 132),
+                                  (1012, 32), (1024, 256)])
 def test_relpos_attention_bwd_kernel(dev, dtype, S, dk, rate):
     """Forward at the rate, then the backward, each against its plain
     version with the same seed: at rate 0.1 a mask that differed between
@@ -195,7 +196,9 @@ def test_relpos_attention_bwd_kernel(dev, dtype, S, dk, rate):
     float32 ones in device memory), (244, 32) those of --sizeWindow 40960
     (device-memory tiles in both dtypes), (244, 64) those of both flags
     (operands staged in bf16, read in place in float32), (116, 25) and
-    (116, 132) those of --hiddenEncoder 200 and 1056."""
+    (116, 132) those of --hiddenEncoder 200 and 1056, (1012, 32) those of
+    --sizeWindow 163840 and (1024, 256) the longest S the gate takes at
+    the widest head."""
     rng = np.random.RandomState(S + dk)
     K, B, h = 2, 3, 2
     args = [_rand(rng, dev, dtype, K, B * S, h * dk) for _ in range(3)]
@@ -213,6 +216,35 @@ def test_relpos_attention_bwd_kernel(dev, dtype, S, dk, rate):
                                                    seed)
     for name, g, w in zip(("dq", "dk", "dv", "dkrel"), got, want):
         _close(g, w, BWD_REL[dtype], name)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_relpos_attention_bwd_walks_blocks_in_chunks(dev, dtype,
+                                                     monkeypatch):
+    """With TILE_BUDGET at one (k, b) row of heads' (S, S) tiles, at two
+    and a bit, and at one k's rows, the backward walks its blocks one row,
+    two rows (a ragged last chunk of b) or one k a launch through that
+    much scratch, and gives the bits of the call that holds every block's
+    tiles at once."""
+    from cpc_audio_tpu_torch.ops import _build
+    S, dk, K, B, h = 244, 32, 2, 3, 2     # device-memory tiles, both dtypes
+    rng = np.random.RandomState(7)
+    args = [_rand(rng, dev, dtype, K, B * S, h * dk) for _ in range(3)]
+    args.append(_rand(rng, dev, dtype, K, dk, S, scale=0.5))
+    dout = _rand(rng, dev, dtype, K, B * S, h * dk)
+    seed = _seed(dev)
+    whole = head_attention.relpos_attention_bwd(*args, dout, B, h, 0.1, seed)
+    per_row = _build.library().cpc_relpos_attention_bwd_scratch(
+        h, S, dk, _build.DTYPE_CODES[dtype])
+    assert per_row > 0
+    for budget, chunks in ((per_row, (1, 1)), (2 * per_row + 1, (1, 2)),
+                           (B * per_row, (1, B))):
+        monkeypatch.setattr(head_attention, "TILE_BUDGET", budget)
+        assert head_attention.tile_chunk(per_row, K, B) == chunks
+        got = head_attention.relpos_attention_bwd(*args, dout, B, h, 0.1,
+                                                  seed)
+        for g, w in zip(got, whole):
+            assert torch.equal(g, w)
 
 
 def _tail_args(rng, dev, dtype, K, M, D, F):
@@ -352,7 +384,7 @@ def test_backward_wrappers_reject_what_kernels_do_not_take(dev):
                       torch.zeros(64, 16, device=dev, dtype=f16),
                       torch.zeros(2, 16, device=dev),
                       torch.zeros(2, 16, device=dev))
-    S, dk = 600, 64          # past K2's range, S <= 512
+    S, dk = 1100, 64         # past K2's range, S <= 1024
     q = torch.zeros(1, S, dk, device=dev)
     with pytest.raises(ValueError, match="out of range"):
         head_attention.relpos_attention_bwd(
@@ -405,16 +437,18 @@ def test_gru_kernels(dev, dtype, B, T, H):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("N,S,dk", [(8, 20, 16), (4, 116, 32), (2, 128, 32),
                                     (3, 128, 64), (2, 256, 64), (2, 72, 128),
-                                    (2, 100, 40)])
+                                    (2, 100, 40), (2, 64, 256), (2, 300, 200),
+                                    (1, 1024, 256), (2, 1012, 32)])
 def test_causal_attention_kernels(dev, dtype, N, S, dk, rate):
     """Forward and backward against the plain versions with the same seed
     and layer (the backward also at chip_smoke's tolerance on each
     gradient's 2-norm): the train shape (S 128, dk 32), the
     --hiddenGar 512 one (dk 64), S = 256 (--sizeWindow 40960, four
-    64-key tiles, no tile resident between the row kernel's passes, and
-    the float32 body's scratch tiles), ragged S (116, 100, 72, 20: tiles
-    past S and unaligned bias rows) and dk padded to 32, 64 or 128 (16,
-    40).  dbias is exactly 0 above the diagonal although the bias is not,
+    64-key tiles, no tile resident between the row kernel's passes),
+    ragged S (116, 100, 72, 20: tiles past S and unaligned bias rows), dk
+    padded to 32, 64, 128 or 256 (16, 40, 200), the 32-row tiles of dk
+    128 in float32 and of dk 256 (--hiddenEncoder 2048) and S 1024 and
+    1012 (--sizeWindow 163840).  dbias is exactly 0 above the diagonal although the bias is not,
     and a second run gives the same bits."""
     rng = np.random.RandomState(N + S + dk)
     args = [_rand(rng, dev, dtype, N, S, dk) for _ in range(3)]
@@ -452,11 +486,12 @@ def test_gru_and_causal_wrappers_reject_what_kernels_do_not_take(dev):
         gru.gru_fwd(x, torch.zeros(120, 40, device=dev),
                     torch.zeros(120, device=dev),
                     torch.zeros(2, 40, device=dev))
-    S, dk = 520, 32          # past JAX's S <= 512
-    q = torch.zeros(1, S, dk, device=dev)
-    b = torch.zeros(1, S, S, device=dev)
-    with pytest.raises(ValueError, match="sequence length"):
-        causal_attention.causal_attention_bwd(q, q, q, b, q)
+    for S, dk, why in ((1100, 32, "sequence length"),   # S <= 1024
+                       (16, 264, "head width")):        # dk <= 256
+        q = torch.zeros(1, S, dk, device=dev)
+        b = torch.zeros(1, S, S, device=dev)
+        with pytest.raises(ValueError, match=why):
+            causal_attention.causal_attention_bwd(q, q, q, b, q)
     b = torch.zeros(1, 16, 16, device=dev)
     q = torch.zeros(1, 16, 12, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 8"):
@@ -514,7 +549,7 @@ def test_python_gates_mirror_the_kernels_shared_memory(dev):
         for dt in DTYPES:
             assert lib.cpc_layer_tail_bwd_smem(
                 D, F, _build.DTYPE_CODES[dt]) == ffn._bwd_smem(D, F, dt)
-    for H in (32, 64, 104, 128, 192, 256, 384, 512, 768, 1024, 2048):
+    for H in (32, 64, 104, 128, 192, 256, 384, 512, 768, 1024, 2048, 4096):
         for dt in DTYPES:
             code = _build.DTYPE_CODES[dt]
             assert lib.cpc_lstm_bwd_body(H, code) == (
@@ -537,14 +572,15 @@ def _rel_norm(got, want):
 @pytest.mark.parametrize("B,T,H", [(32, 128, 256), (3, 9, 256), (5, 7, 128),
                                    (3, 9, 512), (8, 256, 512),
                                    (32, 128, 512), (32, 128, 768),
-                                   (20, 9, 768)])
+                                   (20, 9, 768), (3, 5, 4096)])
 def test_recurrent_bwd_bodies(dev, mode, dtype, B, T, H):
     """K1's and K4's backward at the train shape, at batches that leave a
     cluster's 16 rows part empty, at H = 128 (the cluster body's narrow
     tile) and at H = 512 and 768 (K1: the 16-CTA cluster body, at 768
     and in float32 with part of W_hh streamed, in float32 on its two bf16
     planes, also at the long-window path's B 8, T 256 and at B 32, T 128;
-    K4: the rows body): each
+    K4: the rows body), and at H 4096 (--hiddenGar 4096: both rows
+    bodies, each thread walking two unit pairs): each
     output against its plain version within chip_smoke's 1e-4 of the
     2-norm, the body counted as the Python mirror says, and a rerun
     bit-identical."""
@@ -570,7 +606,8 @@ def test_recurrent_bwd_bodies(dev, mode, dtype, B, T, H):
         args = (gates, ghn, h0, ys, dys, w, dhT)
         kernel, plain = gru.gru_bwd, gru.gru_bwd_ref
     body = mod.bwd_body(H, dtype)
-    assert body == ("cluster" if H < 512 or mode == "LSTM" else "rows")
+    assert body == ("cluster" if H < 512 or (mode == "LSTM" and H <= 768)
+                    else "rows")
     before = dict(kernel.body_launches)
     got = kernel(*args)
     again = kernel(*args)

@@ -188,12 +188,19 @@ def test_lstm_bwd_body_at_512_is_a_16_cta_cluster_in_bf16():
     assert gru.bwd_body(512, bf) == gru.bwd_body(512, f32) == "rows"
 
 
-REFUSED = [
+# configurations the JAX package trains that the port once refused: K5
+# at dk 256 (the AR's 8 heads of 2048) and S 1024, K2 at S 1012, K1 and K4
+# at H 4096 (the model: the heads refuse hiddenGar != hiddenEncoder, in
+# JAX too)
+TAKEN = [
     ("model", dict(arMode="transformer", hiddenEncoder=2048,
-                   hiddenGar=2048), {}, "--hiddenEncoder 2048"),
-    ("model", dict(arMode="transformer", sizeWindow=163840), {},
+                   hiddenGar=2048), "--hiddenEncoder 2048"),
+    ("model", dict(arMode="transformer", sizeWindow=163840),
      "--sizeWindow 163840"),
-    ("model", dict(hiddenGar=4096), {}, "--hiddenGar 4096"),
+    ("model", dict(hiddenGar=4096), "--hiddenGar 4096"),
+]
+
+REFUSED = [
     ("criterion", dict(hiddenGar=100), {}, "--hiddenGar 100"),
     ("criterion", dict(hiddenEncoder=204, hiddenGar=204), {},
      "--hiddenEncoder 204"),
@@ -230,6 +237,39 @@ def test_builders_take_every_multiple_of_8(no_fused_switches, D, dtype):
     infonce.check_kernels(cfg)
     if D <= 264:
         build_criterion(build_model(cfg).config)
+
+
+@pytest.mark.parametrize("builder,kw,flag", TAKEN,
+                         ids=[r[2] for r in TAKEN])
+def test_builders_take_with_the_flag(no_fused_switches, builder, kw, flag):
+    """A config the port once refused, naming its flag: every gate of the
+    card's path takes it (K5 at dk 256 and at S 1024 in both dtypes, K2 at
+    S 1012, K1 and K4 at H 4096 for LSTM and GRU), so the builders'
+    own gates (``check_kernels``) take it; at the default widths, where
+    the weights are small, build_model and build_criterion build it.  At
+    --hiddenGar 4096 the criterion still refuses hiddenGar !=
+    hiddenEncoder, as the JAX package's heads do."""
+    from cpc_audio_tpu_torch.criterion import infonce
+    from cpc_audio_tpu_torch.models import cpc
+    cfg = CPCConfig(**kw)             # float32, the CLIs' default
+    S = cfg.sizeWindow // 160
+    if cfg.arMode == "transformer":
+        for dt in (torch.bfloat16, torch.float32):
+            assert causal_attention.supported(
+                S, cfg.hiddenEncoder // 8, dt) is None
+        assert head_attention.supported(S - cfg.nPredicts,
+                                        cfg.hiddenEncoder // 8) is None
+        cpc.check_kernels(cfg)
+        infonce.check_kernels(cfg.replace(hiddenGar=cfg.hiddenEncoder))
+        if cfg.hiddenEncoder <= 256:
+            build_criterion(build_model(cfg).config)
+    else:
+        for mode in ("LSTM", "GRU"):
+            assert (lstm if mode == "LSTM" else gru).supported(
+                cfg.hiddenGar) is None
+            cpc.check_kernels(cfg.replace(arMode=mode))
+        with pytest.raises(ValueError, match="--hiddenGar 4096"):
+            infonce.check_kernels(cfg)
 
 
 @pytest.mark.parametrize("builder,kw,env,flag", REFUSED,
