@@ -436,6 +436,7 @@ def kernel_cases(dev: torch.device, dtype: torch.dtype, B: int = 32):
     cases += h512_cases(rand, dev)
     cases += w768_cases(rand, dev, seed, B)
     cases += width_cases(rand, dev, seed, dtype, B)
+    cases += grid_cases(rand, dev)
     cases += repair_cases(rand, dev, seed, dtype)
     upd, keys, order, offsets, R = scatter_inputs(dev, dtype, B)
     cases.append(Case("scatter_add_rows", 0.0,
@@ -599,9 +600,9 @@ def repair_cases(rand, dev: torch.device, seed, dtype: torch.dtype,
     (--sizeWindow 163840, dk 32) on its one tensor-core body, and in
     float32 also at dk 64 (N 256, S 128; bf16 has it in wide_cases); K2
     at the heads' S 1012 anchors (dk 32) and at dk 256 (S 116); K1 and K4
-    at --hiddenGar 4096 (B 4, T 128: the rows bodies, each thread walking
-    two unit pairs).  Batch B = 4, the new paths' (rate 0.1 where a
-    kernel drops)."""
+    at --hiddenGar 4096 (B 4, T 128: the grid bodies, W_hh streamed from
+    device memory every step).  Batch B = 4, the new paths' (rate 0.1
+    where a kernel drops)."""
     from cpc_audio_tpu_torch.ops import gru, lstm
     cases = []
     shapes = [(B * 8, 128, 256, "dk 256 / D 2048"),
@@ -629,6 +630,57 @@ def repair_cases(rand, dev: torch.device, seed, dtype: torch.dtype,
              lambda: gru.gru_bwd_ref(*gba), gba, 2 * B * T * 3 * H * H,
              shape=tag)]
     return cases
+
+
+# the grid bodies' path shapes (csrc/rnn_grid.cuh): K1 at --hiddenGar
+# 1056, K4 at the GRU 512 path's width, both at B 32 / T 128 (and at
+# --hiddenGar 4096, B 4, in repair_cases); the JSON line's grid entries
+# are timed here, in bf16
+GRID_SHAPES = (("lstm", 32, 128, 1056), ("gru", 32, 128, 512))
+# the H where each recurrence case's body is read (the index of w_hh among
+# its inputs)
+W_HH_AT = {"lstm_fwd": 1, "lstm_bwd": 4, "gru_fwd": 1, "gru_bwd": 5}
+
+
+def grid_cases(rand, dev: torch.device, shapes=GRID_SHAPES):
+    """K1 (LSTM) or K4 (GRU) forward and backward at each (kind, B, T, H)
+    of ``shapes``: the grid bodies, W_hh split by unit over every SM."""
+    from cpc_audio_tpu_torch.ops import gru, lstm
+    cases = []
+    for kind, B, T, H in shapes:
+        la, lba, ga, gba = recurrent_args(rand, dev, B, T, H)
+        tag = f"B {B} / T {T} / H {H}"
+        if kind == "lstm":
+            cases += [
+                Case("lstm_fwd", 0.0,
+                     lambda a=la: lstm.lstm_fwd(*a, save_residuals=True),
+                     lambda a=la: lstm.lstm_scan_ref(*a, save_residuals=True),
+                     la, 2 * B * T * 4 * H * H, shape=tag),
+                Case("lstm_bwd", 0.0, lambda a=lba: lstm.lstm_bwd(*a),
+                     lambda a=lba: lstm.lstm_bwd_ref(*a), lba,
+                     2 * B * T * 4 * H * H, shape=tag)]
+        else:
+            cases += [
+                Case("gru_fwd", 0.0,
+                     lambda a=ga: gru.gru_fwd(*a, save_residuals=True),
+                     lambda a=ga: gru.gru_scan_ref(*a, save_residuals=True),
+                     ga, 2 * B * T * 3 * H * H, shape=tag),
+                Case("gru_bwd", 0.0, lambda a=gba: gru.gru_bwd(*a),
+                     lambda a=gba: gru.gru_bwd_ref(*a), gba,
+                     2 * B * T * 3 * H * H, shape=tag)]
+    return cases
+
+
+def recurrent_body(case: Case, dtype: torch.dtype):
+    """The body a K1 / K4 case runs ("rows", "cluster" or "grid"), or None
+    for the other kernels."""
+    if case.name not in W_HH_AT:
+        return None
+    from cpc_audio_tpu_torch.ops import gru, lstm
+    mod = lstm if case.name.startswith("lstm") else gru
+    H = case.inputs[W_HH_AT[case.name]].shape[1]
+    return (mod.fwd_body if case.name.endswith("_fwd") else
+            mod.bwd_body)(H, dtype)
 
 
 def h512_cases(rand, dev: torch.device, B: int = 32, T: int = 128,
@@ -842,6 +894,17 @@ SOURCES = {
                     "cpc_audio_tpu/ops/pallas/conv_ln.py:105"),
     "scatter_add_rows": ("cpc_audio_tpu_torch/csrc/scatter_add.cu",
                          "cpc_audio_tpu/ops/pallas/scatter_add.py:39"),
+    # K1's and K4's grid bodies (W_hh split over every SM), one header for
+    # both, launched from the kernels' own sources: the JSON line's entries
+    # at the --hiddenGar 1056 (K1) and GRU 512 (K4) paths' shapes
+    "lstm_fwd_grid": ("cpc_audio_tpu_torch/csrc/rnn_grid.cuh",
+                      "cpc_audio_tpu/ops/pallas/rnn.py:67"),
+    "lstm_bwd_grid": ("cpc_audio_tpu_torch/csrc/rnn_grid.cuh",
+                      "cpc_audio_tpu/ops/pallas/rnn.py:97"),
+    "gru_fwd_grid": ("cpc_audio_tpu_torch/csrc/rnn_grid.cuh",
+                     "cpc_audio_tpu/ops/pallas/rnn.py:238"),
+    "gru_bwd_grid": ("cpc_audio_tpu_torch/csrc/rnn_grid.cuh",
+                     "cpc_audio_tpu/ops/pallas/rnn.py:265"),
 }
 
 # The train path runs K2, K3, K5 and K6 at dropout 0.1: the JSON line
@@ -1069,15 +1132,16 @@ H4096_SHAPES = (("lstm", 4, 4096), ("gru", 4, 4096))
 
 
 def rows_yardsticks(dev: torch.device, shapes=ROWS_SHAPES, T: int = 128,
-                    **timing) -> None:
-    """cuDNN beside the rows bodies, in both dtypes, in turns (kernel,
-    cuDNN, cuDNN, kernel): at ``shapes`` (kind, B, H), by default nn.LSTM
-    at H 1056 (--hiddenGar 1056: K1's rows bodies) and nn.GRU at H 512
-    and 768 (K4's rows bodies) at B 32, forward (training, input
-    projection included) and backward (dx and dW too), T 128; ``timing``
-    goes to median_ms (fewer calls at H 4096, where a call takes up to
-    seconds)."""
+                    **timing) -> dict:
+    """cuDNN beside the bodies that were the rows bodies until the grid
+    bodies took them, in both dtypes, in turns (kernel, cuDNN, cuDNN,
+    kernel): at ``shapes`` (kind, B, H), by default nn.LSTM at H 1056
+    (--hiddenGar 1056: K1's grid bodies) and nn.GRU at H 512 and 768
+    (K4's) at B 32, forward (training, input projection included) and
+    backward (dx and dW too), T 128; ``timing`` goes to median_ms (fewer
+    calls at H 4096).  Returns cuDNN's mean ms by (kernel, B, H, dtype)."""
     from cpc_audio_tpu_torch.ops import gru, lstm
+    out = {}
     for dtype in (torch.bfloat16, torch.float32):
         g = torch.Generator(device=dev).manual_seed(SEED + 19)
 
@@ -1092,8 +1156,7 @@ def rows_yardsticks(dev: torch.device, shapes=ROWS_SHAPES, T: int = 128,
                  (lambda: gru.gru_fwd(*ga, save_residuals=True),
                   lambda: gru.gru_bwd(*gba)))
             mod = lstm if kind == "lstm" else gru
-            bodies = (mod.fwd_body(H, dtype) if kind == "lstm" else "rows",
-                      mod.bwd_body(H, dtype))
+            bodies = (mod.fwd_body(H, dtype), mod.bwd_body(H, dtype))
             args = (la, lba) if kind == "lstm" else (ga, gba)
             G = 4 if kind == "lstm" else 3
             for i, d in enumerate(("fwd", "bwd")):
@@ -1105,6 +1168,7 @@ def rows_yardsticks(dev: torch.device, shapes=ROWS_SHAPES, T: int = 128,
                                             else cudnn[i], **timing))
                 k_ms, c_ms = (statistics.mean(t[w])
                               for w in ("kernel", "cudnn"))
+                out[(f"{kind}_{d}", B, H, dtype)] = c_ms
                 print(f"  {kind}_{d} B {B} / T {T} / H {H}, "
                       f"{str(dtype)[6:]}, in turns ({bodies[i]} body): "
                       f"kernel {t['kernel'][0]:.4f} / {t['kernel'][1]:.4f} "
@@ -1117,6 +1181,7 @@ def rows_yardsticks(dev: torch.device, shapes=ROWS_SHAPES, T: int = 128,
                       flush=True)
             del la, lba, ga, gba, k, cudnn
             torch.cuda.empty_cache()
+    return out
 
 
 def long_causal_yardsticks(dev: torch.device, B: int = 4, S: int = 1024,
@@ -1303,6 +1368,21 @@ def tail_launches(case: Case, ms: float, dtype: torch.dtype,
           f"; sum {sum(t.values()):.4f}, median_ms {ms:.4f}", flush=True)
 
 
+def grid_rerun(case: Case, body: str) -> None:
+    """A K1 / K4 case's body; on the grid body a rerun must be
+    bit-identical to the first call (fixed-order sums, no atomics on
+    values)."""
+    line = f"  {case.label}: {body} body"
+    if body == "grid":
+        first, again = _tensors(case.kernel()), _tensors(case.kernel())
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            fail(f"{case.label}: a rerun of the grid body is not "
+                 f"bit-identical")
+        line += ", a rerun bit-identical"
+    print(line, flush=True)
+
+
 def phase_kernels(dev: torch.device, B: int = 32) -> dict:
     results, rate0, shaped = {}, {}, {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -1348,6 +1428,16 @@ def phase_kernels(dev: torch.device, B: int = 32) -> dict:
             if name in TAIL_LAUNCHES and \
                     case.rate == TRAIN_RATE.get(name, 0.1):
                 tail_launches(case, ms, dtype)
+            body = recurrent_body(case, dtype)
+            if body is not None:
+                grid_rerun(case, body)
+            if body == "grid" and reported and \
+                    case.shape in [f"B {B} / T {T} / H {H}"
+                                   for _, B, T, H in GRID_SHAPES]:
+                results[f"{name}_grid"] = {
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                    "library_ms": None}
             if reported and case.shape is not None:
                 shaped[(name, case.shape)] = ms
             if reported and case.shape is None:
@@ -1377,7 +1467,11 @@ def phase_kernels(dev: torch.device, B: int = 32) -> dict:
         print(f"  {name}: none (no single call does conv + ChannelNorm + "
               f"ReLU; the composition is timed below)", flush=True)
     recurrent_against_cudnn(dev, B)
-    rows_yardsticks(dev)
+    cudnn_ms = rows_yardsticks(dev)
+    for kind, B_, T, H in GRID_SHAPES:
+        for d in ("fwd", "bwd"):
+            results[f"{kind}_{d}_grid"]["library_ms"] = cudnn_ms[
+                (f"{kind}_{d}", B_, H, torch.bfloat16)]
     rows_yardsticks(dev, H4096_SHAPES, warmup=1, reps=2)
     long_causal_yardsticks(dev)
     conv_composition_times(dev, timings=results, B=B)
@@ -1427,6 +1521,22 @@ def scatter_wrapper_times(dev: torch.device, timings: dict,
               f"{sort_ms:.4f} ms); K8 alone, bf16: "
               f"{timings['scatter_add_rows']['ms']:.4f} ms; J = "
               f"{keys.shape[0]}, R = {R}", flush=True)
+    # K8 at the rows of --hiddenEncoder 200 and 1056 in float32 (rows past
+    # 4096 bytes walked in pieces) beside index_add_, in turns
+    for C in (200, 1056):
+        upd, keys, order, offsets, R = scatter_inputs(dev, torch.float32, B,
+                                                      C)
+        t = {"K8": [], "index_add_": []}
+        for who in ("K8", "index_add_", "index_add_", "K8"):
+            t[who].append(median_ms(
+                (lambda: sa.scatter_add_sorted(upd, order, offsets))
+                if who == "K8" else
+                (lambda: torch.zeros(R, C, device=dev).index_add_(
+                    0, keys, upd))))
+        print(f"  scatter_add_rows float32 C {C}, in turns: K8 "
+              f"{t['K8'][0]:.4f} / {t['K8'][1]:.4f} ms, index_add_ "
+              f"{t['index_add_'][0]:.4f} / {t['index_add_'][1]:.4f} ms",
+              flush=True)
 
 
 def conv_composition_times(dev: torch.device, timings: dict,
@@ -1550,17 +1660,18 @@ PATH_CONFIG = {EXACT: {"negativeSamplingMode": "exact"},
 # the body the AR's backward kernel (K1, K4) must run on a path: the
 # cluster body at hiddenGar 256 (and 128) and, on 16 CTAs, at 512 and 768
 # in both dtypes (with part of W_hh streamed from L2 at 768, and in
-# float32, on W_hh's two bf16 planes, at 512 too); the rows body at 200
-# and 1056, and K4's at 512
+# float32, on W_hh's two bf16 planes, at 512 too); the rows body at 200;
+# the grid body (W_hh split over every SM) at 1056, and K4's at 512
 BWD_BODY = {"LSTM": "cluster", "GRU": "cluster", FUSED: "cluster",
             EXACT: "cluster", LONG: "cluster", W768: "cluster",
             F32: "cluster", F512: "cluster", F768: "cluster", W200: "rows",
-            W1056: "rows", G512: "rows"}
-# the body K1's forward must run: the rows body at hiddenGar 256, 200 and
-# 1056, the 16-CTA cluster body at 512 and 768 in both dtypes
+            W1056: "grid", G512: "grid"}
+# the body the AR's forward kernel must run: K1's rows body at hiddenGar
+# 256 and 200, its 16-CTA cluster body at 512 and 768 in both dtypes, its
+# grid body at 1056; K4's rows body at 256, its grid body at 512
 FWD_BODY = {"LSTM": "rows", FUSED: "rows", EXACT: "rows", LONG: "cluster",
             W768: "cluster", F32: "rows", F512: "cluster", F768: "cluster",
-            W200: "rows", W1056: "rows"}
+            W200: "rows", W1056: "grid", "GRU": "rows", G512: "grid"}
 # launches a step, where a path fixes them: on the fused path K2 must not
 # run at all; on the exact path K8 runs once, in the backward
 PER_STEP = {FUSED: {"attention_block_fwd": 1, "attention_block_bwd": 1,
@@ -1803,7 +1914,8 @@ def phase_train(dev: torch.device, path: str = "LSTM", B: int = 32,
     if path in BWD_BODY:
         check_body(fns, path, n, BWD_BODY[path])
     if path in FWD_BODY:
-        check_body(fns, path, n, FWD_BODY[path], "lstm_fwd")
+        check_body(fns, path, n, FWD_BODY[path],
+                   "gru_fwd" if path.startswith("GRU") else "lstm_fwd")
 
     per_step = torch.stack(losses).float().cpu()          # (n, K)
     if tuple(per_step.shape) != (n, cfg.nPredicts) or \
@@ -1895,16 +2007,17 @@ def phase_stop_grad(dev: torch.device, B: int = 32, steps: int = 2) -> None:
 
 
 def phase_model_alone(dev: torch.device, mode: str = "GRU", H: int = 100,
-                      B: int = 8, steps: int = 4,
-                      body: str = "cluster") -> None:
+                      B: int = 8, steps: int = 4, body: str = "cluster",
+                      fwd_body: str = "rows") -> None:
     """--arMode ``mode`` --hiddenGar H beside --hiddenEncoder 256: at H 100
     K4 runs H padded to 128 (ops/gru.py) and sliced back; at H 4096 K1 and
-    K4 run their rows bodies, each thread walking two unit pairs.  The
+    K4 run their grid bodies, W_hh streamed every step.  The
     transformer prediction heads need hiddenGar == hiddenEncoder, so
     build_criterion must refuse the config, naming the flag; the model
     trains alone here: ``steps`` Adam steps of the encoder and the AR
     (bf16) on a fixed batch, the loss mean(c^2), the AR's kernels forward
-    and backward once a step (the backward on ``body``), the loss
+    and backward once a step (the backward on ``body``, the forward on
+    ``fwd_body``), the loss
     falling, train windows/s; then one float32 forward and backward on
     the card and on the CPU, which must agree."""
     from cpc_audio_tpu_torch.config import CPCConfig
@@ -1942,6 +2055,7 @@ def phase_model_alone(dev: torch.device, mode: str = "GRU", H: int = 100,
     read_counts(fns, f"{label} model step", (f"{k}_fwd", f"{k}_bwd"),
                 steps, {f"{k}_fwd": 1, f"{k}_bwd": 1})
     check_body(fns, label, steps, body, f"{k}_bwd")
+    check_body(fns, label, steps, fwd_body, f"{k}_fwd")
     step_ms = statistics.median(times[1:]) * 1e3
     print(f"{label} model train steps (B={B}, bf16, the AR's kernels at H "
           f"{H}): losses {[round(v, 6) for v in losses]}; windows/s "
@@ -2526,6 +2640,13 @@ def main() -> None:
                              4 if path in SMALL_PATHS else 32,
                              timed=4 if path in SMALL_PATHS else 10)
         launches.update({name: counts[name] for name in own})
+        # the grid bodies' launches on the paths that run them (K1 at
+        # --hiddenGar 1056, K4 at 512): check_body held them to the steps
+        if path in (W1056, G512):
+            fns = counters()
+            for name in PATH_KERNELS[path][:2]:
+                launches[f"{name}_grid"] = \
+                    fns[name].body_launches["grid"]
         # a float32 path's step on two windows is that of the bf16 path of
         # its widths: the default LSTM's, the long window's (K1's float32
         # cluster bodies at H 512) and the 768-wide's (at H 768); the
@@ -2540,7 +2661,8 @@ def main() -> None:
           flush=True)
     for mode in ("LSTM", "GRU"):
         t0 = time.time()
-        phase_model_alone(dev, mode, 4096, B=4, steps=4, body="rows")
+        phase_model_alone(dev, mode, 4096, B=4, steps=4, body="grid",
+                          fwd_body="grid")
         print(f"[phase {mode} --hiddenGar 4096 {time.time() - t0:.1f} s]",
               flush=True)
     t0 = time.time()

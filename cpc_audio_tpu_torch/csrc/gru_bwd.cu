@@ -16,29 +16,28 @@
 // does.  h_prev is read from ys and h0 in place, so the wrapper builds no
 // (B, T, H) copy of it.
 //
-// Two bodies, picked from the shape before launching (`cluster_body`),
-// as K1's backward (csrc/lstm_bwd.cu): at H = 128 and 256 the cluster body
+// Three bodies, picked from the shape before launching (`body`), as K1's
+// backward (csrc/lstm_bwd.cu): at H = 128 and 256 the cluster body
 // (csrc/rnn_cluster.cuh; CTA c owns units [c H/8, (c+1) H/8), their 3 gate
-// rows of W_hh and the carry dh * z of its units), elsewhere the rows
-// body: one block per batch row keeps the carry in shared memory for the
+// rows of W_hh and the carry dh * z of its units), past H 256 the grid
+// body (csrc/rnn_grid.cuh, `GridCell`), at the other H the rows body:
+// one block per batch row keeps the carry in shared memory for the
 // whole window, and the serial product dh[j] = sum_r dgh[r] W_hh[r, j]
 // over the 3H rows of W_hh in torch's (3H, H) layout needs no transpose:
 // threads own pairs of adjacent columns (one 4- or 8-byte load per row, a
 // warp reads a contiguous run of a row) and form groups that split the 3H
-// rows; the partial sums meet in shared memory (past H 2048, one group
-// whose threads walk H / 2048 pairs each).  It re-reads W_hh (384 KB
+// rows; the partial sums meet in shared memory.  It re-reads W_hh (384 KB
 // in bf16 at H = 256) from L2 every step, on B = 32 of the 132 SMs.
 //
 // What bounds it on an H100: the T = 128 dependent steps.  The bytes it
 // must move (0.011 ms at B 32, T 128, H 256) ignore that chain; cuDNN's
 // GRU backward, which also forms dx and dW, is its yardstick.
-#include "rnn_cluster.cuh"
+#include "rnn_grid.cuh"
 
 namespace {
 
 constexpr int kThreads = 1024;
-// K1's bound (ops/lstm.py MAX_H), the widest H checked on the card; the
-// rows body keeps (5 + 1) H float32 in shared memory past H 2048.
+// K1's bound (ops/lstm.py MAX_H), the widest H checked on the card.
 constexpr int kMaxH = 4096;
 
 __device__ __forceinline__ float2 load2(const float* p) {
@@ -224,8 +223,7 @@ __global__ void __launch_bounds__(kThreads) gru_bwd_kernel(
   extern __shared__ __align__(16) float smem[];
   const int G = 3 * H;
   const int n_pairs = H / 2;
-  // past H 2048 one group, each thread looping over several pairs
-  const int n_groups = max(1, (int)blockDim.x / n_pairs);
+  const int n_groups = blockDim.x / n_pairs;
   float* dg = smem;                 // (3H,) dgh of this step
   float* dh = dg + G;               // (H,)  dh carry
   float* dhz = dh + H;              // (H,)  dh * z of this step
@@ -261,8 +259,8 @@ __global__ void __launch_bounds__(kThreads) gru_bwd_kernel(
       dhz[j] = dhj * z;
     }
     __syncthreads();
-    for (int pair = tid % n_pairs; group < n_groups && pair < n_pairs;
-         pair += blockDim.x) {
+    if (group < n_groups) {
+      const int pair = tid % n_pairs;
       float a0 = 0.0f, a1 = 0.0f, b0 = 0.0f, b1 = 0.0f;
       const T* wcol = w_hh + 2 * pair;
       int r = group;
@@ -299,7 +297,7 @@ int launch(const float* gates, const float* ghn, const void* h0,
            const void* ys, const void* dys, const void* w_hh,
            const float* dhT, float* dx, float* dghn, float* dh0, int B,
            int n_steps, int H, cudaStream_t stream) {
-  const int n_groups = max(1, kThreads / (H / 2));
+  const int n_groups = kThreads / (H / 2);
   const size_t smem = (size_t)(5 + n_groups) * H * sizeof(float);
   auto kernel = gru_bwd_kernel<T>;
   cudaError_t err = cpc::allow_smem(kernel, smem);
@@ -311,11 +309,130 @@ int launch(const float* gates, const float* ghn, const void* h0,
   return (int)cudaGetLastError();
 }
 
+// ---- the grid body (csrc/rnn_grid.cuh) --------------------------------------
+
+// A thread's pair of units (k, k + 1) of batch row b: dh z of the last
+// step in registers.
+template <typename T_>
+struct GridCell {
+  using T = T_;
+  using T2 = typename cpc::rnn::Two<T>::type;
+  static constexpr int G = 3;
+  struct Params {
+    const float* gates;
+    const float* ghn;
+    const T* h0;
+    const T* ys;
+    const T* dys;
+    const float* dhT;
+    float* dx;
+    float* dghn;
+    float* dh0;
+  };
+  struct State {
+    float2 dhz;
+  };
+  struct Res {
+    float2 g[4];     // r, z, n, gh_n
+    T2 hp, dy;       // h_{t-1}, dys
+  };
+  static Params offset(Params p, const cpc::grid::Shape& s, int b0) {
+    const size_t r = (size_t)b0 * s.H, rt = r * s.T;
+    p.gates += 3 * rt;
+    p.ghn += rt;
+    p.h0 += r;
+    p.ys += rt;
+    p.dys += rt;
+    p.dhT += r;
+    p.dx += 3 * rt;
+    p.dghn += rt;
+    p.dh0 += r;
+    return p;
+  }
+  __device__ static State init(const Params&, const cpc::grid::Shape&, int,
+                               int, bool) {
+    return {make_float2(0.0f, 0.0f)};
+  }
+  __device__ static Res load_res(const Params& p, const cpc::grid::Shape& s,
+                                 int b, int k, int t, bool valid) {
+    Res r;
+    if (!valid) return r;
+    const int H = s.H;
+    const size_t bt = (size_t)b * s.T + t;
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+      r.g[q] = *reinterpret_cast<const float2*>(p.gates + bt * 3 * H +
+                                                q * H + k);
+    r.g[3] = *reinterpret_cast<const float2*>(p.ghn + bt * H + k);
+    r.hp = *reinterpret_cast<const T2*>(
+        t > 0 ? p.ys + (bt - 1) * H + k : p.h0 + (size_t)b * H + k);
+    r.dy = *reinterpret_cast<const T2*>(p.dys + bt * H + k);
+    return r;
+  }
+  __device__ static void step(const Params& p, const cpc::grid::Shape& s,
+                              State& st, const Res& r, float2 gathered,
+                              bool first, int b, int k, int t,
+                              float (&dg)[3][2]) {
+    const int H = s.H;
+    const float2 carry =
+        first ? gathered
+              : make_float2(st.dhz.x + gathered.x, st.dhz.y + gathered.y);
+    const float2 hp = cpc::rnn::Two<T>::f32(r.hp);
+    const float2 dy = cpc::rnn::Two<T>::f32(r.dy);
+    float out[3][2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float rr = e ? r.g[0].y : r.g[0].x, z = e ? r.g[1].y : r.g[1].x,
+                  n = e ? r.g[2].y : r.g[2].x, gn = e ? r.g[3].y : r.g[3].x;
+      const float dhj = (e ? dy.y : dy.x) + (e ? carry.y : carry.x);
+      const float d_z = dhj * ((e ? hp.y : hp.x) - n) * z * (1.0f - z);
+      const float d_n = dhj * (1.0f - z) * (1.0f - n * n);
+      const float d_ghn = d_n * rr;
+      out[0][e] = d_n * gn * rr * (1.0f - rr);
+      out[1][e] = d_z;
+      out[2][e] = d_n;
+      dg[0][e] = out[0][e];
+      dg[1][e] = d_z;
+      dg[2][e] = d_ghn;
+      (e ? st.dhz.y : st.dhz.x) = dhj * z;
+    }
+    const size_t bt = (size_t)b * s.T + t;
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+      *reinterpret_cast<float2*>(p.dx + bt * 3 * H + q * H + k) =
+          make_float2(out[q][0], out[q][1]);
+    *reinterpret_cast<float2*>(p.dghn + bt * H + k) =
+        make_float2(dg[2][0], dg[2][1]);
+  }
+  __device__ static void finish(const Params& p, const cpc::grid::Shape& s,
+                                const State& st, float2 gathered, int b,
+                                int k) {
+    *reinterpret_cast<float2*>(p.dh0 + (size_t)b * s.H + k) =
+        make_float2(st.dhz.x + gathered.x, st.dhz.y + gathered.y);
+  }
+};
+
+// The body at H for T: 1 the cluster body, 2 the grid body (every H past
+// 256), 0 the rows body.
+template <typename T>
+int body(int H) {
+  return cluster_body<T>(H) ? 1 : H >= cpc::grid::kMinH ? 2 : 0;
+}
+
 template <typename T>
 int launch_any(const float* gates, const float* ghn, const void* h0,
                const void* ys, const void* dys, const void* w_hh,
-               const float* dhT, float* dx, float* dghn, float* dh0, int B,
-               int n_steps, int H, cudaStream_t stream) {
+               const float* dhT, float* dx, float* dghn, float* dh0,
+               void* scratch, unsigned* bar, int B, int n_steps, int H,
+               cudaStream_t stream) {
+  if (body<T>(H) == 2) {
+    if (bar == nullptr) return (int)cudaErrorInvalidValue;
+    typename GridCell<T>::Params p{
+        gates, ghn, static_cast<const T*>(h0), static_cast<const T*>(ys),
+        static_cast<const T*>(dys), dhT, dx, dghn, dh0};
+    return cpc::grid::run_bwd<GridCell<T>>(p, w_hh, scratch, bar, B, n_steps,
+                                           H, stream);
+  }
   if (!cluster_body<T>(H))
     return launch<T>(gates, ghn, h0, ys, dys, w_hh, dhT, dx, dghn, dh0, B,
                      n_steps, H, stream);
@@ -328,23 +445,34 @@ int launch_any(const float* gates, const float* ghn, const void* h0,
 
 }  // namespace
 
-// 1 where cpc_gru_bwd runs the cluster body at hidden width H in `dtype`,
-// 0 where it runs the rows body.
+// The body cpc_gru_bwd runs at hidden width H in `dtype`: 0 rows, 1
+// cluster, 2 grid (ops/gru.py `bwd_body`).
 extern "C" int cpc_gru_bwd_body(int H, int dtype) {
-  return dtype == cpc::kBFloat16 ? cluster_body<__nv_bfloat16>(H)
-                                 : cluster_body<float>(H);
+  return dtype == cpc::kBFloat16 ? body<__nv_bfloat16>(H) : body<float>(H);
+}
+
+// Bytes of global scratch cpc_gru_bwd needs at (B, H, dtype): the grid
+// body's receive blocks (and in float32 W_hh's bf16 planes), else 0.
+extern "C" size_t cpc_gru_bwd_scratch(int B, int H, int dtype) {
+  const bool f32 = dtype == cpc::kFloat32;
+  return (f32 ? body<float>(H) : body<__nv_bfloat16>(H)) == 2
+             ? cpc::grid::scratch_bytes(true, B, H, 3, f32 ? 2 : 1)
+             : 0;
 }
 
 // gates (B, T, 3H), ghn (B, T, H), dhT (B, H) and the outputs dx
 // (B, T, 3H), dghn (B, T, H) and dh0 (B, H) are float32; h0 (B, H), ys
-// and dys (B, T, H) and w_hh (3H, H) are in `dtype`.
+// and dys (B, T, H) and w_hh (3H, H) are in `dtype`; scratch:
+// cpc_gru_bwd_scratch bytes (null where 0); barrier: the grid body's
+// barrier word (csrc/rnn_grid.cuh; null for the other bodies).
 extern "C" int cpc_gru_bwd(const void* gates, const void* ghn, const void* h0,
                            const void* ys, const void* dys, const void* w_hh,
                            const void* dhT, void* dx, void* dghn, void* dh0,
-                           int B, int n_steps, int H, int dtype,
-                           void* stream) {
+                           void* scratch, void* barrier, int B, int n_steps,
+                           int H, int dtype, void* stream) {
   if (H <= 0 || H % 32 != 0 || H > kMaxH)
     return (int)cudaErrorInvalidValue;
+  unsigned* bar = static_cast<unsigned*>(barrier);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(gates);
   const float* n = static_cast<const float*>(ghn);
@@ -354,9 +482,10 @@ extern "C" int cpc_gru_bwd(const void* gates, const void* ghn, const void* h0,
   float* o_dh0 = static_cast<float*>(dh0);
   if (dtype == cpc::kBFloat16)
     return launch_any<__nv_bfloat16>(g, n, h0, ys, dys, w_hh, d, o_dx,
-                                     o_dghn, o_dh0, B, n_steps, H, s);
+                                     o_dghn, o_dh0, scratch, bar, B, n_steps,
+                                     H, s);
   if (dtype == cpc::kFloat32)
     return launch_any<float>(g, n, h0, ys, dys, w_hh, d, o_dx, o_dghn, o_dh0,
-                             B, n_steps, H, s);
+                             scratch, bar, B, n_steps, H, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -13,7 +13,13 @@
 // (B, T, H)), as `_gru_fwd_kernel` does; both pointers may be null (the
 // eval path).
 //
-// Design: K1's (csrc/lstm_fwd.cu).  Batch rows are independent, so one
+// Two bodies, picked from H (`grid_body`, mirrored by ops/gru.py
+// `fwd_body`): past H 256 K1's grid body (csrc/rnn_grid.cuh: W_hh split by
+// unit over all of the card's SMs, h all-gathered through L2 with a grid
+// barrier a step; `GridCell` keeps gh_n = h . W_hn^T + b_hn apart from r's
+// product, as below), else the rows body.
+//
+// The rows body: K1's (csrc/lstm_fwd.cu).  Batch rows are independent, so one
 // block owns one batch row for the whole window and keeps h in shared
 // memory across all T steps.  Each warp takes tiles of 32 rows of W_hh:
 // every lane accumulates its slice of the hidden axis (4 elements per
@@ -24,10 +30,8 @@
 // re-reads W_hh (3H x H; 384 KB in bf16 at H = 256, more than one SM's
 // 227 KB of shared memory) from L2, so a step costs about one SM's L2
 // read bandwidth for 384 KB.  B = 32 blocks occupy a quarter of the 132
-// SMs.  The backward keeps W_hh on chip across a thread-block cluster
-// (csrc/rnn_cluster.cuh, used by csrc/gru_bwd.cu); the same split would
-// serve this scan.
-#include "common.cuh"
+// SMs.
+#include "rnn_grid.cuh"
 
 namespace {
 
@@ -147,18 +151,157 @@ int launch(const void* x_proj, const void* w_hh, const void* b_hh,
   return (int)cudaGetLastError();
 }
 
+// ---- the grid body (csrc/rnn_grid.cuh) --------------------------------------
+
+// A thread's pair of units (k, k + 1) of batch row b: h and b_hh in
+// registers.
+template <typename T_>
+struct GridCell {
+  using T = T_;
+  using T2 = typename cpc::rnn::Two<T>::type;
+  static constexpr int G = 3;
+  struct Params {
+    const T* x_proj;
+    const T* b_hh;
+    const T* h0;
+    T* ys;
+    T* hT;
+    float* gates;
+    float* ghn;
+  };
+  struct State {
+    float2 h;
+    float2 b[3];
+  };
+  struct X {
+    T2 x[3];
+  };
+  static Params offset(Params p, const cpc::grid::Shape& s, int b0) {
+    const size_t r = (size_t)b0 * s.H, rt = r * s.T;
+    p.x_proj += 3 * rt;
+    p.h0 += r;
+    p.ys += rt;
+    p.hT += r;
+    if (p.gates != nullptr) p.gates += 3 * rt;
+    if (p.ghn != nullptr) p.ghn += rt;
+    return p;
+  }
+  __device__ static State init(const Params& p, const cpc::grid::Shape& s,
+                               int b, int k, bool valid) {
+    State st;
+    const float2 z = make_float2(0.0f, 0.0f);
+    st.h = valid ? cpc::rnn::load_two(p.h0 + (size_t)b * s.H + k) : z;
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+      st.b[g] = valid ? cpc::rnn::load_two(p.b_hh + g * s.H + k) : z;
+    return st;
+  }
+  __device__ static X load_x(const Params& p, const cpc::grid::Shape& s,
+                             int b, int k, int t, bool valid) {
+    X x;
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+      x.x[g] = valid ? *reinterpret_cast<const T2*>(
+                           p.x_proj + ((size_t)b * s.T + t) * 3 * s.H +
+                           g * s.H + k)
+                     : cpc::rnn::Two<T>::zero();
+    return x;
+  }
+  __device__ static float2 step(const Params& p, const cpc::grid::Shape& s,
+                                State& st, const X& x,
+                                const float (&pre)[3][2], int b, int k,
+                                int t) {
+    const int H = s.H;
+    float r[2], z[2], n[2], gn[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      float xv[3], gh[3];
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        const float2 x2 = cpc::rnn::Two<T>::f32(x.x[g]);
+        xv[g] = u ? x2.y : x2.x;
+        gh[g] = pre[g][u] + (u ? st.b[g].y : st.b[g].x);
+      }
+      r[u] = sigmoidf(xv[0] + gh[0]);
+      z[u] = sigmoidf(xv[1] + gh[1]);
+      gn[u] = gh[2];
+      n[u] = tanhf(xv[2] + r[u] * gn[u]);
+      float& h = u ? st.h.y : st.h.x;
+      h = (1.0f - z[u]) * n[u] + z[u] * h;
+    }
+    const size_t bt = (size_t)b * s.T + t;
+    if (p.gates != nullptr) {
+      float* gt = p.gates + bt * 3 * H + k;
+      *reinterpret_cast<float2*>(gt) = make_float2(r[0], r[1]);
+      *reinterpret_cast<float2*>(gt + H) = make_float2(z[0], z[1]);
+      *reinterpret_cast<float2*>(gt + 2 * H) = make_float2(n[0], n[1]);
+    }
+    if (p.ghn != nullptr)
+      *reinterpret_cast<float2*>(p.ghn + bt * H + k) =
+          make_float2(gn[0], gn[1]);
+    cpc::rnn::store_two(p.ys + bt * H + k, st.h.x, st.h.y);
+    if (t == s.T - 1)
+      cpc::rnn::store_two(p.hT + (size_t)b * H + k, st.h.x, st.h.y);
+    return st.h;
+  }
+};
+
+bool grid_body(int H) { return H >= cpc::grid::kMinH; }
+
 }  // namespace
 
+// The body cpc_gru_fwd runs at hidden width H: 0 rows, 2 grid (every H
+// past 256; ops/gru.py `fwd_body`).
+extern "C" int cpc_gru_fwd_body(int H, int dtype) {
+  (void)dtype;
+  return grid_body(H) ? 2 : 0;
+}
+
+// Bytes of global scratch cpc_gru_fwd needs at (B, H, dtype): the grid
+// body's exchange buffer (and in float32 W_hh's bf16 planes), 0 for the
+// rows body.
+extern "C" size_t cpc_gru_fwd_scratch(int B, int H, int dtype) {
+  return grid_body(H) ? cpc::grid::scratch_bytes(
+                            false, B, H, 3, dtype == cpc::kFloat32 ? 2 : 1)
+                      : 0;
+}
+
 // x_proj (B, T, 3H), w_hh (3H, H), b_hh (3H,), h0 (B, H), ys (B, T, H) and
-// hT (B, H) in `dtype`; gates (B, T, 3H) and ghn (B, T, H) float32 or null.
+// hT (B, H) in `dtype`; gates (B, T, 3H) and ghn (B, T, H) float32 or null;
+// scratch: cpc_gru_fwd_scratch bytes (null where 0); barrier: the grid
+// body's barrier word (csrc/rnn_grid.cuh; null for the rows body).
 extern "C" int cpc_gru_fwd(const void* x_proj, const void* w_hh,
                            const void* b_hh, const void* h0, void* ys,
-                           void* hT, void* gates, void* ghn, int B,
-                           int n_steps, int H, int dtype, void* stream) {
+                           void* hT, void* gates, void* ghn, void* scratch,
+                           void* barrier, int B, int n_steps, int H,
+                           int dtype, void* stream) {
   if (H <= 0 || H % 32 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* g = static_cast<float*>(gates);
   float* n = static_cast<float*>(ghn);
+  if (grid_body(H)) {
+    unsigned* bar = static_cast<unsigned*>(barrier);
+    if (bar == nullptr) return (int)cudaErrorInvalidValue;
+    if (dtype == cpc::kBFloat16) {
+      using T = __nv_bfloat16;
+      GridCell<T>::Params p{static_cast<const T*>(x_proj),
+                            static_cast<const T*>(b_hh),
+                            static_cast<const T*>(h0), static_cast<T*>(ys),
+                            static_cast<T*>(hT), g, n};
+      return cpc::grid::run_fwd<GridCell<T>>(p, w_hh, scratch, bar, B,
+                                             n_steps, H, s);
+    }
+    if (dtype == cpc::kFloat32) {
+      GridCell<float>::Params p{static_cast<const float*>(x_proj),
+                                static_cast<const float*>(b_hh),
+                                static_cast<const float*>(h0),
+                                static_cast<float*>(ys),
+                                static_cast<float*>(hT), g, n};
+      return cpc::grid::run_fwd<GridCell<float>>(p, w_hh, scratch, bar, B,
+                                                 n_steps, H, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   if (dtype == cpc::kBFloat16)
     return launch<__nv_bfloat16>(x_proj, w_hh, b_hh, h0, ys, hT, g, n, B,
                                  n_steps, H, s);

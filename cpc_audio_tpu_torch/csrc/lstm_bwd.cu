@@ -10,7 +10,12 @@
 // and finally dh0 = dh_carry, dc0 = dc_carry, all in float32.  dW_hh is
 // one matmul outside the kernel (ops/lstm.py), as rnn.py:223-226 does.
 //
-// Two bodies, picked from the shape before launching (`cluster_body`):
+// Three bodies, picked from the shape before launching (`body`, mirrored
+// by ops/lstm.py `bwd_body`): the cluster bodies below; the grid body at
+// every other H past 256 (csrc/rnn_grid.cuh: W_hh split by unit over all
+// of the card's SMs in one cooperative launch, each step's partial carry
+// reduce-scattered through L2 with a grid barrier; `GridCell` is its
+// elementwise part); the rows body at the other H up to 256.
 //
 // The cluster body (csrc/rnn_cluster.cuh), at H = 128 and 256 in both
 // dtypes on C = 8 CTAs, and at H = 512 and 768 on C = 16: one
@@ -37,14 +42,13 @@
 // warp's k-steps are the hi plane's 4J / 16, then the lo plane's, 4 and
 // 18 of them streamed at H 512 and 768 (64 and 442 KB a CTA a step).
 //
-// The rows body, at every other H (up to 4096): as in the forward, one
-// block per batch row keeps the carries in shared memory for the whole
-// window.  The serial product is the transpose of the forward's: dh[j] =
+// The rows body, at the other H up to 256: as in the forward, one block
+// per batch row keeps the carries in shared memory for the whole window.
+// The serial product is the transpose of the forward's: dh[j] =
 // sum_r dgates[r] W_hh[r, j] over the 4H gate rows of W_hh in torch's
 // (4H, H) layout.  Threads own pairs of adjacent columns (one 4- or 8-byte
 // load per row, a warp reads a contiguous run of a row) and form G groups
-// that split the 4H rows; the G partial sums meet in shared memory (past
-// H 2048, one group whose threads walk H / 2048 pairs each).  Every
+// that split the 4H rows; the G partial sums meet in shared memory.  Every
 // step re-reads W_hh (512 KB in bf16 at H = 256) from L2, so a step costs
 // one SM's L2 read bandwidth for it; B = 32 blocks use a quarter of the
 // SMs.
@@ -57,14 +61,12 @@
 // (port_perf/k1_step_parts.py removes it; NVIDIA H100 80GB HBM3, 700 W).
 #include <type_traits>
 
-#include "rnn_cluster.cuh"
+#include "rnn_grid.cuh"
 
 namespace {
 
 constexpr int kThreads = 1024;
-// ops/lstm.py MAX_H, the widest H checked on the card; the rows body's
-// shared memory, (6 + 1) H float32 past H 2048, would take 8192 within
-// 227 KB.
+// ops/lstm.py MAX_H, the widest H checked on the card.
 constexpr int kMaxH = 4096;
 
 __device__ __forceinline__ float2 load2(const float* p) {
@@ -566,8 +568,7 @@ __global__ void __launch_bounds__(kThreads) lstm_bwd_kernel(
   extern __shared__ __align__(16) float smem[];
   const int G4 = 4 * H;
   const int n_pairs = H / 2;
-  // past H 2048 one group, each thread looping over several pairs
-  const int n_groups = max(1, (int)blockDim.x / n_pairs);
+  const int n_groups = blockDim.x / n_pairs;
   float* dg = smem;                 // (4H,) dgates of this step
   float* dh = dg + G4;              // (H,)  dh carry
   float* dc = dh + H;               // (H,)  dc carry
@@ -601,8 +602,8 @@ __global__ void __launch_bounds__(kThreads) lstm_bwd_kernel(
       }
     }
     __syncthreads();
-    for (int pair = tid % n_pairs; group < n_groups && pair < n_pairs;
-         pair += blockDim.x) {
+    if (group < n_groups) {
+      const int pair = tid % n_pairs;
       float a0 = 0.0f, a1 = 0.0f, b0 = 0.0f, b1 = 0.0f;
       const T* wcol = w_hh + 2 * pair;
       int r = group;
@@ -642,7 +643,7 @@ int launch(const float* gates, const float* cs, const void* c0,
            const void* dys, const void* w_hh, const float* dhT,
            const float* dcT, float* dgates, float* dh0, float* dc0, int B,
            int n_steps, int H, cudaStream_t stream) {
-  const int n_groups = max(1, kThreads / (H / 2));
+  const int n_groups = kThreads / (H / 2);
   const size_t smem = (size_t)(6 + n_groups) * H * sizeof(float);
   auto kernel = lstm_bwd_kernel<T>;
   cudaError_t err = cpc::allow_smem(kernel, smem);
@@ -653,12 +654,120 @@ int launch(const float* gates, const float* cs, const void* c0,
   return (int)cudaGetLastError();
 }
 
+// ---- the grid body (csrc/rnn_grid.cuh) --------------------------------------
+
+// A thread's pair of units (k, k + 1) of batch row b: dc in registers.
+template <typename T_>
+struct GridCell {
+  using T = T_;
+  using T2 = typename cpc::rnn::Two<T>::type;
+  static constexpr int G = 4;
+  struct Params {
+    const float* gates;
+    const float* cs;
+    const T* c0;
+    const T* dys;
+    const float* dhT;
+    const float* dcT;
+    float* dgates;
+    float* dh0;
+    float* dc0;
+  };
+  struct State {
+    float2 dc;
+  };
+  struct Res {
+    float2 g[4];     // i, f, g, o
+    float2 cp;       // c_{t-1}
+    T2 dy;
+  };
+  static Params offset(Params p, const cpc::grid::Shape& s, int b0) {
+    const size_t r = (size_t)b0 * s.H, rt = r * s.T;
+    p.gates += 4 * rt;
+    p.cs += rt;
+    p.c0 += r;
+    p.dys += rt;
+    p.dhT += r;
+    p.dcT += r;
+    p.dgates += 4 * rt;
+    p.dh0 += r;
+    p.dc0 += r;
+    return p;
+  }
+  __device__ static State init(const Params& p, const cpc::grid::Shape& s,
+                               int b, int k, bool valid) {
+    return {valid ? *reinterpret_cast<const float2*>(p.dcT +
+                                                     (size_t)b * s.H + k)
+                  : make_float2(0.0f, 0.0f)};
+  }
+  __device__ static Res load_res(const Params& p, const cpc::grid::Shape& s,
+                                 int b, int k, int t, bool valid) {
+    Res r;
+    if (!valid) return r;
+    const int H = s.H;
+    const size_t bt = (size_t)b * s.T + t;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      r.g[q] = *reinterpret_cast<const float2*>(p.gates + bt * 4 * H +
+                                                q * H + k);
+    r.cp = t > 0 ? *reinterpret_cast<const float2*>(p.cs + (bt - 1) * H + k)
+                 : cpc::rnn::load_two(p.c0 + (size_t)b * H + k);
+    r.dy = *reinterpret_cast<const T2*>(p.dys + bt * H + k);
+    return r;
+  }
+  __device__ static void step(const Params& p, const cpc::grid::Shape& s,
+                              State& st, const Res& r, float2 carry,
+                              bool first, int b, int k, int t,
+                              float (&dg)[4][2]) {
+    const int H = s.H;
+    const float2 dy = cpc::rnn::Two<T>::f32(r.dy);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float o4[4];
+      float& dc = e ? st.dc.y : st.dc.x;
+      dc = cell_bwd(e ? r.g[0].y : r.g[0].x, e ? r.g[1].y : r.g[1].x,
+                    e ? r.g[2].y : r.g[2].x, e ? r.g[3].y : r.g[3].x,
+                    e ? r.cp.y : r.cp.x,
+                    (e ? dy.y : dy.x) + (e ? carry.y : carry.x), dc, o4);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) dg[q][e] = o4[q];
+    }
+    const size_t bt = (size_t)b * s.T + t;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      *reinterpret_cast<float2*>(p.dgates + bt * 4 * H + q * H + k) =
+          make_float2(dg[q][0], dg[q][1]);
+  }
+  __device__ static void finish(const Params& p, const cpc::grid::Shape& s,
+                                const State& st, float2 carry, int b,
+                                int k) {
+    const size_t o = (size_t)b * s.H + k;
+    *reinterpret_cast<float2*>(p.dh0 + o) = carry;
+    *reinterpret_cast<float2*>(p.dc0 + o) = st.dc;
+  }
+};
+
+// The body at H for T: 1 the cluster body, 2 the grid body (every H past
+// 256 with no cluster body), 0 the rows body.
+template <typename T>
+int body(int H) {
+  return cluster_body<T>(H) ? 1 : H >= cpc::grid::kMinH ? 2 : 0;
+}
+
 template <typename T>
 int launch_any(const float* gates, const float* cs, const void* c0,
                const void* dys, const void* w_hh, const float* dhT,
                const float* dcT, float* dgates, float* dh0, float* dc0,
-               void* scratch, int B, int n_steps, int H,
+               void* scratch, unsigned* bar, int B, int n_steps, int H,
                cudaStream_t stream) {
+  if (body<T>(H) == 2) {
+    if (bar == nullptr) return (int)cudaErrorInvalidValue;
+    typename GridCell<T>::Params p{
+        gates, cs, static_cast<const T*>(c0), static_cast<const T*>(dys),
+        dhT, dcT, dgates, dh0, dc0};
+    return cpc::grid::run_bwd<GridCell<T>>(p, w_hh, scratch, bar, B, n_steps,
+                                           H, stream);
+  }
   if (!cluster_body<T>(H))
     return launch<T>(gates, cs, c0, dys, w_hh, dhT, dcT, dgates, dh0, dc0, B,
                      n_steps, H, stream);
@@ -688,11 +797,10 @@ int launch_any(const float* gates, const float* cs, const void* c0,
 
 }  // namespace
 
-// 1 where cpc_lstm_bwd runs the cluster body at hidden width H in
-// `dtype`, 0 where it runs the rows body.
+// The body cpc_lstm_bwd runs at hidden width H in `dtype`: 0 rows, 1
+// cluster, 2 grid (ops/lstm.py `bwd_body`).
 extern "C" int cpc_lstm_bwd_body(int H, int dtype) {
-  return dtype == cpc::kBFloat16 ? cluster_body<__nv_bfloat16>(H)
-                                 : cluster_body<float>(H);
+  return dtype == cpc::kBFloat16 ? body<__nv_bfloat16>(H) : body<float>(H);
 }
 
 // The cluster body's shared memory a CTA at H in `dtype` (0: rows body
@@ -702,23 +810,30 @@ extern "C" size_t cpc_lstm_bwd_smem(int H, int dtype) {
                                  : cluster_smem<float>(H);
 }
 
-// Bytes of scratch cpc_lstm_bwd needs at (H, dtype): W_hh's bf16 planes
-// for the float32 cluster body at H 512 and 768, else 0.
-extern "C" size_t cpc_lstm_bwd_scratch(int H, int dtype) {
-  return dtype == cpc::kFloat32 ? stream_scratch<float>(H) : 0;
+// Bytes of scratch cpc_lstm_bwd needs at (B, H, dtype): W_hh's bf16
+// planes for the float32 cluster body at H 512 and 768; the grid body's
+// receive blocks (and its planes in float32); else 0.
+extern "C" size_t cpc_lstm_bwd_scratch(int B, int H, int dtype) {
+  const bool f32 = dtype == cpc::kFloat32;
+  if ((f32 ? body<float>(H) : body<__nv_bfloat16>(H)) == 2)
+    return cpc::grid::scratch_bytes(true, B, H, 4, f32 ? 2 : 1);
+  return f32 ? stream_scratch<float>(H) : 0;
 }
 
 // gates (B, T, 4H), cs (B, T, H), dhT, dcT (B, H) and the outputs dgates
 // (B, T, 4H), dh0, dc0 (B, H) are float32; c0 (B, H), dys (B, T, H) and
 // w_hh (4H, H) are in `dtype`; scratch: cpc_lstm_bwd_scratch bytes
-// (16-byte aligned; null where 0).
+// (16-byte aligned; null where 0); barrier: the grid body's barrier word
+// (csrc/rnn_grid.cuh; null for the other bodies).
 extern "C" int cpc_lstm_bwd(const void* gates, const void* cs, const void* c0,
                             const void* dys, const void* w_hh,
                             const void* dhT, const void* dcT, void* dgates,
-                            void* dh0, void* dc0, void* scratch, int B,
-                            int n_steps, int H, int dtype, void* stream) {
+                            void* dh0, void* dc0, void* scratch,
+                            void* barrier, int B, int n_steps, int H,
+                            int dtype, void* stream) {
   if (H <= 0 || H % 8 != 0 || H > kMaxH)
     return (int)cudaErrorInvalidValue;
+  unsigned* bar = static_cast<unsigned*>(barrier);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(gates);
   const float* c = static_cast<const float*>(cs);
@@ -729,9 +844,9 @@ extern "C" int cpc_lstm_bwd(const void* gates, const void* cs, const void* c0,
   float* c0o = static_cast<float*>(dc0);
   if (dtype == cpc::kBFloat16)
     return launch_any<__nv_bfloat16>(g, c, c0, dys, w_hh, dh, dc, dg, h0,
-                                     c0o, scratch, B, n_steps, H, s);
+                                     c0o, scratch, bar, B, n_steps, H, s);
   if (dtype == cpc::kFloat32)
     return launch_any<float>(g, c, c0, dys, w_hh, dh, dc, dg, h0, c0o,
-                             scratch, B, n_steps, H, s);
+                             scratch, bar, B, n_steps, H, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -10,8 +10,12 @@
 // states (float32, (B, T, H)), as `_lstm_fwd_kernel` does; both pointers
 // may be null (the eval path), which leaves the launch unchanged.
 //
-// Two bodies, picked from the shape before launching (`cluster_body`,
-// mirrored by ops/lstm.py `fwd_body`):
+// Three bodies, picked from the shape before launching (`body`, mirrored
+// by ops/lstm.py `fwd_body`): the cluster body at H 512 and 768, the grid
+// body at every other H past 256 (csrc/rnn_grid.cuh: W_hh split by unit
+// over all of the card's SMs in one cooperative launch, h all-gathered
+// through L2 with a grid barrier a step; `GridCell` is its cell), the rows
+// body at H <= 256.
 //
 // The cluster body, at H = 512 and 768 (csrc/rnn_cluster.cuh):
 // one cluster of C = 16 CTAs serves 16 batch rows (one m16 tile; B = 32
@@ -52,7 +56,7 @@
 // barrier) and 6 of a warp's 16 k-steps streamed (96 KB a CTA a step), at
 // 768 30 of 48 (368 KB).
 //
-// The rows body, everywhere else (any other H up to 4096): batch rows are
+// The rows body, at H <= 256 (the default --hiddenGar): batch rows are
 // independent, so one block owns one batch row for the whole window and keeps h
 // and c in shared memory across all T steps. Each warp takes tiles of 32 gate
 // rows: every lane accumulates its slice of the hidden axis (4 elements per
@@ -71,7 +75,7 @@
 // warps, and the multicast's round trip through L2.
 #include <type_traits>
 
-#include "rnn_cluster.cuh"
+#include "rnn_grid.cuh"
 
 namespace {
 
@@ -592,12 +596,130 @@ int launch_cluster(const void* x_proj, const void* w_hh, const void* h0,
       cs, blocks, B, n_steps);
 }
 
+// ---- the grid body (csrc/rnn_grid.cuh) --------------------------------------
+
+// A thread's pair of units (k, k + 1) of batch row b: c in registers.
+template <typename T_>
+struct GridCell {
+  using T = T_;
+  using T2 = typename rnn::Two<T>::type;
+  static constexpr int G = 4;
+  struct Params {
+    const T* x_proj;
+    const T* h0;
+    const T* c0;
+    T* ys;
+    T* hT;
+    T* cT;
+    float* gates;
+    float* cs;
+  };
+  struct State {
+    float2 c;
+  };
+  struct X {
+    T2 x[4];
+  };
+  static Params offset(Params p, const cpc::grid::Shape& s, int b0) {
+    const size_t r = (size_t)b0 * s.H, rt = r * s.T;
+    p.x_proj += 4 * rt;
+    p.h0 += r;
+    p.c0 += r;
+    p.ys += rt;
+    p.hT += r;
+    p.cT += r;
+    if (p.gates != nullptr) p.gates += 4 * rt;
+    if (p.cs != nullptr) p.cs += rt;
+    return p;
+  }
+  __device__ static State init(const Params& p, const cpc::grid::Shape& s,
+                               int b, int k, bool valid) {
+    return {valid ? rnn::load_two(p.c0 + (size_t)b * s.H + k)
+                  : make_float2(0.0f, 0.0f)};
+  }
+  __device__ static X load_x(const Params& p, const cpc::grid::Shape& s,
+                             int b, int k, int t, bool valid) {
+    X x;
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      x.x[g] = valid ? *reinterpret_cast<const T2*>(
+                           p.x_proj + ((size_t)b * s.T + t) * 4 * s.H +
+                           g * s.H + k)
+                     : rnn::Two<T>::zero();
+    return x;
+  }
+  __device__ static float2 step(const Params& p, const cpc::grid::Shape& s,
+                                State& st, const X& x,
+                                const float (&pre)[4][2], int b, int k,
+                                int t) {
+    const int H = s.H;
+    float act[4][2], hn[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      float v[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float2 xv = rnn::Two<T>::f32(x.x[g]);
+        v[g] = pre[g][u] + (u ? xv.y : xv.x);
+      }
+      act[0][u] = sigmoidf(v[0]);
+      act[1][u] = sigmoidf(v[1]);
+      act[2][u] = tanhf(v[2]);
+      act[3][u] = sigmoidf(v[3]);
+      float& cu = u ? st.c.y : st.c.x;
+      cu = act[1][u] * cu + act[0][u] * act[2][u];
+      hn[u] = act[3][u] * tanhf(cu);
+    }
+    const size_t bt = (size_t)b * s.T + t;
+    if (p.gates != nullptr)
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        *reinterpret_cast<float2*>(p.gates + bt * 4 * H + g * H + k) =
+            make_float2(act[g][0], act[g][1]);
+    if (p.cs != nullptr)
+      *reinterpret_cast<float2*>(p.cs + bt * H + k) = st.c;
+    rnn::store_two(p.ys + bt * H + k, hn[0], hn[1]);
+    if (t == s.T - 1) {
+      rnn::store_two(p.hT + (size_t)b * H + k, hn[0], hn[1]);
+      rnn::store_two(p.cT + (size_t)b * H + k, st.c.x, st.c.y);
+    }
+    return make_float2(hn[0], hn[1]);
+  }
+};
+
+template <typename T>
+int launch_grid(const void* x_proj, const void* w_hh, const void* h0,
+                const void* c0, void* ys, void* hT, void* cT, float* gates,
+                float* cs, void* scratch, unsigned* bar, int B, int n_steps,
+                int H, cudaStream_t stream) {
+  typename GridCell<T>::Params p{
+      static_cast<const T*>(x_proj), static_cast<const T*>(h0),
+      static_cast<const T*>(c0),     static_cast<T*>(ys),
+      static_cast<T*>(hT),           static_cast<T*>(cT),
+      gates,                         cs};
+  return cpc::grid::run_fwd<GridCell<T>>(p, w_hh, scratch, bar, B, n_steps,
+                                         H, stream);
+}
+
+// The body at H in `dtype`: 1 the cluster body, 2 the grid body (every H
+// past 256 with no cluster body), 0 the rows body.
+int body(int H, int dtype) {
+  return cluster_body(H, dtype) ? 1 : H >= cpc::grid::kMinH ? 2 : 0;
+}
+
+int planes_of(int dtype) { return dtype == cpc::kFloat32 ? 2 : 1; }
+
 }  // namespace
 
-// 1 where cpc_lstm_fwd runs the cluster body at hidden width H in
-// `dtype`, 0 where it runs the rows body.
-extern "C" int cpc_lstm_fwd_body(int H, int dtype) {
-  return cluster_body(H, dtype);
+// The body cpc_lstm_fwd runs at hidden width H in `dtype`: 0 rows, 1
+// cluster, 2 grid (ops/lstm.py `fwd_body`).
+extern "C" int cpc_lstm_fwd_body(int H, int dtype) { return body(H, dtype); }
+
+// Shared memory of a CTA of a grid body (K1 and K4: G gates; the forward,
+// or with `backward` the reverse scan) at H in `dtype` on this device's
+// SMs (ops/lstm.py `grid_smem`).
+extern "C" size_t cpc_rnn_grid_smem(int H, int G, int dtype, int backward) {
+  return cpc::grid::smem_bytes(backward != 0, H, G, planes_of(dtype));
 }
 
 // The cluster body's shared memory a CTA at H in `dtype` (0: rows body).
@@ -606,22 +728,42 @@ extern "C" size_t cpc_lstm_fwd_smem(int H, int dtype) {
 }
 
 // Bytes of global scratch cpc_lstm_fwd needs at (B, H, dtype): the
-// cluster body's exchange blocks (and in float32 W_hh's bf16 planes), 0
-// for the rows body.
+// cluster body's exchange blocks, the grid body's exchange buffer (and in
+// float32 W_hh's bf16 planes, for both), 0 for the rows body.
 extern "C" size_t cpc_lstm_fwd_scratch(int B, int H, int dtype) {
-  return cluster_body(H, dtype) ? cluster_scratch(B, H, dtype) : 0;
+  switch (body(H, dtype)) {
+    case 1:
+      return cluster_scratch(B, H, dtype);
+    case 2:
+      return cpc::grid::scratch_bytes(false, B, H, 4, planes_of(dtype));
+    default:
+      return 0;
+  }
 }
 
-// scratch: cpc_lstm_fwd_scratch bytes (16-byte aligned; null where 0).
+// scratch: cpc_lstm_fwd_scratch bytes (16-byte aligned; null where 0);
+// barrier: the grid body's barrier word, zero before its first launch
+// and left so (null for the other bodies).
 extern "C" int cpc_lstm_fwd(const void* x_proj, const void* w_hh,
                             const void* h0, const void* c0, void* ys,
                             void* hT, void* cT, void* gates, void* cs,
-                            void* scratch, int B, int n_steps, int H,
-                            int dtype, void* stream) {
+                            void* scratch, void* barrier, int B, int n_steps,
+                            int H, int dtype, void* stream) {
   if (H <= 0 || H % 8 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* g = static_cast<float*>(gates);
   float* c = static_cast<float*>(cs);
+  if (body(H, dtype) == 2) {
+    unsigned* bar = static_cast<unsigned*>(barrier);
+    if (bar == nullptr) return (int)cudaErrorInvalidValue;
+    if (dtype == cpc::kBFloat16)
+      return launch_grid<__nv_bfloat16>(x_proj, w_hh, h0, c0, ys, hT, cT, g,
+                                        c, scratch, bar, B, n_steps, H, s);
+    if (dtype == cpc::kFloat32)
+      return launch_grid<float>(x_proj, w_hh, h0, c0, ys, hT, cT, g, c,
+                                scratch, bar, B, n_steps, H, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (cluster_body(H, dtype)) {
     auto run = dtype == cpc::kBFloat16
                    ? (H == 512 ? launch_cluster<Fwd512>

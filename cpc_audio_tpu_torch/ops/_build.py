@@ -35,21 +35,23 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _DROP = [_P, _U, _F]          # dropout: seed pointer, threshold, keep scale
 # C entry points: argument types and return type.
 _SIGNATURES = {
-    # x_proj, w_hh, h0, c0, ys, hT, cT, gates, cs, scratch, B, T, H, dtype,
-    # stream
-    "cpc_lstm_fwd": ([_P] * 10 + [_I] * 4 + [_P], _I),
+    # x_proj, w_hh, h0, c0, ys, hT, cT, gates, cs, scratch, barrier, B, T,
+    # H, dtype, stream
+    "cpc_lstm_fwd": ([_P] * 11 + [_I] * 4 + [_P], _I),
     # B, H, dtype
     "cpc_lstm_fwd_scratch": ([_I] * 3, ctypes.c_size_t),
-    # gates, cs, c0, dys, w_hh, dhT, dcT, dgates, dh0, dc0, scratch, B, T,
-    # H, dtype, stream
-    "cpc_lstm_bwd": ([_P] * 11 + [_I] * 4 + [_P], _I),
-    # H, dtype
-    "cpc_lstm_bwd_scratch": ([_I] * 2, ctypes.c_size_t),
+    # gates, cs, c0, dys, w_hh, dhT, dcT, dgates, dh0, dc0, scratch,
+    # barrier, B, T, H, dtype, stream
+    "cpc_lstm_bwd": ([_P] * 12 + [_I] * 4 + [_P], _I),
+    # B, H, dtype
+    "cpc_lstm_bwd_scratch": ([_I] * 3, ctypes.c_size_t),
     # H, dtype
     "cpc_lstm_fwd_body": ([_I, _I], _I),
     "cpc_lstm_fwd_smem": ([_I, _I], ctypes.c_size_t),
     "cpc_lstm_bwd_body": ([_I, _I], _I),
     "cpc_lstm_bwd_smem": ([_I, _I], ctypes.c_size_t),
+    # H, G, dtype, backward
+    "cpc_rnn_grid_smem": ([_I] * 4, ctypes.c_size_t),
     # q, k, v, krel, out, K, n_batch, S, nheads, dk, dropout, dtype, stream
     "cpc_relpos_attention_fwd": ([_P] * 5 + [_I] * 5 + _DROP + [_I, _P], _I),
     # q, k, v, krel, dout, dq, dk, dv, dkrel, part, tiles, K, k_chunk,
@@ -75,12 +77,17 @@ _SIGNATURES = {
     "cpc_layer_tail_bwd_smem": ([_I, _I, _I], ctypes.c_size_t),
     # K, M, D, F, dtype
     "cpc_layer_tail_bwd_scratch": ([_I] * 5, ctypes.c_size_t),
-    # x_proj, w_hh, b_hh, h0, ys, hT, gates, ghn, B, T, H, dtype, stream
-    "cpc_gru_fwd": ([_P] * 8 + [_I] * 4 + [_P], _I),
-    # gates, ghn, h0, ys, dys, w_hh, dhT, dx, dghn, dh0, B, T, H, dtype,
-    # stream
-    "cpc_gru_bwd": ([_P] * 10 + [_I] * 4 + [_P], _I),
+    # x_proj, w_hh, b_hh, h0, ys, hT, gates, ghn, scratch, barrier, B, T,
+    # H, dtype, stream
+    "cpc_gru_fwd": ([_P] * 10 + [_I] * 4 + [_P], _I),
+    # gates, ghn, h0, ys, dys, w_hh, dhT, dx, dghn, dh0, scratch, barrier,
+    # B, T, H, dtype, stream
+    "cpc_gru_bwd": ([_P] * 12 + [_I] * 4 + [_P], _I),
+    # B, H, dtype
+    "cpc_gru_fwd_scratch": ([_I] * 3, ctypes.c_size_t),
+    "cpc_gru_bwd_scratch": ([_I] * 3, ctypes.c_size_t),
     # H, dtype
+    "cpc_gru_fwd_body": ([_I, _I], _I),
     "cpc_gru_bwd_body": ([_I, _I], _I),
     # q, k, v, bias, out, scratch, N, S, dk, layer, dropout, dtype, stream
     "cpc_causal_attention_fwd": ([_P] * 6 + [_I] * 4 + _DROP + [_I, _P], _I),
@@ -260,3 +267,26 @@ def stream(device: torch.device) -> int:
 def ptr(t):
     """Device pointer of ``t``, or None (NULL) for no tensor."""
     return None if t is None else t.data_ptr()
+
+
+def scratch(nbytes: int, device: torch.device):
+    """A kernel's global scratch of ``nbytes`` (uninitialised; the kernel
+    writes before it reads), or None where it needs none."""
+    return torch.empty(nbytes, dtype=torch.uint8, device=device) \
+        if nbytes else None
+
+
+_BARRIERS = {}
+
+
+def grid_barrier(device: torch.device) -> torch.Tensor:
+    """The barrier word of the K1 / K4 grid bodies on ``device``'s current
+    stream (csrc/rnn_grid.cuh ``grid_sync``): zeroed once, when first
+    asked for, and left ready by every launch, so that no call needs a
+    memset (a CUDA graph can capture the launch).  One word a stream: the
+    launches on a stream run one after another."""
+    key = (device.index, stream(device))
+    with _LOCK:
+        if key not in _BARRIERS:
+            _BARRIERS[key] = torch.zeros(4, dtype=torch.int32, device=device)
+        return _BARRIERS[key]

@@ -13,12 +13,18 @@ the input dtype.
 
 * :func:`gru_fwd` runs the recurrence (csrc/gru_fwd.cu) and, for
   training, saves the gates r, z, n (B, T, 3H) and ``ghn = h . W_hn^T +
-  b_hn`` (B, T, H), both float32;
+  b_hn`` (B, T, H), both float32.  Past H 256 it runs K1's grid body
+  (csrc/rnn_grid.cuh: W_hh split by unit over all of the card's SMs, ghn
+  kept apart from r's product), below one block a batch row
+  (:func:`fwd_body`);
 * :func:`gru_bwd` is the reverse scan (csrc/gru_bwd.cu) giving float32
-  dx_proj = (dr, dz, dn), dghn and dh0, with K1's two bodies (a
-  thread-block cluster at H = 128 and 256, :func:`bwd_body`).  The gradient of ``h . W_hh^T +
-  b_hh`` is dgh = (dr, dz, dghn): its first two thirds are dx_proj's, so
-  only dghn is written;
+  dx_proj = (dr, dz, dn), dghn and dh0, with K1's bodies (a thread-block
+  cluster at H = 128 and 256, the grid body past 256,
+  :func:`bwd_body`).  The gradient of ``h . W_hh^T + b_hh`` is dgh =
+  (dr, dz, dghn): its first two thirds are dx_proj's, so only dghn is
+  written.  In float32 the grid bodies multiply on W_hh's two bf16
+  planes with 3 split products (:func:`gru_scan_split`,
+  :func:`gru_bwd_split`);
 * :func:`gru` is the differentiable entry point: a
   ``torch.autograd.Function`` over the two, with dW_hh = dgh^T h_prev and
   db_hh = sum dgh formed from dx_proj and dghn, as rnn.py:383-385.  It
@@ -39,7 +45,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .lstm import MAX_H, cluster_smem, pad_gates, pad_weight
+from .lstm import (GRID_MIN_H, MAX_H, _split_matmul, cluster_smem, pad_gates,
+                   pad_weight)
 
 _NAME = "gru_fwd"
 _BWD_NAME = "gru_bwd"
@@ -61,30 +68,38 @@ def supported(H: int) -> Optional[str]:
     return None
 
 
+def fwd_body(H: int, dtype: torch.dtype) -> str:
+    """The body csrc/gru_fwd.cu runs at hidden width H: "grid" past 256,
+    else "rows" (``cpc_gru_fwd_body``: 2, 0), from the shape alone."""
+    return "grid" if H >= GRID_MIN_H else "rows"
+
+
 def bwd_body(H: int, dtype: torch.dtype) -> str:
-    """The body csrc/gru_bwd.cu runs at hidden width H: "cluster" or
-    "rows" (``cpc_gru_bwd_body``), from the shape alone."""
-    if H not in CLUSTER:
-        return "rows"
-    el = torch.empty((), dtype=dtype).element_size()
-    smem = cluster_smem(H, 3, dtype, 4 * 8 + 4 * el, CLUSTER[H])
-    return "cluster" if smem <= _build.SMEM_LIMIT else "rows"
+    """The body csrc/gru_bwd.cu runs at hidden width H: "cluster", "grid"
+    or "rows" (``cpc_gru_bwd_body``: 1, 2, 0), from the shape alone."""
+    if H in CLUSTER:
+        el = torch.empty((), dtype=dtype).element_size()
+        if cluster_smem(H, 3, dtype, 4 * 8 + 4 * el,
+                        CLUSTER[H]) <= _build.SMEM_LIMIT:
+            return "cluster"
+    return "grid" if H >= GRID_MIN_H else "rows"
 
 
-def gru_scan_ref(x_proj: torch.Tensor, w_hh: torch.Tensor,
-                 b_hh: torch.Tensor, h0: torch.Tensor,
-                 save_residuals: bool = False):
-    """Plain time loop (``_gru_fwd_kernel``, rnn.py:238-262) with the
-    kernel's float32 state.  Returns (ys (B,T,H), hT (B,H)), and with
-    ``save_residuals`` also the float32 gates (B,T,3H) and ghn (B,T,H)."""
+def _acc(t: torch.Tensor) -> torch.dtype:
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _scan(x_proj, w_hh, b_hh, h0, save_residuals: bool, matmul):
+    """The forward time loop, h_{t-1} . W_hh^T as ``matmul``."""
     H = h0.shape[-1]
-    xp = x_proj.float()
-    w_t = w_hh.float().t()
-    b = b_hh.float()
-    h = h0.float()
+    acc = _acc(x_proj)
+    xp = x_proj.to(acc)
+    w_t = w_hh.to(acc).t()
+    b = b_hh.to(acc)
+    h = h0.to(acc)
     ys, gates, ghns = [], [], []
     for t in range(x_proj.shape[1]):
-        gh = h @ w_t + b
+        gh = matmul(h, w_t) + b
         xr, xz, xn = xp[:, t].split(H, dim=-1)
         hr, hz, ghn = gh.split(H, dim=-1)
         r = torch.sigmoid(xr + hr)
@@ -101,9 +116,53 @@ def gru_scan_ref(x_proj: torch.Tensor, w_hh: torch.Tensor,
     return out
 
 
+def gru_scan_ref(x_proj: torch.Tensor, w_hh: torch.Tensor,
+                 b_hh: torch.Tensor, h0: torch.Tensor,
+                 save_residuals: bool = False):
+    """Plain time loop (``_gru_fwd_kernel``, rnn.py:238-262) with the
+    kernel's float32 state.  Returns (ys (B,T,H), hT (B,H)), and with
+    ``save_residuals`` also the float32 gates (B,T,3H) and ghn (B,T,H).
+    Float64 inputs are taken in float64 throughout: the exact version the
+    float32 kernel is measured against."""
+    return _scan(x_proj, w_hh, b_hh, h0, save_residuals, torch.matmul)
+
+
+def gru_scan_split(x_proj: torch.Tensor, w_hh: torch.Tensor,
+                   b_hh: torch.Tensor, h0: torch.Tensor,
+                   save_residuals: bool = False):
+    """The float32 grid body's forward arithmetic written plainly
+    (csrc/rnn_grid.cuh): :func:`gru_scan_ref` with h_{t-1} . W_hh^T as 3
+    split products (``lstm._split_matmul``).  Float32 inputs; the same
+    outputs.  For tests and measurements only: the card runs the
+    kernel."""
+    return _scan(x_proj, w_hh, b_hh, h0, save_residuals, _split_matmul)
+
+
 def _h_prev(h0: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
     """(B, T, H): h0 followed by ys[:, :-1], in the compute dtype."""
     return torch.cat([h0[:, None].to(ys.dtype), ys[:, :-1]], dim=1)
+
+
+def _reverse_scan(gates, ghn, h0, ys, dys, w_hh, dhT, matmul):
+    """The reverse time loop, dgh . W_hh as ``matmul``."""
+    H = h0.shape[-1]
+    acc = _acc(gates)
+    w = w_hh.to(acc)
+    h_prev = _h_prev(h0, ys).to(acc)
+    dh = dhT.to(acc)
+    dxs, dghns = [], []
+    for t in range(gates.shape[1] - 1, -1, -1):
+        r, z, n = gates[:, t].split(H, dim=-1)
+        dh = dys[:, t].to(acc) + dh
+        dz = dh * (h_prev[:, t] - n) * z * (1.0 - z)
+        dn = dh * (1.0 - z) * (1.0 - n * n)
+        dghn = dn * r
+        dr = dn * ghn[:, t] * r * (1.0 - r)
+        dxs.append(torch.cat([dr, dz, dn], dim=-1))
+        dghns.append(dghn)
+        dh = dh * z + matmul(torch.cat([dr, dz, dghn], dim=-1), w)
+    return (torch.stack(dxs[::-1], dim=1), torch.stack(dghns[::-1], dim=1),
+            dh)
 
 
 def gru_bwd_ref(gates: torch.Tensor, ghn: torch.Tensor, h0: torch.Tensor,
@@ -112,24 +171,20 @@ def gru_bwd_ref(gates: torch.Tensor, ghn: torch.Tensor, h0: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain reverse scan, line by line ``_gru_bwd_kernel`` (rnn.py
     :265-296), keeping dghn where the Pallas kernel keeps dgh.  Returns
-    float32 (dx_proj (B,T,3H), dghn (B,T,H), dh0 (B,H))."""
-    H = h0.shape[-1]
-    w = w_hh.float()
-    h_prev = _h_prev(h0, ys).float()
-    dh = dhT.float()
-    dxs, dghns = [], []
-    for t in range(gates.shape[1] - 1, -1, -1):
-        r, z, n = gates[:, t].split(H, dim=-1)
-        dh = dys[:, t].float() + dh
-        dz = dh * (h_prev[:, t] - n) * z * (1.0 - z)
-        dn = dh * (1.0 - z) * (1.0 - n * n)
-        dghn = dn * r
-        dr = dn * ghn[:, t] * r * (1.0 - r)
-        dxs.append(torch.cat([dr, dz, dn], dim=-1))
-        dghns.append(dghn)
-        dh = dh * z + torch.cat([dr, dz, dghn], dim=-1) @ w
-    return (torch.stack(dxs[::-1], dim=1), torch.stack(dghns[::-1], dim=1),
-            dh)
+    float32 (dx_proj (B,T,3H), dghn (B,T,H), dh0 (B,H)), float64 for
+    float64 inputs."""
+    return _reverse_scan(gates, ghn, h0, ys, dys, w_hh, dhT, torch.matmul)
+
+
+def gru_bwd_split(gates: torch.Tensor, ghn: torch.Tensor, h0: torch.Tensor,
+                  ys: torch.Tensor, dys: torch.Tensor, w_hh: torch.Tensor,
+                  dhT: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The float32 grid body's backward arithmetic written plainly
+    (csrc/rnn_grid.cuh): :func:`gru_bwd_ref` with dgh . W_hh as 3 split
+    products (``lstm._split_matmul``).  Float32 inputs; the same outputs.
+    For tests and measurements only."""
+    return _reverse_scan(gates, ghn, h0, ys, dys, w_hh, dhT, _split_matmul)
 
 
 def _check_hidden(name: str, B: int, T: int, H: int) -> None:
@@ -144,8 +199,9 @@ def gru_fwd(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     """x_proj (B, T, 3H), w_hh (3H, H), b_hh (3H,), h0 (B, H), one dtype.
 
     CPU tensors run :func:`gru_scan_ref`; CUDA tensors launch the kernel
-    (csrc/gru_fwd.cu) and add one to ``gru_fwd.launches``.  Returns what
-    :func:`gru_scan_ref` returns."""
+    (csrc/gru_fwd.cu) and add one to ``gru_fwd.launches`` and to
+    ``gru_fwd.body_launches`` of the body it runs (:func:`fwd_body`).
+    Returns what :func:`gru_scan_ref` returns."""
     if not _build.runs_kernel(_NAME, x_proj, w_hh, b_hh, h0):
         return gru_scan_ref(x_proj, w_hh, b_hh, h0, save_residuals)
     B, T, G = x_proj.shape
@@ -168,18 +224,25 @@ def gru_fwd(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
         gates = torch.empty((B, T, G), dtype=torch.float32, device=dev)
         ghn = torch.empty((B, T, H), dtype=torch.float32, device=dev)
     lib = _build.library()
+    code = _build.DTYPE_CODES[x_proj.dtype]
+    body = fwd_body(H, x_proj.dtype)
     with torch.cuda.device(dev):
+        # the grid body's exchange buffer (and in float32 W_hh's planes)
+        scratch = _build.scratch(lib.cpc_gru_fwd_scratch(B, H, code), dev)
+        barrier = _build.grid_barrier(dev) if body == "grid" else None
         status = lib.cpc_gru_fwd(
             x_proj.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
             h0.data_ptr(), ys.data_ptr(), hT.data_ptr(), _build.ptr(gates),
-            _build.ptr(ghn), B, T, H, _build.DTYPE_CODES[x_proj.dtype],
-            _build.stream(dev))
+            _build.ptr(ghn), _build.ptr(scratch), _build.ptr(barrier), B, T,
+            H, code, _build.stream(dev))
     _build.check(status, _NAME)
     gru_fwd.launches += 1
+    gru_fwd.body_launches[body] += 1
     return (ys, hT) + ((gates, ghn) if save_residuals else ())
 
 
 gru_fwd.launches = 0
+gru_fwd.body_launches = {"grid": 0, "rows": 0}
 
 
 def gru_bwd(gates: torch.Tensor, ghn: torch.Tensor, h0: torch.Tensor,
@@ -217,20 +280,25 @@ def gru_bwd(gates: torch.Tensor, ghn: torch.Tensor, h0: torch.Tensor,
     dghn = torch.empty_like(ghn)
     dh0 = torch.empty_like(dhT)
     lib = _build.library()
+    code = _build.DTYPE_CODES[dys.dtype]
+    body = bwd_body(H, dys.dtype)
     with torch.cuda.device(dev):
+        # the grid body's receive blocks (and in float32 W_hh's planes)
+        scratch = _build.scratch(lib.cpc_gru_bwd_scratch(B, H, code), dev)
+        barrier = _build.grid_barrier(dev) if body == "grid" else None
         status = lib.cpc_gru_bwd(
             gates.data_ptr(), ghn.data_ptr(), h0.data_ptr(), ys.data_ptr(),
             dys.data_ptr(), w_hh.data_ptr(), dhT.data_ptr(), dx.data_ptr(),
-            dghn.data_ptr(), dh0.data_ptr(), B, T, H,
-            _build.DTYPE_CODES[dys.dtype], _build.stream(dev))
+            dghn.data_ptr(), dh0.data_ptr(), _build.ptr(scratch),
+            _build.ptr(barrier), B, T, H, code, _build.stream(dev))
     _build.check(status, _BWD_NAME)
     gru_bwd.launches += 1
-    gru_bwd.body_launches[bwd_body(H, dys.dtype)] += 1
+    gru_bwd.body_launches[body] += 1
     return dx, dghn, dh0
 
 
 gru_bwd.launches = 0
-gru_bwd.body_launches = {"cluster": 0, "rows": 0}
+gru_bwd.body_launches = {"cluster": 0, "grid": 0, "rows": 0}
 
 
 class _GRU(torch.autograd.Function):

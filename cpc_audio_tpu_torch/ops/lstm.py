@@ -10,21 +10,26 @@ float32 whatever the input dtype; outputs are rounded to the input dtype.
 
 * :func:`lstm_fwd` runs the recurrence (csrc/lstm_fwd.cu) and, for
   training, saves the gate activations and cell states (float32).  The
-  kernel has two bodies, picked from H and the dtype before it launches:
-  at H = 512 and 768 a thread-block cluster of 16 CTAs keeps W_hh on
-  chip, split by unit, and all-gathers h each step (where a CTA's slice
-  does not fit, at 768 in bf16 and at both in float32, part of it is
-  streamed from L2 every step; float32 W_hh travels as two bf16 planes,
-  :func:`lstm_scan_split`); elsewhere one block a batch row reads W_hh
-  from L2 every step; :func:`fwd_body` mirrors that choice without a
-  card;
+  kernel has three bodies, picked from H and the dtype before it
+  launches: at H = 512 and 768 a thread-block cluster of 16 CTAs keeps
+  W_hh on chip, split by unit, and all-gathers h each step (where a
+  CTA's slice does not fit, at 768 in bf16 and at both in float32, part
+  of it is streamed from L2 every step; float32 W_hh travels as two bf16
+  planes, :func:`lstm_scan_split`); at every other H past 256 the grid
+  body splits W_hh by unit over all of the card's SMs in one cooperative
+  launch (csrc/rnn_grid.cuh; in shared memory where a slice fits, else
+  streamed every step) and all-gathers h through L2 with a grid barrier
+  a step; at H <= 256 one block a batch row reads W_hh from L2 every
+  step; :func:`fwd_body` mirrors that choice without a card;
 * :func:`lstm_bwd` is the reverse scan (csrc/lstm_bwd.cu) giving float32
-  dgates, dh0 and dc0.  The kernel has two bodies, picked the same way:
-  at H = 128 and 256 a thread-block cluster of 8 CTAs keeps W_hh on chip
-  (csrc/rnn_cluster.cuh), at H = 512 and 768 one of 16 (with the
+  dgates, dh0 and dc0.  The kernel has three bodies, picked the same
+  way: at H = 128 and 256 a thread-block cluster of 8 CTAs keeps W_hh on
+  chip (csrc/rnn_cluster.cuh), at H = 512 and 768 one of 16 (with the
   streamed remainder at 768 in bf16 and at both in float32, on W_hh's
-  bf16 planes: :func:`lstm_bwd_split`); elsewhere one block a batch row
-  reads it from L2 every step; :func:`bwd_body` mirrors that choice;
+  bf16 planes: :func:`lstm_bwd_split`); at every other H past 256 the
+  grid body, which reduce-scatters each step's partial carries through
+  L2; below, one block a batch row; :func:`bwd_body` mirrors that
+  choice;
 * :func:`lstm` is the differentiable entry point: a
   ``torch.autograd.Function`` over the two, with dW_hh = h_prev^T dgates
   as one matmul, as rnn.py:223-226.  It takes any H up to 4096: where the
@@ -50,9 +55,9 @@ _NAME = "lstm_fwd"
 _BWD_NAME = "lstm_bwd"
 MULTIPLE = 8          # the kernels' H: 4H whole 32-row tiles
 # the widest H the kernels are checked at on the card (tests/test_torch_cuda.py,
-# chip_smoke.py: --hiddenGar 4096).  Their memory would take 8192: the
-# backward's rows body keeps (4 + 2 + 1) H float32 in shared memory (one
-# group of 1024 threads past H 2048, each walking H / 2048 unit pairs)
+# chip_smoke.py: --hiddenGar 4096).  Past 256 the grid bodies take every H
+# whose units split into at most 64 a CTA over the card's SMs (4096 on an
+# H100's 132: 32 units on 128 CTAs)
 MAX_H = 4096
 # the backward's cluster body: CTAs a cluster by H (J = H / C units a CTA)
 CLUSTER = {128: 8, 256: 8, 512: 16, 768: 16}
@@ -162,17 +167,110 @@ def bwd_smem(H: int, dtype: torch.dtype) -> int:
 
 
 def fwd_body(H: int, dtype: torch.dtype) -> str:
-    """The body csrc/lstm_fwd.cu runs at hidden width H: "cluster" or
-    "rows" (``cpc_lstm_fwd_body``), from the shape alone."""
+    """The body csrc/lstm_fwd.cu runs at hidden width H: "cluster", "grid"
+    or "rows" (``cpc_lstm_fwd_body``: 1, 2, 0), from the shape alone."""
     smem = fwd_smem(H, dtype)
-    return "cluster" if 0 < smem <= _build.SMEM_LIMIT else "rows"
+    if 0 < smem <= _build.SMEM_LIMIT:
+        return "cluster"
+    return "grid" if H >= GRID_MIN_H else "rows"
 
 
 def bwd_body(H: int, dtype: torch.dtype) -> str:
-    """The body csrc/lstm_bwd.cu runs at hidden width H: "cluster" or
-    "rows" (``cpc_lstm_bwd_body``), from the shape alone."""
+    """The body csrc/lstm_bwd.cu runs at hidden width H: "cluster", "grid"
+    or "rows" (``cpc_lstm_bwd_body``: 1, 2, 0), from the shape alone."""
     smem = bwd_smem(H, dtype)
-    return "cluster" if 0 < smem <= _build.SMEM_LIMIT else "rows"
+    if 0 < smem <= _build.SMEM_LIMIT:
+        return "cluster"
+    return "grid" if H >= GRID_MIN_H else "rows"
+
+
+BODY_CODES = {"rows": 0, "cluster": 1, "grid": 2}
+
+# The grid bodies (csrc/rnn_grid.cuh, K1's and K4's): from H 257, 16 warps
+# a CTA, a thread a unit pair of one batch row, so at most 32 rows a
+# launch (larger batches in launches of that many; fewer past 32 units a
+# CTA, up to 64), 128 KB of a CTA's shared memory for W_hh's streamed
+# stages where its slice does not stay
+GRID_MIN_H = 257
+GRID_WARPS = 16
+GRID_MAX_B = 32
+GRID_MAX_J = 64
+GRID_RING = 128 * 1024
+
+
+def grid_rows(J: int) -> int:
+    """Batch rows a launch of a grid body takes at J units a CTA
+    (``cpc::grid::rows_per_launch``)."""
+    return min(GRID_MAX_B, GRID_WARPS * 32 // (J // 2) // 8 * 8)
+
+
+def grid_shape(H: int, G: int, sms: int, B: int = GRID_MAX_B) -> dict:
+    """How a grid body splits one launch at hidden width H with G gates
+    over ``sms`` SMs (``cpc::grid::make_shape``): J units a CTA (even;
+    the last CTA ragged) on ``ncta`` CTAs, KS 16-column groups of H, MT
+    m16 tiles of a CTA's G J gate rows, the forward's MTW m-tiles a warp
+    over MW warp groups and KW k-parts (MW KW <= 16 warps take part),
+    ``rows`` batch rows a launch, NT
+    n8 tiles of the widest launch of batch B, and whether it fits (J <=
+    64 on ncta <= sms CTAs)."""
+    J = -(-H // sms)
+    J += J & 1
+    MT = -(-G * J // 16)
+    MTW = 2 if MT >= 2 else 1
+    MW = -(-MT // MTW)
+    ncta = -(-H // J)
+    rows = grid_rows(J)
+    return dict(J=J, ncta=ncta, KS=-(-H // 16), MT=MT, MTW=MTW, MW=MW,
+                KW=GRID_WARPS // MW, rows=rows, NT=-(-min(B, rows) // 8),
+                ok=J <= GRID_MAX_J and ncta <= sms)
+
+
+def grid_smem(H: int, G: int, dtype: torch.dtype, sms: int,
+              backward: bool) -> int:
+    """Shared memory of a CTA of a grid body (``cpc_rnn_grid_smem``).
+    Forward: W_hh's chunks (PL planes by the warp's MTW m-tiles by 16
+    columns, bf16), MW x KS of them where they fit beside the KW k-parts'
+    sums (32 rows by 16 MT + 4 float32 each), else 128 KB of streamed
+    stages.  Backward: the KS chunks of PL planes by 16 MT rows by 16
+    columns where they fit beside the dgates tile (bf16 hi and lo, 32 rows
+    by 16 MT + 8), a float2 for each of the 512 threads and the carry (32
+    rows by 64 units float32), else each warp's ring of 4, 2 or 1
+    stages."""
+    s = grid_shape(H, G, sms)
+    PL = _planes(dtype)
+    if not backward:
+        part = s["KW"] * GRID_MAX_B * (16 * s["MT"] + 4) * 4
+        res = s["MW"] * s["KS"] * PL * s["MTW"] * 256 * 2
+        return (res if res + part <= _build.SMEM_LIMIT else GRID_RING) + part
+    chunk = PL * s["MT"] * 256 * 2
+    extra = (2 * GRID_MAX_B * (16 * s["MT"] + 8) * 2 + GRID_WARPS * 32 * 8
+             + GRID_MAX_B * GRID_MAX_J * 4)
+    res = s["KS"] * chunk
+    if res + extra <= _build.SMEM_LIMIT:
+        return res + extra
+    stages = 4 if PL * s["MT"] <= 4 else 2 if PL * s["MT"] <= 8 else 1
+    return GRID_WARPS * stages * chunk + extra
+
+
+def grid_scratch(B: int, H: int, G: int, dtype: torch.dtype, sms: int,
+                 backward: bool) -> int:
+    """Global scratch of a grid body at batch B (``cpc_lstm_fwd_scratch``
+    and the others): W_hh packed once a call into each CTA's chunks, in
+    the order and layout its shared memory takes them (PL bf16 planes:
+    the forward's MW x KS chunks of MTW m-tiles by 16 columns, the
+    backward's KS of all MT m-tiles by 16 columns), then the forward's
+    exchange (two parities of h's bf16 hi and lo in mma fragment order,
+    NT x KS x 32 lanes x 16 bytes) or the backward's partial carries (two
+    parities of every CTA's KS x NT (16-column, 8-row) tiles in mma
+    accumulator order, 32 lanes x 16 bytes each), sized for the widest
+    launch (:func:`grid_rows`)."""
+    s = grid_shape(H, G, sms, B)
+    PL = _planes(dtype)
+    if not backward:
+        packed = s["ncta"] * s["MW"] * s["KS"] * PL * s["MTW"] * 256 * 2
+        return packed + 2 * s["NT"] * s["KS"] * 32 * 16
+    packed = s["ncta"] * s["KS"] * PL * s["MT"] * 256 * 2
+    return packed + 2 * s["ncta"] * s["KS"] * s["NT"] * 32 * 16
 
 
 def pad_gates(t: torch.Tensor, n_gates: int, H: int, Hp: int) -> torch.Tensor:
@@ -327,25 +425,25 @@ def lstm_fwd(x_proj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
         cs = torch.empty((B, T, H), dtype=torch.float32, device=dev)
     lib = _build.library()
     code = _build.DTYPE_CODES[x_proj.dtype]
-    # the cluster body's exchange blocks, and in float32 W_hh's bf16
-    # planes (csrc/lstm_fwd.cu)
-    n_scratch = lib.cpc_lstm_fwd_scratch(B, H, code)
-    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev) \
-        if n_scratch else None
+    body = fwd_body(H, x_proj.dtype)
     with torch.cuda.device(dev):
+        # the cluster or grid body's exchange blocks, and in float32 W_hh's
+        # bf16 planes (csrc/lstm_fwd.cu, csrc/rnn_grid.cuh)
+        scratch = _build.scratch(lib.cpc_lstm_fwd_scratch(B, H, code), dev)
+        barrier = _build.grid_barrier(dev) if body == "grid" else None
         status = lib.cpc_lstm_fwd(
             x_proj.data_ptr(), w_hh.data_ptr(), h0.data_ptr(), c0.data_ptr(),
             ys.data_ptr(), hT.data_ptr(), cT.data_ptr(),
-            _build.ptr(gates), _build.ptr(cs), _build.ptr(scratch), B, T, H,
-            code, _build.stream(dev))
+            _build.ptr(gates), _build.ptr(cs), _build.ptr(scratch),
+            _build.ptr(barrier), B, T, H, code, _build.stream(dev))
     _build.check(status, _NAME)
     lstm_fwd.launches += 1
-    lstm_fwd.body_launches[fwd_body(H, x_proj.dtype)] += 1
+    lstm_fwd.body_launches[body] += 1
     return (ys, hT, cT) + ((gates, cs) if save_residuals else ())
 
 
 lstm_fwd.launches = 0
-lstm_fwd.body_launches = {"cluster": 0, "rows": 0}
+lstm_fwd.body_launches = {"cluster": 0, "grid": 0, "rows": 0}
 
 
 def lstm_bwd(gates: torch.Tensor, cs: torch.Tensor, c0: torch.Tensor,
@@ -381,24 +479,26 @@ def lstm_bwd(gates: torch.Tensor, cs: torch.Tensor, c0: torch.Tensor,
     dc0 = torch.empty_like(dcT)
     lib = _build.library()
     code = _build.DTYPE_CODES[dys.dtype]
-    # the float32 cluster body's bf16 planes of W_hh (csrc/lstm_bwd.cu)
-    n_scratch = lib.cpc_lstm_bwd_scratch(H, code)
-    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev) \
-        if n_scratch else None
+    body = bwd_body(H, dys.dtype)
     with torch.cuda.device(dev):
+        # the float32 cluster body's bf16 planes of W_hh; the grid body's
+        # receive blocks (and planes) (csrc/lstm_bwd.cu, csrc/rnn_grid.cuh)
+        scratch = _build.scratch(lib.cpc_lstm_bwd_scratch(B, H, code), dev)
+        barrier = _build.grid_barrier(dev) if body == "grid" else None
         status = lib.cpc_lstm_bwd(
             gates.data_ptr(), cs.data_ptr(), c0.data_ptr(), dys.data_ptr(),
             w_hh.data_ptr(), dhT.data_ptr(), dcT.data_ptr(),
             dgates.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-            _build.ptr(scratch), B, T, H, code, _build.stream(dev))
+            _build.ptr(scratch), _build.ptr(barrier), B, T, H, code,
+            _build.stream(dev))
     _build.check(status, _BWD_NAME)
     lstm_bwd.launches += 1
-    lstm_bwd.body_launches[bwd_body(H, dys.dtype)] += 1
+    lstm_bwd.body_launches[body] += 1
     return dgates, dh0, dc0
 
 
 lstm_bwd.launches = 0
-lstm_bwd.body_launches = {"cluster": 0, "rows": 0}
+lstm_bwd.body_launches = {"cluster": 0, "grid": 0, "rows": 0}
 
 
 def _zeros_or(t: Optional[torch.Tensor], like: torch.Tensor) -> torch.Tensor:

@@ -148,16 +148,17 @@ def main() -> None:
               flush=True)
         for name, (so, _) in libs.items():
             lib = ctypes.CDLL(so)
-            lib.cpc_lstm_fwd.argtypes = [P] * 10 + [I] * 4 + [P]
-            lib.cpc_lstm_bwd.argtypes = [P] * 11 + [I] * 4 + [P]
+            lib.cpc_lstm_fwd.argtypes = [P] * 11 + [I] * 4 + [P]
+            lib.cpc_lstm_bwd.argtypes = [P] * 12 + [I] * 4 + [P]
             lib.cpc_lstm_fwd_scratch.restype = ctypes.c_size_t
             lib.cpc_lstm_bwd_scratch.restype = ctypes.c_size_t
             fs = torch.empty(lib.cpc_lstm_fwd_scratch(B, H, 0),
                              dtype=torch.uint8, device=dev)
-            bs = torch.empty(lib.cpc_lstm_bwd_scratch(H, 0),
+            bs = torch.empty(lib.cpc_lstm_bwd_scratch(B, H, 0),
                              dtype=torch.uint8, device=dev)
-            fptr = [t.data_ptr() for t in list(fa) + outs + [fs]]
-            bptr = [t.data_ptr() for t in list(ba) + bouts + [bs]]
+            # the 16-CTA bodies: no grid barrier
+            fptr = [t.data_ptr() for t in list(fa) + outs + [fs]] + [None]
+            bptr = [t.data_ptr() for t in list(ba) + bouts + [bs]] + [None]
 
             def fwd():
                 return lib.cpc_lstm_fwd(*fptr, B, T, H, 0, st)

@@ -115,23 +115,24 @@ def test_gru_wrapper_runs_ref_on_cpu():
 # (forward, backward) body of K1 and K4's backward body by (H, dtype): the
 # 16-CTA cluster bodies at H 512 and 768 in both dtypes (with part of W_hh
 # streamed from L2 at 768, and in float32, whose W_hh travels as two bf16
-# planes, at 512 too), the 8-CTA backward at H 128 and 256
+# planes, at 512 too), the 8-CTA backward at H 128 and 256, the grid body
+# (W_hh split over every SM) at every other H past 256
 _BF, _F32 = torch.bfloat16, torch.float32
 _BODIES = {
     (128, _BF): ("rows", "cluster", "cluster"),
     (128, _F32): ("rows", "cluster", "cluster"),
     (256, _BF): ("rows", "cluster", "cluster"),
     (256, _F32): ("rows", "cluster", "cluster"),
-    (384, _BF): ("rows", "rows", "rows"),
-    (384, _F32): ("rows", "rows", "rows"),
-    (512, _BF): ("cluster", "cluster", "rows"),
-    (512, _F32): ("cluster", "cluster", "rows"),
-    (768, _BF): ("cluster", "cluster", "rows"),
-    (768, _F32): ("cluster", "cluster", "rows"),
-    (1024, _BF): ("rows", "rows", "rows"),
-    (1024, _F32): ("rows", "rows", "rows"),
-    (2048, _BF): ("rows", "rows", "rows"),
-    (2048, _F32): ("rows", "rows", "rows"),
+    (384, _BF): ("grid", "grid", "grid"),
+    (384, _F32): ("grid", "grid", "grid"),
+    (512, _BF): ("cluster", "cluster", "grid"),
+    (512, _F32): ("cluster", "cluster", "grid"),
+    (768, _BF): ("cluster", "cluster", "grid"),
+    (768, _F32): ("cluster", "cluster", "grid"),
+    (1024, _BF): ("grid", "grid", "grid"),
+    (1024, _F32): ("grid", "grid", "grid"),
+    (2048, _BF): ("grid", "grid", "grid"),
+    (2048, _F32): ("grid", "grid", "grid"),
 }
 
 
@@ -139,7 +140,8 @@ _BODIES = {
 def test_recurrent_bodies_by_width_and_dtype(H, dtype):
     """K1's forward and backward and K4's backward pick their body from
     (H, dtype) alone, before any launch (no card needed), and every
-    cluster layout fits a CTA's shared memory; the rows body has none."""
+    cluster layout fits a CTA's shared memory; the rows and grid bodies
+    have none of the cluster's."""
     want = _BODIES[(H, dtype)]
     assert (lstm.fwd_body(H, dtype), lstm.bwd_body(H, dtype),
             gru.bwd_body(H, dtype)) == want

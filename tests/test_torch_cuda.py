@@ -549,17 +549,41 @@ def test_python_gates_mirror_the_kernels_shared_memory(dev):
         for dt in DTYPES:
             assert lib.cpc_layer_tail_bwd_smem(
                 D, F, _build.DTYPE_CODES[dt]) == ffn._bwd_smem(D, F, dt)
-    for H in (32, 64, 104, 128, 192, 256, 384, 512, 768, 1024, 2048, 4096):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    codes = lstm.BODY_CODES
+    for H in (32, 64, 104, 128, 192, 256, 264, 384, 512, 768, 1024, 1056,
+              2048, 4096):
         for dt in DTYPES:
             code = _build.DTYPE_CODES[dt]
-            assert lib.cpc_lstm_bwd_body(H, code) == (
-                lstm.bwd_body(H, dt) == "cluster"), (H, dt)
-            assert lib.cpc_lstm_fwd_body(H, code) == (
-                lstm.fwd_body(H, dt) == "cluster"), (H, dt)
+            assert lib.cpc_lstm_bwd_body(H, code) == \
+                codes[lstm.bwd_body(H, dt)], (H, dt)
+            assert lib.cpc_lstm_fwd_body(H, code) == \
+                codes[lstm.fwd_body(H, dt)], (H, dt)
             assert lib.cpc_lstm_fwd_smem(H, code) == lstm.fwd_smem(H, dt)
             assert lib.cpc_lstm_bwd_smem(H, code) == lstm.bwd_smem(H, dt)
-            assert lib.cpc_gru_bwd_body(H, code) == (
-                gru.bwd_body(H, dt) == "cluster"), (H, dt)
+            assert lib.cpc_gru_bwd_body(H, code) == \
+                codes[gru.bwd_body(H, dt)], (H, dt)
+            if H % 32 == 0:
+                assert lib.cpc_gru_fwd_body(H, code) == \
+                    codes[gru.fwd_body(H, dt)], (H, dt)
+            if H < lstm.GRID_MIN_H:
+                continue
+            for G in (3, 4):
+                for back in (0, 1):
+                    assert lib.cpc_rnn_grid_smem(H, G, code, back) == \
+                        lstm.grid_smem(H, G, dt, sms, bool(back)), (H, G)
+            for B in (3, 32, 40):
+                if lstm.bwd_body(H, dt) == "grid":
+                    assert lib.cpc_lstm_bwd_scratch(B, H, code) == \
+                        lstm.grid_scratch(B, H, 4, dt, sms, True)
+                if lstm.fwd_body(H, dt) == "grid":
+                    assert lib.cpc_lstm_fwd_scratch(B, H, code) == \
+                        lstm.grid_scratch(B, H, 4, dt, sms, False)
+                if H % 32 == 0:
+                    assert lib.cpc_gru_fwd_scratch(B, H, code) == \
+                        lstm.grid_scratch(B, H, 3, dt, sms, False)
+                    assert lib.cpc_gru_bwd_scratch(B, H, code) == \
+                        lstm.grid_scratch(B, H, 3, dt, sms, True)
 
 
 def _rel_norm(got, want):
@@ -579,8 +603,8 @@ def test_recurrent_bwd_bodies(dev, mode, dtype, B, T, H):
     tile) and at H = 512 and 768 (K1: the 16-CTA cluster body, at 768
     and in float32 with part of W_hh streamed, in float32 on its two bf16
     planes, also at the long-window path's B 8, T 256 and at B 32, T 128;
-    K4: the rows body), and at H 4096 (--hiddenGar 4096: both rows
-    bodies, each thread walking two unit pairs): each
+    K4: the grid body), and at H 4096 (--hiddenGar 4096: both grid
+    bodies, W_hh streamed every step): each
     output against its plain version within chip_smoke's 1e-4 of the
     2-norm, the body counted as the Python mirror says, and a rerun
     bit-identical."""
@@ -607,7 +631,7 @@ def test_recurrent_bwd_bodies(dev, mode, dtype, B, T, H):
         kernel, plain = gru.gru_bwd, gru.gru_bwd_ref
     body = mod.bwd_body(H, dtype)
     assert body == ("cluster" if H < 512 or (mode == "LSTM" and H <= 768)
-                    else "rows")
+                    else "grid")
     before = dict(kernel.body_launches)
     got = kernel(*args)
     again = kernel(*args)
@@ -668,9 +692,73 @@ def test_lstm_cluster_bodies(dev, B, T, H, dtype):
         err = _rel_norm(g, w)
         assert err <= 1e-4, f"output {i}: rel_norm_err {err:.3e}"
     assert lstm.lstm_fwd.body_launches == {
-        "cluster": before[0]["cluster"] + 2, "rows": before[0]["rows"]}
+        "cluster": before[0]["cluster"] + 2, "grid": before[0]["grid"],
+        "rows": before[0]["rows"]}
     assert lstm.lstm_bwd.body_launches == {
-        "cluster": before[1]["cluster"] + 2, "rows": before[1]["rows"]}
+        "cluster": before[1]["cluster"] + 2, "grid": before[1]["grid"],
+        "rows": before[1]["rows"]}
+
+
+GRID_CASES = [("LSTM", 32, 128, 1056), ("LSTM", 4, 128, 4096),
+              ("LSTM", 3, 5, 264), ("LSTM", 40, 7, 2048), ("LSTM", 5, 9, 2000),
+              ("GRU", 32, 128, 512), ("GRU", 32, 128, 768),
+              ("GRU", 4, 128, 4096), ("GRU", 3, 5, 288)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode,B,T,H", GRID_CASES)
+def test_grid_bodies(dev, mode, dtype, B, T, H):
+    """K1's and K4's grid bodies (csrc/rnn_grid.cuh) at the paths' shapes
+    (--hiddenGar 1056 at B 32, the GRU at 512 and 768, both at 4096 and
+    B 4), at H just past 256 with B 3 and T 5 (the last CTA holds fewer
+    units, the n8 tile 3 rows), at B 40 (two launches of the batch walk,
+    H 2048 streamed) and at H 2000 (a warp's chunks a step no multiple of
+    its ring's stages; K4 at 4096 too): every output of the forward against the plain
+    forward (``K1_TOL``: chip_smoke's), the backward's within 1e-4 of the
+    2-norm (a nonzero dhT, and dcT), each body counted, and reruns
+    bit-identical."""
+    rng = np.random.RandomState(B + T + H + 2)
+    G = 4 if mode == "LSTM" else 3
+    mod = lstm if mode == "LSTM" else gru
+    xp = _rand(rng, dev, dtype, B, T, G * H)
+    w = _rand(rng, dev, dtype, G * H, H, scale=H ** -0.5)
+    h0 = _rand(rng, dev, dtype, B, H, scale=0.1)
+    if mode == "LSTM":
+        args = (xp, w, h0, _rand(rng, dev, dtype, B, H, scale=0.1))
+        fwd, ref, bwd, bref = (lstm.lstm_fwd, lstm.lstm_scan_ref,
+                               lstm.lstm_bwd, lstm.lstm_bwd_ref)
+    else:
+        args = (xp, w, _rand(rng, dev, dtype, G * H, scale=0.1), h0)
+        fwd, ref, bwd, bref = (gru.gru_fwd, gru.gru_scan_ref, gru.gru_bwd,
+                               gru.gru_bwd_ref)
+    assert mod.fwd_body(H, dtype) == mod.bwd_body(H, dtype) == "grid"
+    before = (fwd.body_launches["grid"], bwd.body_launches["grid"])
+    got = fwd(*args, save_residuals=True)
+    again = fwd(*args, save_residuals=True)
+    want = ref(*args, save_residuals=True)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    for g, w_ in zip(got, want):
+        assert g.shape == w_.shape and g.dtype == w_.dtype
+        torch.testing.assert_close(g.float(), w_.float(), **K1_TOL[dtype])
+    dys = _rand(rng, dev, dtype, B, T, H, scale=0.1)
+    dhT = _rand(rng, dev, torch.float32, B, H, scale=0.1)
+    if mode == "LSTM":
+        bargs = (want[3], want[4], args[3], dys, w, dhT,
+                 _rand(rng, dev, torch.float32, B, H, scale=0.1))
+    else:
+        bargs = (want[2], want[3], h0, want[0], dys, w, dhT)
+    got = bwd(*bargs)
+    again = bwd(*bargs)
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    for i, (g, w_) in enumerate(zip(got, bref(*bargs))):
+        assert g.shape == w_.shape and g.dtype == w_.dtype
+        err = _rel_norm(g, w_)
+        assert err <= 1e-4, f"output {i}: rel_norm_err {err:.3e}"
+    assert (fwd.body_launches["grid"], bwd.body_launches["grid"]) == (
+        before[0] + 2, before[1] + 2)
 
 
 # ---- K6 (the heads' whole attention block) and K7 (fused conv layer) --------

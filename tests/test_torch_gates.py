@@ -181,11 +181,87 @@ def test_lstm_bwd_body_at_512_is_a_16_cta_cluster_in_bf16():
     for H in (128, 256):
         for dt in (bf, f32):
             assert lstm.bwd_body(H, dt) == gru.bwd_body(H, dt) == "cluster"
-    for H in (104, 384, 1024, 2048):
-        assert lstm.bwd_body(H, bf) == "rows", H
+    assert lstm.bwd_body(104, bf) == "rows"
+    for H in (384, 1024, 2048):
+        assert lstm.bwd_body(H, bf) == "grid", H
     assert lstm.bwd_body(768, bf) == "cluster"
     assert lstm.bwd_body(768, f32) == "cluster"
-    assert gru.bwd_body(512, bf) == gru.bwd_body(512, f32) == "rows"
+    assert gru.bwd_body(512, bf) == gru.bwd_body(512, f32) == "grid"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_grid_bodies_take_every_width_past_256_without_a_cluster_body(dtype):
+    """The grid bodies (csrc/rnn_grid.cuh) at K1's H 264, 1056, 2048 and
+    4096 and K4's 512, 768 and 4096 in both directions; K1 keeps its rows
+    forward at H 128, 200 and 256, its 8-CTA backward at 128 and 256, its
+    rows backward at 200 and its 16-CTA bodies at 512 and 768; K4 keeps
+    its rows forward and 8-CTA backward at 256."""
+    for H in (264, 1056, 2048, 4096):
+        assert lstm.fwd_body(H, dtype) == lstm.bwd_body(H, dtype) == "grid"
+    for H in (512, 768, 4096):
+        assert gru.fwd_body(H, dtype) == gru.bwd_body(H, dtype) == "grid"
+    for H in (128, 200, 256):
+        assert lstm.fwd_body(H, dtype) == "rows", H
+    assert [lstm.bwd_body(H, dtype) for H in (128, 200, 256)] == [
+        "cluster", "rows", "cluster"]
+    for H in (512, 768):
+        assert lstm.fwd_body(H, dtype) == lstm.bwd_body(H, dtype) \
+            == "cluster"
+    assert gru.fwd_body(256, dtype) == "rows"
+    assert gru.bwd_body(256, dtype) == "cluster"
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_grid_split_shared_memory_and_scratch_follow_their_formula(sms):
+    """The Python mirror of the grid bodies' split (``lstm.grid_shape``),
+    shared memory (``grid_smem``) and scratch (``grid_scratch``) against
+    the formula written out (csrc/rnn_grid.cuh): at K1's H 1056 on 132 SMs
+    J 8 units on all 132 CTAs, W_hh's slice in shared memory (66 chunks
+    of 2 m-tiles by 16 columns, 1 KB a plane) beside 16 k-parts of 32 rows
+    by 36 float32, the backward's partial carries as 66 x 4 (16-column,
+    8-row) tiles of 512 bytes a CTA; at H 4096 J 32 on 128 CTAs, the slice
+    streamed through 128 KB of stages; every H the gates take fits the
+    card's SMs (on 114, an H100 PCIe's, H 4096 takes J 36 on 114 CTAs, 24
+    rows a launch)."""
+    from cpc_audio_tpu_torch.ops import _build
+    f32, bf = torch.float32, torch.bfloat16
+    for H in range(264, lstm.MAX_H + 1, 8):
+        s = lstm.grid_shape(H, 4, sms)
+        assert s["ok"] and s["J"] % 2 == 0 and s["ncta"] <= sms, H
+        assert (s["ncta"] - 1) * s["J"] < H <= s["ncta"] * s["J"], H
+        for G, dt in ((4, f32), (3, bf)):
+            for backward in (False, True):
+                assert 0 < lstm.grid_smem(H, G, dt, sms, backward) \
+                    <= _build.SMEM_LIMIT, (H, G, dt, backward)
+    if sms != 132:
+        s = lstm.grid_shape(4096, 4, sms)
+        assert (s["J"], s["ncta"], s["rows"]) == (36, 114, 24)
+        return
+    s = lstm.grid_shape(1056, 4, sms)
+    assert (s["J"], s["ncta"], s["KS"], s["MT"], s["KW"]) == (8, 132, 66, 2,
+                                                             16)
+    part = 16 * 32 * (2 * 16 + 4) * 4
+    assert lstm.grid_smem(1056, 4, bf, sms, False) == 66 * 1024 + part
+    assert lstm.grid_smem(1056, 4, f32, sms, False) == 66 * 2048 + part
+    extra = 2 * 32 * (2 * 16 + 8) * 2 + 512 * 8 + 32 * 64 * 4
+    assert lstm.grid_smem(1056, 4, f32, sms, True) == 66 * 2048 + extra
+    # W_hh packed into the CTAs' chunks (here exactly its 4H x H, in two
+    # planes in float32), then the exchange or the receive blocks
+    assert lstm.grid_scratch(32, 1056, 4, bf, sms, False) \
+        == 4 * 1056 ** 2 * 2 + 2 * 4 * 66 * 32 * 16
+    assert lstm.grid_scratch(32, 1056, 4, f32, sms, True) \
+        == 2 * 4 * 1056 ** 2 * 2 + 2 * 132 * 66 * 4 * 32 * 16
+    s = lstm.grid_shape(4096, 4, sms)
+    assert (s["J"], s["ncta"], s["MT"], s["MW"], s["KW"]) == (32, 128, 8, 4,
+                                                             4)
+    assert lstm.grid_smem(4096, 4, bf, sms, False) \
+        == 128 * 1024 + 4 * 32 * (8 * 16 + 4) * 4
+    assert lstm.grid_scratch(4, 4096, 4, bf, sms, True) \
+        == 4 * 4096 ** 2 * 2 + 2 * 128 * 256 * 1 * 32 * 16
+    s = lstm.grid_shape(4096, 3, sms)
+    assert (s["MT"], s["MW"], s["KW"]) == (6, 3, 5)
+    assert lstm.grid_scratch(100, 512, 3, bf, sms, False) \
+        == lstm.grid_scratch(32, 512, 3, bf, sms, False)
 
 
 # configurations the JAX package trains that the port once refused: K5

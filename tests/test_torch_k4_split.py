@@ -1,0 +1,127 @@
+"""K4's float32 grid-body arithmetic, written plainly on the CPU.
+
+On the card K4's float32 forward and backward past H 256
+(csrc/rnn_grid.cuh, through csrc/gru_fwd.cu and csrc/gru_bwd.cu) run each
+step's product on bf16 tensor cores with split operands: h (forward) or
+dgh = (dr, dz, dghn) (backward) and W_hh each as bf16 hi + lo, and 3 split
+products h_hi W_hi + h_lo W_hi + h_hi W_lo summed in float32.
+``gru.gru_scan_split`` and ``gru.gru_bwd_split`` are that arithmetic in
+plain PyTorch; here they are held against float64 recurrences and against
+the JAX package's float32 ``gru_scan_pallas`` and its custom VJP
+(interpret mode), within chip_smoke.py's float32 K4 tolerances: forward
+outputs elementwise within 2e-4, backward outputs within 1e-4 of their
+2-norm.  The kernels themselves run only on a GPU
+(tests/test_torch_cuda.py, chip_smoke.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from cpc_audio_tpu.ops.pallas.rnn import gru_scan_pallas
+from cpc_audio_tpu_torch.ops import gru
+
+# chip_smoke.py's TOLERANCE for K4 in float32
+FWD_ATOL = 2e-4
+BWD_REL = 1e-4
+
+
+def _inputs(B, T, H, seed):
+    """chip_smoke's K4 inputs: x_proj ~ N(0, 1), W_hh ~ N(0, 1 / H), b_hh
+    and h0 ~ N(0, 0.01), the cotangent of ys ~ N(0, 0.01)."""
+    rng = np.random.RandomState(seed)
+    xp = rng.randn(B, T, 3 * H).astype(np.float32)
+    w = (rng.randn(3 * H, H) * H ** -0.5).astype(np.float32)
+    b = (rng.randn(3 * H) * 0.1).astype(np.float32)
+    h0 = (rng.randn(B, H) * 0.1).astype(np.float32)
+    dys = (rng.randn(B, T, H) * 0.1).astype(np.float32)
+    return xp, w, b, h0, dys
+
+
+def _t(a, dtype=torch.float32):
+    return torch.from_numpy(np.asarray(a)).to(dtype)
+
+
+def _rel(got, want):
+    return ((got.double() - want.double()).norm()
+            / want.double().norm()).item()
+
+
+@pytest.mark.parametrize("B,T,H", [(3, 16, 32), (2, 24, 64)])
+def test_split_forward_matches_float64_and_pallas(B, T, H):
+    """ys, hT (and the saved gates and ghn) of the split forward against
+    the float64 plain forward and JAX's float32 Pallas forward,
+    elementwise within the card's float32 tolerance."""
+    xp, w, b, h0, _ = _inputs(B, T, H, B + T + H)
+    got = gru.gru_scan_split(_t(xp), _t(w), _t(b), _t(h0),
+                             save_residuals=True)
+    exact = gru.gru_scan_ref(*(_t(a, torch.float64) for a in (xp, w, b, h0)),
+                             save_residuals=True)
+    for g, e in zip(got, exact):
+        assert g.dtype == torch.float32
+        assert (g.double() - e).abs().max().item() <= FWD_ATOL
+    jax_out = gru_scan_pallas(jnp.asarray(xp), jnp.asarray(w.T),
+                              jnp.asarray(b), jnp.asarray(h0), True)
+    for g, j in zip(got[:2], jax_out):
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), atol=FWD_ATOL,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("B,T,H", [(3, 16, 32), (2, 24, 64)])
+def test_split_backward_matches_float64_and_pallas_vjp(B, T, H):
+    """dx_proj, dW_hh, db_hh and dh0 from the split backward (dW_hh and
+    db_hh from dx_proj and dghn, as ops/gru.py forms them) against the
+    float64 plain backward and ``jax.vjp`` of JAX's float32 Pallas GRU for
+    a cotangent on ys, each within 1e-4 of its 2-norm."""
+    xp, w, b, h0, dys = _inputs(B, T, H, 2 * (B + T + H))
+    ys, _, gates, ghn = gru.gru_scan_split(_t(xp), _t(w), _t(b), _t(h0),
+                                           save_residuals=True)
+    zeros = torch.zeros(B, H)
+    dx, dghn, dh0 = gru.gru_bwd_split(gates, ghn, _t(h0), ys, _t(dys), _t(w),
+                                      zeros)
+    h_prev = torch.cat([_t(h0)[:, None], ys[:, :-1]], dim=1).reshape(B * T, H)
+    drz = dx.reshape(B * T, 3 * H)[:, :2 * H]
+    dg = dghn.reshape(B * T, H)
+    dw = torch.cat([drz.t() @ h_prev, dg.t() @ h_prev])
+    db = torch.cat([drz.sum(dim=0), dg.sum(dim=0)])
+    d64 = lambda a: a.double()                      # noqa: E731
+    ex, eghn, eh0 = gru.gru_bwd_ref(
+        d64(gates), d64(ghn), _t(h0, torch.float64), d64(ys),
+        _t(dys, torch.float64), _t(w, torch.float64), d64(zeros))
+    for g, e in ((dx, ex), (dghn, eghn), (dh0, eh0)):
+        assert _rel(g, e) <= BWD_REL
+
+    def f(xp_, w_t, b_, h0_):
+        return gru_scan_pallas(xp_, w_t, b_, h0_, True)[0]
+    _, vjp = jax.vjp(f, jnp.asarray(xp), jnp.asarray(w.T), jnp.asarray(b),
+                     jnp.asarray(h0))
+    jx, jw_t, jb, jh0 = (np.asarray(a) for a in vjp(jnp.asarray(dys)))
+    for g, j in ((dx, jx), (dw, jw_t.T), (db, jb), (dh0, jh0)):
+        assert _rel(g, torch.from_numpy(j)) <= BWD_REL
+
+
+def test_three_split_products_hold_the_tolerance_at_h512():
+    """Why 3 split products, as K1's: at H 512 (the GRU 512 path's width)
+    over 64 steps the split forward stays within a tenth of the forward's
+    tolerance of the float64 recurrence, and the split backward within a
+    tenth of the backward's (the dropped terms, h_lo W_lo and what two
+    planes leave of each operand, are about 2^-16 of |h||W_hh| a term)."""
+    B, T, H = 2, 64, 512
+    xp, w, b, h0, dys = _inputs(B, T, H, 5)
+    got = gru.gru_scan_split(_t(xp), _t(w), _t(b), _t(h0),
+                             save_residuals=True)
+    f64 = [_t(a, torch.float64) for a in (xp, w, b, h0, dys)]
+    exact = gru.gru_scan_ref(*f64[:4], save_residuals=True)
+    err = max((g.double() - e).abs().max().item()
+              for g, e in zip(got, exact))
+    assert err <= 0.1 * FWD_ATOL, err
+    zeros = torch.zeros(B, H, dtype=torch.float64)
+    split = gru.gru_bwd_split(exact[2].float(), exact[3].float(), _t(h0),
+                              exact[0].float(), _t(dys), _t(w),
+                              zeros.float())
+    want = gru.gru_bwd_ref(exact[2], exact[3], f64[3], exact[0], f64[4],
+                           f64[1], zeros)
+    assert max(_rel(g, e) for g, e in zip(split, want)) <= 0.1 * BWD_REL
