@@ -28,7 +28,8 @@ Phases (any failure exits non-zero):
      1056 and 2048); K5 on its one tensor-core body (float32 on split
      bf16 planes) at dk 256 (N 32, S 128: --hiddenEncoder 2048) and at S
      1024 (N 32, dk 32: --sizeWindow 163840) in both dtypes and at dk 64
-     in float32, K2 at S 1012 (dk 32) and at dk 256 (S 116), K1 and K4 at
+     in float32, K2 (at every shape on its tensor-core body, float32 on
+     split bf16 planes) at S 1012 (dk 32) and at dk 256 (S 116), K1 and K4 at
      B 4, T 128, H 4096 (--hiddenGar 4096: the rows bodies), both dtypes;
      K8
      also with all keys on one row (bf16), and the
@@ -90,7 +91,10 @@ Phases (any failure exits non-zero):
      K1's and K4's backward must run their cluster body at hiddenGar 256
      and K1's its 16-CTA cluster body at 512 and 768 in both dtypes, K1's
      forward its rows body at 256 and its 16-CTA cluster body at 512 and
-     768 (the rows bodies at 200 and 1056), the losses must be finite
+     768 (the rows bodies at 200 and 1056), K2 on every path that runs
+     it its tensor-core body in both directions, once a step
+     (head_attention.relpos_attention.body_launches,
+     relpos_attention_bwd.body_launches), the losses must be finite
      and fall;
      prints train windows/s and the step's device time by kernel
      (torch.profiler); then (but on the float32 paths, whose steps these
@@ -275,7 +279,7 @@ class Case:
             plain
         self.inputs, self.flops, self.read_bytes = inputs, flops, read_bytes
         # bf16 tensor-core products a float32 product takes, where the
-        # float32 body runs on split operands (K3)
+        # float32 body runs on split operands (K2, K3, K5)
         self.split = SPLIT_PRODUCTS.get(name)
         # shape: None at the default train shapes, else a tag of the wider
         # shape (the --hiddenEncoder 512 --hiddenGar 512 paths)
@@ -477,8 +481,7 @@ def recurrent_args(rand, dev: torch.device, B: int = 32, T: int = 128,
 def long_cases(rand, dev: torch.device, seed, B: int = 8):
     """The kernels of the --sizeWindow 40960 --hiddenEncoder 512
     --hiddenGar 512 LSTM path at its train step's shapes, batch B (the
-    train phase's): K2 with S = 244 anchors, dk 64 (its bf16 operands are
-    staged in bf16, float32 ones read in place); K1 at T = 256 frames,
+    train phase's): K2 with S = 244 anchors, dk 64; K1 at T = 256 frames,
     H = 512 (the 16-CTA cluster bodies in bf16, the rows bodies in
     float32); K3 at M = B*244, D = 512."""
     return path_cases(rand, dev, seed, B, S=244, dk=64, T=256, H=512)
@@ -865,10 +868,14 @@ SOURCES = {
                  "cpc_audio_tpu/ops/pallas/rnn.py:67"),
     "lstm_bwd": ("cpc_audio_tpu_torch/csrc/lstm_bwd.cu",
                  "cpc_audio_tpu/ops/pallas/rnn.py:97"),
-    "relpos_attention_fwd": ("cpc_audio_tpu_torch/csrc/relpos_attention_fwd.cu",
-                             "cpc_audio_tpu/ops/pallas/head_attention.py:114"),
-    "relpos_attention_bwd": ("cpc_audio_tpu_torch/csrc/relpos_attention_bwd.cu",
-                             "cpc_audio_tpu/ops/pallas/head_attention.py:158"),
+    # K2: the tensor-core body every path runs (dk <= 256); the rows
+    # bodies past dk 256 stay in csrc/relpos_attention_{fwd,bwd}.cu
+    "relpos_attention_fwd": (
+        "cpc_audio_tpu_torch/csrc/relpos_attention_tc_fwd.cu",
+        "cpc_audio_tpu/ops/pallas/head_attention.py:114"),
+    "relpos_attention_bwd": (
+        "cpc_audio_tpu_torch/csrc/relpos_attention_tc_bwd.cu",
+        "cpc_audio_tpu/ops/pallas/head_attention.py:158"),
     # K3: one body for both directions and both dtypes (bf16 operands as
     # they are, float32 ones split into bf16 planes); its C entry points
     # are in csrc/layer_tail_fwd.cu and csrc/layer_tail_bwd.cu
@@ -920,9 +927,10 @@ PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # K3 in float32 runs its products as bf16 tensor-core products of split
 # operands: G1 of 6, the others of 3 (the forward's two: 9 for 2; the
-# backward's six: 21 for 6); K5 in float32 every product of 6 in the
-# forward (three planes) and of 3 in the backward (two)
-SPLIT_PRODUCTS = {"layer_tail_fwd": 9 / 2, "layer_tail_bwd": 21 / 6,
+# backward's six: 21 for 6); K5 and K2 in float32 every product of 6 in
+# the forward (three planes) and of 3 in the backward (two)
+SPLIT_PRODUCTS = {"relpos_attention_fwd": 6, "relpos_attention_bwd": 3,
+                  "layer_tail_fwd": 9 / 2, "layer_tail_bwd": 21 / 6,
                   "causal_attention_fwd": 6, "causal_attention_bwd": 3}
 
 
@@ -1340,9 +1348,12 @@ def tail_launches(case: Case, ms: float, dtype: torch.dtype,
     launches = (TAIL_WIDE_LAUNCHES if wide else TAIL_LAUNCHES)[case.name]
     # torch.profiler now and then returns a profile without the device's
     # events (none at all, after its warning that "Profiler clears events
-    # at the end of each cycle"); profile again, up to three times, before
-    # calling a launch missing
-    for _ in range(3):
+    # at the end of each cycle"), on an H100 once three times running (a
+    # float32 K3 forward); profile again, up to six times, a second apart,
+    # before calling a launch missing
+    for attempt in range(6):
+        if attempt:
+            time.sleep(1.0)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
@@ -1916,6 +1927,10 @@ def phase_train(dev: torch.device, path: str = "LSTM", B: int = 32,
     if path in FWD_BODY:
         check_body(fns, path, n, FWD_BODY[path],
                    "gru_fwd" if path.startswith("GRU") else "lstm_fwd")
+    if "relpos_attention_fwd" in PATH_KERNELS[path]:
+        # K2 on its tensor-core body, once a step in each direction
+        for name in ("relpos_attention_fwd", "relpos_attention_bwd"):
+            check_body(fns, path, n, "tc", name)
 
     per_step = torch.stack(losses).float().cpu()          # (n, K)
     if tuple(per_step.shape) != (n, cfg.nPredicts) or \
@@ -2187,6 +2202,21 @@ def profile_train(step, batch, key, step_ms: float, path: str,
     print(f"  K3 forward {tail['fwd']:.3f} ms, backward (but its sums over "
           f"tiles) {tail['bwd']:.3f} ms (LN1, the split and a wide body's "
           f"G2 halved between the two)", flush=True)
+    # K2's tensor-core body by kernel: the forward, the backward's three
+    # passes and its sum of the windows, and the operands' copies (krel's
+    # padded planes, and the float32 split) that both directions make
+    k2 = {}
+    for e in rows:
+        name = e.key.lower()
+        for part in ("relpos_tc_fwd", "relpos_tc_bwd_rows",
+                     "relpos_tc_bwd_cols", "relpos_tc_bwd_diag",
+                     "dkrel_windows_reduce", "krel_planes", "head_planes"):
+            if part in name:
+                k2[part] = k2.get(part, 0.0) + \
+                    e.self_device_time_total / 1e3 / n
+    if k2:
+        print("  K2 by kernel: " + ", ".join(
+            f"{part} {t:.3f} ms" for part, t in k2.items()), flush=True)
     if other:
         print("  largest of 'other': " + "; ".join(
             f"{e.key[:60]} {e.self_device_time_total / 1e3 / n:.3f} ms"
@@ -2196,7 +2226,8 @@ def profile_train(step, batch, key, step_ms: float, path: str,
 # kernel-name fragments (lower case) of the profile's groups, first match
 PROFILE_GROUPS = (
     ("port kernels", ("lstm_fwd", "lstm_bwd", "gru_fwd_kernel",
-                      "gru_bwd", "relpos_attention",
+                      "gru_bwd", "relpos_attention", "relpos_tc",
+                      "dkrel_windows", "krel_planes", "head_planes",
                       "causal_attention", "tail_", "dkrel_reduce",
                       "attention_block", "conv_ln", "sum_parts",
                       "scatter_add_kernel", "split_planes",

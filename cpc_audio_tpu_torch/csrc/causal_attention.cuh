@@ -1,5 +1,6 @@
 // K5's tensor-core body, one for both dtypes, shared by
-// causal_attention_fwd.cu and causal_attention_bwd.cu: the tile geometry
+// causal_attention_fwd.cu and causal_attention_bwd.cu, and the parts that
+// K2's tensor-core body builds on (relpos_attention_tc.cuh): the tile geometry
 // by dtype and padded head width, the staging of q/k/v/do rows and of the
 // bias's causal chunks with cp.async, and the warp-level products on
 // mma.sync (mma.cuh) with the (row, column) of every accumulator element
@@ -223,11 +224,15 @@ __device__ __forceinline__ void acc_times_rows(float acc[G::kDV / 8][4],
 }
 
 // Writes the warp's 16 rows r0.. of acc * scale[row half] in T to one n's
-// (S, dk) matrix dst, acc's columns from c0 on (rows < S, columns < dk).
+// (S, dk) matrix dst with rows ld elements apart (dk where 0), acc's
+// columns from c0 on (rows < S, columns < dk).  bf16 pairs where dk is
+// even (K5's dk % 8 == 0; K2's heads of any even width), else elements.
 template <typename G, typename T>
 __device__ __forceinline__ void store_rows(T* dst, float acc[G::kDV / 8][4],
                                            int r0, int c0, int S, int dk,
-                                           const float scale[2]) {
+                                           const float scale[2],
+                                           int ld = 0) {
+  const size_t rs = ld ? ld : dk;
 #pragma unroll
   for (int nt = 0; nt < G::kDV / 8; ++nt) {
     const int d = c0 + col_of(nt, 0);
@@ -238,11 +243,11 @@ __device__ __forceinline__ void store_rows(T* dst, float acc[G::kDV / 8][4],
       if (i >= S) continue;
       const float x0 = acc[nt][2 * h] * scale[h],
                   x1 = acc[nt][2 * h + 1] * scale[h];
-      if constexpr (G::kF32) {   // any dk: element stores
-        dst[(size_t)i * dk + d] = x0;
-        if (d + 1 < dk) dst[(size_t)i * dk + d + 1] = x1;
-      } else {                   // dk % 8 == 0
-        *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)i * dk + d) =
+      if (G::kF32 || (dk & 1)) {   // element stores
+        dst[i * rs + d] = from_f32<T>(x0);
+        if (d + 1 < dk) dst[i * rs + d + 1] = from_f32<T>(x1);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(dst + i * rs + d) =
             __floats2bfloat162_rn(x0, x1);
       }
     }

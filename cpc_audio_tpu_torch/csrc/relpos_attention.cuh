@@ -1,7 +1,9 @@
 // The per-head bodies of causal attention with Shaw relative positions.
-// The forward rows are shared by K2 (csrc/relpos_attention_fwd.cu, q/k/v
-// read from device memory) and K6 (csrc/attention_block_fwd.cu, q/k/v
-// projected in the kernel); the backward body is K6's
+// The forward rows are shared by K2's rows body (csrc/relpos_attention_fwd.cu,
+// q/k/v read from device memory; it runs past dk 256, where K2's
+// tensor-core body, relpos_attention_tc.cuh, stops) and K6
+// (csrc/attention_block_fwd.cu, q/k/v projected in the kernel); the
+// backward body is K6's
 // (csrc/attention_block_bwd.cu), a copy of K2's kernel body with y added:
 // K2's backward built on this shared function measured ~10 % slower than
 // its own inline body on the H100 (same call, same 48 registers), so it

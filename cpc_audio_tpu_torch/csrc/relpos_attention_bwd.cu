@@ -1,5 +1,9 @@
 // K2 backward: causal attention with Shaw relative positions.
 //
+// The rows body: it runs past dk 256 (--hiddenEncoder past 2048); at every
+// dk up to 256 the tensor-core body of relpos_attention_tc_bwd.cu runs instead
+// (ops/head_attention.py `fwd_body` / `bwd_body`).
+//
 // Replaces cpc_audio_tpu/ops/pallas/head_attention.py `_bwd_kernel`
 // (called through `_fr_bwd`).  Recompute-style: per (k, batch row b,
 // head h) the probabilities p are recomputed from q, k and krel, and with

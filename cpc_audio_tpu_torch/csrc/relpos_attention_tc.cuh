@@ -1,0 +1,498 @@
+// K2's tensor-core body: causal attention with Shaw relative positions on
+// mma.sync, shared by relpos_attention_tc_fwd.cu and
+// relpos_attention_tc_bwd.cu.  It is K5's body (causal_attention.cuh: the
+// geometry `Geom`, cp.async staging, the products with every accumulator
+// element's (row, column) known, the dropout bits in registers, float32
+// on split bf16 planes) with what the rel-pos bias adds:
+//
+// The window product.  For query tile [i0, i0 + T) and key tile
+// [j0, j0 + T), pair (i, j) reads krel column r = j - i + S - 1; over the
+// tile pair these are the 2T - 1 columns from j0 - i0 + S - T, the window.
+// Its columns depend on the tile diagonal qt - kt only.  QP = Q_tile .
+// krel[:, window] runs on the tensor cores; pair (i, j) takes
+// QP[i, j - i + T - 1].  Row group rw (query rows 16 rw .. 16 rw + 15)
+// reads window columns [c_lo, c_lo + T + 16) only, c_lo = T - 16 - 16 rw:
+// its band.  So each warp forms the band of its 16 rows (T + 16 columns,
+// 1.25 times a score tile), stages it as float32 in shared memory, and
+// every score element reads its bias from there: band column
+// j - (i mod 16) + 15 of row i.  The backward's adjoint goes the other
+// way: ds is staged into the same band layout (U, zero outside the
+// causal band), over the rows of QP it no longer needs, and dq += U .
+// krel[:, window]^T, dkrel[:, window] += Q^T . U.
+//
+// krel is read from a copy made once a call: (K, P, DKP, SK) bf16 planes,
+// column x holding krel column x - off with off = (-S) mod 8 and SK = S +
+// off, zero past dk and outside [0, S).  A window then starts at padded
+// column SK - (qt - kt + 1) T, a multiple of 8, so it is staged with
+// 16-byte copies and those wholly outside [0, SK) are zero-filled: the
+// kernels never read krel out of range (such columns meet masked pairs
+// only).
+//
+// q, k, v, do: in bf16 staged from their natural (K, B*S, D) rows (head
+// h's columns at h dk) with 16-byte copies where dk is a multiple of 8;
+// otherwise (dk 25, 132: rows 2- or 8-byte aligned), and in float32 as
+// its split, copied once a call into (N, S, DKP) planes per head, n =
+// (k * B + b) * nheads + h, aligned at any dk (element copies straight
+// from the natural rows ran K2 at dk 25 slower than at dk 32 on an H100:
+// 0.62 against 0.16 ms forward).  One block takes one head: the (k, b) row's heads sit
+// side by side in a 512-byte row at D 256, so neighbouring blocks (heads
+// h, h + 1 of one tile) read neighbouring pieces of the same rows and the
+// sectors they share come from L2.
+#pragma once
+
+#include "causal_attention.cuh"
+#include "relpos_attention.cuh"
+
+namespace cpc {
+namespace k2 {
+
+using bf16 = __nv_bfloat16;
+using k5::col_of;
+using k5::kThreads;
+using k5::row_of;
+
+// Blocks of `smem` bytes an SM holds (228 KB, 1 KB of it kept a block),
+// at most 3: the kernels' 130-170 registers a thread allow no more.
+__host__ __device__ constexpr int blocks_an_sm(size_t smem) {
+  return 233472 / (smem + 1024) < 3 ? (int)(233472 / (smem + 1024)) : 3;
+}
+
+// Buffers a kernel stages its tiles in, from its shared memory at one and
+// at two: two (the next tile in flight) unless one lets more blocks share
+// an SM, or two do not fit.  On an H100 more blocks beat the second
+// buffer: the backward's row and diagonal passes in bf16 at S 1012, dk 32
+// took 2.06 and 1.48 ms on one buffer at 3 blocks an SM, 2.61 and 1.81 on
+// two at 2.
+__host__ __device__ constexpr int pick_bufs(size_t one, size_t two) {
+  return two > kSmemLimit || blocks_an_sm(one) > blocks_an_sm(two) ? 1 : 2;
+}
+
+// The window geometry of tiles of G::kTile rows.
+template <typename G>
+struct Win {
+  static constexpr int kTile = G::kTile;
+  static constexpr int kCols = 2 * kTile;      // a window's krel columns
+  static constexpr int kLdw = kCols + 8;       // krel window row (bf16)
+  static constexpr int kBand = kTile + 16;     // a row group's columns
+  static constexpr int kBandNT = kBand / 8;    // its n8 tiles
+  static constexpr int kLdq = kBand + 4;       // QP band row (float32)
+  static constexpr int kLdu = kBand + 8;       // a U plane's row (bf16)
+  // the forward's QP staging
+  static constexpr size_t kQpBytes = (size_t)kTile * kLdq * sizeof(float);
+  // The backward's band staging: row il holds QP's float32 row, and then
+  // U's planes side by side over it (a row group's U overwrites its own
+  // QP rows once its scores are read, so the two take one region); an odd
+  // number of 16-byte units a row keeps ldmatrix's eight rows on distinct
+  // banks.
+  static constexpr int kRowUnits =
+      ((kLdq * 4 > G::kPlanes * kLdu * 2 ? kLdq * 4 : G::kPlanes * kLdu * 2) +
+       15) / 16;
+  static constexpr int kRowBytes = (kRowUnits | 1) * 16;
+  static constexpr int kRowF = kRowBytes / 4;   // float32 elements a row
+  static constexpr int kRowH = kRowBytes / 2;   // bf16 elements a row
+  static constexpr size_t kBandBytes = (size_t)kTile * kRowBytes;
+  // krel window rows [0, kc) of all planes, bf16 elements
+  __host__ __device__ static constexpr int kr_elems(int kc) {
+    return G::kPlanes * kc * kLdw;
+  }
+  // first window column of row group rw's band
+  static __device__ __forceinline__ int c_lo(int rw) {
+    return kTile - 16 - 16 * rw;
+  }
+};
+
+// The operands q, k, v, do (p[0..3]) as the kernels stage them.
+struct Heads {
+  const bf16* p[4];
+  int n_batch, S, nheads, dk;
+  int lds;        // row stride, elements: D (natural) or DKP (planes)
+  size_t plane;   // planes: elements plane to plane; natural: 0
+  bool planes;
+
+  // head n's row 0 in the natural (K, B*S, D) layout, D = lds there
+  __device__ __forceinline__ size_t natural(int n, int D) const {
+    return (size_t)(n / nheads) * S * D + (size_t)(n % nheads) * dk;
+  }
+  __device__ __forceinline__ size_t base(int n) const {
+    return planes ? (size_t)n * S * lds : natural(n, lds);
+  }
+};
+
+// Rows [r0, r0 + kTile) of head n's operand o into a staged tile (zero
+// past S and past dk), 16 bytes a copy.
+template <typename G, int DKP>
+__device__ __forceinline__ void stage_head(bf16* dst, const Heads& H, int o,
+                                           int n, int r0) {
+  k5::stage_rows<G, DKP>(dst, H.p[o] + H.base(n), H.plane, r0, H.S, H.lds,
+                         H.planes ? DKP : H.dk);
+}
+
+// Rows [d0, d0 + KC) of head k's padded krel planes (K, P, DKP, sk), window
+// columns from padded column x0, into dst (P planes of (KC, kLdw)).
+template <typename G, int DKP, int KC>
+__device__ __forceinline__ void stage_window(bf16* dst, const bf16* krp,
+                                             int kk, int sk, int d0,
+                                             int x0) {
+  using W = Win<G>;
+  constexpr int C = W::kCols / 8;
+#pragma unroll
+  for (int p = 0; p < G::kPlanes; ++p) {
+    const bf16* src = krp + ((size_t)kk * G::kPlanes + p) * DKP * sk;
+    for (int idx = threadIdx.x; idx < KC * C; idx += kThreads) {
+      const int r = idx / C, c = (idx - r * C) * 8;
+      const int x = x0 + c;
+      const bool ok = x >= 0 && x < sk;
+      mma::cp_async16(dst + (p * KC + r) * W::kLdw + c,
+                      ok ? src + (size_t)(d0 + r) * sk + x : src, ok);
+    }
+  }
+}
+
+// qp (row group rw's 16 rows a0.. of staged tile A x its band of kBand
+// window columns from c_lo) += A[:, d0 : d0 + KC] . Kr, the staged krel
+// window rows (KC x window columns, k-major), as the split products of
+// the planes (K5's order, by increasing i + j).
+template <typename G, int KC>
+__device__ __forceinline__ void window_product(
+    float qp[Win<G>::kBandNT][4], const bf16* A, int a0, const bf16* Kr,
+    int d0, int c_lo) {
+  using W = Win<G>;
+  constexpr int P = G::kPlanes;
+#pragma unroll
+  for (int ks = 0; ks < KC / 16; ++ks) {
+    uint32_t a[P][4];
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+      mma::load_a(a[i], A + i * G::kPlaneElems, G::kLd, a0, d0 + ks * 16);
+#pragma unroll
+    for (int np = 0; np < W::kBandNT / 2; ++np) {
+      uint32_t b[P][4];
+#pragma unroll
+      for (int j = 0; j < P; ++j)
+        mma::load_b_kmajor(b[j], Kr + j * KC * W::kLdw, W::kLdw, ks * 16,
+                           c_lo + np * 16);
+#pragma unroll
+      for (int d = 0; d < P; ++d)
+#pragma unroll
+        for (int i = 0; i <= d; ++i) {
+          mma::mma_bf16(qp[2 * np], a[i], b[d - i][0], b[d - i][1]);
+          mma::mma_bf16(qp[2 * np + 1], a[i], b[d - i][2], b[d - i][3]);
+        }
+    }
+  }
+}
+
+template <typename G>
+__device__ __forceinline__ void zero_band(float qp[Win<G>::kBandNT][4]) {
+#pragma unroll
+  for (int nt = 0; nt < Win<G>::kBandNT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) qp[nt][e] = 0.0f;
+}
+
+// Row group rw's band of QP into the float32 staging of rows ldq apart.
+template <typename G>
+__device__ __forceinline__ void store_band(float* QPs,
+                                           float qp[Win<G>::kBandNT][4],
+                                           int rw, int ldq) {
+#pragma unroll
+  for (int nt = 0; nt < Win<G>::kBandNT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      QPs[(rw * 16 + row_of(e)) * ldq + col_of(nt, e)] = qp[nt][e];
+}
+
+// The bias QP[i, j - i + T - 1] of tile pair (query row il, key jl).
+__device__ __forceinline__ float band_at(const float* QPs, int il, int jl,
+                                         int ldq) {
+  return QPs[il * ldq + jl - (il & 15) + 15];
+}
+
+// s (the warp's scores, raw q . k^T of query rows 16 rw.. x the key tile)
+// scaled with the bias added and -inf above the diagonal, from the staged
+// band: the same code in every pass, so every pass sees the same bits.
+template <typename G>
+__device__ __forceinline__ void bias_scale_mask(float s[G::kNT][4],
+                                                const float* QPs, int ldq,
+                                                int rw, int q0, int k0,
+                                                float inv_sqrt) {
+#pragma unroll
+  for (int nt = 0; nt < G::kNT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int il = rw * 16 + row_of(e), jl = col_of(nt, e);
+      s[nt][e] = k0 + jl <= q0 + il
+                     ? (s[nt][e] + band_at(QPs, il, jl, ldq)) * inv_sqrt
+                     : -INFINITY;
+    }
+}
+
+// Row group rw's ds as its band U over its QP rows (the backward's band
+// staging): planes of ds (rounded to bf16 in bf16, as the JAX kernel casts
+// it; hi and lo in float32) at band column j - (i mod 16) + 15, and zeros
+// at the row's 16 other band columns, which the QP rows overwrote.
+template <typename G>
+__device__ __forceinline__ void store_u(bf16* Us, float ds[G::kNT][4],
+                                        int rw) {
+  using W = Win<G>;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int nt = 0; nt < G::kNT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int at = (rw * 16 + row_of(e)) * W::kRowH + col_of(nt, e) -
+                     row_of(e) + 15;
+      const bf16 hi = __float2bfloat16(ds[nt][e]);
+      Us[at] = hi;
+      if constexpr (G::kPlanes > 1)
+        Us[W::kLdu + at] = __float2bfloat16(ds[nt][e] - __bfloat162float(hi));
+    }
+  // row r, its j-th column off the band: [0, 15 - r) then [T + 15 - r, T + 16)
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    const int q = lane + 32 * t, r = q >> 4, j = q & 15;
+    const int at = (rw * 16 + r) * W::kRowH + (j < 15 - r ? j : W::kTile + j);
+#pragma unroll
+    for (int p = 0; p < G::kPlanes; ++p)
+      Us[p * W::kLdu + at] = __float2bfloat16(0.0f);
+  }
+}
+
+// acc (row group rw's 16 rows x the warp's kDV columns from c0) += U .
+// Kr^T: the staged band U (16 rows from a0 x kBand) times the window rows
+// of the staged krel (DKP rows, n-major), band column b at window column
+// c_lo + b; split products as K5's (ds as two planes in float32, one bf16
+// value in bf16).
+template <typename G, int DKP>
+__device__ __forceinline__ void unskew_product(float acc[G::kDV / 8][4],
+                                               const bf16* Us, int a0,
+                                               const bf16* Kr, int c0,
+                                               int c_lo) {
+  using W = Win<G>;
+  constexpr int P = G::kPlanes;
+#pragma unroll
+  for (int kk = 0; kk < W::kBand / 16; ++kk) {
+    uint32_t a[P][4];
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+      mma::load_a(a[i], Us + i * W::kLdu, W::kRowH, a0, kk * 16);
+#pragma unroll
+    for (int dp = 0; dp < G::kDV / 16; ++dp) {
+      uint32_t b[P][4];
+#pragma unroll
+      for (int j = 0; j < P; ++j)
+        mma::load_b_nmajor(b[j], Kr + j * DKP * W::kLdw, W::kLdw,
+                           c0 + dp * 16, c_lo + kk * 16);
+#pragma unroll
+      for (int d = 0; d < P; ++d)
+#pragma unroll
+        for (int i = d; i >= 0; --i) {
+          mma::mma_bf16(acc[2 * dp], a[i], b[d - i][0], b[d - i][1]);
+          mma::mma_bf16(acc[2 * dp + 1], a[i], b[d - i][2], b[d - i][3]);
+        }
+    }
+  }
+}
+
+// The window's dkrel accumulators of the diagonal pass: the (DKP x 2T)
+// product Q^T . U over a tile's query rows, split over the 4 warps by d
+// (16-row m tiles) and, at DKP 32, by halves of the window.
+template <typename G, int DKP>
+struct DkrelSplit {
+  static constexpr int kMT = DKP / 16;                  // d tiles
+  static constexpr int kNT = Win<G>::kCols / 8;         // window n8 tiles
+  static constexpr int kColSplit = kMT < 4 ? 4 / kMT : 1;
+  static constexpr int kWD = kMT * kColSplit / 4;       // d tiles a warp
+  static constexpr int kWC = kNT / kColSplit;           // n8 tiles a warp
+};
+
+// acc += Q^T . U of one tile: A = Q^T (d x query rows, from the staged q
+// rows, k-major), B = the band U of each row group (query rows x band, k
+// major) at window columns c_lo(rw) + band; the warp's d tiles from md0,
+// window n8 tiles from cw0.
+template <typename G, int DKP>
+__device__ __forceinline__ void dkrel_product(
+    float acc[DkrelSplit<G, DKP>::kWD][DkrelSplit<G, DKP>::kWC][4],
+    const bf16* Qs, const bf16* Us, int md0, int cw0) {
+  using W = Win<G>;
+  using D = DkrelSplit<G, DKP>;
+  constexpr int P = G::kPlanes;
+#pragma unroll
+  for (int rw = 0; rw < G::kRowWarps; ++rw) {
+    const int band0 = W::c_lo(rw) / 8;   // window n8 tile of band tile 0
+    uint32_t a[D::kWD][P][4];
+#pragma unroll
+    for (int m = 0; m < D::kWD; ++m)
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+        mma::load_a_kmajor(a[m][i], Qs + i * G::kPlaneElems, G::kLd,
+                           (md0 + m) * 16, rw * 16);
+#pragma unroll
+    for (int c = 0; c < D::kWC / 2; ++c) {
+      const int bt = cw0 + 2 * c - band0;   // band n8 tile
+      if (bt < 0 || bt >= W::kBandNT) continue;
+      uint32_t b[P][4];
+#pragma unroll
+      for (int j = 0; j < P; ++j)
+        mma::load_b_kmajor(b[j], Us + j * W::kLdu, W::kRowH, rw * 16,
+                           bt * 8);
+#pragma unroll
+      for (int m = 0; m < D::kWD; ++m)
+#pragma unroll
+        for (int d = 0; d < P; ++d)
+#pragma unroll
+          for (int i = d; i >= 0; --i) {
+            mma::mma_bf16(acc[m][2 * c], a[m][i], b[d - i][0], b[d - i][1]);
+            mma::mma_bf16(acc[m][2 * c + 1], a[m][i], b[d - i][2],
+                          b[d - i][3]);
+          }
+    }
+  }
+}
+
+// Up to four operands of one call, (K, B*S, D) each.
+template <typename T>
+struct HeadOperands {
+  const T* x[4];
+};
+
+// krel's padded copy: (K, P, DKP, sk) bf16 planes, column x holding krel
+// column x - off (off = (-S) mod 8), zero past dk and outside [0, S).
+template <typename T>
+static __global__ void krel_planes(const T* __restrict__ krel,
+                            bf16* __restrict__ dst, int K, int dk, int S,
+                            int dkp, int sk, int n_planes) {
+  const int off = sk - S;
+  const size_t n = (size_t)K * dkp * sk;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const int x = (int)(e % sk), d = (int)(e / sk % dkp);
+    const int kk = (int)(e / ((size_t)sk * dkp));
+    const int r = x - off;
+    float v = d < dk && r >= 0 && r < S
+                  ? to_f32(krel[((size_t)kk * dk + d) * S + r])
+                  : 0.0f;
+    for (int p = 0; p < n_planes; ++p) {
+      const bf16 h = __float2bfloat16(v);
+      dst[(((size_t)kk * n_planes + p) * dkp + d) * sk + x] = h;
+      v -= __bfloat162float(h);
+    }
+  }
+}
+
+// The operands' planes by head: operand o (blockIdx.y) of `src` (natural
+// (K, B*S, D) rows of T) to planes + o * n_planes * (N, S, dkp), each plane
+// the bf16 rounding of what the planes before it left, zero past dk: the
+// float32 operands' split, and the bf16 operands' aligned copy where dk is
+// no multiple of 8.
+template <typename T>
+static __global__ void head_planes(HeadOperands<T> src,
+                                   bf16* __restrict__ planes, int n_heads,
+                                   int S, int nheads, int dk, int dkp,
+                                   int n_planes) {
+  const int cv = dkp / 8;                    // 8-column pieces a row
+  const int total = n_heads * S * cv;        // a thread a piece
+  const size_t n = (size_t)n_heads * S * dkp;
+  const T* x = src.x[blockIdx.y];
+  bf16* out = planes + n_planes * n * blockIdx.y;
+  const size_t D = (size_t)nheads * dk;
+  for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < total;
+       idx += gridDim.x * blockDim.x) {
+    const int row = idx / cv, c = (idx - row * cv) * 8;   // row: n S + s
+    const int head = row / S, s = row - head * S;
+    const T* xr = x + ((size_t)(head / nheads) * S + s) * D +
+                  (size_t)(head % nheads) * dk;
+    float v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = c + e < dk ? to_f32(xr[c + e]) : 0.0f;
+    for (int p = 0; p < n_planes; ++p) {
+      uint4 w;
+      uint32_t* wp = reinterpret_cast<uint32_t*>(&w);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+        wp[e] = *reinterpret_cast<const uint32_t*>(&h);
+        v[2 * e] -= __low2float(h);
+        v[2 * e + 1] -= __high2float(h);
+      }
+      *reinterpret_cast<uint4*>(out + p * n + (size_t)row * dkp + c) = w;
+    }
+  }
+}
+
+inline int grid_of(size_t n) {
+  const size_t b = (n + 255) / 256;
+  return (int)(b < 4096 ? (b ? b : 1) : 4096);
+}
+
+inline size_t round256(size_t bytes) { return (bytes + 255) / 256 * 256; }
+
+// krel's padded planes and the operands' planes (float32: split; bf16
+// where dk is no multiple of 8: copied to aligned rows): the scratch both
+// directions share, in bytes.
+struct Prep {
+  int dkp, sk, planes;
+  bool pack;
+  size_t krel_bytes, ops_bytes;
+
+  Prep(int K, int n_heads, int S, int dk, int dtype, int n_ops,
+       int f32_planes) {
+    dkp = k5::padded_dk(dk);
+    sk = (S + 7) / 8 * 8;
+    planes = dtype == kFloat32 ? f32_planes : 1;
+    pack = dtype == kFloat32 || dk % 8 != 0;
+    krel_bytes = round256((size_t)K * planes * dkp * sk * sizeof(bf16));
+    ops_bytes = pack ? (size_t)n_ops * planes * n_heads * S * dkp *
+                           sizeof(bf16)
+                     : 0;
+  }
+  size_t bytes() const { return krel_bytes + ops_bytes; }
+};
+
+// Fills `scratch` with krel's padded planes and, where `pr.pack`, the n_ops
+// operands' planes, and H with where the kernels stage them from; returns
+// the padded krel planes.  bf16 operands that are not packed are read in
+// place: their rows and head offsets are 16-byte aligned (dk % 8 == 0 and
+// 16-byte aligned tensors, which the wrapper guarantees).
+template <typename T>
+cudaError_t prepare(const Prep& pr, const void* krel, const void* const* ops,
+                    int n_ops, void* scratch, int K, int n_batch, int S,
+                    int nheads, int dk, Heads& H, const bf16*& krp,
+                    cudaStream_t stream) {
+  bf16* kr = static_cast<bf16*>(scratch);
+  const size_t nk = (size_t)K * pr.dkp * pr.sk;
+  krel_planes<T><<<grid_of(nk), 256, 0, stream>>>(
+      static_cast<const T*>(krel), kr, K, dk, S, pr.dkp, pr.sk, pr.planes);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  krp = kr;
+  H.n_batch = n_batch;
+  H.S = S;
+  H.nheads = nheads;
+  H.dk = dk;
+  if (pr.pack) {
+    const int n_heads = K * n_batch * nheads;
+    bf16* planes = reinterpret_cast<bf16*>(static_cast<char*>(scratch) +
+                                           pr.krel_bytes);
+    HeadOperands<T> src{};
+    for (int o = 0; o < n_ops; ++o) src.x[o] = static_cast<const T*>(ops[o]);
+    const size_t n = (size_t)n_heads * S * pr.dkp;
+    head_planes<T><<<dim3(grid_of(n / 8), n_ops), 256, 0, stream>>>(
+        src, planes, n_heads, S, nheads, dk, pr.dkp, pr.planes);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    for (int o = 0; o < n_ops; ++o) H.p[o] = planes + o * pr.planes * n;
+    H.lds = pr.dkp;
+    H.plane = n;
+    H.planes = true;
+  } else {
+    for (int o = 0; o < n_ops; ++o) H.p[o] = static_cast<const bf16*>(ops[o]);
+    H.lds = nheads * dk;
+    H.plane = 0;
+    H.planes = false;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace k2
+}  // namespace cpc

@@ -1,0 +1,344 @@
+// K2: causal attention with Shaw relative positions, forward, on the
+// tensor cores (the body at every S <= 1024 and dk <= 256; past dk 256
+// relpos_attention_fwd.cu's rows body runs).
+//
+// Replaces cpc_audio_tpu/ops/pallas/head_attention.py `_fwd_kernel`
+// (called through `fused_relpos_attention`).  Per (k, batch row b, head h):
+//   s[i, j] = (q_i . k_j + q_i . krel[k][:, j - i + S - 1]) / sqrt(dk), j <= i
+//   o_i     = round(softmax_j(s[i, :]) * dropout[i, :]) . v
+// in the natural (K, B*S, D = nheads*dk) layout of the K-batched
+// projections; round() is the rounding of the probabilities to the input
+// dtype before their product with v, as the Pallas kernel casts them.
+// Softmax statistics are float32.  Dropout (dropout.cuh, keyed on (k, b,
+// h, i, j)) drops the probabilities after the normalising sum.
+//
+// Design (relpos_attention_tc.cuh): K5's forward (causal_attention_fwd.cu)
+// with the bias formed in the kernel.  One block of 4 warps per (query
+// tile, head), tiles of 64 rows (32 past 128 bf16 planes' values a row).
+// The q tile is staged once; for each key tile up to the diagonal, k, v
+// and the krel window are staged with cp.async into a double buffer (one
+// where that lets more blocks share an SM: `pick_bufs`).  Each warp forms
+// its row group's window product QP (16 rows x T + 16 window columns) on
+// mma.sync, stages it in shared memory, then the scores q . k^T, to which
+// each element adds its band value; the mask, the max and sum, the
+// dropout factor and the rounding of the probabilities stay in registers,
+// and p . v runs on mma.sync with the probability accumulators as its A
+// operand.  In bf16 a first walk over the key tiles finds each row's max
+// and sum, so that the second rounds the normalised p r, as the JAX kernel
+// rounds it (K5's one walk rounds exp(s - running max) r and divides by the
+// sum after p . v: one bf16 ulp off, which took an output past chip_smoke's
+// bf16 tolerance at S 244, where terms of p . v cancel).  Float32 keeps
+// that one walk: its planes carry p r exactly.  In float32, q, k, v and krel are split once a call into three
+// bf16 planes (six split products a product, as K5's forward:
+// ops/head_attention.py `relpos_attention_split` writes the arithmetic);
+// where the float32 window of DKP 256 does not fit beside the tiles, it is
+// staged 64 rows of dk at a time.
+//
+// What bounds it on an H100: at K 12, B 32, 8 heads, S 116, dk 32 the call
+// reads q, k, v (68 MB in bf16) and writes o (23 MB): 27 us at 3.35 TB/s;
+// its 0.8 GFLOP of causal products (6 dk a pair) take 1 us at the bf16
+// peak.  The tiles pad S 116 to 128 and the window product adds 1.25 score
+// tiles a key tile; 1.5 blocks of (query tile, head) an SM's worth of
+// loads are in flight at a time.
+#include "relpos_attention_tc.cuh"
+
+namespace {
+
+using cpc::k2::bf16;
+namespace k2 = cpc::k2;
+namespace k5 = cpc::k5;
+
+// bf16 planes a float32 operand of the forward: three, as K5's
+constexpr int kF32Planes = 3;
+
+template <typename T, int DKP>
+using FwdGeom =
+    k5::Geom<T, DKP, sizeof(T) == sizeof(float) ? kF32Planes : 1>;
+
+// q, `bufs` (k, v) buffers, the krel window (whole: `bufs` buffers; in
+// chunks of kc < DKP rows: one), the QP band
+template <typename T, int DKP>
+constexpr size_t fwd_bytes(int bufs, int kc) {
+  using G = FwdGeom<T, DKP>;
+  using W = k2::Win<G>;
+  return (1 + 2 * bufs) * G::kTileElems * sizeof(bf16) +
+         (kc == DKP ? bufs : 1) * W::kr_elems(kc) * sizeof(bf16) +
+         W::kQpBytes;
+}
+
+template <typename T, int DKP>
+struct Fwd {
+  using G = FwdGeom<T, DKP>;
+  using W = k2::Win<G>;
+  static constexpr int kKC =
+      fwd_bytes<T, DKP>(1, DKP) <= cpc::kSmemLimit ? DKP : 64;
+  static constexpr int kBufs = k2::pick_bufs(fwd_bytes<T, DKP>(1, kKC),
+                                             fwd_bytes<T, DKP>(2, kKC));
+  static constexpr size_t kSmem = fwd_bytes<T, DKP>(kBufs, kKC);
+  static_assert(kSmem <= cpc::kSmemLimit, "K2 forward shared memory");
+};
+
+template <typename T, int DKP>
+__global__ void __launch_bounds__(k5::kThreads) relpos_tc_fwd(
+    k2::Heads H, const bf16* __restrict__ krp, int sk, T* __restrict__ out,
+    float inv_sqrt, cpc::Dropout drop) {
+  using C = Fwd<T, DKP>;
+  using G = typename C::G;
+  using W = typename C::W;
+  constexpr int TE = G::kTileElems;
+  constexpr int NB = C::kBufs;
+  constexpr int KC = C::kKC;
+  constexpr bool kWhole = KC == DKP;
+  constexpr int KRE = W::kr_elems(KC);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + TE;               // NB buffers
+  bf16* Vs = Ks + NB * TE;          // NB buffers
+  bf16* Kr = Vs + NB * TE;          // NB windows (whole) or one chunk
+  float* QPs = reinterpret_cast<float*>(Kr + (kWhole ? NB : 1) * KRE);
+
+  const int n = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;   // every head's longest first
+  const int q0 = qt * G::kTile;
+  const int S = H.S;
+  const int nb = n / H.nheads;
+  const int warp = threadIdx.x >> 5;
+  const int rw = warp % G::kRowWarps;          // the warp's 16 rows
+  const int c0 = warp / G::kRowWarps * G::kDV;  // its output columns
+  const int r0 = q0 + rw * 16;
+  const int c_lo = W::c_lo(rw);
+  const int kk = nb / H.n_batch;
+  const uint32_t row_key = cpc::attention_row_key(
+      drop, kk, H.n_batch, nb % H.n_batch, H.nheads, n % H.nheads);
+  // key tile kt (and its v where with_v) into buffer b
+  auto stage_tile = [&](int kt, int b, bool with_v) {
+    k2::stage_head<G, DKP>(Ks + b * TE, H, 1, n, kt * G::kTile);
+    if (with_v) k2::stage_head<G, DKP>(Vs + b * TE, H, 2, n, kt * G::kTile);
+    if constexpr (kWhole)
+      k2::stage_window<G, DKP, DKP>(Kr + b * KRE, krp, kk, sk, 0,
+                                    sk - (qt - kt + 1) * G::kTile);
+    cpc::mma::cp_async_commit();
+  };
+  // the warp's scores of key tile kt in buffer buf, biased, scaled and
+  // masked: the row group's window product staged as its band first
+  auto scores = [&](float (&s)[G::kNT][4], int kt, int buf, int n_hi) {
+    float qp[W::kBandNT][4];
+    k2::zero_band<G>(qp);
+    if constexpr (kWhole) {
+      k2::window_product<G, KC>(qp, Qs, rw * 16, Kr + buf * KRE, 0, c_lo);
+    } else {
+      for (int d0 = 0; d0 < DKP; d0 += KC) {
+        __syncthreads();   // the chunk before is read
+        k2::stage_window<G, DKP, KC>(Kr, krp, kk, sk, d0,
+                                     sk - (qt - kt + 1) * G::kTile);
+        cpc::mma::cp_async_commit();
+        cpc::mma::cp_async_wait<0>();
+        __syncthreads();
+        k2::window_product<G, KC>(qp, Qs, rw * 16, Kr, d0, c_lo);
+      }
+    }
+    if (c0 == 0) k2::store_band<G>(QPs, qp, rw, W::kLdq);
+    if constexpr (G::kColWarps > 1)
+      __syncthreads();   // the pair's other warp reads the band
+    else
+      __syncwarp();
+    k5::rows_dot_rows<G, DKP>(s, Qs, rw * 16, Ks + buf * TE, 0, n_hi);
+    k2::bias_scale_mask<G>(s, QPs, W::kLdq, rw, q0, kt * G::kTile,
+                           inv_sqrt);
+  };
+  // waits for key tile kt, with tile kt + 1 put in flight where there
+  // are two buffers
+  auto next_tile = [&](int kt, int buf, bool with_v) {
+    if (NB == 2 && kt < qt) {
+      stage_tile(kt + 1, buf ^ 1, with_v);
+      cpc::mma::cp_async_wait<1>();
+    } else {
+      cpc::mma::cp_async_wait<0>();
+    }
+    __syncthreads();
+  };
+
+  // bf16: the rows' max and sum first, so that the probabilities are
+  // rounded normalised, as the JAX kernel rounds p r before . v; float32
+  // keeps the running max and sum, its planes carrying p r exactly
+  constexpr bool kStatsWalk = !G::kF32;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  k2::stage_head<G, DKP>(Qs, H, 0, n, q0);
+  stage_tile(0, 0, !kStatsWalk);
+  if constexpr (kStatsWalk) {
+    for (int kt = 0; kt <= qt; ++kt) {
+      const int buf = NB == 2 ? kt & 1 : 0;
+      next_tile(kt, buf, false);
+      float s[G::kNT][4];
+      scores(s, kt, buf, kt == qt ? 2 * rw + 2 : G::kNT);
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int nt = 0; nt < G::kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+      float ls[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = k5::quad_max(mx[h]);   // finite: key 0 <= every row
+        l[h] *= expf(m[h] - mx[h]);
+        m[h] = mx[h];
+      }
+#pragma unroll
+      for (int nt = 0; nt < G::kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ls[e >> 1] += expf(s[nt][e] - m[e >> 1]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] += k5::quad_sum(ls[h]);
+      __syncthreads();   // buffer `buf` and the band are reused next
+      if (NB == 1 && kt < qt) stage_tile(kt + 1, 0, false);
+    }
+    stage_tile(0, 0, true);
+  }
+  const float inv_l[2] = {1.0f / l[0], 1.0f / l[1]};
+
+  float o[G::kDV / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < G::kDV / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.0f;
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int buf = NB == 2 ? kt & 1 : 0;
+    const int n_hi = kt == qt ? 2 * rw + 2 : G::kNT;
+    const uint32_t keep =
+        k5::keep_bits<G>(drop, row_key, r0, kt * G::kTile, 0, n_hi, S);
+    next_tile(kt, buf, true);
+    float s[G::kNT][4];
+    scores(s, kt, buf, n_hi);
+    if constexpr (kStatsWalk) {
+#pragma unroll
+      for (int nt = 0; nt < G::kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[nt][e] = expf(s[nt][e] - m[e >> 1]) * inv_l[e >> 1] *
+                     k5::kept_factor(drop, keep, nt, e);
+    } else {
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int nt = 0; nt < G::kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+      float rescale[2], ls[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = k5::quad_max(mx[h]);   // finite: key 0 <= every row
+        rescale[h] = expf(m[h] - mx[h]);
+        m[h] = mx[h];
+      }
+#pragma unroll
+      for (int nt = 0; nt < G::kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = expf(s[nt][e] - m[e >> 1]);
+          ls[e >> 1] += p;
+          s[nt][e] = p * k5::kept_factor(drop, keep, nt, e);
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        l[h] = l[h] * rescale[h] + k5::quad_sum(ls[h]);
+#pragma unroll
+      for (int nt = 0; nt < G::kDV / 8; ++nt) {
+        o[nt][0] *= rescale[0];
+        o[nt][1] *= rescale[0];
+        o[nt][2] *= rescale[1];
+        o[nt][3] *= rescale[1];
+      }
+    }
+    k5::acc_times_rows<G, false>(o, s, Vs + buf * TE + c0, 0, n_hi / 2);
+    __syncthreads();   // buffer `buf` and the band are reused next
+    if (NB == 1 && kt < qt) stage_tile(kt + 1, 0, true);
+  }
+  const float one[2] = {1.0f, 1.0f};
+  const float fin[2] = {1.0f / l[0], 1.0f / l[1]};
+  const int D = H.nheads * H.dk;
+  k5::store_rows<G>(out + H.natural(n, D), o, r0, c0, S, H.dk,
+                    kStatsWalk ? one : fin, D);
+}
+
+template <typename T, int DKP>
+int launch(const k2::Heads& H, const bf16* krp, int sk, void* out, int N,
+           cpc::Dropout drop, cudaStream_t stream) {
+  using C = Fwd<T, DKP>;
+  auto kernel = relpos_tc_fwd<T, DKP>;
+  cudaError_t err = cpc::allow_smem(kernel, C::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(N, (H.S + C::G::kTile - 1) / C::G::kTile);
+  kernel<<<grid, k5::kThreads, C::kSmem, stream>>>(
+      H, krp, sk, static_cast<T*>(out),
+      1.0f / sqrtf(static_cast<float>(H.dk)), drop);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_any(const k2::Heads& H, const bf16* krp, int sk, void* out, int N,
+               cpc::Dropout drop, cudaStream_t s) {
+  switch (k5::padded_dk(H.dk)) {
+    case 32:
+      return launch<T, 32>(H, krp, sk, out, N, drop, s);
+    case 64:
+      return launch<T, 64>(H, krp, sk, out, N, drop, s);
+    case 128:
+      return launch<T, 128>(H, krp, sk, out, N, drop, s);
+    default:
+      return launch<T, 256>(H, krp, sk, out, N, drop, s);
+  }
+}
+
+k2::Prep prep_of(int K, int n_batch, int S, int nheads, int dk, int dtype) {
+  return k2::Prep(K, K * n_batch * nheads, S, dk, dtype, 3, kF32Planes);
+}
+
+}  // namespace
+
+// The body the forward runs at (S, dk): 1, the tensor-core tiles, at
+// S <= 1024 and dk <= 256 in both dtypes; 0, the rows body
+// (relpos_attention_fwd.cu), past that.
+extern "C" int cpc_relpos_attention_fwd_body(int S, int dk, int dtype) {
+  (void)dtype;
+  return S > 0 && S <= 1024 && k5::padded_dk(dk) != 0 && dk > 0 ? 1 : 0;
+}
+
+// Bytes of scratch the tensor-core forward needs: krel's padded planes
+// and, in float32, the three planes of q, k and v by head.
+extern "C" size_t cpc_relpos_attention_fwd_tc_scratch(int K, int n_batch,
+                                                      int S, int nheads,
+                                                      int dk, int dtype) {
+  return prep_of(K, n_batch, S, nheads, dk, dtype).bytes();
+}
+
+// q, k, v, out (K, n_batch*S, nheads*dk) and krel (K, dk, S) in `dtype`;
+// scratch of cpc_relpos_attention_fwd_tc_scratch bytes, 256-byte aligned.
+extern "C" int cpc_relpos_attention_fwd_tc(
+    const void* q, const void* k, const void* v, const void* krel, void* out,
+    void* scratch, int K, int n_batch, int S, int nheads, int dk,
+    const void* seed, unsigned int threshold, float keep_scale, int dtype,
+    void* stream) {
+  const int N = K * n_batch * nheads;
+  if (K <= 0 || n_batch <= 0 || nheads <= 0 || scratch == nullptr ||
+      cpc_relpos_attention_fwd_body(S, dk, dtype) != 1 ||
+      (dtype != cpc::kFloat32 && dtype != cpc::kBFloat16))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cpc::Dropout drop{static_cast<const int64_t*>(seed), threshold,
+                          keep_scale};
+  const k2::Prep pr = prep_of(K, n_batch, S, nheads, dk, dtype);
+  const void* ops[3] = {q, k, v};
+  k2::Heads H{};
+  const bf16* krp = nullptr;
+  cudaError_t err =
+      dtype == cpc::kFloat32
+          ? k2::prepare<float>(pr, krel, ops, 3, scratch, K, n_batch, S,
+                               nheads, dk, H, krp, s)
+          : k2::prepare<bf16>(pr, krel, ops, 3, scratch, K, n_batch, S,
+                              nheads, dk, H, krp, s);
+  if (err != cudaSuccess) return (int)err;
+  return dtype == cpc::kFloat32
+             ? launch_any<float>(H, krp, pr.sk, out, N, drop, s)
+             : launch_any<bf16>(H, krp, pr.sk, out, N, drop, s);
+}

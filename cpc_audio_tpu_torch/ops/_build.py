@@ -60,6 +60,21 @@ _SIGNATURES = {
                                  _I),
     # blocks, S, dk, dtype
     "cpc_relpos_attention_bwd_scratch": ([_I] * 4, ctypes.c_size_t),
+    # S, dk, dtype
+    "cpc_relpos_attention_fwd_body": ([_I] * 3, _I),
+    "cpc_relpos_attention_bwd_body": ([_I] * 3, _I),
+    # q, k, v, krel, out, scratch, K, n_batch, S, nheads, dk, dropout,
+    # dtype, stream
+    "cpc_relpos_attention_fwd_tc": ([_P] * 6 + [_I] * 5 + _DROP + [_I, _P],
+                                    _I),
+    # K, n_batch, S, nheads, dk, dtype
+    "cpc_relpos_attention_fwd_tc_scratch": ([_I] * 6, ctypes.c_size_t),
+    # q, k, v, krel, dout, dq, dk, dv, dkrel, scratch, K, n_batch, S,
+    # nheads, dk, dropout, dtype, stream
+    "cpc_relpos_attention_bwd_tc": ([_P] * 10 + [_I] * 5 + _DROP + [_I, _P],
+                                    _I),
+    # K, n_batch, S, nheads, dk, dtype
+    "cpc_relpos_attention_bwd_tc_scratch": ([_I] * 6, ctypes.c_size_t),
     # x, ln1w, ln1b, w1, b1, w2, b2, ln2w, ln2b, out, scratch, K, M, D, F,
     # eps, dropout, dtype, stream
     "cpc_layer_tail_fwd": ([_P] * 11 + [_I] * 4 + [_F] + _DROP + [_I, _P],

@@ -17,16 +17,31 @@ probabilities with the counter-based bits of ``ops/dropout.py``, keyed on
 (k, batch row, head, i, j).
 
 :func:`relpos_attention` is the differentiable entry point: its forward
-runs the K2 forward kernel (csrc/relpos_attention_fwd.cu, counted in
-``relpos_attention.launches``), its backward the K2 backward kernel
-(csrc/relpos_attention_bwd.cu, counted in
-``relpos_attention_bwd.launches``).  CPU tensors take the plain versions.
+runs the K2 forward kernel, counted in ``relpos_attention.launches``, its
+backward the K2 backward kernels, counted in
+``relpos_attention_bwd.launches``; each call also counts under its body in
+the function's ``body_launches``.  CPU tensors take the plain versions.
 
-Each block stages its head's operands in shared memory: as float32 at
-the default shapes, in bf16 where float32 does not fit (bf16 inputs), and
-past that the kernels read them in place; each kernel picks its layout
-from (S, dk) at compile time, and :func:`supported` gives the (S, dk)
-they take, without a card.
+Two bodies, by shape (:func:`fwd_body`, :func:`bwd_body`, mirrored by the
+C exports ``cpc_relpos_attention_{fwd,bwd}_body``):
+
+- "tc", at every S <= 1024 and dk <= 256 in both dtypes: the tensor-core
+  body (csrc/relpos_attention_tc_fwd.cu, csrc/relpos_attention_tc_bwd.cu,
+  on K5's mma.sync tiles): one block per (query tile, head) in the
+  forward, the Shaw bias from the window product q . krel[:, window] of
+  each tile pair; the backward in a row pass (statistics, dq), a column
+  pass (dk, dv) and a diagonal pass (dkrel's partial windows, summed in a
+  fixed order), with no (S, S) tile anywhere.  Float32 operands run as
+  split bf16 planes (three in the forward, two in the backward):
+  :func:`relpos_attention_split` and :func:`relpos_attention_bwd_split`
+  write that arithmetic plainly.
+- "rows", past dk 256 (``--hiddenEncoder`` past 2048): the first bodies
+  (csrc/relpos_attention_fwd.cu, csrc/relpos_attention_bwd.cu), one block
+  a (k, b, h) with warps owning query rows, operands staged in shared
+  memory or read in place, the backward's (S, S) tiles in device memory
+  walked in chunks of ``TILE_BUDGET``.
+
+:func:`supported` gives the (S, dk) the kernels take, without a card.
 """
 
 from __future__ import annotations
@@ -36,34 +51,31 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build, dropout
+from . import _build, causal_attention, dropout, ffn
 
 _NAME = "relpos_attention_fwd"
 _BWD_NAME = "relpos_attention_bwd"
 # the longest sequence the kernels are checked at on the card (S 1012 and
 # 1024 in tests/test_torch_cuda.py; --sizeWindow 163840 gives 1012
-# anchors).  Their memory would take more: past shared memory a block
-# keeps its (S, S) ds and p r rows in 8 warps' float32 rows of S each, two
-# per warp, 64 S bytes within 227 KB (S 3632)
+# anchors).  Their memory would take more: the rows bodies keep a block's
+# (S, S) ds and p r rows in 8 warps' float32 rows of S each, two per warp,
+# 64 S bytes within 227 KB (S 3632)
 MAX_S = 1024
-# bytes of the backward's device-memory (S, S) tiles that one call holds
-# at once: past it the launches walk the (k, b) rows of heads in chunks,
-# each reusing the scratch (a (k, b, h) block takes 2 S^2 values: 8.4 MB
-# in float32 at S 1024, 67 MB a row of 8 heads, 25 GB over 12 heads at
-# B 32)
+# bytes of the rows backward's device-memory (S, S) tiles that one call
+# holds at once: past it the launches walk the (k, b) rows of heads in
+# chunks, each reusing the scratch (a (k, b, h) block takes 2 S^2 values:
+# 8.4 MB in float32 at S 1024, 67 MB a row of 8 heads)
 TILE_BUDGET = 1 << 30
 
 
 def supported(S: int, dk: int) -> Optional[str]:
     """Why the kernels refuse a sequence length S and head width dk, or
-    None: S <= 1024, the longest checked on the card (a block's 8 warps
-    keep two float32 rows of S beside any operands in shared memory; the
-    (S, S) tiles go to a device-memory scratch of at most
-    ``TILE_BUDGET``, walked in chunks of blocks) and any dk, in both
-    dtypes (the
-    kernels read a head's columns one at a time, so any dk is aligned;
-    past their shared memory the operands are read in place, whose shared
-    memory, the score rows, does not grow with dk)."""
+    None: S <= 1024, the longest checked on the card, and any dk, in both
+    dtypes: the tensor-core body to dk 256 (its operands padded to 32, 64,
+    128 or 256 columns), the rows bodies past it (they read a head's
+    columns one at a time; past their shared memory the operands are read
+    in place and the backward's (S, S) tiles go to a device-memory scratch
+    of at most ``TILE_BUDGET``, walked in chunks of blocks)."""
     if not (0 < S <= MAX_S and dk > 0):
         return f"S={S}, dk={dk} out of range (0 < S <= {MAX_S}, dk > 0)"
     return None
@@ -147,6 +159,272 @@ def relpos_attention_bwd_ref(q, k, v, krel, dout, n_batch: int, nheads: int,
     return (_unheads(dqh, dt), _unheads(dkh, dt), _unheads(dvh, dt), dkrel)
 
 
+# bf16 planes a float32 operand of the tensor-core body: three in the
+# forward (six split products a product), two in the backward (three), as
+# K5's (csrc/relpos_attention_tc.cuh)
+FWD_PLANES = causal_attention.FWD_PLANES
+BWD_PLANES = causal_attention.BWD_PLANES
+# the widest head the tensor-core body takes (DKP 256); past it the rows
+# bodies run
+TC_MAX_DK = 256
+
+
+def tile_rows(dk: int, dtype: torch.dtype, backward: bool = False) -> int:
+    """Query rows (and keys) a tile of the tensor-core body: 64 where a
+    row's bf16 planes hold at most 128 values, else 32 (K5's ``Geom``)."""
+    planes = 1 if dtype == torch.bfloat16 else (
+        BWD_PLANES if backward else FWD_PLANES)
+    return causal_attention.key_tile(dk, planes)
+
+
+def fwd_body(S: int, dk: int, dtype: torch.dtype) -> str:
+    """The body csrc/relpos_attention_fwd.cu runs: "tc", the tensor-core
+    tiles, at every S <= 1024 and dk <= 256 in both dtypes, else "rows",
+    one block a (k, b, h) with warps owning query rows
+    (``cpc_relpos_attention_fwd_body``: 1, 0)."""
+    return "tc" if 0 < S <= MAX_S and 0 < dk <= TC_MAX_DK else "rows"
+
+
+def bwd_body(S: int, dk: int, dtype: torch.dtype) -> str:
+    """The body csrc/relpos_attention_bwd.cu runs: "tc" or "rows", as
+    :func:`fwd_body` (``cpc_relpos_attention_bwd_body``)."""
+    return fwd_body(S, dk, dtype)
+
+
+BODY_CODES = {"rows": 0, "tc": 1}
+
+
+def _planes(x: torch.Tensor, products: int) -> torch.Tensor:
+    """x as the kernel's operand: float32 unchanged where its products are
+    split (``products`` 3 or 6), else rounded to bf16 (the bf16 body's
+    one plane, exact for bf16 inputs)."""
+    return x.float() if products > 1 else x.to(torch.bfloat16).float()
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, products: int) -> torch.Tensor:
+    """a @ b as the body forms it: ``products`` split products of bf16
+    planes (ffn.split_matmul), or one product of bf16 values summed in
+    float32 (products 1: the operands are bf16 already)."""
+    return ffn.split_matmul(a, b, products) if products > 1 else a @ b
+
+
+def _tiled(t: torch.Tensor, n_batch: int, nheads: int, Sp: int):
+    """(K, M, D) -> (K, B, h, Sp, dk) float32, rows past S zero (the
+    kernel's zero-filled tile rows)."""
+    th = _heads(t, n_batch, nheads)
+    S = th.shape[3]
+    return torch.nn.functional.pad(th, (0, 0, 0, Sp - S))
+
+
+def krel_window(krel: torch.Tensor, S: int, i0: int, j0: int,
+                T: int) -> torch.Tensor:
+    """(K, dk, 2T): the krel columns r = j0 - i0 + S - T + c, c in [0, 2T),
+    of query tile i0 and key tile j0, zero where r is outside [0, S) (only
+    masked pairs read them): pair (i, j) reads column
+    c = (j - j0) - (i - i0) + T - 1."""
+    r = torch.arange(2 * T, device=krel.device) + (j0 - i0 + S - T)
+    ok = ((r >= 0) & (r < S)).to(torch.float32)
+    return krel.float()[:, :, r.clamp(0, S - 1)] * ok
+
+
+def _skew_idx(T: int, device) -> torch.Tensor:
+    """(T, T) window column c = j - i + T - 1 of tile pair (i, j)."""
+    i = torch.arange(T, device=device)[:, None]
+    j = torch.arange(T, device=device)[None, :]
+    return j - i + T - 1
+
+
+def relpos_attention_split(q, k, v, krel, n_batch: int, nheads: int,
+                           rate: float = 0.0,
+                           seed: Optional[torch.Tensor] = None,
+                           products: Optional[int] = None) -> torch.Tensor:
+    """The tensor-core forward's arithmetic written plainly
+    (csrc/relpos_attention_tc_fwd.cu), tile by tile with the kernel's T and
+    windows: for query tile [i0, i0 + T) and key tile [j0, j0 + T) the
+    scores q . k^T and the window product QP = q . krel[:, window] (T x
+    2T), the bias QP[i, j - i + T - 1] added in float32.  In float32 every
+    product is ``products`` split products of bf16 planes (6 from three,
+    the kernel's; 3 from two, for comparison), with a running max,
+    probabilities exp(s - running max) r, the partial output rescaled as
+    the max moves and divided by the row sum at the end.  In bf16 one
+    product of the bf16 operands; a first walk over the key tiles finds
+    each row's max and sum, the second rounds the normalised p r to bf16
+    before . v, and the output is rounded to bf16.  For tests and
+    measurements only: the card runs the kernel."""
+    dt = q.dtype
+    P = products or (1 if dt == torch.bfloat16 else 6)
+    K, M, D = q.shape
+    S, dk = M // n_batch, D // nheads
+    T = tile_rows(dk, dt)
+    nq = -(-S // T)
+    Sp = nq * T
+    qh, kh, vh = (_planes(_tiled(t, n_batch, nheads, Sp), P)
+                  for t in (q, k, v))
+    kr = _planes(krel, P)
+    mask = dropout.attention_mask(seed, rate, K, n_batch, nheads, S,
+                                  q.device)
+    if mask is not None:
+        mask = torch.nn.functional.pad(mask, (0, Sp - S, 0, Sp - S))
+    inv_sqrt = 1.0 / math.sqrt(dk)
+    lead = (K, n_batch, nheads)
+    idx = _skew_idx(T, q.device).expand(*lead, T, T)
+
+    def scores(qt, kt):
+        i0, j0 = qt * T, kt * T
+        qs = qh[..., i0:i0 + T, :]
+        win = krel_window(kr, S, i0, j0, T)[:, None, None]
+        s = _mm(qs, kh[..., j0:j0 + T, :].transpose(-1, -2), P)
+        s = (s + torch.gather(_mm(qs, win, P), -1, idx)) * inv_sqrt
+        i = torch.arange(i0, i0 + T, device=q.device)[:, None]
+        j = torch.arange(j0, j0 + T, device=q.device)[None, :]
+        return s.masked_fill(j > i, float("-inf"))
+
+    out = torch.zeros(*lead, Sp, dk, device=q.device)
+    for qt in range(nq):
+        i0 = qt * T
+        m = torch.full((*lead, T, 1), float("-inf"), device=q.device)
+        l = torch.zeros(*lead, T, 1, device=q.device)
+        if P == 1:      # the rows' max and sum first
+            for kt in range(qt + 1):
+                s = scores(qt, kt)
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                l = l * torch.exp(m - m_new) + torch.exp(s - m_new).sum(
+                    -1, keepdim=True)
+                m = m_new
+        o = torch.zeros(*lead, T, dk, device=q.device)
+        for kt in range(qt + 1):
+            j0 = kt * T
+            s = scores(qt, kt)
+            r = 1.0 if mask is None else mask[..., i0:i0 + T, j0:j0 + T]
+            if P == 1:
+                pd = (torch.exp(s - m) * (1.0 / l) * r).to(
+                    torch.bfloat16).float()
+                o = o + pd @ vh[..., j0:j0 + T, :]
+                continue
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            rescale = torch.exp(m - m_new)
+            e = torch.exp(s - m_new)
+            l = l * rescale + e.sum(-1, keepdim=True)
+            o = o * rescale + _mm(e * r, vh[..., j0:j0 + T, :], P)
+            m = m_new
+        out[..., i0:i0 + T, :] = o if P == 1 else o * (1.0 / l)
+    return _unheads(out[..., :S, :], dt)
+
+
+def relpos_attention_bwd_split(q, k, v, krel, dout, n_batch: int,
+                               nheads: int, rate: float = 0.0,
+                               seed: Optional[torch.Tensor] = None,
+                               products: Optional[int] = None
+                               ) -> Tuple[torch.Tensor, ...]:
+    """The tensor-core backward's arithmetic written plainly
+    (csrc/relpos_attention_tc_bwd.cu), in its three passes with the kernel's
+    T and windows.  The row pass walks the key tiles twice: first for the
+    rows' m, l and c = sum_j p dp (online), then for p, ds and
+    dq = ds . k + U . krel[:, window]^T, with U the (T x 2T) unskewed ds,
+    U[i, j - i + T - 1] = ds[i, j].  The column pass forms dk = ds^T . q
+    and dv = (p r)^T . do.  The diagonal pass sums dkrel's window
+    products q^T . U over the tile pairs of each tile diagonal qt - kt,
+    then each krel column from the (at most two) windows that hold it.
+    In float32 every product is ``products`` split products (3 from two
+    planes, the kernel's); in bf16 one product of bf16 operands, with ds
+    and p r rounded to bf16 as the JAX kernel casts them.  Returns (dq,
+    dk, dv) in the input dtype and dkrel (K, dk, S) float32.  For tests
+    and measurements only."""
+    dt = q.dtype
+    P = products or (1 if dt == torch.bfloat16 else 3)
+    K, M, D = q.shape
+    S, dk = M // n_batch, D // nheads
+    T = tile_rows(dk, dt, backward=True)
+    nq = -(-S // T)
+    Sp = nq * T
+    qh, kh, vh, doh = (_planes(_tiled(t, n_batch, nheads, Sp), P)
+                       for t in (q, k, v, dout))
+    kr = _planes(krel, P)
+    mask = dropout.attention_mask(seed, rate, K, n_batch, nheads, S,
+                                  q.device)
+    if mask is not None:
+        mask = torch.nn.functional.pad(mask, (0, Sp - S, 0, Sp - S))
+    inv_sqrt = 1.0 / math.sqrt(dk)
+    lead = (K, n_batch, nheads)
+    idx = _skew_idx(T, q.device).expand(*lead, T, T)
+    dev = q.device
+
+    def tile(qt, kt):
+        """s (scaled, masked), dp r and r of tile pair (qt, kt)."""
+        i0, j0 = qt * T, kt * T
+        qs = qh[..., i0:i0 + T, :]
+        win = krel_window(kr, S, i0, j0, T)[:, None, None]
+        s = _mm(qs, kh[..., j0:j0 + T, :].transpose(-1, -2), P)
+        s = (s + torch.gather(_mm(qs, win, P), -1, idx)) * inv_sqrt
+        i = torch.arange(i0, i0 + T, device=dev)[:, None]
+        j = torch.arange(j0, j0 + T, device=dev)[None, :]
+        live = (j <= i) & (i < S)
+        s = s.masked_fill(j > i, float("-inf"))
+        dp = _mm(doh[..., i0:i0 + T, :],
+                 vh[..., j0:j0 + T, :].transpose(-1, -2), P)
+        r = None if mask is None else mask[..., i0:i0 + T, j0:j0 + T]
+        return s, dp if r is None else dp * r, r, live, win
+
+    # row pass, first walk: m, l, c per query row
+    stats = []
+    for qt in range(nq):
+        m = torch.full((*lead, T, 1), float("-inf"), device=dev)
+        l = torch.zeros(*lead, T, 1, device=dev)
+        c = torch.zeros(*lead, T, 1, device=dev)
+        for kt in range(qt + 1):
+            s, dpr, _, _, _ = tile(qt, kt)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            rescale = torch.exp(m - m_new)
+            e = torch.exp(s - m_new)
+            l = l * rescale + e.sum(-1, keepdim=True)
+            c = c * rescale + (e * dpr).sum(-1, keepdim=True)
+            m = m_new
+        inv_l = 1.0 / l
+        stats.append((m, inv_l, c * inv_l))
+
+    def ds_pd(qt, kt):
+        s, dpr, r, live, win = tile(qt, kt)
+        m, inv_l, c = stats[qt]
+        p = torch.exp(s - m) * inv_l
+        ds = torch.where(live, p * (dpr - c) * inv_sqrt, 0.0)
+        pd = torch.where(live, p if r is None else p * r, 0.0)
+        if P == 1:
+            ds, pd = (x.to(torch.bfloat16).float() for x in (ds, pd))
+        return ds, pd, win
+
+    dqh = torch.zeros(*lead, Sp, dk, device=dev)
+    dkh = torch.zeros(*lead, Sp, dk, device=dev)
+    dvh = torch.zeros(*lead, Sp, dk, device=dev)
+    windows = [torch.zeros(K, dk, 2 * T, device=dev) for _ in range(nq)]
+    for qt in range(nq):
+        i0 = qt * T
+        for kt in range(qt + 1):
+            j0 = kt * T
+            ds, pd, win = ds_pd(qt, kt)
+            U = torch.zeros(*lead, T, 2 * T, device=dev).scatter_(
+                -1, idx, ds)
+            dqh[..., i0:i0 + T, :] += (
+                _mm(ds, kh[..., j0:j0 + T, :], P)
+                + _mm(U, win.transpose(-1, -2), P))
+            dkh[..., j0:j0 + T, :] += _mm(ds.transpose(-1, -2),
+                                          qh[..., i0:i0 + T, :], P)
+            dvh[..., j0:j0 + T, :] += _mm(pd.transpose(-1, -2),
+                                          doh[..., i0:i0 + T, :], P)
+            # the diagonal pass: window qt - kt, summed over b, h
+            part = _mm(qh[..., i0:i0 + T, :].transpose(-1, -2), U, P)
+            windows[qt - kt] += part.sum((1, 2))
+    # each krel column r from the windows that hold it: window delta
+    # starts at column S - (delta + 1) T
+    dkrel = torch.zeros(K, dk, S, device=dev)
+    for delta, w in enumerate(windows):
+        r0 = S - (delta + 1) * T
+        lo, hi = max(r0, 0), min(r0 + 2 * T, S)
+        if lo < hi:
+            dkrel[..., lo:hi] += w[..., lo - r0:hi - r0]
+    return (_unheads(dqh[..., :S, :], dt), _unheads(dkh[..., :S, :], dt),
+            _unheads(dvh[..., :S, :], dt), dkrel)
+
+
 def _check_shapes(name: str, q, k, v, krel, n_batch: int, nheads: int,
                   others=()) -> Tuple[int, int]:
     K, M, D = q.shape
@@ -165,12 +443,21 @@ def _check_shapes(name: str, q, k, v, krel, n_batch: int, nheads: int,
     return S, dk
 
 
+def _aligned(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The tensor-core body's operands, each 16-byte aligned: its bf16
+    rows are read in place with 16-byte copies (a tensor off that
+    alignment, a view into a larger one, is copied)."""
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in ts)
+
+
 def relpos_attention_fwd(q, k, v, krel, n_batch: int, nheads: int,
                          rate: float = 0.0,
                          seed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Forward: (K, n_batch*S, D) in the input dtype.  CPU tensors run
-    :func:`relpos_attention_ref`; CUDA tensors launch the kernel and add
-    one to ``relpos_attention.launches``."""
+    :func:`relpos_attention_ref`; CUDA tensors launch the kernel of the
+    body :func:`fwd_body` picks and add one to
+    ``relpos_attention.launches`` and to ``relpos_attention.
+    body_launches`` of that body."""
     dropout.check_rate(rate, seed, _NAME)
     if not _build.runs_kernel(_NAME, q, k, v, krel,
                               *dropout.seed_tensors(rate, seed)):
@@ -181,14 +468,30 @@ def relpos_attention_fwd(q, k, v, krel, n_batch: int, nheads: int,
     _build.check_inputs(_NAME, q.dtype, q=q, k=k, v=v, krel=krel)
     out = torch.empty_like(q)
     lib = _build.library()
+    code = _build.DTYPE_CODES[q.dtype]
+    body = fwd_body(S, dk, q.dtype)
+    if body == "tc":
+        q, k, v = _aligned(q, k, v)
     with torch.cuda.device(q.device):
-        status = lib.cpc_relpos_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), krel.data_ptr(),
-            out.data_ptr(), K, n_batch, S, nheads, dk,
-            *dropout.kernel_args(rate, seed), _build.DTYPE_CODES[q.dtype],
-            _build.stream(q.device))
+        if body == "tc":
+            # krel's padded bf16 planes and, in float32, the three planes
+            # of q, k, v by head (csrc/relpos_attention_tc_fwd.cu)
+            scratch = _build.scratch(lib.cpc_relpos_attention_fwd_tc_scratch(
+                K, n_batch, S, nheads, dk, code), q.device)
+            status = lib.cpc_relpos_attention_fwd_tc(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), krel.data_ptr(),
+                out.data_ptr(), _build.ptr(scratch), K, n_batch, S, nheads,
+                dk, *dropout.kernel_args(rate, seed), code,
+                _build.stream(q.device))
+        else:
+            status = lib.cpc_relpos_attention_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), krel.data_ptr(),
+                out.data_ptr(), K, n_batch, S, nheads, dk,
+                *dropout.kernel_args(rate, seed), code,
+                _build.stream(q.device))
     _build.check(status, _NAME)
     relpos_attention.launches += 1
+    relpos_attention.body_launches[body] += 1
     return out
 
 
@@ -211,7 +514,9 @@ def relpos_attention_bwd(q, k, v, krel, dout, n_batch: int, nheads: int,
                          ) -> Tuple[torch.Tensor, ...]:
     """Backward: (dq, dk, dv) in the input dtype, dkrel float32.  CPU
     tensors run :func:`relpos_attention_bwd_ref`; CUDA tensors launch the
-    kernel and add one to ``relpos_attention_bwd.launches``."""
+    kernels of the body :func:`bwd_body` picks and add one to
+    ``relpos_attention_bwd.launches`` and to its ``body_launches`` of that
+    body."""
     dropout.check_rate(rate, seed, _BWD_NAME)
     if not _build.runs_kernel(_BWD_NAME, q, k, v, krel, dout,
                               *dropout.seed_tensors(rate, seed)):
@@ -226,29 +531,49 @@ def relpos_attention_bwd(q, k, v, krel, dout, n_batch: int, nheads: int,
     code = _build.DTYPE_CODES[q.dtype]
     dq, dkk, dv = (torch.empty_like(q) for _ in range(3))
     dkrel = torch.empty((K, dk, S), dtype=torch.float32, device=q.device)
-    part = torch.empty((K, n_batch * nheads, dk, S), dtype=torch.float32,
-                       device=q.device)
-    # the (S, S) ds and p * r tiles of each block, where they do not fit
-    # in shared memory beside the operands: one chunk of blocks at a time
-    k_chunk, b_chunk = tile_chunk(lib.cpc_relpos_attention_bwd_scratch(
-        nheads, S, dk, code), K, n_batch)
-    n_tiles = lib.cpc_relpos_attention_bwd_scratch(
-        k_chunk * b_chunk * nheads, S, dk, code)
-    tiles = torch.empty(n_tiles, dtype=torch.uint8,
-                        device=q.device) if n_tiles else None
+    body = bwd_body(S, dk, q.dtype)
+    if body == "tc":
+        q, k, v, dout = _aligned(q, k, v, dout)
     with torch.cuda.device(q.device):
-        status = lib.cpc_relpos_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), krel.data_ptr(),
-            dout.data_ptr(), dq.data_ptr(), dkk.data_ptr(), dv.data_ptr(),
-            dkrel.data_ptr(), part.data_ptr(), _build.ptr(tiles), K,
-            k_chunk, b_chunk, n_batch, S, nheads, dk,
-            *dropout.kernel_args(rate, seed), code, _build.stream(q.device))
+        if body == "tc":
+            # the rows' statistics, the diagonal pass's partial windows,
+            # krel's padded planes and, in float32, the two planes of q, k,
+            # v and do by head (csrc/relpos_attention_tc_bwd.cu)
+            scratch = _build.scratch(lib.cpc_relpos_attention_bwd_tc_scratch(
+                K, n_batch, S, nheads, dk, code), q.device)
+            status = lib.cpc_relpos_attention_bwd_tc(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), krel.data_ptr(),
+                dout.data_ptr(), dq.data_ptr(), dkk.data_ptr(),
+                dv.data_ptr(), dkrel.data_ptr(), _build.ptr(scratch), K,
+                n_batch, S, nheads, dk, *dropout.kernel_args(rate, seed),
+                code, _build.stream(q.device))
+        else:
+            part = torch.empty((K, n_batch * nheads, dk, S),
+                               dtype=torch.float32, device=q.device)
+            # the (S, S) ds and p * r tiles of each block, where they do
+            # not fit in shared memory beside the operands: one chunk of
+            # blocks at a time
+            k_chunk, b_chunk = tile_chunk(
+                lib.cpc_relpos_attention_bwd_scratch(nheads, S, dk, code), K,
+                n_batch)
+            n_tiles = lib.cpc_relpos_attention_bwd_scratch(
+                k_chunk * b_chunk * nheads, S, dk, code)
+            tiles = _build.scratch(n_tiles, q.device)
+            status = lib.cpc_relpos_attention_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), krel.data_ptr(),
+                dout.data_ptr(), dq.data_ptr(), dkk.data_ptr(),
+                dv.data_ptr(), dkrel.data_ptr(), part.data_ptr(),
+                _build.ptr(tiles), K, k_chunk, b_chunk, n_batch, S, nheads,
+                dk, *dropout.kernel_args(rate, seed), code,
+                _build.stream(q.device))
     _build.check(status, _BWD_NAME)
     relpos_attention_bwd.launches += 1
+    relpos_attention_bwd.body_launches[body] += 1
     return dq, dkk, dv, dkrel
 
 
 relpos_attention_bwd.launches = 0
+relpos_attention_bwd.body_launches = {"rows": 0, "tc": 0}
 
 
 class _RelposAttention(torch.autograd.Function):
@@ -284,3 +609,4 @@ def relpos_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 relpos_attention.launches = 0
+relpos_attention.body_launches = {"rows": 0, "tc": 0}

@@ -61,9 +61,9 @@ def test_lstm_kernel(dev, dtype, B, T, H):
 @pytest.mark.parametrize("S,dk", [(116, 32), (20, 16), (116, 25), (20, 33),
                                   (116, 132), (20, 256)])
 def test_relpos_attention_kernel(dev, dtype, S, dk):
-    """dk 25 and 33 (--hiddenEncoder 200 and 264): no multiple of 4, read
-    a column at a time; dk 132 and 256 (--hiddenEncoder 1056 and 2048):
-    past K5's 128, staged in bf16 or read in place."""
+    """dk 25 and 33 (--hiddenEncoder 200 and 264): no multiple of 8,
+    copied to aligned planes first; dk 132 and 256 (--hiddenEncoder 1056
+    and 2048): padded to DKP 256, tiles of 32 rows."""
     rng = np.random.RandomState(S)
     K, B, h = 2, 3, 2
     args = [_rand(rng, dev, dtype, K, B * S, h * dk) for _ in range(3)]
@@ -192,13 +192,11 @@ def test_relpos_attention_bwd_kernel(dev, dtype, S, dk, rate):
     """Forward at the rate, then the backward, each against its plain
     version with the same seed: at rate 0.1 a mask that differed between
     the kernel and dropout.py would fail both.  (116, 64) is the heads of
-    --hiddenEncoder 512 (the backward's bf16 tiles in shared memory, the
-    float32 ones in device memory), (244, 32) those of --sizeWindow 40960
-    (device-memory tiles in both dtypes), (244, 64) those of both flags
-    (operands staged in bf16, read in place in float32), (116, 25) and
-    (116, 132) those of --hiddenEncoder 200 and 1056, (1012, 32) those of
-    --sizeWindow 163840 and (1024, 256) the longest S the gate takes at
-    the widest head."""
+    --hiddenEncoder 512, (244, 32) those of --sizeWindow 40960, (244, 64)
+    those of both flags, (116, 25) and (116, 132) those of
+    --hiddenEncoder 200 and 1056, (1012, 32) those of --sizeWindow 163840
+    and (1024, 256) the longest S the gate takes at the widest head of the
+    tensor-core body."""
     rng = np.random.RandomState(S + dk)
     K, B, h = 2, 3, 2
     args = [_rand(rng, dev, dtype, K, B * S, h * dk) for _ in range(3)]
@@ -218,16 +216,98 @@ def test_relpos_attention_bwd_kernel(dev, dtype, S, dk, rate):
         _close(g, w, BWD_REL[dtype], name)
 
 
+@pytest.mark.parametrize("rate", RATES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dk", [25, 32, 64, 96, 132, 256])
+@pytest.mark.parametrize("S", [1, 7, 116, 244, 1012, 1024])
+def test_relpos_attention_tc_body(dev, S, dk, dtype, rate):
+    """The tensor-core body (csrc/relpos_attention_tc_*.cu) at every S up
+    to 1024 it takes, down to one row and a ragged tile, and every dk
+    class (25: copied to aligned planes; 96, 132: padded to DKP 128, 256):
+    forward and backward against the plain versions, on K 2 x B 3 x h 2
+    heads of several query tiles, each call under its body's count and
+    bit-identical when run again."""
+    rng = np.random.RandomState(S * 7 + dk)
+    K, B, h = 2, 3, 2
+    args = [_rand(rng, dev, dtype, K, B * S, h * dk) for _ in range(3)]
+    args.append(_rand(rng, dev, dtype, K, dk, S, scale=0.5))
+    dout = _rand(rng, dev, dtype, K, B * S, h * dk, scale=0.1)
+    seed = _seed(dev)
+    assert head_attention.fwd_body(S, dk, dtype) == "tc"
+    assert head_attention.bwd_body(S, dk, dtype) == "tc"
+    fwd_before = head_attention.relpos_attention.body_launches["tc"]
+    bwd_before = head_attention.relpos_attention_bwd.body_launches["tc"]
+    got = head_attention.relpos_attention_fwd(*args, B, h, rate, seed)
+    torch.testing.assert_close(
+        got, head_attention.relpos_attention_ref(*args, B, h, rate, seed),
+        **TOL[dtype])
+    grads = head_attention.relpos_attention_bwd(*args, dout, B, h, rate,
+                                                seed)
+    want = head_attention.relpos_attention_bwd_ref(*args, dout, B, h, rate,
+                                                   seed)
+    for name, g, w in zip(("dq", "dk", "dv", "dkrel"), grads, want):
+        _close(g, w, BWD_REL[dtype], name)
+    assert torch.equal(
+        head_attention.relpos_attention_fwd(*args, B, h, rate, seed), got)
+    again = head_attention.relpos_attention_bwd(*args, dout, B, h, rate,
+                                                seed)
+    for name, g, a in zip(("dq", "dk", "dv", "dkrel"), grads, again):
+        assert torch.equal(g, a), name
+    torch.cuda.synchronize()
+    assert head_attention.relpos_attention.body_launches["tc"] == \
+        fwd_before + 2
+    assert head_attention.relpos_attention_bwd.body_launches["tc"] == \
+        bwd_before + 2
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_relpos_attention_bodies_mirror_the_kernels(dev, dtype):
+    """The pure choice of body (ops/head_attention.py fwd_body / bwd_body,
+    no card needed) is the C library's (cpc_relpos_attention_{fwd,bwd}_body),
+    and past dk 256 the rows bodies run, against the plain versions."""
+    from cpc_audio_tpu_torch.ops import _build
+    lib, code = _build.library(), _build.DTYPE_CODES[dtype]
+    codes = head_attention.BODY_CODES
+    for S in (1, 7, 116, 244, 1012, 1024):
+        for dk in (1, 25, 32, 64, 96, 132, 256, 257, 264, 512):
+            assert lib.cpc_relpos_attention_fwd_body(S, dk, code) == \
+                codes[head_attention.fwd_body(S, dk, dtype)], (S, dk)
+            assert lib.cpc_relpos_attention_bwd_body(S, dk, code) == \
+                codes[head_attention.bwd_body(S, dk, dtype)], (S, dk)
+    S, dk, K, B, h = 20, 264, 2, 3, 2
+    rng = np.random.RandomState(11)
+    args = [_rand(rng, dev, dtype, K, B * S, h * dk) for _ in range(3)]
+    args.append(_rand(rng, dev, dtype, K, dk, S, scale=0.5))
+    dout = _rand(rng, dev, dtype, K, B * S, h * dk, scale=0.1)
+    seed = _seed(dev)
+    rows = (head_attention.relpos_attention.body_launches["rows"],
+            head_attention.relpos_attention_bwd.body_launches["rows"])
+    torch.testing.assert_close(
+        head_attention.relpos_attention_fwd(*args, B, h, 0.1, seed),
+        head_attention.relpos_attention_ref(*args, B, h, 0.1, seed),
+        **TOL[dtype])
+    got = head_attention.relpos_attention_bwd(*args, dout, B, h, 0.1, seed)
+    want = head_attention.relpos_attention_bwd_ref(*args, dout, B, h, 0.1,
+                                                   seed)
+    for name, g, w in zip(("dq", "dk", "dv", "dkrel"), got, want):
+        _close(g, w, BWD_REL[dtype], name)
+    assert (head_attention.relpos_attention.body_launches["rows"],
+            head_attention.relpos_attention_bwd.body_launches["rows"]) == \
+        (rows[0] + 1, rows[1] + 1)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_relpos_attention_bwd_walks_blocks_in_chunks(dev, dtype,
                                                      monkeypatch):
     """With TILE_BUDGET at one (k, b) row of heads' (S, S) tiles, at two
-    and a bit, and at one k's rows, the backward walks its blocks one row,
-    two rows (a ragged last chunk of b) or one k a launch through that
-    much scratch, and gives the bits of the call that holds every block's
-    tiles at once."""
+    and a bit, and at one k's rows, the rows body's backward (dk past 256,
+    the tensor-core body's range) walks its blocks one row, two rows (a
+    ragged last chunk of b) or one k a launch through that much scratch,
+    and gives the bits of the call that holds every block's tiles at
+    once."""
     from cpc_audio_tpu_torch.ops import _build
-    S, dk, K, B, h = 244, 32, 2, 3, 2     # device-memory tiles, both dtypes
+    S, dk, K, B, h = 116, 264, 2, 3, 2    # device-memory tiles, both dtypes
+    assert head_attention.bwd_body(S, dk, dtype) == "rows"
     rng = np.random.RandomState(7)
     args = [_rand(rng, dev, dtype, K, B * S, h * dk) for _ in range(3)]
     args.append(_rand(rng, dev, dtype, K, dk, S, scale=0.5))
