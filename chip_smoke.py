@@ -30,7 +30,14 @@ Phases (any failure exits non-zero):
      1024 (N 32, dk 32: --sizeWindow 163840) in both dtypes and at dk 64
      in float32, K2 (at every shape on its tensor-core body, float32 on
      split bf16 planes) at S 1012 (dk 32) and at dk 256 (S 116), K1 and K4 at
-     B 4, T 128, H 4096 (--hiddenGar 4096: the rows bodies), both dtypes;
+     B 4, T 128, H 4096 (--hiddenGar 4096: the grid bodies), both dtypes;
+     K1 and K4 forward on their cluster bodies at H 128 (8 CTAs; B 32, T
+     128) and at build_feature's B 1 / T 400 (H 256), and on their rows
+     bodies at the --hiddenGar 200 widths (K1 at H 200, K4 at 224), both
+     dtypes; every K1 / K4 case on a cluster or grid body reruns
+     bit-identically, and its float32 bound counts the 3 bf16 split
+     products a product takes there (but for the 8-CTA backward at H <=
+     256 and the rows bodies, exact float32: the FP32 cores);
      K8
      also with all keys on one row (bf16), and the
      time of its whole wrapper (sort + searchsorted + K8); K3's forward
@@ -65,7 +72,9 @@ Phases (any failure exits non-zero):
      float32 on a (2, 1, 20480) batch on the card (kernels) and on the CPU
      (plain versions), which must agree, and build_feature on a
      64000-sample WAV, which must give (1, 400, 256) finite float32
-     features; then the default config at B = 24, where
+     features through K1's cluster forward at B 1 (its latency, the
+     median of 10 calls after 2, printed again at the end); then the
+     default config at B = 24, where
      negativeSamplingMode auto resolves to the exact sampler;
   5. the train paths, LSTM, GRU, transformer, the fused-layer path, the
      exact sampler on LSTM (negativeSamplingMode exact), the transformer
@@ -90,8 +99,9 @@ Phases (any failure exits non-zero):
      exact path K8 once a step; on the long-window path K2 once a step),
      K1's and K4's backward must run their cluster body at hiddenGar 256
      and K1's its 16-CTA cluster body at 512 and 768 in both dtypes, K1's
-     forward its rows body at 256 and its 16-CTA cluster body at 512 and
-     768 (the rows bodies at 200 and 1056), K2 on every path that runs
+     and K4's forward their 16-CTA cluster body at 256, K1's its 16-CTA
+     cluster body at 512 and 768 (the rows body at 200, the grid body at
+     1056), K2 on every path that runs
      it its tensor-core body in both directions, once a step
      (head_attention.relpos_attention.body_launches,
      relpos_attention_bwd.body_launches), the losses must be finite
@@ -105,10 +115,12 @@ Phases (any failure exits non-zero):
      bodies counted; the encoder's ReLU units within float32 rounding of
      the kink taken on the card's side on the CPU) must give the same
      losses and gradients; then a
-     GRU model at --hiddenGar 100 (K4 with H padded to 128; the criterion
-     must be refused, naming the flag) trains alone for 4 steps and holds
-     a float32 step against the CPU, and so do LSTM and GRU models at
-     --hiddenGar 4096 (B = 4; K1's and K4's rows bodies); then two exact
+     GRU model at --hiddenGar 100 (K4 with H padded to 128: its 8-CTA
+     cluster bodies; the criterion must be refused, naming the flag)
+     trains alone for 4 steps and holds a float32 step against the CPU,
+     and so do a GRU model at --hiddenGar 200 (H 224: K4's rows bodies)
+     and LSTM and GRU models at --hiddenGar 4096 (B = 4; K1's and K4's
+     grid bodies); then two exact
      steps with
      stopGradNegatives, in which K8 must not launch;
      last, the default LSTM step in turns with the fused one and with the
@@ -125,9 +137,10 @@ Phases (any failure exits non-zero):
      state, batch and keys, the two held together at 1e-3 of each
      gradient leaf's norm; --arMode GRU --hiddenGar 100 must stop before
      any step, naming the flag;
-  7. print one JSON line of per-kernel results (each kernel's launches
-     from its own path's train run), the card line again, and last the
-     JSON result line.
+  7. print build_feature's latency again, one JSON line of per-kernel
+     results (each kernel's launches from its own path's train run; the
+     rows forwards' from the --hiddenGar 200 LSTM path and GRU model),
+     the card line again, and last the JSON result line.
 The script runs under the package's float32 precision policy (TF32 off:
 cpc_audio_tpu_torch/_common.py precision_policy), which it sets first so
 that its float32 yardsticks take it too.
@@ -155,6 +168,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 1234
 CALLS, REPS = 10, 3       # median_ms: calls per timed run, runs
 SPIN_HZ = 1.98e9          # H100 SXM boost clock: torch.cuda._sleep cycles
+
+
+# lines main prints again at the end, before the JSON lines
+SUMMARY = {}
 
 
 def fail(msg: str) -> None:
@@ -279,7 +296,8 @@ class Case:
             plain
         self.inputs, self.flops, self.read_bytes = inputs, flops, read_bytes
         # bf16 tensor-core products a float32 product takes, where the
-        # float32 body runs on split operands (K2, K3, K5)
+        # float32 body runs on split operands (K2, K3, K5; K1's and K4's
+        # by body, recurrent_split)
         self.split = SPLIT_PRODUCTS.get(name)
         # shape: None at the default train shapes, else a tag of the wider
         # shape (the --hiddenEncoder 512 --hiddenGar 512 paths)
@@ -440,7 +458,9 @@ def kernel_cases(dev: torch.device, dtype: torch.dtype, B: int = 32):
     cases += h512_cases(rand, dev)
     cases += w768_cases(rand, dev, seed, B)
     cases += width_cases(rand, dev, seed, dtype, B)
-    cases += grid_cases(rand, dev)
+    cases += recurrent_cases(rand, dev, GRID_SHAPES)
+    cases += recurrent_cases(rand, dev, CLUSTER_FWD_SHAPES + ROWS_FWD_SHAPES,
+                             backward=False)
     cases += repair_cases(rand, dev, seed, dtype)
     upd, keys, order, offsets, R = scatter_inputs(dev, dtype, B)
     cases.append(Case("scatter_add_rows", 0.0,
@@ -640,14 +660,22 @@ def repair_cases(rand, dev: torch.device, seed, dtype: torch.dtype,
 # --hiddenGar 4096, B 4, in repair_cases); the JSON line's grid entries
 # are timed here, in bf16
 GRID_SHAPES = (("lstm", 32, 128, 1056), ("gru", 32, 128, 512))
+# the cluster forward at H 128 (8 CTAs; the --hiddenGar 100 GRU model's K4
+# width) and at build_feature's B 1 / T 400; the rows forward at the
+# --hiddenGar 200 widths (K4 pads 200 to 224), whose bf16 times are the
+# JSON line's rows entries
+CLUSTER_FWD_SHAPES = (("lstm", 32, 128, 128), ("gru", 32, 128, 128),
+                      ("lstm", 1, 400, 256), ("gru", 1, 400, 256))
+ROWS_FWD_SHAPES = (("lstm", 32, 128, 200), ("gru", 32, 128, 224))
 # the H where each recurrence case's body is read (the index of w_hh among
 # its inputs)
 W_HH_AT = {"lstm_fwd": 1, "lstm_bwd": 4, "gru_fwd": 1, "gru_bwd": 5}
 
 
-def grid_cases(rand, dev: torch.device, shapes=GRID_SHAPES):
-    """K1 (LSTM) or K4 (GRU) forward and backward at each (kind, B, T, H)
-    of ``shapes``: the grid bodies, W_hh split by unit over every SM."""
+def recurrent_cases(rand, dev: torch.device, shapes,
+                    backward: bool = True):
+    """K1 (LSTM) or K4 (GRU) forward and (with ``backward``) backward at
+    each (kind, B, T, H) of ``shapes``, on whichever body H takes."""
     from cpc_audio_tpu_torch.ops import gru, lstm
     cases = []
     for kind, B, T, H in shapes:
@@ -661,7 +689,7 @@ def grid_cases(rand, dev: torch.device, shapes=GRID_SHAPES):
                      la, 2 * B * T * 4 * H * H, shape=tag),
                 Case("lstm_bwd", 0.0, lambda a=lba: lstm.lstm_bwd(*a),
                      lambda a=lba: lstm.lstm_bwd_ref(*a), lba,
-                     2 * B * T * 4 * H * H, shape=tag)]
+                     2 * B * T * 4 * H * H, shape=tag)][:1 + backward]
         else:
             cases += [
                 Case("gru_fwd", 0.0,
@@ -670,7 +698,7 @@ def grid_cases(rand, dev: torch.device, shapes=GRID_SHAPES):
                      ga, 2 * B * T * 3 * H * H, shape=tag),
                 Case("gru_bwd", 0.0, lambda a=gba: gru.gru_bwd(*a),
                      lambda a=gba: gru.gru_bwd_ref(*a), gba,
-                     2 * B * T * 3 * H * H, shape=tag)]
+                     2 * B * T * 3 * H * H, shape=tag)][:1 + backward]
     return cases
 
 
@@ -864,7 +892,11 @@ TOLERANCE = {
 }
 
 SOURCES = {
-    "lstm_fwd": ("cpc_audio_tpu_torch/csrc/lstm_fwd.cu",
+    # K1's and K4's forward at the default --hiddenGar: the 16-CTA cluster
+    # body, one header for both, launched from the kernels' own sources
+    # (the rows bodies, csrc/lstm_fwd.cu and csrc/gru_fwd.cu, are the
+    # JSON line's *_fwd_rows entries)
+    "lstm_fwd": ("cpc_audio_tpu_torch/csrc/rnn_cluster_fwd.cuh",
                  "cpc_audio_tpu/ops/pallas/rnn.py:67"),
     "lstm_bwd": ("cpc_audio_tpu_torch/csrc/lstm_bwd.cu",
                  "cpc_audio_tpu/ops/pallas/rnn.py:97"),
@@ -883,7 +915,7 @@ SOURCES = {
                        "cpc_audio_tpu/ops/pallas/ffn.py:88"),
     "layer_tail_bwd": ("cpc_audio_tpu_torch/csrc/layer_tail_tc.cu",
                        "cpc_audio_tpu/ops/pallas/ffn.py:121"),
-    "gru_fwd": ("cpc_audio_tpu_torch/csrc/gru_fwd.cu",
+    "gru_fwd": ("cpc_audio_tpu_torch/csrc/rnn_cluster_fwd.cuh",
                 "cpc_audio_tpu/ops/pallas/rnn.py:238"),
     "gru_bwd": ("cpc_audio_tpu_torch/csrc/gru_bwd.cu",
                 "cpc_audio_tpu/ops/pallas/rnn.py:265"),
@@ -912,6 +944,12 @@ SOURCES = {
                      "cpc_audio_tpu/ops/pallas/rnn.py:238"),
     "gru_bwd_grid": ("cpc_audio_tpu_torch/csrc/rnn_grid.cuh",
                      "cpc_audio_tpu/ops/pallas/rnn.py:265"),
+    # the rows forwards, at the widths with no cluster or grid body: K1 at
+    # --hiddenGar 200, K4 at 200 padded to 224
+    "lstm_fwd_rows": ("cpc_audio_tpu_torch/csrc/lstm_fwd.cu",
+                      "cpc_audio_tpu/ops/pallas/rnn.py:67"),
+    "gru_fwd_rows": ("cpc_audio_tpu_torch/csrc/gru_fwd.cu",
+                     "cpc_audio_tpu/ops/pallas/rnn.py:238"),
 }
 
 # The train path runs K2, K3, K5 and K6 at dropout 0.1: the JSON line
@@ -939,24 +977,41 @@ def _tensors(x):
             if isinstance(t, torch.Tensor)]
 
 
+def recurrent_split(case: Case, dtype: torch.dtype):
+    """The bf16 products a float32 product of K1 or K4 takes on the body
+    the case runs: 3 (h or dgates as bf16 hi + lo against W_hh's two bf16
+    planes) on the cluster and grid bodies, None (exact float32 FMAs) on
+    the rows bodies and the 8-CTA backward at H <= 256."""
+    body = recurrent_body(case, dtype)
+    if body is None or body == "rows":
+        return None
+    H = case.inputs[W_HH_AT[case.name]].shape[1]
+    if case.name.endswith("_bwd") and body == "cluster" and H <= 256:
+        return None
+    return 3
+
+
 def bound(case: Case, out, dtype: torch.dtype) -> dict:
     """The least time the card could take for the call: each input byte
     it needs read once and each output written once at the memory rate,
     or its operations at the peak rate of its type, whichever is larger.
-    A float32 body on split operands (``case.split``) does its operations
-    as that many times as many bf16 ones, at the bf16 peak; ``fp32_ms``
-    keeps the float32-core figure beside it."""
+    A float32 body on split operands (``case.split``, or
+    :func:`recurrent_split`) does its operations as that many times as
+    many bf16 ones, at the bf16 peak (``split``); ``fp32_ms`` keeps the
+    float32-core figure beside it."""
     read = case.read_bytes if case.read_bytes is not None else sum(
         t.numel() * t.element_size() for t in _tensors(case.inputs))
     nbytes = read + sum(t.numel() * t.element_size() for t in _tensors(out))
     t_bytes = nbytes / PEAK_BYTES * 1e3
     flops, peak = case.flops, PEAK_FLOPS[dtype]
-    if dtype == torch.float32 and case.split:
-        flops, peak = case.flops * case.split, PEAK_FLOPS[torch.bfloat16]
+    split = dtype == torch.float32 and (case.split or
+                                        recurrent_split(case, dtype))
+    if split:
+        flops, peak = case.flops * split, PEAK_FLOPS[torch.bfloat16]
     t_ops = flops / peak * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops,
+            "bytes": nbytes, "flops": flops, "split": bool(split),
             "fp32_ms": case.flops / PEAK_FLOPS[torch.float32] * 1e3}
 
 
@@ -1110,8 +1165,7 @@ def f32_yardsticks(dev: torch.device, B: int = 32) -> None:
              (lambda: gru.gru_fwd(*ga, save_residuals=True),
               lambda: gru.gru_bwd(*gba)))
         mod = lstm if kind == "lstm" else gru
-        bodies = (mod.fwd_body(H, f32) if kind == "lstm" else "rows",
-                  mod.bwd_body(H, f32))
+        bodies = (mod.fwd_body(H, f32), mod.bwd_body(H, f32))
         for i, d in enumerate(("fwd", "bwd")):
             turns(f"{kind}_{d} B {Bl} / T {T} / H {H} ({bodies[i]} body)",
                   k[i], cudnn[i],
@@ -1379,16 +1433,16 @@ def tail_launches(case: Case, ms: float, dtype: torch.dtype,
           f"; sum {sum(t.values()):.4f}, median_ms {ms:.4f}", flush=True)
 
 
-def grid_rerun(case: Case, body: str) -> None:
-    """A K1 / K4 case's body; on the grid body a rerun must be
-    bit-identical to the first call (fixed-order sums, no atomics on
+def recurrent_rerun(case: Case, body: str) -> None:
+    """A K1 / K4 case's body; on the cluster and grid bodies a rerun must
+    be bit-identical to the first call (fixed-order sums, no atomics on
     values)."""
     line = f"  {case.label}: {body} body"
-    if body == "grid":
+    if body in ("cluster", "grid"):
         first, again = _tensors(case.kernel()), _tensors(case.kernel())
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(first, again)):
-            fail(f"{case.label}: a rerun of the grid body is not "
+            fail(f"{case.label}: a rerun of the {body} body is not "
                  f"bit-identical")
         line += ", a rerun bit-identical"
     print(line, flush=True)
@@ -1424,8 +1478,7 @@ def phase_kernels(dev: torch.device, B: int = 32) -> dict:
             plain_ms = median_ms(case.plain) if reported else None
             plain = f"{plain_ms:.4f} ms" if reported else "not timed"
             split = (f" as bf16 split products; on the float32 cores "
-                     f"{b['fp32_ms']:.4f} ms"
-                     if dtype == torch.float32 and case.split else "")
+                     f"{b['fp32_ms']:.4f} ms" if b["split"] else "")
             print(f"  {label}: kernel {ms:.4f} ms, plain {plain} "
                   f"(device time a call, median of {REPS} runs of up to "
                   f"{CALLS}); "
@@ -1441,14 +1494,16 @@ def phase_kernels(dev: torch.device, B: int = 32) -> dict:
                 tail_launches(case, ms, dtype)
             body = recurrent_body(case, dtype)
             if body is not None:
-                grid_rerun(case, body)
-            if body == "grid" and reported and \
-                    case.shape in [f"B {B} / T {T} / H {H}"
-                                   for _, B, T, H in GRID_SHAPES]:
-                results[f"{name}_grid"] = {
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-                    "library_ms": None}
+                recurrent_rerun(case, body)
+            for shapes, own in ((GRID_SHAPES, "grid"),
+                                (ROWS_FWD_SHAPES, "rows")):
+                if body == own and reported and \
+                        case.shape in [f"B {B} / T {T} / H {H}"
+                                       for _, B, T, H in shapes]:
+                    results[f"{name}_{own}"] = {
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": b["bound_ms"],
+                        "bound_by": b["bound_by"], "library_ms": None}
             if reported and case.shape is not None:
                 shaped[(name, case.shape)] = ms
             if reported and case.shape is None:
@@ -1483,6 +1538,11 @@ def phase_kernels(dev: torch.device, B: int = 32) -> dict:
         for d in ("fwd", "bwd"):
             results[f"{kind}_{d}_grid"]["library_ms"] = cudnn_ms[
                 (f"{kind}_{d}", B_, H, torch.bfloat16)]
+    cudnn_ms = rows_yardsticks(dev, [(k, B_, H)
+                                     for k, B_, _, H in ROWS_FWD_SHAPES])
+    for kind, B_, T, H in ROWS_FWD_SHAPES:
+        results[f"{kind}_fwd_rows"]["library_ms"] = cudnn_ms[
+            (f"{kind}_fwd", B_, H, torch.bfloat16)]
     rows_yardsticks(dev, H4096_SHAPES, warmup=1, reps=2)
     long_causal_yardsticks(dev)
     conv_composition_times(dev, timings=results, B=B)
@@ -1677,12 +1737,14 @@ BWD_BODY = {"LSTM": "cluster", "GRU": "cluster", FUSED: "cluster",
             EXACT: "cluster", LONG: "cluster", W768: "cluster",
             F32: "cluster", F512: "cluster", F768: "cluster", W200: "rows",
             W1056: "grid", G512: "grid"}
-# the body the AR's forward kernel must run: K1's rows body at hiddenGar
-# 256 and 200, its 16-CTA cluster body at 512 and 768 in both dtypes, its
-# grid body at 1056; K4's rows body at 256, its grid body at 512
-FWD_BODY = {"LSTM": "rows", FUSED: "rows", EXACT: "rows", LONG: "cluster",
-            W768: "cluster", F32: "rows", F512: "cluster", F768: "cluster",
-            W200: "rows", W1056: "grid", "GRU": "rows", G512: "grid"}
+# the body the AR's forward kernel must run: K1's 16-CTA cluster body at
+# hiddenGar 256, 512 and 768 in both dtypes, its rows body at 200, its
+# grid body at 1056; K4's 16-CTA cluster body at 256, its grid body at
+# 512
+FWD_BODY = {"LSTM": "cluster", FUSED: "cluster", EXACT: "cluster",
+            LONG: "cluster", W768: "cluster", F32: "cluster",
+            F512: "cluster", F768: "cluster", W200: "rows", W1056: "grid",
+            "GRU": "cluster", G512: "grid"}
 # launches a step, where a path fixes them: on the fused path K2 must not
 # run at all; on the exact path K8 runs once, in the backward
 PER_STEP = {FUSED: {"attention_block_fwd": 1, "attention_block_bwd": 1,
@@ -1884,19 +1946,46 @@ def check_against_cpu(model, dev: torch.device) -> None:
     compare("acc", a_g, a_c, 2.0 / 232 + 1e-6, 0.0, "argmax ties")
 
 
-def check_features(model, dev: torch.device) -> None:
+def feature_latency(model, warmup: int = 2, calls: int = 10):
+    """build_feature on a 64000-sample (4 s) WAV: (features, median ms of
+    ``calls`` calls after ``warmup``, host clock: the file's read and
+    decode, the model's forward at B 1 over 400 frames and the copy back,
+    as a user waits for it)."""
     from cpc_audio_tpu_torch.feature_loader import FeatureModule, build_feature
 
     wav = synthetic_audio(64000, 1, SEED + 2)[0, 0]
+    times = []
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "smoke.wav")
         _write_wav(path, wav)
-        feats = build_feature(FeatureModule(model), path)
-    print(f"build_feature: shape {feats.shape} dtype {feats.dtype}",
-          flush=True)
+        module = FeatureModule(model)
+        for i in range(warmup + calls):
+            t0 = time.perf_counter()
+            feats = build_feature(module, path)
+            if i >= warmup:
+                times.append(time.perf_counter() - t0)
+    return feats, statistics.median(times) * 1e3
+
+
+def check_features(model, dev: torch.device) -> None:
+    """build_feature on the 4 s file: (1, 400, 256) finite float32
+    features, K1's forward on its cluster body (B 1: one cluster, 15 of
+    its 16 rows padding) once a call, and its latency."""
+    from cpc_audio_tpu_torch.ops import lstm
+    fns = reset_counts()
+    feats, ms = feature_latency(model)
+    SUMMARY["build_feature"] = (
+        f"build_feature latency: {ms:.3f} ms a 4 s file (median of 10 "
+        f"calls after 2, host clock, {model.config.compute_dtype}, "
+        f"--hiddenGar {model.config.hiddenGar})")
+    print(f"build_feature: shape {feats.shape} dtype {feats.dtype}; "
+          f"{SUMMARY['build_feature']} on {gpu_line()}", flush=True)
     if feats.shape != (1, 400, 256) or feats.dtype != np.float32 \
             or not np.isfinite(feats).all():
         fail(f"build_feature gave {feats.shape} {feats.dtype}")
+    check_body(fns, "build_feature", 12,
+               lstm.fwd_body(model.config.hiddenGar, torch.bfloat16),
+               "lstm_fwd")
 
 
 def phase_train(dev: torch.device, path: str = "LSTM", B: int = 32,
@@ -2023,10 +2112,11 @@ def phase_stop_grad(dev: torch.device, B: int = 32, steps: int = 2) -> None:
 
 def phase_model_alone(dev: torch.device, mode: str = "GRU", H: int = 100,
                       B: int = 8, steps: int = 4, body: str = "cluster",
-                      fwd_body: str = "rows") -> None:
+                      fwd_body: str = "cluster") -> int:
     """--arMode ``mode`` --hiddenGar H beside --hiddenEncoder 256: at H 100
-    K4 runs H padded to 128 (ops/gru.py) and sliced back; at H 4096 K1 and
-    K4 run their grid bodies, W_hh streamed every step.  The
+    K4 runs H padded to 128 (ops/gru.py; its 8-CTA cluster bodies) and
+    sliced back, at H 200 padded to 224 (its rows bodies); at H 4096 K1
+    and K4 run their grid bodies, W_hh streamed every step.  The
     transformer prediction heads need hiddenGar == hiddenEncoder, so
     build_criterion must refuse the config, naming the flag; the model
     trains alone here: ``steps`` Adam steps of the encoder and the AR
@@ -2034,7 +2124,8 @@ def phase_model_alone(dev: torch.device, mode: str = "GRU", H: int = 100,
     and backward once a step (the backward on ``body``, the forward on
     ``fwd_body``), the loss
     falling, train windows/s; then one float32 forward and backward on
-    the card and on the CPU, which must agree."""
+    the card and on the CPU, which must agree.  Returns the bf16 steps'
+    launches of the forward's body."""
     from cpc_audio_tpu_torch.config import CPCConfig
     from cpc_audio_tpu_torch.criterion import build_criterion
     from cpc_audio_tpu_torch.models import build_model
@@ -2071,6 +2162,7 @@ def phase_model_alone(dev: torch.device, mode: str = "GRU", H: int = 100,
                 steps, {f"{k}_fwd": 1, f"{k}_bwd": 1})
     check_body(fns, label, steps, body, f"{k}_bwd")
     check_body(fns, label, steps, fwd_body, f"{k}_fwd")
+    fwd_launches = fns[f"{k}_fwd"].body_launches[fwd_body]
     step_ms = statistics.median(times[1:]) * 1e3
     print(f"{label} model train steps (B={B}, bf16, the AR's kernels at H "
           f"{H}): losses {[round(v, 6) for v in losses]}; windows/s "
@@ -2099,6 +2191,7 @@ def phase_model_alone(dev: torch.device, mode: str = "GRU", H: int = 100,
     for n in sorted(g_c):
         compare_norm(f"grad gAR.{n}", g_g[n], g_c[n], 1e-3,
                      "f32 sums in another order over 128 steps")
+    return fwd_launches
 
 
 def phase_eval_auto_exact(dev: torch.device, B: int = 24) -> None:
@@ -2226,7 +2319,8 @@ def profile_train(step, batch, key, step_ms: float, path: str,
 # kernel-name fragments (lower case) of the profile's groups, first match
 PROFILE_GROUPS = (
     ("port kernels", ("lstm_fwd", "lstm_bwd", "gru_fwd_kernel",
-                      "gru_bwd", "relpos_attention", "relpos_tc",
+                      "gru_bwd", "fwd_cluster_kernel", "cpc::grid::",
+                      "relpos_attention", "relpos_tc",
                       "dkrel_windows", "krel_planes", "head_planes",
                       "causal_attention", "tail_", "dkrel_reduce",
                       "attention_block", "conv_ln", "sum_parts",
@@ -2678,6 +2772,10 @@ def main() -> None:
             for name in PATH_KERNELS[path][:2]:
                 launches[f"{name}_grid"] = \
                     fns[name].body_launches["grid"]
+        # K1's rows forward at --hiddenGar 200 (check_body held it)
+        if path == W200:
+            launches["lstm_fwd_rows"] = \
+                counters()["lstm_fwd"].body_launches["rows"]
         # a float32 path's step on two windows is that of the bf16 path of
         # its widths: the default LSTM's, the long window's (K1's float32
         # cluster bodies at H 512) and the 768-wide's (at H 768); the
@@ -2689,6 +2787,13 @@ def main() -> None:
     t0 = time.time()
     phase_model_alone(dev)
     print(f"[phase GRU --hiddenGar 100 {time.time() - t0:.1f} s]",
+          flush=True)
+    # K4's rows forward and backward at H 224
+    t0 = time.time()
+    launches["gru_fwd_rows"] = phase_model_alone(dev, "GRU", 200,
+                                                 body="rows",
+                                                 fwd_body="rows")
+    print(f"[phase GRU --hiddenGar 200 {time.time() - t0:.1f} s]",
           flush=True)
     for mode in ("LSTM", "GRU"):
         t0 = time.time()
@@ -2710,6 +2815,8 @@ def main() -> None:
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], "launches": launches[name],
                 **timings[name]} for name in SOURCES]
+    for line in SUMMARY.values():
+        print(line)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,11 +13,17 @@
 // (B, T, H)), as `_gru_fwd_kernel` does; both pointers may be null (the
 // eval path).
 //
-// Two bodies, picked from H (`grid_body`, mirrored by ops/gru.py
-// `fwd_body`): past H 256 K1's grid body (csrc/rnn_grid.cuh: W_hh split by
-// unit over all of the card's SMs, h all-gathered through L2 with a grid
-// barrier a step; `GridCell` keeps gh_n = h . W_hn^T + b_hn apart from r's
-// product, as below), else the rows body.
+// Three bodies, picked from the shape (`body`, mirrored by ops/gru.py
+// `fwd_body`): at H 128 and 256 (the default --hiddenGar) K1's cluster
+// body (csrc/rnn_cluster_fwd.cuh: a cluster of 8 CTAs at H 128, 16 at 256,
+// serves 16 batch rows, CTA c keeps the 3 J gate rows of its J = 16 units
+// on chip for the whole window, a step's product on mma.sync, h
+// all-gathered through L2 by multicast; float32 W_hh as two bf16 planes,
+// 3 split products, ops/gru.py `gru_scan_split`), past H 256 K1's grid body
+// (csrc/rnn_grid.cuh: W_hh split by unit over all of the card's SMs, h
+// all-gathered through L2 with a grid barrier a step), else the rows
+// body.  `Cell`, the cell of the grid and cluster bodies, keeps gh_n =
+// h . W_hn^T + b_hn apart from r's product, as below.
 //
 // The rows body: K1's (csrc/lstm_fwd.cu).  Batch rows are independent, so one
 // block owns one batch row for the whole window and keeps h in shared
@@ -26,12 +32,14 @@
 // load) for all 32 rows at once, then a warp reduce-scatter leaves row
 // r0 + l's sum in lane l.  H % 32 == 0, so 3H is a whole number of tiles.
 //
-// What bounds it on an H100: the T steps are serial, and every step
+// What bounds it on an H100: the T steps are serial.  The rows body
 // re-reads W_hh (3H x H; 384 KB in bf16 at H = 256, more than one SM's
-// 227 KB of shared memory) from L2, so a step costs about one SM's L2
-// read bandwidth for 384 KB.  B = 32 blocks occupy a quarter of the 132
-// SMs.
-#include "rnn_grid.cuh"
+// 227 KB of shared memory) from L2 every step, so a step costs about one
+// SM's L2 read bandwidth for it; B = 32 blocks occupy a quarter of the
+// 132 SMs.  The cluster body reads W_hh once a window, so a step costs
+// the partial product (2 x 16 x 3J x H multiply-adds a CTA, hi and lo),
+// the cell and the multicast's round trip through L2.
+#include "rnn_cluster_fwd.cuh"
 
 namespace {
 
@@ -151,23 +159,28 @@ int launch(const void* x_proj, const void* w_hh, const void* b_hh,
   return (int)cudaGetLastError();
 }
 
-// ---- the grid body (csrc/rnn_grid.cuh) --------------------------------------
+// ---- the cell of the grid and cluster bodies --------------------------------
+
+namespace rnn = cpc::rnn;
 
 // A thread's pair of units (k, k + 1) of batch row b: h and b_hh in
-// registers.
+// registers.  `step` is the grid body's (csrc/rnn_grid.cuh); the cluster
+// body runs its halves apart: `cell`, then `store` once h_t is on its way.
 template <typename T_>
-struct GridCell {
+struct Cell {
   using T = T_;
-  using T2 = typename cpc::rnn::Two<T>::type;
+  using T2 = typename rnn::Two<T>::type;
   static constexpr int G = 3;
+  // distinct tensors (restrict: the x_proj loads go through the
+  // read-only path and need not wait on the output stores)
   struct Params {
-    const T* x_proj;
-    const T* b_hh;
-    const T* h0;
-    T* ys;
-    T* hT;
-    float* gates;
-    float* ghn;
+    const T* __restrict__ x_proj;
+    const T* __restrict__ b_hh;
+    const T* __restrict__ h0;
+    T* __restrict__ ys;
+    T* __restrict__ hT;
+    float* __restrict__ gates;
+    float* __restrict__ ghn;
   };
   struct State {
     float2 h;
@@ -175,6 +188,10 @@ struct GridCell {
   };
   struct X {
     T2 x[3];
+  };
+  // the step's outputs of the pair: r, z, n and gh_n
+  struct Out {
+    float r[2], z[2], n[2], gn[2];
   };
   static Params offset(Params p, const cpc::grid::Shape& s, int b0) {
     const size_t r = (size_t)b0 * s.H, rt = r * s.T;
@@ -190,10 +207,10 @@ struct GridCell {
                                int b, int k, bool valid) {
     State st;
     const float2 z = make_float2(0.0f, 0.0f);
-    st.h = valid ? cpc::rnn::load_two(p.h0 + (size_t)b * s.H + k) : z;
+    st.h = valid ? rnn::load_two(p.h0 + (size_t)b * s.H + k) : z;
 #pragma unroll
     for (int g = 0; g < 3; ++g)
-      st.b[g] = valid ? cpc::rnn::load_two(p.b_hh + g * s.H + k) : z;
+      st.b[g] = valid ? rnn::load_two(p.b_hh + g * s.H + k) : z;
     return st;
   }
   __device__ static X load_x(const Params& p, const cpc::grid::Shape& s,
@@ -204,72 +221,128 @@ struct GridCell {
       x.x[g] = valid ? *reinterpret_cast<const T2*>(
                            p.x_proj + ((size_t)b * s.T + t) * 3 * s.H +
                            g * s.H + k)
-                     : cpc::rnn::Two<T>::zero();
+                     : rnn::Two<T>::zero();
     return x;
   }
-  __device__ static float2 step(const Params& p, const cpc::grid::Shape& s,
-                                State& st, const X& x,
-                                const float (&pre)[3][2], int b, int k,
-                                int t) {
-    const int H = s.H;
-    float r[2], z[2], n[2], gn[2];
+  __device__ static float2 cell(State& st, const X& x,
+                                const float (&pre)[3][2], Out& o) {
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       float xv[3], gh[3];
 #pragma unroll
       for (int g = 0; g < 3; ++g) {
-        const float2 x2 = cpc::rnn::Two<T>::f32(x.x[g]);
+        const float2 x2 = rnn::Two<T>::f32(x.x[g]);
         xv[g] = u ? x2.y : x2.x;
         gh[g] = pre[g][u] + (u ? st.b[g].y : st.b[g].x);
       }
-      r[u] = sigmoidf(xv[0] + gh[0]);
-      z[u] = sigmoidf(xv[1] + gh[1]);
-      gn[u] = gh[2];
-      n[u] = tanhf(xv[2] + r[u] * gn[u]);
+      o.r[u] = sigmoidf(xv[0] + gh[0]);
+      o.z[u] = sigmoidf(xv[1] + gh[1]);
+      o.gn[u] = gh[2];
+      o.n[u] = tanhf(xv[2] + o.r[u] * o.gn[u]);
       float& h = u ? st.h.y : st.h.x;
-      h = (1.0f - z[u]) * n[u] + z[u] * h;
+      h = (1.0f - o.z[u]) * o.n[u] + o.z[u] * h;
     }
+    return st.h;
+  }
+  __device__ static void store(const Params& p, const cpc::grid::Shape& s,
+                               const State& st, const Out& o, int b, int k,
+                               int t) {
+    const int H = s.H;
     const size_t bt = (size_t)b * s.T + t;
     if (p.gates != nullptr) {
       float* gt = p.gates + bt * 3 * H + k;
-      *reinterpret_cast<float2*>(gt) = make_float2(r[0], r[1]);
-      *reinterpret_cast<float2*>(gt + H) = make_float2(z[0], z[1]);
-      *reinterpret_cast<float2*>(gt + 2 * H) = make_float2(n[0], n[1]);
+      *reinterpret_cast<float2*>(gt) = make_float2(o.r[0], o.r[1]);
+      *reinterpret_cast<float2*>(gt + H) = make_float2(o.z[0], o.z[1]);
+      *reinterpret_cast<float2*>(gt + 2 * H) = make_float2(o.n[0], o.n[1]);
     }
     if (p.ghn != nullptr)
       *reinterpret_cast<float2*>(p.ghn + bt * H + k) =
-          make_float2(gn[0], gn[1]);
-    cpc::rnn::store_two(p.ys + bt * H + k, st.h.x, st.h.y);
+          make_float2(o.gn[0], o.gn[1]);
+    rnn::store_two(p.ys + bt * H + k, st.h.x, st.h.y);
     if (t == s.T - 1)
-      cpc::rnn::store_two(p.hT + (size_t)b * H + k, st.h.x, st.h.y);
-    return st.h;
+      rnn::store_two(p.hT + (size_t)b * H + k, st.h.x, st.h.y);
+  }
+  __device__ static float2 step(const Params& p, const cpc::grid::Shape& s,
+                                State& st, const X& x,
+                                const float (&pre)[3][2], int b, int k,
+                                int t) {
+    Out o;
+    const float2 h = cell(st, x, pre, o);
+    store(p, s, st, o, b, k, t);
+    return h;
   }
 };
 
-bool grid_body(int H) { return H >= cpc::grid::kMinH; }
+template <typename T>
+typename Cell<T>::Params params(const void* x_proj, const void* b_hh,
+                                const void* h0, void* ys, void* hT,
+                                float* gates, float* ghn) {
+  return {static_cast<const T*>(x_proj), static_cast<const T*>(b_hh),
+          static_cast<const T*>(h0),     static_cast<T*>(ys),
+          static_cast<T*>(hT),           gates,
+          ghn};
+}
+
+// ---- the cluster body (csrc/rnn_cluster_fwd.cuh) ----------------------------
+
+// the cluster body's layouts at H 128 and 256, K1's with three gate rows
+// a unit (a warp's 24 rows of W_hh); f(L{}) with the layout at H in
+// `dtype`, false where it has none
+template <typename F>
+bool with_layout(int H, int dtype, F f) {
+  return rnn::with_resident_layout<3>(H, dtype, f);
+}
+
+size_t cluster_smem(int H, int dtype) {
+  size_t smem = 0;
+  with_layout(H, dtype, [&](auto l) { smem = decltype(l)::bytes; });
+  return smem;
+}
+
+// The body at H in `dtype`: 1 the cluster body, 2 the grid body (every H
+// past 256), 0 the rows body.
+int body(int H, int dtype) {
+  const size_t smem = cluster_smem(H, dtype);
+  if (smem > 0 && smem <= cpc::kSmemLimit) return 1;
+  return H >= cpc::grid::kMinH ? 2 : 0;
+}
 
 }  // namespace
 
-// The body cpc_gru_fwd runs at hidden width H: 0 rows, 2 grid (every H
-// past 256; ops/gru.py `fwd_body`).
-extern "C" int cpc_gru_fwd_body(int H, int dtype) {
-  (void)dtype;
-  return grid_body(H) ? 2 : 0;
+// The body cpc_gru_fwd runs at hidden width H in `dtype`: 0 rows, 1
+// cluster, 2 grid (ops/gru.py `fwd_body`).
+extern "C" int cpc_gru_fwd_body(int H, int dtype) { return body(H, dtype); }
+
+// The cluster body's shared memory a CTA at H in `dtype` (0: none;
+// ops/gru.py `fwd_smem`).
+extern "C" size_t cpc_gru_fwd_smem(int H, int dtype) {
+  return cluster_smem(H, dtype);
 }
 
-// Bytes of global scratch cpc_gru_fwd needs at (B, H, dtype): the grid
-// body's exchange buffer (and in float32 W_hh's bf16 planes), 0 for the
-// rows body.
+// Bytes of global scratch cpc_gru_fwd needs at (B, H, dtype): the cluster
+// body's exchange blocks, the grid body's exchange buffer (and in float32
+// W_hh's bf16 planes, for both), 0 for the rows body.
 extern "C" size_t cpc_gru_fwd_scratch(int B, int H, int dtype) {
-  return grid_body(H) ? cpc::grid::scratch_bytes(
-                            false, B, H, 3, dtype == cpc::kFloat32 ? 2 : 1)
-                      : 0;
+  switch (body(H, dtype)) {
+    case 1: {
+      size_t n = 0;
+      with_layout(H, dtype,
+                  [&](auto l) { n = decltype(l)::scratch(B); });
+      return n;
+    }
+    case 2:
+      return cpc::grid::scratch_bytes(false, B, H, 3,
+                                      dtype == cpc::kFloat32 ? 2 : 1);
+    default:
+      return 0;
+  }
 }
 
 // x_proj (B, T, 3H), w_hh (3H, H), b_hh (3H,), h0 (B, H), ys (B, T, H) and
 // hT (B, H) in `dtype`; gates (B, T, 3H) and ghn (B, T, H) float32 or null;
 // scratch: cpc_gru_fwd_scratch bytes (null where 0); barrier: the grid
-// body's barrier word (csrc/rnn_grid.cuh; null for the rows body).
+// body's barrier word (csrc/rnn_grid.cuh; null for the other bodies).  A
+// cluster the card refuses returns its error; no other body runs instead.
 extern "C" int cpc_gru_fwd(const void* x_proj, const void* w_hh,
                            const void* b_hh, const void* h0, void* ys,
                            void* hT, void* gates, void* ghn, void* scratch,
@@ -279,28 +352,31 @@ extern "C" int cpc_gru_fwd(const void* x_proj, const void* w_hh,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* g = static_cast<float*>(gates);
   float* n = static_cast<float*>(ghn);
-  if (grid_body(H)) {
-    unsigned* bar = static_cast<unsigned*>(barrier);
-    if (bar == nullptr) return (int)cudaErrorInvalidValue;
-    if (dtype == cpc::kBFloat16) {
-      using T = __nv_bfloat16;
-      GridCell<T>::Params p{static_cast<const T*>(x_proj),
-                            static_cast<const T*>(b_hh),
-                            static_cast<const T*>(h0), static_cast<T*>(ys),
-                            static_cast<T*>(hT), g, n};
-      return cpc::grid::run_fwd<GridCell<T>>(p, w_hh, scratch, bar, B,
-                                             n_steps, H, s);
+  switch (body(H, dtype)) {
+    case 1: {
+      cudaError_t err = cudaErrorInvalidValue;
+      with_layout(H, dtype, [&](auto l) {
+        using L = decltype(l);
+        using T = typename L::T;
+        err = rnn::launch_fwd<L, Cell<T>>(
+            params<T>(x_proj, b_hh, h0, ys, hT, g, n), w_hh, scratch, B,
+            n_steps, s);
+      });
+      return (int)err;
     }
-    if (dtype == cpc::kFloat32) {
-      GridCell<float>::Params p{static_cast<const float*>(x_proj),
-                                static_cast<const float*>(b_hh),
-                                static_cast<const float*>(h0),
-                                static_cast<float*>(ys),
-                                static_cast<float*>(hT), g, n};
-      return cpc::grid::run_fwd<GridCell<float>>(p, w_hh, scratch, bar, B,
-                                                 n_steps, H, s);
+    case 2: {
+      unsigned* bar = static_cast<unsigned*>(barrier);
+      if (bar == nullptr) return (int)cudaErrorInvalidValue;
+      if (dtype == cpc::kBFloat16)
+        return cpc::grid::run_fwd<Cell<__nv_bfloat16>>(
+            params<__nv_bfloat16>(x_proj, b_hh, h0, ys, hT, g, n), w_hh,
+            scratch, bar, B, n_steps, H, s);
+      if (dtype == cpc::kFloat32)
+        return cpc::grid::run_fwd<Cell<float>>(
+            params<float>(x_proj, b_hh, h0, ys, hT, g, n), w_hh, scratch,
+            bar, B, n_steps, H, s);
+      return (int)cudaErrorInvalidValue;
     }
-    return (int)cudaErrorInvalidValue;
   }
   if (dtype == cpc::kBFloat16)
     return launch<__nv_bfloat16>(x_proj, w_hh, b_hh, h0, ys, hT, g, n, B,

@@ -82,6 +82,20 @@ __device__ __forceinline__ void load_b_nmajor(uint32_t b[4], const bf16* tile,
                      ((lane >> 3) & 1) * 8);
 }
 
+// The B fragment of the one n8 tile [n0, n0 + 8), k in [k0, k0 + 16), from
+// a tile stored n-major: b[0], b[1] as load_b_nmajor's first two (lanes
+// 16-31 give addresses ldmatrix.x2 does not read).
+__device__ __forceinline__ void load_b_nmajor_x2(uint32_t b[2],
+                                                 const bf16* tile, int ld,
+                                                 int n0, int k0) {
+  const int lane = threadIdx.x & 31;
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(b[0]), "=r"(b[1])
+      : "r"(smem_addr(tile + (n0 + (lane & 7)) * ld + k0 +
+                      ((lane >> 3) & 1) * 8)));
+}
+
 // The same two B fragments from a tile stored k-major (row k holds
 // B[k, .] along n, as v's rows in p . v), through ldmatrix.trans.
 __device__ __forceinline__ void load_b_kmajor(uint32_t b[4], const bf16* tile,

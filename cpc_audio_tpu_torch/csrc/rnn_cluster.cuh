@@ -1,5 +1,6 @@
 // The thread-block-cluster bodies of the K1 and K4 recurrences
-// (csrc/lstm_bwd.cu, csrc/gru_bwd.cu, and K1's forward, csrc/lstm_fwd.cu).
+// (csrc/lstm_bwd.cu, csrc/gru_bwd.cu, and both forwards,
+// csrc/rnn_cluster_fwd.cuh).
 //
 // Each step of a recurrence multiplies by W_hh: the forward forms the
 // gates h_{t-1} . W_hh^T, each reverse step the carry
@@ -36,7 +37,7 @@
 //
 // The forward all-gathers h instead (`multicast`): each CTA writes its
 // units' h, as bf16 hi and lo, to a block in global memory and hands it
-// to all 16 CTAs with one multicast bulk copy from L2, counted by an
+// to all C CTAs with one multicast bulk copy from L2, counted by an
 // mbarrier in each; no cluster barrier where the A tile has two parities.
 //
 // The streamed remainder (`Split`): at H = 768 a CTA's bf16 slice (192

@@ -103,6 +103,7 @@ _SIGNATURES = {
     "cpc_gru_bwd_scratch": ([_I] * 3, ctypes.c_size_t),
     # H, dtype
     "cpc_gru_fwd_body": ([_I, _I], _I),
+    "cpc_gru_fwd_smem": ([_I, _I], ctypes.c_size_t),
     "cpc_gru_bwd_body": ([_I, _I], _I),
     # q, k, v, bias, out, scratch, N, S, dk, layer, dropout, dtype, stream
     "cpc_causal_attention_fwd": ([_P] * 6 + [_I] * 4 + _DROP + [_I, _P], _I),

@@ -13,17 +13,20 @@ the input dtype.
 
 * :func:`gru_fwd` runs the recurrence (csrc/gru_fwd.cu) and, for
   training, saves the gates r, z, n (B, T, 3H) and ``ghn = h . W_hn^T +
-  b_hn`` (B, T, H), both float32.  Past H 256 it runs K1's grid body
-  (csrc/rnn_grid.cuh: W_hh split by unit over all of the card's SMs, ghn
-  kept apart from r's product), below one block a batch row
-  (:func:`fwd_body`);
+  b_hn`` (B, T, H), both float32.  At H = 128 and 256 (the default
+  width) it runs K1's cluster body, on 8 and 16 CTAs
+  (csrc/rnn_cluster_fwd.cuh: W_hh on chip, split by unit, h all-gathered
+  each step), past H 256
+  K1's grid body (csrc/rnn_grid.cuh: W_hh split by unit over all of the
+  card's SMs), ghn kept apart from r's product in both, at the other H
+  one block a batch row (:func:`fwd_body`);
 * :func:`gru_bwd` is the reverse scan (csrc/gru_bwd.cu) giving float32
   dx_proj = (dr, dz, dn), dghn and dh0, with K1's bodies (a thread-block
   cluster at H = 128 and 256, the grid body past 256,
   :func:`bwd_body`).  The gradient of ``h . W_hh^T + b_hh`` is dgh =
   (dr, dz, dghn): its first two thirds are dx_proj's, so only dghn is
-  written.  In float32 the grid bodies multiply on W_hh's two bf16
-  planes with 3 split products (:func:`gru_scan_split`,
+  written.  In float32 the cluster forward and the grid bodies multiply
+  on W_hh's two bf16 planes with 3 split products (:func:`gru_scan_split`,
   :func:`gru_bwd_split`);
 * :func:`gru` is the differentiable entry point: a
   ``torch.autograd.Function`` over the two, with dW_hh = dgh^T h_prev and
@@ -44,15 +47,19 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import _build
-from .lstm import (GRID_MIN_H, MAX_H, _split_matmul, cluster_smem, pad_gates,
-                   pad_weight)
+from . import _build, lstm
+from .lstm import (GRID_MIN_H, MAX_H, _split_matmul, cluster_smem,
+                   fwd_cluster_smem, pad_gates, pad_weight)
 
 _NAME = "gru_fwd"
 _BWD_NAME = "gru_bwd"
 MULTIPLE = 32         # the kernels' H: 3H whole 32-row tiles
 # the backward's cluster body: CTAs a cluster by H, as lstm.CLUSTER
 CLUSTER = {128: 8, 256: 8}
+# the forward's cluster body by H: K1's layouts at H 128 and 256, with a
+# warp's 24 gate rows (csrc/rnn_cluster_fwd.cuh `with_resident_layout`)
+FWD_CLUSTER = {H: lstm.FWD_CLUSTER[H] for H in (128, 256)}
+FWD_CLUSTER_F32 = {H: lstm.FWD_CLUSTER_F32[H] for H in (128, 256)}
 
 
 def padded_hidden(H: int) -> int:
@@ -68,9 +75,21 @@ def supported(H: int) -> Optional[str]:
     return None
 
 
+def fwd_smem(H: int, dtype: torch.dtype) -> int:
+    """Shared memory of one CTA of K4's forward cluster body at H
+    (``cpc_gru_fwd_smem``; ``lstm.fwd_cluster_smem`` with 3 gates), 0
+    where it has none."""
+    return fwd_cluster_smem(
+        H, 3, dtype, FWD_CLUSTER if dtype == torch.bfloat16
+        else FWD_CLUSTER_F32)
+
+
 def fwd_body(H: int, dtype: torch.dtype) -> str:
-    """The body csrc/gru_fwd.cu runs at hidden width H: "grid" past 256,
-    else "rows" (``cpc_gru_fwd_body``: 2, 0), from the shape alone."""
+    """The body csrc/gru_fwd.cu runs at hidden width H: "cluster",
+    "grid" or "rows" (``cpc_gru_fwd_body``: 1, 2, 0), from the shape
+    alone."""
+    if 0 < fwd_smem(H, dtype) <= _build.SMEM_LIMIT:
+        return "cluster"
     return "grid" if H >= GRID_MIN_H else "rows"
 
 
@@ -130,8 +149,9 @@ def gru_scan_ref(x_proj: torch.Tensor, w_hh: torch.Tensor,
 def gru_scan_split(x_proj: torch.Tensor, w_hh: torch.Tensor,
                    b_hh: torch.Tensor, h0: torch.Tensor,
                    save_residuals: bool = False):
-    """The float32 grid body's forward arithmetic written plainly
-    (csrc/rnn_grid.cuh): :func:`gru_scan_ref` with h_{t-1} . W_hh^T as 3
+    """The float32 cluster and grid bodies' forward arithmetic written
+    plainly (csrc/rnn_cluster_fwd.cuh, csrc/rnn_grid.cuh):
+    :func:`gru_scan_ref` with h_{t-1} . W_hh^T as 3
     split products (``lstm._split_matmul``).  Float32 inputs; the same
     outputs.  For tests and measurements only: the card runs the
     kernel."""
@@ -227,7 +247,8 @@ def gru_fwd(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     code = _build.DTYPE_CODES[x_proj.dtype]
     body = fwd_body(H, x_proj.dtype)
     with torch.cuda.device(dev):
-        # the grid body's exchange buffer (and in float32 W_hh's planes)
+        # the cluster or grid body's exchange buffer (and in float32
+        # W_hh's planes)
         scratch = _build.scratch(lib.cpc_gru_fwd_scratch(B, H, code), dev)
         barrier = _build.grid_barrier(dev) if body == "grid" else None
         status = lib.cpc_gru_fwd(
@@ -242,7 +263,7 @@ def gru_fwd(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
 
 
 gru_fwd.launches = 0
-gru_fwd.body_launches = {"grid": 0, "rows": 0}
+gru_fwd.body_launches = {"cluster": 0, "grid": 0, "rows": 0}
 
 
 def gru_bwd(gates: torch.Tensor, ghn: torch.Tensor, h0: torch.Tensor,

@@ -11,16 +11,18 @@ float32 whatever the input dtype; outputs are rounded to the input dtype.
 * :func:`lstm_fwd` runs the recurrence (csrc/lstm_fwd.cu) and, for
   training, saves the gate activations and cell states (float32).  The
   kernel has three bodies, picked from H and the dtype before it
-  launches: at H = 512 and 768 a thread-block cluster of 16 CTAs keeps
-  W_hh on chip, split by unit, and all-gathers h each step (where a
-  CTA's slice does not fit, at 768 in bf16 and at both in float32, part
-  of it is streamed from L2 every step; float32 W_hh travels as two bf16
-  planes, :func:`lstm_scan_split`); at every other H past 256 the grid
-  body splits W_hh by unit over all of the card's SMs in one cooperative
-  launch (csrc/rnn_grid.cuh; in shared memory where a slice fits, else
-  streamed every step) and all-gathers h through L2 with a grid barrier
-  a step; at H <= 256 one block a batch row reads W_hh from L2 every
-  step; :func:`fwd_body` mirrors that choice without a card;
+  launches: at H = 128 a thread-block cluster of 8 CTAs, at H = 256 (the
+  default width), 512 and 768 one of 16, keeps W_hh on chip, split by
+  unit, and all-gathers h each step (csrc/rnn_cluster_fwd.cuh; where a
+  CTA's slice does not fit, at 768 in bf16 and at 512 and 768 in
+  float32, part of it is streamed from L2 every step; float32 W_hh
+  travels as two bf16 planes, :func:`lstm_scan_split`); at every other H
+  past 256 the grid body splits W_hh by unit over all of the card's SMs
+  in one cooperative launch (csrc/rnn_grid.cuh; in shared memory where a
+  slice fits, else streamed every step) and all-gathers h through L2
+  with a grid barrier a step; at the other H <= 256 (200, 104, ...) one
+  block a batch row reads W_hh from L2 every step; :func:`fwd_body`
+  mirrors that choice without a card;
 * :func:`lstm_bwd` is the reverse scan (csrc/lstm_bwd.cu) giving float32
   dgates, dh0 and dc0.  The kernel has three bodies, picked the same
   way: at H = 128 and 256 a thread-block cluster of 8 CTAs keeps W_hh on
@@ -61,17 +63,21 @@ MULTIPLE = 8          # the kernels' H: 4H whole 32-row tiles
 MAX_H = 4096
 # the backward's cluster body: CTAs a cluster by H (J = H / C units a CTA)
 CLUSTER = {128: 8, 256: 8, 512: 16, 768: 16}
-# the 16-CTA bodies' layouts: each warp holds RK k-steps (16 rows of the
+# the cluster bodies' layouts: each warp holds RK k-steps (16 rows of the
 # product's depth) of its slice of W_hh in registers, SK in shared memory
 # and streams the rest through a ring of D stages (cpc::rnn::Split).  The
-# forward's by H: (KS parts of the H-deep product, RK, SK, D, NP parities
-# of the A tile) (csrc/lstm_fwd.cu FwdLayout); the backward's past H 512:
-# (RK, SK, D) (csrc/lstm_bwd.cu StreamLayout).  In bf16 W_hh is one plane
-# (exact); in float32 it is two bf16 planes, hi and lo, whose k-steps
-# follow one another (:func:`lstm_scan_split` writes that arithmetic)
-FWD_CLUSTER = {512: (4, 0, 8, 1, 2), 768: (2, 8, 10, 2, 1)}
+# forward's by H: (C CTAs a cluster, KS parts of the H-deep product, RK,
+# SK, D, NP parities of the A tile) (csrc/rnn_cluster_fwd.cuh FwdLayout;
+# at 128 and 256 `with_resident_layout`, K4's too, at 512 and 768
+# csrc/lstm_fwd.cu); the backward's past H 512: (RK, SK, D)
+# (csrc/lstm_bwd.cu StreamLayout).  In bf16 W_hh is one plane (exact); in
+# float32 it is two bf16 planes, hi and lo, whose k-steps follow one
+# another (:func:`lstm_scan_split` writes that arithmetic)
+FWD_CLUSTER = {128: (8, 4, 2, 0, 1, 2), 256: (16, 4, 4, 0, 1, 2),
+               512: (16, 4, 0, 8, 1, 2), 768: (16, 2, 8, 10, 2, 1)}
 BWD_STREAM = {768: (2, 4, 2)}
-FWD_CLUSTER_F32 = {512: (4, 3, 7, 2, 1), 768: (2, 8, 10, 2, 1)}
+FWD_CLUSTER_F32 = {128: (8, 4, 4, 0, 1, 2), 256: (16, 4, 4, 4, 1, 2),
+                   512: (16, 4, 3, 7, 2, 1), 768: (16, 2, 8, 10, 2, 1)}
 BWD_STREAM_F32 = {512: (4, 8, 2), 768: (2, 4, 2)}
 
 
@@ -121,28 +127,38 @@ def _r16(n: int) -> int:
 
 
 def _planes(dtype: torch.dtype) -> int:
-    """W_hh's bf16 planes in the 16-CTA bodies: 1 in bf16, 2 in float32."""
+    """W_hh's bf16 planes in the cluster and grid bodies: 1 in bf16, 2 in
+    float32."""
     return 1 if dtype == torch.bfloat16 else 2
 
 
-def fwd_smem(H: int, dtype: torch.dtype) -> int:
-    """Shared memory of one CTA of the forward's cluster body at H, as
-    ``FwdLayout`` (csrc/lstm_fwd.cu, ``cpc_lstm_fwd_smem``) lays it out,
-    0 where it has none: NP parities of the A tile (h's bf16 hi and lo,
-    16 x H), each warp's 32 gate rows by its SK resident k-steps (+ 8),
-    its ring of D stages of 32 x (16 + 8), the float32 partial gates the
-    KS parts of the product leave one another (16 (KS - 1) a lane) and
-    an mbarrier a parity."""
-    layouts = FWD_CLUSTER if dtype == torch.bfloat16 else FWD_CLUSTER_F32
+def fwd_cluster_smem(H: int, G: int, dtype: torch.dtype,
+                     layouts: dict) -> int:
+    """Shared memory of one CTA of the forward's cluster body of G gates
+    at H under ``layouts`` (:data:`FWD_CLUSTER` or its GRU
+    counterpart), as ``FwdLayout`` (csrc/rnn_cluster_fwd.cuh) lays it
+    out, 0 where it has none: NP parities of the A tile (h's bf16 hi and
+    lo, 16 x H), each warp's 8 G gate rows by its SK resident k-steps
+    (+ 8), its ring of D stages of 8 G x (16 + 8), the float32 partial
+    gates the KS parts of the product leave one another (4 G (KS - 1) a
+    lane) and an mbarrier a parity."""
     if H not in layouts:
         return 0
-    KS, RK, SK, D, NP = layouts[H]
-    J = H // 16
+    C, KS, RK, SK, D, NP = layouts[H]
+    J, R = H // C, 8 * G
     warps = J // 8 * KS
     streamed = _planes(dtype) * H // 16 // KS - RK - SK
-    return (NP * 16 * (2 * 16 * J * 2) + warps * 32 * (SK * 16 + 8) * 2
-            + (warps * D * 32 * 24 * 2 if streamed else 0)
-            + (J // 8) * 16 * (KS - 1) * 32 * 4 + NP * 8)
+    return (NP * C * (2 * 16 * J * 2) + warps * R * (SK * 16 + 8) * 2
+            + (warps * D * R * 24 * 2 if streamed else 0)
+            + (J // 8) * 4 * G * (KS - 1) * 32 * 4 + NP * 8)
+
+
+def fwd_smem(H: int, dtype: torch.dtype) -> int:
+    """Shared memory of one CTA of K1's forward cluster body at H
+    (``cpc_lstm_fwd_smem``), 0 where it has none."""
+    return fwd_cluster_smem(
+        H, 4, dtype, FWD_CLUSTER if dtype == torch.bfloat16
+        else FWD_CLUSTER_F32)
 
 
 def bwd_smem(H: int, dtype: torch.dtype) -> int:
@@ -375,7 +391,8 @@ def lstm_scan_split(x_proj: torch.Tensor, w_hh: torch.Tensor,
                     h0: torch.Tensor, c0: torch.Tensor,
                     save_residuals: bool = False):
     """The float32 cluster body's forward arithmetic written plainly (H
-    512 and 768, csrc/lstm_fwd.cu): :func:`lstm_scan_ref` with h_{t-1} .
+    128, 256, 512 and 768, csrc/rnn_cluster_fwd.cuh; the grid body's too,
+    csrc/rnn_grid.cuh): :func:`lstm_scan_ref` with h_{t-1} .
     W_hh^T as 3 split products (:func:`_split_matmul`).  Float32 inputs;
     the same outputs.  For tests and measurements only: the card runs the
     kernel."""

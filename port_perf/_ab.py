@@ -4,6 +4,9 @@ in turns (other, this, this, other; each in a process of its own, each
 building its kernels from its own sources at first use) and the report
 of which outputs reruns and the two checkouts give bit for bit.
 
+The layout scripts (k1_f32_layouts.py, k1_fwd_layouts.py) build their
+variants with ``build_variants``.
+
 A script defines ``one(root)``, which measures the checkout at ``root``
 and prints one JSON object {case: {...}} as its last line, and a
 ``report(who, root, result)`` that prints one run's numbers; then its
@@ -75,6 +78,47 @@ def bit_identity(runs: list, keys) -> None:
               f"{'yes' if len(other) == 1 else 'NO'}; the two checkouts' "
               f"outputs {'bit-identical' if this == other else 'differ'}",
               flush=True)
+
+
+def build_variants(root: str, variants: dict, sources) -> dict:
+    """Copies of this checkout's csrc/ under ``root``, one a variant
+    {name: {source: {layout name: template arguments}}} with those
+    layouts' lines (`using NAME = ...Layout<...>;`) replaced, each built
+    from ``sources`` into one shared library by its own nvcc process, all
+    started together: {name: (library path, nvcc output)}."""
+    import re
+    import shutil
+    sys.path.insert(0, HERE)
+    from cpc_audio_tpu_torch.ops import _build
+    shutil.rmtree(root, ignore_errors=True)
+    procs = {}
+    for i, (name, edits) in enumerate(variants.items()):
+        d = os.path.join(root, str(i))
+        shutil.copytree(_build.CSRC_DIR, d)
+        for f, layouts in edits.items():
+            path = os.path.join(d, f)
+            with open(path) as fh:
+                src = fh.read()
+            for layout, targs in layouts.items():
+                pat = re.compile(rf"(using {layout} = \w+Layout<)[^>]*(>;)")
+                if not pat.search(src):
+                    raise SystemExit(f"{name}: no layout {layout} in {f}")
+                src = pat.sub(rf"\g<1>{targs}\g<2>", src)
+            with open(path, "w") as fh:
+                fh.write(src)
+        so = os.path.join(d, "lib.so")
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", so,
+               *(os.path.join(d, f) for f in sources)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       so)
+    libs = {}
+    for name, (p, so) in procs.items():
+        out = p.communicate()[0]
+        if p.returncode != 0:
+            raise SystemExit(f"{name}: nvcc failed\n{out[-4000:]}")
+        libs[name] = (so, out)
+    return libs
 
 
 def main(script: str, one, report, keys, doc: str) -> None:

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""K1's and K4's forward and backward, and the LSTM 1056 and GRU 512
-train steps, of two checkouts, in turns, on one GPU.
+"""K1's and K4's forward and backward, some train steps and build_feature
+of two checkouts, in turns, on one GPU.
 
 Usage, from the root of a checkout:
     python3 port_perf/k1_ab.py OTHER_CHECKOUT
@@ -12,15 +12,20 @@ device time a call (chip_smoke.median_ms; fewer calls at H 4096) of the
 forward (saving residuals, as training does) and the backward, with the
 body each ran and a SHA-256 of each direction's outputs (then whether
 reruns and the two checkouts agree bit for bit): K1 at B 32 / T 128 /
-H 256, B 8 / T 256 / H 512, B 32 / T 128 / H 512 and 768 (the rows and
-cluster bodies), B 32 / T 128 / H 264, 384 and 1056 and B 4 / T 128 /
-H 4096; K4 at B 32 / T 128 / H 256, 288, 384, 512 and 768 and B 4 /
-T 128 / H 4096 (just past 256, where the rows body costs least beside
-the grid body, the times check where the grid body starts).  Then the
-bf16 train steps of the --hiddenEncoder 1056 --hiddenGar 1056 LSTM path
-and the --hiddenEncoder 512 --hiddenGar 512 GRU path (B 32, dropout
-0.1): train windows/s as the median of 10 synchronised steps after 2
-warm-up.
+H 128 and 256, B 1 / T 400 / H 256 (build_feature's), B 8 / T 256 / H
+512, B 32 / T 128 / H 512 and 768 (the cluster bodies), B 32 / T 128 / H
+264, 384 and 1056 and B 4 / T 128 / H 4096; K4 at B 32 / T 128 / H 128,
+256, 288, 384, 512 and 768, B 1 / T 400 / H 256 and B 4 / T 128 / H
+4096 (just past 256, where the rows body costs least beside the grid
+body, the times check where the grid body starts); at H <= 256 also
+cuDNN's nn.LSTM / nn.GRU forward (training, input projection included)
+in the same dtype, a yardstick the port never calls.  Then the train
+steps of the default LSTM in bf16 and float32 (the CLIs' default), the
+default GRU, the --hiddenEncoder 1056 --hiddenGar 1056 LSTM and the
+--hiddenEncoder 512 --hiddenGar 512 GRU in bf16 (B 32, dropout 0.1):
+train windows/s as the median of 10 synchronised steps after 2 warm-up;
+and build_feature's latency on a 4 s file with the default LSTM in both
+dtypes (chip_smoke.feature_latency).
 """
 
 from __future__ import annotations
@@ -33,14 +38,18 @@ import time
 
 import _ab
 from _ab import HERE, sha
-SHAPES = (("lstm", 32, 128, 256), ("lstm", 32, 128, 264),
+SHAPES = (("lstm", 32, 128, 128), ("lstm", 32, 128, 256),
+          ("lstm", 1, 400, 256), ("lstm", 32, 128, 264),
           ("lstm", 32, 128, 384), ("lstm", 8, 256, 512),
           ("lstm", 32, 128, 512), ("lstm", 32, 128, 768),
           ("lstm", 32, 128, 1056), ("lstm", 4, 128, 4096),
-          ("gru", 32, 128, 256), ("gru", 32, 128, 288),
+          ("gru", 32, 128, 128), ("gru", 32, 128, 256),
+          ("gru", 1, 400, 256), ("gru", 32, 128, 288),
           ("gru", 32, 128, 384), ("gru", 32, 128, 512),
           ("gru", 32, 128, 768), ("gru", 4, 128, 4096))
-TRAIN_PATHS = ("LSTM 1056", "GRU 512")
+TRAIN_PATHS = (("LSTM", "bfloat16"), ("LSTM", "float32"),
+               ("GRU", "bfloat16"), ("LSTM 1056", "bfloat16"),
+               ("GRU 512", "bfloat16"))
 
 
 def one(root: str) -> None:
@@ -73,7 +82,14 @@ def one(root: str) -> None:
                 bwd = lambda: gru.gru_bwd(*gba)                        # noqa
             hashes = [(sha(fwd()), sha(bwd())) for _ in range(2)]
             timing = dict(warmup=1, reps=2) if H >= 4096 else {}
+            cudnn_ms = None
+            if H <= 256:
+                cudnn = chip_smoke.cudnn_layer(dev, dtype, kind, g, B=B, T=T,
+                                               C=H)
+                cudnn_ms = chip_smoke.median_ms(cudnn[0])
+                del cudnn
             out[f"{kind} {str(dtype)[6:]} B {B} / T {T} / H {H}"] = {
+                "cudnn_fwd_ms": cudnn_ms,
                 "fwd_ms": chip_smoke.median_ms(fwd, **timing),
                 "bwd_ms": chip_smoke.median_ms(bwd, **timing),
                 "fwd_body": getattr(mod, "fwd_body", lambda *a: "rows")(
@@ -83,8 +99,8 @@ def one(root: str) -> None:
                 "rerun_same": hashes[0] == hashes[1]}
             del la, lba, ga, gba
             torch.cuda.empty_cache()
-    for path in TRAIN_PATHS:
-        model, crit = chip_smoke.build(path, "bfloat16",
+    for path, dt in TRAIN_PATHS:
+        model, crit = chip_smoke.build(path, dt,
                                        torch.Generator().manual_seed(1))
         step, batch, key = chip_smoke.train_setup(model, crit, dev)
         times = []
@@ -94,15 +110,27 @@ def one(root: str) -> None:
             torch.cuda.synchronize()
             if i >= 2:
                 times.append(time.perf_counter() - t0)
-        out[path] = {"windows_s": 32 / statistics.median(times),
-                     "step_ms": statistics.median(times) * 1e3}
+        out[f"{path} {dt}"] = {"windows_s": 32 / statistics.median(times),
+                               "step_ms": statistics.median(times) * 1e3}
         del model, crit, step
+        torch.cuda.empty_cache()
+    for dt in ("bfloat16", "float32"):
+        model, _ = chip_smoke.build("LSTM", dt,
+                                    torch.Generator().manual_seed(1))
+        feats, ms = chip_smoke.feature_latency(model.to(dev))
+        out[f"build_feature {dt}"] = {"feature_ms": ms,
+                                      "shape": list(feats.shape)}
+        del model
         torch.cuda.empty_cache()
     print(json.dumps(out))
 
 
 def report(who: str, root: str, res: dict) -> None:
     for shape, t in res.items():
+        if "feature_ms" in t:
+            print(f"{who} ({root}) {shape}: {t['feature_ms']:.3f} ms a 4 s "
+                  f"file, features {t['shape']}", flush=True)
+            continue
         if "windows_s" in t:
             print(f"{who} ({root}) {shape} train step: "
                   f"{t['windows_s']:.1f} windows/s ({t['step_ms']:.3f} ms)",
@@ -112,7 +140,9 @@ def report(who: str, root: str, res: dict) -> None:
               f"({t['fwd_body']} body, sha256 {t['fwd_sha256']}), "
               f"backward {t['bwd_ms']:.4f} ms ({t['bwd_body']} body, "
               f"sha256 {t['bwd_sha256']}); rerun bit-identical "
-              f"{t['rerun_same']}", flush=True)
+              f"{t['rerun_same']}"
+              + (f"; cuDNN forward {t['cudnn_fwd_ms']:.4f} ms"
+                 if t.get("cudnn_fwd_ms") is not None else ""), flush=True)
 
 
 def main() -> None:

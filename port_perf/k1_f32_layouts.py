@@ -20,11 +20,8 @@ layout may not).  The base copy is the checkout's own layouts.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import re
-import shutil
-import subprocess
 import sys
 
 import torch
@@ -32,65 +29,26 @@ import torch
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
+from _ab import build_variants, sha  # noqa: E402
 from chip_smoke import gpu_line, median_ms, recurrent_args  # noqa: E402
 from cpc_audio_tpu_torch.ops import _build  # noqa: E402
 
 FWD, BWD = "lstm_fwd.cu", "lstm_bwd.cu"
-# each variant: {layout name: template arguments}; the names' lines in the
-# sources are `using NAME = FwdLayout<...>;` / `StreamLayout<...>;`
+# each variant: {source: {layout name: template arguments}}; the names'
+# lines in the sources are `using NAME = FwdLayout<...>;` /
+# `StreamLayout<...>;`
 VARIANTS = {
     "base": {},
-    "fewer registers": {"Fwd512F": "32, 4, 1, 7, 2, 1, 2",
-                        "Fwd768F": "48, 2, 4, 10, 2, 1, 2",
-                        "Stream512F": "32, 2, 8, 2, 2",
-                        "Stream768F": "48, 0, 4, 2, 2"},
-    "fewest registers": {"Fwd768F": "48, 2, 2, 10, 2, 1, 2",
-                         "Stream512F": "32, 0, 8, 2, 2"},
+    "fewer registers": {
+        FWD: {"Fwd512F": "32, 4, 1, 7, 2, 1, 2",
+              "Fwd768F": "48, 2, 4, 10, 2, 1, 2"},
+        BWD: {"Stream512F": "32, 2, 8, 2, 2",
+              "Stream768F": "48, 0, 4, 2, 2"}},
+    "fewest registers": {
+        FWD: {"Fwd768F": "48, 2, 2, 10, 2, 1, 2"},
+        BWD: {"Stream512F": "32, 0, 8, 2, 2"}},
 }
 SHAPES = ((8, 256, 512), (32, 128, 512), (32, 128, 768))
-
-
-def edit(src: str, layouts: dict) -> str:
-    for name, targs in layouts.items():
-        pat = re.compile(rf"(using {name} = \w+Layout<)[^>]*(>;)")
-        if not pat.search(src):
-            continue
-        src = pat.sub(rf"\g<1>{targs}\g<2>", src)
-    return src
-
-
-def build_all(root: str) -> dict:
-    """{variant: (shared library, ptxas report)}, built in parallel."""
-    shutil.rmtree(root, ignore_errors=True)
-    procs = {}
-    for name, layouts in VARIANTS.items():
-        d = os.path.join(root, name.replace(" ", "_"))
-        shutil.copytree(_build.CSRC_DIR, d)
-        for f in (FWD, BWD):
-            path = os.path.join(d, f)
-            with open(path) as fh:
-                src = fh.read()
-            new = edit(src, layouts)
-            with open(path, "w") as fh:
-                fh.write(new)
-        for lname in layouts:
-            with open(os.path.join(d, FWD)) as a, \
-                    open(os.path.join(d, BWD)) as b:
-                if f"using {lname} = " not in a.read() + b.read():
-                    raise SystemExit(f"{name}: no layout {lname}")
-        so = os.path.join(d, "lib.so")
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", so,
-               os.path.join(d, FWD), os.path.join(d, BWD)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       so)
-    libs = {}
-    for name, (p, so) in procs.items():
-        out = p.communicate()[0]
-        if p.returncode != 0:
-            raise SystemExit(f"{name}: nvcc failed\n{out[-4000:]}")
-        libs[name] = (so, out)
-    return libs
 
 
 def report(out: str) -> list:
@@ -114,18 +72,12 @@ def report(out: str) -> list:
     return rows
 
 
-def sha(tensors) -> str:
-    h = hashlib.sha256()
-    for t in tensors:
-        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
-    return h.hexdigest()[:16]
-
-
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     print(gpu_line(), flush=True)
-    libs = build_all(os.path.join(HERE, "build", "k1_f32_layouts"))
+    libs = build_variants(os.path.join(HERE, "build", "k1_f32_layouts"),
+                          VARIANTS, (FWD, BWD))
     dev = torch.device("cuda", 0)
     P, I = ctypes.c_void_p, ctypes.c_int
     for name, (so, out) in libs.items():

@@ -112,41 +112,43 @@ def test_gru_wrapper_runs_ref_on_cpu():
 
 # ---- K1 and K4: which body runs ----------------------------------------------
 
-# (forward, backward) body of K1 and K4's backward body by (H, dtype): the
-# 16-CTA cluster bodies at H 512 and 768 in both dtypes (with part of W_hh
+# (forward, backward) body of K1 and of K4 by (H, dtype): the 16-CTA
+# cluster bodies of K1 at H 512 and 768 in both dtypes (with part of W_hh
 # streamed from L2 at 768, and in float32, whose W_hh travels as two bf16
-# planes, at 512 too), the 8-CTA backward at H 128 and 256, the grid body
-# (W_hh split over every SM) at every other H past 256
+# planes, at 512 too), the forward of both on 8 CTAs at H 128 and 16 at
+# 256, their backward on 8 at both, the grid body (W_hh split over every
+# SM) at every other H past 256
 _BF, _F32 = torch.bfloat16, torch.float32
 _BODIES = {
-    (128, _BF): ("rows", "cluster", "cluster"),
-    (128, _F32): ("rows", "cluster", "cluster"),
-    (256, _BF): ("rows", "cluster", "cluster"),
-    (256, _F32): ("rows", "cluster", "cluster"),
-    (384, _BF): ("grid", "grid", "grid"),
-    (384, _F32): ("grid", "grid", "grid"),
-    (512, _BF): ("cluster", "cluster", "grid"),
-    (512, _F32): ("cluster", "cluster", "grid"),
-    (768, _BF): ("cluster", "cluster", "grid"),
-    (768, _F32): ("cluster", "cluster", "grid"),
-    (1024, _BF): ("grid", "grid", "grid"),
-    (1024, _F32): ("grid", "grid", "grid"),
-    (2048, _BF): ("grid", "grid", "grid"),
-    (2048, _F32): ("grid", "grid", "grid"),
+    (128, _BF): ("cluster", "cluster", "cluster", "cluster"),
+    (128, _F32): ("cluster", "cluster", "cluster", "cluster"),
+    (256, _BF): ("cluster", "cluster", "cluster", "cluster"),
+    (256, _F32): ("cluster", "cluster", "cluster", "cluster"),
+    (384, _BF): ("grid", "grid", "grid", "grid"),
+    (384, _F32): ("grid", "grid", "grid", "grid"),
+    (512, _BF): ("cluster", "cluster", "grid", "grid"),
+    (512, _F32): ("cluster", "cluster", "grid", "grid"),
+    (768, _BF): ("cluster", "cluster", "grid", "grid"),
+    (768, _F32): ("cluster", "cluster", "grid", "grid"),
+    (1024, _BF): ("grid", "grid", "grid", "grid"),
+    (1024, _F32): ("grid", "grid", "grid", "grid"),
+    (2048, _BF): ("grid", "grid", "grid", "grid"),
+    (2048, _F32): ("grid", "grid", "grid", "grid"),
 }
 
 
 @pytest.mark.parametrize("H,dtype", sorted(_BODIES, key=str))
 def test_recurrent_bodies_by_width_and_dtype(H, dtype):
-    """K1's forward and backward and K4's backward pick their body from
-    (H, dtype) alone, before any launch (no card needed), and every
-    cluster layout fits a CTA's shared memory; the rows and grid bodies
-    have none of the cluster's."""
+    """K1's and K4's forward and backward pick their body from (H, dtype)
+    alone, before any launch (no card needed), and every cluster layout
+    fits a CTA's shared memory; the rows and grid bodies have none of the
+    cluster's."""
     want = _BODIES[(H, dtype)]
     assert (lstm.fwd_body(H, dtype), lstm.bwd_body(H, dtype),
-            gru.bwd_body(H, dtype)) == want
+            gru.fwd_body(H, dtype), gru.bwd_body(H, dtype)) == want
     for body, smem in ((want[0], lstm.fwd_smem(H, dtype)),
-                       (want[1], lstm.bwd_smem(H, dtype))):
+                       (want[1], lstm.bwd_smem(H, dtype)),
+                       (want[2], gru.fwd_smem(H, dtype))):
         assert (0 < smem <= _build.SMEM_LIMIT) == (body == "cluster")
 
 
@@ -155,8 +157,8 @@ def test_lstm_768_layouts_stream_part_of_w_hh():
     is larger than its shared memory: both cluster layouts hold part of it
     in registers and shared memory and stream the rest, and the 8-CTA
     and the unstreamed 16-CTA backward layouts would not fit."""
-    KS, RK, SK, D, NP = lstm.FWD_CLUSTER[768]
-    assert 192 * 768 * 2 > _build.SMEM_LIMIT
+    C, KS, RK, SK, D, NP = lstm.FWD_CLUSTER[768]
+    assert C == 16 and 192 * 768 * 2 > _build.SMEM_LIMIT
     assert RK + SK < 768 // 16 // KS            # some k-steps streamed
     RK, SK, D = lstm.BWD_STREAM[768]
     assert RK + SK < 4 * 48 // 16

@@ -619,8 +619,8 @@ def test_recurrence_at_h100_pads_to_the_kernels(dev, dtype, mode):
 
 def test_python_gates_mirror_the_kernels_shared_memory(dev):
     """The pure gates (no card needed) compute the shared memory the C
-    entry points report for K3's backward and K1's cluster bodies, and
-    the body K1's forward and backward and K4's backward run."""
+    entry points report for K3's backward and K1's and K4's cluster
+    bodies, and the body K1's and K4's forward and backward run."""
     from cpc_audio_tpu_torch.ops import _build
     lib = _build.library()
     for D, F in ((256, 2048), (512, 2048), (64, 128), (32, 64),
@@ -646,6 +646,7 @@ def test_python_gates_mirror_the_kernels_shared_memory(dev):
             if H % 32 == 0:
                 assert lib.cpc_gru_fwd_body(H, code) == \
                     codes[gru.fwd_body(H, dt)], (H, dt)
+                assert lib.cpc_gru_fwd_smem(H, code) == gru.fwd_smem(H, dt)
             if H < lstm.GRID_MIN_H:
                 continue
             for G in (3, 4):
@@ -777,6 +778,55 @@ def test_lstm_cluster_bodies(dev, B, T, H, dtype):
     assert lstm.lstm_bwd.body_launches == {
         "cluster": before[1]["cluster"] + 2, "grid": before[1]["grid"],
         "rows": before[1]["rows"]}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode", ["LSTM", "GRU"])
+@pytest.mark.parametrize("H", [128, 256])
+@pytest.mark.parametrize("B,T", [(1, 400), (3, 1), (17, 128), (32, 128)])
+def test_cluster_forward_bodies(dev, mode, H, B, T, dtype):
+    """K1's and K4's forward on their cluster body at H 128 (8 CTAs) and 256
+    (16; the default --hiddenGar; csrc/rnn_cluster_fwd.cuh), at build_feature's
+    B 1 / T 400 (15 of the cluster's 16 rows padding), B 3 at T 1 (no
+    exchange at all), B 17 (a second cluster with one row) and the train
+    shape: every output of the forward against its plain version
+    (float32: ``lstm_scan_split`` / ``gru_scan_split``, the body's 3 split
+    products; bf16: the plain forward) within ``K1_TOL``, reruns
+    bit-identical, the eval call (no residuals) giving the same ys and
+    final state bit for bit, and each launch counted on the cluster
+    body."""
+    rng = np.random.RandomState(B + T + H + 3)
+    G = 4 if mode == "LSTM" else 3
+    mod = lstm if mode == "LSTM" else gru
+    xp = _rand(rng, dev, dtype, B, T, G * H)
+    w = _rand(rng, dev, dtype, G * H, H, scale=H ** -0.5)
+    h0 = _rand(rng, dev, dtype, B, H, scale=0.1)
+    if mode == "LSTM":
+        args = (xp, w, h0, _rand(rng, dev, dtype, B, H, scale=0.1))
+        fwd = lstm.lstm_fwd
+        plain = lstm.lstm_scan_split if dtype == torch.float32 \
+            else lstm.lstm_scan_ref
+    else:
+        args = (xp, w, _rand(rng, dev, dtype, G * H, scale=0.1), h0)
+        fwd = gru.gru_fwd
+        plain = gru.gru_scan_split if dtype == torch.float32 \
+            else gru.gru_scan_ref
+    assert mod.fwd_body(H, dtype) == "cluster"
+    before = dict(fwd.body_launches)
+    got = fwd(*args, save_residuals=True)
+    again = fwd(*args, save_residuals=True)
+    evals = fwd(*args)
+    torch.cuda.synchronize()
+    assert fwd.body_launches == {**before,
+                                 "cluster": before["cluster"] + 3}
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    assert len(evals) == G // 2 + 1
+    for g, e in zip(got, evals):
+        assert torch.equal(g, e)
+    for g, w_ in zip(got, plain(*args, save_residuals=True)):
+        assert g.shape == w_.shape and g.dtype == w_.dtype
+        torch.testing.assert_close(g.float(), w_.float(), **K1_TOL[dtype])
 
 
 GRID_CASES = [("LSTM", 32, 128, 1056), ("LSTM", 4, 128, 4096),

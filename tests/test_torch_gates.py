@@ -192,22 +192,22 @@ def test_lstm_bwd_body_at_512_is_a_16_cta_cluster_in_bf16():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_grid_bodies_take_every_width_past_256_without_a_cluster_body(dtype):
     """The grid bodies (csrc/rnn_grid.cuh) at K1's H 264, 1056, 2048 and
-    4096 and K4's 512, 768 and 4096 in both directions; K1 keeps its rows
-    forward at H 128, 200 and 256, its 8-CTA backward at 128 and 256, its
-    rows backward at 200 and its 16-CTA bodies at 512 and 768; K4 keeps
-    its rows forward and 8-CTA backward at 256."""
+    4096 and K4's 512, 768 and 4096 in both directions; K1 runs its
+    cluster forward (8 CTAs at H 128, 16 at 256) and 8-CTA backward at H
+    128 and 256, its rows forward and backward at 200 and its 16-CTA
+    bodies at 512 and 768; K4 its cluster forward and backward at 256."""
     for H in (264, 1056, 2048, 4096):
         assert lstm.fwd_body(H, dtype) == lstm.bwd_body(H, dtype) == "grid"
     for H in (512, 768, 4096):
         assert gru.fwd_body(H, dtype) == gru.bwd_body(H, dtype) == "grid"
-    for H in (128, 200, 256):
-        assert lstm.fwd_body(H, dtype) == "rows", H
+    assert [lstm.fwd_body(H, dtype) for H in (128, 200, 256)] == [
+        "cluster", "rows", "cluster"]
     assert [lstm.bwd_body(H, dtype) for H in (128, 200, 256)] == [
         "cluster", "rows", "cluster"]
     for H in (512, 768):
         assert lstm.fwd_body(H, dtype) == lstm.bwd_body(H, dtype) \
             == "cluster"
-    assert gru.fwd_body(256, dtype) == "rows"
+    assert gru.fwd_body(256, dtype) == "cluster"
     assert gru.bwd_body(256, dtype) == "cluster"
 
 

@@ -1,6 +1,8 @@
-"""K4's float32 grid-body arithmetic, written plainly on the CPU.
+"""K4's float32 cluster- and grid-body arithmetic, written plainly on the
+CPU.
 
-On the card K4's float32 forward and backward past H 256
+On the card K4's float32 forward at H 128 and 256 (the cluster body,
+csrc/rnn_cluster_fwd.cuh) and its forward and backward past H 256
 (csrc/rnn_grid.cuh, through csrc/gru_fwd.cu and csrc/gru_bwd.cu) run each
 step's product on bf16 tensor cores with split operands: h (forward) or
 dgh = (dr, dz, dghn) (backward) and W_hh each as bf16 hi + lo, and 3 split
@@ -103,13 +105,17 @@ def test_split_backward_matches_float64_and_pallas_vjp(B, T, H):
         assert _rel(g, torch.from_numpy(j)) <= BWD_REL
 
 
-def test_three_split_products_hold_the_tolerance_at_h512():
-    """Why 3 split products, as K1's: at H 512 (the GRU 512 path's width)
-    over 64 steps the split forward stays within a tenth of the forward's
-    tolerance of the float64 recurrence, and the split backward within a
-    tenth of the backward's (the dropped terms, h_lo W_lo and what two
-    planes leave of each operand, are about 2^-16 of |h||W_hh| a term)."""
-    B, T, H = 2, 64, 512
+@pytest.mark.parametrize("H", [128, 256, 512])
+def test_three_split_products_hold_the_tolerance_at_h512(H):
+    """Why 3 split products, as K1's: at H 128 and 256 (the cluster
+    forward's widths; 256 is the default --hiddenGar) and at H 512 (the
+    GRU 512 path's width), over 64 steps, the split forward stays within
+    a tenth of the forward's tolerance of the float64 recurrence and,
+    over its first 16 steps, within the tolerance of JAX's float32 Pallas
+    forward (interpret mode), and the split backward within a tenth of
+    the backward's (the dropped terms, h_lo W_lo and what two planes
+    leave of each operand, are about 2^-16 of |h||W_hh| a term)."""
+    B, T = 2, 64
     xp, w, b, h0, dys = _inputs(B, T, H, 5)
     got = gru.gru_scan_split(_t(xp), _t(w), _t(b), _t(h0),
                              save_residuals=True)
@@ -118,6 +124,13 @@ def test_three_split_products_hold_the_tolerance_at_h512():
     err = max((g.double() - e).abs().max().item()
               for g, e in zip(got, exact))
     assert err <= 0.1 * FWD_ATOL, err
+    # JAX over the first 16 steps (interpret mode costs ~0.1 s a step)
+    head = gru.gru_scan_split(_t(xp[:, :16]), _t(w), _t(b), _t(h0))
+    jax_out = gru_scan_pallas(jnp.asarray(xp[:, :16]), jnp.asarray(w.T),
+                              jnp.asarray(b), jnp.asarray(h0), True)
+    for g, j in zip(head, jax_out):
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), atol=FWD_ATOL,
+                                   rtol=0)
     zeros = torch.zeros(B, H, dtype=torch.float64)
     split = gru.gru_bwd_split(exact[2].float(), exact[3].float(), _t(h0),
                               exact[0].float(), _t(dys), _t(w),
