@@ -46,7 +46,10 @@ Phases (any failure exits non-zero):
      each of their launches (in float32 the split of the weights, LN1,
      then G1 and G2 of the forward, or G1-G6 and the sums over tiles of
      the backward); their float32 bounds count the bf16 split products
-     they run, at the bf16 peak, beside the float32-core figure; then
+     they run, at the bf16 peak, beside the float32-core figure; K6's
+     forward and backward, at rate 0.1 in both dtypes, the same (its
+     GEMMs, its splits and the K2 tensor-core kernels it runs), its
+     backward from the forward's residuals (q, k, v, y); then
      time the yardstick PyTorch call where one computes the same function
      (cuDNN LSTM/GRU, scaled_dot_product_attention, index_add_; also cuDNN's
      LSTM at H 512 and 768 beside K1 there, forward and backward in
@@ -61,7 +64,9 @@ Phases (any failure exits non-zero):
      backward beside cuDNN's in both dtypes and the port's whole LSTM and
      GRU layers beside cuDNN's, in turns, K5 at rate 0 beside SDPA, and
      for K7 the port's unfused encoder layers (cuDNN conv + ChannelNorm +
-     ReLU, a composition, not one call);
+     ReLU, a composition, not one call), and for K6 the heads' unfused
+     block (cuBLAS projections + K2 + cuBLAS Wo + residual) in turns
+     with K6, both directions, both dtypes;
   4. the eval path at full width, for --arMode LSTM (the default), GRU
      and transformer, and the fused-layer path (LSTM with CPC_ATTN_BLOCK=1
      and CPC_PALLAS_CONV=1: K6 in the heads, K7 in encoder layers 1-4):
@@ -353,6 +358,9 @@ def kernel_cases(dev: torch.device, dtype: torch.dtype, B: int = 32):
     block_args = (rand(M, D),) + tuple(rand(K, D, D, scale=D ** -0.5)
                                        for _ in range(4)) + attn_args[3:]
     proj = 2 * K * M * D * D         # one (M, D) x (D, D) product per k
+    # the residuals K6's forward keeps for its backward, (qkv, y)
+    block_saved = {r: ab.attention_block_fwd(*block_args, B, nh, r, seed)[1]
+                   for r in (0.0, 0.1)}
     # the train path's recurrences also save their residuals
     cases = [Case("lstm_fwd", 0.0,
                   lambda: lstm.lstm_fwd(*lstm_args, save_residuals=True),
@@ -414,19 +422,25 @@ def kernel_cases(dev: torch.device, dtype: torch.dtype, B: int = 32):
             # the q, k, v and Wo projections and K2's 6 dk per causal pair
             Case("attention_block_fwd", rate,
                  lambda r=rate: ab.attention_block_fwd(*block_args, B, nh, r,
-                                                       seed),
+                                                       seed)[0],
                  lambda r=rate: ab.attention_block_ref(*block_args, B, nh, r,
                                                        seed),
                  block_args, 4 * proj + 6 * dk * pairs),
-            # recomputed q, k, v and dy (4 products), K2's backward with y
-            # (18 dk per causal pair), dWq/k/v/o (4) and dcp (3)
+            # from the forward's q, k, v and y (read, not recomputed): dy
+            # (1 product), K2's backward (16 dk per causal pair), dWq/k/v/o
+            # (4) and dcp (3)
             Case("attention_block_bwd", rate,
-                 lambda r=rate: ab.attention_block_bwd(*block_args, attn_dout,
-                                                       B, nh, r, seed),
+                 lambda r=rate: ab.attention_block_bwd(
+                     *block_args, attn_dout, block_saved[r], B, nh, r, seed),
                  lambda r=rate: ab.attention_block_bwd_ref(
                      *block_args, attn_dout, B, nh, r, seed),
-                 block_args + (attn_dout,), 11 * proj + 18 * dk * pairs),
+                 block_args + (attn_dout,) + block_saved[rate],
+                 8 * proj + 16 * dk * pairs),
         ]
+        # float32: the GEMMs of 6 split products but dcp's 3, K2's backward
+        # of 3
+        cases[-1].split = (6 * 5 * proj + 3 * 3 * proj + 3 * 16 * dk * pairs) \
+            / cases[-1].flops
     layers, dys = conv_layers(rand, B)
     conv_flops = sum(2 * dy.numel() * l[0].shape[-1] * l[6]
                      for l, dy in zip(layers, dys))
@@ -966,10 +980,12 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # K3 in float32 runs its products as bf16 tensor-core products of split
 # operands: G1 of 6, the others of 3 (the forward's two: 9 for 2; the
 # backward's six: 21 for 6); K5 and K2 in float32 every product of 6 in
-# the forward (three planes) and of 3 in the backward (two)
+# the forward (three planes) and of 3 in the backward (two); K6's forward
+# every product of 6 (its backward's mix is set in kernel_cases)
 SPLIT_PRODUCTS = {"relpos_attention_fwd": 6, "relpos_attention_bwd": 3,
                   "layer_tail_fwd": 9 / 2, "layer_tail_bwd": 21 / 6,
-                  "causal_attention_fwd": 6, "causal_attention_bwd": 3}
+                  "causal_attention_fwd": 6, "causal_attention_bwd": 3,
+                  "attention_block_fwd": 6}
 
 
 def _tensors(x):
@@ -1380,16 +1396,32 @@ TAIL_WIDE_LAUNCHES = {
                        ("column passes", "tail_cols_kernel"),
                        ("G5", "g5_dw1"), ("G6", "g6_dw2"),
                        ("sums", "sum_parts"))}
+# K6's launches: its GEMMs (csrc/attention_block_tc.cuh; in float32 also
+# the split into bf16 planes) and the kernels of K2's tensor-core body it
+# runs through K2's C entry points (krel's padded planes and, in float32,
+# the operands' planes first)
+BLOCK_LAUNCHES = {
+    "attention_block_fwd": (("split", "k6::split_kernel"),
+                            ("Proj", "k6::proj<"), ("K2 copies", "planes<"),
+                            ("K2 forward", "relpos_tc_fwd"),
+                            ("Out", "k6::out<")),
+    "attention_block_bwd": (("split", "k6::split_kernel"),
+                            ("Dy", "k6::dy<"), ("K2 copies", "planes<"),
+                            ("K2 rows", "relpos_tc_bwd_rows"),
+                            ("K2 columns", "relpos_tc_bwd_cols"),
+                            ("K2 diagonals", "relpos_tc_bwd_diag"),
+                            ("K2 windows' sum", "dkrel_windows_reduce"),
+                            ("DW", "k6::dw<"), ("Dcp", "k6::dcp<"))}
 
 
-def tail_launches(case: Case, ms: float, dtype: torch.dtype,
-                  n: int = 3) -> None:
-    """K3's forward or backward: a rerun must be bit-identical to the
-    first call (no atomics, fixed-order sums); then the device time of
-    each of its launches (``TAIL_LAUNCHES``: in float32 the split of the
+def rerun_and_launches(case: Case, ms: float, dtype: torch.dtype,
+                       n: int = 3) -> None:
+    """K3's or K6's forward or backward: a rerun must be bit-identical to
+    the first call (no atomics, fixed-order sums); then the device time of
+    each of its launches over ``n`` calls (torch.profiler), beside the
+    call's median_ms: ``TAIL_LAUNCHES`` (in float32 the split of the
     weights, LN1, the forward's two GEMMs or the backward's six and the
-    fixed-order sums over tiles) over ``n`` calls (torch.profiler), beside
-    the call's median_ms."""
+    fixed-order sums over tiles) or ``BLOCK_LAUNCHES``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     first, again = _tensors(case.kernel()), _tensors(case.kernel())
@@ -1399,7 +1431,8 @@ def tail_launches(case: Case, ms: float, dtype: torch.dtype,
     del first, again
     from cpc_audio_tpu_torch.ops import ffn
     wide = case.inputs[0].shape[-1] > ffn.ROW_TILE_MAX_D
-    launches = (TAIL_WIDE_LAUNCHES if wide else TAIL_LAUNCHES)[case.name]
+    launches = BLOCK_LAUNCHES.get(case.name) or (
+        TAIL_WIDE_LAUNCHES if wide else TAIL_LAUNCHES)[case.name]
     # torch.profiler now and then returns a profile without the device's
     # events (none at all, after its warning that "Profiler clears events
     # at the end of each cycle"), on an H100 once three times running (a
@@ -1489,9 +1522,9 @@ def phase_kernels(dev: torch.device, B: int = 32) -> dict:
             if name.startswith("causal_attention") and case.shape is None \
                     and case.rate == 0.0 and dtype == torch.bfloat16:
                 rate0[name] = ms
-            if name in TAIL_LAUNCHES and \
+            if (name in TAIL_LAUNCHES or name in BLOCK_LAUNCHES) and \
                     case.rate == TRAIN_RATE.get(name, 0.1):
-                tail_launches(case, ms, dtype)
+                rerun_and_launches(case, ms, dtype)
             body = recurrent_body(case, dtype)
             if body is not None:
                 recurrent_rerun(case, body)
@@ -1546,6 +1579,7 @@ def phase_kernels(dev: torch.device, B: int = 32) -> dict:
     rows_yardsticks(dev, H4096_SHAPES, warmup=1, reps=2)
     long_causal_yardsticks(dev)
     conv_composition_times(dev, timings=results, B=B)
+    block_composition_times(dev, B)
     scatter_wrapper_times(dev, results, B)
     torch.cuda.empty_cache()
     return results
@@ -1645,6 +1679,66 @@ def conv_composition_times(dev: torch.device, timings: dict,
           f"dW): forward {fwd:.4f} ms, backward {bwd:.4f} ms; K7 "
           f"{timings['conv_ln_fwd']['ms']:.4f} / "
           f"{timings['conv_ln_bwd']['ms']:.4f} ms", flush=True)
+
+
+def block_composition(args, dout, B: int, nh: int, rate: float, seed):
+    """(forward, backward) of the heads' attention block as they run it
+    without CPC_ATTN_BLOCK (criterion/stacked_heads.py): cuBLAS
+    projections, K2, cuBLAS Wo and the residual, the backward by autograd
+    with every weight's gradient; on K6's inputs.  A composition of calls,
+    not one call, so it is no library time."""
+    from cpc_audio_tpu_torch.ops import head_attention as ha
+    leaves = [t.detach().requires_grad_(True) for t in args]
+    c, wq, wk, wv, wo, krel = leaves
+
+    def fwd():
+        q, k, v = (torch.matmul(c, w) for w in (wq, wk, wv))
+        y = ha.relpos_attention(q, k, v, krel, B, nh, rate, seed)
+        return torch.matmul(y, wo) + c
+    x = fwd()
+    return fwd, lambda: torch.autograd.grad(x, leaves, dout,
+                                            retain_graph=True)
+
+
+def block_composition_times(dev: torch.device, B: int = 32) -> None:
+    """K6 beside the unfused composition (:func:`block_composition`) at
+    the default train shape (K 12, B 32, S 116, 8 x 32), dropout 0.1, in
+    both dtypes and directions, in turns (K6, composition, composition,
+    K6), device time a call."""
+    from cpc_audio_tpu_torch.ops import attention_block as ab
+    K, S, nh, dk = 12, 116, 8, 32
+    D, M = nh * dk, B * S
+    seed = torch.tensor([SEED], dtype=torch.int64, device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device=dev).manual_seed(SEED + 10)
+
+        def rand(*shape, scale=1.0):
+            return (torch.randn(shape, generator=g, device=dev)
+                    * scale).to(dtype)
+        args = (rand(M, D),) + tuple(rand(K, D, D, scale=D ** -0.5)
+                                     for _ in range(4)) \
+            + (rand(K, dk, S, scale=0.5),)
+        dout = rand(K, M, D, scale=0.1)
+        saved = ab.attention_block_fwd(*args, B, nh, 0.1, seed)[1]
+        k6 = (lambda: ab.attention_block_fwd(*args, B, nh, 0.1, seed),
+              lambda: ab.attention_block_bwd(*args, dout, saved, B, nh, 0.1,
+                                             seed))
+        comp = block_composition(args, dout, B, nh, 0.1, seed)
+        t = {"K6": [[], []], "composition": [[], []]}
+        for who in ("K6", "composition", "composition", "K6"):
+            calls = k6 if who == "K6" else comp
+            for i in (0, 1):
+                t[who][i].append(median_ms(calls[i]))
+        print(f"  K6 vs the unfused composition (cuBLAS projections + K2 + "
+              f"cuBLAS Wo + residual, autograd backward with dW), "
+              f"{str(dtype)[6:]}, rate 0.1, in turns: forward K6 "
+              f"{t['K6'][0][0]:.4f} / {t['K6'][0][1]:.4f} ms, composition "
+              f"{t['composition'][0][0]:.4f} / {t['composition'][0][1]:.4f} "
+              f"ms; backward K6 {t['K6'][1][0]:.4f} / {t['K6'][1][1]:.4f} "
+              f"ms, composition {t['composition'][1][0]:.4f} / "
+              f"{t['composition'][1][1]:.4f} ms", flush=True)
+        del args, dout, saved, k6, comp
+        torch.cuda.empty_cache()
 
 
 def counters():
@@ -2246,6 +2340,14 @@ def profile_train(step, batch, key, step_ms: float, path: str,
             and not getattr(e, "is_user_annotation", False)
             and e.self_device_time_total > 0]
     rows.sort(key=lambda e: -e.self_device_time_total)
+    # K1's forward at H 768 in float32 runs its own kernel
+    # (csrc/lstm_fwd.cu lstm_fwd_stream_kernel), the other cluster
+    # forwards the template's; fwd_body says "cluster" for both
+    stream = any("lstm_fwd_stream_kernel" in e.key for e in rows)
+    if stream != (path == F768):
+        ran = "ran" if stream else "did not run"
+        fail(f"{path}: lstm_fwd_stream_kernel {ran} in the train step "
+             f"(only {F768} runs it)")
     busy = sum(e.self_device_time_total for e in rows) / 1e3 / n
     print(f"{path} train step profile ({n} steps): {len(rows)} distinct "
           f"kernels, {sum(e.count for e in rows) // n} launches and "
@@ -2295,9 +2397,23 @@ def profile_train(step, batch, key, step_ms: float, path: str,
     print(f"  K3 forward {tail['fwd']:.3f} ms, backward (but its sums over "
           f"tiles) {tail['bwd']:.3f} ms (LN1, the split and a wide body's "
           f"G2 halved between the two)", flush=True)
+    # K6 by launch (the fused-layer path): its GEMMs and splits
+    # (csrc/attention_block_tc.cuh)
+    k6 = {}
+    for e in rows:
+        name = e.key.lower()
+        if "k6::" in name:
+            part = next((u for u in ("proj", "out", "dy", "dw", "dcp")
+                         if f"k6::{u}<" in name), "split")
+            k6[part] = k6.get(part, 0.0) + e.self_device_time_total / 1e3 / n
+    if k6:
+        print("  K6's GEMMs by launch: " + ", ".join(
+            f"{part} {t:.3f} ms" for part, t in k6.items()), flush=True)
     # K2's tensor-core body by kernel: the forward, the backward's three
     # passes and its sum of the windows, and the operands' copies (krel's
-    # padded planes, and the float32 split) that both directions make
+    # padded planes, and the float32 split) that both directions make; on
+    # the fused-layer path these are K6's, which runs K2's body through
+    # K2's C entry points
     k2 = {}
     for e in rows:
         name = e.key.lower()
@@ -2308,7 +2424,9 @@ def profile_train(step, batch, key, step_ms: float, path: str,
                 k2[part] = k2.get(part, 0.0) + \
                     e.self_device_time_total / 1e3 / n
     if k2:
-        print("  K2 by kernel: " + ", ".join(
+        who = "K6's attention (K2's tensor-core body)" if path == FUSED \
+            else "K2"
+        print(f"  {who} by kernel: " + ", ".join(
             f"{part} {t:.3f} ms" for part, t in k2.items()), flush=True)
     if other:
         print("  largest of 'other': " + "; ".join(
@@ -2323,7 +2441,7 @@ PROFILE_GROUPS = (
                       "relpos_attention", "relpos_tc",
                       "dkrel_windows", "krel_planes", "head_planes",
                       "causal_attention", "tail_", "dkrel_reduce",
-                      "attention_block", "conv_ln", "sum_parts",
+                      "k6::", "conv_ln", "sum_parts",
                       "scatter_add_kernel", "split_planes",
                       "split_operands")),
     ("Adam (foreach kernels)", ("adam", "multi_tensor_apply")),

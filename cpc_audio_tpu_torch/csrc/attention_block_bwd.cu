@@ -1,365 +1,179 @@
-// K6 backward: the prediction heads' whole attention block.
+// K6: the prediction heads' whole attention block, backward.
 //
 // Replaces cpc_audio_tpu/ops/pallas/head_attention.py `_block_bwd_kernel`
-// (called through `_fb_bwd`).  With dx the cotangent of x[k] and the
-// forward recomputed (q, k, v = round(c . W*[k])):
-//   dy        = round(dx . Wo[k]^T)
-//   dq, dk, dv, y, dkrel: the attention backward of relpos_attention.cuh
-//   dWq[k] = c^T . dq,  dWk[k] = c^T . dk,  dWv[k] = c^T . dv,
-//   dWo[k] = y^T . dx                       (float32, summed over rows)
-//   dcp[k] = round(dq . Wq[k]^T + dk . Wk[k]^T + dv . Wv[k]^T)
-// The caller forms dc = sum_k (dcp[k] + dx[k]), the JAX package's own
-// epilogue outside its kernel.
+// (called through `_fb_bwd`).  For head stack k, from the forward's q, k,
+// v and y (the Pallas kernel recomputes them; here the forward keeps
+// them, ops/attention_block.py) and the cotangent dout of x:
+//   dy             = round(dout . Wo[k]^T)
+//   dq, dk, dv     = K2's backward of the attention at dy (each rounded to
+//                    E), and dkrel summed over the rows and heads
+//   dWq, dWk, dWv  = c^T . dq, c^T . dk, c^T . dv       (float32)
+//   dWo            = y^T . dout                         (float32)
+//   dcp[k]         = round(dq . Wq^T + dk . Wk^T + dv . Wv^T)
+// with round() the rounding to the input dtype E after float32 sums.  The
+// input gradient dc = sum_k (dcp[k] + dout[k]) is summed by the wrapper,
+// as the JAX package sums it outside its kernel.
 //
-// Design.  The Pallas kernel adds the dW blocks across a sequential grid
-// axis; a GPU grid has none, and float atomics would make the result
-// depend on the launch order.  So the backward is a rows pass and two
-// products, each writing its outputs whole, as K3's backward does:
-//   1. heads: one block per (head h, batch row b, k) projects [q | k | v]
-//      and dy's dk columns of the head (tile_mm.cuh), runs the attention
-//      backward of K2 (relpos_attention.cuh) and writes dq, dk, dv and y
-//      (K, M, D) in T to scratch, and its dkrel part (dk, S);
-//   2. the dkrel parts are summed over (b, h) in a fixed order;
-//   3. dw: one block per (32 rows of dW, which of the four, k) contracts
-//      over all M rows: c^T . dq|dk|dv and y^T . dx, written whole;
-//   4. dcp: one block per (64 rows, k) contracts [dq | dk | dv] (64, 3D)
-//      with [Wq; Wk; Wv]^T.
-// q, k, v and dy stay on chip; dq, dk, dv and y make one round trip
-// through device memory (4 x 23 MB in bf16 at the train shapes), as the
-// Pallas kernel's VMEM could hold them and 227 KB cannot.
+// Design (csrc/attention_block_tc.cuh): from this one C entry, over all
+// K head stacks at once,
+//   1. Dy, one GEMM launch (Wo read n-major): dy in E;
+//   2. K2's tensor-core backward through its C entry
+//      (`cpc_relpos_attention_bwd_tc`: row, column and diagonal passes,
+//      dkrel's windows summed in a fixed order) with the forward's
+//      dropout bits;
+//   3. DW, one GEMM launch of 4 K weight gradients, A read k-major, depth
+//      M, float32 out;
+//   4. Dcp, one GEMM launch that walks dq . Wq^T, dk . Wk^T and dv . Wv^T
+//      into the same float32 sums and rounds once.
+// In float32, c, the weights, dout and y are split into three bf16 planes
+// first, and dq, dk, dv before phase 3.
 //
-// What bounds it on an H100: ≈ 80 GFLOP at the train shapes (K = 12,
-// M = 3712, D = 256), 0.08 ms at the bf16 peak, against ≈ 300 MB of device
-// memory including the scratch (0.09 ms).  Pass 1 holds one block per SM
-// (≈ 190 KB of shared memory) with its phases serialised.
-#include <mma.h>
-
-#include "attention_block.cuh"
+// What bounds it on an H100: at the train shape (K 12, B 32, S 116, 8
+// heads x dk 32, D 256) the GEMMs are 52 GFLOP (0.053 ms at the bf16
+// peak) and K2's backward 2.1 GFLOP; the inputs, y, q, k, v and the
+// outputs come to 0.15 GB in bf16 (0.045 ms at 3.35 TB/s), and dy, dq,
+// dk, dv go to device memory and back once each.
+#include "attention_block_tc.cuh"
 
 namespace {
 
-using cpc::bf16;
-constexpr int kThreads = 512;
-constexpr int KC = 64;        // contraction chunk
-constexpr int kPad = 8;       // row padding of staged tiles (16 B in bf16)
-constexpr int kRowsW = 32;    // dW rows a block
-constexpr int kRowsC = 64;    // dcp rows a block
+namespace k6 = cpc::k6;
+using k6::bf16;
 
-// ---- 1. heads --------------------------------------------------------------
-
-template <typename T>
-struct HeadsSmem {
-  float *qs, *dos, *ks, *vs, *krT;   // attention operands, float32
-  float *DS, *PD;                     // (S, S) tiles of the backward
-  T *a, *bw;                          // projection chunks (union with DS, PD)
-  float* cp;                          // projection result (SP, 3 dk)
-  int SP, lda, ldb, ldbt, ldc;
+// The scratch: K2's first (at the allocation's own alignment), dy, dq,
+// dk, dv in E, and in float32 the bf16 planes of c, the weights, dout, y,
+// dq, dk and dv.
+struct BwdScratch {
+  void *k2, *dy, *g;
+  bf16 *c = nullptr, *w = nullptr, *dout = nullptr, *y = nullptr,
+       *gp = nullptr;
   size_t bytes;
-  __host__ __device__ HeadsSmem(void* base, int S, int dk)
-      : SP((S + 15) / 16 * 16), lda(KC + kPad), ldb(3 * dk + kPad),
-        ldbt(KC + kPad), ldc(3 * dk + 4) {
+  BwdScratch(void* base, int K, int M, int D, size_t k2_bytes, int elt) {
     cpc::Carve cv(base);
-    qs = cv.take<float>((size_t)S * dk);
-    dos = cv.take<float>((size_t)S * dk);
-    ks = cv.take<float>((size_t)S * (dk + 1));
-    vs = cv.take<float>((size_t)S * (dk + 1));
-    krT = cv.take<float>((size_t)S * (dk + 1));
-    const size_t mark = cv.off;
-    DS = cv.take<float>((size_t)S * S);
-    PD = cv.take<float>((size_t)S * S);
-    cv.reset(mark);
-    a = cv.take<T>((size_t)SP * lda);
-    const size_t nb = (size_t)KC * ldb > (size_t)dk * ldbt ? (size_t)KC * ldb
-                                                           : (size_t)dk * ldbt;
-    bw = cv.take<T>(nb);
-    cp = cv.take<float>((size_t)SP * ldc);
+    const size_t kmd = (size_t)K * M * D;
+    k2 = cv.take<unsigned char>(k2_bytes);
+    dy = cv.take<unsigned char>(kmd * elt);
+    g = cv.take<unsigned char>(3 * kmd * elt);
+    if (elt == 4) {
+      c = cv.take<bf16>((size_t)3 * M * D);
+      w = cv.take<bf16>((size_t)4 * 3 * K * D * D);
+      dout = cv.take<bf16>(3 * kmd);
+      y = cv.take<bf16>(3 * kmd);
+      gp = cv.take<bf16>(3 * 3 * kmd);
+    }
     bytes = cv.bytes();
   }
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) attention_block_bwd_heads_kernel(
-    const T* __restrict__ c, const T* __restrict__ wq,
-    const T* __restrict__ wk, const T* __restrict__ wv,
-    const T* __restrict__ wo, const T* __restrict__ krel,
-    const T* __restrict__ dout, T* __restrict__ dq, T* __restrict__ dkk,
-    T* __restrict__ dv, T* __restrict__ y, float* __restrict__ part,
-    int n_batch, int S, int nheads, int dk, float inv_sqrt,
-    cpc::Dropout drop) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const HeadsSmem<T> L(smem, S, dk);
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int kk = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int D = nheads * dk;
-  const int n3 = 3 * dk;
-  const int ldk = dk + 1;
-  const size_t M = (size_t)n_batch * S;
-  const T* cb = c + (size_t)b * S * D;
-  const T* dxb = dout + ((size_t)kk * M + (size_t)b * S) * D;
-  const size_t w_off = (size_t)kk * D * D;
-
-  // ---- [q | k | v] of head h = c_b . W[:, h dk : (h+1) dk] ----
-  cpc::ProjAcc<T> proj;
-  proj.zero();
-  for (int k0 = 0; k0 < D; k0 += KC) {
-    __syncthreads();
-    cpc::stage(L.a, L.lda, cb + k0, D, L.SP, KC, S);
-    cpc::stage_qkv(L.bw, L.ldb, wq, wk, wv, w_off, D, dk, h, k0, KC);
-    __syncthreads();
-    proj.mma(L.a, L.lda, L.bw, L.ldb, L.SP, n3, KC);
+template <class E>
+int backward(const void* c, const void* const* w, const void* krel,
+             const void* dout, const void* qkv, const void* y, void* dkrel,
+             void* dw, void* dcp, void* scratch, int K, int n_batch, int S,
+             int nheads, int dk, const void* seed, unsigned threshold,
+             float keep_scale, int dtype, cudaStream_t s) {
+  constexpr bool kF32 = k6::Prec<E>::kF32;
+  const int M = n_batch * S, D = nheads * dk;
+  const size_t kmd = (size_t)K * M * D;
+  const size_t k2_bytes =
+      cpc_relpos_attention_bwd_tc_scratch(K, n_batch, S, nheads, dk, dtype);
+  const BwdScratch sc(scratch, K, M, D, k2_bytes, sizeof(E));
+  const E* q = static_cast<const E*>(qkv);
+  E* g = static_cast<E*>(sc.g);
+  k6::Args p{};
+  p.K = K;
+  p.M = M;
+  p.D = D;
+  p.kmd = kmd;
+  p.dw = static_cast<float*>(dw);
+  cudaError_t err = cudaSuccess;
+  if constexpr (kF32) {
+    k6::SplitJobs jobs{};
+    const void* src[7] = {c, w[0], w[1], w[2], w[3], dout, y};
+    bf16* dst[7] = {sc.c, sc.w, sc.w + 3 * (size_t)K * D * D,
+                    sc.w + 6 * (size_t)K * D * D,
+                    sc.w + 9 * (size_t)K * D * D, sc.dout, sc.y};
+    for (int i = 0; i < 7; ++i) {
+      jobs.src[i] = static_cast<const float*>(src[i]);
+      jobs.dst[i] = dst[i];
+      jobs.n[i] = i == 0 ? (size_t)M * D : i < 5 ? (size_t)K * D * D : kmd;
+    }
+    err = k6::split(jobs, 7, s);
+    if (err != cudaSuccess) return (int)err;
+    p.c = sc.c;
+    for (int i = 0; i < 4; ++i) p.w[i] = dst[1 + i];
+    p.dout = sc.dout;
+    p.y = sc.y;
+    for (int i = 0; i < 3; ++i) p.g[i] = sc.gp + 3 * i * kmd;
+    p.c_plane = (size_t)M * D;
+    p.w_plane = (size_t)K * D * D;
+  } else {
+    p.c = static_cast<const bf16*>(c);
+    for (int i = 0; i < 4; ++i) p.w[i] = static_cast<const bf16*>(w[i]);
+    p.dout = static_cast<const bf16*>(dout);
+    p.y = static_cast<const bf16*>(y);
+    for (int i = 0; i < 3; ++i) p.g[i] = reinterpret_cast<bf16*>(g) + i * kmd;
   }
-  proj.store(L.cp, L.ldc, L.SP, n3);
-  __syncthreads();
-  for (int idx = tid; idx < S * dk; idx += blockDim.x) {
-    const int i = idx / dk;
-    const int d = idx - i * dk;
-    const float* row = L.cp + i * L.ldc;
-    L.qs[i * dk + d] = cpc::round_to<T>(row[d]);
-    L.ks[i * ldk + d] = cpc::round_to<T>(row[dk + d]);
-    L.vs[i * ldk + d] = cpc::round_to<T>(row[2 * dk + d]);
-  }
-
-  // ---- dy's columns of head h = dx_kb . (Wo[k][h dk : (h+1) dk, :])^T ----
-  proj.zero();
-  for (int k0 = 0; k0 < D; k0 += KC) {
-    __syncthreads();
-    cpc::stage(L.a, L.lda, dxb + k0, D, L.SP, KC, S);
-    cpc::stage(L.bw, L.ldbt, wo + w_off + (size_t)h * dk * D + k0, D, dk, KC,
-               dk);
-    __syncthreads();
-    proj.template mma<false, true>(L.a, L.lda, L.bw, L.ldbt, L.SP, dk,
-                                   KC);
-  }
-  proj.store(L.cp, L.ldc, L.SP, dk);
-  __syncthreads();
-  for (int idx = tid; idx < S * dk; idx += blockDim.x) {
-    const int i = idx / dk;
-    const int d = idx - i * dk;
-    L.dos[i * dk + d] = cpc::round_to<T>(L.cp[i * L.ldc + d]);
-  }
-  const T* kr_g = krel + (size_t)kk * dk * S;
-  for (int idx = tid; idx < dk * S; idx += blockDim.x) {
-    const int d = idx / S;
-    const int r = idx - d * S;
-    L.krT[r * ldk + d] = cpc::to_f32(kr_g[idx]);
-  }
-  __syncthreads();
-
-  cpc::relpos_bwd_body<T, true>(
-      L.qs, L.dos, L.ks, L.vs, L.krT, L.DS, L.PD, S, dk, inv_sqrt, drop,
-      cpc::attention_row_key(drop, kk, n_batch, b, nheads, h), dq, dkk, dv, y,
-      ((size_t)kk * M + (size_t)b * S) * D + (size_t)h * dk, D,
-      part + ((size_t)(kk * n_batch + b) * nheads + h) * dk * S);
-}
-
-// A block's dW (kRowsW, D) or dcp (kRowsC, D) tile in registers, D <= 256:
-// at most 64 tiles of 16 x 16, 4 a warp.
-template <typename T>
-using ProdAcc = cpc::BlockAcc<T, 4>;
-
-// ---- 3. dw -----------------------------------------------------------------
-
-template <typename T>
-struct ProdSmem {
-  T *a, *b;
-  float* cs;
-  int lda, ldb, ldc;
-  size_t bytes;
-  // a (ra, ca), b (rb, cb) staged tiles; cs (rc, D) float32
-  __host__ __device__ ProdSmem(void* base, int ra, int ca, int rb, int cb,
-                               int rc, int D)
-      : lda(ca + kPad), ldb(cb + kPad), ldc(D + 4) {
-    cpc::Carve cv(base);
-    a = cv.take<T>((size_t)ra * lda);
-    b = cv.take<T>((size_t)rb * ldb);
-    cs = cv.take<float>((size_t)rc * ldc);
-    bytes = cv.bytes();
-  }
-};
-
-template <typename T>
-__host__ __device__ ProdSmem<T> dw_smem(void* base, int D) {
-  // a: (KC rows of M, kRowsW columns of D); b: (KC rows of M, D)
-  return ProdSmem<T>(base, KC, kRowsW, KC, D, kRowsW, D);
-}
-
-template <typename T>
-__host__ __device__ ProdSmem<T> dcp_smem(void* base, int D) {
-  // a: (kRowsC rows, KC of 3D); b: (D, KC), the weights' rows
-  return ProdSmem<T>(base, kRowsC, KC, D, KC, kRowsC, D);
-}
-
-// dw[which][k][d0 : d0 + kRowsW, :] = A^T . B over the M rows, with
-// (A, B) = (c, dq[k]), (c, dk[k]), (c, dv[k]), (y[k], dx[k]).
-template <typename T>
-__global__ void __launch_bounds__(kThreads) attention_block_dw_kernel(
-    const T* __restrict__ c, const T* __restrict__ dq,
-    const T* __restrict__ dkk, const T* __restrict__ dv,
-    const T* __restrict__ y, const T* __restrict__ dout,
-    float* __restrict__ dw, int K, int M, int D) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const ProdSmem<T> L = dw_smem<T>(smem, D);
-  const int d0 = blockIdx.x * kRowsW;
-  const int which = blockIdx.y;
-  const int kk = blockIdx.z;
-  const size_t koff = (size_t)kk * M * D;
-  const T* A = which == 3 ? y + koff : c;
-  const T* B = (which == 0 ? dq : which == 1 ? dkk : which == 2 ? dv : dout) +
-               koff;
-  ProdAcc<T> acc;
-  acc.zero();
-  for (int m0 = 0; m0 < M; m0 += KC) {
-    __syncthreads();
-    cpc::stage(L.a, L.lda, A + (size_t)m0 * D + d0, D, KC, kRowsW, M - m0);
-    cpc::stage(L.b, L.ldb, B + (size_t)m0 * D, D, KC, D, M - m0);
-    __syncthreads();
-    acc.template mma<true, false>(L.a, L.lda, L.b, L.ldb, kRowsW, D,
-                                  KC);
-  }
-  acc.store(L.cs, L.ldc, kRowsW, D);
-  __syncthreads();
-  float* out = dw + ((size_t)which * K + kk) * D * D + (size_t)d0 * D;
-  for (int idx = threadIdx.x; idx < kRowsW * D; idx += blockDim.x) {
-    const int r = idx / D;
-    out[idx] = L.cs[r * L.ldc + idx - r * D];
-  }
-}
-
-// ---- 4. dcp ----------------------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) attention_block_dcp_kernel(
-    const T* __restrict__ dq, const T* __restrict__ dkk,
-    const T* __restrict__ dv, const T* __restrict__ wq,
-    const T* __restrict__ wk, const T* __restrict__ wv, T* __restrict__ dcp,
-    int M, int D) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const ProdSmem<T> L = dcp_smem<T>(smem, D);
-  const int r0 = blockIdx.x * kRowsC;
-  const int kk = blockIdx.y;
-  const size_t koff = (size_t)kk * M * D;
-  ProdAcc<T> acc;
-  acc.zero();
-  for (int k0 = 0; k0 < 3 * D; k0 += KC) {
-    const int which = k0 / D;
-    const int kin = k0 - which * D;
-    const T* A = which == 0 ? dq : (which == 1 ? dkk : dv);
-    const T* W = which == 0 ? wq : (which == 1 ? wk : wv);
-    __syncthreads();
-    cpc::stage(L.a, L.lda, A + koff + (size_t)r0 * D + kin, D, kRowsC, KC,
-               M - r0);
-    cpc::stage(L.b, L.ldb, W + (size_t)kk * D * D + kin, D, D, KC, D);
-    __syncthreads();
-    acc.template mma<false, true>(L.a, L.lda, L.b, L.ldb, kRowsC, D,
-                                  KC);
-  }
-  acc.store(L.cs, L.ldc, kRowsC, D);
-  __syncthreads();
-  const int rows = min(kRowsC, M - r0);
-  T* out = dcp + koff + (size_t)r0 * D;
-  for (int idx = threadIdx.x; idx < rows * D; idx += blockDim.x) {
-    const int r = idx / D;
-    out[idx] = cpc::from_f32<T>(L.cs[r * L.ldc + idx - r * D]);
-  }
-}
-
-template <typename T>
-size_t smem_bytes(int S, int nheads, int dk) {
-  const int D = nheads * dk;
-  size_t s = HeadsSmem<T>(nullptr, S, dk).bytes;
-  const size_t w = dw_smem<T>(nullptr, D).bytes;
-  const size_t p = dcp_smem<T>(nullptr, D).bytes;
-  s = s > w ? s : w;
-  return s > p ? s : p;
-}
-
-template <typename T>
-int launch(const void* c, const void* wq, const void* wk, const void* wv,
-           const void* wo, const void* krel, const void* dout, void* dq,
-           void* dkk, void* dv, void* y, float* part, float* dkrel, float* dw,
-           void* dcp, int K, int n_batch, int S, int nheads, int dk,
-           cpc::Dropout drop, cudaStream_t stream) {
-  const int D = nheads * dk;
-  const int M = n_batch * S;
-  const T* c_ = static_cast<const T*>(c);
-  const T *wq_ = static_cast<const T*>(wq), *wk_ = static_cast<const T*>(wk),
-          *wv_ = static_cast<const T*>(wv);
-  T *dq_ = static_cast<T*>(dq), *dk_ = static_cast<T*>(dkk),
-    *dv_ = static_cast<T*>(dv), *y_ = static_cast<T*>(y);
-
-  const size_t heads_smem = HeadsSmem<T>(nullptr, S, dk).bytes;
-  auto heads = attention_block_bwd_heads_kernel<T>;
-  cudaError_t err = cpc::allow_smem(heads, heads_smem);
+  p.out[0] = sc.dy;
+  err = k6::run<k6::Dy<E>>(p, s);
   if (err != cudaSuccess) return (int)err;
-  heads<<<dim3(nheads, n_batch, K), kThreads, heads_smem, stream>>>(
-      c_, wq_, wk_, wv_, static_cast<const T*>(wo),
-      static_cast<const T*>(krel), static_cast<const T*>(dout), dq_, dk_, dv_,
-      y_, part, n_batch, S, nheads, dk, 1.0f / sqrtf(static_cast<float>(dk)),
-      drop);
-  err = cudaGetLastError();
+  const int st = cpc_relpos_attention_bwd_tc(
+      q, q + kmd, q + 2 * kmd, krel, sc.dy, g, g + kmd, g + 2 * kmd, dkrel,
+      sc.k2, K, n_batch, S, nheads, dk, seed, threshold, keep_scale, dtype,
+      s);
+  if (st != 0) return st;
+  if constexpr (kF32) {
+    k6::SplitJobs jobs{};
+    for (int i = 0; i < 3; ++i) {
+      jobs.src[i] = reinterpret_cast<const float*>(g) + i * kmd;
+      jobs.dst[i] = sc.gp + 3 * i * kmd;
+      jobs.n[i] = kmd;
+    }
+    err = k6::split(jobs, 3, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  err = k6::run<k6::DW<E>>(p, s);
   if (err != cudaSuccess) return (int)err;
-
-  err = cpc::sum_parts(part, dkrel, n_batch * nheads, dk * S, K, stream);
-  if (err != cudaSuccess) return (int)err;
-
-  const size_t dw_bytes = dw_smem<T>(nullptr, D).bytes;
-  auto dwk = attention_block_dw_kernel<T>;
-  err = cpc::allow_smem(dwk, dw_bytes);
-  if (err != cudaSuccess) return (int)err;
-  dwk<<<dim3(D / kRowsW, 4, K), kThreads, dw_bytes, stream>>>(
-      c_, dq_, dk_, dv_, y_, static_cast<const T*>(dout), dw, K, M, D);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const size_t dcp_bytes = dcp_smem<T>(nullptr, D).bytes;
-  auto dcpk = attention_block_dcp_kernel<T>;
-  err = cpc::allow_smem(dcpk, dcp_bytes);
-  if (err != cudaSuccess) return (int)err;
-  dcpk<<<dim3((M + kRowsC - 1) / kRowsC, K), kThreads, dcp_bytes, stream>>>(
-      dq_, dk_, dv_, wq_, wk_, wv_, static_cast<T*>(dcp), M, D);
-  return (int)cudaGetLastError();
-}
-
-bool supported(int S, int nheads, int dk) {
-  const int D = nheads * dk;
-  return S > 0 && dk % 16 == 0 && D % KC == 0 && D <= 256;
+  p.out[0] = dcp;
+  return (int)k6::run<k6::Dcp<E>>(p, s);
 }
 
 }  // namespace
 
-// Shared memory the largest of the backward's blocks needs; the wrapper
-// refuses shapes above the card's 227 KB.
-extern "C" size_t cpc_attention_block_bwd_smem(int S, int nheads, int dk,
-                                               int dtype) {
-  return dtype == cpc::kBFloat16 ? smem_bytes<bf16>(S, nheads, dk)
-                                 : smem_bytes<float>(S, nheads, dk);
+// Bytes of scratch cpc_attention_block_bwd needs: dy, dq, dk, dv in
+// `dtype`, K2's backward scratch and, in float32, the bf16 planes of c,
+// the weights, dout, y, dq, dk and dv.
+extern "C" size_t cpc_attention_block_bwd_scratch(int K, int n_batch, int S,
+                                                  int nheads, int dk,
+                                                  int dtype) {
+  const size_t k2 =
+      cpc_relpos_attention_bwd_tc_scratch(K, n_batch, S, nheads, dk, dtype);
+  return BwdScratch(nullptr, K, n_batch * S, nheads * dk, k2,
+                    dtype == cpc::kFloat32 ? 4 : 2)
+      .bytes;
 }
 
-// c (n_batch*S, D); wq, wk, wv, wo (K, D, D); krel (K, dk, S); dout, dcp
-// and the scratch dq, dk, dv, y (K, n_batch*S, D); all in `dtype`.
-// float32: part (K, n_batch*nheads, dk, S) scratch, dkrel (K, dk, S), dw
-// (4, K, D, D) = dWq, dWk, dWv, dWo.  dk % 16 == 0, D % 64 == 0, D <= 256,
-// and the inputs 16-byte aligned.
+// c (n_batch*S, D), wq, wk, wv, wo (K, D, D), krel (K, dk, S), dout and y
+// (K, n_batch*S, D), qkv (3, K, n_batch*S, D) and dcp (K, n_batch*S, D)
+// in `dtype` (y and qkv the forward's), 16-byte aligned; dkrel (K, dk, S)
+// and dw (4, K, D, D: dWq, dWk, dWv, dWo) float32; scratch of
+// cpc_attention_block_bwd_scratch bytes, 256-byte aligned.
 extern "C" int cpc_attention_block_bwd(
     const void* c, const void* wq, const void* wk, const void* wv,
-    const void* wo, const void* krel, const void* dout, void* dq, void* dk,
-    void* dv, void* y, void* part, void* dkrel, void* dw, void* dcp, int K,
-    int n_batch, int S, int nheads, int dkh, const void* seed,
+    const void* wo, const void* krel, const void* dout, const void* qkv,
+    const void* y, void* dkrel, void* dw, void* dcp, void* scratch, int K,
+    int n_batch, int S, int nheads, int dk, const void* seed,
     unsigned int threshold, float keep_scale, int dtype, void* stream) {
-  if (!supported(S, nheads, dkh)) return (int)cudaErrorInvalidValue;
+  if (!k6::takes(K, n_batch, S, nheads, dk) || scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const void* w[4] = {wq, wk, wv, wo};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cpc::Dropout drop{static_cast<const int64_t*>(seed), threshold,
-                          keep_scale};
-  float* p = static_cast<float*>(part);
-  float* dr = static_cast<float*>(dkrel);
-  float* w = static_cast<float*>(dw);
-  if (dtype == cpc::kBFloat16)
-    return launch<bf16>(c, wq, wk, wv, wo, krel, dout, dq, dk, dv, y, p, dr,
-                        w, dcp, K, n_batch, S, nheads, dkh, drop, s);
   if (dtype == cpc::kFloat32)
-    return launch<float>(c, wq, wk, wv, wo, krel, dout, dq, dk, dv, y, p, dr,
-                         w, dcp, K, n_batch, S, nheads, dkh, drop, s);
+    return backward<float>(c, w, krel, dout, qkv, y, dkrel, dw, dcp, scratch,
+                           K, n_batch, S, nheads, dk, seed, threshold,
+                           keep_scale, dtype, s);
+  if (dtype == cpc::kBFloat16)
+    return backward<bf16>(c, w, krel, dout, qkv, y, dkrel, dw, dcp, scratch,
+                          K, n_batch, S, nheads, dk, seed, threshold,
+                          keep_scale, dtype, s);
   return (int)cudaErrorInvalidValue;
 }

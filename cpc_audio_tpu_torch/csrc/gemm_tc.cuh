@@ -158,13 +158,16 @@ static_assert(split_a<6>(0) == 2 && split_b<6>(0) == 0 &&
               "a2 b0, a1 b1, a0 b2, a1 b0, a0 b1, a0 b0");
 
 // acc = A . B over the whole depth for the block's tile at (m0, n0) of
-// batch z, as the sum of P split products (P = 1: bf16 operands).  Leaves
-// the ring idle (every copy landed, every warp past its last read), so
-// the epilogue may reuse `smem`.
+// batch z, as the sum of P split products (P = 1: bf16 operands); with
+// `zero` false, acc += A . B (a product whose depth lies in several
+// operands, walked one after another into the same sums).  Leaves the
+// ring idle (every copy landed, every warp past its last read), so the
+// epilogue, or the next walk, may reuse `smem`.
 template <class T, bool A_KMAJOR, bool B_NMAJOR, int P = 1>
 __device__ __forceinline__ void mainloop(float (&acc)[T::MI][T::NI][4],
                                          const Problem& p, int z, int m0,
-                                         int n0, unsigned char* smem) {
+                                         int n0, unsigned char* smem,
+                                         bool zero = true) {
   static_assert(P == 1 || P == 3 || P == 6, "1, 3 or 6 split products");
   constexpr int SA = a_slot<T, A_KMAJOR>(), SB = b_slot<T, B_NMAJOR>();
   bf16* sa = reinterpret_cast<bf16*>(smem);
@@ -199,12 +202,13 @@ __device__ __forceinline__ void mainloop(float (&acc)[T::MI][T::NI][4],
                                            p.cols - n0);
   };
 
+  if (zero)
 #pragma unroll
-  for (int mi = 0; mi < T::MI; ++mi)
+    for (int mi = 0; mi < T::MI; ++mi)
 #pragma unroll
-    for (int ni = 0; ni < T::NI; ++ni)
+      for (int ni = 0; ni < T::NI; ++ni)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
 
   const Frag f = frag<T>(0, 0);
   const int wr = f.row0, wc = f.col0;   // the warp's origin in the tile

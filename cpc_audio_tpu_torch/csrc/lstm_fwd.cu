@@ -190,6 +190,7 @@ int launch(const void* x_proj, const void* w_hh, const void* h0,
 // ---- the cell of the grid and cluster bodies --------------------------------
 
 namespace rnn = cpc::rnn;
+using bf16 = __nv_bfloat16;
 
 // A thread's pair of units (k, k + 1) of batch row b: c in registers.
 // `step` is the grid body's (csrc/rnn_grid.cuh); the cluster body runs
@@ -324,6 +325,297 @@ using Fwd768 = FwdLayout<48, 2, 8, 10, 2, 1>;
 using Fwd512F = FwdLayout<32, 4, 3, 7, 2, 1, 2>;
 using Fwd768F = FwdLayout<48, 2, 8, 10, 2, 1, 2>;
 
+// K1's own body at H 768 in float32 (`Fwd768F`), the first float32
+// kernel of this layout, kept beside the template: the same layout,
+// arithmetic and bits as rnn_cluster_fwd.cuh's `fwd_cluster_kernel`,
+// which at this one layout runs 7-8 % slower (2.125-2.134 against
+// 1.975-1.980 ms at B 32 / T 128 on an H100, port_perf/k1_ab.py;
+// PERF.md).  Its step loop has more instructions and spill ops than the
+// template's (port_perf/k1_fwd_sass.py: 1522 against 1442, 146 against
+// 112) and loads the next x_proj before the product; why it is faster
+// is not found.
+// w: W_hh's two bf16 planes ((4H, H) each, plane 1 4 H H elements past
+// plane 0, `split_planes`' output).
+template <typename L>
+__global__ void __launch_bounds__(L::kThreads, 1) lstm_fwd_stream_kernel(
+    const typename L::T* __restrict__ x_proj, const bf16* __restrict__ w,
+    const typename L::T* __restrict__ h0,
+    const typename L::T* __restrict__ c0, typename L::T* __restrict__ ys,
+    typename L::T* __restrict__ hT, typename L::T* __restrict__ cT,
+    float* __restrict__ gates, float* __restrict__ cs,
+    bf16* __restrict__ scratch, int B, int n_steps) {
+  using S = typename L::S;
+  using Blk = typename L::Blk;
+  using T2 = typename rnn::Two<typename L::T>::type;
+  constexpr int J = L::J, H = L::H, G4 = 4 * H, NU = L::NU, KS = L::KS;
+  constexpr int NKW = L::NKW, kC = L::kCluster;
+  extern __shared__ __align__(16) unsigned char fwd_smem_buf[];
+  unsigned char* smem = fwd_smem_buf;
+  bf16* atile = reinterpret_cast<bf16*>(smem + L::a);   // [NP][CTA]
+  bf16* res = reinterpret_cast<bf16*>(smem + L::res);
+  float* part = reinterpret_cast<float*>(smem + L::part);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bar);
+  const int c = rnn::cluster_rank();
+  const int b0 = blockIdx.y * rnn::kRows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ug = warp % NU, p = warp / NU;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int k_warp = p * NKW * 16;            // the warp's first k
+  bf16* ring = reinterpret_cast<bf16*>(smem + L::ring) +
+               (size_t)warp * S::ring_elems;
+  // this CTA's block of parity q in global memory
+  auto own_block = [&](int q) {
+    return scratch +
+           (((size_t)q * gridDim.y + blockIdx.y) * kC + c) * Blk::kElems;
+  };
+  // row r (0..7) of the warp's n-tile of gate g, in W_hh's plane pl
+  auto w_row = [&](int g, int r, int pl) {
+    return w + (size_t)pl * G4 * H +
+           (size_t)(g * H + c * J + ug * 8 + r) * H;
+  };
+
+  if (tid == 0) {
+    for (int q = 0; q < L::NP; ++q) rnn::mbar_init(full + q, 1);
+    rnn::fence_mbar_init();
+  }
+  // the resident k-steps of every warp's 32 rows
+  constexpr int RP = L::ldr / 8 - 1;          // 16-byte pieces a row
+  for (int idx = tid; idx < L::kWarps * 32 * RP; idx += L::kThreads) {
+    const int row = idx / RP, q = idx - row * RP;
+    const int w_ = row >> 5, g = (row >> 3) & 3, r = row & 7;
+    const int i = S::RK + q / 2;              // the piece's k-step
+    const bf16* src = w + (size_t)(i / NKW) * G4 * H +
+                      (size_t)(g * H + c * J + (w_ % NU) * 8 + r) * H +
+                      (w_ / NU) * NKW * 16 + (i % NKW) * 16 + (q & 1) * 8;
+    cpc::mma::cp_async16(res + row * L::ldr + q * 8, src, true);
+  }
+  cpc::mma::cp_async_commit();
+  // the register k-steps' B fragments of the warp's four n-tiles
+  uint32_t breg[S::RK > 0 ? S::RK : 1][4][2];
+#pragma unroll
+  for (int i = 0; i < S::RK; ++i)
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const bf16* src =
+          w_row(g, gq, i / NKW) + k_warp + (i % NKW) * 16 + 2 * tq;
+      breg[i][g][0] = *reinterpret_cast<const uint32_t*>(src);
+      breg[i][g][1] = *reinterpret_cast<const uint32_t*>(src + 8);
+    }
+  // parity 0 of the A tile <- h0 (rows past B zero)
+  for (int idx = tid; idx < rnn::kRows * H / 2; idx += L::kThreads) {
+    const int row = idx / (H / 2), col = 2 * (idx - row * (H / 2));
+    const int b = b0 + row;
+    const float2 v = b < B ? rnn::load_two(h0 + (size_t)b * H + col)
+                           : make_float2(0.0f, 0.0f);
+    uint32_t hi, lo;
+    cpc::mma::split_pair(hi, lo, v.x, v.y);
+    bf16* blk = atile + (col / J) * Blk::kElems + Blk::at(row, col % J);
+    *reinterpret_cast<uint32_t*>(blk) = hi;
+    *reinterpret_cast<uint32_t*>(blk + rnn::kRows * J) = lo;
+  }
+  rnn::fence_proxy_shared();   // before the copies that overwrite it
+  // parts 0 and 1 own row gq + 8 p of the lane's cells, units u0, u0 + 1
+  const bool owner = p < 2;
+  const int u0 = ug * 8 + 2 * tq;
+  const int j0 = c * J + u0;
+  const int row = gq + 8 * (p & 1);
+  const int brow = b0 + row;
+  const bool valid = owner && brow < B;
+  float2 cst = valid ? rnn::load_two(c0 + (size_t)brow * H + j0)
+                     : make_float2(0.0f, 0.0f);
+  T2 xnext[4];
+  auto load_x = [&](int t) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      xnext[g] = valid ? *reinterpret_cast<const T2*>(
+                             x_proj + ((size_t)brow * n_steps + t) * G4 +
+                             g * H + j0)
+                       : rnn::Two<typename L::T>::zero();
+  };
+  load_x(0);
+  cpc::mma::cp_async_wait<0>();
+  __syncthreads();
+  // streamed k-step q of the warp: its 32 rows by 16 k
+  auto fill = [&](bf16* stage, int q) {
+    const int i = S::NR + q;
+    const int k = k_warp + (i % NKW) * 16;
+    rnn::copy_rows<32, 2, L::lds>(stage, [&](int r) {
+      return w_row(r >> 3, r & 7, i / NKW) + k;
+    });
+  };
+  S::prime(ring, fill);
+  rnn::cluster_sync();   // every CTA's mbarriers are set before any copy
+
+  for (int t = 0; t < n_steps; ++t) {
+    // A tile parity cur holds h_{t-1} (16 blocks copied at step t - 1),
+    // h_t goes to parity nxt; the global blocks alternate
+    const int cur = L::NP == 2 ? t & 1 : 0, nxt = L::NP == 2 ? cur ^ 1 : 0;
+    const int sq = (t + 1) & 1;
+    const bool more = t + 1 < n_steps;
+    if (t > 0)
+      rnn::mbar_wait(full + cur,
+                     (L::NP == 2 ? (t - 1) >> 1 : t - 1) & 1);
+    if (tid == 0 && more) rnn::mbar_expect(full + nxt, kC * Blk::kBytes);
+    T2 x[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) x[g] = xnext[g];
+    if (more) load_x(t + 1);
+
+    // the partial product over the warp's part of k; the hi product and
+    // the small ones (lo . W, and hi . W's lo plane) apart (two dependence
+    // chains)
+    const bf16* a_cur = atile + cur * kC * Blk::kElems;
+    float acc_h[4][4], acc_l[4][4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_h[g][e] = acc_l[g][e] = 0.0f;
+    // k-step i of the warp (plane i / NKW; a constant once unrolled)
+    auto kstep = [&](int i, const uint32_t (&b)[4][2]) {
+      const bool lo_plane = i >= NKW;
+      const int k = k_warp + (i % NKW) * 16;
+      // rows lane & 15, chunk of k + 8 (lane >> 4), of the block holding k
+      const int r = lane & 15;
+      const bf16* hi = a_cur + (k / J) * Blk::kElems +
+                       Blk::at(r, k % J + ((lane >> 4) << 3));
+      uint32_t ah[4], al[4];
+      cpc::mma::ldmatrix_x4(ah, hi);
+      if (!lo_plane) cpc::mma::ldmatrix_x4(al, hi + rnn::kRows * J);
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        if (lo_plane) {
+          cpc::mma::mma_bf16(acc_l[g], ah, b[g][0], b[g][1]);
+        } else {
+          cpc::mma::mma_bf16(acc_h[g], ah, b[g][0], b[g][1]);
+          cpc::mma::mma_bf16(acc_l[g], al, b[g][0], b[g][1]);
+        }
+      }
+    };
+    // B fragments of the four gates from a tile of the warp's 32 rows
+    auto from_tile = [&](const bf16* tile, int ld, int k0,
+                         uint32_t (&b)[4][2]) {
+      uint32_t v[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        cpc::mma::load_b_nmajor(v, tile, ld, 16 * h, k0);
+        b[2 * h][0] = v[0];
+        b[2 * h][1] = v[1];
+        b[2 * h + 1][0] = v[2];
+        b[2 * h + 1][1] = v[3];
+      }
+    };
+    S::product(
+        ring,
+        [&](int i) {
+          if (i < S::RK) {
+            kstep(i, breg[i < S::RK ? i : 0]);
+          } else {
+            uint32_t b[4][2];
+            from_tile(res + warp * 32 * L::ldr, L::ldr, (i - S::RK) * 16, b);
+            kstep(i, b);
+          }
+        },
+        [&](int q, const bf16* stage) {
+          uint32_t b[4][2];
+          from_tile(stage, L::lds, 0, b);
+          kstep(S::NR + q, b);
+        },
+        fill);
+    // one parity: the copies of this step wait until every CTA is done
+    // reading its A tile
+    if (L::NP == 1) rnn::cluster_arrive();
+    // the warp's sums, cell (row gq + 8 e, unit u0 + u) of gate g at
+    // v[g][2 e + u]; each part leaves the rows it does not own:
+    // part[unit group][PER][lane], part p < 2 at 8 p, p >= 2 at 16 (p - 1)
+    float v[4][4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[g][e] = acc_h[g][e] + acc_l[g][e];
+    float* mine = part + (size_t)ug * L::PER * 32 + lane;
+    if (owner) {                       // row gq + 8 (1 - p)
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          mine[(8 * p + 2 * g + u) * 32] = p ? v[g][u] : v[g][2 + u];
+    } else {
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          mine[(16 * (p - 1) + 4 * g + e) * 32] = v[g][e];
+    }
+    // the copy of step t - 2 has read this CTA's global block sq
+    if (tid == 0) rnn::multicast_read_wait<1>();
+    __syncthreads();
+    float act[4][2], hn[2];            // i, f, g, o; units u0, u0 + 1
+    if (owner) {
+      const int e = p;                 // the owned row: gq + 8 e
+      const float* theirs = part + (size_t)ug * L::PER * 32 + lane;
+      float pre[4][2];
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float own = p ? v[g][2 + u] : v[g][u];
+          float s = 0.0f;
+#pragma unroll
+          for (int pp = 0; pp < KS; ++pp)
+            s += pp == p   ? own
+                 : pp < 2  ? theirs[(8 * pp + 2 * g + u) * 32]
+                           : theirs[(16 * (pp - 1) + 4 * g + 2 * e + u) * 32];
+          const float2 xv = rnn::Two<typename L::T>::f32(x[g]);
+          pre[g][u] = s + (u ? xv.y : xv.x);
+        }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        act[0][u] = sigmoidf(pre[0][u]);
+        act[1][u] = sigmoidf(pre[1][u]);
+        act[2][u] = tanhf(pre[2][u]);
+        act[3][u] = sigmoidf(pre[3][u]);
+        float& cu = u ? cst.y : cst.x;
+        const float cn = act[1][u] * cu + act[0][u] * act[2][u];
+        hn[u] = valid ? act[3][u] * tanhf(cn) : 0.0f;
+        cu = valid ? cn : 0.0f;
+      }
+      if (more) {
+        uint32_t hi, lo;
+        cpc::mma::split_pair(hi, lo, hn[0], hn[1]);
+        bf16* blk = own_block(sq) + Blk::at(row, u0);
+        *reinterpret_cast<uint32_t*>(blk) = hi;
+        *reinterpret_cast<uint32_t*>(blk + rnn::kRows * J) = lo;
+        rnn::fence_proxy_global();
+      }
+    }
+    if (L::NP == 1) rnn::cluster_wait();
+    __syncthreads();
+    // h_t's block of this CTA into parity nxt of every CTA
+    if (tid == 0 && more)
+      rnn::multicast(atile + (nxt * kC + c) * Blk::kElems, own_block(sq),
+                     Blk::kBytes, full + nxt, 0xffff);
+    // the step's outputs, stored while the copies are in flight, off the
+    // exchange's path
+    if (valid) {
+      const size_t bt = (size_t)brow * n_steps + t;
+      if (gates != nullptr)
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          *reinterpret_cast<float2*>(gates + bt * G4 + g * H + j0) =
+              make_float2(act[g][0], act[g][1]);
+      if (cs != nullptr) *reinterpret_cast<float2*>(cs + bt * H + j0) = cst;
+      rnn::store_two(ys + bt * H + j0, hn[0], hn[1]);
+      if (!more) {
+        const size_t o = (size_t)brow * H + j0;
+        rnn::store_two(hT + o, hn[0], hn[1]);
+        rnn::store_two(cT + o, cst.x, cst.y);
+      }
+    }
+  }
+  if (tid == 0) rnn::multicast_read_wait<0>();
+}
+
+
 // f(L{}) with the cluster body's layout at H in `dtype`; false where it
 // has none.
 template <typename F>
@@ -356,6 +648,27 @@ bool cluster_body(int H, int dtype) {
   return smem > 0 && smem <= cpc::kSmemLimit;
 }
 
+// lstm_fwd_stream_kernel on L::scratch(B) bytes: W_hh's planes first,
+// then the CTAs' blocks, as rnn::launch_fwd lays them out.
+template <typename L>
+cudaError_t launch_stream(const void* x_proj, const void* w_hh,
+                          const void* h0, const void* c0, void* ys, void* hT,
+                          void* cT, float* gates, float* cs, void* scratch,
+                          int B, int n_steps, cudaStream_t stream) {
+  using T = typename L::T;
+  static_assert(L::kPlanes == 2 && L::G == 4, "");
+  bf16* planes = static_cast<bf16*>(scratch);
+  const size_t n = (size_t)4 * L::H * L::H;
+  const cudaError_t err = rnn::split_planes(static_cast<const float*>(w_hh),
+                                            planes, n, stream);
+  if (err != cudaSuccess) return err;
+  return rnn::launch<L>(
+      lstm_fwd_stream_kernel<L>, B, stream, static_cast<const T*>(x_proj),
+      static_cast<const bf16*>(planes), static_cast<const T*>(h0),
+      static_cast<const T*>(c0), static_cast<T*>(ys), static_cast<T*>(hT),
+      static_cast<T*>(cT), gates, cs, planes + 2 * n, B, n_steps);
+}
+
 int launch_cluster(const void* x_proj, const void* w_hh, const void* h0,
                    const void* c0, void* ys, void* hT, void* cT,
                    float* gates, float* cs, void* scratch, int B,
@@ -364,9 +677,13 @@ int launch_cluster(const void* x_proj, const void* w_hh, const void* h0,
   with_layout(H, dtype, [&](auto l) {
     using L = decltype(l);
     using T = typename L::T;
-    err = rnn::launch_fwd<L, Cell<T>>(
-        params<T>(x_proj, h0, c0, ys, hT, cT, gates, cs), w_hh, scratch, B,
-        n_steps, stream);
+    if constexpr (std::is_same<L, Fwd768F>::value)
+      err = launch_stream<L>(x_proj, w_hh, h0, c0, ys, hT, cT, gates, cs,
+                             scratch, B, n_steps, stream);
+    else
+      err = rnn::launch_fwd<L, Cell<T>>(
+          params<T>(x_proj, h0, c0, ys, hT, cT, gates, cs), w_hh, scratch, B,
+          n_steps, stream);
   });
   return (int)err;
 }

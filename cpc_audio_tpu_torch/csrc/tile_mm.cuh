@@ -1,6 +1,7 @@
 // Block-level products on shared-memory tiles, and the staging around them,
-// for the kernels that carry whole layers (K6 attention block, K7 conv
-// layer).
+// for K7's fused conv layer (csrc/conv_ln.cuh); the fixed-order sum of
+// per-tile partials (`sum_parts`) that K3 and K7 share; `Carve`, which K7
+// and K6 lay their shared memory or scratch out with.
 //
 // BlockAcc<T, MaxTiles> holds one float32 (M x N) product tile of the
 // block in registers, each warp owning whole 16 x 16 output tiles (tile

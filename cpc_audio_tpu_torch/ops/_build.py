@@ -115,15 +115,18 @@ _SIGNATURES = {
                                  _I),
     # N, S, dk, dtype
     "cpc_causal_attention_bwd_scratch": ([_I] * 4, ctypes.c_size_t),
-    # c, wq, wk, wv, wo, krel, x, K, n_batch, S, nheads, dk, dropout, dtype,
-    # stream
-    "cpc_attention_block_fwd": ([_P] * 7 + [_I] * 5 + _DROP + [_I, _P], _I),
-    # S, nheads, dk, dtype
-    "cpc_attention_block_fwd_smem": ([_I] * 4, ctypes.c_size_t),
-    # c, wq, wk, wv, wo, krel, dout, dq, dk, dv, y, part, dkrel, dw, dcp, K,
+    # c, wq, wk, wv, wo, krel, x, qkv, y, scratch, K, n_batch, S, nheads,
+    # dk, dropout, dtype, stream
+    "cpc_attention_block_fwd": ([_P] * 10 + [_I] * 5 + _DROP + [_I, _P],
+                                _I),
+    # K, n_batch, S, nheads, dk, dtype
+    "cpc_attention_block_fwd_scratch": ([_I] * 6, ctypes.c_size_t),
+    # c, wq, wk, wv, wo, krel, dout, qkv, y, dkrel, dw, dcp, scratch, K,
     # n_batch, S, nheads, dk, dropout, dtype, stream
-    "cpc_attention_block_bwd": ([_P] * 15 + [_I] * 5 + _DROP + [_I, _P], _I),
-    "cpc_attention_block_bwd_smem": ([_I] * 4, ctypes.c_size_t),
+    "cpc_attention_block_bwd": ([_P] * 13 + [_I] * 5 + _DROP + [_I, _P],
+                                _I),
+    # K, n_batch, S, nheads, dk, dtype
+    "cpc_attention_block_bwd_scratch": ([_I] * 6, ctypes.c_size_t),
     # x, w, bias, nw, nb, out, B, T, C, stride, pad, eps, dtype, stream
     "cpc_conv_ln_fwd": ([_P] * 6 + [_I] * 5 + [_F, _I, _P], _I),
     # C, dtype

@@ -895,11 +895,15 @@ def test_grid_bodies(dev, mode, dtype, B, T, H):
 
 @pytest.mark.parametrize("rate", RATES)
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("K,B,S,h,dk", [(2, 3, 20, 4, 16), (2, 2, 116, 8, 32)])
+@pytest.mark.parametrize("K,B,S,h,dk", [(2, 3, 20, 4, 16), (2, 2, 116, 8, 32),
+                                        (1, 1, 7, 4, 16), (2, 3, 65, 8, 32),
+                                        (3, 1, 65, 4, 16), (2, 3, 7, 2, 32)])
 def test_attention_block_kernels(dev, dtype, K, B, S, h, dk, rate):
-    """Forward and backward against the plain versions with the same seed;
-    S = 116, 8 x 32: the train shapes' rows, padded to 128 for the tensor
-    cores, and the (S, D) accumulator at its largest."""
+    """Forward and backward against the plain versions with the same seed,
+    each rerun bit for bit; S = 116, 8 x 32: the train shapes' rows.  B 1
+    and 3, S 7 and 65 leave ragged GEMM tiles (M = B S rows of 128) and
+    ragged attention tiles; K2's launch counts do not move (K6 reaches
+    K2's body through its own C entry points)."""
     rng = np.random.RandomState(S + dk)
     D = h * dk
     args = [_rand(rng, dev, dtype, B * S, D)]
@@ -907,25 +911,37 @@ def test_attention_block_kernels(dev, dtype, K, B, S, h, dk, rate):
              for _ in range(4)]
     args.append(_rand(rng, dev, dtype, K, dk, S, scale=0.5))
     seed = _seed(dev)
+    k2 = (head_attention.relpos_attention.launches,
+          head_attention.relpos_attention_bwd.launches)
     before = attention_block.attention_block.launches
     # bf16: x = round(c + round(att)) with |att| up to 8, so where c and
     # att cancel, a one-ulp flip of round(att) (2**-5 at 4-8) stands
     # whole beside a small x
     tol = TOL[dtype] if dtype == torch.float32 else dict(atol=2 ** -4,
                                                          rtol=2e-2)
+    x, saved = attention_block.attention_block_fwd(*args, B, h, rate, seed)
     torch.testing.assert_close(
-        attention_block.attention_block_fwd(*args, B, h, rate, seed),
-        attention_block.attention_block_ref(*args, B, h, rate, seed), **tol)
+        x, attention_block.attention_block_ref(*args, B, h, rate, seed), **tol)
     assert attention_block.attention_block.launches == before + 1
+    x2, saved2 = attention_block.attention_block_fwd(*args, B, h, rate, seed)
+    for a, b in zip((x,) + saved, (x2,) + saved2):
+        assert torch.equal(a, b)
     dout = _rand(rng, dev, dtype, K, B * S, D)
     before = attention_block.attention_block_bwd.launches
-    got = attention_block.attention_block_bwd(*args, dout, B, h, rate, seed)
+    got = attention_block.attention_block_bwd(*args, dout, saved, B, h, rate,
+                                              seed)
     assert attention_block.attention_block_bwd.launches == before + 1
     want = attention_block.attention_block_bwd_ref(*args, dout, B, h, rate,
                                                    seed)
     for name, g, w in zip(("dc", "dwq", "dwk", "dwv", "dwo", "dkrel"), got,
                           want):
         _close(g, w, BWD_REL[dtype], name)
+    again = attention_block.attention_block_bwd(*args, dout, saved2, B, h,
+                                                rate, seed)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    assert (head_attention.relpos_attention.launches,
+            head_attention.relpos_attention_bwd.launches) == k2
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -966,6 +982,10 @@ def test_fused_wrappers_reject_what_kernels_do_not_take(dev):
         attention_block.attention_block_fwd(c, w, w, w, w,
                                             torch.zeros(1, 8, 16, device=dev),
                                             1, 8)              # dk = 8
+    with pytest.raises(ValueError, match="no residuals"):
+        attention_block.attention_block_bwd(
+            c, w, w, w, w, torch.zeros(1, 16, 16, device=dev),
+            torch.zeros(1, 16, 64, device=dev), None, 1, 4)   # no saved
     x = torch.zeros(1, 16, 64, device=dev)
     v = torch.zeros(64, device=dev)
     with pytest.raises(ValueError, match="fused_conv_supported"):
