@@ -49,7 +49,10 @@ Phases (any failure exits non-zero):
      they run, at the bf16 peak, beside the float32-core figure; K6's
      forward and backward, at rate 0.1 in both dtypes, the same (its
      GEMMs, its splits and the K2 tensor-core kernels it runs), its
-     backward from the forward's residuals (q, k, v, y); then
+     backward from the forward's residuals (q, k, v, y); K7's forward and
+     backward over encoder layers 1-4 in both dtypes the same (its split,
+     GEMMs, rows pass and sums), its backward from the forward's yn and
+     1 / std; then
      time the yardstick PyTorch call where one computes the same function
      (cuDNN LSTM/GRU, scaled_dot_product_attention, index_add_; also cuDNN's
      LSTM at H 512 and 768 beside K1 there, forward and backward in
@@ -64,9 +67,9 @@ Phases (any failure exits non-zero):
      backward beside cuDNN's in both dtypes and the port's whole LSTM and
      GRU layers beside cuDNN's, in turns, K5 at rate 0 beside SDPA, and
      for K7 the port's unfused encoder layers (cuDNN conv + ChannelNorm +
-     ReLU, a composition, not one call), and for K6 the heads' unfused
-     block (cuBLAS projections + K2 + cuBLAS Wo + residual) in turns
-     with K6, both directions, both dtypes;
+     ReLU, a composition, not one call) and for K6 the heads' unfused
+     block (cuBLAS projections + K2 + cuBLAS Wo + residual), each in
+     turns with its kernel, both directions, both dtypes;
   4. the eval path at full width, for --arMode LSTM (the default), GRU
      and transformer, and the fused-layer path (LSTM with CPC_ATTN_BLOCK=1
      and CPC_PALLAS_CONV=1: K6 in the heads, K7 in encoder layers 1-4):
@@ -445,20 +448,25 @@ def kernel_cases(dev: torch.device, dtype: torch.dtype, B: int = 32):
     conv_flops = sum(2 * dy.numel() * l[0].shape[-1] * l[6]
                      for l, dy in zip(layers, dys))
     conv_ins = tuple(t for l in layers for t in l[:5])
+    # the residuals K7's forward keeps for its backward, (yn, 1 / std)
+    conv_saved = [cl.conv_ln_relu_fwd(*l)[1] for l in layers]
     # the four layers of a step: the conv's product (2 s C x C per frame);
-    # the backward recomputes it and forms dx and dW, 3 products
+    # the backward, from the forward's yn and 1 / std (read, not
+    # recomputed), forms dx and dW: 2 products
     cases += [
         Case("conv_ln_fwd", 0.0,
-             lambda: tuple(cl.conv_ln_relu_fwd(*l) for l in layers),
+             lambda: tuple(cl.conv_ln_relu_fwd(*l)[0] for l in layers),
              lambda: tuple(cl.conv_ln_relu_ref(*l) for l in layers),
              conv_ins, conv_flops),
         Case("conv_ln_bwd", 0.0,
-             lambda: tuple(gr for l, dy in zip(layers, dys)
-                           for gr in cl.conv_ln_relu_bwd(*l[:5], dy, *l[5:])),
+             lambda: tuple(gr for l, dy, sv in zip(layers, dys, conv_saved)
+                           for gr in cl.conv_ln_relu_bwd(*l[:5], dy, sv,
+                                                         *l[5:])),
              lambda: tuple(gr for l, dy in zip(layers, dys)
                            for gr in cl.conv_ln_relu_bwd_ref(*l[:5], dy,
                                                              *l[5:])),
-             conv_ins + dys, 3 * conv_flops)]
+             conv_ins + dys + tuple(t for sv in conv_saved for t in sv),
+             2 * conv_flops)]
     # K8 on the exact sampler's keys: ms is the kernel on the sorted form,
     # its plain version index_add_ on the keys (the wrapper is timed
     # apart); one add per update element
@@ -981,11 +989,13 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # operands: G1 of 6, the others of 3 (the forward's two: 9 for 2; the
 # backward's six: 21 for 6); K5 and K2 in float32 every product of 6 in
 # the forward (three planes) and of 3 in the backward (two); K6's forward
-# every product of 6 (its backward's mix is set in kernel_cases)
+# every product of 6 (its backward's mix is set in kernel_cases); K7's
+# conv of 6 in the forward, dx and dW of 3 in the backward
 SPLIT_PRODUCTS = {"relpos_attention_fwd": 6, "relpos_attention_bwd": 3,
                   "layer_tail_fwd": 9 / 2, "layer_tail_bwd": 21 / 6,
                   "causal_attention_fwd": 6, "causal_attention_bwd": 3,
-                  "attention_block_fwd": 6}
+                  "attention_block_fwd": 6, "conv_ln_fwd": 6,
+                  "conv_ln_bwd": 3}
 
 
 def _tensors(x):
@@ -1412,16 +1422,30 @@ BLOCK_LAUNCHES = {
                             ("K2 diagonals", "relpos_tc_bwd_diag"),
                             ("K2 windows' sum", "dkrel_windows_reduce"),
                             ("DW", "k6::dw<"), ("Dcp", "k6::dcp<"))}
+# K7's launches (csrc/conv_ln.cuh), over the four layers of a call: in
+# float32 the split of x and w into bf16 planes first; the forward's GEMM
+# with the norm in its epilogue; the backward's rows pass, Dx, DW and the
+# fixed-order sums of the vectors' and dW's parts
+CONV_LAUNCHES = {
+    "conv_ln_fwd": (("split", "conv_ln::split_kernel"),
+                    ("Fwd", "conv_ln::fwd_kernel")),
+    "conv_ln_bwd": (("split", "conv_ln::split_kernel"),
+                    ("rows", "conv_ln::rows_kernel"),
+                    ("Dx", "conv_ln::dx_kernel"),
+                    ("DW", "conv_ln::dw_kernel"),
+                    ("sums", "sum_parts"))}
 
 
 def rerun_and_launches(case: Case, ms: float, dtype: torch.dtype,
                        n: int = 3) -> None:
-    """K3's or K6's forward or backward: a rerun must be bit-identical to
+    """K3's, K6's or K7's forward or backward: a rerun must be
+    bit-identical to
     the first call (no atomics, fixed-order sums); then the device time of
     each of its launches over ``n`` calls (torch.profiler), beside the
     call's median_ms: ``TAIL_LAUNCHES`` (in float32 the split of the
     weights, LN1, the forward's two GEMMs or the backward's six and the
-    fixed-order sums over tiles) or ``BLOCK_LAUNCHES``."""
+    fixed-order sums over tiles), ``BLOCK_LAUNCHES`` or
+    ``CONV_LAUNCHES``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     first, again = _tensors(case.kernel()), _tensors(case.kernel())
@@ -1431,8 +1455,9 @@ def rerun_and_launches(case: Case, ms: float, dtype: torch.dtype,
     del first, again
     from cpc_audio_tpu_torch.ops import ffn
     wide = case.inputs[0].shape[-1] > ffn.ROW_TILE_MAX_D
-    launches = BLOCK_LAUNCHES.get(case.name) or (
-        TAIL_WIDE_LAUNCHES if wide else TAIL_LAUNCHES)[case.name]
+    launches = BLOCK_LAUNCHES.get(case.name) or \
+        CONV_LAUNCHES.get(case.name) or (
+            TAIL_WIDE_LAUNCHES if wide else TAIL_LAUNCHES)[case.name]
     # torch.profiler now and then returns a profile without the device's
     # events (none at all, after its warning that "Profiler clears events
     # at the end of each cycle"), on an H100 once three times running (a
@@ -1522,7 +1547,8 @@ def phase_kernels(dev: torch.device, B: int = 32) -> dict:
             if name.startswith("causal_attention") and case.shape is None \
                     and case.rate == 0.0 and dtype == torch.bfloat16:
                 rate0[name] = ms
-            if (name in TAIL_LAUNCHES or name in BLOCK_LAUNCHES) and \
+            if (name in TAIL_LAUNCHES or name in BLOCK_LAUNCHES
+                    or name in CONV_LAUNCHES) and \
                     case.rate == TRAIN_RATE.get(name, 0.1):
                 rerun_and_launches(case, ms, dtype)
             body = recurrent_body(case, dtype)
@@ -1578,7 +1604,7 @@ def phase_kernels(dev: torch.device, B: int = 32) -> dict:
             (f"{kind}_fwd", B_, H, torch.bfloat16)]
     rows_yardsticks(dev, H4096_SHAPES, warmup=1, reps=2)
     long_causal_yardsticks(dev)
-    conv_composition_times(dev, timings=results, B=B)
+    conv_composition_times(dev, B)
     block_composition_times(dev, B)
     scatter_wrapper_times(dev, results, B)
     torch.cuda.empty_cache()
@@ -1644,41 +1670,69 @@ def scatter_wrapper_times(dev: torch.device, timings: dict,
               flush=True)
 
 
-def conv_composition_times(dev: torch.device, timings: dict,
-                           B: int = 32) -> None:
-    """The port's unfused encoder layers 1-4 (cuDNN F.conv1d, ChannelNorm
-    and ReLU, channels-first, as models/encoder.py runs them by default)
-    on K7's inputs, forward and autograd backward with dW, bf16: a
-    composition of calls, not one call, so it is no library time."""
+def conv_composition(layers, dys):
+    """(forward, backward) of the port's unfused encoder layers 1-4 as it
+    runs them by default (cuDNN F.conv1d, ChannelNorm and ReLU,
+    channels-first, models/encoder.py), the backward by autograd with
+    every weight's gradient; on K7's inputs (:func:`conv_layers`), in
+    their dtype.  A composition of calls, not one call, so it is no
+    library time."""
     import torch.nn.functional as F
     from cpc_audio_tpu_torch.models.norms import ChannelNorm
-    g = torch.Generator(device=dev).manual_seed(SEED + 8)
-
-    def rand(*shape, scale=1.0, dt=torch.bfloat16):
-        return (torch.randn(shape, generator=g, device=dev) * scale).to(dt)
-
-    layers, dys = conv_layers(rand, B)
-    norm = ChannelNorm(256).to(dev)
+    dtype = layers[0][0].dtype
+    norm = ChannelNorm(256).to(layers[0][0].device)
     leaves, outs = [], []
-    for (x, w, bias, _, _, s, k, p), dy in zip(layers, dys):
+    for x, w, bias, _, _, s, k, p in layers:
         xc = x.transpose(1, 2).contiguous().requires_grad_(True)
         wc = w.reshape(k, 256, 256).permute(2, 1, 0).contiguous() \
             .requires_grad_(True)
-        bc = bias.to(torch.bfloat16).requires_grad_(True)
+        bc = bias.to(dtype).requires_grad_(True)
         leaves.append((xc, wc, bc))
         outs.append(lambda xc=xc, wc=wc, bc=bc, s=s, p=p: torch.relu(
             norm(F.conv1d(xc, wc, bc, stride=s, padding=p))))
     ys = [f() for f in outs]
     cts = [dy.transpose(1, 2) for dy in dys]
-    fwd = median_ms(lambda: [f() for f in outs])
-    bwd = median_ms(lambda: [torch.autograd.grad(y, list(lv) + list(
-        norm.parameters()), ct, retain_graph=True)
-        for y, lv, ct in zip(ys, leaves, cts)])
-    print(f"  composition, encoder layers 1-4 unfused (cuDNN conv + "
-          f"ChannelNorm + ReLU, channels-first; autograd backward with "
-          f"dW): forward {fwd:.4f} ms, backward {bwd:.4f} ms; K7 "
-          f"{timings['conv_ln_fwd']['ms']:.4f} / "
-          f"{timings['conv_ln_bwd']['ms']:.4f} ms", flush=True)
+    return (lambda: [f() for f in outs],
+            lambda: [torch.autograd.grad(y, list(lv) + list(
+                norm.parameters()), ct, retain_graph=True)
+                for y, lv, ct in zip(ys, leaves, cts)])
+
+
+def conv_composition_times(dev: torch.device, B: int = 32) -> None:
+    """K7 beside the unfused composition (:func:`conv_composition`) on
+    encoder layers 1-4 at the default train shapes, in both dtypes (float32
+    under the port's precision policy: TF32 off for cuDNN's convolutions)
+    and directions, in turns (K7, composition, composition, K7), device
+    time a call."""
+    from cpc_audio_tpu_torch.ops import conv_ln as cl
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device=dev).manual_seed(SEED + 8)
+
+        def rand(*shape, scale=1.0, dt=dtype):
+            return (torch.randn(shape, generator=g, device=dev)
+                    * scale).to(dt)
+
+        layers, dys = conv_layers(rand, B)
+        saved = [cl.conv_ln_relu_fwd(*l)[1] for l in layers]
+        k7 = (lambda: [cl.conv_ln_relu_fwd(*l)[0] for l in layers],
+              lambda: [cl.conv_ln_relu_bwd(*l[:5], dy, sv, *l[5:])
+                       for l, dy, sv in zip(layers, dys, saved)])
+        comp = conv_composition(layers, dys)
+        t = {"K7": [[], []], "composition": [[], []]}
+        for who in ("K7", "composition", "composition", "K7"):
+            calls = k7 if who == "K7" else comp
+            for i in (0, 1):
+                t[who][i].append(median_ms(calls[i]))
+        print(f"  K7 vs the unfused composition, encoder layers 1-4 (cuDNN "
+              f"conv + ChannelNorm + ReLU, channels-first; autograd "
+              f"backward with dW), {str(dtype)[6:]}, in turns: forward K7 "
+              f"{t['K7'][0][0]:.4f} / {t['K7'][0][1]:.4f} ms, composition "
+              f"{t['composition'][0][0]:.4f} / {t['composition'][0][1]:.4f} "
+              f"ms; backward K7 {t['K7'][1][0]:.4f} / {t['K7'][1][1]:.4f} "
+              f"ms, composition {t['composition'][1][0]:.4f} / "
+              f"{t['composition'][1][1]:.4f} ms", flush=True)
+        del layers, dys, saved, k7, comp
+        torch.cuda.empty_cache()
 
 
 def block_composition(args, dout, B: int, nh: int, rate: float, seed):

@@ -36,7 +36,7 @@
 
 #include "common.cuh"
 #include "gemm_tc.cuh"
-#include "tile_mm.cuh"
+#include "scratch.cuh"
 
 // K2's tensor-core entry points (csrc/relpos_attention_tc_{fwd,bwd}.cu).
 extern "C" size_t cpc_relpos_attention_fwd_tc_scratch(int K, int n_batch,
@@ -94,16 +94,7 @@ struct Args {
   int K, M, D;
 };
 
-template <class E>
-__device__ __forceinline__ void store2(E* p, float a, float b);
-template <>
-__device__ __forceinline__ void store2<float>(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-template <>
-__device__ __forceinline__ void store2<bf16>(bf16* p, float a, float b) {
-  *reinterpret_cast<uint32_t*>(p) = mma::pack_bf16(a, b);
-}
+using gm::store2;
 
 template <class E>
 __device__ __forceinline__ float2 load2(const E* p) {

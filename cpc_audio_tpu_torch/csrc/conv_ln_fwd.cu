@@ -5,96 +5,118 @@
 // through `fused_conv_ln_relu`).  For x (B, T, C), w (2 s C, C), kernel
 // = 2 s, frame t:
 //   h[t]   = A[t] . w + bias                 (float32 accumulation)
-//   out[t] = round(relu((h[t] - mean) / sqrt(var + eps) * nw + nb))
-// with the unbiased variance over the C channels (conv_ln.cuh).
+//   yn[t]  = (h[t] - mean) / sqrt(var + eps) (var over the C channels,
+//                                             ddof = 1)
+//   out[t] = round(relu(yn[t] nw + nb))
+// with A[t] frame t's window of x (csrc/conv_ln.cuh).  yn (float32) and
+// 1 / sqrt(var + eps) are kept for the backward, where the Pallas kernel
+// recomputes the conv.
 //
-// Design: one block of 16 warps per (64 frames, batch row).  The conv is
-// one product over the 2 s C window, in 64-wide chunks: each chunk of
-// x's rows and of w is staged in shared memory and multiplied on the
-// tensor cores (bf16; FMA in float32, tile_mm.cuh) into a (64, C) float32
-// tile, on which the norm and the ReLU run before a single store.  The
-// padding is applied by index, so the input needs no padded copy and the
-// TPU's halo blocks and carries have no counterpart: a frame's window is a
-// strided view of x.
+// Design (csrc/conv_ln.cuh): one launch of the Fwd GEMM on
+// csrc/gemm_tc.cuh, x read in place through the conv's window (the
+// padding a range check, so the input needs no padded copy and the TPU's
+// halo blocks have no counterpart), a 128-frame row tile by every channel
+// so that the norm, the affine and the ReLU run in the epilogue on the
+// float32 sums before one store.  In float32, x and w are first split into
+// three bf16 planes each and the conv takes 6 split products.
 //
 // What bounds it on an H100: at the train shapes (B = 32, C = 256, layers
 // 1-4 of 1024/512/256/128 frames) the four calls are 34 + 8.6 + 4.3 + 2.1
-// = 49 GFLOP (0.05 ms at the bf16 peak) on 67 + 34 + 17 + 8 MB read and
-// 17 + 8 + 4 + 2 MB written (0.04 ms); this first version stages every
-// chunk with a barrier between loads and products, so latency, not a
-// roofline, sets its time.
+// = 49 GFLOP (0.05 ms at the bf16 peak; 6 times that in float32's split
+// products) on 67 + 34 + 17 + 8 MB of x read and 2 x (17 + 8 + 4 + 2) MB
+// of out and yn written in bf16: the tensor cores, at B 32.
 #include "conv_ln.cuh"
 
 namespace {
 
-using cpc::bf16;
-namespace cv = cpc::conv;
+namespace cl = cpc::conv_ln;
+using cl::bf16;
 
-template <typename T>
-__global__ void __launch_bounds__(cv::kThreads) conv_ln_fwd_kernel(
-    const T* __restrict__ x, const T* __restrict__ w,
-    const float* __restrict__ bias, const float* __restrict__ nw,
-    const float* __restrict__ nb, T* __restrict__ out, int T_len, int C,
-    int stride, int pad, int out_t, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const cv::Smem<T> L = cv::frame_smem<T>(smem, C);
-  const int t0 = blockIdx.x * cv::TM;
-  const int b = blockIdx.y;
-  cv::conv_tile(L, x + (size_t)b * T_len * C, w, T_len, C, stride, pad, out_t,
-                t0);
-  const int rows = min(cv::TM, out_t - t0);
-  cv::norm_stats(L, bias, rows, C, eps);
-  T* ob = out + ((size_t)b * out_t + t0) * C;
-  for (int idx = threadIdx.x; idx < rows * C; idx += blockDim.x) {
-    const int r = idx / C;
-    const int n = idx - r * C;
-    const float yn = (L.cs[r * L.ldc + n] - L.stat[r]) * L.stat[cv::TM + r];
-    ob[idx] = cpc::from_f32<T>(fmaxf(yn * nw[n] + nb[n], 0.0f));
+// The scratch: in float32, the bf16 planes of x and w.
+struct FwdScratch {
+  bf16 *x = nullptr, *w = nullptr;
+  size_t bytes;
+  FwdScratch(void* base, const cl::Geom& g, int elt) {
+    cpc::Carve cv(base);
+    if (elt == 4) {
+      constexpr int NP = cl::Prec<float>::kPlanesFwd;
+      x = cv.take<bf16>((size_t)NP * g.B * g.T * g.C);
+      w = cv.take<bf16>((size_t)NP * 2 * g.s * g.C * g.C);
+    }
+    bytes = cv.bytes();
   }
-}
+};
 
-template <typename T>
-int launch(const void* x, const void* w, const float* bias, const float* nw,
-           const float* nb, void* out, int B, int T_len, int C, int stride,
-           int pad, float eps, cudaStream_t stream) {
-  const int out_t = cv::out_frames(T_len, stride, pad);
-  const size_t smem = cv::frame_smem<T>(nullptr, C).bytes;
-  auto kernel = conv_ln_fwd_kernel<T>;
-  cudaError_t err = cpc::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((out_t + cv::TM - 1) / cv::TM, B);
-  kernel<<<grid, cv::kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), bias, nw, nb,
-      static_cast<T*>(out), T_len, C, stride, pad, out_t, eps);
-  return (int)cudaGetLastError();
+template <class E>
+int forward(const void* x, const void* w, const float* bias, const float* nw,
+            const float* nb, void* out, float* yn, float* inv,
+            void* scratch, const cl::Geom& g, float eps,
+            cudaStream_t stream) {
+  cl::Args p{};
+  p.g = g;
+  p.bias = bias;
+  p.nw = nw;
+  p.nb = nb;
+  p.out = out;
+  p.yn = yn;
+  p.inv = inv;
+  p.eps = eps;
+  const size_t nx = (size_t)g.B * g.T * g.C, nw_ = (size_t)2 * g.s * g.C * g.C;
+  if constexpr (cl::Prec<E>::kF32) {
+    constexpr int NP = cl::Prec<E>::kPlanesFwd;
+    const FwdScratch sc(scratch, g, 4);
+    cl::SplitJobs jobs{{static_cast<const float*>(x),
+                        static_cast<const float*>(w)},
+                       {sc.x, sc.w},
+                       {nx, nw_}};
+    const cudaError_t err = cl::split<NP>(jobs, 2, stream);
+    if (err != cudaSuccess) return (int)err;
+    p.x = sc.x;
+    p.w = sc.w;
+    p.x_plane = nx;
+    p.w_plane = nw_;
+  } else {
+    p.x = static_cast<const bf16*>(x);
+    p.w = static_cast<const bf16*>(w);
+  }
+  return (int)cl::run_fwd<E>(p, stream);
 }
 
 }  // namespace
 
-// Shared memory one block needs; the wrapper refuses shapes above the
-// card's 227 KB.
-extern "C" size_t cpc_conv_ln_fwd_smem(int C, int dtype) {
-  return dtype == cpc::kBFloat16 ? cv::frame_smem<bf16>(nullptr, C).bytes
-                                 : cv::frame_smem<float>(nullptr, C).bytes;
+// Bytes of scratch cpc_conv_ln_fwd needs: in float32, the bf16 planes of x
+// and w; none in bf16.
+extern "C" size_t cpc_conv_ln_fwd_scratch(int B, int T, int C, int stride,
+                                          int pad, int dtype) {
+  if (!cl::takes(B, T, C, stride, pad)) return 0;
+  return FwdScratch(nullptr, cl::geom(B, T, C, stride, pad),
+                    dtype == cpc::kFloat32 ? 4 : 2)
+      .bytes;
 }
 
-// x (B, T, C) and w (2 stride C, C) in `dtype`, 16-byte aligned; bias, nw,
-// nb (C,) float32; out (B, out_t, C) in `dtype`.  C % 64 == 0, C <= 256,
+// x (B, T, C), w (2 stride C, C) and out (B, out_t, C) in `dtype`,
+// 16-byte aligned; bias, nw, nb (C,) float32; yn (B, out_t, C) and inv
+// (B, out_t) float32, written for the backward; scratch of
+// cpc_conv_ln_fwd_scratch bytes, 256-byte aligned.  C % 64 == 0, C <= 256,
 // out_t >= 1.
 extern "C" int cpc_conv_ln_fwd(const void* x, const void* w, const void* bias,
                                const void* nw, const void* nb, void* out,
-                               int B, int T, int C, int stride, int pad,
-                               float eps, int dtype, void* stream) {
-  if (C % cv::KC != 0 || C > cv::kMaxC || stride < 1 || pad < 0 ||
-      cv::out_frames(T, stride, pad) < 1)
-    return (int)cudaErrorInvalidValue;
+                               void* yn, void* inv, void* scratch, int B,
+                               int T, int C, int stride, int pad, float eps,
+                               int dtype, void* stream) {
+  if (!cl::takes(B, T, C, stride, pad)) return (int)cudaErrorInvalidValue;
+  const cl::Geom g = cl::geom(B, T, C, stride, pad);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
   const float* w1 = static_cast<const float*>(nw);
   const float* b1 = static_cast<const float*>(nb);
+  float* y = static_cast<float*>(yn);
+  float* iv = static_cast<float*>(inv);
+  if (dtype == cpc::kFloat32) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    return forward<float>(x, w, b, w1, b1, out, y, iv, scratch, g, eps, s);
+  }
   if (dtype == cpc::kBFloat16)
-    return launch<bf16>(x, w, b, w1, b1, out, B, T, C, stride, pad, eps, s);
-  if (dtype == cpc::kFloat32)
-    return launch<float>(x, w, b, w1, b1, out, B, T, C, stride, pad, eps, s);
+    return forward<bf16>(x, w, b, w1, b1, out, y, iv, scratch, g, eps, s);
   return (int)cudaErrorInvalidValue;
 }

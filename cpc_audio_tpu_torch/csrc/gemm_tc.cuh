@@ -91,9 +91,23 @@ struct Operand {
   size_t plane = 0;
 };
 
+// A windowed A operand (mainloop's A_WIN): its storage rows (A's rows,
+// or its depth rows if k-major) stack the batches, `per` rows each.
+// Storage row q is row i = (row0 + q) % per of batch (row0 + q) / per,
+// and its element c lies at offset e = off + i ld + c of that batch (the
+// operand's `batch` elements apart), read for 0 <= e < span and zero
+// elsewhere.  Its batches are stacked in its rows, so its callers pass
+// z = 0.  Every 8-element chunk must lie wholly inside [0, span) or
+// outside it (off, ld and span multiples of 8).
+struct Window {
+  int per = 1, row0 = 0;
+  long long off = 0, span = 0;
+};
+
 struct Problem {
   Operand a, b;
   int rows, cols, depth;
+  Window win = {};
 };
 
 // Where a warp's accumulators sit in the output.
@@ -139,6 +153,31 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
   }
 }
 
+// load_tile for a windowed operand (see Window): the tile's first storage
+// row is q0 and its first column col0; `base` is the plane's batch 0.
+template <int ROWS, int COLS, int NTHREADS>
+__device__ __forceinline__ void load_tile_window(bf16* dst, const bf16* base,
+                                                 size_t batch, int ld,
+                                                 const Window& w, int q0,
+                                                 int col0, int rows_valid,
+                                                 int cols_valid) {
+  constexpr int CH = COLS / 8, N = ROWS * CH;
+#pragma unroll
+  for (int step = 0; step < (N + NTHREADS - 1) / NTHREADS; ++step) {
+    const int i = step * NTHREADS + threadIdx.x;
+    if (N % NTHREADS != 0 && i >= N) break;
+    const int r = i / CH, c = (i - r * CH) * 8;
+    const int q = w.row0 + q0 + r;
+    const int bq = q / w.per;
+    const long long e =
+        w.off + (long long)(q - bq * w.per) * ld + col0 + c;
+    const bool ok =
+        r < rows_valid && c < cols_valid && e >= 0 && e < w.span;
+    mma::cp_async16(dst + r * (COLS + kPad) + c,
+                    ok ? base + bq * batch + e : base, ok);
+  }
+}
+
 // The (plane of A, plane of B) of segment s of a product of P split
 // terms, smallest first.
 template <int P>
@@ -160,10 +199,12 @@ static_assert(split_a<6>(0) == 2 && split_b<6>(0) == 0 &&
 // acc = A . B over the whole depth for the block's tile at (m0, n0) of
 // batch z, as the sum of P split products (P = 1: bf16 operands); with
 // `zero` false, acc += A . B (a product whose depth lies in several
-// operands, walked one after another into the same sums).  Leaves the
-// ring idle (every copy landed, every warp past its last read), so the
-// epilogue, or the next walk, may reuse `smem`.
-template <class T, bool A_KMAJOR, bool B_NMAJOR, int P = 1>
+// operands, walked one after another into the same sums).  A_WIN: A is
+// read through p.win (see Window).  Leaves the ring idle (every copy
+// landed, every warp past its last read), so the epilogue, or the next
+// walk, may reuse `smem`.
+template <class T, bool A_KMAJOR, bool B_NMAJOR, int P = 1,
+          bool A_WIN = false>
 __device__ __forceinline__ void mainloop(float (&acc)[T::MI][T::NI][4],
                                          const Problem& p, int z, int m0,
                                          int n0, unsigned char* smem,
@@ -184,7 +225,16 @@ __device__ __forceinline__ void mainloop(float (&acc)[T::MI][T::NI][4],
     const bf16* A = A0 + split_a<P>(s) * p.a.plane;
     const bf16* B = B0 + split_b<P>(s) * p.b.plane;
     const int kv = p.depth - k0;
-    if (A_KMAJOR)
+    if constexpr (A_WIN) {
+      if (A_KMAJOR)
+        load_tile_window<T::BK, T::BM, T::kThreads>(
+            sa + slot * SA, A, p.a.batch, p.a.ld, p.win, k0, m0, kv,
+            p.rows - m0);
+      else
+        load_tile_window<T::BM, T::BK, T::kThreads>(
+            sa + slot * SA, A, p.a.batch, p.a.ld, p.win, m0, k0,
+            p.rows - m0, kv);
+    } else if (A_KMAJOR)
       load_tile<T::BK, T::BM, T::kThreads>(sa + slot * SA,
                                            A + (size_t)k0 * lda + m0, lda, kv,
                                            p.rows - m0);
@@ -255,6 +305,19 @@ __device__ __forceinline__ void mainloop(float (&acc)[T::MI][T::NI][4],
   }
   mma::cp_async_wait<0>();
   __syncthreads();
+}
+
+// Two neighbouring outputs (a at p, b at p + 1) in E, float32 or bf16:
+// an epilogue's store of a fragment's pair.
+template <class E>
+__device__ __forceinline__ void store2(E* p, float a, float b);
+template <>
+__device__ __forceinline__ void store2<float>(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+template <>
+__device__ __forceinline__ void store2<bf16>(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = mma::pack_bf16(a, b);
 }
 
 // Sums, over the block's columns, each row's values v[nv][mi][half] (a

@@ -77,7 +77,7 @@
 //   G5   y^T dhp     -> dW1 (float32);
 //   G6   h^T df      -> dW2 (float32);
 // then the per-tile partials are summed over tiles in a fixed order
-// (cpc::sum_parts, csrc/tile_mm.cuh).  No atomics anywhere: reruns are
+// (cpc::sum_parts, csrc/scratch.cuh).  No atomics anywhere: reruns are
 // bit-identical.  Up to D 1024 the G2s and G4 keep a whole D-wide row
 // tile in registers (128 x 256, 64 x 512 or 32 x 1024 over 16 warps: 64
 // accumulators a thread); past it (the wide body, below) they run on
@@ -94,7 +94,7 @@
 #include "dropout.cuh"
 #include "gemm_tc.cuh"
 #include "layer_tail_tc.cuh"
-#include "tile_mm.cuh"
+#include "scratch.cuh"
 
 namespace cpc {
 

@@ -127,14 +127,16 @@ _SIGNATURES = {
                                 _I),
     # K, n_batch, S, nheads, dk, dtype
     "cpc_attention_block_bwd_scratch": ([_I] * 6, ctypes.c_size_t),
-    # x, w, bias, nw, nb, out, B, T, C, stride, pad, eps, dtype, stream
-    "cpc_conv_ln_fwd": ([_P] * 6 + [_I] * 5 + [_F, _I, _P], _I),
-    # C, dtype
-    "cpc_conv_ln_fwd_smem": ([_I, _I], ctypes.c_size_t),
-    # x, w, bias, nw, nb, dy, dx, dh, vpart, vout, wpart, dw, B, T, C,
-    # stride, pad, n_split, eps, dtype, stream
-    "cpc_conv_ln_bwd": ([_P] * 12 + [_I] * 6 + [_F, _I, _P], _I),
-    "cpc_conv_ln_bwd_smem": ([_I, _I], ctypes.c_size_t),
+    # x, w, bias, nw, nb, out, yn, inv, scratch, B, T, C, stride, pad,
+    # eps, dtype, stream
+    "cpc_conv_ln_fwd": ([_P] * 9 + [_I] * 5 + [_F, _I, _P], _I),
+    # B, T, C, stride, pad, dtype
+    "cpc_conv_ln_fwd_scratch": ([_I] * 6, ctypes.c_size_t),
+    # x, w, nw, nb, dy, yn, inv, dx, vout, dw, scratch, B, T, C, stride,
+    # pad, dtype, stream
+    "cpc_conv_ln_bwd": ([_P] * 11 + [_I] * 6 + [_P], _I),
+    # B, T, C, stride, pad, dtype
+    "cpc_conv_ln_bwd_scratch": ([_I] * 6, ctypes.c_size_t),
     # updates, order, offsets, out, R, C, dtype, stream
     "cpc_scatter_add": ([_P] * 4 + [_I] * 3 + [_P], _I),
 }

@@ -83,9 +83,10 @@ def bit_identity(runs: list, keys) -> None:
 def build_variants(root: str, variants: dict, sources) -> dict:
     """Copies of this checkout's csrc/ under ``root``, one a variant
     {name: {source: {layout name: template arguments}}} with those
-    layouts' lines (`using NAME = ...Layout<...>;`) replaced, each built
-    from ``sources`` into one shared library by its own nvcc process, all
-    started together: {name: (library path, nvcc output)}."""
+    layouts' lines (`using NAME = Type<...>;`, a K1 `...Layout` or a
+    `gm::Tile`) replaced, each built from ``sources`` into one shared
+    library by its own nvcc process, all started together: {name:
+    (library path, nvcc output)}."""
     import re
     import shutil
     sys.path.insert(0, HERE)
@@ -100,7 +101,7 @@ def build_variants(root: str, variants: dict, sources) -> dict:
             with open(path) as fh:
                 src = fh.read()
             for layout, targs in layouts.items():
-                pat = re.compile(rf"(using {layout} = \w+Layout<)[^>]*(>;)")
+                pat = re.compile(rf"(using {layout} = [\w:]+<)[^>]*(>;)")
                 if not pat.search(src):
                     raise SystemExit(f"{name}: no layout {layout} in {f}")
                 src = pat.sub(rf"\g<1>{targs}\g<2>", src)

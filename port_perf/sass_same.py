@@ -1,0 +1,74 @@
+#!/usr/bin/env python3
+"""Whether two checkouts compile the GEMM core's other users to the same
+machine code: K3's and K6's sources, which include csrc/gemm_tc.cuh.
+
+Usage, from the root of a checkout (needs nvcc and cuobjdump, no GPU):
+    python3 port_perf/sass_same.py OTHER_CHECKOUT [SOURCE.cu ...]
+
+Builds each source (by default layer_tail_tc.cu, attention_block_fwd.cu
+and attention_block_bwd.cu) of both checkouts into build/sass_same/ with
+the package's nvcc flags, disassembles the objects (cuobjdump -sass) and
+prints, for each source, how many kernels each holds and which kernels'
+SASS differs (the instructions only: addresses, encodings, the file's own
+header and the hash an anonymous namespace's name carries are left
+out).  An edit of a shared header that leaves every
+kernel the same changes none of their code generation.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join("cpc_audio_tpu_torch", "csrc")
+SOURCES = ("layer_tail_tc.cu", "attention_block_fwd.cu",
+           "attention_block_bwd.cu")
+
+
+def kernels(root: str, source: str, out: str) -> dict:
+    """{kernel: its SASS instructions} of ``root``'s ``source``."""
+    sys.path.insert(0, HERE)
+    from cpc_audio_tpu_torch.ops import _build
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(os.path.join(root, SRC), out)
+    obj = os.path.join(out, source + ".o")
+    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-c", "-o", obj,
+                        os.path.join(out, source)],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        raise SystemExit(f"{root}: nvcc failed\n{r.stderr[-3000:]}")
+    dump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([dump, "-sass", obj], capture_output=True,
+                          text=True, check=True).stdout
+    found = {}
+    for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
+        # an anonymous namespace's mangled name carries a hash of its file
+        name = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+",
+                      "_GLOBAL__N_", chunk.split("\n", 1)[0].strip())
+        found[name] = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", chunk)
+    return found
+
+
+def main() -> None:
+    if len(sys.argv) < 2:
+        raise SystemExit(__doc__)
+    other = os.path.abspath(sys.argv[1])
+    for source in sys.argv[2:] or SOURCES:
+        mine = kernels(HERE, source, os.path.join(HERE, "build", "sass_same",
+                                                  "this"))
+        theirs = kernels(other, source, os.path.join(HERE, "build",
+                                                     "sass_same", "other"))
+        differ = sorted(k for k in set(mine) | set(theirs)
+                        if mine.get(k) != theirs.get(k))
+        print(f"{source}: {len(mine)} kernels here, {len(theirs)} in the "
+              f"other checkout; SASS {'identical' if not differ else 'differs'}"
+              + (f" in {len(differ)}: " + "; ".join(d[:90] for d in differ)
+                 if differ else ""), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -2,7 +2,7 @@
 """Train steps of two checkouts, in turns, on one GPU: the default LSTM,
 GRU and transformer in bf16, the fused-layer LSTM (CPC_ATTN_BLOCK=1
 CPC_PALLAS_CONV=1: K6 in the heads, K7 in encoder layers 1-4) in bf16 and
-the default LSTM in float32 (the CLIs' default dtype).
+float32, and the default LSTM in float32 (the CLIs' default dtype).
 
 Usage, from the root of a checkout:
     python3 port_perf/train_step_ab.py OTHER_CHECKOUT
@@ -16,7 +16,8 @@ over 3 steps (torch.profiler) the device time a step and its busy share
 of the unprofiled median step, with the device ms a step of each port
 kernel (K6 on the fused path: the block's kernels, its own and the K2
 tensor-core kernels it runs; K2 on the others) and chip_smoke's
-PROFILE_GROUPS for the rest.
+PROFILE_GROUPS for the rest.  The fixed-order sums of per-tile parts
+(``sum_parts``) that K3 and K7 share count as K3's.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from _ab import HERE
 # (chip_smoke path, dtype)
 CASES = (("LSTM", "bfloat16"), ("GRU", "bfloat16"),
          ("transformer", "bfloat16"), ("LSTM fused", "bfloat16"),
-         ("LSTM", "float32"))
+         ("LSTM fused", "float32"), ("LSTM", "float32"))
 # kernel-name fragments (lower case) of K2's launches; on the fused path
 # they are K6's, beside its GEMMs and splits ("k6::") or the first body's
 # kernels ("attention_block")

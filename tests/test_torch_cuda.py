@@ -948,11 +948,20 @@ def test_attention_block_kernels(dev, dtype, K, B, S, h, dk, rate):
 @pytest.mark.parametrize("B,T,C,k,s,p", [(2, 64, 64, 8, 4, 2),
                                          (2, 160, 128, 4, 2, 1),
                                          (1, 33, 64, 4, 2, 1),
-                                         (2, 300, 256, 8, 4, 2)])
+                                         (2, 300, 256, 8, 4, 2),
+                                         (3, 300, 192, 8, 4, 2),
+                                         (3, 97, 64, 4, 2, 1),
+                                         (1, 256, 256, 4, 2, 1),
+                                         (2, 5, 64, 8, 4, 2),
+                                         (2, 9, 128, 4, 2, 3)])
 def test_conv_ln_kernels(dev, dtype, B, T, C, k, s, p):
-    """Forward and backward against the plain versions: T = 33 leaves a
-    padded row no frame reads (its dx is 0); T = 160 and 300: several
-    64-frame tiles and block rows; C = 256 at layer 1's geometry."""
+    """Forward and backward against the plain versions, and reruns
+    bit-identical: T = 33 leaves a padded row no frame reads (its dx is
+    0); T = 160 and 300: several 128-frame tiles and block rows; C = 256
+    at layer 1's geometry; B 3 at C 192 and 64 with 75 and 48 frames, no
+    multiple of the tile; layer 4's 128 frames at B 1; T = 5: the one
+    frame reads padding at both ends; pad 3: the first frame's window
+    lies wholly in the padding."""
     rng = np.random.RandomState(T + C)
     f32 = torch.float32
     args = (_rand(rng, dev, dtype, B, T, C),
@@ -961,18 +970,24 @@ def test_conv_ln_kernels(dev, dtype, B, T, C, k, s, p):
             _rand(rng, dev, f32, C, scale=0.1, shift=1.0),
             _rand(rng, dev, f32, C, scale=0.1))
     before = conv_ln.conv_ln_relu.launches
-    torch.testing.assert_close(
-        conv_ln.conv_ln_relu_fwd(*args, s, k, p),
-        conv_ln.conv_ln_relu_ref(*args, s, k, p), **TOL[dtype])
+    out, saved = conv_ln.conv_ln_relu_fwd(*args, s, k, p)
+    torch.testing.assert_close(out, conv_ln.conv_ln_relu_ref(*args, s, k, p),
+                               **TOL[dtype])
     assert conv_ln.conv_ln_relu.launches == before + 1
+    again, saved2 = conv_ln.conv_ln_relu_fwd(*args, s, k, p)
+    assert torch.equal(out, again)
+    assert all(torch.equal(a, b) for a, b in zip(saved, saved2))
     out_t = conv_ln.out_frames(T, k, s, p)
     dy = _rand(rng, dev, dtype, B, out_t, C)
     before = conv_ln.conv_ln_relu_bwd.launches
-    got = conv_ln.conv_ln_relu_bwd(*args, dy, s, k, p)
+    got = conv_ln.conv_ln_relu_bwd(*args, dy, saved, s, k, p)
     assert conv_ln.conv_ln_relu_bwd.launches == before + 1
     want = conv_ln.conv_ln_relu_bwd_ref(*args, dy, s, k, p)
     for name, g, w in zip(("dx", "dw", "db", "dnw", "dnb"), got, want):
         _close(g, w, BWD_REL[dtype], name)
+    again = conv_ln.conv_ln_relu_bwd(*args, dy, saved2, s, k, p)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
 
 
 def test_fused_wrappers_reject_what_kernels_do_not_take(dev):
@@ -991,6 +1006,10 @@ def test_fused_wrappers_reject_what_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="fused_conv_supported"):
         conv_ln.conv_ln_relu_fwd(x, torch.zeros(3 * 64, 64, device=dev), v,
                                  v, v, 2, 3, 1)                # k != 2 s
+    with pytest.raises(ValueError, match="no residuals"):
+        conv_ln.conv_ln_relu_bwd(x, torch.zeros(4 * 64, 64, device=dev), v,
+                                 v, v, torch.zeros(1, 8, 64, device=dev),
+                                 None, 2, 4, 1)                # no saved
 
 
 # ---- K8: the row scatter-add ---------------------------------------------------
