@@ -32,7 +32,9 @@ Phases (any failure exits non-zero):
      split bf16 planes) at S 1012 (dk 32) and at dk 256 (S 116), K1 and K4 at
      B 4, T 128, H 4096 (--hiddenGar 4096: the grid bodies), both dtypes;
      K1 and K4 forward on their cluster bodies at H 128 (8 CTAs; B 32, T
-     128) and at build_feature's B 1 / T 400 (H 256), and on their rows
+     128) and at build_feature's B 1 / T 400 (H 256), K1's also as
+     build_features_batched runs it, B 8 / T 400 without residuals
+     (beside cuDNN's LSTM under inference_mode), and on their rows
      bodies at the --hiddenGar 200 widths (K1 at H 200, K4 at 224), both
      dtypes; every K1 / K4 case on a cluster or grid body reruns
      bit-identically, and its float32 bound counts the 3 bf16 split
@@ -145,6 +147,19 @@ Phases (any failure exits non-zero):
      state, batch and keys, the two held together at 1e-3 of each
      gradient leaf's norm; --arMode GRU --hiddenGar 100 must stop before
      any step, naming the flag;
+  6b. interchange (phase_interchange), at the default architecture on the
+     same WAV tree: in bf16 and in float32 one CLI epoch with
+     --export_torch and `convert export` of its checkpoint, the three files
+     through load_model on the card (bit for bit in float32), and a new
+     run with --load of the export whose first-step losses must equal the
+     trained model's on the same batch; build_features_batched over 12
+     ragged WAVs of 3-9 s in 8 lanes of 64000 samples (keep_hidden on and
+     off, get_encoded, seq_norm) against per-file build_feature, K1's
+     forward on its cluster body once a batch of chunks at B 8, and both
+     paths' seconds of audio a second in turns; the hub from a file
+     written from the export; one bf16 CLI epoch each of --supervised
+     --pathPhone, with --CTC and alone (speaker), and a float32 phone
+     epoch whose first step is held against the CPU;
   7. print build_feature's latency again, one JSON line of per-kernel
      results (each kernel's launches from its own path's train run; the
      rows forwards' from the --hiddenGar 200 LSTM path and GRU model),
@@ -483,6 +498,7 @@ def kernel_cases(dev: torch.device, dtype: torch.dtype, B: int = 32):
     cases += recurrent_cases(rand, dev, GRID_SHAPES)
     cases += recurrent_cases(rand, dev, CLUSTER_FWD_SHAPES + ROWS_FWD_SHAPES,
                              backward=False)
+    cases += features_cases(rand)
     cases += repair_cases(rand, dev, seed, dtype)
     upd, keys, order, offsets, R = scatter_inputs(dev, dtype, B)
     cases.append(Case("scatter_add_rows", 0.0,
@@ -683,9 +699,9 @@ def repair_cases(rand, dev: torch.device, seed, dtype: torch.dtype,
 # are timed here, in bf16
 GRID_SHAPES = (("lstm", 32, 128, 1056), ("gru", 32, 128, 512))
 # the cluster forward at H 128 (8 CTAs; the --hiddenGar 100 GRU model's K4
-# width) and at build_feature's B 1 / T 400; the rows forward at the
-# --hiddenGar 200 widths (K4 pads 200 to 224), whose bf16 times are the
-# JSON line's rows entries
+# width) and at build_feature's B 1 / T 400 (every case's h0 and c0 are
+# non-zero); the rows forward at the --hiddenGar 200 widths (K4 pads 200 to
+# 224), whose bf16 times are the JSON line's rows entries
 CLUSTER_FWD_SHAPES = (("lstm", 32, 128, 128), ("gru", 32, 128, 128),
                       ("lstm", 1, 400, 256), ("gru", 1, 400, 256))
 ROWS_FWD_SHAPES = (("lstm", 32, 128, 200), ("gru", 32, 128, 224))
@@ -722,6 +738,26 @@ def recurrent_cases(rand, dev: torch.device, shapes,
                      lambda a=gba: gru.gru_bwd_ref(*a), gba,
                      2 * B * T * 3 * H * H, shape=tag)][:1 + backward]
     return cases
+
+
+def features_args(rand, B: int = 8, T: int = 400, H: int = 256):
+    """K1's forward inputs at build_features_batched's shape (8 lanes of
+    64000-sample chunks at the default --hiddenGar): x_proj, W_hh and the
+    lanes' carried, non-zero h0 and c0."""
+    return (rand(B, T, 4 * H), rand(4 * H, H, scale=H ** -0.5),
+            rand(B, H, scale=0.1), rand(B, H, scale=0.1))
+
+
+def features_cases(rand, B: int = 8, T: int = 400, H: int = 256):
+    """K1's forward as build_features_batched runs it, under
+    inference_mode: without residuals (save_residuals=False), so its bound
+    reads x_proj, W_hh, h0, c0 and writes ys, hT, cT only."""
+    from cpc_audio_tpu_torch.ops import lstm
+    la = features_args(rand, B, T, H)
+    tag = f"B {B} / T {T} / H {H}"
+    return [Case("lstm_fwd", 0.0, lambda: lstm.lstm_fwd(*la),
+                 lambda: lstm.lstm_scan_ref(*la), la, 2 * B * T * 4 * H * H,
+                 shape=tag, label=f"lstm_fwd inference {tag}")]
 
 
 def recurrent_body(case: Case, dtype: torch.dtype):
@@ -972,6 +1008,10 @@ SOURCES = {
                       "cpc_audio_tpu/ops/pallas/rnn.py:67"),
     "gru_fwd_rows": ("cpc_audio_tpu_torch/csrc/gru_fwd.cu",
                      "cpc_audio_tpu/ops/pallas/rnn.py:238"),
+    # K1's forward cluster body at build_features_batched's B 8 / T 400 /
+    # H 256, from the lanes' carried state, without residuals
+    "lstm_fwd_features": ("cpc_audio_tpu_torch/csrc/rnn_cluster_fwd.cuh",
+                          "cpc_audio_tpu/ops/pallas/rnn.py:67"),
 }
 
 # The train path runs K2, K3, K5 and K6 at dropout 0.1: the JSON line
@@ -1272,6 +1312,52 @@ def rows_yardsticks(dev: torch.device, shapes=ROWS_SHAPES, T: int = 128,
     return out
 
 
+def features_yardstick(dev: torch.device, B: int = 8, T: int = 400,
+                       H: int = 256) -> float:
+    """K1's inference forward at build_features_batched's shape beside
+    cuDNN's nn.LSTM forward under inference_mode (input projection
+    included) from the same non-zero state, in both dtypes, in turns
+    (kernel, cuDNN, cuDNN, kernel).  Returns cuDNN's bf16 mean ms."""
+    from cpc_audio_tpu_torch.ops import lstm
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device=dev).manual_seed(SEED + 29)
+
+        def rand(*shape, scale=1.0):
+            return (torch.randn(shape, generator=g, device=dev)
+                    * scale).to(dtype)
+        la = features_args(rand, B, T, H)
+        layer = torch.nn.LSTM(H, H, batch_first=True).to(dev, dtype)
+        layer.flatten_parameters()
+        x = rand(B, T, H)
+        h0, c0 = (t.unsqueeze(0) for t in la[2:])
+
+        def cudnn():
+            with torch.inference_mode():
+                return layer(x, (h0, c0))
+
+        def kernel():
+            return lstm.lstm_fwd(*la)
+        b = bound(Case("lstm_fwd", 0.0, kernel, None, la,
+                       2 * B * T * 4 * H * H), kernel(), dtype)
+        t = {"kernel": [], "cudnn": []}
+        for who in ("kernel", "cudnn", "cudnn", "kernel"):
+            t[who].append(median_ms(kernel if who == "kernel" else cudnn))
+        k_ms, c_ms = (statistics.mean(t[w]) for w in ("kernel", "cudnn"))
+        out[dtype] = c_ms
+        print(f"  lstm_fwd inference B {B} / T {T} / H {H}, "
+              f"{str(dtype)[6:]}, in turns ({lstm.fwd_body(H, dtype)} "
+              f"body): kernel {t['kernel'][0]:.4f} / {t['kernel'][1]:.4f} "
+              f"ms, cuDNN nn.LSTM forward under inference_mode, input "
+              f"projection included {t['cudnn'][0]:.4f} / "
+              f"{t['cudnn'][1]:.4f} ms; kernel / cuDNN {k_ms / c_ms:.3f}; "
+              f"kernel bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+              f"({b['bytes'] / 1e6:.2f} MB)", flush=True)
+        del layer, x, la
+        torch.cuda.empty_cache()
+    return out[torch.bfloat16]
+
+
 def long_causal_yardsticks(dev: torch.device, B: int = 4, S: int = 1024,
                            dk: int = 32) -> None:
     """SDPA beside K5 at --sizeWindow 163840's shape (N = B * 8 rows of S
@@ -1563,6 +1649,12 @@ def phase_kernels(dev: torch.device, B: int = 32) -> dict:
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": b["bound_ms"],
                         "bound_by": b["bound_by"], "library_ms": None}
+            if name == "lstm_fwd" and reported and \
+                    case.shape == FEATURES_SHAPE:
+                results["lstm_fwd_features"] = {
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                    "library_ms": None}
             if reported and case.shape is not None:
                 shaped[(name, case.shape)] = ms
             if reported and case.shape is None:
@@ -1603,6 +1695,7 @@ def phase_kernels(dev: torch.device, B: int = 32) -> dict:
         results[f"{kind}_fwd_rows"]["library_ms"] = cudnn_ms[
             (f"{kind}_fwd", B_, H, torch.bfloat16)]
     rows_yardsticks(dev, H4096_SHAPES, warmup=1, reps=2)
+    results["lstm_fwd_features"]["library_ms"] = features_yardstick(dev)
     long_causal_yardsticks(dev)
     conv_composition_times(dev, B)
     block_composition_times(dev, B)
@@ -2580,7 +2673,8 @@ def compare_train_steps(path: str, results, relu: dict, tails) -> None:
     print(f"  {path} worst gradient leaf per group (rel_norm_err): " +
           "; ".join(f"{g} {e:.3e} ({n})" for g, (e, n) in worst.items()),
           flush=True)
-    kink_report(path, tails, g_g, g_c)
+    if all(tails):                  # the heads' K3 ran on this path
+        kink_report(path, tails, g_g, g_c)
 
 
 # An encoder ReLU unit (the output of a ChannelNorm, O(1)) whose card and
@@ -2876,6 +2970,395 @@ def phase_cli(tmp: str, dev: torch.device) -> None:
               f"step: {str(e)[:120]}", flush=True)
 
 
+# the ragged files of phase_features: 12 WAVs of 3-9 s, n_lanes lanes of
+# max_size_seq (64000-sample) chunks, the default --hiddenGar: K1's forward
+# at B 8 / T 400 / H 256 from the carried (non-zero) state
+FEATURE_FILES, FEATURE_LANES = 12, 8
+FEATURES_SHAPE = "B 8 / T 400 / H 256"
+# the CLI's tolerances for what the export and the lanes change: nothing in
+# float32 (same weights, same kernels, the same rows); in bf16 the batched
+# forward runs B 8 rows where build_feature runs 1 (other cuBLAS tiles in
+# the input projection, other rounding to bf16), carried over 400-1200
+# recurrent steps: a few bf16 ulps of |c| < 1
+FEATURE_ATOL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+def default_argv(db: str, out: str, dtype: str, *extra) -> list:
+    """The train CLI at the default architecture (--hiddenEncoder 256
+    --hiddenGar 256, LSTM, 12 heads), one epoch, batch 8."""
+    return ["--pathDB", db, "--file_extension", ".wav", "--pathCheckpoint",
+            out, "--compute_dtype", dtype, "--batchSizeGPU", "8",
+            "--nEpoch", "1", "--n_process_loader", "2", "--ignore_cache",
+            "--random_seed", str(SEED)] + list(extra)
+
+
+@contextlib.contextmanager
+def first_step_record(record: dict):
+    """While the train CLI runs: its first train step's arguments and
+    losses go to ``record``; the step itself is unchanged."""
+    from cpc_audio_tpu_torch import train
+    original = train.make_train_step
+
+    def spy(state, device):
+        step = original(state, device)
+
+        def first(*args, **kw):
+            out = step(*args, **kw)
+            if not record:
+                record.update(args=args, kw=kw,
+                              losses=out[1]["losses"].float().cpu())
+            return out
+        return first
+
+    train.make_train_step = spy
+    try:
+        yield
+    finally:
+        train.make_train_step = original
+
+
+def model_features(model, batch: torch.Tensor) -> torch.Tensor:
+    with torch.inference_mode():
+        c, z, _, _ = model(batch)
+    return torch.cat([c.float(), z.float()], dim=-1)
+
+
+def phase_export(tmp: str, db: str, dev: torch.device) -> dict:
+    """Per dtype (bf16, then the CLI's default float32): one CLI epoch with
+    --export_torch, then `convert export` of its checkpoint_0.pt; load_model
+    of the port checkpoint, of checkpoint_0.torch.pt and of the converted
+    file on the card give the trained model's c and z (bit for bit in
+    float32, within FEATURE_ATOL in bf16); then a new CLI run with --load of
+    the exported file, whose first-step losses must equal those of the
+    trained model (and the new run's seeded criterion) on the same batch.
+    Returns {dtype: the run's directory}."""
+    from cpc_audio_tpu_torch import convert, train
+    from cpc_audio_tpu_torch.criterion import build_criterion
+    from cpc_audio_tpu_torch.feature_loader import load_model
+    from cpc_audio_tpu_torch.models import build_model
+    from cpc_audio_tpu_torch.parallel.train_step import (create_train_state,
+                                                         make_train_step)
+    runs = {}
+    batch = torch.from_numpy(synthetic_audio(20480, 4, SEED + 11)).to(dev)
+    for dtype in ("bfloat16", "float32"):
+        out = os.path.join(tmp, f"export_{dtype}")
+        _run_cli(train, default_argv(db, out, dtype, "--export_torch"),
+                 f"--compute_dtype {dtype} --export_torch",
+                 PATH_KERNELS["LSTM"])
+        files = sorted(os.listdir(out))
+        if "checkpoint_0.torch.pt" not in files:
+            fail(f"--export_torch wrote no checkpoint_0.torch.pt ({files})")
+        converted = os.path.join(out, "converted.pt")
+        with contextlib.redirect_stdout(io.StringIO()):
+            convert.main(["export", os.path.join(out, "checkpoint_0.pt"),
+                          converted])
+        with open(os.path.join(out, "checkpoint_args.json")) as f:
+            args = json.load(f)
+        feats = {}
+        for name in ("checkpoint_0.pt", "checkpoint_0.torch.pt",
+                     "converted.pt"):
+            model, hg, he = load_model([os.path.join(out, name)])
+            if next(model.parameters()).device != dev or (hg, he) != \
+                    (args["hiddenGar"], args["hiddenEncoder"]):
+                fail(f"load_model({name}) gave {hg}, {he} on "
+                     f"{next(model.parameters()).device}")
+            feats[name] = model_features(model, batch)
+        want = feats["checkpoint_0.pt"]
+        for name in ("checkpoint_0.torch.pt", "converted.pt"):
+            same = torch.equal(feats[name], want)
+            err = (feats[name] - want).abs().max().item()
+            print(f"export {dtype}: load_model({name}) against the "
+                  f"checkpoint's own model, c and z on a (4, 1, 20480) "
+                  f"batch: bit-identical {same}, max |err| {err:.3e}",
+                  flush=True)
+            if dtype == "float32" and not same or \
+                    err > FEATURE_ATOL[dtype]:
+                fail(f"the {dtype} export {name} does not give the trained "
+                     f"model's features")
+        # --load of the export into a new run: its first step against the
+        # trained model's on the same batch, with the run's own criterion
+        record = {}
+        with first_step_record(record):
+            _run_cli(train, default_argv(
+                db, os.path.join(tmp, f"load_{dtype}"), dtype, "--load",
+                os.path.join(out, "checkpoint_0.torch.pt")),
+                f"--compute_dtype {dtype} --load checkpoint_0.torch.pt",
+                PATH_KERNELS["LSTM"])
+        model, _, _ = load_model([os.path.join(out, "checkpoint_0.pt")])
+        gen = torch.Generator().manual_seed(SEED)
+        cfg = build_model(model.config, gen).config  # the CLI's draws
+        state = create_train_state(model.train(), build_criterion(cfg, gen),
+                                   dev, cfg.learningRate)
+        _, metrics = make_train_step(state, dev)(*record["args"],
+                                                 **record["kw"])
+        got = metrics["losses"].float().cpu()
+        err = (got - record["losses"]).abs().max().item()
+        print(f"--load {dtype}: the new run's first-step losses "
+              f"{record['losses'].numpy().round(5)}, the trained model's "
+              f"on its batch {got.numpy().round(5)}, max |err| {err:.3e}",
+              flush=True)
+        if err > (1e-5 if dtype == "float32" else 1e-2):
+            fail(f"--load of the {dtype} export: first-step losses differ")
+        runs[dtype] = out
+        del model, state
+        torch.cuda.empty_cache()
+    return runs
+
+
+def feature_files(tmp: str) -> list:
+    """FEATURE_FILES ragged WAVs of 3-9 s (tones plus noise)."""
+    rng = np.random.default_rng(SEED + 13)
+    paths = []
+    os.makedirs(os.path.join(tmp, "features"), exist_ok=True)
+    for i in range(FEATURE_FILES):
+        n = int(16000 * rng.uniform(3.0, 9.0))
+        t = np.arange(n) / 16000.0
+        x = 0.3 * np.sin(2 * np.pi * rng.uniform(100, 400) * t) \
+            + 0.05 * rng.standard_normal(n)
+        paths.append(os.path.join(tmp, "features", f"f{i:02d}.wav"))
+        _write_wav(paths[-1], x)
+    return paths
+
+
+def seq_norm_tolerance(raw: np.ndarray, normed: np.ndarray, atol: float,
+                       frames: int = 400) -> np.ndarray:
+    """The tolerance of seq_norm'ed features whose inputs ``raw`` agree
+    within ``atol``: seq_norm divides each channel of a chunk by its std
+    over the chunk's frames, so an entry y may move by (2 + |y|) atol / std
+    (a 1-frame chunk gives zeros: atol)."""
+    parts = []
+    for t in range(0, raw.shape[1], frames):
+        r = raw[:, t:t + frames]
+        std = r.std(axis=1, ddof=1, keepdims=True) if r.shape[1] > 1 \
+            else np.ones((1, 1, r.shape[2]))
+        parts.append(atol * (2 + np.abs(normed[:, t:t + frames]))
+                     / np.maximum(std, 1e-3))
+    return np.concatenate(parts, axis=1)
+
+
+def lane_batches(n_chunks, n_lanes: int) -> int:
+    """The batches build_features_batched dispatches for files of
+    ``n_chunks`` chunks: each lane takes the next file as it frees."""
+    pending, lanes, batches = list(n_chunks), [0] * n_lanes, 0
+    while pending or any(lanes):
+        for i in range(n_lanes):
+            if not lanes[i] and pending:
+                lanes[i] = pending.pop(0)
+        lanes = [max(0, n - 1) for n in lanes]
+        batches += 1
+    return batches
+
+
+def phase_features(tmp: str, runs: dict, dev: torch.device) -> int:
+    """build_features_batched over FEATURE_FILES ragged files in
+    FEATURE_LANES lanes of 64000-sample chunks, each file's features held
+    against per-file build_feature on the card: with keep_hidden, without
+    it, with get_encoded and with seq_norm (its tolerance scaled by each
+    chunk's per-channel std, which it divides by), for the bf16 and the
+    float32 export; K1's forward runs its cluster body once a batch of
+    chunks at B 8; seconds of audio a second for both paths.  Returns the
+    bf16 batched run's K1 launches."""
+    from cpc_audio_tpu_torch.feature_loader import (FeatureModule,
+                                                    build_feature,
+                                                    build_features_batched,
+                                                    load_model)
+    from cpc_audio_tpu_torch._common import compute_dtype
+    from cpc_audio_tpu_torch.ops import lstm
+    paths = feature_files(tmp)
+    samples = [(os.path.getsize(p) - 44) // 2 for p in paths]  # 16-bit PCM
+    chunks = [-(-n // 64000) for n in samples]
+    seconds = sum(samples) / 16000
+    n_batches = lane_batches(chunks, FEATURE_LANES)
+    launches = 0
+    for dtype, out in runs.items():
+        model, _, _ = load_model([os.path.join(out, "checkpoint_0.pt")])
+        raw = None
+        for keep, enc, norm in ((True, False, False), (False, False, False),
+                                (True, True, False), (True, False, True)):
+            fm = FeatureModule(model, get_encoded=enc, keep_hidden=keep)
+            fns = reset_counts()
+            got = dict(build_features_batched(fm, paths, FEATURE_LANES,
+                                              seq_norm=norm))
+            what = (f"{dtype} keep_hidden={keep} get_encoded={enc} "
+                    f"seq_norm={norm}")
+            if keep and not enc and not norm:
+                check_body(fns, f"build_features_batched {dtype}", n_batches,
+                           lstm.fwd_body(256, compute_dtype(dtype)),
+                           "lstm_fwd")
+                if dtype == "bfloat16":
+                    launches = fns["lstm_fwd"].launches
+            want = [build_feature(fm, p, seq_norm=norm) for p in paths]
+            if keep and not enc and not norm:
+                raw = want
+            worst = 0.0
+            for i, w in enumerate(want):
+                g = got.get(i)
+                if g is None or g.shape != w.shape or \
+                        not np.isfinite(g).all():
+                    fail(f"build_features_batched {what}: file {i} gave "
+                         f"{None if g is None else g.shape}, not {w.shape}")
+                tol = seq_norm_tolerance(raw[i], w, FEATURE_ATOL[dtype]) \
+                    if norm else FEATURE_ATOL[dtype]
+                excess = np.abs(g - w) / tol
+                worst = max(worst, float(excess.max()))
+            print(f"build_features_batched {what}: {FEATURE_FILES} files "
+                  f"({seconds:.1f} s of audio, {sum(chunks)} chunks, "
+                  f"{n_batches} batches of {FEATURE_LANES} lanes) against "
+                  f"build_feature: worst |err| / tolerance {worst:.3f}",
+                  flush=True)
+            if worst > 1.0:
+                fail(f"build_features_batched {what} disagrees with "
+                     f"build_feature")
+        feature_rates(FeatureModule(model, keep_hidden=True), paths,
+                      seconds, dtype)
+        del model
+        torch.cuda.empty_cache()
+    return launches
+
+
+def feature_rates(fm, paths: list, seconds: float, dtype: str) -> None:
+    """Seconds of audio a second (host clock, decode and read-back
+    included) of build_features_batched and of per-file build_feature over
+    ``paths``, warm, in turns (batched, per file, per file, batched); the
+    decode alone; and the device's busy share during one batched pass
+    (torch.profiler: the kernels' device time over the pass's wall
+    time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cpc_audio_tpu_torch.data.audio_io import decode_file
+    from cpc_audio_tpu_torch.feature_loader import (build_feature,
+                                                    build_features_batched)
+    runs = {"batched": lambda: list(build_features_batched(
+                fm, paths, FEATURE_LANES)),
+            "per file": lambda: [build_feature(fm, p) for p in paths],
+            "decode": lambda: [decode_file(p) for p in paths]}
+    rate = {k: [] for k in runs}
+    for who in ("batched", "per file", "per file", "batched", "decode"):
+        t0 = time.perf_counter()
+        runs[who]()
+        torch.cuda.synchronize()
+        rate[who].append(seconds / (time.perf_counter() - t0))
+    busy = {}
+    for who in ("batched", "per file"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            runs[who]()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        device = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA) / 1e6
+        busy[who] = (device, device / wall)
+    line = (f"feature extraction, {dtype}, --hiddenGar 256, {FEATURE_FILES} "
+            f"files of 3-9 s ({seconds:.1f} s of audio): "
+            f"{statistics.mean(rate['batched']):.1f} s of audio a second "
+            f"batched ({FEATURE_LANES} lanes; "
+            f"{' / '.join(f'{r:.1f}' for r in rate['batched'])}), "
+            f"{statistics.mean(rate['per file']):.1f} per file "
+            f"(build_feature; "
+            f"{' / '.join(f'{r:.1f}' for r in rate['per file'])}), in turns, "
+            f"host clock; decode alone {rate['decode'][0]:.1f}; device "
+            f"busy {busy['batched'][1]:.1%} of a batched pass "
+            f"({busy['batched'][0] * 1e3:.2f} ms of kernels), "
+            f"{busy['per file'][1]:.1%} of a per-file one "
+            f"({busy['per file'][0] * 1e3:.2f} ms; torch.profiler)")
+    SUMMARY[f"features {dtype}"] = line
+    print(f"{line} on {gpu_line()}", flush=True)
+
+
+def phase_hub(tmp: str, runs: dict, dev: torch.device) -> None:
+    """cpc_audio(pretrained=True) from a {"config", "weights"} file written
+    from the bf16 run's export, on cuda:0: the features of load_model."""
+    from cpc_audio_tpu_torch import hub
+    from cpc_audio_tpu_torch.feature_loader import load_model
+    out = runs["bfloat16"]
+    exported = os.path.join(out, "checkpoint_0.torch.pt")
+    with open(os.path.join(out, "checkpoint_args.json")) as f:
+        config = json.load(f)
+    path = os.path.join(tmp, "pretrained.pt")
+    torch.save({"config": config, "weights": torch.load(
+        exported, weights_only=True)["gEncoder"]}, path)
+    model = hub.cpc_audio(pretrained=True, checkpoint_path=path)
+    if next(model.parameters()).device != dev:
+        fail("the hub's model is not on cuda:0")
+    batch = torch.from_numpy(synthetic_audio(20480, 4, SEED + 17)).to(dev)
+    got = model_features(model, batch)
+    want = model_features(load_model([exported])[0], batch)
+    print(f"hub cpc_audio(pretrained=True) against load_model of the "
+          f"export: bit-identical {torch.equal(got, want)}", flush=True)
+    if not torch.equal(got, want):
+        fail("the hub's features differ from load_model's")
+
+
+def phone_labels(db: str, path: str, n_phones: int = 20) -> None:
+    """Synthetic frame-aligned labels (runs of 2-12 frames) for every WAV
+    under ``db``, one line a file."""
+    rng = np.random.default_rng(SEED + 23)
+    with open(path, "w") as f:
+        for d, _, names in sorted(os.walk(db)):
+            for name in sorted(names):
+                if not name.endswith(".wav"):
+                    continue
+                with wave.open(os.path.join(d, name)) as w:
+                    frames = w.getnframes() // 160
+                runs = rng.integers(2, 13, size=frames)
+                lab = np.repeat(rng.integers(0, n_phones, size=frames),
+                                runs)[:frames]
+                f.write(os.path.splitext(name)[0] + " "
+                        + " ".join(map(str, lab)) + "\n")
+
+
+def phase_supervised(tmp: str, db: str, dev: torch.device) -> None:
+    """One CLI epoch each of --supervised --pathPhone, the same with --CTC
+    and --supervised alone (speaker) in bf16: finite losses, K1's forward
+    and backward counted; then the phone probe at the CLI's default float32,
+    whose first step is held against the same step on the CPU."""
+    from cpc_audio_tpu_torch import train
+    phones = os.path.join(tmp, "phones.txt")
+    phone_labels(db, phones)
+    k1 = ("lstm_fwd", "lstm_bwd")
+    for extra in (["--pathPhone", phones], ["--pathPhone", phones, "--CTC"],
+                  []):
+        out = os.path.join(tmp, f"supervised_{len(extra)}")
+        what = "--supervised " + " ".join(
+            "<labels>" if e == phones else e for e in extra)
+        _run_cli(train, default_argv(db, out, "bfloat16", "--supervised",
+                                     *extra), what, k1)
+        with open(os.path.join(out, "checkpoint_logs.json")) as f:
+            logs = json.load(f)
+        loss = np.asarray(logs["locLoss_train"], np.float64)
+        acc = np.asarray(logs["locAcc_train"], np.float64)
+        print(f"train CLI {what}: train loss {loss.ravel().round(4)}, "
+              f"acc {acc.ravel().round(4)}", flush=True)
+        if loss.shape != (1, 1) or not np.isfinite(loss).all():
+            fail(f"train CLI {what}: losses {loss}")
+    results, relu, tails = [], {}, []
+    with cli_first_step_on_cpu(dev, results, relu, tails):
+        _run_cli(train, default_argv(
+            db, os.path.join(tmp, "supervised_f32"), "float32",
+            "--supervised", "--pathPhone", phones),
+            "--supervised --pathPhone <labels> --compute_dtype float32", k1)
+    if len(results) != 2:
+        fail(f"the phone probe's first step ran {len(results)} times, not "
+             f"on the card and on the CPU")
+    compare_train_steps("train CLI phone probe", results, relu, tails)
+
+
+def phase_interchange(tmp: str, dev: torch.device) -> int:
+    """Checkpoint interchange, lane-packed features, the hub and the
+    supervised criteria at the default architecture, on phase_cli's WAV
+    tree; returns the K1 launches of the bf16 batched features."""
+    db = os.path.join(tmp, "db")
+    t0 = time.time()
+    runs = phase_export(tmp, db, dev)
+    launches = phase_features(tmp, runs, dev)
+    phase_hub(tmp, runs, dev)
+    phase_supervised(tmp, db, dev)
+    print(f"[phase interchange {time.time() - t0:.1f} s]", flush=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs only on a GPU")
@@ -2983,7 +3466,8 @@ def main() -> None:
     t0 = time.time()
     with tempfile.TemporaryDirectory() as tmp:
         phase_cli(tmp, dev)
-    print(f"[phase train CLI {time.time() - t0:.1f} s]", flush=True)
+        print(f"[phase train CLI {time.time() - t0:.1f} s]", flush=True)
+        launches["lstm_fwd_features"] = phase_interchange(tmp, dev)
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], "launches": launches[name],
                 **timings[name]} for name in SOURCES]

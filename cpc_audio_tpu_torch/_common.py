@@ -48,3 +48,17 @@ def precision_policy() -> None:
     is idempotent."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the first CUDA device, and raises where there is
+    none: the port's entry points (the trainer, ``load_model``, the hub)
+    run on the card unless the caller asks for another device."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port's entry points run on the GPU; pass "
+            "device='cpu' (train.main(argv, device='cpu')) to run the "
+            "plain versions on the CPU")
+    return torch.device("cuda", 0)

@@ -5,14 +5,26 @@ Same directory contract as the JAX package: ``checkpoint_<epoch>.pt``
 beside the sidecars ``checkpoint_logs.json`` and ``checkpoint_args.json``.
 A checkpoint is a ``torch.save`` zip holding the state dicts of the model
 (``gEncoder``), the criterion (``cpcCriterion``), the optimizer
-(``optimizer``) and the best model so far (``best``).  Loading a JAX-format
-checkpoint (a plain pickle) raises: ROADMAP Queue 1 item 8.
+(``optimizer``) and the best model so far (``best``).
+
+``load_checkpoint`` reads three formats and marks each in ``"format"``:
+
+* the port's own (``FORMAT``);
+* the JAX package's pickle (``JAX_FORMAT``, version ``JAX_FORMAT_VERSION``)
+  of numpy trees: ``gEncoder`` and ``cpcCriterion`` parameter trees, the
+  optax state ``optimizer`` and ``best``.  It is read without JAX, flax or
+  optax: :class:`_JaxFreeUnpickler` turns their classes into plain
+  tuples and dicts, and refuses every class it does not know by name;
+* a reference-layout torch checkpoint (``"torch"``), as the reference
+  trainer and ``convert.export_torch_checkpoint`` write it.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import os
+import pickle
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -20,6 +32,10 @@ import torch
 from .config import CPCConfig, TrainConfig
 
 FORMAT = "cpc_audio_tpu_torch"
+JAX_FORMAT = "cpc_audio_tpu"
+# the JAX package's FORMAT_VERSION: v2 stores linear and recurrent kernels
+# (in, out); v1 checkpoints are refused, as the JAX package refuses them
+JAX_FORMAT_VERSION = 2
 
 # resume must not override run-control attributes (the JAX package's
 # FORBIDDEN_RESUME_ATTRS, nEpoch included so a run can be extended)
@@ -42,18 +58,69 @@ def save_checkpoint(model: torch.nn.Module, criterion: torch.nn.Module,
     os.replace(tmp, path)
 
 
+# what a JAX-format pickle may name besides the JAX stack's classes: the
+# numpy arrays of its leaves (np.asarray of every leaf, JAX's
+# to_numpy_tree), under numpy 1's and numpy 2's module names
+_PICKLE_ALLOWED = {
+    ("numpy", "ndarray"), ("numpy", "dtype"),
+    ("numpy.core.multiarray", "_reconstruct"),
+    ("numpy._core.multiarray", "_reconstruct"),
+    ("numpy.core.multiarray", "scalar"), ("numpy._core.multiarray", "scalar"),
+}
+_JAX_STACK = ("jax", "jaxlib", "flax", "optax")
+
+
+def _stand_in(module: str, name: str):
+    """A plain stand-in for a class of the JAX stack: flax's FrozenDict
+    becomes a dict, anything else (optax's state NamedTuples, such as
+    ``ScaleByAdamState(count, mu, nu)`` and ``EmptyState()``) a tuple of
+    its fields in order."""
+    if name == "FrozenDict":
+        return dict
+
+    class StandIn(tuple):
+        def __new__(cls, *fields):
+            return tuple(fields)
+    StandIn.__name__ = StandIn.__qualname__ = name
+    return StandIn
+
+
+class _JaxFreeUnpickler(pickle.Unpickler):
+    """Reads the JAX package's checkpoint pickle without importing JAX,
+    flax or optax (see :func:`_stand_in`); refuses any other class."""
+
+    def find_class(self, module: str, name: str):
+        if module.split(".")[0] in _JAX_STACK:
+            return _stand_in(module, name)
+        if (module, name) in _PICKLE_ALLOWED:
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"refusing to load {module}.{name} from a checkpoint pickle")
+
+
 def load_checkpoint(path: str) -> Dict[str, Any]:
-    """Load a checkpoint of the port (tensors and containers only)."""
+    """Load a checkpoint of any of the three formats (module doc), on the
+    CPU.  A JAX-format pickle older than ``JAX_FORMAT_VERSION`` raises."""
     with open(path, "rb") as f:
-        head = f.read(4)
-    if head != b"PK\x03\x04":        # not a torch.save zip: JAX pickle
-        raise NotImplementedError(
-            f"{path} is not a checkpoint of the port; loading JAX-format "
-            f"checkpoints is ROADMAP Queue 1 item 8")
-    data = torch.load(path, map_location="cpu", weights_only=True)
+        raw = f.read()
+    if raw[:4] != b"PK\x03\x04":        # not a torch.save zip: JAX pickle
+        data = _JaxFreeUnpickler(io.BytesIO(raw)).load()
+        if not isinstance(data, dict) or data.get("format") != JAX_FORMAT:
+            raise ValueError(f"{path} is not a checkpoint: neither a torch "
+                             f"zip nor a pickle of format {JAX_FORMAT!r}")
+        version = data.get("version", 1)
+        if version < JAX_FORMAT_VERSION:
+            raise ValueError(
+                f"{path} uses checkpoint format v{version} "
+                f"(pre-transposed-kernel layout); this build reads "
+                f"v{JAX_FORMAT_VERSION}. Re-train or re-export the "
+                f"checkpoint.")
+        return data
+    data = torch.load(io.BytesIO(raw), map_location="cpu", weights_only=True)
+    if not isinstance(data, dict):
+        raise ValueError(f"{path}: a torch file, but not a checkpoint dict")
     if data.get("format") != FORMAT:
-        raise ValueError(f"{path}: unknown checkpoint format "
-                         f"{data.get('format')!r}")
+        data = dict(data, format="torch")        # reference layout
     return data
 
 

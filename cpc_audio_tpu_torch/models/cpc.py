@@ -12,7 +12,7 @@ and the AR's kernels.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -118,6 +118,41 @@ class CPCModel(nn.Module):
         z = self.gEncoder(batch, self.dtype)             # (B, S, C)
         c, hidden_out = self.gAR(z, hidden, train, seed)
         return c, z, label, hidden_out
+
+
+class ConcatenatedModel(nn.Module):
+    """Several CPC models side by side (cpc_audio_tpu/models/cpc.py
+    :85-117): each runs on the same batch, their contexts and encodings
+    are concatenated on the channel axis, and the hidden state is a list
+    with one entry per model.  Built by ``feature_loader.load_model`` for
+    several checkpoints; the models are ``model0``, ``model1``, ... as in
+    the JAX package's tree."""
+
+    def __init__(self, models: Sequence[CPCModel]):
+        super().__init__()
+        self.n_models = len(models)
+        for i, m in enumerate(models):
+            setattr(self, f"model{i}", m)
+
+    @property
+    def models(self) -> List[CPCModel]:
+        return [getattr(self, f"model{i}") for i in range(self.n_models)]
+
+    def zero_state(self, batch: int, device) -> list:
+        return [m.zero_state(batch, device) for m in self.models]
+
+    def forward(self, batch: torch.Tensor, label=None, hidden=None,
+                train: bool = False, seed: Optional[torch.Tensor] = None):
+        if hidden is None:
+            hidden = [None] * self.n_models
+        feats, encs, hids = [], [], []
+        for m, h in zip(self.models, hidden):
+            c, z, label, h_out = m(batch, label, h, train, seed)
+            feats.append(c)
+            encs.append(z)
+            hids.append(h_out)
+        return (torch.cat(feats, dim=2), torch.cat(encs, dim=2), label,
+                hids)
 
 
 def build_model(config: CPCConfig,

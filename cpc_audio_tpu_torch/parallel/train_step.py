@@ -18,6 +18,10 @@
   feeds every dropout of the step (the transformer AR's and the heads'),
   kept apart by the sites of ``ops/dropout.py``; the negatives' seed feeds
   the exact and rolled samplers' indices (``dropout.negative_indices``).
+* ``labels`` (the loader's, numpy or torch) go to the criterion: the
+  supervised criteria need them (speaker ids (B,), or frame-aligned phones
+  (B, sizeWindow // 160)); the CPC criterion is called with None, as
+  before, when they are not given.
 """
 
 from __future__ import annotations
@@ -87,15 +91,22 @@ def step_streams(key: torch.Tensor, step: torch.Tensor
     return seed, words[:ROUNDS], words[ROUNDS:]
 
 
-def _to_device(batch, device: torch.device) -> torch.Tensor:
+def _to_device(batch, device: torch.device,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
     if isinstance(batch, np.ndarray):
         batch = torch.from_numpy(batch)
-    return batch.to(device=device, dtype=torch.float32, non_blocking=True)
+    return batch.to(device=device, dtype=dtype, non_blocking=True)
+
+
+def _labels(labels, device: torch.device) -> Optional[torch.Tensor]:
+    return None if labels is None else _to_device(labels, device,
+                                                  torch.int64)
 
 
 def make_train_step(state: TrainState, device) -> Callable:
     """``train_step(batch, hidden=None, key=None, round_keys=None,
-    negatives=None) -> (hidden, {"losses": (K,), "acc": (K,)})``.
+    negatives=None, labels=None) -> (hidden, {"losses": (K,), "acc":
+    (K,)})`` (K = 1 for a supervised criterion).
 
     One forward (``train=True``), backward of ``losses.sum()`` and Adam
     step on ``state``; ``state.step`` advances by one.  ``key`` is the
@@ -108,9 +119,10 @@ def make_train_step(state: TrainState, device) -> Callable:
 
     def train_step(batch, hidden=None, key: Optional[torch.Tensor] = None,
                    round_keys: Optional[torch.Tensor] = None,
-                   negatives: Optional[Tuple[torch.Tensor, ...]] = None
-                   ) -> Tuple[object, Dict[str, torch.Tensor]]:
+                   negatives: Optional[Tuple[torch.Tensor, ...]] = None,
+                   labels=None) -> Tuple[object, Dict[str, torch.Tensor]]:
         batch = _to_device(batch, device)
+        labels = _labels(labels, device)
         if key is None:
             key = torch.zeros(1, dtype=torch.int64, device=device)
         seed, keys, neg_seed = step_streams(key, state.step)
@@ -119,9 +131,9 @@ def make_train_step(state: TrainState, device) -> Callable:
         state.optimizer.zero_grad(set_to_none=True)
         state.model.train()
         state.criterion.train()
-        c, z, _, hid = state.model(batch, None, hidden, train=True,
-                                   seed=seed)
-        losses, acc = state.criterion(c, z, None, train=True,
+        c, z, labels, hid = state.model(batch, labels, hidden, train=True,
+                                        seed=seed)
+        losses, acc = state.criterion(c, z, labels, train=True,
                                       round_keys=keys, seed=seed,
                                       neg_seed=neg_seed, negatives=negatives)
         losses.sum().backward()
@@ -135,8 +147,8 @@ def make_train_step(state: TrainState, device) -> Callable:
 def make_val_step(model: torch.nn.Module, criterion: torch.nn.Module,
                   device: torch.device) -> Callable:
     """``val_step(batch, hidden=None, generator=None, round_keys=None,
-    neg_seed=None, negatives=None) -> (hidden, {"losses": (K,), "acc":
-    (K,)})``.
+    neg_seed=None, negatives=None, labels=None) -> (hidden, {"losses":
+    (K,), "acc": (K,)})``.
 
     ``batch`` (B, 1, T) float waveforms, numpy or torch; ``generator``
     draws the negative samplers' round keys and negatives' seed unless
@@ -151,12 +163,13 @@ def make_val_step(model: torch.nn.Module, criterion: torch.nn.Module,
                  generator: Optional[torch.Generator] = None,
                  round_keys: Optional[torch.Tensor] = None,
                  neg_seed: Optional[torch.Tensor] = None,
-                 negatives: Optional[Tuple[torch.Tensor, ...]] = None
-                 ) -> Tuple[object, Dict[str, torch.Tensor]]:
+                 negatives: Optional[Tuple[torch.Tensor, ...]] = None,
+                 labels=None) -> Tuple[object, Dict[str, torch.Tensor]]:
         batch = _to_device(batch, device)
+        labels = _labels(labels, device)
         with torch.inference_mode():
-            c, z, _, hid = model(batch, None, hidden)
-            losses, acc = criterion(c, z, None, generator=generator,
+            c, z, labels, hid = model(batch, labels, hidden)
+            losses, acc = criterion(c, z, labels, generator=generator,
                                     round_keys=round_keys, neg_seed=neg_seed,
                                     negatives=negatives)
         return hid, {"losses": losses, "acc": acc}

@@ -1,5 +1,5 @@
-"""CPC pretraining CLI of the port (cpc_audio_tpu/train.py:73-409), one
-device, unsupervised CPC criterion.
+"""CPC pretraining and supervised-probe CLI of the port
+(cpc_audio_tpu/train.py:37-409), one device.
 
 Same flags (the port's copy of the JAX package's config), data loader
 (its copy of the data package) and checkpoint directory contract as the
@@ -7,7 +7,11 @@ JAX trainer.  The step runs on the first CUDA device (the kernels), and
 raises where there is none; only a caller that asks for it with
 ``main(argv, device="cpu")`` runs on the CPU (the plain versions, as the
 tests do).  Loss and accuracy sums stay on the device and are read back
-at ``logging_step`` boundaries and at epoch end.
+at ``logging_step`` boundaries and at epoch end.  ``--supervised`` trains
+a speaker probe, with ``--pathPhone`` a phone probe (``--CTC``: the CTC
+one); ``--load`` and resume read checkpoints of the port, of the JAX
+package and of the reference; ``--export_torch`` writes a
+reference-format ``checkpoint_<epoch>.torch.pt`` beside each checkpoint.
 
 Usage:
     python -m cpc_audio_tpu_torch.train --pathDB <dir> [--pathTrain x.txt]
@@ -30,16 +34,40 @@ import numpy as np
 import torch
 
 from . import checkpoint as ckpt
-from ._common import precision_policy
+from . import convert
+from ._common import precision_policy, resolve_device
 from .config import (CPCConfig, TrainConfig, add_cpc_args,
                      config_from_namespace)
-from .criterion import build_criterion
-from .data import AudioBatchData, filter_seqs, find_all_seqs
+from .criterion import (CTCPhoneCriterion, PhoneCriterion,
+                        SpeakerCriterion, build_criterion)
+from .data import (AudioBatchData, filter_seqs, find_all_seqs,
+                   parse_seq_labels)
 from .models import build_model
 from .parallel.train_step import (TrainState, create_train_state, epoch_key,
                                   make_train_step, make_val_step,
                                   step_streams)
 from .utils import misc as utils
+
+
+def get_criterion(config: CPCConfig, train_config: TrainConfig,
+                  n_speakers: int, n_phones: int,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.nn.Module:
+    """Criterion routing (cpc_audio_tpu/train.py:37-64): the CPC criterion
+    unless ``--supervised``; then a phone probe with ``--pathPhone`` (CTC
+    with ``--CTC``), else a speaker probe, on the context (hiddenGar) or,
+    with ``--onEncoder``, the encoding."""
+    if not train_config.supervised:
+        return build_criterion(config, generator)
+    dim = config.hiddenEncoder if config.onEncoder else config.hiddenGar
+    if train_config.pathPhone is not None:
+        if not train_config.CTC:
+            return PhoneCriterion(dim, n_phones, config.onEncoder,
+                                  n_layers=config.nLevelsPhone,
+                                  generator=generator)
+        return CTCPhoneCriterion(dim, n_phones, config.onEncoder,
+                                 generator=generator)
+    return SpeakerCriterion(dim, n_speakers, generator=generator)
 
 
 def _read_back(sums: Dict[str, torch.Tensor]) -> Tuple[np.ndarray, ...]:
@@ -48,16 +76,19 @@ def _read_back(sums: Dict[str, torch.Tensor]) -> Tuple[np.ndarray, ...]:
 
 
 def train_epoch(loader, train_step, hidden, key: torch.Tensor,
-                logging_step: int) -> Tuple[dict, object]:
-    """One epoch (cpc_audio_tpu/train.py:73-127)."""
+                logging_step: int, use_labels: bool = False
+                ) -> Tuple[dict, object]:
+    """One epoch (cpc_audio_tpu/train.py:73-127); the loader's labels go
+    to the criterion with ``use_labels`` (the supervised criteria)."""
     start_time = time.perf_counter()
     n_examples = 0
     logs, last_logs = {}, None
     dev_sums = None
     it = 0
-    for step, (batch, _) in enumerate(loader):
+    for step, (batch, labels) in enumerate(loader):
         n_examples += batch.shape[0]
-        hidden, metrics = train_step(batch, hidden, key)
+        hidden, metrics = train_step(batch, hidden, key,
+                                     labels=labels if use_labels else None)
         dev_sums = metrics if dev_sums is None else \
             {k: dev_sums[k] + metrics[k] for k in dev_sums}
         it += 1
@@ -82,8 +113,8 @@ def train_epoch(loader, train_step, hidden, key: torch.Tensor,
     return logs, hidden
 
 
-def val_epoch(loader, val_step, hidden, key: torch.Tensor
-              ) -> Tuple[dict, object]:
+def val_epoch(loader, val_step, hidden, key: torch.Tensor,
+              use_labels: bool = False) -> Tuple[dict, object]:
     """Validation pass (cpc_audio_tpu/train.py:130-150): the round keys
     and negatives' seed of batch ``step`` derive from (key, step) on the
     device."""
@@ -91,10 +122,11 @@ def val_epoch(loader, val_step, hidden, key: torch.Tensor
     dev_sums = None
     it = 0
     step = torch.zeros((), dtype=torch.int64, device=key.device)
-    for batch, _ in loader:
+    for batch, labels in loader:
         _, keys, neg_seed = step_streams(key, step)
         hidden, metrics = val_step(batch, hidden, round_keys=keys,
-                                   neg_seed=neg_seed)
+                                   neg_seed=neg_seed,
+                                   labels=labels if use_labels else None)
         dev_sums = metrics if dev_sums is None else \
             {k: dev_sums[k] + metrics[k] for k in dev_sums}
         step += 1
@@ -166,11 +198,12 @@ def run(train_dataset: AudioBatchData, val_dataset: AudioBatchData,
                       if epoch == start_epoch else None):
             loc_logs_train, hidden = train_epoch(
                 train_loader, train_step, hidden, ekey,
-                logs["logging_step"])
+                logs["logging_step"], train_config.supervised)
         n_windows = loc_logs_train["iter"] * batch_size
         print(f"epoch throughput: "
               f"{n_windows / (time.perf_counter() - t0):.1f} windows/s")
-        loc_logs_val, hidden = val_epoch(val_loader, val_step, hidden, vkey)
+        loc_logs_val, hidden = val_epoch(val_loader, val_step, hidden, vkey,
+                                         train_config.supervised)
         print(f"Ran {epoch + 1} epochs "
               f"in {time.time() - start_time:.2f} seconds")
 
@@ -202,49 +235,19 @@ def run(train_dataset: AudioBatchData, val_dataset: AudioBatchData,
                 state.model, state.criterion, state.optimizer, best_state,
                 int(state.step),
                 os.path.join(path_checkpoint, f"checkpoint_{epoch}.pt"))
+            if train_config.export_torch:
+                convert.export_torch_checkpoint(
+                    state.model, config, os.path.join(
+                        path_checkpoint, f"checkpoint_{epoch}.torch.pt"))
             utils.save_logs(logs, os.path.join(path_checkpoint,
                                                "checkpoint_logs.json"))
 
 
 def _refuse_unported(train_config: TrainConfig) -> None:
-    unported = [
-        (train_config.supervised or train_config.pathPhone is not None,
-         "--supervised / --pathPhone (supervised criteria): ROADMAP Queue 1 "
-         "item 10"),
-        (train_config.nGPU > 1 or train_config.distributed,
-         "--nGPU > 1 / --distributed (multi-GPU): ROADMAP Queue 1 item 12"),
-        (train_config.export_torch,
-         "--export_torch (reference-format export): ROADMAP Queue 1 item 8"),
-    ]
-    for refused, what in unported:
-        if refused:
-            raise NotImplementedError(f"{what} is not ported yet")
-
-
-def _load_into(state: TrainState, path: str, load_criterion: bool,
-               load_optimizer: bool) -> None:
-    data = ckpt.load_checkpoint(path)
-    state.model.load_state_dict(data["gEncoder"])
-    if load_criterion:
-        state.criterion.load_state_dict(data["cpcCriterion"])
-    if load_optimizer:
-        state.optimizer.load_state_dict(data["optimizer"])
-        for group in state.optimizer.param_groups:
-            group["lr"] = state.lr      # keep the one device lr tensor
-        state.step.fill_(data["step"])
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the first CUDA device, and raises where there is
-    none: the port's entry points run on the card unless the caller asks
-    for another device."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the port's trainer runs on the GPU; pass "
-            "device='cpu' to main() to run the plain versions on the CPU")
-    return torch.device("cuda", 0)
+    if train_config.nGPU > 1 or train_config.distributed:
+        raise NotImplementedError(
+            "--nGPU > 1 / --distributed (multi-GPU): ROADMAP Queue 1 item 12 "
+            "is not ported yet")
 
 
 def main(argv=None, device=None) -> int:
@@ -309,9 +312,14 @@ def main(argv=None, device=None) -> int:
     if train_config.debug:
         seq_train, seq_val = seq_train[:2000], seq_val[:2000]
 
+    phone_labels, n_phones = None, 0
+    if train_config.supervised and train_config.pathPhone is not None:
+        print("Loading the phone labels at " + train_config.pathPhone)
+        phone_labels, n_phones = parse_seq_labels(train_config.pathPhone)
+
     print(f"Loading audio data at {train_config.pathDB}")
     datasets = [AudioBatchData(
-        train_config.pathDB, cpc_config.sizeWindow, seqs, None,
+        train_config.pathDB, cpc_config.sizeWindow, seqs, phone_labels,
         len(speakers), n_process_loader=train_config.n_process_loader,
         max_size_loaded=train_config.max_size_loaded, seed=seed)
         for seqs in (seq_train, seq_val)]
@@ -323,14 +331,15 @@ def main(argv=None, device=None) -> int:
     # build_model sets hiddenGar for no_ar / transformer: the criterion and
     # the sidecar follow it (cpc_audio_tpu/train.py:373-376)
     cpc_config = model.config
-    criterion = build_criterion(cpc_config, gen)
+    criterion = get_criterion(cpc_config, train_config, len(speakers),
+                              n_phones, gen)
     state = create_train_state(model, criterion, device,
                                cpc_config.learningRate, cpc_config.beta1,
                                cpc_config.beta2, cpc_config.epsilon)
     if load_paths:
-        _load_into(state, load_paths[0],
-                   train_config.loadCriterion or load_optimizer,
-                   load_optimizer)
+        convert.load_state_into(state, load_paths[0], cpc_config,
+                                train_config.loadCriterion or load_optimizer,
+                                load_optimizer)
     if train_config.pathCheckpoint is not None:
         os.makedirs(train_config.pathCheckpoint, exist_ok=True)
         ckpt.save_args_sidecar(train_config.pathCheckpoint, cpc_config,

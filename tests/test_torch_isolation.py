@@ -150,3 +150,45 @@ def test_train_main_runs_on_the_gpu_or_raises():
             ttrain.resolve_device(None)
     # the CPU, asked for, gets as far as the data (no such directory)
     assert ttrain.main(argv, device="cpu") == 1
+
+
+def test_loading_a_jax_checkpoint_imports_no_jax(tmp_path):
+    """In a fresh interpreter the port loads a JAX-format checkpoint (its
+    pickle holds optax's state classes) into a model and a train state;
+    afterwards none of jax, flax, optax or the JAX package is imported."""
+    import subprocess
+    import sys
+
+    import jax
+    import optax
+    from cpc_audio_tpu.models import build_model as jbuild_model
+    cfg = jconfig.CPCConfig(hiddenEncoder=32, hiddenGar=32, nPredicts=2,
+                            negativeSamplingExt=4, sizeWindow=3200)
+    jmodel = jbuild_model(cfg)
+    params = jmodel.init({"params": jax.random.PRNGKey(0)},
+                         np.zeros((1, 1, 3200), np.float32))["params"]
+    opt = optax.chain(optax.scale_by_adam(), optax.scale(-1.0))
+    jckpt.save_checkpoint(params, {}, opt.init({"model": params,
+                                                "criterion": {}}),
+                          params, str(tmp_path / "checkpoint_0.pt"))
+    jckpt.save_args_sidecar(str(tmp_path), cfg)
+    script = f"""
+import sys
+from cpc_audio_tpu_torch.checkpoint import load_checkpoint
+from cpc_audio_tpu_torch.feature_loader import load_model
+path = {str(tmp_path / "checkpoint_0.pt")!r}
+data = load_checkpoint(path)
+assert data["format"] == "cpc_audio_tpu", data["format"]
+(count, mu, nu), empty = data["optimizer"]
+assert empty == () and set(mu) == {{"model", "criterion"}}
+model, hg, he = load_model([path], device="cpu")
+assert (hg, he) == (32, 32)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "cpc_audio_tpu"))
+assert not bad, bad
+print("ok")
+"""
+    r = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-2000:]
