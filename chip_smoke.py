@@ -160,6 +160,22 @@ Phases (any failure exits non-zero):
      written from the export; one bf16 CLI epoch each of --supervised
      --pathPhone, with --CTC and alone (speaker), and a float32 phone
      epoch whose first step is held against the CPU;
+  6c. the eval CLIs (phase_eval_clis), on 6b's default-architecture runs
+     and phase_features' 12 WAVs of 3-9 s (the first 9 s) in 3 speaker
+     directories: linear_separability for one bf16 epoch each frozen
+     (speaker, phone) and --unfrozen --CTC (K1 at B 8 / T 128: without
+     residuals and no backward when frozen, with residuals and the
+     backward unfrozen), and --unfrozen in float32 with its first step held
+     against the CPU; abx_cli from_checkpoint lane-packed, --strict and
+     --on_device (within 1e-5 of the host DTW); build_zerospeech_features
+     fea (lanes against per-file build_feature), npy --strict --seqNorm and
+     --addCriterion with the phone probe (both bit for bit); common_voices
+     train (--LSTM, fine-tuned, 2 epochs; K1 forward and backward at B 8 /
+     T 900, the model's and the head's) and per (a finite PER; K1 without
+     residuals at B 8 / T 900), and a float32 train whose first step is
+     held against the CPU; each CLI's seconds (phase 3 also holds K1 at
+     both shapes, forward with and without residuals and backward, in both
+     dtypes, beside cuDNN's nn.LSTM in turns);
   7. print build_feature's latency again, one JSON line of per-kernel
      results (each kernel's launches from its own path's train run; the
      rows forwards' from the --hiddenGar 200 LSTM path and GRU model),
@@ -174,6 +190,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import glob
 import io
 import json
 import os
@@ -183,6 +200,7 @@ import sys
 import tempfile
 import time
 import wave
+from collections import Counter
 
 import numpy as np
 import torch
@@ -499,6 +517,7 @@ def kernel_cases(dev: torch.device, dtype: torch.dtype, B: int = 32):
     cases += recurrent_cases(rand, dev, CLUSTER_FWD_SHAPES + ROWS_FWD_SHAPES,
                              backward=False)
     cases += features_cases(rand)
+    cases += eval_cases(rand, dev)
     cases += repair_cases(rand, dev, seed, dtype)
     upd, keys, order, offsets, R = scatter_inputs(dev, dtype, B)
     cases.append(Case("scatter_add_rows", 0.0,
@@ -760,6 +779,41 @@ def features_cases(rand, B: int = 8, T: int = 400, H: int = 256):
                  shape=tag, label=f"lstm_fwd inference {tag}")]
 
 
+# K1 at the eval CLIs' shapes, the default --hiddenGar: the linear-
+# separability probe's B 8 windows of 20480 samples (T 128) and Common
+# Voice's B 8 whole utterances padded to the longest, 9 s (T 900)
+EVAL_SHAPES = (("probe", 8, 128, 256), ("cv", 8, 900, 256))
+
+
+def eval_cases(rand, dev: torch.device):
+    """K1 at each of EVAL_SHAPES: the forward with residuals (the unfrozen
+    probe's and the fine-tuning's train steps), without them (the frozen
+    probe, validation and per, under no_grad or inference_mode: its bound
+    counts x_proj, W_hh, h0, c0, ys, hT, cT only) and the backward, from a
+    non-zero h0 and c0; each case is the JSON line's entry ``case.entry``."""
+    from cpc_audio_tpu_torch.ops import lstm
+    cases = []
+    for cli, B, T, H in EVAL_SHAPES:
+        la, lba = recurrent_args(rand, dev, B, T, H)[:2]
+        tag = f"B {B} / T {T} / H {H}"
+        for name, entry, label, kernel, plain, inputs in (
+                ("lstm_fwd", f"lstm_fwd_{cli}", f"lstm_fwd train {tag}",
+                 lambda a=la: lstm.lstm_fwd(*a, save_residuals=True),
+                 lambda a=la: lstm.lstm_scan_ref(*a, save_residuals=True),
+                 la),
+                ("lstm_fwd", f"lstm_fwd_{cli}_inference",
+                 f"lstm_fwd inference {tag}", lambda a=la: lstm.lstm_fwd(*a),
+                 lambda a=la: lstm.lstm_scan_ref(*a), la),
+                ("lstm_bwd", f"lstm_bwd_{cli}", f"lstm_bwd {tag}",
+                 lambda a=lba: lstm.lstm_bwd(*a),
+                 lambda a=lba: lstm.lstm_bwd_ref(*a), lba)):
+            case = Case(name, 0.0, kernel, plain, inputs,
+                        2 * B * T * 4 * H * H, label=label, shape=tag)
+            case.entry = entry
+            cases.append(case)
+    return cases
+
+
 def recurrent_body(case: Case, dtype: torch.dtype):
     """The body a K1 / K4 case runs ("rows", "cluster" or "grid"), or None
     for the other kernels."""
@@ -1012,6 +1066,17 @@ SOURCES = {
     # H 256, from the lanes' carried state, without residuals
     "lstm_fwd_features": ("cpc_audio_tpu_torch/csrc/rnn_cluster_fwd.cuh",
                           "cpc_audio_tpu/ops/pallas/rnn.py:67"),
+    # K1 at the eval CLIs' shapes (EVAL_SHAPES), on the 16-CTA forward and
+    # the 8-CTA backward cluster bodies: the probe's B 8 / T 128 and Common
+    # Voice's B 8 / T 900, the forward with residuals (train) and without
+    # (inference)
+    **{f"lstm_{d}_{cli}{mode}": (
+        "cpc_audio_tpu_torch/csrc/" + ("rnn_cluster_fwd.cuh" if d == "fwd"
+                                       else "lstm_bwd.cu"),
+        "cpc_audio_tpu/ops/pallas/rnn.py:" + ("67" if d == "fwd" else "97"))
+       for cli in ("probe", "cv") for d, mode in (("fwd", ""),
+                                                  ("fwd", "_inference"),
+                                                  ("bwd", ""))},
 }
 
 # The train path runs K2, K3, K5 and K6 at dropout 0.1: the JSON line
@@ -1655,6 +1720,11 @@ def phase_kernels(dev: torch.device, B: int = 32) -> dict:
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
                     "library_ms": None}
+            if reported and hasattr(case, "entry"):
+                results[case.entry] = {
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                    "library_ms": None}
             if reported and case.shape is not None:
                 shaped[(name, case.shape)] = ms
             if reported and case.shape is None:
@@ -1696,6 +1766,13 @@ def phase_kernels(dev: torch.device, B: int = 32) -> dict:
             (f"{kind}_fwd", B_, H, torch.bfloat16)]
     rows_yardsticks(dev, H4096_SHAPES, warmup=1, reps=2)
     results["lstm_fwd_features"]["library_ms"] = features_yardstick(dev)
+    for cli, B_, T, H in EVAL_SHAPES:
+        results[f"lstm_fwd_{cli}_inference"]["library_ms"] = \
+            features_yardstick(dev, B_, T, H)
+        cudnn_ms = rows_yardsticks(dev, [("lstm", B_, H)], T=T)
+        for d in ("fwd", "bwd"):
+            results[f"lstm_{d}_{cli}"]["library_ms"] = cudnn_ms[
+                (f"lstm_{d}", B_, H, torch.bfloat16)]
     long_causal_yardsticks(dev)
     conv_composition_times(dev, B)
     block_composition_times(dev, B)
@@ -2805,11 +2882,11 @@ def kink_report(ar_mode: str, tails, g_g: dict, g_c: dict) -> None:
           f"its squared norm: " + "; ".join(units), flush=True)
 
 
-def _write_wav(path: str, samples: np.ndarray) -> None:
+def _write_wav(path: str, samples: np.ndarray, rate: int = 16000) -> None:
     with wave.open(path, "wb") as w:
         w.setnchannels(1)
         w.setsampwidth(2)
-        w.setframerate(16000)
+        w.setframerate(rate)
         w.writeframes((np.clip(samples, -1, 1) * 32767).astype("<i2")
                       .tobytes())
 
@@ -2831,55 +2908,14 @@ def _run_cli(train, argv, what: str, names):
     return lines
 
 
-@contextlib.contextmanager
 def cli_first_step_on_cpu(dev: torch.device, results: list, relu: dict,
                           tails: list):
     """While the train CLI runs: its first train step (the step
     ``train.main`` builds, under the policy it sets) runs as it is on the
-    card and, from a copy of the state taken just before, on the CPU with
-    the same batch and keys; each run's losses and gradients go to
-    ``results`` (card first), the encoder's ReLU inputs to ``relu`` and
-    the heads' K3 inputs to ``tails``, for compare_train_steps."""
+    card and, from a copy of the state, on the CPU (step_on_cpu_too)."""
     from cpc_audio_tpu_torch import train
-    from cpc_audio_tpu_torch.parallel.train_step import create_train_state
-    original = train.make_train_step
-
-    def cpu(x):
-        if isinstance(x, torch.Tensor):
-            return x.cpu()
-        if isinstance(x, (tuple, list)):
-            return type(x)(cpu(t) for t in x)
-        return x
-
-    def spy(state, device):
-        step = original(state, device)
-
-        def first(*args, **kw):
-            if results:
-                return step(*args, **kw)
-            cpu_state = create_train_state(
-                copy.deepcopy(state.model).cpu(),
-                copy.deepcopy(state.criterion).cpu(), "cpu")
-            out = None
-            for st, run, a, k in ((state, step, args, kw),
-                                  (cpu_state, original(cpu_state, "cpu"),
-                                   cpu(args), {n: cpu(v) for n, v in
-                                               kw.items()})):
-                with record_tail_inputs() as tail, \
-                        encoder_relu_kinks(st.model, relu):
-                    o = run(*a, **k)
-                tails.append(tail)
-                results.append((o[1]["losses"].float().cpu(),
-                                step_grads(st)))
-                out = o if out is None else out
-            return out
-        return first
-
-    train.make_train_step = spy
-    try:
-        yield
-    finally:
-        train.make_train_step = original
+    return step_on_cpu_too(train, "make_train_step",
+                           lambda o: o[1]["losses"], results, relu, tails)
 
 
 def phase_cli(tmp: str, dev: torch.device) -> None:
@@ -2973,7 +3009,7 @@ def phase_cli(tmp: str, dev: torch.device) -> None:
 # the ragged files of phase_features: 12 WAVs of 3-9 s, n_lanes lanes of
 # max_size_seq (64000-sample) chunks, the default --hiddenGar: K1's forward
 # at B 8 / T 400 / H 256 from the carried (non-zero) state
-FEATURE_FILES, FEATURE_LANES = 12, 8
+FEATURE_FILES, FEATURE_LANES, FEATURE_SPEAKERS = 12, 8, 3
 FEATURES_SHAPE = "B 8 / T 400 / H 256"
 # the CLI's tolerances for what the export and the lanes change: nothing in
 # float32 (same weights, same kernels, the same rows); in bf16 the batched
@@ -3106,16 +3142,22 @@ def phase_export(tmp: str, db: str, dev: torch.device) -> dict:
 
 
 def feature_files(tmp: str) -> list:
-    """FEATURE_FILES ragged WAVs of 3-9 s (tones plus noise)."""
+    """FEATURE_FILES ragged WAVs of 3-9 s (tones plus noise), the first
+    exactly 9 s, under FEATURE_SPEAKERS speaker directories of
+    ``tmp/features`` (a speaker's tone in its own band)."""
     rng = np.random.default_rng(SEED + 13)
     paths = []
-    os.makedirs(os.path.join(tmp, "features"), exist_ok=True)
     for i in range(FEATURE_FILES):
-        n = int(16000 * rng.uniform(3.0, 9.0))
+        spk = i % FEATURE_SPEAKERS
+        n = 144000 if i == 0 else int(16000 * rng.uniform(3.0, 9.0))
         t = np.arange(n) / 16000.0
-        x = 0.3 * np.sin(2 * np.pi * rng.uniform(100, 400) * t) \
+        f0 = 100 + 100 * spk + rng.uniform(0, 60)
+        x = 0.3 * np.sin(2 * np.pi * f0 * t) \
             + 0.05 * rng.standard_normal(n)
-        paths.append(os.path.join(tmp, "features", f"f{i:02d}.wav"))
+        os.makedirs(os.path.join(tmp, "features", f"spk{spk}"),
+                    exist_ok=True)
+        paths.append(os.path.join(tmp, "features", f"spk{spk}",
+                                  f"f{i:02d}.wav"))
         _write_wav(paths[-1], x)
     return paths
 
@@ -3345,10 +3387,11 @@ def phase_supervised(tmp: str, db: str, dev: torch.device) -> None:
     compare_train_steps("train CLI phone probe", results, relu, tails)
 
 
-def phase_interchange(tmp: str, dev: torch.device) -> int:
+def phase_interchange(tmp: str, dev: torch.device):
     """Checkpoint interchange, lane-packed features, the hub and the
     supervised criteria at the default architecture, on phase_cli's WAV
-    tree; returns the K1 launches of the bf16 batched features."""
+    tree; returns the K1 launches of the bf16 batched features and the
+    export runs' directories by dtype."""
     db = os.path.join(tmp, "db")
     t0 = time.time()
     runs = phase_export(tmp, db, dev)
@@ -3356,6 +3399,582 @@ def phase_interchange(tmp: str, dev: torch.device) -> int:
     phase_hub(tmp, runs, dev)
     phase_supervised(tmp, db, dev)
     print(f"[phase interchange {time.time() - t0:.1f} s]", flush=True)
+    return launches, runs
+
+
+# ---------------------------------------------------------------------------
+# The eval CLIs (cpc_audio_tpu_torch.eval) on the default architecture
+# ---------------------------------------------------------------------------
+
+class _K1Recorder:
+    """Stands in for K1's wrapper ``fn`` while a CLI runs: records the
+    shape of each call on the card in ``calls`` and calls the wrapper.
+    The wrapper counts through its module's name, which then names this
+    object, so ``launches`` and ``body_launches`` are the wrapper's own."""
+
+    def __init__(self, fn, shape_of):
+        self.fn, self.shape_of, self.calls = fn, shape_of, []
+
+    def __call__(self, first, *args, **kwargs):
+        if first.is_cuda:
+            self.calls.append(self.shape_of(first, *args, **kwargs))
+        return self.fn(first, *args, **kwargs)
+
+    launches = property(lambda self: self.fn.launches,
+                        lambda self, n: setattr(self.fn, "launches", n))
+    body_launches = property(lambda self: self.fn.body_launches)
+
+
+@contextlib.contextmanager
+def k1_calls():
+    """While a CLI runs: the shape of each K1 call on the card, (B, T, H,
+    residuals) of every forward and (B, T, H) of every backward; the calls
+    and their counts unchanged."""
+    from cpc_audio_tpu_torch.ops import lstm
+    fwd = _K1Recorder(lstm.lstm_fwd, lambda x_proj, w_hh, h0, c0,
+                      save_residuals=False: (*x_proj.shape[:2],
+                                             h0.shape[-1], save_residuals))
+    bwd = _K1Recorder(lstm.lstm_bwd, lambda gates, *args: (
+        *gates.shape[:2], gates.shape[-1] // 4))
+    lstm.lstm_fwd, lstm.lstm_bwd = fwd, bwd
+    try:
+        yield {"fwd": fwd.calls, "bwd": bwd.calls}
+    finally:
+        lstm.lstm_fwd, lstm.lstm_bwd = fwd.fn, bwd.fn
+
+
+def run_eval_cli(main, argv, what: str):
+    """One eval CLI on the card, its output captured: (seconds, output
+    lines, K1 calls by shape), the calls recorded held to the wrappers'
+    launch counts and the run's K1 bodies checked to be the cluster ones
+    at --hiddenGar 256."""
+    fns = reset_counts()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with k1_calls() as calls, contextlib.redirect_stdout(log):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    lines = log.getvalue().splitlines()
+    if rc != 0:
+        fail(f"{what} exited {rc}: {lines[-20:]}")
+    for n, d in (("lstm_fwd", "fwd"), ("lstm_bwd", "bwd")):
+        got = dict(fns[n].body_launches)
+        if sum(got.values()) != got["cluster"] or \
+                fns[n].launches != got["cluster"]:
+            fail(f"{what}: {n} ran bodies {got}, not the cluster body alone")
+        if len(calls[d]) != fns[n].launches:
+            fail(f"{what}: {len(calls[d])} {n} calls recorded on the card, "
+                 f"{fns[n].launches} launches counted")
+    print(f"{what}: rc 0 in {secs:.2f} s; K1 forward calls (B, T, H, "
+          f"residuals): {dict(Counter(calls['fwd']))}, backward calls: "
+          f"{dict(Counter(calls['bwd']))}", flush=True)
+    return secs, lines, calls
+
+
+@contextlib.contextmanager
+def step_on_cpu_too(module, factory: str, losses_of, results: list,
+                    relu: dict, tails: list):
+    """While a CLI of ``module`` runs: the first call of the train step
+    that ``module.<factory>`` makes (validation steps, ``train=False``,
+    aside) runs as it is on the card and, from a copy of the state taken
+    just before, on the CPU with the same arguments; each run's losses
+    (``losses_of(output)``) and gradients go to ``results`` (card first),
+    the encoder's ReLU inputs to ``relu`` and the heads' K3 inputs to
+    ``tails``, for compare_train_steps."""
+    from cpc_audio_tpu_torch.parallel.train_step import create_train_state
+    original = getattr(module, factory)
+
+    def cpu(x):
+        if isinstance(x, torch.Tensor):
+            return x.cpu()
+        if isinstance(x, (tuple, list)):
+            return type(x)(cpu(t) for t in x)
+        return x
+
+    def spy(state, device, *a, **kw):
+        step = original(state, device, *a, **kw)
+        if not kw.get("train", True):
+            return step
+
+        def first(*args, **skw):
+            if results:
+                return step(*args, **skw)
+            cpu_state = create_train_state(
+                copy.deepcopy(state.model).cpu(),
+                copy.deepcopy(state.criterion).cpu(), "cpu")
+            out = None
+            for st, run, ar, k in ((state, step, args, skw),
+                                   (cpu_state,
+                                    original(cpu_state, "cpu", *a, **kw),
+                                    cpu(args), {n: cpu(v) for n, v in
+                                                skw.items()})):
+                with record_tail_inputs() as tail, \
+                        encoder_relu_kinks(st.model, relu):
+                    o = run(*ar, **k)
+                tails.append(tail)
+                results.append((losses_of(o).float().cpu().reshape(-1),
+                                step_grads(st)))
+                out = o if out is None else out
+            return out
+        return first
+
+    setattr(module, factory, spy)
+    try:
+        yield
+    finally:
+        setattr(module, factory, original)
+
+
+def k1_count(calls: dict, shape, residuals=None) -> int:
+    """Calls at (B, T, H) ``shape``: forwards with (True) or without
+    (False) residuals, or backwards (None)."""
+    if residuals is None:
+        return sum(1 for c in calls["bwd"] if c == shape)
+    return sum(1 for c in calls["fwd"] if c == (*shape, residuals))
+
+
+def eval_lists(tmp: str, paths: list) -> dict:
+    """Train / val / all lists (file stems) over the ragged tree: val the
+    last file of each speaker, train the rest (the 9 s file among them)."""
+    stems = [os.path.splitext(os.path.basename(p))[0] for p in paths]
+    val = stems[-FEATURE_SPEAKERS:]
+    lists = {}
+    for name, part in (("train", [s for s in stems if s not in val]),
+                       ("val", val), ("all", stems)):
+        lists[name] = os.path.join(tmp, f"eval_{name}.txt")
+        with open(lists[name], "w") as f:
+            f.write("\n".join(part) + "\n")
+    return lists
+
+
+def phase_probes(tmp: str, db: str, lists: dict, runs: dict,
+                 launches: dict) -> str:
+    """linear_separability on the ragged tree: one bf16 epoch each of the
+    frozen speaker probe, the frozen phone probe and --unfrozen --CTC;
+    finite losses; K1's forward without residuals and no backward when
+    frozen, with residuals and the backward unfrozen (cluster bodies);
+    then the unfrozen speaker probe in float32, its first step held
+    against the CPU.  Returns the frozen phone probe's checkpoint."""
+    from cpc_audio_tpu_torch.eval import linear_separability as tls
+    phones = os.path.join(tmp, "eval_phones.txt")
+    phone_labels(db, phones)
+    shape = EVAL_SHAPES[0][1:]
+    probe_ckpt = None
+    for i, (what, extra) in enumerate((
+            ("frozen speaker", []), ("frozen phone", ["--pathPhone", phones]),
+            ("--unfrozen --CTC", ["--unfrozen", "--CTC", "--pathPhone",
+                                  phones]))):
+        out = os.path.join(tmp, f"probe_{i}")
+        secs, _, calls = run_eval_cli(tls.main, [
+            db, lists["train"], lists["val"],
+            os.path.join(runs["bfloat16"], "checkpoint_0.pt"),
+            "--pathCheckpoint", out, "--file_extension", ".wav",
+            "--n_epoch", "1", "--ignore_cache", "--random_seed",
+            str(SEED)] + extra, f"linear_separability {what}")
+        frozen = "--unfrozen" not in extra
+        with open(os.path.join(out, "checkpoint_logs.json")) as f:
+            logs = json.load(f)
+        loss = np.asarray(logs["locLoss_train"] + logs["locLoss_val"],
+                          np.float64)
+        train_fwd = k1_count(calls, shape, True)
+        infer_fwd = k1_count(calls, shape, False)
+        bwd = k1_count(calls, shape)
+        windows = 8 * (train_fwd + infer_fwd)
+        line = (f"linear_separability {what}, bf16: {secs:.2f} s for one "
+                f"epoch ({windows} windows of 20480 samples, train and val: "
+                f"{windows / secs:.1f} windows/s, host clock, loading "
+                f"included); losses {loss.ravel().round(4)}")
+        SUMMARY[f"probe {what}"] = line
+        print(line, flush=True)
+        if not np.isfinite(loss).all():
+            fail(f"linear_separability {what}: losses {loss}")
+        if frozen and (train_fwd or bwd or not infer_fwd
+                       or len(calls["fwd"]) != infer_fwd):
+            fail(f"the frozen probe ran K1 with residuals or its backward: "
+                 f"{calls}")
+        if not frozen and not (train_fwd and bwd == train_fwd):
+            fail(f"the unfrozen probe ran no K1 train forward and backward "
+                 f"at {shape}: {calls}")
+        if frozen:
+            launches["lstm_fwd_probe_inference"] = \
+                launches.get("lstm_fwd_probe_inference", 0) + infer_fwd
+        else:
+            launches["lstm_fwd_probe"], launches["lstm_bwd_probe"] = \
+                train_fwd, bwd
+        if what == "frozen phone":
+            probe_ckpt = os.path.join(out, "checkpoint_0.pt")
+    # the load of the phone probe's directory
+    from cpc_audio_tpu_torch.feature_loader import load_supervised_criterion
+    crit, n_phones = load_supervised_criterion(probe_ckpt)
+    print(f"load_supervised_criterion of the phone probe: "
+          f"{type(crit).__name__}, {n_phones} phones", flush=True)
+    results, relu, tails = [], {}, []
+    with step_on_cpu_too(tls, "make_probe_step", lambda o: o["losses"],
+                         results, relu, tails):
+        run_eval_cli(tls.main, [
+            db, lists["train"], lists["val"],
+            os.path.join(runs["float32"], "checkpoint_0.pt"),
+            "--pathCheckpoint", os.path.join(tmp, "probe_f32"),
+            "--file_extension", ".wav", "--n_epoch", "1", "--ignore_cache",
+            "--unfrozen", "--random_seed", str(SEED)],
+            "linear_separability --unfrozen, float32")
+    if len(results) != 2:
+        fail(f"the unfrozen probe's first step ran {len(results)} times")
+    compare_train_steps("unfrozen speaker probe", results, relu, tails)
+    return probe_ckpt
+
+
+def abx_item_file(db: str, path: str) -> None:
+    """A ZeroSpeech .item file over every WAV under ``db``: back-to-back
+    segments of 50-150 ms, each of one of 4 phones between 2 x 2
+    contexts, the speaker its directory's, so that within- and
+    across-speaker groups both exist."""
+    rng = np.random.default_rng(SEED + 31)
+    lines = ["#file onset offset #phone prev-phone next-phone speaker"]
+    for d, _, names in sorted(os.walk(db)):
+        for name in sorted(n for n in names if n.endswith(".wav")):
+            with wave.open(os.path.join(d, name)) as w:
+                dur = w.getnframes() / 16000
+            t = 0.05
+            while t + 0.2 < dur:
+                step = float(rng.uniform(0.05, 0.15))
+                lines.append(f"{os.path.splitext(name)[0]} {t:.3f} "
+                             f"{t + step:.3f} p{rng.integers(4)} "
+                             f"c{rng.integers(2)} c{rng.integers(2)} "
+                             f"{os.path.basename(d)}")
+                t += step
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+class _Groups:
+    """An ABX group iterator's groups, kept to be scored several times."""
+
+    def __init__(self, it):
+        self.groups, self.symmetric = list(it), it.symmetric
+        self.board = it.get_board_size()
+
+    def __iter__(self):
+        return iter(self.groups)
+
+    def get_board_size(self):
+        return self.board
+
+
+def abx_scoring_times(db: str, item: str, ckpt: str,
+                      dev: torch.device) -> None:
+    """ABX's scoring alone (cosine distances, DTW, theta; no extraction)
+    over the within and across groups of the CLI runs (their defaults:
+    groups of up to 10, 5 x across, seed 0) on ``ckpt``'s per-file
+    features: on the card (_scores_on_device), with the native host DTW
+    where its library loads, and with the host DTW in Python, in turns
+    (each way, then back in reverse order); host clock, the card's run
+    read back in full; each host way's scores within 1e-5 of the card's."""
+    from cpc_audio_tpu_torch.eval.abx import group_computation as abx_g
+    from cpc_audio_tpu_torch.eval.abx import iterators as abx_it
+    from cpc_audio_tpu_torch.feature_loader import (FeatureModule,
+                                                    build_feature,
+                                                    load_model)
+    from cpc_audio_tpu_torch.ops import native
+    fm = FeatureModule(load_model([ckpt])[0], keep_hidden=True)
+    seqs = [(os.path.splitext(os.path.basename(p))[0], p) for p in
+            sorted(glob.glob(os.path.join(db, "*", "*.wav")))]
+    data = abx_it.ABXFeatureLoader(item, seqs, lambda x: build_feature(fm, x),
+                                   100.0, True)
+    groups = [_Groups(abx_it.ABXWithinGroupIterator(data, 10)),
+              _Groups(abx_it.ABXAcrossGroupIterator(data, 10, max_x=5))]
+    pairs = sum(len(x[0]) * (len(a[0]) + len(b[0]))
+                for g in groups for _, a, b, x in g.groups)
+    ways = ["card"] + (["native"] if native.available() else []) \
+        + ["python"]
+    available = native.available
+
+    def score(way):
+        native.available = (lambda: False) if way == "python" else available
+        try:
+            return [abx_g.get_abx_scores_dtw_on_group(
+                g, abx_g.get_cosine_distance_batch, g.symmetric,
+                on_device=way == "card", device=dev)[1] for g in groups]
+        finally:
+            native.available = available
+    secs, values = {w: [] for w in ways}, {}
+    for way in ways + ways[::-1]:
+        t0 = time.perf_counter()
+        values[way] = np.concatenate(score(way))
+        secs[way].append(time.perf_counter() - t0)
+    err = {w: float(np.abs(values[w] - values["card"]).max())
+           for w in ways[1:]}
+    line = (f"ABX scoring alone, {len(groups[0].groups)} within + "
+            f"{len(groups[1].groups)} across groups, {pairs} DTW pairs, "
+            f"{os.cpu_count()} host cores, torch threads "
+            f"{torch.get_num_threads()}, in turns (host clock): "
+            + "; ".join(f"{w} {secs[w][0]:.3f} / {secs[w][1]:.3f} s"
+                        for w in ways)
+            + f"; the host ways' scores against the card's: max |err| {err}")
+    SUMMARY["abx scoring"] = line
+    print(line, flush=True)
+    if max(err.values()) > 1e-5:
+        fail("ABX scoring on the card disagrees with the host DTW")
+    del fm
+    torch.cuda.empty_cache()
+
+
+def phase_abx(tmp: str, db: str, runs: dict, dev: torch.device) -> None:
+    """abx_cli from_checkpoint on the bf16 run: lane-packed (8 lanes), then
+    --strict, then --on_device (lane-packed features, the DTW on the
+    card); within and across in [0, 1], --on_device within 1e-5 of the
+    host DTW's; the seconds of each mode; then the scoring alone
+    (abx_scoring_times)."""
+    from cpc_audio_tpu_torch.eval import abx_cli
+    item = os.path.join(tmp, "eval.item")
+    abx_item_file(db, item)
+    ckpt = os.path.join(runs["bfloat16"], "checkpoint_0.pt")
+    scores, secs = {}, {}
+    for mode, extra in (("batched", []), ("strict", ["--strict"]),
+                        ("on_device", ["--on_device"])):
+        out = os.path.join(tmp, f"abx_{mode}")
+        secs[mode], _, calls = run_eval_cli(abx_cli.main, [
+            "from_checkpoint", ckpt, item, db, "--file_extension", ".wav",
+            "--out", out] + extra, f"abx_cli from_checkpoint ({mode})")
+        if any(c[3] for c in calls["fwd"]) or calls["bwd"]:
+            fail(f"abx_cli ({mode}) ran K1 with residuals or backward")
+        with open(os.path.join(out, "ABX_scores.json")) as f:
+            scores[mode] = json.load(f)
+        if set(scores[mode]) != {"within", "across"} or not all(
+                0.0 <= v <= 1.0 for v in scores[mode].values()):
+            fail(f"abx_cli ({mode}) scores {scores[mode]}")
+    err = max(abs(scores["on_device"][k] - scores["batched"][k])
+              for k in ("within", "across"))
+    from cpc_audio_tpu_torch.ops import native
+    line = (f"abx_cli from_checkpoint, bf16, 12 files of 3-9 s (the host "
+            f"DTW {'native' if native.available() else 'in Python'}): "
+            f"seconds "
+            f"(host clock, extraction included) batched {secs['batched']:.2f}"
+            f", strict {secs['strict']:.2f}, on_device "
+            f"{secs['on_device']:.2f}; scores {scores}; --on_device against "
+            f"the host DTW: max |err| {err:.3e}")
+    SUMMARY["abx"] = line
+    print(line, flush=True)
+    if err > 1e-5:
+        fail("abx --on_device disagrees with the host DTW")
+    abx_scoring_times(db, item, ckpt, dev)
+
+
+def phase_zerospeech(tmp: str, db: str, runs: dict, probe_ckpt: str) -> None:
+    """build_zerospeech_features on the bf16 run: fea lane-packed, then
+    npy --strict --seqNorm, each file against per-file build_feature (the
+    lanes within FEATURE_ATOL, the strict per-file path exactly), then
+    --addCriterion with the phone probe against ModelPhoneCombined."""
+    from cpc_audio_tpu_torch.eval import build_zerospeech_features as tzs
+    from cpc_audio_tpu_torch.feature_loader import (FeatureModule,
+                                                    ModelPhoneCombined,
+                                                    build_feature,
+                                                    load_model,
+                                                    load_supervised_criterion)
+    ckpt = os.path.join(runs["bfloat16"], "checkpoint_0.pt")
+    model = load_model([ckpt])[0]
+    paths = sorted(glob.glob(os.path.join(db, "*", "*.wav")))
+    combined = ModelPhoneCombined(FeatureModule(load_model([probe_ckpt])[0]),
+                                  load_supervised_criterion(probe_ckpt)[0])
+    for fmt, extra, ckpt_, maker, kw, atol in (
+            ("fea", [], ckpt, FeatureModule(model), {},
+             FEATURE_ATOL["bfloat16"]),
+            ("npy", ["--strict", "--seqNorm"], ckpt, FeatureModule(model),
+             {"strict": True, "seq_norm": True}, 0.0),
+            ("npy", ["--addCriterion"], probe_ckpt, combined, {}, 0.0)):
+        out = os.path.join(tmp, f"zs_{fmt}_{len(extra)}")
+        secs, _, _ = run_eval_cli(tzs.main, [db, out, ckpt_, "--format", fmt]
+                                  + extra, f"build_zerospeech_features "
+                                  f"{fmt} {' '.join(extra)}")
+        worst, same = 0.0, True
+        for p in paths:
+            want = build_feature(maker, p, **kw)[0]
+            f = os.path.join(out, os.path.splitext(os.path.basename(p))[0]
+                             + f".{fmt}")
+            if fmt == "npy":
+                got = np.load(f)
+            else:
+                with open(f) as fh:
+                    got = np.fromstring(fh.read(), sep=" ").reshape(
+                        want.shape[0], -1)[:, 1:].astype(np.float32)
+            if got.shape != want.shape or not np.isfinite(got).all():
+                fail(f"zerospeech {fmt} {extra}: {f} {got.shape}, not "
+                     f"{want.shape}")
+            worst = max(worst, float(np.abs(got - want).max()))
+            same = same and np.array_equal(got, want)
+        line = (f"build_zerospeech_features --format {fmt} "
+                f"{' '.join(extra)}, bf16: {secs:.2f} s for 12 files; "
+                f"against per-file build_feature: max |err| {worst:.3e} "
+                f"(tolerance {atol:g}), bit-identical {same}")
+        SUMMARY[f"zerospeech {fmt} {len(extra)}"] = line
+        print(line, flush=True)
+        if worst > atol:
+            fail(f"build_zerospeech_features {fmt} {extra} disagrees with "
+                 f"build_feature")
+    del model, combined
+    torch.cuda.empty_cache()
+
+
+def cv_phones(db: str, path: str, n_phones: int = 20) -> None:
+    """Phone sequences for every WAV under ``db`` (a phone every 25
+    frames, none twice in a row), as Common Voice's transcriptions."""
+    rng = np.random.default_rng(SEED + 41)
+    with open(path, "w") as f:
+        for d, _, names in sorted(os.walk(db)):
+            for name in sorted(n for n in names if n.endswith(".wav")):
+                with wave.open(os.path.join(d, name)) as w:
+                    n = w.getnframes() // 160 // 25
+                seq = np.cumsum(rng.integers(1, n_phones, size=n)) % n_phones
+                f.write(os.path.splitext(name)[0] + " "
+                        + " ".join(map(str, seq)) + "\n")
+
+
+def phase_common_voices(tmp: str, db: str, lists: dict, runs: dict,
+                        launches: dict) -> None:
+    """common_voices train (2 epochs, --LSTM, fine-tuned, bf16, batch 8;
+    K1 forward with residuals and backward at B 8 / T 900, the model's and
+    the head's), train --freeze (1 epoch, no --LSTM: K1's forward without
+    residuals and no backward) and per over all 12 files (K1's forward
+    without residuals at B 8 / T 900); finite losses, a finite,
+    non-negative PER; then a float32 train whose first step is held
+    against the CPU."""
+    from cpc_audio_tpu_torch.eval import common_voices as tcv
+    phones = os.path.join(tmp, "cv_phones.txt")
+    cv_phones(db, phones)
+    shape = EVAL_SHAPES[1][1:]
+    out = os.path.join(tmp, "cv")
+    secs, lines, calls = run_eval_cli(tcv.main, [
+        "train", db, phones, os.path.join(runs["bfloat16"], "checkpoint_0.pt"),
+        "--file_extension", ".wav", "--LSTM", "--nEpochs", "2",
+        "--batchSize", "8", "--pathTrain", lists["train"], "--pathVal",
+        lists["val"], "-o", out, "--seed", str(SEED)],
+        "common_voices train --LSTM, bf16")
+    losses = [float(ln.split(":")[-1]) for ln in lines if " loss " in ln]
+    train_fwd, bwd = k1_count(calls, shape, True), k1_count(calls, shape)
+    if len(losses) != 4 or not np.isfinite(losses).all():
+        fail(f"common_voices train: losses {losses}")
+    if not train_fwd or bwd != train_fwd:
+        fail(f"common_voices train ran no K1 train forward and backward at "
+             f"{shape}: {calls}")
+    launches["lstm_fwd_cv"], launches["lstm_bwd_cv"] = train_fwd, bwd
+    freeze_secs, lines, calls = run_eval_cli(tcv.main, [
+        "train", db, phones, os.path.join(runs["bfloat16"], "checkpoint_0.pt"),
+        "--file_extension", ".wav", "--freeze", "--nEpochs", "1",
+        "--batchSize", "8", "--pathTrain", lists["train"], "--pathVal",
+        lists["val"], "-o", os.path.join(tmp, "cv_freeze"), "--seed",
+        str(SEED)], "common_voices train --freeze, bf16")
+    freeze_losses = [float(ln.split(":")[-1]) for ln in lines
+                     if " loss " in ln]
+    freeze_fwd = k1_count(calls, shape, False)
+    if len(freeze_losses) != 2 or not np.isfinite(freeze_losses).all():
+        fail(f"common_voices train --freeze: losses {freeze_losses}")
+    if calls["bwd"] or any(c[3] for c in calls["fwd"]) or not freeze_fwd:
+        fail(f"common_voices train --freeze ran K1 with residuals or its "
+             f"backward, or no forward at {shape}: {calls}")
+    per_secs, lines, calls = run_eval_cli(tcv.main, [
+        "per", out, "--batchSize", "8", "--pathVal", lists["all"],
+        "--pathPhone", phones], "common_voices per")
+    per = [float(ln.split()[-1]) for ln in lines
+           if ln.startswith("Average PER")]
+    infer = k1_count(calls, shape, False)
+    if len(per) != 1 or not np.isfinite(per[0]) or per[0] < 0 or not infer \
+            or any(c[3] for c in calls["fwd"]):
+        fail(f"common_voices per: PER {per}, K1 calls {calls}")
+    launches["lstm_fwd_cv_inference"] = infer + freeze_fwd
+    line = (f"common_voices, bf16, batch 8, 9 train / 3 val utterances of "
+            f"3-9 s padded to 9 s: train --LSTM, fine-tuned (2 epochs) "
+            f"{secs:.2f} s, losses {np.round(losses, 4).tolist()}; train "
+            f"--freeze (1 epoch) {freeze_secs:.2f} s, losses "
+            f"{np.round(freeze_losses, 4).tolist()}, K1 forwards without "
+            f"residuals {freeze_fwd}, no backward; per over 12 utterances "
+            f"{per_secs:.2f} s (the spawn pool's start included), average "
+            f"PER {per[0]:.4f} (host clock)")
+    SUMMARY["common_voices"] = line
+    print(line, flush=True)
+    results, relu, tails = [], {}, []
+    with step_on_cpu_too(tcv, "make_train_step", lambda o: o, results, relu,
+                         tails):
+        run_eval_cli(tcv.main, [
+            "train", db, phones,
+            os.path.join(runs["float32"], "checkpoint_0.pt"),
+            "--file_extension", ".wav", "--LSTM", "--nEpochs", "1",
+            "--batchSize", "2", "--pathTrain", lists["train"], "--pathVal",
+            lists["val"], "-o", os.path.join(tmp, "cv_f32"), "--seed",
+            str(SEED)], "common_voices train --LSTM, float32, batch 2")
+    if len(results) != 2:
+        fail(f"common_voices' first step ran {len(results)} times")
+    compare_train_steps("common_voices fine-tuning", results, relu, tails)
+
+
+def phase_resample(tmp: str) -> None:
+    """adjust_sample_rate over 3 WAVs of 44.1 kHz tones, 2 of them with a
+    phone transcription: 2 WAVs out, 16-bit at 16 kHz, of ceil(n * 160 /
+    441) samples, each within 2e-3 of its tone sampled at 16 kHz 200
+    samples away from the ends (resample_poly's filter; the 16-bit
+    rounding is 3e-5)."""
+    from cpc_audio_tpu_torch.eval import adjust_sample_rate as tasr
+    src, out = os.path.join(tmp, "asr_in"), os.path.join(tmp, "asr_out")
+    os.makedirs(src)
+    tones = {"clip_a": (440.0, 1.0), "clip_b": (1000.0, 1.5),
+             "clip_c": (3000.0, 2.0)}
+    for name, (f, dur) in tones.items():
+        t = np.arange(int(44100 * dur)) / 44100
+        _write_wav(os.path.join(src, name + ".wav"),
+                   0.5 * np.sin(2 * np.pi * f * t), 44100)
+    listed = os.path.join(tmp, "asr_list.tsv")
+    with open(listed, "w") as fh:
+        fh.write("clip_a\tp1 p2\nclip_c\tp3\n")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = tasr.main([src, listed, out, "--file_extension", ".wav"])
+    secs = time.perf_counter() - t0
+    if rc != 0 or sorted(os.listdir(out)) != ["clip_a.wav", "clip_c.wav"]:
+        fail(f"adjust_sample_rate: rc {rc}, wrote {os.listdir(out)}")
+    worst = 0.0
+    for name in ("clip_a", "clip_c"):
+        f, dur = tones[name]
+        with wave.open(os.path.join(out, name + ".wav")) as w:
+            rate, width = w.getframerate(), w.getsampwidth()
+            y = np.frombuffer(w.readframes(w.getnframes()), "<i2") / 32767
+        n = int(44100 * dur)
+        if rate != 16000 or width != 2 or len(y) != -(-n * 160 // 441):
+            fail(f"adjust_sample_rate {name}: {rate} Hz, {width} bytes, "
+                 f"{len(y)} samples")
+        want = 0.5 * np.sin(2 * np.pi * f * np.arange(len(y)) / 16000)
+        worst = max(worst, float(np.abs(y - want)[200:-200].max()))
+    line = (f"adjust_sample_rate, 2 of 3 WAVs 44.1 -> 16 kHz: {secs:.2f} s; "
+            f"against the tones: max |err| {worst:.3e} (tolerance 2e-3)")
+    SUMMARY["adjust_sample_rate"] = line
+    print(line, flush=True)
+    if worst > 2e-3:
+        fail("adjust_sample_rate's output is not the resampled tone")
+
+
+def phase_eval_clis(tmp: str, runs: dict, dev: torch.device) -> dict:
+    """The port's eval CLIs on phase_interchange's default-architecture
+    runs (bf16, and the CLIs' default float32 where a step is held against
+    the CPU), over phase_features' ragged tree of 12 WAVs of 3-9 s in 3
+    speaker directories: linear separability, ABX, the ZeroSpeech
+    features, resampling and Common Voice; returns the K1 launches at
+    EVAL_SHAPES by JSON entry."""
+    t0 = time.time()
+    db = os.path.join(tmp, "features")
+    paths = sorted(glob.glob(os.path.join(db, "*", "*.wav")),
+                   key=os.path.basename)
+    lists = eval_lists(tmp, paths)
+    launches = {}
+    probe_ckpt = phase_probes(tmp, db, lists, runs, launches)
+    phase_abx(tmp, db, runs, dev)
+    phase_zerospeech(tmp, db, runs, probe_ckpt)
+    phase_resample(tmp)
+    phase_common_voices(tmp, db, lists, runs, launches)
+    for name in SOURCES:
+        if name.startswith("lstm_") and name.endswith(
+                ("_probe", "_cv", "_inference")) \
+                and launches.get(name, 0) <= 0:
+            fail(f"the eval CLIs launched no {name}")
+    print(f"[phase eval CLIs {time.time() - t0:.1f} s]", flush=True)
     return launches
 
 
@@ -3467,7 +4086,8 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         phase_cli(tmp, dev)
         print(f"[phase train CLI {time.time() - t0:.1f} s]", flush=True)
-        launches["lstm_fwd_features"] = phase_interchange(tmp, dev)
+        launches["lstm_fwd_features"], runs = phase_interchange(tmp, dev)
+        launches.update(phase_eval_clis(tmp, runs, dev))
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], "launches": launches[name],
                 **timings[name]} for name in SOURCES]

@@ -16,7 +16,8 @@ and ``criterion.``:
   (out, in, W) ``weight``;
 * the recurrent ARs' ``weight_ih_t (C, G*H)`` / ``weight_hh_t (H, G*H)``
   (LSTM G = 4, GRU G = 3, RNN G = 1) become torch's ``weight_ih (G*H, C)``
-  / ``weight_hh (G*H, H)``;
+  / ``weight_hh (G*H, H)``, and so do those of the Common Voice CTC
+  head's LSTM (``conv1``);
 * everything else keeps its name and shape: the K-stacked head tree, the
   transformer AR's ``gAR.layer0.multihead.{Wq,Wk,Wv,Wo}.kernel``,
   ``multihead.Krelpos``, ``ffnetwork.lin{1,2}.{kernel,bias}`` and
@@ -82,6 +83,8 @@ _JAX = (("{path}gEncoder.conv{i}.kernel", "{path}gEncoder.conv{i}.weight",
          _WIO),
         ("{path}gAR.layer{l}.weight_{g}_t", "{path}gAR.layer{l}.weight_{g}",
          _T),
+        # the Common Voice CTC head's LSTM (eval/common_voices.py)
+        ("{path}conv1.weight_{g}_t", "{path}conv1.weight_{g}", _T),
         ("{path}{leaf}", "{path}{leaf}", _SAME))
 
 # the reference's CPCEncoder (gEncoder.*)

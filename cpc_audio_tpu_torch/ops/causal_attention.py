@@ -121,30 +121,62 @@ def key_tile(dk: int, planes: int) -> int:
     return 64 if planes * dkp <= 128 else 32
 
 
+# the depth of one mma.sync.m16n8k16: the kernels' products go 16 columns
+# (or keys) at a time
+K_STEP = 16
+
+
+def kstep_products(a_planes, b_planes, acc: torch.Tensor,
+                   descending: bool = False) -> torch.Tensor:
+    """``acc`` plus the split products of bf16 planes ``a_planes`` (.., M,
+    K) and ``b_planes`` (.., K, N), plane i of a times plane j of b for
+    i + j < planes, as the forward kernel adds them into its one float32
+    accumulator (csrc/causal_attention.cuh ``rows_dot_rows``,
+    ``acc_times_rows``): K_STEP of the depth at a time, in each the pairs
+    by increasing i + j, i ascending within a diagonal (``descending``:
+    i descending, as p . v does).  Each K_STEP product is a float32 matmul
+    here; the tensor cores' own rounding of it is not reproduced."""
+    n = len(a_planes)
+    for k0 in range(0, a_planes[0].shape[-1], K_STEP):
+        for d in range(n):
+            for i in (range(d, -1, -1) if descending else range(d + 1)):
+                acc = acc + a_planes[i][..., k0:k0 + K_STEP] \
+                    @ b_planes[d - i][..., k0:k0 + K_STEP, :]
+    return acc
+
+
 def causal_attention_split(q, k, v, bias, rate: float = 0.0,
                            seed: Optional[torch.Tensor] = None,
                            layer: int = 0, products: int = 6
                            ) -> torch.Tensor:
     """The float32 tensor-core body's forward arithmetic written plainly
-    (csrc/causal_attention_fwd.cu): q . k^T and (p r) . v each as
-    ``products`` split products of bf16 planes (``ffn.split_matmul``: 6
-    from three planes, the kernel's; 3 from two, for comparison),
-    the bias added in float32, float32 softmax statistics; the keys go by
-    the kernel's tiles (:func:`key_tile`) with a running max, the
-    probabilities split as exp(s - running max) r, the partial output
-    rescaled as the max moves and divided by the row sum at the end.
-    Float32 inputs, the output of :func:`causal_attention_ref`.  For
+    (csrc/causal_attention_fwd.cu): q . k^T and (p r) . v on bf16 planes
+    (three, the kernel's six split products; two, three products, for
+    comparison) in the kernel's order (:func:`kstep_products`), the bias
+    added in float32 and the sum scaled by the float32 reciprocal of
+    sqrt(dk), float32 softmax statistics; the keys go by the kernel's
+    tiles (:func:`key_tile`) with a running max, the probabilities split
+    as exp(s - running max) r, the output rescaled as the max moves before
+    the tile's p . v is added onto it, and divided by the row sum at the
+    end.  Float32 inputs, the output of :func:`causal_attention_ref`.  For
     tests and measurements only: the card runs the kernel."""
     N, S, dk = q.shape
-    s = (ffn.split_matmul(q.float(), k.float().transpose(-1, -2), products)
-         + bias.float()) / math.sqrt(dk)
-    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    n = FWD_PLANES if products == 6 else BWD_PLANES
+    dev = q.device
+    inv_sqrt = torch.tensor(1.0, device=dev) / torch.sqrt(
+        torch.tensor(float(dk), device=dev))
+    kt = [t.transpose(-1, -2) for t in ffn.split_planes(k.float(), n)]
+    s = kstep_products(ffn.split_planes(q.float(), n), kt,
+                       torch.zeros(N, S, S, device=dev))
+    s = (s + bias.float()) * inv_sqrt
+    causal = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
     s = s.masked_fill(~causal, float("-inf"))
-    mask = dropout.ar_attention_mask(seed, rate, layer, N, S, q.device)
-    tile = key_tile(dk, FWD_PLANES if products == 6 else BWD_PLANES)
-    m = torch.full((N, S, 1), float("-inf"), device=q.device)
-    l = torch.zeros(N, S, 1, device=q.device)
-    o = torch.zeros(N, S, dk, device=q.device)
+    mask = dropout.ar_attention_mask(seed, rate, layer, N, S, dev)
+    vp = ffn.split_planes(v.float(), n)
+    tile = key_tile(dk, n)
+    m = torch.full((N, S, 1), float("-inf"), device=dev)
+    l = torch.zeros(N, S, 1, device=dev)
+    o = torch.zeros(N, S, dk, device=dev)
     for k0 in range(0, S, tile):      # key 0 <= every row: m finite after
         st = s[..., k0:k0 + tile]
         m_new = torch.maximum(m, st.amax(-1, keepdim=True))
@@ -152,8 +184,9 @@ def causal_attention_split(q, k, v, bias, rate: float = 0.0,
         e = torch.exp(st - m_new)
         pd = e if mask is None else e * mask[..., k0:k0 + tile]
         l = l * rescale + e.sum(-1, keepdim=True)
-        o = o * rescale + ffn.split_matmul(pd, v.float()[:, k0:k0 + tile],
-                                           products)
+        o = kstep_products(ffn.split_planes(pd, n),
+                           [t[:, k0:k0 + tile] for t in vp], o * rescale,
+                           descending=True)
         m = m_new
     return o * (1.0 / l)
 

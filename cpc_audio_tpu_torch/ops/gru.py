@@ -355,18 +355,28 @@ class _GRU(torch.autograd.Function):
                 dh0.to(h0.dtype))
 
 
+def _recurrence(x_proj, w_hh, b_hh, h0):
+    """:class:`_GRU` where autograd records the call, else the forward
+    alone, without residuals (as ``lstm._recurrence``)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x_proj, w_hh, b_hh, h0)):
+        return _GRU.apply(x_proj, w_hh, b_hh, h0)
+    return gru_fwd(x_proj, w_hh, b_hh, h0)
+
+
 def gru(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
         h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Differentiable recurrence: (ys, hT) as :func:`gru_fwd`, with a
     backward through :func:`gru_bwd`; any H, padded to the kernels'
-    multiple of 32 and sliced back."""
+    multiple of 32 and sliced back.  Without autograd the forward saves no
+    residuals."""
     H = h0.shape[-1]
     why = supported(H)
     _build.require(why is None, _NAME, why or "")
     Hp = padded_hidden(H)
     if Hp == H:
-        return _GRU.apply(x_proj, w_hh, b_hh, h0)
-    ys, hT = _GRU.apply(pad_gates(x_proj, 3, H, Hp).contiguous(),
+        return _recurrence(x_proj, w_hh, b_hh, h0)
+    ys, hT = _recurrence(pad_gates(x_proj, 3, H, Hp).contiguous(),
                         pad_weight(w_hh, 3, H, Hp).contiguous(),
                         pad_gates(b_hh, 3, H, Hp).contiguous(),
                         F.pad(h0, (0, Hp - H)).contiguous())

@@ -550,18 +550,30 @@ class _LSTM(torch.autograd.Function):
                 dc0.to(c0.dtype))
 
 
+def _recurrence(x_proj, w_hh, h0, c0):
+    """:class:`_LSTM` where autograd records the call, else the forward
+    alone, without residuals: under ``no_grad`` or ``inference_mode`` a
+    Function still sees ``needs_input_grad`` on a float32 W_hh (the
+    parameter itself) and would save them."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x_proj, w_hh, h0, c0)):
+        return _LSTM.apply(x_proj, w_hh, h0, c0)
+    return lstm_fwd(x_proj, w_hh, h0, c0)
+
+
 def lstm(x_proj: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
          c0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Differentiable recurrence: (ys, hT, cT) as :func:`lstm_fwd`, with a
     backward through :func:`lstm_bwd`; any H, padded to the kernels'
-    multiple of 8 and sliced back."""
+    multiple of 8 and sliced back.  Without autograd the forward saves no
+    residuals."""
     H = h0.shape[-1]
     why = supported(H)
     _build.require(why is None, _NAME, why or "")
     Hp = padded_hidden(H)
     if Hp == H:
-        return _LSTM.apply(x_proj, w_hh, h0, c0)
-    ys, hT, cT = _LSTM.apply(pad_gates(x_proj, 4, H, Hp).contiguous(),
+        return _recurrence(x_proj, w_hh, h0, c0)
+    ys, hT, cT = _recurrence(pad_gates(x_proj, 4, H, Hp).contiguous(),
                              pad_weight(w_hh, 4, H, Hp).contiguous(),
                              F.pad(h0, (0, Hp - H)).contiguous(),
                              F.pad(c0, (0, Hp - H)).contiguous())

@@ -60,14 +60,18 @@ class TrainState:
 
 def create_train_state(model: torch.nn.Module, criterion: torch.nn.Module,
                        device, lr: float = 2e-4, beta1: float = 0.9,
-                       beta2: float = 0.999,
-                       epsilon: float = 1e-8) -> TrainState:
-    """Move both modules to ``device`` and build their optimizer."""
+                       beta2: float = 0.999, epsilon: float = 1e-8,
+                       train_model: bool = True) -> TrainState:
+    """Move both modules to ``device`` and build their optimizer, over the
+    criterion's parameters and, with ``train_model``, the model's (the
+    eval CLIs' frozen probes train the criterion alone)."""
     device = torch.device(device)
     model.to(device)
     criterion.to(device)
     lr_t = torch.tensor(lr, dtype=torch.float32, device=device)
-    params = list(model.parameters()) + list(criterion.parameters())
+    params = list(criterion.parameters())
+    if train_model:
+        params = list(model.parameters()) + params
     opt = make_optimizer(params, lr_t, beta1, beta2, epsilon)
     return TrainState(model, criterion, opt, lr_t,
                       torch.zeros((), dtype=torch.int64, device=device))

@@ -192,3 +192,51 @@ print("ok")
     r = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-2000:]
+
+
+def test_eval_modules_import_no_jax(tmp_path):
+    """In a fresh interpreter every module of cpc_audio_tpu_torch.eval
+    imports, and the ABX CLI runs from_pre_computed (its host DTW and its
+    --on_device path on the CPU); afterwards none of jax, flax, optax or
+    the JAX package is imported."""
+    import subprocess
+    import sys
+
+    rng = np.random.RandomState(0)
+    feats = tmp_path / "feats"
+    feats.mkdir()
+    lines = ["#file onset offset #phone prev next speaker"]
+    for f in range(4):
+        np.save(str(feats / f"f{f}.npy"),
+                rng.randn(40, 6).astype(np.float32))
+        for s in range(6):
+            lines.append(f"f{f} {0.05 * s:.2f} {0.05 * s + 0.04:.2f} "
+                         f"{'ab'[s % 2]} x y s{f % 2}")
+    item = tmp_path / "t.item"
+    item.write_text("\n".join(lines) + "\n")
+    script = f"""
+import importlib, json, os, pkgutil, sys
+import cpc_audio_tpu_torch.eval as ev
+names = [m.name for m in pkgutil.walk_packages(ev.__path__, ev.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+assert "cpc_audio_tpu_torch.eval.common_voices" in names, names
+from cpc_audio_tpu_torch.eval import abx_cli
+for i, extra in enumerate(([], ["--on_device"])):
+    out = os.path.join({str(tmp_path)!r}, f"out{{i}}")
+    assert abx_cli.main(["from_pre_computed", {str(item)!r},
+                         {str(feats)!r}, "--out", out] + extra,
+                        device="cpu") == 0
+    with open(os.path.join(out, "ABX_scores.json")) as f:
+        assert set(json.load(f)) == {{"within", "across"}}
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "cpc_audio_tpu"))
+assert not bad, bad
+print("ok", len(names))
+"""
+    r = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and \
+        r.stdout.strip().splitlines()[-1].startswith("ok"), \
+        r.stdout[-2000:] + r.stderr[-2000:]
