@@ -12,35 +12,52 @@ parameter tree ``{"model": ..., "criterion": ...}`` (``TrainState.params``)
 with numpy leaves and returns one flat state dict, keys prefixed ``model.``
 and ``criterion.``:
 
-* encoder conv kernels, stored (W, in, out) ('WIO'), become torch's
-  (out, in, W) ``weight``;
-* the recurrent ARs' ``weight_ih_t (C, G*H)`` / ``weight_hh_t (H, G*H)``
-  (LSTM G = 4, GRU G = 3, RNN G = 1) become torch's ``weight_ih (G*H, C)``
-  / ``weight_hh (G*H, H)``, and so do those of the Common Voice CTC
-  head's LSTM (``conv1``);
-* everything else keeps its name and shape: the K-stacked head tree, the
-  transformer AR's ``gAR.layer0.multihead.{Wq,Wk,Wv,Wo}.kernel``,
-  ``multihead.Krelpos``, ``ffnetwork.lin{1,2}.{kernel,bias}`` and
-  ``ln_*``, whose ``(in, out)`` kernel layout the port keeps
-  (models/transformer.py), and the supervised criteria's ``(in, out)``
-  ``kernel`` and ``bias``.
+* encoder conv kernels (the LFB encoder's ``conv`` too), stored (W, in,
+  out) ('WIO'), become torch's (out, in, W) ``weight``;
+* the recurrent layers' ``weight_ih_t (C, G*H)`` / ``weight_hh_t (H,
+  G*H)`` (LSTM G = 4, GRU G = 3, RNN G = 1) become torch's ``weight_ih
+  (G*H, C)`` / ``weight_hh (G*H, H)``: the ARs' ``layer{l}``, the
+  bidirectional ARs' ``layer{l}_fwd`` / ``_bwd`` and ``netForward`` /
+  ``netBackward`` stacks, and the Common Voice CTC head's LSTM
+  (``conv1``); the K-stacked RNN and LSTM prediction heads'
+  ``heads.cell.weight_*_t (K, in, out)`` transpose their last two axes;
+* everything else keeps its name and shape: the rest of the K-stacked
+  head tree, the transformer AR's
+  ``gAR.layer0.multihead.{Wq,Wk,Wv,Wo}.kernel``, ``multihead.Krelpos``,
+  ``ffnetwork.lin{1,2}.{kernel,bias}`` and ``ln_*``, whose ``(in, out)``
+  kernel layout the port keeps (models/transformer.py), the supervised
+  criteria's ``(in, out)`` ``kernel`` and ``bias``, the speaker
+  embedding's ``speakerEmb.embedding``, and flax BatchNorm's ``scale`` /
+  ``bias``.
+
+flax BatchNorm's running statistics live in the separate ``batch_stats``
+collection (``TrainState.batch_stats``, ``{"model": {"gEncoder":
+{"norm{i}": {"mean", "var"}}}}``); the port keeps them as the buffers
+``mean`` / ``var`` of its BatchNorm (models/norms.py), under the same
+names: ``load_jax_params`` takes them beside the parameters, and
+``jax_tree`` / ``jax_batch_stats`` split a state dict back into the two
+trees.
 
 The mapping is leaf by leaf, so an optimizer moment tree of the same
 structure maps through it the same way (``load_state_into``);
 ``jax_tree`` is its inverse.
 
 **Reference state dicts** (``gEncoder.*`` / ``gAR.*`` of a CPCModel, the
-``cpcCriterion`` of the reference trainer; ``_ENCODER``, ``_RECURRENT``,
-``_TRANSFORMER_LAYER``, ``_LINEAR``).  ``convert_cpc_model`` and
+``cpcCriterion`` of the reference trainer; ``_NORMS``, ``_RECURRENT``,
+``_HEADS``, ``_TRANSFORMER_LAYER``, ``_LINEAR``).  ``convert_cpc_model`` and
 ``convert_criterion`` read them into the port's state dicts;
 ``export_cpc_model``, ``export_torch_checkpoint`` and
 ``export_checkpoint_file`` (the CLI ``python -m cpc_audio_tpu_torch.convert
 export <in> <out>``) write them.  Every linear and attention weight is
 (out, in) there and transposes to the port's (in, out) ``kernel``; conv
-and recurrent weights keep their torch layouts.  Variants the port does
-not build (the bidirectional ARs, heads other than the transformer's,
-batchNorm and its statistics, the lfb encoder, speaker embeddings) raise
-``NotImplementedError``.
+and recurrent weights keep their torch layouts.  The encoder's table
+follows ``--encoder_type`` and ``--normMode`` (:func:`_encoder_rules`:
+ChannelNorm's (1, C, 1) affine, InstanceNorm's (C,), BatchNorm's weight,
+bias and running statistics, LFB's ``conv``); the heads' follows
+``--rnnMode`` (:func:`_head_rules`), each head's ``predictors.{k}.*``
+stacked on K; ``speakerEmb.weight`` is the embedding table.  The
+bidirectional ARs, which no ``--arMode`` builds, convert alone
+(:func:`convert_bidir_tangled`, :func:`convert_bidir`).
 """
 
 from __future__ import annotations
@@ -57,9 +74,6 @@ import torch
 from . import checkpoint as ckpt
 from .config import CPCConfig
 
-_NOT_PORTED = "is not ported yet: ROADMAP Queue 1 item 11 " \
-              "(non-default variants)"
-
 StateDict = Dict[str, torch.Tensor]
 
 
@@ -73,6 +87,8 @@ def _same(x):
 
 _SAME = (_same, _same)
 _T = (lambda x: x.T, lambda x: x.T)
+# K-stacked (K, in, out) <-> (K, out, in): the last two axes only
+_T_STACKED = (lambda x: np.swapaxes(x, -1, -2),) * 2
 # conv kernels: the JAX package's (W, in, out) <-> torch's (out, in, W)
 _WIO = (lambda x: np.transpose(x, (2, 1, 0)),) * 2
 # ChannelNorm's affine: the reference's (1, C, 1) <-> the port's (C,)
@@ -81,17 +97,35 @@ _CHANNEL = (lambda x: x.reshape(-1), lambda x: x.reshape(1, -1, 1))
 # the JAX package's leaves whose name or layout differ from the port's
 _JAX = (("{path}gEncoder.conv{i}.kernel", "{path}gEncoder.conv{i}.weight",
          _WIO),
-        ("{path}gAR.layer{l}.weight_{g}_t", "{path}gAR.layer{l}.weight_{g}",
-         _T),
+        # the LFB encoder's conv
+        ("{path}gEncoder.conv.kernel", "{path}gEncoder.conv.weight", _WIO),
+        # the recurrent ARs' layers (layer{l}, layer{l}_fwd / _bwd)
+        ("{path}layer{l}.weight_{g}_t", "{path}layer{l}.weight_{g}", _T),
+        # the K-stacked RNN / LSTM prediction heads
+        ("{path}heads.cell.weight_{g}_t", "{path}heads.cell.weight_{g}",
+         _T_STACKED),
         # the Common Voice CTC head's LSTM (eval/common_voices.py)
         ("{path}conv1.weight_{g}_t", "{path}conv1.weight_{g}", _T),
         ("{path}{leaf}", "{path}{leaf}", _SAME))
 
-# the reference's CPCEncoder (gEncoder.*)
-_ENCODER = (("conv{i}.{p}", "conv{i}.{p}", _SAME),
-            ("batchNorm{i}.{p}", "norm{i}.{p}", _CHANNEL))
+# the reference's encoder norms (gEncoder.batchNorm{i}.*) by --normMode:
+# ChannelNorm's affine is (1, C, 1), InstanceNorm's and BatchNorm's (C,)
+_NORMS = {
+    "layerNorm": (("batchNorm{i}.{p}", "norm{i}.{p}", _CHANNEL),),
+    "instanceNorm": (("batchNorm{i}.{p}", "norm{i}.{p}", _SAME),),
+    "batchNorm": (("batchNorm{i}.weight", "norm{i}.scale", _SAME),
+                  ("batchNorm{i}.bias", "norm{i}.bias", _SAME),
+                  ("batchNorm{i}.running_mean", "norm{i}.mean", _SAME),
+                  ("batchNorm{i}.running_var", "norm{i}.var", _SAME)),
+    "ID": ()}
 # the reference's nn.LSTM / GRU / RNN AR (gAR.*)
 _RECURRENT = (("baseNet.{p}_{g}_l{l}", "layer{l}.{p}_{g}", _SAME),)
+# the reference's BiDIRARTangled (one bidirectional nn.GRU, ARNet) and
+# BiDIRAR (two nn.GRU stacks, netForward and netBackward)
+_BIDIR_TANGLED = (("ARNet.{p}_{g}_l{l}_reverse", "layer{l}_bwd.{p}_{g}",
+                   _SAME),
+                  ("ARNet.{p}_{g}_l{l}", "layer{l}_fwd.{p}_{g}", _SAME))
+_BIDIR = (("{net}.{p}_{g}_l{l}", "{net}.layer{l}.{p}_{g}", _SAME),)
 # one reference TransformerLayer (the transformer AR's, a head's)
 _TRANSFORMER_LAYER = (
     ("multihead.{w}.weight", "multihead.{w}.kernel", _T),
@@ -101,6 +135,16 @@ _TRANSFORMER_LAYER = (
     ("ln_{n}.{p}", "ln_{n}.{p}", _SAME))
 # one nn.Linear (the supervised criteria's)
 _LINEAR = (("weight", "kernel", _T), ("bias", "bias", _SAME))
+# one reference prediction head (predictors.{k}.*) by --rnnMode, under
+# the port's heads.* names before the heads are stacked on K
+_HEADS = {
+    "transformer": tuple(("0." + other, "layer0." + port, fns)
+                         for other, port, fns in _TRANSFORMER_LAYER),
+    "linear": (("weight", "kernel", _T),),
+    "ffd": (("{lin}.module.weight", "{lin}.kernel", _T),
+            ("{lin}.module.bias", "{lin}.bias", _SAME)),
+    "conv": (("module.module.{p}", "module.{p}", _SAME),),
+    "recurrent": (("{p}_{g}_l0", "cell.{p}_{g}", _SAME),)}
 
 Rules = Sequence[Tuple[str, str, Tuple[Any, Any]]]
 
@@ -157,14 +201,14 @@ def params_from_jax(jax_params: Dict[str, Any]) -> StateDict:
             for k, v in port_leaves(jax_params).items()}
 
 
-def jax_tree(state_dict: StateDict) -> Dict[str, Any]:
-    """The inverse of :func:`params_from_jax`: a flat state dict of the
-    port (any prefix) -> the JAX package's nested tree of float32 numpy
-    leaves."""
+def _batch_stat(key: str) -> bool:
+    """A BatchNorm running statistic of the port (models/norms.py)."""
+    return re.fullmatch(r"(?:.*\.)?norm\d+\.(?:mean|var)", key) is not None
+
+
+def _nest(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
-    flat = {k: v.detach().float().cpu().numpy()
-            for k, v in state_dict.items()}
-    for key, value in _relayout(flat, _JAX, export=True).items():
+    for key, value in flat.items():
         parts = key.split(".")
         node = tree
         for p in parts[:-1]:
@@ -173,13 +217,48 @@ def jax_tree(state_dict: StateDict) -> Dict[str, Any]:
     return tree
 
 
+def jax_tree(state_dict: StateDict) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_jax`: a flat state dict of the
+    port (any prefix) -> the JAX package's nested parameter tree of
+    float32 numpy leaves (BatchNorm's running statistics left out: see
+    :func:`jax_batch_stats`)."""
+    flat = {k: v.detach().float().cpu().numpy()
+            for k, v in state_dict.items() if not _batch_stat(k)}
+    return _nest(_relayout(flat, _JAX, export=True))
+
+
+def jax_batch_stats(state_dict: StateDict) -> Dict[str, Any]:
+    """BatchNorm's running statistics of a port state dict (any prefix) as
+    the JAX package's ``batch_stats`` tree; {} where there are none."""
+    return _nest({k: v.detach().float().cpu().numpy()
+                  for k, v in state_dict.items() if _batch_stat(k)})
+
+
 def load_jax_params(model: torch.nn.Module, criterion: torch.nn.Module,
-                    jax_params: Dict[str, Any]) -> None:
+                    jax_params: Dict[str, Any],
+                    batch_stats: Optional[Dict[str, Any]] = None) -> None:
     """Load the JAX parameter tree into ``model`` and ``criterion``
-    (strict: every parameter of both must be present)."""
+    (strict: every parameter of both must be present), and BatchNorm's
+    running statistics from ``batch_stats`` (``TrainState.batch_stats``,
+    ``{"model": ...}``); without it the model keeps its own."""
     sd = params_from_jax(jax_params)
-    for prefix, module in (("model.", model), ("criterion.", criterion)):
-        module.load_state_dict(_strip(sd, prefix))
+    model_sd = _strip(sd, "model.")
+    model_sd.update(_stats_from_jax(batch_stats))
+    params = dict(model.named_parameters())
+    for k, v in model.state_dict().items():
+        if k not in params:
+            model_sd.setdefault(k, v)
+    model.load_state_dict(model_sd)
+    criterion.load_state_dict(_strip(sd, "criterion."))
+
+
+def _stats_from_jax(batch_stats: Optional[Dict[str, Any]]) -> StateDict:
+    """A JAX ``batch_stats`` tree, with or without its ``model`` level, as
+    the port's model buffers."""
+    stats = batch_stats or {}
+    stats = stats.get("model", stats)
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+            for k, v in _flatten(stats)}
 
 
 def _strip(sd: Dict[str, Any], prefix: str) -> Dict[str, Any]:
@@ -205,11 +284,14 @@ def _reference(sd: Dict[str, Any], rules: Rules, export: bool = False
         {k: _tensor(v) for k, v in sd.items()}, rules, export).items()}
 
 
-def _refuse_batch_norm(sd: Dict[str, Any], config: CPCConfig) -> None:
-    if config.normMode != "layerNorm" or any(
-            "running_mean" in k or "running_var" in k for k in sd):
-        raise NotImplementedError(f"normMode={config.normMode!r} (and "
-                                  f"batchNorm statistics) {_NOT_PORTED}")
+def _encoder_rules(config: CPCConfig) -> Rules:
+    """The encoder's table: LFB's ``conv``, none for MFCC; for the conv
+    encoder its ``conv{i}`` and the norms of ``--normMode``."""
+    if config.encoder_type == "lfb":
+        return (("conv.{p}", "conv.{p}", _SAME),)
+    if config.encoder_type == "mfcc":
+        return ()
+    return (("conv{i}.{p}", "conv{i}.{p}", _SAME),) + _NORMS[config.normMode]
 
 
 def _ar_rules(sd: Dict[str, Any], config: CPCConfig, export: bool = False
@@ -233,25 +315,43 @@ def _ar_rules(sd: Dict[str, Any], config: CPCConfig, export: bool = False
 
 
 def convert_encoder(sd: Dict[str, Any], config: CPCConfig) -> StateDict:
-    """gEncoder.* reference keys (prefix stripped) -> the port's CPCEncoder
-    state dict: ``conv{i}.{weight,bias}`` as they are, the ChannelNorm's
-    ``batchNorm{i}.{weight,bias}`` (1, C, 1) -> ``norm{i}.*`` (C,)."""
-    if config.encoder_type != "cpc":
-        raise NotImplementedError(f"encoder_type={config.encoder_type!r} "
-                                  f"{_NOT_PORTED}")
-    _refuse_batch_norm(sd, config)
-    return _reference(sd, _ENCODER)
+    """gEncoder.* reference keys (prefix stripped) -> the port's encoder
+    state dict (:func:`_encoder_rules`): ``conv{i}.{weight,bias}`` as they
+    are, the norms' ``batchNorm{i}.*`` -> ``norm{i}.*`` (ChannelNorm's (1,
+    C, 1) affine -> (C,); BatchNorm's weight, bias, running_mean and
+    running_var -> scale, bias, mean and var), or the LFB's ``conv``."""
+    return _reference(sd, _encoder_rules(config))
 
 
 def convert_ar(sd: Dict[str, Any], config: CPCConfig) -> StateDict:
     """gAR.* reference keys (prefix stripped) -> the port's AR state dict:
     ``baseNet.{weight,bias}_{ih,hh}_l{l}`` -> ``layer{l}.*`` (same
     layout), or the transformer's ``{i}.*`` (after the optional position
-    embedding) -> ``layer{i}.*``."""
+    embedding) -> ``layer{i}.*``.  The bidirectional ARs' keys raise: no
+    ``--arMode`` builds them, in either package (convert them alone with
+    :func:`convert_bidir_tangled` / :func:`convert_bidir`)."""
     if any(k.startswith(("netForward.", "netBackward.", "ARNet."))
            for k in sd):
-        raise NotImplementedError(f"the bidirectional ARs {_NOT_PORTED}")
+        raise ValueError("a bidirectional AR (netForward / netBackward / "
+                         "ARNet keys) is no CPCModel's AR: no --arMode "
+                         "builds one, in either package")
     return _reference(sd, _ar_rules(sd, config))
+
+
+def convert_bidir_tangled(sd: Dict[str, Any]) -> StateDict:
+    """The reference's BiDIRARTangled state dict (one ``nn.GRU(
+    bidirectional=True)``, ``ARNet.*``) -> the port's BiDIRARTangled:
+    ``ARNet.*_l{l}`` -> ``layer{l}_fwd.*``, ``ARNet.*_l{l}_reverse`` ->
+    ``layer{l}_bwd.*`` (cpc_audio_tpu/convert.py:104-111)."""
+    return _reference(sd, _BIDIR_TANGLED)
+
+
+def convert_bidir(sd: Dict[str, Any]) -> StateDict:
+    """The reference's BiDIRAR state dict (two ``nn.GRU`` stacks,
+    ``netForward.*`` and ``netBackward.*``) -> the port's BiDIRAR:
+    ``{net}.*_l{l}`` -> ``{net}.layer{l}.*`` (cpc_audio_tpu/convert.py
+    :114-120)."""
+    return _reference(sd, _BIDIR)
 
 
 def convert_cpc_model(state_dict: Dict[str, Any], config: CPCConfig
@@ -274,22 +374,31 @@ def export_cpc_model(model: Union[torch.nn.Module, StateDict],
     sd = model.state_dict() if isinstance(model, torch.nn.Module) else model
     ar = _strip(sd, "gAR.")
     out = {f"gEncoder.{k}": v for k, v in _reference(
-        _strip(sd, "gEncoder."), _ENCODER, export=True).items()}
+        _strip(sd, "gEncoder."), _encoder_rules(config), export=True).items()}
     out.update({f"gAR.{k}": v for k, v in _reference(
         ar, _ar_rules(ar, config, export=True), export=True).items()})
     return out
 
 
+def _head_rules(rnn_mode: str) -> Rules:
+    """One reference head's table for ``--rnnMode`` (any other value
+    builds linear heads, as in both packages)."""
+    if rnn_mode in ("RNN", "LSTM"):
+        return _HEADS["recurrent"]
+    if rnn_mode and rnn_mode.startswith("conv"):
+        return _HEADS["conv"]
+    return _HEADS.get(rnn_mode, _HEADS["linear"])
+
+
 def convert_prediction_network(sd: Dict[str, Any], config: CPCConfig
                                ) -> StateDict:
     """``wPrediction.predictors.{k}.*`` (prefix ``wPrediction.`` stripped)
-    -> the port's K-stacked ``heads.layer0.*``."""
-    if config.rnnMode != "transformer":
-        raise NotImplementedError(f"rnnMode={config.rnnMode!r} heads "
-                                  f"{_NOT_PORTED}")
-    heads = [_reference(_strip(sd, f"predictors.{k}.0."), _TRANSFORMER_LAYER)
+    -> the port's K-stacked ``heads.*`` of ``--rnnMode`` (:func:`_head_rules`;
+    cpc_audio_tpu/convert.py:186-231)."""
+    rules = _head_rules(config.rnnMode)
+    heads = [_reference(_strip(sd, f"predictors.{k}."), rules)
              for k in range(config.nPredicts)]
-    return {f"heads.layer0.{name}": torch.stack([h[name] for h in heads])
+    return {f"heads.{name}": torch.stack([h[name] for h in heads])
             for name in heads[0]}
 
 
@@ -307,7 +416,8 @@ def convert_criterion(state_dict: Dict[str, Any], config: CPCConfig,
 
     if kind == "cpc":
         if "speakerEmb.weight" in state_dict:
-            raise NotImplementedError(f"speakerEmbedding {_NOT_PORTED}")
+            out["speakerEmb.embedding"] = _tensor(
+                state_dict["speakerEmb.weight"])
         out.update({f"wPrediction.{k}": v for k, v in
                     convert_prediction_network(
                         _strip(state_dict, "wPrediction."), config).items()})
@@ -332,11 +442,6 @@ def convert_criterion(state_dict: Dict[str, Any], config: CPCConfig,
 # Any checkpoint format -> the port's state dicts and TrainState
 # ---------------------------------------------------------------------------
 
-def _refuse_batch_stats(data: Dict[str, Any]) -> None:
-    if data.get("batch_stats"):
-        raise NotImplementedError(f"batchNorm statistics {_NOT_PORTED}")
-
-
 def model_state_dict(data: Dict[str, Any], config: CPCConfig) -> StateDict:
     """The port's model state dict from ``data["gEncoder"]`` of a
     checkpoint of any format (checkpoint.load_checkpoint)."""
@@ -344,9 +449,10 @@ def model_state_dict(data: Dict[str, Any], config: CPCConfig) -> StateDict:
     if fmt == ckpt.FORMAT:
         return dict(data["gEncoder"])
     if fmt == ckpt.JAX_FORMAT:
-        _refuse_batch_stats(data)
-        return _strip(params_from_jax({"model": data["gEncoder"]}),
-                      "model.")
+        # the pickle's batch_stats: TrainState.batch_stats, {"model": ...}
+        return {**_strip(params_from_jax({"model": data["gEncoder"]}),
+                         "model."),
+                **_stats_from_jax(data.get("batch_stats"))}
     return convert_cpc_model(dict(data["gEncoder"]), config)
 
 

@@ -26,6 +26,13 @@ every device.  On one device JAX's train step still runs under
 with a pool set ``auto`` resolves to ``exact`` and ``stratified`` takes
 the materialised sampler; the port does the same, with the local batch
 as the pool.
+
+``mode="reverse"`` (``--cpc_mode reverse``) flips c and z in time before
+anything else (infonce.py:498-500); ``speaker_embedding`` E > 0 adds a
+``speakerEmb`` table of n_speakers x E, whose row for each window's
+speaker is broadcast over the anchors and concatenated to c, so the heads
+read hiddenGar + E channels (infonce.py:485-489, :532-536).
+``--cpc_mode none`` builds :class:`NoneCriterion`.
 """
 
 from __future__ import annotations
@@ -35,9 +42,10 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from .._common import compute_dtype, fused_layer_switches
+from .._common import fused_layer_switches
 from ..config import CPCConfig
-from ..ops import dropout, ffn, head_attention, scatter_add
+from ..models.encoder import encoding_dtype
+from ..ops import dropout, ffn, head_attention, lstm, scatter_add
 from ..ops.feistel import ROUNDS, feistel_inverse, feistel_permute
 from ..ops.scatter_add import scatter_add_rows
 from .prediction import PredictionNetwork
@@ -352,6 +360,30 @@ def info_nce_reduce(pos_score: torch.Tensor, neg_score: torch.Tensor,
 
 # ---- the criterion ------------------------------------------------------------
 
+class NoneCriterion(nn.Module):
+    """The zero loss of ``--cpc_mode none`` (infonce.py:84-90): losses and
+    accuracies one zero each, outside any graph.  A train step under it
+    leaves the parameters as they are and advances Adam's count, as JAX's
+    zero gradients do (parallel/train_step.py)."""
+
+    def forward(self, c_feature: torch.Tensor, encoded: torch.Tensor,
+                label=None, train: bool = False, **streams
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        z = torch.zeros(1, device=c_feature.device)
+        return z, z
+
+
+class _Embed(nn.Module):
+    """The speaker table under flax ``nn.Embed``'s parameter name,
+    ``embedding (n, E)``; seeded N(0, 1 / n)."""
+
+    def __init__(self, n: int, features: int,
+                 generator: Optional[torch.Generator]):
+        super().__init__()
+        self.embedding = nn.Parameter(
+            torch.randn(n, features, generator=generator) / n ** 0.5)
+
+
 class CPCUnsupervisedCriterion(nn.Module):
     """K-step InfoNCE with within-batch negatives (infonce.py:449).
 
@@ -371,8 +403,12 @@ class CPCUnsupervisedCriterion(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  dropout: bool = False, attention_block: bool = False,
                  stop_grad_negatives: bool = False,
-                 negative_sampling_scope: str = "device"):
+                 negative_sampling_scope: str = "device",
+                 mode: Optional[str] = None, speaker_embedding: int = 0,
+                 n_speakers: int = 0):
         super().__init__()
+        if mode not in (None, "reverse"):
+            raise ValueError("Invalid mode")
         if sampling_mode not in SAMPLING_MODES:
             raise ValueError(f"unknown sampling_mode {sampling_mode!r}; "
                              f"expected one of {sorted(SAMPLING_MODES)}")
@@ -380,19 +416,24 @@ class CPCUnsupervisedCriterion(nn.Module):
             raise ValueError(f"unknown negative_sampling_scope "
                              f"{negative_sampling_scope!r}; expected "
                              f"device|global")
-        if dim_output_ar != dim_output_encoder:
-            raise ValueError("transformer heads need hiddenGar == "
-                             "hiddenEncoder")
+        dim_input = dim_output_ar + speaker_embedding
+        if rnn_mode == "transformer" and dim_input != dim_output_encoder:
+            raise ValueError("transformer heads need hiddenGar + "
+                             "speakerEmbedding == hiddenEncoder")
+        self.mode = mode
         self.n_predicts = n_predicts
         self.dim_output_encoder = dim_output_encoder
         self.negative_sampling_ext = negative_sampling_ext
         self.sampling_mode = sampling_mode
         self.stop_grad_negatives = stop_grad_negatives
         self.negative_sampling_scope = negative_sampling_scope
+        if speaker_embedding > 0:
+            self.speakerEmb = _Embed(n_speakers, speaker_embedding,
+                                     generator)
         self.wPrediction = PredictionNetwork(
             n_predicts, dim_output_encoder, rnn_mode,
             size_input_seq - n_predicts, generator, dropout,
-            attention_block)
+            attention_block, dim_input)
 
     def sampler(self, B: int, S: int) -> str:
         """The sampler a (B, S) batch resolves to (infonce.py:549-581):
@@ -420,6 +461,8 @@ class CPCUnsupervisedCriterion(nn.Module):
                 neg_seed: Optional[torch.Tensor] = None,
                 negatives: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.mode == "reverse":
+            encoded, c_feature = encoded.flip(1), c_feature.flip(1)
         B, S, _ = c_feature.shape
         K = self.n_predicts
         W = S - K
@@ -433,7 +476,12 @@ class CPCUnsupervisedCriterion(nn.Module):
                                        generator=generator,
                                        dtype=torch.int64)
         pos = stack_positives(encoded, K, W)                 # (K, B, W, C)
-        preds = self.wPrediction(c_feature[:, :W], train, seed)  # (K,B,W,C)
+        c = c_feature[:, :W]
+        if hasattr(self, "speakerEmb"):
+            emb = self.speakerEmb.embedding[label.long()]       # (B, E)
+            c = torch.cat([c, emb[:, None].expand(B, W, -1).to(c.dtype)],
+                          dim=2)
+        preds = self.wPrediction(c, train, seed)             # (K, B, W, C)
 
         if mode == "fused stratified":
             # the (B, W, N, C) negatives never materialise
@@ -478,38 +526,48 @@ class CPCUnsupervisedCriterion(nn.Module):
 
 def check_kernels(config: CPCConfig) -> None:
     """Raise ValueError, naming the flag, for a config whose criterion the
-    port cannot run on the card: the transformer heads' widths, and the
-    gates of K2, K3 and K8.  A refused shape is run by no plain version in
-    its place.  Under ``CPC_ATTN_BLOCK=1`` the heads run K6
-    where its gate takes the shape and K2 elsewhere, as the JAX package
-    runs its whole-block kernel only where its own gate takes it (at
-    ``--hiddenEncoder 512`` or ``--sizeWindow 40960`` neither does).  Runs
-    without a card."""
+    port cannot run on the card: for the transformer heads their widths
+    (hiddenGar + speakerEmbedding == hiddenEncoder, as the JAX heads need
+    too) and the gates of K2 and K3, for the LSTM heads K1's at H =
+    hiddenEncoder, and K8's for every head type.  A refused shape is run
+    by no plain version in its place.  Under ``CPC_ATTN_BLOCK=1`` the
+    heads run K6 where its gate takes the shape and K2 elsewhere, as the
+    JAX package runs its whole-block kernel only where its own gate takes
+    it (at ``--hiddenEncoder 512`` or ``--sizeWindow 40960`` neither
+    does).  The kernels take z's dtype (``encoding_dtype``: float32 under
+    MFCC, LFB and batchNorm).  Runs without a card."""
     problems = []
     D, H, W = config.hiddenEncoder, config.hiddenGar, config.sizeWindow
+    E = config.speakerEmbedding
     S = W // 160 - config.nPredicts
-    dtype = compute_dtype(config.compute_dtype)
+    dtype = encoding_dtype(config)
     nheads, dff = 8, 2048   # the heads' (StackedTransformerHeads defaults)
-    if H != D:
-        problems.append(f"--hiddenGar {H} with --hiddenEncoder {D}: the "
-                        f"transformer prediction heads (--rnnMode "
-                        f"transformer, the heads ported) take hiddenGar == "
-                        f"hiddenEncoder; the other --rnnMode heads are "
-                        f"ROADMAP Queue 1 item 11")
-    if D % nheads:
-        problems.append(f"--hiddenEncoder {D}: the heads' {nheads} "
-                        f"attention heads need a multiple of {nheads}")
-    else:
-        dk = D // nheads
-        why = head_attention.supported(S, dk)
+    if config.rnnMode == "transformer":
+        if H + E != D:
+            problems.append(f"--hiddenGar {H} with --hiddenEncoder {D}"
+                            + (f" and --speakerEmbedding {E}" if E else "")
+                            + ": the transformer prediction heads (--rnnMode "
+                            f"transformer) take hiddenGar + speakerEmbedding "
+                            f"== hiddenEncoder, in the JAX package too")
+        if D % nheads:
+            problems.append(f"--hiddenEncoder {D}: the heads' {nheads} "
+                            f"attention heads need a multiple of {nheads}")
+        else:
+            dk = D // nheads
+            why = head_attention.supported(S, dk)
+            if why:
+                problems.append(f"--sizeWindow {W} / --hiddenEncoder {D} "
+                                f"(K2, the heads' attention over S = {S} "
+                                f"frames, dk = {dk}): {why}")
+        why = ffn.supported(D, dff, dtype)
         if why:
-            problems.append(f"--sizeWindow {W} / --hiddenEncoder {D} (K2, "
-                            f"the heads' attention over S = {S} frames, dk "
-                            f"= {dk}): {why}")
-    why = ffn.supported(D, dff, dtype)
-    if why:
-        problems.append(f"--hiddenEncoder {D} (K3, the heads' FFN tail): "
-                        f"{why}")
+            problems.append(f"--hiddenEncoder {D} (K3, the heads' FFN "
+                            f"tail): {why}")
+    elif config.rnnMode == "LSTM":
+        why = lstm.supported(D)
+        if why:
+            problems.append(f"--hiddenEncoder {D} (K1, the --rnnMode LSTM "
+                            f"heads): {why}")
     why = scatter_add.supported(D, dtype)
     if why:
         problems.append(f"--hiddenEncoder {D} (K8, the exact and rolled "
@@ -520,16 +578,19 @@ def check_kernels(config: CPCConfig) -> None:
 
 
 def build_criterion(config: CPCConfig,
-                    generator: Optional[torch.Generator] = None
-                    ) -> CPCUnsupervisedCriterion:
-    """The CPC criterion for ``config`` (cpc_audio_tpu/train.py:37-58); its
-    heads run the whole-block kernel under ``CPC_ATTN_BLOCK=1``.  On one
-    device (the port's only one) ``negative_sampling_scope="global"``
-    draws from the local batch, as JAX does there."""
-    if config.cpc_mode is not None or config.speakerEmbedding:
-        raise NotImplementedError(
-            "cpc_mode / speakerEmbedding are not ported yet: ROADMAP "
-            "Queue 1 item 11 (non-default variants)")
+                    generator: Optional[torch.Generator] = None,
+                    n_speakers: int = 0) -> nn.Module:
+    """The criterion of the CPC objective for ``config``
+    (cpc_audio_tpu/train.py:37-58): :class:`NoneCriterion` under
+    ``--cpc_mode none``, else the InfoNCE criterion with its ``--rnnMode``
+    heads, ``--cpc_mode reverse`` and a speaker embedding over
+    ``n_speakers`` speakers where ``--speakerEmbedding`` > 0; the
+    transformer heads run the whole-block kernel under
+    ``CPC_ATTN_BLOCK=1``.  On one device (the port's only one)
+    ``negative_sampling_scope="global"`` draws from the local batch, as
+    JAX does there."""
+    if config.cpc_mode == "none":
+        return NoneCriterion()
     check_kernels(config)
     return CPCUnsupervisedCriterion(
         n_predicts=config.nPredicts,
@@ -543,4 +604,7 @@ def build_criterion(config: CPCConfig,
         dropout=config.dropout,
         attention_block=fused_layer_switches()[1],
         stop_grad_negatives=config.stopGradNegatives,
-        negative_sampling_scope=config.negative_sampling_scope)
+        negative_sampling_scope=config.negative_sampling_scope,
+        mode=config.cpc_mode,
+        speaker_embedding=config.speakerEmbedding,
+        n_speakers=n_speakers)

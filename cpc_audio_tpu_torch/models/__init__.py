@@ -1,9 +1,10 @@
-from .ar import CPCAR, NoAr
+from .ar import CPCAR, BiDIRAR, BiDIRARTangled, NoAr
 from .cpc import CPCModel, ConcatenatedModel, build_model, get_ar
-from .encoder import CPCEncoder
-from .norms import ChannelNorm
+from .encoder import CPCEncoder, LFBEncoder, MFCCEncoder, get_encoder
+from .norms import BatchNorm, ChannelNorm, Identity, InstanceNorm
 from .transformer import TransformerAR
 
-__all__ = ["CPCAR", "CPCEncoder", "CPCModel", "ChannelNorm",
-           "ConcatenatedModel", "NoAr", "TransformerAR", "build_model",
-           "get_ar"]
+__all__ = ["BatchNorm", "BiDIRAR", "BiDIRARTangled", "CPCAR", "CPCEncoder",
+           "CPCModel", "ChannelNorm", "ConcatenatedModel", "Identity",
+           "InstanceNorm", "LFBEncoder", "MFCCEncoder", "NoAr",
+           "TransformerAR", "build_model", "get_ar", "get_encoder"]

@@ -1,5 +1,6 @@
-"""Recurrent context networks CPCAR (GRU, LSTM, RNN) and NoAr
-(cpc_audio_tpu/models/ar.py:49-182).
+"""Recurrent context networks CPCAR (GRU, LSTM, RNN), NoAr and the
+bidirectional GRUs BiDIRARTangled and BiDIRAR
+(cpc_audio_tpu/models/ar.py:49-226).
 
 The input projection for the whole window is one matmul hoisted out of
 the recurrence (ar.py:75-77); only ``h . W_hh^T`` runs inside it:
@@ -14,7 +15,13 @@ the recurrence (ar.py:75-77); only ``h . W_hh^T`` runs inside it:
 The hidden carry is explicit: ``forward(x, hidden)`` returns ``(y,
 hidden_out)`` with a GRU/RNN state one (layers, B, H) tensor and an LSTM
 state an ``(h, c)`` pair of them, detached like the reference's carried
-state (ar.py:171).
+state (ar.py:171).  ``CPCAR(reverse=True)`` (``--cpc_mode reverse``)
+flips time before and after its layers.
+
+The bidirectional ARs are library modules, as in the JAX package, whose
+``--arMode`` builds neither: each direction is a GRU of width
+``dim_output // 2`` on K4, and the two outputs are concatenated on the
+channel axis.
 """
 
 from __future__ import annotations
@@ -70,15 +77,19 @@ class _RecurrentLayer(nn.Module):
 def _rnn_scan(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
               h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """tanh RNN, h_t = tanh(x_proj[t] + h_{t-1} . W_hh^T + b_hh), with a
-    float32 state like the kernels'; differentiable by torch autograd."""
-    w_t, b = w_hh.float().t(), b_hh.float()
+    float32 state like the kernels'; differentiable by torch autograd.
+    x_proj (..., B, T, H), w_hh (..., H, H), b_hh (..., H), h0 (..., B, H):
+    leading dims batch independent recurrences (the K prediction heads),
+    each step one batched product."""
+    w_t = w_hh.float().transpose(-1, -2)
+    b = b_hh.float().unsqueeze(-2)
     xp = x_proj.float()
     h = h0.float()
     ys = []
-    for t in range(x_proj.shape[1]):
-        h = torch.tanh(xp[:, t] + h @ w_t + b)
+    for t in range(x_proj.shape[-2]):
+        h = torch.tanh(xp[..., t, :] + torch.matmul(h, w_t) + b)
         ys.append(h)
-    return torch.stack(ys, dim=1).to(x_proj.dtype), h.to(h0.dtype)
+    return torch.stack(ys, dim=-2).to(x_proj.dtype), h.to(h0.dtype)
 
 
 class CPCAR(nn.Module):
@@ -86,7 +97,8 @@ class CPCAR(nn.Module):
 
     def __init__(self, dim_input: int, dim_output: int, num_layers: int = 1,
                  mode: str = "LSTM",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 reverse: bool = False):
         super().__init__()
         if mode not in MODES:
             raise ValueError(f"CPCAR mode must be one of {sorted(MODES)}, "
@@ -94,6 +106,7 @@ class CPCAR(nn.Module):
         self.dim_output = dim_output
         self.num_layers = num_layers
         self.mode = mode
+        self.reverse = reverse
         for layer in range(num_layers):
             c_in = dim_input if layer == 0 else dim_output
             setattr(self, f"layer{layer}",
@@ -115,12 +128,14 @@ class CPCAR(nn.Module):
         if hidden is None:
             hidden = self.zero_state(x.shape[0], x.dtype, x.device)
         new_hidden = []
-        y = x
+        y = x.flip(1) if self.reverse else x
         for layer in range(self.num_layers):
             h0 = (hidden[0][layer], hidden[1][layer]) \
                 if self.mode == "LSTM" else hidden[layer]
             y, hT = getattr(self, f"layer{layer}")(y, h0)
             new_hidden.append(hT)
+        if self.reverse:
+            y = y.flip(1)
         if self.mode == "LSTM":
             return y, (torch.stack([h for h, _ in new_hidden]).detach(),
                        torch.stack([c for _, c in new_hidden]).detach())
@@ -137,3 +152,58 @@ class NoAr(nn.Module):
     def forward(self, x: torch.Tensor, hidden=None, train: bool = False,
                 seed: Optional[torch.Tensor] = None):
         return x, hidden
+
+
+class BiDIRARTangled(nn.Module):
+    """Bidirectional GRU with torch's ``nn.GRU(bidirectional=True)``
+    semantics (ar.py:185-208): at every layer both directions read the
+    concatenated two-direction output of the layer before (layers
+    ``layer{l}_fwd`` / ``layer{l}_bwd``).  ``forward(x) -> (y, None)``
+    from zero states."""
+
+    def __init__(self, dim_input: int, dim_output: int, num_layers: int = 1,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if dim_output % 2:
+            raise ValueError(f"dim_output must be even, got {dim_output}")
+        H = dim_output // 2
+        self.num_layers = num_layers
+        for layer in range(num_layers):
+            c_in = dim_input if layer == 0 else dim_output
+            for d in ("fwd", "bwd"):
+                setattr(self, f"layer{layer}_{d}",
+                        _RecurrentLayer(c_in, H, "GRU", generator))
+
+    def forward(self, x: torch.Tensor, hidden=None, train: bool = False,
+                seed: Optional[torch.Tensor] = None):
+        y = x
+        for layer in range(self.num_layers):
+            fwd = getattr(self, f"layer{layer}_fwd")
+            bwd = getattr(self, f"layer{layer}_bwd")
+            h0 = y.new_zeros(y.shape[0], fwd.weight_hh.shape[1])
+            yf, _ = fwd(y, h0)
+            yb, _ = bwd(y.flip(1), h0)
+            y = torch.cat([yf, yb.flip(1)], dim=2)
+        return y, None
+
+
+class BiDIRAR(nn.Module):
+    """Bidirectional GRU as two independent multi-layer stacks (ar.py
+    :211-226): ``netForward`` reads x, ``netBackward`` reads x flipped in
+    time, and their outputs are concatenated at the end.
+    ``forward(x) -> (y, None)`` from zero states."""
+
+    def __init__(self, dim_input: int, dim_output: int, num_layers: int = 1,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if dim_output % 2:
+            raise ValueError(f"dim_output must be even, got {dim_output}")
+        H = dim_output // 2
+        self.netForward = CPCAR(dim_input, H, num_layers, "GRU", generator)
+        self.netBackward = CPCAR(dim_input, H, num_layers, "GRU", generator)
+
+    def forward(self, x: torch.Tensor, hidden=None, train: bool = False,
+                seed: Optional[torch.Tensor] = None):
+        yf, _ = self.netForward(x)
+        yb, _ = self.netBackward(x.flip(1))
+        return torch.cat([yf, yb.flip(1)], dim=2), None

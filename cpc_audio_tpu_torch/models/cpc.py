@@ -3,11 +3,14 @@
 
 ``model(batch, label, hidden, train, seed) -> (c, z, label, hidden_out)``
 with channels-last activations, as in the JAX package.  Parameters are
-float32; activations run in ``config.compute_dtype``.  The AR is any of
-the JAX package's ``--arMode``s: LSTM (K1 kernels), GRU (K4), RNN (a
-plain loop), transformer (K5 attention) or no_ar.  Only the transformer
-AR drops in training, from ``seed``; gradients flow through cuDNN convs
-and the AR's kernels.
+float32; activations run in ``config.compute_dtype``, but where the
+encoder gives float32 (``models/encoder.encoding_dtype``).  The encoder
+is any ``--encoder_type`` with any ``--normMode``; the AR any of the JAX
+package's ``--arMode``s: LSTM (K1 kernels), GRU (K4), RNN (a plain loop),
+transformer (K5 attention) or no_ar, flipped in time under ``--cpc_mode
+reverse``.  Only the transformer AR drops in training, from ``seed``;
+batchNorm's running statistics move in training (``train=True``);
+gradients flow through cuDNN convs and the AR's kernels.
 """
 
 from __future__ import annotations
@@ -20,25 +23,9 @@ from torch import nn
 from .._common import compute_dtype, fused_layer_switches
 from ..config import CPCConfig
 from ..ops import causal_attention, gru, lstm
-from .ar import CPCAR, MODES, NoAr
-from .encoder import CPCEncoder
+from .ar import CPCAR, NoAr
+from .encoder import encoding_dtype, get_encoder
 from .transformer import TransformerAR
-
-_NOT_PORTED = "ROADMAP Queue 1 item 11 (non-default variants)"
-AR_MODES = tuple(MODES) + ("no_ar", "transformer")
-
-
-def _check_supported(config: CPCConfig) -> None:
-    unsupported = {
-        "encoder_type": (config.encoder_type, ("cpc",)),
-        "normMode": (config.normMode, ("layerNorm",)),
-        "arMode": (config.arMode, AR_MODES),
-        "cpc_mode": (config.cpc_mode, (None,)),
-    }
-    for field, (value, ported) in unsupported.items():
-        if value not in ported:
-            raise NotImplementedError(
-                f"{field}={value!r} is not ported yet: {_NOT_PORTED}")
 
 
 def check_kernels(config: CPCConfig) -> None:
@@ -64,7 +51,7 @@ def check_kernels(config: CPCConfig) -> None:
                             f"its {nheads} heads need a multiple of "
                             f"{nheads}")
         else:
-            dtype = compute_dtype(config.compute_dtype)
+            dtype = encoding_dtype(config)
             why_dk = causal_attention.supported(1, D // nheads, dtype)
             why_s = causal_attention.supported(W // 160, D // nheads, dtype)
             if why_dk:
@@ -80,7 +67,8 @@ def check_kernels(config: CPCConfig) -> None:
 
 def get_ar(config: CPCConfig, generator: Optional[torch.Generator] = None
            ) -> nn.Module:
-    """Flag -> AR (cpc_audio_tpu/models/cpc.py:31-42)."""
+    """Flag -> AR (cpc_audio_tpu/models/cpc.py:31-42); the recurrent ARs
+    run flipped in time under ``--cpc_mode reverse``."""
     mode = config.arMode
     if mode == "transformer":
         # one transformer layer whatever nLevelsGRU says (cpc.py:35-38)
@@ -90,7 +78,7 @@ def get_ar(config: CPCConfig, generator: Optional[torch.Generator] = None
     if mode == "no_ar":
         return NoAr()
     return CPCAR(config.hiddenEncoder, config.hiddenGar, config.nLevelsGRU,
-                 mode, generator)
+                 mode, generator, reverse=config.cpc_mode == "reverse")
 
 
 class CPCModel(nn.Module):
@@ -100,11 +88,9 @@ class CPCModel(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  fused_conv: bool = False):
         super().__init__()
-        _check_supported(config)
         self.config = config
         self.dtype = compute_dtype(config.compute_dtype)
-        self.gEncoder = CPCEncoder(config.hiddenEncoder, generator,
-                                   fused_conv)
+        self.gEncoder = get_encoder(config, generator, fused_conv)
         self.gAR = get_ar(config, generator)
 
     def zero_state(self, batch: int, device) -> object:
@@ -115,7 +101,7 @@ class CPCModel(nn.Module):
 
     def forward(self, batch: torch.Tensor, label=None, hidden=None,
                 train: bool = False, seed: Optional[torch.Tensor] = None):
-        z = self.gEncoder(batch, self.dtype)             # (B, S, C)
+        z = self.gEncoder(batch, self.dtype, train)      # (B, S, C)
         c, hidden_out = self.gAR(z, hidden, train, seed)
         return c, z, label, hidden_out
 

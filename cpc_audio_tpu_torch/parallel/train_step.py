@@ -20,8 +20,14 @@
   the exact and rolled samplers' indices (``dropout.negative_indices``).
 * ``labels`` (the loader's, numpy or torch) go to the criterion: the
   supervised criteria need them (speaker ids (B,), or frame-aligned phones
-  (B, sizeWindow // 160)); the CPC criterion is called with None, as
-  before, when they are not given.
+  (B, sizeWindow // 160)), and so does the CPC criterion's speaker
+  embedding (speaker ids); else the CPC criterion is called with None.
+* In training the model runs with ``train=True``, so batchNorm's running
+  statistics move in place, as JAX's ``mutable=["batch_stats"]``.
+* A parameter outside the loss's graph takes a zero gradient, as
+  ``jax.grad`` gives it, so Adam still counts the step: under
+  ``--cpc_mode none`` (a loss with no graph) the parameters stay as they
+  are, the count advances and the moments stay zero.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import numpy as np
 import torch
 
 from .._common import precision_policy
+from ..criterion.infonce import NoneCriterion
 from ..ops import dropout
 from ..ops.feistel import ROUNDS
 
@@ -140,7 +147,12 @@ def make_train_step(state: TrainState, device) -> Callable:
         losses, acc = state.criterion(c, z, labels, train=True,
                                       round_keys=keys, seed=seed,
                                       neg_seed=neg_seed, negatives=negatives)
-        losses.sum().backward()
+        if not isinstance(state.criterion, NoneCriterion):
+            losses.sum().backward()
+        for group in state.optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         state.optimizer.step()
         state.step += 1
         return hid, {"losses": losses.detach(), "acc": acc.detach()}

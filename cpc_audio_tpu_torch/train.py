@@ -56,9 +56,10 @@ def get_criterion(config: CPCConfig, train_config: TrainConfig,
     """Criterion routing (cpc_audio_tpu/train.py:37-64): the CPC criterion
     unless ``--supervised``; then a phone probe with ``--pathPhone`` (CTC
     with ``--CTC``), else a speaker probe, on the context (hiddenGar) or,
-    with ``--onEncoder``, the encoding."""
+    with ``--onEncoder``, the encoding.  ``--cpc_mode none`` gives the
+    zero loss, ``--speakerEmbedding`` an embedding over ``n_speakers``."""
     if not train_config.supervised:
-        return build_criterion(config, generator)
+        return build_criterion(config, generator, n_speakers)
     dim = config.hiddenEncoder if config.onEncoder else config.hiddenGar
     if train_config.pathPhone is not None:
         if not train_config.CTC:
@@ -168,6 +169,9 @@ def run(train_dataset: AudioBatchData, val_dataset: AudioBatchData,
     # (cpc_audio_tpu/train.py:164-166)
     keep_hidden = config.samplingType == "sequential" \
         and config.arMode in ("GRU", "LSTM", "RNN")
+    # the loader's labels: the probes' targets, or the speaker ids of the
+    # CPC criterion's speaker embedding
+    use_labels = train_config.supervised or config.speakerEmbedding > 0
     n_epoch = config.nEpoch
     start_epoch = len(logs["epoch"])
     best_acc = -1.0
@@ -198,12 +202,12 @@ def run(train_dataset: AudioBatchData, val_dataset: AudioBatchData,
                       if epoch == start_epoch else None):
             loc_logs_train, hidden = train_epoch(
                 train_loader, train_step, hidden, ekey,
-                logs["logging_step"], train_config.supervised)
+                logs["logging_step"], use_labels)
         n_windows = loc_logs_train["iter"] * batch_size
         print(f"epoch throughput: "
               f"{n_windows / (time.perf_counter() - t0):.1f} windows/s")
         loc_logs_val, hidden = val_epoch(val_loader, val_step, hidden, vkey,
-                                         train_config.supervised)
+                                         use_labels)
         print(f"Ran {epoch + 1} epochs "
               f"in {time.time() - start_time:.2f} seconds")
 

@@ -313,30 +313,3 @@ def test_probe_chain_and_concatenated_model(tmp_path):
         np.testing.assert_allclose(z, np.asarray(want[1]), atol=1e-5)
     with open(os.path.join(probe, "checkpoint_args.json")) as f:
         assert json.load(f)["load"]
-
-
-@pytest.mark.parametrize("case", ["batchNorm", "bidirectional AR",
-                                  "linear heads", "speaker embedding"])
-def test_unported_reference_variants_name_roadmap_item(case):
-    """Reference state dicts of variants the port does not build are
-    refused, naming ROADMAP Queue 1 item 11, not half loaded."""
-    cfg = CPCConfig(**SMALL)
-    sd = tconvert.export_cpc_model(build_model(cfg), cfg)
-    if case == "batchNorm":
-        sd["gEncoder.batchNorm0.running_mean"] = torch.zeros(32)
-        call = functools.partial(tconvert.convert_cpc_model, sd, cfg)
-    elif case == "bidirectional AR":
-        sd = {("gAR.netForward." + k[len("gAR.baseNet."):]
-               if k.startswith("gAR.") else k): v for k, v in sd.items()}
-        call = functools.partial(tconvert.convert_cpc_model, sd, cfg)
-    elif case == "linear heads":
-        call = functools.partial(
-            tconvert.convert_criterion,
-            {f"wPrediction.predictors.{k}.weight": torch.zeros(32, 32)
-             for k in range(2)}, cfg.replace(rnnMode="linear"))
-    else:
-        call = functools.partial(tconvert.convert_criterion,
-                                 {"speakerEmb.weight": torch.zeros(2, 8)},
-                                 cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        call()
