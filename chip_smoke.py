@@ -198,6 +198,25 @@ Phases (any failure exits non-zero):
      reference fixture; K4 at B 8 / T 32 / H 64 on its rows bodies);
      phase 3 also holds K1 and K4 at those three shapes (VARIANT_SHAPES), forward with
      residuals and backward, in both dtypes, beside cuDNN in turns;
+  6e. the multi-rank step (phase_ranks, after phase_variants): (a) the
+     train CLI with --distributed as torchrun starts one rank (RANK 0,
+     WORLD_SIZE 1, NCCL), on phase_cli's tree and flags (default
+     architecture, bf16, batch 8), whose logged epoch must equal phase_cli's
+     first epoch bit for bit, and NCCL's version; (b) two gloo ranks
+     spawned on cuda:0 (the parent built the kernels) at the bench config,
+     B 32 a rank, dropout 0.1 in the heads: 3 steps of make_train_step with
+     the device scope, 3 with --negative_sampling_scope global and the exact
+     sampler (K8 on the 2 * 32 * 128 = 8192 pool rows, held against its
+     plain version on rank 0's gradients; rank 0 must draw rows of rank 1),
+     then one --normMode batchNorm step (the running statistics the mean of
+     the ranks' local updates); after every step the ranks' parameters must
+     be bit-identical; the first step is replayed in this process (both
+     shards' gradients, each with its rank's streams, summed, one Adam
+     step) within 5e-6; prints each rank's K1 / K2 / K3 / K8 launches and
+     step ms (host clock), the gloo all_reduce's ms and one step under
+     torch.profiler; (c) --nGPU 2 on the one card must run one rank ("Let's
+     use 1 devices"); phase 3 holds K8 at the pool's 8192 rows (the JSON
+     line's scatter_add_rows_pool) beside index_add_ in turns;
   7. print build_feature's latency again, one JSON line of per-kernel
      results (each kernel's launches from its own path's train run; the
      rows forwards' from the --hiddenGar 200 LSTM path and GRU model),
@@ -229,6 +248,7 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 1234
+RANKS = 2                 # phase_ranks: gloo ranks that share the card
 CALLS, REPS = 10, 3       # median_ms: calls per timed run, runs
 SPIN_HZ = 1.98e9          # H100 SXM boost clock: torch.cuda._sleep cycles
 
@@ -548,6 +568,18 @@ def kernel_cases(dev: torch.device, dtype: torch.dtype, B: int = 32):
                       lambda: sa.scatter_add_rows_ref(upd, keys, R),
                       (upd, order, offsets), upd.numel()))
     if dtype == torch.bfloat16:
+        # K8 on the global pool of RANKS ranks (phase_ranks): the same
+        # B*W*N keys into RANKS * B * S rows
+        pupd, pkeys, porder, poffsets, PR = scatter_inputs(dev, dtype, B,
+                                                           world=RANKS)
+        case = Case("scatter_add_rows", 0.0,
+                    lambda: sa.scatter_add_sorted(pupd, porder, poffsets),
+                    lambda: sa.scatter_add_rows_ref(pupd, pkeys, PR),
+                    (pupd, porder, poffsets), pupd.numel(),
+                    label=f"scatter_add_rows, the global pool of {RANKS} "
+                          f"ranks", shape=f"R {PR}")
+        case.entry = "scatter_add_rows_pool"
+        cases.append(case)
         skeys = torch.full_like(keys, R // 2)
         sorder, soffsets = sa.sort_keys(skeys, R)
         cases.append(Case("scatter_add_rows_skewed", 0.0,
@@ -940,22 +972,27 @@ def wide_cases(rand, seed, B: int = 32):
 
 
 def scatter_inputs(dev: torch.device, dtype: torch.dtype, B: int = 32,
-                   C: int = 256):
+                   C: int = 256, world: int = 1):
     """K8's inputs on the exact path at batch B: the (B*W*N, C) cotangent
     of the negatives, random, and the sampler's flat pool index (B = 32:
-    475,136 keys into R = 4096 rows), with its sorted form."""
+    475,136 keys into R = 4096 rows), with its sorted form; with ``world``
+    ranks under --negative_sampling_scope global the keys run over the
+    pool of every rank's batch (R = world * B * S: 8192 rows at 2)."""
     from cpc_audio_tpu_torch.criterion import infonce
     from cpc_audio_tpu_torch.ops import dropout
     from cpc_audio_tpu_torch.ops import scatter_add as sa
     S, K, N = 128, 12, 128
     W = S - K
+    R = world * B * S
     b, u = dropout.negative_indices(
-        torch.tensor([SEED], dtype=torch.int64, device=dev), (B, N, W), B, S)
-    keys = infonce.sample_negatives(torch.zeros(B, S, 1, device=dev), W, N,
-                                    b, u)[0].reshape(-1)
+        torch.tensor([SEED], dtype=torch.int64, device=dev), (B, N, W),
+        world * B, S)
+    keys = infonce.sample_negatives(
+        torch.zeros(B, S, 1, device=dev), W, N, b, u,
+        pool=torch.zeros(world * B, S, 1, device=dev))[0].reshape(-1)
     g = torch.Generator(device=dev).manual_seed(SEED + 9)
     upd = torch.randn((keys.shape[0], C), generator=g, device=dev).to(dtype)
-    return (upd, keys) + sa.sort_keys(keys, B * S) + (B * S,)
+    return (upd, keys) + sa.sort_keys(keys, R) + (R,)
 
 
 def conv_layers(rand, B: int = 32):
@@ -1107,6 +1144,10 @@ SOURCES = {
                     "cpc_audio_tpu/ops/pallas/conv_ln.py:105"),
     "scatter_add_rows": ("cpc_audio_tpu_torch/csrc/scatter_add.cu",
                          "cpc_audio_tpu/ops/pallas/scatter_add.py:39"),
+    # K8 under --negative_sampling_scope global on RANKS ranks
+    # (phase_ranks): the keys of the pool of every rank's batch
+    "scatter_add_rows_pool": ("cpc_audio_tpu_torch/csrc/scatter_add.cu",
+                              "cpc_audio_tpu/ops/pallas/scatter_add.py:39"),
     # K1's and K4's grid bodies (W_hh split over every SM), one header for
     # both, launched from the kernels' own sources: the JSON line's entries
     # at the --hiddenGar 1056 (K1) and GRU 512 (K4) paths' shapes
@@ -1904,6 +1945,23 @@ def scatter_wrapper_times(dev: torch.device, timings: dict,
               f"{sort_ms:.4f} ms); K8 alone, bf16: "
               f"{timings['scatter_add_rows']['ms']:.4f} ms; J = "
               f"{keys.shape[0]}, R = {R}", flush=True)
+    # K8 on the global pool of RANKS ranks beside index_add_ (bf16
+    # updates), in turns: the pool entry's yardstick
+    upd, keys, order, offsets, R = scatter_inputs(dev, torch.bfloat16, B,
+                                                  world=RANKS)
+    t = {"K8": [], "index_add_": []}
+    for who in ("K8", "index_add_", "index_add_", "K8"):
+        t[who].append(median_ms(
+            (lambda: sa.scatter_add_sorted(upd, order, offsets))
+            if who == "K8" else
+            (lambda: torch.zeros(R, upd.shape[1], device=dev).index_add_(
+                0, keys, upd.float()))))
+    timings["scatter_add_rows_pool"]["library_ms"] = \
+        statistics.median(t["index_add_"])
+    print(f"  scatter_add_rows bf16, the global pool (R {R}), in turns: K8 "
+          f"{t['K8'][0]:.4f} / {t['K8'][1]:.4f} ms, index_add_ "
+          f"{t['index_add_'][0]:.4f} / {t['index_add_'][1]:.4f} ms",
+          flush=True)
     # K8 at the rows of --hiddenEncoder 200 and 1056 in float32 (rows past
     # 4096 bytes walked in pieces) beside index_add_, in turns
     for C in (200, 1056):
@@ -4426,6 +4484,408 @@ def phase_variants(tmp: str, dev: torch.device) -> dict:
     return launches
 
 
+# ---- phase_ranks: the multi-rank step on the one card ----------------------
+
+RANK_B = 32               # rows a rank: the bench config's batch
+RANK_STEPS = 3
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def params_digest(*modules) -> str:
+    """sha256 of every state entry of ``modules``, bytes as on the card."""
+    import hashlib
+    h = hashlib.sha256()
+    for m in modules:
+        for k, v in sorted(m.state_dict().items()):
+            h.update(k.encode() + v.detach().contiguous().view(torch.uint8)
+                     .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def rank_config(scope: str, norm: str = "layerNorm"):
+    from cpc_audio_tpu_torch.config import CPCConfig
+    extra = {"negative_sampling_scope": "global",
+             "negativeSamplingMode": "exact"} if scope == "global" else {}
+    return CPCConfig(compute_dtype="bfloat16", normMode=norm, **extra)
+
+
+def rank_batch(cfg) -> np.ndarray:
+    """The global batch of RANKS * RANK_B windows every rank builds."""
+    return synthetic_audio(cfg.sizeWindow, RANKS * RANK_B, SEED + 31)
+
+
+class _PoolRecorder:
+    """Stands in for criterion/infonce's ``scatter_add_rows`` (the exact
+    sampler's backward) and ``sample_negatives``: records K8's pool rows
+    and whether the negatives drew rows of another rank, and holds K8's
+    first call against its plain version on the same inputs (which
+    launches nothing)."""
+
+    def __init__(self, infonce, sa, S: int):
+        self.infonce, self.sa, self.S = infonce, sa, S
+        self.rows, self.other_rank, self.err = [], [], None
+        self.scatter, self.sample = infonce.scatter_add_rows, \
+            infonce.sample_negatives
+
+    def __enter__(self):
+        def scatter(updates, keys, n_rows):
+            out = self.scatter(updates, keys, n_rows)
+            self.rows.append(n_rows)
+            if self.err is None:
+                want = self.sa.scatter_add_rows_ref(updates, keys, n_rows)
+                atol, rtol, why = TOLERANCE[("scatter_add_rows",
+                                             updates.dtype)]
+                self.err = compare(f"K8 at the pool's {n_rows} rows, rank "
+                                   f"0's exact-sampler backward", out, want,
+                                   atol, rtol, why)
+            return out
+
+        def sample(encoded, W, N, batch_idx, seq_off, pool=None):
+            idx, neg = self.sample(encoded, W, N, batch_idx, seq_off, pool)
+            rows = idx // self.S
+            from cpc_audio_tpu_torch.parallel import distributed
+            r, B = distributed.rank(), encoded.shape[0]
+            self.other_rank.append(bool(((rows < r * B) |
+                                         (rows >= (r + 1) * B)).any()))
+            return idx, neg
+        self.infonce.scatter_add_rows = scatter
+        self.infonce.sample_negatives = sample
+        return self
+
+    def __exit__(self, *exc):
+        self.infonce.scatter_add_rows = self.scatter
+        self.infonce.sample_negatives = self.sample
+
+
+def _allreduce_profile(step, batch, key) -> dict:
+    """torch.profiler over one step: the device time of the step's
+    kernels and copies, and of the copies alone (gloo reduces on the
+    host: every CUDA gradient goes to the host and back), and the host
+    time of the gloo all_reduce calls."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(batch, key=key)
+        torch.cuda.synchronize()
+    out = {"allreduce_host_ms": 0.0, "memcpy_device_ms": 0.0,
+           "device_ms": 0.0}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        out["device_ms"] += dev_us / 1e3
+        if "all_reduce" in ev.key and "gloo" in ev.key:
+            out["allreduce_host_ms"] += ev.cpu_time_total / 1e3
+        if ev.key.startswith("Memcpy"):
+            out["memcpy_device_ms"] += dev_us / 1e3
+    return out
+
+
+def _rank_run(r: int, dev, scope: str, norm: str = "layerNorm",
+              steps: int = RANK_STEPS, profile: bool = False) -> dict:
+    """One rank's steps of the config: launches, losses, per-step digests
+    and host ms, and for batchNorm its local statistics and those after
+    the step."""
+    from cpc_audio_tpu_torch.criterion import build_criterion, infonce
+    from cpc_audio_tpu_torch.models import build_model
+    from cpc_audio_tpu_torch.ops import scatter_add as sa
+    from cpc_audio_tpu_torch.parallel import distributed
+    from cpc_audio_tpu_torch.parallel.train_step import (batch_stats,
+                                                         create_train_state,
+                                                         epoch_key,
+                                                         make_train_step)
+    cfg = rank_config(scope, norm)
+    gen = torch.Generator().manual_seed(SEED)
+    model = build_model(cfg, gen)
+    crit = build_criterion(model.config, gen)
+    state = create_train_state(model, crit, dev, cfg.learningRate)
+    distributed.broadcast_([*model.state_dict().values(),
+                            *crit.state_dict().values()])
+    start = params_digest(model, crit)
+    x = torch.from_numpy(distributed.rank_rows(rank_batch(cfg))).to(dev)
+    key = epoch_key(SEED, 0, dev)
+    step = make_train_step(state, dev)
+    out = {"start": start, "digests": [], "ms": [], "losses": []}
+    if norm == "batchNorm":
+        local = copy.deepcopy(model)
+        with torch.no_grad():
+            local(x, train=True)
+        out["local"] = [t.to("cpu", copy=True) for t in batch_stats(local)]
+        del local
+    S = cfg.sizeWindow // 160
+    with _PoolRecorder(infonce, sa, S) as rec:
+        fns = reset_counts()
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = step(x, key=key)
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["losses"].append(m["losses"].float().cpu())
+            out["digests"].append(params_digest(model, crit))
+            if i == 0 and profile:
+                out["params1"] = {k: v.detach().to("cpu", torch.float32,
+                                                   copy=True)
+                                  for mod in (model, crit)
+                                  for k, v in mod.state_dict().items()}
+        out["launches"] = {k: fn.launches for k, fn in fns.items()}
+    out.update(pool_rows=rec.rows, other_rank=rec.other_rank,
+               k8_err=rec.err)
+    if norm == "batchNorm":
+        out["stats"] = [t.to("cpu", copy=True) for t in batch_stats(model)]
+    if profile:
+        out["profile"] = _allreduce_profile(step, x, key)
+        # the gradients' sum over ranks alone, as the step runs it (one
+        # flat float32 buffer): host clock around a synchronised call
+        grads = [p.grad for g in state.optimizer.param_groups
+                 for p in g["params"]]
+        out["grad_bytes"] = sum(t.numel() * t.element_size() for t in grads)
+        out["allreduce_ms"] = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            distributed.sum_(grads)
+            torch.cuda.synchronize()
+            out["allreduce_ms"].append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _rank_child(r: int, n: int, store: str, out_dir: str) -> None:
+    """A gloo rank on cuda:0 (spawned; the parent built the kernels)."""
+    sys.path.insert(0, HERE)
+    from cpc_audio_tpu_torch import _common
+    from cpc_audio_tpu_torch.ops import _build
+    from cpc_audio_tpu_torch.parallel import distributed
+    _common.precision_policy()
+    dev = torch.device("cuda", 0)
+    if not os.path.isfile(_build.library_path()):
+        fail(f"rank {r}: the kernel library is not built")
+    distributed.init(r, n, dev, f"file://{store}", backend_name="gloo")
+    try:
+        results = {"device": _rank_run(r, dev, "device", profile=True),
+                   "global": _rank_run(r, dev, "global"),
+                   "batchNorm": _rank_run(r, dev, "global", "batchNorm",
+                                          steps=1)}
+        barrier = _build.grid_barrier(dev)
+        results["barrier"] = (os.getpid(), barrier.data_ptr())
+    finally:
+        distributed.close()
+    torch.save(results, os.path.join(out_dir, f"rank{r}.pt"))
+
+
+def rank_replay(dev: torch.device) -> dict:
+    """The first two-rank step, replayed in this process (no group): the
+    two shards' gradients, each with its rank's streams, summed, then one
+    Adam step from the same start; the parameters after it."""
+    from cpc_audio_tpu_torch.criterion import build_criterion
+    from cpc_audio_tpu_torch.models import build_model
+    from cpc_audio_tpu_torch.parallel.train_step import (create_train_state,
+                                                         epoch_key,
+                                                         reduce_grads,
+                                                         step_streams)
+    cfg = rank_config("device")
+    gen = torch.Generator().manual_seed(SEED)
+    model = build_model(cfg, gen)
+    crit = build_criterion(model.config, gen)
+    state = create_train_state(model, crit, dev, cfg.learningRate)
+    key = epoch_key(SEED, 0, dev)
+    batch = rank_batch(cfg)
+    model.train()
+    crit.train()
+    state.optimizer.zero_grad(set_to_none=True)
+    for r in range(RANKS):
+        x = torch.from_numpy(batch[r * RANK_B:(r + 1) * RANK_B]).to(dev)
+        seed, keys, neg_seed = step_streams(key, state.step, r)
+        c, z, _, _ = model(x, None, None, train=True, seed=seed)
+        losses, _ = crit(c, z, None, train=True, round_keys=keys, seed=seed,
+                         neg_seed=neg_seed)
+        losses.sum().backward()
+    reduce_grads(state.optimizer)
+    state.optimizer.step()
+    return {k: v.detach().float().cpu() for m in (model, crit)
+            for k, v in m.state_dict().items()}
+
+
+def ranks_nccl_cli(tmp: str) -> None:
+    """(a) The train CLI with --distributed as torchrun would start one
+    rank: NCCL at world size 1, on phase_cli's tree and flags (the
+    default architecture, bf16, batch 8); its logged losses must equal
+    phase_cli's first epoch bit for bit (a one-rank sum is the
+    identity)."""
+    db = os.path.join(tmp, "db")
+    out = os.path.join(tmp, "ckpt_nccl")
+    argv = ["--pathDB", db, "--file_extension", ".wav", "--pathCheckpoint",
+            out, "--compute_dtype", "bfloat16", "--batchSizeGPU", "8",
+            "--nEpoch", "1", "--n_process_loader", "2", "--ignore_cache",
+            "--random_seed", str(SEED), "--arMode", "LSTM", "--distributed"]
+    port = free_port()
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "cpc_audio_tpu_torch.train"]
+                       + argv, cwd=HERE, env=env, capture_output=True,
+                       text=True, timeout=600)
+    if r.returncode != 0:
+        fail(f"the --distributed CLI (NCCL, world 1) exited "
+             f"{r.returncode}: {r.stdout[-1500:]} {r.stderr[-1500:]}")
+    with open(os.path.join(out, "checkpoint_logs.json")) as f:
+        got = json.load(f)
+    with open(os.path.join(tmp, "ckpt_LSTM_8_0", "checkpoint_logs.json")) as f:
+        want = json.load(f)
+    keys = [k for k in got if k.startswith("loc")]
+    same = {k: got[k][0] == want[k][0] for k in keys}
+    print(f"(a) --distributed, NCCL {torch.cuda.nccl.version()}, world 1 "
+          f"(MASTER_PORT {port}): rc 0 in {time.perf_counter() - t0:.1f} s; "
+          f"{[ln for ln in r.stdout.splitlines() if 'devices' in ln]}; "
+          f"epoch 0 against phase_cli's, bit for bit: {same}; train losses "
+          f"{got['locLoss_train'][0]}", flush=True)
+    if not keys or not all(same.values()):
+        fail(f"the NCCL world-1 CLI's logs differ from phase_cli's: "
+             f"{ {k: (got[k][0], want[k][0]) for k in keys} }")
+
+
+def phase_ranks(tmp: str, dev: torch.device) -> dict:
+    """(a) NCCL at world 1 through the CLI, (b) RANKS gloo ranks on the
+    card, (c) --nGPU 2 clamped to the one card; returns the JSON line's
+    launches of K8 on the pool (rank 0's, under the global scope)."""
+    t0 = time.time()
+    ranks_nccl_cli(tmp)
+    print(f"[phase ranks (a) {time.time() - t0:.1f} s]", flush=True)
+    t1 = time.time()
+    pool_launches = ranks_two_gloo(tmp, dev)
+    print(f"[phase ranks (b) {time.time() - t1:.1f} s]", flush=True)
+    t1 = time.time()
+    ranks_clamped(tmp)
+    print(f"[phase ranks (c) {time.time() - t1:.1f} s]", flush=True)
+    print(f"[phase ranks {time.time() - t0:.1f} s]", flush=True)
+    return {"scatter_add_rows_pool": pool_launches}
+
+
+def ranks_clamped(tmp: str) -> None:
+    """(c) --nGPU 2 on a one-card host runs one rank, as JAX clamps it."""
+    from cpc_audio_tpu_torch import train
+    argv = default_argv(os.path.join(tmp, "db"),
+                        os.path.join(tmp, "ckpt_ngpu2"), "bfloat16",
+                        "--nGPU", "2")
+    lines = _run_cli(train, argv, "--nGPU 2 on one card",
+                     PATH_KERNELS["LSTM"])
+    said = [ln for ln in lines if ln.startswith("Let's use")]
+    print(f"(c) --nGPU 2 on {torch.cuda.device_count()} card: {said}",
+          flush=True)
+    if not said or not said[0].startswith("Let's use 1 devices"):
+        fail(f"--nGPU 2 on one card did not run one rank: {said}")
+
+
+def ranks_two_gloo(tmp: str, dev: torch.device) -> int:
+    """(b) RANKS gloo ranks, spawned, both on cuda:0, at the bench config
+    (hiddenEncoder = hiddenGar = 256, 12 heads, 128 negatives, sizeWindow
+    20480, bf16, dropout 0.1 in the heads) with RANK_B rows a rank:
+    RANK_STEPS steps of make_train_step with the device scope, then with
+    --negative_sampling_scope global (exact sampler), then one
+    --normMode batchNorm step.  Returns rank 0's K8 launches on the
+    pool."""
+    import torch.multiprocessing as mp
+    out_dir = os.path.join(tmp, "ranks")
+    os.makedirs(out_dir, exist_ok=True)
+    torch.cuda.empty_cache()        # the card's memory for the ranks
+    t0 = time.perf_counter()
+    mp.start_processes(_rank_child, args=(RANKS, os.path.join(out_dir,
+                                                              "store"),
+                                          out_dir),
+                       nprocs=RANKS, join=True, start_method="spawn")
+    print(f"(b) {RANKS} gloo ranks on cuda:0: done in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    res = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                      weights_only=False) for r in range(RANKS)]
+    for part in ("device", "global", "batchNorm"):
+        a, b = res[0][part], res[1][part]
+        if a["start"] != b["start"]:
+            fail(f"(b) {part}: the ranks started from other weights")
+        for i, (da, db) in enumerate(zip(a["digests"], b["digests"])):
+            if da != db:
+                fail(f"(b) {part}: the ranks' parameters differ after step "
+                     f"{i + 1}")
+        for r, rr in enumerate(res):
+            got = rr[part]
+            losses = torch.stack(got["losses"])
+            if not torch.isfinite(losses).all():
+                fail(f"(b) {part} rank {r}: losses not finite")
+            names = ("lstm_fwd", "lstm_bwd", "relpos_attention_fwd",
+                     "relpos_attention_bwd", "layer_tail_fwd",
+                     "layer_tail_bwd", "scatter_add_rows")
+            print(f"(b) {part} rank {r}: launches "
+                  f"{ {k: got['launches'][k] for k in names} }, step ms "
+                  f"(host clock) {[round(t, 2) for t in got['ms']]}, "
+                  f"loss sums "
+                  f"{[round(float(v.sum()), 4) for v in got['losses']]}",
+                  flush=True)
+            want = PATH_KERNELS["LSTM"] + (("scatter_add_rows",)
+                                            if part != "device" else ())
+            for k in want:
+                if got["launches"][k] <= 0:
+                    fail(f"(b) {part} rank {r} did not launch {k}")
+        print(f"(b) {part}: parameters bit-identical across ranks after "
+              f"each of {len(a['digests'])} steps", flush=True)
+    # the global pool: K8 on RANKS * B * S rows, rank 0 draws rank 1's rows
+    g0 = res[0]["global"]
+    rows = RANKS * RANK_B * (rank_config("global").sizeWindow // 160)
+    if not g0["pool_rows"] or set(g0["pool_rows"]) != {rows}:
+        fail(f"(b) global: K8 ran on {g0['pool_rows']} pool rows, not "
+             f"{rows}")
+    if not all(g0["other_rank"]):
+        fail("(b) global: rank 0's negatives drew no row of rank 1")
+    print(f"(b) global: K8 on {rows} pool rows, {len(g0['pool_rows'])} "
+          f"calls, against its plain version max |err| {g0['k8_err']:.3e}; "
+          f"rank 0 drew rows of rank 1 in every step", flush=True)
+    # batchNorm: the running statistics are the mean of the local updates
+    bn = [rr["batchNorm"] for rr in res]
+    worst = 0.0
+    for i, stat in enumerate(bn[0]["stats"]):
+        mean_local = (bn[0]["local"][i] + bn[1]["local"][i]) / 2
+        worst = max(worst, (stat - mean_local).abs().max().item())
+        if not torch.equal(stat, bn[1]["stats"][i]):
+            fail("(b) batchNorm: the ranks' running statistics differ")
+    differs = any(not torch.allclose(s0, l0) for s0, l0 in
+                  zip(bn[0]["stats"], bn[0]["local"]))
+    print(f"(b) batchNorm: running statistics = the mean of the ranks' "
+          f"local updates within {worst:.3e}; not rank 0's own: {differs}",
+          flush=True)
+    if worst > 1e-5 or not differs:
+        fail(f"(b) batchNorm: running statistics are not the rank mean "
+             f"({worst:.3e}, differs {differs})")
+    # the replay: one process, the two shards' gradients summed
+    first = res[0]["device"]
+    replay = rank_replay(dev)
+    torch.cuda.empty_cache()
+    diff = max((replay[k] - v).abs().max().item()
+               for k, v in first["params1"].items())
+    same = all(torch.equal(replay[k], v) for k, v in first["params1"].items())
+    print(f"(b) replay in one process (both shards' gradients, each with "
+          f"its rank's streams, summed; one Adam step): parameters after "
+          f"step 1 within {diff:.3e} of rank 0's (bit-equal: {same}; "
+          f"tolerance 5e-6, tests/test_torch_distributed.py)", flush=True)
+    if diff > 5e-6:
+        fail(f"(b) the two-rank step is not the replay's: {diff:.3e}")
+    print(f"(b) per-rank step ms (host clock, both ranks on one card): "
+          f"rank 0 {[round(t, 2) for t in first['ms']]}, rank 1 "
+          f"{[round(t, 2) for t in res[1]['device']['ms']]}; the gradients' "
+          f"gloo all_reduce alone ({first['grad_bytes'] / 1e6:.1f} MB "
+          f"float32), host clock: rank 0 "
+          f"{[round(t, 2) for t in first['allreduce_ms']]} ms, rank 1 "
+          f"{[round(t, 2) for t in res[1]['device']['allreduce_ms']]} ms; "
+          f"one step under torch.profiler (rank 0): {first['profile']}",
+          flush=True)
+    print(f"(b) each rank's grid-barrier word (pid, address): "
+          f"{[rr['barrier'] for rr in res]}", flush=True)
+    return g0["launches"]["scatter_add_rows"]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs only on a GPU")
@@ -4537,6 +4997,7 @@ def main() -> None:
         launches["lstm_fwd_features"], runs = phase_interchange(tmp, dev)
         launches.update(phase_eval_clis(tmp, runs, dev))
         launches.update(phase_variants(tmp, dev))
+        launches.update(phase_ranks(tmp, dev))
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], "launches": launches[name],
                 **timings[name]} for name in SOURCES]

@@ -21,11 +21,14 @@ passed in (``negatives``), so a test can give both packages the same
 draws; JAX's threefry stream itself is not reproduced.
 
 ``negative_sampling_scope="global"`` draws negatives from the batch of
-every device.  On one device JAX's train step still runs under
-``shard_map``, so its pool is ``all_gather(z)`` = the local batch, and
-with a pool set ``auto`` resolves to ``exact`` and ``stratified`` takes
-the materialised sampler; the port does the same, with the local batch
-as the pool.
+every rank (infonce.py:521-529): the pool is the (world*B, S, C)
+concatenation of every rank's encoding in rank order
+(``parallel/distributed.gather_rows``, differentiable: its backward sums
+the pool's cotangent over ranks, ``psum_scatter``), so the exact
+sampler's batch indices run over world*B rows and K8 scatters into
+world*B*S.  On one device the pool is the local batch, as JAX's
+``all_gather`` over one device.  With a pool set ``auto`` resolves to
+``exact`` and ``stratified`` takes the materialised sampler, as in JAX.
 
 ``mode="reverse"`` (``--cpc_mode reverse``) flips c and z in time before
 anything else (infonce.py:498-500); ``speaker_embedding`` E > 0 adds a
@@ -48,6 +51,7 @@ from ..models.encoder import encoding_dtype
 from ..ops import dropout, ffn, head_attention, lstm, scatter_add
 from ..ops.feistel import ROUNDS, feistel_inverse, feistel_permute
 from ..ops.scatter_add import scatter_add_rows
+from ..parallel.distributed import gather_rows
 from .prediction import PredictionNetwork
 
 SAMPLING_MODES = ("auto", "exact", "rolled", "stratified")
@@ -469,8 +473,9 @@ class CPCUnsupervisedCriterion(nn.Module):
         N = self.negative_sampling_ext
         C = self.dim_output_encoder
         mode = self.sampler(B, S)
-        # the global pool on one device is the local batch (module doc)
-        pool = encoded if self.negative_sampling_scope == "global" else None
+        # every rank's batch; on one device the local batch (module doc)
+        pool = gather_rows(encoded) \
+            if self.negative_sampling_scope == "global" else None
         if mode in ("fused stratified", "stratified") and round_keys is None:
             round_keys = torch.randint(0, 2 ** 32, (ROUNDS,),
                                        generator=generator,
@@ -503,8 +508,9 @@ class CPCUnsupervisedCriterion(nn.Module):
                                              generator=generator,
                                              dtype=torch.int64)
                 shape = (B, N, W) if mode == "exact" else (B, N)
+                Bp = B if pool is None else pool.shape[0]
                 negatives = dropout.negative_indices(
-                    neg_seed.to(encoded.device), shape, B, S)
+                    neg_seed.to(encoded.device), shape, Bp, S)
             batch_idx, seq_off = (t.to(encoded.device) for t in negatives)
             sampler = sample_negatives if mode == "exact" \
                 else sample_negatives_rolled
@@ -586,9 +592,9 @@ def build_criterion(config: CPCConfig,
     heads, ``--cpc_mode reverse`` and a speaker embedding over
     ``n_speakers`` speakers where ``--speakerEmbedding`` > 0; the
     transformer heads run the whole-block kernel under
-    ``CPC_ATTN_BLOCK=1``.  On one device (the port's only one)
-    ``negative_sampling_scope="global"`` draws from the local batch, as
-    JAX does there."""
+    ``CPC_ATTN_BLOCK=1``.  ``negative_sampling_scope="global"`` draws
+    from every rank's batch (one device: the local batch), as JAX
+    does."""
     if config.cpc_mode == "none":
         return NoneCriterion()
     check_kernels(config)

@@ -2,7 +2,12 @@
 (cpc_audio_tpu/eval/linear_separability.py).
 
 Trains a probe criterion on frozen (default) or fine-tuned CPC features,
-on one device.  Frozen, the model's forward runs under ``torch.no_grad``
+one process a device: ``--nGPU N`` starts N ranks (``parallel/
+distributed.py``; -1: every local GPU), each building the same loaders
+with global batches of ``batchSizeGPU * N`` and training on its rows;
+the gradients are summed over ranks and the metrics averaged, as the
+JAX probe's ``psum`` and ``pmean``, and rank 0 alone prints and writes.
+Frozen, the model's forward runs under ``torch.no_grad``
 (the JAX package's ``stop_gradient``), so K1's forward keeps no residuals
 and Adam updates the criterion alone; ``--unfrozen`` trains the model in
 train mode with it, K1 forward and backward.  The per-step dropout seed
@@ -37,9 +42,10 @@ from .._common import precision_policy, resolve_device
 from ..criterion import CTCPhoneCriterion, PhoneCriterion, SpeakerCriterion
 from ..data import AudioBatchData, filter_seqs, find_all_seqs, parse_seq_labels
 from ..feature_loader import load_model
+from ..parallel import distributed
 from ..parallel.train_step import (TrainState, _labels, _to_device,
                                    create_train_state, epoch_key,
-                                   step_streams)
+                                   reduce_grads, step_streams)
 from ..utils import misc as utils
 
 
@@ -48,13 +54,16 @@ def make_probe_step(state: TrainState, device, frozen: bool,
     """``step(batch, labels, key=None) -> {"losses": (1,), "acc": (1,)}``
     as device tensors, without a host sync.
 
-    ``train``: one forward, the backward of the summed losses and an Adam
-    step; ``state.step`` advances.  Frozen, the model runs under
-    ``no_grad`` and in eval mode; else in train mode, its dropout seed
-    from (``key``, ``state.step``).  Not ``train``: the validation step,
-    under ``inference_mode``."""
+    ``train``: one forward, the backward of the summed losses, the
+    gradients summed over ranks (frozen: the criterion's alone, as JAX's
+    ``psum``) and an Adam step; ``state.step`` advances.  Frozen, the
+    model runs under ``no_grad`` and in eval mode; else in train mode, its
+    dropout seed from (``key``, ``state.step``, rank).  Not ``train``: the
+    validation step, under ``inference_mode``.  The metrics are the
+    rank's."""
     precision_policy()
     device = torch.device(device)
+    rank = distributed.rank()
 
     def step(batch, labels, key=None) -> Dict[str, torch.Tensor]:
         batch = _to_device(batch, device)
@@ -68,7 +77,7 @@ def make_probe_step(state: TrainState, device, frozen: bool,
             return {"losses": losses, "acc": acc}
         if key is None:
             key = torch.zeros(1, dtype=torch.int64, device=device)
-        seed = step_streams(key, state.step)[0]
+        seed = step_streams(key, state.step, rank)[0]
         state.optimizer.zero_grad(set_to_none=True)
         state.model.train(not frozen)
         state.criterion.train()
@@ -77,6 +86,7 @@ def make_probe_step(state: TrainState, device, frozen: bool,
                                      seed=seed)
         losses, acc = state.criterion(c, z, labels, train=True, seed=seed)
         losses.sum().backward()
+        reduce_grads(state.optimizer)
         state.optimizer.step()
         state.step += 1
         return {"losses": losses.detach(), "acc": acc.detach()}
@@ -94,25 +104,28 @@ def _flat_state(state: TrainState) -> Dict[str, torch.Tensor]:
 
 
 def _epoch_means(dev_sums, it: int, suffix: str) -> dict:
-    """One read-back an epoch: the means of the summed metrics."""
+    """One read-back an epoch: the means of the summed metrics, averaged
+    over ranks."""
     if dev_sums is None:
         return {f"locLoss_{suffix}": np.asarray([0.0]),
                 f"locAcc_{suffix}": np.asarray([0.0])}
-    return {f"locLoss_{suffix}": np.asarray(
-                [float(dev_sums["losses"].double().mean()) / it]),
-            f"locAcc_{suffix}": np.asarray(
-                [float(dev_sums["acc"].double().mean()) / it])}
+    out = [dev_sums["losses"].double().mean(), dev_sums["acc"].double().mean()]
+    distributed.mean_(out)
+    return {f"locLoss_{suffix}": np.asarray([float(out[0]) / it]),
+            f"locAcc_{suffix}": np.asarray([float(out[1]) / it])}
 
 
 def run(state: TrainState, train_step, val_step, train_dataset,
         val_dataset, batch_size: int, n_epochs: int, save_step: int,
         path_checkpoint: str, logs: dict, seed: int = 0):
     """The epoch loop (cpc_audio_tpu/eval/linear_separability.py:102-186);
-    returns the best validation accuracy."""
+    ``batch_size`` is the global batch, whose rows the ranks share.
+    Returns the best validation accuracy."""
     device = state.lr.device
+    rank0 = distributed.rank() == 0
     start_epoch = len(logs["epoch"])
     best_acc = -1.0
-    best_state = _flat_state(state)
+    best_state = _flat_state(state) if rank0 else None
     start_time = time.time()
     for epoch in range(start_epoch, n_epochs):
         train_loader = train_dataset.get_data_loader(batch_size, "uniform",
@@ -125,7 +138,8 @@ def run(state: TrainState, train_step, val_step, train_dataset,
                                      ("val", val_loader, val_step)):
             dev_sums, it = None, 0
             for batch, labels in loader:
-                metrics = step(batch, labels, key)
+                metrics = step(distributed.rank_rows(batch),
+                               distributed.rank_rows(labels), key)
                 dev_sums = metrics if dev_sums is None else \
                     {k: dev_sums[k] + metrics[k] for k in dev_sums}
                 it += 1
@@ -142,7 +156,7 @@ def run(state: TrainState, train_step, val_step, train_dataset,
         print("_" * 50)
 
         if float(means["locAcc_val"][0]) > best_acc:
-            best_state = _flat_state(state)
+            best_state = _flat_state(state) if rank0 else None
             best_acc = float(means["locAcc_val"][0])
 
         logs["epoch"].append(epoch)
@@ -151,13 +165,16 @@ def run(state: TrainState, train_step, val_step, train_dataset,
                 logs[k] = [None for _ in range(epoch)]
             logs[k].append(v.tolist())
 
-        if (epoch % save_step == 0 and epoch > 0) or epoch == n_epochs - 1:
+        if rank0 and ((epoch % save_step == 0 and epoch > 0)
+                      or epoch == n_epochs - 1):
             ckpt.save_checkpoint(
                 state.model, state.criterion, state.optimizer, best_state,
                 int(state.step),
                 os.path.join(path_checkpoint, f"checkpoint_{epoch}.pt"))
             utils.save_logs(logs, os.path.join(path_checkpoint,
                                                "checkpoint_logs.json"))
+        # the other ranks wait for rank 0's files
+        distributed.barrier()
     return best_acc
 
 
@@ -215,13 +232,17 @@ def build_probe(dim_features: int, n_speakers: int, phone_labels,
 
 def main(argv=None, device=None) -> int:
     """Run the CLI on ``argv``, on ``device`` (default: the card; raises
-    without one).  ``--nGPU`` > 1 is refused: one device."""
+    without one); ``--nGPU`` devices (the CPU: ``--nGPU`` ranks) start
+    that many ranks."""
     args = parse_args(argv if argv is not None else sys.argv[1:])
-    if args.nGPU > 1:
-        raise NotImplementedError(
-            "--nGPU > 1 (multi-GPU): ROADMAP Queue 1 item 12 is not ported "
-            "yet")
-    device = resolve_device(device)
+    n = distributed.resolve_world(args.nGPU, device)
+    if n > 1:
+        return distributed.spawn(_main, n, device or "cuda", (args,))
+    return _main(resolve_device(device), args)
+
+
+def _main(device: torch.device, args: argparse.Namespace) -> int:
+    """One rank of the CLI (the only one without a process group)."""
     precision_policy()
     logs = {"epoch": [], "iter": [], "saveStep": args.save_step}
 
@@ -255,10 +276,17 @@ def main(argv=None, device=None) -> int:
     state = create_train_state(model, criterion, device, args.lr,
                                args.beta1, args.beta2, args.epsilon,
                                train_model=not frozen)
+    # the same start on every rank (--no_pretraining draws its weights)
+    distributed.broadcast_([*model.state_dict().values(),
+                            *criterion.state_dict().values()])
     train_step = make_probe_step(state, device, frozen, train=True)
     val_step = make_probe_step(state, device, frozen, train=False)
 
-    os.makedirs(args.pathCheckpoint, exist_ok=True)
+    n_ranks = distributed.world()
+    print(f"Let's use {n_ranks} devices ({device} on rank "
+          f"{distributed.rank()})!")
+    if distributed.rank() == 0:
+        os.makedirs(args.pathCheckpoint, exist_ok=True)
     # the args sidecar with the model's config, so that load_model and
     # load_supervised_criterion rebuild the probe from this directory
     config = model.config if hasattr(model, "config") \
@@ -266,13 +294,14 @@ def main(argv=None, device=None) -> int:
     sidecar = dict(config.to_dict())
     sidecar.update(vars(args))
     sidecar["onEncoder"] = args.get_encoded
-    with open(os.path.join(args.pathCheckpoint, "checkpoint_args.json"),
-              "w") as f:
-        json.dump(sidecar, f, indent=2)
+    if distributed.rank() == 0:
+        with open(os.path.join(args.pathCheckpoint, "checkpoint_args.json"),
+                  "w") as f:
+            json.dump(sidecar, f, indent=2)
 
-    run(state, train_step, val_step, db_train, db_val, args.batchSizeGPU,
-        args.n_epoch, args.save_step, args.pathCheckpoint, logs,
-        seed=args.random_seed)
+    run(state, train_step, val_step, db_train, db_val,
+        args.batchSizeGPU * n_ranks, args.n_epoch, args.save_step,
+        args.pathCheckpoint, logs, seed=args.random_seed)
     return 0
 
 

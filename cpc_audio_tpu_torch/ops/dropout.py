@@ -157,13 +157,14 @@ def dropout(x: torch.Tensor, seed: torch.Tensor, rate: float,
 
 
 def step_words(key: torch.Tensor, site: int, step: torch.Tensor,
-               n: int) -> torch.Tensor:
-    """(n,) int64 words from an epoch key and the step counter, both
-    device tensors: the train step's dropout seed, round keys and
-    negatives' seed (the role of ``cpc_audio_tpu/parallel/train_step.py``
-    stream_keys)."""
+               n: int, first: int = 0) -> torch.Tensor:
+    """(n,) int64 words ``first`` to ``first + n - 1`` from an epoch key and
+    the step counter, both device tensors: the train step's dropout seed,
+    round keys and negatives' seed (the role of
+    ``cpc_audio_tpu/parallel/train_step.py`` stream_keys; ``first`` picks
+    a rank's words)."""
     return bits(key, site, step.reshape(1),
-                torch.arange(n, device=key.device))
+                torch.arange(first, first + n, device=key.device))
 
 
 def negative_indices(seed: torch.Tensor, shape, Bp: int, S: int

@@ -1,5 +1,5 @@
-"""Train and validation steps of the port, on one device
-(cpc_audio_tpu/parallel/train_step.py:75-228 without the mesh).
+"""Train and validation steps of the port
+(cpc_audio_tpu/parallel/train_step.py:75-228), one process a device.
 
 * The backward objective is the sum over prediction steps of the
   per-step mean CE, as ``jnp.sum(losses)`` there.
@@ -13,11 +13,13 @@
 * Parameters and optimizer moments are updated in place: PyTorch's
   modules own them, where JAX returned a new ``TrainState``.
 * The per-step dropout seed, Feistel round keys and negatives' seed
-  derive from (epoch key, step) on the device (``ops/dropout.step_words``),
-  the role of ``stream_keys``, so a step needs no host sync.  The one seed
-  feeds every dropout of the step (the transformer AR's and the heads'),
-  kept apart by the sites of ``ops/dropout.py``; the negatives' seed feeds
-  the exact and rolled samplers' indices (``dropout.negative_indices``).
+  derive from (epoch key, step, rank) on the device
+  (``ops/dropout.step_words``), the role of ``stream_keys``, so a step
+  needs no host sync; rank 0 draws the words one device drew before.
+  The one seed feeds every dropout of the step (the transformer AR's and
+  the heads'), kept apart by the sites of ``ops/dropout.py``; the
+  negatives' seed feeds the exact and rolled samplers' indices
+  (``dropout.negative_indices``).
 * ``labels`` (the loader's, numpy or torch) go to the criterion: the
   supervised criteria need them (speaker ids (B,), or frame-aligned phones
   (B, sizeWindow // 160)), and so does the CPC criterion's speaker
@@ -28,20 +30,34 @@
   ``jax.grad`` gives it, so Adam still counts the step: under
   ``--cpc_mode none`` (a loss with no graph) the parameters stay as they
   are, the count advances and the moments stay zero.
+* In a process group (``parallel/distributed.py``) each rank runs the
+  step on its rows; after the zero-fill every gradient is summed over
+  ranks (``psum``: the objective is the rank-summed loss, as the JAX
+  step's), in one flat buffer per dtype, and every rank takes the same
+  Adam step, so their parameters and moments stay bit-identical.
+  batchNorm normalises with the rank's own batch moments, and after the
+  step its running statistics are averaged over ranks (``pmean``; not
+  ``torch.nn.SyncBatchNorm``, whose forward takes global moments).  No
+  ``DistributedDataParallel``: it averages gradients, re-broadcasts rank
+  0's buffers every forward and stalls on parameters outside the loss's
+  graph.  Metrics stay per rank; the epoch loops average them over ranks
+  where they read them back.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .._common import precision_policy
 from ..criterion.infonce import NoneCriterion
+from ..models.norms import BatchNorm
 from ..ops import dropout
 from ..ops.feistel import ROUNDS
+from . import distributed
 
 
 def make_optimizer(params, lr: torch.Tensor, beta1: float = 0.9,
@@ -92,14 +108,36 @@ def epoch_key(seed: int, epoch: int, device) -> torch.Tensor:
     return words.reshape(1).to(device)
 
 
-def step_streams(key: torch.Tensor, step: torch.Tensor
+def step_streams(key: torch.Tensor, step: torch.Tensor, rank: int = 0
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dropout seed (1,), Feistel round keys (ROUNDS,), negatives' seed
-    (1,)) for one step; the last is the word after the round keys."""
-    seed = dropout.step_words(key, dropout.SITE_STEP_SEED, step, 1)
+    (1,)) for one step of ``rank``; the last is the word after the round
+    keys.  Rank r takes the r-th run of words of each stream, so rank 0's
+    are those of one device and other ranks draw their own."""
+    seed = dropout.step_words(key, dropout.SITE_STEP_SEED, step, 1, rank)
     words = dropout.step_words(key, dropout.SITE_ROUND_KEYS, step,
-                               ROUNDS + 1)
+                               ROUNDS + 1, rank * (ROUNDS + 1))
     return seed, words[:ROUNDS], words[ROUNDS:]
+
+
+def batch_stats(model: torch.nn.Module) -> List[torch.Tensor]:
+    """batchNorm's running statistics (the buffers the step moves)."""
+    return [t for m in model.modules() if isinstance(m, BatchNorm)
+            for t in (m.mean, m.var)]
+
+
+def reduce_grads(optimizer: torch.optim.Optimizer) -> None:
+    """Zero-fill the gradient of every parameter outside the loss's graph
+    (``jax.grad``'s zeros: Adam still counts the step), then sum every
+    gradient over ranks in place (``psum``), so that the ``p.grad``
+    tensors Adam reads stay the same tensors."""
+    grads = []
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            grads.append(p.grad)
+    distributed.sum_(grads)
 
 
 def _to_device(batch, device: torch.device,
@@ -124,9 +162,14 @@ def make_train_step(state: TrainState, device) -> Callable:
     epoch's (1,) int64 device key (:func:`epoch_key`); ``round_keys``
     overrides the derived Feistel keys and ``negatives`` = (batch indices,
     time offsets) the exact or rolled sampler's derived draws (tests
-    inject them).  Returns device tensors without synchronising."""
+    inject them).  In a process group ``batch`` is the rank's rows, the
+    streams are the rank's, and the gradients and batchNorm statistics
+    are reduced over ranks (module doc); the metrics are the rank's.
+    Returns device tensors without synchronising."""
     precision_policy()
     device = torch.device(device)
+    rank = distributed.rank()
+    stats = batch_stats(state.model)
 
     def train_step(batch, hidden=None, key: Optional[torch.Tensor] = None,
                    round_keys: Optional[torch.Tensor] = None,
@@ -136,7 +179,7 @@ def make_train_step(state: TrainState, device) -> Callable:
         labels = _labels(labels, device)
         if key is None:
             key = torch.zeros(1, dtype=torch.int64, device=device)
-        seed, keys, neg_seed = step_streams(key, state.step)
+        seed, keys, neg_seed = step_streams(key, state.step, rank)
         if round_keys is not None:
             keys = round_keys
         state.optimizer.zero_grad(set_to_none=True)
@@ -149,11 +192,9 @@ def make_train_step(state: TrainState, device) -> Callable:
                                       neg_seed=neg_seed, negatives=negatives)
         if not isinstance(state.criterion, NoneCriterion):
             losses.sum().backward()
-        for group in state.optimizer.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+        reduce_grads(state.optimizer)
         state.optimizer.step()
+        distributed.mean_(stats)
         state.step += 1
         return hid, {"losses": losses.detach(), "acc": acc.detach()}
 

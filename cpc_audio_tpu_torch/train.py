@@ -1,13 +1,24 @@
 """CPC pretraining and supervised-probe CLI of the port
-(cpc_audio_tpu/train.py:37-409), one device.
+(cpc_audio_tpu/train.py:37-409), one process a device.
 
 Same flags (the port's copy of the JAX package's config), data loader
 (its copy of the data package) and checkpoint directory contract as the
-JAX trainer.  The step runs on the first CUDA device (the kernels), and
+JAX trainer.  The step runs on the CUDA devices (the kernels), and
 raises where there is none; only a caller that asks for it with
 ``main(argv, device="cpu")`` runs on the CPU (the plain versions, as the
 tests do).  Loss and accuracy sums stay on the device and are read back
-at ``logging_step`` boundaries and at epoch end.  ``--supervised`` trains
+(averaged over ranks) at ``logging_step`` boundaries and at epoch end.
+
+Several devices (``parallel/distributed.py``): ``--nGPU N`` on one host
+starts N processes (``spawn``; -1 or 0: every local GPU, as JAX counts
+its devices), rank r on ``cuda:r``; every rank builds the same loader
+over the whole file list with the same seed, takes global batches of
+``N * batchSizeGPU`` windows and trains on its rows of each.
+``--distributed`` joins the group torchrun describes (one process a GPU,
+on one host or several); each rank then loads its own shard of the file
+list (``shard_sequences``) and takes batches of ``batchSizeGPU``, the
+same number an epoch on every rank.  Rank 0 alone prints and writes checkpoints
+and logs; every rank starts from rank 0's weights.  ``--supervised`` trains
 a speaker probe, with ``--pathPhone`` a phone probe (``--CTC``: the CTC
 one); ``--load`` and resume read checkpoints of the port, of the JAX
 package and of the reference; ``--export_torch`` writes a
@@ -21,7 +32,6 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import random
@@ -43,10 +53,12 @@ from .criterion import (CTCPhoneCriterion, PhoneCriterion,
 from .data import (AudioBatchData, filter_seqs, find_all_seqs,
                    parse_seq_labels)
 from .models import build_model
+from .parallel import distributed
 from .parallel.train_step import (TrainState, create_train_state, epoch_key,
                                   make_train_step, make_val_step,
                                   step_streams)
 from .utils import misc as utils
+from .utils.profiling import ThroughputMeter, profile_trace
 
 
 def get_criterion(config: CPCConfig, train_config: TrainConfig,
@@ -72,15 +84,20 @@ def get_criterion(config: CPCConfig, train_config: TrainConfig,
 
 
 def _read_back(sums: Dict[str, torch.Tensor]) -> Tuple[np.ndarray, ...]:
-    return (sums["losses"].double().cpu().numpy(),
-            sums["acc"].double().cpu().numpy())
+    """The metric sums on the host, averaged over ranks (``pmean``)."""
+    out = [sums["losses"].double(), sums["acc"].double()]
+    distributed.mean_(out)
+    return tuple(t.cpu().numpy() for t in out)
 
 
 def train_epoch(loader, train_step, hidden, key: torch.Tensor,
-                logging_step: int, use_labels: bool = False
+                logging_step: int, use_labels: bool = False,
+                meter: Optional[ThroughputMeter] = None
                 ) -> Tuple[dict, object]:
-    """One epoch (cpc_audio_tpu/train.py:73-127); the loader's labels go
-    to the criterion with ``use_labels`` (the supervised criteria)."""
+    """One epoch (cpc_audio_tpu/train.py:73-127) over this rank's
+    ``(batch, labels)``; the labels go to the criterion with
+    ``use_labels`` (the supervised criteria).  ``meter`` counts the
+    windows of every rank."""
     start_time = time.perf_counter()
     n_examples = 0
     logs, last_logs = {}, None
@@ -88,6 +105,8 @@ def train_epoch(loader, train_step, hidden, key: torch.Tensor,
     it = 0
     for step, (batch, labels) in enumerate(loader):
         n_examples += batch.shape[0]
+        if meter is not None:
+            meter.update(batch.shape[0] * distributed.world())
         hidden, metrics = train_step(batch, hidden, key,
                                      labels=labels if use_labels else None)
         dev_sums = metrics if dev_sums is None else \
@@ -117,14 +136,15 @@ def train_epoch(loader, train_step, hidden, key: torch.Tensor,
 def val_epoch(loader, val_step, hidden, key: torch.Tensor,
               use_labels: bool = False) -> Tuple[dict, object]:
     """Validation pass (cpc_audio_tpu/train.py:130-150): the round keys
-    and negatives' seed of batch ``step`` derive from (key, step) on the
-    device."""
+    and negatives' seed of batch ``step`` derive from (key, step, rank)
+    on the device."""
     logs = {}
     dev_sums = None
     it = 0
     step = torch.zeros((), dtype=torch.int64, device=key.device)
+    rank = distributed.rank()
     for batch, labels in loader:
-        _, keys, neg_seed = step_streams(key, step)
+        _, keys, neg_seed = step_streams(key, step, rank)
         hidden, metrics = val_step(batch, hidden, round_keys=keys,
                                    neg_seed=neg_seed,
                                    labels=labels if use_labels else None)
@@ -146,23 +166,26 @@ def _cpu_state(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
             for k, v in module.state_dict().items()}
 
 
-def _profile(profile_dir: Optional[str]):
-    """torch.profiler over one epoch, written as a chrome trace."""
-    if profile_dir is None:
-        return contextlib.nullcontext()
-    os.makedirs(profile_dir, exist_ok=True)
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    return torch.profiler.profile(
-        activities=acts, on_trace_ready=lambda p: p.export_chrome_trace(
-            os.path.join(profile_dir, "trace.json")))
-
-
 def run(train_dataset: AudioBatchData, val_dataset: AudioBatchData,
         batch_size: int, config: CPCConfig, train_config: TrainConfig,
         state: TrainState, logs: dict, device: torch.device) -> None:
-    """Epoch loop (cpc_audio_tpu/train.py:153-265)."""
+    """Epoch loop (cpc_audio_tpu/train.py:153-265); ``batch_size`` is a
+    rank's.  Under ``--distributed`` each rank's datasets hold its own
+    files and every rank takes as many batches; else the loaders give
+    every rank the same global batches and each takes its rows."""
+    world = distributed.world()
+    rank0 = distributed.rank() == 0
+    if train_config.distributed:
+        loader_batch = batch_size
+
+        def rank_batches(loader):
+            return distributed.same_length(loader, device)
+    else:
+        loader_batch = batch_size * world
+
+        def rank_batches(loader):
+            return ((distributed.rank_rows(b), distributed.rank_rows(lab))
+                    for b, lab in loader)
     train_step = make_train_step(state, device)
     val_step = make_val_step(state.model, state.criterion, device)
     # a carried state needs sequential windows and a recurrent AR
@@ -175,7 +198,7 @@ def run(train_dataset: AudioBatchData, val_dataset: AudioBatchData,
     n_epoch = config.nEpoch
     start_epoch = len(logs["epoch"])
     best_acc = -1.0
-    best_state = _cpu_state(state.model)
+    best_state = _cpu_state(state.model) if rank0 else None
     start_time = time.time()
     path_checkpoint = train_config.pathCheckpoint
 
@@ -186,28 +209,26 @@ def run(train_dataset: AudioBatchData, val_dataset: AudioBatchData,
             config.learningRate, epoch, config.schedulerStep,
             config.schedulerRamp))
         train_loader = train_dataset.get_data_loader(
-            batch_size, config.samplingType, True)
+            loader_batch, config.samplingType, True)
         val_loader = val_dataset.get_data_loader(
-            batch_size, "sequential", False)
+            loader_batch, "sequential", False)
         print("Training dataset ~%d batches, Validation dataset ~%d"
               " batches, batch size %d" % (len(train_loader),
-                                           len(val_loader), batch_size))
+                                           len(val_loader), loader_batch))
         hidden = state.model.zero_state(batch_size, device) \
             if keep_hidden else None
         # one key per epoch, from (seed, absolute epoch): resume-reproducible
         ekey = epoch_key(config.random_seed or 0, 2 * epoch, device)
         vkey = epoch_key(config.random_seed or 0, 2 * epoch + 1, device)
-        t0 = time.perf_counter()
-        with _profile(train_config.profile_dir
-                      if epoch == start_epoch else None):
+        meter = ThroughputMeter(world)
+        with profile_trace(train_config.profile_dir
+                           if epoch == start_epoch and rank0 else None):
             loc_logs_train, hidden = train_epoch(
-                train_loader, train_step, hidden, ekey,
-                logs["logging_step"], use_labels)
-        n_windows = loc_logs_train["iter"] * batch_size
-        print(f"epoch throughput: "
-              f"{n_windows / (time.perf_counter() - t0):.1f} windows/s")
-        loc_logs_val, hidden = val_epoch(val_loader, val_step, hidden, vkey,
-                                         use_labels)
+                rank_batches(train_loader), train_step, hidden, ekey,
+                logs["logging_step"], use_labels, meter)
+        print(f"epoch throughput: {meter.summary()}")
+        loc_logs_val, hidden = val_epoch(rank_batches(val_loader),
+                                         val_step, hidden, vkey, use_labels)
         print(f"Ran {epoch + 1} epochs "
               f"in {time.time() - start_time:.2f} seconds")
 
@@ -223,7 +244,7 @@ def run(train_dataset: AudioBatchData, val_dataset: AudioBatchData,
             current_acc = best_acc
         if current_acc > best_acc:
             best_acc = current_acc
-            best_state = _cpu_state(state.model)
+            best_state = _cpu_state(state.model) if rank0 else None
 
         for k, v in dict(loc_logs_train, **loc_logs_val).items():
             if k not in logs:
@@ -233,7 +254,7 @@ def run(train_dataset: AudioBatchData, val_dataset: AudioBatchData,
             logs[k].append(v)
         logs["epoch"].append(epoch)
 
-        if path_checkpoint is not None and (
+        if path_checkpoint is not None and rank0 and (
                 epoch % logs["saveStep"] == 0 or epoch == n_epoch - 1):
             ckpt.save_checkpoint(
                 state.model, state.criterion, state.optimizer, best_state,
@@ -245,26 +266,35 @@ def run(train_dataset: AudioBatchData, val_dataset: AudioBatchData,
                         path_checkpoint, f"checkpoint_{epoch}.torch.pt"))
             utils.save_logs(logs, os.path.join(path_checkpoint,
                                                "checkpoint_logs.json"))
-
-
-def _refuse_unported(train_config: TrainConfig) -> None:
-    if train_config.nGPU > 1 or train_config.distributed:
-        raise NotImplementedError(
-            "--nGPU > 1 / --distributed (multi-GPU): ROADMAP Queue 1 item 12 "
-            "is not ported yet")
+        # the other ranks wait for rank 0's files
+        distributed.barrier()
 
 
 def main(argv=None, device=None) -> int:
     """Train from the command line ``argv``; ``device`` as
-    :func:`resolve_device`."""
+    :func:`resolve_device`.  ``--distributed`` joins torchrun's group;
+    else ``--nGPU`` > 1 device (the CPU: ``--nGPU`` itself) starts that
+    many ranks (module doc)."""
     args = parse_args(argv)
-    device = resolve_device(device)
+    if args.distributed:
+        with distributed.env_group(device) as dev:
+            return _main(dev, args)
+    n = distributed.resolve_world(args.nGPU, device)
+    if n > 1:
+        return distributed.spawn(_main, n, device or "cuda", (args,))
+    return _main(resolve_device(device), args)
+
+
+def _main(device: torch.device, args: argparse.Namespace) -> int:
+    """One rank of the trainer (the only one without a process group)."""
     precision_policy()
     cpc_config = config_from_namespace(args)
     train_config = TrainConfig.from_dict(vars(args))
-    _refuse_unported(train_config)
 
-    seed = utils.set_seed(cpc_config.random_seed)
+    # every rank takes rank 0's seed: the same split, loaders and weights
+    seed = distributed.agree_int(utils.set_seed(cpc_config.random_seed),
+                                 device)
+    utils.set_seed(seed)
     cpc_config = cpc_config.replace(random_seed=seed)
     logs = {"epoch": [], "iter": [], "saveStep": train_config.save_step,
             "logging_step": train_config.logging_step}
@@ -315,6 +345,10 @@ def main(argv=None, device=None) -> int:
         seq_val = filter_seqs(train_config.pathVal, seq_names)
     if train_config.debug:
         seq_train, seq_val = seq_train[:2000], seq_val[:2000]
+    if train_config.distributed:
+        # each rank loads only its shard of the file list
+        seq_train = distributed.shard_sequences(seq_train)
+        seq_val = distributed.shard_sequences(seq_val)
 
     phone_labels, n_phones = None, 0
     if train_config.supervised and train_config.pathPhone is not None:
@@ -329,7 +363,11 @@ def main(argv=None, device=None) -> int:
         for seqs in (seq_train, seq_val)]
 
     batch_size = train_config.batchSizeGPU
-    print(f"Let's use 1 device ({device})!")
+    if train_config.distributed:
+        print(f"--nGPU {train_config.nGPU}: one process a device under "
+              f"--distributed")
+    print(f"Let's use {distributed.world()} devices ({device} on rank "
+          f"{distributed.rank()})!")
     gen = torch.Generator().manual_seed(seed)
     model = build_model(cpc_config, gen)
     # build_model sets hiddenGar for no_ar / transformer: the criterion and
@@ -344,7 +382,10 @@ def main(argv=None, device=None) -> int:
         convert.load_state_into(state, load_paths[0], cpc_config,
                                 train_config.loadCriterion or load_optimizer,
                                 load_optimizer)
-    if train_config.pathCheckpoint is not None:
+    # the same start on every rank: rank 0's weights and buffers
+    distributed.broadcast_([*state.model.state_dict().values(),
+                            *state.criterion.state_dict().values()])
+    if train_config.pathCheckpoint is not None and distributed.rank() == 0:
         os.makedirs(train_config.pathCheckpoint, exist_ok=True)
         ckpt.save_args_sidecar(train_config.pathCheckpoint, cpc_config,
                                train_config)

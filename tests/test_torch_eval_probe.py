@@ -3,7 +3,8 @@ linear_separability) against the JAX package's on the CPU in float32: one
 probe step's losses, accuracies, gradients and updated parameters
 (speaker, phone and CTC frozen, speaker unfrozen), the frozen step's K1
 forward without residuals, a CLI epoch whose directory the port's
-loaders read, and the --nGPU 2 refusal."""
+loaders read, and two epochs on two ranks against the JAX package's
+--nGPU 2 run."""
 
 import glob
 import json
@@ -27,7 +28,8 @@ from cpc_audio_tpu.parallel import get_mesh, shard_batch
 from cpc_audio_tpu.parallel.train_step import TrainState as JTrainState
 from cpc_audio_tpu.parallel.train_step import make_optimizer as jopt
 from cpc_audio_tpu_torch.config import CPCConfig
-from cpc_audio_tpu_torch.convert import load_jax_params, params_from_jax
+from cpc_audio_tpu_torch.convert import (jax_tree, load_jax_params,
+                                         params_from_jax)
 from cpc_audio_tpu_torch.criterion import (CTCPhoneCriterion, PhoneCriterion,
                                            SpeakerCriterion)
 from cpc_audio_tpu_torch.eval import linear_separability as tls
@@ -254,7 +256,45 @@ def test_phone_probe_cli_epoch_loads_back(tmp_path, ctc):
     assert (hg, he) == (32, 32)
 
 
-def test_probe_cli_refuses_several_gpus(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        tls.main([str(tmp_path), "a.txt", "b.txt", "x.pt", "--nGPU", "2"],
-                 device="cpu")
+def test_probe_cli_on_two_ranks_matches_jax(tmp_path, monkeypatch, capfd):
+    """Two epochs of the frozen speaker probe with --nGPU 2: the port on
+    two spawned gloo ranks, the JAX package on get_mesh(2) from the
+    port's initial probe weights (its init patched to them).  Both read
+    the same loader batches (the port's copy of the data package, the same
+    seed) of global batch 2 * batchSizeGPU; the logged losses agree within
+    1e-6, the accuracies are equal, and one set of files is written."""
+    db = str(tmp_path / "db")
+    _db(db)
+    ckpt_path = _base_checkpoint(tmp_path)
+    train, val = _splits(tmp_path, db)
+    argv = [db, train, val, ckpt_path, "--file_extension", ".wav",
+            "--n_epoch", "2", "--batchSizeGPU", "2", "--size_window",
+            "3200", "--ignore_cache", "--nGPU", "2", "--pathCheckpoint"]
+    out_t, out_j = str(tmp_path / "port"), str(tmp_path / "jax")
+    assert tls.main(argv + [out_t], device="cpu") == 0
+    assert "Let's use 2 devices" in capfd.readouterr().out
+    n_speakers = 2
+    probe = tls.build_probe(SMALL["hiddenGar"], n_speakers, None, 0, False,
+                            False, torch.Generator().manual_seed(0))
+    fixed = jax_tree({"criterion." + k: v
+                      for k, v in probe.state_dict().items()})["criterion"]
+
+    class FromPort(jsup.SpeakerCriterion):
+        def init(self, *args, **kwargs):
+            return {"params": fixed}
+    monkeypatch.setattr(jls, "SpeakerCriterion", FromPort)
+    assert jls.main(argv + [out_j]) == 0
+    logs = []
+    for out in (out_t, out_j):
+        with open(os.path.join(out, "checkpoint_logs.json")) as f:
+            logs.append(json.load(f))
+    assert logs[0]["epoch"] == logs[1]["epoch"] == [0, 1]
+    # float32 features and Adam steps, sums in another order
+    for key in ("locLoss_train", "locLoss_val"):
+        np.testing.assert_allclose(logs[0][key], logs[1][key], atol=1e-6,
+                                   err_msg=key)
+    for key in ("locAcc_train", "locAcc_val"):
+        assert logs[0][key] == logs[1][key], key
+    assert sorted(os.listdir(out_t)) == ["checkpoint_1.pt",
+                                         "checkpoint_args.json",
+                                         "checkpoint_logs.json"]

@@ -240,3 +240,31 @@ print("ok", len(names))
     assert r.returncode == 0 and \
         r.stdout.strip().splitlines()[-1].startswith("ok"), \
         r.stdout[-2000:] + r.stderr[-2000:]
+
+
+def test_parallel_and_profiling_modules_import_no_jax():
+    """The multi-rank modules (parallel/distributed.py, utils/profiling.py)
+    are among the scanned sources, and in a fresh interpreter they and the
+    trainer import none of jax, flax, optax or the JAX package."""
+    import subprocess
+    import sys
+
+    sources = [os.path.relpath(p, REPO) for p in _port_sources()]
+    for name in ("parallel/distributed.py", "utils/profiling.py"):
+        assert os.path.join("cpc_audio_tpu_torch", name) in sources, name
+    script = """
+import sys
+from cpc_audio_tpu_torch.parallel import distributed
+from cpc_audio_tpu_torch.utils.profiling import ThroughputMeter, profile_trace
+from cpc_audio_tpu_torch import train
+from cpc_audio_tpu_torch.eval import linear_separability
+assert distributed.world() == 1 and distributed.rank() == 0
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "cpc_audio_tpu"))
+assert not bad, bad
+print("ok")
+"""
+    r = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-2000:]

@@ -7,6 +7,7 @@ with its resume."""
 import functools
 import json
 import os
+import subprocess
 import sys
 
 import numpy as np
@@ -198,6 +199,49 @@ def test_train_steps_draw_new_streams_and_learn():
     assert not torch.equal(n0, n1)
 
 
+def _two_rank_cli(tmp_path, argv):
+    """``--nGPU 2`` on the CPU: two spawned gloo ranks
+    (tests/torch_dist_worker.py records each rank's batches and
+    checkpoint writes).  Every step both ranks load the same global batch
+    and train on its two halves; rank 0 alone writes one set of files;
+    the run resumes, and prints windows/s a device."""
+    out = str(tmp_path / "ckpt2")
+    record = tmp_path / "record"
+    record.mkdir()
+    argv = list(argv)
+    argv[argv.index("--pathCheckpoint") + 1] = out
+    argv[argv.index("--batchSizeGPU") + 1] = "2"
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
+    env.update(CPC_TEST_RECORD_DIR=str(record), OMP_NUM_THREADS="1")
+    worker = os.path.join(REPO, "tests", "torch_dist_worker.py")
+    for n_epoch in ("1", "2"):
+        argv[argv.index("--nEpoch") + 1] = n_epoch
+        r = subprocess.run([sys.executable, worker, "cli"] + argv
+                           + ["--nGPU", "2"], env=env, capture_output=True,
+                           text=True, timeout=300)
+        assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+        assert "Let's use 2 devices" in r.stdout
+        assert "windows/s/chip" in r.stdout
+        recs = [json.loads((record / f"cli_rank{k}.json").read_text())
+                for k in range(2)]
+        assert recs[0]["saved_by"] == [0] and recs[1]["saved_by"] == []
+        steps = [rec["steps"] for rec in recs]
+        assert len(steps[0]) == len(steps[1]) > 0
+        for s0, s1 in zip(*steps):
+            assert s0["global"] == s1["global"] and s0["n"] == 2 * s0["b"]
+            assert s0["rows"] == s0["half"] and s1["rows"] == s1["half"]
+            assert s0["rows"] != s1["rows"]
+    assert "Resuming from checkpoint" in r.stdout
+    assert sorted(os.listdir(out)) == ["checkpoint_0.pt", "checkpoint_1.pt",
+                                       "checkpoint_args.json",
+                                       "checkpoint_logs.json"]
+    with open(os.path.join(out, "checkpoint_logs.json")) as f:
+        logs = json.load(f)
+    assert logs["epoch"] == [0, 1]
+    assert all(np.isfinite(v).all() for v in logs["locLoss_train"])
+
+
 def test_train_cli_runs_and_resumes(tmp_path, capsys):
     sys.path.insert(0, os.path.join(REPO, "perf"))
     from soak_loader import make_tree
@@ -221,8 +265,7 @@ def test_train_cli_runs_and_resumes(tmp_path, capsys):
         logs = json.load(f)
     assert logs["epoch"] == [0, 1]
     assert all(np.isfinite(v).all() for v in logs["locLoss_train"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        ttrain.main(argv + ["--nGPU", "2"], device="cpu")
+    _two_rank_cli(tmp_path, argv)
     # a pickle, but not of a checkpoint (tests/test_torch_interchange.py
     # loads the JAX package's)
     not_ckpt = tmp_path / "not_a_checkpoint.pt"
