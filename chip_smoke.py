@@ -130,7 +130,16 @@ Phases (any failure exits non-zero):
      trains alone for 4 steps and holds a float32 step against the CPU,
      and so do a GRU model at --hiddenGar 200 (H 224: K4's rows bodies)
      and LSTM and GRU models at --hiddenGar 4096 (B = 4; K1's and K4's
-     grid bodies); then two exact
+     grid bodies); then the long-window and wide shapes
+     (phase_long_and_wide): K2 at S 2048 and 4084 and its rows body at S
+     3700 / dk 264 and S 116 / dk 512, K5 at S 4096 and dk 512, K1 and K4
+     at H 8192, forward and backward in both dtypes against their plain
+     versions, K5 beside SDPA and K1 / K4 beside cuDNN in turns; the
+     default model and the transformer AR at --sizeWindow 655360 and the
+     transformer at --hiddenEncoder 4096 --hiddenGar 4096, B = 4, 2 + 4
+     steps in both dtypes (losses falling, every K2 and K5 call at the
+     path's (S, dk)), and LSTM and GRU models alone at --hiddenGar 8192
+     (Adam at 2e-4, the float32 step against the CPU); then two exact
      steps with
      stopGradNegatives, in which K8 must not launch;
      last, the default LSTM step in turns with the fused one and with the
@@ -1195,6 +1204,33 @@ SOURCES = {
                      "cpc_audio_tpu/ops/pallas/rnn.py:238"),
     "gru_bwd_gate": ("cpc_audio_tpu_torch/csrc/gru_bwd.cu",
                      "cpc_audio_tpu/ops/pallas/rnn.py:265"),
+    # the long-window and wide shapes (phase_long_and_wide): K2's
+    # tensor-core body at the heads' S 4084 (--sizeWindow 655360) and its
+    # rows body at dk 512 (--hiddenEncoder 4096), K5 at S 4096 and dk 512,
+    # K1's and K4's grid bodies at --hiddenGar 8192
+    "relpos_attention_fwd_s4084": (
+        "cpc_audio_tpu_torch/csrc/relpos_attention_tc_fwd.cu",
+        "cpc_audio_tpu/ops/pallas/head_attention.py:114"),
+    "relpos_attention_bwd_s4084": (
+        "cpc_audio_tpu_torch/csrc/relpos_attention_tc_bwd.cu",
+        "cpc_audio_tpu/ops/pallas/head_attention.py:158"),
+    "relpos_attention_fwd_rows": (
+        "cpc_audio_tpu_torch/csrc/relpos_attention_fwd.cu",
+        "cpc_audio_tpu/ops/pallas/head_attention.py:114"),
+    "relpos_attention_bwd_rows": (
+        "cpc_audio_tpu_torch/csrc/relpos_attention_bwd.cu",
+        "cpc_audio_tpu/ops/pallas/head_attention.py:158"),
+    **{f"causal_attention_{d}_{tag}": (
+        f"cpc_audio_tpu_torch/csrc/causal_attention_{d}.cu",
+        "cpc_audio_tpu/ops/pallas/attention.py:" + ("81" if d == "fwd"
+                                                    else "96"))
+       for tag in ("s4096", "dk512") for d in ("fwd", "bwd")},
+    **{f"{kind}_{d}_h8192": (
+        "cpc_audio_tpu_torch/csrc/rnn_grid.cuh",
+        "cpc_audio_tpu/ops/pallas/rnn.py:" + {
+            ("lstm", "fwd"): "67", ("lstm", "bwd"): "97",
+            ("gru", "fwd"): "238", ("gru", "bwd"): "265"}[(kind, d)])
+       for kind in ("lstm", "gru") for d in ("fwd", "bwd")},
 }
 
 # The train path runs K2, K3, K5 and K6 at dropout 0.1: the JSON line
@@ -1542,10 +1578,12 @@ def features_yardstick(dev: torch.device, B: int = 8, T: int = 400,
 
 
 def long_causal_yardsticks(dev: torch.device, B: int = 4, S: int = 1024,
-                           dk: int = 32) -> None:
+                           dk: int = 32) -> dict:
     """SDPA beside K5 at --sizeWindow 163840's shape (N = B * 8 rows of S
-    1024, dk 32), rate 0, both dtypes, in turns (K5, SDPA, SDPA, K5),
-    forward and backward, each with K5's bound."""
+    1024, dk 32; or the (S, dk) given), rate 0, both dtypes, in turns (K5,
+    SDPA, SDPA, K5), forward and backward, each with K5's bound.  Returns
+    SDPA's mean ms by (kernel, dtype)."""
+    out = {}
     for dtype in (torch.bfloat16, torch.float32):
         g = torch.Generator(device=dev).manual_seed(SEED + 23)
 
@@ -1571,8 +1609,10 @@ def long_causal_yardsticks(dev: torch.device, B: int = 4, S: int = 1024,
                   f"SDPA {statistics.mean(t['K5']) / statistics.mean(t['SDPA']):.3f}"
                   f"; K5 bound {b['bound_ms']:.4f} ms by {b['bound_by']}",
                   flush=True)
+            out[(case.name, dtype)] = statistics.mean(t["SDPA"])
         del cases, sdpa
         torch.cuda.empty_cache()
+    return out
 
 
 def cudnn_layer(dev: torch.device, dtype: torch.dtype, kind: str,
@@ -2144,7 +2184,19 @@ G512 = "GRU 512"             # --hiddenEncoder 512 --hiddenGar 512
 T32 = "transformer float32"  # the transformer AR in float32, default widths
 T2048 = "transformer 2048 float32"   # --hiddenEncoder 2048 --hiddenGar 2048
 T163840 = "transformer 163840 float32"   # --sizeWindow 163840
-FLOAT32_PATHS = (F32, F512, F768, T32, T2048, T163840)
+# the long-window and wide paths (phase_long_and_wide), B 4: the default
+# model over 41 s windows (K2 at the heads' S 4084), the transformer AR
+# over them (K5 at S 4096) and at --hiddenEncoder 4096 (K5 at dk 512, the
+# heads' K2 on its rows body at dk 512), each in both dtypes
+L655 = "LSTM 655360"                 # --sizeWindow 655360
+L655F = "LSTM 655360 float32"
+T655 = "transformer 655360"          # --arMode transformer --sizeWindow ..
+T655F = "transformer 655360 float32"
+T4096 = "transformer 4096"           # --hiddenEncoder 4096 --hiddenGar ..
+T4096F = "transformer 4096 float32"
+LONG_WIDE_PATHS = (L655, L655F, T655, T655F, T4096, T4096F)
+FLOAT32_PATHS = (F32, F512, F768, T32, T2048, T163840, L655F, T655F,
+                 T4096F)
 # paths at B 4, the batch their widths or window leave room for on the
 # card's memory beside the plain versions' checks; 4 timed steps
 SMALL_PATHS = (T2048, T163840)
@@ -2172,7 +2224,11 @@ PATH_KERNELS = {"LSTM": ("lstm_fwd", "lstm_bwd") + HEADS,
                 T2048: ("causal_attention_fwd", "causal_attention_bwd")
                 + HEADS,
                 T163840: ("causal_attention_fwd", "causal_attention_bwd")
-                + HEADS}
+                + HEADS,
+                **{path: ("lstm_fwd", "lstm_bwd") + HEADS
+                   for path in (L655, L655F)},
+                **{path: ("causal_attention_fwd", "causal_attention_bwd")
+                   + HEADS for path in (T655, T655F, T4096, T4096F)}}
 # CPCConfig fields a path sets beside arMode
 PATH_CONFIG = {EXACT: {"negativeSamplingMode": "exact"},
                WIDE: {"hiddenEncoder": 512, "hiddenGar": 512},
@@ -2185,7 +2241,11 @@ PATH_CONFIG = {EXACT: {"negativeSamplingMode": "exact"},
                W1056: {"hiddenEncoder": 1056, "hiddenGar": 1056},
                G512: {"hiddenEncoder": 512, "hiddenGar": 512},
                T2048: {"hiddenEncoder": 2048, "hiddenGar": 2048},
-               T163840: {"sizeWindow": 163840}}
+               T163840: {"sizeWindow": 163840},
+               **{path: {"sizeWindow": 655360}
+                  for path in (L655, L655F, T655, T655F)},
+               **{path: {"hiddenEncoder": 4096, "hiddenGar": 4096}
+                  for path in (T4096, T4096F)}}
 # the body the AR's backward kernel (K1, K4) must run on a path: the
 # cluster body at hiddenGar 256 (and 128) and, on 16 CTAs, at 512 and 768
 # in both dtypes (with part of W_hh streamed from L2 at 768, and in
@@ -2194,7 +2254,7 @@ PATH_CONFIG = {EXACT: {"negativeSamplingMode": "exact"},
 BWD_BODY = {"LSTM": "cluster", "GRU": "cluster", FUSED: "cluster",
             EXACT: "cluster", LONG: "cluster", W768: "cluster",
             F32: "cluster", F512: "cluster", F768: "cluster", W200: "rows",
-            W1056: "grid", G512: "grid"}
+            W1056: "grid", G512: "grid", L655: "cluster", L655F: "cluster"}
 # the body the AR's forward kernel must run: K1's 16-CTA cluster body at
 # hiddenGar 256, 512 and 768 in both dtypes, its rows body at 200, its
 # grid body at 1056; K4's 16-CTA cluster body at 256, its grid body at
@@ -2202,14 +2262,21 @@ BWD_BODY = {"LSTM": "cluster", "GRU": "cluster", FUSED: "cluster",
 FWD_BODY = {"LSTM": "cluster", FUSED: "cluster", EXACT: "cluster",
             LONG: "cluster", W768: "cluster", F32: "cluster",
             F512: "cluster", F768: "cluster", W200: "rows", W1056: "grid",
-            "GRU": "cluster", G512: "grid"}
+            "GRU": "cluster", G512: "grid", L655: "cluster",
+            L655F: "cluster"}
+# K2's body where a path leaves the tensor-core one: the rows body past dk
+# 256 (the heads of --hiddenEncoder 4096, dk 512)
+K2_BODY = {T4096: "rows", T4096F: "rows"}
 # launches a step, where a path fixes them: on the fused path K2 must not
 # run at all; on the exact path K8 runs once, in the backward
 PER_STEP = {FUSED: {"attention_block_fwd": 1, "attention_block_bwd": 1,
                     "conv_ln_fwd": 4, "conv_ln_bwd": 4,
                     "relpos_attention_fwd": 0, "relpos_attention_bwd": 0},
             EXACT: {"scatter_add_rows": 1},
-            LONG: {"relpos_attention_fwd": 1, "relpos_attention_bwd": 1}}
+            LONG: {"relpos_attention_fwd": 1, "relpos_attention_bwd": 1},
+            **{path: {"relpos_attention_fwd": 1, "relpos_attention_bwd": 1,
+                      "causal_attention_fwd": 1, "causal_attention_bwd": 1}
+               for path in LONG_WIDE_PATHS}}
 
 
 def reset_counts() -> dict:
@@ -2475,9 +2542,10 @@ def phase_train(dev: torch.device, path: str = "LSTM", B: int = 32,
         check_body(fns, path, n, FWD_BODY[path],
                    "gru_fwd" if path.startswith("GRU") else "lstm_fwd")
     if "relpos_attention_fwd" in PATH_KERNELS[path]:
-        # K2 on its tensor-core body, once a step in each direction
+        # K2 on its tensor-core body (K2_BODY: the rows body), once a step
+        # in each direction
         for name in ("relpos_attention_fwd", "relpos_attention_bwd"):
-            check_body(fns, path, n, "tc", name)
+            check_body(fns, path, n, K2_BODY.get(path, "tc"), name)
 
     per_step = torch.stack(losses).float().cpu()          # (n, K)
     if tuple(per_step.shape) != (n, cfg.nPredicts) or \
@@ -2570,15 +2638,16 @@ def phase_stop_grad(dev: torch.device, B: int = 32, steps: int = 2) -> None:
 
 def phase_model_alone(dev: torch.device, mode: str = "GRU", H: int = 100,
                       B: int = 8, steps: int = 4, body: str = "cluster",
-                      fwd_body: str = "cluster") -> int:
+                      fwd_body: str = "cluster", lr: float = 1e-3) -> int:
     """--arMode ``mode`` --hiddenGar H beside --hiddenEncoder 256: at H 100
     K4 runs H padded to 128 (ops/gru.py; its 8-CTA cluster bodies) and
     sliced back, at H 200 padded to 224 (its rows bodies); at H 4096 K1
     and K4 run their grid bodies, W_hh streamed every step.  The
     transformer prediction heads need hiddenGar == hiddenEncoder, so
     build_criterion must refuse the config, naming the flag; the model
-    trains alone here: ``steps`` Adam steps of the encoder and the AR
-    (bf16) on a fixed batch, the loss mean(c^2), the AR's kernels forward
+    trains alone here: ``steps`` Adam steps (rate ``lr``) of the encoder
+    and the AR (bf16) on a fixed batch, the loss mean(c^2), the AR's
+    kernels forward
     and backward once a step (the backward on ``body``, the forward on
     ``fwd_body``), the loss
     falling, train windows/s; then one float32 forward and backward on
@@ -2602,7 +2671,7 @@ def phase_model_alone(dev: torch.device, mode: str = "GRU", H: int = 100,
     model = build_model(cfg, torch.Generator().manual_seed(SEED)).to(dev)
     batch = torch.from_numpy(synthetic_audio(cfg.sizeWindow, B,
                                              SEED + 10)).to(dev)
-    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    opt = torch.optim.Adam(model.parameters(), lr=lr)
     hidden = model.zero_state(B, dev)
     fns = reset_counts()
     losses, times = [], []
@@ -3546,11 +3615,12 @@ def phase_interchange(tmp: str, dev: torch.device):
 # The eval CLIs (cpc_audio_tpu_torch.eval) on the default architecture
 # ---------------------------------------------------------------------------
 
-class _K1Recorder:
-    """Stands in for K1's wrapper ``fn`` while a CLI runs: records the
-    shape of each call on the card in ``calls`` and calls the wrapper.
-    The wrapper counts through its module's name, which then names this
-    object, so ``launches`` and ``body_launches`` are the wrapper's own."""
+class _Recorder:
+    """Stands in for a kernel's wrapper ``fn`` (K1's while a CLI runs, K2's
+    and K5's on the long-window paths): records the shape of each call on
+    the card in ``calls`` and calls the wrapper.  The wrapper counts
+    through its module's name, which then names this object, so
+    ``launches`` and ``body_launches`` are the wrapper's own."""
 
     def __init__(self, fn, shape_of):
         self.fn, self.shape_of, self.calls = fn, shape_of, []
@@ -3566,21 +3636,33 @@ class _K1Recorder:
 
 
 @contextlib.contextmanager
+def recorded(module, shapes: dict):
+    """While the block runs: ``shape_of(*args)`` of each call on the card
+    of each of ``module``'s wrappers ``name`` in ``shapes`` (name:
+    shape_of; a _Recorder stands in for each), their calls and counts
+    unchanged."""
+    recs = {n: _Recorder(getattr(module, n), f) for n, f in shapes.items()}
+    for n, r in recs.items():
+        setattr(module, n, r)
+    try:
+        yield {n: r.calls for n, r in recs.items()}
+    finally:
+        for n, r in recs.items():
+            setattr(module, n, r.fn)
+
+
+@contextlib.contextmanager
 def k1_calls():
     """While a CLI runs: the shape of each K1 call on the card, (B, T, H,
     residuals) of every forward and (B, T, H) of every backward; the calls
     and their counts unchanged."""
     from cpc_audio_tpu_torch.ops import lstm
-    fwd = _K1Recorder(lstm.lstm_fwd, lambda x_proj, w_hh, h0, c0,
-                      save_residuals=False: (*x_proj.shape[:2],
-                                             h0.shape[-1], save_residuals))
-    bwd = _K1Recorder(lstm.lstm_bwd, lambda gates, *args: (
-        *gates.shape[:2], gates.shape[-1] // 4))
-    lstm.lstm_fwd, lstm.lstm_bwd = fwd, bwd
-    try:
-        yield {"fwd": fwd.calls, "bwd": bwd.calls}
-    finally:
-        lstm.lstm_fwd, lstm.lstm_bwd = fwd.fn, bwd.fn
+    with recorded(lstm, {
+            "lstm_fwd": lambda x_proj, w_hh, h0, c0, save_residuals=False:
+            (*x_proj.shape[:2], h0.shape[-1], save_residuals),
+            "lstm_bwd": lambda gates, *args: (*gates.shape[:2],
+                                              gates.shape[-1] // 4)}) as c:
+        yield {"fwd": c["lstm_fwd"], "bwd": c["lstm_bwd"]}
 
 
 def run_eval_cli(main, argv, what: str):
@@ -4162,16 +4244,12 @@ def k4_calls():
     """As k1_calls, for K4: (B, T, H, residuals) of every forward and (B,
     T, H) of every backward on the card."""
     from cpc_audio_tpu_torch.ops import gru
-    fwd = _K1Recorder(gru.gru_fwd, lambda x_proj, w_hh, b_hh, h0,
-                      save_residuals=False: (*x_proj.shape[:2],
-                                             h0.shape[-1], save_residuals))
-    bwd = _K1Recorder(gru.gru_bwd, lambda gates, ghn, h0, ys, *args: (
-        *ys.shape[:2], ys.shape[-1]))
-    gru.gru_fwd, gru.gru_bwd = fwd, bwd
-    try:
-        yield {"fwd": fwd.calls, "bwd": bwd.calls}
-    finally:
-        gru.gru_fwd, gru.gru_bwd = fwd.fn, bwd.fn
+    with recorded(gru, {
+            "gru_fwd": lambda x_proj, w_hh, b_hh, h0, save_residuals=False:
+            (*x_proj.shape[:2], h0.shape[-1], save_residuals),
+            "gru_bwd": lambda gates, ghn, h0, ys, *args: (
+                *ys.shape[:2], ys.shape[-1])}) as c:
+        yield {"fwd": c["gru_fwd"], "bwd": c["gru_bwd"]}
 
 
 def variant_train(dev: torch.device, path: str, B: int = 32,
@@ -4886,6 +4964,241 @@ def ranks_two_gloo(tmp: str, dev: torch.device) -> int:
     return g0["launches"]["scatter_add_rows"]
 
 
+# ---- the long-window and wide shapes ----------------------------------------
+
+def _k2_shape(q, k, v, krel, *args, **kwargs):
+    return tuple(krel.shape[1:])           # (dk, S)
+
+
+def _k5_shape(q, *args, **kwargs):
+    return tuple(q.shape[1:])              # (S, dk)
+
+
+def long_wide_train(dev: torch.device, path: str) -> dict:
+    """One path of LONG_WIDE_PATHS through phase_train at B 4 (2 warm-up
+    and 4 timed steps, then 3 profiled), every K2 and K5 call recorded by
+    shape: each must run at the path's (S, dk), the heads' S = sizeWindow
+    // 160 - 12, the AR's S = sizeWindow // 160, dk = hiddenEncoder / 8,
+    in every one of the launches its wrapper counted over the 6 steps
+    (and in the profiled steps' too)."""
+    from cpc_audio_tpu_torch.ops import causal_attention, head_attention
+    cfg = PATH_CONFIG[path]
+    W, D = cfg.get("sizeWindow", 20480), cfg.get("hiddenEncoder", 256)
+    with recorded(head_attention, {"relpos_attention_fwd": _k2_shape,
+                                   "relpos_attention_bwd": _k2_shape}) as k2, \
+            recorded(causal_attention, {"causal_attention_fwd": _k5_shape,
+                                        "causal_attention_bwd": _k5_shape}
+                     ) as k5:
+        counts = phase_train(dev, path, B=4, timed=4)
+    want = {name: (D // 8, W // 160 - 12) for name in k2}
+    if path.startswith("transformer"):
+        want.update({name: (W // 160, D // 8) for name in k5})
+    got = {**k2, **k5}
+    for name, shape in want.items():
+        if set(got[name]) != {shape} or len(got[name]) < counts[name]:
+            fail(f"{path}: {name} ran at {sorted(set(got[name]))} "
+                 f"({len(got[name])} calls), not at {shape} in each of its "
+                 f"{counts[name]} counted launches")
+    print(f"{path}: " + ", ".join(
+        f"{name} at {'(dk, S)' if name in k2 else '(S, dk)'} {shape} in "
+        f"all its {len(got[name])} calls" for name, shape in want.items()),
+        flush=True)
+    return counts
+
+
+# K2's cases of phase_long_and_wide: (S, dk, K, B, heads), fewer heads
+# than the train step's K 12 x B 4 x 8, whose (S, S) plain tiles at S 4084
+# would take 25.6 GB each: S 2048 and the heads' 4084 on the tensor-core
+# body, and the rows body at dk 264 past S 3632 (its backward's rows in
+# the scratch); and the rows body at the --hiddenEncoder 4096 path's
+# shape (S 116, dk 512, K 12, B 4)
+LONG_WIDE_K2 = ((2048, 32, 2, 1, 8), (4084, 32, 1, 1, 8),
+                (3700, 264, 1, 1, 2), (116, 512, 12, 4, 8))
+# K5's: the AR at --sizeWindow 655360 (N = 4 x 8 rows of S 4096, dk 32)
+# and at --hiddenEncoder 4096 (S 128, dk 512); K1's and K4's at
+# --hiddenGar 8192 (B 4, T 128: the grid bodies, W_hh streamed)
+LONG_WIDE_K5 = ((32, 4096, 32), (32, 128, 512))
+# the models alone at --hiddenGar 8192 step at CPCConfig's --learningRate
+LONG_WIDE_LR = 2e-4
+H8192_SHAPES = (("lstm", 4, 128, 8192), ("gru", 4, 128, 8192))
+
+
+def long_wide_cases(dev: torch.device, dtype: torch.dtype) -> list:
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+
+    def rand(*shape, scale=1.0, dt=dtype):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dt)
+    seed = torch.tensor([SEED], dtype=torch.int64, device=dev)
+    cases = []
+    for S, dk, K, B, h in LONG_WIDE_K2:
+        for case in relpos_cases(rand, seed, B, S, dk, K, h):
+            case.label += f" (K {K}, B {B}, {h} heads)"
+            if dk > 256:       # the rows bodies: float32 on its own cores
+                case.split = None
+            cases.append(case)
+    for N, S, dk in LONG_WIDE_K5:
+        cases += causal_cases(rand, seed, N, S, dk, f"S {S} / dk {dk}")
+    return cases + recurrent_cases(rand, dev, H8192_SHAPES)
+
+
+def check_case(case: Case, dtype: torch.dtype) -> dict:
+    """One case against its plain version under TOLERANCE, then the
+    kernel's and the plain version's device time a call (the median of
+    two runs; one call, after the one that checked it, where a call takes
+    seconds: the rows body at S 3700), the kernel's bound; a K1 / K4
+    case's grid body rerun bit-identically."""
+    name = case.name
+    got, want = case.kernel(), case.plain()
+    torch.cuda.synchronize()
+    b = bound(case, got, dtype)
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    if name.endswith("_bwd"):
+        rel, why = TOLERANCE[(name, dtype)]
+        err = max(compare_norm(f"{case.label} grad {i}", gi, wi, rel, why)
+                  for i, (gi, wi) in enumerate(zip(got, want)))
+    else:
+        atol, rtol, why = TOLERANCE[(name, dtype)]
+        err = max(compare(f"{case.label} out {i}", gi, wi, atol, rtol, why)
+                  for i, (gi, wi) in enumerate(zip(got, want)))
+    del got, want
+    slow = name.startswith("relpos") and case.inputs[3].shape[1] > 256 \
+        and case.inputs[3].shape[2] > 1024
+    timing = dict(warmup=0, reps=1) if slow else dict(reps=2)
+    ms = median_ms(case.kernel, **timing)
+    plain_ms = median_ms(case.plain, **timing)
+    body = recurrent_body(case, dtype)
+    if body is not None:
+        recurrent_rerun(case, body)
+    split = (f" as bf16 split products; on the float32 cores "
+             f"{b['fp32_ms']:.4f} ms" if b["split"] else "")
+    print(f"  {case.label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+          f"(device time a call); bound {b['bound_ms']:.4f} ms by "
+          f"{b['bound_by']} ({b['bytes'] / 1e6:.2f} MB, "
+          f"{b['flops'] / 1e9:.3f} GFLOP{split}), {b['bound_ms'] / ms:.1%} "
+          f"of it", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "library_ms": None}
+
+
+# the JSON line's entries of phase_long_and_wide: (kernel, the case's
+# shape tag) of each, in bf16 (the train paths' dtype)
+LONG_WIDE_ENTRIES = {
+    "relpos_attention_fwd_s4084": ("relpos_attention_fwd", "S 4084 / dk 32"),
+    "relpos_attention_bwd_s4084": ("relpos_attention_bwd", "S 4084 / dk 32"),
+    "relpos_attention_fwd_rows": ("relpos_attention_fwd", "S 116 / dk 512"),
+    "relpos_attention_bwd_rows": ("relpos_attention_bwd", "S 116 / dk 512"),
+    "causal_attention_fwd_s4096": ("causal_attention_fwd", "S 4096 / dk 32"),
+    "causal_attention_bwd_s4096": ("causal_attention_bwd", "S 4096 / dk 32"),
+    "causal_attention_fwd_dk512": ("causal_attention_fwd", "S 128 / dk 512"),
+    "causal_attention_bwd_dk512": ("causal_attention_bwd", "S 128 / dk 512"),
+    "lstm_fwd_h8192": ("lstm_fwd", "B 4 / T 128 / H 8192"),
+    "lstm_bwd_h8192": ("lstm_bwd", "B 4 / T 128 / H 8192"),
+    "gru_fwd_h8192": ("gru_fwd", "B 4 / T 128 / H 8192"),
+    "gru_bwd_h8192": ("gru_bwd", "B 4 / T 128 / H 8192"),
+}
+
+
+def long_wide_kernels(dev: torch.device) -> dict:
+    """Phase (d): each widened kernel against its plain version, forward
+    and backward, both dtypes, at rate 0.1 where it drops (LONG_WIDE_K2,
+    LONG_WIDE_K5, H8192_SHAPES); K2 also at the train step's K 12 x B 4
+    at S 4084, the kernel alone; then K5 beside SDPA (its dense bias as a
+    float mask, rate 0) and K1 / K4 beside cuDNN's layers, in turns.
+    Returns LONG_WIDE_ENTRIES' numbers."""
+    from cpc_audio_tpu_torch.ops import head_attention as ha
+    results, by_shape = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        print(f"long and wide kernels vs plain versions, "
+              f"{str(dtype)[6:]}:", flush=True)
+        for case in long_wide_cases(dev, dtype):
+            r = check_case(case, dtype)
+            if dtype == torch.bfloat16:
+                by_shape[(case.name, case.shape)] = r
+        torch.cuda.empty_cache()
+        # K2 at the train step's whole K 12 x B 4 x 8 heads, S 4084
+        g = torch.Generator(device=dev).manual_seed(SEED + 43)
+        K, B, S, h, dk = 12, 4, 4084, 8, 32
+
+        def rand(*shape, scale=1.0):
+            return (torch.randn(shape, generator=g, device=dev)
+                    * scale).to(dtype)
+        args = [rand(K, B * S, h * dk) for _ in range(3)]
+        args.append(rand(K, dk, S, scale=0.5))
+        dout = rand(K, B * S, h * dk, scale=0.1)
+        seed = torch.tensor([SEED], dtype=torch.int64, device=dev)
+        fwd = median_ms(lambda: ha.relpos_attention_fwd(*args, B, h, 0.1,
+                                                        seed), reps=2)
+        bwd = median_ms(lambda: ha.relpos_attention_bwd(*args, dout, B, h,
+                                                        0.1, seed), reps=2)
+        print(f"  K2 at the --sizeWindow 655360 train step's K {K} x B {B} "
+              f"x {h} heads, S {S} / dk {dk}, rate 0.1, {str(dtype)[6:]}: "
+              f"forward {fwd:.4f} ms, backward {bwd:.4f} ms (device time a "
+              f"call, the kernel alone)", flush=True)
+        del args, dout
+        torch.cuda.empty_cache()
+    sdpa = {}
+    for N, S, dk in LONG_WIDE_K5:
+        sdpa.update({(name, dt, S): ms for (name, dt), ms in
+                     long_causal_yardsticks(dev, N // 8, S, dk).items()})
+    cudnn = rows_yardsticks(dev, [(k, B, H) for k, B, _, H in H8192_SHAPES],
+                            warmup=1, reps=2)
+    for entry, (name, shape) in LONG_WIDE_ENTRIES.items():
+        results[entry] = dict(by_shape[(name, shape)])
+        if name.startswith("causal"):
+            S = int(shape.split()[1])
+            results[entry]["library_ms"] = sdpa[(name, torch.bfloat16, S)]
+        elif name.startswith(("lstm", "gru")):
+            results[entry]["library_ms"] = cudnn[(name, 4, 8192,
+                                                  torch.bfloat16)]
+    return results
+
+
+def phase_long_and_wide(dev: torch.device) -> tuple:
+    """The shapes the JAX package trains past the port's first limits: (d)
+    the widened kernels against their plain versions and their
+    yardsticks; (a) the default model (LSTM AR, transformer heads) at
+    --sizeWindow 655360 (K2 at S 4084) and (b) the transformer AR there
+    (K5 at S 4096) and at --hiddenEncoder 4096 --hiddenGar 4096 (K5 at dk
+    512, K2's rows body at dk 512), B 4, both dtypes, each loss finite
+    and falling; (c) LSTM and GRU models alone at --hiddenGar 8192 (the
+    grid bodies at J 64 units a CTA on 132 SMs).  Returns (the JSON
+    line's entries, their launches on the paths)."""
+    t0 = time.time()
+    timings = long_wide_kernels(dev)
+    print(f"[phase long/wide kernels {time.time() - t0:.1f} s]", flush=True)
+    counts = {}
+    for path in LONG_WIDE_PATHS:
+        t0 = time.time()
+        counts[path] = long_wide_train(dev, path)
+        torch.cuda.empty_cache()
+        print(f"[phase train {path} {time.time() - t0:.1f} s]", flush=True)
+    launches = {}
+    for entry, (name, shape) in LONG_WIDE_ENTRIES.items():
+        path = (L655 if entry.endswith("s4084") else
+                T655 if entry.endswith("s4096") else
+                T4096 if entry.endswith(("_rows", "dk512")) else None)
+        if path is not None:
+            launches[entry] = counts[path][name]
+    for mode in ("LSTM", "GRU"):
+        t0 = time.time()
+        # the model's steps run the grid bodies once a step each way
+        # (check_body): the backward's launches are the forward's.  At
+        # the trainer's own rate (--learningRate 2e-4): Adam's step moves
+        # each unit's pre-activation by up to lr times the sum of |h| over
+        # 8192 units, and at 1e-3 the loss overshoots, with the kernels
+        # and with their plain versions alike (port_perf/wide_model_lr.py)
+        n = phase_model_alone(dev, mode, 8192, B=4, steps=4, body="grid",
+                              fwd_body="grid", lr=LONG_WIDE_LR)
+        for d in ("fwd", "bwd"):
+            launches[f"{mode.lower()}_{d}_h8192"] = n
+        torch.cuda.empty_cache()
+        print(f"[phase {mode} --hiddenGar 8192 {time.time() - t0:.1f} s]",
+              flush=True)
+    return timings, launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs only on a GPU")
@@ -4983,6 +5296,11 @@ def main() -> None:
                           fwd_body="grid")
         print(f"[phase {mode} --hiddenGar 4096 {time.time() - t0:.1f} s]",
               flush=True)
+    t0 = time.time()
+    wide, wide_launches = phase_long_and_wide(dev)
+    timings.update(wide)
+    launches.update(wide_launches)
+    print(f"[phase long and wide {time.time() - t0:.1f} s]", flush=True)
     t0 = time.time()
     phase_stop_grad(dev)
     print(f"[phase stop-grad {time.time() - t0:.1f} s]", flush=True)

@@ -535,8 +535,11 @@ def check_kernels(config: CPCConfig) -> None:
     port cannot run on the card: for the transformer heads their widths
     (hiddenGar + speakerEmbedding == hiddenEncoder, as the JAX heads need
     too) and the gates of K2 and K3, for the LSTM heads K1's at H =
-    hiddenEncoder, and K8's for every head type.  A refused shape is run
-    by no plain version in its place.  Under ``CPC_ATTN_BLOCK=1`` the
+    hiddenEncoder, and K8's for every head type: the heads' K2 takes S =
+    sizeWindow // 160 - nPredicts up to 4096 frames (``--sizeWindow`` up
+    to 657439 at the default 12 predictions) at any dk, K1 H up to 8192.  A
+    refused shape is run by no plain version in its place; the message
+    names the flag and the limit.  Under ``CPC_ATTN_BLOCK=1`` the
     heads run K6 where its gate takes the shape and K2 elsewhere, as the
     JAX package runs its whole-block kernel only where its own gate takes
     it (at ``--hiddenEncoder 512`` or ``--sizeWindow 40960`` neither

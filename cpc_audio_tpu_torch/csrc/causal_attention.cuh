@@ -24,7 +24,7 @@
 // dtypes.
 //
 // Geometry (`Geom<T, DKP, P>`).  A block holds 4 warps.  DKP is dk rounded up
-// to 32, 64, 128 or 256 with zero columns (zeros add nothing to a
+// to 32, 64, 128, 256 or 512 with zero columns (zeros add nothing to a
 // product).  A tile holds kTile rows of q/k/v/do (query rows in the
 // forward and the backward's row kernel, keys in its column kernel), each
 // plane (kTile, DKP + 8) bf16: the 8-element pad puts the rows of an
@@ -35,6 +35,16 @@
 // pair up on 16 rows, each owning half of the output columns (it forms
 // the whole score tile, as its partner does, and accumulates 64 or 128
 // columns: at most 128 float32 accumulators a lane for each output).
+// At DKP 512 (--hiddenEncoder 4096: 8 heads of 512) a tile is 16 rows
+// and all four warps share them, each owning a quarter of the output
+// columns, 128: the accumulators stay at 64 a lane for each output, as
+// at DKP 256, and the backward's six staged tiles take 100 KB in bf16 and
+// 198 KB as float32's two planes.  (Walking dk in 256-column halves would
+// keep 32-row tiles but form every score tile twice, or hold two 256-wide
+// halves of dk and dv, 256 accumulators a lane, in the column kernel; the
+// 16-row tile forms each score tile once a warp, four warps alike, and
+// its q . k^T then costs four times its p . v: correct first, fast
+// later.)
 #pragma once
 
 #include "common.cuh"
@@ -54,7 +64,8 @@ template <typename T, int DKP, int P = sizeof(T) == sizeof(float) ? 2 : 1>
 struct Geom {
   static constexpr bool kF32 = sizeof(T) == sizeof(float);
   static constexpr int kPlanes = P;                  // bf16 planes a value
-  static constexpr int kTile = kPlanes * DKP <= 128 ? 64 : 32;  // rows, keys
+  static constexpr int kTile =                        // rows, keys
+      DKP > 256 ? 16 : kPlanes * DKP <= 128 ? 64 : 32;
   static constexpr int kNT = kTile / 8;               // n8 tiles of a tile
   static constexpr int kRowWarps = kTile / 16;        // warps along rows
   static constexpr int kColWarps = kWarps / kRowWarps;  // along columns
@@ -291,9 +302,16 @@ __device__ __forceinline__ float kept_factor(const Dropout& drop,
                                      : 0.0f;
 }
 
-// dk rounded up to the staged width: 32, 64, 128 or 256 (0 above 256).
+// dk rounded up to the staged width: 32, 64, 128, 256 or 512 (0 above
+// 512).  K2's tensor-core body takes the widths up to 256
+// (relpos_attention_tc.cuh `kMaxDk`).
 inline int padded_dk(int dk) {
-  return dk <= 32 ? 32 : dk <= 64 ? 64 : dk <= 128 ? 128 : dk <= 256 ? 256 : 0;
+  return dk <= 32    ? 32
+         : dk <= 64  ? 64
+         : dk <= 128 ? 128
+         : dk <= 256 ? 256
+         : dk <= 512 ? 512
+                     : 0;
 }
 
 // Up to four float32 operands of one call, (rows, dk) each.

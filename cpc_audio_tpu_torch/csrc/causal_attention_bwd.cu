@@ -14,17 +14,18 @@
 // whose masked cells hold q . Krelpos values of other positions, so any
 // other value there would flow into dq and dKrelpos.  No atomics: every
 // output element is written by one thread, and every run gives the same
-// bits.  Shapes: dk <= 256, a multiple of 8 in bf16; any S.
+// bits.  Shapes: dk <= 512, a multiple of 8 in bf16; any S (64-bit
+// offsets into the (N, S, S) bias and dbias).
 //
 // One tensor-core body for both dtypes (causal_attention.cuh): two
 // kernels, each with blocks of 4 warps over tiles of 64 rows (32 past DKP
-// 128 in bf16, 64 in float32), and cp.async staging.  It holds no (S, S)
+// 128 in bf16, 64 in float32; 16 at DKP 512), and cp.async staging.  It holds no (S, S)
 // tile anywhere: its scratch is the rows' statistics (3, N, S) and, in
 // float32, the bf16 planes of q, k, v and do (`split_operands`), so S is
 // bounded by nothing but the caller's (N, S, S) bias.  49-51 KB of shared
 // memory a block at dk <= 32 in bf16 (four blocks an SM, so the 512
 // blocks of either kernel at N = 256, S = 128 run in one wave), 98-100 KB
-// in float32, 214 KB at float32 DKP 256.
+// in float32, 214 KB at float32 DKP 256, 198 KB at float32 DKP 512.
 //   1. `causal_attention_bwd_rows`, one block per (query tile, n): a
 //      first pass over the key tiles up to the diagonal forms s = q.k^T
 //      and dp = do.v^T on mma.sync and keeps, per query row, the running
@@ -46,7 +47,9 @@
 //      its passes where the first two key tiles are all).
 // Past 64-row tiles, the two warps of a pair form the same 16 rows'
 // scores, and each accumulates half of the output columns (dq; dk and
-// dv); one of them writes the statistics and the dbias tile.
+// dv); one of them writes the statistics and the dbias tile.  At DKP 512
+// all four warps form the 16 rows' scores and accumulate a quarter of the
+// columns each (causal_attention.cuh `Geom`).
 // The Pallas kernel multiplies p r and ds unrounded in float32; a bf16
 // operand would keep 8 of their bits, so those three products (dq, dk, dv)
 // take each operand as the two-term split hi = bf16(x), lo = bf16(x - hi)
@@ -489,8 +492,11 @@ int launch_any(const bf16* q, const bf16* k, const bf16* v, const void* bias,
     case 128:
       return launch<T, 128>(q, k, v, bias, dout, dq, dk_out, dv, dbias,
                             stats, N, S, dk, lds, plane, layer, drop, s);
-    default:
+    case 256:
       return launch<T, 256>(q, k, v, bias, dout, dq, dk_out, dv, dbias,
+                            stats, N, S, dk, lds, plane, layer, drop, s);
+    default:
+      return launch<T, 512>(q, k, v, bias, dout, dq, dk_out, dv, dbias,
                             stats, N, S, dk, lds, plane, layer, drop, s);
   }
 }
@@ -513,7 +519,7 @@ extern "C" size_t cpc_causal_attention_bwd_scratch(int N, int S, int dk,
 
 // q, k, v, dout and dq, dk, dv (N, S, dk), bias and dbias (N, S, S), all
 // in `dtype`; scratch of cpc_causal_attention_bwd_scratch bytes, 16-byte
-// aligned.  dk <= 256, in bf16 a multiple of 8 with 16-byte aligned rows.
+// aligned.  dk <= 512, in bf16 a multiple of 8 with 16-byte aligned rows.
 extern "C" int cpc_causal_attention_bwd(
     const void* q, const void* k, const void* v, const void* bias,
     const void* dout, void* dq, void* dk, void* dv, void* dbias,

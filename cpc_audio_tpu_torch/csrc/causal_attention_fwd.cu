@@ -10,16 +10,17 @@
 // statistics are float32.  In training the probabilities are dropped after
 // the normalising sum (dropout.cuh at the AR attention site, keyed on
 // (layer, n, i * S + j)).  The Pallas kernel pads S to the TPU's tiles;
-// this one takes S as it is.  Shapes: dk <= 256 (a multiple of 8 in
+// this one takes S as it is.  Shapes: dk <= 512 (a multiple of 8 in
 // bf16), any S (its scratch is O(N S dk); the wrapper keeps i * S + j in
-// 32 bits).
+// 32 bits; every offset into the (N, S, S) bias is 64-bit).  The gate,
+// ops/causal_attention.py `supported`, takes S up to 4096.
 //
 // One tensor-core body for both dtypes (causal_attention.cuh): one block
 // of 4 warps per (query tile, n).  The q tile is staged once; k, v and the
 // causal chunk of the bias for each key tile up to the diagonal are
 // staged with cp.async into a double buffer (tile t + 1 in flight while t
-// is used; a single buffer where two do not fit, float32 at DKP 256), so
-// no block reads bias above the diagonal.  q.k^T and p.v run
+// is used; a single buffer where two do not fit, float32 at DKP 256 and
+// 512), so no block reads bias above the diagonal.  q.k^T and p.v run
 // on mma.sync m16n8k16 (bf16 in, float32 sums); the bias, the mask, the
 // running (online) max and sum, the dropout factor and the rounding happen
 // in registers, and the probability accumulators are the A operand of p.v
@@ -36,7 +37,9 @@
 // float32 check of tests/test_torch_cuda.py (ops/causal_attention.py
 // `causal_attention_split`).  Past DKP 128 in bf16 (32 in float32) the
 // tiles are 32 rows and each pair of warps shares 16 query rows, one half
-// of the output columns each.
+// of the output columns each; at DKP 512 the tiles are 16 rows, shared by
+// all four warps, a quarter of the output columns each (one key buffer
+// in float32, whose three planes of q, k and v take 49 KB a tile).
 //
 // What bounds it on an H100: at N = 256, S = 128, dk = 32 the call moves
 // 16.8 MB in bf16 (the bias's causal half is half of it) for 0.27 GFLOP of
@@ -68,7 +71,7 @@ constexpr size_t smem_bytes(int bufs) {
 }
 
 // Key-tile buffers: two (the next tile in flight), one where two do not
-// fit (float32 at DKP 256: 264 KB)
+// fit (float32 at DKP 256: 264 KB; at 512: 247 KB)
 template <typename T, int DKP>
 constexpr int kBufs = smem_bytes<T, DKP>(2) <= cpc::kSmemLimit ? 2 : 1;
 
@@ -217,8 +220,11 @@ int launch_any(const bf16* q, const bf16* k, const bf16* v, const void* bias,
     case 128:
       return launch<T, 128>(q, k, v, bias, out, N, S, dk, lds, plane, layer,
                             drop, s);
-    default:
+    case 256:
       return launch<T, 256>(q, k, v, bias, out, N, S, dk, lds, plane, layer,
+                            drop, s);
+    default:
+      return launch<T, 512>(q, k, v, bias, out, N, S, dk, lds, plane, layer,
                             drop, s);
   }
 }
@@ -233,7 +239,7 @@ extern "C" size_t cpc_causal_attention_fwd_scratch(int N, int S, int dk,
                                 : 0;
 }
 
-// q, k, v, out (N, S, dk) and bias (N, S, S) in `dtype`; dk <= 256, in
+// q, k, v, out (N, S, dk) and bias (N, S, S) in `dtype`; dk <= 512, in
 // bf16 a multiple of 8 with 16-byte aligned rows; scratch of
 // cpc_causal_attention_fwd_scratch bytes, 16-byte aligned (null where 0).
 extern "C" int cpc_causal_attention_fwd(const void* q, const void* k,

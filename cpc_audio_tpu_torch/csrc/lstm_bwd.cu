@@ -67,7 +67,7 @@ namespace {
 
 constexpr int kThreads = 1024;
 // ops/lstm.py MAX_H, the widest H checked on the card.
-constexpr int kMaxH = 4096;
+constexpr int kMaxH = 8192;
 
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);

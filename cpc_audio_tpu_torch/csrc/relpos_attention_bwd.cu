@@ -31,8 +31,11 @@
 // Where even the float32 operands do not fit beside the rows (S 244, dk
 // 64: 331 KB), a second kernel on operand views stages them in bf16
 // (exact: they are bf16 already; 158 KB there), and past that (float32
-// there, or S·dk larger) reads them in place from device memory.  Each of
-// these is a compile-time body (`mode_of` picks one per shape family):
+// there, or S·dk larger) reads them in place from device memory; past S
+// 3632, where even the rows (8 warps' two float32 rows of S, 64 S bytes)
+// pass shared memory, the rows go to the scratch too, after the chunk's
+// tiles (128 KB a block beside its 67 MB of bf16 tiles at S 4096).  Each
+// of these is a compile-time body (`mode_of` picks one per shape family):
 // chosen at run time, the compiler read shared tiles through generic
 // loads and the default shape's backward ran 2.9-3.1 ms against 2.3.
 // Blocks run
@@ -42,11 +45,14 @@
 // depend on block scheduling.  The device-memory tiles take 2 S^2 values
 // a (k, b, h): 8.2 MB in float32 at S 1012 (--sizeWindow 163840), 3.1 GB
 // over 12 heads and 8 attention heads at B 4, 25 GB at B 32; so the
-// wrapper hands over a scratch of at most 1 GiB and the launches walk the
-// (k, b) rows of heads in chunks that fit it, reusing it
+// wrapper hands over a scratch of at most 1 GiB (or of one row, where a
+// row takes more) and the launches walk the (k, b) rows of heads in
+// chunks that fit it, reusing it
 // (ops/head_attention.py `TILE_BUDGET`): a launch's grid is (heads, a
 // chunk of b, a chunk of k), one k at a time where a k's rows do not all
-// fit.  (h, b, k) stay block indices: with a flat block index divided
+// fit, and one (k, b) row at a time where one row passes the budget (at
+// S 4096 in float32 a row of 8 heads takes 1.07 GB: the scratch is that
+// one row's).  (h, b, k) stay block indices: with a flat block index divided
 // into them the default shape's backward took 2.90 ms against 2.33
 // (bf16, H100 80GB HBM3, 700 W).
 //
@@ -68,8 +74,9 @@ constexpr int kThreads = 256;
 // per-warp float32 rows (kTilesT, bf16 only); float32 operands with tiles
 // in T in a device-memory scratch beside the same rows (kScratch); the
 // same with the operands staged in T (kScratchT, bf16 only); operands read
-// in place, tiles in the scratch (kInPlace).
-enum Mode { kTiles, kTilesT, kScratch, kScratchT, kInPlace };
+// in place, tiles in the scratch (kInPlace); and the rows in the scratch
+// too, after every block's tiles (kInPlaceRows: S past 3632).
+enum Mode { kTiles, kTilesT, kScratch, kScratchT, kInPlace, kInPlaceRows };
 
 // One launch's blocks: heads x b in [b0, b0 + nb) x k in [k0, k0 + nk).
 struct Chunk {
@@ -105,7 +112,7 @@ Mode mode_of(int S, int dk) {
   if (ops + row_bytes(S) <= cpc::kSmemLimit) return kScratch;
   if (bf16 && operand_bytes<T>(S, dk) + row_bytes(S) <= cpc::kSmemLimit)
     return kScratchT;
-  return kInPlace;
+  return row_bytes(S) <= cpc::kSmemLimit ? kInPlace : kInPlaceRows;
 }
 
 template <typename T>
@@ -119,8 +126,10 @@ size_t smem_bytes(int S, int dk) {
       return operand_bytes<float>(S, dk) + row_bytes(S);
     case kScratchT:
       return operand_bytes<T>(S, dk) + row_bytes(S);
-    default:
+    case kInPlace:
       return row_bytes(S);
+    default:
+      return 0;
   }
 }
 
@@ -279,13 +288,14 @@ __global__ void __launch_bounds__(kThreads) relpos_attention_bwd_kernel(
 }
 
 // The same backward where the float32 operands do not fit beside the rows
-// (kScratchT, kInPlace): the operands are views (relpos_attention.cuh),
-// staged in TS = T, or (IN_PLACE) read from device memory; the tiles are
-// in the device-memory scratch, a row's intermediates in two per-warp
-// rows.  The kernel above keeps its own body for the default shapes: the
+// (kScratchT, kInPlace, kInPlaceRows): the operands are views
+// (relpos_attention.cuh), staged in TS = T, or (IN_PLACE) read from device
+// memory; the tiles are in the device-memory scratch, a row's
+// intermediates in two per-warp rows, in shared memory or (ROWS_DEV) in
+// the scratch after the launch's tiles, the block's own 16 S floats.  The kernel above keeps its own body for the default shapes: the
 // same code on views ran 2.66 ms there against its 2.31 (S 116, dk 32,
 // bf16, chip_smoke.py on an H100).
-template <typename T, typename TS, bool IN_PLACE>
+template <typename T, typename TS, bool IN_PLACE, bool ROWS_DEV>
 __global__ void __launch_bounds__(kThreads) relpos_attention_bwd_view_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ krel, const T* __restrict__ dout,
@@ -309,13 +319,21 @@ __global__ void __launch_bounds__(kThreads) relpos_attention_bwd_view_kernel(
   TS* ks = dos + S * dk;
   TS* vs = ks + S * ldk;
   TS* krT = vs + S * ldk;
-  // (n_warps, 2, S) a row's intermediates
+  // this block among the launch's (the chunk's)
+  const size_t blk =
+      (size_t)(blockIdx.z * gridDim.y + blockIdx.y) * nheads + h;
+  // (n_warps, 2, S) a row's intermediates: in shared memory, or after the
+  // launch's tiles in the scratch
   float* rows =
-      IN_PLACE ? smem : smem + operand_bytes<TS>(S, dk) / sizeof(float);
+      ROWS_DEV ? reinterpret_cast<float*>(
+                     tiles + (size_t)gridDim.x * gridDim.y * gridDim.z * 2 *
+                                 S * S) +
+                     blk * (kThreads / 32) * 2 * S
+      : IN_PLACE ? smem
+                 : smem + operand_bytes<TS>(S, dk) / sizeof(float);
   // (S, S) ds and p * r, both rounded to T: this block's part of the
-  // scratch (the chunk's)
-  TT* DS = tiles + ((size_t)(blockIdx.z * gridDim.y + blockIdx.y) * nheads +
-                     h) * 2 * S * S;
+  // scratch
+  TT* DS = tiles + blk * 2 * S * S;
   TT* PD = DS + S * S;
   const uint32_t row_key =
       drop.active() ? cpc::dropout_row_key(
@@ -480,13 +498,13 @@ cudaError_t launch_body(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, typename TS, bool IN_PLACE>
+template <typename T, typename TS, bool IN_PLACE, bool ROWS_DEV>
 cudaError_t launch_view(const void* q, const void* k, const void* v,
                         const void* krel, const void* dout, void* dq,
                         void* dk_out, void* dv, float* part, void* tiles,
                         Chunk c, int n_batch, int S, int nheads, int dk,
                         size_t smem, cpc::Dropout drop, cudaStream_t stream) {
-  auto kernel = relpos_attention_bwd_view_kernel<T, TS, IN_PLACE>;
+  auto kernel = relpos_attention_bwd_view_kernel<T, TS, IN_PLACE, ROWS_DEV>;
   cudaError_t err = cpc::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(nheads, c.nb, c.nk);
@@ -528,18 +546,23 @@ int launch(const void* q, const void* k, const void* v, const void* krel,
                                             dv, part, scratch, c, n_batch, S,
                                             nheads, dk, smem, drop, stream);
       else if (mode == kInPlace)
-        err = launch_view<T, T, true>(q, k, v, krel, dout, dq, dk_out, dv,
-                                      part, tiles, c, n_batch, S, nheads, dk,
-                                      smem, drop, stream);
+        err = launch_view<T, T, true, false>(q, k, v, krel, dout, dq, dk_out,
+                                             dv, part, tiles, c, n_batch, S,
+                                             nheads, dk, smem, drop, stream);
+      else if (mode == kInPlaceRows)
+        err = launch_view<T, T, true, true>(q, k, v, krel, dout, dq, dk_out,
+                                            dv, part, tiles, c, n_batch, S,
+                                            nheads, dk, smem, drop, stream);
       else if constexpr (sizeof(T) < sizeof(float)) {   // bf16 only
         if (mode == kTilesT)
           err = launch_body<T, T, true, false>(
               q, k, v, krel, dout, dq, dk_out, dv, part, nullptr, c,
               n_batch, S, nheads, dk, smem, drop, stream);
         else
-          err = launch_view<T, T, false>(q, k, v, krel, dout, dq, dk_out,
-                                         dv, part, tiles, c, n_batch, S,
-                                         nheads, dk, smem, drop, stream);
+          err = launch_view<T, T, false, false>(q, k, v, krel, dout, dq,
+                                                dk_out, dv, part, tiles, c,
+                                                n_batch, S, nheads, dk, smem,
+                                                drop, stream);
       }
       if (err != cudaSuccess) return (int)err;
     }
@@ -553,17 +576,22 @@ int launch(const void* q, const void* k, const void* v, const void* krel,
 }  // namespace
 
 // The bytes of device scratch for the (S, S) tiles of n_blocks (k, b, h)
-// blocks where they do not fit beside the operands (0 where they do): the
-// blocks of one launch, k_chunk * b_chunk * nheads.
+// blocks where they do not fit beside the operands (0 where they do), and
+// past S 3632 their rows after them: the blocks of one launch, k_chunk *
+// b_chunk * nheads.
+template <typename T>
+size_t scratch_bytes(int n_blocks, int S, int dk) {
+  const Mode mode = mode_of<T>(S, dk);
+  if (mode < kScratch) return 0;
+  return (size_t)n_blocks *
+         (tile_bytes<T>(S) + (mode == kInPlaceRows ? row_bytes(S) : 0));
+}
+
 extern "C" size_t cpc_relpos_attention_bwd_scratch(int n_blocks, int S,
                                                    int dk, int dtype) {
-  if (dtype == cpc::kBFloat16)
-    return mode_of<__nv_bfloat16>(S, dk) >= kScratch
-               ? (size_t)n_blocks * tile_bytes<__nv_bfloat16>(S)
-               : 0;
-  return mode_of<float>(S, dk) >= kScratch
-             ? (size_t)n_blocks * tile_bytes<float>(S)
-             : 0;
+  return dtype == cpc::kBFloat16
+             ? scratch_bytes<__nv_bfloat16>(n_blocks, S, dk)
+             : scratch_bytes<float>(n_blocks, S, dk);
 }
 
 // q, k, v, dout and dq, dk, dv (K, n_batch*S, nheads*dk) and krel

@@ -51,6 +51,19 @@ using k5::col_of;
 using k5::kThreads;
 using k5::row_of;
 
+// The shapes the tensor-core body takes: S up to 4096 (nothing in it is
+// sized by S but its scratch, O(N S dk) and the diagonal pass's windows;
+// the gate, ops/head_attention.py `MAX_S`, stops at the longest window
+// checked on the card, the heads' S 4084 at --sizeWindow 655360) and
+// dk up to 256 (K5's staged widths past it are K5's own; the rows bodies
+// take K2's wider heads).
+constexpr int kMaxS = 4096;
+constexpr int kMaxDk = 256;
+
+__host__ __device__ constexpr bool takes(int S, int dk) {
+  return S > 0 && S <= kMaxS && dk > 0 && dk <= kMaxDk;
+}
+
 // Blocks of `smem` bytes an SM holds (228 KB, 1 KB of it kept a block),
 // at most 3: the kernels' 130-170 registers a thread allow no more.
 __host__ __device__ constexpr int blocks_an_sm(size_t smem) {
@@ -391,15 +404,16 @@ static __global__ void head_planes(HeadOperands<T> src,
                                    int S, int nheads, int dk, int dkp,
                                    int n_planes) {
   const int cv = dkp / 8;                    // 8-column pieces a row
-  const int total = n_heads * S * cv;        // a thread a piece
+  const size_t total = (size_t)n_heads * S * cv;   // a thread a piece
   const size_t n = (size_t)n_heads * S * dkp;
   const T* x = src.x[blockIdx.y];
   bf16* out = planes + n_planes * n * blockIdx.y;
   const size_t D = (size_t)nheads * dk;
-  for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < total;
-       idx += gridDim.x * blockDim.x) {
-    const int row = idx / cv, c = (idx - row * cv) * 8;   // row: n S + s
-    const int head = row / S, s = row - head * S;
+  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+       idx < total; idx += (size_t)gridDim.x * blockDim.x) {
+    const size_t row = idx / cv;                          // row: n S + s
+    const int c = (int)(idx - row * cv) * 8;
+    const int head = (int)(row / S), s = (int)(row - (size_t)head * S);
     const T* xr = x + ((size_t)(head / nheads) * S + s) * D +
                   (size_t)(head % nheads) * dk;
     float v[8];

@@ -1,5 +1,5 @@
 // K2 backward: causal attention with Shaw relative positions on the
-// tensor cores (the body at every S <= 1024 and dk <= 256; past dk 256
+// tensor cores (the body at every S <= 4096 and dk <= 256; past dk 256
 // relpos_attention_bwd.cu's rows body runs).
 //
 // Replaces cpc_audio_tpu/ops/pallas/head_attention.py `_bwd_kernel`
@@ -711,11 +711,11 @@ int launch_any(const k2::Heads& H, const bf16* krp, const Scratch& sc,
 }  // namespace
 
 // The body the backward runs at (S, dk): 1, the tensor-core tiles, at
-// S <= 1024 and dk <= 256 in both dtypes; 0, the rows body
+// S <= 4096 and dk <= 256 in both dtypes (k2::takes); 0, the rows body
 // (relpos_attention_bwd.cu), past that.
 extern "C" int cpc_relpos_attention_bwd_body(int S, int dk, int dtype) {
   (void)dtype;
-  return S > 0 && S <= 1024 && dk > 0 && k5::padded_dk(dk) != 0 ? 1 : 0;
+  return k2::takes(S, dk) ? 1 : 0;
 }
 
 // Bytes of scratch the tensor-core backward needs: the rows' statistics

@@ -1,5 +1,5 @@
 // K2: causal attention with Shaw relative positions, forward, on the
-// tensor cores (the body at every S <= 1024 and dk <= 256; past dk 256
+// tensor cores (the body at every S <= 4096 and dk <= 256; past dk 256
 // relpos_attention_fwd.cu's rows body runs).
 //
 // Replaces cpc_audio_tpu/ops/pallas/head_attention.py `_fwd_kernel`
@@ -297,11 +297,11 @@ k2::Prep prep_of(int K, int n_batch, int S, int nheads, int dk, int dtype) {
 }  // namespace
 
 // The body the forward runs at (S, dk): 1, the tensor-core tiles, at
-// S <= 1024 and dk <= 256 in both dtypes; 0, the rows body
+// S <= 4096 and dk <= 256 in both dtypes (k2::takes); 0, the rows body
 // (relpos_attention_fwd.cu), past that.
 extern "C" int cpc_relpos_attention_fwd_body(int S, int dk, int dtype) {
   (void)dtype;
-  return S > 0 && S <= 1024 && k5::padded_dk(dk) != 0 && dk > 0 ? 1 : 0;
+  return k2::takes(S, dk) ? 1 : 0;
 }
 
 // Bytes of scratch the tensor-core forward needs: krel's padded planes

@@ -30,15 +30,19 @@
 //
 // Where a CTA's slice fits beside the rest, it stays in shared memory for
 // the whole window (K1 at H 1056: 68 KB in bf16, 135 KB as float32's two
-// planes); elsewhere (H 2048 and 4096) each warp streams its part of the
+// planes); elsewhere (H 2048 to 8192) each warp streams its part of the
 // slice every step through a ring of cp.async stages of its own, which
 // never drains: a stage used is refilled with the chunk D later in the
 // warp's stream of chunks, wrapping into the next step's, so the copies
 // stay in flight through the cell and the barrier.  A chunk is 16
 // columns of the slice (the forward's: of a warp's m-tiles; the
-// backward's: of all of them), its rows 16-byte pieces, the two pieces of
-// a row swapped every four rows (ldmatrix's 8 rows of a piece column hit
-// distinct banks).
+// backward's: of all of them, streamed in two pieces of half the m-tiles
+// where 16 rings of whole chunks pass shared memory: K1 in float32 past H
+// 5808 on 132 SMs), its rows 16-byte pieces, the two pieces of a row swapped
+// every four rows (ldmatrix's 8 rows of a piece column hit distinct
+// banks).  Past J 64 (H 8192 on a 114-SM card: J 72) a launch takes 8
+// batch rows; every offset into W_hh and the activations is 64-bit (4 H^2
+// is 2^28 at H 8192).
 //
 // Forward step (`fwd_kernel`): warp (mg, kw) multiplies m-tiles [mg MTW,
 // mg MTW + MTW) of the slice by h_{t-1} over its k-groups (16 columns of
@@ -79,9 +83,9 @@
 // What bounds it on an H100: at B 32 / H 1056 a step is a partial product
 // (2-3 bf16 products of 32 gate rows by 1056 by 32 a CTA), the exchange
 // (a CTA reads h, 135 KB, in the forward; writes 135 KB of partials and
-// reads 135 KB in the backward) and the barrier; at H 4096 the stream of
-// W_hh (134 MB in bf16, twice that in float32) from device memory every
-// step, T x |W_hh| / 3.35 TB/s a call at best.
+// reads 135 KB in the backward) and the barrier; at H 4096 and 8192 the
+// stream of W_hh (134 and 537 MB in bf16, twice that in float32) from
+// device memory every step, T x |W_hh| / 3.35 TB/s a call at best.
 #pragma once
 
 #include <cstdint>
@@ -96,7 +100,13 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kWarps = 16, kThreads = 32 * kWarps;
 constexpr int kMaxB = 32;          // batch rows a launch (4 n8 tiles)
-constexpr int kMaxJ = 64;          // units a CTA (16 rows a launch)
+// units a CTA: 72 takes H 8192 on a 114-SM card (64 on 132 SMs); past J
+// 64 a launch takes 8 batch rows (`rows_per_launch`)
+constexpr int kMaxJ = 72;
+// the backward's carry, [b][J] float32: rows_per_launch(J) J <= 2
+// kThreads at every J, so 2048 floats hold it (the size it had when
+// kMaxJ was 64, kept so that no shape's shared memory moved)
+constexpr int kCarry = 2048;
 constexpr int kMinH = 257;         // the grid bodies take H past 256
 constexpr size_t kRingBytes = 128 * 1024;   // a CTA's streamed stages
 
@@ -144,7 +154,7 @@ inline Shape make_shape(int B, int T, int H, int G, int PL, int sms) {
   return s;
 }
 
-// A launch needs J <= 64 and B <= rows_per_launch(J) (a thread a unit
+// A launch needs J <= kMaxJ and B <= rows_per_launch(J) (a thread a unit
 // pair of a row), one CTA an SM for each of the ncta.
 inline bool shape_ok(const Shape& s, int sms) {
   return s.B >= 1 && s.T >= 1 && s.J <= kMaxJ &&
@@ -154,9 +164,11 @@ inline bool shape_ok(const Shape& s, int sms) {
 // ---- shared memory -------------------------------------------------------
 // Forward: W's chunks (resident: MW x KS of them; streamed: each warp's
 // ring) and the KW k-parts' sums, [kw][32 batch rows][16 MT + 4].
-// Backward: W's chunks (resident: KS; streamed: each warp's ring), the
-// dgates tile (bf16 hi and lo, 32 rows by 16 MT + 8), the carry's partial
-// sums (a float2 a thread) and the carry (32 rows by up to 64 units).
+// Backward: W's chunks (resident: KS; streamed: each warp's ring of
+// stages, a stage a chunk or, where 16 rings of whole chunks pass shared
+// memory, a piece of one), the dgates tile (bf16 hi and lo, 32 rows by 16
+// MT + 8), the carry's partial sums (a float2 a thread) and the carry
+// (`kCarry` floats).
 
 __host__ __device__ inline int fwd_chunk(const Shape& s) {
   return s.PL * s.MTW * 256;          // bf16 elements
@@ -184,7 +196,7 @@ __host__ __device__ inline int bwd_chunk(const Shape& s) {
 __host__ __device__ inline int bwd_ldg(const Shape& s) { return 16 * s.MT + 8; }
 __host__ __device__ inline size_t bwd_extra_bytes(const Shape& s) {
   return (size_t)2 * kMaxB * bwd_ldg(s) * 2 + (size_t)kThreads * 8 +
-         (size_t)kMaxB * kMaxJ * sizeof(float);
+         (size_t)kCarry * sizeof(float);
 }
 __host__ __device__ inline size_t bwd_res_bytes(const Shape& s) {
   return (size_t)s.KS * bwd_chunk(s) * 2;
@@ -192,14 +204,33 @@ __host__ __device__ inline size_t bwd_res_bytes(const Shape& s) {
 __host__ __device__ inline bool bwd_resident(const Shape& s) {
   return bwd_res_bytes(s) + bwd_extra_bytes(s) <= kSmemLimit;
 }
-// stages a warp's ring holds in the streamed backward
-__host__ __device__ inline int bwd_stages(const Shape& s) {
-  const int pm = s.PL * s.MT;
+// The streamed backward's stages: a column group's chunk comes in `NPC`
+// pieces of up to ceil(MT / NPC) m-tiles each (PL planes of them, the
+// rows of each plane one run of the packed chunk); a warp's ring holds 4,
+// 2 or 1 of them by their size.  One piece (the whole chunk) wherever 16
+// rings of it fit; two where they do not (float32 past J 44 in K1, past
+// J 58 in K4: at J 64 and 72 a K1 chunk is 16 and 18 KB, 16 stages of it
+// 256 and 288 KB; H past 5808 on 132 SMs, past 5016 on 114).
+__host__ __device__ inline int bwd_piece_mt(const Shape& s, int npc) {
+  return (s.MT + npc - 1) / npc;
+}
+__host__ __device__ inline int bwd_stages_of(const Shape& s, int npc) {
+  const int pm = s.PL * bwd_piece_mt(s, npc);
   return pm <= 4 ? 4 : pm <= 8 ? 2 : 1;
+}
+__host__ __device__ inline size_t bwd_ring_bytes(const Shape& s, int npc) {
+  return (size_t)kWarps * bwd_stages_of(s, npc) * s.PL *
+         bwd_piece_mt(s, npc) * 256 * 2;
+}
+__host__ __device__ inline int bwd_pieces(const Shape& s) {
+  return bwd_ring_bytes(s, 1) + bwd_extra_bytes(s) <= kSmemLimit ? 1 : 2;
+}
+__host__ __device__ inline int bwd_stages(const Shape& s) {
+  return bwd_stages_of(s, bwd_pieces(s));
 }
 __host__ __device__ inline size_t bwd_w_bytes(const Shape& s) {
   return bwd_resident(s) ? bwd_res_bytes(s)
-                         : (size_t)kWarps * bwd_stages(s) * bwd_chunk(s) * 2;
+                         : bwd_ring_bytes(s, bwd_pieces(s));
 }
 inline size_t bwd_smem(const Shape& s) {
   return bwd_w_bytes(s) + bwd_extra_bytes(s);
@@ -544,11 +575,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 //     product (the gradients of h . W_hh^T's G gate rows)
 //   finish(p, s, State, carry, b, k): dh0 (and dc0)
 
-template <class Cell, int DB>
+// DB: the stages of a warp's ring (0: the slice resident); NPC: the
+// pieces a column group's chunk streams in (`bwd_pieces`).
+template <class Cell, int DB, int NPC>
 __global__ void __launch_bounds__(kThreads, 1)
     bwd_kernel(typename Cell::Params p, Shape s, const bf16* __restrict__ w,
                float* __restrict__ recv, unsigned* __restrict__ bar) {
   constexpr bool RES = DB == 0;
+  static_assert(!RES || NPC == 1, "a resident slice is whole chunks");
   constexpr int G = Cell::G;
   constexpr int PL = sizeof(typename Cell::T) == 2 ? 1 : 2;
   extern __shared__ __align__(16) unsigned char grid_bwd_smem[];
@@ -565,22 +599,36 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int J = s.J, H = s.H, KS = s.KS, NT = s.NT, B = s.B, T = s.T;
   const int MT = s.MT, ncta = s.ncta, u0 = c * J;
   const int CH = bwd_chunk(s);
+  // a stage: PL planes of MTP m-tiles (the whole chunk, MT, at NPC 1)
+  const int MTP = bwd_piece_mt(s, NPC), PCH = PL * MTP * 256;
   const int cb = warp * KS / kWarps, Q = (warp + 1) * KS / kWarps - cb;
-  bf16* ring = wsm + (size_t)warp * (RES ? 1 : DB) * CH;
+  bf16* ring = wsm + (size_t)warp * (RES ? 1 : DB) * PCH;
   // this CTA's packed chunks (`pack_bwd`)
   const bf16* wc = w + (size_t)c * KS * CH;
 
-  // column group cg: PL planes of all 16 MT rows by its 16 columns
-  auto fill = [&](bf16* stage, int cg) {
-    copy_chunk(stage, wc + (size_t)cg * CH, CH);
+  // item i of the warp's stream of stages: piece i % NPC of column group
+  // cb + i / NPC, PL planes of its m-tiles by the group's 16 columns (each
+  // plane's rows one run of the chunk; `swz` rows keep their parity, the
+  // runs starting at multiples of 16 rows)
+  auto fill = [&](bf16* stage, int i) {
+    const int cg = cb + i / NPC;
+    if constexpr (NPC == 1) {
+      copy_chunk(stage, wc + (size_t)cg * CH, CH);
+    } else {
+      const int m0 = i % NPC * MTP, nm = min(MTP, MT - m0);
+      for (int pl = 0; pl < PL; ++pl)
+        copy_chunk(stage + pl * MTP * 256,
+                   wc + (size_t)cg * CH + (size_t)(pl * MT + m0) * 256,
+                   nm * 256);
+    }
   };
   if constexpr (RES) {
-    for (int q = 0; q < Q; ++q) fill(wsm + (size_t)(cb + q) * CH, cb + q);
+    for (int q = 0; q < Q; ++q) fill(wsm + (size_t)(cb + q) * CH, q);
     mma::cp_async_commit();
   } else {
 #pragma unroll
     for (int d = 0; d < DB; ++d) {
-      fill(ring + d * CH, cb + d);
+      fill(ring + d * PCH, d % (Q * NPC));
       mma::cp_async_commit();
     }
   }
@@ -669,57 +717,84 @@ __global__ void __launch_bounds__(kThreads, 1)
     // 8-row) tile stored as its accumulators lie, a 16-byte store a lane,
     // into this CTA's block of parity t & 1
     float* out = recv + ((size_t)(t & 1) * ncta + c) * per_src;
-    for (int q = 0; q < Q; ++q) {
-      const int cg = cb + q;
-      bf16* stage;
-      if constexpr (RES) {
-        stage = wsm + (size_t)cg * CH;
-      } else {
-        mma::cp_async_wait<DB - 1>();
-        __syncwarp();
-        stage = ring + (rp++ % DB) * CH;
-      }
-      for (int np = 0; 2 * np < NT; ++np) {
-        float acc[2][4];
+    // acc (n8 tiles 2 np, 2 np + 1) += W_hh's m-tiles [m0, m1), held by
+    // the stage from its m-tile 0 on, times dgates' rows of them
+    auto product = [&](float (&acc)[2][4], const bf16* stage, int np,
+                       int m0, int m1) {
+      for (int ks = m0; ks < m1; ++ks) {
+        uint32_t a[PL][4];
 #pragma unroll
-        for (int n2 = 0; n2 < 2; ++n2)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[n2][e] = 0.0f;
-        for (int ks = 0; ks < MT; ++ks) {
-          uint32_t a[PL][4];
-#pragma unroll
-          for (int pl = 0; pl < PL; ++pl)
-            mma::ldmatrix_x4_trans(
-                a[pl], stage + swz(pl * 16 * MT + ks * 16 + (lane & 7) +
-                                       ((lane >> 4) << 3),
-                                   (lane >> 3) & 1));
-          uint32_t bh[4], bl[4];
-          mma::load_b_nmajor(bh, dgh, LDG, np * 16, ks * 16);
-          mma::load_b_nmajor(bl, dgl, LDG, np * 16, ks * 16);
-#pragma unroll
-          for (int n2 = 0; n2 < 2; ++n2) {
-            if (2 * np + n2 >= NT) continue;
-            mma::mma_bf16(acc[n2], a[0], bh[2 * n2], bh[2 * n2 + 1]);
-            mma::mma_bf16(acc[n2], a[0], bl[2 * n2], bl[2 * n2 + 1]);
-            if constexpr (PL == 2)
-              mma::mma_bf16(acc[n2], a[1], bh[2 * n2], bh[2 * n2 + 1]);
-          }
-        }
-        // (column cg 16 + lane / 4 (+ 8), batch row nt 8 + 2 (lane % 4)
-        // (+ 1)) in accumulator order
+        for (int pl = 0; pl < PL; ++pl)
+          mma::ldmatrix_x4_trans(
+              a[pl], stage + swz(pl * 16 * MTP + (ks - m0) * 16 +
+                                     (lane & 7) + ((lane >> 4) << 3),
+                                 (lane >> 3) & 1));
+        uint32_t bh[4], bl[4];
+        mma::load_b_nmajor(bh, dgh, LDG, np * 16, ks * 16);
+        mma::load_b_nmajor(bl, dgl, LDG, np * 16, ks * 16);
 #pragma unroll
         for (int n2 = 0; n2 < 2; ++n2) {
-          const int nt = 2 * np + n2;
-          if (nt >= NT) continue;
-          *reinterpret_cast<float4*>(
-              out + (((size_t)cg * NT + nt) * 32 + lane) * 4) =
-              make_float4(acc[n2][0], acc[n2][1], acc[n2][2], acc[n2][3]);
+          if (2 * np + n2 >= NT) continue;
+          mma::mma_bf16(acc[n2], a[0], bh[2 * n2], bh[2 * n2 + 1]);
+          mma::mma_bf16(acc[n2], a[0], bl[2 * n2], bl[2 * n2 + 1]);
+          if constexpr (PL == 2)
+            mma::mma_bf16(acc[n2], a[1], bh[2 * n2], bh[2 * n2 + 1]);
         }
       }
-      if constexpr (!RES) {
-        __syncwarp();
-        fill(stage, cb + (q + DB) % Q);
-        mma::cp_async_commit();
+    };
+    // (column cg 16 + lane / 4 (+ 8), batch row nt 8 + 2 (lane % 4)
+    // (+ 1)) in accumulator order
+    auto put = [&](const float (&acc)[2][4], int cg, int np) {
+#pragma unroll
+      for (int n2 = 0; n2 < 2; ++n2) {
+        const int nt = 2 * np + n2;
+        if (nt >= NT) continue;
+        *reinterpret_cast<float4*>(
+            out + (((size_t)cg * NT + nt) * 32 + lane) * 4) =
+            make_float4(acc[n2][0], acc[n2][1], acc[n2][2], acc[n2][3]);
+      }
+    };
+    for (int q = 0; q < Q; ++q) {
+      const int cg = cb + q;
+      if constexpr (NPC == 1) {
+        bf16* stage;
+        if constexpr (RES) {
+          stage = wsm + (size_t)cg * CH;
+        } else {
+          mma::cp_async_wait<DB - 1>();
+          __syncwarp();
+          stage = ring + (rp++ % DB) * PCH;
+        }
+        for (int np = 0; 2 * np < NT; ++np) {
+          float acc[2][4] = {};
+          product(acc, stage, np, 0, MT);
+          put(acc, cg, np);
+        }
+        if constexpr (!RES) {
+          __syncwarp();
+          fill(stage, (q + DB) % Q);
+          mma::cp_async_commit();
+        }
+      } else {
+        // the column group's pieces in turn, each n8 tile's sums running
+        // on across them (the order of the whole chunk's k-steps)
+        float acc[2][2][4] = {};
+#pragma unroll
+        for (int pc = 0; pc < NPC; ++pc) {
+          mma::cp_async_wait<DB - 1>();
+          __syncwarp();
+          bf16* stage = ring + (rp++ % DB) * PCH;
+          const int m0 = pc * MTP, m1 = min(MT, m0 + MTP);
+#pragma unroll
+          for (int np = 0; np < 2; ++np)
+            if (2 * np < NT) product(acc[np], stage, np, m0, m1);
+          __syncwarp();
+          fill(stage, (q * NPC + pc + DB) % (Q * NPC));
+          mma::cp_async_commit();
+        }
+#pragma unroll
+        for (int np = 0; np < 2; ++np)
+          if (2 * np < NT) put(acc[np], cg, np);
       }
     }
     grid_sync(bar);
@@ -836,10 +911,13 @@ int run_bwd(typename Cell::Params p, const void* w_hh, void* scratch,
       return grid::launch(kernel, s.ncta, smem, stream, q, s, w, recv, bar);
     };
     const int stages = bwd_resident(s) ? 0 : bwd_stages(s);
-    err = stages == 0   ? go(bwd_kernel<Cell, 0>)
-          : stages == 4 ? go(bwd_kernel<Cell, 4>)
-          : stages == 2 ? go(bwd_kernel<Cell, 2>)
-                        : go(bwd_kernel<Cell, 1>);
+    const int pieces = bwd_resident(s) ? 1 : bwd_pieces(s);
+    if (pieces == 2 && stages != 1) return (int)cudaErrorInvalidValue;
+    err = stages == 0   ? go(bwd_kernel<Cell, 0, 1>)
+          : stages == 4 ? go(bwd_kernel<Cell, 4, 1>)
+          : stages == 2 ? go(bwd_kernel<Cell, 2, 1>)
+          : pieces == 1 ? go(bwd_kernel<Cell, 1, 1>)
+                        : go(bwd_kernel<Cell, 1, 2>);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;

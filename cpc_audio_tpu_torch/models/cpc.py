@@ -29,14 +29,19 @@ from .transformer import TransformerAR
 
 
 def check_kernels(config: CPCConfig) -> None:
-    """Raise ValueError, naming the flag, for a config whose AR the port's
-    kernels cannot run (the gates of K1, K4 and K5), before any weight or
-    step exists.  A refused shape is run by no plain version in its place:
-    the shapes the JAX package trains and the port refuses are listed in
-    ROADMAP Queue 3.  Under ``CPC_PALLAS_CONV=1`` the encoder fuses the
-    layers K7 takes and leaves the rest to cuDNN, as the JAX package leaves
-    the layers its gate refuses to XLA (:meth:`CPCEncoder.fused_layers`;
-    at ``--hiddenEncoder 512`` neither fuses any).  Runs without a card."""
+    """Raise ValueError, naming the flag and the limit, for a config whose
+    AR the port's kernels cannot run (the gates of K1, K4 and K5), before
+    any weight or step exists: ``--hiddenGar`` past 8192 with ``--arMode
+    LSTM`` or ``GRU`` (K1, K4: ``ops/lstm.py`` ``MAX_H``), and with
+    ``--arMode transformer`` ``--hiddenEncoder`` past 4096 (K5's 8 heads
+    past dk 512, or in bf16 at a dk that is no multiple of 8) or
+    ``--sizeWindow`` past 655519 (K5 past S 4096 frames,
+    ``ops/causal_attention.py`` ``MAX_S``).  A refused shape is run by no
+    plain version in its place.  Under ``CPC_PALLAS_CONV=1`` the encoder
+    fuses the layers K7 takes and leaves the rest to cuDNN, as the JAX
+    package leaves the layers its gate refuses to XLA
+    (:meth:`CPCEncoder.fused_layers`; at ``--hiddenEncoder 512`` neither
+    fuses any).  Runs without a card."""
     problems = []
     H, D, W = config.hiddenGar, config.hiddenEncoder, config.sizeWindow
     if config.arMode in ("LSTM", "GRU"):

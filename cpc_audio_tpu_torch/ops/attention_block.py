@@ -45,12 +45,15 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build, dropout, ffn
-from .head_attention import (MAX_S, relpos_attention_bwd_ref,
+from .head_attention import (relpos_attention_bwd_ref,
                              relpos_attention_bwd_split, relpos_attention_ref,
                              relpos_attention_split)
 
 _NAME = "attention_block_fwd"
 _BWD_NAME = "attention_block_bwd"
+# the longest S the K6 body is checked at on the card
+# (csrc/attention_block_tc.cuh `takes`); K2's own reaches further
+MAX_S = 1024
 
 # Split products a float32 GEMM sums (csrc/attention_block_tc.cuh): the
 # projections ("proj"), y . Wo ("out"), dout . Wo^T ("dy") and the weight
@@ -76,9 +79,10 @@ def attention_block_supported(S: int, nheads: int, dk: int) -> bool:
 
 
 def supported(S: int, nheads: int, dk: int) -> Optional[str]:
-    """Why the K6 body refuses (S, nheads, dk), or None: K2's tensor-core
-    body takes S up to 1024 and the GEMMs any M; dk a multiple of 16 and
-    D a multiple of 64 up to 256 are the heads' gate's
+    """Why the K6 body refuses (S, nheads, dk), or None: it takes S up to
+    1024 (K2's tensor-core body inside it reaches 4096) and the GEMMs any
+    M; dk a multiple of 16 and D a multiple of 64 up to 256 are the heads'
+    gate's
     (:func:`attention_block_supported`), the C entry points' ``takes``."""
     D = nheads * dk
     if (0 < S <= MAX_S and nheads > 0 and dk > 0 and dk % 16 == 0
@@ -86,8 +90,8 @@ def supported(S: int, nheads: int, dk: int) -> Optional[str]:
         return None
     return (f"S={S}, nheads={nheads}, dk={dk} outside K6's shapes (dk % 16 "
             f"== 0 and D = nheads * dk a multiple of 64 up to 256, as "
-            f"attention_block_supported asks; 0 < S <= {MAX_S}, K2's "
-            f"tensor-core body)")
+            f"attention_block_supported asks; 0 < S <= {MAX_S}, the "
+            f"longest checked)")
 
 
 def _project(c: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -20,12 +20,13 @@ The backward recomputes p and gives dq, dk, dv and ``dbias = ds`` in the
 input dtype; dbias is exactly 0 above the diagonal, where the caller's
 skewed Shaw bias holds values of other positions.
 
-The kernels take dk <= 256 (a multiple of 8 in bf16, as the JAX
-package's own gate ``fused_attention_supported`` asks) and S up to 1024,
-the longest checked on the card (they hold no (S, S) tile: their scratch
-is O(N S dk), and the dropout key i * S + j would stay in 32 bits to S
-46340); :func:`supported` says so without a card, for the model
-builder's check of a config.  Both dtypes run one
+The kernels take dk <= 512 (a multiple of 8 in bf16, as the JAX
+package's own gate ``fused_attention_supported`` asks) and S up to 4096,
+the longest checked on the card (--sizeWindow 655360; they hold no (S, S)
+tile: their scratch is O(N S dk), the dropout key i * S + j would stay in
+32 bits to S 46340, and every offset into the (N, S, S) bias is 64-bit);
+:func:`supported` says so without a card, for the model builder's check
+of a config.  Both dtypes run one
 tensor-core body; in float32 its operands are split into bf16 planes,
 three in the forward (six split products a product) and two in the
 backward (three) (:func:`causal_attention_split` and
@@ -116,8 +117,11 @@ def key_tile(dk: int, planes: int) -> int:
     """Keys (and query rows) a tile of the tensor-core body at head width
     dk with operands of ``planes`` bf16 planes (1 in bf16;
     csrc/causal_attention.cuh ``Geom``): 64 where a row's planes hold at
-    most 128 values, else 32."""
-    dkp = next(w for w in (32, 64, 128, 256) if dk <= w)
+    most 128 values, else 32; 16 past dk 256 (DKP 512, where the four
+    warps share a tile's rows, a quarter of the columns each)."""
+    dkp = next(w for w in (32, 64, 128, 256, 512) if dk <= w)
+    if dkp > 256:
+        return 16
     return 64 if planes * dkp <= 128 else 32
 
 
@@ -218,19 +222,19 @@ def causal_attention_bwd_split(q, k, v, bias, dout, rate: float = 0.0,
 
 
 # the longest S checked on the card (tests/test_torch_cuda.py,
-# chip_smoke.py: --sizeWindow 163840); the kernels' memory and the dropout
+# chip_smoke.py: --sizeWindow 655360); the kernels' memory and the dropout
 # key i * S + j in 32 bits would take 46340
-MAX_S = 1024
-MAX_DK = 256          # the widest staged head: DKP 256
+MAX_S = 4096
+MAX_DK = 512          # the widest staged head: DKP 512
 
 
 def supported(S: int, dk: int,
               dtype: torch.dtype = torch.bfloat16) -> Optional[str]:
     """Why the kernels refuse a sequence length S and head width dk in
-    ``dtype``, or None: dk up to 256 (the body pads it to 32, 64, 128 or
-    256), in bf16 a multiple of 8 (bf16 rows are staged 16 bytes at a
+    ``dtype``, or None: dk up to 512 (the body pads it to 32, 64, 128, 256
+    or 512), in bf16 a multiple of 8 (bf16 rows are staged 16 bytes at a
     time; float32 ones are split into padded planes first); 0 < S <=
-    1024, the longest checked on the card (the kernels hold no (S, S)
+    4096, the longest checked on the card (the kernels hold no (S, S)
     tile: their scratch is the rows' statistics and, in float32, the
     operands' planes, O(N S dk))."""
     if dtype == torch.bfloat16 and dk % 8 != 0:

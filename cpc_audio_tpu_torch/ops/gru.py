@@ -31,7 +31,7 @@ the input dtype.
 * :func:`gru` is the differentiable entry point: a
   ``torch.autograd.Function`` over the two, with dW_hh = dgh^T h_prev and
   db_hh = sum dgh formed from dx_proj and dghn, as rnn.py:383-385.  It
-  takes any H up to 4096: where the kernels' H % 32 does not hold it pads
+  takes any H up to 8192: where the kernels' H % 32 does not hold it pads
   H with zero units (zero rows and columns of w_hh, zero b_hh, x_proj
   columns and h0) and slices them off.  A zero unit stays zero (r = z =
   1/2, n = tanh(0) = 0, h = z h = 0) and its w_hh column is zero, so the

@@ -25,7 +25,7 @@ the function's ``body_launches``.  CPU tensors take the plain versions.
 Two bodies, by shape (:func:`fwd_body`, :func:`bwd_body`, mirrored by the
 C exports ``cpc_relpos_attention_{fwd,bwd}_body``):
 
-- "tc", at every S <= 1024 and dk <= 256 in both dtypes: the tensor-core
+- "tc", at every S <= 4096 and dk <= 256 in both dtypes: the tensor-core
   body (csrc/relpos_attention_tc_fwd.cu, csrc/relpos_attention_tc_bwd.cu,
   on K5's mma.sync tiles): one block per (query tile, head) in the
   forward, the Shaw bias from the window product q . krel[:, window] of
@@ -39,7 +39,8 @@ C exports ``cpc_relpos_attention_{fwd,bwd}_body``):
   (csrc/relpos_attention_fwd.cu, csrc/relpos_attention_bwd.cu), one block
   a (k, b, h) with warps owning query rows, operands staged in shared
   memory or read in place, the backward's (S, S) tiles in device memory
-  walked in chunks of ``TILE_BUDGET``.
+  walked in chunks of ``TILE_BUDGET`` (past S 3632 its rows too: 64 S
+  bytes a block pass shared memory there).
 
 :func:`supported` gives the (S, dk) the kernels take, without a card.
 """
@@ -55,27 +56,30 @@ from . import _build, causal_attention, dropout, ffn
 
 _NAME = "relpos_attention_fwd"
 _BWD_NAME = "relpos_attention_bwd"
-# the longest sequence the kernels are checked at on the card (S 1012 and
-# 1024 in tests/test_torch_cuda.py; --sizeWindow 163840 gives 1012
-# anchors).  Their memory would take more: the rows bodies keep a block's
-# (S, S) ds and p r rows in 8 warps' float32 rows of S each, two per warp,
-# 64 S bytes within 227 KB (S 3632)
-MAX_S = 1024
+# the longest sequence the kernels are checked at on the card (S 4084 and
+# 4096 in tests/test_torch_cuda.py and chip_smoke.py; --sizeWindow 655360,
+# 41 s windows, gives 4084 anchors).  Nothing in the tensor-core body is
+# sized by S but its O(N S dk) scratch; the rows backward keeps its 8
+# warps' two float32 rows of S (64 S bytes) in shared memory up to S 3632
+# and in its device-memory scratch past it
+MAX_S = 4096
 # bytes of the rows backward's device-memory (S, S) tiles that one call
 # holds at once: past it the launches walk the (k, b) rows of heads in
 # chunks, each reusing the scratch (a (k, b, h) block takes 2 S^2 values:
-# 8.4 MB in float32 at S 1024, 67 MB a row of 8 heads)
+# 8.4 MB in float32 at S 1024, 67 MB a row of 8 heads; 134 MB at S 4096,
+# 1.07 GB a row: one row a launch, its scratch past the budget)
 TILE_BUDGET = 1 << 30
 
 
 def supported(S: int, dk: int) -> Optional[str]:
     """Why the kernels refuse a sequence length S and head width dk, or
-    None: S <= 1024, the longest checked on the card, and any dk, in both
+    None: S <= 4096, the longest checked on the card, and any dk, in both
     dtypes: the tensor-core body to dk 256 (its operands padded to 32, 64,
     128 or 256 columns), the rows bodies past it (they read a head's
     columns one at a time; past their shared memory the operands are read
-    in place and the backward's (S, S) tiles go to a device-memory scratch
-    of at most ``TILE_BUDGET``, walked in chunks of blocks)."""
+    in place and the backward's (S, S) tiles, and past S 3632 its rows, go
+    to a device-memory scratch of at most ``TILE_BUDGET`` or one (k, b)
+    row of heads, walked in chunks of blocks)."""
     if not (0 < S <= MAX_S and dk > 0):
         return f"S={S}, dk={dk} out of range (0 < S <= {MAX_S}, dk > 0)"
     return None
@@ -149,13 +153,15 @@ def relpos_attention_bwd_ref(q, k, v, krel, dout, n_batch: int, nheads: int,
         dp = dp * mask
     ds = p * (dp - (dp * p).sum(-1, keepdim=True)) / math.sqrt(dk)
     ds = ds.to(dt).float()
-    skew = _skew(S, q.device)
-    krel_sk = krel.float()[:, :, skew]                       # (K, dk, S, S)
-    dqh = ds @ kh + torch.einsum("kbhij,kdij->kbhid", ds, krel_sk)
+    # ds by krel column: U[i, r] = ds[i, j] at r = (j - i - 1) mod S, a
+    # permutation of each row whose causal pairs take r = j - i + S - 1
+    # and whose masked ones (ds exactly 0) the rest; so the rel-pos terms
+    # are products with krel, and no (K, dk, S, S) tensor is formed
+    U = torch.zeros_like(ds).scatter_(-1, _skew(S, q.device).expand_as(ds),
+                                      ds)
+    dqh = ds @ kh + U @ krel.float().transpose(-1, -2)[:, None, None]
     dkh = ds.transpose(-1, -2) @ qh
-    per_pair = torch.einsum("kbhid,kbhij->kdij", qh, ds)     # (K, dk, S, S)
-    dkrel = torch.zeros((K, dk, S), dtype=torch.float32, device=q.device)
-    dkrel.index_add_(2, skew.reshape(-1), per_pair.reshape(K, dk, S * S))
+    dkrel = torch.einsum("kbhir,kbhid->kdr", U, qh)
     return (_unheads(dqh, dt), _unheads(dkh, dt), _unheads(dvh, dt), dkrel)
 
 
@@ -179,7 +185,7 @@ def tile_rows(dk: int, dtype: torch.dtype, backward: bool = False) -> int:
 
 def fwd_body(S: int, dk: int, dtype: torch.dtype) -> str:
     """The body csrc/relpos_attention_fwd.cu runs: "tc", the tensor-core
-    tiles, at every S <= 1024 and dk <= 256 in both dtypes, else "rows",
+    tiles, at every S <= 4096 and dk <= 256 in both dtypes, else "rows",
     one block a (k, b, h) with warps owning query rows
     (``cpc_relpos_attention_fwd_body``: 1, 0)."""
     return "tc" if 0 < S <= MAX_S and 0 < dk <= TC_MAX_DK else "rows"
@@ -500,8 +506,8 @@ def tile_chunk(per_row: int, K: int, n_batch: int) -> Tuple[int, int]:
     takes when one (k, b) row of attention heads needs ``per_row`` bytes
     of device-memory tiles: all where they fit ``TILE_BUDGET`` (or need
     none), else as many whole k as fit, else one k and as many rows b as
-    fit, at least one (a row of 8 heads at S <= ``MAX_S`` takes 67 MB at
-    most)."""
+    fit, at least one (a row of 8 heads takes 67 MB at S 1024 in float32,
+    1.07 GB at S 4096: one row a launch there)."""
     rows = K * n_batch if per_row == 0 else max(1, TILE_BUDGET // per_row)
     if rows >= n_batch:
         return min(K, rows // n_batch), n_batch

@@ -34,7 +34,7 @@ float32 whatever the input dtype; outputs are rounded to the input dtype.
   choice;
 * :func:`lstm` is the differentiable entry point: a
   ``torch.autograd.Function`` over the two, with dW_hh = h_prev^T dgates
-  as one matmul, as rnn.py:223-226.  It takes any H up to 4096: where the
+  as one matmul, as rnn.py:223-226.  It takes any H up to 8192: where the
   kernels' H % 8 does not hold it pads H with zero units (zero rows and
   columns of w_hh, zero x_proj columns and initial state) and slices them
   off.  A zero unit stays zero (i = f = o = 1/2, g = tanh(0) = 0, so c =
@@ -57,10 +57,10 @@ _NAME = "lstm_fwd"
 _BWD_NAME = "lstm_bwd"
 MULTIPLE = 8          # the kernels' H: 4H whole 32-row tiles
 # the widest H the kernels are checked at on the card (tests/test_torch_cuda.py,
-# chip_smoke.py: --hiddenGar 4096).  Past 256 the grid bodies take every H
-# whose units split into at most 64 a CTA over the card's SMs (4096 on an
-# H100's 132: 32 units on 128 CTAs)
-MAX_H = 4096
+# chip_smoke.py: --hiddenGar 8192).  Past 256 the grid bodies take every H
+# whose units split into at most 72 a CTA over the card's SMs: 8192 on an
+# H100 SXM's 132 (64 units on 128 CTAs) and on a 114-SM part (72 on 114)
+MAX_H = 8192
 # the backward's cluster body: CTAs a cluster by H (J = H / C units a CTA)
 CLUSTER = {128: 8, 256: 8, 512: 16, 768: 16}
 # the cluster bodies' layouts: each warp holds RK k-steps (16 rows of the
@@ -205,13 +205,15 @@ BODY_CODES = {"rows": 0, "cluster": 1, "grid": 2}
 # The grid bodies (csrc/rnn_grid.cuh, K1's and K4's): from H 257, 16 warps
 # a CTA, a thread a unit pair of one batch row, so at most 32 rows a
 # launch (larger batches in launches of that many; fewer past 32 units a
-# CTA, up to 64), 128 KB of a CTA's shared memory for W_hh's streamed
-# stages where its slice does not stay
+# CTA, up to 72), 128 KB of a CTA's shared memory for the forward's
+# streamed stages of W_hh where its slice does not stay, the backward's
+# carry in 2048 floats
 GRID_MIN_H = 257
 GRID_WARPS = 16
 GRID_MAX_B = 32
-GRID_MAX_J = 64
+GRID_MAX_J = 72
 GRID_RING = 128 * 1024
+GRID_CARRY = 2048
 
 
 def grid_rows(J: int) -> int:
@@ -228,7 +230,7 @@ def grid_shape(H: int, G: int, sms: int, B: int = GRID_MAX_B) -> dict:
     over MW warp groups and KW k-parts (MW KW <= 16 warps take part),
     ``rows`` batch rows a launch, NT
     n8 tiles of the widest launch of batch B, and whether it fits (J <=
-    64 on ncta <= sms CTAs)."""
+    72 on ncta <= sms CTAs)."""
     J = -(-H // sms)
     J += J & 1
     MT = -(-G * J // 16)
@@ -249,23 +251,47 @@ def grid_smem(H: int, G: int, dtype: torch.dtype, sms: int,
     sums (32 rows by 16 MT + 4 float32 each), else 128 KB of streamed
     stages.  Backward: the KS chunks of PL planes by 16 MT rows by 16
     columns where they fit beside the dgates tile (bf16 hi and lo, 32 rows
-    by 16 MT + 8), a float2 for each of the 512 threads and the carry (32
-    rows by 64 units float32), else each warp's ring of 4, 2 or 1
-    stages."""
+    by 16 MT + 8), a float2 for each of the 512 threads and the carry
+    (2048 float32), else each warp's ring of 4, 2 or 1 stages, a stage a
+    chunk or, where 16 rings of whole chunks do not fit
+    (:func:`grid_pieces`), half of one (ceil(MT / 2) m-tiles)."""
     s = grid_shape(H, G, sms)
     PL = _planes(dtype)
     if not backward:
         part = s["KW"] * GRID_MAX_B * (16 * s["MT"] + 4) * 4
         res = s["MW"] * s["KS"] * PL * s["MTW"] * 256 * 2
         return (res if res + part <= _build.SMEM_LIMIT else GRID_RING) + part
-    chunk = PL * s["MT"] * 256 * 2
-    extra = (2 * GRID_MAX_B * (16 * s["MT"] + 8) * 2 + GRID_WARPS * 32 * 8
-             + GRID_MAX_B * GRID_MAX_J * 4)
-    res = s["KS"] * chunk
+    res = s["KS"] * PL * s["MT"] * 256 * 2
+    extra = grid_bwd_extra(s["MT"])
     if res + extra <= _build.SMEM_LIMIT:
         return res + extra
-    stages = 4 if PL * s["MT"] <= 4 else 2 if PL * s["MT"] <= 8 else 1
-    return GRID_WARPS * stages * chunk + extra
+    return grid_ring(s["MT"], PL, grid_pieces(s["MT"], PL)) + extra
+
+
+def grid_bwd_extra(MT: int) -> int:
+    """The backward's shared memory beside W_hh: the dgates tile, the
+    threads' partial sums and the carry
+    (``cpc::grid::bwd_extra_bytes``)."""
+    return (2 * GRID_MAX_B * (16 * MT + 8) * 2 + GRID_WARPS * 32 * 8
+            + GRID_CARRY * 4)
+
+
+def grid_ring(MT: int, PL: int, pieces: int) -> int:
+    """Bytes of the streamed backward's 16 rings when a column group's
+    chunk of MT m-tiles comes in ``pieces`` (``cpc::grid::
+    bwd_ring_bytes``): a stage PL planes of ceil(MT / pieces) m-tiles, 4,
+    2 or 1 stages a ring by its size."""
+    mtp = -(-MT // pieces)
+    stages = 4 if PL * mtp <= 4 else 2 if PL * mtp <= 8 else 1
+    return GRID_WARPS * stages * PL * mtp * 256 * 2
+
+
+def grid_pieces(MT: int, PL: int) -> int:
+    """The pieces a streamed backward's chunk comes in
+    (``cpc::grid::bwd_pieces``): 1 where 16 rings of whole chunks fit
+    beside the rest, else 2 (K1 in float32 past J 44, K4 past J 58)."""
+    fits = grid_ring(MT, PL, 1) + grid_bwd_extra(MT) <= _build.SMEM_LIMIT
+    return 1 if fits else 2
 
 
 def grid_scratch(B: int, H: int, G: int, dtype: torch.dtype, sms: int,

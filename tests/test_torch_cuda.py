@@ -268,7 +268,7 @@ def test_relpos_attention_bodies_mirror_the_kernels(dev, dtype):
     from cpc_audio_tpu_torch.ops import _build
     lib, code = _build.library(), _build.DTYPE_CODES[dtype]
     codes = head_attention.BODY_CODES
-    for S in (1, 7, 116, 244, 1012, 1024):
+    for S in (1, 7, 116, 244, 1012, 1024, 2048, 3700, 4084, 4096):
         for dk in (1, 25, 32, 64, 96, 132, 256, 257, 264, 512):
             assert lib.cpc_relpos_attention_fwd_body(S, dk, code) == \
                 codes[head_attention.fwd_body(S, dk, dtype)], (S, dk)
@@ -294,6 +294,56 @@ def test_relpos_attention_bodies_mirror_the_kernels(dev, dtype):
     assert (head_attention.relpos_attention.body_launches["rows"],
             head_attention.relpos_attention_bwd.body_launches["rows"]) == \
         (rows[0] + 1, rows[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("S,dk,K,B,h", [(2048, 32, 2, 1, 8),
+                                        (4084, 32, 1, 1, 8),
+                                        (3700, 264, 1, 1, 2)])
+def test_relpos_attention_long_windows(dev, dtype, S, dk, K, B, h):
+    """K2 past the S 1024 it once stopped at, at rate 0.1 (the train
+    step's): the tensor-core body at S 2048 and at the heads' S 4084 of
+    --sizeWindow 655360 (dk 32), and the rows body at dk 264 past S 3632,
+    where its backward's rows leave shared memory for the device-memory
+    scratch after the tiles: forward and backward against the plain
+    versions (on fewer heads than the train step's, for the plain
+    version's (S, S) tiles), each call under its body's count, a rerun
+    bit-identical."""
+    from cpc_audio_tpu_torch.ops import _build
+    rng = np.random.RandomState(S + dk)
+    args = [_rand(rng, dev, dtype, K, B * S, h * dk) for _ in range(3)]
+    args.append(_rand(rng, dev, dtype, K, dk, S, scale=0.5))
+    dout = _rand(rng, dev, dtype, K, B * S, h * dk, scale=0.1)
+    seed = _seed(dev)
+    body = head_attention.fwd_body(S, dk, dtype)
+    assert body == head_attention.bwd_body(S, dk, dtype) == (
+        "tc" if dk <= 256 else "rows")
+    if body == "rows":     # tiles and rows in the scratch
+        code = _build.DTYPE_CODES[dtype]
+        el = 2 if dtype == torch.bfloat16 else 4
+        assert _build.library().cpc_relpos_attention_bwd_scratch(
+            1, S, dk, code) == 2 * S * S * el + 8 * 2 * S * 4
+    before = (head_attention.relpos_attention.body_launches[body],
+              head_attention.relpos_attention_bwd.body_launches[body])
+    got = head_attention.relpos_attention_fwd(*args, B, h, 0.1, seed)
+    torch.testing.assert_close(
+        got, head_attention.relpos_attention_ref(*args, B, h, 0.1, seed),
+        **TOL[dtype])
+    grads = head_attention.relpos_attention_bwd(*args, dout, B, h, 0.1,
+                                                seed)
+    want = head_attention.relpos_attention_bwd_ref(*args, dout, B, h, 0.1,
+                                                   seed)
+    for name, g, w in zip(("dq", "dk", "dv", "dkrel"), grads, want):
+        _close(g, w, BWD_REL[dtype], name)
+    del want
+    again = head_attention.relpos_attention_bwd(*args, dout, B, h, 0.1,
+                                                seed)
+    for name, g, a in zip(("dq", "dk", "dv", "dkrel"), grads, again):
+        assert torch.equal(g, a), name
+    torch.cuda.synchronize()
+    assert (head_attention.relpos_attention.body_launches[body],
+            head_attention.relpos_attention_bwd.body_launches[body]) == (
+        before[0] + 1, before[1] + 2)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -464,7 +514,7 @@ def test_backward_wrappers_reject_what_kernels_do_not_take(dev):
                       torch.zeros(64, 16, device=dev, dtype=f16),
                       torch.zeros(2, 16, device=dev),
                       torch.zeros(2, 16, device=dev))
-    S, dk = 1100, 64         # past K2's range, S <= 1024
+    S, dk = 4100, 64         # past K2's range, S <= 4096
     q = torch.zeros(1, S, dk, device=dev)
     with pytest.raises(ValueError, match="out of range"):
         head_attention.relpos_attention_bwd(
@@ -518,7 +568,9 @@ def test_gru_kernels(dev, dtype, B, T, H):
 @pytest.mark.parametrize("N,S,dk", [(8, 20, 16), (4, 116, 32), (2, 128, 32),
                                     (3, 128, 64), (2, 256, 64), (2, 72, 128),
                                     (2, 100, 40), (2, 64, 256), (2, 300, 200),
-                                    (1, 1024, 256), (2, 1012, 32)])
+                                    (1, 1024, 256), (2, 1012, 32),
+                                    (2, 4096, 32), (2, 128, 512),
+                                    (2, 100, 264), (1, 2000, 512)])
 def test_causal_attention_kernels(dev, dtype, N, S, dk, rate):
     """Forward and backward against the plain versions with the same seed
     and layer (the backward also at chip_smoke's tolerance on each
@@ -528,8 +580,11 @@ def test_causal_attention_kernels(dev, dtype, N, S, dk, rate):
     ragged S (116, 100, 72, 20: tiles past S and unaligned bias rows), dk
     padded to 32, 64, 128 or 256 (16, 40, 200), the 32-row tiles of dk
     128 in float32 and of dk 256 (--hiddenEncoder 2048) and S 1024 and
-    1012 (--sizeWindow 163840).  dbias is exactly 0 above the diagonal although the bias is not,
-    and a second run gives the same bits."""
+    1012 (--sizeWindow 163840), S 4096 (--sizeWindow 655360) and the
+    16-row tiles of DKP 512 (dk 512: --hiddenEncoder 4096; 264 padded to
+    512, with a ragged S 100; S 2000).  dbias is exactly 0 above the
+    diagonal although the bias is not, and a second run gives the same
+    bits."""
     rng = np.random.RandomState(N + S + dk)
     args = [_rand(rng, dev, dtype, N, S, dk) for _ in range(3)]
     args.append(_rand(rng, dev, dtype, N, S, S, scale=0.5))
@@ -566,8 +621,8 @@ def test_gru_and_causal_wrappers_reject_what_kernels_do_not_take(dev):
         gru.gru_fwd(x, torch.zeros(120, 40, device=dev),
                     torch.zeros(120, device=dev),
                     torch.zeros(2, 40, device=dev))
-    for S, dk, why in ((1100, 32, "sequence length"),   # S <= 1024
-                       (16, 264, "head width")):        # dk <= 256
+    for S, dk, why in ((4100, 32, "sequence length"),   # S <= 4096
+                       (16, 520, "head width")):        # dk <= 512
         q = torch.zeros(1, S, dk, device=dev)
         b = torch.zeros(1, S, S, device=dev)
         with pytest.raises(ValueError, match=why):
@@ -632,7 +687,7 @@ def test_python_gates_mirror_the_kernels_shared_memory(dev):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     codes = lstm.BODY_CODES
     for H in (32, 64, 104, 128, 192, 256, 264, 384, 512, 768, 1024, 1056,
-              2048, 4096):
+              2048, 4096, 6000, 8192):
         for dt in DTYPES:
             code = _build.DTYPE_CODES[dt]
             assert lib.cpc_lstm_bwd_body(H, code) == \
@@ -677,15 +732,17 @@ def _rel_norm(got, want):
 @pytest.mark.parametrize("B,T,H", [(32, 128, 256), (3, 9, 256), (5, 7, 128),
                                    (3, 9, 512), (8, 256, 512),
                                    (32, 128, 512), (32, 128, 768),
-                                   (20, 9, 768), (3, 5, 4096)])
+                                   (20, 9, 768), (3, 5, 4096),
+                                   (3, 5, 8192)])
 def test_recurrent_bwd_bodies(dev, mode, dtype, B, T, H):
     """K1's and K4's backward at the train shape, at batches that leave a
     cluster's 16 rows part empty, at H = 128 (the cluster body's narrow
     tile) and at H = 512 and 768 (K1: the 16-CTA cluster body, at 768
     and in float32 with part of W_hh streamed, in float32 on its two bf16
     planes, also at the long-window path's B 8, T 256 and at B 32, T 128;
-    K4: the grid body), and at H 4096 (--hiddenGar 4096: both grid
-    bodies, W_hh streamed every step): each
+    K4: the grid body), and at H 4096 and 8192 (--hiddenGar 4096, 8192:
+    both grid bodies, W_hh streamed every step, at 8192 in float32 in
+    two pieces a column group): each
     output against its plain version within chip_smoke's 1e-4 of the
     2-norm, the body counted as the Python mirror says, and a rerun
     bit-identical."""
@@ -832,7 +889,9 @@ def test_cluster_forward_bodies(dev, mode, H, B, T, dtype):
 GRID_CASES = [("LSTM", 32, 128, 1056), ("LSTM", 4, 128, 4096),
               ("LSTM", 3, 5, 264), ("LSTM", 40, 7, 2048), ("LSTM", 5, 9, 2000),
               ("GRU", 32, 128, 512), ("GRU", 32, 128, 768),
-              ("GRU", 4, 128, 4096), ("GRU", 3, 5, 288)]
+              ("GRU", 4, 128, 4096), ("GRU", 3, 5, 288),
+              ("LSTM", 4, 128, 8192), ("GRU", 4, 128, 8192),
+              ("LSTM", 17, 5, 8192), ("GRU", 9, 5, 7008)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -843,7 +902,11 @@ def test_grid_bodies(dev, mode, dtype, B, T, H):
     B 4), at H just past 256 with B 3 and T 5 (the last CTA holds fewer
     units, the n8 tile 3 rows), at B 40 (two launches of the batch walk,
     H 2048 streamed) and at H 2000 (a warp's chunks a step no multiple of
-    its ring's stages; K4 at 4096 too): every output of the forward against the plain
+    its ring's stages; K4 at 4096 too), at H 8192 (--hiddenGar 8192: J
+    64 units a CTA on 132 SMs, 72 on 114; 16 or 8 rows a launch, B 17 in
+    two or three; the float32 backward's chunks in two pieces) and K4 at
+    7008 (J 54 on 132 SMs, its float32 chunks whole): every output of
+    the forward against the plain
     forward (``K1_TOL``: chip_smoke's), the backward's within 1e-4 of the
     2-norm (a nonzero dhT, and dcT), each body counted, and reruns
     bit-identical."""

@@ -220,19 +220,41 @@ def test_grid_split_shared_memory_and_scratch_follow_their_formula(sms):
     of 2 m-tiles by 16 columns, 1 KB a plane) beside 16 k-parts of 32 rows
     by 36 float32, the backward's partial carries as 66 x 4 (16-column,
     8-row) tiles of 512 bytes a CTA; at H 4096 J 32 on 128 CTAs, the slice
-    streamed through 128 KB of stages; every H the gates take fits the
-    card's SMs (on 114, an H100 PCIe's, H 4096 takes J 36 on 114 CTAs, 24
-    rows a launch)."""
+    streamed through 128 KB of stages; every H the gates take, to 8192,
+    fits the card's SMs in both dtypes and both directions of both
+    recurrences (on 114, an H100 PCIe's, H 4096 takes J 36 on 114 CTAs,
+    24 rows a launch, and H 8192 J 72 on 114, 8 rows a launch; on 132 H
+    8192 takes J 64 on 128 CTAs, 16 rows); the float32 backward past J 44
+    (K1) streams each chunk in two pieces of half its m-tiles, whose 16
+    rings of one stage fit where whole chunks' would not."""
     from cpc_audio_tpu_torch.ops import _build
     f32, bf = torch.float32, torch.bfloat16
+    assert lstm.MAX_H == 8192 and gru.MAX_H == lstm.MAX_H
     for H in range(264, lstm.MAX_H + 1, 8):
         s = lstm.grid_shape(H, 4, sms)
         assert s["ok"] and s["J"] % 2 == 0 and s["ncta"] <= sms, H
+        assert s["J"] <= lstm.GRID_MAX_J and s["rows"] >= 8, H
         assert (s["ncta"] - 1) * s["J"] < H <= s["ncta"] * s["J"], H
-        for G, dt in ((4, f32), (3, bf)):
-            for backward in (False, True):
-                assert 0 < lstm.grid_smem(H, G, dt, sms, backward) \
-                    <= _build.SMEM_LIMIT, (H, G, dt, backward)
+        for G in (4, 3):
+            for dt in (f32, bf):
+                for backward in (False, True):
+                    assert 0 < lstm.grid_smem(H, G, dt, sms, backward) \
+                        <= _build.SMEM_LIMIT, (H, G, dt, backward)
+    s = lstm.grid_shape(8192, 4, sms)
+    assert (s["J"], s["ncta"], s["rows"]) == (
+        (64, 128, 16) if sms == 132 else (72, 114, 8))
+    extra = 2 * 32 * (16 * s["MT"] + 8) * 2 + 512 * 8 + 2048 * 4
+    half = -(-s["MT"] // 2)
+    # float32: 16 rings of one whole 2-plane chunk pass 227 KB, of half
+    # of one fit
+    assert 16 * 2 * s["MT"] * 512 + extra > _build.SMEM_LIMIT
+    assert lstm.grid_pieces(s["MT"], 2) == 2
+    assert lstm.grid_smem(8192, 4, f32, sms, True) \
+        == 16 * 2 * half * 512 + extra
+    # bf16: whole chunks, one stage a ring
+    assert lstm.grid_pieces(s["MT"], 1) == 1
+    assert lstm.grid_smem(8192, 4, bf, sms, True) \
+        == 16 * s["MT"] * 512 + extra
     if sms != 132:
         s = lstm.grid_shape(4096, 4, sms)
         assert (s["J"], s["ncta"], s["rows"]) == (36, 114, 24)
@@ -267,21 +289,41 @@ def test_grid_split_shared_memory_and_scratch_follow_their_formula(sms):
 # configurations the JAX package trains that the port once refused: K5
 # at dk 256 (the AR's 8 heads of 2048) and S 1024, K2 at S 1012, K1 and K4
 # at H 4096 (the model: the heads refuse hiddenGar != hiddenEncoder, in
-# JAX too)
+# JAX too); and at the widened limits, the default heads' K2 at S 4084
+# (--sizeWindow 655360, 41 s windows), K5 at S 4096 and at dk 512, K1 and
+# K4 at H 8192
 TAKEN = [
     ("model", dict(arMode="transformer", hiddenEncoder=2048,
                    hiddenGar=2048), "--hiddenEncoder 2048"),
     ("model", dict(arMode="transformer", sizeWindow=163840),
      "--sizeWindow 163840"),
     ("model", dict(hiddenGar=4096), "--hiddenGar 4096"),
+    ("criterion", dict(sizeWindow=655360), "--sizeWindow 655360"),
+    ("model", dict(arMode="transformer", sizeWindow=655360),
+     "--arMode transformer --sizeWindow 655360"),
+    ("model", dict(arMode="transformer", hiddenEncoder=4096,
+                   hiddenGar=4096), "--hiddenEncoder 4096"),
+    ("model", dict(hiddenGar=8192), "--hiddenGar 8192"),
 ]
 
+# past each limit, the builder that refuses it and the flag it names (with
+# the limit: the gates' messages give it)
 REFUSED = [
     ("criterion", dict(hiddenGar=100), {}, "--hiddenGar 100"),
     ("criterion", dict(hiddenEncoder=204, hiddenGar=204), {},
      "--hiddenEncoder 204"),
     ("criterion", dict(hiddenEncoder=1052, hiddenGar=1052), {},
      "--hiddenEncoder 1052"),
+    # the heads' S 4097
+    ("criterion", dict(sizeWindow=657440), {},
+     r"--sizeWindow 657440 .*S <= 4096"),
+    # K5's S 4097
+    ("model", dict(arMode="transformer", sizeWindow=655520), {},
+     r"--sizeWindow 655520 .*\[1, 4096\]"),
+    ("model", dict(hiddenGar=8200), {}, r"--hiddenGar 8200 .*\[1, 8192\]"),
+    # K5's dk 513
+    ("model", dict(arMode="transformer", hiddenEncoder=4104,
+                   hiddenGar=4104), {}, r"--hiddenEncoder 4104 .*\[1, 512\]"),
 ]
 
 
@@ -319,12 +361,13 @@ def test_builders_take_every_multiple_of_8(no_fused_switches, D, dtype):
                          ids=[r[2] for r in TAKEN])
 def test_builders_take_with_the_flag(no_fused_switches, builder, kw, flag):
     """A config the port once refused, naming its flag: every gate of the
-    card's path takes it (K5 at dk 256 and at S 1024 in both dtypes, K2 at
-    S 1012, K1 and K4 at H 4096 for LSTM and GRU), so the builders'
-    own gates (``check_kernels``) take it; at the default widths, where
-    the weights are small, build_model and build_criterion build it.  At
-    --hiddenGar 4096 the criterion still refuses hiddenGar !=
-    hiddenEncoder, as the JAX package's heads do."""
+    card's path takes it (K5 at dk 256 and 512 and at S 1024 and 4096 in
+    both dtypes, K2 at S 1012 and 4084, K1 and K4 at H 4096 and 8192 for
+    LSTM and GRU), so the builders' own gates (``check_kernels``) take
+    it; at the default widths, where the weights are small, build_model
+    and build_criterion build it.  At --hiddenGar 4096 and 8192 the
+    criterion still refuses hiddenGar != hiddenEncoder, as the JAX
+    package's heads do."""
     from cpc_audio_tpu_torch.criterion import infonce
     from cpc_audio_tpu_torch.models import cpc
     cfg = CPCConfig(**kw)             # float32, the CLIs' default
@@ -344,8 +387,15 @@ def test_builders_take_with_the_flag(no_fused_switches, builder, kw, flag):
             assert (lstm if mode == "LSTM" else gru).supported(
                 cfg.hiddenGar) is None
             cpc.check_kernels(cfg.replace(arMode=mode))
-        with pytest.raises(ValueError, match="--hiddenGar 4096"):
+        if cfg.hiddenGar != cfg.hiddenEncoder:
+            with pytest.raises(ValueError,
+                               match=f"--hiddenGar {cfg.hiddenGar}"):
+                infonce.check_kernels(cfg)
+        else:         # the default heads at a long window
+            assert head_attention.supported(S - cfg.nPredicts,
+                                            cfg.hiddenEncoder // 8) is None
             infonce.check_kernels(cfg)
+            build_criterion(build_model(cfg).config)
 
 
 @pytest.mark.parametrize("builder,kw,env,flag", REFUSED,

@@ -228,18 +228,22 @@ CHIP_SHAPES = [(116, 32), (244, 64), (116, 96), (116, 25), (116, 132),
 
 def test_bodies_by_shape():
     """The tensor-core body at every shape chip_smoke runs and every
-    S <= 1024, dk <= 256, in both dtypes; the rows body past dk 256 (past
-    --hiddenEncoder 2048), whose range `supported` keeps as it was; the
-    tiles are K5's (64 rows, 32 past 128 bf16 planes' values a row)."""
+    S <= 4096, dk <= 256, in both dtypes; the rows body past dk 256 (past
+    --hiddenEncoder 2048), whose range `supported` keeps as it was, to S
+    4096 too; the tiles are K5's (64 rows, 32 past 128 bf16 planes'
+    values a row)."""
     for dt in (torch.float32, torch.bfloat16):
-        for S, dk in CHIP_SHAPES + [(1, 1), (1024, 256), (7, 33), (65, 16)]:
+        for S, dk in CHIP_SHAPES + [(1, 1), (1024, 256), (7, 33), (65, 16),
+                                    (2048, 32), (4084, 32), (4096, 256)]:
             assert ha.fwd_body(S, dk, dt) == ha.bwd_body(S, dk, dt) == "tc"
         for dk in (257, 264, 512):
             assert ha.supported(116, dk) is None
             assert ha.fwd_body(116, dk, dt) == ha.bwd_body(116, dk, dt) \
                 == "rows"
     assert ha.supported(1024, 4096) is None
-    assert ha.supported(1025, 32) is not None
+    assert ha.supported(4096, 4096) is None
+    assert ha.fwd_body(3700, 264, torch.float32) == "rows"
+    assert ha.supported(4097, 32) is not None
     assert ha.BODY_CODES == {"rows": 0, "tc": 1}
     f32, bf = torch.float32, torch.bfloat16
     assert ha.tile_rows(32, f32) == ha.tile_rows(128, bf) == 64

@@ -96,14 +96,14 @@ def test_split_backward_matches_float64_and_pallas_vjp(N, S, dk):
         assert _rel(g, j) <= BWD_REL, (name, _rel(g, j))
 
 
-@pytest.mark.parametrize("dk", [32, 128])
+@pytest.mark.parametrize("dk", [32, 128, 512])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_split_goes_by_the_kernels_key_tiles(rate, dk):
     """The kernel's order: keys by tiles of 64 (32 past a row's 128 planes'
-    values: in the forward's three float32 planes past dk 32), the
-    probabilities split as exp(s - running max) r, the partial output
-    rescaled as the max moves; S 100 ends in a ragged tile.  Within a
-    tenth of the card's float32 tolerance of float64 math."""
+    values: in the forward's three float32 planes past dk 32; 16 past dk
+    256), the probabilities split as exp(s - running max) r, the partial
+    output rescaled as the max moves; S 100 ends in a ragged tile.  Within
+    a tenth of the card's float32 tolerance of float64 math."""
     q, k, v, bias, _ = _inputs(8, 100, dk, 7)
     seed = torch.tensor([3], dtype=torch.int64)
     args = tuple(_t(a) for a in (q, k, v, bias))
@@ -114,6 +114,8 @@ def test_split_goes_by_the_kernels_key_tiles(rate, dk):
         == ca.key_tile(128, 1) == 64
     assert ca.key_tile(64, ca.FWD_PLANES) == ca.key_tile(128, ca.BWD_PLANES) \
         == ca.key_tile(256, 1) == ca.key_tile(200, ca.FWD_PLANES) == 32
+    assert ca.key_tile(264, 1) == ca.key_tile(512, ca.FWD_PLANES) \
+        == ca.key_tile(512, ca.BWD_PLANES) == 16
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
