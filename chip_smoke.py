@@ -131,14 +131,18 @@ Phases (any failure exits non-zero):
      and so do a GRU model at --hiddenGar 200 (H 224: K4's rows bodies)
      and LSTM and GRU models at --hiddenGar 4096 (B = 4; K1's and K4's
      grid bodies); then the long-window and wide shapes
-     (phase_long_and_wide): K2 at S 2048 and 4084 and its rows body at S
-     3700 / dk 264 and S 116 / dk 512, K5 at S 4096 and dk 512, K1 and K4
-     at H 8192, forward and backward in both dtypes against their plain
-     versions, K5 beside SDPA and K1 / K4 beside cuDNN in turns; the
-     default model and the transformer AR at --sizeWindow 655360 and the
-     transformer at --hiddenEncoder 4096 --hiddenGar 4096, B = 4, 2 + 4
-     steps in both dtypes (losses falling, every K2 and K5 call at the
-     path's (S, dk)), and LSTM and GRU models alone at --hiddenGar 8192
+     (phase_long_and_wide): K2's tensor-core body at S 2048 and 4084, at
+     dk 512 (K 12 x B 4, S 116) and at S 3700 / dk 264 (DKP 512), its rows
+     body past dk 512 at S 116 / dk 520 and S 3700 / dk 520, K5 at S 4096
+     and dk 512, K1 and K4 at H 8192, forward and backward in both dtypes
+     against their plain versions, K5 beside SDPA and K1 / K4 beside cuDNN
+     in turns; the default model and the transformer AR at --sizeWindow
+     655360 and the transformer at --hiddenEncoder 4096 --hiddenGar 4096
+     (its heads' K2 on the tensor-core body), B = 4, 2 + 4 steps in both
+     dtypes, and the default model at --hiddenEncoder 4160 --hiddenGar
+     4160 in bf16 (the heads' K2 on its rows body at dk 520) (losses
+     falling, every K2 and K5 call at the path's (S, dk)), and LSTM and
+     GRU models alone at --hiddenGar 8192
      (Adam at 2e-4, the float32 step against the CPU); then two exact
      steps with
      stopGradNegatives, in which K8 must not launch;
@@ -1205,15 +1209,22 @@ SOURCES = {
     "gru_bwd_gate": ("cpc_audio_tpu_torch/csrc/gru_bwd.cu",
                      "cpc_audio_tpu/ops/pallas/rnn.py:265"),
     # the long-window and wide shapes (phase_long_and_wide): K2's
-    # tensor-core body at the heads' S 4084 (--sizeWindow 655360) and its
-    # rows body at dk 512 (--hiddenEncoder 4096), K5 at S 4096 and dk 512,
-    # K1's and K4's grid bodies at --hiddenGar 8192
+    # tensor-core body at the heads' S 4084 (--sizeWindow 655360), at dk
+    # 512 (--hiddenEncoder 4096) and at S 3700 / dk 264 (its DKP-512
+    # kernels at a long window; their launches are the 4096 path's), and
+    # its rows body past dk 512 (--hiddenEncoder 4160, dk 520), K5 at S
+    # 4096 and dk 512, K1's and K4's grid bodies at --hiddenGar 8192
     "relpos_attention_fwd_s4084": (
         "cpc_audio_tpu_torch/csrc/relpos_attention_tc_fwd.cu",
         "cpc_audio_tpu/ops/pallas/head_attention.py:114"),
     "relpos_attention_bwd_s4084": (
         "cpc_audio_tpu_torch/csrc/relpos_attention_tc_bwd.cu",
         "cpc_audio_tpu/ops/pallas/head_attention.py:158"),
+    **{f"relpos_attention_{d}_{tag}": (
+        f"cpc_audio_tpu_torch/csrc/relpos_attention_tc_{d}.cu",
+        "cpc_audio_tpu/ops/pallas/head_attention.py:" + ("114" if d == "fwd"
+                                                        else "158"))
+       for tag in ("dk512", "s3700") for d in ("fwd", "bwd")},
     "relpos_attention_fwd_rows": (
         "cpc_audio_tpu_torch/csrc/relpos_attention_fwd.cu",
         "cpc_audio_tpu/ops/pallas/head_attention.py:114"),
@@ -2186,15 +2197,18 @@ T2048 = "transformer 2048 float32"   # --hiddenEncoder 2048 --hiddenGar 2048
 T163840 = "transformer 163840 float32"   # --sizeWindow 163840
 # the long-window and wide paths (phase_long_and_wide), B 4: the default
 # model over 41 s windows (K2 at the heads' S 4084), the transformer AR
-# over them (K5 at S 4096) and at --hiddenEncoder 4096 (K5 at dk 512, the
-# heads' K2 on its rows body at dk 512), each in both dtypes
+# over them (K5 at S 4096) and at --hiddenEncoder 4096 (K5 and the heads'
+# K2 at dk 512, on their DKP-512 tensor-core bodies), each in both dtypes;
+# the default model at --hiddenEncoder 4160 (the heads' K2 past dk 512, on
+# its rows body at dk 520; K1 on its grid body at H 4160), bf16
 L655 = "LSTM 655360"                 # --sizeWindow 655360
 L655F = "LSTM 655360 float32"
 T655 = "transformer 655360"          # --arMode transformer --sizeWindow ..
 T655F = "transformer 655360 float32"
 T4096 = "transformer 4096"           # --hiddenEncoder 4096 --hiddenGar ..
 T4096F = "transformer 4096 float32"
-LONG_WIDE_PATHS = (L655, L655F, T655, T655F, T4096, T4096F)
+L4160 = "LSTM 4160"                  # --hiddenEncoder 4160 --hiddenGar ..
+LONG_WIDE_PATHS = (L655, L655F, T655, T655F, T4096, T4096F, L4160)
 FLOAT32_PATHS = (F32, F512, F768, T32, T2048, T163840, L655F, T655F,
                  T4096F)
 # paths at B 4, the batch their widths or window leave room for on the
@@ -2226,7 +2240,7 @@ PATH_KERNELS = {"LSTM": ("lstm_fwd", "lstm_bwd") + HEADS,
                 T163840: ("causal_attention_fwd", "causal_attention_bwd")
                 + HEADS,
                 **{path: ("lstm_fwd", "lstm_bwd") + HEADS
-                   for path in (L655, L655F)},
+                   for path in (L655, L655F, L4160)},
                 **{path: ("causal_attention_fwd", "causal_attention_bwd")
                    + HEADS for path in (T655, T655F, T4096, T4096F)}}
 # CPCConfig fields a path sets beside arMode
@@ -2245,7 +2259,8 @@ PATH_CONFIG = {EXACT: {"negativeSamplingMode": "exact"},
                **{path: {"sizeWindow": 655360}
                   for path in (L655, L655F, T655, T655F)},
                **{path: {"hiddenEncoder": 4096, "hiddenGar": 4096}
-                  for path in (T4096, T4096F)}}
+                  for path in (T4096, T4096F)},
+               L4160: {"hiddenEncoder": 4160, "hiddenGar": 4160}}
 # the body the AR's backward kernel (K1, K4) must run on a path: the
 # cluster body at hiddenGar 256 (and 128) and, on 16 CTAs, at 512 and 768
 # in both dtypes (with part of W_hh streamed from L2 at 768, and in
@@ -2254,7 +2269,8 @@ PATH_CONFIG = {EXACT: {"negativeSamplingMode": "exact"},
 BWD_BODY = {"LSTM": "cluster", "GRU": "cluster", FUSED: "cluster",
             EXACT: "cluster", LONG: "cluster", W768: "cluster",
             F32: "cluster", F512: "cluster", F768: "cluster", W200: "rows",
-            W1056: "grid", G512: "grid", L655: "cluster", L655F: "cluster"}
+            W1056: "grid", G512: "grid", L655: "cluster", L655F: "cluster",
+            L4160: "grid"}
 # the body the AR's forward kernel must run: K1's 16-CTA cluster body at
 # hiddenGar 256, 512 and 768 in both dtypes, its rows body at 200, its
 # grid body at 1056; K4's 16-CTA cluster body at 256, its grid body at
@@ -2263,10 +2279,10 @@ FWD_BODY = {"LSTM": "cluster", FUSED: "cluster", EXACT: "cluster",
             LONG: "cluster", W768: "cluster", F32: "cluster",
             F512: "cluster", F768: "cluster", W200: "rows", W1056: "grid",
             "GRU": "cluster", G512: "grid", L655: "cluster",
-            L655F: "cluster"}
+            L655F: "cluster", L4160: "grid"}
 # K2's body where a path leaves the tensor-core one: the rows body past dk
-# 256 (the heads of --hiddenEncoder 4096, dk 512)
-K2_BODY = {T4096: "rows", T4096F: "rows"}
+# 512 (the heads of --hiddenEncoder 4160, dk 520)
+K2_BODY = {L4160: "rows"}
 # launches a step, where a path fixes them: on the fused path K2 must not
 # run at all; on the exact path K8 runs once, in the backward
 PER_STEP = {FUSED: {"attention_block_fwd": 1, "attention_block_bwd": 1,
@@ -5009,11 +5025,13 @@ def long_wide_train(dev: torch.device, path: str) -> dict:
 # K2's cases of phase_long_and_wide: (S, dk, K, B, heads), fewer heads
 # than the train step's K 12 x B 4 x 8, whose (S, S) plain tiles at S 4084
 # would take 25.6 GB each: S 2048 and the heads' 4084 on the tensor-core
-# body, and the rows body at dk 264 past S 3632 (its backward's rows in
-# the scratch); and the rows body at the --hiddenEncoder 4096 path's
-# shape (S 116, dk 512, K 12, B 4)
+# body, and S 3700 at dk 264 on its DKP-512 tiles; the tensor-core body at
+# the --hiddenEncoder 4096 path's shape (S 116, dk 512, K 12, B 4); the
+# rows body past dk 512 at the --hiddenEncoder 4160 path's shape (S 116,
+# dk 520) and past S 3632 (its backward's rows in the scratch)
 LONG_WIDE_K2 = ((2048, 32, 2, 1, 8), (4084, 32, 1, 1, 8),
-                (3700, 264, 1, 1, 2), (116, 512, 12, 4, 8))
+                (3700, 264, 1, 1, 2), (116, 512, 12, 4, 8),
+                (116, 520, 12, 4, 8), (3700, 520, 1, 1, 2))
 # K5's: the AR at --sizeWindow 655360 (N = 4 x 8 rows of S 4096, dk 32)
 # and at --hiddenEncoder 4096 (S 128, dk 512); K1's and K4's at
 # --hiddenGar 8192 (B 4, T 128: the grid bodies, W_hh streamed)
@@ -5030,11 +5048,12 @@ def long_wide_cases(dev: torch.device, dtype: torch.dtype) -> list:
         return (torch.randn(shape, generator=g, device=dev) * scale).to(dt)
     seed = torch.tensor([SEED], dtype=torch.int64, device=dev)
     cases = []
+    from cpc_audio_tpu_torch.ops import head_attention as ha
     for S, dk, K, B, h in LONG_WIDE_K2:
         for case in relpos_cases(rand, seed, B, S, dk, K, h):
             case.label += f" (K {K}, B {B}, {h} heads)"
-            if dk > 256:       # the rows bodies: float32 on its own cores
-                case.split = None
+            if ha.fwd_body(S, dk, dtype) == "rows":   # float32 on its own
+                case.split = None                      # cores
             cases.append(case)
     for N, S, dk in LONG_WIDE_K5:
         cases += causal_cases(rand, seed, N, S, dk, f"S {S} / dk {dk}")
@@ -5045,8 +5064,9 @@ def check_case(case: Case, dtype: torch.dtype) -> dict:
     """One case against its plain version under TOLERANCE, then the
     kernel's and the plain version's device time a call (the median of
     two runs; one call, after the one that checked it, where a call takes
-    seconds: the rows body at S 3700), the kernel's bound; a K1 / K4
-    case's grid body rerun bit-identically."""
+    seconds: the rows body at S 3700), the kernel's bound; a K2 / K5 case
+    (but such a slow one) rerun bit-identically, and a K1 / K4 case's grid
+    body."""
     name = case.name
     got, want = case.kernel(), case.plain()
     torch.cuda.synchronize()
@@ -5061,9 +5081,19 @@ def check_case(case: Case, dtype: torch.dtype) -> dict:
         atol, rtol, why = TOLERANCE[(name, dtype)]
         err = max(compare(f"{case.label} out {i}", gi, wi, atol, rtol, why)
                   for i, (gi, wi) in enumerate(zip(got, want)))
-    del got, want
-    slow = name.startswith("relpos") and case.inputs[3].shape[1] > 256 \
-        and case.inputs[3].shape[2] > 1024
+    del want
+    slow = False
+    if name.startswith("relpos"):
+        from cpc_audio_tpu_torch.ops import head_attention as ha
+        dk, S = case.inputs[3].shape[1:]
+        slow = ha.fwd_body(S, dk, dtype) == "rows" and S > 1024
+    if name.startswith(("relpos", "causal")) and not slow:
+        again = _tensors(case.kernel())
+        if not all(torch.equal(a, g) for a, g in zip(again, got)):
+            fail(f"{case.label}: a rerun differs from the first run")
+        print(f"  {case.label}: a rerun bit-identical", flush=True)
+        del again
+    del got
     timing = dict(warmup=0, reps=1) if slow else dict(reps=2)
     ms = median_ms(case.kernel, **timing)
     plain_ms = median_ms(case.plain, **timing)
@@ -5087,8 +5117,12 @@ def check_case(case: Case, dtype: torch.dtype) -> dict:
 LONG_WIDE_ENTRIES = {
     "relpos_attention_fwd_s4084": ("relpos_attention_fwd", "S 4084 / dk 32"),
     "relpos_attention_bwd_s4084": ("relpos_attention_bwd", "S 4084 / dk 32"),
-    "relpos_attention_fwd_rows": ("relpos_attention_fwd", "S 116 / dk 512"),
-    "relpos_attention_bwd_rows": ("relpos_attention_bwd", "S 116 / dk 512"),
+    "relpos_attention_fwd_dk512": ("relpos_attention_fwd", "S 116 / dk 512"),
+    "relpos_attention_bwd_dk512": ("relpos_attention_bwd", "S 116 / dk 512"),
+    "relpos_attention_fwd_s3700": ("relpos_attention_fwd", "S 3700 / dk 264"),
+    "relpos_attention_bwd_s3700": ("relpos_attention_bwd", "S 3700 / dk 264"),
+    "relpos_attention_fwd_rows": ("relpos_attention_fwd", "S 116 / dk 520"),
+    "relpos_attention_bwd_rows": ("relpos_attention_bwd", "S 116 / dk 520"),
     "causal_attention_fwd_s4096": ("causal_attention_fwd", "S 4096 / dk 32"),
     "causal_attention_bwd_s4096": ("causal_attention_bwd", "S 4096 / dk 32"),
     "causal_attention_fwd_dk512": ("causal_attention_fwd", "S 128 / dk 512"),
@@ -5160,9 +5194,10 @@ def phase_long_and_wide(dev: torch.device) -> tuple:
     the widened kernels against their plain versions and their
     yardsticks; (a) the default model (LSTM AR, transformer heads) at
     --sizeWindow 655360 (K2 at S 4084) and (b) the transformer AR there
-    (K5 at S 4096) and at --hiddenEncoder 4096 --hiddenGar 4096 (K5 at dk
-    512, K2's rows body at dk 512), B 4, both dtypes, each loss finite
-    and falling; (c) LSTM and GRU models alone at --hiddenGar 8192 (the
+    (K5 at S 4096) and at --hiddenEncoder 4096 --hiddenGar 4096 (K5 and
+    K2 at dk 512 on their DKP-512 tensor-core bodies), B 4, both dtypes,
+    and the default model at --hiddenEncoder 4160 (K2's rows body at dk
+    520), bf16, each loss finite and falling; (c) LSTM and GRU models alone at --hiddenGar 8192 (the
     grid bodies at J 64 units a CTA on 132 SMs).  Returns (the JSON
     line's entries, their launches on the paths)."""
     t0 = time.time()
@@ -5175,10 +5210,14 @@ def phase_long_and_wide(dev: torch.device) -> tuple:
         torch.cuda.empty_cache()
         print(f"[phase train {path} {time.time() - t0:.1f} s]", flush=True)
     launches = {}
+    # the S 3700 / dk 264 entries run K2's DKP-512 tensor-core kernels,
+    # which the --hiddenEncoder 4096 path launches (no path trains S 3700
+    # at dk 257-512)
     for entry, (name, shape) in LONG_WIDE_ENTRIES.items():
         path = (L655 if entry.endswith("s4084") else
                 T655 if entry.endswith("s4096") else
-                T4096 if entry.endswith(("_rows", "dk512")) else None)
+                T4096 if entry.endswith(("dk512", "s3700")) else
+                L4160 if entry.endswith("_rows") else None)
         if path is not None:
             launches[entry] = counts[path][name]
     for mode in ("LSTM", "GRU"):

@@ -41,10 +41,17 @@
 // at DKP 256, and the backward's six staged tiles take 100 KB in bf16 and
 // 198 KB as float32's two planes.  (Walking dk in 256-column halves would
 // keep 32-row tiles but form every score tile twice, or hold two 256-wide
-// halves of dk and dv, 256 accumulators a lane, in the column kernel; the
-// 16-row tile forms each score tile once a warp, four warps alike, and
-// its q . k^T then costs four times its p . v: correct first, fast
-// later.)
+// halves of dk and dv, 256 accumulators a lane, in the column kernel.)
+// There the warps also split the reduction (`kSplitK`): warp w forms the
+// partial scores over dk columns [128 w, 128 w + 128), the columns whose
+// output it owns (in float32 every split product of its planes), and the
+// four partial 16 x 16 float32 tiles pass through shared memory
+// (`store_partial`, `load_sum`), summed in the fixed order w 0 + 1 + 2 + 3,
+// so that every warp holds the same bits for the row max, the exp and the
+// dropout factor.  Each score tile is formed once, not four times, for one
+// more __syncthreads and 4 KB a tile of scores.  What bounds the 16-row
+// tile is its p . v and the staging: 16 query rows a block read a whole
+// (16, 512) key and value tile each.
 #pragma once
 
 #include "common.cuh"
@@ -70,6 +77,9 @@ struct Geom {
   static constexpr int kRowWarps = kTile / 16;        // warps along rows
   static constexpr int kColWarps = kWarps / kRowWarps;  // along columns
   static constexpr int kDV = DKP / kColWarps;         // a warp's columns
+  // the warps split the scores' reduction too: each forms the partial
+  // over its kDV columns of dk
+  static constexpr bool kSplitK = kColWarps == kWarps;
   static constexpr int kLd = DKP + kPad;              // row stride, a plane
   static constexpr int kPlaneElems = kTile * kLd;
   static constexpr int kTileElems = kPlanes * kPlaneElems;  // bf16, a tile
@@ -190,6 +200,62 @@ __device__ __forceinline__ void rows_dot_rows(float s[G::kNT][4],
   }
 }
 
+// Floats of shared memory a kSplitK tile of NT n8 tiles takes in
+// `store_partial`: each warp's 32 lanes x NT x 4 accumulators.
+template <int NT>
+constexpr int kPartialFloats = kWarps * NT * 4 * 32;
+
+// The warp's partial tile s (NT n8 tiles) into its slot of red, by lane,
+// so that the stores and `load_sum`'s loads hit 32 distinct banks.
+template <int NT>
+__device__ __forceinline__ void store_partial(float* red,
+                                              const float s[NT][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      red[((warp * NT + nt) * 4 + e) * 32 + lane] = s[nt][e];
+}
+
+// s = the four warps' partials of `store_partial` summed w 0 + 1 + 2 + 3,
+// the same bits in every warp.  Between the stores and these loads a
+// __syncthreads; before red is stored again, another.
+template <int NT>
+__device__ __forceinline__ void load_sum(float s[NT][4], const float* red) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int at = (nt * 4 + e) * 32 + lane;
+      float x = red[at];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) x += red[w * NT * 128 + at];
+      s[nt][e] = x;
+    }
+}
+
+// At kSplitK: s = As . Bs^T and dp = Ad . Bd^T of the four warps' 16
+// rows (n8 tiles outside [n_lo, n_hi) left 0), each warp forming its
+// quarter c0 of dk, the partials summed through red (a __syncthreads
+// inside; the caller syncs before red is stored again).
+template <typename G>
+__device__ __forceinline__ void split_products(float s[G::kNT][4],
+                                               float dp[G::kNT][4],
+                                               const bf16* As, const bf16* Bs,
+                                               const bf16* Ad, const bf16* Bd,
+                                               int n_lo, int n_hi, int c0,
+                                               float* red) {
+  rows_dot_rows<G, G::kDV>(s, As + c0, 0, Bs + c0, n_lo, n_hi);
+  rows_dot_rows<G, G::kDV>(dp, Ad + c0, 0, Bd + c0, n_lo, n_hi);
+  store_partial<G::kNT>(red, s);
+  store_partial<G::kNT>(red + kPartialFloats<G::kNT>, dp);
+  __syncthreads();
+  load_sum<G::kNT>(s, red);
+  load_sum<G::kNT>(dp, red + kPartialFloats<G::kNT>);
+}
+
 // acc (16 rows x the warp's kDV columns, as kDV / 8 n8 tiles) += P . Bk,
 // with P the 16 x kTile accumulator tiles p (rounded to bf16, or with
 // SPLIT as the two-term hi + lo split) and Bk a k-major staged tile from
@@ -303,7 +369,7 @@ __device__ __forceinline__ float kept_factor(const Dropout& drop,
 }
 
 // dk rounded up to the staged width: 32, 64, 128, 256 or 512 (0 above
-// 512).  K2's tensor-core body takes the widths up to 256
+// 512), the widths K2's tensor-core body takes too
 // (relpos_attention_tc.cuh `kMaxDk`).
 inline int padded_dk(int dk) {
   return dk <= 32    ? 32

@@ -48,8 +48,11 @@
 // Past 64-row tiles, the two warps of a pair form the same 16 rows'
 // scores, and each accumulates half of the output columns (dq; dk and
 // dv); one of them writes the statistics and the dbias tile.  At DKP 512
-// all four warps form the 16 rows' scores and accumulate a quarter of the
-// columns each (causal_attention.cuh `Geom`).
+// all four warps share the 16 rows and accumulate a quarter of the
+// columns each, and each forms s and dp (s^T and dp^T in the column
+// kernel) over its quarter of dk only: the partial tiles are summed w 0 +
+// 1 + 2 + 3 through 8 KB of shared memory (causal_attention.cuh
+// `kSplitK`), one more __syncthreads a key (query) tile.
 // The Pallas kernel multiplies p r and ds unrounded in float32; a bf16
 // operand would keep 8 of their bits, so those three products (dq, dk, dv)
 // take each operand as the two-term split hi = bf16(x), lo = bf16(x - hi)
@@ -75,12 +78,18 @@ namespace k5 = cpc::k5;
 // kernel 1: by query tile -> dq and the rows' statistics
 // ---------------------------------------------------------------------------
 
+// Floats of the kSplitK partials of s and dp (none elsewhere).
+template <typename G>
+constexpr int kRedFloats = G::kSplitK ? 2 * k5::kPartialFloats<G::kNT> : 0;
+
 template <typename T, int DKP>
 constexpr size_t rows_smem_bytes() {
   using G = k5::Geom<T, DKP>;
-  // q, do, two (k, v) buffers (bf16 planes), two bias buffers (T)
+  // q, do, two (k, v) buffers (bf16 planes), two bias buffers (T); the
+  // partials
   return (size_t)6 * G::kTileElems * sizeof(bf16) +
-         (size_t)2 * G::kBiasElems * sizeof(T);
+         (size_t)2 * G::kBiasElems * sizeof(T) +
+         kRedFloats<G> * sizeof(float);
 }
 
 // The warp's scores s (scaled, bias added, -inf above the diagonal) for
@@ -122,6 +131,7 @@ __global__ void __launch_bounds__(k5::kThreads,
   bf16* Ks = Ds + TE;              // 2 buffers
   bf16* Vs = Ks + 2 * TE;          // 2 buffers
   T* Bs = reinterpret_cast<T*>(Vs + 2 * TE);   // 2 buffers of (kTile, kLdb)
+  float* Red = reinterpret_cast<float*>(Bs + 2 * G::kBiasElems);  // kSplitK
 
   const int n = blockIdx.y;
   const int qt = gridDim.x - 1 - blockIdx.x;   // longest rows first
@@ -169,8 +179,13 @@ __global__ void __launch_bounds__(k5::kThreads,
     }
     __syncthreads();
     float s[G::kNT][4], dp[G::kNT][4];
-    k5::rows_dot_rows<G, DKP>(s, Qs, rw * 16, Ks + buf * TE, 0, n_hi);
-    k5::rows_dot_rows<G, DKP>(dp, Ds, rw * 16, Vs + buf * TE, 0, n_hi);
+    if constexpr (G::kSplitK) {
+      k5::split_products<G>(s, dp, Qs, Ks + buf * TE, Ds, Vs + buf * TE, 0,
+                            n_hi, c0, Red);
+    } else {
+      k5::rows_dot_rows<G, DKP>(s, Qs, rw * 16, Ks + buf * TE, 0, n_hi);
+      k5::rows_dot_rows<G, DKP>(dp, Ds, rw * 16, Vs + buf * TE, 0, n_hi);
+    }
     scale_mask<G>(s, Bs + buf * G::kBiasElems, rw, q0, kt, inv_sqrt);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -231,8 +246,13 @@ __global__ void __launch_bounds__(k5::kThreads,
       __syncthreads();
     }
     float s[G::kNT][4], dp[G::kNT][4];
-    k5::rows_dot_rows<G, DKP>(s, Qs, rw * 16, Ks + buf * TE, 0, n_hi);
-    k5::rows_dot_rows<G, DKP>(dp, Ds, rw * 16, Vs + buf * TE, 0, n_hi);
+    if constexpr (G::kSplitK) {
+      k5::split_products<G>(s, dp, Qs, Ks + buf * TE, Ds, Vs + buf * TE, 0,
+                            n_hi, c0, Red);
+    } else {
+      k5::rows_dot_rows<G, DKP>(s, Qs, rw * 16, Ks + buf * TE, 0, n_hi);
+      k5::rows_dot_rows<G, DKP>(dp, Ds, rw * 16, Vs + buf * TE, 0, n_hi);
+    }
     scale_mask<G>(s, Bs + buf * G::kBiasElems, rw, q0, kt, inv_sqrt);
 #pragma unroll
     for (int nt = 0; nt < G::kNT; ++nt)
@@ -244,7 +264,11 @@ __global__ void __launch_bounds__(k5::kThreads,
         s[nt][e] = p * (dp[nt][e] * r - c[h]) * inv_sqrt;
       }
     k5::acc_times_rows<G, true>(dqa, s, Ks + buf * TE + c0, 0, n_hi / 2);
-    if (!resident) __syncthreads();
+    // the buffers are restaged, or (kSplitK) Red is stored again, next
+    if constexpr (G::kSplitK)
+      __syncthreads();
+    else if (!resident)
+      __syncthreads();
   }
   const float one[2] = {1.0f, 1.0f};
   k5::store_rows<G>(dq + (size_t)n * S * dk, dqa, r0, c0, S, dk, one);
@@ -271,10 +295,11 @@ constexpr size_t cols_smem_bytes() {
   using G = k5::Geom<T, DKP>;
   // k, v; two (q, do) buffers; two bias buffers (each, once read, also the
   // tile's ds on its way to dbias); two statistics buffers of (m, 1/l, c):
-  // 50.7 KB at dk <= 32 in bf16, four blocks an SM
+  // 50.7 KB at dk <= 32 in bf16, four blocks an SM; the partials
   return (size_t)6 * G::kTileElems * sizeof(bf16) +
          (size_t)2 * G::kBiasElems * sizeof(T) +
-         (size_t)2 * 3 * G::kTile * sizeof(float);
+         (size_t)2 * 3 * G::kTile * sizeof(float) +
+         kRedFloats<G> * sizeof(float);
 }
 
 template <typename T, int DKP>
@@ -298,6 +323,7 @@ __global__ void __launch_bounds__(k5::kThreads,
   bf16* Ds = Qs + 2 * TE;          // 2 buffers of do
   T* Bs = reinterpret_cast<T*>(Ds + 2 * TE);   // 2 buffers of (kTile, kLdb)
   float* St = reinterpret_cast<float*>(Bs + 2 * G::kBiasElems);  // 2 x kStats
+  float* Red = St + 2 * kStats;    // kSplitK
 
   const int n = blockIdx.y;
   const int kt = blockIdx.x;       // most query tiles first
@@ -376,10 +402,15 @@ __global__ void __launch_bounds__(k5::kThreads,
     }
     __syncthreads();
     float st[G::kNT][4], dpt[G::kNT][4];   // (16 keys, kTile queries)
-    k5::rows_dot_rows<G, DKP>(st, Ks, rw * 16, Qs + buf * TE, n_lo,
-                              G::kNT);
-    k5::rows_dot_rows<G, DKP>(dpt, Vs, rw * 16, Ds + buf * TE, n_lo,
-                              G::kNT);
+    if constexpr (G::kSplitK) {
+      k5::split_products<G>(st, dpt, Ks, Qs + buf * TE, Vs, Ds + buf * TE,
+                            n_lo, G::kNT, c0, Red);
+    } else {
+      k5::rows_dot_rows<G, DKP>(st, Ks, rw * 16, Qs + buf * TE, n_lo,
+                                G::kNT);
+      k5::rows_dot_rows<G, DKP>(dpt, Vs, rw * 16, Ds + buf * TE, n_lo,
+                                G::kNT);
+    }
     // the bias chunk; once read, each element is overwritten with its ds:
     // the (kTile queries, kLdb) dbias tile
     T* DB = Bs + buf * G::kBiasElems;

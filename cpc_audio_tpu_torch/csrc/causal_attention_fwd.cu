@@ -39,7 +39,10 @@
 // tiles are 32 rows and each pair of warps shares 16 query rows, one half
 // of the output columns each; at DKP 512 the tiles are 16 rows, shared by
 // all four warps, a quarter of the output columns each (one key buffer
-// in float32, whose three planes of q, k and v take 49 KB a tile).
+// in float32, whose three planes of q, k and v take 49 KB a tile), and
+// each warp forms q.k^T over its quarter of dk only: the four partial
+// score tiles are summed w 0 + 1 + 2 + 3 through 4 KB of shared memory
+// (causal_attention.cuh `kSplitK`), so each score is formed once.
 //
 // What bounds it on an H100: at N = 256, S = 128, dk = 32 the call moves
 // 16.8 MB in bf16 (the bias's causal half is half of it) for 0.27 GFLOP of
@@ -62,16 +65,18 @@ template <typename T, int DKP>
 using FwdGeom =
     k5::Geom<T, DKP, sizeof(T) == sizeof(float) ? kF32Planes : 1>;
 
-// q, `bufs` (k, v) buffers (bf16 planes), `bufs` bias buffers (T)
+// q, `bufs` (k, v) buffers (bf16 planes), `bufs` bias buffers (T); at
+// kSplitK the warps' partial scores
 template <typename T, int DKP>
 constexpr size_t smem_bytes(int bufs) {
   using G = FwdGeom<T, DKP>;
   return (size_t)(1 + 2 * bufs) * G::kTileElems * sizeof(bf16) +
-         (size_t)bufs * G::kBiasElems * sizeof(T);
+         (size_t)bufs * G::kBiasElems * sizeof(T) +
+         (G::kSplitK ? k5::kPartialFloats<G::kNT> * sizeof(float) : 0);
 }
 
 // Key-tile buffers: two (the next tile in flight), one where two do not
-// fit (float32 at DKP 256: 264 KB; at 512: 247 KB)
+// fit (float32 at DKP 256: 264 KB; at 512: 251 KB)
 template <typename T, int DKP>
 constexpr int kBufs = smem_bytes<T, DKP>(2) <= cpc::kSmemLimit ? 2 : 1;
 
@@ -91,6 +96,7 @@ __global__ void __launch_bounds__(k5::kThreads) causal_attention_fwd_mma(
   bf16* Ks = Qs + TE;              // NB buffers
   bf16* Vs = Ks + NB * TE;         // NB buffers
   T* Bs = reinterpret_cast<T*>(Vs + NB * TE);  // NB buffers of (kTile, kLdb)
+  float* Red = reinterpret_cast<float*>(Bs + NB * G::kBiasElems);  // kSplitK
 
   const int n = blockIdx.y;
   const int qt = gridDim.x - 1 - blockIdx.x;   // longest rows first
@@ -141,7 +147,15 @@ __global__ void __launch_bounds__(k5::kThreads) causal_attention_fwd_mma(
     __syncthreads();
 
     float s[G::kNT][4];
-    k5::rows_dot_rows<G, DKP>(s, Qs, rw * 16, Ks + buf * TE, 0, n_hi);
+    if constexpr (G::kSplitK) {   // the warp's quarter of dk, then the sum
+      k5::rows_dot_rows<G, G::kDV>(s, Qs + c0, rw * 16, Ks + buf * TE + c0,
+                                   0, n_hi);
+      k5::store_partial<G::kNT>(Red, s);
+      __syncthreads();
+      k5::load_sum<G::kNT>(s, Red);   // Red is stored again past the
+    } else {                          // iteration's last __syncthreads
+      k5::rows_dot_rows<G, DKP>(s, Qs, rw * 16, Ks + buf * TE, 0, n_hi);
+    }
     const T* Bb = Bs + buf * G::kBiasElems;
     float mx[2] = {m[0], m[1]};
 #pragma unroll

@@ -1,7 +1,7 @@
 // K2: causal attention with Shaw relative positions, forward.
 //
-// The rows body: it runs past dk 256 (--hiddenEncoder past 2048); at every
-// dk up to 256 the tensor-core body of relpos_attention_tc_fwd.cu runs instead
+// The rows body: it runs past dk 512 (--hiddenEncoder past 4096); at every
+// dk up to 512 the tensor-core body of relpos_attention_tc_fwd.cu runs instead
 // (ops/head_attention.py `fwd_body` / `bwd_body`).
 //
 // Replaces cpc_audio_tpu/ops/pallas/head_attention.py `_fwd_kernel`

@@ -20,6 +20,17 @@
 // causal band), over the rows of QP it no longer needs, and dq += U .
 // krel[:, window]^T, dkrel[:, window] += Q^T . U.
 //
+// At DKP 512 (heads past dk 256; K5's 16-row tiles, the four warps on one
+// row group, `kSplitK`) each warp forms its quarter of every reduction
+// over dk: QP's band from the window rows [128 w, 128 w + 128), which are
+// staged as four quarter blocks, (w, plane, 128 rows) (`stage_quarters`),
+// and the scores from the same columns of q and k.  The partial bands
+// are summed w 0 + 1 + 2 + 3 into the band's staging through shared
+// memory (`sum_band`), the partial scores as K5's (`k5::load_sum`); dq's
+// U . krel^T and dkrel's q^T . U stay split by output columns (a warp's
+// quarter of dq reads its quarter block; dkrel's d tiles by warp).  No
+// (S, S) tile anywhere at any width.
+//
 // krel is read from a copy made once a call: (K, P, DKP, SK) bf16 planes,
 // column x holding krel column x - off with off = (-S) mod 8 and SK = S +
 // off, zero past dk and outside [0, S).  A window then starts at padded
@@ -55,10 +66,10 @@ using k5::row_of;
 // sized by S but its scratch, O(N S dk) and the diagonal pass's windows;
 // the gate, ops/head_attention.py `MAX_S`, stops at the longest window
 // checked on the card, the heads' S 4084 at --sizeWindow 655360) and
-// dk up to 256 (K5's staged widths past it are K5's own; the rows bodies
-// take K2's wider heads).
+// dk up to 512, every width K5 stages (the rows bodies take K2's wider
+// heads).
 constexpr int kMaxS = 4096;
-constexpr int kMaxDk = 256;
+constexpr int kMaxDk = 512;
 
 __host__ __device__ constexpr bool takes(int S, int dk) {
   return S > 0 && S <= kMaxS && dk > 0 && dk <= kMaxDk;
@@ -104,10 +115,16 @@ struct Win {
   static constexpr int kRowF = kRowBytes / 4;   // float32 elements a row
   static constexpr int kRowH = kRowBytes / 2;   // bf16 elements a row
   static constexpr size_t kBandBytes = (size_t)kTile * kRowBytes;
-  // krel window rows [0, kc) of all planes, bf16 elements
+  // krel window rows [0, kc) of all planes, bf16 elements (at kSplitK,
+  // kc / 4 rows of each quarter block)
   __host__ __device__ static constexpr int kr_elems(int kc) {
     return G::kPlanes * kc * kLdw;
   }
+  // at kSplitK: the warps' partial bands, or partial scores and dp
+  // (k5::store_partial), in turns
+  static constexpr size_t kRedBytes =
+      G::kSplitK ? (size_t)k5::kPartialFloats<kBandNT> * sizeof(float) : 0;
+  static_assert(!G::kSplitK || kBandNT >= 2 * G::kNT, "partials fit");
   // first window column of row group rw's band
   static __device__ __forceinline__ int c_lo(int rw) {
     return kTile - 16 - 16 * rw;
@@ -158,6 +175,31 @@ __device__ __forceinline__ void stage_window(bf16* dst, const bf16* krp,
       mma::cp_async16(dst + (p * KC + r) * W::kLdw + c,
                       ok ? src + (size_t)(d0 + r) * sk + x : src, ok);
     }
+  }
+}
+
+// At kSplitK: rows [128 w + c, 128 w + c + KQ) of the window, for each
+// warp's quarter w, into dst as four blocks of KQ rows (block w at
+// w * kr_elems(KQ), each as `stage_window` lays out its chunk); KQ = 128
+// and c = 0 stage the whole window.  One loop over every row of every
+// block and plane: eight loops' offsets held across the float32 column
+// pass's loop spilled registers.
+template <typename G, int DKP, int KQ>
+__device__ __forceinline__ void stage_quarters(bf16* dst, const bf16* krp,
+                                               int kk, int sk, int c,
+                                               int x0) {
+  using W = Win<G>;
+  constexpr int P = G::kPlanes;
+  constexpr int C = W::kCols / 8;                  // 16-byte copies a row
+  constexpr int kRows = k5::kWarps * P * KQ;       // (w, plane, row)
+  const bf16* src = krp + (size_t)kk * P * DKP * sk;
+  for (int idx = threadIdx.x; idx < kRows * C; idx += kThreads) {
+    const int r = idx / C, x = x0 + (idx - r * C) * 8;
+    const int wp = r / KQ, p = wp % P;
+    const int d = wp / P * G::kDV + c + (r - wp * KQ);   // krel row
+    const bool ok = x >= 0 && x < sk;
+    mma::cp_async16(dst + r * W::kLdw + (x - x0),
+                    ok ? src + ((size_t)p * DKP + d) * sk + x : src, ok);
   }
 }
 
@@ -213,6 +255,29 @@ __device__ __forceinline__ void store_band(float* QPs,
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       QPs[(rw * 16 + row_of(e)) * ldq + col_of(nt, e)] = qp[nt][e];
+}
+
+// At kSplitK: the band QPs (rows ldq apart) = the four warps' partial
+// bands qp summed w 0 + 1 + 2 + 3 through red, all threads summing
+// elements of it; starts with the partials' stores and ends with the band
+// whole and red free (a __syncthreads after each).
+template <typename G>
+__device__ __forceinline__ void sum_band(float* QPs,
+                                         const float qp[Win<G>::kBandNT][4],
+                                         float* red, int ldq) {
+  constexpr int NT = Win<G>::kBandNT;
+  constexpr int kSlot = NT * 4 * 32;    // a warp's partial, floats
+  k5::store_partial<NT>(red, qp);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < kSlot; idx += kThreads) {
+    const int lane = idx & 31, nt = idx >> 7, e = (idx >> 5) & 3;
+    float x = red[idx];
+#pragma unroll
+    for (int w = 1; w < k5::kWarps; ++w) x += red[w * kSlot + idx];
+    QPs[((lane >> 2) + ((e >> 1) << 3)) * ldq + nt * 8 + ((lane & 3) << 1) +
+        (e & 1)] = x;
+  }
+  __syncthreads();
 }
 
 // The bias QP[i, j - i + T - 1] of tile pair (query row il, key jl).
@@ -330,6 +395,38 @@ __device__ __forceinline__ void dkrel_product(
   using W = Win<G>;
   using D = DkrelSplit<G, DKP>;
   constexpr int P = G::kPlanes;
+  if constexpr (D::kWD > 4) {
+    // DKP 512, one row group: a d tile's A fragments loaded where they
+    // are used, not all kWD at once (the same products in each
+    // accumulator, in the same order)
+    const int band0 = W::c_lo(0) / 8;
+#pragma unroll
+    for (int c = 0; c < D::kWC / 2; ++c) {
+      const int bt = cw0 + 2 * c - band0;
+      if (bt < 0 || bt >= W::kBandNT) continue;
+      uint32_t b[P][4];
+#pragma unroll
+      for (int j = 0; j < P; ++j)
+        mma::load_b_kmajor(b[j], Us + j * W::kLdu, W::kRowH, 0, bt * 8);
+#pragma unroll
+      for (int m = 0; m < D::kWD; ++m) {
+        uint32_t a[P][4];
+#pragma unroll
+        for (int i = 0; i < P; ++i)
+          mma::load_a_kmajor(a[i], Qs + i * G::kPlaneElems, G::kLd,
+                             (md0 + m) * 16, 0);
+#pragma unroll
+        for (int d = 0; d < P; ++d)
+#pragma unroll
+          for (int i = d; i >= 0; --i) {
+            mma::mma_bf16(acc[m][2 * c], a[i], b[d - i][0], b[d - i][1]);
+            mma::mma_bf16(acc[m][2 * c + 1], a[i], b[d - i][2],
+                          b[d - i][3]);
+          }
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int rw = 0; rw < G::kRowWarps; ++rw) {
     const int band0 = W::c_lo(rw) / 8;   // window n8 tile of band tile 0

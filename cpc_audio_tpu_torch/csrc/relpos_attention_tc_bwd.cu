@@ -1,5 +1,5 @@
 // K2 backward: causal attention with Shaw relative positions on the
-// tensor cores (the body at every S <= 4096 and dk <= 256; past dk 256
+// tensor cores (the body at every S <= 4096 and dk <= 512; past dk 512
 // relpos_attention_bwd.cu's rows body runs).
 //
 // Replaces cpc_audio_tpu/ops/pallas/head_attention.py `_bwd_kernel`
@@ -17,7 +17,10 @@
 //
 // Design (relpos_attention_tc.cuh, on K5's body): no (S, S) tile anywhere,
 // blocks of 4 warps over tiles of 64 rows (32 past 128 bf16 planes' values
-// a row), cp.async staging, products on mma.sync; four kernels:
+// a row, 16 at DKP 512, where each warp forms its quarter of every sum
+// over dk, QP's band, s and dp, and the partials are summed w 0 + 1 + 2 +
+// 3 through 8 KB of shared memory), cp.async staging, products on
+// mma.sync; four kernels:
 //   1. `relpos_tc_bwd_rows`, one block per (query tile, head), K5's row
 //      kernel: a first walk over the key tiles up to the diagonal forms s
 //      (q . k^T plus the band of the window product QP) and dp = do . v^T
@@ -66,16 +69,18 @@ constexpr int kF32Planes = 2;
 constexpr int kDiagBlocks = 1024;
 
 // Shared memory of the backward's kernels at `bufs` buffers: q, do; (k,
-// v, window) buffers; the band staging (QP, then U)
+// v, window) buffers; the band staging (QP, then U); at kSplitK the
+// partials (float32 at DKP 512: 221 KB)
 template <typename T, int DKP>
 constexpr size_t rows_bytes(int bufs) {
   using G = k5::Geom<T, DKP>;
   using W = k2::Win<G>;
   return (2 + 2 * bufs) * G::kTileElems * sizeof(bf16) +
-         bufs * W::kr_elems(DKP) * sizeof(bf16) + W::kBandBytes;
+         bufs * W::kr_elems(DKP) * sizeof(bf16) + W::kBandBytes +
+         W::kRedBytes;
 }
 
-// k, v; (q, do, window, statistics) buffers; the QP band
+// k, v; (q, do, window, statistics) buffers; the QP band; the partials
 template <typename T, int DKP>
 constexpr size_t cols_bytes(int bufs) {
   using G = k5::Geom<T, DKP>;
@@ -83,17 +88,39 @@ constexpr size_t cols_bytes(int bufs) {
   return (2 + 2 * bufs) * G::kTileElems * sizeof(bf16) +
          bufs * (W::kr_elems(DKP) * sizeof(bf16) +
                  3 * G::kTile * sizeof(float)) +
-         W::kQpBytes;
+         W::kQpBytes + W::kRedBytes;
 }
 
-// (q, k, v, do, statistics) buffers; the window; the band staging
+// (q, k, v, do, statistics) buffers; the window; the band staging; the
+// partials
 template <typename T, int DKP>
 constexpr size_t diag_bytes(int bufs) {
   using G = k5::Geom<T, DKP>;
   using W = k2::Win<G>;
   return bufs * (4 * G::kTileElems * sizeof(bf16) +
                  3 * G::kTile * sizeof(float)) +
-         W::kr_elems(DKP) * sizeof(bf16) + W::kBandBytes;
+         W::kr_elems(DKP) * sizeof(bf16) + W::kBandBytes + W::kRedBytes;
+}
+
+// At kSplitK: the band QP of the 16 rows of staged tile A x the window's
+// quarter blocks Kr into QPs (rows ldq apart), and then s = A . Bs^T and
+// dp = Ad . Bd^T of the same rows (n8 tiles outside [n_lo, n_hi) left 0):
+// each warp forms its quarter c0 of dk, and the partials are summed
+// through red.  Ends with the band readable by every warp; the caller
+// syncs before QPs or red are stored again.
+template <typename G>
+__device__ __forceinline__ void band_and_scores(
+    float s[G::kNT][4], float dp[G::kNT][4], float* QPs, int ldq,
+    float* red, const bf16* A, const bf16* Kr, const bf16* Bs,
+    const bf16* Ad, const bf16* Bd, int c0, int n_lo, int n_hi) {
+  using W = k2::Win<G>;
+  float qp[W::kBandNT][4];
+  k2::zero_band<G>(qp);
+  const int w = threadIdx.x >> 5;
+  k2::window_product<G, G::kDV>(qp, A, 0, Kr + w * W::kr_elems(G::kDV), c0,
+                                W::c_lo(0));
+  k2::sum_band<G>(QPs, qp, red, ldq);
+  k5::split_products<G>(s, dp, A, Bs, Ad, Bd, n_lo, n_hi, c0, red);
 }
 
 template <typename T, int DKP>
@@ -166,6 +193,8 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_bwd_rows(
   bf16* Kr = Vs + NB * TE;         // NB windows
   float* QPs = reinterpret_cast<float*>(Kr + NB * KRE);   // the band
   bf16* Us = reinterpret_cast<bf16*>(QPs);                 // U over it
+  float* Red = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(QPs) + W::kBandBytes);   // kSplitK
 
   const int n = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;   // every head's longest first
@@ -184,23 +213,32 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_bwd_rows(
     const int b = NB == 2 ? kt & 1 : 0;
     k2::stage_head<G, DKP>(Ks + b * TE, H, 1, n, kt * G::kTile);
     k2::stage_head<G, DKP>(Vs + b * TE, H, 2, n, kt * G::kTile);
-    k2::stage_window<G, DKP, DKP>(Kr + b * KRE, krp, kk, sk, 0,
-                                  window_x0<G>(sk, qt, kt));
+    if constexpr (G::kSplitK)
+      k2::stage_quarters<G, DKP, G::kDV>(Kr + b * KRE, krp, kk, sk, 0,
+                                         window_x0<G>(sk, qt, kt));
+    else
+      k2::stage_window<G, DKP, DKP>(Kr + b * KRE, krp, kk, sk, 0,
+                                    window_x0<G>(sk, qt, kt));
     cpc::mma::cp_async_commit();
   };
   // s (scaled, biased, masked) and dp of key tile kt in buffer buf
   auto scores = [&](float (&s)[G::kNT][4], float (&dp)[G::kNT][4], int kt,
                     int buf, int n_hi) {
-    float qp[W::kBandNT][4];
-    k2::zero_band<G>(qp);
-    k2::window_product<G, DKP>(qp, Qs, rw * 16, Kr + buf * KRE, 0, c_lo);
-    if (c0 == 0) k2::store_band<G>(QPs, qp, rw, W::kRowF);
-    if constexpr (G::kColWarps > 1)
-      __syncthreads();
-    else
-      __syncwarp();
-    k5::rows_dot_rows<G, DKP>(s, Qs, rw * 16, Ks + buf * TE, 0, n_hi);
-    k5::rows_dot_rows<G, DKP>(dp, Ds, rw * 16, Vs + buf * TE, 0, n_hi);
+    if constexpr (G::kSplitK) {
+      band_and_scores<G>(s, dp, QPs, W::kRowF, Red, Qs, Kr + buf * KRE,
+                         Ks + buf * TE, Ds, Vs + buf * TE, c0, 0, n_hi);
+    } else {
+      float qp[W::kBandNT][4];
+      k2::zero_band<G>(qp);
+      k2::window_product<G, DKP>(qp, Qs, rw * 16, Kr + buf * KRE, 0, c_lo);
+      if (c0 == 0) k2::store_band<G>(QPs, qp, rw, W::kRowF);
+      if constexpr (G::kColWarps > 1)
+        __syncthreads();
+      else
+        __syncwarp();
+      k5::rows_dot_rows<G, DKP>(s, Qs, rw * 16, Ks + buf * TE, 0, n_hi);
+      k5::rows_dot_rows<G, DKP>(dp, Ds, rw * 16, Vs + buf * TE, 0, n_hi);
+    }
     k2::bias_scale_mask<G>(s, QPs, W::kRowF, rw, q0, kt * G::kTile,
                            inv_sqrt);
   };
@@ -301,7 +339,14 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_bwd_rows(
                     inv_sqrt);
     k5::acc_times_rows<G, false>(dqa, s, Ks + buf * TE + c0, 0, n_hi / 2);
     stage_u(s);
-    k2::unskew_product<G, DKP>(dqa, Us, rw * 16, Kr + buf * KRE, c0, c_lo);
+    if constexpr (G::kSplitK)   // the warp's quarter block of the window
+      k2::unskew_product<G, G::kDV>(dqa, Us, 0,
+                                    Kr + buf * KRE + warp * W::kr_elems(
+                                                            G::kDV),
+                                    0, c_lo);
+    else
+      k2::unskew_product<G, DKP>(dqa, Us, rw * 16, Kr + buf * KRE, c0,
+                                 c_lo);
     __syncthreads();   // the buffer, the band and U are reused next
     if (!resident && NB == 1 && kt < qt) stage_tile(kt + 1);
   }
@@ -360,6 +405,7 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_bwd_cols(
   float* QPs = reinterpret_cast<float*>(Kr + NB * KRE);
   float* St = reinterpret_cast<float*>(
       reinterpret_cast<unsigned char*>(QPs) + W::kQpBytes);   // NB x kStats
+  float* Red = St + NB * kStats;   // kSplitK
 
   const int n = blockIdx.x;
   const int kt = blockIdx.y;       // most query tiles first
@@ -377,8 +423,12 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_bwd_cols(
     const int b = NB == 2 ? (qt - kt) & 1 : 0, q0 = qt * G::kTile;
     k2::stage_head<G, DKP>(Qs + b * TE, H, 0, n, q0);
     k2::stage_head<G, DKP>(Ds + b * TE, H, 3, n, q0);
-    k2::stage_window<G, DKP, DKP>(Kr + b * KRE, krp, kk, sk, 0,
-                                  window_x0<G>(sk, qt, kt));
+    if constexpr (G::kSplitK)
+      k2::stage_quarters<G, DKP, G::kDV>(Kr + b * KRE, krp, kk, sk, 0,
+                                         window_x0<G>(sk, qt, kt));
+    else
+      k2::stage_window<G, DKP, DKP>(Kr + b * KRE, krp, kk, sk, 0,
+                                    window_x0<G>(sk, qt, kt));
     stage_stats<G>(St + b * kStats, stats, N, S, n, q0);
     cpc::mma::cp_async_commit();
   };
@@ -409,20 +459,33 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_bwd_cols(
       cpc::mma::cp_async_wait<0>();
     }
     __syncthreads();
-    // the query tile's QP bands, row group rw by warp rw's pair
+    // the query tile's QP bands, row group rw by warp rw's pair (at
+    // kSplitK by all four warps, a quarter of dk each, summed)
     const bf16* Qb = Qs + buf * TE;
+    float st[G::kNT][4], dpt[G::kNT][4];   // (16 keys, kTile queries)
     {
       float qp[W::kBandNT][4];
       k2::zero_band<G>(qp);
-      k2::window_product<G, DKP>(qp, Qb, rw * 16, Kr + buf * KRE, 0,
-                                 W::c_lo(rw));
-      if (c0 == 0) k2::store_band<G>(QPs, qp, rw, W::kLdq);
+      if constexpr (G::kSplitK) {
+        k2::window_product<G, G::kDV>(
+            qp, Qb, 0, Kr + buf * KRE + warp * W::kr_elems(G::kDV), c0,
+            W::c_lo(0));
+        k2::sum_band<G>(QPs, qp, Red, W::kLdq);
+      } else {
+        k2::window_product<G, DKP>(qp, Qb, rw * 16, Kr + buf * KRE, 0,
+                                   W::c_lo(rw));
+        if (c0 == 0) k2::store_band<G>(QPs, qp, rw, W::kLdq);
+        __syncthreads();
+      }
     }
-    __syncthreads();
-    float st[G::kNT][4], dpt[G::kNT][4];   // (16 keys, kTile queries)
-    k5::rows_dot_rows<G, DKP>(st, Ks, rw * 16, Qb, n_lo, G::kNT);
-    k5::rows_dot_rows<G, DKP>(dpt, Vs, rw * 16, Ds + buf * TE, n_lo,
-                              G::kNT);
+    if constexpr (G::kSplitK) {
+      k5::split_products<G>(st, dpt, Ks, Qb, Vs, Ds + buf * TE, n_lo, G::kNT,
+                            c0, Red);
+    } else {
+      k5::rows_dot_rows<G, DKP>(st, Ks, rw * 16, Qb, n_lo, G::kNT);
+      k5::rows_dot_rows<G, DKP>(dpt, Vs, rw * 16, Ds + buf * TE, n_lo,
+                                G::kNT);
+    }
     const float* sm = St + buf * kStats;
 #pragma unroll
     for (int nt = 0; nt < G::kNT; ++nt)
@@ -482,6 +545,7 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_bwd_diag(
   bf16* Us = reinterpret_cast<bf16*>(QPs);                         // U
   float* St = reinterpret_cast<float*>(
       reinterpret_cast<unsigned char*>(QPs) + W::kBandBytes);
+  float* Red = St + NB * kStats;   // kSplitK
 
   const int delta = blockIdx.x;          // qt - kt; most pairs first
   const int g = blockIdx.y, kk = blockIdx.z;
@@ -509,8 +573,12 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_bwd_diag(
     cpc::mma::cp_async_commit();
   };
 
-  k2::stage_window<G, DKP, DKP>(Kr, krp, kk, sk, 0,
-                                window_x0<G>(sk, delta, 0));
+  if constexpr (G::kSplitK)
+    k2::stage_quarters<G, DKP, G::kDV>(Kr, krp, kk, sk, 0,
+                                       window_x0<G>(sk, delta, 0));
+  else
+    k2::stage_window<G, DKP, DKP>(Kr, krp, kk, sk, 0,
+                                  window_x0<G>(sk, delta, 0));
   stage_item(0);
 
   float acc[DS::kWD][DS::kWC][4];
@@ -539,18 +607,23 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_bwd_diag(
     }
     __syncthreads();
     const bf16* Qb = Qs + buf * TE;
-    float qp[W::kBandNT][4];
-    k2::zero_band<G>(qp);
-    k2::window_product<G, DKP>(qp, Qb, rw * 16, Kr, 0, c_lo);
-    if (c0 == 0) k2::store_band<G>(QPs, qp, rw, W::kRowF);
-    if constexpr (G::kColWarps > 1)
-      __syncthreads();
-    else
-      __syncwarp();
     float s[G::kNT][4], dp[G::kNT][4];
-    k5::rows_dot_rows<G, DKP>(s, Qb, rw * 16, Ks + buf * TE, 0, n_hi);
-    k5::rows_dot_rows<G, DKP>(dp, Ds + buf * TE, rw * 16, Vs + buf * TE, 0,
-                              n_hi);
+    if constexpr (G::kSplitK) {
+      band_and_scores<G>(s, dp, QPs, W::kRowF, Red, Qb, Kr, Ks + buf * TE,
+                         Ds + buf * TE, Vs + buf * TE, c0, 0, n_hi);
+    } else {
+      float qp[W::kBandNT][4];
+      k2::zero_band<G>(qp);
+      k2::window_product<G, DKP>(qp, Qb, rw * 16, Kr, 0, c_lo);
+      if (c0 == 0) k2::store_band<G>(QPs, qp, rw, W::kRowF);
+      if constexpr (G::kColWarps > 1)
+        __syncthreads();
+      else
+        __syncwarp();
+      k5::rows_dot_rows<G, DKP>(s, Qb, rw * 16, Ks + buf * TE, 0, n_hi);
+      k5::rows_dot_rows<G, DKP>(dp, Ds + buf * TE, rw * 16, Vs + buf * TE,
+                                0, n_hi);
+    }
     k2::bias_scale_mask<G>(s, QPs, W::kRowF, rw, q0, k0, inv_sqrt);
     const float* sm = St + buf * kStats;
     float m[2], inv_l[2], c[2];
@@ -617,7 +690,9 @@ __global__ void dkrel_windows_reduce(const float* __restrict__ part,
 // The tile rows T of the backward at (dk, dtype) (K5's Geom).
 int tile_of(int dk, int dtype) {
   const int dkp = k5::padded_dk(dk);
-  return (dtype == cpc::kFloat32 ? kF32Planes : 1) * dkp <= 128 ? 64 : 32;
+  return dkp > 256 ? 16
+         : (dtype == cpc::kFloat32 ? kF32Planes : 1) * dkp <= 128 ? 64
+                                                                  : 32;
 }
 
 // (n_groups, group): the heads of a k in groups so that the diagonal
@@ -653,7 +728,8 @@ int launch(const k2::Heads& H, const bf16* krp, const Scratch& sc, void* dq,
            int K, cpc::Dropout drop, cudaStream_t stream) {
   using C = Bwd<T, DKP>;
   using G = typename C::G;
-  static_assert(G::kTile == 64 || G::kTile == 32, "tiles");
+  static_assert(G::kTile == 64 || G::kTile == 32 || G::kTile == 16,
+                "tiles");
   if (sc.T != G::kTile) return (int)cudaErrorInvalidValue;
   auto rows = relpos_tc_bwd_rows<T, DKP>;
   auto cols = relpos_tc_bwd_cols<T, DKP>;
@@ -702,8 +778,11 @@ int launch_any(const k2::Heads& H, const bf16* krp, const Scratch& sc,
     case 128:
       return launch<T, 128>(H, krp, sc, dq, dk_out, dv, dkrel, stats, part,
                             K, drop, s);
-    default:
+    case 256:
       return launch<T, 256>(H, krp, sc, dq, dk_out, dv, dkrel, stats, part,
+                            K, drop, s);
+    default:
+      return launch<T, 512>(H, krp, sc, dq, dk_out, dv, dkrel, stats, part,
                             K, drop, s);
   }
 }
@@ -711,7 +790,7 @@ int launch_any(const k2::Heads& H, const bf16* krp, const Scratch& sc,
 }  // namespace
 
 // The body the backward runs at (S, dk): 1, the tensor-core tiles, at
-// S <= 4096 and dk <= 256 in both dtypes (k2::takes); 0, the rows body
+// S <= 4096 and dk <= 512 in both dtypes (k2::takes); 0, the rows body
 // (relpos_attention_bwd.cu), past that.
 extern "C" int cpc_relpos_attention_bwd_body(int S, int dk, int dtype) {
   (void)dtype;

@@ -1,5 +1,5 @@
 // K2: causal attention with Shaw relative positions, forward, on the
-// tensor cores (the body at every S <= 4096 and dk <= 256; past dk 256
+// tensor cores (the body at every S <= 4096 and dk <= 512; past dk 512
 // relpos_attention_fwd.cu's rows body runs).
 //
 // Replaces cpc_audio_tpu/ops/pallas/head_attention.py `_fwd_kernel`
@@ -32,7 +32,12 @@
 // bf16 planes (six split products a product, as K5's forward:
 // ops/head_attention.py `relpos_attention_split` writes the arithmetic);
 // where the float32 window of DKP 256 does not fit beside the tiles, it is
-// staged 64 rows of dk at a time.
+// staged 64 rows of dk at a time.  At DKP 512 (16-row tiles, all four
+// warps on the rows; relpos_attention_tc.cuh) each warp forms QP's band
+// and q . k^T over its quarter of dk, summed w 0 + 1 + 2 + 3 through 8 KB
+// of shared memory; in float32 the window's three planes (120 KB) do not
+// fit beside the q, k, v tiles (146 KB), so each quarter's rows are staged
+// 64 at a time, two chunks a key tile.
 //
 // What bounds it on an H100: at K 12, B 32, 8 heads, S 116, dk 32 the call
 // reads q, k, v (68 MB in bf16) and writes o (23 MB): 27 us at 3.35 TB/s;
@@ -56,22 +61,24 @@ using FwdGeom =
     k5::Geom<T, DKP, sizeof(T) == sizeof(float) ? kF32Planes : 1>;
 
 // q, `bufs` (k, v) buffers, the krel window (whole: `bufs` buffers; in
-// chunks of kc < DKP rows: one), the QP band
+// chunks of kc < DKP rows: one), the QP band; at kSplitK the partials
 template <typename T, int DKP>
 constexpr size_t fwd_bytes(int bufs, int kc) {
   using G = FwdGeom<T, DKP>;
   using W = k2::Win<G>;
   return (1 + 2 * bufs) * G::kTileElems * sizeof(bf16) +
          (kc == DKP ? bufs : 1) * W::kr_elems(kc) * sizeof(bf16) +
-         W::kQpBytes;
+         W::kQpBytes + W::kRedBytes;
 }
 
 template <typename T, int DKP>
 struct Fwd {
   using G = FwdGeom<T, DKP>;
   using W = k2::Win<G>;
-  static constexpr int kKC =
-      fwd_bytes<T, DKP>(1, DKP) <= cpc::kSmemLimit ? DKP : 64;
+  // window rows a chunk: all, else 64 (at kSplitK 64 of each quarter)
+  static constexpr int kKC = fwd_bytes<T, DKP>(1, DKP) <= cpc::kSmemLimit
+                                 ? DKP
+                                 : G::kSplitK ? 4 * 64 : 64;
   static constexpr int kBufs = k2::pick_bufs(fwd_bytes<T, DKP>(1, kKC),
                                              fwd_bytes<T, DKP>(2, kKC));
   static constexpr size_t kSmem = fwd_bytes<T, DKP>(kBufs, kKC);
@@ -110,11 +117,17 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_fwd(
   const int kk = nb / H.n_batch;
   const uint32_t row_key = cpc::attention_row_key(
       drop, kk, H.n_batch, nb % H.n_batch, H.nheads, n % H.nheads);
+  float* Red = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(QPs) + W::kQpBytes);   // kSplitK
+  constexpr int KQ = KC / 4;   // kSplitK: a quarter's rows a chunk
   // key tile kt (and its v where with_v) into buffer b
   auto stage_tile = [&](int kt, int b, bool with_v) {
     k2::stage_head<G, DKP>(Ks + b * TE, H, 1, n, kt * G::kTile);
     if (with_v) k2::stage_head<G, DKP>(Vs + b * TE, H, 2, n, kt * G::kTile);
-    if constexpr (kWhole)
+    if constexpr (kWhole && G::kSplitK)
+      k2::stage_quarters<G, DKP, KQ>(Kr + b * KRE, krp, kk, sk, 0,
+                                     sk - (qt - kt + 1) * G::kTile);
+    else if constexpr (kWhole)
       k2::stage_window<G, DKP, DKP>(Kr + b * KRE, krp, kk, sk, 0,
                                     sk - (qt - kt + 1) * G::kTile);
     cpc::mma::cp_async_commit();
@@ -124,25 +137,50 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_fwd(
   auto scores = [&](float (&s)[G::kNT][4], int kt, int buf, int n_hi) {
     float qp[W::kBandNT][4];
     k2::zero_band<G>(qp);
-    if constexpr (kWhole) {
-      k2::window_product<G, KC>(qp, Qs, rw * 16, Kr + buf * KRE, 0, c_lo);
-    } else {
-      for (int d0 = 0; d0 < DKP; d0 += KC) {
-        __syncthreads();   // the chunk before is read
-        k2::stage_window<G, DKP, KC>(Kr, krp, kk, sk, d0,
-                                     sk - (qt - kt + 1) * G::kTile);
-        cpc::mma::cp_async_commit();
-        cpc::mma::cp_async_wait<0>();
-        __syncthreads();
-        k2::window_product<G, KC>(qp, Qs, rw * 16, Kr, d0, c_lo);
+    if constexpr (G::kSplitK) {   // the warp's quarter c0 of dk, summed
+      if constexpr (kWhole) {
+        k2::window_product<G, KQ>(
+            qp, Qs, 0, Kr + buf * KRE + warp * W::kr_elems(KQ), c0, c_lo);
+      } else {
+        for (int c = 0; c < G::kDV; c += KQ) {
+          __syncthreads();   // the chunk before is read
+          k2::stage_quarters<G, DKP, KQ>(Kr, krp, kk, sk, c,
+                                         sk - (qt - kt + 1) * G::kTile);
+          cpc::mma::cp_async_commit();
+          cpc::mma::cp_async_wait<0>();
+          __syncthreads();
+          k2::window_product<G, KQ>(qp, Qs, 0, Kr + warp * W::kr_elems(KQ),
+                                    c0 + c, c_lo);
+        }
       }
+      k2::sum_band<G>(QPs, qp, Red, W::kLdq);
+      k5::rows_dot_rows<G, G::kDV>(s, Qs + c0, 0, Ks + buf * TE + c0, 0,
+                                   n_hi);
+      k5::store_partial<G::kNT>(Red, s);
+      __syncthreads();
+      // Red is stored again past the iteration's last __syncthreads
+      k5::load_sum<G::kNT>(s, Red);
+    } else {
+      if constexpr (kWhole) {
+        k2::window_product<G, KC>(qp, Qs, rw * 16, Kr + buf * KRE, 0, c_lo);
+      } else {
+        for (int d0 = 0; d0 < DKP; d0 += KC) {
+          __syncthreads();   // the chunk before is read
+          k2::stage_window<G, DKP, KC>(Kr, krp, kk, sk, d0,
+                                       sk - (qt - kt + 1) * G::kTile);
+          cpc::mma::cp_async_commit();
+          cpc::mma::cp_async_wait<0>();
+          __syncthreads();
+          k2::window_product<G, KC>(qp, Qs, rw * 16, Kr, d0, c_lo);
+        }
+      }
+      if (c0 == 0) k2::store_band<G>(QPs, qp, rw, W::kLdq);
+      if constexpr (G::kColWarps > 1)
+        __syncthreads();   // the pair's other warp reads the band
+      else
+        __syncwarp();
+      k5::rows_dot_rows<G, DKP>(s, Qs, rw * 16, Ks + buf * TE, 0, n_hi);
     }
-    if (c0 == 0) k2::store_band<G>(QPs, qp, rw, W::kLdq);
-    if constexpr (G::kColWarps > 1)
-      __syncthreads();   // the pair's other warp reads the band
-    else
-      __syncwarp();
-    k5::rows_dot_rows<G, DKP>(s, Qs, rw * 16, Ks + buf * TE, 0, n_hi);
     k2::bias_scale_mask<G>(s, QPs, W::kLdq, rw, q0, kt * G::kTile,
                            inv_sqrt);
   };
@@ -285,8 +323,10 @@ int launch_any(const k2::Heads& H, const bf16* krp, int sk, void* out, int N,
       return launch<T, 64>(H, krp, sk, out, N, drop, s);
     case 128:
       return launch<T, 128>(H, krp, sk, out, N, drop, s);
-    default:
+    case 256:
       return launch<T, 256>(H, krp, sk, out, N, drop, s);
+    default:
+      return launch<T, 512>(H, krp, sk, out, N, drop, s);
   }
 }
 
@@ -297,7 +337,7 @@ k2::Prep prep_of(int K, int n_batch, int S, int nheads, int dk, int dtype) {
 }  // namespace
 
 // The body the forward runs at (S, dk): 1, the tensor-core tiles, at
-// S <= 4096 and dk <= 256 in both dtypes (k2::takes); 0, the rows body
+// S <= 4096 and dk <= 512 in both dtypes (k2::takes); 0, the rows body
 // (relpos_attention_fwd.cu), past that.
 extern "C" int cpc_relpos_attention_fwd_body(int S, int dk, int dtype) {
   (void)dtype;

@@ -30,7 +30,10 @@ of a config.  Both dtypes run one
 tensor-core body; in float32 its operands are split into bf16 planes,
 three in the forward (six split products a product) and two in the
 backward (three) (:func:`causal_attention_split` and
-:func:`causal_attention_bwd_split` write that arithmetic plainly).
+:func:`causal_attention_bwd_split` write that arithmetic plainly).  Past
+dk 256 (DKP 512) its tiles are 16 rows and each of the block's four warps
+forms the scores over a quarter of dk, the partials summed in a fixed
+order (:func:`quarter_sum`).
 
 :func:`causal_attention` is the differentiable entry point: its forward
 runs the K5 forward kernel (csrc/causal_attention_fwd.cu, counted in
@@ -128,6 +131,24 @@ def key_tile(dk: int, planes: int) -> int:
 # the depth of one mma.sync.m16n8k16: the kernels' products go 16 columns
 # (or keys) at a time
 K_STEP = 16
+# dk columns of a warp's partial scores at DKP 512, where the four warps
+# split the reduction (csrc/causal_attention.cuh `kSplitK`)
+QUARTER = 128
+
+
+def quarter_sum(mm, a, b, dk: int):
+    """``mm(a, b)``, a product over dk (a's last axis, b's second last),
+    as the tensor-core bodies form it at head width dk: whole up to dk
+    256; past it (DKP 512) as four partials over the 128-column quarters
+    of dk, each ``mm`` of its slices (a quarter past dk is empty: zero),
+    summed quarter 0 + 1 + 2 + 3."""
+    if dk <= 256:
+        return mm(a, b)
+    out = None
+    for w in range(0, 4 * QUARTER, QUARTER):
+        part = mm(a[..., w:w + QUARTER], b[..., w:w + QUARTER, :])
+        out = part if out is None else out + part
+    return out
 
 
 def kstep_products(a_planes, b_planes, acc: torch.Tensor,
@@ -162,16 +183,18 @@ def causal_attention_split(q, k, v, bias, rate: float = 0.0,
     tiles (:func:`key_tile`) with a running max, the probabilities split
     as exp(s - running max) r, the output rescaled as the max moves before
     the tile's p . v is added onto it, and divided by the row sum at the
-    end.  Float32 inputs, the output of :func:`causal_attention_ref`.  For
+    end; past dk 256 q . k^T by quarters of dk (:func:`quarter_sum`).
+    Float32 inputs, the output of :func:`causal_attention_ref`.  For
     tests and measurements only: the card runs the kernel."""
     N, S, dk = q.shape
     n = FWD_PLANES if products == 6 else BWD_PLANES
     dev = q.device
     inv_sqrt = torch.tensor(1.0, device=dev) / torch.sqrt(
         torch.tensor(float(dk), device=dev))
-    kt = [t.transpose(-1, -2) for t in ffn.split_planes(k.float(), n)]
-    s = kstep_products(ffn.split_planes(q.float(), n), kt,
-                       torch.zeros(N, S, S, device=dev))
+    qp = torch.stack(ffn.split_planes(q.float(), n))
+    kt = torch.stack(ffn.split_planes(k.float(), n)).transpose(-1, -2)
+    s = quarter_sum(lambda a, b: kstep_products(
+        a, b, torch.zeros(N, S, S, device=dev)), qp, kt, dk)
     s = (s + bias.float()) * inv_sqrt
     causal = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
     s = s.masked_fill(~causal, float("-inf"))
@@ -202,17 +225,21 @@ def causal_attention_bwd_split(q, k, v, bias, dout, rate: float = 0.0,
     """The float32 tensor-core body's backward arithmetic written plainly
     (csrc/causal_attention_bwd.cu): :func:`causal_attention_bwd_ref` with
     q . k^T, do . v^T, (p r)^T . do, ds . k and ds^T . q each as
-    ``products`` split products of bf16 planes.  Float32 inputs; (dq, dk,
-    dv, dbias).  For tests and measurements only."""
+    ``products`` split products of bf16 planes, past dk 256 q . k^T and
+    do . v^T by quarters of dk (:func:`quarter_sum`).  Float32 inputs;
+    (dq, dk, dv, dbias).  For tests and measurements only."""
     N, S, dk = q.shape
     qf, kf, vf, do = q.float(), k.float(), v.float(), dout.float()
-    s = (ffn.split_matmul(qf, kf.transpose(-1, -2), products)
+
+    def mm(a, b):
+        return ffn.split_matmul(a, b, products)
+    s = (quarter_sum(mm, qf, kf.transpose(-1, -2), dk)
          + bias.float()) / math.sqrt(dk)
     causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
     p = torch.softmax(s.masked_fill(~causal, float("-inf")), dim=-1)
     mask = dropout.ar_attention_mask(seed, rate, layer, N, S, q.device)
     pd = p if mask is None else p * mask
-    dp = ffn.split_matmul(do, vf.transpose(-1, -2), products)
+    dp = quarter_sum(mm, do, vf.transpose(-1, -2), dk)
     if mask is not None:
         dp = dp * mask
     ds = p * (dp - (dp * p).sum(-1, keepdim=True)) / math.sqrt(dk)

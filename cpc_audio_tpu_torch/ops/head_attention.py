@@ -25,7 +25,7 @@ the function's ``body_launches``.  CPU tensors take the plain versions.
 Two bodies, by shape (:func:`fwd_body`, :func:`bwd_body`, mirrored by the
 C exports ``cpc_relpos_attention_{fwd,bwd}_body``):
 
-- "tc", at every S <= 4096 and dk <= 256 in both dtypes: the tensor-core
+- "tc", at every S <= 4096 and dk <= 512 in both dtypes: the tensor-core
   body (csrc/relpos_attention_tc_fwd.cu, csrc/relpos_attention_tc_bwd.cu,
   on K5's mma.sync tiles): one block per (query tile, head) in the
   forward, the Shaw bias from the window product q . krel[:, window] of
@@ -34,8 +34,12 @@ C exports ``cpc_relpos_attention_{fwd,bwd}_body``):
   fixed order), with no (S, S) tile anywhere.  Float32 operands run as
   split bf16 planes (three in the forward, two in the backward):
   :func:`relpos_attention_split` and :func:`relpos_attention_bwd_split`
-  write that arithmetic plainly.
-- "rows", past dk 256 (``--hiddenEncoder`` past 2048): the first bodies
+  write that arithmetic plainly.  Past dk 256 (DKP 512, the heads of
+  ``--hiddenEncoder`` 2056-4096) the tiles are K5's 16 rows, all four
+  warps on them, each forming the window product, q . k^T and do . v^T
+  over its quarter of dk, the partials summed in a fixed order
+  (``causal_attention.quarter_sum``).
+- "rows", past dk 512 (``--hiddenEncoder`` past 4096): the first bodies
   (csrc/relpos_attention_fwd.cu, csrc/relpos_attention_bwd.cu), one block
   a (k, b, h) with warps owning query rows, operands staged in shared
   memory or read in place, the backward's (S, S) tiles in device memory
@@ -74,8 +78,8 @@ TILE_BUDGET = 1 << 30
 def supported(S: int, dk: int) -> Optional[str]:
     """Why the kernels refuse a sequence length S and head width dk, or
     None: S <= 4096, the longest checked on the card, and any dk, in both
-    dtypes: the tensor-core body to dk 256 (its operands padded to 32, 64,
-    128 or 256 columns), the rows bodies past it (they read a head's
+    dtypes: the tensor-core body to dk 512 (its operands padded to 32, 64,
+    128, 256 or 512 columns), the rows bodies past it (they read a head's
     columns one at a time; past their shared memory the operands are read
     in place and the backward's (S, S) tiles, and past S 3632 its rows, go
     to a device-memory scratch of at most ``TILE_BUDGET`` or one (k, b)
@@ -170,14 +174,15 @@ def relpos_attention_bwd_ref(q, k, v, krel, dout, n_batch: int, nheads: int,
 # K5's (csrc/relpos_attention_tc.cuh)
 FWD_PLANES = causal_attention.FWD_PLANES
 BWD_PLANES = causal_attention.BWD_PLANES
-# the widest head the tensor-core body takes (DKP 256); past it the rows
+# the widest head the tensor-core body takes (DKP 512); past it the rows
 # bodies run
-TC_MAX_DK = 256
+TC_MAX_DK = 512
 
 
 def tile_rows(dk: int, dtype: torch.dtype, backward: bool = False) -> int:
     """Query rows (and keys) a tile of the tensor-core body: 64 where a
-    row's bf16 planes hold at most 128 values, else 32 (K5's ``Geom``)."""
+    row's bf16 planes hold at most 128 values, else 32; 16 past dk 256
+    (K5's ``Geom``)."""
     planes = 1 if dtype == torch.bfloat16 else (
         BWD_PLANES if backward else FWD_PLANES)
     return causal_attention.key_tile(dk, planes)
@@ -185,7 +190,7 @@ def tile_rows(dk: int, dtype: torch.dtype, backward: bool = False) -> int:
 
 def fwd_body(S: int, dk: int, dtype: torch.dtype) -> str:
     """The body csrc/relpos_attention_fwd.cu runs: "tc", the tensor-core
-    tiles, at every S <= 4096 and dk <= 256 in both dtypes, else "rows",
+    tiles, at every S <= 4096 and dk <= 512 in both dtypes, else "rows",
     one block a (k, b, h) with warps owning query rows
     (``cpc_relpos_attention_fwd_body``: 1, 0)."""
     return "tc" if 0 < S <= MAX_S and 0 < dk <= TC_MAX_DK else "rows"
@@ -212,6 +217,15 @@ def _mm(a: torch.Tensor, b: torch.Tensor, products: int) -> torch.Tensor:
     planes (ffn.split_matmul), or one product of bf16 values summed in
     float32 (products 1: the operands are bf16 already)."""
     return ffn.split_matmul(a, b, products) if products > 1 else a @ b
+
+
+def _mm_dk(a: torch.Tensor, b: torch.Tensor, products: int,
+           dk: int) -> torch.Tensor:
+    """:func:`_mm` of a product over dk (q . k^T, do . v^T, the window
+    product), by quarters of dk past dk 256, as the four warps of a DKP
+    512 tile form it (``causal_attention.quarter_sum``)."""
+    return causal_attention.quarter_sum(
+        lambda x, y: _mm(x, y, products), a, b, dk)
 
 
 def _tiled(t: torch.Tensor, n_batch: int, nheads: int, Sp: int):
@@ -248,7 +262,8 @@ def relpos_attention_split(q, k, v, krel, n_batch: int, nheads: int,
     (csrc/relpos_attention_tc_fwd.cu), tile by tile with the kernel's T and
     windows: for query tile [i0, i0 + T) and key tile [j0, j0 + T) the
     scores q . k^T and the window product QP = q . krel[:, window] (T x
-    2T), the bias QP[i, j - i + T - 1] added in float32.  In float32 every
+    2T), the bias QP[i, j - i + T - 1] added in float32 (past dk 256 both
+    products by quarters of dk, :func:`_mm_dk`).  In float32 every
     product is ``products`` split products of bf16 planes (6 from three,
     the kernel's; 3 from two, for comparison), with a running max,
     probabilities exp(s - running max) r, the partial output rescaled as
@@ -279,8 +294,8 @@ def relpos_attention_split(q, k, v, krel, n_batch: int, nheads: int,
         i0, j0 = qt * T, kt * T
         qs = qh[..., i0:i0 + T, :]
         win = krel_window(kr, S, i0, j0, T)[:, None, None]
-        s = _mm(qs, kh[..., j0:j0 + T, :].transpose(-1, -2), P)
-        s = (s + torch.gather(_mm(qs, win, P), -1, idx)) * inv_sqrt
+        s = _mm_dk(qs, kh[..., j0:j0 + T, :].transpose(-1, -2), P, dk)
+        s = (s + torch.gather(_mm_dk(qs, win, P, dk), -1, idx)) * inv_sqrt
         i = torch.arange(i0, i0 + T, device=q.device)[:, None]
         j = torch.arange(j0, j0 + T, device=q.device)[None, :]
         return s.masked_fill(j > i, float("-inf"))
@@ -331,6 +346,8 @@ def relpos_attention_bwd_split(q, k, v, krel, dout, n_batch: int,
     and dv = (p r)^T . do.  The diagonal pass sums dkrel's window
     products q^T . U over the tile pairs of each tile diagonal qt - kt,
     then each krel column from the (at most two) windows that hold it.
+    Past dk 256 the products over dk (s, dp, the window product) go by
+    quarters of dk (:func:`_mm_dk`).
     In float32 every product is ``products`` split products (3 from two
     planes, the kernel's); in bf16 one product of bf16 operands, with ds
     and p r rounded to bf16 as the JAX kernel casts them.  Returns (dq,
@@ -360,14 +377,14 @@ def relpos_attention_bwd_split(q, k, v, krel, dout, n_batch: int,
         i0, j0 = qt * T, kt * T
         qs = qh[..., i0:i0 + T, :]
         win = krel_window(kr, S, i0, j0, T)[:, None, None]
-        s = _mm(qs, kh[..., j0:j0 + T, :].transpose(-1, -2), P)
-        s = (s + torch.gather(_mm(qs, win, P), -1, idx)) * inv_sqrt
+        s = _mm_dk(qs, kh[..., j0:j0 + T, :].transpose(-1, -2), P, dk)
+        s = (s + torch.gather(_mm_dk(qs, win, P, dk), -1, idx)) * inv_sqrt
         i = torch.arange(i0, i0 + T, device=dev)[:, None]
         j = torch.arange(j0, j0 + T, device=dev)[None, :]
         live = (j <= i) & (i < S)
         s = s.masked_fill(j > i, float("-inf"))
-        dp = _mm(doh[..., i0:i0 + T, :],
-                 vh[..., j0:j0 + T, :].transpose(-1, -2), P)
+        dp = _mm_dk(doh[..., i0:i0 + T, :],
+                    vh[..., j0:j0 + T, :].transpose(-1, -2), P, dk)
         r = None if mask is None else mask[..., i0:i0 + T, j0:j0 + T]
         return s, dp if r is None else dp * r, r, live, win
 

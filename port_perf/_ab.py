@@ -47,14 +47,14 @@ def sha(tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def in_turns(script: str, other: str) -> list:
-    """[(who, root, result)] of ``script --one root`` for the other
-    checkout, this one, this one and the other, in that order."""
+def in_turns(script: str, other: str, extra=()) -> list:
+    """[(who, root, result)] of ``script --one root [extra ...]`` for the
+    other checkout, this one, this one and the other, in that order."""
     runs = []
     for who, root in (("other", other), ("this", HERE), ("this", HERE),
                       ("other", other)):
         r = subprocess.run([sys.executable, os.path.abspath(script), "--one",
-                            root], capture_output=True, text=True)
+                            root, *extra], capture_output=True, text=True)
         if r.returncode != 0:
             raise SystemExit(f"{root}: failed\n{r.stderr[-3000:]}")
         runs.append((who, root, json.loads(r.stdout.strip().splitlines()[-1])))
@@ -124,13 +124,14 @@ def build_variants(root: str, variants: dict, sources) -> dict:
 
 def main(script: str, one, report, keys, doc: str) -> None:
     """``script --one ROOT`` measures ROOT; ``script OTHER`` runs both
-    checkouts in turns, reports each run and then bit identity."""
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
+    checkouts in turns, reports each run and then bit identity.  Words
+    after OTHER pass on to each ``--one`` run (its ``sys.argv[3:]``)."""
+    if len(sys.argv) >= 3 and sys.argv[1] == "--one":
         one(sys.argv[2])
         return
-    if len(sys.argv) != 2:
+    if len(sys.argv) < 2:
         raise SystemExit(doc)
-    runs = in_turns(script, os.path.abspath(sys.argv[1]))
+    runs = in_turns(script, os.path.abspath(sys.argv[1]), sys.argv[2:])
     for who, root, result in runs:
         report(who, root, result)
     bit_identity(runs, keys)

@@ -9,7 +9,9 @@ sources at first use, each in a process of its own) in the order other,
 this, this, other, and prints, at every shape chip_smoke.py's train paths
 give K2 (K 12 heads, 8 attention heads; B, S and dk of the default path,
 the --sizeWindow 40960 --hiddenEncoder 512, 768, 200, 1056, --sizeWindow
-163840 and --hiddenEncoder 2048 paths), in bf16 and float32 at dropout
+163840, --hiddenEncoder 2048 and 4096 paths) and at chip_smoke's S 3700,
+dk 264 case (K 1, B 1, 2 heads; a call that takes seconds is timed once
+after the two that hash it), in bf16 and float32 at dropout
 rate 0.1 (the train step's), the device time a call
 (chip_smoke.median_ms) of the forward and the backward, the body each ran
 where the checkout has bodies, and a SHA-256 of each direction's outputs
@@ -22,14 +24,16 @@ from __future__ import annotations
 import json
 import os
 import sys
+import time
 
 import _ab
 from _ab import HERE, sha
-# (B, S, dk, path)
+# (B, S, dk, path[, K, heads])
 SHAPES = ((32, 116, 32, "default"), (8, 244, 64, "40960/512"),
           (32, 116, 96, "768"), (32, 116, 25, "200"),
           (32, 116, 132, "1056"), (4, 1012, 32, "163840"),
-          (4, 116, 256, "2048"))
+          (4, 116, 256, "2048"), (4, 116, 512, "4096"),
+          (1, 3700, 264, "S 3700", 1, 2))
 K, NH, RATE = 12, 8, 0.1
 
 
@@ -46,24 +50,28 @@ def one(root: str) -> None:
     dev = torch.device("cuda", 0)
     seed = torch.tensor([11], dtype=torch.int64, device=dev)
     out = {}
-    for B, S, dk, path in SHAPES:
+    for B, S, dk, path, *kh in SHAPES:
+        k, nh = kh or (K, NH)
         for dtype in (torch.bfloat16, torch.float32):
             g = torch.Generator(device=dev).manual_seed(7)
 
             def rand(*shape, scale=1.0):
                 return (torch.randn(shape, generator=g, device=dev)
                         * scale).to(dtype)
-            M, D = B * S, NH * dk
-            args = (rand(K, M, D), rand(K, M, D), rand(K, M, D),
-                    rand(K, dk, S, scale=0.5))
-            do = rand(K, M, D, scale=0.1)
-            fwd = lambda: ha.relpos_attention_fwd(*args, B, NH, RATE,  # noqa
+            M, D = B * S, nh * dk
+            args = (rand(k, M, D), rand(k, M, D), rand(k, M, D),
+                    rand(k, dk, S, scale=0.5))
+            do = rand(k, M, D, scale=0.1)
+            fwd = lambda: ha.relpos_attention_fwd(*args, B, nh, RATE,  # noqa
                                                   seed)
-            bwd = lambda: ha.relpos_attention_bwd(*args, do, B, NH,    # noqa
+            bwd = lambda: ha.relpos_attention_bwd(*args, do, B, nh,    # noqa
                                                   RATE, seed)
+            t0 = time.perf_counter()
             hashes = [(sha([fwd()]), sha(bwd())) for _ in range(2)]
-            row = {"fwd_ms": chip_smoke.median_ms(fwd),
-                   "bwd_ms": chip_smoke.median_ms(bwd),
+            slow = dict(warmup=0, reps=1) \
+                if time.perf_counter() - t0 > 2 else {}
+            row = {"fwd_ms": chip_smoke.median_ms(fwd, **slow),
+                   "bwd_ms": chip_smoke.median_ms(bwd, **slow),
                    "fwd_sha256": hashes[0][0], "bwd_sha256": hashes[0][1],
                    "rerun_same": hashes[0] == hashes[1]}
             if hasattr(ha, "fwd_body"):

@@ -7,7 +7,9 @@ Usage, from the root of a checkout:
 Runs this checkout's and OTHER_CHECKOUT's K5 (each built from its own
 sources at first use, each in a process of its own) in the order other,
 this, this, other, and prints, at N 256 (B 32 x 8 heads), S 128 and dk
-32, 64 and 128 in bf16 and dk 32 and 64 in float32, at dropout rate 0
+32, 64 and 128 in bf16 and dk 32 and 64 in float32, and at N 32 (B 4 x 8
+heads, the transformer's at --hiddenEncoder 2048 and 4096), S 128, dk 256
+and 512 in both, at dropout rate 0
 and 0.1, the device time a call (chip_smoke.median_ms) of the forward and
 the backward, a SHA-256 of each direction's outputs (then whether reruns
 and the two checkouts agree bit for bit), and in float32 the largest
@@ -26,7 +28,8 @@ import sys
 import _ab
 from _ab import HERE, sha
 CASES = (("bfloat16", 32), ("bfloat16", 64), ("bfloat16", 128),
-         ("float32", 32), ("float32", 64))
+         ("float32", 32), ("float32", 64), ("bfloat16", 256),
+         ("float32", 256), ("bfloat16", 512), ("float32", 512))
 
 
 def one(root: str) -> None:
@@ -45,7 +48,7 @@ def one(root: str) -> None:
     for dt, dk in CASES:
         dtype = getattr(torch, dt)
         g = torch.Generator(device=dev).manual_seed(7)
-        N, S = 256, 128
+        N, S = (32 if dk >= 256 else 256), 128
 
         def rand(*shape, scale=1.0):
             return (torch.randn(shape, generator=g, device=dev)

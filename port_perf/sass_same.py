@@ -7,7 +7,8 @@ Usage, from the root of a checkout (needs nvcc and cuobjdump, no GPU):
 
 Builds each source (by default layer_tail_tc.cu, attention_block_fwd.cu
 and attention_block_bwd.cu) of both checkouts into build/sass_same/ with
-the package's nvcc flags, disassembles the objects (cuobjdump -sass) and
+the package's nvcc flags (one nvcc process for each source and checkout,
+all started together), disassembles the objects (cuobjdump -sass) and
 prints, for each source, how many kernels each holds and which kernels'
 SASS differs (the instructions only: addresses, encodings, the file's own
 header and the hash an anonymous namespace's name carries are left
@@ -29,18 +30,26 @@ SOURCES = ("layer_tail_tc.cu", "attention_block_fwd.cu",
            "attention_block_bwd.cu")
 
 
-def kernels(root: str, source: str, out: str) -> dict:
-    """{kernel: its SASS instructions} of ``root``'s ``source``."""
+def compile_(root: str, source: str, out: str):
+    """(nvcc process, object path) building ``root``'s ``source`` in a
+    copy of its csrc/ at ``out``."""
     sys.path.insert(0, HERE)
     from cpc_audio_tpu_torch.ops import _build
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(os.path.join(root, SRC), out)
     obj = os.path.join(out, source + ".o")
-    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-c", "-o", obj,
-                        os.path.join(out, source)],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        raise SystemExit(f"{root}: nvcc failed\n{r.stderr[-3000:]}")
+    with open(obj + ".log", "w") as log:
+        return subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-c",
+                                 "-o", obj, os.path.join(out, source)],
+                                stdout=log, stderr=subprocess.STDOUT), obj
+
+
+def kernels(root: str, proc, obj: str) -> dict:
+    """{kernel: its SASS instructions} of the object ``proc`` builds."""
+    from cpc_audio_tpu_torch.ops import _build
+    if proc.wait() != 0:
+        with open(obj + ".log") as log:
+            raise SystemExit(f"{root}: nvcc failed\n{log.read()[-3000:]}")
     dump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([dump, "-sass", obj], capture_output=True,
                           text=True, check=True).stdout
@@ -57,11 +66,14 @@ def main() -> None:
     if len(sys.argv) < 2:
         raise SystemExit(__doc__)
     other = os.path.abspath(sys.argv[1])
-    for source in sys.argv[2:] or SOURCES:
-        mine = kernels(HERE, source, os.path.join(HERE, "build", "sass_same",
-                                                  "this"))
-        theirs = kernels(other, source, os.path.join(HERE, "build",
-                                                     "sass_same", "other"))
+    sources = sys.argv[2:] or SOURCES
+    builds = {(source, who): (root, *compile_(
+        root, source, os.path.join(HERE, "build", "sass_same", source, who)))
+        for source in sources
+        for who, root in (("this", HERE), ("other", other))}
+    for source in sources:
+        mine, theirs = (kernels(*builds[(source, who)])
+                        for who in ("this", "other"))
         differ = sorted(k for k in set(mine) | set(theirs)
                         if mine.get(k) != theirs.get(k))
         print(f"{source}: {len(mine)} kernels here, {len(theirs)} in the "

@@ -5,7 +5,11 @@ CPC_PALLAS_CONV=1: K6 in the heads, K7 in encoder layers 1-4) in bf16 and
 float32, and the default LSTM in float32 (the CLIs' default dtype).
 
 Usage, from the root of a checkout:
-    python3 port_perf/train_step_ab.py OTHER_CHECKOUT
+    python3 port_perf/train_step_ab.py OTHER_CHECKOUT [wide]
+
+With ``wide``, the transformer at --hiddenEncoder 4096 --hiddenGar 4096
+in bf16 and float32 instead (chip_smoke's long and wide paths' B 4: the
+AR's K5 and the heads' K2 at dk 512).
 
 Runs this checkout's and OTHER_CHECKOUT's steps (each built from its own
 sources at first use, each checkout's steps in a process of their own) in
@@ -35,6 +39,9 @@ from _ab import HERE
 CASES = (("LSTM", "bfloat16"), ("GRU", "bfloat16"),
          ("transformer", "bfloat16"), ("LSTM fused", "bfloat16"),
          ("LSTM fused", "float32"), ("LSTM", "float32"))
+# ``wide``: (path, dtype) at B 4
+WIDE = (("transformer 4096", "bfloat16"),
+        ("transformer 4096 float32", "float32"))
 # kernel-name fragments (lower case) of K2's launches; on the fused path
 # they are K6's, beside its GEMMs and splits ("k6::") or the first body's
 # kernels ("attention_block")
@@ -69,11 +76,13 @@ def one(root: str) -> None:
                          f"{root}'s")
     dev = torch.device("cuda", 0)
     out = {}
-    for path, dtype in CASES:
+    wide = sys.argv[3:] == ["wide"]
+    B = 4 if wide else 32
+    for path, dtype in WIDE if wide else CASES:
         model, crit = chip_smoke.build(path, dtype,
                                        torch.Generator().manual_seed(1))
         step, batch, key = chip_smoke.train_setup(model.to(dev),
-                                                  crit.to(dev), dev)
+                                                  crit.to(dev), dev, B)
         times = []
         for i in range(12):
             t0 = time.perf_counter()
@@ -101,7 +110,7 @@ def one(root: str) -> None:
             groups[group] += e.self_device_time_total / 1e3 / n
         device_ms = sum(groups.values())
         out[f"{path} {dtype}"] = {
-            "windows_s": 32e3 / step_ms, "step_ms": step_ms,
+            "windows_s": B * 1e3 / step_ms, "step_ms": step_ms,
             "device_ms": device_ms, "busy": device_ms / step_ms,
             "launches": sum(e.count for e in rows) // n, "groups": groups}
         del model, crit, step, batch, key, prof
@@ -120,7 +129,7 @@ def report(who: str, root: str, res: dict) -> None:
 
 def main() -> None:
     _ab.main(__file__, one, report, (), __doc__)
-    if len(sys.argv) == 2:      # the card the runs above took
+    if len(sys.argv) >= 2 and sys.argv[1] != "--one":   # the runs' card
         sys.path.insert(0, HERE)
         import chip_smoke  # noqa: E402
         print(chip_smoke.gpu_line(), flush=True)

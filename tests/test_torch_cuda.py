@@ -218,12 +218,13 @@ def test_relpos_attention_bwd_kernel(dev, dtype, S, dk, rate):
 
 @pytest.mark.parametrize("rate", RATES)
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("dk", [25, 32, 64, 96, 132, 256])
+@pytest.mark.parametrize("dk", [25, 32, 64, 96, 132, 256, 264, 512])
 @pytest.mark.parametrize("S", [1, 7, 116, 244, 1012, 1024])
 def test_relpos_attention_tc_body(dev, S, dk, dtype, rate):
     """The tensor-core body (csrc/relpos_attention_tc_*.cu) at every S up
     to 1024 it takes, down to one row and a ragged tile, and every dk
-    class (25: copied to aligned planes; 96, 132: padded to DKP 128, 256):
+    class (25: copied to aligned planes; 96, 132: padded to DKP 128, 256;
+    264, 512: DKP 512, 16-row tiles, each warp's quarter of dk summed):
     forward and backward against the plain versions, on K 2 x B 3 x h 2
     heads of several query tiles, each call under its body's count and
     bit-identical when run again."""
@@ -264,17 +265,19 @@ def test_relpos_attention_tc_body(dev, S, dk, dtype, rate):
 def test_relpos_attention_bodies_mirror_the_kernels(dev, dtype):
     """The pure choice of body (ops/head_attention.py fwd_body / bwd_body,
     no card needed) is the C library's (cpc_relpos_attention_{fwd,bwd}_body),
-    and past dk 256 the rows bodies run, against the plain versions."""
+    and past dk 512 the rows bodies run, against the plain versions."""
     from cpc_audio_tpu_torch.ops import _build
     lib, code = _build.library(), _build.DTYPE_CODES[dtype]
     codes = head_attention.BODY_CODES
     for S in (1, 7, 116, 244, 1012, 1024, 2048, 3700, 4084, 4096):
-        for dk in (1, 25, 32, 64, 96, 132, 256, 257, 264, 512):
+        for dk in (1, 25, 32, 64, 96, 132, 256, 257, 264, 512, 513, 520,
+                   1024):
             assert lib.cpc_relpos_attention_fwd_body(S, dk, code) == \
                 codes[head_attention.fwd_body(S, dk, dtype)], (S, dk)
             assert lib.cpc_relpos_attention_bwd_body(S, dk, code) == \
                 codes[head_attention.bwd_body(S, dk, dtype)], (S, dk)
-    S, dk, K, B, h = 20, 264, 2, 3, 2
+    S, dk, K, B, h = 20, 520, 2, 3, 2
+    assert head_attention.fwd_body(S, dk, dtype) == "rows"
     rng = np.random.RandomState(11)
     args = [_rand(rng, dev, dtype, K, B * S, h * dk) for _ in range(3)]
     args.append(_rand(rng, dev, dtype, K, dk, S, scale=0.5))
@@ -299,11 +302,13 @@ def test_relpos_attention_bodies_mirror_the_kernels(dev, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("S,dk,K,B,h", [(2048, 32, 2, 1, 8),
                                         (4084, 32, 1, 1, 8),
-                                        (3700, 264, 1, 1, 2)])
+                                        (3700, 264, 1, 1, 2),
+                                        (3700, 520, 1, 1, 2)])
 def test_relpos_attention_long_windows(dev, dtype, S, dk, K, B, h):
     """K2 past the S 1024 it once stopped at, at rate 0.1 (the train
     step's): the tensor-core body at S 2048 and at the heads' S 4084 of
-    --sizeWindow 655360 (dk 32), and the rows body at dk 264 past S 3632,
+    --sizeWindow 655360 (dk 32) and at S 3700, dk 264 (DKP 512), and the
+    rows body at dk 520 past S 3632,
     where its backward's rows leave shared memory for the device-memory
     scratch after the tiles: forward and backward against the plain
     versions (on fewer heads than the train step's, for the plain
@@ -317,7 +322,7 @@ def test_relpos_attention_long_windows(dev, dtype, S, dk, K, B, h):
     seed = _seed(dev)
     body = head_attention.fwd_body(S, dk, dtype)
     assert body == head_attention.bwd_body(S, dk, dtype) == (
-        "tc" if dk <= 256 else "rows")
+        "tc" if dk <= 512 else "rows")
     if body == "rows":     # tiles and rows in the scratch
         code = _build.DTYPE_CODES[dtype]
         el = 2 if dtype == torch.bfloat16 else 4
@@ -350,13 +355,13 @@ def test_relpos_attention_long_windows(dev, dtype, S, dk, K, B, h):
 def test_relpos_attention_bwd_walks_blocks_in_chunks(dev, dtype,
                                                      monkeypatch):
     """With TILE_BUDGET at one (k, b) row of heads' (S, S) tiles, at two
-    and a bit, and at one k's rows, the rows body's backward (dk past 256,
+    and a bit, and at one k's rows, the rows body's backward (dk past 512,
     the tensor-core body's range) walks its blocks one row, two rows (a
     ragged last chunk of b) or one k a launch through that much scratch,
     and gives the bits of the call that holds every block's tiles at
     once."""
     from cpc_audio_tpu_torch.ops import _build
-    S, dk, K, B, h = 116, 264, 2, 3, 2    # device-memory tiles, both dtypes
+    S, dk, K, B, h = 116, 520, 2, 3, 2    # device-memory tiles, both dtypes
     assert head_attention.bwd_body(S, dk, dtype) == "rows"
     rng = np.random.RandomState(7)
     args = [_rand(rng, dev, dtype, K, B * S, h * dk) for _ in range(3)]

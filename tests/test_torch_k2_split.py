@@ -38,9 +38,12 @@ BF16_BWD_REL = 2e-2
 
 # (K, B, h, S, dk): S 7 and 65 end in a ragged tile (and S 7 < T reads a
 # window that starts below column 0); 116, 244 and 1012 are the heads'
-# anchors at --sizeWindow 20480, 40960 and 163840
+# anchors at --sizeWindow 20480, 40960 and 163840; dk 512 and 264 run the
+# DKP 512 tiles (16 rows, the products over dk by quarters; 264 leaves the
+# last quarter empty), S 130 ending in a ragged tile
 SHAPES = [(2, 2, 2, 7, 32), (2, 2, 2, 65, 25), (2, 2, 2, 116, 32),
-          (2, 2, 2, 116, 64), (1, 2, 2, 244, 32), (1, 1, 1, 1012, 32)]
+          (2, 2, 2, 116, 64), (1, 2, 2, 244, 32), (1, 1, 1, 1012, 32),
+          (1, 1, 1, 40, 512), (1, 2, 1, 130, 264)]
 
 
 def _inputs(K, B, h, S, dk, seed):
@@ -124,7 +127,8 @@ def test_split_backward_matches_float64_and_pallas_vjp(K, B, h, S, dk):
         assert _rel(g, j) <= BWD_REL / 10, (name, _rel(g, j))
 
 
-@pytest.mark.parametrize("K,B,h,S,dk", SHAPES[:4] + [(1, 1, 1, 1012, 32)])
+@pytest.mark.parametrize("K,B,h,S,dk", SHAPES[:4] + [(1, 1, 1, 1012, 32),
+                                                     (1, 1, 1, 40, 512)])
 def test_split_with_dropout_matches_float64(K, B, h, S, dk):
     """At rate 0.1 (the train step's; the TPU's bits are not reproduced,
     so against float64 math only, with the same seed): the forward within
@@ -221,28 +225,29 @@ def test_windows_hold_the_skewed_columns(S, T):
 
 # the (S, dk) of K2 on chip_smoke's train paths and kernel phase: the
 # default, --sizeWindow 40960 --hiddenEncoder 512, 768, 200, 1056,
-# --sizeWindow 163840 and 2048
+# --sizeWindow 163840, 2048 and 4096, and the long-window case at dk 264
 CHIP_SHAPES = [(116, 32), (244, 64), (116, 96), (116, 25), (116, 132),
-               (1012, 32), (116, 256)]
+               (1012, 32), (116, 256), (116, 512), (3700, 264)]
 
 
 def test_bodies_by_shape():
     """The tensor-core body at every shape chip_smoke runs and every
-    S <= 4096, dk <= 256, in both dtypes; the rows body past dk 256 (past
-    --hiddenEncoder 2048), whose range `supported` keeps as it was, to S
+    S <= 4096, dk <= 512, in both dtypes; the rows body past dk 512 (past
+    --hiddenEncoder 4096), whose range `supported` keeps as it was, to S
     4096 too; the tiles are K5's (64 rows, 32 past 128 bf16 planes'
-    values a row)."""
+    values a row, 16 past dk 256)."""
     for dt in (torch.float32, torch.bfloat16):
         for S, dk in CHIP_SHAPES + [(1, 1), (1024, 256), (7, 33), (65, 16),
-                                    (2048, 32), (4084, 32), (4096, 256)]:
+                                    (2048, 32), (4084, 32), (4096, 256),
+                                    (116, 257), (116, 264), (4096, 512)]:
             assert ha.fwd_body(S, dk, dt) == ha.bwd_body(S, dk, dt) == "tc"
-        for dk in (257, 264, 512):
+        for dk in (520, 1024):
             assert ha.supported(116, dk) is None
             assert ha.fwd_body(116, dk, dt) == ha.bwd_body(116, dk, dt) \
                 == "rows"
     assert ha.supported(1024, 4096) is None
     assert ha.supported(4096, 4096) is None
-    assert ha.fwd_body(3700, 264, torch.float32) == "rows"
+    assert ha.fwd_body(3700, 520, torch.float32) == "rows"
     assert ha.supported(4097, 32) is not None
     assert ha.BODY_CODES == {"rows": 0, "tc": 1}
     f32, bf = torch.float32, torch.bfloat16
@@ -250,3 +255,5 @@ def test_bodies_by_shape():
     assert ha.tile_rows(64, f32) == ha.tile_rows(256, bf) == 32
     assert ha.tile_rows(64, f32, backward=True) == 64
     assert ha.tile_rows(96, f32, backward=True) == 32
+    assert ha.tile_rows(512, f32) == ha.tile_rows(512, bf) \
+        == ha.tile_rows(264, f32, backward=True) == 16

@@ -51,7 +51,11 @@ def _rel(got, want):
             / torch.as_tensor(np.asarray(want)).double().norm()).item()
 
 
-CASES = [(8, 16, 32), (8, 60, 32), (8, 128, 32), (8, 128, 64)]
+# (N, S, dk; N a multiple of the JAX kernel's 8 rows a step): S 60 ends
+# in a ragged tile; dk 512 and 264 run the DKP 512
+# tiles (16 rows, q . k^T and do . v^T by quarters of dk)
+CASES = [(8, 16, 32), (8, 60, 32), (8, 128, 32), (8, 128, 64), (8, 40, 512),
+         (8, 36, 264)]
 
 
 @pytest.mark.parametrize("N,S,dk", CASES)
