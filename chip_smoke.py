@@ -36,10 +36,11 @@ Phases (any failure exits non-zero):
      build_features_batched runs it, B 8 / T 400 without residuals
      (beside cuDNN's LSTM under inference_mode), and on their rows
      bodies at the --hiddenGar 200 widths (K1 at H 200, K4 at 224), both
-     dtypes; every K1 / K4 case on a cluster or grid body reruns
-     bit-identically, and its float32 bound counts the 3 bf16 split
-     products a product takes there (but for the 8-CTA backward at H <=
-     256 and the rows bodies, exact float32: the FP32 cores);
+     dtypes; every K1 / K4 case on a cluster, grid or resident body
+     reruns bit-identically, and its float32 bound counts the 3 bf16
+     split products a product takes there (but for the 8-CTA backward at
+     H <= 256, the rows bodies and K4's resident forward, exact float32:
+     the FP32 cores);
      K8
      also with all keys on one row (bf16), and the
      time of its whole wrapper (sort + searchsorted + K8); K3's forward
@@ -132,15 +133,16 @@ Phases (any failure exits non-zero):
      and LSTM and GRU models at --hiddenGar 4096 (B = 4; K1's and K4's
      grid bodies); then the long-window and wide shapes
      (phase_long_and_wide): K2's tensor-core body at S 2048 and 4084, at
-     dk 512 (K 12 x B 4, S 116) and at S 3700 / dk 264 (DKP 512), its rows
-     body past dk 512 at S 116 / dk 520 and S 3700 / dk 520, K5 at S 4096
+     dk 512 (K 12 x B 4, S 116) and at S 3700 / dk 264 (DKP 512), its
+     cluster body past dk 512 at S 116 / dk 520 and 1024 and S 3700 / dk
+     520, K5 at S 4096
      and dk 512, K1 and K4 at H 8192, forward and backward in both dtypes
      against their plain versions, K5 beside SDPA and K1 / K4 beside cuDNN
      in turns; the default model and the transformer AR at --sizeWindow
      655360 and the transformer at --hiddenEncoder 4096 --hiddenGar 4096
      (its heads' K2 on the tensor-core body), B = 4, 2 + 4 steps in both
      dtypes, and the default model at --hiddenEncoder 4160 --hiddenGar
-     4160 in bf16 (the heads' K2 on its rows body at dk 520) (losses
+     4160 in bf16 (the heads' K2 on its cluster body at dk 520) (losses
      falling, every K2 and K5 call at the path's (S, dk)), and LSTM and
      GRU models alone at --hiddenGar 8192
      (Adam at 2e-4, the float32 step against the CPU); then two exact
@@ -208,7 +210,8 @@ Phases (any failure exits non-zero):
      phone-labelled tree the script writes (gate_tree: its JSON line and
      an exit code that agrees with it; the JAX package's gate does not
      clear the margin on that tree either, so the margin waits for the
-     reference fixture; K4 at B 8 / T 32 / H 64 on its rows bodies);
+     reference fixture; K4 at B 8 / T 32 / H 64, its forward on the
+     resident body, its backward on the rows body);
      phase 3 also holds K1 and K4 at those three shapes (VARIANT_SHAPES), forward with
      residuals and backward, in both dtypes, beside cuDNN in turns;
   6e. the multi-rank step (phase_ranks, after phase_variants): (a) the
@@ -569,8 +572,9 @@ def kernel_cases(dev: torch.device, dtype: torch.dtype, B: int = 32):
     cases += w768_cases(rand, dev, seed, B)
     cases += width_cases(rand, dev, seed, dtype, B)
     cases += recurrent_cases(rand, dev, GRID_SHAPES)
-    cases += recurrent_cases(rand, dev, CLUSTER_FWD_SHAPES + ROWS_FWD_SHAPES,
-                             backward=False)
+    cases += recurrent_cases(rand, dev, CLUSTER_FWD_SHAPES, backward=False)
+    # the rows bodies at the --hiddenGar 200 widths, both directions
+    cases += recurrent_cases(rand, dev, ROWS_FWD_SHAPES)
     cases += features_cases(rand)
     cases += eval_cases(rand, dev)
     cases += variant_cases(rand, dev)
@@ -787,11 +791,15 @@ def repair_cases(rand, dev: torch.device, seed, dtype: torch.dtype,
 GRID_SHAPES = (("lstm", 32, 128, 1056), ("gru", 32, 128, 512))
 # the cluster forward at H 128 (8 CTAs; the --hiddenGar 100 GRU model's K4
 # width) and at build_feature's B 1 / T 400 (every case's h0 and c0 are
-# non-zero); the rows forward at the --hiddenGar 200 widths (K4 pads 200 to
-# 224), whose bf16 times are the JSON line's rows entries
+# non-zero); the rows bodies at the --hiddenGar 200 widths (K4 pads 200 to
+# 224), forward and backward, whose bf16 forward times are the JSON line's
+# rows entries
 CLUSTER_FWD_SHAPES = (("lstm", 32, 128, 128), ("gru", 32, 128, 128),
                       ("lstm", 1, 400, 256), ("gru", 1, 400, 256))
 ROWS_FWD_SHAPES = (("lstm", 32, 128, 200), ("gru", 32, 128, 224))
+# K4's resident forward at the learning gate's shape (VARIANT_SHAPES'
+# "gate" case), the JSON line's gru_fwd_resident entry
+RESIDENT_FWD_SHAPES = (("gru", 8, 32, 64),)
 # the H where each recurrence case's body is read (the index of w_hh among
 # its inputs)
 W_HH_AT = {"lstm_fwd": 1, "lstm_bwd": 4, "gru_fwd": 1, "gru_bwd": 5}
@@ -885,8 +893,8 @@ def eval_cases(rand, dev: torch.device):
 # K1 and K4 at the variant paths' shapes (phase_variants): the --rnnMode
 # LSTM heads' K1 over the W = 116 anchors at H = hiddenEncoder 256, the
 # bidirectional ARs' K4 at H = hiddenGar / 2 = 128, and the learning
-# gate's GRU AR (--hiddenGar 64, --sizeWindow 5120, batch 8), its K4 on the
-# rows body
+# gate's GRU AR (--hiddenGar 64, --sizeWindow 5120, batch 8), its K4
+# forward on the resident body, its backward on the rows body
 VARIANT_SHAPES = (("heads", "lstm", 32, 116, 256),
                   ("bidir", "gru", 32, 128, 128),
                   ("gate", "gru", 8, 32, 64))
@@ -922,8 +930,8 @@ def variant_cases(rand, dev: torch.device):
 
 
 def recurrent_body(case: Case, dtype: torch.dtype):
-    """The body a K1 / K4 case runs ("rows", "cluster" or "grid"), or None
-    for the other kernels."""
+    """The body a K1 / K4 case runs ("rows", "cluster", "grid" or, K4's
+    forward, "resident"), or None for the other kernels."""
     if case.name not in W_HH_AT:
         return None
     from cpc_audio_tpu_torch.ops import gru, lstm
@@ -1124,8 +1132,8 @@ SOURCES = {
                  "cpc_audio_tpu/ops/pallas/rnn.py:67"),
     "lstm_bwd": ("cpc_audio_tpu_torch/csrc/lstm_bwd.cu",
                  "cpc_audio_tpu/ops/pallas/rnn.py:97"),
-    # K2: the tensor-core body every path runs (dk <= 256); the rows
-    # bodies past dk 256 stay in csrc/relpos_attention_{fwd,bwd}.cu
+    # K2: the tensor-core body every default-width path runs; past dk 512
+    # its cluster body on the same kernels (the *_cluster entries)
     "relpos_attention_fwd": (
         "cpc_audio_tpu_torch/csrc/relpos_attention_tc_fwd.cu",
         "cpc_audio_tpu/ops/pallas/head_attention.py:114"),
@@ -1195,7 +1203,8 @@ SOURCES = {
                                                   ("bwd", ""))},
     # K1 and K4 at the variant paths' shapes (VARIANT_SHAPES): the LSTM
     # heads' K1 and the bidirectional ARs' K4 on their cluster bodies, the
-    # learning gate's K4 on its rows bodies
+    # learning gate's K4 forward on its resident body (also the
+    # gru_fwd_resident entry), its backward on the rows body
     "lstm_fwd_heads": ("cpc_audio_tpu_torch/csrc/rnn_cluster_fwd.cuh",
                        "cpc_audio_tpu/ops/pallas/rnn.py:67"),
     "lstm_bwd_heads": ("cpc_audio_tpu_torch/csrc/lstm_bwd.cu",
@@ -1206,13 +1215,15 @@ SOURCES = {
                       "cpc_audio_tpu/ops/pallas/rnn.py:265"),
     "gru_fwd_gate": ("cpc_audio_tpu_torch/csrc/gru_fwd.cu",
                      "cpc_audio_tpu/ops/pallas/rnn.py:238"),
+    "gru_fwd_resident": ("cpc_audio_tpu_torch/csrc/gru_fwd.cu",
+                         "cpc_audio_tpu/ops/pallas/rnn.py:238"),
     "gru_bwd_gate": ("cpc_audio_tpu_torch/csrc/gru_bwd.cu",
                      "cpc_audio_tpu/ops/pallas/rnn.py:265"),
     # the long-window and wide shapes (phase_long_and_wide): K2's
     # tensor-core body at the heads' S 4084 (--sizeWindow 655360), at dk
     # 512 (--hiddenEncoder 4096) and at S 3700 / dk 264 (its DKP-512
     # kernels at a long window; their launches are the 4096 path's), and
-    # its rows body past dk 512 (--hiddenEncoder 4160, dk 520), K5 at S
+    # its cluster body past dk 512 (--hiddenEncoder 4160, dk 520), K5 at S
     # 4096 and dk 512, K1's and K4's grid bodies at --hiddenGar 8192
     "relpos_attention_fwd_s4084": (
         "cpc_audio_tpu_torch/csrc/relpos_attention_tc_fwd.cu",
@@ -1225,12 +1236,11 @@ SOURCES = {
         "cpc_audio_tpu/ops/pallas/head_attention.py:" + ("114" if d == "fwd"
                                                         else "158"))
        for tag in ("dk512", "s3700") for d in ("fwd", "bwd")},
-    "relpos_attention_fwd_rows": (
-        "cpc_audio_tpu_torch/csrc/relpos_attention_fwd.cu",
-        "cpc_audio_tpu/ops/pallas/head_attention.py:114"),
-    "relpos_attention_bwd_rows": (
-        "cpc_audio_tpu_torch/csrc/relpos_attention_bwd.cu",
-        "cpc_audio_tpu/ops/pallas/head_attention.py:158"),
+    **{f"relpos_attention_{d}_cluster": (
+        f"cpc_audio_tpu_torch/csrc/relpos_attention_tc_{d}.cu",
+        "cpc_audio_tpu/ops/pallas/head_attention.py:" + ("114" if d == "fwd"
+                                                        else "158"))
+       for d in ("fwd", "bwd")},
     **{f"causal_attention_{d}_{tag}": (
         f"cpc_audio_tpu_torch/csrc/causal_attention_{d}.cu",
         "cpc_audio_tpu/ops/pallas/attention.py:" + ("81" if d == "fwd"
@@ -1277,9 +1287,9 @@ def recurrent_split(case: Case, dtype: torch.dtype):
     """The bf16 products a float32 product of K1 or K4 takes on the body
     the case runs: 3 (h or dgates as bf16 hi + lo against W_hh's two bf16
     planes) on the cluster and grid bodies, None (exact float32 FMAs) on
-    the rows bodies and the 8-CTA backward at H <= 256."""
+    the rows and resident bodies and the 8-CTA backward at H <= 256."""
     body = recurrent_body(case, dtype)
-    if body is None or body == "rows":
+    if body is None or body in ("rows", "resident"):
         return None
     H = case.inputs[W_HH_AT[case.name]].shape[1]
     if case.name.endswith("_bwd") and body == "cluster" and H <= 256:
@@ -1812,11 +1822,11 @@ def rerun_and_launches(case: Case, ms: float, dtype: torch.dtype,
 
 
 def recurrent_rerun(case: Case, body: str) -> None:
-    """A K1 / K4 case's body; on the cluster and grid bodies a rerun must
-    be bit-identical to the first call (fixed-order sums, no atomics on
-    values)."""
+    """A K1 / K4 case's body; on the cluster, grid and resident bodies a
+    rerun must be bit-identical to the first call (fixed-order sums, no
+    atomics on values)."""
     line = f"  {case.label}: {body} body"
-    if body in ("cluster", "grid"):
+    if body in ("cluster", "grid", "resident"):
         first, again = _tensors(case.kernel()), _tensors(case.kernel())
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(first, again)):
@@ -1875,7 +1885,8 @@ def phase_kernels(dev: torch.device, B: int = 32) -> dict:
             if body is not None:
                 recurrent_rerun(case, body)
             for shapes, own in ((GRID_SHAPES, "grid"),
-                                (ROWS_FWD_SHAPES, "rows")):
+                                (ROWS_FWD_SHAPES, "rows"),
+                                (RESIDENT_FWD_SHAPES, "resident")):
                 if body == own and reported and \
                         case.shape in [f"B {B} / T {T} / H {H}"
                                        for _, B, T, H in shapes]:
@@ -1947,6 +1958,9 @@ def phase_kernels(dev: torch.device, B: int = 32) -> dict:
         for d in ("fwd", "bwd"):
             results[f"{kind}_{d}_{tag}"]["library_ms"] = cudnn_ms[
                 (f"{kind}_{d}", B_, H, torch.bfloat16)]
+    for kind, B_, T, H in RESIDENT_FWD_SHAPES:
+        results[f"{kind}_fwd_resident"]["library_ms"] = \
+            results[f"{kind}_fwd_gate"]["library_ms"]
     long_causal_yardsticks(dev)
     conv_composition_times(dev, B)
     block_composition_times(dev, B)
@@ -2200,7 +2214,7 @@ T163840 = "transformer 163840 float32"   # --sizeWindow 163840
 # over them (K5 at S 4096) and at --hiddenEncoder 4096 (K5 and the heads'
 # K2 at dk 512, on their DKP-512 tensor-core bodies), each in both dtypes;
 # the default model at --hiddenEncoder 4160 (the heads' K2 past dk 512, on
-# its rows body at dk 520; K1 on its grid body at H 4160), bf16
+# its cluster body at dk 520; K1 on its grid body at H 4160), bf16
 L655 = "LSTM 655360"                 # --sizeWindow 655360
 L655F = "LSTM 655360 float32"
 T655 = "transformer 655360"          # --arMode transformer --sizeWindow ..
@@ -2280,9 +2294,9 @@ FWD_BODY = {"LSTM": "cluster", FUSED: "cluster", EXACT: "cluster",
             F512: "cluster", F768: "cluster", W200: "rows", W1056: "grid",
             "GRU": "cluster", G512: "grid", L655: "cluster",
             L655F: "cluster", L4160: "grid"}
-# K2's body where a path leaves the tensor-core one: the rows body past dk
-# 512 (the heads of --hiddenEncoder 4160, dk 520)
-K2_BODY = {L4160: "rows"}
+# K2's body where a path leaves the tensor-core one: the cluster body past
+# dk 512 (the heads of --hiddenEncoder 4160, dk 520, on two CTAs a tile)
+K2_BODY = {L4160: "cluster"}
 # launches a step, where a path fixes them: on the fused path K2 must not
 # run at all; on the exact path K8 runs once, in the backward
 PER_STEP = {FUSED: {"attention_block_fwd": 1, "attention_block_bwd": 1,
@@ -2558,8 +2572,8 @@ def phase_train(dev: torch.device, path: str = "LSTM", B: int = 32,
         check_body(fns, path, n, FWD_BODY[path],
                    "gru_fwd" if path.startswith("GRU") else "lstm_fwd")
     if "relpos_attention_fwd" in PATH_KERNELS[path]:
-        # K2 on its tensor-core body (K2_BODY: the rows body), once a step
-        # in each direction
+        # K2 on its tensor-core body (K2_BODY: the cluster body), once a
+        # step in each direction
         for name in ("relpos_attention_fwd", "relpos_attention_bwd"):
             check_body(fns, path, n, K2_BODY.get(path, "tc"), name)
 
@@ -4486,8 +4500,9 @@ def phase_gate(tmp: str, dev: torch.device) -> dict:
     """The learning gate (``cpc_audio_tpu_torch.eval.learning_gate``) at
     its defaults on the card, over gate_tree: its JSON line and an exit
     code that agrees with its ``ok``, a CPC loss that fell over its epochs,
-    its K4 at the GRU AR's B 8 / T 32 / H 64 forward (with residuals) and
-    backward, on its rows bodies.  Returns K4's launches there."""
+    its K4 at the GRU AR's B 8 / T 32 / H 64 forward (with residuals) on
+    its resident body and backward on its rows body.  Returns K4's
+    launches there."""
     from cpc_audio_tpu_torch.eval import learning_gate
     root = os.path.join(tmp, "gate")
     phones = gate_tree(os.path.join(root, "db"))
@@ -4542,9 +4557,10 @@ def phase_gate(tmp: str, dev: torch.device) -> dict:
           f"{dict(Counter(calls['bwd']))}; bodies forward "
           f"{dict(fns['gru_fwd'].body_launches)}, backward "
           f"{dict(fns['gru_bwd'].body_launches)}", flush=True)
-    for kernel in ("gru_fwd", "gru_bwd"):
+    got["gru_fwd_resident"] = fns["gru_fwd"].body_launches["resident"]
+    for kernel, want in (("gru_fwd", "resident"), ("gru_bwd", "rows")):
         body = dict(fns[kernel].body_launches)
-        if body["rows"] != fns[kernel].launches or \
+        if body[want] != fns[kernel].launches or \
                 len(calls[kernel[4:]]) != fns[kernel].launches:
             fail(f"the learning gate ran {kernel}'s bodies {body}, "
                  f"{len(calls[kernel[4:]])} calls recorded")
@@ -5027,11 +5043,13 @@ def long_wide_train(dev: torch.device, path: str) -> dict:
 # would take 25.6 GB each: S 2048 and the heads' 4084 on the tensor-core
 # body, and S 3700 at dk 264 on its DKP-512 tiles; the tensor-core body at
 # the --hiddenEncoder 4096 path's shape (S 116, dk 512, K 12, B 4); the
-# rows body past dk 512 at the --hiddenEncoder 4160 path's shape (S 116,
-# dk 520) and past S 3632 (its backward's rows in the scratch)
+# cluster body past dk 512 at the --hiddenEncoder 4160 path's shape (S 116,
+# dk 520: two CTAs a tile, the second's 8 columns on one warp), at dk 1024
+# (two whole slabs) and at S 3700 / dk 520
 LONG_WIDE_K2 = ((2048, 32, 2, 1, 8), (4084, 32, 1, 1, 8),
                 (3700, 264, 1, 1, 2), (116, 512, 12, 4, 8),
-                (116, 520, 12, 4, 8), (3700, 520, 1, 1, 2))
+                (116, 520, 12, 4, 8), (116, 1024, 4, 4, 8),
+                (3700, 520, 1, 1, 2))
 # K5's: the AR at --sizeWindow 655360 (N = 4 x 8 rows of S 4096, dk 32)
 # and at --hiddenEncoder 4096 (S 128, dk 512); K1's and K4's at
 # --hiddenGar 8192 (B 4, T 128: the grid bodies, W_hh streamed)
@@ -5048,12 +5066,9 @@ def long_wide_cases(dev: torch.device, dtype: torch.dtype) -> list:
         return (torch.randn(shape, generator=g, device=dev) * scale).to(dt)
     seed = torch.tensor([SEED], dtype=torch.int64, device=dev)
     cases = []
-    from cpc_audio_tpu_torch.ops import head_attention as ha
     for S, dk, K, B, h in LONG_WIDE_K2:
         for case in relpos_cases(rand, seed, B, S, dk, K, h):
             case.label += f" (K {K}, B {B}, {h} heads)"
-            if ha.fwd_body(S, dk, dtype) == "rows":   # float32 on its own
-                case.split = None                      # cores
             cases.append(case)
     for N, S, dk in LONG_WIDE_K5:
         cases += causal_cases(rand, seed, N, S, dk, f"S {S} / dk {dk}")
@@ -5063,10 +5078,8 @@ def long_wide_cases(dev: torch.device, dtype: torch.dtype) -> list:
 def check_case(case: Case, dtype: torch.dtype) -> dict:
     """One case against its plain version under TOLERANCE, then the
     kernel's and the plain version's device time a call (the median of
-    two runs; one call, after the one that checked it, where a call takes
-    seconds: the rows body at S 3700), the kernel's bound; a K2 / K5 case
-    (but such a slow one) rerun bit-identically, and a K1 / K4 case's grid
-    body."""
+    two runs), the kernel's bound; a K2 / K5 case rerun bit-identically,
+    and a K1 / K4 case's grid body."""
     name = case.name
     got, want = case.kernel(), case.plain()
     torch.cuda.synchronize()
@@ -5082,21 +5095,15 @@ def check_case(case: Case, dtype: torch.dtype) -> dict:
         err = max(compare(f"{case.label} out {i}", gi, wi, atol, rtol, why)
                   for i, (gi, wi) in enumerate(zip(got, want)))
     del want
-    slow = False
-    if name.startswith("relpos"):
-        from cpc_audio_tpu_torch.ops import head_attention as ha
-        dk, S = case.inputs[3].shape[1:]
-        slow = ha.fwd_body(S, dk, dtype) == "rows" and S > 1024
-    if name.startswith(("relpos", "causal")) and not slow:
+    if name.startswith(("relpos", "causal")):
         again = _tensors(case.kernel())
         if not all(torch.equal(a, g) for a, g in zip(again, got)):
             fail(f"{case.label}: a rerun differs from the first run")
         print(f"  {case.label}: a rerun bit-identical", flush=True)
         del again
     del got
-    timing = dict(warmup=0, reps=1) if slow else dict(reps=2)
-    ms = median_ms(case.kernel, **timing)
-    plain_ms = median_ms(case.plain, **timing)
+    ms = median_ms(case.kernel, reps=2)
+    plain_ms = median_ms(case.plain, reps=2)
     body = recurrent_body(case, dtype)
     if body is not None:
         recurrent_rerun(case, body)
@@ -5121,8 +5128,10 @@ LONG_WIDE_ENTRIES = {
     "relpos_attention_bwd_dk512": ("relpos_attention_bwd", "S 116 / dk 512"),
     "relpos_attention_fwd_s3700": ("relpos_attention_fwd", "S 3700 / dk 264"),
     "relpos_attention_bwd_s3700": ("relpos_attention_bwd", "S 3700 / dk 264"),
-    "relpos_attention_fwd_rows": ("relpos_attention_fwd", "S 116 / dk 520"),
-    "relpos_attention_bwd_rows": ("relpos_attention_bwd", "S 116 / dk 520"),
+    "relpos_attention_fwd_cluster": ("relpos_attention_fwd",
+                                     "S 116 / dk 520"),
+    "relpos_attention_bwd_cluster": ("relpos_attention_bwd",
+                                     "S 116 / dk 520"),
     "causal_attention_fwd_s4096": ("causal_attention_fwd", "S 4096 / dk 32"),
     "causal_attention_bwd_s4096": ("causal_attention_bwd", "S 4096 / dk 32"),
     "causal_attention_fwd_dk512": ("causal_attention_fwd", "S 128 / dk 512"),
@@ -5196,8 +5205,8 @@ def phase_long_and_wide(dev: torch.device) -> tuple:
     --sizeWindow 655360 (K2 at S 4084) and (b) the transformer AR there
     (K5 at S 4096) and at --hiddenEncoder 4096 --hiddenGar 4096 (K5 and
     K2 at dk 512 on their DKP-512 tensor-core bodies), B 4, both dtypes,
-    and the default model at --hiddenEncoder 4160 (K2's rows body at dk
-    520), bf16, each loss finite and falling; (c) LSTM and GRU models alone at --hiddenGar 8192 (the
+    and the default model at --hiddenEncoder 4160 (K2's cluster body at
+    dk 520), bf16, each loss finite and falling; (c) LSTM and GRU models alone at --hiddenGar 8192 (the
     grid bodies at J 64 units a CTA on 132 SMs).  Returns (the JSON
     line's entries, their launches on the paths)."""
     t0 = time.time()
@@ -5217,7 +5226,7 @@ def phase_long_and_wide(dev: torch.device) -> tuple:
         path = (L655 if entry.endswith("s4084") else
                 T655 if entry.endswith("s4096") else
                 T4096 if entry.endswith(("dk512", "s3700")) else
-                L4160 if entry.endswith("_rows") else None)
+                L4160 if entry.endswith("_cluster") else None)
         if path is not None:
             launches[entry] = counts[path][name]
     for mode in ("LSTM", "GRU"):

@@ -369,8 +369,8 @@ __device__ __forceinline__ float kept_factor(const Dropout& drop,
 }
 
 // dk rounded up to the staged width: 32, 64, 128, 256 or 512 (0 above
-// 512), the widths K2's tensor-core body takes too
-// (relpos_attention_tc.cuh `kMaxDk`).
+// 512), the widths K2's tensor-core body takes too (past 512 its cluster
+// body pads by 512-column slabs, relpos_attention_tc.cuh `padded_width`).
 inline int padded_dk(int dk) {
   return dk <= 32    ? 32
          : dk <= 64  ? 64

@@ -13,7 +13,7 @@
 // (B, T, H)), as `_gru_fwd_kernel` does; both pointers may be null (the
 // eval path).
 //
-// Three bodies, picked from the shape (`body`, mirrored by ops/gru.py
+// Four bodies, picked from the shape (`body`, mirrored by ops/gru.py
 // `fwd_body`): at H 128 and 256 (the default --hiddenGar) K1's cluster
 // body (csrc/rnn_cluster_fwd.cuh: a cluster of 8 CTAs at H 128, 16 at 256,
 // serves 16 batch rows, CTA c keeps the 3 J gate rows of its J = 16 units
@@ -21,9 +21,12 @@
 // all-gathered through L2 by multicast; float32 W_hh as two bf16 planes,
 // 3 split products, ops/gru.py `gru_scan_split`), past H 256 K1's grid body
 // (csrc/rnn_grid.cuh: W_hh split by unit over all of the card's SMs, h
-// all-gathered through L2 with a grid barrier a step), else the rows
-// body.  `Cell`, the cell of the grid and cluster bodies, keeps gh_n =
-// h . W_hn^T + b_hn apart from r's product, as below.
+// all-gathered through L2 with a grid barrier a step), at the small widths
+// whose W_hh fits one SM's registers the resident body (below; float32 H
+// 32, 64, 96, bf16 also 160: the learning gate's GRU at H 64), else the
+// rows body (bf16 192 and 224, float32 160-224).  `Cell`, the cell of the
+// grid and cluster bodies, keeps gh_n = h . W_hn^T + b_hn apart from r's
+// product, as below.
 //
 // The rows body: K1's (csrc/lstm_fwd.cu).  Batch rows are independent, so one
 // block owns one batch row for the whole window and keeps h in shared
@@ -38,7 +41,10 @@
 // SM's L2 read bandwidth for it; B = 32 blocks occupy a quarter of the
 // 132 SMs.  The cluster body reads W_hh once a window, so a step costs
 // the partial product (2 x 16 x 3J x H multiply-adds a CTA, hi and lo),
-// the cell and the multicast's round trip through L2.
+// the cell and the multicast's round trip through L2.  The resident body
+// reads W_hh once a window into registers, so a step costs its latency
+// chain: the h loads from shared memory, K / 4 float4 steps of 12
+// multiply-adds, log2 S shuffles, the cell and one __syncthreads.
 #include "rnn_cluster_fwd.cuh"
 
 namespace {
@@ -156,6 +162,166 @@ int launch(const void* x_proj, const void* w_hh, const void* b_hh,
       static_cast<const T*>(x_proj), static_cast<const T*>(w_hh),
       static_cast<const T*>(b_hh), static_cast<const T*>(h0),
       static_cast<T*>(ys), static_cast<T*>(hT), gates, ghn, n_steps, H);
+  return (int)cudaGetLastError();
+}
+
+// ---- the resident body ------------------------------------------------------
+
+// The resident body at (H, dtype): S lanes a unit, H S threads, each
+// holding K = H / S columns of the unit's three gate rows in registers
+// (float32 H 32-96: 12-36 registers of weights; bf16 H 160: 60, at 640
+// threads and at most 96 registers a thread).  f(Resident<T, H, S>{})
+// with the body at H in `dtype`, false where it has none (bf16 H 192's
+// 221 KB of W_hh would take 144 registers a thread at 384 threads: the
+// rows body keeps it).
+template <typename T_, int H_, int S_>
+struct Resident {
+  using T = T_;
+  static constexpr int H = H_;
+  static constexpr int S = S_;                // lanes a unit
+  static constexpr int kThreads = H * S;
+  static constexpr int kM = H / (4 * S);      // float4 of h a step, a lane
+  static_assert(H % (4 * S) == 0 && 32 % S == 0 && kThreads <= 1024,
+                "resident layout");
+};
+
+template <typename F>
+bool with_resident(int H, int dtype, F f) {
+  using bf = __nv_bfloat16;
+  if (dtype == cpc::kFloat32) {
+    switch (H) {
+      case 32: f(Resident<float, 32, 8>{}); return true;
+      case 64: f(Resident<float, 64, 8>{}); return true;
+      case 96: f(Resident<float, 96, 8>{}); return true;
+    }
+  } else if (dtype == cpc::kBFloat16) {
+    switch (H) {
+      case 32: f(Resident<bf, 32, 8>{}); return true;
+      case 64: f(Resident<bf, 64, 8>{}); return true;
+      case 96: f(Resident<bf, 96, 8>{}); return true;
+      case 160: f(Resident<bf, 160, 4>{}); return true;
+    }
+  }
+  return false;
+}
+
+// One block a batch row.  Thread (unit j, lane s of its S) keeps, for
+// each gate g, W_hh[g H + j, c] at the columns c = 4 (m S + s) + v (m <
+// kM, v < 4) in registers for the whole window, as kM pairs of T2: the S
+// lanes of a unit read neighbouring 16-byte pieces of h, so that a warp's
+// float4 loads of h meet no bank twice.  A step: each lane forms its three
+// partial dot products with h_{t-1} (read from shared memory), a butterfly
+// over the unit's S lanes leaves the whole sums in all of them, and each
+// lane runs the cell (the same bits in all); lane 0 writes h_t into the
+// other half of the double-buffered h, the others the step's outputs.
+// Step t reads buffer t & 1 and writes (t + 1) & 1, whose readers of step
+// t - 1 all passed the step's one __syncthreads before it.  x_proj of
+// step t + 1 is loaded while step t runs.
+template <typename L>
+__global__ void __launch_bounds__(L::kThreads) gru_fwd_resident(
+    const typename L::T* __restrict__ x_proj,
+    const typename L::T* __restrict__ w_hh,
+    const typename L::T* __restrict__ b_hh,
+    const typename L::T* __restrict__ h0, typename L::T* __restrict__ ys,
+    typename L::T* __restrict__ hT, float* __restrict__ gates,
+    float* __restrict__ ghn, int n_steps) {
+  using T = typename L::T;
+  using Two = cpc::rnn::Two<T>;
+  using T2 = typename Two::type;
+  constexpr int H = L::H, S = L::S, M = L::kM;
+  __shared__ __align__(16) float hs[2][H];
+  const int j = threadIdx.x / S, s = threadIdx.x % S;
+  const int b = blockIdx.x;
+  T2 w[3][2 * M];
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        w[g][2 * m + q] = *reinterpret_cast<const T2*>(
+            w_hh + (size_t)(g * H + j) * H + 4 * (m * S + s) + 2 * q);
+  float bh[3];
+#pragma unroll
+  for (int g = 0; g < 3; ++g) bh[g] = cpc::to_f32(b_hh[g * H + j]);
+  float h = cpc::to_f32(h0[(size_t)b * H + j]);
+  if (s == 0) hs[0][j] = h;
+  const T* xb = x_proj + (size_t)b * n_steps * 3 * H + j;
+  float x[3];
+#pragma unroll
+  for (int g = 0; g < 3; ++g) x[g] = cpc::to_f32(xb[g * H]);
+  __syncthreads();
+  for (int t = 0; t < n_steps; ++t) {
+    float xn[3] = {0.0f, 0.0f, 0.0f};
+    if (t + 1 < n_steps) {
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+        xn[g] = cpc::to_f32(xb[(size_t)(t + 1) * 3 * H + g * H]);
+    }
+    const float* hc = hs[t & 1];
+    float acc[3] = {0.0f, 0.0f, 0.0f};
+    if constexpr (sizeof(T) == 2 && M > 4) {
+      // bf16 H 160: keep the packed weights the step's operands, so that
+      // their float32 values are not hoisted out of the loop (twice the
+      // registers: 120 a thread, past the 96 it may use)
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+#pragma unroll
+        for (int i = 0; i < 2 * M; ++i)
+          asm volatile("" : "+r"(*reinterpret_cast<uint32_t*>(&w[g][i])));
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const float4 hv =
+          *reinterpret_cast<const float4*>(hc + 4 * (m * S + s));
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        const float2 a = Two::f32(w[g][2 * m]);
+        const float2 c = Two::f32(w[g][2 * m + 1]);
+        acc[g] = fmaf(a.x, hv.x, acc[g]);
+        acc[g] = fmaf(a.y, hv.y, acc[g]);
+        acc[g] = fmaf(c.x, hv.z, acc[g]);
+        acc[g] = fmaf(c.y, hv.w, acc[g]);
+      }
+    }
+#pragma unroll
+    for (int o = S / 2; o > 0; o >>= 1)
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+        acc[g] += __shfl_xor_sync(0xffffffffu, acc[g], o);
+    const float gn = acc[2] + bh[2];
+    const float r = sigmoidf(x[0] + (acc[0] + bh[0]));
+    const float z = sigmoidf(x[1] + (acc[1] + bh[1]));
+    const float n = tanhf(x[2] + r * gn);
+    h = (1.0f - z) * n + z * h;
+    const size_t bt = (size_t)b * n_steps + t;
+    if (s == 0) {
+      hs[(t + 1) & 1][j] = h;
+      ys[bt * H + j] = cpc::from_f32<T>(h);
+    }
+    if (gates != nullptr) {
+      float* gt = gates + bt * 3 * H + j;
+      if (s == 1 % S) gt[0] = r;
+      if (s == 2 % S) gt[H] = z;
+      if (s == 3 % S) gt[2 * H] = n;
+    }
+    if (ghn != nullptr && s == (S > 4 ? 4 : 0)) ghn[bt * H + j] = gn;
+#pragma unroll
+    for (int g = 0; g < 3; ++g) x[g] = xn[g];
+    __syncthreads();
+  }
+  if (s == 0) hT[(size_t)b * H + j] = cpc::from_f32<T>(h);
+}
+
+template <typename L>
+int launch_resident(const void* x_proj, const void* w_hh, const void* b_hh,
+                    const void* h0, void* ys, void* hT, float* gates,
+                    float* ghn, int B, int n_steps, cudaStream_t stream) {
+  using T = typename L::T;
+  gru_fwd_resident<L><<<B, L::kThreads, 0, stream>>>(
+      static_cast<const T*>(x_proj), static_cast<const T*>(w_hh),
+      static_cast<const T*>(b_hh), static_cast<const T*>(h0),
+      static_cast<T*>(ys), static_cast<T*>(hT), gates, ghn, n_steps);
   return (int)cudaGetLastError();
 }
 
@@ -300,17 +466,18 @@ size_t cluster_smem(int H, int dtype) {
 }
 
 // The body at H in `dtype`: 1 the cluster body, 2 the grid body (every H
-// past 256), 0 the rows body.
+// past 256), 3 the resident body, 0 the rows body.
 int body(int H, int dtype) {
   const size_t smem = cluster_smem(H, dtype);
   if (smem > 0 && smem <= cpc::kSmemLimit) return 1;
-  return H >= cpc::grid::kMinH ? 2 : 0;
+  if (H >= cpc::grid::kMinH) return 2;
+  return with_resident(H, dtype, [](auto) {}) ? 3 : 0;
 }
 
 }  // namespace
 
 // The body cpc_gru_fwd runs at hidden width H in `dtype`: 0 rows, 1
-// cluster, 2 grid (ops/gru.py `fwd_body`).
+// cluster, 2 grid, 3 resident (ops/gru.py `fwd_body`).
 extern "C" int cpc_gru_fwd_body(int H, int dtype) { return body(H, dtype); }
 
 // The cluster body's shared memory a CTA at H in `dtype` (0: none;
@@ -321,7 +488,7 @@ extern "C" size_t cpc_gru_fwd_smem(int H, int dtype) {
 
 // Bytes of global scratch cpc_gru_fwd needs at (B, H, dtype): the cluster
 // body's exchange blocks, the grid body's exchange buffer (and in float32
-// W_hh's bf16 planes, for both), 0 for the rows body.
+// W_hh's bf16 planes, for both), 0 for the resident and rows bodies.
 extern "C" size_t cpc_gru_fwd_scratch(int B, int H, int dtype) {
   switch (body(H, dtype)) {
     case 1: {
@@ -376,6 +543,14 @@ extern "C" int cpc_gru_fwd(const void* x_proj, const void* w_hh,
             params<float>(x_proj, b_hh, h0, ys, hT, g, n), w_hh, scratch,
             bar, B, n_steps, H, s);
       return (int)cudaErrorInvalidValue;
+    }
+    case 3: {
+      int err = (int)cudaErrorInvalidValue;
+      with_resident(H, dtype, [&](auto l) {
+        err = launch_resident<decltype(l)>(x_proj, w_hh, b_hh, h0, ys, hT, g,
+                                           n, B, n_steps, s);
+      });
+      return err;
     }
   }
   if (dtype == cpc::kBFloat16)

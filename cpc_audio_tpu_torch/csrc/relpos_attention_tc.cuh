@@ -31,6 +31,28 @@
 // quarter of dq reads its quarter block; dkrel's d tiles by warp).  No
 // (S, S) tile anywhere at any width.
 //
+// Past dk 512 (heads of --hiddenEncoder 4104-32768, dk 513-4096) the
+// cluster body: a thread-block cluster of ceil(dk / 512) CTAs serves one
+// tile, CTA c on dk columns [512 c, 512 c + 512) at DKP 512's geometry,
+// kernel by kernel the same code (template argument CL).  CTA c stages those
+// columns of q, k, v, do and those rows of the krel window, and owns those
+// columns of o, dq, dk, dv and those rows of dkrel.  Its warps form their
+// quarters' partial window band, scores and dp as at DKP 512; the CTA sums
+// its four warps' partials w 0 + 1 + 2 + 3 into its exchange block
+// (`cta_band`, `cta_scores`), and after one cluster barrier every CTA
+// sums the cluster's blocks CTA 0 + 1 + ... through distributed shared
+// memory (`cluster_sum`), so that all of them hold the same bits for the
+// max, the exp and the dropout factor.  The block is written again only
+// after a second barrier, split into an arrive once the sums are read and
+// a wait before the next tile's write, so the work between hides it.
+// Warps whose 128 columns lie past dk (at dk 520 three of the second CTA's
+// four) skip their products, and their partials are 0, and the slab's
+// columns and window rows past dk are zero-filled without a read.
+// Registers and shared memory a CTA are DKP 512's, plus 4 KB (backward:
+// the exchange block) or 7 KB (forward: the block, and the scores'
+// partials beside the band's, so that both pass through shared memory
+// between one pair of __syncthreads).
+//
 // krel is read from a copy made once a call: (K, P, DKP, SK) bf16 planes,
 // column x holding krel column x - off with off = (-S) mod 8 and SK = S +
 // off, zero past dk and outside [0, S).  A window then starts at padded
@@ -52,9 +74,19 @@
 #pragma once
 
 #include "causal_attention.cuh"
-#include "relpos_attention.cuh"
 
 namespace cpc {
+
+__device__ __forceinline__ uint32_t attention_row_key(const Dropout& drop,
+                                                      int kk, int n_batch,
+                                                      int b, int nheads,
+                                                      int h) {
+  return drop.active()
+             ? dropout_row_key(drop.seed_word(), kSiteAttention,
+                               (uint32_t)((kk * n_batch + b) * nheads + h))
+             : 0u;
+}
+
 namespace k2 {
 
 using bf16 = __nv_bfloat16;
@@ -66,13 +98,48 @@ using k5::row_of;
 // sized by S but its scratch, O(N S dk) and the diagonal pass's windows;
 // the gate, ops/head_attention.py `MAX_S`, stops at the longest window
 // checked on the card, the heads' S 4084 at --sizeWindow 655360) and
-// dk up to 512, every width K5 stages (the rows bodies take K2's wider
-// heads).
+// dk up to 4096: every width K5 stages, and past 512 the cluster body on
+// at most 8 CTAs, the portable cluster size (dk 4096 is --hiddenEncoder
+// 32768, whose 12 heads' weights pass the card's 80 GB).
 constexpr int kMaxS = 4096;
-constexpr int kMaxDk = 512;
+constexpr int kSlab = 512;                       // dk columns a CTA
+constexpr int kMaxCluster = 8;
+constexpr int kMaxDk = kMaxCluster * kSlab;
 
 __host__ __device__ constexpr bool takes(int S, int dk) {
   return S > 0 && S <= kMaxS && dk > 0 && dk <= kMaxDk;
+}
+
+// CTAs a tile at head width dk: 1 up to dk 512, else one a 512 columns.
+__host__ __device__ constexpr int cluster_ctas(int dk) {
+  return dk <= kSlab ? 1 : (dk + kSlab - 1) / kSlab;
+}
+
+// dk rounded up to the staged width: K5's up to 512, past it whole slabs.
+inline int padded_width(int dk) {
+  return dk <= kSlab ? k5::padded_dk(dk) : cluster_ctas(dk) * kSlab;
+}
+
+// The width of the copies a call makes (krel's planes' rows, the operands'
+// planes' columns): the staged width up to dk 512; past it dk rounded up
+// to 8, since the cluster body reads no column (row) past dk there, and
+// the second CTA of dk 520 copies 8 columns, not 512.
+__host__ __device__ constexpr int plane_width(int dk) {
+  return dk <= kSlab ? (dk <= 32    ? 32
+                        : dk <= 64  ? 64
+                        : dk <= 128 ? 128
+                        : dk <= 256 ? 256
+                                    : 512)
+                     : (dk + 7) / 8 * 8;
+}
+
+// The kernel's krel plane rows: DKP, or in the cluster body plane_width.
+template <bool CL, int DKP>
+__device__ __forceinline__ int plane_rows(int dk) {
+  if constexpr (CL)
+    return plane_width(dk);
+  else
+    return DKP;
 }
 
 // Blocks of `smem` bytes an SM holds (228 KB, 1 KB of it kept a block),
@@ -149,12 +216,22 @@ struct Heads {
 };
 
 // Rows [r0, r0 + kTile) of head n's operand o into a staged tile (zero
-// past S and past dk), 16 bytes a copy.
-template <typename G, int DKP>
+// past S and past dk), 16 bytes a copy; with CL (the cluster body) its
+// columns from col0, the CTA's, those past dk zero-filled without a read
+// in the planes too.
+template <typename G, int DKP, bool CL = false>
 __device__ __forceinline__ void stage_head(bf16* dst, const Heads& H, int o,
-                                           int n, int r0) {
-  k5::stage_rows<G, DKP>(dst, H.p[o] + H.base(n), H.plane, r0, H.S, H.lds,
-                         H.planes ? DKP : H.dk);
+                                           int n, int r0, int col0 = 0) {
+  if constexpr (CL) {
+    const int live = (H.dk - col0 + 7) / 8 * 8;
+    k5::stage_rows<G, DKP>(dst, H.p[o] + H.base(n) + col0, H.plane, r0,
+                           H.S, H.lds,
+                           H.planes ? (live < DKP ? live : DKP)
+                                    : H.dk - col0);
+  } else {
+    k5::stage_rows<G, DKP>(dst, H.p[o] + H.base(n), H.plane, r0, H.S, H.lds,
+                           H.planes ? DKP : H.dk);
+  }
 }
 
 // Rows [d0, d0 + KC) of head k's padded krel planes (K, P, DKP, sk), window
@@ -183,23 +260,26 @@ __device__ __forceinline__ void stage_window(bf16* dst, const bf16* krp,
 // w * kr_elems(KQ), each as `stage_window` lays out its chunk); KQ = 128
 // and c = 0 stage the whole window.  One loop over every row of every
 // block and plane: eight loops' offsets held across the float32 column
-// pass's loop spilled registers.
-template <typename G, int DKP, int KQ>
+// pass's loop spilled registers.  With CL (the cluster body) krp's planes
+// hold dkr rows, the quarters are counted from row d0 (the CTA's), and
+// rows from d_hi (dk) on are zero-filled without a read.
+template <typename G, int DKP, int KQ, bool CL = false>
 __device__ __forceinline__ void stage_quarters(bf16* dst, const bf16* krp,
                                                int kk, int sk, int c,
-                                               int x0) {
+                                               int x0, int dkr = DKP,
+                                               int d0 = 0, int d_hi = 0) {
   using W = Win<G>;
   constexpr int P = G::kPlanes;
   constexpr int C = W::kCols / 8;                  // 16-byte copies a row
   constexpr int kRows = k5::kWarps * P * KQ;       // (w, plane, row)
-  const bf16* src = krp + (size_t)kk * P * DKP * sk;
+  const bf16* src = krp + (size_t)kk * P * dkr * sk;
   for (int idx = threadIdx.x; idx < kRows * C; idx += kThreads) {
     const int r = idx / C, x = x0 + (idx - r * C) * 8;
     const int wp = r / KQ, p = wp % P;
-    const int d = wp / P * G::kDV + c + (r - wp * KQ);   // krel row
-    const bool ok = x >= 0 && x < sk;
+    const int d = d0 + wp / P * G::kDV + c + (r - wp * KQ);   // krel row
+    const bool ok = x >= 0 && x < sk && (!CL || d < d_hi);
     mma::cp_async16(dst + r * W::kLdw + (x - x0),
-                    ok ? src + ((size_t)p * DKP + d) * sk + x : src, ok);
+                    ok ? src + ((size_t)p * dkr + d) * sk + x : src, ok);
   }
 }
 
@@ -303,6 +383,243 @@ __device__ __forceinline__ void bias_scale_mask(float s[G::kNT][4],
                      ? (s[nt][e] + band_at(QPs, il, jl, ldq)) * inv_sqrt
                      : -INFINITY;
     }
+}
+
+// ---- the cluster body's exchange ------------------------------------------
+
+// The CTA's place in its cluster (the cluster body), or {0, 1}.
+struct Cta {
+  int rank, n;
+};
+
+template <bool CL>
+__device__ __forceinline__ Cta this_cta() {
+  if constexpr (CL) {
+    uint32_t r, n;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+    asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+    return {(int)r, (int)n};
+  } else {
+    return {0, 1};
+  }
+}
+
+// The two halves of a cluster barrier: after the wait, every thread of the
+// cluster has passed its arrive, and its shared-memory writes before it,
+// local and remote, are visible.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The generic address of `local`'s counterpart in CTA `rank`'s shared
+// memory: plain loads through it, which the compiler orders after the
+// cluster barrier (its asm clobbers memory) and keeps in flight together.
+__device__ __forceinline__ const float* remote(const float* local, int rank) {
+  uint64_t addr;
+  asm("mapa.u64 %0, %1, %2;\n"
+      : "=l"(addr)
+      : "l"(reinterpret_cast<uint64_t>(local)), "r"(rank));
+  return reinterpret_cast<const float*>(addr);
+}
+
+// Floats of one exchanged tile of NT n8 tiles (k5::store_partial's slots
+// of one warp).
+template <int NT>
+constexpr int kSlotFloats = NT * 4 * 32;
+
+// Floats of a CTA's exchange block: the band and the scores, in the
+// backward also dp.
+template <typename G, bool DP>
+constexpr int kExchangeFloats =
+    kSlotFloats<Win<G>::kBandNT> + (DP ? 2 : 1) * kSlotFloats<G::kNT>;
+
+// x (one slot) = the four warps' partials in red (k5::store_partial)
+// summed w 0 + 1 + 2 + 3, all threads summing elements of it.
+template <int NT>
+__device__ __forceinline__ void cta_sum(float* x, const float* red) {
+  constexpr int kSlot = kSlotFloats<NT>;
+  for (int idx = threadIdx.x; idx < kSlot; idx += kThreads) {
+    float v = red[idx];
+#pragma unroll
+    for (int w = 1; w < k5::kWarps; ++w) v += red[w * kSlot + idx];
+    x[idx] = v;
+  }
+}
+
+// v[j] = the cluster's exchange blocks at x + at[j] summed CTA 0 + 1 +
+// ... + n - 1, the J loads of a CTA in flight together.
+template <int J>
+__device__ __forceinline__ void cluster_sum(float (&v)[J], const float* x,
+                                            const int (&at)[J], int n) {
+  const float* x0 = remote(x, 0);
+#pragma unroll
+  for (int j = 0; j < J; ++j) v[j] = x0[at[j]];
+  if (n == 2) {   // dk 513-1024: both CTAs' loads in flight at once
+    const float* x1 = remote(x, 1);
+    float t[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) t[j] = x1[at[j]];
+#pragma unroll
+    for (int j = 0; j < J; ++j) v[j] += t[j];
+    return;
+  }
+  for (int r = 1; r < n; ++r) {
+    const float* xr = remote(x, r);
+    float t[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) t[j] = xr[at[j]];
+#pragma unroll
+    for (int j = 0; j < J; ++j) v[j] += t[j];
+  }
+}
+
+// The cluster body's exchange of a tile, in parts.  `cta_band`: the
+// warps' partial bands qp into the CTA's block X, through red; `armed`: an
+// arrive is outstanding, whose wait comes before X is written (the
+// cluster has read the last tile's blocks).  Ends with red free.
+template <typename G>
+__device__ __forceinline__ void cta_band(const float qp[Win<G>::kBandNT][4],
+                                         float* red, float* X, bool& armed) {
+  constexpr int NB = Win<G>::kBandNT;
+  k5::store_partial<NB>(red, qp);
+  __syncthreads();
+  if (armed) cluster_wait();
+  armed = false;
+  cta_sum<NB>(X, red);
+  __syncthreads();
+}
+
+// `cta_band_scores`: the band's and the scores' partials at once (the
+// forward, whose red holds both), into X's band and scores.
+template <typename G>
+__device__ __forceinline__ void cta_band_scores(
+    const float qp[Win<G>::kBandNT][4], const float s[G::kNT][4],
+    float* red, float* X, bool& armed) {
+  constexpr int NB = Win<G>::kBandNT, NS = G::kNT;
+  k5::store_partial<NB>(red, qp);
+  k5::store_partial<NS>(red + k5::kPartialFloats<NB>, s);
+  __syncthreads();
+  if (armed) cluster_wait();
+  armed = false;
+  cta_sum<NB>(X, red);
+  cta_sum<NS>(X + kSlotFloats<NB>, red + k5::kPartialFloats<NB>);
+}
+
+// `cta_scores`: the warps' partial scores s (and dp, where DP) into X after
+// the band, through red.
+template <typename G, bool DP>
+__device__ __forceinline__ void cta_scores(const float s[G::kNT][4],
+                                           const float dp[G::kNT][4],
+                                           float* red, float* X) {
+  constexpr int NB = Win<G>::kBandNT, NS = G::kNT;
+  constexpr int kB = kSlotFloats<NB>, kS = kSlotFloats<NS>;
+  k5::store_partial<NS>(red, s);
+  if constexpr (DP) k5::store_partial<NS>(red + k5::kPartialFloats<NS>, dp);
+  __syncthreads();
+  cta_sum<NS>(X + kB, red);
+  if constexpr (DP) cta_sum<NS>(X + kB + kS, red + k5::kPartialFloats<NS>);
+}
+
+// `cluster_sums`, after the CTA's block is written: one cluster barrier,
+// then the band QPs (rows ldq apart) and s (dp) the cluster's sums, in
+// every CTA the same bits.  Ends with an arrive outstanding (`armed`) and
+// the band readable by every warp.
+template <typename G, bool DP>
+__device__ __forceinline__ void cluster_sums(float* QPs, int ldq,
+                                             float s[G::kNT][4],
+                                             float dp[G::kNT][4], float* X,
+                                             int n, bool& armed) {
+  constexpr int NB = Win<G>::kBandNT, NS = G::kNT;
+  constexpr int kB = kSlotFloats<NB>, kS = kSlotFloats<NS>;
+  cluster_arrive();
+  cluster_wait();   // every CTA's block whole
+  constexpr int JB = kB / kThreads;   // band elements a thread
+  static_assert(kB % kThreads == 0, "band elements");
+  constexpr int JS = (DP ? 2 : 1) * NS * 4;   // s (and dp) of a lane
+  int at[JB + JS];
+  float v[JB + JS];
+#pragma unroll
+  for (int j = 0; j < JB; ++j) at[j] = threadIdx.x + j * kThreads;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < JS; ++j)   // s's (nt, e), then dp's
+    at[JB + j] = kB + (j >= NS * 4 ? kS : 0) + (j % (NS * 4)) * 32 + lane;
+  cluster_sum(v, X, at, n);
+#pragma unroll
+  for (int j = 0; j < JB; ++j) {
+    const int idx = at[j];
+    const int ln = idx & 31, nt = idx >> 7, e = (idx >> 5) & 3;
+    QPs[((ln >> 2) + ((e >> 1) << 3)) * ldq + nt * 8 + ((ln & 3) << 1) +
+        (e & 1)] = v[j];
+  }
+#pragma unroll
+  for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[nt][e] = v[JB + nt * 4 + e];
+      if constexpr (DP) dp[nt][e] = v[JB + NS * 4 + nt * 4 + e];
+    }
+  cluster_arrive();
+  armed = true;
+  __syncthreads();
+}
+
+// The cluster body's columns of a CTA and of one of its warps (CL: CTA c
+// takes [512 c, 512 c + 512), its warp w the 128 from 512 c + 128 w), or
+// DKP's whole quarter of a warp.  (Spreading dk 520 evenly, 80 columns a
+// warp, 320 and 200 a CTA, ran 1.2-1.4x slower than 512 and 8 on an
+// H100: PERF.md section 6.)
+struct Slab {
+  int col0;   // the CTA's first column
+  int gw;     // the warp's first column
+  int live;   // the warp's columns before dk (<= 0: none)
+};
+
+template <bool CL, typename G>
+__device__ __forceinline__ Slab slab(const Cta& cta, int dk, int warp) {
+  if constexpr (CL) {
+    const int col0 = cta.rank * 4 * G::kDV, gw = col0 + warp * G::kDV;
+    return {col0, gw, dk - gw < G::kDV ? dk - gw : G::kDV};
+  } else {
+    return {0, 0, G::kDV};
+  }
+}
+
+// s = 0 (a warp past dk forms no partial).
+template <int NT>
+__device__ __forceinline__ void zero_tile(float s[NT][4]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
+}
+
+// Launch `kernel` on `grid` in clusters of nc CTAs along x (at most 8, the
+// portable size).  A cluster the card cannot schedule makes the launch
+// return its error; nothing else runs instead.
+template <typename Kernel, typename... Args>
+cudaError_t launch_cluster(Kernel kernel, dim3 grid, int nc, size_t smem,
+                           cudaStream_t stream, Args... args) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nc;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 // Row group rw's ds as its band U over its QP rows (the backward's band
@@ -548,7 +865,7 @@ struct Prep {
 
   Prep(int K, int n_heads, int S, int dk, int dtype, int n_ops,
        int f32_planes) {
-    dkp = k5::padded_dk(dk);
+    dkp = plane_width(dk);
     sk = (S + 7) / 8 * 8;
     planes = dtype == kFloat32 ? f32_planes : 1;
     pack = dtype == kFloat32 || dk % 8 != 0;

@@ -1,6 +1,6 @@
 // K2 backward: causal attention with Shaw relative positions on the
-// tensor cores (the body at every S <= 4096 and dk <= 512; past dk 512
-// relpos_attention_bwd.cu's rows body runs).
+// tensor cores (the body at every S <= 4096 and dk <= 4096: past dk 512 on
+// thread-block clusters of ceil(dk / 512) CTAs).
 //
 // Replaces cpc_audio_tpu/ops/pallas/head_attention.py `_bwd_kernel`
 // (called through `_fr_bwd`).  Recompute-style: per (k, batch row b, head
@@ -42,6 +42,11 @@
 //   4. `dkrel_windows_reduce` sums each krel column over the groups and the
 //      (at most two) windows that hold it, in a fixed order: no floating-
 //      point atomics, and the result does not depend on block scheduling.
+// Past dk 512 the cluster body (relpos_attention_tc.cuh): in each of the
+// three passes CTA c of a tile's cluster runs DKP 512's kernel on dk
+// columns [512 c, 512 c + 512): its slab of dq, dk, dv and of dkrel's rows,
+// the partial band, s and dp of its warps summed in the CTA and then over
+// the cluster, CTA 0 + 1 + ..., through distributed shared memory.
 // In float32, q, k, v, do and krel are split once a call into two bf16
 // planes, and p r, ds enter their products as two planes: three split
 // products a product, as K5's backward (ops/head_attention.py
@@ -68,38 +73,48 @@ constexpr int kF32Planes = 2;
 // groups so that (diagonals x K x groups) comes near this
 constexpr int kDiagBlocks = 1024;
 
+// The cluster body's exchange block (CL), bytes.
+template <typename T, int DKP, bool CL>
+constexpr size_t exchange_bytes() {
+  return CL ? k2::kExchangeFloats<k5::Geom<T, DKP>, true> * sizeof(float)
+            : 0;
+}
+
 // Shared memory of the backward's kernels at `bufs` buffers: q, do; (k,
 // v, window) buffers; the band staging (QP, then U); at kSplitK the
-// partials (float32 at DKP 512: 221 KB)
-template <typename T, int DKP>
+// partials (float32 at DKP 512: 221 KB); in the cluster body the exchange
+// block (4 KB)
+template <typename T, int DKP, bool CL = false>
 constexpr size_t rows_bytes(int bufs) {
   using G = k5::Geom<T, DKP>;
   using W = k2::Win<G>;
   return (2 + 2 * bufs) * G::kTileElems * sizeof(bf16) +
          bufs * W::kr_elems(DKP) * sizeof(bf16) + W::kBandBytes +
-         W::kRedBytes;
+         W::kRedBytes + exchange_bytes<T, DKP, CL>();
 }
 
-// k, v; (q, do, window, statistics) buffers; the QP band; the partials
-template <typename T, int DKP>
+// k, v; (q, do, window, statistics) buffers; the QP band; the partials;
+// the exchange block
+template <typename T, int DKP, bool CL = false>
 constexpr size_t cols_bytes(int bufs) {
   using G = k5::Geom<T, DKP>;
   using W = k2::Win<G>;
   return (2 + 2 * bufs) * G::kTileElems * sizeof(bf16) +
          bufs * (W::kr_elems(DKP) * sizeof(bf16) +
                  3 * G::kTile * sizeof(float)) +
-         W::kQpBytes + W::kRedBytes;
+         W::kQpBytes + W::kRedBytes + exchange_bytes<T, DKP, CL>();
 }
 
 // (q, k, v, do, statistics) buffers; the window; the band staging; the
-// partials
-template <typename T, int DKP>
+// partials; the exchange block
+template <typename T, int DKP, bool CL = false>
 constexpr size_t diag_bytes(int bufs) {
   using G = k5::Geom<T, DKP>;
   using W = k2::Win<G>;
   return bufs * (4 * G::kTileElems * sizeof(bf16) +
                  3 * G::kTile * sizeof(float)) +
-         W::kr_elems(DKP) * sizeof(bf16) + W::kBandBytes + W::kRedBytes;
+         W::kr_elems(DKP) * sizeof(bf16) + W::kBandBytes + W::kRedBytes +
+         exchange_bytes<T, DKP, CL>();
 }
 
 // At kSplitK: the band QP of the 16 rows of staged tile A x the window's
@@ -123,20 +138,51 @@ __device__ __forceinline__ void band_and_scores(
   k5::split_products<G>(s, dp, A, Bs, Ad, Bd, n_lo, n_hi, c0, red);
 }
 
-template <typename T, int DKP>
+// The cluster body's band_and_scores: the band from the warps' quarter
+// blocks Kr of the window times staged tile A, s = As . Bs^T and dp = Ad .
+// Bd^T, each summed over the CTA's warps and then over the cluster
+// (k2::cta_band, k2::cta_scores, k2::cluster_sums); a warp past dk (not
+// `live`) adds 0.
+template <typename G>
+__device__ __forceinline__ void cluster_band_and_scores(
+    float s[G::kNT][4], float dp[G::kNT][4], float* QPs, int ldq,
+    float* red, float* X, const bf16* A, const bf16* Kr, const bf16* As,
+    const bf16* Bs, const bf16* Ad, const bf16* Bd, int c0, int n_lo,
+    int n_hi, bool live, int n_cta, bool& armed) {
+  using W = k2::Win<G>;
+  float qp[W::kBandNT][4];
+  k2::zero_band<G>(qp);
+  const int w = threadIdx.x >> 5;
+  if (live)
+    k2::window_product<G, G::kDV>(qp, A, 0, Kr + w * W::kr_elems(G::kDV),
+                                  c0, W::c_lo(0));
+  k2::cta_band<G>(qp, red, X, armed);
+  if (live) {
+    k5::rows_dot_rows<G, G::kDV>(s, As + c0, 0, Bs + c0, n_lo, n_hi);
+    k5::rows_dot_rows<G, G::kDV>(dp, Ad + c0, 0, Bd + c0, n_lo, n_hi);
+  } else {
+    k2::zero_tile<G::kNT>(s);
+    k2::zero_tile<G::kNT>(dp);
+  }
+  k2::cta_scores<G, true>(s, dp, red, X);
+  k2::cluster_sums<G, true>(QPs, ldq, s, dp, X, n_cta, armed);
+}
+
+template <typename T, int DKP, bool CL = false>
 struct Bwd {
   using G = k5::Geom<T, DKP>;
   using W = k2::Win<G>;
   static constexpr int kRowBufs =
-      k2::pick_bufs(rows_bytes<T, DKP>(1), rows_bytes<T, DKP>(2));
+      k2::pick_bufs(rows_bytes<T, DKP, CL>(1), rows_bytes<T, DKP, CL>(2));
   static constexpr int kColBufs =
-      k2::pick_bufs(cols_bytes<T, DKP>(1), cols_bytes<T, DKP>(2));
+      k2::pick_bufs(cols_bytes<T, DKP, CL>(1), cols_bytes<T, DKP, CL>(2));
   static constexpr int kDiagBufs =
-      k2::pick_bufs(diag_bytes<T, DKP>(1), diag_bytes<T, DKP>(2));
-  static_assert(rows_bytes<T, DKP>(1) <= cpc::kSmemLimit &&
-                    cols_bytes<T, DKP>(1) <= cpc::kSmemLimit &&
-                    diag_bytes<T, DKP>(1) <= cpc::kSmemLimit,
+      k2::pick_bufs(diag_bytes<T, DKP, CL>(1), diag_bytes<T, DKP, CL>(2));
+  static_assert(rows_bytes<T, DKP, CL>(1) <= cpc::kSmemLimit &&
+                    cols_bytes<T, DKP, CL>(1) <= cpc::kSmemLimit &&
+                    diag_bytes<T, DKP, CL>(1) <= cpc::kSmemLimit,
                 "K2 backward shared memory");
+  static_assert(!CL || G::kSplitK, "the cluster body runs DKP 512's tiles");
 };
 
 // The window of tile pair (qt, kt): padded krel column sk - (qt - kt + 1) T.
@@ -175,11 +221,11 @@ __device__ __forceinline__ void ds_of(float s[G::kNT][4],
 // kernel 1: by query tile -> dq and the rows' statistics
 // ---------------------------------------------------------------------------
 
-template <typename T, int DKP>
+template <typename T, int DKP, bool CL = false>
 __global__ void __launch_bounds__(k5::kThreads) relpos_tc_bwd_rows(
     k2::Heads H, const bf16* __restrict__ krp, int sk, T* __restrict__ dq,
     float* __restrict__ stats, int N, float inv_sqrt, cpc::Dropout drop) {
-  using C = Bwd<T, DKP>;
+  using C = Bwd<T, DKP, CL>;
   using G = typename C::G;
   using W = typename C::W;
   constexpr int TE = G::kTileElems;
@@ -195,8 +241,14 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_bwd_rows(
   bf16* Us = reinterpret_cast<bf16*>(QPs);                 // U over it
   float* Red = reinterpret_cast<float*>(
       reinterpret_cast<unsigned char*>(QPs) + W::kBandBytes);   // kSplitK
+  float* X = Red + W::kRedBytes / sizeof(float);                // CL
 
-  const int n = blockIdx.x;
+  // the cluster body: the CTA's slab of dk columns from col0, of the
+  // padded width dkr
+  const k2::Cta cta = k2::this_cta<CL>();
+  const int dkr = k2::plane_rows<CL, DKP>(H.dk);
+  bool armed = false;   // CL: a cluster arrive outstanding
+  const int n = CL ? blockIdx.x / cta.n : blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;   // every head's longest first
   const int q0 = qt * G::kTile;
   const int S = H.S;
@@ -207,15 +259,21 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_bwd_rows(
   const int c0 = warp / G::kRowWarps * G::kDV;
   const int r0 = q0 + rw * 16;
   const int c_lo = W::c_lo(rw);
+  // the CTA's columns from col0, the warp's sl.live from sl.gw (none
+  // past dk: no products)
+  const k2::Slab sl = k2::slab<CL, G>(cta, H.dk, warp);
+  const int col0 = sl.col0;
+  const bool live = sl.live > 0;
   const uint32_t row_key = cpc::attention_row_key(
       drop, kk, H.n_batch, nb % H.n_batch, H.nheads, n % H.nheads);
   auto stage_tile = [&](int kt) {   // key tile kt into buffer kt % NB
     const int b = NB == 2 ? kt & 1 : 0;
-    k2::stage_head<G, DKP>(Ks + b * TE, H, 1, n, kt * G::kTile);
-    k2::stage_head<G, DKP>(Vs + b * TE, H, 2, n, kt * G::kTile);
+    k2::stage_head<G, DKP, CL>(Ks + b * TE, H, 1, n, kt * G::kTile, col0);
+    k2::stage_head<G, DKP, CL>(Vs + b * TE, H, 2, n, kt * G::kTile, col0);
     if constexpr (G::kSplitK)
-      k2::stage_quarters<G, DKP, G::kDV>(Kr + b * KRE, krp, kk, sk, 0,
-                                         window_x0<G>(sk, qt, kt));
+      k2::stage_quarters<G, DKP, G::kDV, CL>(
+          Kr + b * KRE, krp, kk, sk, 0, window_x0<G>(sk, qt, kt), dkr, col0,
+          H.dk);
     else
       k2::stage_window<G, DKP, DKP>(Kr + b * KRE, krp, kk, sk, 0,
                                     window_x0<G>(sk, qt, kt));
@@ -224,7 +282,12 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_bwd_rows(
   // s (scaled, biased, masked) and dp of key tile kt in buffer buf
   auto scores = [&](float (&s)[G::kNT][4], float (&dp)[G::kNT][4], int kt,
                     int buf, int n_hi) {
-    if constexpr (G::kSplitK) {
+    if constexpr (CL) {
+      cluster_band_and_scores<G>(s, dp, QPs, W::kRowF, Red, X, Qs,
+                                 Kr + buf * KRE, Qs, Ks + buf * TE, Ds,
+                                 Vs + buf * TE, c0, 0, n_hi, live, cta.n,
+                                 armed);
+    } else if constexpr (G::kSplitK) {
       band_and_scores<G>(s, dp, QPs, W::kRowF, Red, Qs, Kr + buf * KRE,
                          Ks + buf * TE, Ds, Vs + buf * TE, c0, 0, n_hi);
     } else {
@@ -255,8 +318,8 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_bwd_rows(
       __syncwarp();
   };
 
-  k2::stage_head<G, DKP>(Qs, H, 0, n, q0);
-  k2::stage_head<G, DKP>(Ds, H, 3, n, q0);
+  k2::stage_head<G, DKP, CL>(Qs, H, 0, n, q0, col0);
+  k2::stage_head<G, DKP, CL>(Ds, H, 3, n, q0, col0);
   stage_tile(0);
 
   // ---- pass 1: m, l and c = sum_j p dp, online over the key tiles ----
@@ -337,13 +400,15 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_bwd_rows(
     scores(s, dp, kt, buf, n_hi);
     ds_of<G, T>(s, dp, m, inv_l, c, r0, kt * G::kTile, S, drop, keep,
                     inv_sqrt);
-    k5::acc_times_rows<G, false>(dqa, s, Ks + buf * TE + c0, 0, n_hi / 2);
+    if (live)
+      k5::acc_times_rows<G, false>(dqa, s, Ks + buf * TE + c0, 0, n_hi / 2);
     stage_u(s);
-    if constexpr (G::kSplitK)   // the warp's quarter block of the window
-      k2::unskew_product<G, G::kDV>(dqa, Us, 0,
-                                    Kr + buf * KRE + warp * W::kr_elems(
-                                                            G::kDV),
-                                    0, c_lo);
+    if constexpr (G::kSplitK) {   // the warp's quarter block of the window
+      if (live)
+        k2::unskew_product<G, G::kDV>(
+            dqa, Us, 0, Kr + buf * KRE + warp * W::kr_elems(G::kDV), 0,
+            c_lo);
+    }
     else
       k2::unskew_product<G, DKP>(dqa, Us, rw * 16, Kr + buf * KRE, c0,
                                  c_lo);
@@ -352,8 +417,12 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_bwd_rows(
   }
   const float one[2] = {1.0f, 1.0f};
   const int D = H.nheads * H.dk;
-  k5::store_rows<G>(dq + H.natural(n, D), dqa, r0, c0, S, H.dk, one, D);
-  if (c0 == 0 && (threadIdx.x & 3) == 0) {
+  if constexpr (CL)   // the warp's columns from sl.gw
+    k5::store_rows<G>(dq + H.natural(n, D) + sl.gw, dqa, r0, 0, S, sl.live,
+                      one, D);
+  else
+    k5::store_rows<G>(dq + H.natural(n, D), dqa, r0, c0, S, H.dk, one, D);
+  if (c0 == 0 && cta.rank == 0 && (threadIdx.x & 3) == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int i = r0 + k5::row_of(2 * h);
@@ -365,6 +434,7 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_bwd_rows(
       }
     }
   }
+  if (armed) k2::cluster_wait();   // the cluster has read the block
 }
 
 // The statistics (m, 1/l, c) of head n's query tile q0 into st (3 x kTile).
@@ -383,13 +453,13 @@ __device__ __forceinline__ void stage_stats(float* st,
 // kernel 2: by key tile -> dk and dv
 // ---------------------------------------------------------------------------
 
-template <typename T, int DKP>
+template <typename T, int DKP, bool CL = false>
 __global__ void __launch_bounds__(k5::kThreads) relpos_tc_bwd_cols(
     k2::Heads H, const bf16* __restrict__ krp, int sk,
     T* __restrict__ dk_out, T* __restrict__ dv,
     const float* __restrict__ stats, int N, float inv_sqrt,
     cpc::Dropout drop) {
-  using C = Bwd<T, DKP>;
+  using C = Bwd<T, DKP, CL>;
   using G = typename C::G;
   using W = typename C::W;
   constexpr int TE = G::kTileElems;
@@ -406,8 +476,12 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_bwd_cols(
   float* St = reinterpret_cast<float*>(
       reinterpret_cast<unsigned char*>(QPs) + W::kQpBytes);   // NB x kStats
   float* Red = St + NB * kStats;   // kSplitK
+  float* X = Red + W::kRedBytes / sizeof(float);   // CL
 
-  const int n = blockIdx.x;
+  const k2::Cta cta = k2::this_cta<CL>();
+  const int dkr = k2::plane_rows<CL, DKP>(H.dk);
+  bool armed = false;
+  const int n = CL ? blockIdx.x / cta.n : blockIdx.x;
   const int kt = blockIdx.y;       // most query tiles first
   const int k0 = kt * G::kTile;
   const int n_qt = gridDim.y;
@@ -417,15 +491,19 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_bwd_cols(
   const int warp = threadIdx.x >> 5;
   const int rw = warp % G::kRowWarps;   // its 16 keys, and the QP rows
   const int c0 = warp / G::kRowWarps * G::kDV;
+  const k2::Slab sl = k2::slab<CL, G>(cta, H.dk, warp);
+  const int col0 = sl.col0;
+  const bool live = sl.live > 0;
   const uint32_t row_key = cpc::attention_row_key(
       drop, kk, H.n_batch, nb % H.n_batch, H.nheads, n % H.nheads);
   auto stage_tile = [&](int qt) {   // query tile qt into its buffer
     const int b = NB == 2 ? (qt - kt) & 1 : 0, q0 = qt * G::kTile;
-    k2::stage_head<G, DKP>(Qs + b * TE, H, 0, n, q0);
-    k2::stage_head<G, DKP>(Ds + b * TE, H, 3, n, q0);
+    k2::stage_head<G, DKP, CL>(Qs + b * TE, H, 0, n, q0, col0);
+    k2::stage_head<G, DKP, CL>(Ds + b * TE, H, 3, n, q0, col0);
     if constexpr (G::kSplitK)
-      k2::stage_quarters<G, DKP, G::kDV>(Kr + b * KRE, krp, kk, sk, 0,
-                                         window_x0<G>(sk, qt, kt));
+      k2::stage_quarters<G, DKP, G::kDV, CL>(
+          Kr + b * KRE, krp, kk, sk, 0, window_x0<G>(sk, qt, kt), dkr, col0,
+          H.dk);
     else
       k2::stage_window<G, DKP, DKP>(Kr + b * KRE, krp, kk, sk, 0,
                                     window_x0<G>(sk, qt, kt));
@@ -433,8 +511,8 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_bwd_cols(
     cpc::mma::cp_async_commit();
   };
 
-  k2::stage_head<G, DKP>(Ks, H, 1, n, k0);
-  k2::stage_head<G, DKP>(Vs, H, 2, n, k0);
+  k2::stage_head<G, DKP, CL>(Ks, H, 1, n, k0, col0);
+  k2::stage_head<G, DKP, CL>(Vs, H, 2, n, k0, col0);
   stage_tile(kt);
 
   float dka[G::kDV / 8][4], dva[G::kDV / 8][4];
@@ -463,28 +541,34 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_bwd_cols(
     // kSplitK by all four warps, a quarter of dk each, summed)
     const bf16* Qb = Qs + buf * TE;
     float st[G::kNT][4], dpt[G::kNT][4];   // (16 keys, kTile queries)
-    {
-      float qp[W::kBandNT][4];
-      k2::zero_band<G>(qp);
-      if constexpr (G::kSplitK) {
-        k2::window_product<G, G::kDV>(
-            qp, Qb, 0, Kr + buf * KRE + warp * W::kr_elems(G::kDV), c0,
-            W::c_lo(0));
-        k2::sum_band<G>(QPs, qp, Red, W::kLdq);
-      } else {
-        k2::window_product<G, DKP>(qp, Qb, rw * 16, Kr + buf * KRE, 0,
-                                   W::c_lo(rw));
-        if (c0 == 0) k2::store_band<G>(QPs, qp, rw, W::kLdq);
-        __syncthreads();
-      }
-    }
-    if constexpr (G::kSplitK) {
-      k5::split_products<G>(st, dpt, Ks, Qb, Vs, Ds + buf * TE, n_lo, G::kNT,
-                            c0, Red);
+    if constexpr (CL) {
+      cluster_band_and_scores<G>(st, dpt, QPs, W::kLdq, Red, X, Qb,
+                                 Kr + buf * KRE, Ks, Qb, Vs, Ds + buf * TE,
+                                 c0, n_lo, G::kNT, live, cta.n, armed);
     } else {
-      k5::rows_dot_rows<G, DKP>(st, Ks, rw * 16, Qb, n_lo, G::kNT);
-      k5::rows_dot_rows<G, DKP>(dpt, Vs, rw * 16, Ds + buf * TE, n_lo,
-                                G::kNT);
+      {
+        float qp[W::kBandNT][4];
+        k2::zero_band<G>(qp);
+        if constexpr (G::kSplitK) {
+          k2::window_product<G, G::kDV>(
+              qp, Qb, 0, Kr + buf * KRE + warp * W::kr_elems(G::kDV), c0,
+              W::c_lo(0));
+          k2::sum_band<G>(QPs, qp, Red, W::kLdq);
+        } else {
+          k2::window_product<G, DKP>(qp, Qb, rw * 16, Kr + buf * KRE, 0,
+                                     W::c_lo(rw));
+          if (c0 == 0) k2::store_band<G>(QPs, qp, rw, W::kLdq);
+          __syncthreads();
+        }
+      }
+      if constexpr (G::kSplitK) {
+        k5::split_products<G>(st, dpt, Ks, Qb, Vs, Ds + buf * TE, n_lo,
+                              G::kNT, c0, Red);
+      } else {
+        k5::rows_dot_rows<G, DKP>(st, Ks, rw * 16, Qb, n_lo, G::kNT);
+        k5::rows_dot_rows<G, DKP>(dpt, Vs, rw * 16, Ds + buf * TE, n_lo,
+                                  G::kNT);
+      }
     }
     const float* sm = St + buf * kStats;
 #pragma unroll
@@ -506,29 +590,39 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_bwd_cols(
         st[nt][e] = pd;
         dpt[nt][e] = ds;
       }
-    k5::acc_times_rows<G, false>(dva, st, Ds + buf * TE + c0, n_lo / 2,
-                                 G::kNT / 2);
-    k5::acc_times_rows<G, false>(dka, dpt, Qb + c0, n_lo / 2, G::kNT / 2);
+    if (live) {
+      k5::acc_times_rows<G, false>(dva, st, Ds + buf * TE + c0, n_lo / 2,
+                                   G::kNT / 2);
+      k5::acc_times_rows<G, false>(dka, dpt, Qb + c0, n_lo / 2, G::kNT / 2);
+    }
     __syncthreads();   // the buffer and the bands are reused next
     if (NB == 1 && qt + 1 < n_qt) stage_tile(qt + 1);
   }
   const float one[2] = {1.0f, 1.0f};
   const int D = H.nheads * H.dk;
   const size_t out = H.natural(n, D);
-  k5::store_rows<G>(dk_out + out, dka, k0 + rw * 16, c0, S, H.dk, one, D);
-  k5::store_rows<G>(dv + out, dva, k0 + rw * 16, c0, S, H.dk, one, D);
+  if constexpr (CL) {   // the warp's columns from sl.gw
+    k5::store_rows<G>(dk_out + out + sl.gw, dka, k0 + rw * 16, 0, S,
+                      sl.live, one, D);
+    k5::store_rows<G>(dv + out + sl.gw, dva, k0 + rw * 16, 0, S, sl.live,
+                      one, D);
+  } else {
+    k5::store_rows<G>(dk_out + out, dka, k0 + rw * 16, c0, S, H.dk, one, D);
+    k5::store_rows<G>(dv + out, dva, k0 + rw * 16, c0, S, H.dk, one, D);
+  }
+  if (armed) k2::cluster_wait();   // the cluster has read the block
 }
 
 // ---------------------------------------------------------------------------
 // kernel 3: by tile diagonal -> dkrel's partial windows
 // ---------------------------------------------------------------------------
 
-template <typename T, int DKP>
+template <typename T, int DKP, bool CL = false>
 __global__ void __launch_bounds__(k5::kThreads) relpos_tc_bwd_diag(
     k2::Heads H, const bf16* __restrict__ krp, int sk,
     float* __restrict__ part, const float* __restrict__ stats, int N,
     int group, float inv_sqrt, cpc::Dropout drop) {
-  using C = Bwd<T, DKP>;
+  using C = Bwd<T, DKP, CL>;
   using G = typename C::G;
   using W = typename C::W;
   using DS = k2::DkrelSplit<G, DKP>;
@@ -546,10 +640,14 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_bwd_diag(
   float* St = reinterpret_cast<float*>(
       reinterpret_cast<unsigned char*>(QPs) + W::kBandBytes);
   float* Red = St + NB * kStats;   // kSplitK
+  float* X = Red + W::kRedBytes / sizeof(float);   // CL
 
-  const int delta = blockIdx.x;          // qt - kt; most pairs first
+  const k2::Cta cta = k2::this_cta<CL>();
+  const int dkr = k2::plane_rows<CL, DKP>(H.dk);
+  bool armed = false;
+  const int delta = CL ? blockIdx.x / cta.n : blockIdx.x;   // qt - kt
   const int g = blockIdx.y, kk = blockIdx.z;
-  const int n_qt = gridDim.x;
+  const int n_qt = CL ? gridDim.x / cta.n : gridDim.x;
   const int S = H.S;
   const int heads = H.n_batch * H.nheads;   // of one k
   const int bh0 = g * group, n_bh = min(group, heads - bh0);
@@ -561,21 +659,25 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_bwd_diag(
   const int c_lo = W::c_lo(rw);
   const int md0 = warp / DS::kColSplit * DS::kWD;
   const int cw0 = warp % DS::kColSplit * DS::kWC;
+  // its d rows: its columns
+  const k2::Slab sl = k2::slab<CL, G>(cta, H.dk, warp);
+  const int col0 = sl.col0;
+  const bool live = sl.live > 0;
   auto stage_item = [&](int it) {   // item it's tiles into its buffer
     const int b = NB == 2 ? it & 1 : 0;
     const int n = kk * heads + bh0 + it / per, qt = delta + it % per;
     const int q0 = qt * G::kTile, k0 = (qt - delta) * G::kTile;
-    k2::stage_head<G, DKP>(Qs + b * TE, H, 0, n, q0);
-    k2::stage_head<G, DKP>(Ds + b * TE, H, 3, n, q0);
-    k2::stage_head<G, DKP>(Ks + b * TE, H, 1, n, k0);
-    k2::stage_head<G, DKP>(Vs + b * TE, H, 2, n, k0);
+    k2::stage_head<G, DKP, CL>(Qs + b * TE, H, 0, n, q0, col0);
+    k2::stage_head<G, DKP, CL>(Ds + b * TE, H, 3, n, q0, col0);
+    k2::stage_head<G, DKP, CL>(Ks + b * TE, H, 1, n, k0, col0);
+    k2::stage_head<G, DKP, CL>(Vs + b * TE, H, 2, n, k0, col0);
     stage_stats<G>(St + b * kStats, stats, N, S, n, q0);
     cpc::mma::cp_async_commit();
   };
 
   if constexpr (G::kSplitK)
-    k2::stage_quarters<G, DKP, G::kDV>(Kr, krp, kk, sk, 0,
-                                       window_x0<G>(sk, delta, 0));
+    k2::stage_quarters<G, DKP, G::kDV, CL>(
+        Kr, krp, kk, sk, 0, window_x0<G>(sk, delta, 0), dkr, col0, H.dk);
   else
     k2::stage_window<G, DKP, DKP>(Kr, krp, kk, sk, 0,
                                   window_x0<G>(sk, delta, 0));
@@ -608,7 +710,11 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_bwd_diag(
     __syncthreads();
     const bf16* Qb = Qs + buf * TE;
     float s[G::kNT][4], dp[G::kNT][4];
-    if constexpr (G::kSplitK) {
+    if constexpr (CL) {
+      cluster_band_and_scores<G>(s, dp, QPs, W::kRowF, Red, X, Qb, Kr, Qb,
+                                 Ks + buf * TE, Ds + buf * TE, Vs + buf * TE,
+                                 c0, 0, n_hi, live, cta.n, armed);
+    } else if constexpr (G::kSplitK) {
       band_and_scores<G>(s, dp, QPs, W::kRowF, Red, Qb, Kr, Ks + buf * TE,
                          Ds + buf * TE, Vs + buf * TE, c0, 0, n_hi);
     } else {
@@ -642,24 +748,45 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_bwd_diag(
       __syncwarp();
     if (c0 == 0) k2::store_u<G>(Us, s, rw);
     __syncthreads();   // U whole
-    k2::dkrel_product<G, DKP>(acc, Qb, Us, md0, cw0);
+    if (live) k2::dkrel_product<G, DKP>(acc, Qb, Us, md0, cw0);
     __syncthreads();   // the buffer, the band and U are reused next
     if (NB == 1 && it + 1 < items) stage_item(it + 1);
   }
-  // the window's partial: (DKP, 2T) float32 at (k, delta, g)
+  // the window's partial: (DKP, 2T) float32 at (k, delta, g); in the
+  // cluster body (n DKP, 2T), the warp's rows from sl.gw
   constexpr int WC = W::kCols;
-  float* out = part + (((size_t)kk * n_qt + delta) * gridDim.y + g) * DKP * WC;
+  if constexpr (CL) {
+    float* out = part + (((size_t)kk * n_qt + delta) * gridDim.y + g) *
+                            cta.n * DKP * WC;
 #pragma unroll
-  for (int a = 0; a < DS::kWD; ++a)
+    for (int a = 0; a < DS::kWD; ++a)
 #pragma unroll
-    for (int b = 0; b < DS::kWC; ++b)
+      for (int b = 0; b < DS::kWC; ++b)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int d = (md0 + a) * 16 + k5::row_of(2 * h);
-        const int col = (cw0 + b) * 8 + ((threadIdx.x & 3) << 1);
-        *reinterpret_cast<float2*>(out + (size_t)d * WC + col) =
-            make_float2(acc[a][b][2 * h], acc[a][b][2 * h + 1]);
-      }
+        for (int h = 0; h < 2; ++h) {
+          const int dl = a * 16 + k5::row_of(2 * h);   // the warp's row
+          const int col = (cw0 + b) * 8 + ((threadIdx.x & 3) << 1);
+          if (dl < sl.live)
+            *reinterpret_cast<float2*>(out + (size_t)(sl.gw + dl) * WC +
+                                       col) =
+                make_float2(acc[a][b][2 * h], acc[a][b][2 * h + 1]);
+        }
+  } else {
+    float* out =
+        part + (((size_t)kk * n_qt + delta) * gridDim.y + g) * DKP * WC;
+#pragma unroll
+    for (int a = 0; a < DS::kWD; ++a)
+#pragma unroll
+      for (int b = 0; b < DS::kWC; ++b)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int d = (md0 + a) * 16 + k5::row_of(2 * h);
+          const int col = (cw0 + b) * 8 + ((threadIdx.x & 3) << 1);
+          *reinterpret_cast<float2*>(out + (size_t)d * WC + col) =
+              make_float2(acc[a][b][2 * h], acc[a][b][2 * h + 1]);
+        }
+  }
+  if (armed) k2::cluster_wait();   // the cluster has read the block
 }
 
 // dkrel[k][d][r] = the sum of the partial windows (k, delta, g) that hold
@@ -687,9 +814,10 @@ __global__ void dkrel_windows_reduce(const float* __restrict__ part,
   }
 }
 
-// The tile rows T of the backward at (dk, dtype) (K5's Geom).
+// The tile rows T of the backward at (dk, dtype) (K5's Geom; 16 in the
+// cluster body).
 int tile_of(int dk, int dtype) {
-  const int dkp = k5::padded_dk(dk);
+  const int dkp = k2::padded_width(dk);
   return dkp > 256 ? 16
          : (dtype == cpc::kFloat32 ? kF32Planes : 1) * dkp <= 128 ? 64
                                                                   : 32;
@@ -716,7 +844,8 @@ struct Scratch {
     diag_groups(K, n_batch * nheads, n_qt, n_groups, group);
     stats_bytes = k2::round256((size_t)3 * K * n_batch * nheads * S *
                                sizeof(float));
-    part_bytes = k2::round256((size_t)K * n_qt * n_groups * prep.dkp * 2 * T *
+    part_bytes = k2::round256((size_t)K * n_qt * n_groups *
+                              k2::padded_width(dk) * 2 * T *
                               sizeof(float));
   }
   size_t bytes() const { return stats_bytes + part_bytes + prep.bytes(); }
@@ -764,10 +893,52 @@ int launch(const k2::Heads& H, const bf16* krp, const Scratch& sc, void* dq,
   return (int)cudaGetLastError();
 }
 
+// The cluster body: DKP 512's kernels on clusters of ceil(dk / 512) CTAs,
+// the diagonal pass's partial windows (dkr, 2T) with dkr the padded width.
+template <typename T>
+int launch_cluster(const k2::Heads& H, const bf16* krp, const Scratch& sc,
+                   void* dq, void* dk_out, void* dv, float* dkrel,
+                   float* stats, float* part, int K, cpc::Dropout drop,
+                   cudaStream_t stream) {
+  constexpr int DKP = k2::kSlab;
+  using C = Bwd<T, DKP, true>;
+  using G = typename C::G;
+  if (sc.T != G::kTile) return (int)cudaErrorInvalidValue;
+  const int nc = k2::cluster_ctas(H.dk);
+  const float inv_sqrt = 1.0f / sqrtf(static_cast<float>(H.dk));
+  const int N = K * H.n_batch * H.nheads;
+  const dim3 grid(N * nc, sc.n_qt);
+  cudaError_t err = k2::launch_cluster(
+      relpos_tc_bwd_rows<T, DKP, true>, grid, nc,
+      rows_bytes<T, DKP, true>(C::kRowBufs), stream, H, krp, sc.prep.sk,
+      static_cast<T*>(dq), stats, N, inv_sqrt, drop);
+  if (err == cudaSuccess)
+    err = k2::launch_cluster(
+        relpos_tc_bwd_cols<T, DKP, true>, grid, nc,
+        cols_bytes<T, DKP, true>(C::kColBufs), stream, H, krp, sc.prep.sk,
+        static_cast<T*>(dk_out), static_cast<T*>(dv),
+        static_cast<const float*>(stats), N, inv_sqrt, drop);
+  if (err == cudaSuccess)
+    err = k2::launch_cluster(
+        relpos_tc_bwd_diag<T, DKP, true>, dim3(sc.n_qt * nc, sc.n_groups, K),
+        nc, diag_bytes<T, DKP, true>(C::kDiagBufs), stream, H, krp,
+        sc.prep.sk, part, static_cast<const float*>(stats), N, sc.group,
+        inv_sqrt, drop);
+  if (err != cudaSuccess) return (int)err;
+  const size_t n = (size_t)K * H.dk * H.S;
+  dkrel_windows_reduce<<<k2::grid_of(n), 256, 0, stream>>>(
+      part, dkrel, K, H.dk, H.S, k2::padded_width(H.dk), G::kTile, sc.n_qt,
+      sc.n_groups);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_any(const k2::Heads& H, const bf16* krp, const Scratch& sc,
                void* dq, void* dk_out, void* dv, float* dkrel, float* stats,
                float* part, int K, cpc::Dropout drop, cudaStream_t s) {
+  if (H.dk > k2::kSlab)
+    return launch_cluster<T>(H, krp, sc, dq, dk_out, dv, dkrel, stats, part,
+                             K, drop, s);
   switch (k5::padded_dk(H.dk)) {
     case 32:
       return launch<T, 32>(H, krp, sc, dq, dk_out, dv, dkrel, stats, part,
@@ -789,18 +960,17 @@ int launch_any(const k2::Heads& H, const bf16* krp, const Scratch& sc,
 
 }  // namespace
 
-// The body the backward runs at (S, dk): 1, the tensor-core tiles, at
-// S <= 4096 and dk <= 512 in both dtypes (k2::takes); 0, the rows body
-// (relpos_attention_bwd.cu), past that.
+// The body the backward runs at (S, dk), as the forward's: 1 the
+// tensor-core tiles, 2 the cluster body, 0 refused.
 extern "C" int cpc_relpos_attention_bwd_body(int S, int dk, int dtype) {
   (void)dtype;
-  return k2::takes(S, dk) ? 1 : 0;
+  return !k2::takes(S, dk) ? 0 : dk <= k2::kSlab ? 1 : 2;
 }
 
 // Bytes of scratch the tensor-core backward needs: the rows' statistics
-// (3, N, S), the diagonal pass's partial windows (K, n_qt, groups, DKP,
-// 2T) float32, krel's padded planes and, in float32, the two planes of q,
-// k, v and do by head.
+// (3, N, S), the diagonal pass's partial windows (K, n_qt, groups, dkp,
+// 2T) float32 (dkp the padded width), krel's padded planes and, in
+// float32, the two planes of q, k, v and do by head.
 extern "C" size_t cpc_relpos_attention_bwd_tc_scratch(int K, int n_batch,
                                                       int S, int nheads,
                                                       int dk, int dtype) {
@@ -817,7 +987,8 @@ extern "C" int cpc_relpos_attention_bwd_tc(
     const void* seed, unsigned int threshold, float keep_scale, int dtype,
     void* stream) {
   if (K <= 0 || K > 65535 || n_batch <= 0 || nheads <= 0 ||
-      scratch == nullptr || cpc_relpos_attention_bwd_body(S, dkh, dtype) != 1 ||
+      scratch == nullptr ||
+      cpc_relpos_attention_bwd_body(S, dkh, dtype) == 0 ||
       (dtype != cpc::kFloat32 && dtype != cpc::kBFloat16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -1,6 +1,6 @@
 // K2: causal attention with Shaw relative positions, forward, on the
-// tensor cores (the body at every S <= 4096 and dk <= 512; past dk 512
-// relpos_attention_fwd.cu's rows body runs).
+// tensor cores (the body at every S <= 4096 and dk <= 4096: past dk 512 on
+// a thread-block cluster of ceil(dk / 512) CTAs).
 //
 // Replaces cpc_audio_tpu/ops/pallas/head_attention.py `_fwd_kernel`
 // (called through `fused_relpos_attention`).  Per (k, batch row b, head h):
@@ -37,7 +37,14 @@
 // and q . k^T over its quarter of dk, summed w 0 + 1 + 2 + 3 through 8 KB
 // of shared memory; in float32 the window's three planes (120 KB) do not
 // fit beside the q, k, v tiles (146 KB), so each quarter's rows are staged
-// 64 at a time, two chunks a key tile.
+// 64 at a time, two chunks a key tile.  Past dk 512 the cluster body
+// (relpos_attention_tc.cuh): CTA c of the tile's cluster runs DKP 512's
+// kernel on dk columns [512 c, 512 c + 512), the partial band and scores
+// of its four warps summed in the CTA and then over the cluster, CTA 0 + 1
+// + ..., through distributed shared memory, one cluster barrier a key
+// tile and one more whose wait the next tile's products hide; in float32
+// the window's first chunk is staged with the key tile, so that a tile
+// waits on two loads, not three.
 //
 // What bounds it on an H100: at K 12, B 32, 8 heads, S 116, dk 32 the call
 // reads q, k, v (68 MB in bf16) and writes o (23 MB): 27 us at 3.35 TB/s;
@@ -61,35 +68,41 @@ using FwdGeom =
     k5::Geom<T, DKP, sizeof(T) == sizeof(float) ? kF32Planes : 1>;
 
 // q, `bufs` (k, v) buffers, the krel window (whole: `bufs` buffers; in
-// chunks of kc < DKP rows: one), the QP band; at kSplitK the partials
-template <typename T, int DKP>
+// chunks of kc < DKP rows: one), the QP band; at kSplitK the partials; in
+// the cluster body (CL) the scores' partials beside the band's and the
+// exchange block
+template <typename T, int DKP, bool CL = false>
 constexpr size_t fwd_bytes(int bufs, int kc) {
   using G = FwdGeom<T, DKP>;
   using W = k2::Win<G>;
   return (1 + 2 * bufs) * G::kTileElems * sizeof(bf16) +
          (kc == DKP ? bufs : 1) * W::kr_elems(kc) * sizeof(bf16) +
-         W::kQpBytes + W::kRedBytes;
+         W::kQpBytes + W::kRedBytes +
+         (CL ? (k2::kExchangeFloats<G, false> +
+                k5::kPartialFloats<G::kNT>) * sizeof(float)
+             : 0);
 }
 
-template <typename T, int DKP>
+template <typename T, int DKP, bool CL = false>
 struct Fwd {
   using G = FwdGeom<T, DKP>;
   using W = k2::Win<G>;
   // window rows a chunk: all, else 64 (at kSplitK 64 of each quarter)
-  static constexpr int kKC = fwd_bytes<T, DKP>(1, DKP) <= cpc::kSmemLimit
+  static constexpr int kKC = fwd_bytes<T, DKP, CL>(1, DKP) <= cpc::kSmemLimit
                                  ? DKP
                                  : G::kSplitK ? 4 * 64 : 64;
-  static constexpr int kBufs = k2::pick_bufs(fwd_bytes<T, DKP>(1, kKC),
-                                             fwd_bytes<T, DKP>(2, kKC));
-  static constexpr size_t kSmem = fwd_bytes<T, DKP>(kBufs, kKC);
+  static constexpr int kBufs = k2::pick_bufs(fwd_bytes<T, DKP, CL>(1, kKC),
+                                             fwd_bytes<T, DKP, CL>(2, kKC));
+  static constexpr size_t kSmem = fwd_bytes<T, DKP, CL>(kBufs, kKC);
   static_assert(kSmem <= cpc::kSmemLimit, "K2 forward shared memory");
+  static_assert(!CL || G::kSplitK, "the cluster body runs DKP 512's tiles");
 };
 
-template <typename T, int DKP>
+template <typename T, int DKP, bool CL = false>
 __global__ void __launch_bounds__(k5::kThreads) relpos_tc_fwd(
     k2::Heads H, const bf16* __restrict__ krp, int sk, T* __restrict__ out,
     float inv_sqrt, cpc::Dropout drop) {
-  using C = Fwd<T, DKP>;
+  using C = Fwd<T, DKP, CL>;
   using G = typename C::G;
   using W = typename C::W;
   constexpr int TE = G::kTileElems;
@@ -104,7 +117,8 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_fwd(
   bf16* Kr = Vs + NB * TE;          // NB windows (whole) or one chunk
   float* QPs = reinterpret_cast<float*>(Kr + (kWhole ? NB : 1) * KRE);
 
-  const int n = blockIdx.x;
+  const k2::Cta cta = k2::this_cta<CL>();
+  const int n = CL ? blockIdx.x / cta.n : blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;   // every head's longest first
   const int q0 = qt * G::kTile;
   const int S = H.S;
@@ -112,6 +126,12 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_fwd(
   const int warp = threadIdx.x >> 5;
   const int rw = warp % G::kRowWarps;          // the warp's 16 rows
   const int c0 = warp / G::kRowWarps * G::kDV;  // its output columns
+  // the cluster body: the CTA's columns from col0, the warp's sl.live
+  // from sl.gw (none past dk: no products), krel's planes of dkr rows
+  const k2::Slab sl = k2::slab<CL, G>(cta, H.dk, warp);
+  const int col0 = sl.col0, dkr = k2::plane_rows<CL, DKP>(H.dk);
+  const bool live = sl.live > 0;
+  bool armed = false;   // CL: a cluster arrive outstanding
   const int r0 = q0 + rw * 16;
   const int c_lo = W::c_lo(rw);
   const int kk = nb / H.n_batch;
@@ -119,17 +139,25 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_fwd(
       drop, kk, H.n_batch, nb % H.n_batch, H.nheads, n % H.nheads);
   float* Red = reinterpret_cast<float*>(
       reinterpret_cast<unsigned char*>(QPs) + W::kQpBytes);   // kSplitK
+  float* X = Red + W::kRedBytes / sizeof(float) +
+             k5::kPartialFloats<G::kNT>;                      // CL
   constexpr int KQ = KC / 4;   // kSplitK: a quarter's rows a chunk
   // key tile kt (and its v where with_v) into buffer b
   auto stage_tile = [&](int kt, int b, bool with_v) {
-    k2::stage_head<G, DKP>(Ks + b * TE, H, 1, n, kt * G::kTile);
-    if (with_v) k2::stage_head<G, DKP>(Vs + b * TE, H, 2, n, kt * G::kTile);
+    k2::stage_head<G, DKP, CL>(Ks + b * TE, H, 1, n, kt * G::kTile, col0);
+    if (with_v)
+      k2::stage_head<G, DKP, CL>(Vs + b * TE, H, 2, n, kt * G::kTile, col0);
     if constexpr (kWhole && G::kSplitK)
-      k2::stage_quarters<G, DKP, KQ>(Kr + b * KRE, krp, kk, sk, 0,
-                                     sk - (qt - kt + 1) * G::kTile);
+      k2::stage_quarters<G, DKP, KQ, CL>(
+          Kr + b * KRE, krp, kk, sk, 0, sk - (qt - kt + 1) * G::kTile, dkr,
+          col0, H.dk);
     else if constexpr (kWhole)
       k2::stage_window<G, DKP, DKP>(Kr + b * KRE, krp, kk, sk, 0,
                                     sk - (qt - kt + 1) * G::kTile);
+    else if constexpr (CL)   // the window's first chunk with the tile
+      k2::stage_quarters<G, DKP, KQ, CL>(
+          Kr, krp, kk, sk, 0, sk - (qt - kt + 1) * G::kTile, dkr, col0,
+          H.dk);
     cpc::mma::cp_async_commit();
   };
   // the warp's scores of key tile kt in buffer buf, biased, scaled and
@@ -139,27 +167,44 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_fwd(
     k2::zero_band<G>(qp);
     if constexpr (G::kSplitK) {   // the warp's quarter c0 of dk, summed
       if constexpr (kWhole) {
-        k2::window_product<G, KQ>(
-            qp, Qs, 0, Kr + buf * KRE + warp * W::kr_elems(KQ), c0, c_lo);
+        if (live)
+          k2::window_product<G, KQ>(
+              qp, Qs, 0, Kr + buf * KRE + warp * W::kr_elems(KQ), c0, c_lo);
       } else {
         for (int c = 0; c < G::kDV; c += KQ) {
-          __syncthreads();   // the chunk before is read
-          k2::stage_quarters<G, DKP, KQ>(Kr, krp, kk, sk, c,
-                                         sk - (qt - kt + 1) * G::kTile);
-          cpc::mma::cp_async_commit();
-          cpc::mma::cp_async_wait<0>();
-          __syncthreads();
-          k2::window_product<G, KQ>(qp, Qs, 0, Kr + warp * W::kr_elems(KQ),
-                                    c0 + c, c_lo);
+          if (CL && col0 + c >= H.dk) break;   // no warp's rows live
+          if (!CL || c > 0) {   // CL: chunk 0 came with the key tile
+            __syncthreads();   // the chunk before is read
+            k2::stage_quarters<G, DKP, KQ, CL>(
+                Kr, krp, kk, sk, c, sk - (qt - kt + 1) * G::kTile, dkr,
+                col0, H.dk);
+            cpc::mma::cp_async_commit();
+            cpc::mma::cp_async_wait<0>();
+            __syncthreads();
+          }
+          if (live)
+            k2::window_product<G, KQ>(qp, Qs, 0,
+                                      Kr + warp * W::kr_elems(KQ), c0 + c,
+                                      c_lo);
         }
       }
-      k2::sum_band<G>(QPs, qp, Red, W::kLdq);
-      k5::rows_dot_rows<G, G::kDV>(s, Qs + c0, 0, Ks + buf * TE + c0, 0,
-                                   n_hi);
-      k5::store_partial<G::kNT>(Red, s);
-      __syncthreads();
-      // Red is stored again past the iteration's last __syncthreads
-      k5::load_sum<G::kNT>(s, Red);
+      if constexpr (CL) {   // the CTA's sums, then the cluster's
+        if (live)
+          k5::rows_dot_rows<G, G::kDV>(s, Qs + c0, 0, Ks + buf * TE + c0, 0,
+                                       n_hi);
+        else
+          k2::zero_tile<G::kNT>(s);
+        k2::cta_band_scores<G>(qp, s, Red, X, armed);
+        k2::cluster_sums<G, false>(QPs, W::kLdq, s, s, X, cta.n, armed);
+      } else {
+        k2::sum_band<G>(QPs, qp, Red, W::kLdq);
+        k5::rows_dot_rows<G, G::kDV>(s, Qs + c0, 0, Ks + buf * TE + c0, 0,
+                                     n_hi);
+        k5::store_partial<G::kNT>(Red, s);
+        __syncthreads();
+        // Red is stored again past the iteration's last __syncthreads
+        k5::load_sum<G::kNT>(s, Red);
+      }
     } else {
       if constexpr (kWhole) {
         k2::window_product<G, KC>(qp, Qs, rw * 16, Kr + buf * KRE, 0, c_lo);
@@ -201,7 +246,7 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_fwd(
   // keeps the running max and sum, its planes carrying p r exactly
   constexpr bool kStatsWalk = !G::kF32;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
-  k2::stage_head<G, DKP>(Qs, H, 0, n, q0);
+  k2::stage_head<G, DKP, CL>(Qs, H, 0, n, q0, col0);
   stage_tile(0, 0, !kStatsWalk);
   if constexpr (kStatsWalk) {
     for (int kt = 0; kt <= qt; ++kt) {
@@ -288,15 +333,21 @@ __global__ void __launch_bounds__(k5::kThreads) relpos_tc_fwd(
         o[nt][3] *= rescale[1];
       }
     }
-    k5::acc_times_rows<G, false>(o, s, Vs + buf * TE + c0, 0, n_hi / 2);
+    if (live)
+      k5::acc_times_rows<G, false>(o, s, Vs + buf * TE + c0, 0, n_hi / 2);
     __syncthreads();   // buffer `buf` and the band are reused next
     if (NB == 1 && kt < qt) stage_tile(kt + 1, 0, true);
   }
   const float one[2] = {1.0f, 1.0f};
   const float fin[2] = {1.0f / l[0], 1.0f / l[1]};
   const int D = H.nheads * H.dk;
-  k5::store_rows<G>(out + H.natural(n, D), o, r0, c0, S, H.dk,
-                    kStatsWalk ? one : fin, D);
+  if constexpr (CL)   // the warp's columns from sl.gw
+    k5::store_rows<G>(out + H.natural(n, D) + sl.gw, o, r0, 0, S, sl.live,
+                      kStatsWalk ? one : fin, D);
+  else
+    k5::store_rows<G>(out + H.natural(n, D), o, r0, c0, S, H.dk,
+                      kStatsWalk ? one : fin, D);
+  if (armed) k2::cluster_wait();   // the cluster has read the block
 }
 
 template <typename T, int DKP>
@@ -313,9 +364,22 @@ int launch(const k2::Heads& H, const bf16* krp, int sk, void* out, int N,
   return (int)cudaGetLastError();
 }
 
+// The cluster body: DKP 512's kernel on clusters of ceil(dk / 512) CTAs.
+template <typename T>
+int launch_cluster(const k2::Heads& H, const bf16* krp, int sk, void* out,
+                   int N, cpc::Dropout drop, cudaStream_t stream) {
+  using C = Fwd<T, 512, true>;
+  const int nc = k2::cluster_ctas(H.dk);
+  const dim3 grid(N * nc, (H.S + C::G::kTile - 1) / C::G::kTile);
+  return (int)k2::launch_cluster(
+      relpos_tc_fwd<T, 512, true>, grid, nc, C::kSmem, stream, H, krp, sk,
+      static_cast<T*>(out), 1.0f / sqrtf(static_cast<float>(H.dk)), drop);
+}
+
 template <typename T>
 int launch_any(const k2::Heads& H, const bf16* krp, int sk, void* out, int N,
                cpc::Dropout drop, cudaStream_t s) {
+  if (H.dk > k2::kSlab) return launch_cluster<T>(H, krp, sk, out, N, drop, s);
   switch (k5::padded_dk(H.dk)) {
     case 32:
       return launch<T, 32>(H, krp, sk, out, N, drop, s);
@@ -336,16 +400,17 @@ k2::Prep prep_of(int K, int n_batch, int S, int nheads, int dk, int dtype) {
 
 }  // namespace
 
-// The body the forward runs at (S, dk): 1, the tensor-core tiles, at
-// S <= 4096 and dk <= 512 in both dtypes (k2::takes); 0, the rows body
-// (relpos_attention_fwd.cu), past that.
+// The body the forward runs at (S, dk), in both dtypes: 1, the tensor-core
+// tiles, at S <= 4096 and dk <= 512; 2, the cluster body, at dk 513-4096;
+// 0 past those (k2::takes), where the wrapper refuses.
 extern "C" int cpc_relpos_attention_fwd_body(int S, int dk, int dtype) {
   (void)dtype;
-  return k2::takes(S, dk) ? 1 : 0;
+  return !k2::takes(S, dk) ? 0 : dk <= k2::kSlab ? 1 : 2;
 }
 
 // Bytes of scratch the tensor-core forward needs: krel's padded planes
-// and, in float32, the three planes of q, k and v by head.
+// and, in float32 (and in bf16 where dk % 8 != 0), the planes of q, k and
+// v by head.
 extern "C" size_t cpc_relpos_attention_fwd_tc_scratch(int K, int n_batch,
                                                       int S, int nheads,
                                                       int dk, int dtype) {
@@ -361,7 +426,7 @@ extern "C" int cpc_relpos_attention_fwd_tc(
     void* stream) {
   const int N = K * n_batch * nheads;
   if (K <= 0 || n_batch <= 0 || nheads <= 0 || scratch == nullptr ||
-      cpc_relpos_attention_fwd_body(S, dk, dtype) != 1 ||
+      cpc_relpos_attention_fwd_body(S, dk, dtype) == 0 ||
       (dtype != cpc::kFloat32 && dtype != cpc::kBFloat16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -52,14 +52,6 @@ _SIGNATURES = {
     "cpc_lstm_bwd_smem": ([_I, _I], ctypes.c_size_t),
     # H, G, dtype, backward
     "cpc_rnn_grid_smem": ([_I] * 4, ctypes.c_size_t),
-    # q, k, v, krel, out, K, n_batch, S, nheads, dk, dropout, dtype, stream
-    "cpc_relpos_attention_fwd": ([_P] * 5 + [_I] * 5 + _DROP + [_I, _P], _I),
-    # q, k, v, krel, dout, dq, dk, dv, dkrel, part, tiles, K, k_chunk,
-    # b_chunk, n_batch, S, nheads, dk, dropout, dtype, stream
-    "cpc_relpos_attention_bwd": ([_P] * 11 + [_I] * 7 + _DROP + [_I, _P],
-                                 _I),
-    # blocks, S, dk, dtype
-    "cpc_relpos_attention_bwd_scratch": ([_I] * 4, ctypes.c_size_t),
     # S, dk, dtype
     "cpc_relpos_attention_fwd_body": ([_I] * 3, _I),
     "cpc_relpos_attention_bwd_body": ([_I] * 3, _I),

@@ -122,9 +122,9 @@ def key_tile(dk: int, planes: int) -> int:
     csrc/causal_attention.cuh ``Geom``): 64 where a row's planes hold at
     most 128 values, else 32; 16 past dk 256 (DKP 512, where the four
     warps share a tile's rows, a quarter of the columns each)."""
-    dkp = next(w for w in (32, 64, 128, 256, 512) if dk <= w)
-    if dkp > 256:
+    if dk > 256:
         return 16
+    dkp = next(w for w in (32, 64, 128, 256) if dk <= w)
     return 64 if planes * dkp <= 128 else 32
 
 
@@ -141,13 +141,18 @@ def quarter_sum(mm, a, b, dk: int):
     as the tensor-core bodies form it at head width dk: whole up to dk
     256; past it (DKP 512) as four partials over the 128-column quarters
     of dk, each ``mm`` of its slices (a quarter past dk is empty: zero),
-    summed quarter 0 + 1 + 2 + 3."""
+    summed quarter 0 + 1 + 2 + 3; past dk 512 (K2's cluster body) each
+    512-column slab so, and the slabs summed 0 + 1 + ... in order, as the
+    CTAs' sums meet in every CTA."""
     if dk <= 256:
         return mm(a, b)
     out = None
-    for w in range(0, 4 * QUARTER, QUARTER):
-        part = mm(a[..., w:w + QUARTER], b[..., w:w + QUARTER, :])
-        out = part if out is None else out + part
+    for c in range(0, dk, 4 * QUARTER):
+        slab = None
+        for w in range(c, c + 4 * QUARTER, QUARTER):
+            part = mm(a[..., w:w + QUARTER], b[..., w:w + QUARTER, :])
+            slab = part if slab is None else slab + part
+        out = slab if out is None else out + slab
     return out
 
 

@@ -19,7 +19,10 @@ the input dtype.
   each step), past H 256
   K1's grid body (csrc/rnn_grid.cuh: W_hh split by unit over all of the
   card's SMs), ghn kept apart from r's product in both, at the other H
-  one block a batch row (:func:`fwd_body`);
+  one block a batch row: W_hh held in registers for the whole window
+  where it fits (the resident body, float32 H 32-96 and bf16 also 160:
+  the learning gate's H 64), else re-read from L2 every step (the rows
+  body) (:func:`fwd_body`);
 * :func:`gru_bwd` is the reverse scan (csrc/gru_bwd.cu) giving float32
   dx_proj = (dr, dz, dn), dghn and dh0, with K1's bodies (a thread-block
   cluster at H = 128 and 256, the grid body past 256,
@@ -84,13 +87,24 @@ def fwd_smem(H: int, dtype: torch.dtype) -> int:
         else FWD_CLUSTER_F32)
 
 
+# the forward's resident body by dtype: the widths whose W_hh fits one
+# SM's registers (csrc/gru_fwd.cu `with_resident`; bf16 H 192 would take 144
+# registers a thread and stays on the rows body)
+RESIDENT = {torch.float32: (32, 64, 96), torch.bfloat16: (32, 64, 96, 160)}
+# cpc_gru_fwd_body's codes of fwd_body's names (lstm.BODY_CODES and the
+# resident body's)
+BODY_CODES = {**lstm.BODY_CODES, "resident": 3}
+
+
 def fwd_body(H: int, dtype: torch.dtype) -> str:
     """The body csrc/gru_fwd.cu runs at hidden width H: "cluster",
-    "grid" or "rows" (``cpc_gru_fwd_body``: 1, 2, 0), from the shape
-    alone."""
+    "grid", "resident" or "rows" (``cpc_gru_fwd_body``: 1, 2, 3, 0), from
+    the shape alone."""
     if 0 < fwd_smem(H, dtype) <= _build.SMEM_LIMIT:
         return "cluster"
-    return "grid" if H >= GRID_MIN_H else "rows"
+    if H >= GRID_MIN_H:
+        return "grid"
+    return "resident" if H in RESIDENT.get(dtype, ()) else "rows"
 
 
 def bwd_body(H: int, dtype: torch.dtype) -> str:
@@ -263,7 +277,7 @@ def gru_fwd(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
 
 
 gru_fwd.launches = 0
-gru_fwd.body_launches = {"cluster": 0, "grid": 0, "rows": 0}
+gru_fwd.body_launches = {"cluster": 0, "grid": 0, "resident": 0, "rows": 0}
 
 
 def gru_bwd(gates: torch.Tensor, ghn: torch.Tensor, h0: torch.Tensor,

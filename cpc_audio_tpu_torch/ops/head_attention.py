@@ -23,7 +23,7 @@ backward the K2 backward kernels, counted in
 the function's ``body_launches``.  CPU tensors take the plain versions.
 
 Two bodies, by shape (:func:`fwd_body`, :func:`bwd_body`, mirrored by the
-C exports ``cpc_relpos_attention_{fwd,bwd}_body``):
+C exports ``cpc_relpos_attention_{fwd,bwd}_body``), the same kernels:
 
 - "tc", at every S <= 4096 and dk <= 512 in both dtypes: the tensor-core
   body (csrc/relpos_attention_tc_fwd.cu, csrc/relpos_attention_tc_bwd.cu,
@@ -39,12 +39,13 @@ C exports ``cpc_relpos_attention_{fwd,bwd}_body``):
   warps on them, each forming the window product, q . k^T and do . v^T
   over its quarter of dk, the partials summed in a fixed order
   (``causal_attention.quarter_sum``).
-- "rows", past dk 512 (``--hiddenEncoder`` past 4096): the first bodies
-  (csrc/relpos_attention_fwd.cu, csrc/relpos_attention_bwd.cu), one block
-  a (k, b, h) with warps owning query rows, operands staged in shared
-  memory or read in place, the backward's (S, S) tiles in device memory
-  walked in chunks of ``TILE_BUDGET`` (past S 3632 its rows too: 64 S
-  bytes a block pass shared memory there).
+- "cluster", dk 513-4096 (``--hiddenEncoder`` 4104-32768): the DKP 512
+  kernels on thread-block clusters of ceil(dk / 512) CTAs, CTA c on dk
+  columns [512 c, 512 c + 512), its warps' partial sums over dk summed in
+  the CTA and then over the cluster, CTA 0 + 1 + ..., through distributed
+  shared memory (csrc/relpos_attention_tc.cuh); the split arithmetic sums
+  the 128-column quarters of each 512-column slab, then the slabs, in
+  that order (``causal_attention.quarter_sum``).
 
 :func:`supported` gives the (S, dk) the kernels take, without a card.
 """
@@ -63,29 +64,24 @@ _BWD_NAME = "relpos_attention_bwd"
 # the longest sequence the kernels are checked at on the card (S 4084 and
 # 4096 in tests/test_torch_cuda.py and chip_smoke.py; --sizeWindow 655360,
 # 41 s windows, gives 4084 anchors).  Nothing in the tensor-core body is
-# sized by S but its O(N S dk) scratch; the rows backward keeps its 8
-# warps' two float32 rows of S (64 S bytes) in shared memory up to S 3632
-# and in its device-memory scratch past it
+# sized by S but its O(N S dk) scratch
 MAX_S = 4096
-# bytes of the rows backward's device-memory (S, S) tiles that one call
-# holds at once: past it the launches walk the (k, b) rows of heads in
-# chunks, each reusing the scratch (a (k, b, h) block takes 2 S^2 values:
-# 8.4 MB in float32 at S 1024, 67 MB a row of 8 heads; 134 MB at S 4096,
-# 1.07 GB a row: one row a launch, its scratch past the budget)
-TILE_BUDGET = 1 << 30
+# dk columns a CTA of the cluster body, and the widest head: 8 CTAs, the
+# portable cluster size (dk 4096 is --hiddenEncoder 32768, whose 12 heads'
+# 4 D^2 weights alone pass the card's 80 GB)
+SLAB = 512
+MAX_DK = 8 * SLAB
 
 
 def supported(S: int, dk: int) -> Optional[str]:
     """Why the kernels refuse a sequence length S and head width dk, or
-    None: S <= 4096, the longest checked on the card, and any dk, in both
-    dtypes: the tensor-core body to dk 512 (its operands padded to 32, 64,
-    128, 256 or 512 columns), the rows bodies past it (they read a head's
-    columns one at a time; past their shared memory the operands are read
-    in place and the backward's (S, S) tiles, and past S 3632 its rows, go
-    to a device-memory scratch of at most ``TILE_BUDGET`` or one (k, b)
-    row of heads, walked in chunks of blocks)."""
-    if not (0 < S <= MAX_S and dk > 0):
-        return f"S={S}, dk={dk} out of range (0 < S <= {MAX_S}, dk > 0)"
+    None: S <= 4096, the longest checked on the card, and dk <= 4096, in
+    both dtypes: the tensor-core body to dk 512 (its operands padded to 32,
+    64, 128, 256 or 512 columns), the cluster body past it (ceil(dk / 512)
+    CTAs of 512 columns, at most 8)."""
+    if not (0 < S <= MAX_S and 0 < dk <= MAX_DK):
+        return (f"S={S}, dk={dk} out of range (0 < S <= {MAX_S}, "
+                f"0 < dk <= {MAX_DK})")
     return None
 
 
@@ -174,35 +170,30 @@ def relpos_attention_bwd_ref(q, k, v, krel, dout, n_batch: int, nheads: int,
 # K5's (csrc/relpos_attention_tc.cuh)
 FWD_PLANES = causal_attention.FWD_PLANES
 BWD_PLANES = causal_attention.BWD_PLANES
-# the widest head the tensor-core body takes (DKP 512); past it the rows
-# bodies run
-TC_MAX_DK = 512
-
-
 def tile_rows(dk: int, dtype: torch.dtype, backward: bool = False) -> int:
     """Query rows (and keys) a tile of the tensor-core body: 64 where a
     row's bf16 planes hold at most 128 values, else 32; 16 past dk 256
-    (K5's ``Geom``)."""
+    (K5's ``Geom``; the cluster body's too)."""
     planes = 1 if dtype == torch.bfloat16 else (
         BWD_PLANES if backward else FWD_PLANES)
     return causal_attention.key_tile(dk, planes)
 
 
 def fwd_body(S: int, dk: int, dtype: torch.dtype) -> str:
-    """The body csrc/relpos_attention_fwd.cu runs: "tc", the tensor-core
-    tiles, at every S <= 4096 and dk <= 512 in both dtypes, else "rows",
-    one block a (k, b, h) with warps owning query rows
-    (``cpc_relpos_attention_fwd_body``: 1, 0)."""
-    return "tc" if 0 < S <= MAX_S and 0 < dk <= TC_MAX_DK else "rows"
+    """The body csrc/relpos_attention_tc_fwd.cu runs at a shape
+    :func:`supported` takes, in both dtypes: "tc", the tensor-core tiles,
+    to dk 512, else "cluster", the DKP 512 tiles on clusters of
+    ceil(dk / 512) CTAs (``cpc_relpos_attention_fwd_body``: 1, 2)."""
+    return "tc" if dk <= SLAB else "cluster"
 
 
 def bwd_body(S: int, dk: int, dtype: torch.dtype) -> str:
-    """The body csrc/relpos_attention_bwd.cu runs: "tc" or "rows", as
-    :func:`fwd_body` (``cpc_relpos_attention_bwd_body``)."""
+    """The body csrc/relpos_attention_tc_bwd.cu runs: "tc" or "cluster",
+    as :func:`fwd_body` (``cpc_relpos_attention_bwd_body``)."""
     return fwd_body(S, dk, dtype)
 
 
-BODY_CODES = {"rows": 0, "tc": 1}
+BODY_CODES = {"tc": 1, "cluster": 2}
 
 
 def _planes(x: torch.Tensor, products: int) -> torch.Tensor:
@@ -223,7 +214,9 @@ def _mm_dk(a: torch.Tensor, b: torch.Tensor, products: int,
            dk: int) -> torch.Tensor:
     """:func:`_mm` of a product over dk (q . k^T, do . v^T, the window
     product), by quarters of dk past dk 256, as the four warps of a DKP
-    512 tile form it (``causal_attention.quarter_sum``)."""
+    512 tile form it, and past dk 512 by the quarters of each 512-column
+    slab, the slabs then summed in order, as the CTAs of the cluster body
+    do (``causal_attention.quarter_sum``)."""
     return causal_attention.quarter_sum(
         lambda x, y: _mm(x, y, products), a, b, dk)
 
@@ -493,42 +486,20 @@ def relpos_attention_fwd(q, k, v, krel, n_batch: int, nheads: int,
     lib = _build.library()
     code = _build.DTYPE_CODES[q.dtype]
     body = fwd_body(S, dk, q.dtype)
-    if body == "tc":
-        q, k, v = _aligned(q, k, v)
+    q, k, v = _aligned(q, k, v)
     with torch.cuda.device(q.device):
-        if body == "tc":
-            # krel's padded bf16 planes and, in float32, the three planes
-            # of q, k, v by head (csrc/relpos_attention_tc_fwd.cu)
-            scratch = _build.scratch(lib.cpc_relpos_attention_fwd_tc_scratch(
-                K, n_batch, S, nheads, dk, code), q.device)
-            status = lib.cpc_relpos_attention_fwd_tc(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), krel.data_ptr(),
-                out.data_ptr(), _build.ptr(scratch), K, n_batch, S, nheads,
-                dk, *dropout.kernel_args(rate, seed), code,
-                _build.stream(q.device))
-        else:
-            status = lib.cpc_relpos_attention_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), krel.data_ptr(),
-                out.data_ptr(), K, n_batch, S, nheads, dk,
-                *dropout.kernel_args(rate, seed), code,
-                _build.stream(q.device))
+        # krel's padded bf16 planes and, in float32, the three planes of
+        # q, k, v by head (csrc/relpos_attention_tc_fwd.cu)
+        scratch = _build.scratch(lib.cpc_relpos_attention_fwd_tc_scratch(
+            K, n_batch, S, nheads, dk, code), q.device)
+        status = lib.cpc_relpos_attention_fwd_tc(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), krel.data_ptr(),
+            out.data_ptr(), _build.ptr(scratch), K, n_batch, S, nheads, dk,
+            *dropout.kernel_args(rate, seed), code, _build.stream(q.device))
     _build.check(status, _NAME)
     relpos_attention.launches += 1
     relpos_attention.body_launches[body] += 1
     return out
-
-
-def tile_chunk(per_row: int, K: int, n_batch: int) -> Tuple[int, int]:
-    """(k_chunk, b_chunk): the heads k and batch rows b a backward launch
-    takes when one (k, b) row of attention heads needs ``per_row`` bytes
-    of device-memory tiles: all where they fit ``TILE_BUDGET`` (or need
-    none), else as many whole k as fit, else one k and as many rows b as
-    fit, at least one (a row of 8 heads takes 67 MB at S 1024 in float32,
-    1.07 GB at S 4096: one row a launch there)."""
-    rows = K * n_batch if per_row == 0 else max(1, TILE_BUDGET // per_row)
-    if rows >= n_batch:
-        return min(K, rows // n_batch), n_batch
-    return 1, rows
 
 
 def relpos_attention_bwd(q, k, v, krel, dout, n_batch: int, nheads: int,
@@ -555,40 +526,18 @@ def relpos_attention_bwd(q, k, v, krel, dout, n_batch: int, nheads: int,
     dq, dkk, dv = (torch.empty_like(q) for _ in range(3))
     dkrel = torch.empty((K, dk, S), dtype=torch.float32, device=q.device)
     body = bwd_body(S, dk, q.dtype)
-    if body == "tc":
-        q, k, v, dout = _aligned(q, k, v, dout)
+    q, k, v, dout = _aligned(q, k, v, dout)
     with torch.cuda.device(q.device):
-        if body == "tc":
-            # the rows' statistics, the diagonal pass's partial windows,
-            # krel's padded planes and, in float32, the two planes of q, k,
-            # v and do by head (csrc/relpos_attention_tc_bwd.cu)
-            scratch = _build.scratch(lib.cpc_relpos_attention_bwd_tc_scratch(
-                K, n_batch, S, nheads, dk, code), q.device)
-            status = lib.cpc_relpos_attention_bwd_tc(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), krel.data_ptr(),
-                dout.data_ptr(), dq.data_ptr(), dkk.data_ptr(),
-                dv.data_ptr(), dkrel.data_ptr(), _build.ptr(scratch), K,
-                n_batch, S, nheads, dk, *dropout.kernel_args(rate, seed),
-                code, _build.stream(q.device))
-        else:
-            part = torch.empty((K, n_batch * nheads, dk, S),
-                               dtype=torch.float32, device=q.device)
-            # the (S, S) ds and p * r tiles of each block, where they do
-            # not fit in shared memory beside the operands: one chunk of
-            # blocks at a time
-            k_chunk, b_chunk = tile_chunk(
-                lib.cpc_relpos_attention_bwd_scratch(nheads, S, dk, code), K,
-                n_batch)
-            n_tiles = lib.cpc_relpos_attention_bwd_scratch(
-                k_chunk * b_chunk * nheads, S, dk, code)
-            tiles = _build.scratch(n_tiles, q.device)
-            status = lib.cpc_relpos_attention_bwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), krel.data_ptr(),
-                dout.data_ptr(), dq.data_ptr(), dkk.data_ptr(),
-                dv.data_ptr(), dkrel.data_ptr(), part.data_ptr(),
-                _build.ptr(tiles), K, k_chunk, b_chunk, n_batch, S, nheads,
-                dk, *dropout.kernel_args(rate, seed), code,
-                _build.stream(q.device))
+        # the rows' statistics, the diagonal pass's partial windows, krel's
+        # padded planes and, in float32, the two planes of q, k, v and do
+        # by head (csrc/relpos_attention_tc_bwd.cu)
+        scratch = _build.scratch(lib.cpc_relpos_attention_bwd_tc_scratch(
+            K, n_batch, S, nheads, dk, code), q.device)
+        status = lib.cpc_relpos_attention_bwd_tc(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), krel.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dkk.data_ptr(), dv.data_ptr(),
+            dkrel.data_ptr(), _build.ptr(scratch), K, n_batch, S, nheads, dk,
+            *dropout.kernel_args(rate, seed), code, _build.stream(q.device))
     _build.check(status, _BWD_NAME)
     relpos_attention_bwd.launches += 1
     relpos_attention_bwd.body_launches[body] += 1
@@ -596,7 +545,7 @@ def relpos_attention_bwd(q, k, v, krel, dout, n_batch: int, nheads: int,
 
 
 relpos_attention_bwd.launches = 0
-relpos_attention_bwd.body_launches = {"rows": 0, "tc": 0}
+relpos_attention_bwd.body_launches = {"tc": 0, "cluster": 0}
 
 
 class _RelposAttention(torch.autograd.Function):
@@ -632,4 +581,4 @@ def relpos_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 relpos_attention.launches = 0
-relpos_attention.body_launches = {"rows": 0, "tc": 0}
+relpos_attention.body_launches = {"tc": 0, "cluster": 0}

@@ -9,9 +9,10 @@ sources at first use, each in a process of its own) in the order other,
 this, this, other, and prints, at every shape chip_smoke.py's train paths
 give K2 (K 12 heads, 8 attention heads; B, S and dk of the default path,
 the --sizeWindow 40960 --hiddenEncoder 512, 768, 200, 1056, --sizeWindow
-163840, --hiddenEncoder 2048 and 4096 paths) and at chip_smoke's S 3700,
-dk 264 case (K 1, B 1, 2 heads; a call that takes seconds is timed once
-after the two that hash it), in bf16 and float32 at dropout
+163840, --hiddenEncoder 2048, 4096 and 4160 paths) and at chip_smoke's
+S 3700, dk 264 and dk 520 cases (K 1, B 1, 2 heads; a call that takes
+seconds is timed once after the two that hash it), in bf16 and float32
+at dropout
 rate 0.1 (the train step's), the device time a call
 (chip_smoke.median_ms) of the forward and the backward, the body each ran
 where the checkout has bodies, and a SHA-256 of each direction's outputs
@@ -33,7 +34,8 @@ SHAPES = ((32, 116, 32, "default"), (8, 244, 64, "40960/512"),
           (32, 116, 96, "768"), (32, 116, 25, "200"),
           (32, 116, 132, "1056"), (4, 1012, 32, "163840"),
           (4, 116, 256, "2048"), (4, 116, 512, "4096"),
-          (1, 3700, 264, "S 3700", 1, 2))
+          (4, 116, 520, "4160"), (1, 3700, 264, "S 3700", 1, 2),
+          (1, 3700, 520, "S 3700 dk 520", 1, 2))
 K, NH, RATE = 12, 8, 0.1
 
 

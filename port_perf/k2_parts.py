@@ -2,10 +2,12 @@
 """K2's calls by kernel, in one checkout, on one GPU.
 
 Usage, from the root of a checkout:
-    python3 port_perf/k2_parts.py [ROOT]
+    python3 port_perf/k2_parts.py [ROOT] [--only PATH ...]
 
 At every shape chip_smoke.py's train paths give K2 (as port_perf/k2_ab.py:
-K 12 heads, 8 attention heads, dropout rate 0.1), in bf16 and float32,
+K 12 heads, 8 attention heads, but at its S 3700 cases; dropout rate
+0.1), or at those of the named paths (k2_ab.SHAPES' path names, e.g.
+4160), in bf16 and float32,
 prints the device time a call of the forward and the backward
 (chip_smoke.median_ms) and, from torch.profiler over three calls of each,
 the device ms a call of each kernel they launch: the forward, the
@@ -31,7 +33,10 @@ PARTS = ("relpos_tc_fwd", "relpos_tc_bwd_rows", "relpos_tc_bwd_cols",
 
 
 def main() -> None:
-    root = os.path.abspath(sys.argv[1]) if len(sys.argv) > 1 else HERE
+    args = sys.argv[1:]
+    only = args[args.index("--only") + 1:] if "--only" in args else None
+    args = args[:args.index("--only")] if only is not None else args
+    root = os.path.abspath(args[0]) if args else HERE
     sys.path.insert(0, HERE)
     import chip_smoke  # noqa: E402
     _ab.precision_policy()
@@ -43,20 +48,23 @@ def main() -> None:
         raise SystemExit(f"imported {ha.__file__}, not {root}'s")
     dev = torch.device("cuda", 0)
     seed = torch.tensor([11], dtype=torch.int64, device=dev)
-    for B, S, dk, path in SHAPES:
+    for B, S, dk, path, *kh in SHAPES:
+        if only is not None and path not in only:
+            continue
+        k, nh = kh or (K, NH)
         for dtype in (torch.bfloat16, torch.float32):
             g = torch.Generator(device=dev).manual_seed(7)
 
             def rand(*shape, scale=1.0):
                 return (torch.randn(shape, generator=g, device=dev)
                         * scale).to(dtype)
-            M, D = B * S, NH * dk
-            args = (rand(K, M, D), rand(K, M, D), rand(K, M, D),
-                    rand(K, dk, S, scale=0.5))
-            do = rand(K, M, D, scale=0.1)
-            fwd = lambda: ha.relpos_attention_fwd(*args, B, NH, RATE,  # noqa
+            M, D = B * S, nh * dk
+            ops = (rand(k, M, D), rand(k, M, D), rand(k, M, D),
+                   rand(k, dk, S, scale=0.5))
+            do = rand(k, M, D, scale=0.1)
+            fwd = lambda: ha.relpos_attention_fwd(*ops, B, nh, RATE,   # noqa
                                                   seed)
-            bwd = lambda: ha.relpos_attention_bwd(*args, do, B, NH,    # noqa
+            bwd = lambda: ha.relpos_attention_bwd(*ops, do, B, nh,     # noqa
                                                   RATE, seed)
             f_ms, b_ms = chip_smoke.median_ms(fwd), chip_smoke.median_ms(bwd)
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -77,7 +85,7 @@ def main() -> None:
                       f"{p} {t:.4f}" for p, t in sorted(
                           parts.items(), key=lambda kv: -kv[1])),
                   flush=True)
-            del args, do
+            del ops, do
             torch.cuda.empty_cache()
     print(chip_smoke.gpu_line(), flush=True)
 

@@ -8,8 +8,9 @@ Usage, from the root of a checkout:
     python3 port_perf/train_step_ab.py OTHER_CHECKOUT [wide]
 
 With ``wide``, the transformer at --hiddenEncoder 4096 --hiddenGar 4096
-in bf16 and float32 instead (chip_smoke's long and wide paths' B 4: the
-AR's K5 and the heads' K2 at dk 512).
+in bf16 and float32 and the LSTM at --hiddenEncoder 4160 --hiddenGar 4160
+in bf16 instead (chip_smoke's long and wide paths' B 4: the AR's K5 and
+the heads' K2 at dk 512, the heads' K2 at dk 520 past it).
 
 Runs this checkout's and OTHER_CHECKOUT's steps (each built from its own
 sources at first use, each checkout's steps in a process of their own) in
@@ -41,7 +42,7 @@ CASES = (("LSTM", "bfloat16"), ("GRU", "bfloat16"),
          ("LSTM fused", "float32"), ("LSTM", "float32"))
 # ``wide``: (path, dtype) at B 4
 WIDE = (("transformer 4096", "bfloat16"),
-        ("transformer 4096 float32", "float32"))
+        ("transformer 4096 float32", "float32"), ("LSTM 4160", "bfloat16"))
 # kernel-name fragments (lower case) of K2's launches; on the fused path
 # they are K6's, beside its GEMMs and splits ("k6::") or the first body's
 # kernels ("attention_block")

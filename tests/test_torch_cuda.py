@@ -265,26 +265,32 @@ def test_relpos_attention_tc_body(dev, S, dk, dtype, rate):
 def test_relpos_attention_bodies_mirror_the_kernels(dev, dtype):
     """The pure choice of body (ops/head_attention.py fwd_body / bwd_body,
     no card needed) is the C library's (cpc_relpos_attention_{fwd,bwd}_body),
-    and past dk 512 the rows bodies run, against the plain versions."""
+    which refuses past dk 4096 and S 4096; past dk 512 the cluster body
+    runs, against the plain versions, at S 20 (two 16-row tiles, the
+    second ragged)."""
     from cpc_audio_tpu_torch.ops import _build
     lib, code = _build.library(), _build.DTYPE_CODES[dtype]
     codes = head_attention.BODY_CODES
     for S in (1, 7, 116, 244, 1012, 1024, 2048, 3700, 4084, 4096):
         for dk in (1, 25, 32, 64, 96, 132, 256, 257, 264, 512, 513, 520,
-                   1024):
+                   1024, 4096):
             assert lib.cpc_relpos_attention_fwd_body(S, dk, code) == \
                 codes[head_attention.fwd_body(S, dk, dtype)], (S, dk)
             assert lib.cpc_relpos_attention_bwd_body(S, dk, code) == \
                 codes[head_attention.bwd_body(S, dk, dtype)], (S, dk)
+    for S, dk in ((116, 4097), (4097, 32)):
+        assert head_attention.supported(S, dk) is not None
+        assert lib.cpc_relpos_attention_fwd_body(S, dk, code) == 0
+        assert lib.cpc_relpos_attention_bwd_body(S, dk, code) == 0
     S, dk, K, B, h = 20, 520, 2, 3, 2
-    assert head_attention.fwd_body(S, dk, dtype) == "rows"
+    assert head_attention.fwd_body(S, dk, dtype) == "cluster"
     rng = np.random.RandomState(11)
     args = [_rand(rng, dev, dtype, K, B * S, h * dk) for _ in range(3)]
     args.append(_rand(rng, dev, dtype, K, dk, S, scale=0.5))
     dout = _rand(rng, dev, dtype, K, B * S, h * dk, scale=0.1)
     seed = _seed(dev)
-    rows = (head_attention.relpos_attention.body_launches["rows"],
-            head_attention.relpos_attention_bwd.body_launches["rows"])
+    count = (head_attention.relpos_attention.body_launches["cluster"],
+             head_attention.relpos_attention_bwd.body_launches["cluster"])
     torch.testing.assert_close(
         head_attention.relpos_attention_fwd(*args, B, h, 0.1, seed),
         head_attention.relpos_attention_ref(*args, B, h, 0.1, seed),
@@ -294,27 +300,26 @@ def test_relpos_attention_bodies_mirror_the_kernels(dev, dtype):
                                                    seed)
     for name, g, w in zip(("dq", "dk", "dv", "dkrel"), got, want):
         _close(g, w, BWD_REL[dtype], name)
-    assert (head_attention.relpos_attention.body_launches["rows"],
-            head_attention.relpos_attention_bwd.body_launches["rows"]) == \
-        (rows[0] + 1, rows[1] + 1)
+    assert (head_attention.relpos_attention.body_launches["cluster"],
+            head_attention.relpos_attention_bwd.body_launches["cluster"]) \
+        == (count[0] + 1, count[1] + 1)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("S,dk,K,B,h", [(2048, 32, 2, 1, 8),
                                         (4084, 32, 1, 1, 8),
                                         (3700, 264, 1, 1, 2),
-                                        (3700, 520, 1, 1, 2)])
+                                        (3700, 520, 1, 1, 2),
+                                        (4096, 1024, 1, 1, 1)])
 def test_relpos_attention_long_windows(dev, dtype, S, dk, K, B, h):
     """K2 past the S 1024 it once stopped at, at rate 0.1 (the train
     step's): the tensor-core body at S 2048 and at the heads' S 4084 of
     --sizeWindow 655360 (dk 32) and at S 3700, dk 264 (DKP 512), and the
-    rows body at dk 520 past S 3632,
-    where its backward's rows leave shared memory for the device-memory
-    scratch after the tiles: forward and backward against the plain
-    versions (on fewer heads than the train step's, for the plain
-    version's (S, S) tiles), each call under its body's count, a rerun
-    bit-identical."""
-    from cpc_audio_tpu_torch.ops import _build
+    cluster body at S 3700, dk 520 (232 query tiles of two CTAs) and at S
+    4096, dk 1024:
+    forward and backward against the plain versions (on fewer heads than
+    the train step's, for the plain version's (S, S) tiles), each call
+    under its body's count, a rerun bit-identical."""
     rng = np.random.RandomState(S + dk)
     args = [_rand(rng, dev, dtype, K, B * S, h * dk) for _ in range(3)]
     args.append(_rand(rng, dev, dtype, K, dk, S, scale=0.5))
@@ -322,12 +327,7 @@ def test_relpos_attention_long_windows(dev, dtype, S, dk, K, B, h):
     seed = _seed(dev)
     body = head_attention.fwd_body(S, dk, dtype)
     assert body == head_attention.bwd_body(S, dk, dtype) == (
-        "tc" if dk <= 512 else "rows")
-    if body == "rows":     # tiles and rows in the scratch
-        code = _build.DTYPE_CODES[dtype]
-        el = 2 if dtype == torch.bfloat16 else 4
-        assert _build.library().cpc_relpos_attention_bwd_scratch(
-            1, S, dk, code) == 2 * S * S * el + 8 * 2 * S * 4
+        "tc" if dk <= 512 else "cluster")
     before = (head_attention.relpos_attention.body_launches[body],
               head_attention.relpos_attention_bwd.body_launches[body])
     got = head_attention.relpos_attention_fwd(*args, B, h, 0.1, seed)
@@ -352,34 +352,47 @@ def test_relpos_attention_long_windows(dev, dtype, S, dk, K, B, h):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_relpos_attention_bwd_walks_blocks_in_chunks(dev, dtype,
-                                                     monkeypatch):
-    """With TILE_BUDGET at one (k, b) row of heads' (S, S) tiles, at two
-    and a bit, and at one k's rows, the rows body's backward (dk past 512,
-    the tensor-core body's range) walks its blocks one row, two rows (a
-    ragged last chunk of b) or one k a launch through that much scratch,
-    and gives the bits of the call that holds every block's tiles at
-    once."""
-    from cpc_audio_tpu_torch.ops import _build
-    S, dk, K, B, h = 116, 520, 2, 3, 2    # device-memory tiles, both dtypes
-    assert head_attention.bwd_body(S, dk, dtype) == "rows"
-    rng = np.random.RandomState(7)
+@pytest.mark.parametrize("S,dk,K,B,h", [(116, 520, 2, 3, 2),
+                                        (116, 1024, 2, 2, 2),
+                                        (20, 1024, 1, 2, 3),
+                                        (33, 2056, 1, 1, 2),
+                                        (20, 4096, 1, 1, 1)])
+def test_relpos_attention_cluster_body(dev, dtype, S, dk, K, B, h):
+    """The cluster body past dk 512 at rate 0.1: dk 520 (--hiddenEncoder
+    4160's heads at S 116: two CTAs, the second's 8 columns on one warp),
+    1024 (two whole slabs), 2056 (five CTAs, the last of 8 columns; S 33
+    ends in a ragged tile) and 4096 (eight CTAs, the widest cluster the
+    gate takes), forward and backward against the plain
+    versions, each call under the "cluster" count, and a rerun of both
+    bit-identical (the cluster's sums go in a fixed order)."""
+    rng = np.random.RandomState(S + dk + K)
     args = [_rand(rng, dev, dtype, K, B * S, h * dk) for _ in range(3)]
     args.append(_rand(rng, dev, dtype, K, dk, S, scale=0.5))
-    dout = _rand(rng, dev, dtype, K, B * S, h * dk)
+    dout = _rand(rng, dev, dtype, K, B * S, h * dk, scale=0.1)
     seed = _seed(dev)
-    whole = head_attention.relpos_attention_bwd(*args, dout, B, h, 0.1, seed)
-    per_row = _build.library().cpc_relpos_attention_bwd_scratch(
-        h, S, dk, _build.DTYPE_CODES[dtype])
-    assert per_row > 0
-    for budget, chunks in ((per_row, (1, 1)), (2 * per_row + 1, (1, 2)),
-                           (B * per_row, (1, B))):
-        monkeypatch.setattr(head_attention, "TILE_BUDGET", budget)
-        assert head_attention.tile_chunk(per_row, K, B) == chunks
-        got = head_attention.relpos_attention_bwd(*args, dout, B, h, 0.1,
-                                                  seed)
-        for g, w in zip(got, whole):
-            assert torch.equal(g, w)
+    assert head_attention.fwd_body(S, dk, dtype) == "cluster"
+    before = (head_attention.relpos_attention.body_launches["cluster"],
+              head_attention.relpos_attention_bwd.body_launches["cluster"])
+    out = head_attention.relpos_attention_fwd(*args, B, h, 0.1, seed)
+    torch.testing.assert_close(
+        out, head_attention.relpos_attention_ref(*args, B, h, 0.1, seed),
+        **TOL[dtype])
+    grads = head_attention.relpos_attention_bwd(*args, dout, B, h, 0.1,
+                                                seed)
+    want = head_attention.relpos_attention_bwd_ref(*args, dout, B, h, 0.1,
+                                                   seed)
+    for name, g, w in zip(("dq", "dk", "dv", "dkrel"), grads, want):
+        _close(g, w, BWD_REL[dtype], name)
+    assert torch.equal(out, head_attention.relpos_attention_fwd(
+        *args, B, h, 0.1, seed))
+    again = head_attention.relpos_attention_bwd(*args, dout, B, h, 0.1,
+                                                seed)
+    for name, g, a in zip(("dq", "dk", "dv", "dkrel"), grads, again):
+        assert torch.equal(g, a), name
+    torch.cuda.synchronize()
+    assert (head_attention.relpos_attention.body_launches["cluster"],
+            head_attention.relpos_attention_bwd.body_launches["cluster"]) \
+        == (before[0] + 2, before[1] + 2)
 
 
 def _tail_args(rng, dev, dtype, K, M, D, F):
@@ -568,6 +581,38 @@ def test_gru_kernels(dev, dtype, B, T, H):
         _close(g, w, BWD_REL[torch.float32], name)
 
 
+@pytest.mark.parametrize("dtype,H", [(torch.float32, 32), (torch.float32, 64),
+                                     (torch.float32, 96),
+                                     (torch.bfloat16, 32),
+                                     (torch.bfloat16, 64),
+                                     (torch.bfloat16, 96),
+                                     (torch.bfloat16, 160)])
+def test_gru_resident_body(dev, dtype, H):
+    """K4's resident forward (W_hh in registers, one __syncthreads a step)
+    at every width it takes, at the learning gate's B 8, T 32, from a
+    non-zero h0: without residuals (the eval path) and with them (ys, hT,
+    the gates and ghn), against the plain version, each call under the
+    "resident" count; the two calls give the same ys and hT bits."""
+    assert gru.fwd_body(H, dtype) == "resident"
+    B, T = 8, 32
+    rng = np.random.RandomState(H)
+    args = (_rand(rng, dev, dtype, B, T, 3 * H),
+            _rand(rng, dev, dtype, 3 * H, H, scale=H ** -0.5),
+            _rand(rng, dev, dtype, 3 * H, scale=0.1),
+            _rand(rng, dev, dtype, B, H, scale=0.5))
+    before = gru.gru_fwd.body_launches["resident"]
+    plain = gru.gru_fwd(*args)
+    saved = gru.gru_fwd(*args, save_residuals=True)
+    assert gru.gru_fwd.body_launches["resident"] == before + 2
+    want = gru.gru_scan_ref(*args, save_residuals=True)
+    for g, w in zip(saved[:2], want[:2]):
+        torch.testing.assert_close(g, w, **TOL[dtype])
+    for g, w in zip(saved[2:], want[2:]):
+        torch.testing.assert_close(g, w, **TOL[torch.float32])
+    for g, w in zip(plain, saved[:2]):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("rate", RATES)
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("N,S,dk", [(8, 20, 16), (4, 116, 32), (2, 128, 32),
@@ -691,8 +736,8 @@ def test_python_gates_mirror_the_kernels_shared_memory(dev):
                 D, F, _build.DTYPE_CODES[dt]) == ffn._bwd_smem(D, F, dt)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     codes = lstm.BODY_CODES
-    for H in (32, 64, 104, 128, 192, 256, 264, 384, 512, 768, 1024, 1056,
-              2048, 4096, 6000, 8192):
+    for H in (32, 64, 96, 104, 128, 160, 192, 256, 264, 384, 512, 768, 1024,
+              1056, 2048, 4096, 6000, 8192):
         for dt in DTYPES:
             code = _build.DTYPE_CODES[dt]
             assert lib.cpc_lstm_bwd_body(H, code) == \
@@ -705,7 +750,7 @@ def test_python_gates_mirror_the_kernels_shared_memory(dev):
                 codes[gru.bwd_body(H, dt)], (H, dt)
             if H % 32 == 0:
                 assert lib.cpc_gru_fwd_body(H, code) == \
-                    codes[gru.fwd_body(H, dt)], (H, dt)
+                    gru.BODY_CODES[gru.fwd_body(H, dt)], (H, dt)
                 assert lib.cpc_gru_fwd_smem(H, code) == gru.fwd_smem(H, dt)
             if H < lstm.GRID_MIN_H:
                 continue

@@ -324,6 +324,9 @@ REFUSED = [
     # K5's dk 513
     ("model", dict(arMode="transformer", hiddenEncoder=4104,
                    hiddenGar=4104), {}, r"--hiddenEncoder 4104 .*\[1, 512\]"),
+    # the heads' K2 at dk 4097, past the cluster body's 8 CTAs
+    ("criterion", dict(hiddenEncoder=32776, hiddenGar=32776), {},
+     r"--hiddenEncoder 32776 .*dk <= 4096"),
 ]
 
 

@@ -40,10 +40,13 @@ BF16_BWD_REL = 2e-2
 # window that starts below column 0); 116, 244 and 1012 are the heads'
 # anchors at --sizeWindow 20480, 40960 and 163840; dk 512 and 264 run the
 # DKP 512 tiles (16 rows, the products over dk by quarters; 264 leaves the
-# last quarter empty), S 130 ending in a ragged tile
+# last quarter empty), S 130 ending in a ragged tile; dk 520 and 1024 the
+# cluster body's (two 512-column slabs, the second one of 8 columns at
+# 520: the products over dk by the slabs' quarters, the slabs summed)
+CLUSTER_SHAPES = [(2, 2, 2, 20, 520), (2, 2, 2, 20, 1024)]
 SHAPES = [(2, 2, 2, 7, 32), (2, 2, 2, 65, 25), (2, 2, 2, 116, 32),
           (2, 2, 2, 116, 64), (1, 2, 2, 244, 32), (1, 1, 1, 1012, 32),
-          (1, 1, 1, 40, 512), (1, 2, 1, 130, 264)]
+          (1, 1, 1, 40, 512), (1, 2, 1, 130, 264)] + CLUSTER_SHAPES
 
 
 def _inputs(K, B, h, S, dk, seed):
@@ -176,7 +179,7 @@ def test_split_error_stays_a_fraction_of_the_tolerance(rate):
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("K,B,h,S,dk", SHAPES[:4])
+@pytest.mark.parametrize("K,B,h,S,dk", SHAPES[:4] + CLUSTER_SHAPES)
 def test_bf16_split_matches_the_bf16_plain_versions(K, B, h, S, dk, rate):
     """The bf16 arithmetic (one bf16 product each; the normalised p r, ds
     and, in the backward, p r rounded to bf16 as the JAX kernel casts
@@ -232,24 +235,27 @@ CHIP_SHAPES = [(116, 32), (244, 64), (116, 96), (116, 25), (116, 132),
 
 def test_bodies_by_shape():
     """The tensor-core body at every shape chip_smoke runs and every
-    S <= 4096, dk <= 512, in both dtypes; the rows body past dk 512 (past
-    --hiddenEncoder 4096), whose range `supported` keeps as it was, to S
-    4096 too; the tiles are K5's (64 rows, 32 past 128 bf16 planes'
-    values a row, 16 past dk 256)."""
+    S <= 4096, dk <= 512, in both dtypes; the cluster body at dk 513-4096
+    (--hiddenEncoder 4104-32768), to S 4096 too, and past dk 4096 (more
+    than the 8 CTAs of a portable cluster) `supported` refuses; the tiles
+    are K5's (64 rows, 32 past 128 bf16 planes' values a row, 16 past dk
+    256, the cluster body's too)."""
     for dt in (torch.float32, torch.bfloat16):
         for S, dk in CHIP_SHAPES + [(1, 1), (1024, 256), (7, 33), (65, 16),
                                     (2048, 32), (4084, 32), (4096, 256),
                                     (116, 257), (116, 264), (4096, 512)]:
             assert ha.fwd_body(S, dk, dt) == ha.bwd_body(S, dk, dt) == "tc"
-        for dk in (520, 1024):
+        for dk in (513, 520, 1024, 4096):
             assert ha.supported(116, dk) is None
             assert ha.fwd_body(116, dk, dt) == ha.bwd_body(116, dk, dt) \
-                == "rows"
+                == "cluster"
+        assert ha.tile_rows(520, dt) == ha.tile_rows(4096, dt, True) == 16
     assert ha.supported(1024, 4096) is None
     assert ha.supported(4096, 4096) is None
-    assert ha.fwd_body(3700, 520, torch.float32) == "rows"
+    assert ha.fwd_body(3700, 520, torch.float32) == "cluster"
     assert ha.supported(4097, 32) is not None
-    assert ha.BODY_CODES == {"rows": 0, "tc": 1}
+    assert "dk <= 4096" in ha.supported(116, 4097)
+    assert ha.BODY_CODES == {"tc": 1, "cluster": 2}
     f32, bf = torch.float32, torch.bfloat16
     assert ha.tile_rows(32, f32) == ha.tile_rows(128, bf) == 64
     assert ha.tile_rows(64, f32) == ha.tile_rows(256, bf) == 32

@@ -52,7 +52,11 @@ def _rel(got, want):
             / want.double().norm()).item()
 
 
-@pytest.mark.parametrize("B,T,H", [(3, 16, 32), (2, 24, 64)])
+# the learning gate's GRU (eval/learning_gate.py: B 8, T 32, H 64)
+GATE = (8, 32, 64)
+
+
+@pytest.mark.parametrize("B,T,H", [(3, 16, 32), (2, 24, 64), GATE])
 def test_split_forward_matches_float64_and_pallas(B, T, H):
     """ys, hT (and the saved gates and ghn) of the split forward against
     the float64 plain forward and JAX's float32 Pallas forward,
@@ -72,7 +76,7 @@ def test_split_forward_matches_float64_and_pallas(B, T, H):
                                    rtol=0)
 
 
-@pytest.mark.parametrize("B,T,H", [(3, 16, 32), (2, 24, 64)])
+@pytest.mark.parametrize("B,T,H", [(3, 16, 32), (2, 24, 64), GATE])
 def test_split_backward_matches_float64_and_pallas_vjp(B, T, H):
     """dx_proj, dW_hh, db_hh and dh0 from the split backward (dW_hh and
     db_hh from dx_proj and dghn, as ops/gru.py forms them) against the
@@ -138,3 +142,58 @@ def test_three_split_products_hold_the_tolerance_at_h512(H):
     want = gru.gru_bwd_ref(exact[2], exact[3], f64[3], exact[0], f64[4],
                            f64[1], zeros)
     assert max(_rel(g, e) for g, e in zip(split, want)) <= 0.1 * BWD_REL
+
+
+@pytest.mark.parametrize("H", [32, 64, 96, 160])
+def test_resident_plain_float32_matches_pallas(H):
+    """The resident forward's arithmetic is plain float32 (W_hh in
+    registers, products on the FP32 cores: no split planes): the float32
+    plain forward at the learning gate's B 8, T 32 (and H 64) against
+    JAX's float32 Pallas forward within the card's float32 tolerance, and
+    the backward from its residuals (gru_bwd_ref, as the rows and resident
+    forwards feed it) against ``jax.vjp`` within 1e-4 of each 2-norm."""
+    B, T = GATE[:2]
+    xp, w, b, h0, dys = _inputs(B, T, H, 3 * H)
+    ys, hT, gates, ghn = gru.gru_scan_ref(_t(xp), _t(w), _t(b), _t(h0),
+                                          save_residuals=True)
+
+    def f(xp_, w_t, b_, h0_):
+        return gru_scan_pallas(xp_, w_t, b_, h0_, True)
+    (jys, jhT), vjp = jax.vjp(f, jnp.asarray(xp), jnp.asarray(w.T),
+                              jnp.asarray(b), jnp.asarray(h0))
+    for g, j in ((ys, jys), (hT, jhT)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), atol=FWD_ATOL,
+                                   rtol=0)
+    dx, dghn, dh0 = gru.gru_bwd_ref(gates, ghn, _t(h0), ys, _t(dys), _t(w),
+                                    torch.zeros(B, H))
+    h_prev = torch.cat([_t(h0)[:, None], ys[:, :-1]], dim=1).reshape(B * T, H)
+    drz = dx.reshape(B * T, 3 * H)[:, :2 * H]
+    dg = dghn.reshape(B * T, H)
+    dw = torch.cat([drz.t() @ h_prev, dg.t() @ h_prev])
+    jx, jw_t, _, jh0 = (np.asarray(a) for a in vjp(
+        (jnp.asarray(dys), jnp.zeros((B, H), jnp.float32))))
+    for g, j in ((dx, jx), (dw, jw_t.T), (dh0, jh0)):
+        assert _rel(g, torch.from_numpy(j)) <= BWD_REL
+
+
+def test_forward_bodies_by_width():
+    """K4's forward body from the shape alone (``cpc_gru_fwd_body``): the
+    resident body where W_hh fits one SM's registers (float32 H 32, 64,
+    96; bf16 also 160), the cluster body at 128 and 256, the rows body at
+    the other widths to 256 (bf16 192 and 224, float32 160-224), the grid
+    body past 256."""
+    f32, bf = torch.float32, torch.bfloat16
+    for H in (32, 64, 96):
+        assert gru.fwd_body(H, f32) == gru.fwd_body(H, bf) == "resident"
+    assert gru.fwd_body(160, bf) == "resident"
+    for H in (160, 192, 224):
+        assert gru.fwd_body(H, f32) == "rows"
+    for H in (192, 224):
+        assert gru.fwd_body(H, bf) == "rows"
+    for H in (128, 256):
+        assert gru.fwd_body(H, f32) == gru.fwd_body(H, bf) == "cluster"
+    assert gru.fwd_body(288, f32) == gru.fwd_body(288, bf) == "grid"
+    assert set(gru.gru_fwd.body_launches) == {"cluster", "grid", "resident",
+                                              "rows"}
+    assert gru.BODY_CODES == {"rows": 0, "cluster": 1, "grid": 2,
+                              "resident": 3}
